@@ -15,9 +15,11 @@
 //   Computes, per centred frame of each signal, the reflect-padded frame times
 //   the padded Hann window, its n_fft-point real DFT, and |X|^2 for the one-
 //   sided bins 0..n_fft/2, in natural bin order.
-//   Bound on this card: bytes.  At 16 x 60 s it reads the 184 MB f32
+//   Bound on an H100 SXM: bytes.  At 16 x 60 s it reads the 184 MB f32
 //   waveform and writes 191 MB of power (~0.11 ms at 3.35 TB/s) against
-//   ~4.5 GFLOP (~0.07 ms at 67 TFLOP/s FP32).
+//   ~4.5 GFLOP (~0.07 ms at 67 TFLOP/s FP32).  This simple design runs at
+//   ~16x that bound, most likely limited by its 14 barrier-separated
+//   shared-memory passes rather than device memory (PERF.md).
 //   Design: one CTA per frame.  The frame is read straight from the raw
 //   waveform (reflection computed on the index: no padded copy, no pre-pass)
 //   and only where the window is non-zero.  It is packed as
@@ -35,7 +37,7 @@
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_mel_kernel_resident_fb
 //   (driven by _mel_from_power_fb via _folded_mel_from_power).
 //   Computes out[r, b] = 10*log10(max(1e-10, sum_k power[r, k] * fb[k, b])).
-//   Bound on this card: bytes.  It reads the power array once (191 MB at
+//   Bound on an H100 SXM: bytes.  It reads the power array once (191 MB at
 //   16 x 60 s, ~0.057 ms at 3.35 TB/s); the arithmetic is ~0.2 GFLOP.
 //   Design: the Slaney filterbank is 97% zeros and each band covers one
 //   contiguous bin range, so each (row, band) is a warp-level reduction over
@@ -47,7 +49,6 @@
 //   1e-4 dB tests pin the result.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
