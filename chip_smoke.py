@@ -12,15 +12,29 @@ non-zero on the first failure.  Phases:
               kernels from ``sed_tpu_torch/ops/csrc`` with nvcc and prints
               the build time and ptxas' registers, shared memory and spills;
   2. kernels  K1 and K2 against their plain versions computed in float64 on
-              the card, at the main path's shapes (16 x 60 s);
+              the card, at the batch path's shapes (16 x 60 s); K3 at the
+              streaming tick's shape (32 slots x 5 frames = 160 rows), float32
+              and int16, and K3 + K2 (``logmel_frames``) against the float64
+              chain;
   3. slice    ``make_batch_predictor(device="cuda")`` with
               CnnAvgPooling(TRAIN_CHANNEL_AND_POOL) on 16 x 60 s int16 clips,
               then one uint8 µ-law batch; launch counts reset just before and
               read just after; clip 0 against ``device="cpu"``;
   4. CLI      ``python -m sed_tpu_torch.cli.infer --batch`` on two WAV files;
-  5. times    CUDA-event medians of K1, K2, their plain versions, a PyTorch
-              yardstick for each, the featurizer, the model and the whole
-              16 x 60 s batch; audio-s/s; peak device memory.
+  5. pool     ``StreamPool(device="cuda")``, 32 slots, 1 s chunks: 32 streams
+              of 60 s int16 audio fed in uneven pieces through feed/tick, two
+              joining late and one leaving early; launch counts reset just
+              before and read just after; every stream's scores (ticks + tail)
+              against ``make_batch_predictor`` on the same audio;
+  6. stream   ``python -m sed_tpu_torch.cli.stream`` on three WAV files;
+  7. server   ``StreamServer`` on 127.0.0.1: four pcm16 clients, then one
+              µ-law client, each against offline scoring of its audio;
+  8. times    CUDA-event medians of K1, K2, K3, their plain versions, a
+              PyTorch yardstick for each, the featurizer, the model and the
+              whole 16 x 60 s batch; a single-round tick and a 16-round block
+              of the 32-slot pool, and the tick's device time by kernel
+              (``torch.profiler``); the pool run's profile split, audio-s per
+              wall-s and peak device memory.
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -35,17 +49,26 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+DEVICE = "cuda"
 BATCH = 16          # clips in the scored batch (bench.py's production batch)
 SECONDS = 60
-K1_REL_TOL = 1e-5   # K1: abs error / frame peak power, against float64
-DB_TOL = 1e-4       # K2 and K1+K2: dB, against float64
-SCORE_TOL = 1e-4    # scores, card against CPU: another summation order
+POOL_SLOTS = 32     # streaming pool: slots and streams
+POOL_SECONDS = 60
+LATE_JOINS = {POOL_SLOTS - 2: 3, POOL_SLOTS - 1: 7}   # stream -> tick it joins
+EARLY_LEAVER, EARLY_SECONDS = 5, 25.25
+CLI_SECONDS = (20.0, 33.3, 45.0)                      # stream CLI files
+SERVER_SECONDS = (12.0, 15.5, 9.1, 20.0)              # pcm16 clients
+MULAW_SECONDS = 14.0
+K1_REL_TOL = 1e-5   # K1, K3: abs error / frame peak power, against float64
+DB_TOL = 1e-4       # K2, K1+K2 and K3+K2: dB, against float64
+SCORE_TOL = 1e-4    # scores, against the batch path or the CPU
 REPS = 20
 
 # Memory rate (B/s) and FP32 rate outside the tensor cores (FLOP/s) of the
@@ -68,6 +91,13 @@ def card_peaks(name: str):
         if key in name:
             return peaks
     return DEFAULT_PEAK
+
+
+def smi_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0]
 
 
 def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
@@ -99,6 +129,51 @@ def make_signals(torch, n, samples, sr, device, seed):
     return out.clamp(-1, 1).float().contiguous()
 
 
+def fft_ops(rows: int, m: int, win_nnz: int) -> int:
+    """FP32 operations of ``rows`` windowed n_fft = 2m real DFTs and their
+    power: the m-point complex FFT, the hermitian unpack and |X|^2, and the
+    window product."""
+    return rows * (5 * m * (m.bit_length() - 1) + 19 * m + win_nnz)
+
+
+def run_cli(args, what: str) -> str:
+    """Run ``python -m <args>`` from the repository root; returns stdout."""
+    proc = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"{what} exit code {proc.returncode}")
+    return proc.stdout
+
+
+def profile_ticks(torch, fn, n: int):
+    """Device time per call of ``fn`` by kernel, from ``torch.profiler`` over
+    ``n`` calls: ``[(kernel name, ms per call), ...]``, largest first; empty
+    when the profiler captured no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def score_all(torch, predict, clips):
+    """Offline scores of (samples,) int16 or uint8 clips of one length, in
+    batches of up to ``BATCH``: (n, frames', classes) numpy."""
+    outs = []
+    for i in range(0, len(clips), BATCH):
+        batch = torch.from_numpy(np.stack(clips[i:i + BATCH]))[..., None]
+        outs.append(predict(batch).cpu().numpy())
+    return np.concatenate(outs)
+
+
 def main() -> int:
     import torch
 
@@ -112,17 +187,14 @@ def main() -> int:
     from sed_tpu_torch.inference import make_batch_predictor
     from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
     from sed_tpu_torch.ops import cuda_featurizer as kernels
-    from sed_tpu_torch.ops.featurizer import logmel_features_batch
+    from sed_tpu_torch.ops.featurizer import logmel_features_batch, logmel_frames
     from sed_tpu_torch.ops.mel import mel_filterbank
     from sed_tpu_torch.ops.mulaw import mulaw_encode
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE, 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    smi = smi.splitlines()[0]
+    smi = smi_line()
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {name}, device count {count}")
     log(f"[card] nvidia-smi: {smi}")
@@ -133,15 +205,24 @@ def main() -> int:
             log(f"[card] ptxas: {line.strip()}")
     bw, flops_peak = card_peaks(name)
 
-    hop, n_fft, n_bins = cfg.hop_size, cfg.nfft, cfg.freq_bins
-    samples = cfg.working_sample_rate * SECONDS
+    sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
+    m = n_fft // 2
+    samples = sr * SECONDS
+    chunk = sr                                  # 1 s chunks
+    frames_max = -(-chunk // hop) + 1           # new frames per slot per tick
+    k3_rows = POOL_SLOTS * frames_max
     window = kernels.stft_window(cfg, dev)
+    win_nnz = int(torch.count_nonzero(window))
     bands = kernels.mel_bands(cfg, dev)
     fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
 
+    def bound(n_bytes, n_ops):
+        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / flops_peak * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
     # ---- 2. kernels vs their plain versions (float64) ---------------------
     t0 = time.perf_counter()
-    waves = make_signals(torch, BATCH, samples, cfg.working_sample_rate, dev, 0)
+    waves = make_signals(torch, BATCH, samples, sr, dev, 0)
     power = kernels.wave_stft_power(waves, window, hop, n_fft)
     ref = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
     torch.cuda.synchronize()
@@ -162,16 +243,40 @@ def main() -> int:
         f"(tol {DB_TOL}); K1+K2 vs float64 chain: {chain_err:.3e} dB (tol {DB_TOL})")
     check(k2_err <= DB_TOL, "K2 within 1e-4 dB of float64")
     check(chain_err <= DB_TOL, "K1+K2 within 1e-4 dB of the float64 chain")
+    del power, ref, k1_err, rows, mel
+
+    # K3 at the tick's shape: 10 frames of each of the 16 signals (signal 0's
+    # are silent, signal 15's quiet), as float32 and as int16 PCM.
+    per = k3_rows // BATCH
+    frames_f32 = waves[:, : n_fft + (per - 1) * hop].unfold(1, n_fft, hop)
+    frames_f32 = frames_f32.reshape(-1, n_fft)[:k3_rows].contiguous()
+    frames_i16 = (frames_f32 * 32767).round().to(torch.int16)
+    k3 = {}
+    for tag, x in (("float32", frames_f32), ("int16", frames_i16)):
+        got = kernels.frames_stft_power(x, window, n_fft)
+        want = kernels.frames_stft_power_plain(x, window, n_fft, dtype=torch.float64)
+        lm = logmel_frames(x, cfg)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (k3_rows, n_bins), f"K3 {tag} shape {tuple(got.shape)}")
+        err = (got.double() - want).abs()
+        rel = float((err / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+        db = float((lm.double() - kernels.mel_log_plain(want, fb64)).abs().max())
+        k3[tag] = float(err.max())
+        log(f"[kernels] K3 frames_stft_power {tag} {tuple(got.shape)}: max abs err "
+            f"{k3[tag]:.3e}, max err / row peak {rel:.3e} (tol {K1_REL_TOL}); "
+            f"logmel_frames vs float64 chain {db:.3e} dB (tol {DB_TOL})")
+        check(rel <= K1_REL_TOL, f"K3 {tag} within 1e-5 x row peak of float64")
+        check(db <= DB_TOL, f"K3+K2 {tag} within 1e-4 dB of the float64 chain")
+    del waves, got, want, err, lm
     log(f"[kernels] launches so far {kernels.LAUNCHES}; "
         f"{time.perf_counter() - t0:.1f} s")
-    del waves, power, ref, k1_err, rows, mel
 
     # ---- 3. the slice through make_batch_predictor ------------------------
     t0 = time.perf_counter()
     model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL,
                           generator=torch.Generator().manual_seed(0))
     cpu_model = copy.deepcopy(model)
-    pcm = (make_signals(torch, BATCH, samples, cfg.working_sample_rate, dev, 1)
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 1)
            * 32767).round().to(torch.int16)[..., None]
     mu = torch.from_numpy(mulaw_encode(pcm.cpu().numpy())).to(dev)
     # Per-mel-bin normalization statistics, as preprocessing computes them
@@ -180,7 +285,7 @@ def main() -> int:
         feats = logmel_features_batch(pcm[:4], cfg)
     mean = feats.mean(dim=(0, 1, 2)).cpu().numpy()
     std = feats.std(dim=(0, 1, 2)).cpu().numpy()
-    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device="cuda")
+    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device=DEVICE)
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
@@ -188,8 +293,9 @@ def main() -> int:
     scores_mu = predict(mu)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    log(f"[slice] launches on the main path: {launches}")
-    check(all(n > 0 for n in launches.values()), "every kernel ran on the main path")
+    log(f"[slice] launches on the batch path: {launches}")
+    check(launches["wave_stft_power"] > 0 and launches["mel_log"] > 0,
+          "K1 and K2 ran on the batch path")
     n_out = 8 * ((((1 + samples // hop) // 2) // 2) // 2)
     for tag, s in (("int16", scores), ("uint8", scores_mu)):
         check(s.shape == (BATCH, n_out, cfg.classes_num), f"{tag} scores shape {tuple(s.shape)}")
@@ -203,50 +309,195 @@ def main() -> int:
     log(f"[slice] clip 0, card vs CPU: int16 {cpu_err:.3e}, uint8 {cpu_err_mu:.3e} "
         f"(tol {SCORE_TOL}); {time.perf_counter() - t0:.1f} s")
     check(cpu_err <= SCORE_TOL and cpu_err_mu <= SCORE_TOL, "clip 0 matches the CPU path")
+    del cpu_model, cpu_predict
 
-    # ---- 4. the CLI entry point --------------------------------------------
-    t0 = time.perf_counter()
     from scipy.io import wavfile
 
     from sed_tpu_torch.io.audio import read_multichannel_audio
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        sr = cfg.working_sample_rate
-        wavs = []
-        for i, secs in enumerate((20, 30)):
-            path = tmp / f"clip{i}.wav"
-            wavfile.write(path, sr, pcm[i, : secs * sr, 0].cpu().numpy())
-            wavs.append(path)
-        torch.save({"iterations": 0, "model": model.state_dict(), "optimizer": {}},
-                   tmp / "model.pth")
-        with open(tmp / "mean_std.pkl", "wb") as f:
-            pickle.dump({"mean": mean, "std": std}, f)
-        out = tmp / "out"
-        cmd = [sys.executable, "-m", "sed_tpu_torch.cli.infer", "--batch",
-               "--ckpt", str(tmp / "model.pth"), "--outputs_dir", str(out),
-               "--mean_std_file", str(tmp / "mean_std.pkl"),
-               "--event_threshold", "0.5", *map(str, wavs)]
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-        check(proc.returncode == 0, f"CLI exit code {proc.returncode}")
-        cli_err = 0.0
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    torch.save({"iterations": 0, "model": model.state_dict(), "optimizer": {}},
+               tmp / "model.pth")
+    with open(tmp / "mean_std.pkl", "wb") as f:
+        pickle.dump({"mean": mean, "std": std}, f)
+    common = ["--ckpt", tmp / "model.pth", "--mean_std_file", tmp / "mean_std.pkl",
+              "--device", DEVICE]
+
+    def check_cli_outputs(out, wavs, tag):
+        err = 0.0
         for path in wavs:
             got = np.load(out / f"{path.stem}_scores.npy")
             wav = read_multichannel_audio(str(path), target_fs=sr, cfg=cfg)
             want = predict(wav[None].astype(np.float32))[0].cpu().numpy()
-            check(got.shape == want.shape, f"CLI scores shape {got.shape}")
-            cli_err = max(cli_err, float(np.abs(got - want).max()))
-            for suffix in ("_scores.csv", "_events.csv"):
-                check((out / f"{path.stem}{suffix}").is_file(), f"CLI wrote {suffix}")
-        log(f"[cli] {len(wavs)} files scored by sed_tpu_torch.cli.infer --batch; "
-            f"max diff vs make_batch_predictor {cli_err:.3e} (tol {SCORE_TOL}); "
-            f"{time.perf_counter() - t0:.1f} s")
-        check(cli_err <= SCORE_TOL, "CLI scores match make_batch_predictor")
+            check(got.shape == want.shape, f"{tag} scores shape {got.shape} != {want.shape}")
+            err = max(err, float(np.abs(got - want).max()))
+            check((out / f"{path.stem}_events.csv").is_file(), f"{tag} wrote events")
+        check(err <= SCORE_TOL, f"{tag} scores match make_batch_predictor")
+        return err
 
-    # ---- 5. times at the main path's shapes (16 x 60 s) --------------------
+    # ---- 4. the batch CLI entry point --------------------------------------
     t0 = time.perf_counter()
+    wavs = []
+    for i, secs in enumerate((20, 30)):
+        path = tmp / f"clip{i}.wav"
+        wavfile.write(path, sr, pcm[i, : secs * sr, 0].cpu().numpy())
+        wavs.append(path)
+    out = tmp / "out_infer"
+    run_cli(["sed_tpu_torch.cli.infer", "--batch", *common, "--outputs_dir", out,
+             "--event_threshold", "0.5", *wavs], "cli.infer")
+    for path in wavs:
+        check((out / f"{path.stem}_scores.csv").is_file(), "cli.infer wrote scores csv")
+    cli_err = check_cli_outputs(out, wavs, "cli.infer")
+    log(f"[cli] {len(wavs)} files scored by sed_tpu_torch.cli.infer --batch; "
+        f"max diff vs make_batch_predictor {cli_err:.3e} (tol {SCORE_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del pcm, mu, scores, scores_mu
+
+    # ---- 5. the streaming pool at full width (the main path) ---------------
+    from sed_tpu_torch.stream_pool import StreamPool
+
+    t0 = time.perf_counter()
+    pool_samples = sr * POOL_SECONDS
+    audio = (make_signals(torch, POOL_SLOTS, pool_samples, sr, dev, 2) * 32767
+             ).round().to(torch.int16).cpu().numpy()
+    clips = [audio[i] for i in range(POOL_SLOTS)]
+    clips[EARLY_LEAVER] = clips[EARLY_LEAVER][: int(EARLY_SECONDS * sr)]
+    pool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
+                      std=std, device=DEVICE)
+    pool.profile = {}
+    rng = np.random.default_rng(2)
+    recs = [{"wav": c, "pos": 0, "blocks": []} for c in clips]
+    waiting = list(range(POOL_SLOTS))
+    active, tick = {}, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    run_t0 = time.perf_counter()
+    while waiting or active:
+        for i in [i for i in waiting if LATE_JOINS.get(i, 0) <= tick]:
+            active[pool.join()] = recs[i]
+            waiting.remove(i)
+        leaving = []
+        for slot, rec in active.items():
+            piece = rec["wav"][rec["pos"]: rec["pos"] + int(chunk * rng.uniform(0.4, 1.6))]
+            pool.feed(slot, piece)
+            rec["pos"] += len(piece)
+            if rec["pos"] >= len(rec["wav"]):
+                leaving.append(slot)
+        for slot, sc in pool.tick().items():
+            active[slot]["blocks"].append(sc)
+        tails = pool.leave_many(leaving) if leaving else {}
+        for slot in leaving:
+            tail = tails[slot]
+            if isinstance(tail, Exception):
+                raise tail
+            active.pop(slot)["blocks"].append(tail)
+        tick += 1
+    torch.cuda.synchronize()
+    pool_wall = time.perf_counter() - run_t0
+    pool_launches = dict(kernels.LAUNCHES)
+    pool_peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    pool_audio_s = sum(len(c) for c in clips) / sr
+    log(f"[pool] {POOL_SLOTS} streams ({len(LATE_JOINS)} joining late, stream "
+        f"{EARLY_LEAVER} leaving after {EARLY_SECONDS} s), {tick} ticks; launches "
+        f"on the main path: {pool_launches}")
+    check(pool_launches["frames_stft_power"] > 0 and pool_launches["mel_log"] > 0,
+          "K3 and K2 ran on the streaming path")
+    full = [i for i in range(POOL_SLOTS) if i != EARLY_LEAVER]
+    want = dict(zip(full, score_all(torch, predict, [clips[i] for i in full])))
+    want[EARLY_LEAVER] = score_all(torch, predict, [clips[EARLY_LEAVER]])[0]
+    pool_err = 0.0
+    for i, rec in enumerate(recs):
+        got = np.concatenate(rec["blocks"])
+        check(got.shape == want[i].shape,
+              f"stream {i}: {got.shape[0]} frames, offline {want[i].shape[0]}")
+        pool_err = max(pool_err, float(np.abs(got - want[i]).max()))
+    log(f"[pool] every stream's frame count equals offline; max diff vs "
+        f"make_batch_predictor {pool_err:.3e} (tol {SCORE_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(pool_err <= SCORE_TOL, "pool scores match make_batch_predictor")
+    profile = pool.profile
+    del pool, recs
+
+    # ---- 6. the streaming CLI ----------------------------------------------
+    t0 = time.perf_counter()
+    wavs = []
+    for i, secs in enumerate(CLI_SECONDS):
+        path = tmp / f"stream{i}.wav"
+        wavfile.write(path, sr, audio[i, : int(secs * sr)])
+        wavs.append(path)
+    out = tmp / "out_stream"
+    stdout = run_cli(["sed_tpu_torch.cli.stream", *common, "--outputs_dir", out,
+                      "--slots", "2", "--stagger_ticks", "2", "--event_threshold",
+                      "0.5", *wavs], "cli.stream")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    cli_launches = summary["kernel_launches"]
+    check(cli_launches["frames_stft_power"] > 0 and cli_launches["mel_log"] > 0,
+          "K3 and K2 ran in cli.stream")
+    stream_err = check_cli_outputs(out, wavs, "cli.stream")
+    log(f"[stream] {len(wavs)} files scored by sed_tpu_torch.cli.stream "
+        f"(2 slots, staggered) in {summary['ticks']} ticks; launches {cli_launches}; "
+        f"max diff vs make_batch_predictor {stream_err:.3e} (tol {SCORE_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. the live TCP server --------------------------------------------
+    from sed_tpu_torch.cli.serve_socket import warmup_pool
+    from sed_tpu_torch.serve_socket import StreamClient, StreamServer
+
+    t0 = time.perf_counter()
+    server_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    server_err = 0.0
+    for wire, secs in (("pcm16", SERVER_SECONDS), ("mulaw", (MULAW_SECONDS,))):
+        sent = [audio[i, : int(s * sr)] for i, s in enumerate(secs)]
+        spool = StreamPool(model, cfg, slots=len(sent), chunk_samples=chunk,
+                           mean=mean, std=std, device=DEVICE)
+        warmup_pool(spool, wire)
+        kernels.reset_launch_counts()
+        server = StreamServer(spool, host="127.0.0.1", port=0, tick_interval=0.02,
+                              wire=wire)
+        server.start()
+        results = {}
+
+        def client(i, y, server=server, wire=wire, results=results):
+            try:
+                c = StreamClient(*server.address, classes_num=cfg.classes_num, wire=wire)
+                for pos in range(0, len(y), 20000):
+                    c.send(y[pos: pos + 20000])
+                results[i] = c.finish()
+            except Exception as e:  # noqa: BLE001 - reported below
+                results[i] = e
+
+        try:
+            threads = [threading.Thread(target=client, args=(i, y))
+                       for i, y in enumerate(sent)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                check(not t.is_alive(), f"{wire} client finished")
+        finally:
+            server.stop()
+        for k, n in kernels.LAUNCHES.items():
+            server_launches[k] += n
+        for i, y in enumerate(sent):
+            got = results[i]
+            if isinstance(got, Exception):
+                raise got
+            ref = score_all(torch, predict, [mulaw_encode(y) if wire == "mulaw" else y])[0]
+            check(got.shape == ref.shape, f"{wire} client {i}: {got.shape} != {ref.shape}")
+            server_err = max(server_err, float(np.abs(got - ref).max()))
+    log(f"[server] {len(SERVER_SECONDS)} pcm16 clients and 1 mulaw client on "
+        f"127.0.0.1; launches {server_launches}; max diff vs offline "
+        f"{server_err:.3e} (tol {SCORE_TOL}); {time.perf_counter() - t0:.1f} s")
+    check(server_launches["frames_stft_power"] > 0 and server_launches["mel_log"] > 0,
+          "K3 and K2 ran in the server")
+    check(server_err <= SCORE_TOL, "server scores match offline")
+    tmp_dir.cleanup()
+
+    # ---- 8. times ------------------------------------------------------------
+    t0 = time.perf_counter()
+    pcm = torch.from_numpy(audio[:BATCH, :samples]).to(dev)[..., None]
     signals = (pcm[..., 0].float() / 32768.0).contiguous()
     power = kernels.wave_stft_power(signals, window, hop, n_fft)
     rows = power.reshape(-1, n_bins)
@@ -269,32 +520,76 @@ def main() -> int:
     batch_ms = time_ms(torch, lambda: predict(pcm))
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
     audio_s_per_s = BATCH * SECONDS / (batch_ms / 1e3)
+    del power, feats
 
-    m = n_fft // 2
-    win_nnz = int(torch.count_nonzero(window))
+    # K3 on a tick's frames: the first frames_max frames of every stream.
+    tick_frames = (torch.from_numpy(audio[:, : n_fft + (frames_max - 1) * hop]).to(dev)
+                   .float() / 32768.0).unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+    k3_ms = time_ms(torch, lambda: kernels.frames_stft_power(tick_frames, window, n_fft))
+    k3_plain_ms = time_ms(torch, lambda: kernels.frames_stft_power_plain(
+        tick_frames, window, n_fft))
+    k3_lib_ms = time_ms(torch, lambda: torch.fft.rfft(tick_frames * window).abs() ** 2)
+
+    # The 32-slot pool's tick: every slot admitted, int16 chunks.
+    tpool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
+                       std=std, device=DEVICE)
+    tslots = [tpool.join() for _ in range(POOL_SLOTS)]
+    for k in range(2):
+        tpool.push({s: audio[s, k * chunk: (k + 1) * chunk] for s in tslots})
+    check(len(tpool._admitted) == POOL_SLOTS, "every timing slot admitted")
+    one = {s: audio[s, 2 * chunk: 3 * chunk] for s in tslots}
+    tick_ms = time_ms(torch, lambda: tpool._push_rounds([one]))
+    block_ms = time_ms(torch, lambda: tpool._push_rounds(
+        [one] * StreamPool.ROUNDS_PER_CALL), reps=5, warmup=1)
+    tick_kernels = profile_ticks(torch, lambda: tpool._push_rounds([one]), n=5)
+    del tpool
+
     k1_bytes = 4 * (signals.numel() + n_fft + 2 * m + rows.numel())
-    k1_ops = frames * (5 * m * (m.bit_length() - 1) + 19 * m + win_nnz)
+    k1_bound, k1_by = bound(k1_bytes, fft_ops(frames, m, win_nnz))
     nnz = bands.weights.numel()
     k2_bytes = 4 * (rows.numel() + frames * bands.n_mels + nnz + 3 * bands.n_mels)
     k2_ops = frames * 2 * nnz
-
-    def bound(n_bytes, n_ops):
-        t_bytes, t_ops = n_bytes / bw * 1e3, n_ops / flops_peak * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
-    log(f"[times] {smi}; {BATCH} x {SECONDS} s, {frames} frames; CUDA-event median of {REPS}")
+    k3_n = tick_frames.shape[0]
+    k3_bytes = 4 * (tick_frames.numel() + n_fft + 2 * m + k3_n * (m + 1))
+    k3_ops = fft_ops(k3_n, m, win_nnz)
+    k3_bound, k3_by = bound(k3_bytes, k3_ops)
+    log(f"[times] {smi}; CUDA-event median of {REPS} unless stated")
+    log(f"[times] batch path, {BATCH} x {SECONDS} s, {frames} frames:")
     log(f"[times] K1 wave_stft_power {k1_ms:.4f} ms | plain {k1_plain_ms:.4f} ms | "
         f"torch.stft+abs^2 {k1_lib_ms:.4f} ms | bound {k1_bound:.4f} ms ({k1_by}: "
-        f"{k1_bytes / 1e6:.1f} MB, {k1_ops / 1e9:.2f} GFLOP)")
+        f"{k1_bytes / 1e6:.1f} MB, {fft_ops(frames, m, win_nnz) / 1e9:.2f} GFLOP)")
     log(f"[times] K2 mel_log {k2_ms:.4f} ms | plain {k2_plain_ms:.4f} ms | "
         f"matmul+log10 {k2_lib_ms:.4f} ms | bound {k2_bound:.4f} ms ({k2_by}: "
         f"{k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.3f} GFLOP)")
     log(f"[times] featurizer (int16 ingest + K1 + K2) {feat_ms:.4f} ms | "
         f"CnnAvgPooling {model_ms:.4f} ms | whole batch {batch_ms:.4f} ms")
-    log(f"[times] {audio_s_per_s:.1f} audio-s/s; peak device memory {peak_mib:.1f} MiB; "
-        f"{time.perf_counter() - t0:.1f} s; total {time.perf_counter() - phase_t0:.1f} s")
+    log(f"[times] {audio_s_per_s:.1f} audio-s/s; peak device memory {peak_mib:.1f} MiB")
+    log(f"[times] streaming path, {POOL_SLOTS} slots x 1 s chunks, {k3_n} frames a tick:")
+    log(f"[times] K3 frames_stft_power {k3_ms:.4f} ms | plain {k3_plain_ms:.4f} ms | "
+        f"rfft+abs^2 {k3_lib_ms:.4f} ms | bound {k3_bound:.4f} ms ({k3_by}: "
+        f"{k3_bytes / 1e6:.1f} MB, {k3_ops / 1e9:.3f} GFLOP)")
+    log(f"[times] pool tick, one round of {POOL_SLOTS} slots: {tick_ms:.4f} ms | "
+        f"one {StreamPool.ROUNDS_PER_CALL}-round block: {block_ms:.4f} ms (median of 5)")
+    if tick_kernels:
+        busy = sum(ms for _, ms in tick_kernels)
+        log(f"[times] pool tick on the device (torch.profiler, 5 ticks): "
+            f"{busy:.4f} ms of kernels a tick, {busy / tick_ms:.1%} of the "
+            f"{tick_ms:.4f} ms tick; the 8 largest and the port's own:")
+        for i, (kname, ms) in enumerate(tick_kernels):
+            if i < 8 or any(k in kname for k in kernels.LAUNCHES):
+                log(f"[times]   {ms:.4f} ms  {kname[:90]}")
+    else:
+        log("[times] pool tick on the device: torch.profiler captured no device "
+            "time (not measured)")
+    log(f"[times] pool run profile: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in sorted(profile.items())))
+    log(f"[times] pool run: {pool_audio_s:.1f} audio-s in {pool_wall:.3f} wall-s = "
+        f"{pool_audio_s / pool_wall:.1f} audio-s per wall-s; peak device memory "
+        f"{pool_peak_mib:.1f} MiB")
+    log(f"[times] {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     print(json.dumps({"kernels": [
@@ -308,6 +603,11 @@ def main() -> int:
          "launches": launches["mel_log"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms},
+        {"name": "frames_stft_power", "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:283",
+         "launches": pool_launches["frames_stft_power"], "max_abs_err": k3["float32"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib_ms},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

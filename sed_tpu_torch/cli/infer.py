@@ -96,6 +96,17 @@ def load_model(ckpt_path: str, classes_num: int):
     return model
 
 
+def load_mean_std(path: str):
+    """(mean, std) from a preprocessing pickle, or (None, None)."""
+    if not path:
+        return None, None
+    import pickle
+
+    with open(path, "rb") as f:
+        d = pickle.load(f)
+    return d["mean"], d["std"]
+
+
 def write_outputs(scores: np.ndarray, audio_file: str, args, cfg) -> None:
     """``{base}_scores.npy``, ``{base}_scores.csv`` and, with
     ``--event_threshold``, ``{base}_events.csv``."""
@@ -129,14 +140,7 @@ def main(argv=None):
     from sed_tpu_torch.inference import batch_predict_files
 
     cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
-    mean = std = None
-    if args.mean_std_file:
-        import pickle
-
-        with open(args.mean_std_file, "rb") as f:
-            d = pickle.load(f)
-        mean, std = d["mean"], d["std"]
-
+    mean, std = load_mean_std(args.mean_std_file)
     model = load_model(args.ckpt, cfg.classes_num)
     os.makedirs(args.outputs_dir, exist_ok=True)
     batch_scores = batch_predict_files(model, args.audio_files, cfg, mean=mean,

@@ -1,0 +1,173 @@
+"""Live streaming server CLI: PCM over TCP in, per-frame scores out
+(counterpart of ``sed_tpu.cli.serve_socket``, spectrogram pool path).
+
+    python -m sed_tpu_torch.cli.serve_socket --ckpt model.pth --port 8123 \\
+        [--slots 8] [--chunk_seconds 1.0] [--wire pcm16|mulaw] \\
+        [--device cuda|cpu] [--run_seconds N]
+
+Each TCP connection is one live stream over the lifecycle pool
+(``sed_tpu_torch/stream_pool.py``): clients write length-prefixed int16 PCM
+(or µ-law bytes) at their own rate, batched device ticks score every stream
+with a full chunk staged, and closing the stream drains the exact tail (wire
+protocol: ``sed_tpu_torch/serve_socket.py``).  The server prints one JSON
+line with its address, then serves until ``--run_seconds`` pass (0 =
+forever).
+
+Before it accepts connections on a CUDA device it runs a warmup ladder
+(:func:`warmup_pool`) that drives every tick and drain shape once, so the
+first clients do not pay the kernel build and the card's first-call costs;
+``--no_warmup`` skips it.
+
+Not ported yet, and refused rather than ignored: the same options as
+``sed_tpu_torch.cli.stream`` (``--arch`` other than CnnAvgPooling,
+``--m5_pool``, ``--quantize``, ``--bf16``, ``--featurizer xla``, the
+fast/turbo featurizer tiers) and ``--calib_wav``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Live PCM streaming scorer "
+                                            "(PyTorch/CUDA port)")
+    p.add_argument("--ckpt", type=str, required=True,
+                   help=".pth with {'model': state_dict} or a bare state dict")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="0 = pick a free port (printed on stdout)")
+    p.add_argument("--slots", type=int, default=8,
+                   help="max concurrent streams (pool slots)")
+    p.add_argument("--chunk_seconds", type=float, default=1.0)
+    p.add_argument("--tick_interval", type=float, default=0.05,
+                   help="seconds between batched device ticks")
+    p.add_argument("--wire", type=str, default="pcm16", choices=["pcm16", "mulaw"],
+                   help="client audio encoding: int16 PCM (default) or "
+                        "1-byte/sample µ-law, half the network bytes at ~38 dB "
+                        "codec SQNR (a lossy serving tier); clients must send "
+                        "the same encoding")
+    p.add_argument("--halo", type=int, default=64)
+    p.add_argument("--featurizer", type=str, default="auto",
+                   help="auto|pallas (xla is not ported)")
+    p.add_argument("--featurizer_precision", type=str, default="parity",
+                   help="FFT precision tier; only 'parity' is ported")
+    p.add_argument("--quantize", choices=["int8"], default=None,
+                   help="int8 serving: not ported")
+    p.add_argument("--calib_wav", type=str, default="",
+                   help="int8 calibration audio: not ported")
+    p.add_argument("--arch", type=str, default="CnnAvgPooling",
+                   help="model family; only CnnAvgPooling is ported")
+    p.add_argument("--m5_pool", choices=["device", "host"], default=None,
+                   help="M5 serving pool: not ported")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 forward: not ported")
+    p.add_argument("--no_warmup", action="store_true", default=False,
+                   help="skip the warmup ladder before serving")
+    p.add_argument("--max_frame_bytes", type=int, default=64 << 20,
+                   help="reject client frames with a length prefix beyond "
+                        "this (garbage/hostile header containment)")
+    p.add_argument("--idle_timeout", type=float, default=0.0,
+                   help="per-connection socket timeout in seconds; a client "
+                        "stalled mid-frame loses its slot after this (0 = "
+                        "wait forever, the trusted-client default)")
+    p.add_argument("--drain_gather", type=float, default=0.25,
+                   help="seconds a finishing stream waits for other finishers "
+                        "so concurrent drains share one batched leave")
+    p.add_argument("--mean_std_file", type=str, default="")
+    p.add_argument("--device", default="cuda", type=str,
+                   help="torch device to run on: cuda (default) or cpu")
+    p.add_argument("--tau_labels", type=str, default="doorslam")
+    p.add_argument("--run_seconds", type=float, default=0.0,
+                   help="serve for N seconds then exit (0 = forever)")
+    return p
+
+
+def warmup_pool(pool, wire: str = "pcm16") -> float:
+    """Drive every tick and drain shape of ``pool`` once and leave it empty;
+    returns the seconds it took.
+
+    The ladder: one stream through startup and single-round ticks; then every
+    slot joined, two all-slot rounds, and multi-round blocks with 1, 4 and
+    all slots active; then one batched drain of every slot.  It is a plain
+    function (``sed_tpu`` ran the same ladder inline, on accelerators only),
+    so the CPU tests run it too (fault R4).
+    """
+    from sed_tpu_torch.ops.mulaw import mulaw_encode
+
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    base = (3000 * rng.standard_normal(pool.chunk)).astype(np.int16)
+    piece = mulaw_encode(base) if wire == "mulaw" else base
+    first = pool.join()
+    for _ in range(4):
+        pool.feed(first, piece)
+        pool.tick()
+    slots = [first] + [pool.join() for _ in range(pool.slots - 1)]
+    for _ in range(2):
+        for s in slots:
+            pool.feed(s, piece)
+        pool.tick()
+    for n_active in (1, 4, len(slots)):
+        for s in slots[:n_active]:
+            pool.feed(s, np.tile(piece, pool.ROUNDS_PER_CALL + 1))
+        pool.tick()
+    pool.leave_many(slots)
+    return time.time() - t0
+
+
+def main(argv=None):
+    from sed_tpu_torch.cli.stream import refuse_unported
+
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, args)
+    if args.calib_wav:
+        parser.error("not ported yet: --calib_wav (see ROADMAP.md)")
+
+    from sed_tpu_torch.cli.infer import load_mean_std, load_model
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.serve_socket import StreamServer
+    from sed_tpu_torch.stream_pool import StreamPool
+
+    cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
+    mean, std = load_mean_std(args.mean_std_file)
+    model = load_model(args.ckpt, cfg.classes_num)
+    pool = StreamPool(
+        model, cfg, slots=args.slots,
+        chunk_samples=int(round(args.chunk_seconds * cfg.working_sample_rate)),
+        halo=args.halo, mean=mean, std=std, featurizer=args.featurizer,
+        featurizer_precision=args.featurizer_precision, device=args.device)
+    if not args.no_warmup and pool.device.type == "cuda":
+        secs = warmup_pool(pool, args.wire)
+        print(f"warmup: {secs:.1f}s (every tick and drain shape driven once)",
+              file=sys.stderr, flush=True)
+    server = StreamServer(pool, host=args.host, port=args.port,
+                          tick_interval=args.tick_interval, wire=args.wire,
+                          max_frame_bytes=args.max_frame_bytes,
+                          idle_timeout=args.idle_timeout or None,
+                          drain_gather=args.drain_gather)
+    server.start()
+    print(json.dumps({"host": server.address[0], "port": server.address[1],
+                      "slots": args.slots, "arch": args.arch,
+                      "chunk_samples": pool.chunk, "wire": args.wire,
+                      "device": str(pool.device)}), flush=True)
+    try:
+        if args.run_seconds > 0:
+            time.sleep(args.run_seconds)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        print("shutting down", file=sys.stderr)
+    finally:
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

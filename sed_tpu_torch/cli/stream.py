@@ -1,0 +1,213 @@
+"""Streaming CLI: score WAV files through the StreamPool lifecycle
+(counterpart of ``sed_tpu.cli.stream``, spectrogram pool path).
+
+Each file becomes one stream: files join as slots free up (optionally
+staggered), feed() one chunk's worth of audio per tick (the last piece is
+partial, with no padding), tick() scores every stream with a full chunk in
+one batched device call, and the streams whose audio ended leave together
+through one leave_many(), which drains their remainders exactly.  Scores per
+file equal offline scoring of the same audio.
+
+    python -m sed_tpu_torch.cli.stream a.wav b.wav c.wav --ckpt model.pth \\
+        [--chunk_seconds 1.0] [--slots 8] [--stagger_ticks 2] \\
+        [--event_threshold 0.5] [--device cuda|cpu]
+
+Loads ``--ckpt`` like ``sed_tpu_torch.cli.infer`` (a ``.pth`` holding
+``{'model': state_dict}`` or a bare state dict of
+CnnAvgPooling(TRAIN_CHANNEL_AND_POOL)), writes ``<name>_scores.npy`` (and,
+with ``--event_threshold``, ``<name>_events.csv``) per file and prints one
+JSON summary line, which includes the kernel launch counts of the run.
+
+Not ported yet, and refused rather than ignored: ``--arch`` other than
+CnnAvgPooling, ``--m5_pool``, ``--quantize``, ``--bf16``, ``--num_devices``
+> 1, ``--featurizer xla`` and the fast/turbo featurizer tiers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Streaming (lifecycle) sound-event scoring (PyTorch/CUDA port)")
+    p.add_argument("audio_files", type=str, nargs="+")
+    p.add_argument("--ckpt", type=str, required=True,
+                   help=".pth with {'model': state_dict} or a bare state dict")
+    p.add_argument("--outputs_dir", type=str, default="streaming_outputs")
+    p.add_argument("--chunk_seconds", type=float, default=1.0,
+                   help="chunk every stream pushes per tick")
+    p.add_argument("--slots", type=int, default=0,
+                   help="pool slots (0 = min(#files, 32)); files beyond the "
+                        "slot count join as earlier streams leave")
+    p.add_argument("--stagger_ticks", type=int, default=0,
+                   help="file i may join no earlier than tick i*stagger "
+                        "(0 = all join as soon as a slot is free)")
+    p.add_argument("--halo", type=int, default=64,
+                   help="receptive-field halo (frames, stride-aligned)")
+    p.add_argument("--featurizer", type=str, default="auto",
+                   help="auto|pallas: the tick featurizes through the CUDA "
+                        "kernels K3 + K2 (xla is not ported)")
+    p.add_argument("--featurizer_precision", type=str, default="parity",
+                   help="FFT precision tier; only 'parity' is ported")
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="sharded pool: only 1 is ported")
+    p.add_argument("--quantize", choices=["int8"], default=None,
+                   help="int8 serving: not ported")
+    p.add_argument("--mean_std_file", type=str, default="")
+    p.add_argument("--device", default="cuda", type=str,
+                   help="torch device to run on: cuda (default) or cpu")
+    p.add_argument("--event_threshold", type=float, default=None)
+    p.add_argument("--event_min_duration", type=float, default=0.0)
+    p.add_argument("--event_merge_gap", type=float, default=0.0)
+    p.add_argument("--tau_labels", type=str, default="doorslam",
+                   help="comma-separated event classes — must match the "
+                        "checkpoint's training config")
+    p.add_argument("--arch", type=str, default="CnnAvgPooling",
+                   help="model family; only CnnAvgPooling is ported")
+    p.add_argument("--m5_pool", choices=["device", "host"], default=None,
+                   help="M5 serving pool: not ported")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 forward: not ported")
+    return p
+
+
+def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
+    """Exit with a usage error naming every unported option that was given
+    (shared with ``cli.serve_socket``)."""
+    unported = [flag for flag, on in (
+        (f"--arch {args.arch}", args.arch != "CnnAvgPooling"),
+        ("--m5_pool", args.m5_pool is not None),
+        ("--quantize", args.quantize is not None),
+        ("--bf16", args.bf16),
+        ("--num_devices > 1", getattr(args, "num_devices", 1) != 1),
+        ("--featurizer xla", args.featurizer == "xla"),
+        (f"--featurizer_precision {args.featurizer_precision}",
+         args.featurizer_precision != "parity"),
+    ) if on]
+    if unported:
+        parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
+
+
+def main(argv=None):
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, args)
+
+    from sed_tpu_torch.cli.infer import load_mean_std, load_model
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.stream_pool import StreamPool
+
+    cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
+    chunk = int(round(args.chunk_seconds * cfg.working_sample_rate))
+    mean, std = load_mean_std(args.mean_std_file)
+    model = load_model(args.ckpt, cfg.classes_num)
+    os.makedirs(args.outputs_dir, exist_ok=True)
+
+    # File queue: (path, mono float32 waveform).  Reading up front keeps the
+    # tick loop pure feed/score; a live deployment feeds sockets here.
+    queue = []
+    for path in args.audio_files:
+        wav = read_multichannel_audio(path, target_fs=cfg.working_sample_rate, cfg=cfg)
+        queue.append({"path": path, "wav": wav[:, 0].astype(np.float32), "pos": 0,
+                      "scores": []})
+    slots = args.slots or min(len(queue), 32)
+    pool = StreamPool(model, cfg, slots=slots, chunk_samples=chunk,
+                      halo=args.halo, mean=mean, std=std,
+                      featurizer=args.featurizer,
+                      featurizer_precision=args.featurizer_precision,
+                      device=args.device)
+
+    kernels.reset_launch_counts()
+    active = {}           # slot -> file record
+    next_file = 0
+    tick = 0
+    t0 = time.time()
+    pushed_samples = 0
+    while next_file < len(queue) or active:
+        # Admit files whose stagger time has arrived, while slots are free.
+        while (next_file < len(queue) and len(active) < slots
+               and tick >= next_file * args.stagger_ticks):
+            rec = queue[next_file]
+            slot = pool.join()
+            active[slot] = rec
+            log(f"tick {tick}: {os.path.basename(rec['path'])} joined slot {slot}")
+            next_file += 1
+        if not active:  # staggered start gap with nothing live
+            tick += 1
+            continue
+
+        leaving = []
+        for slot, rec in active.items():
+            take = min(len(rec["wav"]) - rec["pos"], chunk)
+            pool.feed(slot, rec["wav"][rec["pos"]: rec["pos"] + take])
+            rec["pos"] += take
+            pushed_samples += take
+            if rec["pos"] >= len(rec["wav"]):
+                leaving.append(slot)
+        # One batched device tick for every slot with a full chunk staged; a
+        # file's last partial chunk drains exactly through leave_many.
+        for slot, sc in pool.tick().items():
+            if sc.shape[0]:
+                active[slot]["scores"].append(sc)
+        tails = pool.leave_many(leaving) if leaving else {}
+        for slot in leaving:
+            rec = active.pop(slot)
+            tail = tails[slot]
+            if isinstance(tail, Exception):
+                raise tail
+            if tail.shape[0] == 0 and len(rec["wav"]) <= cfg.nfft // 2:
+                log(f"tick {tick}: {os.path.basename(rec['path'])} too short "
+                    f"to featurize; emitting empty scores")
+            if tail.shape[0]:
+                rec["scores"].append(tail)
+            _finalize(rec, cfg, args)
+            log(f"tick {tick}: {os.path.basename(rec['path'])} left slot {slot}")
+        tick += 1
+
+    wall = time.time() - t0
+    audio_s = pushed_samples / cfg.working_sample_rate
+    print(json.dumps({
+        "files": len(queue),
+        "ticks": tick,
+        "audio_seconds": round(audio_s, 1),
+        "wall_seconds": round(wall, 2),
+        "realtime_factor": round(audio_s / wall, 1) if wall > 0 else None,
+        "device": str(pool.device),
+        "kernel_launches": dict(kernels.LAUNCHES),
+    }))
+
+
+def _finalize(rec, cfg, args) -> None:
+    scores = (np.concatenate(rec["scores"], axis=0) if rec["scores"]
+              else np.zeros((0, cfg.classes_num), np.float32))
+    # feed()/leave_many() score exactly the real audio, so the frame count
+    # already equals offline scoring's (model-stride-truncated) count.
+    base = os.path.splitext(os.path.basename(rec["path"]))[0]
+    np.save(os.path.join(args.outputs_dir, f"{base}_scores.npy"), scores)
+    if args.event_threshold is not None:
+        from sed_tpu_torch.utils.events_post import events_to_csv, extract_events
+
+        evs = extract_events(scores, cfg.frames_per_second,
+                             threshold=args.event_threshold,
+                             min_duration=args.event_min_duration,
+                             merge_gap=args.event_merge_gap)
+        events_to_csv(evs, cfg.tau_sed_labels,
+                      os.path.join(args.outputs_dir, f"{base}_events.csv"))
+    rec["scores"] = None  # release
+
+
+if __name__ == "__main__":
+    main()

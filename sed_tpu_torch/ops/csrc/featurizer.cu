@@ -33,6 +33,25 @@
 //   power in place of all n_fft bins in the TPU's (k2, k1) tile layout.  The
 //   1e-5 x frame-peak tests against the JAX kernel pin the result.
 //
+// K3  sed_frames_stft_power
+//   Replaces sed_tpu/ops/pallas_featurizer.py _make_fft_power_kernel
+//   (driven by stft_power_pallas, composed with K2 as logmel_frames_pallas):
+//   the streaming tick's featurizer.
+//   Computes, per pre-framed row of n_fft samples (float32, or int16 PCM with
+//   the window pre-scaled by 1/32768 on the host, as stft_power_pallas does),
+//   the windowed n_fft-point real DFT and |X|^2 for bins 0..n_fft/2, in
+//   natural bin order (what K2 reads).
+//   Bound on an H100 SXM: bytes.  At a 32-slot, 1 s tick it reads 160 rows of
+//   f32 frames (21.0 MB) and writes 10.5 MB of power (~9.4 us at 3.35 TB/s)
+//   against ~0.25 GFLOP.  At one CTA per row the 160 rows take two waves
+//   of K1's ~80 us per-frame time, so it runs far above that bound.
+//   Design: K1's without the framing: one CTA per row, the row read only
+//   where the window is non-zero, and the same FFT core (fft_power_row,
+//   templated on the sample loader, so K1's arithmetic is unchanged).
+//   Known divergence from sed_tpu: FP32 FFT butterflies in place of the TPU's
+//   HIGHEST-precision matmul DFT stages, one-sided natural-order power in
+//   place of all n_fft bins in the (k2, k1) tile layout.
+//
 // K2  sed_mel_log
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_mel_kernel_resident_fb
 //   (driven by _mel_from_power_fb via _folded_mel_from_power).
@@ -68,19 +87,18 @@ __device__ __forceinline__ long long reflect_index(long long i, long long n) {
   return i < n ? i : period - i;
 }
 
-__global__ void __launch_bounds__(kStftThreads)
-wave_stft_power_kernel(const float* __restrict__ wave,
-                       const float* __restrict__ window,
-                       const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
-                       float* __restrict__ out,
-                       long long n_samples, int n_frames, int hop, int log2_m) {
-  extern __shared__ float2 z[];
+// The FFT core shared by K1 and K3: window the n_fft samples that
+// load(a) returns (a = 0..n_fft-1; called only where the window is
+// non-zero), pack even/odd samples as one complex point stored bit-reversed
+// in z (n_fft/2 points of dynamic shared memory), run an in-place radix-2
+// DIT FFT, and write the one-sided power of the hermitian unpack to row.
+template <typename Load>
+__device__ __forceinline__ void fft_power_row(const Load& load,
+                                              const float* __restrict__ window,
+                                              const float2* __restrict__ twiddle,
+                                              float2* z, float* __restrict__ row,
+                                              int log2_m) {
   const int m = 1 << log2_m;  // n_fft / 2 complex points
-  const long long frame = blockIdx.x;  // signal * n_frames + t
-  const long long sig = frame / n_frames;
-  const long long t = frame - sig * n_frames;
-  const float* y = wave + sig * n_samples;
-  const long long start = t * hop - m;  // centred: frame t starts at t*hop - n_fft/2
 
   // Window, pack even/odd samples as one complex point, store bit-reversed.
   for (int j = threadIdx.x; j < m; j += blockDim.x) {
@@ -88,8 +106,8 @@ wave_stft_power_kernel(const float* __restrict__ wave,
     const float w0 = window[a];
     const float w1 = window[a + 1];
     float re = 0.f, im = 0.f;
-    if (w0 != 0.f) re = w0 * y[reflect_index(start + a, n_samples)];
-    if (w1 != 0.f) im = w1 * y[reflect_index(start + a + 1, n_samples)];
+    if (w0 != 0.f) re = w0 * load(a);
+    if (w1 != 0.f) im = w1 * load(a + 1);
     z[__brev(static_cast<unsigned>(j)) >> (32 - log2_m)] = make_float2(re, im);
   }
   __syncthreads();
@@ -117,7 +135,6 @@ wave_stft_power_kernel(const float* __restrict__ wave,
   // Hermitian unpack of the real-input spectrum:
   //   E[k] = (Z[k] + conj(Z[m-k]))/2,  O[k] = (Z[k] - conj(Z[m-k]))/(2i),
   //   X[k] = E[k] + W_N^k O[k] (k < m),  X[m] = E[0] - O[0].
-  float* row = out + frame * static_cast<long long>(m + 1);
   for (int k = threadIdx.x; k <= m; k += blockDim.x) {
     if (k == m) {
       const float2 z0 = z[0];
@@ -136,6 +153,58 @@ wave_stft_power_kernel(const float* __restrict__ wave,
     const float xi = ei + w.x * oi + w.y * orr;
     row[k] = xr * xr + xi * xi;
   }
+}
+
+// K1's loader: sample a of the centred frame starting at `start`, reflected
+// on the index at both ends of the signal.
+struct ReflectLoad {
+  const float* y;
+  long long start;
+  long long n;
+  __device__ __forceinline__ float operator()(int a) const {
+    return y[reflect_index(start + a, n)];
+  }
+};
+
+// K3's loader: sample a of a pre-framed row (float, or int16 PCM whose
+// 1/32768 scale the caller folded into the window).
+template <typename T>
+struct RowLoad {
+  const T* x;
+  __device__ __forceinline__ float operator()(int a) const {
+    return static_cast<float>(x[a]);
+  }
+};
+
+__global__ void __launch_bounds__(kStftThreads)
+wave_stft_power_kernel(const float* __restrict__ wave,
+                       const float* __restrict__ window,
+                       const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
+                       float* __restrict__ out,
+                       long long n_samples, int n_frames, int hop, int log2_m) {
+  extern __shared__ float2 z[];
+  const int m = 1 << log2_m;  // n_fft / 2 complex points
+  const long long frame = blockIdx.x;  // signal * n_frames + t
+  const long long sig = frame / n_frames;
+  const long long t = frame - sig * n_frames;
+  // Centred: frame t starts at t*hop - n_fft/2.
+  const ReflectLoad load{wave + sig * n_samples, t * hop - m, n_samples};
+  fft_power_row(load, window, twiddle, z, out + frame * static_cast<long long>(m + 1),
+                log2_m);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStftThreads)
+frames_stft_power_kernel(const T* __restrict__ frames,
+                         const float* __restrict__ window,
+                         const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
+                         float* __restrict__ out, int log2_m) {
+  extern __shared__ float2 z[];
+  const int m = 1 << log2_m;
+  const long long r = blockIdx.x;
+  const RowLoad<T> load{frames + r * (2LL * m)};
+  fft_power_row(load, window, twiddle, z, out + r * static_cast<long long>(m + 1),
+                log2_m);
 }
 
 __global__ void __launch_bounds__(kMelThreads)
@@ -163,6 +232,21 @@ mel_log_kernel(const float* __restrict__ power,
   }
 }
 
+template <typename T>
+int launch_frames_stft_power(const void* frames, const void* window,
+                             const void* twiddle, void* out, long long rows,
+                             int log2_m, void* stream) {
+  const int smem = static_cast<int>(sizeof(float2)) << log2_m;
+  cudaError_t err = cudaFuncSetAttribute(
+      frames_stft_power_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  frames_stft_power_kernel<T><<<static_cast<unsigned>(rows), kStftThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(frames), static_cast<const float*>(window),
+      static_cast<const float2*>(twiddle), static_cast<float*>(out), log2_m);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,6 +272,18 @@ int sed_wave_stft_power(const void* wave, const void* window,
       static_cast<const float2*>(twiddle), static_cast<float*>(out), n_samples,
       n_frames, hop, log2_m);
   return cudaGetLastError();
+}
+
+int sed_frames_stft_power(const void* frames, int frames_are_int16,
+                          const void* window, const void* twiddle, void* out,
+                          long long rows, int log2_m, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (frames_are_int16)
+    return launch_frames_stft_power<short>(frames, window, twiddle, out, rows,
+                                           log2_m, stream);
+  return launch_frames_stft_power<float>(frames, window, twiddle, out, rows,
+                                         log2_m, stream);
 }
 
 int sed_mel_log(const void* power, const void* band_lo, const void* band_hi,

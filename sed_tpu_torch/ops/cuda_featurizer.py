@@ -8,12 +8,16 @@ replaces, what bounds it and how it is designed):
     one-sided power (n_sig, n_frames, n_fft/2+1) f32 of the centred,
     reflect-padded, windowed real DFT, in natural bin order;
   * K2 :func:`mel_log` — power (rows, n_fft/2+1) f32 -> (rows, mel) f32
-    10*log10(max(1e-10, power @ fb)) over the sparse band description.
+    10*log10(max(1e-10, power @ fb)) over the sparse band description;
+  * K3 :func:`frames_stft_power` — pre-framed rows (rows, n_fft) f32 or
+    int16 -> one-sided power (rows, n_fft/2+1) f32 of the windowed real DFT
+    (the streaming tick's featurizer, followed by K2).
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
-:func:`mel_log_plain`); a CUDA tensor launches the kernel or raises.  There
-is no fallback from a failed build or launch to the plain version.
+:func:`mel_log_plain`, :func:`frames_stft_power_plain`); a CUDA tensor
+launches the kernel or raises.  There is no fallback from a failed build or
+launch to the plain version.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 ``_build/`` next to this file (git-ignored), as a shared library with a
@@ -33,6 +37,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,7 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _MAX_SMEM_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
 
-LAUNCHES = {"wave_stft_power": 0, "mel_log": 0}
+LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0}
 
 
 def reset_launch_counts() -> None:
@@ -119,6 +124,8 @@ def _library() -> ctypes.CDLL:
     lib.sed_wave_stft_power.restype = i32
     lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.sed_mel_log.restype = i32
+    lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, i64, i32, i32, vp]
+    lib.sed_frames_stft_power.restype = i32
     return lib
 
 
@@ -139,6 +146,15 @@ def _require_cuda_f32(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_fft_size(n_fft: int, window: torch.Tensor) -> None:
+    if n_fft < 4 or n_fft & (n_fft - 1):
+        raise ValueError(f"n_fft must be a power of two >= 4, got {n_fft}")
+    if (n_fft // 2) * 8 > _MAX_SMEM_BYTES:
+        raise ValueError(f"n_fft {n_fft} does not fit the shared-memory FFT")
+    if window.shape != (n_fft,):
+        raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +197,7 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
     _require_cuda_f32("window", window, device)
     if waves.ndim != 2 or waves.shape[1] < 1:
         raise ValueError(f"waves must be (n_signals, samples>0), got {tuple(waves.shape)}")
-    if n_fft < 4 or n_fft & (n_fft - 1):
-        raise ValueError(f"n_fft must be a power of two >= 4, got {n_fft}")
-    if (n_fft // 2) * 8 > _MAX_SMEM_BYTES:
-        raise ValueError(f"n_fft {n_fft} does not fit K1's shared-memory FFT")
-    if window.shape != (n_fft,):
-        raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
+    _check_fft_size(n_fft, window)
     if hop < 1:
         raise ValueError(f"hop must be >= 1, got {hop}")
     n_sig, n_samples = waves.shape
@@ -204,6 +215,70 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
         n_sig, n_samples, n_frames, hop, log2_m, device.index, _stream(device))
     _check_launch("wave_stft_power", err)
     LAUNCHES["wave_stft_power"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: pre-framed rows -> one-sided STFT power
+# ---------------------------------------------------------------------------
+
+def frames_stft_power_plain(frames: torch.Tensor, window: torch.Tensor, n_fft: int,
+                            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of K3: window, torch.fft.rfft, re^2 + im^2.
+
+    Computes in ``dtype``: by default float64 for float64 frames and float32
+    otherwise.  int16 rows are PCM16: the window is scaled by 1/32768, as the
+    kernel does.
+    """
+    if frames.shape[-1] != n_fft:
+        raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
+    if dtype is None:
+        dtype = torch.float64 if frames.dtype == torch.float64 else torch.float32
+    w = window.to(dtype)
+    if frames.dtype == torch.int16:
+        w = w / 32768.0
+    spec = torch.fft.rfft(frames.to(dtype) * w, dim=-1)
+    return spec.real ** 2 + spec.imag ** 2
+
+
+def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
+                      n_fft: int) -> torch.Tensor:
+    """(rows, n_fft) f32 or int16 frames -> (rows, n_fft/2 + 1) f32 power of
+    the windowed real DFT, one-sided and in natural bin order.
+
+    CPU tensors take :func:`frames_stft_power_plain`; CUDA tensors launch K3.
+    ``window`` is the f32 window of float frames; for int16 (PCM16) frames
+    the wrapper scales it by 1/32768 on the card (exact: a power of two), as
+    ``stft_power_pallas`` does, so de-quantization costs the kernel nothing.
+    """
+    if frames.device.type == "cpu":
+        return frames_stft_power_plain(frames, window, n_fft)
+    if frames.device.type != "cuda":
+        raise ValueError(f"frames_stft_power: unsupported device {frames.device}")
+    device = frames.device
+    if frames.dtype not in (torch.float32, torch.int16):
+        raise TypeError(f"frames must be float32 or int16, got {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    _require_cuda_f32("window", window, device)
+    _check_fft_size(n_fft, window)
+    if frames.ndim != 2 or frames.shape[1] != n_fft:
+        raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
+    rows = frames.shape[0]
+    if rows > _MAX_GRID_X:
+        raise ValueError(f"{rows} rows exceed one launch's grid")
+    out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
+    if rows == 0:
+        return out
+    is_int16 = frames.dtype == torch.int16
+    if is_int16:
+        window = window / 32768.0
+    tw = _twiddles(n_fft, device)
+    err = _library().sed_frames_stft_power(
+        frames.data_ptr(), int(is_int16), window.data_ptr(), tw.data_ptr(),
+        out.data_ptr(), rows, n_fft.bit_length() - 2, device.index, _stream(device))
+    _check_launch("frames_stft_power", err)
+    LAUNCHES["frames_stft_power"] += 1
     return out
 
 

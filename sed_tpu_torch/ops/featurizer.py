@@ -2,8 +2,10 @@
 
 One path per device, chosen by the tensor's device:
 
-  * a CUDA tensor goes through the two hand-written kernels of
-    :mod:`sed_tpu_torch.ops.cuda_featurizer` (K1 STFT power, K2 mel-log);
+  * a CUDA tensor goes through the hand-written kernels of
+    :mod:`sed_tpu_torch.ops.cuda_featurizer`: K1 STFT power + K2 mel-log for
+    waveforms (:func:`logmel_features_batch`), K3 STFT power + K2 for
+    pre-framed rows (:func:`logmel_frames`, the streaming tick);
   * a CPU tensor goes through their plain PyTorch versions.
 
 ``sed_tpu`` also chooses between an XLA path and several Pallas
@@ -13,11 +15,12 @@ exist for the TPU and have no counterpart here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.ops import cuda_featurizer as kernels
-from sed_tpu_torch.ops.mulaw import mulaw_decode
+from sed_tpu_torch.ops.mulaw import mulaw_decode, mulaw_decode_np
 
 # The parity tier is the only one ported.  sed_tpu's 'fast' ('bf16x3') and
 # 'turbo' ('bf16x1') tiers, and its raw 'bf16xN' strings, count bf16 passes
@@ -59,6 +62,18 @@ def ingest_to_f32(waveform: torch.Tensor) -> torch.Tensor:
     return waveform.to(torch.float32)
 
 
+def ingest_to_f32_np(a) -> np.ndarray:
+    """Host twin of :func:`ingest_to_f32` for numpy audio: int16 PCM is
+    de-quantized by 1/32768, uint8 is µ-law-decoded, anything else is cast
+    to float32."""
+    a = np.asarray(a)
+    if a.dtype == np.int16:
+        return a.astype(np.float32) / 32768.0
+    if a.dtype == np.uint8:
+        return mulaw_decode_np(a)
+    return a.astype(np.float32)
+
+
 def power_to_logmel(power: torch.Tensor,
                     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM) -> torch.Tensor:
     """(..., freq_bins) one-sided power -> (..., mel_bins) log-mel (float32)."""
@@ -98,3 +113,20 @@ def logmel_features(waveform: torch.Tensor,
                     precision=None) -> torch.Tensor:
     """(samples, channels) -> (channels, frames, mel_bins) float32."""
     return logmel_features_batch(waveform[None], cfg, precision)[0]
+
+
+def logmel_frames(frames: torch.Tensor, cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                  precision=None) -> torch.Tensor:
+    """(rows, n_fft) raw frames, float32 or int16 (PCM16) -> (rows, mel_bins)
+    float32 log-mel (counterpart of ``logmel_frames_pallas``).
+
+    K3 then K2 on CUDA, both plain versions on CPU.  ``precision``: None or
+    'parity' (see :func:`resolve_featurizer_precision`).
+    """
+    resolve_featurizer_precision(precision)
+    if frames.dtype != torch.int16:
+        frames = frames.to(torch.float32)
+    frames = frames.contiguous()
+    device = frames.device
+    power = kernels.frames_stft_power(frames, kernels.stft_window(cfg, device), cfg.nfft)
+    return kernels.mel_log(power, kernels.mel_bands(cfg, device))

@@ -43,3 +43,15 @@ def mulaw_decode(u8: torch.Tensor) -> torch.Tensor:
     m7 = torch.bitwise_and(u8, 0x7F).to(torch.float32) / 127.0
     mag = torch.expm1(m7 * _LOG1P_MU) / MU
     return torch.where(torch.bitwise_and(u8, 0x80) != 0, -mag, mag)
+
+
+def mulaw_decode_np(u8) -> np.ndarray:
+    """Host-side decoder: uint8 µ-law bytes -> float32 waveform (numpy), the
+    numpy twin of :func:`mulaw_decode` for host staging, tools and tests."""
+    u8 = np.asarray(u8)
+    if u8.dtype != np.uint8:
+        raise TypeError(f"mulaw_decode_np expects uint8, got {u8.dtype}")
+    m7 = (u8 & 0x7F).astype(np.float32) / 127.0
+    mag = np.expm1(m7.astype(np.float64) * _LOG1P_MU) / MU
+    sign = np.where((u8 & 0x80) != 0, -1.0, 1.0)
+    return (sign * mag).astype(np.float32)

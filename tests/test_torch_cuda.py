@@ -6,7 +6,7 @@ import neither JAX nor sed_tpu, so they also run where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances (against the plain versions computed in float64 on the card):
-  * K1 power: abs error <= 1e-5 x the frame's peak power;
+  * K1 and K3 power: abs error <= 1e-5 x the frame's (row's) peak power;
   * K2 and the whole featurizer: <= 1e-4 dB;
   * scores, CUDA against CPU: <= 1e-4 abs (another summation order).
 """
@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from sed_tpu_torch.configs import SpectrogramConfig
+from sed_tpu_torch.device_streaming import DeviceStreamingDetector
 from sed_tpu_torch.inference import batch_predict_files, make_batch_predictor
 from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
 from sed_tpu_torch.ops import cuda_featurizer as kernels
 from sed_tpu_torch.ops import featurizer
 from sed_tpu_torch.ops import mel as mel_ops
 from sed_tpu_torch.ops.mulaw import mulaw_encode
+from sed_tpu_torch.stream_pool import StreamPool
 
 pytestmark = pytest.mark.gpu
 
@@ -78,6 +80,105 @@ def test_k2_matches_float64_plain(cuda, cfg):
     assert bool((got[3] == -100.0).all())
 
 
+def pcm_rows(rows, cfg, device, dtype, seed=4):
+    """(rows, nfft) frames of tones and noise, one row silent, one quiet."""
+    x = signals(rows, cfg.nfft, cfg.working_sample_rate, device, seed).clamp(-1, 1)
+    x[3] = 0.0
+    x[5] *= 1e-3
+    if dtype == "int16":
+        return (x * 32767).round().to(torch.int16)
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("cfg,rows", [(SMALL, 37), (PROD, 160)])
+def test_k3_matches_float64_plain(cuda, cfg, rows, dtype):
+    x = pcm_rows(rows, cfg, cuda, dtype)
+    window = kernels.stft_window(cfg, cuda)
+    before = kernels.LAUNCHES["frames_stft_power"]
+    got = kernels.frames_stft_power(x, window, cfg.nfft)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frames_stft_power"] == before + 1
+    want = kernels.frames_stft_power_plain(x, window, cfg.nfft, dtype=torch.float64)
+    assert got.shape == want.shape == (rows, cfg.freq_bins)
+    assert got.dtype == torch.float32
+    peak = want.amax(dim=-1, keepdim=True)
+    assert bool(((got.double() - want).abs() <= 1e-5 * peak).all())
+    assert bool((got[3] == 0.0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_logmel_frames_cuda_matches_cpu_and_float64(cuda, dtype):
+    x = pcm_rows(29, SMALL, cuda, dtype, seed=6)
+    got = featurizer.logmel_frames(x, SMALL)
+    torch.cuda.synchronize()
+    want = featurizer.logmel_frames(x.cpu(), SMALL)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    window = kernels.stft_window(SMALL, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(SMALL, np.float64)).to(cuda)
+    chain = kernels.mel_log_plain(
+        kernels.frames_stft_power_plain(x, window, SMALL.nfft, dtype=torch.float64), fb64)
+    assert float((got.double() - chain).abs().max()) <= 1e-4
+
+
+def test_stream_pool_cuda_matches_cpu(cuda):
+    """A 2-slot pool on the card and on the CPU, fed the same uneven int16
+    pieces: same blocks, scores within 1e-4; the card's run went through K3
+    and K2."""
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL,
+                          generator=torch.Generator().manual_seed(0))
+    cpu_model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL)
+    cpu_model.load_state_dict(model.state_dict())
+    audio = (signals(2, 14 * 8000 + 321, 8000, cuda, seed=7).clamp(-1, 1) * 32767)
+    audio = audio.to(torch.int16).cpu().numpy()
+    kw = dict(slots=2, chunk_samples=8000, halo=64, total_stride=8, bucket=64)
+    outs = {}
+    for name, m, device in (("card", model, cuda), ("cpu", cpu_model, "cpu")):
+        kernels.reset_launch_counts()
+        pool = StreamPool(m, SMALL, device=device, **kw)
+        slots = [pool.join() for _ in audio]
+        blocks = {s: [] for s in slots}
+        for lo, hi in ((0, 5000), (5000, 40000), (40000, 100000), (100000, None)):
+            for s, y in zip(slots, audio):
+                pool.feed(s, y[lo:hi])
+            for s, sc in pool.tick().items():
+                blocks[s].append(sc)
+        for s in slots:
+            blocks[s].append(pool.leave(s))
+        outs[name] = [np.concatenate(blocks[s]) for s in slots]
+        if name == "card":
+            assert kernels.LAUNCHES["frames_stft_power"] > 0
+            assert kernels.LAUNCHES["mel_log"] > 0
+        else:
+            assert sum(kernels.LAUNCHES.values()) == 0
+    for got, want in zip(outs["card"], outs["cpu"]):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_device_detector_cuda_matches_cpu(cuda):
+    """The lockstep device-ring detector on the card and on the CPU, int16
+    chunks: same blocks, scores within 1e-4."""
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL,
+                          generator=torch.Generator().manual_seed(1))
+    cpu_model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL)
+    cpu_model.load_state_dict(model.state_dict())
+    audio = (signals(2, 12 * 8000, 8000, cuda, seed=8).clamp(-1, 1) * 32767)
+    audio = audio.to(torch.int16).cpu().numpy()
+    kw = dict(batch=2, chunk_samples=8000, halo=64, total_stride=8, bucket=64)
+    outs = {}
+    for name, m, device in (("card", model, cuda), ("cpu", cpu_model, "cpu")):
+        kernels.reset_launch_counts()
+        det = DeviceStreamingDetector(m, SMALL, device=device, **kw)
+        blocks = [det.push(audio[:, i:i + 8000]) for i in range(0, audio.shape[1], 8000)]
+        outs[name] = np.concatenate(blocks + [det.flush()], axis=1)
+        assert det._device_mode
+        launched = kernels.LAUNCHES["frames_stft_power"] > 0
+        assert launched == (name == "card")
+    assert outs["card"].shape == outs["cpu"].shape
+    np.testing.assert_allclose(outs["card"], outs["cpu"], rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int16", "uint8"])
 def test_featurizer_cuda_matches_cpu(cuda, dtype):
     x = signals(2, 10 * 8000, 8000, cuda, seed=2).clamp(-1, 1).cpu().numpy()
@@ -113,6 +214,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         kernels.mel_log(torch.zeros(4, SMALL.freq_bins, device=cuda,
                                     dtype=torch.float16), bands)
+    rows = torch.zeros(4, SMALL.nfft, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.frames_stft_power(rows.double(), window, SMALL.nfft)
+    with pytest.raises(ValueError):
+        kernels.frames_stft_power(rows[:, :-1], window, SMALL.nfft)
+    with pytest.raises(ValueError):
+        kernels.frames_stft_power(torch.zeros(8, SMALL.nfft, device=cuda)[::2],
+                                  window, SMALL.nfft)
+    with pytest.raises(ValueError):
+        kernels.frames_stft_power(rows, window.cpu(), SMALL.nfft)
 
 
 def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
@@ -126,7 +237,8 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
     x = x.to(torch.int16)[..., None]
     kernels.reset_launch_counts()
     got = make_batch_predictor(model, PROD, device=cuda)(x).cpu()
-    assert kernels.LAUNCHES == {"wave_stft_power": 1, "mel_log": 1}
+    assert kernels.LAUNCHES == {"wave_stft_power": 1, "mel_log": 1,
+                                "frames_stft_power": 0}
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
