@@ -34,10 +34,21 @@ non-zero on the first failure.  Phases:
               whole 16 x 60 s batch; a single-round tick and a 16-round block
               of the 32-slot pool, and the tick's device time by kernel
               (``torch.profiler``); the pool run's profile split, audio-s per
-              wall-s and peak device memory.
+              wall-s and peak device memory;
+  9. impls    every implementation name of sed_tpu's featurizer on phase 3's
+              16 x 60 s batch, ingested to f32 on the card: each of
+              ``logmel_waveform(impl=...)`` with launch counts reset just
+              before and read just after (exactly the kernels its row of
+              ``IMPL_KERNELS`` names, once each) and within 1e-4 dB of the
+              float64 chain; the K4 route ``logmel_features_batch(...,
+              use_pallas=True)`` likewise; K5 against K1 then K2 (equal),
+              K6 against its float64 plain version, 'pack''s and 'eo''s power
+              against float64; CUDA-event medians of K4–K10 through their own
+              entry points, their plain versions and PyTorch yardsticks, and
+              of the whole ``logmel_waveform`` for each name.
 
-Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` JSON line (K1–K10), the ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -129,11 +140,11 @@ def make_signals(torch, n, samples, sr, device, seed):
     return out.clamp(-1, 1).float().contiguous()
 
 
-def fft_ops(rows: int, m: int, win_nnz: int) -> int:
+def fft_ops(rows: int, m: int, win_nnz: int, unpack: bool = True) -> int:
     """FP32 operations of ``rows`` windowed n_fft = 2m real DFTs and their
-    power: the m-point complex FFT, the hermitian unpack and |X|^2, and the
-    window product."""
-    return rows * (5 * m * (m.bit_length() - 1) + 19 * m + win_nnz)
+    power: the m-point complex FFT, the hermitian unpack and |X|^2 (left out
+    when not ``unpack``: K6 stops after the FFT), and the window product."""
+    return rows * (5 * m * (m.bit_length() - 1) + (19 * m if unpack else 0) + win_nnz)
 
 
 def run_cli(args, what: str) -> str:
@@ -172,6 +183,228 @@ def score_all(torch, predict, clips):
         batch = torch.from_numpy(np.stack(clips[i:i + BATCH]))[..., None]
         outs.append(predict(batch).cpu().numpy())
     return np.concatenate(outs)
+
+
+def impls_phase(torch, cfg, dev, bound, win_nnz):
+    """Phase 9: every implementation name of sed_tpu's featurizer on the card
+    (see the module docstring).  Returns the ``kernels`` entries of K4–K10."""
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops.featurizer import ingest_to_f32, logmel_features_batch
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    t0 = time.perf_counter()
+    sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
+    m, n_mels = n_fft // 2, cfg.mel_bins
+    samples = sr * SECONDS
+    window = kernels.stft_window(cfg, dev)
+    bands = kernels.mel_bands(cfg, dev)
+    fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+    # Phase 3's batch (same seed), ingested to f32 on the card.
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 1) * 32767).round().to(torch.int16)
+    waves = ingest_to_f32(pcm).contiguous()
+    ref_power = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
+    frames = ref_power.shape[0] * ref_power.shape[1]
+    power_peak = ref_power.amax(dim=-1, keepdim=True)
+    chain = kernels.mel_log_plain(ref_power.reshape(-1, n_bins), fb64).reshape(
+        BATCH, -1, n_mels)
+
+    def power_errors(power):
+        err = (power.double() - ref_power).abs()
+        return float(err.max()), float((err / power_peak.clamp_min(1e-30)).max())
+
+    # Each impl name: launch counts reset just before and read just after.
+    runs = {}
+    for impl, names in kernels.IMPL_KERNELS.items():
+        kernels.reset_launch_counts()
+        out = kernels.logmel_waveform(waves, cfg, impl=impl)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        err = float((out.double() - chain).abs().max())
+        runs[impl] = (launched, err)
+        log(f"[impls] logmel_waveform(impl={impl!r}) {tuple(out.shape)}: launches "
+            f"{launched}; vs float64 chain {err:.3e} dB (tol {DB_TOL})")
+        check(out.shape == chain.shape, f"impl {impl} shape {tuple(out.shape)}")
+        check(launched == dict.fromkeys(names, 1), f"impl {impl} launched {names} once each")
+        check(err <= DB_TOL, f"impl {impl} within 1e-4 dB of the float64 chain")
+    # K4's route: the STFT in PyTorch, then the mel kernel.
+    kernels.reset_launch_counts()
+    route = logmel_features_batch(pcm[..., None], cfg, use_pallas=True)
+    torch.cuda.synchronize()
+    k4_launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    k4_route_err = float((route[:, 0].double() - chain).abs().max())
+    log(f"[impls] logmel_features_batch(use_pallas=True) {tuple(route.shape)}: "
+        f"launches {k4_launched}; vs float64 chain {k4_route_err:.3e} dB (tol {DB_TOL})")
+    check(k4_launched == {"mel_log": 1}, "the use_pallas=True route launched K4 only")
+    check(k4_route_err <= DB_TOL, "use_pallas=True within 1e-4 dB of the float64 chain")
+    del route
+
+    # K4 alone on that route's power, against its plain version in float64.
+    re, im = stft_ops.stft_realimag(waves, cfg, "fft")
+    k4_power = (re * re + im * im).contiguous()
+    del re, im
+    k4_out = kernels.power_to_logmel_cuda(k4_power, cfg)
+    k4_err = float((k4_out.double() - kernels.mel_log_plain(
+        k4_power.double().reshape(-1, n_bins), fb64).reshape(k4_out.shape)).abs().max())
+    log(f"[kernels] K4 power_to_logmel_cuda (mel_log) {tuple(k4_out.shape)}: max err "
+        f"{k4_err:.3e} dB against float64 (tol {DB_TOL})")
+    check(k4_err <= DB_TOL, "K4 within 1e-4 dB of float64")
+
+    # K5 against K1 then K2, and against float64.
+    fused = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands)
+    k1_power = kernels.wave_stft_power(waves, window, hop, n_fft)
+    two = kernels.mel_log(k1_power.reshape(-1, n_bins), bands).reshape(fused.shape)
+    torch.cuda.synchronize()
+    k5_vs_two = float((fused - two).abs().max())
+    k5_err = float((fused.double() - chain).abs().max())
+    log(f"[kernels] K5 wave_stft_mel_log {tuple(fused.shape)}: vs K1 then K2 "
+        f"{k5_vs_two:.3e} dB (0 expected, tol 1e-5), {int((fused != two).sum())} "
+        f"values differ; vs float64 chain {k5_err:.3e} dB (tol {DB_TOL})")
+    check(k5_vs_two <= 1e-5, "K5 equals K1 then K2 within 1e-5 dB")
+    check(k5_err <= DB_TOL, "K5 within 1e-4 dB of the float64 chain")
+    del fused, two
+
+    # K6 against its plain version in float64; 'pack''s power against K1's.
+    zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
+    wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft)
+    z_peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    k6_abs, k6_rel = 0.0, 0.0
+    for got, want in ((zr, wr), (zi, wi)):
+        err = (got.double() - want).abs()
+        k6_abs = max(k6_abs, float(err.max()))
+        k6_rel = max(k6_rel, float((err / z_peak).max()))
+    del wr, wi, z_peak, err
+    log(f"[kernels] K6 wave_packed_fft 2 x {tuple(zr.shape)}: max abs err {k6_abs:.3e}, "
+        f"max err / frame peak |Z| {k6_rel:.3e} (tol {K1_REL_TOL})")
+    check(k6_rel <= K1_REL_TOL, "K6 within 1e-5 x frame peak of float64")
+    pack_power = kernels.packed_power_onesided(zr, zi, n_fft)
+    pack_vs_k1 = float(((pack_power - k1_power).abs()
+                        / k1_power.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    _, pack_rel = power_errors(pack_power)
+    log(f"[kernels] 'pack' power (K6 + unpack) vs K1 power: {pack_vs_k1:.3e}, vs "
+        f"float64 {pack_rel:.3e} of the frame peak (tol {K1_REL_TOL})")
+    check(pack_rel <= K1_REL_TOL, "'pack' power within 1e-5 x frame peak of float64")
+    del pack_power
+
+    # K7, K8, K10 (K1 under their own names): power against float64.
+    k1_named = {}
+    for tag, fn in (("K7 eo", lambda: kernels.stft_eo_power_from_waveform(waves, cfg)),
+                    ("K8 rollraw", lambda: kernels.stft_power_from_waveform_raw(waves, cfg)),
+                    ("K10 slice", lambda: kernels.stft_power_from_waveform(
+                        waves, cfg, impl="slice"))):
+        k1_named[tag] = power_errors(fn())
+        log(f"[kernels] {tag} (wave_stft_power): max abs err {k1_named[tag][0]:.3e}, "
+            f"max err / frame peak {k1_named[tag][1]:.3e} (tol {K1_REL_TOL})")
+        check(k1_named[tag][1] <= K1_REL_TOL, f"{tag} within 1e-5 x frame peak")
+    del ref_power, power_peak
+    log(f"[impls] checks {time.perf_counter() - t0:.1f} s")
+
+    # Times.
+    t0 = time.perf_counter()
+    rows = k1_power.reshape(-1, n_bins)
+    windowed = stft_ops.frame_signal(waves, n_fft, hop) * window
+    packed = torch.complex(windowed[..., 0::2].contiguous(), windowed[..., 1::2].contiguous())
+    del windowed
+    ms = {
+        "k4": time_ms(torch, lambda: kernels.power_to_logmel_cuda(k1_power, cfg)),
+        "k4_plain": time_ms(torch, lambda: kernels.mel_log_plain(rows, bands.dense)),
+        "k4_lib": time_ms(torch, lambda: 10.0 * torch.log10(
+            torch.clamp(torch.matmul(rows, bands.dense), min=1e-10))),
+        "k5": time_ms(torch, lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft,
+                                                               bands)),
+        "k5_plain": time_ms(torch, lambda: kernels.wave_stft_mel_log_plain(
+            waves, window, hop, n_fft, bands.dense)),
+        "k1k2": time_ms(torch, lambda: kernels.mel_log(kernels.wave_stft_power(
+            waves, window, hop, n_fft).reshape(-1, n_bins), bands)),
+        "stft_mel_lib": time_ms(torch, lambda: 10.0 * torch.log10(torch.clamp(
+            torch.matmul(torch.stft(waves, n_fft, hop, window=window, center=True,
+                                    pad_mode="reflect", return_complex=True
+                                    ).abs().square().transpose(1, 2), bands.dense),
+            min=1e-10))),
+        "k6": time_ms(torch, lambda: kernels.wave_packed_fft(waves, window, hop, n_fft)),
+        "k6_plain": time_ms(torch, lambda: kernels.wave_packed_fft_plain(
+            waves, window, hop, n_fft)),
+        "k6_lib": time_ms(torch, lambda: torch.fft.fft(packed, dim=-1)),
+        "k7": time_ms(torch, lambda: kernels.stft_eo_power_from_waveform(waves, cfg)),
+        "k8": time_ms(torch, lambda: kernels.stft_power_from_waveform_raw(waves, cfg)),
+        "k9": time_ms(torch, lambda: kernels.logmel_waveform_rolledge(waves, cfg)),
+        "k10": time_ms(torch, lambda: kernels.stft_power_from_waveform(
+            waves, cfg, impl="slice")),
+        "k1_plain": time_ms(torch, lambda: kernels.wave_stft_power_plain(
+            waves, window, hop, n_fft)),
+        "stft_lib": time_ms(torch, lambda: torch.stft(
+            waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+            return_complex=True).abs() ** 2),
+    }
+    del packed
+    impl_ms = {impl: time_ms(torch, lambda impl=impl: kernels.logmel_waveform(
+        waves, cfg, impl=impl)) for impl in kernels.IMPL_KERNELS}
+
+    nnz = bands.weights.numel()
+    fixed = 4 * (n_fft + 2 * m)                    # window and twiddles
+    wave_b = 4 * waves.numel()
+    mel_b = 4 * (frames * n_mels + nnz + 3 * n_mels)
+    k4_bound = bound(4 * rows.numel() + mel_b, 2 * nnz * frames)
+    k5_bound = bound(wave_b + fixed + mel_b, fft_ops(frames, m, win_nnz) + 2 * nnz * frames)
+    k6_bound = bound(wave_b + fixed + 2 * 4 * frames * m,
+                     fft_ops(frames, m, win_nnz, unpack=False))
+    k1_bound = bound(wave_b + fixed + 4 * rows.numel(), fft_ops(frames, m, win_nnz))
+    log(f"[times] impls, {BATCH} x {SECONDS} s, {frames} frames (CUDA-event median "
+        f"of {REPS}):")
+    log(f"[times] K4 power_to_logmel_cuda (mel_log) {ms['k4']:.4f} ms | plain "
+        f"{ms['k4_plain']:.4f} ms | matmul+log10 {ms['k4_lib']:.4f} ms | bound "
+        f"{k4_bound[0]:.4f} ms ({k4_bound[1]})")
+    log(f"[times] K5 wave_stft_mel_log {ms['k5']:.4f} ms | plain {ms['k5_plain']:.4f} ms "
+        f"| K1 then K2 {ms['k1k2']:.4f} ms | torch.stft+abs^2+matmul+log10 "
+        f"{ms['stft_mel_lib']:.4f} ms | bound {k5_bound[0]:.4f} ms ({k5_bound[1]})")
+    log(f"[times] K6 wave_packed_fft {ms['k6']:.4f} ms | plain {ms['k6_plain']:.4f} ms | "
+        f"torch.fft.fft of the packed frames {ms['k6_lib']:.4f} ms | bound "
+        f"{k6_bound[0]:.4f} ms ({k6_bound[1]})")
+    log(f"[times] K1 under sed_tpu's names: K7 eo {ms['k7']:.4f} ms | K8 rollraw "
+        f"{ms['k8']:.4f} ms | K10 slice {ms['k10']:.4f} ms | plain {ms['k1_plain']:.4f} ms "
+        f"| torch.stft+abs^2 {ms['stft_lib']:.4f} ms | bound {k1_bound[0]:.4f} ms "
+        f"({k1_bound[1]})")
+    log(f"[times] K9 rolledge (K1 then K2) {ms['k9']:.4f} ms | bound {k5_bound[0]:.4f} ms")
+    log("[times] logmel_waveform by impl: " + ", ".join(
+        f"{impl} {t:.4f} ms" for impl, t in impl_ms.items()))
+    log(f"[impls] times {time.perf_counter() - t0:.1f} s")
+
+    source = "sed_tpu_torch/ops/csrc/featurizer.cu"
+    replaces = "sed_tpu/ops/pallas_featurizer.py:"
+
+    def entry(name, kernel, line, launches, err, t, plain, bnd, lib):
+        return {"name": name, "kernel": kernel, "route": "cuda", "source": source,
+                "replaces": replaces + str(line), "launches": launches,
+                "max_abs_err": err, "ms": t, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib}
+
+    def launched(*impls, kernel):
+        return sum(runs[i][0].get(kernel, 0) for i in impls)
+
+    return [
+        entry("power_to_logmel_cuda", "mel_log", 38, k4_launched["mel_log"], k4_err,
+              ms["k4"], ms["k4_plain"], k4_bound, ms["k4_lib"]),
+        entry("wave_stft_mel_log", "wave_stft_mel_log", 550,
+              launched("fuse", kernel="wave_stft_mel_log"), k5_err, ms["k5"],
+              ms["k5_plain"], k5_bound, ms["stft_mel_lib"]),
+        entry("wave_packed_fft", "wave_packed_fft", 882,
+              launched("pack", kernel="wave_packed_fft"), k6_abs, ms["k6"],
+              ms["k6_plain"], k6_bound, ms["k6_lib"]),
+        entry("stft_eo_power_from_waveform", "wave_stft_power", 748,
+              launched("eo", kernel="wave_stft_power"), k1_named["K7 eo"][0], ms["k7"],
+              ms["k1_plain"], k1_bound, ms["stft_lib"]),
+        entry("stft_power_from_waveform_raw", "wave_stft_power", 1156,
+              launched("rollraw", kernel="wave_stft_power"), k1_named["K8 rollraw"][0],
+              ms["k8"], ms["k1_plain"], k1_bound, ms["stft_lib"]),
+        entry("logmel_waveform_rolledge", "wave_stft_power + mel_log", 1321,
+              launched("rolledge", kernel="wave_stft_power")
+              + launched("rolledge", kernel="mel_log"), runs["rolledge"][1], ms["k9"],
+              ms["k5_plain"], k5_bound, ms["stft_mel_lib"]),
+        entry("stft_power_from_waveform(slice, roll_nodb)", "wave_stft_power", 352,
+              launched("slice", "roll_nodb", kernel="wave_stft_power"),
+              k1_named["K10 slice"][0], ms["k10"], ms["k1_plain"], k1_bound,
+              ms["stft_lib"]),
+    ]
 
 
 def main() -> int:
@@ -591,6 +824,9 @@ def main() -> int:
     log(f"[times] {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - phase_t0:.1f} s")
 
+    impl_entries = impls_phase(torch, cfg, dev, bound, win_nnz)
+    log(f"[times] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     print(json.dumps({"kernels": [
         {"name": "wave_stft_power", "route": "cuda", "source": source,
@@ -608,6 +844,7 @@ def main() -> int:
          "launches": pool_launches["frames_stft_power"], "max_abs_err": k3["float32"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms},
+        *impl_entries,
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

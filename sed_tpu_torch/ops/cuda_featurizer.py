@@ -1,4 +1,4 @@
-"""The featurizer's two CUDA kernels, their wrappers and their plain versions.
+"""The featurizer's CUDA kernels, their wrappers and their plain versions.
 
 Counterpart of ``sed_tpu/ops/pallas_featurizer.py``.  The kernels are CUDA
 C++ for Hopper in ``csrc/featurizer.cu`` (see its header for what each one
@@ -8,16 +8,28 @@ replaces, what bounds it and how it is designed):
     one-sided power (n_sig, n_frames, n_fft/2+1) f32 of the centred,
     reflect-padded, windowed real DFT, in natural bin order;
   * K2 :func:`mel_log` — power (rows, n_fft/2+1) f32 -> (rows, mel) f32
-    10*log10(max(1e-10, power @ fb)) over the sparse band description;
+    10*log10(max(1e-10, power @ fb)) over the sparse band description
+    (also sed_tpu's K4, :func:`power_to_logmel_cuda`);
   * K3 :func:`frames_stft_power` — pre-framed rows (rows, n_fft) f32 or
     int16 -> one-sided power (rows, n_fft/2+1) f32 of the windowed real DFT
-    (the streaming tick's featurizer, followed by K2).
+    (the streaming tick's featurizer, followed by K2);
+  * K5 :func:`wave_stft_mel_log` — K1 then K2 in one launch, waveforms ->
+    (n_sig, n_frames, mel) f32 with no power array in device memory;
+  * K6 :func:`wave_packed_fft` — waveforms -> (Zr, Zi), each (n_sig,
+    n_frames, n_fft/2) f32, the packed complex FFT of each frame.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
-:func:`mel_log_plain`, :func:`frames_stft_power_plain`); a CUDA tensor
-launches the kernel or raises.  There is no fallback from a failed build or
-launch to the plain version.
+:func:`mel_log_plain`, :func:`frames_stft_power_plain`,
+:func:`wave_stft_mel_log_plain`, :func:`wave_packed_fft_plain`); a CUDA
+tensor launches the kernel or raises.  There is no fallback from a failed
+build or launch to the plain version.
+
+The drivers at the end carry ``sed_tpu``'s names without ``_pallas``
+(:func:`logmel_waveform` with every ``impl`` name,
+:func:`stft_power_from_waveform`, :func:`stft_eo_power_from_waveform`,
+:func:`stft_packed_from_waveform`, :func:`logmel_waveform_fused`, ...) and
+map each of sed_tpu's ten TPU kernels onto these five.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 ``_build/`` next to this file (git-ignored), as a shared library with a
@@ -42,7 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sed_tpu_torch.configs import SpectrogramConfig
+from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.ops import mel as mel_ops
 from sed_tpu_torch.ops import stft as stft_ops
 
@@ -56,7 +68,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _MAX_SMEM_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
 
-LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0}
+LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
+            "wave_stft_mel_log": 0, "wave_packed_fft": 0}
 
 
 def reset_launch_counts() -> None:
@@ -126,6 +139,12 @@ def _library() -> ctypes.CDLL:
     lib.sed_mel_log.restype = i32
     lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
+    lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
+                                          i32, i32, i32, i32, i32, vp]
+    lib.sed_wave_stft_mel_log.restype = i32
+    lib.sed_wave_packed_fft.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
+                                        i32, i32, vp]
+    lib.sed_wave_packed_fft.restype = i32
     return lib
 
 
@@ -148,10 +167,12 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_fft_size(n_fft: int, window: torch.Tensor) -> None:
+def _check_fft_size(n_fft: int, window: torch.Tensor, extra_smem: int = 0) -> None:
+    """``extra_smem``: bytes the kernel keeps in shared memory beside the
+    n_fft/2 complex points of its FFT."""
     if n_fft < 4 or n_fft & (n_fft - 1):
         raise ValueError(f"n_fft must be a power of two >= 4, got {n_fft}")
-    if (n_fft // 2) * 8 > _MAX_SMEM_BYTES:
+    if (n_fft // 2) * 8 + extra_smem > _MAX_SMEM_BYTES:
         raise ValueError(f"n_fft {n_fft} does not fit the shared-memory FFT")
     if window.shape != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
@@ -164,9 +185,7 @@ def _check_fft_size(n_fft: int, window: torch.Tensor) -> None:
 @functools.lru_cache(maxsize=8)
 def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
     """(n_fft/2, 2) f32 table of W_N^k = exp(-2*pi*i*k/N), from float64."""
-    theta = -2.0 * np.pi * np.arange(n_fft // 2) / n_fft
-    tw = np.stack([np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
+    return torch.from_numpy(np.stack(stft_ops.unpack_twiddles(n_fft), axis=1)).to(device)
 
 
 def wave_stft_power_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
@@ -176,6 +195,24 @@ def wave_stft_power_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
     frames = stft_ops.frame_signal(waves, n_fft, hop) * window.to(waves.dtype)
     spec = torch.fft.rfft(frames, dim=-1)
     return spec.real ** 2 + spec.imag ** 2
+
+
+def _check_waves(name: str, waves: torch.Tensor, window: torch.Tensor, hop: int,
+                 n_fft: int, extra_smem: int = 0) -> int:
+    """Check what the waveform kernels (K1, K5, K6) take; returns n_frames."""
+    device = waves.device
+    _require_cuda_f32("waves", waves, device)
+    _require_cuda_f32("window", window, device)
+    if waves.ndim != 2 or waves.shape[1] < 1:
+        raise ValueError(f"waves must be (n_signals, samples>0), got {tuple(waves.shape)}")
+    _check_fft_size(n_fft, window, extra_smem)
+    if hop < 1:
+        raise ValueError(f"hop must be >= 1, got {hop}")
+    n_sig, n_samples = waves.shape
+    n_frames = stft_ops.num_frames(n_samples, hop)
+    if n_sig * n_frames > _MAX_GRID_X:
+        raise ValueError(f"{name}: {n_sig * n_frames} frames exceed one launch's grid")
+    return n_frames
 
 
 def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
@@ -193,17 +230,8 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
     if waves.device.type != "cuda":
         raise ValueError(f"wave_stft_power: unsupported device {waves.device}")
     device = waves.device
-    _require_cuda_f32("waves", waves, device)
-    _require_cuda_f32("window", window, device)
-    if waves.ndim != 2 or waves.shape[1] < 1:
-        raise ValueError(f"waves must be (n_signals, samples>0), got {tuple(waves.shape)}")
-    _check_fft_size(n_fft, window)
-    if hop < 1:
-        raise ValueError(f"hop must be >= 1, got {hop}")
+    n_frames = _check_waves("wave_stft_power", waves, window, hop, n_fft)
     n_sig, n_samples = waves.shape
-    n_frames = stft_ops.num_frames(n_samples, hop)
-    if n_sig * n_frames > _MAX_GRID_X:
-        raise ValueError(f"{n_sig * n_frames} frames exceed one launch's grid")
     out = torch.empty((n_sig, n_frames, n_fft // 2 + 1), dtype=torch.float32,
                       device=device)
     if n_sig == 0:
@@ -216,6 +244,51 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
     _check_launch("wave_stft_power", err)
     LAUNCHES["wave_stft_power"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6: waveform -> packed complex FFT of each frame
+# ---------------------------------------------------------------------------
+
+def wave_packed_fft_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                          n_fft: int):
+    """Plain version of K6: reflect-centred framing, window, pack
+    z = x_even + i*x_odd, torch.fft.fft.  Returns (real, imag) in the dtype
+    of ``waves`` (float32 or float64)."""
+    frames = stft_ops.frame_signal(waves, n_fft, hop) * window.to(waves.dtype)
+    spec = torch.fft.fft(torch.complex(frames[..., 0::2], frames[..., 1::2]), dim=-1)
+    return spec.real, spec.imag
+
+
+def wave_packed_fft(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                    n_fft: int):
+    """(n_sig, samples) f32 -> (Zr, Zi), each (n_sig, 1 + samples // hop,
+    n_fft/2) f32: Z = FFT_m((x_even + i*x_odd) * window) of each centred,
+    reflect-padded frame, in natural bin order.
+
+    CPU tensors take :func:`wave_packed_fft_plain`; CUDA tensors launch K6.
+    ``sed_tpu`` writes the same Z in its (k2, k1) tile layout.
+    """
+    if waves.device.type == "cpu":
+        return wave_packed_fft_plain(waves, window, hop, n_fft)
+    if waves.device.type != "cuda":
+        raise ValueError(f"wave_packed_fft: unsupported device {waves.device}")
+    device = waves.device
+    n_frames = _check_waves("wave_packed_fft", waves, window, hop, n_fft)
+    n_sig, n_samples = waves.shape
+    m = n_fft // 2
+    zr = torch.empty((n_sig, n_frames, m), dtype=torch.float32, device=device)
+    zi = torch.empty_like(zr)
+    if n_sig == 0:
+        return zr, zi
+    tw = _twiddles(n_fft, device)
+    err = _library().sed_wave_packed_fft(
+        waves.data_ptr(), window.data_ptr(), tw.data_ptr(), zr.data_ptr(),
+        zi.data_ptr(), n_sig, n_samples, n_frames, hop, n_fft.bit_length() - 2,
+        device.index, _stream(device))
+    _check_launch("wave_packed_fft", err)
+    LAUNCHES["wave_packed_fft"] += 1
+    return zr, zi
 
 
 # ---------------------------------------------------------------------------
@@ -341,15 +414,19 @@ def stft_window(cfg: SpectrogramConfig, device: torch.device) -> torch.Tensor:
         stft_ops.padded_window(cfg.frame_size, cfg.nfft).copy()).to(device)
 
 
+def _check_bands(bands: MelBands, device: torch.device) -> None:
+    for name in ("lo", "hi", "offset"):
+        t = getattr(bands, name)
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"bands.{name} must be contiguous int32 on {device}")
+    _require_cuda_f32("bands.weights", bands.weights, device)
+
+
 def mel_log_plain(power: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: dense ``power @ fb`` (TF32 off), clamp, 10*log10.
     Computes in the dtype of ``power`` (float32 or float64)."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with stft_ops.full_precision_matmul():
         melp = torch.matmul(power, fb.to(power.dtype))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     return mel_ops.power_to_db(melp)
 
 
@@ -364,11 +441,7 @@ def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
         raise ValueError(f"mel_log: unsupported device {power.device}")
     device = power.device
     _require_cuda_f32("power", power, device)
-    for name in ("lo", "hi", "offset"):
-        t = getattr(bands, name)
-        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"bands.{name} must be contiguous int32 on {device}")
-    _require_cuda_f32("bands.weights", bands.weights, device)
+    _check_bands(bands, device)
     if power.ndim != 2 or power.shape[1] != bands.n_bins:
         raise ValueError(f"power must be (rows, {bands.n_bins}), got {tuple(power.shape)}")
     rows = power.shape[0]
@@ -384,3 +457,259 @@ def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
     _check_launch("mel_log", err)
     LAUNCHES["mel_log"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: waveform -> log-mel in one launch
+# ---------------------------------------------------------------------------
+
+def wave_stft_mel_log_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                            n_fft: int, fb: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: plain K1 then plain K2, in the dtype of ``waves``."""
+    power = wave_stft_power_plain(waves, window, hop, n_fft)
+    n_sig, n_frames, n_bins = power.shape
+    return mel_log_plain(power.reshape(-1, n_bins), fb).reshape(n_sig, n_frames, -1)
+
+
+def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                      n_fft: int, bands: MelBands) -> torch.Tensor:
+    """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_mels) f32
+    log-mel: K1 then K2 in one kernel, no power array in device memory.
+
+    CPU tensors take :func:`wave_stft_mel_log_plain`; CUDA tensors launch K5.
+    """
+    if waves.device.type == "cpu":
+        return wave_stft_mel_log_plain(waves, window, hop, n_fft, bands.dense)
+    if waves.device.type != "cuda":
+        raise ValueError(f"wave_stft_mel_log: unsupported device {waves.device}")
+    device = waves.device
+    n_frames = _check_waves("wave_stft_mel_log", waves, window, hop, n_fft,
+                            extra_smem=4 * (n_fft // 2 + 1))
+    _check_bands(bands, device)
+    if bands.n_bins != n_fft // 2 + 1:
+        raise ValueError(f"bands cover {bands.n_bins} bins, n_fft {n_fft} has "
+                         f"{n_fft // 2 + 1}")
+    n_sig, n_samples = waves.shape
+    out = torch.empty((n_sig, n_frames, bands.n_mels), dtype=torch.float32,
+                      device=device)
+    if n_sig == 0:
+        return out
+    tw = _twiddles(n_fft, device)
+    err = _library().sed_wave_stft_mel_log(
+        waves.data_ptr(), window.data_ptr(), tw.data_ptr(), bands.lo.data_ptr(),
+        bands.hi.data_ptr(), bands.offset.data_ptr(), bands.weights.data_ptr(),
+        out.data_ptr(), n_sig, n_samples, n_frames, hop, n_fft.bit_length() - 2,
+        bands.n_mels, device.index, _stream(device))
+    _check_launch("wave_stft_mel_log", err)
+    LAUNCHES["wave_stft_mel_log"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The drivers, under sed_tpu's names (pallas_featurizer.py without _pallas)
+# ---------------------------------------------------------------------------
+
+# sed_tpu's implementation names of the waveform featurizer, and the kernels
+# each launches here.  sed_tpu's variants move waveform bytes into the TPU's
+# VMEM in different ways (span DMA, phase switches, reflect buffers, single
+# or double buffering); the function they compute is K1's (K1 then K2 for
+# 'rolledge'), so K1 is their counterpart.  'pack' is K6 then the unpack and
+# K2; 'fuse' is K5.
+IMPL_KERNELS = {
+    "roll": ("wave_stft_power", "mel_log"),
+    "roll_nodb": ("wave_stft_power", "mel_log"),
+    "slice": ("wave_stft_power", "mel_log"),
+    "rollraw": ("wave_stft_power", "mel_log"),
+    "rolledge": ("wave_stft_power", "mel_log"),
+    "eo": ("wave_stft_power", "mel_log"),
+    "pack": ("wave_packed_fft", "mel_log"),
+    "fuse": ("wave_stft_mel_log",),
+}
+
+# sed_tpu's frames per TPU tile (FFT_TILE_R): its raw-read geometry, whose
+# preconditions the port keeps, is counted in these tiles.
+_TPU_TILE_FRAMES = 8
+_TPU_TILE_K = 2048  # sed_tpu's TILE_K: 'fuse' needs nfft to be a multiple
+
+
+def _check_precision(precision, mel_precision=None) -> None:
+    """The parity tier only: ``precision`` None (sed_tpu's HIGHEST FFT) and
+    ``mel_precision`` None or 'bf16x4' (sed_tpu's parity mel).  The port's
+    FP32 kernels have no bf16 passes to count (ROADMAP.md, deferred
+    featurizer tiers)."""
+    if precision is not None:
+        raise NotImplementedError(
+            f"featurizer precision {precision!r} is not ported: the port runs "
+            f"the parity tier only (see ROADMAP.md, deferred featurizer tiers)")
+    if mel_precision in ("bf16x1", "bf16x3"):
+        raise NotImplementedError(
+            f"mel_precision {mel_precision!r} is not ported: the port's mel is "
+            f"FP32, at least as accurate as the parity 'bf16x4' (see ROADMAP.md)")
+    if mel_precision not in (None, "bf16x4"):
+        raise ValueError(f"unknown mel_precision {mel_precision!r}: expected None, "
+                         f"'bf16x4', 'bf16x3' or 'bf16x1'")
+
+
+def _check_rollraw(cfg: SpectrogramConfig, n_samples: int, impl: str) -> None:
+    """sed_tpu's preconditions of 'rollraw' and 'rolledge'
+    (``_rollraw_layout``): n_samples % 128 == 0, nfft >= 32768, and a signal
+    long enough for at least one tile that never enters the reflect pad."""
+    n_fft, hop = cfg.nfft, cfg.hop_size
+    if n_samples % 128 != 0 or n_fft < 32768:
+        raise ValueError(f"{impl} needs n_samples % 128 == 0 and nfft >= 32768, "
+                         f"got n_samples {n_samples}, nfft {n_fft}")
+    tile_stride = _TPU_TILE_FRAMES * hop
+    span_len = 1024 + (_TPU_TILE_FRAMES - 1) * hop + n_fft
+    span_len += (-span_len) % 1024
+    first_interior = -(-(n_fft // 2) // tile_stride)
+    last_interior = (n_samples - span_len) // tile_stride
+    if last_interior < first_interior:
+        raise ValueError(f"{impl} needs a signal with interior tiles: {n_samples} "
+                         f"samples are too short")
+
+
+def _check_even_odd(cfg: SpectrogramConfig, impl: str) -> None:
+    if cfg.nfft % 2 or cfg.hop_size % 2:
+        raise ValueError(f"{impl}: the even/odd paths need even nfft and hop, got "
+                         f"nfft {cfg.nfft}, hop {cfg.hop_size}")
+
+
+def stft_power_from_waveform(waveforms: torch.Tensor,
+                             cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                             impl: str = "roll", precision=None) -> torch.Tensor:
+    """(n_signals, samples) f32 -> (n_signals, n_frames, n_fft/2 + 1) one-
+    sided power through K1, for each of sed_tpu's impl names 'roll',
+    'roll_nodb', 'slice' and 'rollraw'.
+
+    ``sed_tpu`` returns all n_fft bins in its (k2, k1) tile layout; the
+    port returns the one-sided spectrum in natural order (K1's divergence).
+    'roll_aligned_debug' gives wrong values by design in ``sed_tpu`` (a
+    profiling aid) and raises ``NotImplementedError``.
+    """
+    _check_precision(precision)
+    if impl == "rollraw":
+        return stft_power_from_waveform_raw(waveforms, cfg)
+    if impl == "roll_aligned_debug":
+        raise NotImplementedError("impl 'roll_aligned_debug' is a profiling aid of "
+                                  "sed_tpu that gives wrong values; it is not ported")
+    if impl not in ("roll", "roll_nodb", "slice"):
+        raise ValueError(f"unknown impl {impl!r} for stft_power_from_waveform")
+    return wave_stft_power(waveforms, stft_window(cfg, waveforms.device),
+                           cfg.hop_size, cfg.nfft)
+
+
+def stft_power_from_waveform_raw(waveforms: torch.Tensor,
+                                 cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                                 precision=None) -> torch.Tensor:
+    """impl='rollraw': K1, under sed_tpu's preconditions for it (raises
+    ``ValueError`` where sed_tpu asserts).  K1 reads the unpadded waveform
+    and reflects on the index for every frame, which is rollraw's design."""
+    _check_precision(precision)
+    _check_rollraw(cfg, waveforms.shape[-1], "rollraw")
+    return wave_stft_power(waveforms, stft_window(cfg, waveforms.device),
+                           cfg.hop_size, cfg.nfft)
+
+
+def stft_eo_power_from_waveform(waveforms: torch.Tensor,
+                                cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                                precision=None) -> torch.Tensor:
+    """impl='eo': (n_signals, samples) -> (n_signals, n_frames, m + 1) one-
+    sided power (m = n_fft/2, column m the Nyquist bin) through K1, whose
+    unpack is the even/odd identity X[k] = E[k] + W^k O[k].
+
+    ``sed_tpu`` writes columns 0..m-1 in the half transform's (k2, k1) tile
+    layout and pads to m + 128 columns; the port writes natural order, no
+    padding.
+    """
+    _check_precision(precision)
+    _check_even_odd(cfg, "eo")
+    return wave_stft_power(waveforms, stft_window(cfg, waveforms.device),
+                           cfg.hop_size, cfg.nfft)
+
+
+def stft_packed_from_waveform(waveforms: torch.Tensor,
+                              cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                              precision=None):
+    """impl='pack': (n_signals, samples) -> (Zr, Zi), each (n_signals,
+    n_frames, m), Z = FFT_m((x_even + i*x_odd) * window) of each centred
+    frame in natural bin order, through K6.  Feed to
+    :func:`packed_power_onesided`, then :func:`power_to_logmel_cuda`."""
+    _check_precision(precision)
+    _check_even_odd(cfg, "pack")
+    return wave_packed_fft(waveforms, stft_window(cfg, waveforms.device),
+                           cfg.hop_size, cfg.nfft)
+
+
+def packed_power_onesided(zr: torch.Tensor, zi: torch.Tensor,
+                          n_fft: int) -> torch.Tensor:
+    """(..., m) packed FFT in natural order -> (..., m + 1) one-sided power:
+    |X|^2 of the hermitian unpack (PyTorch ops here, as sed_tpu's
+    ``packed_power_onesided`` is XLA there); column m is the Nyquist bin
+    (Re Z[0] - Im Z[0])^2."""
+    xr, xi = stft_ops.hermitian_unpack(zr, zi, n_fft)
+    return xr * xr + xi * xi
+
+
+def power_to_logmel_cuda(power: torch.Tensor,
+                         cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM) -> torch.Tensor:
+    """K4 (sed_tpu's ``power_to_logmel_pallas``): (..., freq_bins) one-sided
+    power -> (..., mel_bins) f32 log-mel through K2, which takes any number
+    of bins with no filterbank size limit (sed_tpu streams its filterbank
+    over K past 24 MB)."""
+    lead = power.shape[:-1]
+    x = power.reshape(-1, power.shape[-1]).to(torch.float32).contiguous()
+    mel = mel_log(x, mel_bands(cfg, power.device))
+    return mel.reshape(*lead, cfg.mel_bins)
+
+
+def logmel_waveform_fused(waveforms: torch.Tensor,
+                          cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                          precision=None, mel_precision="bf16x4") -> torch.Tensor:
+    """impl='fuse': (n_signals, samples) -> (n_signals, n_frames, mel_bins)
+    through K5, equal to K1 then K2 bit for bit."""
+    _check_precision(precision, mel_precision)
+    if cfg.nfft % _TPU_TILE_K:
+        raise ValueError(f"fuse needs nfft % {_TPU_TILE_K} == 0, got {cfg.nfft}")
+    device = waveforms.device
+    return wave_stft_mel_log(waveforms, stft_window(cfg, device), cfg.hop_size,
+                             cfg.nfft, mel_bands(cfg, device))
+
+
+def logmel_waveform_rolledge(waveforms: torch.Tensor,
+                             cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                             precision=None) -> torch.Tensor:
+    """impl='rolledge': K1 then K2, under sed_tpu's rollraw preconditions.
+    sed_tpu splits its grid into raw-read interior tiles and repacked edge
+    strips; K1 reflects on the index, so every frame is an interior one."""
+    _check_precision(precision)
+    _check_rollraw(cfg, waveforms.shape[-1], "rolledge")
+    device = waveforms.device
+    power = wave_stft_power(waveforms, stft_window(cfg, device), cfg.hop_size, cfg.nfft)
+    return power_to_logmel_cuda(power, cfg)
+
+
+def logmel_waveform(waveforms: torch.Tensor,
+                    cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                    impl: str = "roll", precision=None,
+                    mel_precision=None) -> torch.Tensor:
+    """(n_signals, samples) f32 -> (n_signals, n_frames, mel_bins) f32
+    log-mel (counterpart of ``logmel_waveform_pallas``).
+
+    ``impl`` takes every name of ``sed_tpu`` (:data:`IMPL_KERNELS` lists the
+    kernels each launches on a CUDA tensor; a CPU tensor takes their plain
+    versions).  ``precision`` and ``mel_precision``: the parity tier only
+    (:func:`_check_precision`).
+    """
+    _check_precision(precision, mel_precision)
+    if impl == "fuse":
+        return logmel_waveform_fused(waveforms, cfg, precision, mel_precision)
+    if impl == "rolledge":
+        return logmel_waveform_rolledge(waveforms, cfg, precision)
+    if impl == "eo":
+        power = stft_eo_power_from_waveform(waveforms, cfg, precision)
+    elif impl == "pack":
+        zr, zi = stft_packed_from_waveform(waveforms, cfg, precision)
+        power = packed_power_onesided(zr, zi, cfg.nfft)
+    else:
+        power = stft_power_from_waveform(waveforms, cfg, impl, precision)
+    return power_to_logmel_cuda(power, cfg)

@@ -1,16 +1,20 @@
 """Waveform -> log-mel featurizer (counterpart of ``sed_tpu.ops.featurizer``).
 
-One path per device, chosen by the tensor's device:
+The kernels run on the tensor's device: a CUDA tensor goes through the
+hand-written kernels of :mod:`sed_tpu_torch.ops.cuda_featurizer`, a CPU
+tensor through their plain PyTorch versions.  ``sed_tpu``'s choices keep
+their names and meaning:
 
-  * a CUDA tensor goes through the hand-written kernels of
-    :mod:`sed_tpu_torch.ops.cuda_featurizer`: K1 STFT power + K2 mel-log for
-    waveforms (:func:`logmel_features_batch`), K3 STFT power + K2 for
-    pre-framed rows (:func:`logmel_frames`, the streaming tick);
-  * a CPU tensor goes through their plain PyTorch versions.
-
-``sed_tpu`` also chooses between an XLA path and several Pallas
-implementations (``fft_impl``, ``use_pallas``, ``impl``); those choices
-exist for the TPU and have no counterpart here.
+  * ``use_pallas`` of :func:`logmel_features_batch`: 'auto' and 'full' are
+    the fused waveform featurizer (K1 STFT power + K2 mel-log); True is the
+    STFT in PyTorch (per ``fft_impl``) then the mel kernel (sed_tpu's K4,
+    which is K2 here); False is PyTorch ops throughout, as sed_tpu's XLA
+    path.  'auto' never resolves to False, on any device;
+  * ``fft_impl`` ('fft', 'matmul', 'auto' = 'fft'): the STFT of the
+    use_pallas=True/False paths (:mod:`sed_tpu_torch.ops.stft`);
+  * :func:`logmel_frames` is K3 STFT power + K2 for pre-framed rows (the
+    streaming tick); ``cuda_featurizer.logmel_waveform`` takes every
+    ``impl`` name of ``sed_tpu``'s ``logmel_waveform_pallas``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.ops import cuda_featurizer as kernels
+from sed_tpu_torch.ops import mel as mel_ops
+from sed_tpu_torch.ops import stft as stft_ops
 from sed_tpu_torch.ops.mulaw import mulaw_decode, mulaw_decode_np
 
 # The parity tier is the only one ported.  sed_tpu's 'fast' ('bf16x3') and
@@ -74,45 +80,112 @@ def ingest_to_f32_np(a) -> np.ndarray:
     return a.astype(np.float32)
 
 
+def resolve_pallas(use_pallas, cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM):
+    """'auto' -> 'full' (the fused waveform featurizer, K1 + K2); any other
+    value is returned as it is.
+
+    On ``sed_tpu`` 'auto' means the fused Pallas path on a TPU and XLA
+    elsewhere, and stays on XLA for configs with nfft < 32768, which Mosaic
+    cannot lower.  On the port 'auto' means the hand-written kernels whenever
+    the tensor is on CUDA (their plain versions on the CPU), for every
+    config: K1 has no lower nfft limit, so there is no small-config
+    exception.  ``cfg`` is kept for ``sed_tpu``'s signature.
+    """
+    return "full" if use_pallas == "auto" else use_pallas
+
+
 def power_to_logmel(power: torch.Tensor,
-                    cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM) -> torch.Tensor:
-    """(..., freq_bins) one-sided power -> (..., mel_bins) log-mel (float32)."""
-    lead = power.shape[:-1]
-    x = power.reshape(-1, power.shape[-1]).to(torch.float32).contiguous()
-    mel = kernels.mel_log(x, kernels.mel_bands(cfg, power.device))
-    return mel.reshape(*lead, cfg.mel_bins)
+                    cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                    use_pallas: bool = False) -> torch.Tensor:
+    """(..., freq_bins) power spectrum -> (..., mel_bins) log-mel (float32).
+
+    ``use_pallas=True`` is the mel kernel (sed_tpu's K4, K2 here, launched on
+    a CUDA tensor); False is ``power @ fb`` in full float32 then
+    ``power_to_db``, PyTorch ops as sed_tpu's XLA branch.
+    """
+    if use_pallas:
+        return kernels.power_to_logmel_cuda(power, cfg)
+    fb = torch.from_numpy(mel_ops.mel_filterbank(cfg)).to(power.device)
+    with stft_ops.full_precision_matmul():
+        melp = torch.matmul(power.to(torch.float32), fb)
+    return mel_ops.power_to_db(melp)
+
+
+def multichannel_stft(waveform: torch.Tensor,
+                      cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                      fft_impl: str = "fft") -> torch.Tensor:
+    """(samples, channels) -> (channels, frames, nfft//2+1) complex64, the
+    per-channel centred STFT, frames-major."""
+    return stft_ops.stft(waveform.transpose(0, 1).to(torch.float32), cfg, fft_impl)
+
+
+def multichannel_stft_host(waveform, cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                           fft_impl: str = "auto") -> np.ndarray:
+    """:func:`multichannel_stft` as a numpy complex64 array, assembled on the
+    host from the (real, imag) pair (``sed_tpu``'s variant for backends
+    without complex types)."""
+    y = torch.as_tensor(np.asarray(waveform)).transpose(0, 1).to(torch.float32)
+    re, im = stft_ops.stft_realimag(y, cfg, fft_impl)
+    return re.cpu().numpy() + 1j * im.cpu().numpy().astype(np.float32)
+
+
+def multichannel_complex_to_log_mel(spec: torch.Tensor,
+                                    cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                                    use_pallas: bool = False) -> torch.Tensor:
+    """|X|^2 -> mel projection -> 10*log10(max(1e-10, .)), float32.
+
+    Takes any (..., freq_bins) tensor: complex spectrograms, or real rows
+    (squared, as the reference's SVM baseline does with raw rfft rows).
+    """
+    if spec.is_complex():
+        power = spec.real ** 2 + spec.imag ** 2
+    else:
+        power = spec.to(torch.float32) ** 2
+    return power_to_logmel(power.to(torch.float32), cfg, use_pallas)
+
+
+def realimag_to_log_mel(real: torch.Tensor, imag: torch.Tensor,
+                        cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                        use_pallas: bool = False) -> torch.Tensor:
+    """Complex-free equivalent of :func:`multichannel_complex_to_log_mel`."""
+    power = real.to(torch.float32) ** 2 + imag.to(torch.float32) ** 2
+    return power_to_logmel(power, cfg, use_pallas)
 
 
 def logmel_features_batch(waveforms: torch.Tensor,
                           cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
-                          precision=None) -> torch.Tensor:
+                          fft_impl: str = "auto", use_pallas="auto",
+                          pallas_precision=None) -> torch.Tensor:
     """(batch, samples, channels) -> (batch, channels, frames, mel_bins) float32.
 
-    ``waveforms`` is float, int16 (PCM16) or uint8 (µ-law).  It is featurized
-    on its own device: K1 + K2 on CUDA, their plain versions on CPU.
-    ``precision``: None or 'parity' (see :func:`resolve_featurizer_precision`).
+    ``waveforms`` is float, int16 (PCM16) or uint8 (µ-law) on every path.
+    ``use_pallas`` and ``fft_impl`` as in the module docstring: 'auto' and
+    'full' run K1 + K2 on CUDA.  ``pallas_precision``: None or 'parity'
+    (see :func:`resolve_featurizer_precision`).
     """
-    resolve_featurizer_precision(precision)
+    resolve_featurizer_precision(pallas_precision)
     if waveforms.ndim != 3:
         raise ValueError(f"waveforms must be (batch, samples, channels), "
                          f"got {tuple(waveforms.shape)}")
     b, samples, c = waveforms.shape
-    device = waveforms.device
     signals = ingest_to_f32(
         waveforms.transpose(1, 2).reshape(b * c, samples)).contiguous()
-    power = kernels.wave_stft_power(signals, kernels.stft_window(cfg, device),
-                                    cfg.hop_size, cfg.nfft)
-    n_frames = power.shape[1]
-    mel = kernels.mel_log(power.reshape(-1, cfg.freq_bins),
-                          kernels.mel_bands(cfg, device))
-    return mel.reshape(b, c, n_frames, cfg.mel_bins)
+    use_pallas = resolve_pallas(use_pallas, cfg)
+    if use_pallas == "full":
+        mel = kernels.logmel_waveform(signals, cfg)
+    else:
+        re, im = stft_ops.stft_realimag(signals, cfg, fft_impl)
+        mel = realimag_to_log_mel(re, im, cfg, use_pallas)
+    return mel.reshape(b, c, -1, cfg.mel_bins)
 
 
 def logmel_features(waveform: torch.Tensor,
                     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
-                    precision=None) -> torch.Tensor:
+                    fft_impl: str = "auto", use_pallas="auto",
+                    pallas_precision=None) -> torch.Tensor:
     """(samples, channels) -> (channels, frames, mel_bins) float32."""
-    return logmel_features_batch(waveform[None], cfg, precision)[0]
+    return logmel_features_batch(waveform[None], cfg, fft_impl, use_pallas,
+                                 pallas_precision)[0]
 
 
 def logmel_frames(frames: torch.Tensor, cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,

@@ -10,13 +10,19 @@ hop_length=15840, window=np.hanning(31680), center=True, pad_mode='reflect')``:
   3. frames of n_fft samples are taken every hop: n_frames = 1 + len // hop;
   4. each frame is windowed and goes through a real FFT (n_fft//2 + 1 bins).
 
-This module is the plain path, on ``torch.fft.rfft``.  ``sed_tpu`` runs the
-FFT as Cooley-Tukey matmul stages at Precision.HIGHEST because the TPU has
-no accurate native FFT; on CPU and GPU ``torch.fft`` is accurate float32.
+Two FFT backends, as in ``sed_tpu`` (``fft_impl``):
+
+  * ``'fft'`` — ``torch.fft.rfft``, accurate float32 on CPU and GPU alike,
+    so it is the default on every device (:func:`default_fft_impl`);
+  * ``'matmul'`` — the two-stage Cooley-Tukey matmul rFFT of ``sed_tpu``
+    (:func:`rfft_matmul_realimag`), which exists there because the TPU has
+    no accurate native FFT.  Its stages are ``torch.matmul`` in full float32
+    (TF32 off), as ``sed_tpu`` leaves them to XLA at Precision.HIGHEST.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -76,14 +82,149 @@ def windowed_frames(y: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
     return frame_signal(y, cfg.nfft, cfg.hop_size) * window
 
 
+@contextlib.contextmanager
+def full_precision_matmul():
+    """Float32 matrix products in full float32 on the card (TF32 off) for the
+    duration, restoring the caller's setting after."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ---------------------------------------------------------------------------
+# Matmul rFFT: N = N1 * N2 Cooley-Tukey with the DFT stages as matmuls.
+# ---------------------------------------------------------------------------
+
+def _dft_matrix(n: int) -> np.ndarray:
+    """(n, n) complex128 DFT matrix W[k, m] = exp(-2j*pi*k*m/n)."""
+    k = np.arange(n)
+    return np.exp(-2j * np.pi * np.outer(k, k) / n)
+
+
+@functools.lru_cache(maxsize=4)
+def _matmul_fft_constants(n_fft: int):
+    """Split-radix constants of the two-stage matmul FFT (the port's copy of
+    ``sed_tpu``'s): n_fft = n1 * n2 with n1 = 2**(log2(n_fft)//2), the inner
+    (n2, n2) and outer (n1, n1) DFT matrices and the (n2, n1) twiddles
+    W_N^(n1_idx * k2), computed in float64 and rounded once to float32.
+    Returns ``n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi)`` as numpy arrays."""
+    k = int(np.log2(n_fft))
+    if 2 ** k != n_fft:
+        raise ValueError(f"matmul FFT requires a power-of-two size, got {n_fft}")
+    n1 = 2 ** (k // 2)
+    n2 = n_fft // n1
+    tw = np.exp(-2j * np.pi * np.arange(n2)[:, None] * np.arange(n1)[None, :] / n_fft)
+
+    def f32(c):
+        return c.real.astype(np.float32), c.imag.astype(np.float32)
+
+    return n1, n2, f32(_dft_matrix(n2)), f32(_dft_matrix(n1)), f32(tw)
+
+
+def _cfft_matmul(xr: torch.Tensor, xi: torch.Tensor, m: int):
+    """Complex FFT of length m on (real, imag) float32 tensors via two
+    Cooley-Tukey stages, each a dense matmul; natural-order output."""
+    n1, n2, w2, w1, tw = _matmul_fft_constants(m)
+    (w2r, w2i), (w1r, w1i), (twr, twi) = (
+        tuple(torch.from_numpy(a).to(xr.device) for a in pair) for pair in (w2, w1, tw))
+    batch = xr.shape[:-1]
+    xr = xr.reshape(batch + (n2, n1))
+    xi = xi.reshape(batch + (n2, n1))
+    with full_precision_matmul():
+        # Inner DFT over n2: Y[k2, n1] = sum_n2 W2[k2, n2] x[n2, n1] (complex).
+        yr = torch.matmul(w2r, xr) - torch.matmul(w2i, xi)
+        yi = torch.matmul(w2r, xi) + torch.matmul(w2i, xr)
+        # Twiddle (elementwise on (k2, n1)).
+        yr, yi = yr * twr - yi * twi, yr * twi + yi * twr
+        # Outer DFT over n1: X[k2, k1] = sum_n1 Y[k2, n1] W1[n1, k1].
+        zr = torch.matmul(yr, w1r) - torch.matmul(yi, w1i)
+        zi = torch.matmul(yr, w1i) + torch.matmul(yi, w1r)
+    # X[n2*k1 + k2] = Z[k2, k1] -> transpose to (k1, k2) and flatten.
+    return (zr.transpose(-1, -2).reshape(batch + (m,)),
+            zi.transpose(-1, -2).reshape(batch + (m,)))
+
+
+@functools.lru_cache(maxsize=8)
+def unpack_twiddles(n_fft: int):
+    """cos and sin of -2*pi*k/n_fft for k < n_fft/2 (W_N^k of the hermitian
+    unpack), computed in float64 and rounded once to float32."""
+    theta = -2.0 * np.pi * np.arange(n_fft // 2) / n_fft
+    c, s = np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+    c.setflags(write=False)
+    s.setflags(write=False)
+    return c, s
+
+
+def hermitian_unpack(zr: torch.Tensor, zi: torch.Tensor, n_fft: int):
+    """Z = FFT_M(x_even + i*x_odd) of real frames (M = n_fft/2, natural bin
+    order) -> (real, imag) of their real DFT, each (..., M + 1):
+      E[k] = (Z[k] + conj(Z[M-k]))/2,  O[k] = (Z[k] - conj(Z[M-k]))/(2i),
+      X[k] = E[k] + W_N^k O[k],        X[M] = E[0] - O[0] (purely real).
+    Computes in the dtype of ``zr``."""
+    c, s = (torch.tensor(a, dtype=zr.dtype, device=zr.device)
+            for a in unpack_twiddles(n_fft))
+    # conj(Z[(M-k) mod M]): index 0 stays, the rest reversed.
+    zrev_r = torch.roll(zr.flip(-1), 1, dims=-1)
+    zrev_i = -torch.roll(zi.flip(-1), 1, dims=-1)
+    er = 0.5 * (zr + zrev_r)
+    ei = 0.5 * (zi + zrev_i)
+    orr = 0.5 * (zi - zrev_i)
+    oi = -0.5 * (zr - zrev_r)
+    xr = torch.cat([er + c * orr - s * oi, er[..., :1] - orr[..., :1]], dim=-1)
+    xi = ei + c * oi + s * orr
+    return xr, torch.cat([xi, torch.zeros_like(xi[..., :1])], dim=-1)
+
+
+def rfft_matmul_realimag(frames: torch.Tensor, n_fft: int):
+    """Real FFT of (..., n_fft) frames as matmuls: (real, imag) float32, each
+    (..., n_fft//2 + 1): even/odd packing z[n] = x[2n] + i*x[2n+1] through
+    the two-stage matmul complex FFT of length n_fft/2 (half the work of a
+    length-n_fft transform), then :func:`hermitian_unpack`."""
+    m = n_fft // 2
+    x = frames.to(torch.float32).reshape(frames.shape[:-1] + (m, 2))
+    zr, zi = _cfft_matmul(x[..., 0], x[..., 1], m)
+    return hermitian_unpack(zr, zi, n_fft)
+
+
+def rfft_matmul(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Complex-output wrapper over :func:`rfft_matmul_realimag`."""
+    return torch.complex(*rfft_matmul_realimag(frames, n_fft))
+
+
+def default_fft_impl() -> str:
+    """'fft' on every device: torch's FFT is accurate float32 on CPU and GPU
+    (``sed_tpu`` picks 'matmul' only on a TPU backend)."""
+    return "fft"
+
+
+def _resolve_fft_impl(fft_impl: str) -> str:
+    if fft_impl == "auto":
+        return default_fft_impl()
+    if fft_impl not in ("fft", "matmul"):
+        raise ValueError(f"unknown fft_impl {fft_impl!r}: expected 'fft', 'matmul' "
+                         f"or 'auto'")
+    return fft_impl
+
+
 def stft_realimag(y: torch.Tensor,
-                  cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM):
+                  cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                  fft_impl: str = "auto"):
     """(..., samples) -> ((..., frames, bins) real, (..., frames, bins) imag)."""
-    spec = torch.fft.rfft(windowed_frames(y, cfg), dim=-1)
+    frames = windowed_frames(y, cfg)
+    if _resolve_fft_impl(fft_impl) == "matmul":
+        return rfft_matmul_realimag(frames, cfg.nfft)
+    spec = torch.fft.rfft(frames, dim=-1)
     return spec.real, spec.imag
 
 
 def stft(y: torch.Tensor,
-         cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM) -> torch.Tensor:
+         cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+         fft_impl: str = "fft") -> torch.Tensor:
     """(..., samples) -> (..., n_frames, n_fft//2+1) complex, frames-major."""
-    return torch.fft.rfft(windowed_frames(y, cfg), dim=-1)
+    frames = windowed_frames(y, cfg)
+    if _resolve_fft_impl(fft_impl) == "matmul":
+        return rfft_matmul(frames, cfg.nfft)
+    return torch.fft.rfft(frames, dim=-1)

@@ -6,8 +6,10 @@ import neither JAX nor sed_tpu, so they also run where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances (against the plain versions computed in float64 on the card):
-  * K1 and K3 power: abs error <= 1e-5 x the frame's (row's) peak power;
-  * K2 and the whole featurizer: <= 1e-4 dB;
+  * K1 and K3 power, K6's packed Z: abs error <= 1e-5 x the frame's (row's)
+    peak;
+  * K2, K5, every impl name and the whole featurizer: <= 1e-4 dB;
+  * K5 against K1 then K2: equal bit for bit;
   * scores, CUDA against CPU: <= 1e-4 abs (another summation order).
 """
 
@@ -238,7 +240,8 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
     kernels.reset_launch_counts()
     got = make_batch_predictor(model, PROD, device=cuda)(x).cpu()
     assert kernels.LAUNCHES == {"wave_stft_power": 1, "mel_log": 1,
-                                "frames_stft_power": 0}
+                                "frames_stft_power": 0, "wave_stft_mel_log": 0,
+                                "wave_packed_fft": 0}
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
@@ -251,3 +254,111 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
     on_cpu = batch_predict_files(cpu_model, paths, PROD, device="cpu")
     for p in paths:
         np.testing.assert_allclose(on_card[p], on_cpu[p], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("cfg,n", [
+    (SMALL, 20 * 8000), (SMALL, 20 * 8000 + 1317), (SMALL, 7), (PROD, 3 * 48000 + 11),
+])
+def test_k5_equals_k1_then_k2_and_float64(cuda, cfg, n):
+    """K5 is K1 then K2 in one launch: equal bit for bit, and within 1e-4 dB
+    of the float64 chain."""
+    waves = signals(3, n, cfg.working_sample_rate, cuda)
+    window = kernels.stft_window(cfg, cuda)
+    bands = kernels.mel_bands(cfg, cuda)
+    before = kernels.LAUNCHES["wave_stft_mel_log"]
+    got = kernels.wave_stft_mel_log(waves, window, cfg.hop_size, cfg.nfft, bands)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_mel_log"] == before + 1
+    power = kernels.wave_stft_power(waves, window, cfg.hop_size, cfg.nfft)
+    two = kernels.mel_log(power.reshape(-1, cfg.freq_bins), bands)
+    assert got.shape == (3, 1 + n // cfg.hop_size, cfg.mel_bins)
+    assert torch.equal(got.reshape(-1, cfg.mel_bins), two)
+    if n < cfg.nfft:
+        # A few samples reflected into a whole frame leave most bands near the
+        # 1e-10 floor, where float32 cannot hold 1e-4 dB (K1 then K2 neither).
+        return
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    want = kernels.wave_stft_mel_log_plain(waves.double(), window, cfg.hop_size,
+                                           cfg.nfft, fb64)
+    assert float((got.double() - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("cfg,n", [
+    (SMALL, 20 * 8000 + 1317), (SMALL, 7), (PROD, 3 * 48000 + 11),
+])
+def test_k6_matches_float64_plain(cuda, cfg, n):
+    waves = signals(3, n, cfg.working_sample_rate, cuda)
+    window = kernels.stft_window(cfg, cuda)
+    before = kernels.LAUNCHES["wave_packed_fft"]
+    zr, zi = kernels.wave_packed_fft(waves, window, cfg.hop_size, cfg.nfft)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_packed_fft"] == before + 1
+    wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, cfg.hop_size, cfg.nfft)
+    assert zr.shape == zi.shape == wr.shape == (3, 1 + n // cfg.hop_size, cfg.nfft // 2)
+    peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+    assert bool(((zr.double() - wr).abs() <= 1e-5 * peak).all())
+    assert bool(((zi.double() - wi).abs() <= 1e-5 * peak).all())
+
+
+@pytest.mark.parametrize("impl", sorted(kernels.IMPL_KERNELS))
+def test_every_impl_launches_its_kernels(cuda, impl):
+    """Each sed_tpu impl name on the card: exactly the kernels its row names,
+    once each; within 1e-4 dB of the float64 chain and of the CPU."""
+    cfg, n = ((PROD, 6 * 48000) if impl in ("rollraw", "rolledge")
+              else (SMALL, 20 * 8000 + 1317))
+    waves = signals(2, n, cfg.working_sample_rate, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.logmel_waveform(waves, cfg, impl=impl)
+    torch.cuda.synchronize()
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update(dict.fromkeys(kernels.IMPL_KERNELS[impl], 1))
+    assert kernels.LAUNCHES == want_launches
+    window = kernels.stft_window(cfg, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    chain = kernels.wave_stft_mel_log_plain(waves.double(), window, cfg.hop_size,
+                                            cfg.nfft, fb64)
+    assert got.shape == chain.shape
+    assert float((got.double() - chain).abs().max()) <= 1e-4
+    on_cpu = kernels.logmel_waveform(waves.cpu(), cfg, impl=impl)
+    torch.testing.assert_close(got.cpu(), on_cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("fft_impl", ["fft", "matmul"])
+def test_use_pallas_paths_on_the_card(cuda, fft_impl):
+    """use_pallas=True: the STFT in PyTorch, then K4 (the mel kernel) only;
+    False: PyTorch ops only; 'auto': K1 + K2.  All three agree with the CPU."""
+    x = (signals(2, 10 * 8000, 8000, cuda, seed=9).clamp(-1, 1) * 32767).to(torch.int16)
+    x = x.T[None].contiguous()
+    for use_pallas, launched in ((True, {"mel_log": 1}), (False, {}),
+                                 ("auto", {"wave_stft_power": 1, "mel_log": 1})):
+        kernels.reset_launch_counts()
+        got = featurizer.logmel_features_batch(x, SMALL, fft_impl=fft_impl,
+                                               use_pallas=use_pallas)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == launched
+        want = featurizer.logmel_features_batch(x.cpu(), SMALL, fft_impl=fft_impl,
+                                                use_pallas=use_pallas)
+        assert got.shape == want.shape == (1, 2, 31, 64)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    window = kernels.stft_window(SMALL, cuda)
+    waves = signals(2, 9000, 8000, cuda)
+    bands = kernels.mel_bands(SMALL, cuda)
+    with pytest.raises(TypeError):
+        kernels.wave_packed_fft(waves.double(), window, SMALL.hop_size, SMALL.nfft)
+    with pytest.raises(ValueError):
+        kernels.wave_packed_fft(waves.t(), window, SMALL.hop_size, SMALL.nfft)
+    with pytest.raises(ValueError):
+        kernels.wave_stft_mel_log(waves, window.cpu(), SMALL.hop_size, SMALL.nfft, bands)
+    with pytest.raises(ValueError, match="bins"):
+        kernels.wave_stft_mel_log(waves, window, SMALL.hop_size, SMALL.nfft,
+                                  kernels.mel_bands(PROD, cuda))
+    with pytest.raises(ValueError):
+        kernels.wave_stft_mel_log(waves, window, SMALL.hop_size, SMALL.nfft,
+                                  kernels.mel_bands(SMALL, torch.device("cpu")))
+    # K5 keeps z and the power in shared memory: 32768 fits, 65536 does not.
+    big = torch.zeros(65536, device=cuda)
+    with pytest.raises(ValueError, match="shared-memory"):
+        kernels.wave_stft_mel_log(waves, big, 1000, 65536, bands)

@@ -85,7 +85,7 @@ def test_power_to_logmel_is_k2_on_one_sided_power():
     cfg = SpectrogramConfig(**SMALL)
     power = torch.rand(2, 3, cfg.freq_bins, dtype=torch.float64,
                        generator=torch.Generator().manual_seed(5))
-    got = featurizer.power_to_logmel(power, cfg)
+    got = featurizer.power_to_logmel(power, cfg, use_pallas=True)
     assert got.shape == (2, 3, cfg.mel_bins) and got.dtype == torch.float32
     want = kernels.mel_log(power.reshape(6, -1).float(),
                            kernels.mel_bands(cfg, torch.device("cpu")))
@@ -93,11 +93,18 @@ def test_power_to_logmel_is_k2_on_one_sided_power():
 
 
 def test_cpu_tensors_never_launch_kernels():
+    cfg = SpectrogramConfig(**SMALL)
     kernels.reset_launch_counts()
     x = torch.from_numpy(_clips("int16", batch=1, seconds=2, sr=8000))
-    featurizer.logmel_features_batch(x, SpectrogramConfig(**SMALL))
+    for use_pallas in ("auto", True, False):
+        featurizer.logmel_features_batch(x, cfg, use_pallas=use_pallas)
+    signals = featurizer.ingest_to_f32(x[..., 0])
+    for impl in kernels.IMPL_KERNELS:
+        if impl not in ("rollraw", "rolledge"):      # production config only
+            kernels.logmel_waveform(signals, cfg, impl=impl)
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
-                                "frames_stft_power": 0}
+                                "frames_stft_power": 0, "wave_stft_mel_log": 0,
+                                "wave_packed_fft": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -110,6 +117,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.mel_log(torch.empty(4, cfg.freq_bins, device=meta),
                         kernels.mel_bands(cfg, torch.device("cpu")))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.wave_packed_fft(torch.empty(1, 9000, device=meta),
+                                torch.empty(cfg.nfft, device=meta),
+                                cfg.hop_size, cfg.nfft)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.wave_stft_mel_log(torch.empty(1, 9000, device=meta),
+                                  torch.empty(cfg.nfft, device=meta), cfg.hop_size,
+                                  cfg.nfft, kernels.mel_bands(cfg, torch.device("cpu")))
 
 
 @pytest.mark.parametrize("tier", ["fast", "turbo", "bf16x1", "bf16x3", "bf16x6"])
@@ -118,7 +133,8 @@ def test_reduced_precision_tiers_are_not_ported(tier):
         featurizer.resolve_featurizer_precision(tier)
     with pytest.raises(NotImplementedError):
         featurizer.logmel_features_batch(torch.zeros(1, 9000, 1),
-                                         SpectrogramConfig(**SMALL), precision=tier)
+                                         SpectrogramConfig(**SMALL),
+                                         pallas_precision=tier)
 
 
 def test_precision_resolution_and_ingest_rules():

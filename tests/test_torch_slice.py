@@ -81,7 +81,8 @@ def test_slice_scores_match_jax_pipeline():
     assert got.shape == want.shape == (2, 30, 1)   # 31 frames -> 15 -> x2
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
-                                "frames_stft_power": 0}
+                                "frames_stft_power": 0, "wave_stft_mel_log": 0,
+                                "wave_packed_fft": 0}
 
 
 def test_mean_std_normalization_matches_jax_predictor():
