@@ -553,7 +553,8 @@ def _check_precision(precision, mel_precision=None) -> None:
 def _check_rollraw(cfg: SpectrogramConfig, n_samples: int, impl: str) -> None:
     """sed_tpu's preconditions of 'rollraw' and 'rolledge'
     (``_rollraw_layout``): n_samples % 128 == 0, nfft >= 32768, and a signal
-    long enough for at least one tile that never enters the reflect pad."""
+    long enough for at least one tile that never enters the reflect pad.
+    K1 needs none of them; they are kept for parity only (ROADMAP.md, S2)."""
     n_fft, hop = cfg.nfft, cfg.hop_size
     if n_samples % 128 != 0 or n_fft < 32768:
         raise ValueError(f"{impl} needs n_samples % 128 == 0 and nfft >= 32768, "

@@ -120,11 +120,22 @@ def multichannel_stft(waveform: torch.Tensor,
 
 
 def multichannel_stft_host(waveform, cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
-                           fft_impl: str = "auto") -> np.ndarray:
-    """:func:`multichannel_stft` as a numpy complex64 array, assembled on the
-    host from the (real, imag) pair (``sed_tpu``'s variant for backends
-    without complex types)."""
-    y = torch.as_tensor(np.asarray(waveform)).transpose(0, 1).to(torch.float32)
+                           fft_impl: str = "auto", device=None) -> np.ndarray:
+    """:func:`multichannel_stft` as a numpy complex64 array: the (real, imag)
+    STFT runs on ``device`` and only the complex array is assembled on the
+    host (``sed_tpu``'s variant for backends without complex types).
+
+    ``device`` None is the tensor's own device for a tensor ``waveform`` and
+    'cuda' for anything else (pass ``device='cpu'`` to run on the CPU).
+    """
+    from sed_tpu_torch.inference import resolve_device  # inference imports this module
+
+    if device is None:
+        device = waveform.device if isinstance(waveform, torch.Tensor) else "cuda"
+    device = resolve_device(device)
+    if not isinstance(waveform, torch.Tensor):
+        waveform = np.asarray(waveform)
+    y = torch.as_tensor(waveform, device=device).transpose(0, 1).to(torch.float32)
     re, im = stft_ops.stft_realimag(y, cfg, fft_impl)
     return re.cpu().numpy() + 1j * im.cpu().numpy().astype(np.float32)
 

@@ -260,8 +260,10 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
     (SMALL, 20 * 8000), (SMALL, 20 * 8000 + 1317), (SMALL, 7), (PROD, 3 * 48000 + 11),
 ])
 def test_k5_equals_k1_then_k2_and_float64(cuda, cfg, n):
-    """K5 is K1 then K2 in one launch: equal bit for bit, and within 1e-4 dB
-    of the float64 chain."""
+    """K5 is K1 then K2 in one launch: equal bit for bit.  Against the
+    float64 chain: every band's mel power within 1e-5 of its frame's loudest
+    band (K1's power tolerance), and 1e-4 dB on every band within 60 dB of
+    its frame's loudest."""
     waves = signals(3, n, cfg.working_sample_rate, cuda)
     window = kernels.stft_window(cfg, cuda)
     bands = kernels.mel_bands(cfg, cuda)
@@ -273,14 +275,26 @@ def test_k5_equals_k1_then_k2_and_float64(cuda, cfg, n):
     two = kernels.mel_log(power.reshape(-1, cfg.freq_bins), bands)
     assert got.shape == (3, 1 + n // cfg.hop_size, cfg.mel_bins)
     assert torch.equal(got.reshape(-1, cfg.mel_bins), two)
-    if n < cfg.nfft:
-        # A few samples reflected into a whole frame leave most bands near the
-        # 1e-10 floor, where float32 cannot hold 1e-4 dB (K1 then K2 neither).
-        return
     fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
     want = kernels.wave_stft_mel_log_plain(waves.double(), window, cfg.hop_size,
                                            cfg.nfft, fb64)
-    assert float((got.double() - want).abs().max()) <= 1e-4
+    loudest = want.amax(dim=-1, keepdim=True)
+    peak_power = 10.0 ** (loudest / 10)
+    power_err = (10.0 ** (got.double() / 10) - 10.0 ** (want / 10)).abs()
+    assert bool((power_err <= 1e-5 * peak_power).all())
+    audible = want >= loudest - 60.0
+    assert float((got.double() - want)[audible].abs().max()) <= 1e-4
+    if n >= cfg.nfft:
+        assert bool(audible.all())
+    else:
+        # 7 samples reflected into a whole frame: a few harmonics, and bands
+        # ~140 dB below them, where float32's FFT error (~1e-7 of the frame
+        # peak) is most of their power.  cuFFT in float32 misses there too.
+        quiet = ~audible
+        assert bool(quiet.any())
+        cufft32 = kernels.wave_stft_mel_log_plain(waves, window, cfg.hop_size,
+                                                  cfg.nfft, bands.dense)
+        assert float((cufft32.double() - want)[quiet].abs().max()) > 1e-4
 
 
 @pytest.mark.parametrize("cfg,n", [
@@ -340,6 +354,46 @@ def test_use_pallas_paths_on_the_card(cuda, fft_impl):
                                                 use_pallas=use_pallas)
         assert got.shape == want.shape == (1, 2, 31, 64)
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_k4_streamed_filterbank_config_on_the_card(cuda):
+    """K4 at n_fft 131072 (65537 bins), where sed_tpu streams its 33.6 MB
+    filterbank: K2 takes the bins as they are, within 1e-4 dB of float64."""
+    cfg = SpectrogramConfig(time_margin=0.7)
+    assert cfg.freq_bins == 65537
+    g = torch.Generator(device=cuda).manual_seed(10)
+    power = torch.rand(3, 2, cfg.freq_bins, generator=g, device=cuda) ** 4 * 1e3
+    power[1, 0] = 0.0
+    kernels.reset_launch_counts()
+    got = kernels.power_to_logmel_cuda(power, cfg)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"mel_log": 1}
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    want = kernels.mel_log_plain(power.double(), fb64)
+    assert got.shape == want.shape == (3, 2, 64)
+    assert float((got.double() - want).abs().max()) <= 1e-4
+    assert bool((got[1, 0] == -100.0).all())
+
+
+def test_multichannel_stft_host_runs_on_the_card(cuda, monkeypatch):
+    """A numpy waveform is transformed on the card by default, and the host
+    array equals multichannel_stft's on the same device."""
+    from sed_tpu_torch.ops import stft as stft_ops
+
+    wav = signals(3, 2 * 8000, 8000, cuda, seed=11).T.contiguous()     # (samples, 3)
+    seen = []
+    realimag = stft_ops.stft_realimag
+
+    def spy(y, *args):
+        seen.append(y.device.type)
+        return realimag(y, *args)
+
+    monkeypatch.setattr(stft_ops, "stft_realimag", spy)
+    host = featurizer.multichannel_stft_host(wav.cpu().numpy(), SMALL, "fft")
+    assert seen == ["cuda"]
+    spec = featurizer.multichannel_stft(wav, SMALL, "fft").cpu().numpy()
+    assert host.dtype == spec.dtype == np.complex64
+    np.testing.assert_array_equal(host, spec)
 
 
 def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

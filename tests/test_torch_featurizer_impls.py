@@ -267,10 +267,12 @@ def test_multichannel_functions_match_sed_tpu(use_pallas):
     assert spec.dtype == torch.complex64
     peak = np.abs(np.asarray(jspec)).max(axis=-1, keepdims=True)
     assert np.all(np.abs(spec.numpy() - np.asarray(jspec)) <= REL_PEAK * peak)
-    host = featurizer.multichannel_stft_host(wav, cfg, "matmul")
+    host = featurizer.multichannel_stft_host(wav, cfg, "matmul", device="cpu")
     jhost = jax_featurizer.multichannel_stft_host(wav, jcfg, "matmul")
     assert host.dtype == jhost.dtype
     assert np.all(np.abs(host - jhost) <= REL_PEAK * peak)
+    np.testing.assert_array_equal(
+        featurizer.multichannel_stft_host(torch.from_numpy(wav), cfg, "matmul"), host)
 
     got = featurizer.multichannel_complex_to_log_mel(spec, cfg, use_pallas).numpy()
     want = jax_featurizer.multichannel_complex_to_log_mel(jspec, jcfg, use_pallas)
@@ -285,6 +287,15 @@ def test_multichannel_functions_match_sed_tpu(use_pallas):
     want = jax_featurizer.realimag_to_log_mel(jnp.real(jspec), jnp.imag(jspec), jcfg,
                                               use_pallas)
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL_DB)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal on a host without a card")
+def test_multichannel_stft_host_asks_for_the_card_by_default():
+    """A numpy waveform goes to 'cuda' unless the caller asks for the CPU:
+    with no card it raises, and never falls back to the CPU."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        featurizer.multichannel_stft_host(np.zeros((9000, 1), np.float32),
+                                          SpectrogramConfig(**SMALL))
 
 
 def test_resolve_pallas_and_default_fft_impl():
