@@ -11,6 +11,7 @@ non-zero on the first failure.  Phases:
   1. card     device name, ``nvidia-smi`` name and power limit; builds the
               kernels from ``sed_tpu_torch/ops/csrc`` with nvcc and prints
               the build time and ptxas' registers, shared memory and spills;
+              K6's three lesion builds (below) start beside it, one nvcc each;
   2. kernels  K1 and K2 against their plain versions computed in float64 on
               the card, at the batch path's shapes (16 x 60 s); K3 at the
               streaming tick's shape (32 slots x 5 frames = 160 rows), float32
@@ -45,7 +46,10 @@ non-zero on the first failure.  Phases:
               K6 against its float64 plain version, 'pack''s and 'eo''s power
               against float64; CUDA-event medians of K4–K10 through their own
               entry points, their plain versions and PyTorch yardsticks, and
-              of the whole ``logmel_waveform`` for each name.
+              of the whole ``logmel_waveform`` for each name; K6's share of
+              its bound and its ratio to ``torch.fft.fft``, and K6 rebuilt
+              without its loads, its exchanges or its twiddles (wrong
+              results, timing only: what each part of its time is).
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10), the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -173,6 +177,60 @@ def profile_ticks(torch, fn, n: int):
     rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r[1])
+
+
+# K6 with one part of its work removed (wrong results, timing only): how much
+# of K6's time each part holds.  Each is featurizer.cu with one edit, built
+# beside the real library and timed on the same inputs in phase 9.
+K6_LESIONS = {
+    "loads": ("  load.template fill<T, P>(v, t);",
+              "#pragma unroll\n  for (int s = 0; s < kPoints; ++s)\n"
+              "    v[s] = make_float2(t * 1e-3f + s, s * 0.5f - t);"),
+    "exchanges": ("      if (pass + 1 < a || r > 1) stockham_exchange<16, 1>(v, sre, sim, t, T, p);",
+                  ""),
+    "twiddles": ("    if (p > 1) {\n      const int k = (t + b * T)",
+                 "    if (false) {\n      const int k = (t + b * T)"),
+}
+_lesion_builds = []
+
+
+def start_k6_lesions(kernels):
+    """Start one nvcc per lesion (all at once, beside the main build)."""
+    src = kernels.SOURCE.read_text()
+    out = kernels.BUILD_DIR / "k6_lesions"
+    out.mkdir(parents=True, exist_ok=True)
+    for name, (old, new) in K6_LESIONS.items():
+        check(src.count(old) == 1, f"K6 lesion {name!r}: its anchor is in featurizer.cu")
+        cu, so, build_log = out / f"{name}.cu", out / f"lib{name}.so", out / f"{name}.log"
+        cu.write_text(src.replace(old, new))
+        with open(build_log, "w") as f:
+            proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+                                    stdout=f, stderr=subprocess.STDOUT)
+        _lesion_builds.append((name, proc, so, build_log))
+
+
+def stop_k6_lesions() -> None:
+    for _, proc, _, _ in _lesion_builds:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_k6_lesions():
+    """Wait for the lesion builds; returns {name: sed_wave_packed_fft}."""
+    import ctypes
+
+    fns = {}
+    for name, proc, so, build_log in _lesion_builds:
+        proc.wait(timeout=600)
+        check(proc.returncode == 0,
+              f"K6 lesion {name!r} builds: {build_log.read_text()[-2000:]}")
+        fn = ctypes.CDLL(str(so)).sed_wave_packed_fft
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32, vp]
+        fn.restype = i32
+        fns[name] = fn
+    return fns
 
 
 def score_all(torch, predict, clips):
@@ -337,6 +395,21 @@ def impls_phase(torch, cfg, dev, bound, win_nnz):
             return_complex=True).abs() ** 2),
     }
     del packed
+    # K6 without its loads, exchanges or twiddles (wrong results): each part's share.
+    lesions = finish_k6_lesions()
+    zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
+    tw = kernels._stockham_twiddles(n_fft, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def lesion_run(fn):
+        err = fn(waves.data_ptr(), window.data_ptr(), tw.data_ptr(), zr.data_ptr(),
+                 zi.data_ptr(), BATCH, samples, zr.shape[1], hop, n_fft.bit_length() - 2,
+                 dev.index, stream)
+        check(err == 0, f"K6 lesion launch ({err})")
+
+    lesion_ms = {name: time_ms(torch, lambda fn=fn: lesion_run(fn)) for name, fn in lesions.items()}
+    ms["k6_again"] = time_ms(torch, lambda: kernels.wave_packed_fft(waves, window, hop, n_fft))
+    del zr, zi
     impl_ms = {impl: time_ms(torch, lambda impl=impl: kernels.logmel_waveform(
         waves, cfg, impl=impl)) for impl in kernels.IMPL_KERNELS}
 
@@ -359,7 +432,12 @@ def impls_phase(torch, cfg, dev, bound, win_nnz):
         f"{ms['stft_mel_lib']:.4f} ms | bound {k5_bound[0]:.4f} ms ({k5_bound[1]})")
     log(f"[times] K6 wave_packed_fft {ms['k6']:.4f} ms | plain {ms['k6_plain']:.4f} ms | "
         f"torch.fft.fft of the packed frames {ms['k6_lib']:.4f} ms | bound "
-        f"{k6_bound[0]:.4f} ms ({k6_bound[1]})")
+        f"{k6_bound[0]:.4f} ms ({k6_bound[1]}) | bound share {k6_bound[0] / ms['k6']:.1%} "
+        f"| K6 / torch.fft.fft {ms['k6'] / ms['k6_lib']:.3f}")
+    log(f"[times] K6 with a part of its work removed (wrong results, timing only; K6 "
+        f"timed again beside them {ms['k6_again']:.4f} ms): " + ", ".join(
+            f"without {name} {t:.4f} ms (their share {ms['k6_again'] - t:.4f} ms)"
+            for name, t in lesion_ms.items()))
     log(f"[times] K1 under sed_tpu's names: K7 eo {ms['k7']:.4f} ms | K8 rollraw "
         f"{ms['k8']:.4f} ms | K10 slice {ms['k10']:.4f} ms | plain {ms['k1_plain']:.4f} ms "
         f"| torch.stft+abs^2 {ms['stft_lib']:.4f} ms | bound {k1_bound[0]:.4f} ms "
@@ -431,11 +509,14 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {name}, device count {count}")
     log(f"[card] nvidia-smi: {smi}")
+    start_k6_lesions(kernels)
     info = kernels.build(force=True)
     log(f"[card] nvcc build: {info.seconds:.2f} s -> {info.path.relative_to(REPO)}")
     for line in info.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"[card] ptxas: {line.strip()}")
+    log(f"[card] K6 wave_packed_fft_kernel at n_fft {cfg.nfft}: {cfg.nfft // 32} threads "
+        f"a frame, {4 * cfg.nfft} B of dynamic shared memory (the exchange buffer)")
     bw, flops_peak = card_peaks(name)
 
     sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
@@ -853,4 +934,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_k6_lesions()

@@ -96,11 +96,33 @@
 //   (real, imaginary) in natural bin order.  The hermitian unpack to one-
 //   sided power follows in PyTorch (packed_power_onesided), as JAX runs it
 //   in XLA, and K2 takes the mel.
-//   Bound on an H100 SXM: bytes.  At 16 x 60 s it reads 184 MB and writes
-//   382 MB (~0.169 ms at 3.35 TB/s) against ~4.3 GFLOP.
-//   Design: K1's load, pack and FFT (packed_fft), stopping before the
-//   unpack; each thread copies its bins of z out, real and imaginary parts
-//   to their own arrays.
+//   Bound on an H100 SXM: bytes.  At 16 x 60 s (2912 frames, m = 16384) it
+//   reads the 184 MB waveform and writes 382 MB of Z: 566 MB, ~0.169 ms at
+//   3.35 TB/s, against ~3.4 GFLOP (~0.05 ms at 67 TFLOP/s FP32).
+//   Design: stockham_fft, a radix-16 Stockham FFT held in registers, in
+//   place of packed_fft's 14 barrier-separated radix-2 passes through shared
+//   memory (1.77-1.80 ms on an H100 80GB HBM3 at 700 W, 10x the bound).
+//   m = 16^a * r (r in 1, 2, 4, 8): a radix-16 passes, then one radix-r
+//   pass; at m = 16384, 16*16*16*4, three exchanges through shared memory.
+//   One CTA of m/16 threads per frame, 16 points a thread; the kernel is a
+//   template on log2 m, so the schedule is unrolled and every address is a
+//   base plus an immediate offset (64 registers at 1024 threads, no spills).
+//   Interior frames load straight from the waveform into registers (thread
+//   t reads packed points t + s*m/16, all 32 samples issued before any
+//   arithmetic); the frames that reach an edge gather their reflected
+//   samples through shared memory first.  The last pass stores bins
+//   t + s*m/16 straight to out_re/out_im: natural order by the Stockham
+//   indexing, no bit reversal.  The exchange buffer keeps re and im apart
+//   (2 x 64 KB) under a bank swizzle that makes every exchange free of bank
+//   conflicts.  The inter-pass twiddles are the f32-rounded float64 W_N^j
+//   of K1's table, rearranged in pass order (stft.py stockham_twiddles) so
+//   that each warp reads them contiguously.
+//   Measured by chip_smoke.py phase 9 on an NVIDIA H100 80GB HBM3 at 700 W:
+//   0.41 ms at 16 x 60 s (41% of the bound; torch.fft.fft of the packed
+//   frames 0.31 ms).  Rebuilt without each part, it loses ~0.17 ms without
+//   its loads (one frame in flight per SM: a frame's 128 KB of loads, its
+//   passes and its stores do not overlap), ~0.11 ms without its exchanges
+//   and ~0.07 ms without its twiddles (PERF.md section 6).
 //   Known divergence from sed_tpu: natural bin order in place of the TPU's
 //   (k2, k1) layout of the half transform (flat j = k2*n1 + k1 holds bin
 //   n2*k1 + k2); the tests permute sed_tpu's output, never this one.
@@ -130,7 +152,8 @@ __device__ __forceinline__ long long reflect_index(long long i, long long n) {
   return i < n ? i : period - i;
 }
 
-// The FFT core shared by K1, K3, K5 and K6: window the n_fft samples that
+// The FFT core shared by K1, K3 and K5 (K6 runs stockham_fft instead):
+// window the n_fft samples that
 // load(a) returns (a = 0..n_fft-1; called only where the window is
 // non-zero), pack even/odd samples as one complex point stored bit-reversed
 // in z (n_fft/2 points of dynamic shared memory), and run an in-place
@@ -264,6 +287,263 @@ struct RowLoad {
   }
 };
 
+// ---------------------------------------------------------------------------
+// stockham_fft: a radix-16 Stockham FFT of m = 2^k points (k = 1..14) held in
+// registers.  Its index maths is modelled, under the same names, by
+// tests/test_torch_fft_plan.py (radix_plan, slot_index, twiddle_index,
+// exchange_index, swizzle), which holds it against np.fft.fft on the CPU.
+// ---------------------------------------------------------------------------
+
+constexpr int kPoints = 16;  // points a thread holds in registers
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// W_16^e for e = 1, 2, 3, 6, 9 (and W_8^1 = W_16^2, W_8^3 = W_16^6), from
+// float64 rounded to f32; e = 4 is -i, applied exactly.
+__device__ __forceinline__ float2 w16(int e) {
+  constexpr float c1 = 0.923879532511286756f, s1 = 0.382683432365089772f;
+  constexpr float h = 0.707106781186547524f;
+  switch (e) {
+    case 1: return make_float2(c1, -s1);
+    case 2: return make_float2(h, -h);
+    case 3: return make_float2(s1, -c1);
+    case 6: return make_float2(-h, -h);
+    default: return make_float2(-c1, s1);  // e = 9
+  }
+}
+
+__device__ __forceinline__ float2 operator+(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 operator-(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 times_minus_i(float2 a) {
+  return make_float2(a.y, -a.x);
+}
+
+// In-place radix-4 DFT of (a, b, c, d), outputs in natural order.
+__device__ __forceinline__ void dft4(float2& a, float2& b, float2& c, float2& d) {
+  const float2 s0 = a + c, d0 = a - c, s1 = b + d, d1 = times_minus_i(b - d);
+  a = s0 + s1;
+  b = d0 + d1;
+  c = s0 - s1;
+  d = d0 - d1;
+}
+
+// In-place radix-R DFT of u[0..R-1] (R = 2, 4, 8, 16), natural order out.
+// R = 8: n = na + 2 nb, k = kb + 4 ka; R = 16: n = na + 4 nb, k = kb + 4 ka:
+// radix-4 DFTs over nb, the internal twiddles W_R^(na*kb), then radix-2 or
+// radix-4 DFTs over na.
+template <int R>
+__device__ __forceinline__ void dft(float2 (&u)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = u[0];
+    u[0] = a + u[1];
+    u[1] = a - u[1];
+  } else if constexpr (R == 4) {
+    dft4(u[0], u[1], u[2], u[3]);
+  } else if constexpr (R == 8) {
+    dft4(u[0], u[2], u[4], u[6]);
+    dft4(u[1], u[3], u[5], u[7]);
+    u[3] = cmul(u[3], w16(2));
+    u[5] = times_minus_i(u[5]);
+    u[7] = cmul(u[7], w16(6));
+    float2 x[8];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      x[kb] = u[2 * kb] + u[2 * kb + 1];
+      x[kb + 4] = u[2 * kb] - u[2 * kb + 1];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) u[k] = x[k];
+  } else {
+    static_assert(R == 16, "radix 2, 4, 8 or 16");
+#pragma unroll
+    for (int na = 0; na < 4; ++na) dft4(u[na], u[na + 4], u[na + 8], u[na + 12]);
+    // u[na + 4 kb] now holds Y[na][kb].
+    u[5] = cmul(u[5], w16(1));
+    u[6] = cmul(u[6], w16(2));
+    u[7] = cmul(u[7], w16(3));
+    u[9] = cmul(u[9], w16(2));
+    u[10] = times_minus_i(u[10]);
+    u[11] = cmul(u[11], w16(6));
+    u[13] = cmul(u[13], w16(3));
+    u[14] = cmul(u[14], w16(6));
+    u[15] = cmul(u[15], w16(9));
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+      dft4(u[4 * kb], u[4 * kb + 1], u[4 * kb + 2], u[4 * kb + 3]);
+    // u[4 kb + ka] now holds X[kb + 4 ka]: transpose to natural order.
+    float2 x[16];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+      for (int ka = 0; ka < 4; ++ka) x[kb + 4 * ka] = u[4 * kb + ka];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) u[k] = x[k];
+  }
+}
+
+// One Stockham pass of radix R after p points' worth of earlier radices.
+// Thread t runs NB butterflies, i = t + b*T (T threads); butterfly i takes
+// register slots b + NB*q (points i + q*m/R), scales slot q by
+// W_{pR}^(q*k), k = i mod p, runs dft<R>, and leaves output q in the same
+// slot.  The twiddles are in pass order (stft.py stockham_twiddles): entry
+// q*p + k - 1 (twiddle_index), so neighbouring threads read neighbouring
+// entries.
+template <int R, int NB>
+__device__ __forceinline__ void stockham_pass(float2 (&v)[R * NB],
+                                              const float2* __restrict__ twiddle,
+                                              int t, int T, int p) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    float2 u[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) u[q] = v[b + NB * q];
+    if (p > 1) {
+      const int k = (t + b * T) & (p - 1);
+#pragma unroll
+      for (int q = 1; q < R; ++q) u[q] = cmul(u[q], __ldg(twiddle + (q * p + k - 1)));
+    }
+    dft<R>(u);
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[b + NB * q] = u[q];
+  }
+}
+
+// Shared-memory position of exchange position a: a permutation inside each
+// run of 32 floats that keeps every exchange below free of bank conflicts.
+__device__ __forceinline__ int swizzle(int a) {
+  return a ^ ((a >> 5) & 15) ^ (((a >> 8) & 1) << 4);
+}
+
+// After a pass of radix R (NB butterflies a thread) at stride p: output q
+// of butterfly i goes to exchange_index (i/p)*p*R + (i mod p) + q*p; then
+// every thread reads its slots back at slot_index t + T*s.  re and im have
+// their own m floats.  A barrier first, so that no thread overwrites what
+// another has not read yet; the first exchange needs none (a loader that
+// uses shared memory ends with its own).
+template <int R, int NB>
+__device__ __forceinline__ void stockham_exchange(float2 (&v)[kPoints], float* sre,
+                                                  float* sim, int t, int T, int p) {
+  if (p > 1) __syncthreads();
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int i = t + b * T;
+    const int k = i & (p - 1);
+    const int base = (i - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int a = swizzle(base + q * p);
+      sre[a] = v[b + NB * q].x;
+      sim[a] = v[b + NB * q].y;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kPoints; ++s) {
+    const int a = swizzle(t + T * s);
+    v[s] = make_float2(sre[a], sim[a]);
+  }
+}
+
+// Z = FFT_m(z), m = 2^LOG2_M (1..14), of the packed, windowed points that
+// load.fill() puts in registers, handed to store.drain() in natural order.
+// Thread t of thread_count T = m/P threads holds P = min(16, m) points:
+// slot s is point (and, at the end, bin) t + T*s.  m < 16 is one radix-m
+// pass in one thread.  sre and sim are m floats each of shared memory.
+// The schedule is a compile-time constant, so every address is a base plus
+// an immediate offset.
+template <int LOG2_M, typename Load, typename Store>
+__device__ __forceinline__ void stockham_fft(const Load& load, const Store& store,
+                                             const float2* __restrict__ twiddle,
+                                             float* sre, float* sim) {
+  constexpr int m = 1 << LOG2_M;
+  constexpr int P = m < kPoints ? m : kPoints;
+  constexpr int T = m / P;
+  const int t = threadIdx.x;
+  float2 v[kPoints];
+  load.template fill<T, P>(v, t);
+  if constexpr (LOG2_M < 4) {
+    float2 u[m];
+#pragma unroll
+    for (int s = 0; s < m; ++s) u[s] = v[s];
+    dft<m>(u);
+#pragma unroll
+    for (int s = 0; s < m; ++s) v[s] = u[s];
+  } else {
+    constexpr int a = LOG2_M >> 2;        // radix-16 passes
+    constexpr int r = 1 << (LOG2_M & 3);  // the last pass's radix (1: none)
+#pragma unroll
+    for (int pass = 0, p = 1; pass < a; ++pass, p *= 16) {
+      stockham_pass<16, 1>(v, twiddle, t, T, p);
+      if (pass + 1 < a || r > 1) stockham_exchange<16, 1>(v, sre, sim, t, T, p);
+    }
+    constexpr int p = 1 << (4 * a);
+    if constexpr (r == 2) stockham_pass<2, 8>(v, twiddle, t, T, p);
+    if constexpr (r == 4) stockham_pass<4, 4>(v, twiddle, t, T, p);
+    if constexpr (r == 8) stockham_pass<8, 2>(v, twiddle, t, T, p);
+  }
+  store.template drain<T, P>(v, t);
+}
+
+// K6's loader: packed point j = (x[2j], x[2j+1]) of the centred frame that
+// starts at raw sample `start`, times the window, read only where the window
+// is non-zero.  Interior frames (the whole frame inside the signal: all but
+// the first and last one or two of each signal) load straight into
+// registers, every load issued before any arithmetic.  The others gather the
+// reflected samples into shared memory (sbuf, 2m floats: the exchange
+// buffer, not yet in use) in a rolled loop, which keeps reflect_index's
+// 64-bit arithmetic out of the interior path's registers.  Scalar loads: the
+// signal's base is 8-byte aligned only for an even sig * n_samples.
+struct PackedWaveLoad {
+  const float* y;
+  const float* window;
+  long long start;
+  long long n;
+  bool interior;
+  float* sbuf;
+  template <int T, int P>
+  __device__ __forceinline__ void fill(float2 (&v)[kPoints], int t) const {
+    if (interior) {
+      const float* x = y + start;
+#pragma unroll
+      for (int s = 0; s < P; ++s) {
+        const int a = 2 * (t + T * s);
+        const float w0 = window[a];
+        const float w1 = window[a + 1];
+        v[s] = make_float2(w0 != 0.f ? w0 * x[a] : 0.f, w1 != 0.f ? w1 * x[a + 1] : 0.f);
+      }
+      return;
+    }
+#pragma unroll 4
+    for (int a = t; a < 2 * T * P; a += T) {
+      const float w = window[a];
+      sbuf[a] = w != 0.f ? w * y[reflect_index(start + a, n)] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < P; ++s) v[s] = reinterpret_cast<const float2*>(sbuf)[t + T * s];
+    __syncthreads();  // sbuf is the exchange buffer
+  }
+};
+
+struct SplitStore {
+  float* re;
+  float* im;
+  template <int T, int P>
+  __device__ __forceinline__ void drain(const float2 (&v)[kPoints], int t) const {
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      re[t + T * s] = v[s].x;
+      im[t + T * s] = v[s].y;
+    }
+  }
+};
+
 __global__ void __launch_bounds__(kStftThreads)
 wave_stft_power_kernel(const float* __restrict__ wave,
                        const float* __restrict__ window,
@@ -335,27 +615,26 @@ wave_stft_mel_log_kernel(const float* __restrict__ wave,
               n_mels);
 }
 
-__global__ void __launch_bounds__(kStftThreads)
+// The launch bound is the instance's own thread count, so instances of fewer
+// than 1024 threads may use more than 64 registers.
+template <int LOG2_M>
+__global__ void __launch_bounds__(LOG2_M < 4 ? 1 : (1 << LOG2_M) / kPoints, 1)
 wave_packed_fft_kernel(const float* __restrict__ wave,
                        const float* __restrict__ window,
-                       const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
+                       const float2* __restrict__ twiddle,  // stockham_twiddles
                        float* __restrict__ out_re,
                        float* __restrict__ out_im,
-                       long long n_samples, int n_frames, int hop, int log2_m) {
-  extern __shared__ float2 z[];
-  const int m = 1 << log2_m;
+                       long long n_samples, int n_frames, int hop) {
+  extern __shared__ float exchange[];  // re: m floats, then im: m floats
+  constexpr int m = 1 << LOG2_M;
   const long long frame = blockIdx.x;
   const long long sig = frame / n_frames;
   const long long t = frame - sig * n_frames;
-  const ReflectLoad load{wave + sig * n_samples, t * hop - m, n_samples};
-  packed_fft(load, window, twiddle, z, log2_m);
-  float* re = out_re + frame * m;
-  float* im = out_im + frame * m;
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    const float2 v = z[k];
-    re[k] = v.x;
-    im[k] = v.y;
-  }
+  const long long start = t * hop - m;  // centred: n_fft/2 = m samples before
+  const PackedWaveLoad load{wave + sig * n_samples, window, start, n_samples,
+                            start >= 0 && start + 2LL * m <= n_samples, exchange};
+  const SplitStore store{out_re + frame * m, out_im + frame * m};
+  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
 }
 
 template <typename T>
@@ -372,6 +651,34 @@ int launch_frames_stft_power(const void* frames, const void* window,
       static_cast<const float2*>(twiddle), static_cast<float*>(out), log2_m);
   return cudaGetLastError();
 }
+
+// K6 at m = 2^LOG2_M: thread_count = max(1, m/16) threads, the 2m floats
+// of the exchange buffer in dynamic shared memory.
+template <int LOG2_M>
+int launch_wave_packed_fft(const float* wave, const float* window,
+                           const float2* twiddle, float* out_re, float* out_im,
+                           long long blocks, long long n_samples, int n_frames,
+                           int hop, cudaStream_t stream) {
+  constexpr int m = 1 << LOG2_M;
+  constexpr int threads = m < kPoints ? 1 : m / kPoints;
+  constexpr int smem = static_cast<int>(sizeof(float2)) * m;
+  cudaError_t err = cudaFuncSetAttribute(
+      wave_packed_fft_kernel<LOG2_M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wave_packed_fft_kernel<LOG2_M><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      wave, window, twiddle, out_re, out_im, n_samples, n_frames, hop);
+  return cudaGetLastError();
+}
+
+using LaunchWavePackedFft = int (*)(const float*, const float*, const float2*, float*,
+                                   float*, long long, long long, int, int, cudaStream_t);
+// Indexed by log2 m (1..14, n_fft 4..32768).
+constexpr LaunchWavePackedFft kLaunchWavePackedFft[] = {
+    nullptr, launch_wave_packed_fft<1>, launch_wave_packed_fft<2>,
+    launch_wave_packed_fft<3>, launch_wave_packed_fft<4>, launch_wave_packed_fft<5>,
+    launch_wave_packed_fft<6>, launch_wave_packed_fft<7>, launch_wave_packed_fft<8>,
+    launch_wave_packed_fft<9>, launch_wave_packed_fft<10>, launch_wave_packed_fft<11>,
+    launch_wave_packed_fft<12>, launch_wave_packed_fft<13>, launch_wave_packed_fft<14>};
 
 }  // namespace
 
@@ -458,17 +765,12 @@ int sed_wave_packed_fft(const void* wave, const void* window,
                         int hop, int log2_m, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(sizeof(float2)) << log2_m;
-  err = cudaFuncSetAttribute(wave_packed_fft_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = n_signals * n_frames;
-  wave_packed_fft_kernel<<<static_cast<unsigned>(blocks), kStftThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  if (log2_m < 1 || log2_m > 14) return cudaErrorInvalidValue;
+  return kLaunchWavePackedFft[log2_m](
       static_cast<const float*>(wave), static_cast<const float*>(window),
       static_cast<const float2*>(twiddle), static_cast<float*>(out_re),
-      static_cast<float*>(out_im), n_samples, n_frames, hop, log2_m);
-  return cudaGetLastError();
+      static_cast<float*>(out_im), n_signals * n_frames, n_samples, n_frames, hop,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -188,6 +188,13 @@ def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.stack(stft_ops.unpack_twiddles(n_fft), axis=1)).to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def _stockham_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    """(n_fft/2, 2) f32 table of K6's inter-pass twiddles in pass order
+    (:func:`stft_ops.stockham_twiddles`)."""
+    return torch.from_numpy(np.stack(stft_ops.stockham_twiddles(n_fft), axis=1)).to(device)
+
+
 def wave_stft_power_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
                           n_fft: int) -> torch.Tensor:
     """Plain version of K1: reflect-centred framing, window, torch.fft.rfft,
@@ -281,7 +288,7 @@ def wave_packed_fft(waves: torch.Tensor, window: torch.Tensor, hop: int,
     zi = torch.empty_like(zr)
     if n_sig == 0:
         return zr, zi
-    tw = _twiddles(n_fft, device)
+    tw = _stockham_twiddles(n_fft, device)
     err = _library().sed_wave_packed_fft(
         waves.data_ptr(), window.data_ptr(), tw.data_ptr(), zr.data_ptr(),
         zi.data_ptr(), n_sig, n_samples, n_frames, hop, n_fft.bit_length() - 2,

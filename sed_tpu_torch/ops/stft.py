@@ -158,6 +158,39 @@ def unpack_twiddles(n_fft: int):
     return c, s
 
 
+def stockham_radices(m: int) -> list:
+    """Radices of K6's Stockham FFT passes over m = 2^k points:
+    m = 16^a * r with r in {1, 2, 4, 8}, a radix-16 passes then one radix-r
+    pass where r > 1."""
+    a, rest = divmod(m.bit_length() - 1, 4)
+    return [16] * a + ([1 << rest] if rest else [])
+
+
+@functools.lru_cache(maxsize=8)
+def stockham_twiddles(n_fft: int):
+    """cos and sin of K6's inter-pass twiddles in pass order, m = n_fft/2
+    entries: for the pass of radix R after p points' worth of earlier
+    radices, entry q*p + k - 1 holds W_{pR}^(q*k) (0 < q < R, 0 <= k < p),
+    so a warp's neighbouring k read neighbouring entries.  The values are
+    :func:`unpack_twiddles`' W_N^j at j = q*k*N/(pR) (W_N^(j+m) = -W_N^j),
+    rearranged, not recomputed; the last entry is padding."""
+    m = n_fft // 2
+    c, s = unpack_twiddles(n_fft)
+    out_c, out_s = np.ones(m, np.float32), np.zeros(m, np.float32)
+    p = 1
+    for r in stockham_radices(m):
+        q, k = np.meshgrid(np.arange(1, r), np.arange(p), indexing="ij")
+        j = q * k * (n_fft // (p * r))
+        sign = np.where(j < m, 1.0, -1.0).astype(np.float32)
+        pos = q * p + k - 1
+        out_c[pos] = sign * c[j % m]
+        out_s[pos] = sign * s[j % m]
+        p *= r
+    out_c.setflags(write=False)
+    out_s.setflags(write=False)
+    return out_c, out_s
+
+
 def hermitian_unpack(zr: torch.Tensor, zi: torch.Tensor, n_fft: int):
     """Z = FFT_M(x_even + i*x_odd) of real frames (M = n_fft/2, natural bin
     order) -> (real, imag) of their real DFT, each (..., M + 1):

@@ -24,6 +24,7 @@ from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
 from sed_tpu_torch.ops import cuda_featurizer as kernels
 from sed_tpu_torch.ops import featurizer
 from sed_tpu_torch.ops import mel as mel_ops
+from sed_tpu_torch.ops import stft as stft_ops
 from sed_tpu_torch.ops.mulaw import mulaw_encode
 from sed_tpu_torch.stream_pool import StreamPool
 
@@ -297,21 +298,57 @@ def test_k5_equals_k1_then_k2_and_float64(cuda, cfg, n):
         assert float((cufft32.double() - want)[quiet].abs().max()) > 1e-4
 
 
-@pytest.mark.parametrize("cfg,n", [
-    (SMALL, 20 * 8000 + 1317), (SMALL, 7), (PROD, 3 * 48000 + 11),
-])
-def test_k6_matches_float64_plain(cuda, cfg, n):
-    waves = signals(3, n, cfg.working_sample_rate, cuda)
-    window = kernels.stft_window(cfg, cuda)
+def _k6_cases():
+    """(n_fft, hop, window length, n_signals, n): the configs' cases, then
+    every n_fft K6 takes (4..32768, m = 2..16384) with a hop that does not
+    divide it: an odd length of 3 signals over both reflection edges and
+    interior frames (odd n_samples: every other signal's base is not 8-byte
+    aligned), a signal shorter than half a frame, and a single sample."""
+    cases = [(cfg.nfft, cfg.hop_size, cfg.frame_size, 3, n) for cfg, n in (
+        (SMALL, 20 * 8000 + 1317), (SMALL, 7), (PROD, 3 * 48000 + 11))]
+    for log2_n in range(2, 16):
+        n_fft = 1 << log2_n
+        hop, win = max(1, 3 * n_fft // 8), n_fft - n_fft // 8
+        cases += [(n_fft, hop, win, 3, 3 * n_fft + 11),
+                  (n_fft, hop, win, 1, max(1, n_fft // 2 - 3)),
+                  (n_fft, hop, win, 2, 1)]
+    return cases
+
+
+@pytest.mark.parametrize("n_fft,hop,win,n_sig,n", _k6_cases())
+def test_k6_matches_float64_plain(cuda, n_fft, hop, win, n_sig, n):
+    waves = signals(n_sig, n, 8000, cuda)
+    window = torch.from_numpy(stft_ops.padded_window(win, n_fft).copy()).to(cuda)
     before = kernels.LAUNCHES["wave_packed_fft"]
-    zr, zi = kernels.wave_packed_fft(waves, window, cfg.hop_size, cfg.nfft)
+    zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["wave_packed_fft"] == before + 1
-    wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, cfg.hop_size, cfg.nfft)
-    assert zr.shape == zi.shape == wr.shape == (3, 1 + n // cfg.hop_size, cfg.nfft // 2)
+    wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft)
+    assert zr.shape == zi.shape == wr.shape == (n_sig, 1 + n // hop, n_fft // 2)
     peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
     assert bool(((zr.double() - wr).abs() <= 1e-5 * peak).all())
     assert bool(((zi.double() - wi).abs() <= 1e-5 * peak).all())
+
+
+def test_k6_launches_one_kernel_on_the_inputs_device(cuda):
+    """One CUDA call of wave_packed_fft is one launch of
+    wave_packed_fft_kernel and no other device work (torch.profiler), and
+    both outputs lie on the waveform's device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    waves = signals(2, 5 * 48000 + 3, 48000, cuda)
+    window = kernels.stft_window(PROD, cuda)
+    kernels.wave_packed_fft(waves, window, PROD.hop_size, PROD.nfft)   # tables cached
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["wave_packed_fft"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        zr, zi = kernels.wave_packed_fft(waves, window, PROD.hop_size, PROD.nfft)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_packed_fft"] == before + 1
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and "wave_packed_fft_kernel" in on_device[0], on_device
+    assert zr.device == zi.device == waves.device
 
 
 @pytest.mark.parametrize("impl", sorted(kernels.IMPL_KERNELS))
@@ -378,8 +415,6 @@ def test_k4_streamed_filterbank_config_on_the_card(cuda):
 def test_multichannel_stft_host_runs_on_the_card(cuda, monkeypatch):
     """A numpy waveform is transformed on the card by default, and the host
     array equals multichannel_stft's on the same device."""
-    from sed_tpu_torch.ops import stft as stft_ops
-
     wav = signals(3, 2 * 8000, 8000, cuda, seed=11).T.contiguous()     # (samples, 3)
     seen = []
     realimag = stft_ops.stft_realimag

@@ -1,0 +1,304 @@
+"""A float64 numpy model of K6's FFT schedule, held against ``np.fft.fft``.
+
+K6 (``wave_packed_fft_kernel`` in ``sed_tpu_torch/ops/csrc/featurizer.cu``)
+runs its m-point complex FFT through ``stockham_fft``: radix-16 Stockham
+passes held in registers, then one radix-r pass, with the points going once
+through shared memory between passes.  The functions below carry the
+kernel's names and compute exactly its indices:
+
+  * :func:`radix_plan`      m = 16^a * r -> a radix-16 passes, then radix r;
+  * :func:`thread_count`    T threads, each holding :data:`POINTS` points;
+  * :func:`slot_index`      register slot s of thread t holds point t + T*s:
+                            where the first pass loads, where every pass
+                            reads the exchange, where the last pass stores;
+  * :func:`table_index`     W_{pR}^(q*k) as an index into the table
+                            W_{2m}^j (j < m) of ``stft_ops.unpack_twiddles``;
+  * :func:`twiddle_index`   where the kernel reads it: entry q*p + k - 1 of
+                            that table's values in pass order
+                            (:func:`pass_twiddles`, the port's
+                            ``stft_ops.stockham_twiddles``);
+  * :func:`exchange_index`  where output q of butterfly i goes (Stockham);
+  * :func:`swizzle`         the bank swizzle of the shared exchange buffer.
+
+The tests run the model on seeded random input for every m the kernel takes
+(log2 m = 1..14, n_fft 4..32768), check that every exchange is a
+permutation free of shared-memory bank conflicts, and run the model of the
+whole of K6 (framing, window, packing) against the port's plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sed_tpu_torch.ops import cuda_featurizer as kernels
+from sed_tpu_torch.ops import stft as stft_ops
+
+POINTS = 16   # points a thread holds in registers (kPoints)
+WARP = 32
+BANKS = 32
+LOG2_M = range(1, 15)
+
+
+def radix_plan(log2_m: int) -> list:
+    """Radices of the passes: m = 16^a * r with r in {1, 2, 4, 8}; a
+    radix-16 passes, then one radix-r pass where r > 1."""
+    a, rest = divmod(log2_m, 4)
+    return [16] * a + ([1 << rest] if rest else [])
+
+
+def thread_count(log2_m: int) -> int:
+    """Threads of the block: m / 16, or one thread for m < 16."""
+    return max(1, (1 << log2_m) // POINTS)
+
+
+def points_per_thread(log2_m: int) -> int:
+    return min(POINTS, 1 << log2_m)
+
+
+def slot_index(t, s, T):
+    """Point held in register slot s of thread t (0 <= s < points)."""
+    return t + T * s
+
+
+def table_index(q, k, p, R, m):
+    """Index of W_{pR}^(q*k) = W_{2m}^(q*k*2m/(pR)) in [0, 2m)."""
+    return q * k * (2 * m // (p * R))
+
+
+def table_at(table, idx, m):
+    """W_{2m}^idx from the table of W_{2m}^j, j < m: W^(j+m) = -W^j."""
+    idx = np.asarray(idx)
+    return np.where(idx < m, 1.0, -1.0) * table[idx % m]
+
+
+def twiddle_index(q, k, p):
+    """Entry of W_{pR}^(q*k) in the pass-ordered table: pass (p, R) holds
+    entries p - 1 .. p*R - 2, q-major, so a warp's neighbouring k read
+    neighbouring entries."""
+    return q * p + k - 1
+
+
+def pass_twiddles(table, log2_m):
+    """The pass-ordered table (m entries, the last one padding) gathered from
+    the table of W_{2m}^j, j < m."""
+    m = 1 << log2_m
+    out = np.ones(m, dtype=table.dtype)
+    p = 1
+    for R in radix_plan(log2_m):
+        for q in range(1, R):
+            k = np.arange(p)
+            out[twiddle_index(q, k, p)] = table_at(table, table_index(q, k, p, R, m), m)
+        p *= R
+    return out
+
+
+def exchange_index(i, q, p, R):
+    """Position of output q of butterfly i in a pass of radix R after p
+    points' worth of earlier radices: (i / p) * p * R + (i mod p) + q * p."""
+    k = i % p
+    return (i - k) * R + k + q * p
+
+
+def swizzle(a):
+    """Shared-memory position of exchange position a: bits 0-3 XOR bits 5-8,
+    bit 4 XOR bit 8.  A permutation inside each run of 32 positions."""
+    return a ^ ((a >> 5) & 15) ^ (((a >> 8) & 1) << 4)
+
+
+def w16(e: int, rounded: bool) -> complex:
+    """W_16^e, in float64 or rounded to float32 (the kernel's literals)."""
+    w = np.exp(-2j * np.pi * e / 16)
+    return complex(np.complex64(w)) if rounded else complex(w)
+
+
+def dft4(a, b, c, d):
+    s0, d0, s1 = a + c, a - c, b + d
+    d1 = -1j * (b - d)
+    return [s0 + s1, d0 + d1, s0 - s1, d0 - d1]
+
+
+def dft(u, rounded):
+    """The kernel's radix-R DFT of the R points u (natural order out)."""
+    R = len(u)
+    if R == 2:
+        return [u[0] + u[1], u[0] - u[1]]
+    if R == 4:
+        return dft4(*u)
+    if R == 8:   # n = na + 2 nb, k = kb + 4 ka
+        y0 = dft4(u[0], u[2], u[4], u[6])
+        y1 = [w16(2 * kb, rounded) * y for kb, y in enumerate(dft4(u[1], u[3], u[5], u[7]))]
+        return [y0[kb] + y1[kb] for kb in range(4)] + [y0[kb] - y1[kb] for kb in range(4)]
+    assert R == 16   # n = na + 4 nb, k = kb + 4 ka
+    y = [dft4(u[na], u[na + 4], u[na + 8], u[na + 12]) for na in range(4)]
+    y = [[w16(na * kb, rounded) * y[na][kb] for kb in range(4)] for na in range(4)]
+    cols = [dft4(y[0][kb], y[1][kb], y[2][kb], y[3][kb]) for kb in range(4)]
+    return [cols[kb][ka] for ka in range(4) for kb in range(4)]
+
+
+def stockham_fft(z: np.ndarray, table: np.ndarray, rounded: bool = False,
+                 trace: list = None) -> np.ndarray:
+    """The kernel's schedule on m = len(z) points; ``table`` holds W_{2m}^j,
+    j < m, and is read in pass order (:func:`pass_twiddles`).  ``trace`` collects, per exchange, the write and read positions
+    of each (slot, thread) for the bank and permutation checks."""
+    m = len(z)
+    log2_m = m.bit_length() - 1
+    T, P = thread_count(log2_m), points_per_thread(log2_m)
+    t = np.arange(T)
+    v = [z[slot_index(t, s, T)].astype(np.complex128) for s in range(P)]
+    plan = radix_plan(log2_m)
+    twiddles = pass_twiddles(table, log2_m)
+    p = 1
+    for n, R in enumerate(plan):
+        nb = P // R
+        for b in range(nb):
+            i = t + b * T
+            k = i % p
+            u = [v[b + nb * q] for q in range(R)]
+            if p > 1:
+                u = [u[0]] + [u[q] * twiddles[twiddle_index(q, k, p)] for q in range(1, R)]
+            for q, x in enumerate(dft(u, rounded)):
+                v[b + nb * q] = x
+        if n + 1 < len(plan):   # exchange through shared memory
+            shared = np.full(m, np.nan, dtype=np.complex128)
+            writes = {}
+            for b in range(nb):
+                i = t + b * T
+                for q in range(R):
+                    a = swizzle(exchange_index(i, q, p, R))
+                    shared[a] = v[b + nb * q]
+                    writes[(b, q)] = a
+            reads = {s: swizzle(slot_index(t, s, T)) for s in range(P)}
+            v = [shared[reads[s]] for s in range(P)]
+            if trace is not None:
+                trace.append((writes, reads))
+        p *= R
+    out = np.full(m, np.nan, dtype=np.complex128)
+    for s in range(P):
+        out[slot_index(t, s, T)] = v[s]
+    return out
+
+
+def table64(m):
+    return np.exp(-2j * np.pi * np.arange(m) / (2 * m))
+
+
+def table32(m):
+    c, s = stft_ops.unpack_twiddles(2 * m)
+    return c.astype(np.float64) + 1j * s.astype(np.float64)
+
+
+def random_points(m, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(m) + 1j * rng.standard_normal(m)
+
+
+def test_radix_plan_of_the_production_and_small_sizes():
+    assert radix_plan(14) == [16, 16, 16, 4]     # n_fft 32768: 3 exchanges
+    assert radix_plan(10) == [16, 16, 4]
+    assert radix_plan(11) == [16, 16, 8]
+    assert radix_plan(4) == [16] and radix_plan(1) == [2]
+    for log2_m in LOG2_M:
+        plan = radix_plan(log2_m)
+        assert int(np.prod(plan)) == 1 << log2_m
+        assert len(plan) - 1 <= 4
+        assert thread_count(log2_m) * points_per_thread(log2_m) == 1 << log2_m
+        assert thread_count(log2_m) <= 1024
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_the_ports_pass_twiddles_are_the_f32_table_rearranged(log2_m):
+    """stft_ops.stockham_twiddles, which K6 reads, holds bit for bit the
+    values of the f32 W_{2m}^j table at table_index, at twiddle_index; every
+    entry but the padding is written once."""
+    m = 1 << log2_m
+    assert stft_ops.stockham_radices(m) == radix_plan(log2_m)
+    c, s = stft_ops.stockham_twiddles(2 * m)
+    want = pass_twiddles(table32(m).astype(np.complex64), log2_m)
+    np.testing.assert_array_equal(c, want.real)
+    np.testing.assert_array_equal(s, want.imag)
+    seen = np.zeros(m, dtype=int)
+    p = 1
+    for R in radix_plan(log2_m):
+        for q in range(1, R):
+            np.add.at(seen, twiddle_index(q, np.arange(p), p), 1)
+        p *= R
+    assert (seen[:-1] == 1).all() and seen[-1] == 0
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_schedule_in_float64_matches_numpy_fft(log2_m):
+    m = 1 << log2_m
+    z = random_points(m, seed=log2_m)
+    got = stockham_fft(z, table64(m))
+    want = np.fft.fft(z)
+    assert not np.isnan(got).any()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_schedule_with_the_f32_twiddle_table(log2_m):
+    """The table K6 reads (float64 rounded once to f32) and the f32 W_16
+    literals: within 1e-6 of the peak (float64 arithmetic)."""
+    m = 1 << log2_m
+    z = random_points(m, seed=100 + log2_m)
+    got = stockham_fft(z, table32(m), rounded=True)
+    want = np.fft.fft(z)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_exchanges_are_permutations_free_of_bank_conflicts(log2_m):
+    """Each exchange writes every position once; every warp-wide write and
+    read (one slot of 32 neighbouring threads, 4-byte re or im words) hits
+    32 distinct banks, or as many as the warp has threads."""
+    m = 1 << log2_m
+    trace = []
+    stockham_fft(random_points(m, 7), table64(m), trace=trace)
+    assert len(trace) == len(radix_plan(log2_m)) - 1
+    T = thread_count(log2_m)
+    for writes, reads in trace:
+        written = np.concatenate(list(writes.values()))
+        assert np.array_equal(np.sort(written), np.arange(m))
+        for positions in (*writes.values(), *reads.values()):
+            for w in range(0, T, WARP):
+                lanes = positions[w:w + WARP]
+                assert len(np.unique(lanes % BANKS)) == len(lanes)
+
+
+def k6_frame_points(y, window, start, m):
+    """The kernel's loader: packed point j of the frame starting at raw
+    sample ``start``, windowed, read only where the window is non-zero;
+    interior frames index directly, the others reflect on the index."""
+    n = len(y)
+    a = np.arange(2 * m)
+    idx = start + a
+    if not (start >= 0 and start + 2 * m <= n):
+        if n == 1:
+            idx = np.zeros_like(idx)
+        else:
+            period = 2 * (n - 1)
+            idx = idx % period
+            idx = np.where(idx < n, idx, period - idx)
+    x = np.where(window != 0, y[np.clip(idx, 0, n - 1)], 0.0) * window
+    return x[0::2] + 1j * x[1::2]
+
+
+@pytest.mark.parametrize("n_fft,n", [(4, 3 * 4 + 11), (4, 1), (64, 3 * 64 + 11), (64, 7),
+                                     (2048, 3 * 2048 + 11), (2048, 700)])
+def test_model_of_k6_matches_the_plain_version(n_fft, n):
+    """Framing, window, packing and the schedule against
+    ``wave_packed_fft_plain`` in float64, on 3 signals of an odd length."""
+    m, hop = n_fft // 2, max(1, 3 * n_fft // 8)
+    window = stft_ops.padded_window(n_fft - n_fft // 8, n_fft).astype(np.float64)
+    rng = np.random.default_rng(n_fft + n)
+    waves = rng.standard_normal((3, n))
+    n_frames = 1 + n // hop
+    table = table64(m)
+    got = np.array([[stockham_fft(k6_frame_points(y, window, f * hop - m, m), table)
+                     for f in range(n_frames)] for y in waves])
+    wr, wi = kernels.wave_packed_fft_plain(torch.from_numpy(waves),
+                                           torch.from_numpy(window), hop, n_fft)
+    want = wr.numpy() + 1j * wi.numpy()
+    assert got.shape == want.shape == (3, n_frames, m)
+    peak = np.abs(want).max(axis=-1, keepdims=True)
+    assert (np.abs(got - want) <= 1e-12 * np.maximum(peak, 1e-300)).all()
