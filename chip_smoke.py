@@ -11,7 +11,8 @@ non-zero on the first failure.  Phases:
   1. card     device name, ``nvidia-smi`` name and power limit; builds the
               kernels from ``sed_tpu_torch/ops/csrc`` with nvcc and prints
               the build time and ptxas' registers, shared memory and spills;
-              K6's three lesion builds (below) start beside it, one nvcc each;
+              the lesion builds (K6's three and K3's one, below) start beside
+              it, one nvcc each;
   2. kernels  K1 and K2 against their plain versions computed in float64 on
               the card, at the batch path's shapes (16 x 60 s); K3 at the
               streaming tick's shape (32 slots x 5 frames = 160 rows), float32
@@ -32,8 +33,13 @@ non-zero on the first failure.  Phases:
               µ-law client, each against offline scoring of its audio;
   8. times    CUDA-event medians of K1, K2, K3, their plain versions, a
               PyTorch yardstick for each, the featurizer, the model and the
-              whole 16 x 60 s batch; a single-round tick and a 16-round block
-              of the 32-slot pool, and the tick's device time by kernel
+              whole 16 x 60 s batch; K3's share of its bound and its ratio
+              to ``torch.fft.rfft`` + abs^2, each also with the calls
+              queued (K3 takes tens of microseconds, less than one call's
+              launch latency), and K3 rebuilt without its drain's exchange
+              (wrong results, timing only: what the exchange costs); a
+              single-round tick and a 16-round block of the 32-slot pool,
+              and the tick's device time by kernel
               (``torch.profiler``); the pool run's profile split, audio-s per
               wall-s and peak device memory;
   9. impls    every implementation name of sed_tpu's featurizer on phase 3's
@@ -85,6 +91,7 @@ K1_REL_TOL = 1e-5   # K1, K3: abs error / frame peak power, against float64
 DB_TOL = 1e-4       # K2, K1+K2 and K3+K2: dB, against float64
 SCORE_TOL = 1e-4    # scores, against the batch path or the CPU
 REPS = 20
+QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
 
 # Memory rate (B/s) and FP32 rate outside the tensor cores (FLOP/s) of the
 # card, from NVIDIA's data sheets, by product name; the SXM part by default.
@@ -115,8 +122,12 @@ def smi_line() -> str:
     return smi.splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+def time_ms(torch, fn, reps: int = REPS, warmup: int = 3, calls: int = 1) -> float:
+    """Median device time of one call of ``fn()`` by CUDA events around
+    ``calls`` calls in a row, over ``reps`` such groups.  With one call a
+    group the card waits for each launch, so a kernel of tens of
+    microseconds is timed with its host launch latency; ``calls`` queued
+    back to back keep the card busy and time the kernel itself."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -125,10 +136,11 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -179,29 +191,36 @@ def profile_ticks(torch, fn, n: int):
     return sorted(rows, key=lambda r: -r[1])
 
 
-# K6 with one part of its work removed (wrong results, timing only): how much
-# of K6's time each part holds.  Each is featurizer.cu with one edit, built
-# beside the real library and timed on the same inputs in phase 9.
-K6_LESIONS = {
-    "loads": ("  load.template fill<T, P>(v, t);",
-              "#pragma unroll\n  for (int s = 0; s < kPoints; ++s)\n"
-              "    v[s] = make_float2(t * 1e-3f + s, s * 0.5f - t);"),
-    "exchanges": ("      if (pass + 1 < a || r > 1) stockham_exchange<16, 1>(v, sre, sim, t, T, p);",
-                  ""),
-    "twiddles": ("    if (p > 1) {\n      const int k = (t + b * T)",
-                 "    if (false) {\n      const int k = (t + b * T)"),
+# A kernel with one part of its work removed (wrong results, timing only):
+# how much of its time that part holds.  Each is featurizer.cu with one edit,
+# built beside the real library and timed on the same inputs: K6's in phase
+# 9, K3's in phase 8.  name -> (C entry point, anchor, replacement).
+LESIONS = {
+    "K6 loads": ("sed_wave_packed_fft", "  load.template fill<T, P>(v, t);",
+                 "#pragma unroll\n  for (int s = 0; s < kPoints; ++s)\n"
+                 "    v[s] = make_float2(t * 1e-3f + s, s * 0.5f - t);"),
+    "K6 exchanges": ("sed_wave_packed_fft",
+                     "      if (pass + 1 < a || r > 1) stockham_exchange<16, 1>(v, sre, sim, t, T, p);",
+                     ""),
+    "K6 twiddles": ("sed_wave_packed_fft",
+                    "    if (p > 1) {\n      const int k = (t + b * T)",
+                    "    if (false) {\n      const int k = (t + b * T)"),
+    "K3 drain exchange": ("sed_frames_stft_power",
+                          "    constexpr bool in_registers = T == 1;",
+                          "    constexpr bool in_registers = true;"),
 }
 _lesion_builds = []
 
 
-def start_k6_lesions(kernels):
+def start_lesions(kernels):
     """Start one nvcc per lesion (all at once, beside the main build)."""
     src = kernels.SOURCE.read_text()
-    out = kernels.BUILD_DIR / "k6_lesions"
+    out = kernels.BUILD_DIR / "lesions"
     out.mkdir(parents=True, exist_ok=True)
-    for name, (old, new) in K6_LESIONS.items():
-        check(src.count(old) == 1, f"K6 lesion {name!r}: its anchor is in featurizer.cu")
-        cu, so, build_log = out / f"{name}.cu", out / f"lib{name}.so", out / f"{name}.log"
+    for name, (_, old, new) in LESIONS.items():
+        check(src.count(old) == 1, f"lesion {name!r}: its anchor is in featurizer.cu")
+        stem = name.replace(" ", "_")
+        cu, so, build_log = out / f"{stem}.cu", out / f"lib{stem}.so", out / f"{stem}.log"
         cu.write_text(src.replace(old, new))
         with open(build_log, "w") as f:
             proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -209,26 +228,29 @@ def start_k6_lesions(kernels):
         _lesion_builds.append((name, proc, so, build_log))
 
 
-def stop_k6_lesions() -> None:
+def stop_lesions() -> None:
     for _, proc, _, _ in _lesion_builds:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
 
 
-def finish_k6_lesions():
-    """Wait for the lesion builds; returns {name: sed_wave_packed_fft}."""
+def finish_lesions():
+    """Wait for the lesion builds; returns {name: its C entry point}, typed
+    as ``cuda_featurizer._library()`` types it."""
     import ctypes
+
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
 
     fns = {}
     for name, proc, so, build_log in _lesion_builds:
         proc.wait(timeout=600)
         check(proc.returncode == 0,
-              f"K6 lesion {name!r} builds: {build_log.read_text()[-2000:]}")
-        fn = ctypes.CDLL(str(so)).sed_wave_packed_fft
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32, vp]
-        fn.restype = i32
+              f"lesion {name!r} builds: {build_log.read_text()[-2000:]}")
+        entry = LESIONS[name][0]
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        typed = getattr(kernels._library(), entry)
+        fn.argtypes, fn.restype = typed.argtypes, typed.restype
         fns[name] = fn
     return fns
 
@@ -243,7 +265,7 @@ def score_all(torch, predict, clips):
     return np.concatenate(outs)
 
 
-def impls_phase(torch, cfg, dev, bound, win_nnz):
+def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
     """Phase 9: every implementation name of sed_tpu's featurizer on the card
     (see the module docstring).  Returns the ``kernels`` entries of K4–K10."""
     from sed_tpu_torch.ops import cuda_featurizer as kernels
@@ -396,7 +418,6 @@ def impls_phase(torch, cfg, dev, bound, win_nnz):
     }
     del packed
     # K6 without its loads, exchanges or twiddles (wrong results): each part's share.
-    lesions = finish_k6_lesions()
     zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
     tw = kernels._stockham_twiddles(n_fft, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -407,8 +428,9 @@ def impls_phase(torch, cfg, dev, bound, win_nnz):
                  dev.index, stream)
         check(err == 0, f"K6 lesion launch ({err})")
 
-    lesion_ms = {name: time_ms(torch, lambda fn=fn: lesion_run(fn)) for name, fn in lesions.items()}
-    ms["k6_again"] = time_ms(torch, lambda: kernels.wave_packed_fft(waves, window, hop, n_fft))
+    lesion_ms = {name[3:]: time_ms(torch, lambda fn=fn: lesion_run(fn))
+                 for name, fn in lesions.items() if name.startswith("K6 ")}
+    ms["k6_again"] = time_ms(torch, lambda: lesion_run(kernels._library().sed_wave_packed_fft))
     del zr, zi
     impl_ms = {impl: time_ms(torch, lambda impl=impl: kernels.logmel_waveform(
         waves, cfg, impl=impl)) for impl in kernels.IMPL_KERNELS}
@@ -435,7 +457,7 @@ def impls_phase(torch, cfg, dev, bound, win_nnz):
         f"{k6_bound[0]:.4f} ms ({k6_bound[1]}) | bound share {k6_bound[0] / ms['k6']:.1%} "
         f"| K6 / torch.fft.fft {ms['k6'] / ms['k6_lib']:.3f}")
     log(f"[times] K6 with a part of its work removed (wrong results, timing only; K6 "
-        f"timed again beside them {ms['k6_again']:.4f} ms): " + ", ".join(
+        f"timed again beside them through the same C call {ms['k6_again']:.4f} ms): " + ", ".join(
             f"without {name} {t:.4f} ms (their share {ms['k6_again'] - t:.4f} ms)"
             for name, t in lesion_ms.items()))
     log(f"[times] K1 under sed_tpu's names: K7 eo {ms['k7']:.4f} ms | K8 rollraw "
@@ -509,14 +531,15 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {name}, device count {count}")
     log(f"[card] nvidia-smi: {smi}")
-    start_k6_lesions(kernels)
+    start_lesions(kernels)
     info = kernels.build(force=True)
     log(f"[card] nvcc build: {info.seconds:.2f} s -> {info.path.relative_to(REPO)}")
     for line in info.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"[card] ptxas: {line.strip()}")
-    log(f"[card] K6 wave_packed_fft_kernel at n_fft {cfg.nfft}: {cfg.nfft // 32} threads "
-        f"a frame, {4 * cfg.nfft} B of dynamic shared memory (the exchange buffer)")
+    log(f"[card] K6 wave_packed_fft_kernel and K3 frames_stft_power_kernel at n_fft "
+        f"{cfg.nfft}: {cfg.nfft // 32} threads a frame (row), {4 * cfg.nfft} B of dynamic "
+        f"shared memory (the exchange buffer)")
     bw, flops_peak = card_peaks(name)
 
     sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
@@ -839,10 +862,35 @@ def main() -> int:
     # K3 on a tick's frames: the first frames_max frames of every stream.
     tick_frames = (torch.from_numpy(audio[:, : n_fft + (frames_max - 1) * hop]).to(dev)
                    .float() / 32768.0).unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
-    k3_ms = time_ms(torch, lambda: kernels.frames_stft_power(tick_frames, window, n_fft))
-    k3_plain_ms = time_ms(torch, lambda: kernels.frames_stft_power_plain(
-        tick_frames, window, n_fft))
-    k3_lib_ms = time_ms(torch, lambda: torch.fft.rfft(tick_frames * window).abs() ** 2)
+    # One call between two events, as every kernel here (launch latency
+    # included); K3 takes tens of microseconds, so also queued (QUEUED calls
+    # in a row), which times the device work alone.
+    k3_calls = {
+        "k3": lambda: kernels.frames_stft_power(tick_frames, window, n_fft),
+        "plain": lambda: kernels.frames_stft_power_plain(tick_frames, window, n_fft),
+        "lib": lambda: torch.fft.rfft(tick_frames * window).abs() ** 2,
+    }
+    k3_ms, k3_plain_ms, k3_lib_ms = (time_ms(torch, fn) for fn in k3_calls.values())
+    k3_q_ms, k3_q_plain_ms, k3_q_lib_ms = (time_ms(torch, fn, calls=QUEUED)
+                                           for fn in k3_calls.values())
+    # K3 without its drain's exchange (wrong results): what the exchange
+    # costs, against K3 through the same C call.
+    lesions = finish_lesions()
+    k3_out = kernels.frames_stft_power(tick_frames, window, n_fft)
+    k3_tables = (kernels._stockham_twiddles(n_fft, dev), kernels._twiddles(n_fft, dev))
+    k3_stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def k3_raw_run(fn):
+        err = fn(tick_frames.data_ptr(), 0, window.data_ptr(), k3_tables[0].data_ptr(),
+                 k3_tables[1].data_ptr(), k3_out.data_ptr(), tick_frames.shape[0],
+                 n_fft.bit_length() - 2, dev.index, k3_stream)
+        check(err == 0, f"K3 raw launch ({err})")
+
+    k3_lesion_ms = time_ms(torch, lambda: k3_raw_run(lesions["K3 drain exchange"]),
+                           calls=QUEUED)
+    k3_again_ms = time_ms(torch, lambda: k3_raw_run(kernels._library().sed_frames_stft_power),
+                          calls=QUEUED)
+    del k3_out
 
     # The 32-slot pool's tick: every slot admitted, int16 chunks.
     tpool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
@@ -865,7 +913,8 @@ def main() -> int:
     k2_ops = frames * 2 * nnz
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     k3_n = tick_frames.shape[0]
-    k3_bytes = 4 * (tick_frames.numel() + n_fft + 2 * m + k3_n * (m + 1))
+    # Rows, window, the two twiddle tables (pass-ordered and W_N^k), power.
+    k3_bytes = 4 * (tick_frames.numel() + n_fft + 4 * m + k3_n * (m + 1))
     k3_ops = fft_ops(k3_n, m, win_nnz)
     k3_bound, k3_by = bound(k3_bytes, k3_ops)
     log(f"[times] {smi}; CUDA-event median of {REPS} unless stated")
@@ -882,7 +931,14 @@ def main() -> int:
     log(f"[times] streaming path, {POOL_SLOTS} slots x 1 s chunks, {k3_n} frames a tick:")
     log(f"[times] K3 frames_stft_power {k3_ms:.4f} ms | plain {k3_plain_ms:.4f} ms | "
         f"rfft+abs^2 {k3_lib_ms:.4f} ms | bound {k3_bound:.4f} ms ({k3_by}: "
-        f"{k3_bytes / 1e6:.1f} MB, {k3_ops / 1e9:.3f} GFLOP)")
+        f"{k3_bytes / 1e6:.1f} MB, {k3_ops / 1e9:.3f} GFLOP) | bound share "
+        f"{k3_bound / k3_ms:.1%} | K3 / rfft+abs^2 {k3_ms / k3_lib_ms:.3f}")
+    log(f"[times] K3 queued ({QUEUED} calls between two events, per call) {k3_q_ms:.4f} ms "
+        f"| plain {k3_q_plain_ms:.4f} ms | rfft+abs^2 {k3_q_lib_ms:.4f} ms | bound share "
+        f"{k3_bound / k3_q_ms:.1%} | K3 / rfft+abs^2 {k3_q_ms / k3_q_lib_ms:.3f}")
+    log(f"[times] K3 without its drain's exchange (wrong results, timing only, queued) "
+        f"{k3_lesion_ms:.4f} ms; K3 through the same C call {k3_again_ms:.4f} ms (the "
+        f"exchange's share {k3_again_ms - k3_lesion_ms:.4f} ms)")
     log(f"[times] pool tick, one round of {POOL_SLOTS} slots: {tick_ms:.4f} ms | "
         f"one {StreamPool.ROUNDS_PER_CALL}-round block: {block_ms:.4f} ms (median of 5)")
     if tick_kernels:
@@ -905,26 +961,30 @@ def main() -> int:
     log(f"[times] {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - phase_t0:.1f} s")
 
-    impl_entries = impls_phase(torch, cfg, dev, bound, win_nnz)
+    impl_entries = impls_phase(torch, cfg, dev, bound, win_nnz, lesions)
     log(f"[times] total {time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     print(json.dumps({"kernels": [
-        {"name": "wave_stft_power", "route": "cuda", "source": source,
+        {"name": "wave_stft_power", "kernel": "wave_stft_power_kernel (packed_fft)",
+         "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:412",
          "launches": launches["wave_stft_power"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib_ms},
-        {"name": "mel_log", "route": "cuda", "source": source,
+        {"name": "mel_log", "kernel": "mel_log_kernel", "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:72",
          "launches": launches["mel_log"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms},
-        {"name": "frames_stft_power", "route": "cuda", "source": source,
+        {"name": "frames_stft_power",
+         "kernel": "frames_stft_power_kernel<LOG2_M, Pair> (stockham_fft, PowerStore)",
+         "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:283",
          "launches": pool_launches["frames_stft_power"], "max_abs_err": k3["float32"],
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib_ms},
+         "bound_by": k3_by, "library_ms": k3_lib_ms, "queued_ms": k3_q_ms,
+         "queued_plain_ms": k3_q_plain_ms, "queued_library_ms": k3_q_lib_ms},
         *impl_entries,
     ]}), flush=True)
     print(smi, flush=True)
@@ -937,4 +997,4 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     finally:
-        stop_k6_lesions()
+        stop_lesions()

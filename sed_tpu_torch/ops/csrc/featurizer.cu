@@ -4,8 +4,9 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsed_featurizer.so featurizer.cu
 // into a shared library with a plain C interface, loaded with ctypes.  Every
-// entry point launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() after the launch; the Python wrapper raises on non-zero.
+// entry point launches on the caller's stream, allocates nothing, returns
+// cudaGetLastError() after the launch (the Python wrapper raises on non-zero)
+// and leaves the calling thread's current device as it found it (DeviceGuard).
 // No fast-math: K2's accurate log10f (not __log10f) is part of the parity
 // budget (log-mel <= 1e-4 dB against a float64 oracle).
 //
@@ -43,12 +44,19 @@
 //   natural bin order (what K2 reads).
 //   Bound on an H100 SXM: bytes.  At a 32-slot, 1 s tick it reads 160 rows of
 //   f32 frames (21.0 MB) and writes 10.5 MB of power (~9.4 us at 3.35 TB/s)
-//   against ~0.25 GFLOP.  At one CTA per row the 160 rows take two waves
-//   of K1's ~80 us per-frame time, so it runs far above that bound.
-//   Design: K1's without the framing: one CTA per row, the row read only
-//   where the window is non-zero, and the same FFT core (fft_power_row:
-//   packed_fft then unpacked_power, templated on the sample loader, so K1's
-//   arithmetic is unchanged).
+//   against ~0.25 GFLOP.  At one CTA per row the 160 rows on 132 SMs take
+//   two waves of one row's time, so it cannot come near that bound; splitting
+//   a row over a thread-block cluster is the next step (ROADMAP queue 2).
+//   Design: K6's core without the framing.  One CTA of m/16 threads per row,
+//   a template on log2 m (1..14) and on the sample pair type.  PackedRowLoad
+//   reads packed point t + s*m/16 as one float2 (short2 for int16) straight
+//   into registers, only where the window is non-zero; stockham_fft runs the
+//   m-point FFT in registers (three exchanges at m = 16384); PowerStore, the
+//   drain, unpacks the packed spectrum to one-sided power: bin k needs Z[k]
+//   and Z[m-k], which another thread holds, so Z goes once more through
+//   shared memory (a fourth exchange, natural order, free of bank conflicts),
+//   and X[k] = E[k] + W_N^k O[k] (W_N^k from K1's table, read contiguously)
+//   is squared and stored straight to the row.
 //   Known divergence from sed_tpu: FP32 FFT butterflies in place of the TPU's
 //   HIGHEST-precision matmul DFT stages, one-sided natural-order power in
 //   place of all n_fft bins in the (k2, k1) tile layout.
@@ -135,6 +143,9 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace {
 
 constexpr int kStftThreads = 1024;
@@ -152,7 +163,7 @@ __device__ __forceinline__ long long reflect_index(long long i, long long n) {
   return i < n ? i : period - i;
 }
 
-// The FFT core shared by K1, K3 and K5 (K6 runs stockham_fft instead):
+// The FFT core shared by K1 and K5 (K3 and K6 run stockham_fft instead):
 // window the n_fft samples that
 // load(a) returns (a = 0..n_fft-1; called only where the window is
 // non-zero), pack even/odd samples as one complex point stored bit-reversed
@@ -199,12 +210,24 @@ __device__ __forceinline__ void packed_fft(const Load& load,
   }
 }
 
-// Power of one-sided bin k (0..m) from the packed spectrum z, by the
-// hermitian unpack of the real-input spectrum:
+// |X[k]|^2 of one-sided bin k < m from zk = Z[k], zr = Z[(m-k) mod m] of the
+// packed spectrum and w = W_N^k, by the hermitian unpack of the real-input
+// spectrum:
 //   E[k] = (Z[k] + conj(Z[m-k]))/2,  O[k] = (Z[k] - conj(Z[m-k]))/(2i),
 //   X[k] = E[k] + W_N^k O[k] (k < m),  X[m] = E[0] - O[0].
-// It reads z[k] and z[m-k] and writes nothing, so z must not be overwritten
-// while any thread of the block still unpacks.
+__device__ __forceinline__ float hermitian_power(float2 zk, float2 zr, float2 w) {
+  const float er = 0.5f * (zk.x + zr.x);
+  const float ei = 0.5f * (zk.y - zr.y);
+  const float orr = 0.5f * (zk.y + zr.y);
+  const float oi = -0.5f * (zk.x - zr.x);
+  const float xr = er + w.x * orr - w.y * oi;
+  const float xi = ei + w.x * oi + w.y * orr;
+  return xr * xr + xi * xi;
+}
+
+// Power of one-sided bin k (0..m) from the packed spectrum z in shared
+// memory.  It reads z[k] and z[m-k] and writes nothing, so z must not be
+// overwritten while any thread of the block still unpacks.
 __device__ __forceinline__ float unpacked_power(const float2* z,
                                                 const float2* __restrict__ twiddle,
                                                 int k, int m) {
@@ -213,20 +236,11 @@ __device__ __forceinline__ float unpacked_power(const float2* z,
     const float x = z0.x - z0.y;
     return x * x;
   }
-  const float2 zk = z[k];
-  const float2 zr = z[(m - k) & (m - 1)];
-  const float er = 0.5f * (zk.x + zr.x);
-  const float ei = 0.5f * (zk.y - zr.y);
-  const float orr = 0.5f * (zk.y + zr.y);
-  const float oi = -0.5f * (zk.x - zr.x);
-  const float2 w = twiddle[k];
-  const float xr = er + w.x * orr - w.y * oi;
-  const float xi = ei + w.x * oi + w.y * orr;
-  return xr * xr + xi * xi;
+  return hermitian_power(z[k], z[(m - k) & (m - 1)], twiddle[k]);
 }
 
-// K1's and K3's body: the packed FFT, then the one-sided power written to
-// row (bins 0..m).
+// K1's body: the packed FFT, then the one-sided power written to row
+// (bins 0..m).
 template <typename Load>
 __device__ __forceinline__ void fft_power_row(const Load& load,
                                               const float* __restrict__ window,
@@ -274,16 +288,6 @@ struct ReflectLoad {
   long long n;
   __device__ __forceinline__ float operator()(int a) const {
     return y[reflect_index(start + a, n)];
-  }
-};
-
-// K3's loader: sample a of a pre-framed row (float, or int16 PCM whose
-// 1/32768 scale the caller folded into the window).
-template <typename T>
-struct RowLoad {
-  const T* x;
-  __device__ __forceinline__ float operator()(int a) const {
-    return static_cast<float>(x[a]);
   }
 };
 
@@ -531,6 +535,31 @@ struct PackedWaveLoad {
   }
 };
 
+// K3's loader: packed point j = (x[2j], x[2j+1]) of a pre-framed row of
+// Pair (float2: f32 samples; short2: int16 PCM, whose 1/32768 scale the
+// caller folded into the window), times the window, read only where the
+// window is non-zero.  A row starts at element r*2m and 2j is even, so each
+// point is one aligned 8-byte (4-byte) load; a row is always interior, so
+// every load goes straight into registers, all issued before any arithmetic.
+template <typename Pair>
+struct PackedRowLoad {
+  const Pair* x;
+  const float* window;
+  template <int T, int P>
+  __device__ __forceinline__ void fill(float2 (&v)[kPoints], int t) const {
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const int j = t + T * s;
+      const float w0 = window[2 * j];
+      const float w1 = window[2 * j + 1];
+      Pair p{};
+      if (w0 != 0.f || w1 != 0.f) p = x[j];
+      v[s] = make_float2(w0 != 0.f ? w0 * static_cast<float>(p.x) : 0.f,
+                         w1 != 0.f ? w1 * static_cast<float>(p.y) : 0.f);
+    }
+  }
+};
+
 struct SplitStore {
   float* re;
   float* im;
@@ -540,6 +569,57 @@ struct SplitStore {
     for (int s = 0; s < P; ++s) {
       re[t + T * s] = v[s].x;
       im[t + T * s] = v[s].y;
+    }
+  }
+};
+
+// K3's drain, written for any kernel over stockham_fft that wants one-sided
+// power: |X[k]|^2 for k = 0..m to row (device or shared memory) from the
+// packed spectrum in registers (slot s of thread t holds Z[k], k = t + T*s).
+// Bin k needs Z[(m-k) mod m] too: for t > 0 thread T-t holds it in slot
+// P-1-s, for t = 0 thread 0 in slot (P-s) mod P.  One thread (m <= 16) has
+// them all; otherwise Z goes once more through the exchange buffer sre/sim
+// (m floats each), after a barrier that lets the last exchange's reads
+// finish.  That exchange keeps natural order, no swizzle: a warp writes 32
+// neighbouring positions and reads their 32 mirrors, 32 neighbouring
+// positions too, so both hit 32 banks.  W_N^k (K1's unpack table) is read at
+// contiguous k; the stores are scalar and coalesced (a row of m + 1 floats
+// is 4-byte aligned only).  Thread 0 also writes bin m, (Re Z0 - Im Z0)^2.
+// tests/test_torch_fft_plan.py models it (drain_partner, drain_write_index,
+// drain_read_index, power_drain).
+struct PowerStore {
+  float* row;
+  const float2* twiddle;  // W_N^k, k < m
+  float* sre;
+  float* sim;
+  template <int T, int P>
+  __device__ __forceinline__ void drain(const float2 (&v)[kPoints], int t) const {
+    constexpr int m = T * P;
+    constexpr bool in_registers = T == 1;
+    if (t == 0) {
+      const float x = v[0].x - v[0].y;
+      row[m] = x * x;
+    }
+    if constexpr (!in_registers) {
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < P; ++s) {
+        sre[t + T * s] = v[s].x;
+        sim[t + T * s] = v[s].y;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const int k = t + T * s;
+      float2 mirror;
+      if constexpr (in_registers) {
+        mirror = v[(P - s) % P];
+      } else {
+        const int a = (m - k) & (m - 1);
+        mirror = make_float2(sre[a], sim[a]);
+      }
+      row[k] = hermitian_power(v[s], mirror, __ldg(twiddle + k));
     }
   }
 };
@@ -561,18 +641,21 @@ wave_stft_power_kernel(const float* __restrict__ wave,
                 log2_m);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kStftThreads)
-frames_stft_power_kernel(const T* __restrict__ frames,
+// Rows of Pair: float2 (f32 samples) or short2 (int16 PCM).  The launch
+// bound is the instance's own thread count, as K6's.
+template <int LOG2_M, typename Pair>
+__global__ void __launch_bounds__(LOG2_M < 4 ? 1 : (1 << LOG2_M) / kPoints, 1)
+frames_stft_power_kernel(const Pair* __restrict__ frames,
                          const float* __restrict__ window,
-                         const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
-                         float* __restrict__ out, int log2_m) {
-  extern __shared__ float2 z[];
-  const int m = 1 << log2_m;
+                         const float2* __restrict__ twiddle,  // stockham_twiddles
+                         const float2* __restrict__ unpack,   // W_N^k, k < m
+                         float* __restrict__ out) {
+  extern __shared__ float exchange[];  // re: m floats, then im: m floats
+  constexpr int m = 1 << LOG2_M;
   const long long r = blockIdx.x;
-  const RowLoad<T> load{frames + r * (2LL * m)};
-  fft_power_row(load, window, twiddle, z, out + r * static_cast<long long>(m + 1),
-                log2_m);
+  const PackedRowLoad<Pair> load{frames + r * m, window};
+  const PowerStore store{out + r * (m + 1LL), unpack, exchange, exchange + m};
+  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
 }
 
 __global__ void __launch_bounds__(kMelThreads)
@@ -637,48 +720,63 @@ wave_packed_fft_kernel(const float* __restrict__ wave,
   stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
 }
 
-template <typename T>
-int launch_frames_stft_power(const void* frames, const void* window,
-                             const void* twiddle, void* out, long long rows,
-                             int log2_m, void* stream) {
-  const int smem = static_cast<int>(sizeof(float2)) << log2_m;
-  cudaError_t err = cudaFuncSetAttribute(
-      frames_stft_power_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  frames_stft_power_kernel<T><<<static_cast<unsigned>(rows), kStftThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(frames), static_cast<const float*>(window),
-      static_cast<const float2*>(twiddle), static_cast<float*>(out), log2_m);
-  return cudaGetLastError();
-}
-
-// K6 at m = 2^LOG2_M: thread_count = max(1, m/16) threads, the 2m floats
-// of the exchange buffer in dynamic shared memory.
-template <int LOG2_M>
-int launch_wave_packed_fft(const float* wave, const float* window,
-                           const float2* twiddle, float* out_re, float* out_im,
-                           long long blocks, long long n_samples, int n_frames,
-                           int hop, cudaStream_t stream) {
+// A kernel over stockham_fft at m = 2^LOG2_M: max(1, m/16) threads a
+// block, the 2m floats of the exchange buffer in dynamic shared memory.
+template <int LOG2_M, typename... Params, typename... Args>
+int launch_stockham(void (*kernel)(Params...), long long blocks, cudaStream_t stream,
+                    const Args&... args) {
   constexpr int m = 1 << LOG2_M;
   constexpr int threads = m < kPoints ? 1 : m / kPoints;
   constexpr int smem = static_cast<int>(sizeof(float2)) * m;
-  cudaError_t err = cudaFuncSetAttribute(
-      wave_packed_fft_kernel<LOG2_M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  wave_packed_fft_kernel<LOG2_M><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      wave, window, twiddle, out_re, out_im, n_samples, n_frames, hop);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-using LaunchWavePackedFft = int (*)(const float*, const float*, const float2*, float*,
-                                   float*, long long, long long, int, int, cudaStream_t);
-// Indexed by log2 m (1..14, n_fft 4..32768).
-constexpr LaunchWavePackedFft kLaunchWavePackedFft[] = {
-    nullptr, launch_wave_packed_fft<1>, launch_wave_packed_fft<2>,
-    launch_wave_packed_fft<3>, launch_wave_packed_fft<4>, launch_wave_packed_fft<5>,
-    launch_wave_packed_fft<6>, launch_wave_packed_fft<7>, launch_wave_packed_fft<8>,
-    launch_wave_packed_fft<9>, launch_wave_packed_fft<10>, launch_wave_packed_fft<11>,
-    launch_wave_packed_fft<12>, launch_wave_packed_fft<13>, launch_wave_packed_fft<14>};
+// launch(std::integral_constant<int, log2_m>{}) for log2 m 1..14 (n_fft
+// 4..32768), which instantiates `launch` once for each; cudaErrorInvalidValue
+// for any other log2 m.
+template <typename Launch, int... L>
+int with_log2_m(int log2_m, const Launch& launch, std::integer_sequence<int, L...>) {
+  int err = cudaErrorInvalidValue;
+  (void)((log2_m == L + 1 ? (err = launch(std::integral_constant<int, L + 1>{}), true)
+                          : false) || ...);
+  return err;
+}
+
+template <typename Launch>
+int with_log2_m(int log2_m, const Launch& launch) {
+  return with_log2_m(log2_m, launch, std::make_integer_sequence<int, 14>{});
+}
+
+// Makes `device` the calling thread's current device for the guard's life and
+// restores the caller's device on every return path, error paths included, so
+// an entry point leaves the thread's device as it found it (later 'cuda'
+// allocations of the caller stay where they were).  It switches only when the
+// device differs.  Every extern "C" entry point that launches starts with one.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    status_ = cudaGetDevice(&caller_);
+    if (status_ == cudaSuccess && caller_ != device) {
+      status_ = cudaSetDevice(device);
+      switched_ = status_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(caller_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t status() const { return status_; }
+
+ private:
+  int caller_ = 0;
+  bool switched_ = false;
+  cudaError_t status_;
+};
 
 }  // namespace
 
@@ -692,11 +790,11 @@ int sed_wave_stft_power(const void* wave, const void* window,
                         const void* twiddle, void* out, long long n_signals,
                         long long n_samples, int n_frames, int hop, int log2_m,
                         int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
   const int smem = static_cast<int>(sizeof(float2)) << log2_m;
-  err = cudaFuncSetAttribute(wave_stft_power_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(wave_stft_power_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = n_signals * n_frames;
   wave_stft_power_kernel<<<static_cast<unsigned>(blocks), kStftThreads, smem,
@@ -708,23 +806,32 @@ int sed_wave_stft_power(const void* wave, const void* window,
 }
 
 int sed_frames_stft_power(const void* frames, int frames_are_int16,
-                          const void* window, const void* twiddle, void* out,
-                          long long rows, int log2_m, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (frames_are_int16)
-    return launch_frames_stft_power<short>(frames, window, twiddle, out, rows,
-                                           log2_m, stream);
-  return launch_frames_stft_power<float>(frames, window, twiddle, out, rows,
-                                         log2_m, stream);
+                          const void* window, const void* twiddle, const void* unpack,
+                          void* out, long long rows, int log2_m, int device,
+                          void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  const auto* w = static_cast<const float*>(window);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* unpack_tw = static_cast<const float2*>(unpack);
+  auto* power = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_log2_m(log2_m, [&](auto log2_m_constant) {
+    constexpr int L = decltype(log2_m_constant)::value;
+    return frames_are_int16
+               ? launch_stockham<L>(frames_stft_power_kernel<L, short2>, rows, s,
+                                    static_cast<const short2*>(frames), w, tw, unpack_tw, power)
+               : launch_stockham<L>(frames_stft_power_kernel<L, float2>, rows, s,
+                                    static_cast<const float2*>(frames), w, tw, unpack_tw, power);
+  });
 }
 
 int sed_mel_log(const void* power, const void* band_lo, const void* band_hi,
                 const void* band_off, const void* weights, void* out,
                 long long rows, int n_bins, int n_mels, int device,
                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
   mel_log_kernel<<<static_cast<unsigned>(rows), kMelThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(power), static_cast<const int*>(band_lo),
@@ -740,13 +847,13 @@ int sed_wave_stft_mel_log(const void* wave, const void* window,
                           const void* weights, void* out, long long n_signals,
                           long long n_samples, int n_frames, int hop, int log2_m,
                           int n_mels, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
   // z (m float2) then the one-sided power (m + 1 floats).
   const int smem = static_cast<int>(sizeof(float2) << log2_m) +
                    static_cast<int>(sizeof(float)) * ((1 << log2_m) + 1);
-  err = cudaFuncSetAttribute(wave_stft_mel_log_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(wave_stft_mel_log_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = n_signals * n_frames;
   wave_stft_mel_log_kernel<<<static_cast<unsigned>(blocks), kStftThreads, smem,
@@ -763,14 +870,19 @@ int sed_wave_packed_fft(const void* wave, const void* window,
                         const void* twiddle, void* out_re, void* out_im,
                         long long n_signals, long long n_samples, int n_frames,
                         int hop, int log2_m, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (log2_m < 1 || log2_m > 14) return cudaErrorInvalidValue;
-  return kLaunchWavePackedFft[log2_m](
-      static_cast<const float*>(wave), static_cast<const float*>(window),
-      static_cast<const float2*>(twiddle), static_cast<float*>(out_re),
-      static_cast<float*>(out_im), n_signals * n_frames, n_samples, n_frames, hop,
-      static_cast<cudaStream_t>(stream));
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  const auto* w = static_cast<const float*>(wave);
+  const auto* win = static_cast<const float*>(window);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* re = static_cast<float*>(out_re);
+  auto* im = static_cast<float*>(out_im);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_log2_m(log2_m, [&](auto log2_m_constant) {
+    constexpr int L = decltype(log2_m_constant)::value;
+    return launch_stockham<L>(wave_packed_fft_kernel<L>, n_signals * n_frames, s, w, win, tw,
+                              re, im, n_samples, n_frames, hop);
+  });
 }
 
 }  // extern "C"

@@ -137,7 +137,7 @@ def _library() -> ctypes.CDLL:
     lib.sed_wave_stft_power.restype = i32
     lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.sed_mel_log.restype = i32
-    lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, i64, i32, i32, vp]
+    lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
     lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
                                           i32, i32, i32, i32, i32, vp]
@@ -190,8 +190,8 @@ def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=8)
 def _stockham_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
-    """(n_fft/2, 2) f32 table of K6's inter-pass twiddles in pass order
-    (:func:`stft_ops.stockham_twiddles`)."""
+    """(n_fft/2, 2) f32 table of the inter-pass twiddles of K3's and K6's
+    Stockham FFT in pass order (:func:`stft_ops.stockham_twiddles`)."""
     return torch.from_numpy(np.stack(stft_ops.stockham_twiddles(n_fft), axis=1)).to(device)
 
 
@@ -321,15 +321,30 @@ def frames_stft_power_plain(frames: torch.Tensor, window: torch.Tensor, n_fft: i
     return spec.real ** 2 + spec.imag ** 2
 
 
+def _pair_aligned(frames: torch.Tensor) -> torch.Tensor:
+    """``frames``, or a copy of them on their device when their first element
+    is not aligned to a pair of samples.  K3 reads packed point j, samples
+    2j and 2j + 1 of a row, as one 8-byte (float32) or 4-byte (int16) load,
+    so it needs each row's start at an even element of an aligned base; a
+    contiguous view may start at any element (``flat[1:1 + n].view(...)``)."""
+    if frames.data_ptr() % (2 * frames.element_size()):
+        return frames.clone()
+    return frames
+
+
 def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
                       n_fft: int) -> torch.Tensor:
     """(rows, n_fft) f32 or int16 frames -> (rows, n_fft/2 + 1) f32 power of
     the windowed real DFT, one-sided and in natural bin order.
 
-    CPU tensors take :func:`frames_stft_power_plain`; CUDA tensors launch K3.
+    CPU tensors take :func:`frames_stft_power_plain`; CUDA tensors launch K3
+    (the Stockham FFT core with the power drain: it reads the pass-ordered
+    twiddles and K1's W_N^k table).
     ``window`` is the f32 window of float frames; for int16 (PCM16) frames
     the wrapper scales it by 1/32768 on the card (exact: a power of two), as
     ``stft_power_pallas`` does, so de-quantization costs the kernel nothing.
+    Rows whose start is not aligned to a pair of samples are copied first
+    (:func:`_pair_aligned`).
     """
     if frames.device.type == "cpu":
         return frames_stft_power_plain(frames, window, n_fft)
@@ -350,12 +365,13 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
     if rows == 0:
         return out
+    frames = _pair_aligned(frames)
     is_int16 = frames.dtype == torch.int16
     if is_int16:
         window = window / 32768.0
-    tw = _twiddles(n_fft, device)
     err = _library().sed_frames_stft_power(
-        frames.data_ptr(), int(is_int16), window.data_ptr(), tw.data_ptr(),
+        frames.data_ptr(), int(is_int16), window.data_ptr(),
+        _stockham_twiddles(n_fft, device).data_ptr(), _twiddles(n_fft, device).data_ptr(),
         out.data_ptr(), rows, n_fft.bit_length() - 2, device.index, _stream(device))
     _check_launch("frames_stft_power", err)
     LAUNCHES["frames_stft_power"] += 1

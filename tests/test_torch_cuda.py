@@ -110,6 +110,95 @@ def test_k3_matches_float64_plain(cuda, cfg, rows, dtype):
     assert bool((got[3] == 0.0).all())
 
 
+def check_k3(x, window, n_fft):
+    """K3 on rows ``x``: one launch, within 1e-5 x each row's peak of the
+    float64 plain version, silent rows exactly 0, on the rows' device."""
+    before = kernels.LAUNCHES["frames_stft_power"]
+    got = kernels.frames_stft_power(x, window, n_fft)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frames_stft_power"] == before + 1
+    want = kernels.frames_stft_power_plain(x, window, n_fft, dtype=torch.float64)
+    assert got.shape == want.shape == (x.shape[0], n_fft // 2 + 1)
+    assert got.dtype == torch.float32 and got.device == x.device
+    peak = want.amax(dim=-1, keepdim=True)
+    assert bool(((got.double() - want).abs() <= 1e-5 * peak).all())
+    silent = (x == 0).all(dim=-1)
+    assert bool((got[silent] == 0.0).all())
+
+
+def k3_rows(rows, n_fft, device, dtype, seed=12):
+    """(rows, n_fft) tones and noise in [-1, 1], row 1 silent, as float32 or
+    int16 PCM."""
+    x = signals(rows, n_fft, 8000, device, seed).clamp(-1, 1)
+    if rows > 1:
+        x[1] = 0.0
+    if dtype == "int16":
+        return (x * 32767).round().to(torch.int16)
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("n_fft", [1 << k for k in range(2, 16)])
+def test_k3_every_n_fft_matches_float64_plain(cuda, n_fft, dtype):
+    """Every n_fft K3 takes (4..32768: log2 m 1..14, one template instance
+    each), with a window that is zero at both ends."""
+    window = torch.from_numpy(stft_ops.padded_window(n_fft - n_fft // 8, n_fft).copy()).to(cuda)
+    check_k3(k3_rows(5, n_fft, cuda, dtype), window, n_fft)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("rows", [1, 131, 132, 133, 160])
+def test_k3_row_counts_across_the_wave_edge(cuda, rows, dtype):
+    """One row, one wave of 132 SMs and either side of it, and the 32-slot
+    tick's 160 rows, at the production n_fft."""
+    check_k3(k3_rows(rows, PROD.nfft, cuda, dtype, seed=13), kernels.stft_window(PROD, cuda),
+             PROD.nfft)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("rows", [1, 5])
+def test_k3_rows_at_an_odd_element_offset(cuda, rows, dtype):
+    """A contiguous view that starts at an odd element (one row cut from a
+    flat signal, rows viewed out of a flat buffer) is not aligned to K3's
+    pair loads: it goes through one launch all the same, within the
+    tolerance and equal to the same rows aligned, and the device stays
+    usable."""
+    x = k3_rows(rows, SMALL.nfft, cuda, dtype, seed=15)
+    flat = torch.zeros(rows * SMALL.nfft + 1, dtype=x.dtype, device=cuda)
+    flat[1:] = x.reshape(-1)
+    view = flat[1:].view(rows, SMALL.nfft)
+    assert view.is_contiguous() and view.data_ptr() % (2 * view.element_size())
+    window = kernels.stft_window(SMALL, cuda)
+    check_k3(view, window, SMALL.nfft)
+    assert torch.equal(kernels.frames_stft_power(view, window, SMALL.nfft),
+                       kernels.frames_stft_power(x, window, SMALL.nfft))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_k3_launches_one_kernel_on_the_inputs_device(cuda, dtype):
+    """One CUDA call of frames_stft_power is one launch of the Stockham-core
+    frames_stft_power_kernel (torch.profiler); float32 rows run no other
+    device work, int16 rows only the window's 1/32768 scaling."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = k3_rows(160, PROD.nfft, cuda, dtype, seed=14)
+    window = kernels.stft_window(PROD, cuda)
+    kernels.frames_stft_power(x, window, PROD.nfft)   # tables cached
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["frames_stft_power"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = kernels.frames_stft_power(x, window, PROD.nfft)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frames_stft_power"] == before + 1
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k3 = [n for n in on_device if "frames_stft_power_kernel" in n]
+    assert len(k3) == 1, on_device
+    assert len(on_device) == (1 if dtype == "float32" else 2), on_device
+    assert out.device == x.device
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
 def test_logmel_frames_cuda_matches_cpu_and_float64(cuda, dtype):
     x = pcm_rows(29, SMALL, cuda, dtype, seed=6)
@@ -227,6 +316,42 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                   window, SMALL.nfft)
     with pytest.raises(ValueError):
         kernels.frames_stft_power(rows, window.cpu(), SMALL.nfft)
+
+
+WRAPPER_CALLS = {
+    "wave_stft_power": lambda w, win, b: kernels.wave_stft_power(
+        w, win, SMALL.hop_size, SMALL.nfft),
+    "mel_log": lambda w, win, b: kernels.mel_log(
+        torch.zeros(4, SMALL.freq_bins, device=w.device), b),
+    "frames_stft_power": lambda w, win, b: kernels.frames_stft_power(
+        w[:, :SMALL.nfft].contiguous(), win, SMALL.nfft),
+    "wave_stft_mel_log": lambda w, win, b: kernels.wave_stft_mel_log(
+        w, win, SMALL.hop_size, SMALL.nfft, b),
+    "wave_packed_fft": lambda w, win, b: kernels.wave_packed_fft(
+        w, win, SMALL.hop_size, SMALL.nfft),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPER_CALLS))
+def test_wrapper_leaves_the_current_device_as_it_found_it(cuda, name):
+    """A wrapper called on the last device while device 0 is current
+    launches there and leaves device 0 current (the C entry points'
+    DeviceGuard).  It needs two devices, so it skips on a one-card machine,
+    such as the H100 the smoke run uses; tests/test_torch_device_guard.py
+    checks the guard in the source on any machine."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    waves = signals(2, 9000, 8000, last)
+    window = kernels.stft_window(SMALL, last)
+    bands = kernels.mel_bands(SMALL, last)
+    before = kernels.LAUNCHES[name]
+    WRAPPER_CALLS[name](waves, window, bands)
+    torch.cuda.synchronize(last)
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.cuda.current_device() == 0
+    assert torch.empty(1, device="cuda").device.index == 0
 
 
 def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):

@@ -1,9 +1,11 @@
-"""A float64 numpy model of K6's FFT schedule, held against ``np.fft.fft``.
+"""A float64 numpy model of the Stockham FFT kernels, held against numpy.
 
-K6 (``wave_packed_fft_kernel`` in ``sed_tpu_torch/ops/csrc/featurizer.cu``)
-runs its m-point complex FFT through ``stockham_fft``: radix-16 Stockham
-passes held in registers, then one radix-r pass, with the points going once
-through shared memory between passes.  The functions below carry the
+K6 (``wave_packed_fft_kernel``) and K3 (``frames_stft_power_kernel``) in
+``sed_tpu_torch/ops/csrc/featurizer.cu`` run their m-point complex FFT
+through ``stockham_fft``: radix-16 Stockham passes held in registers, then
+one radix-r pass, with the points going once through shared memory between
+passes.  K6 stores Z in natural order (``SplitStore``); K3 unpacks it to
+one-sided power (``PowerStore``, the drain).  The functions below carry the
 kernel's names and compute exactly its indices:
 
   * :func:`radix_plan`      m = 16^a * r -> a radix-16 passes, then radix r;
@@ -18,12 +20,17 @@ kernel's names and compute exactly its indices:
                             (:func:`pass_twiddles`, the port's
                             ``stft_ops.stockham_twiddles``);
   * :func:`exchange_index`  where output q of butterfly i goes (Stockham);
-  * :func:`swizzle`         the bank swizzle of the shared exchange buffer.
+  * :func:`swizzle`         the bank swizzle of the shared exchange buffer;
+  * :func:`drain_partner`   the thread and slot that hold Z[m-k] for the
+                            drain's bin k;
+  * :func:`drain_write_index`, :func:`drain_read_index`  the drain's own
+                            exchange, in natural order, no swizzle.
 
-The tests run the model on seeded random input for every m the kernel takes
+The tests run the model on seeded random input for every m the kernels take
 (log2 m = 1..14, n_fft 4..32768), check that every exchange is a
-permutation free of shared-memory bank conflicts, and run the model of the
-whole of K6 (framing, window, packing) against the port's plain version.
+permutation free of shared-memory bank conflicts, and run the models of the
+whole of K6 (framing, window, packing) and of the whole of K3 (row fill,
+float32 and int16, drain) against the port's plain versions.
 """
 
 import numpy as np
@@ -136,10 +143,13 @@ def dft(u, rounded):
 
 
 def stockham_fft(z: np.ndarray, table: np.ndarray, rounded: bool = False,
-                 trace: list = None) -> np.ndarray:
+                 trace: list = None, drain=None) -> np.ndarray:
     """The kernel's schedule on m = len(z) points; ``table`` holds W_{2m}^j,
-    j < m, and is read in pass order (:func:`pass_twiddles`).  ``trace`` collects, per exchange, the write and read positions
-    of each (slot, thread) for the bank and permutation checks."""
+    j < m, and is read in pass order (:func:`pass_twiddles`).  ``trace``
+    collects, per exchange, the write and read positions of each (slot,
+    thread) for the bank and permutation checks.  ``drain(v)`` takes the
+    registers (``v[s][t]``: slot s of thread t) as the kernel's Store does;
+    by default Z in natural order (``SplitStore``)."""
     m = len(z)
     log2_m = m.bit_length() - 1
     T, P = thread_count(log2_m), points_per_thread(log2_m)
@@ -172,6 +182,8 @@ def stockham_fft(z: np.ndarray, table: np.ndarray, rounded: bool = False,
             if trace is not None:
                 trace.append((writes, reads))
         p *= R
+    if drain is not None:
+        return drain(v)
     out = np.full(m, np.nan, dtype=np.complex128)
     for s in range(P):
         out[slot_index(t, s, T)] = v[s]
@@ -302,3 +314,163 @@ def test_model_of_k6_matches_the_plain_version(n_fft, n):
     assert got.shape == want.shape == (3, n_frames, m)
     peak = np.abs(want).max(axis=-1, keepdims=True)
     assert (np.abs(got - want) <= 1e-12 * np.maximum(peak, 1e-300)).all()
+
+
+# ---------------------------------------------------------------------------
+# K3: the power drain (PowerStore) and the whole kernel
+# ---------------------------------------------------------------------------
+
+def drain_partner(t, s, T, P):
+    """Thread and slot holding Z[(m - k) mod m] for bin k = t + T*s: for
+    t > 0 thread T - t, slot P - 1 - s; for t = 0 thread 0, slot (P - s) mod P."""
+    t = np.asarray(t)
+    return np.where(t == 0, 0, T - t), np.where(t == 0, (P - s) % P, P - 1 - s)
+
+
+def drain_write_index(t, s, T):
+    """Where the drain writes slot s of thread t: its bin, natural order."""
+    return slot_index(t, s, T)
+
+
+def drain_read_index(t, s, T, m):
+    """Where the drain reads the mirror of slot s of thread t: bin (m - k) mod m."""
+    return (m - slot_index(t, s, T)) % m
+
+
+def power_drain(v, unpack, trace=None):
+    """PowerStore on the registers ``v`` (P slots of T threads): the one-sided
+    power |X[k]|^2, k = 0..m, of the packed spectrum.  ``unpack`` holds
+    W_N^k, k < m.  One thread takes the mirrors from its own slots; more go
+    through the exchange (``trace`` collects its writes and reads)."""
+    P, T = len(v), len(v[0])
+    m = T * P
+    t = np.arange(T)
+    if T == 1:
+        mirror = [v[(P - s) % P] for s in range(P)]
+    else:
+        shared = np.full(m, np.nan, dtype=np.complex128)
+        writes = {s: drain_write_index(t, s, T) for s in range(P)}
+        for s in range(P):
+            shared[writes[s]] = v[s]
+        reads = {s: drain_read_index(t, s, T, m) for s in range(P)}
+        mirror = [shared[reads[s]] for s in range(P)]
+        if trace is not None:
+            trace.append((writes, reads))
+    row = np.full(m + 1, np.nan)
+    for s in range(P):
+        k = slot_index(t, s, T)
+        zk, zr = v[s], np.conj(mirror[s])
+        x = (zk + zr) / 2 + unpack[k] * (zk - zr) / 2j      # E[k] + W_N^k O[k]
+        row[k] = x.real ** 2 + x.imag ** 2
+    row[m] = (v[0][0].real - v[0][0].imag) ** 2            # X[m] = E[0] - O[0]
+    return row
+
+
+def k3_row_points(row, window):
+    """PackedRowLoad: packed point j = (w[2j] x[2j], w[2j+1] x[2j+1]) of a
+    pre-framed row, zero (and the sample not read) where the window is zero."""
+    x = np.where(window != 0, row, 0.0) * window
+    return x[0::2] + 1j * x[1::2]
+
+
+def k3_model(rows, window):
+    """The whole of K3 on (rows, n_fft) samples in float64: int16 rows with
+    the window pre-scaled by 1/32768 (as the wrapper does), fill, schedule,
+    drain.  Returns (rows, n_fft/2 + 1) power."""
+    if rows.dtype == np.int16:
+        window = window / 32768.0
+    m = rows.shape[1] // 2
+    table = table64(m)
+    return np.array([stockham_fft(k3_row_points(r.astype(np.float64), window), table,
+                                  drain=lambda v: power_drain(v, table)) for r in rows])
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_drain_partner_holds_the_mirror_bin(log2_m):
+    """The partner slot holds bin (m - k) mod m, and the drain's read of slot
+    s of thread t is where that partner wrote."""
+    m, T, P = 1 << log2_m, thread_count(log2_m), points_per_thread(log2_m)
+    t = np.arange(T)
+    for s in range(P):
+        pt, ps = drain_partner(t, s, T, P)
+        assert ((0 <= pt) & (pt < T) & (0 <= ps) & (ps < P)).all()
+        assert np.array_equal(slot_index(pt, ps, T), (m - slot_index(t, s, T)) % m)
+        assert np.array_equal(drain_write_index(pt, ps, T), drain_read_index(t, s, T, m))
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_drain_exchange_is_a_permutation_free_of_bank_conflicts(log2_m):
+    """The drain's exchange writes and reads every position once, and every
+    warp-wide write and read hits as many banks as the warp has threads.  One
+    thread (m <= 16) needs no exchange.  Under the Stockham exchanges'
+    swizzle a warp's mirrored reads would cover 31 positions of one run and 1
+    of the next, two on one bank: hence natural order."""
+    m, T = 1 << log2_m, thread_count(log2_m)
+    trace = []
+    stockham_fft(random_points(m, 11), table64(m),
+                 drain=lambda v: power_drain(v, table64(m), trace))
+    assert len(trace) == (0 if T == 1 else 1)
+    for writes, reads in trace:
+        for positions in (writes, reads):
+            assert np.array_equal(np.sort(np.concatenate(list(positions.values()))),
+                                  np.arange(m))
+            for lanes_of_slot in positions.values():
+                for w in range(0, T, WARP):
+                    lanes = lanes_of_slot[w:w + WARP]
+                    assert len(np.unique(lanes % BANKS)) == len(lanes)
+        if T >= WARP:
+            swizzled = swizzle(reads[0][:WARP]) % BANKS
+            assert len(np.unique(swizzled)) == WARP - 1
+
+
+@pytest.mark.parametrize("log2_m", LOG2_M)
+def test_power_drain_matches_numpy_rfft(log2_m):
+    """Schedule then drain on a random real row of n_fft = 2m samples: its
+    one-sided power within 1e-12 of the peak of |np.fft.rfft|^2."""
+    m = 1 << log2_m
+    x = np.random.default_rng(200 + log2_m).standard_normal(2 * m)
+    got = stockham_fft(x[0::2] + 1j * x[1::2], table64(m),
+                       drain=lambda v: power_drain(v, table64(m)))
+    want = np.abs(np.fft.rfft(x)) ** 2
+    assert got.shape == want.shape == (m + 1,)
+    assert np.abs(got - want).max() <= 1e-12 * want.max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("n_fft", [4, 16, 64, 512, 2048, 32768])
+def test_model_of_k3_matches_the_plain_version(n_fft, dtype):
+    """Fill, schedule and drain against ``frames_stft_power_plain`` in
+    float64 on 4 rows (one silent: exactly 0), within 1e-12 of each row's
+    peak; float32 rows hold NaN where the window is zero, which the fill
+    never reads."""
+    window = stft_ops.padded_window(n_fft - n_fft // 8, n_fft).copy()
+    rng = np.random.default_rng(n_fft)
+    x = np.clip(0.3 * rng.standard_normal((4, n_fft))
+                + 0.5 * np.sin(0.3 * np.arange(n_fft)), -1, 1).astype(np.float32)
+    x[2] = 0.0
+    rows = (x * 32767).round().astype(np.int16) if dtype == "int16" else x
+    want = kernels.frames_stft_power_plain(torch.from_numpy(rows), torch.from_numpy(window),
+                                           n_fft, dtype=torch.float64).numpy()
+    if dtype == "float32":
+        rows = np.where(window != 0, rows, np.nan).astype(np.float32)
+    got = k3_model(rows, window.astype(np.float64))
+    assert got.shape == want.shape == (4, n_fft // 2 + 1)
+    peak = want.max(axis=-1, keepdims=True)
+    assert (np.abs(got - want) <= 1e-12 * np.maximum(peak, 1e-300)).all()
+    assert (got[2] == 0.0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k3_rows_reach_the_kernel_aligned_to_a_pair_of_samples(offset, dtype):
+    """PackedRowLoad reads samples 2j and 2j + 1 as one load, so the wrapper
+    hands K3 rows whose base is aligned to a pair: an aligned view as it is,
+    a contiguous view at an odd element offset as an aligned copy."""
+    rows, n_fft = 3, 16
+    flat = torch.arange(rows * n_fft + 1).to(dtype)
+    view = flat[offset:offset + rows * n_fft].view(rows, n_fft)
+    assert view.is_contiguous()
+    got = kernels._pair_aligned(view)
+    assert got.data_ptr() % (2 * got.element_size()) == 0
+    assert (got.data_ptr() == view.data_ptr()) == (offset == 0)
+    assert got.is_contiguous() and torch.equal(got, view)
