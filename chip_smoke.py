@@ -11,8 +11,9 @@ non-zero on the first failure.  Phases:
   1. card     device name, ``nvidia-smi`` name and power limit; builds the
               kernels from ``sed_tpu_torch/ops/csrc`` with nvcc and prints
               the build time and ptxas' registers, shared memory and spills;
-              the lesion builds (K6's three and K3's one, below) start beside
-              it, one nvcc each;
+              the lesion builds (``LESIONS``: K6's three, the drain's
+              exchange of K3 and K1, K5's epilogue) start beside it, one
+              nvcc for each distinct edit;
   2. kernels  K1 and K2 against their plain versions computed in float64 on
               the card, at the batch path's shapes (16 x 60 s); K3 at the
               streaming tick's shape (32 slots x 5 frames = 160 rows), float32
@@ -36,8 +37,9 @@ non-zero on the first failure.  Phases:
               whole 16 x 60 s batch; K3's share of its bound and its ratio
               to ``torch.fft.rfft`` + abs^2, each also with the calls
               queued (K3 takes tens of microseconds, less than one call's
-              launch latency), and K3 rebuilt without its drain's exchange
-              (wrong results, timing only: what the exchange costs); a
+              launch latency), and K3 and K1 rebuilt without their drain's
+              exchange (wrong results, timing only: what the exchange
+              costs); a
               single-round tick and a 16-round block of the 32-slot pool,
               and the tick's device time by kernel
               (``torch.profiler``); the pool run's profile split, audio-s per
@@ -53,9 +55,10 @@ non-zero on the first failure.  Phases:
               against float64; CUDA-event medians of K4–K10 through their own
               entry points, their plain versions and PyTorch yardsticks, and
               of the whole ``logmel_waveform`` for each name; K6's share of
-              its bound and its ratio to ``torch.fft.fft``, and K6 rebuilt
-              without its loads, its exchanges or its twiddles (wrong
-              results, timing only: what each part of its time is).
+              its bound and its ratio to ``torch.fft.fft``, K6 rebuilt
+              without its loads, its exchanges or its twiddles, and K5
+              without its band epilogue (wrong results, timing only: what
+              each part of their time is).
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10), the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -193,8 +196,10 @@ def profile_ticks(torch, fn, n: int):
 
 # A kernel with one part of its work removed (wrong results, timing only):
 # how much of its time that part holds.  Each is featurizer.cu with one edit,
-# built beside the real library and timed on the same inputs: K6's in phase
-# 9, K3's in phase 8.  name -> (C entry point, anchor, replacement).
+# built beside the real library and timed on the same inputs through the same
+# C call as the real kernel: K3's and K1's in phase 8, K6's and K5's in phase
+# 9.  name -> (C entry point, anchor, replacement).  The edit applies to the
+# whole file; only the named entry point is called.
 LESIONS = {
     "K6 loads": ("sed_wave_packed_fft", "  load.template fill<T, P>(v, t);",
                  "#pragma unroll\n  for (int s = 0; s < kPoints; ++s)\n"
@@ -208,23 +213,35 @@ LESIONS = {
     "K3 drain exchange": ("sed_frames_stft_power",
                           "    constexpr bool in_registers = T == 1;",
                           "    constexpr bool in_registers = true;"),
+    "K1 drain exchange": ("sed_wave_stft_power",
+                          "    constexpr bool in_registers = T == 1;",
+                          "    constexpr bool in_registers = true;"),
+    "K5 epilogue": ("sed_wave_stft_mel_log",
+                    "    mel_log_row(power, band_lo, band_hi, band_off, weights, row, n_mels);",
+                    "    ;"),
 }
 _lesion_builds = []
 
 
 def start_lesions(kernels):
-    """Start one nvcc per lesion (all at once, beside the main build)."""
+    """Start one nvcc per distinct edit (all at once, beside the main build);
+    lesions that make the same edit share its library."""
     src = kernels.SOURCE.read_text()
     out = kernels.BUILD_DIR / "lesions"
     out.mkdir(parents=True, exist_ok=True)
+    started = {}
     for name, (_, old, new) in LESIONS.items():
         check(src.count(old) == 1, f"lesion {name!r}: its anchor is in featurizer.cu")
+        if (old, new) in started:
+            _lesion_builds.append((name, *started[old, new]))
+            continue
         stem = name.replace(" ", "_")
         cu, so, build_log = out / f"{stem}.cu", out / f"lib{stem}.so", out / f"{stem}.log"
         cu.write_text(src.replace(old, new))
         with open(build_log, "w") as f:
             proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
                                     stdout=f, stderr=subprocess.STDOUT)
+        started[old, new] = (proc, so, build_log)
         _lesion_builds.append((name, proc, so, build_log))
 
 
@@ -432,18 +449,36 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
                  for name, fn in lesions.items() if name.startswith("K6 ")}
     ms["k6_again"] = time_ms(torch, lambda: lesion_run(kernels._library().sed_wave_packed_fft))
     del zr, zi
+    # K5 without its band epilogue (wrong results): what the epilogue costs.
+    k5_out = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands)
+    unpack = kernels._twiddles(n_fft, dev)
+
+    def k5_raw_run(fn):
+        err = fn(waves.data_ptr(), window.data_ptr(), tw.data_ptr(), unpack.data_ptr(),
+                 bands.lo.data_ptr(), bands.hi.data_ptr(), bands.offset.data_ptr(),
+                 bands.weights.data_ptr(), k5_out.data_ptr(), BATCH, samples,
+                 k5_out.shape[1], hop, n_fft.bit_length() - 2, n_mels, dev.index, stream)
+        check(err == 0, f"K5 raw launch ({err})")
+
+    ms["k5_no_epilogue"] = time_ms(torch, lambda: k5_raw_run(lesions["K5 epilogue"]))
+    ms["k5_again"] = time_ms(torch, lambda: k5_raw_run(kernels._library().sed_wave_stft_mel_log))
+    del k5_out
     impl_ms = {impl: time_ms(torch, lambda impl=impl: kernels.logmel_waveform(
         waves, cfg, impl=impl)) for impl in kernels.IMPL_KERNELS}
 
     nnz = bands.weights.numel()
-    fixed = 4 * (n_fft + 2 * m)                    # window and twiddles
+    # The window and the twiddles: K6 reads the pass-ordered table, K1 and
+    # K5 the W_N^k table too.
+    fixed = 4 * (n_fft + 2 * m)
+    fixed_power = fixed + 4 * 2 * m
     wave_b = 4 * waves.numel()
     mel_b = 4 * (frames * n_mels + nnz + 3 * n_mels)
     k4_bound = bound(4 * rows.numel() + mel_b, 2 * nnz * frames)
-    k5_bound = bound(wave_b + fixed + mel_b, fft_ops(frames, m, win_nnz) + 2 * nnz * frames)
+    k5_bound = bound(wave_b + fixed_power + mel_b,
+                     fft_ops(frames, m, win_nnz) + 2 * nnz * frames)
     k6_bound = bound(wave_b + fixed + 2 * 4 * frames * m,
                      fft_ops(frames, m, win_nnz, unpack=False))
-    k1_bound = bound(wave_b + fixed + 4 * rows.numel(), fft_ops(frames, m, win_nnz))
+    k1_bound = bound(wave_b + fixed_power + 4 * rows.numel(), fft_ops(frames, m, win_nnz))
     log(f"[times] impls, {BATCH} x {SECONDS} s, {frames} frames (CUDA-event median "
         f"of {REPS}):")
     log(f"[times] K4 power_to_logmel_cuda (mel_log) {ms['k4']:.4f} ms | plain "
@@ -451,7 +486,12 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
         f"{k4_bound[0]:.4f} ms ({k4_bound[1]})")
     log(f"[times] K5 wave_stft_mel_log {ms['k5']:.4f} ms | plain {ms['k5_plain']:.4f} ms "
         f"| K1 then K2 {ms['k1k2']:.4f} ms | torch.stft+abs^2+matmul+log10 "
-        f"{ms['stft_mel_lib']:.4f} ms | bound {k5_bound[0]:.4f} ms ({k5_bound[1]})")
+        f"{ms['stft_mel_lib']:.4f} ms | bound {k5_bound[0]:.4f} ms ({k5_bound[1]}) | bound "
+        f"share {k5_bound[0] / ms['k5']:.1%} | K5 / torch.stft chain "
+        f"{ms['k5'] / ms['stft_mel_lib']:.3f}")
+    log(f"[times] K5 without its band epilogue (wrong results, timing only) "
+        f"{ms['k5_no_epilogue']:.4f} ms; K5 through the same C call {ms['k5_again']:.4f} ms "
+        f"(the epilogue's share {ms['k5_again'] - ms['k5_no_epilogue']:.4f} ms)")
     log(f"[times] K6 wave_packed_fft {ms['k6']:.4f} ms | plain {ms['k6_plain']:.4f} ms | "
         f"torch.fft.fft of the packed frames {ms['k6_lib']:.4f} ms | bound "
         f"{k6_bound[0]:.4f} ms ({k6_bound[1]}) | bound share {k6_bound[0] / ms['k6']:.1%} "
@@ -463,7 +503,7 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
     log(f"[times] K1 under sed_tpu's names: K7 eo {ms['k7']:.4f} ms | K8 rollraw "
         f"{ms['k8']:.4f} ms | K10 slice {ms['k10']:.4f} ms | plain {ms['k1_plain']:.4f} ms "
         f"| torch.stft+abs^2 {ms['stft_lib']:.4f} ms | bound {k1_bound[0]:.4f} ms "
-        f"({k1_bound[1]})")
+        f"({k1_bound[1]}) | K7 / torch.stft+abs^2 {ms['k7'] / ms['stft_lib']:.3f}")
     log(f"[times] K9 rolledge (K1 then K2) {ms['k9']:.4f} ms | bound {k5_bound[0]:.4f} ms")
     log("[times] logmel_waveform by impl: " + ", ".join(
         f"{impl} {t:.4f} ms" for impl, t in impl_ms.items()))
@@ -484,7 +524,8 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
     return [
         entry("power_to_logmel_cuda", "mel_log", 38, k4_launched["mel_log"], k4_err,
               ms["k4"], ms["k4_plain"], k4_bound, ms["k4_lib"]),
-        entry("wave_stft_mel_log", "wave_stft_mel_log", 550,
+        entry("wave_stft_mel_log",
+              "wave_stft_mel_log_kernel<LOG2_M> (stockham_fft, PowerStore, mel_log_row)", 550,
               launched("fuse", kernel="wave_stft_mel_log"), k5_err, ms["k5"],
               ms["k5_plain"], k5_bound, ms["stft_mel_lib"]),
         entry("wave_packed_fft", "wave_packed_fft", 882,
@@ -537,9 +578,11 @@ def main() -> int:
     for line in info.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"[card] ptxas: {line.strip()}")
-    log(f"[card] K6 wave_packed_fft_kernel and K3 frames_stft_power_kernel at n_fft "
-        f"{cfg.nfft}: {cfg.nfft // 32} threads a frame (row), {4 * cfg.nfft} B of dynamic "
-        f"shared memory (the exchange buffer)")
+    log(f"[card] K1 wave_stft_power_kernel, K3 frames_stft_power_kernel and K6 "
+        f"wave_packed_fft_kernel at n_fft {cfg.nfft}: {cfg.nfft // 32} threads a frame "
+        f"(row), {4 * cfg.nfft} B of dynamic shared memory (the exchange buffer); K5 "
+        f"wave_stft_mel_log_kernel the same threads, {6 * cfg.nfft + 4} B (the exchange "
+        f"buffer, then the power row)")
     bw, flops_peak = card_peaks(name)
 
     sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
@@ -891,6 +934,18 @@ def main() -> int:
     k3_again_ms = time_ms(torch, lambda: k3_raw_run(kernels._library().sed_frames_stft_power),
                           calls=QUEUED)
     del k3_out
+    # K1 likewise, on the batch.
+    k1_out = kernels.wave_stft_power(signals, window, hop, n_fft)
+
+    def k1_raw_run(fn):
+        err = fn(signals.data_ptr(), window.data_ptr(), k3_tables[0].data_ptr(),
+                 k3_tables[1].data_ptr(), k1_out.data_ptr(), BATCH, samples, k1_out.shape[1],
+                 hop, n_fft.bit_length() - 2, dev.index, k3_stream)
+        check(err == 0, f"K1 raw launch ({err})")
+
+    k1_lesion_ms = time_ms(torch, lambda: k1_raw_run(lesions["K1 drain exchange"]))
+    k1_again_ms = time_ms(torch, lambda: k1_raw_run(kernels._library().sed_wave_stft_power))
+    del k1_out
 
     # The 32-slot pool's tick: every slot admitted, int16 chunks.
     tpool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
@@ -906,7 +961,8 @@ def main() -> int:
     tick_kernels = profile_ticks(torch, lambda: tpool._push_rounds([one]), n=5)
     del tpool
 
-    k1_bytes = 4 * (signals.numel() + n_fft + 2 * m + rows.numel())
+    # Waveform, window, the two twiddle tables (pass-ordered and W_N^k), power.
+    k1_bytes = 4 * (signals.numel() + n_fft + 4 * m + rows.numel())
     k1_bound, k1_by = bound(k1_bytes, fft_ops(frames, m, win_nnz))
     nnz = bands.weights.numel()
     k2_bytes = 4 * (rows.numel() + frames * bands.n_mels + nnz + 3 * bands.n_mels)
@@ -921,7 +977,11 @@ def main() -> int:
     log(f"[times] batch path, {BATCH} x {SECONDS} s, {frames} frames:")
     log(f"[times] K1 wave_stft_power {k1_ms:.4f} ms | plain {k1_plain_ms:.4f} ms | "
         f"torch.stft+abs^2 {k1_lib_ms:.4f} ms | bound {k1_bound:.4f} ms ({k1_by}: "
-        f"{k1_bytes / 1e6:.1f} MB, {fft_ops(frames, m, win_nnz) / 1e9:.2f} GFLOP)")
+        f"{k1_bytes / 1e6:.1f} MB, {fft_ops(frames, m, win_nnz) / 1e9:.2f} GFLOP) | bound "
+        f"share {k1_bound / k1_ms:.1%} | K1 / torch.stft+abs^2 {k1_ms / k1_lib_ms:.3f}")
+    log(f"[times] K1 without its drain's exchange (wrong results, timing only) "
+        f"{k1_lesion_ms:.4f} ms; K1 through the same C call {k1_again_ms:.4f} ms (the "
+        f"exchange's share {k1_again_ms - k1_lesion_ms:.4f} ms)")
     log(f"[times] K2 mel_log {k2_ms:.4f} ms | plain {k2_plain_ms:.4f} ms | "
         f"matmul+log10 {k2_lib_ms:.4f} ms | bound {k2_bound:.4f} ms ({k2_by}: "
         f"{k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.3f} GFLOP)")
@@ -966,7 +1026,8 @@ def main() -> int:
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     print(json.dumps({"kernels": [
-        {"name": "wave_stft_power", "kernel": "wave_stft_power_kernel (packed_fft)",
+        {"name": "wave_stft_power",
+         "kernel": "wave_stft_power_kernel<LOG2_M> (stockham_fft, PackedWaveLoad, PowerStore)",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:412",
          "launches": launches["wave_stft_power"], "max_abs_err": k1_abs,

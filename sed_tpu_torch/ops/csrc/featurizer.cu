@@ -16,19 +16,20 @@
 //   Computes, per centred frame of each signal, the reflect-padded frame times
 //   the padded Hann window, its n_fft-point real DFT, and |X|^2 for the one-
 //   sided bins 0..n_fft/2, in natural bin order.
-//   Bound on an H100 SXM: bytes.  At 16 x 60 s it reads the 184 MB f32
-//   waveform and writes 191 MB of power (~0.11 ms at 3.35 TB/s) against
-//   ~4.5 GFLOP (~0.07 ms at 67 TFLOP/s FP32).  This simple design runs at
-//   ~16x that bound, most likely limited by its 14 barrier-separated
-//   shared-memory passes rather than device memory (PERF.md).
-//   Design: one CTA per frame.  The frame is read straight from the raw
-//   waveform (reflection computed on the index: no padded copy, no pre-pass)
-//   and only where the window is non-zero.  It is packed as
-//   z[j] = x[2j] + i*x[2j+1] into an n_fft/2-point complex buffer in dynamic
-//   shared memory (128 KB at n_fft = 32768), stored bit-reversed, so an
-//   in-place radix-2 DIT FFT in FP32 runs entirely on chip; the hermitian
-//   unpack X[k] = E[k] + W_N^k O[k] then writes each power bin exactly once.
-//   Twiddles W_N^k are float64 on the host, rounded once to f32.
+//   Bound on an H100 SXM: bytes.  At 16 x 60 s (2912 frames, m = n_fft/2 =
+//   16384) it reads the 184 MB f32 waveform and writes 191 MB of power
+//   (~0.11 ms at 3.35 TB/s) against ~4.3 GFLOP (~0.065 ms at 67 TFLOP/s
+//   FP32).
+//   Design: K6's loader and FFT core with K3's power drain.  One CTA of m/16
+//   threads per frame, a template on log2 m (1..14).  PackedWaveLoad reads
+//   the frame straight from the raw waveform into registers, only where the
+//   window is non-zero (the frames that reach an edge reflect on the index
+//   through shared memory: no padded copy, no pre-pass); stockham_fft runs
+//   the m-point FFT of z[j] = x[2j] + i*x[2j+1] in registers (three
+//   exchanges at m = 16384); PowerStore unpacks X[k] = E[k] + W_N^k O[k]
+//   (one more exchange brings the mirror bin Z[m-k]) and stores each power
+//   bin once, straight to the row.  Both twiddle tables (the pass-ordered
+//   inter-pass table and W_N^k) are float64 on the host, rounded once to f32.
 //   Known divergence from sed_tpu: FP32 FFT butterflies in place of the TPU's
 //   Precision.HIGHEST (bf16x6) matmul DFT stages, one-sided natural-order
 //   power in place of all n_fft bins in the TPU's (k2, k1) tile layout.  The
@@ -88,11 +89,14 @@
 //   Bound on an H100 SXM: operations.  At 16 x 60 s it reads the 184 MB
 //   waveform and writes 0.75 MB (~0.055 ms at 3.35 TB/s) against ~4.5 GFLOP
 //   of FFT and band sums (~0.068 ms at 67 TFLOP/s FP32).
-//   Design: K1's CTA per frame and FFT core (packed_fft), then the unpack
-//   into a second shared buffer of m + 1 floats (the unpack reads z[k] and
-//   z[m-k], so writing power over z in place would race), then K2's band
-//   epilogue (mel_log_row) over that buffer.  z and the power take 192 KB of
-//   dynamic shared memory at n_fft = 32768, set with cudaFuncSetAttribute.
+//   Design: K1's kernel with PowerStore's row in shared memory: the m + 1
+//   floats of power follow the 2m floats of the exchange buffer (the drain
+//   still reads Z there), 12m + 4 bytes of dynamic shared memory (192 KB at
+//   n_fft = 32768, set with cudaFuncSetAttribute); then a barrier and K2's
+//   band epilogue (mel_log_row, one warp per band) over that buffer.  Below
+//   n_fft = 1024 the CTA has fewer than 32 threads, so each thread takes
+//   whole bands (mel_log_row_by_thread) and adds them in the warp's order.
+//   One CTA of 192 KB per SM: the epilogue overlaps no other frame's FFT.
 //   Same power code and summation order as K1 then K2, no fast-math: its
 //   output equals K1 -> K2 bit for bit, as sed_tpu pins fuse == roll.
 //
@@ -108,8 +112,8 @@
 //   reads the 184 MB waveform and writes 382 MB of Z: 566 MB, ~0.169 ms at
 //   3.35 TB/s, against ~3.4 GFLOP (~0.05 ms at 67 TFLOP/s FP32).
 //   Design: stockham_fft, a radix-16 Stockham FFT held in registers, in
-//   place of packed_fft's 14 barrier-separated radix-2 passes through shared
-//   memory (1.77-1.80 ms on an H100 80GB HBM3 at 700 W, 10x the bound).
+//   place of 14 barrier-separated radix-2 passes through shared memory
+//   (1.77-1.80 ms on an H100 80GB HBM3 at 700 W, 10x the bound).
 //   m = 16^a * r (r in 1, 2, 4, 8): a radix-16 passes, then one radix-r
 //   pass; at m = 16384, 16*16*16*4, three exchanges through shared memory.
 //   One CTA of m/16 threads per frame, 16 points a thread; the kernel is a
@@ -148,7 +152,6 @@
 
 namespace {
 
-constexpr int kStftThreads = 1024;
 constexpr int kMelThreads = 256;
 
 // Source index of padded position i (raw coordinates, may be < 0 or >= n)
@@ -161,53 +164,6 @@ __device__ __forceinline__ long long reflect_index(long long i, long long n) {
   i %= period;
   if (i < 0) i += period;
   return i < n ? i : period - i;
-}
-
-// The FFT core shared by K1 and K5 (K3 and K6 run stockham_fft instead):
-// window the n_fft samples that
-// load(a) returns (a = 0..n_fft-1; called only where the window is
-// non-zero), pack even/odd samples as one complex point stored bit-reversed
-// in z (n_fft/2 points of dynamic shared memory), and run an in-place
-// radix-2 DIT FFT.  On return z holds Z = FFT_m(x_even + i*x_odd) in natural
-// order, visible to the whole block.
-template <typename Load>
-__device__ __forceinline__ void packed_fft(const Load& load,
-                                           const float* __restrict__ window,
-                                           const float2* __restrict__ twiddle,
-                                           float2* z, int log2_m) {
-  const int m = 1 << log2_m;  // n_fft / 2 complex points
-
-  // Window, pack even/odd samples as one complex point, store bit-reversed.
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int a = 2 * j;
-    const float w0 = window[a];
-    const float w1 = window[a + 1];
-    float re = 0.f, im = 0.f;
-    if (w0 != 0.f) re = w0 * load(a);
-    if (w1 != 0.f) im = w1 * load(a + 1);
-    z[__brev(static_cast<unsigned>(j)) >> (32 - log2_m)] = make_float2(re, im);
-  }
-  __syncthreads();
-
-  // In-place radix-2 decimation-in-time over m points.  At stage s a
-  // butterfly joins points i and i + half with W_len^pos = W_N^(pos * N/len).
-  for (int s = 1; s <= log2_m; ++s) {
-    const int half = 1 << (s - 1);
-    const int tw_shift = log2_m + 1 - s;
-    for (int b = threadIdx.x; b < (m >> 1); b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i = ((b >> (s - 1)) << s) + pos;
-      const int k = i + half;
-      const float2 w = twiddle[pos << tw_shift];
-      const float2 u = z[i];
-      const float2 v = z[k];
-      const float tr = w.x * v.x - w.y * v.y;
-      const float ti = w.x * v.y + w.y * v.x;
-      z[i] = make_float2(u.x + tr, u.y + ti);
-      z[k] = make_float2(u.x - tr, u.y - ti);
-    }
-    __syncthreads();
-  }
 }
 
 // |X[k]|^2 of one-sided bin k < m from zk = Z[k], zr = Z[(m-k) mod m] of the
@@ -225,39 +181,16 @@ __device__ __forceinline__ float hermitian_power(float2 zk, float2 zr, float2 w)
   return xr * xr + xi * xi;
 }
 
-// Power of one-sided bin k (0..m) from the packed spectrum z in shared
-// memory.  It reads z[k] and z[m-k] and writes nothing, so z must not be
-// overwritten while any thread of the block still unpacks.
-__device__ __forceinline__ float unpacked_power(const float2* z,
-                                                const float2* __restrict__ twiddle,
-                                                int k, int m) {
-  if (k == m) {
-    const float2 z0 = z[0];
-    const float x = z0.x - z0.y;
-    return x * x;
-  }
-  return hermitian_power(z[k], z[(m - k) & (m - 1)], twiddle[k]);
-}
-
-// K1's body: the packed FFT, then the one-sided power written to row
-// (bins 0..m).
-template <typename Load>
-__device__ __forceinline__ void fft_power_row(const Load& load,
-                                              const float* __restrict__ window,
-                                              const float2* __restrict__ twiddle,
-                                              float2* z, float* __restrict__ row,
-                                              int log2_m) {
-  packed_fft(load, window, twiddle, z, log2_m);
-  const int m = 1 << log2_m;
-  for (int k = threadIdx.x; k <= m; k += blockDim.x)
-    row[k] = unpacked_power(z, twiddle, k, m);
+__device__ __forceinline__ float band_db(float sum) {
+  return 10.f * log10f(fmaxf(sum, 1e-10f));
 }
 
 // K2's and K5's epilogue over one row of one-sided power p (device or shared
 // memory): out[b] = 10*log10(max(1e-10, sum_k p[k] * w_b[k])) for every band
 // b, one warp per band at a time, each lane summing every 32nd bin of the
 // band's own range with fmaf, then a shuffle tree.  The order of the sums
-// depends only on the band, so K5's bands equal K2's bit for bit.
+// depends only on the band, so K5's bands equal K2's bit for bit.  Needs
+// whole warps (blockDim.x a multiple of 32).
 __device__ __forceinline__ void mel_log_row(const float* __restrict__ p,
                                             const int* __restrict__ band_lo,
                                             const int* __restrict__ band_hi,
@@ -276,20 +209,39 @@ __device__ __forceinline__ void mel_log_row(const float* __restrict__ p,
     for (int k = lo + lane; k < hi; k += 32) acc = fmaf(p[k], w[k - lo], acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) out[b] = 10.f * log10f(fmaxf(acc, 1e-10f));
+    if (lane == 0) out[b] = band_db(acc);
   }
 }
 
-// K1's loader: sample a of the centred frame starting at `start`, reflected
-// on the index at both ends of the signal.
-struct ReflectLoad {
-  const float* y;
-  long long start;
-  long long n;
-  __device__ __forceinline__ float operator()(int a) const {
-    return y[reflect_index(start + a, n)];
+// mel_log_row for a block of fewer than 32 threads (K5 below n_fft = 1024):
+// thread t takes bands t, t + T, ... whole and adds them in the warp's
+// order, so they equal K2's bit for bit: the 32 lane sums (lane l: bins
+// lo + l, lo + l + 32, ..., by fmaf), then the shuffle tree's additions
+// (offset o = 16, 8, 4, 2, 1: sum[l] += sum[l + o] for l < o, all that lane
+// 0 reads).  tests/test_torch_fft_plan.py models both orders.
+__device__ __forceinline__ void mel_log_row_by_thread(const float* __restrict__ p,
+                                                      const int* __restrict__ band_lo,
+                                                      const int* __restrict__ band_hi,
+                                                      const int* __restrict__ band_off,
+                                                      const float* __restrict__ weights,
+                                                      float* __restrict__ out, int n_mels) {
+  for (int b = threadIdx.x; b < n_mels; b += blockDim.x) {
+    const int lo = band_lo[b];
+    const int hi = band_hi[b];
+    const float* w = weights + band_off[b];
+    float sum[32];
+    for (int l = 0; l < 32; ++l) {
+      float acc = 0.f;
+      for (int k = lo + l; k < hi; k += 32) acc = fmaf(p[k], w[k - lo], acc);
+      sum[l] = acc;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int l = 0; l < o; ++l) sum[l] += sum[l + o];
+    out[b] = band_db(sum[0]);
   }
-};
+}
 
 // ---------------------------------------------------------------------------
 // stockham_fft: a radix-16 Stockham FFT of m = 2^k points (k = 1..14) held in
@@ -299,6 +251,12 @@ struct ReflectLoad {
 // ---------------------------------------------------------------------------
 
 constexpr int kPoints = 16;  // points a thread holds in registers
+
+// Threads of a block over stockham_fft at m = 2^LOG2_M: m/16 (one below
+// m = 16).  Each kernel's launch bound is its own thread count, so
+// instances of fewer than 1024 threads may use more than 64 registers.
+template <int LOG2_M>
+constexpr int kStockhamThreads = LOG2_M < 4 ? 1 : (1 << LOG2_M) / kPoints;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -535,6 +493,20 @@ struct PackedWaveLoad {
   }
 };
 
+// PackedWaveLoad of this block's frame, blockIdx.x = signal * n_frames + t,
+// centred: it starts n_fft/2 = m samples before t * hop.  K1, K5 and K6.
+template <int LOG2_M>
+__device__ __forceinline__ PackedWaveLoad frame_load(const float* wave, const float* window,
+                                                     long long n_samples, int n_frames,
+                                                     int hop, float* sbuf) {
+  constexpr int m = 1 << LOG2_M;
+  const long long frame = blockIdx.x;
+  const long long sig = frame / n_frames;
+  const long long start = (frame - sig * n_frames) * hop - m;
+  return {wave + sig * n_samples, window, start, n_samples,
+          start >= 0 && start + 2LL * m <= n_samples, sbuf};
+}
+
 // K3's loader: packed point j = (x[2j], x[2j+1]) of a pre-framed row of
 // Pair (float2: f32 samples; short2: int16 PCM, whose 1/32768 scale the
 // caller folded into the window), times the window, read only where the
@@ -573,8 +545,8 @@ struct SplitStore {
   }
 };
 
-// K3's drain, written for any kernel over stockham_fft that wants one-sided
-// power: |X[k]|^2 for k = 0..m to row (device or shared memory) from the
+// The drain of K1, K3 (row in device memory) and K5 (row in shared memory,
+// after the exchange buffer): |X[k]|^2 for k = 0..m to row from the
 // packed spectrum in registers (slot s of thread t holds Z[k], k = t + T*s).
 // Bin k needs Z[(m-k) mod m] too: for t > 0 thread T-t holds it in slot
 // P-1-s, for t = 0 thread 0 in slot (P-s) mod P.  One thread (m <= 16) has
@@ -624,27 +596,24 @@ struct PowerStore {
   }
 };
 
-__global__ void __launch_bounds__(kStftThreads)
+template <int LOG2_M>
+__global__ void __launch_bounds__(kStockhamThreads<LOG2_M>, 1)
 wave_stft_power_kernel(const float* __restrict__ wave,
                        const float* __restrict__ window,
-                       const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
+                       const float2* __restrict__ twiddle,  // stockham_twiddles
+                       const float2* __restrict__ unpack,   // W_N^k, k < m
                        float* __restrict__ out,
-                       long long n_samples, int n_frames, int hop, int log2_m) {
-  extern __shared__ float2 z[];
-  const int m = 1 << log2_m;  // n_fft / 2 complex points
-  const long long frame = blockIdx.x;  // signal * n_frames + t
-  const long long sig = frame / n_frames;
-  const long long t = frame - sig * n_frames;
-  // Centred: frame t starts at t*hop - n_fft/2.
-  const ReflectLoad load{wave + sig * n_samples, t * hop - m, n_samples};
-  fft_power_row(load, window, twiddle, z, out + frame * static_cast<long long>(m + 1),
-                log2_m);
+                       long long n_samples, int n_frames, int hop) {
+  extern __shared__ float exchange[];  // re: m floats, then im: m floats
+  constexpr int m = 1 << LOG2_M;
+  const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange);
+  const PowerStore store{out + blockIdx.x * (m + 1LL), unpack, exchange, exchange + m};
+  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
 }
 
-// Rows of Pair: float2 (f32 samples) or short2 (int16 PCM).  The launch
-// bound is the instance's own thread count, as K6's.
+// Rows of Pair: float2 (f32 samples) or short2 (int16 PCM).
 template <int LOG2_M, typename Pair>
-__global__ void __launch_bounds__(LOG2_M < 4 ? 1 : (1 << LOG2_M) / kPoints, 1)
+__global__ void __launch_bounds__(kStockhamThreads<LOG2_M>, 1)
 frames_stft_power_kernel(const Pair* __restrict__ frames,
                          const float* __restrict__ window,
                          const float2* __restrict__ twiddle,  // stockham_twiddles
@@ -671,37 +640,35 @@ mel_log_kernel(const float* __restrict__ power,
               out + r * n_mels, n_mels);
 }
 
-__global__ void __launch_bounds__(kStftThreads)
+template <int LOG2_M>
+__global__ void __launch_bounds__(kStockhamThreads<LOG2_M>, 1)
 wave_stft_mel_log_kernel(const float* __restrict__ wave,
                          const float* __restrict__ window,
-                         const float2* __restrict__ twiddle,  // W_N^k, k < n_fft/2
+                         const float2* __restrict__ twiddle,  // stockham_twiddles
+                         const float2* __restrict__ unpack,   // W_N^k, k < m
                          const int* __restrict__ band_lo,
                          const int* __restrict__ band_hi,
                          const int* __restrict__ band_off,
                          const float* __restrict__ weights,
                          float* __restrict__ out,
-                         long long n_samples, int n_frames, int hop, int log2_m,
-                         int n_mels) {
-  extern __shared__ float2 z[];
-  const int m = 1 << log2_m;
-  float* power = reinterpret_cast<float*>(z + m);  // m + 1 bins after z
-  const long long frame = blockIdx.x;
-  const long long sig = frame / n_frames;
-  const long long t = frame - sig * n_frames;
-  const ReflectLoad load{wave + sig * n_samples, t * hop - m, n_samples};
-  packed_fft(load, window, twiddle, z, log2_m);
-  // The unpack reads z[k] and z[m-k]: it writes a separate buffer, never z.
-  for (int k = threadIdx.x; k <= m; k += blockDim.x)
-    power[k] = unpacked_power(z, twiddle, k, m);
+                         long long n_samples, int n_frames, int hop, int n_mels) {
+  // re: m floats, im: m floats, then the power: m + 1 floats.
+  extern __shared__ float exchange[];
+  constexpr int m = 1 << LOG2_M;
+  float* power = exchange + 2 * m;
+  const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange);
+  const PowerStore store{power, unpack, exchange, exchange + m};
+  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
   __syncthreads();
-  mel_log_row(power, band_lo, band_hi, band_off, weights, out + frame * n_mels,
-              n_mels);
+  float* row = out + blockIdx.x * static_cast<long long>(n_mels);
+  if constexpr (kStockhamThreads<LOG2_M> < 32)
+    mel_log_row_by_thread(power, band_lo, band_hi, band_off, weights, row, n_mels);
+  else
+    mel_log_row(power, band_lo, band_hi, band_off, weights, row, n_mels);
 }
 
-// The launch bound is the instance's own thread count, so instances of fewer
-// than 1024 threads may use more than 64 registers.
 template <int LOG2_M>
-__global__ void __launch_bounds__(LOG2_M < 4 ? 1 : (1 << LOG2_M) / kPoints, 1)
+__global__ void __launch_bounds__(kStockhamThreads<LOG2_M>, 1)
 wave_packed_fft_kernel(const float* __restrict__ wave,
                        const float* __restrict__ window,
                        const float2* __restrict__ twiddle,  // stockham_twiddles
@@ -710,24 +677,20 @@ wave_packed_fft_kernel(const float* __restrict__ wave,
                        long long n_samples, int n_frames, int hop) {
   extern __shared__ float exchange[];  // re: m floats, then im: m floats
   constexpr int m = 1 << LOG2_M;
+  const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange);
   const long long frame = blockIdx.x;
-  const long long sig = frame / n_frames;
-  const long long t = frame - sig * n_frames;
-  const long long start = t * hop - m;  // centred: n_fft/2 = m samples before
-  const PackedWaveLoad load{wave + sig * n_samples, window, start, n_samples,
-                            start >= 0 && start + 2LL * m <= n_samples, exchange};
   const SplitStore store{out_re + frame * m, out_im + frame * m};
   stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
 }
 
-// A kernel over stockham_fft at m = 2^LOG2_M: max(1, m/16) threads a
-// block, the 2m floats of the exchange buffer in dynamic shared memory.
+// A kernel over stockham_fft at m = 2^LOG2_M: kStockhamThreads threads a
+// block; in dynamic shared memory the 2m floats of the exchange buffer, then
+// extra_smem bytes of the kernel's own.
 template <int LOG2_M, typename... Params, typename... Args>
-int launch_stockham(void (*kernel)(Params...), long long blocks, cudaStream_t stream,
-                    const Args&... args) {
-  constexpr int m = 1 << LOG2_M;
-  constexpr int threads = m < kPoints ? 1 : m / kPoints;
-  constexpr int smem = static_cast<int>(sizeof(float2)) * m;
+int launch_stockham(void (*kernel)(Params...), long long blocks, int extra_smem,
+                    cudaStream_t stream, const Args&... args) {
+  constexpr int threads = kStockhamThreads<LOG2_M>;
+  const int smem = static_cast<int>(sizeof(float2) << LOG2_M) + extra_smem;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -786,23 +749,23 @@ const char* sed_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int sed_wave_stft_power(const void* wave, const void* window,
-                        const void* twiddle, void* out, long long n_signals,
+int sed_wave_stft_power(const void* wave, const void* window, const void* twiddle,
+                        const void* unpack, void* out, long long n_signals,
                         long long n_samples, int n_frames, int hop, int log2_m,
                         int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  const int smem = static_cast<int>(sizeof(float2)) << log2_m;
-  cudaError_t err = cudaFuncSetAttribute(wave_stft_power_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = n_signals * n_frames;
-  wave_stft_power_kernel<<<static_cast<unsigned>(blocks), kStftThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wave), static_cast<const float*>(window),
-      static_cast<const float2*>(twiddle), static_cast<float*>(out), n_samples,
-      n_frames, hop, log2_m);
-  return cudaGetLastError();
+  const auto* w = static_cast<const float*>(wave);
+  const auto* win = static_cast<const float*>(window);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* unpack_tw = static_cast<const float2*>(unpack);
+  auto* power = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_log2_m(log2_m, [&](auto log2_m_constant) {
+    constexpr int L = decltype(log2_m_constant)::value;
+    return launch_stockham<L>(wave_stft_power_kernel<L>, n_signals * n_frames, 0, s, w, win,
+                              tw, unpack_tw, power, n_samples, n_frames, hop);
+  });
 }
 
 int sed_frames_stft_power(const void* frames, int frames_are_int16,
@@ -819,9 +782,9 @@ int sed_frames_stft_power(const void* frames, int frames_are_int16,
   return with_log2_m(log2_m, [&](auto log2_m_constant) {
     constexpr int L = decltype(log2_m_constant)::value;
     return frames_are_int16
-               ? launch_stockham<L>(frames_stft_power_kernel<L, short2>, rows, s,
+               ? launch_stockham<L>(frames_stft_power_kernel<L, short2>, rows, 0, s,
                                     static_cast<const short2*>(frames), w, tw, unpack_tw, power)
-               : launch_stockham<L>(frames_stft_power_kernel<L, float2>, rows, s,
+               : launch_stockham<L>(frames_stft_power_kernel<L, float2>, rows, 0, s,
                                     static_cast<const float2*>(frames), w, tw, unpack_tw, power);
   });
 }
@@ -841,29 +804,31 @@ int sed_mel_log(const void* power, const void* band_lo, const void* band_hi,
   return cudaGetLastError();
 }
 
-int sed_wave_stft_mel_log(const void* wave, const void* window,
-                          const void* twiddle, const void* band_lo,
-                          const void* band_hi, const void* band_off,
-                          const void* weights, void* out, long long n_signals,
-                          long long n_samples, int n_frames, int hop, int log2_m,
-                          int n_mels, int device, void* stream) {
+int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twiddle,
+                          const void* unpack, const void* band_lo, const void* band_hi,
+                          const void* band_off, const void* weights, void* out,
+                          long long n_signals, long long n_samples, int n_frames, int hop,
+                          int log2_m, int n_mels, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  // z (m float2) then the one-sided power (m + 1 floats).
-  const int smem = static_cast<int>(sizeof(float2) << log2_m) +
-                   static_cast<int>(sizeof(float)) * ((1 << log2_m) + 1);
-  cudaError_t err = cudaFuncSetAttribute(wave_stft_mel_log_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = n_signals * n_frames;
-  wave_stft_mel_log_kernel<<<static_cast<unsigned>(blocks), kStftThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wave), static_cast<const float*>(window),
-      static_cast<const float2*>(twiddle), static_cast<const int*>(band_lo),
-      static_cast<const int*>(band_hi), static_cast<const int*>(band_off),
-      static_cast<const float*>(weights), static_cast<float*>(out), n_samples,
-      n_frames, hop, log2_m, n_mels);
-  return cudaGetLastError();
+  const auto* w = static_cast<const float*>(wave);
+  const auto* win = static_cast<const float*>(window);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* unpack_tw = static_cast<const float2*>(unpack);
+  const auto* lo = static_cast<const int*>(band_lo);
+  const auto* hi = static_cast<const int*>(band_hi);
+  const auto* off = static_cast<const int*>(band_off);
+  const auto* fb = static_cast<const float*>(weights);
+  auto* mel = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_log2_m(log2_m, [&](auto log2_m_constant) {
+    constexpr int L = decltype(log2_m_constant)::value;
+    // The one-sided power, m + 1 floats, after the exchange buffer.
+    constexpr int power_bytes = static_cast<int>(sizeof(float)) * ((1 << L) + 1);
+    return launch_stockham<L>(wave_stft_mel_log_kernel<L>, n_signals * n_frames, power_bytes,
+                              s, w, win, tw, unpack_tw, lo, hi, off, fb, mel, n_samples,
+                              n_frames, hop, n_mels);
+  });
 }
 
 int sed_wave_packed_fft(const void* wave, const void* window,
@@ -880,8 +845,8 @@ int sed_wave_packed_fft(const void* wave, const void* window,
   const auto s = static_cast<cudaStream_t>(stream);
   return with_log2_m(log2_m, [&](auto log2_m_constant) {
     constexpr int L = decltype(log2_m_constant)::value;
-    return launch_stockham<L>(wave_packed_fft_kernel<L>, n_signals * n_frames, s, w, win, tw,
-                              re, im, n_samples, n_frames, hop);
+    return launch_stockham<L>(wave_packed_fft_kernel<L>, n_signals * n_frames, 0, s, w, win,
+                              tw, re, im, n_samples, n_frames, hop);
   });
 }
 

@@ -63,8 +63,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Largest dynamic shared memory a Hopper block can use (227 KB); K1 keeps
-# n_fft/2 complex f32 points there.
+# Largest dynamic shared memory a Hopper block can use (227 KB); the FFT
+# kernels keep n_fft/2 complex f32 points there (K5 also the power row).
 _MAX_SMEM_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
 
@@ -132,14 +132,14 @@ def _library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sed_error_string.argtypes = [i32]
     lib.sed_error_string.restype = ctypes.c_char_p
-    lib.sed_wave_stft_power.argtypes = [vp, vp, vp, vp, i64, i64, i32, i32,
+    lib.sed_wave_stft_power.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                         i32, i32, vp]
     lib.sed_wave_stft_power.restype = i32
     lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
     lib.sed_mel_log.restype = i32
     lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
-    lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
+    lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
                                           i32, i32, i32, i32, i32, vp]
     lib.sed_wave_stft_mel_log.restype = i32
     lib.sed_wave_packed_fft.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
@@ -190,8 +190,8 @@ def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=8)
 def _stockham_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
-    """(n_fft/2, 2) f32 table of the inter-pass twiddles of K3's and K6's
-    Stockham FFT in pass order (:func:`stft_ops.stockham_twiddles`)."""
+    """(n_fft/2, 2) f32 table of the inter-pass twiddles of the Stockham FFT
+    (K1, K3, K5, K6) in pass order (:func:`stft_ops.stockham_twiddles`)."""
     return torch.from_numpy(np.stack(stft_ops.stockham_twiddles(n_fft), axis=1)).to(device)
 
 
@@ -227,10 +227,12 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
     """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_fft/2 + 1) f32
     power of the centred, reflect-padded, windowed real DFT.
 
-    CPU tensors take :func:`wave_stft_power_plain`; CUDA tensors launch K1.
-    Unlike the TPU kernel, which emits all n_fft bins in its (k2, k1) tile
-    layout for a folded filterbank, this returns the one-sided spectrum in
-    natural order: the same mel product, without Mosaic's layout.
+    CPU tensors take :func:`wave_stft_power_plain`; CUDA tensors launch K1
+    (the Stockham FFT core with the power drain: it reads the pass-ordered
+    twiddles and the W_N^k table).  Unlike the TPU kernel, which emits all
+    n_fft bins in its (k2, k1) tile layout for a folded filterbank, this
+    returns the one-sided spectrum in natural order: the same mel product,
+    without Mosaic's layout.
     """
     if waves.device.type == "cpu":
         return wave_stft_power_plain(waves, window, hop, n_fft)
@@ -243,11 +245,10 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
                       device=device)
     if n_sig == 0:
         return out
-    tw = _twiddles(n_fft, device)
-    log2_m = n_fft.bit_length() - 2  # log2(n_fft / 2) complex points
     err = _library().sed_wave_stft_power(
-        waves.data_ptr(), window.data_ptr(), tw.data_ptr(), out.data_ptr(),
-        n_sig, n_samples, n_frames, hop, log2_m, device.index, _stream(device))
+        waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
+        _twiddles(n_fft, device).data_ptr(), out.data_ptr(), n_sig, n_samples, n_frames,
+        hop, n_fft.bit_length() - 2, device.index, _stream(device))
     _check_launch("wave_stft_power", err)
     LAUNCHES["wave_stft_power"] += 1
     return out
@@ -517,9 +518,9 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
                       device=device)
     if n_sig == 0:
         return out
-    tw = _twiddles(n_fft, device)
     err = _library().sed_wave_stft_mel_log(
-        waves.data_ptr(), window.data_ptr(), tw.data_ptr(), bands.lo.data_ptr(),
+        waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
+        _twiddles(n_fft, device).data_ptr(), bands.lo.data_ptr(),
         bands.hi.data_ptr(), bands.offset.data_ptr(), bands.weights.data_ptr(),
         out.data_ptr(), n_sig, n_samples, n_frames, hop, n_fft.bit_length() - 2,
         bands.n_mels, device.index, _stream(device))

@@ -9,7 +9,7 @@ Tolerances (against the plain versions computed in float64 on the card):
   * K1 and K3 power, K6's packed Z: abs error <= 1e-5 x the frame's (row's)
     peak;
   * K2, K5, every impl name and the whole featurizer: <= 1e-4 dB;
-  * K5 against K1 then K2: equal bit for bit;
+  * K5 against K1 then K2: equal bit for bit, at every n_fft 4..32768;
   * scores, CUDA against CPU: <= 1e-4 abs (another summation order).
 """
 
@@ -49,21 +49,41 @@ def signals(n_sig, n, sr, device, seed=0):
     return (noise + 0.5 * torch.sin(2 * np.pi * freqs * t)).float().contiguous()
 
 
+def check_k1(waves, window, hop, n_fft):
+    """K1 on ``waves``: one launch, within 1e-5 x each frame's peak of the
+    float64 plain version."""
+    before = kernels.LAUNCHES["wave_stft_power"]
+    got = kernels.wave_stft_power(waves, window, hop, n_fft)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_power"] == before + 1
+    want = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
+    n_sig, n = waves.shape
+    assert got.shape == want.shape == (n_sig, 1 + n // hop, n_fft // 2 + 1)
+    peak = want.amax(dim=-1, keepdim=True)
+    assert bool(((got.double() - want).abs() <= 1e-5 * peak).all())
+
+
+def check_k5(waves, window, hop, n_fft, bands):
+    """K5 on ``waves``: one launch, equal bit for bit to K1 then K2."""
+    before = kernels.LAUNCHES["wave_stft_mel_log"]
+    got = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_mel_log"] == before + 1
+    power = kernels.wave_stft_power(waves, window, hop, n_fft)
+    two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands)
+    n_sig, n = waves.shape
+    assert got.shape == (n_sig, 1 + n // hop, bands.n_mels)
+    assert torch.equal(got.reshape(-1, bands.n_mels), two)
+    return got
+
+
 @pytest.mark.parametrize("cfg,n", [
     (SMALL, 20 * 8000), (SMALL, 20 * 8000 + 1317), (SMALL, 3000), (SMALL, 7),
     (PROD, 3 * 48000 + 11),
 ])
 def test_k1_matches_float64_plain(cuda, cfg, n):
-    waves = signals(3, n, cfg.working_sample_rate, cuda)
-    window = kernels.stft_window(cfg, cuda)
-    before = kernels.LAUNCHES["wave_stft_power"]
-    got = kernels.wave_stft_power(waves, window, cfg.hop_size, cfg.nfft)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["wave_stft_power"] == before + 1
-    want = kernels.wave_stft_power_plain(waves.double(), window, cfg.hop_size, cfg.nfft)
-    assert got.shape == want.shape == (3, 1 + n // cfg.hop_size, cfg.freq_bins)
-    peak = want.amax(dim=-1, keepdim=True)
-    assert bool(((got.double() - want).abs() <= 1e-5 * peak).all())
+    check_k1(signals(3, n, cfg.working_sample_rate, cuda), kernels.stft_window(cfg, cuda),
+             cfg.hop_size, cfg.nfft)
 
 
 @pytest.mark.parametrize("cfg", [SMALL, PROD])
@@ -393,14 +413,7 @@ def test_k5_equals_k1_then_k2_and_float64(cuda, cfg, n):
     waves = signals(3, n, cfg.working_sample_rate, cuda)
     window = kernels.stft_window(cfg, cuda)
     bands = kernels.mel_bands(cfg, cuda)
-    before = kernels.LAUNCHES["wave_stft_mel_log"]
-    got = kernels.wave_stft_mel_log(waves, window, cfg.hop_size, cfg.nfft, bands)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["wave_stft_mel_log"] == before + 1
-    power = kernels.wave_stft_power(waves, window, cfg.hop_size, cfg.nfft)
-    two = kernels.mel_log(power.reshape(-1, cfg.freq_bins), bands)
-    assert got.shape == (3, 1 + n // cfg.hop_size, cfg.mel_bins)
-    assert torch.equal(got.reshape(-1, cfg.mel_bins), two)
+    got = check_k5(waves, window, cfg.hop_size, cfg.nfft, bands)
     fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
     want = kernels.wave_stft_mel_log_plain(waves.double(), window, cfg.hop_size,
                                            cfg.nfft, fb64)
@@ -474,6 +487,76 @@ def test_k6_launches_one_kernel_on_the_inputs_device(cuda):
     on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(on_device) == 1 and "wave_packed_fft_kernel" in on_device[0], on_device
     assert zr.device == zi.device == waves.device
+
+
+def bands_at(n_fft, device):
+    """K2's bands of the 64-band Slaney filterbank of n_fft at 8 kHz (below
+    n_fft ~ 256 many bands cover no bin: -100 dB)."""
+    cfg = SpectrogramConfig(working_sample_rate=8000, time_margin=n_fft / 16000)
+    assert cfg.nfft == n_fft
+    return kernels.mel_bands(cfg, device)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,n_sig,n", _k6_cases())
+def test_k1_every_n_fft_matches_float64_plain(cuda, n_fft, hop, win, n_sig, n):
+    """Every n_fft K1 takes (4..32768: log2 m 1..14, one template instance
+    each) on K6's cases: odd lengths over both reflection edges, signals
+    shorter than half a frame, a single sample."""
+    window = torch.from_numpy(stft_ops.padded_window(win, n_fft).copy()).to(cuda)
+    check_k1(signals(n_sig, n, 8000, cuda), window, hop, n_fft)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,n_sig,n", _k6_cases())
+def test_k5_every_n_fft_equals_k1_then_k2(cuda, n_fft, hop, win, n_sig, n):
+    """K5 at every n_fft: below n_fft 1024 its CTA has fewer than 32 threads
+    and each thread sums whole bands, in K2's warp order."""
+    window = torch.from_numpy(stft_ops.padded_window(win, n_fft).copy()).to(cuda)
+    check_k5(signals(n_sig, n, 8000, cuda), window, hop, n_fft, bands_at(n_fft, cuda))
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k5"])
+@pytest.mark.parametrize("n_sig,n,frames", [
+    (1, 130 * PROD.hop_size, 131), (1, 131 * PROD.hop_size + 7, 132),
+    (1, 132 * PROD.hop_size, 133), (16, 60 * 48000, 2912),
+    (3, 40 * PROD.hop_size + 11, 123),
+])
+def test_k1_and_k5_frame_counts_across_the_wave_edge(cuda, kernel, n_sig, n, frames):
+    """At the production n_fft: one wave of 132 SMs and either side of it,
+    the scoring batch's 16 x 60 s, and an odd n_sig * n_samples (every other
+    signal's base not 8-byte aligned)."""
+    assert n_sig * (1 + n // PROD.hop_size) == frames
+    waves = signals(n_sig, n, PROD.working_sample_rate, cuda, seed=16)
+    window = kernels.stft_window(PROD, cuda)
+    if kernel == "k1":
+        check_k1(waves, window, PROD.hop_size, PROD.nfft)
+    else:
+        check_k5(waves, window, PROD.hop_size, PROD.nfft, kernels.mel_bands(PROD, cuda))
+
+
+@pytest.mark.parametrize("name", ["wave_stft_power", "wave_stft_mel_log"])
+def test_k1_and_k5_launch_one_kernel_on_the_inputs_device(cuda, name):
+    """One CUDA call of wave_stft_power (wave_stft_mel_log) is one launch of
+    the Stockham-core wave_stft_power_kernel (wave_stft_mel_log_kernel) and
+    no other device work (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    waves = signals(2, 5 * 48000 + 3, 48000, cuda)
+    window = kernels.stft_window(PROD, cuda)
+    bands = kernels.mel_bands(PROD, cuda)
+    args = (waves, window, PROD.hop_size, PROD.nfft) + ((bands,) if name == "wave_stft_mel_log"
+                                                         else ())
+    fn = getattr(kernels, name)
+    fn(*args)   # tables cached
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES[name]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and f"{name}_kernel" in on_device[0], on_device
+    assert out.device == waves.device
 
 
 @pytest.mark.parametrize("impl", sorted(kernels.IMPL_KERNELS))

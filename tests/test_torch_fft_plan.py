@@ -1,12 +1,14 @@
 """A float64 numpy model of the Stockham FFT kernels, held against numpy.
 
-K6 (``wave_packed_fft_kernel``) and K3 (``frames_stft_power_kernel``) in
+K1 (``wave_stft_power_kernel``), K3 (``frames_stft_power_kernel``), K5
+(``wave_stft_mel_log_kernel``) and K6 (``wave_packed_fft_kernel``) in
 ``sed_tpu_torch/ops/csrc/featurizer.cu`` run their m-point complex FFT
 through ``stockham_fft``: radix-16 Stockham passes held in registers, then
 one radix-r pass, with the points going once through shared memory between
-passes.  K6 stores Z in natural order (``SplitStore``); K3 unpacks it to
-one-sided power (``PowerStore``, the drain).  The functions below carry the
-kernel's names and compute exactly its indices:
+passes.  K6 stores Z in natural order (``SplitStore``); K1, K3 and K5 unpack
+it to one-sided power (``PowerStore``, the drain), and K5 then sums the mel
+bands.  The functions below carry the kernel's names and compute exactly
+its indices:
 
   * :func:`radix_plan`      m = 16^a * r -> a radix-16 passes, then radix r;
   * :func:`thread_count`    T threads, each holding :data:`POINTS` points;
@@ -29,8 +31,11 @@ kernel's names and compute exactly its indices:
 The tests run the model on seeded random input for every m the kernels take
 (log2 m = 1..14, n_fft 4..32768), check that every exchange is a
 permutation free of shared-memory bank conflicts, and run the models of the
-whole of K6 (framing, window, packing) and of the whole of K3 (row fill,
-float32 and int16, drain) against the port's plain versions.
+whole of K6 (framing, window, packing), of the whole of K3 (row fill,
+float32 and int16, drain) and of the whole of K1 (K6's loader, the drain)
+against the port's plain versions.  K5's band sums below 32 threads
+(``mel_log_row_by_thread``) are held bit for bit, in float32, against the
+warp order K2 uses (``mel_log_row``).
 """
 
 import numpy as np
@@ -474,3 +479,100 @@ def test_k3_rows_reach_the_kernel_aligned_to_a_pair_of_samples(offset, dtype):
     assert got.data_ptr() % (2 * got.element_size()) == 0
     assert (got.data_ptr() == view.data_ptr()) == (offset == 0)
     assert got.is_contiguous() and torch.equal(got, view)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K5: K6's loader, the schedule and K3's drain; K5's band epilogue
+# ---------------------------------------------------------------------------
+
+def k1_model(waves, window, hop, n_fft):
+    """The whole of K1 in float64: each centred frame through K6's loader,
+    the schedule and the power drain.  Returns (n_sig, n_frames, m + 1)."""
+    m = n_fft // 2
+    table = table64(m)
+    return np.array([[stockham_fft(k6_frame_points(y, window, f * hop - m, m), table,
+                                   drain=lambda v: power_drain(v, table))
+                      for f in range(1 + len(y) // hop)] for y in waves])
+
+
+@pytest.mark.parametrize("n_fft,n", [(4, 3 * 4 + 11), (4, 1), (64, 3 * 64 + 11), (64, 7),
+                                     (2048, 3 * 2048 + 11), (2048, 700)])
+def test_model_of_k1_matches_the_plain_version(n_fft, n):
+    """Loader, schedule and drain against ``wave_stft_power_plain`` in
+    float64 on 3 signals of an odd length: interior frames, frames over both
+    reflection edges, and signals shorter than a frame (reflected again and
+    again; one sample), within 1e-12 of each frame's peak."""
+    hop = max(1, 3 * n_fft // 8)
+    window = stft_ops.padded_window(n_fft - n_fft // 8, n_fft).astype(np.float64)
+    waves = np.random.default_rng(n_fft + n).standard_normal((3, n))
+    got = k1_model(waves, window, hop, n_fft)
+    want = kernels.wave_stft_power_plain(torch.from_numpy(waves), torch.from_numpy(window),
+                                         hop, n_fft).numpy()
+    assert got.shape == want.shape == (3, 1 + n // hop, n_fft // 2 + 1)
+    peak = want.max(axis=-1, keepdims=True)
+    assert (np.abs(got - want) <= 1e-12 * np.maximum(peak, 1e-300)).all()
+
+
+def fmaf32(a, b, c):
+    """fmaf in float32: the product of two floats is exact in float64, then
+    one rounding of the sum (the same emulation in every order below)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def lane_sums(p, w, lo, hi):
+    """The 32 lane sums of one band, as mel_log_row's lanes and
+    mel_log_row_by_thread build them: lane l adds bins lo + l, lo + l + 32,
+    ... by fmaf, from 0, in that order."""
+    acc = [np.float32(0.0)] * WARP
+    for k in range(lo, hi):
+        acc[(k - lo) % WARP] = fmaf32(p[k], w[k - lo], acc[(k - lo) % WARP])
+    return np.array(acc, dtype=np.float32)
+
+
+def warp_shuffle_sum(acc):
+    """K2's warp (mel_log_row): acc += __shfl_down_sync(acc, o) for
+    o = 16, 8, 4, 2, 1 on all 32 lanes at once, a lane whose source is past
+    lane 31 reading its own value; lane 0 writes the band."""
+    for o in (16, 8, 4, 2, 1):
+        src = np.arange(WARP) + o
+        acc = acc + np.where(src < WARP, acc[np.minimum(src, WARP - 1)], acc)
+    return acc[0]
+
+
+def by_thread_sum(acc):
+    """K5 below 32 threads (mel_log_row_by_thread): one thread adds
+    sum[l] += sum[l + o] for l < o, o = 16, 8, 4, 2, 1, in place."""
+    acc = list(acc)
+    for o in (16, 8, 4, 2, 1):
+        for lane in range(o):
+            acc[lane] = np.float32(acc[lane] + acc[lane + o])
+    return acc[0]
+
+
+@pytest.mark.parametrize("cfg", [dict(working_sample_rate=8000, time_margin=0.33), {}],
+                         ids=["SMALL", "PROD"])
+def test_k5_band_sums_by_thread_equal_the_warps_bit_for_bit(cfg):
+    """K5's epilogue for fewer than 32 threads adds each band in K2's order:
+    for every band of the config's filterbank, on seeded float32 power, the
+    one-thread tree equals the warp's shuffle tree bit for bit (and both are
+    the band's sum within float32 rounding).  A plain left-to-right sum
+    differs from it in some band: the order is what the equality rests on."""
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    fb = mel_filterbank(SpectrogramConfig(**cfg))
+    lo, hi, off, weights = kernels.mel_bands_numpy(fb)
+    p = (np.random.default_rng(fb.shape[0]).random(fb.shape[0]) ** 4 * 1e3).astype(np.float32)
+    differs = 0
+    for b in range(fb.shape[1]):
+        w = weights[off[b]:off[b] + hi[b] - lo[b]]
+        acc = lane_sums(p, w, lo[b], hi[b])
+        warp, thread = warp_shuffle_sum(acc), by_thread_sum(acc)
+        assert np.float32(warp).view(np.int32) == np.float32(thread).view(np.int32), b
+        exact = float(np.dot(p[lo[b]:hi[b]].astype(np.float64), w.astype(np.float64)))
+        assert abs(float(warp) - exact) <= 1e-5 * exact
+        seq = np.float32(0.0)
+        for k in range(lo[b], hi[b]):
+            seq = fmaf32(p[k], w[k - lo[b]], seq)
+        differs += int(seq != warp)
+    assert differs > 0
