@@ -12,13 +12,15 @@ non-zero on the first failure.  Phases:
               kernels from ``sed_tpu_torch/ops/csrc`` with nvcc and prints
               the build time and ptxas' registers, shared memory and spills;
               the lesion builds (``LESIONS``: K6's three, the drain's
-              exchange of K3 and K1, K5's epilogue) start beside it, one
-              nvcc for each distinct edit;
+              exchange of K3 and K1, K5's epilogue, K2's copies and sums)
+              start beside it, one nvcc for each distinct edit;
   2. kernels  K1 and K2 against their plain versions computed in float64 on
-              the card, at the batch path's shapes (16 x 60 s); K3 at the
+              the card, at the batch path's shapes (16 x 60 s), and K2 on the
+              batch's rows from row 1 on (off a 16-byte boundary, up to the
+              allocation's end) equal to the aligned rows' result; K3 at the
               streaming tick's shape (32 slots x 5 frames = 160 rows), float32
-              and int16, and K3 + K2 (``logmel_frames``) against the float64
-              chain;
+              and int16, K2 on its 160 rows and K3 + K2 (``logmel_frames``)
+              against the float64 chain;
   3. slice    ``make_batch_predictor(device="cuda")`` with
               CnnAvgPooling(TRAIN_CHANNEL_AND_POOL) on 16 x 60 s int16 clips,
               then one uint8 µ-law batch; launch counts reset just before and
@@ -39,7 +41,10 @@ non-zero on the first failure.  Phases:
               queued (K3 takes tens of microseconds, less than one call's
               launch latency), and K3 and K1 rebuilt without their drain's
               exchange (wrong results, timing only: what the exchange
-              costs); a
+              costs); K2 at the tick's 160 rows, one call and queued, beside
+              its bound, and K2 rebuilt without its copies and without its
+              sums at both row counts (its time split into copies and sums);
+              a
               single-round tick and a 16-round block of the 32-slot pool,
               and the tick's device time by kernel
               (``torch.profiler``); the pool run's profile split, audio-s per
@@ -217,8 +222,13 @@ LESIONS = {
                           "    constexpr bool in_registers = T == 1;",
                           "    constexpr bool in_registers = true;"),
     "K5 epilogue": ("sed_wave_stft_mel_log",
-                    "    mel_log_row(power, band_lo, band_hi, band_off, weights, row, n_mels);",
-                    "    ;"),
+                    "  mel_log_row<kWarps>(power, seg, band_first, weights, power + m + 1, row, "
+                    "n_mels, n_seg);",
+                    "  (void)kWarps;"),
+    "K2 copies": ("sed_mel_log", "        stage_chunk<R>(a, ring, full, g, k, seq, lane);",
+                  "        mbar_arrive(full + seq % D); if (lane == 0) mbar_arrive(full + seq % D);"),
+    "K2 sums": ("sed_mel_log", "        segment_sums<R>(x, w, s.y, lane, sum);",
+                "        for (int r = 0; r < R; ++r) sum[r] = 0.f;"),
 }
 _lesion_builds = []
 
@@ -455,9 +465,10 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
 
     def k5_raw_run(fn):
         err = fn(waves.data_ptr(), window.data_ptr(), tw.data_ptr(), unpack.data_ptr(),
-                 bands.lo.data_ptr(), bands.hi.data_ptr(), bands.offset.data_ptr(),
+                 bands.segments.data_ptr(), bands.band_first.data_ptr(),
                  bands.weights.data_ptr(), k5_out.data_ptr(), BATCH, samples,
-                 k5_out.shape[1], hop, n_fft.bit_length() - 2, n_mels, dev.index, stream)
+                 k5_out.shape[1], hop, n_fft.bit_length() - 2, n_mels, bands.n_segments,
+                 dev.index, stream)
         check(err == 0, f"K5 raw launch ({err})")
 
     ms["k5_no_epilogue"] = time_ms(torch, lambda: k5_raw_run(lesions["K5 epilogue"]))
@@ -466,13 +477,13 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
     impl_ms = {impl: time_ms(torch, lambda impl=impl: kernels.logmel_waveform(
         waves, cfg, impl=impl)) for impl in kernels.IMPL_KERNELS}
 
-    nnz = bands.weights.numel()
+    nnz = bands.nnz
     # The window and the twiddles: K6 reads the pass-ordered table, K1 and
     # K5 the W_N^k table too.
     fixed = 4 * (n_fft + 2 * m)
     fixed_power = fixed + 4 * 2 * m
     wave_b = 4 * waves.numel()
-    mel_b = 4 * (frames * n_mels + nnz + 3 * n_mels)
+    mel_b = 4 * (frames * n_mels + nnz + 5 * bands.n_segments + n_mels + 1)
     k4_bound = bound(4 * rows.numel() + mel_b, 2 * nnz * frames)
     k5_bound = bound(wave_b + fixed_power + mel_b,
                      fft_ops(frames, m, win_nnz) + 2 * nnz * frames)
@@ -522,7 +533,7 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
         return sum(runs[i][0].get(kernel, 0) for i in impls)
 
     return [
-        entry("power_to_logmel_cuda", "mel_log", 38, k4_launched["mel_log"], k4_err,
+        entry("power_to_logmel_cuda", "mel_log_kernel<R>", 38, k4_launched["mel_log"], k4_err,
               ms["k4"], ms["k4_plain"], k4_bound, ms["k4_lib"]),
         entry("wave_stft_mel_log",
               "wave_stft_mel_log_kernel<LOG2_M> (stockham_fft, PowerStore, mel_log_row)", 550,
@@ -578,11 +589,13 @@ def main() -> int:
     for line in info.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"[card] ptxas: {line.strip()}")
+    n_seg = kernels.mel_bands(cfg, torch.device("cpu")).n_segments
     log(f"[card] K1 wave_stft_power_kernel, K3 frames_stft_power_kernel and K6 "
         f"wave_packed_fft_kernel at n_fft {cfg.nfft}: {cfg.nfft // 32} threads a frame "
         f"(row), {4 * cfg.nfft} B of dynamic shared memory (the exchange buffer); K5 "
-        f"wave_stft_mel_log_kernel the same threads, {6 * cfg.nfft + 4} B (the exchange "
-        f"buffer, then the power row)")
+        f"wave_stft_mel_log_kernel the same threads, "
+        f"{6 * cfg.nfft + 4 + 4 * (n_seg + kernels.MEL_SEGMENT_BINS)} B (the exchange buffer, "
+        f"the power row, the sums of the {n_seg} segments, the segment loads' slack)")
     bw, flops_peak = card_peaks(name)
 
     sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
@@ -623,7 +636,16 @@ def main() -> int:
         f"(tol {DB_TOL}); K1+K2 vs float64 chain: {chain_err:.3e} dB (tol {DB_TOL})")
     check(k2_err <= DB_TOL, "K2 within 1e-4 dB of float64")
     check(chain_err <= DB_TOL, "K1+K2 within 1e-4 dB of the float64 chain")
-    del power, ref, k1_err, rows, mel
+    # Rows from an odd row on (not on a 16-byte boundary), up to the last row
+    # of the allocation: the same values as the aligned rows, bit for bit.
+    odd = rows[1:]
+    odd_mel = kernels.mel_log(odd, bands)
+    torch.cuda.synchronize()
+    check(odd.data_ptr() % 16 != 0, "the view starts off a 16-byte boundary")
+    check(torch.equal(odd_mel, mel[1:]), "K2 on unaligned rows equals K2 on aligned rows")
+    log(f"[kernels] K2 mel_log on rows 1.. (base {odd.data_ptr() % 16} bytes past a 16-byte "
+        f"boundary, up to the allocation's end): equal to the aligned rows' result")
+    del power, ref, k1_err, rows, mel, odd, odd_mel
 
     # K3 at the tick's shape: 10 frames of each of the 16 signals (signal 0's
     # are silent, signal 15's quiet), as float32 and as int16 PCM.
@@ -641,12 +663,16 @@ def main() -> int:
         err = (got.double() - want).abs()
         rel = float((err / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
         db = float((lm.double() - kernels.mel_log_plain(want, fb64)).abs().max())
+        k2_tick = float((kernels.mel_log(got, bands).double()
+                         - kernels.mel_log_plain(got.double(), fb64)).abs().max())
         k3[tag] = float(err.max())
         log(f"[kernels] K3 frames_stft_power {tag} {tuple(got.shape)}: max abs err "
             f"{k3[tag]:.3e}, max err / row peak {rel:.3e} (tol {K1_REL_TOL}); "
-            f"logmel_frames vs float64 chain {db:.3e} dB (tol {DB_TOL})")
+            f"logmel_frames vs float64 chain {db:.3e} dB (tol {DB_TOL}); K2 on its "
+            f"{k3_rows} rows vs float64 {k2_tick:.3e} dB (tol {DB_TOL})")
         check(rel <= K1_REL_TOL, f"K3 {tag} within 1e-5 x row peak of float64")
         check(db <= DB_TOL, f"K3+K2 {tag} within 1e-4 dB of the float64 chain")
+        check(k2_tick <= DB_TOL, "K2 at the tick's rows within 1e-4 dB of float64")
     del waves, got, want, err, lm
     log(f"[kernels] launches so far {kernels.LAUNCHES}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -947,6 +973,40 @@ def main() -> int:
     k1_again_ms = time_ms(torch, lambda: k1_raw_run(kernels._library().sed_wave_stft_power))
     del k1_out
 
+    # K2 at the tick's rows (K3's power of the tick frames): one call, and
+    # QUEUED calls in a row.
+    tick_power = kernels.frames_stft_power(tick_frames, window, n_fft)
+    k2t_calls = {
+        "k2": lambda: kernels.mel_log(tick_power, bands),
+        "plain": lambda: kernels.mel_log_plain(tick_power, bands.dense),
+        "lib": lambda: 10.0 * torch.log10(torch.clamp(torch.matmul(tick_power, bands.dense),
+                                                      min=1e-10)),
+    }
+    k2t_ms = time_ms(torch, k2t_calls["k2"])
+    k2t_q_ms, k2t_q_plain_ms, k2t_q_lib_ms = (time_ms(torch, fn, calls=QUEUED)
+                                              for fn in k2t_calls.values())
+    # K2 without its copies, and without its sums (wrong results): each side
+    # alone, against K2 through the same C call.
+
+    def k2_raw_run(fn, x, out):
+        err = fn(x.data_ptr(), bands.segments.data_ptr(), bands.band_first.data_ptr(),
+                 bands.work.data_ptr(), bands.weights.data_ptr(), out.data_ptr(), x.shape[0],
+                 n_bins, bands.n_mels, bands.n_segments, *bands.span, dev.index, k3_stream)
+        check(err == 0, f"K2 raw launch ({err})")
+
+    k2_out = torch.empty(frames, bands.n_mels, device=dev)
+    k2t_out = torch.empty(tick_power.shape[0], bands.n_mels, device=dev)
+    k2_raw = kernels._library().sed_mel_log
+    k2_lesion_ms = time_ms(torch, lambda: k2_raw_run(lesions["K2 copies"], rows, k2_out))
+    k2_copies_ms = time_ms(torch, lambda: k2_raw_run(lesions["K2 sums"], rows, k2_out))
+    k2_again_ms = time_ms(torch, lambda: k2_raw_run(k2_raw, rows, k2_out))
+    k2t_lesion_ms = time_ms(torch, lambda: k2_raw_run(lesions["K2 copies"], tick_power, k2t_out),
+                            calls=QUEUED)
+    k2t_copies_ms = time_ms(torch, lambda: k2_raw_run(lesions["K2 sums"], tick_power, k2t_out),
+                            calls=QUEUED)
+    k2t_again_ms = time_ms(torch, lambda: k2_raw_run(k2_raw, tick_power, k2t_out), calls=QUEUED)
+    del k2_out, k2t_out
+
     # The 32-slot pool's tick: every slot admitted, int16 chunks.
     tpool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
                        std=std, device=DEVICE)
@@ -964,10 +1024,16 @@ def main() -> int:
     # Waveform, window, the two twiddle tables (pass-ordered and W_N^k), power.
     k1_bytes = 4 * (signals.numel() + n_fft + 4 * m + rows.numel())
     k1_bound, k1_by = bound(k1_bytes, fft_ops(frames, m, win_nnz))
-    nnz = bands.weights.numel()
-    k2_bytes = 4 * (rows.numel() + frames * bands.n_mels + nnz + 3 * bands.n_mels)
+    nnz = bands.nnz
+    # Power, out, and the band tables: weights, segments (4 int32 each),
+    # work, band_first.
+    k2_tables = 4 * (nnz + 5 * bands.n_segments + bands.n_mels + 1)
+    k2_bytes = 4 * (rows.numel() + frames * bands.n_mels) + k2_tables
     k2_ops = frames * 2 * nnz
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k2t_n = tick_power.shape[0]
+    k2t_bytes = 4 * (tick_power.numel() + k2t_n * bands.n_mels) + k2_tables
+    k2t_bound, k2t_by = bound(k2t_bytes, k2t_n * 2 * nnz)
     k3_n = tick_frames.shape[0]
     # Rows, window, the two twiddle tables (pass-ordered and W_N^k), power.
     k3_bytes = 4 * (tick_frames.numel() + n_fft + 4 * m + k3_n * (m + 1))
@@ -984,7 +1050,12 @@ def main() -> int:
         f"exchange's share {k1_again_ms - k1_lesion_ms:.4f} ms)")
     log(f"[times] K2 mel_log {k2_ms:.4f} ms | plain {k2_plain_ms:.4f} ms | "
         f"matmul+log10 {k2_lib_ms:.4f} ms | bound {k2_bound:.4f} ms ({k2_by}: "
-        f"{k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.3f} GFLOP)")
+        f"{k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.3f} GFLOP) | bound share "
+        f"{k2_bound / k2_ms:.1%} | K2 / matmul+log10 {k2_ms / k2_lib_ms:.3f}")
+    log(f"[times] K2 without its copies (wrong results, timing only) {k2_lesion_ms:.4f} ms; "
+        f"without its sums {k2_copies_ms:.4f} ms; K2 through the same C call "
+        f"{k2_again_ms:.4f} ms (what the copies add to the sums {k2_again_ms - k2_lesion_ms:.4f} "
+        f"ms, the sums to the copies {k2_again_ms - k2_copies_ms:.4f} ms)")
     log(f"[times] featurizer (int16 ingest + K1 + K2) {feat_ms:.4f} ms | "
         f"CnnAvgPooling {model_ms:.4f} ms | whole batch {batch_ms:.4f} ms")
     log(f"[times] {audio_s_per_s:.1f} audio-s/s; peak device memory {peak_mib:.1f} MiB")
@@ -999,6 +1070,16 @@ def main() -> int:
     log(f"[times] K3 without its drain's exchange (wrong results, timing only, queued) "
         f"{k3_lesion_ms:.4f} ms; K3 through the same C call {k3_again_ms:.4f} ms (the "
         f"exchange's share {k3_again_ms - k3_lesion_ms:.4f} ms)")
+    log(f"[times] K2 mel_log at the tick's {k2t_n} rows {k2t_ms:.4f} ms | bound "
+        f"{k2t_bound:.4f} ms ({k2t_by}: {k2t_bytes / 1e6:.2f} MB) | bound share "
+        f"{k2t_bound / k2t_ms:.1%}")
+    log(f"[times] K2 at {k2t_n} rows queued ({QUEUED} calls between two events, per call) "
+        f"{k2t_q_ms:.4f} ms | plain {k2t_q_plain_ms:.4f} ms | matmul+log10 {k2t_q_lib_ms:.4f} "
+        f"ms | bound share {k2t_bound / k2t_q_ms:.1%} | K2 / matmul+log10 "
+        f"{k2t_q_ms / k2t_q_lib_ms:.3f}")
+    log(f"[times] K2 at {k2t_n} rows without its copies (wrong results, timing only, queued) "
+        f"{k2t_lesion_ms:.4f} ms; without its sums {k2t_copies_ms:.4f} ms; K2 through the "
+        f"same C call {k2t_again_ms:.4f} ms")
     log(f"[times] pool tick, one round of {POOL_SLOTS} slots: {tick_ms:.4f} ms | "
         f"one {StreamPool.ROUNDS_PER_CALL}-round block: {block_ms:.4f} ms (median of 5)")
     if tick_kernels:
@@ -1033,11 +1114,16 @@ def main() -> int:
          "launches": launches["wave_stft_power"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib_ms},
-        {"name": "mel_log", "kernel": "mel_log_kernel", "route": "cuda", "source": source,
+        {"name": "mel_log",
+         "kernel": "mel_log_kernel<R> (bulk copies into a ring, segment_sums)",
+         "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:72",
          "launches": launches["mel_log"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms},
+         "bound_by": k2_by, "library_ms": k2_lib_ms, "tick_rows": k2t_n,
+         "tick_ms": k2t_ms, "tick_queued_ms": k2t_q_ms,
+         "tick_queued_plain_ms": k2t_q_plain_ms, "tick_queued_library_ms": k2t_q_lib_ms,
+         "tick_bound_ms": k2t_bound, "pool_launches": pool_launches["mel_log"]},
         {"name": "frames_stft_power",
          "kernel": "frames_stft_power_kernel<LOG2_M, Pair> (stockham_fft, PowerStore)",
          "route": "cuda", "source": source,

@@ -67,19 +67,47 @@
 //   (driven by _mel_from_power_fb via _folded_mel_from_power).
 //   Computes out[r, b] = 10*log10(max(1e-10, sum_k power[r, k] * fb[k, b])).
 //   Bound on an H100 SXM: bytes.  It reads the power array once (191 MB at
-//   16 x 60 s, ~0.057 ms at 3.35 TB/s); the arithmetic is ~0.2 GFLOP.
-//   Design: the Slaney filterbank is 97% zeros and each band covers one
-//   contiguous bin range, so each (row, band) is a warp-level reduction over
-//   its own range only (about 33x less arithmetic than the dense product).
-//   One CTA per row, one warp per band; overlapping neighbour bands re-read
-//   the row through L1 rather than device memory.
+//   16 x 60 s, ~0.057 ms at 3.35 TB/s; 10.5 MB for the streaming tick's 160
+//   rows, ~0.0032 ms); the arithmetic is ~0.2 GFLOP.
+//   Design: mel_log_kernel<R>.  The Slaney filterbank is 97% zeros and each
+//   band covers one contiguous bin range, so only the bins [span_lo,
+//   span_hi) that some band covers are read, and each band is summed over
+//   its own range in segments of kSegBins bins (the band order above
+//   segment_sums).  Persistent CTAs, as many as the card holds at once, walk
+//   groups of R rows; one warp copies, 16 sum.  A row's span comes in chunks by
+//   TMA bulk copies (cp.async.bulk) into a ring of shared memory, each chunk
+//   completing on an mbarrier; a row need not start on a 16-byte boundary (a
+//   row of 16,385 floats starts 4r mod 16 bytes past one), so the bulk copies
+//   run from the boundary at or before span_lo and the < 4 bins before the
+//   span's first boundary and after its last come by 4-byte cp.async on the
+//   same mbarrier: every bin of the span is read once, no byte outside it (the
+//   last row of an allocation included), and the copier never waits for device
+//   memory.  It keeps up to D - 2 chunks ahead of the slowest summing warp,
+//   which releases a slot when it no longer needs it.  The summing warps take
+//   the segments in the order of their last bin, round-robin (work[], staged
+//   with band_first in shared memory once per CTA): at step k the segments that
+//   end in chunk k, from chunks k - 1 and k; a warp loads a segment's 8 weights
+//   once and its bins of all R rows, then the R fmaf chains and shuffle trees.
+//   R = 4 (a ring of 4 chunks of 2048 bins of 4 rows, 128 KB, one CTA an SM:
+//   the 126.7 KB of weights are read once per 4 rows) once every SM has a group
+//   of four; R = 1 below (16 chunks of 1024 bins, a whole default row in
+//   flight, two CTAs an SM: the tick's 160 rows in one wave).  Each chunk costs
+//   the copier a fixed time (PERF.md, the geometry sweep of
+//   ops/mel_log_sweep.py), so chunks are as large as the ring allows.  The
+//   segment sums go to shared memory; after a barrier of the summing warps, one
+//   thread per (row, band) adds its band's segments and writes the log-mel.
+//   One CTA per row with one warp per band, loading straight from device
+//   memory, reaches half the bound: whole bands leave warps' shares uneven (up
+//   to 1.23x the mean), each bin is loaded once per band it falls in, and the
+//   weights once per row.
 //   Known divergence from sed_tpu: sparse FP32 band sums in place of the
 //   TPU's dense bf16x4 split-operand matmul over the folded filterbank; the
 //   1e-4 dB tests pin the result.
 //   K2 also serves sed_tpu's _make_mel_kernel (K4: power_to_logmel_pallas,
 //   and the filterbank streamed over K when it passes 24 MB): the same
-//   function of one-sided power, for any number of bins, with no filterbank
-//   size limit, so K4's counterpart is this kernel.
+//   function of one-sided power, for any number of bins (the ring holds
+//   chunks, not rows), with no filterbank size limit, so K4's counterpart is
+//   this kernel.
 //
 // K5  sed_wave_stft_mel_log
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_wave_fft_mel_kernel_roll
@@ -91,14 +119,20 @@
 //   of FFT and band sums (~0.068 ms at 67 TFLOP/s FP32).
 //   Design: K1's kernel with PowerStore's row in shared memory: the m + 1
 //   floats of power follow the 2m floats of the exchange buffer (the drain
-//   still reads Z there), 12m + 4 bytes of dynamic shared memory (192 KB at
-//   n_fft = 32768, set with cudaFuncSetAttribute); then a barrier and K2's
-//   band epilogue (mel_log_row, one warp per band) over that buffer.  Below
-//   n_fft = 1024 the CTA has fewer than 32 threads, so each thread takes
-//   whole bands (mel_log_row_by_thread) and adds them in the warp's order.
-//   One CTA of 192 KB per SM: the epilogue overlaps no other frame's FFT.
-//   Same power code and summation order as K1 then K2, no fast-math: its
-//   output equals K1 -> K2 bit for bit, as sed_tpu pins fuse == roll.
+//   still reads Z there), then n_seg floats of segment sums, 12m + 4 +
+//   4 n_seg bytes of dynamic shared memory (~193 KB at n_fft = 32768, set
+//   with cudaFuncSetAttribute); then a barrier and K2's band order
+//   (mel_log_row): warp w sums segments w, w + 32, ... (at most 5 of the
+//   default 156 on 32 warps, where a warp of whole bands took up to 2,234
+//   bins), each with its loads issued before its fmafs and the next
+//   segment's weights in flight, then one thread per band adds its
+//   segments.  Below n_fft = 1024 the CTA has fewer than
+//   32 threads, so each thread takes whole bands and sums each segment in
+//   the warp's order (segment_sum_by_thread).  One CTA of ~193 KB per SM:
+//   the epilogue overlaps no other frame's FFT, so it gets the even order
+//   and the early loads, not a ring.  Same power code and summation order as
+//   K1 then K2, no fast-math: its output equals K1 -> K2 bit for bit, as
+//   sed_tpu pins fuse == roll.
 //
 // K6  sed_wave_packed_fft
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_wave_packed_fft_kernel
@@ -152,8 +186,6 @@
 
 namespace {
 
-constexpr int kMelThreads = 256;
-
 // Source index of padded position i (raw coordinates, may be < 0 or >= n)
 // under np.pad(mode="reflect"): the edge sample is not repeated, and depths
 // beyond the signal reflect again with period 2(n-1).
@@ -185,61 +217,134 @@ __device__ __forceinline__ float band_db(float sum) {
   return 10.f * log10f(fmaxf(sum, 1e-10f));
 }
 
-// K2's and K5's epilogue over one row of one-sided power p (device or shared
-// memory): out[b] = 10*log10(max(1e-10, sum_k p[k] * w_b[k])) for every band
-// b, one warp per band at a time, each lane summing every 32nd bin of the
-// band's own range with fmaf, then a shuffle tree.  The order of the sums
-// depends only on the band, so K5's bands equal K2's bit for bit.  Needs
-// whole warps (blockDim.x a multiple of 32).
-__device__ __forceinline__ void mel_log_row(const float* __restrict__ p,
-                                            const int* __restrict__ band_lo,
-                                            const int* __restrict__ band_hi,
-                                            const int* __restrict__ band_off,
-                                            const float* __restrict__ weights,
-                                            float* __restrict__ out, int n_mels) {
-  const int n_warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int b = warp; b < n_mels; b += n_warps) {
-    const int lo = band_lo[b];
-    const int hi = band_hi[b];
-    const float* w = weights + band_off[b];
+// ---------------------------------------------------------------------------
+// The band sums of K2 and K5, in one order that depends on the band alone.
+// cuda_featurizer.mel_segments_numpy cuts band b's bin range [lo, hi) into
+// segments of kSegBins bins counted from lo (the last one shorter) and lists
+// them band-major as int4 (first bin, bins, weight offset, band); band b owns
+// segments band_first[b] .. band_first[b + 1] - 1.  Then:
+//   segment sum: lane l adds bins first + l + 32j (j = 0..7, inside the
+//     segment) by fmaf, from 0, then the __shfl_down_sync tree (16, 8, 4, 2,
+//     1) brings the sum to lane 0;
+//   band sum: 0, plus the segment sums left to right; then band_db.
+// A band no wider than kSegBins is one segment: one warp's sum over the whole
+// band.  Warps take segments, not bands, so a warp's share is even.  K2 sums
+// the segments of R rows at once from its ring of shared memory; K5 sums one
+// row already in shared memory, with warps or, below 32 threads, one thread per
+// band (segment_sum_by_thread).  The same functions in the same order: K5
+// equals K1 then K2 bit for bit. tests/test_torch_fft_plan.py models them
+// (lane_sums, warp_shuffle_sum, by_thread_sum, band_sum).
+// ---------------------------------------------------------------------------
+
+constexpr int kSegBins = 256;             // bins of a full segment
+constexpr int kSegSteps = kSegBins / 32;  // bins a lane adds in a segment
+
+// A segment is an int4 (first bin, bins, weight offset, band or index).
+
+// The lane's weights of segment s: bins s.x + lane + 32j, j < kSegSteps.
+// The weights array ends in kSegBins zeros, so a short segment's loads past
+// its end stay inside it; segment_sums leaves those lanes' values out.
+__device__ __forceinline__ void segment_weights(const float* __restrict__ weights, int4 s,
+                                                int lane, float (&w)[kSegSteps]) {
+#pragma unroll
+  for (int j = 0; j < kSegSteps; ++j) w[j] = __ldg(weights + s.z + lane + 32 * j);
+}
+
+// A segment's sums of R rows from the lane's power bins x[r][j] (bin
+// first + lane + 32j of row r) and weights w[j], loaded before this call
+// (past the segment's end, whatever lies there: only the lane's bins inside
+// the segment enter its fmaf chain); lane 0 is left with them in sum[].
+template <int R>
+__device__ __forceinline__ void segment_sums(const float (&x)[R][kSegSteps],
+                                             const float (&w)[kSegSteps], int bins, int lane,
+                                             float (&sum)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
     float acc = 0.f;
-#pragma unroll 4
-    for (int k = lo + lane; k < hi; k += 32) acc = fmaf(p[k], w[k - lo], acc);
+#pragma unroll
+    for (int j = 0; j < kSegSteps; ++j)
+      if (lane + 32 * j < bins) acc = fmaf(x[r][j], w[j], acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) out[b] = band_db(acc);
+    sum[r] = acc;
   }
 }
 
-// mel_log_row for a block of fewer than 32 threads (K5 below n_fft = 1024):
-// thread t takes bands t, t + T, ... whole and adds them in the warp's
-// order, so they equal K2's bit for bit: the 32 lane sums (lane l: bins
-// lo + l, lo + l + 32, ..., by fmaf), then the shuffle tree's additions
-// (offset o = 16, 8, 4, 2, 1: sum[l] += sum[l + o] for l < o, all that lane
-// 0 reads).  tests/test_torch_fft_plan.py models both orders.
-__device__ __forceinline__ void mel_log_row_by_thread(const float* __restrict__ p,
-                                                      const int* __restrict__ band_lo,
-                                                      const int* __restrict__ band_hi,
-                                                      const int* __restrict__ band_off,
-                                                      const float* __restrict__ weights,
-                                                      float* __restrict__ out, int n_mels) {
-  for (int b = threadIdx.x; b < n_mels; b += blockDim.x) {
-    const int lo = band_lo[b];
-    const int hi = band_hi[b];
-    const float* w = weights + band_off[b];
-    float sum[32];
-    for (int l = 0; l < 32; ++l) {
-      float acc = 0.f;
-      for (int k = lo + l; k < hi; k += 32) acc = fmaf(p[k], w[k - lo], acc);
-      sum[l] = acc;
+// segment_sums' sum for one thread alone: the 32 lane sums, then the shuffle
+// tree's additions in the order lane 0 sees them (offset o = 16, 8, 4, 2,
+// 1: sum[l] += sum[l + o] for l < o).
+__device__ __forceinline__ float segment_sum_by_thread(const float* __restrict__ p,
+                                                       const float* __restrict__ weights,
+                                                       int4 s) {
+  float sum[32];
+  for (int l = 0; l < 32; ++l) {
+    float acc = 0.f;
+    for (int k = l; k < s.y; k += 32) acc = fmaf(p[s.x + k], __ldg(weights + s.z + k), acc);
+    sum[l] = acc;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int l = 0; l < o; ++l) sum[l] += sum[l + o];
+  return sum[0];
+}
+
+// A band's sum: 0, plus its segments' sums seg_sums[first..end) left to
+// right.
+__device__ __forceinline__ float band_sum(const float* seg_sums, int first, int end) {
+  float s = 0.f;
+  for (int i = first; i < end; ++i) s += seg_sums[i];
+  return s;
+}
+
+// K5's band epilogue over one row of one-sided power p in shared memory:
+// out[b] = band_db of band b's sum for every band.  kWarps: warp w takes
+// segments w, w + warps, ... into seg_sums (n_seg floats of shared memory),
+// loading a segment's descriptor two segments ahead and its weights one
+// ahead; then a barrier and one thread per band.  Otherwise (fewer than 32
+// threads) thread t takes bands t, t + T, ... whole.
+template <bool kWarps>
+__device__ __forceinline__ void mel_log_row(const float* p, const int4* __restrict__ seg,
+                                            const int* __restrict__ band_first,
+                                            const float* __restrict__ weights, float* seg_sums,
+                                            float* __restrict__ out, int n_mels, int n_seg) {
+  const auto descriptor = [seg, n_seg](int i) {
+    return i < n_seg ? __ldg(seg + i) : make_int4(0, 0, 0, 0);
+  };
+  if constexpr (kWarps) {
+    const int n_warps = blockDim.x >> 5;
+    const int lane = threadIdx.x & 31;
+    int i = threadIdx.x >> 5;
+    int4 s = descriptor(i);
+    int4 after = descriptor(i + n_warps);
+    float w[kSegSteps];
+    segment_weights(weights, s, lane, w);
+    for (; i < n_seg; i += n_warps) {
+      const int4 next = after;
+      after = descriptor(i + 2 * n_warps);
+      float next_w[kSegSteps];
+      segment_weights(weights, next, lane, next_w);
+      float x[1][kSegSteps];
+#pragma unroll
+      for (int j = 0; j < kSegSteps; ++j) x[0][j] = p[s.x + lane + 32 * j];
+      float sum[1];
+      segment_sums<1>(x, w, s.y, lane, sum);
+      if (lane == 0) seg_sums[i] = sum[0];
+      s = next;
+#pragma unroll
+      for (int j = 0; j < kSegSteps; ++j) w[j] = next_w[j];
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int l = 0; l < o; ++l) sum[l] += sum[l + o];
-    out[b] = band_db(sum[0]);
+    __syncthreads();
+    for (int b = threadIdx.x; b < n_mels; b += blockDim.x)
+      out[b] = band_db(band_sum(seg_sums, __ldg(band_first + b), __ldg(band_first + b + 1)));
+  } else {
+    for (int b = threadIdx.x; b < n_mels; b += blockDim.x) {
+      float s = 0.f;
+      const int end = __ldg(band_first + b + 1);
+      for (int k = __ldg(band_first + b); k < end; ++k)
+        s += segment_sum_by_thread(p, weights, descriptor(k));
+      out[b] = band_db(s);
+    }
   }
 }
 
@@ -627,17 +732,304 @@ frames_stft_power_kernel(const Pair* __restrict__ frames,
   stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
 }
 
-__global__ void __launch_bounds__(kMelThreads)
-mel_log_kernel(const float* __restrict__ power,
-               const int* __restrict__ band_lo,
-               const int* __restrict__ band_hi,
-               const int* __restrict__ band_off,
-               const float* __restrict__ weights,
-               float* __restrict__ out,
-               int n_bins, int n_mels) {
-  const long long r = blockIdx.x;
-  mel_log_row(power + r * n_bins, band_lo, band_hi, band_off, weights,
-              out + r * n_mels, n_mels);
+// ---------------------------------------------------------------------------
+// K2: mel_log_kernel<R>, persistent CTAs over groups of R rows, each row read
+// from device memory once through a ring of shared memory.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes from device to shared memory by cp.async; async_copy_arrive makes
+// bar count one arrival (of those it was set up to expect) once the calling
+// thread's copies so far have landed.
+__device__ __forceinline__ void async_copy_4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_address(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void async_copy_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_address(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_address(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_address(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_address(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from device to shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_address(dst)), "l"(src), "r"(bytes), "r"(smem_address(bar))
+      : "memory");
+}
+
+constexpr int kMelConsumerWarps = 16;  // warps that sum; one more warp copies
+constexpr int kMelThreads = 32 * (kMelConsumerWarps + 1);
+constexpr int kMelRows = 4;            // rows a CTA sums at once when rows are many
+// Bins of one row a chunk copy brings, and chunks in the ring of each row.
+// Each chunk costs the copier a fixed time, so R = kMelRows takes 2048-bin
+// chunks in 4 slots (128 KB, one CTA an SM, 2 chunks of 4 rows in flight);
+// R = 1 takes 1024-bin chunks in 16 slots, a whole default row (64 KB, two
+// CTAs an SM).
+template <int R>
+constexpr int kMelChunk = R == 1 ? 1024 : 2048;
+template <int R>
+constexpr int kMelSlots = R == 1 ? 16 : 4;
+// CTAs an SM should hold (the register budget): two for R = 1, so that the
+// tick's 160 rows run as one wave on 132 SMs.
+template <int R>
+constexpr int kMelMinBlocks = R == 1 ? 2 : 1;
+
+struct MelArgs {
+  const float* power;       // (rows, n_bins)
+  const int4* seg;          // band-major segments
+  const int* band_first;    // (n_mels + 1)
+  const int* work;          // segment indices by last bin: the warps' order
+  const float* weights;
+  float* out;               // (rows, n_mels)
+  long long rows;
+  int n_bins, n_mels, n_seg;
+  int span_lo, span_hi;     // the bins any band covers
+};
+
+// Bins of row `row` that chunk k brings, in a ring of D chunks: the row's
+// span [span_lo, span_hi) read from g0 = span_lo - sh, the 16-byte boundary
+// at or before span_lo (sh = 0..3, as the row's base falls), in chunks of
+// C = kMelChunk<R> bins: chunk k covers [g0 + kC, g0 + (k + 1)C) clipped to
+// the span.  Its 16-byte-aligned middle comes by one bulk copy; the < 4 bins
+// before the span's first boundary and after its last one by 4-byte
+// cp.async.  No address outside the row's span is read.  Bin x of the row sits at
+// ((base + x) & (D*C - 1)) of the row's ring, base = ((seq0 mod D) * C - g0)
+// for the group whose chunk 0 is the CTA's chunk seq0.
+struct MelChunk {
+  int s, e;    // bins of the chunk inside the span
+  int bs, be;  // its bulk-copied middle (be <= bs: none)
+  int he, ts;  // scalar bins: the head [s, he), the tail [ts, e)
+
+  __device__ __forceinline__ MelChunk(int g0, int k, int chunk, int span_lo, int span_hi) {
+    const int ha = g0 == span_lo ? span_lo : g0 + 4;  // the span's first boundary
+    const int ta = g0 + ((span_hi - g0) & ~3);         // and its last
+    s = max(g0 + k * chunk, span_lo);
+    e = min(g0 + (k + 1) * chunk, span_hi);
+    bs = max(s, ha);
+    be = min(e, ta);
+    he = min(e, ha);
+    ts = max(s, max(ha, ta));
+  }
+};
+
+__device__ __forceinline__ int row_misalignment(const float* row, int span_lo) {
+  return static_cast<int>((reinterpret_cast<unsigned long long>(row + span_lo) >> 2) & 3);
+}
+
+// The copying warp's work for chunk k of the R rows of group g, into ring
+// slot `slot` (chunk seq of the CTA): lanes 0-3 copy the head bins, lanes
+// 4-7 the tail bins, by cp.async; every lane's arrival on full follows its
+// copies; lane 0 also arrives with the bulk bytes and issues the bulk
+// copies.  No lane waits for device memory.
+template <int R>
+__device__ __forceinline__ void stage_chunk(const MelArgs& a, float* ring, unsigned long long* full,
+                                            long long g, int k, long long seq, int lane) {
+  constexpr int D = kMelSlots<R>;
+  constexpr int C = kMelChunk<R>;
+  constexpr int mask = D * C - 1;
+  const int slot = static_cast<int>(seq % D);
+  const int seq0_slot = static_cast<int>((seq - k) % D);
+  unsigned bytes = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long row_index = g * R + r;
+    if (row_index >= a.rows) break;
+    const float* row = a.power + row_index * a.n_bins;
+    const int g0 = a.span_lo - row_misalignment(row, a.span_lo);
+    const MelChunk c(g0, k, C, a.span_lo, a.span_hi);
+    float* dst = ring + r * D * C;
+    const int base = seq0_slot * C - g0;
+    int x = -1;
+    if (lane < 4 && c.s + lane < c.he) x = c.s + lane;
+    if (lane >= 4 && lane < 8 && c.ts + lane - 4 < c.e) x = c.ts + lane - 4;
+    if (x >= 0) async_copy_4(dst + ((base + x) & mask), row + x);
+    if (c.be > c.bs) bytes += 4u * (c.be - c.bs);
+  }
+  async_copy_arrive(full + slot);
+  if (lane == 0) {
+    mbar_arrive_expect_tx(full + slot, bytes);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row_index = g * R + r;
+      if (row_index >= a.rows) break;
+      const float* row = a.power + row_index * a.n_bins;
+      const int g0 = a.span_lo - row_misalignment(row, a.span_lo);
+      const MelChunk c(g0, k, C, a.span_lo, a.span_hi);
+      if (c.be > c.bs)
+        bulk_copy(ring + r * D * C + ((seq0_slot * C - g0 + c.bs) & mask),
+                  row + c.bs, 4u * (c.be - c.bs), full + slot);
+    }
+  }
+}
+
+// The lane's power bins of segment s in the ring, for R rows (kSegBins of
+// them, past a short segment's end too): bin x of row r at (base[r] + x)
+// mod D*C of the row's ring; where those bins do not wrap past the ring's
+// end (nearly always) they are read at linear offsets.
+template <int R, int D>
+__device__ __forceinline__ void ring_bins(const float* ring, const int (&base)[R], int4 s,
+                                          int lane, float (&x)[R][kSegSteps]) {
+  constexpr int size = D * kMelChunk<R>;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* row = ring + r * size;
+    const int o = (base[r] + s.x) & (size - 1);
+    if (o + kSegBins <= size) {
+#pragma unroll
+      for (int j = 0; j < kSegSteps; ++j) x[r][j] = row[o + lane + 32 * j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSegSteps; ++j) x[r][j] = row[(o + lane + 32 * j) & (size - 1)];
+    }
+  }
+}
+
+// Bytes of K2's dynamic shared memory: the full and empty barriers (8 bytes
+// each per slot), the segments in the warps' order (16 each), band_first
+// (padded to 16), the ring, and two buffers of R * n_seg segment sums.
+template <int R>
+constexpr long long mel_smem_bytes(int n_seg, int n_mels) {
+  return 16LL * kMelSlots<R> + 16LL * n_seg + 16LL * ((n_mels + 4) / 4) +
+         4LL * (R * kMelSlots<R> * kMelChunk<R> + 2LL * R * n_seg);
+}
+
+// K2: out[r, b] = band_db(band b's sum of power[r, :] * w_b), every row.
+// One warp copies, kMelConsumerWarps warps sum.  A CTA first puts the
+// segments (in the warps' order, work[], each with its band-major index)
+// and band_first in shared memory, then walks groups of R rows (g =
+// blockIdx.x, + gridDim.x, ...); each group's span comes as `chunks`
+// chunks, chunk seq of the CTA into ring slot seq mod D, full[slot]
+// completing when it has landed.  A segment whose last bin lies in chunk k
+// (even in the worst alignment) is summed at step k from chunks k - 1 and k
+// (a segment is shorter than a chunk), so a warp releases chunk k - 1
+// (empty[slot]) once its step k is done and the copier refills the slot with
+// chunk k - 1 + D.  Warp w takes segments w, w + W, ... of work[] in every
+// group, each for all R rows at once; the sums go to seg_sums of the group
+// (two buffers, by group parity); after a barrier of the summing warps, one
+// thread per (row, band) adds the band's segments and writes out.
+template <int R>
+__global__ void __launch_bounds__(kMelThreads, kMelMinBlocks<R>) mel_log_kernel(const MelArgs a) {
+  constexpr int D = kMelSlots<R>;
+  constexpr int C = kMelChunk<R>;
+  constexpr int W = kMelConsumerWarps;
+  extern __shared__ __align__(128) unsigned char mel_smem[];
+  auto* full = reinterpret_cast<unsigned long long*>(mel_smem);
+  auto* empty = full + D;
+  int4* sseg = reinterpret_cast<int4*>(empty + D);
+  int* sfirst = reinterpret_cast<int*>(sseg + a.n_seg);
+  float* ring = reinterpret_cast<float*>(sfirst + 4 * ((a.n_mels + 4) / 4));
+  float* seg_sums = ring + R * D * C;
+  const long long groups = (a.rows + R - 1) / R;
+  const int chunks = a.span_hi > a.span_lo ? (a.span_hi - a.span_lo + 2) / C + 1 : 0;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < D; ++i) {
+      mbar_init(full + i, 32 + 1);  // the copier's lanes' cp.async, its bulk bytes
+      mbar_init(empty + i, W);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < a.n_seg; i += blockDim.x) {
+    const int index = __ldg(a.work + i);
+    int4 s = __ldg(a.seg + index);
+    s.w = index;
+    sseg[i] = s;
+  }
+  for (int b = threadIdx.x; b <= a.n_mels; b += blockDim.x) sfirst[b] = __ldg(a.band_first + b);
+  __syncthreads();
+
+  if (warp == W) {  // the copier
+    long long seq = 0;
+    for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+      for (int k = 0; k < chunks; ++k, ++seq) {
+        if (seq >= D) mbar_wait(empty + seq % D, static_cast<unsigned>((seq / D - 1) & 1));
+        stage_chunk<R>(a, ring, full, g, k, seq, lane);
+      }
+    }
+    return;
+  }
+
+  // Segments a warp takes in every group: sseg[warp + W p], p < count.
+  const int count = warp < a.n_seg ? (a.n_seg - 1 - warp) / W + 1 : 0;
+  int4 s = count ? sseg[warp] : make_int4(0, 0, 0, 0);
+  long long seq = 0;
+  int parity = 0;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x, parity ^= 1) {
+    float* sums = seg_sums + parity * R * a.n_seg;
+    int base[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row_index = min(g * R + r, a.rows - 1);
+      const float* row = a.power + row_index * a.n_bins;
+      base[r] = static_cast<int>((seq % D) * C) - a.span_lo + row_misalignment(row, a.span_lo);
+    }
+    int done = 0;
+    for (int k = 0; k < chunks; ++k, ++seq) {
+      mbar_wait(full + seq % D, static_cast<unsigned>((seq / D) & 1));
+      while (done < count && (s.x + s.y - 1 - a.span_lo + 3) / C == k) {
+        const int4 next = sseg[warp + W * ((done + 1) % count)];
+        float w[kSegSteps];
+        segment_weights(a.weights, s, lane, w);
+        float x[R][kSegSteps];
+        ring_bins<R, D>(ring, base, s, lane, x);
+        float sum[R];
+        segment_sums<R>(x, w, s.y, lane, sum);
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) sums[r * a.n_seg + s.w] = sum[r];
+        }
+        s = next;
+        ++done;
+      }
+      __syncwarp();
+      if (seq > 0 && lane == 0) mbar_arrive(empty + (seq - 1) % D);
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(32 * W) : "memory");
+    const int n_rows = static_cast<int>(min(static_cast<long long>(R), a.rows - g * R));
+    for (int t = threadIdx.x; t < n_rows * a.n_mels; t += 32 * W) {
+      const int r = t / a.n_mels;
+      const int b = t - r * a.n_mels;
+      a.out[(g * R + r) * a.n_mels + b] =
+          band_db(band_sum(sums + r * a.n_seg, sfirst[b], sfirst[b + 1]));
+    }
+  }
 }
 
 template <int LOG2_M>
@@ -646,13 +1038,14 @@ wave_stft_mel_log_kernel(const float* __restrict__ wave,
                          const float* __restrict__ window,
                          const float2* __restrict__ twiddle,  // stockham_twiddles
                          const float2* __restrict__ unpack,   // W_N^k, k < m
-                         const int* __restrict__ band_lo,
-                         const int* __restrict__ band_hi,
-                         const int* __restrict__ band_off,
+                         const int4* __restrict__ seg,
+                         const int* __restrict__ band_first,
                          const float* __restrict__ weights,
                          float* __restrict__ out,
-                         long long n_samples, int n_frames, int hop, int n_mels) {
-  // re: m floats, im: m floats, then the power: m + 1 floats.
+                         long long n_samples, int n_frames, int hop, int n_mels, int n_seg) {
+  // re: m floats, im: m floats, the power: m + 1 floats, the segment sums:
+  // n_seg floats, then kSegBins floats that a short segment's loads may
+  // reach past the power row.
   extern __shared__ float exchange[];
   constexpr int m = 1 << LOG2_M;
   float* power = exchange + 2 * m;
@@ -661,10 +1054,8 @@ wave_stft_mel_log_kernel(const float* __restrict__ wave,
   stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
   __syncthreads();
   float* row = out + blockIdx.x * static_cast<long long>(n_mels);
-  if constexpr (kStockhamThreads<LOG2_M> < 32)
-    mel_log_row_by_thread(power, band_lo, band_hi, band_off, weights, row, n_mels);
-  else
-    mel_log_row(power, band_lo, band_hi, band_off, weights, row, n_mels);
+  constexpr bool kWarps = kStockhamThreads<LOG2_M> >= 32;
+  mel_log_row<kWarps>(power, seg, band_first, weights, power + m + 1, row, n_mels, n_seg);
 }
 
 template <int LOG2_M>
@@ -712,6 +1103,28 @@ int with_log2_m(int log2_m, const Launch& launch, std::integer_sequence<int, L..
 template <typename Launch>
 int with_log2_m(int log2_m, const Launch& launch) {
   return with_log2_m(log2_m, launch, std::make_integer_sequence<int, 14>{});
+}
+
+// K2 over R rows at a time: the ring (R rows of kMelSlots<R> chunks), two
+// buffers of R * n_seg segment sums, the barriers before them; as many
+// persistent CTAs as fit on the card at once, or one per group of rows.
+template <int R>
+int launch_mel_log(const MelArgs& args, int n_sm, cudaStream_t stream) {
+  const long long bytes = mel_smem_bytes<R>(args.n_seg, args.n_mels);
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(bytes);
+  cudaError_t err = cudaFuncSetAttribute(mel_log_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_log_kernel<R>, kMelThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long groups = (args.rows + R - 1) / R;
+  const long long ctas = groups < 1LL * per_sm * n_sm ? groups : 1LL * per_sm * n_sm;
+  mel_log_kernel<R><<<static_cast<unsigned>(ctas), kMelThreads, smem, stream>>>(args);
+  return cudaGetLastError();
 }
 
 // Makes `device` the calling thread's current device for the guard's life and
@@ -789,45 +1202,49 @@ int sed_frames_stft_power(const void* frames, int frames_are_int16,
   });
 }
 
-int sed_mel_log(const void* power, const void* band_lo, const void* band_hi,
-                const void* band_off, const void* weights, void* out,
-                long long rows, int n_bins, int n_mels, int device,
-                void* stream) {
+int sed_mel_log(const void* power, const void* segments, const void* band_first,
+                const void* work, const void* weights, void* out, long long rows, int n_bins,
+                int n_mels, int n_seg, int span_lo, int span_hi, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  mel_log_kernel<<<static_cast<unsigned>(rows), kMelThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(power), static_cast<const int*>(band_lo),
-      static_cast<const int*>(band_hi), static_cast<const int*>(band_off),
-      static_cast<const float*>(weights), static_cast<float*>(out), n_bins,
-      n_mels);
-  return cudaGetLastError();
+  int n_sm = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const MelArgs args{static_cast<const float*>(power), static_cast<const int4*>(segments),
+                     static_cast<const int*>(band_first), static_cast<const int*>(work),
+                     static_cast<const float*>(weights), static_cast<float*>(out), rows,
+                     n_bins, n_mels, n_seg, span_lo, span_hi};
+  const auto s = static_cast<cudaStream_t>(stream);
+  // kMelRows rows at a time once every SM has a group of them; one row at a
+  // time below that (the streaming tick's 160 rows: one wave of CTAs).
+  return rows >= static_cast<long long>(kMelRows) * n_sm ? launch_mel_log<kMelRows>(args, n_sm, s)
+                                                         : launch_mel_log<1>(args, n_sm, s);
 }
 
 int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twiddle,
-                          const void* unpack, const void* band_lo, const void* band_hi,
-                          const void* band_off, const void* weights, void* out,
-                          long long n_signals, long long n_samples, int n_frames, int hop,
-                          int log2_m, int n_mels, int device, void* stream) {
+                          const void* unpack, const void* segments, const void* band_first,
+                          const void* weights, void* out, long long n_signals,
+                          long long n_samples, int n_frames, int hop, int log2_m, int n_mels,
+                          int n_seg, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
   const auto* w = static_cast<const float*>(wave);
   const auto* win = static_cast<const float*>(window);
   const auto* tw = static_cast<const float2*>(twiddle);
   const auto* unpack_tw = static_cast<const float2*>(unpack);
-  const auto* lo = static_cast<const int*>(band_lo);
-  const auto* hi = static_cast<const int*>(band_hi);
-  const auto* off = static_cast<const int*>(band_off);
+  const auto* seg = static_cast<const int4*>(segments);
+  const auto* first = static_cast<const int*>(band_first);
   const auto* fb = static_cast<const float*>(weights);
   auto* mel = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   return with_log2_m(log2_m, [&](auto log2_m_constant) {
     constexpr int L = decltype(log2_m_constant)::value;
-    // The one-sided power, m + 1 floats, after the exchange buffer.
-    constexpr int power_bytes = static_cast<int>(sizeof(float)) * ((1 << L) + 1);
-    return launch_stockham<L>(wave_stft_mel_log_kernel<L>, n_signals * n_frames, power_bytes,
-                              s, w, win, tw, unpack_tw, lo, hi, off, fb, mel, n_samples,
-                              n_frames, hop, n_mels);
+    // The one-sided power (m + 1 floats), the segment sums and the loads'
+    // slack, after the exchange buffer.
+    const int extra = static_cast<int>(sizeof(float)) * ((1 << L) + 1 + n_seg + kSegBins);
+    return launch_stockham<L>(wave_stft_mel_log_kernel<L>, n_signals * n_frames, extra, s, w,
+                              win, tw, unpack_tw, seg, first, fb, mel, n_samples, n_frames, hop,
+                              n_mels, n_seg);
   });
 }
 

@@ -8,8 +8,9 @@ replaces, what bounds it and how it is designed):
     one-sided power (n_sig, n_frames, n_fft/2+1) f32 of the centred,
     reflect-padded, windowed real DFT, in natural bin order;
   * K2 :func:`mel_log` — power (rows, n_fft/2+1) f32 -> (rows, mel) f32
-    10*log10(max(1e-10, power @ fb)) over the sparse band description
-    (also sed_tpu's K4, :func:`power_to_logmel_cuda`);
+    10*log10(max(1e-10, power @ fb)) over the sparse band description cut
+    into segments (:class:`MelBands`), each row read once through shared
+    memory (also sed_tpu's K4, :func:`power_to_logmel_cuda`);
   * K3 :func:`frames_stft_power` — pre-framed rows (rows, n_fft) f32 or
     int16 -> one-sided power (rows, n_fft/2+1) f32 of the windowed real DFT
     (the streaming tick's featurizer, followed by K2);
@@ -135,11 +136,12 @@ def _library() -> ctypes.CDLL:
     lib.sed_wave_stft_power.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                         i32, i32, vp]
     lib.sed_wave_stft_power.restype = i32
-    lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                                i32, vp]
     lib.sed_mel_log.restype = i32
     lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
-    lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64,
+    lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
                                           i32, i32, i32, i32, i32, vp]
     lib.sed_wave_stft_mel_log.restype = i32
     lib.sed_wave_packed_fft.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
@@ -383,17 +385,27 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
 # K2: power -> log-mel
 # ---------------------------------------------------------------------------
 
+# Bins of a full segment of a band (featurizer.cu kSegBins): 32 lanes x 8.
+MEL_SEGMENT_BINS = 256
+
+
 @dataclasses.dataclass(frozen=True)
 class MelBands:
-    """The filterbank as K2 reads it, plus the dense form its plain version
-    uses.  Band b weights bins [lo[b], hi[b]) with
-    ``weights[offset[b] : offset[b] + hi[b] - lo[b]]``."""
+    """The filterbank as K2 and K5 read it, plus the dense form the plain
+    versions use.  ``segments[i]`` = (first bin, bins, weight offset, band)
+    of segment i: band b's bins cut into runs of :data:`MEL_SEGMENT_BINS`
+    from its first non-zero bin, band-major (:func:`mel_segments_numpy`);
+    band b owns segments ``band_first[b] .. band_first[b + 1] - 1``; ``work``
+    lists the segments by last bin, the order K2's warps take them in.
+    ``weights`` ends in :data:`MEL_SEGMENT_BINS` zeros: a warp loads a
+    whole segment's worth of weights, a short segment's too."""
 
-    lo: torch.Tensor       # (n_mels,) int32
-    hi: torch.Tensor       # (n_mels,) int32
-    offset: torch.Tensor   # (n_mels,) int32
-    weights: torch.Tensor  # (nnz,) float32
-    dense: torch.Tensor    # (n_bins, n_mels) float32
+    segments: torch.Tensor    # (n_seg, 4) int32
+    band_first: torch.Tensor  # (n_mels + 1,) int32
+    work: torch.Tensor        # (n_seg,) int32
+    weights: torch.Tensor     # (nnz + MEL_SEGMENT_BINS,) float32
+    dense: torch.Tensor       # (n_bins, n_mels) float32
+    span: tuple               # (first, end) of the bins any band covers
 
     @property
     def n_bins(self) -> int:
@@ -402,6 +414,14 @@ class MelBands:
     @property
     def n_mels(self) -> int:
         return self.dense.shape[1]
+
+    @property
+    def n_segments(self) -> int:
+        return self.segments.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return self.weights.shape[0] - MEL_SEGMENT_BINS
 
 
 def mel_bands_numpy(fb: np.ndarray):
@@ -422,13 +442,39 @@ def mel_bands_numpy(fb: np.ndarray):
     return as_i32(lo), as_i32(hi), as_i32(offset), weights
 
 
+def mel_segments_numpy(lo: np.ndarray, hi: np.ndarray, offset: np.ndarray):
+    """Band ranges [lo, hi) -> (segments, band_first, work) int32 arrays.
+
+    Band b's range is cut into runs of :data:`MEL_SEGMENT_BINS` bins from
+    lo[b], the last one shorter; an empty band has none.  ``segments`` is
+    (n_seg, 4): first bin, bins, weight offset, band, band-major;
+    ``band_first`` (n_mels + 1) the first segment of each band; ``work`` the
+    segment indices sorted by their last bin (stable).  The kernels' sums
+    follow this table: each segment by one warp (or in its order), each band
+    as its segments' sum left to right."""
+    rows, first = [], [0]
+    for b, (a, e, off) in enumerate(zip(lo.tolist(), hi.tolist(), offset.tolist())):
+        for s in range(a, e, MEL_SEGMENT_BINS):
+            rows.append((s, min(MEL_SEGMENT_BINS, e - s), off + s - a, b))
+        first.append(len(rows))
+    segments = np.asarray(rows, dtype=np.int32).reshape(-1, 4)
+    last = segments[:, 0] + segments[:, 1] - 1
+    work = np.argsort(last, kind="stable").astype(np.int32)
+    return segments, np.asarray(first, dtype=np.int32), work
+
+
 @functools.lru_cache(maxsize=8)
 def mel_bands(cfg: SpectrogramConfig, device: torch.device) -> MelBands:
-    """K2's band description of ``cfg``'s filterbank (float64 cast to f32)."""
+    """K2's and K5's band description of ``cfg``'s filterbank (float64 cast
+    to f32)."""
     fb = mel_ops.mel_filterbank(cfg, dtype=np.float32)
     lo, hi, offset, weights = mel_bands_numpy(fb)
+    segments, band_first, work = mel_segments_numpy(lo, hi, offset)
+    weights = np.concatenate([weights, np.zeros(MEL_SEGMENT_BINS, np.float32)])
+    covered = hi > lo
+    span = (int(lo[covered].min()), int(hi[covered].max())) if covered.any() else (0, 0)
     return MelBands(*(torch.from_numpy(a).to(device)
-                      for a in (lo, hi, offset, weights, fb)))
+                      for a in (segments, band_first, work, weights, fb)), span=span)
 
 
 @functools.lru_cache(maxsize=8)
@@ -439,7 +485,7 @@ def stft_window(cfg: SpectrogramConfig, device: torch.device) -> torch.Tensor:
 
 
 def _check_bands(bands: MelBands, device: torch.device) -> None:
-    for name in ("lo", "hi", "offset"):
+    for name in ("segments", "band_first", "work"):
         t = getattr(bands, name)
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"bands.{name} must be contiguous int32 on {device}")
@@ -457,7 +503,10 @@ def mel_log_plain(power: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
 def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
     """(rows, n_bins) f32 power -> (rows, n_mels) f32 log-mel.
 
-    CPU tensors take :func:`mel_log_plain`; CUDA tensors launch K2.
+    CPU tensors take :func:`mel_log_plain`; CUDA tensors launch K2, which
+    reads each row's band span once through shared memory and sums the
+    bands by segments (:class:`MelBands`).  Any row count and any base
+    alignment: rows need not start on a 16-byte boundary.
     """
     if power.device.type == "cpu":
         return mel_log_plain(power, bands.dense)
@@ -469,15 +518,14 @@ def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
     if power.ndim != 2 or power.shape[1] != bands.n_bins:
         raise ValueError(f"power must be (rows, {bands.n_bins}), got {tuple(power.shape)}")
     rows = power.shape[0]
-    if rows > _MAX_GRID_X:
-        raise ValueError(f"{rows} rows exceed one launch's grid")
     out = torch.empty((rows, bands.n_mels), dtype=torch.float32, device=device)
     if rows == 0:
         return out
     err = _library().sed_mel_log(
-        power.data_ptr(), bands.lo.data_ptr(), bands.hi.data_ptr(),
-        bands.offset.data_ptr(), bands.weights.data_ptr(), out.data_ptr(),
-        rows, bands.n_bins, bands.n_mels, device.index, _stream(device))
+        power.data_ptr(), bands.segments.data_ptr(), bands.band_first.data_ptr(),
+        bands.work.data_ptr(), bands.weights.data_ptr(), out.data_ptr(), rows,
+        bands.n_bins, bands.n_mels, bands.n_segments, *bands.span, device.index,
+        _stream(device))
     _check_launch("mel_log", err)
     LAUNCHES["mel_log"] += 1
     return out
@@ -507,8 +555,9 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
     if waves.device.type != "cuda":
         raise ValueError(f"wave_stft_mel_log: unsupported device {waves.device}")
     device = waves.device
-    n_frames = _check_waves("wave_stft_mel_log", waves, window, hop, n_fft,
-                            extra_smem=4 * (n_fft // 2 + 1))
+    n_frames = _check_waves(
+        "wave_stft_mel_log", waves, window, hop, n_fft,
+        extra_smem=4 * (n_fft // 2 + 1 + bands.n_segments + MEL_SEGMENT_BINS))
     _check_bands(bands, device)
     if bands.n_bins != n_fft // 2 + 1:
         raise ValueError(f"bands cover {bands.n_bins} bins, n_fft {n_fft} has "
@@ -520,10 +569,10 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
         return out
     err = _library().sed_wave_stft_mel_log(
         waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
-        _twiddles(n_fft, device).data_ptr(), bands.lo.data_ptr(),
-        bands.hi.data_ptr(), bands.offset.data_ptr(), bands.weights.data_ptr(),
-        out.data_ptr(), n_sig, n_samples, n_frames, hop, n_fft.bit_length() - 2,
-        bands.n_mels, device.index, _stream(device))
+        _twiddles(n_fft, device).data_ptr(), bands.segments.data_ptr(),
+        bands.band_first.data_ptr(), bands.weights.data_ptr(), out.data_ptr(), n_sig,
+        n_samples, n_frames, hop, n_fft.bit_length() - 2, bands.n_mels,
+        bands.n_segments, device.index, _stream(device))
     _check_launch("wave_stft_mel_log", err)
     LAUNCHES["wave_stft_mel_log"] += 1
     return out

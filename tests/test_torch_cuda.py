@@ -8,7 +8,9 @@ import neither JAX nor sed_tpu, so they also run where JAX is absent:
 Tolerances (against the plain versions computed in float64 on the card):
   * K1 and K3 power, K6's packed Z: abs error <= 1e-5 x the frame's (row's)
     peak;
-  * K2, K5, every impl name and the whole featurizer: <= 1e-4 dB;
+  * K2, K5, every impl name and the whole featurizer: <= 1e-4 dB (K2 at
+    row counts across its persistent grid, on rows off a 16-byte boundary,
+    at every n_fft 4..32768 and at 65,537 bins);
   * K5 against K1 then K2: equal bit for bit, at every n_fft 4..32768;
   * scores, CUDA against CPU: <= 1e-4 abs (another summation order).
 """
@@ -101,6 +103,91 @@ def test_k2_matches_float64_plain(cuda, cfg):
     want = kernels.mel_log_plain(power.double(), fb64)
     assert float((got.double() - want).abs().max()) <= 1e-4
     assert bool((got[3] == -100.0).all())
+
+
+def check_k2(power, bands, fb64):
+    """K2 on ``power``: one launch, within 1e-4 dB of the float64 plain
+    version, silent rows at -100 dB."""
+    before = kernels.LAUNCHES["mel_log"]
+    got = kernels.mel_log(power, bands)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mel_log"] == before + 1
+    want = kernels.mel_log_plain(power.double(), fb64)
+    assert got.shape == want.shape == (power.shape[0], bands.n_mels)
+    assert float((got.double() - want).abs().max()) <= 1e-4
+    silent = (power == 0).all(dim=-1)
+    assert bool((got[silent] == -100.0).all())
+    return got
+
+
+def k2_power(rows, n_bins, device, seed):
+    """(rows, n_bins) power: noise ** 4 over six decades, row 1 silent."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    power = torch.rand(rows, n_bins, generator=g, device=device) ** 4 * 1e3
+    if rows > 1:
+        power[1] = 0.0
+    return power
+
+
+@pytest.mark.parametrize("rows", [1, 131, 132, 133, 160, 264, 527, 528, 2912])
+def test_k2_row_counts_across_the_persistent_grid(cuda, rows):
+    """At the production n_fft: one row; a row for each SM and either side of
+    it; the tick's 160 rows; two rows an SM (264, the one-row grid's edge);
+    the switch to four rows at a time (528 = 4 x 132); the scoring batch's
+    2912 rows, five and a half groups of four a CTA."""
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(PROD, np.float64)).to(cuda)
+    check_k2(k2_power(rows, PROD.freq_bins, cuda, rows), kernels.mel_bands(PROD, cuda), fb64)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 160, 600])
+@pytest.mark.parametrize("first", [1, 2, 3])
+def test_k2_rows_not_on_a_16_byte_boundary(cuda, first, rows):
+    """A view from row ``first`` of a contiguous tensor (a row is 16,385
+    floats: row r starts 4r mod 16 bytes past a boundary) up to the last row
+    of its allocation: one launch, within the tolerance, and equal bit for
+    bit to the same rows copied to an aligned tensor."""
+    power = k2_power(first + rows, PROD.freq_bins, cuda, 20 + first)
+    view = power[first:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * first
+    assert view.data_ptr() + 4 * view.numel() == power.data_ptr() + 4 * power.numel()
+    bands = kernels.mel_bands(PROD, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(PROD, np.float64)).to(cuda)
+    got = check_k2(view, bands, fb64)
+    assert torch.equal(got, kernels.mel_log(view.clone(), bands))
+
+
+@pytest.mark.parametrize("n_fft", [1 << k for k in range(2, 16)])
+def test_k2_every_n_fft_matches_float64_plain(cuda, n_fft):
+    """Every n_fft of the 64-band filterbank at 8 kHz (3 to 16,385 bins; below
+    n_fft ~ 256 many bands are empty: -100 dB), at 37 rows (one row at a
+    time) and 600 (four)."""
+    bands = bands_at(n_fft, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(
+        SpectrogramConfig(working_sample_rate=8000, time_margin=n_fft / 16000),
+        np.float64)).to(cuda)
+    for rows in (37, 600):
+        check_k2(k2_power(rows, n_fft // 2 + 1, cuda, n_fft + rows), bands, fb64)
+
+
+@pytest.mark.parametrize("rows", [160, 2912])
+def test_k2_launches_one_kernel_on_the_inputs_device(cuda, rows):
+    """One CUDA call of mel_log is one launch of mel_log_kernel and no other
+    device work (torch.profiler), at both row paths."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bands = kernels.mel_bands(PROD, cuda)
+    power = k2_power(rows, PROD.freq_bins, cuda, 30)
+    kernels.mel_log(power, bands)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["mel_log"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = kernels.mel_log(power, bands)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mel_log"] == before + 1
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and "mel_log_kernel" in on_device[0], on_device
+    assert out.device == power.device
 
 
 def pcm_rows(rows, cfg, device, dtype, seed=4):

@@ -33,9 +33,19 @@ The tests run the model on seeded random input for every m the kernels take
 permutation free of shared-memory bank conflicts, and run the models of the
 whole of K6 (framing, window, packing), of the whole of K3 (row fill,
 float32 and int16, drain) and of the whole of K1 (K6's loader, the drain)
-against the port's plain versions.  K5's band sums below 32 threads
-(``mel_log_row_by_thread``) are held bit for bit, in float32, against the
-warp order K2 uses (``mel_log_row``).
+against the port's plain versions.
+
+The band sums of K2 and K5 follow one order, a function of the band alone:
+each band cut into segments of ``MEL_SEGMENT_BINS`` bins
+(``mel_segments_numpy``), each segment summed as a warp sums it
+(``segment_sums``: lane sums, then the shuffle tree) and the band as its
+segments' sum left to right (``band_sum``).  The float32 model below holds
+K5's one-thread order (``segment_sum_by_thread``, below 32 threads) bit for
+bit against the warps', and the segment order against the one-warp
+order over a whole band for bands no wider than a segment.  K2's ring is modelled too
+(``mel_chunk``, ``segment_step``): which bins each chunk's bulk copy and
+scalar loads bring for every row alignment, and that each segment's bins
+are resident, at distinct ring positions, at the step its warp sums it.
 """
 
 import numpy as np
@@ -519,20 +529,51 @@ def fmaf32(a, b, c):
     return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
-def lane_sums(p, w, lo, hi):
-    """The 32 lane sums of one band, as mel_log_row's lanes and
-    mel_log_row_by_thread build them: lane l adds bins lo + l, lo + l + 32,
-    ... by fmaf, from 0, in that order."""
+SEG = kernels.MEL_SEGMENT_BINS   # kSegBins
+# (kMelChunk<R>, kMelSlots<R>): bins of one row a K2 copy brings, and chunks
+# in a row's ring, one row at a time and kMelRows = 4 at a time.
+RINGS = {1: (1024, 16), 4: (2048, 4)}
+CONFIGS = {"SMALL": dict(working_sample_rate=8000, time_margin=0.33), "PROD": {}}
+
+
+def bands_of(cfg_kwargs):
+    """(fb, lo, hi, offset, weights, segments, band_first, work) of a config."""
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    fb = mel_filterbank(SpectrogramConfig(**cfg_kwargs), dtype=np.float32)
+    lo, hi, off, weights = kernels.mel_bands_numpy(fb)
+    return (fb, lo, hi, off, weights) + kernels.mel_segments_numpy(lo, hi, off)
+
+
+def bands_at(n_fft):
+    """The 64-band Slaney filterbank of n_fft at 8 kHz, as the gpu tests'
+    ``bands_at`` builds it (below n_fft ~ 256 many bands cover no bin)."""
+    return dict(working_sample_rate=8000, time_margin=n_fft / 16000)
+
+
+TABLES = [*CONFIGS] + [f"n_fft={1 << k}" for k in range(2, 16)]
+
+
+def table_config(name):
+    return CONFIGS[name] if name in CONFIGS else bands_at(int(name.split("=")[1]))
+
+
+def lane_sums(p, w, first, bins):
+    """The 32 lane sums of one segment, as segment_sums' lanes and
+    segment_sum_by_thread build them: lane l adds bins first + l,
+    first + l + 32, ... of the segment by fmaf, from 0, in that order; ``w``
+    holds the segment's weights."""
     acc = [np.float32(0.0)] * WARP
-    for k in range(lo, hi):
-        acc[(k - lo) % WARP] = fmaf32(p[k], w[k - lo], acc[(k - lo) % WARP])
+    for k in range(bins):
+        acc[k % WARP] = fmaf32(p[first + k], w[k], acc[k % WARP])
     return np.array(acc, dtype=np.float32)
 
 
 def warp_shuffle_sum(acc):
-    """K2's warp (mel_log_row): acc += __shfl_down_sync(acc, o) for
-    o = 16, 8, 4, 2, 1 on all 32 lanes at once, a lane whose source is past
-    lane 31 reading its own value; lane 0 writes the band."""
+    """segment_sums' tree: acc += __shfl_down_sync(acc, o) for o = 16, 8, 4,
+    2, 1 on all 32 lanes at once, a lane whose source is past lane 31 reading
+    its own value; lane 0 holds the segment's sum."""
     for o in (16, 8, 4, 2, 1):
         src = np.arange(WARP) + o
         acc = acc + np.where(src < WARP, acc[np.minimum(src, WARP - 1)], acc)
@@ -540,7 +581,7 @@ def warp_shuffle_sum(acc):
 
 
 def by_thread_sum(acc):
-    """K5 below 32 threads (mel_log_row_by_thread): one thread adds
+    """K5 below 32 threads (segment_sum_by_thread): one thread adds
     sum[l] += sum[l + o] for l < o, o = 16, 8, 4, 2, 1, in place."""
     acc = list(acc)
     for o in (16, 8, 4, 2, 1):
@@ -549,26 +590,62 @@ def by_thread_sum(acc):
     return acc[0]
 
 
-@pytest.mark.parametrize("cfg", [dict(working_sample_rate=8000, time_margin=0.33), {}],
-                         ids=["SMALL", "PROD"])
-def test_k5_band_sums_by_thread_equal_the_warps_bit_for_bit(cfg):
+def band_sum(p, weights, segments, band_first, b, tree=warp_shuffle_sum):
+    """band_sum: 0, plus band b's segment sums left to right, each segment
+    summed by ``tree`` over its lane sums."""
+    s = np.float32(0.0)
+    for first, bins, woff, _ in segments[band_first[b]:band_first[b + 1]]:
+        seg = tree(lane_sums(p, weights[woff:woff + bins], first, bins))
+        s = np.float32(s + seg)
+    return s
+
+
+def seeded_power(n_bins):
+    return (np.random.default_rng(n_bins).random(n_bins) ** 4 * 1e3).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", TABLES)
+def test_segments_cover_each_band_once_in_order(name):
+    """mel_segments_numpy cuts each band's range [lo, hi) into runs of SEG
+    bins from lo, the last one shorter: the segments of band b, in
+    band_first's order, tile its range exactly once, left to right, with the
+    weight offsets of those bins; an empty band has none.  ``work`` is every
+    segment once, by last bin."""
+    fb, lo, hi, off, weights, segments, band_first, work = bands_of(table_config(name))
+    n_mels = fb.shape[1]
+    assert segments.dtype == band_first.dtype == work.dtype == np.int32
+    assert segments.shape[1] == 4 and band_first.shape == (n_mels + 1,)
+    assert band_first[0] == 0 and band_first[-1] == len(segments)
+    assert (np.diff(band_first) >= 0).all()
+    for b in range(n_mels):
+        own = segments[band_first[b]:band_first[b + 1]]
+        assert (own[:, 3] == b).all()
+        covered = np.concatenate([np.arange(f, f + n) for f, n, _, _ in own] or [[]])
+        assert np.array_equal(covered, np.arange(lo[b], hi[b]))
+        assert (own[:, 1] >= 1).all() and (own[:-1, 1] == SEG).all() and (own[:, 1] <= SEG).all()
+        assert np.array_equal(own[:, 2], off[b] + own[:, 0] - lo[b])
+    assert np.array_equal(np.sort(work), np.arange(len(segments)))
+    assert (np.diff(segments[work, 0] + segments[work, 1]) >= 0).all()
+    if name == "PROD":
+        assert len(segments) == 156
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_k5_band_sums_by_thread_equal_the_warps_bit_for_bit(name):
     """K5's epilogue for fewer than 32 threads adds each band in K2's order:
     for every band of the config's filterbank, on seeded float32 power, the
-    one-thread tree equals the warp's shuffle tree bit for bit (and both are
-    the band's sum within float32 rounding).  A plain left-to-right sum
-    differs from it in some band: the order is what the equality rests on."""
-    from sed_tpu_torch.configs import SpectrogramConfig
-    from sed_tpu_torch.ops.mel import mel_filterbank
-
-    fb = mel_filterbank(SpectrogramConfig(**cfg))
-    lo, hi, off, weights = kernels.mel_bands_numpy(fb)
-    p = (np.random.default_rng(fb.shape[0]).random(fb.shape[0]) ** 4 * 1e3).astype(np.float32)
+    one-thread trees over the band's segments equal the warps' shuffle trees
+    bit for bit (and both are the band's sum within float32 rounding).  A
+    plain left-to-right sum differs from it in some band: the order is what
+    the equality rests on."""
+    fb, lo, hi, off, weights, segments, band_first, _ = bands_of(CONFIGS[name])
+    p = seeded_power(fb.shape[0])
     differs = 0
     for b in range(fb.shape[1]):
-        w = weights[off[b]:off[b] + hi[b] - lo[b]]
-        acc = lane_sums(p, w, lo[b], hi[b])
-        warp, thread = warp_shuffle_sum(acc), by_thread_sum(acc)
+        warp = band_sum(p, weights, segments, band_first, b)
+        thread = band_sum(p, weights, segments, band_first, b, tree=by_thread_sum)
         assert np.float32(warp).view(np.int32) == np.float32(thread).view(np.int32), b
+        w = weights[off[b]:off[b] + hi[b] - lo[b]]
         exact = float(np.dot(p[lo[b]:hi[b]].astype(np.float64), w.astype(np.float64)))
         assert abs(float(warp) - exact) <= 1e-5 * exact
         seq = np.float32(0.0)
@@ -576,3 +653,113 @@ def test_k5_band_sums_by_thread_equal_the_warps_bit_for_bit(cfg):
             seq = fmaf32(p[k], w[k - lo[b]], seq)
         differs += int(seq != warp)
     assert differs > 0
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_segment_order_is_the_one_warp_order_for_bands_no_wider_than_a_segment(name):
+    """A band of at most SEG bins is one segment, and its sum is bit for bit one
+    warp's lane sums over the whole band, then the shuffle tree.  About half of
+    the production bands are such bands; the wider ones stay within float32
+    rounding of the exact sum."""
+    fb, lo, hi, off, weights, segments, band_first, _ = bands_of(CONFIGS[name])
+    p = seeded_power(fb.shape[0])
+    narrow = 0
+    for b in range(fb.shape[1]):
+        w = weights[off[b]:off[b] + hi[b] - lo[b]]
+        one_warp = warp_shuffle_sum(lane_sums(p, w, lo[b], hi[b] - lo[b]))
+        got = band_sum(p, weights, segments, band_first, b)
+        if hi[b] - lo[b] <= SEG:
+            narrow += 1
+            assert np.float32(got).view(np.int32) == np.float32(one_warp).view(np.int32), b
+        exact = float(np.dot(p[lo[b]:hi[b]].astype(np.float64), w.astype(np.float64)))
+        assert abs(float(got) - exact) <= 1e-5 * exact
+    assert narrow == {"SMALL": 60, "PROD": 32}[name]
+
+
+# ---------------------------------------------------------------------------
+# K2's ring: which bins each chunk copy brings, and when each segment is summed
+# ---------------------------------------------------------------------------
+
+def span_of(lo, hi):
+    covered = hi > lo
+    return (int(lo[covered].min()), int(hi[covered].max())) if covered.any() else (0, 0)
+
+
+def chunk_count(span_lo, span_hi, chunk):
+    """Chunks of a row: its span read from up to 3 bins before span_lo."""
+    return (span_hi - span_lo + 2) // chunk + 1 if span_hi > span_lo else 0
+
+
+def mel_chunk(g0, k, chunk, span_lo, span_hi):
+    """MelChunk: chunk k of a row read from g0 (the 16-byte boundary at or
+    before span_lo): its bins (s, e) inside the span, its bulk-copied middle
+    [bs, be), its scalar head [s, he) and tail [ts, e)."""
+    ha = span_lo if g0 == span_lo else g0 + 4
+    ta = g0 + ((span_hi - g0) & ~3)
+    s, e = max(g0 + k * chunk, span_lo), min(g0 + (k + 1) * chunk, span_hi)
+    return dict(s=s, e=e, bs=max(s, ha), be=min(e, ta), he=min(e, ha), ts=max(s, ha, ta))
+
+
+def segment_step(first, bins, span_lo, chunk):
+    """The step (chunk) at which K2's warps sum a segment: the chunk of its
+    last bin in the worst alignment (g0 = span_lo - 3)."""
+    return (first + bins - 1 - span_lo + 3) // chunk
+
+
+@pytest.mark.parametrize("rows_at_once", sorted(RINGS))
+@pytest.mark.parametrize("sh", range(4))
+@pytest.mark.parametrize("name", TABLES + ["n_bins=65537"])
+def test_k2_chunks_read_each_bin_of_the_span_once(name, sh, rows_at_once):
+    """For a row whose span starts sh floats past a 16-byte boundary, the
+    chunks' bulk copies and scalar loads read every bin of the span
+    [span_lo, span_hi) exactly once and nothing outside it (the last row of
+    an allocation is read up to its last bin, not past it); each bulk copy
+    starts on a 16-byte boundary and moves a multiple of 16 bytes; each
+    scalar head and tail is at most 4 bins (lanes 0-3, 4-7)."""
+    cfg = dict(time_margin=0.7) if name == "n_bins=65537" else table_config(name)
+    fb, lo, hi, *_ = bands_of(cfg)
+    span_lo, span_hi = span_of(lo, hi)
+    assert span_hi <= fb.shape[0]
+    row0 = 4 * 1000 + sh - span_lo % 4       # the row's first bin, in floats from a boundary
+    g0 = span_lo - (row0 + span_lo) % 4
+    assert (row0 + g0) % 4 == 0 and span_lo - g0 == sh
+    chunk = RINGS[rows_at_once][0]
+    reads = np.zeros(fb.shape[0] + 8, dtype=int)
+    for k in range(chunk_count(span_lo, span_hi, chunk)):
+        c = mel_chunk(g0, k, chunk, span_lo, span_hi)
+        if c["be"] > c["bs"]:
+            assert (row0 + c["bs"]) % 4 == 0 and (c["be"] - c["bs"]) % 4 == 0
+            reads[c["bs"]:c["be"]] += 1
+        assert c["he"] - c["s"] <= 4 and c["e"] - c["ts"] <= 4
+        reads[c["s"]:max(c["s"], c["he"])] += 1
+        reads[c["ts"]:max(c["ts"], c["e"])] += 1
+    assert (reads[span_lo:span_hi] == 1).all()
+    assert reads[:span_lo].sum() == reads[span_hi:].sum() == 0
+
+
+@pytest.mark.parametrize("rows_at_once", sorted(RINGS))
+@pytest.mark.parametrize("name", TABLES + ["n_bins=65537"])
+def test_k2_segments_find_their_bins_in_the_ring(name, rows_at_once):
+    """At its step k a segment's bins lie in chunks k - 1 and k of every row
+    alignment (the ones the warps still hold), chunk k is the last the
+    segment needs, and their ring positions ((base + x) mod slots * chunk)
+    are distinct; the warps' order (``work``) never goes back a step."""
+    cfg = dict(time_margin=0.7) if name == "n_bins=65537" else table_config(name)
+    fb, lo, hi, off, weights, segments, band_first, work = bands_of(cfg)
+    span_lo, span_hi = span_of(lo, hi)
+    chunk, slots = RINGS[rows_at_once]
+    chunks = chunk_count(span_lo, span_hi, chunk)
+    steps = [segment_step(f, n, span_lo, chunk) for f, n, _, _ in segments]
+    assert all(0 <= k < chunks for k in steps)
+    assert (np.diff([steps[i] for i in work]) >= 0).all()
+    for sh in range(4):
+        g0 = span_lo - sh
+        for seq0 in (0, 3, slots - 1):
+            base = (seq0 % slots) * chunk - g0
+            for (first, bins, _, _), k in zip(segments, steps):
+                x = np.arange(first, first + bins)
+                of = (x - g0) // chunk
+                assert of.min() >= k - 1 and of.max() <= k, (first, bins, k)
+                pos = (base + x) % (slots * chunk)
+                assert len(np.unique(pos)) == bins
+                assert ((pos // chunk) == (seq0 + of) % slots).all()
