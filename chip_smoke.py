@@ -63,7 +63,28 @@ non-zero on the first failure.  Phases:
               its bound and its ratio to ``torch.fft.fft``, K6 rebuilt
               without its loads, its exchanges or its twiddles, and K5
               without its band epilogue (wrong results, timing only: what
-              each part of their time is).
+              each part of their time is);
+ 10. files    the per-file path of ``cli/infer.py`` without ``--batch``, on
+              two seeded WAVs (noise with tonal bursts, 48 kHz int16): 20
+              minutes (3,637 frames: four uniform windows of 1,152 frames and
+              a ragged tail) and 2 minutes, with CnnAvgPooling
+              (TRAIN_CHANNEL_AND_POOL), MobileNetV1 and M5, each with seeded
+              weights and BatchNorm statistics: ``predict_file`` (window 1024,
+              halo 64, 88 after MobileNetV1's floor) equal to the whole
+              forward on the card, one K1 and one K2 launch per file (counts
+              reset just before, read just after), and equal to the CPU on the
+              2-minute file; ``predict_file_m5`` with both stems, the card's
+              framing equal to the host's, card against CPU;
+              ``make_batch_predictor`` with MobileNetV1 on phase 3's batch;
+              ``python -m sed_tpu_torch.cli.infer --no_plot --arch ...`` for
+              the three archs (run side by side) against the in-process
+              scores; the long file's K1 rows and K2 on them, and each
+              ``predict_file``'s log-mel, against float64, and the 2-minute
+              file's log-mel against the CPU; per-file calls split into WAV
+              read, featurizer and model inside each call (median and range),
+              audio-s/s with and without the read, M5's direct stem against
+              its space-to-depth stem and its frame bucket (32, 128, 256),
+              MobileNetV1's batch, and peak device memory.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10), the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -98,6 +119,10 @@ MULAW_SECONDS = 14.0
 K1_REL_TOL = 1e-5   # K1, K3: abs error / frame peak power, against float64
 DB_TOL = 1e-4       # K2, K1+K2 and K3+K2: dB, against float64
 SCORE_TOL = 1e-4    # scores, against the batch path or the CPU
+FILE_SECONDS = (1200.0, 120.0)  # per-file phase: the long file (card), the short one (+ CPU)
+FILE_WINDOW, FILE_HALO = 1024, 64  # cli/infer.py's defaults
+FILE_REPS = 5       # per-file calls timed by stage (they read the WAV)
+M5_BUCKETS = [32, 128, 256]  # M5 frame buckets timed in phase 10
 REPS = 20
 QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
 
@@ -559,6 +584,307 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
     ]
 
 
+def seed_batch_norms(torch, model, seed):
+    """Seeded, non-trivial BatchNorm statistics, scales and biases."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.uniform_(-0.5, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.3, 0.3, generator=g)
+    return model.eval()
+
+
+def burst_wav(path, seconds, sr, seed):
+    """Noise with tonal bursts (a 2 kHz tone on for 4 s of every 20 s, a
+    sweeping one for 1 s of every 7 s), 48 kHz mono int16."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr), dtype=np.float64) / sr
+    x = 0.1 * rng.standard_normal(t.size)
+    x += 0.5 * ((t % 20.0) < 4.0) * np.sin(2 * np.pi * 2000.0 * t)
+    x += 0.4 * ((t % 7.0) < 1.0) * np.sin(2 * np.pi * (300.0 + 50.0 * (t % 7.0)) * t)
+    wavfile.write(path, sr, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+    return path
+
+
+def files_phase(torch, cfg, dev, smi, tmp):
+    """Phase 10: the per-file path of ``cli/infer.py`` without ``--batch``
+    (see the module docstring).  Returns the K1 and K2 launches of the two
+    spectrogram ``predict_file`` runs on the long file."""
+    from sed_tpu_torch.cli import infer
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.inference import emits_scores, make_batch_predictor
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+    from sed_tpu_torch.models.m5 import M5
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops.featurizer import logmel_features
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    t0 = time.perf_counter()
+    sr = cfg.working_sample_rate
+    hop, n_fft = cfg.hop_size, cfg.nfft
+    wcfg = WaveformConfig()
+    long_s, short_s = FILE_SECONDS
+    long_wav = str(burst_wav(tmp / "long.wav", long_s, sr, 10))
+    short_wav = str(burst_wav(tmp / "short.wav", short_s, sr, 11))
+    models = {
+        "CnnAvgPooling": CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL,
+                                       generator=torch.Generator().manual_seed(10)),
+        "MobileNetV1": MobileNetV1(cfg.classes_num, generator=torch.Generator().manual_seed(11)),
+        "M5": M5(cfg.classes_num, generator=torch.Generator().manual_seed(12)),
+    }
+    for i, model in enumerate(models.values()):
+        seed_batch_norms(torch, model, 20 + i)
+    cpu_models = {arch: copy.deepcopy(m) for arch, m in models.items()}
+    for model in models.values():
+        model.to(dev)
+    # Per-mel-bin normalization from the long file's own log-mel, as
+    # preprocessing computes it from training features.
+    wav_long = read_multichannel_audio(long_wav, target_fs=sr, cfg=cfg).astype(np.float32)
+    with torch.inference_mode():
+        feats = logmel_features(torch.from_numpy(wav_long).to(dev), cfg)
+    mean = feats.mean(dim=(0, 1)).cpu().numpy()
+    std = feats.std(dim=(0, 1)).cpu().numpy()
+    del feats
+    with open(tmp / "files_mean_std.pkl", "wb") as f:
+        pickle.dump({"mean": mean, "std": std}, f)
+    frames_long = 1 + wav_long.shape[0] // cfg.hop_size
+    log(f"[files] {long_s:.0f} s and {short_s:.0f} s WAVs written ({frames_long} frames in "
+        f"the long one); {time.perf_counter() - t0:.1f} s")
+
+    # K1 and K2 at the long file's shape, one signal of 3,637 rows, against
+    # float64: the log-mel of each predict_file below is held against the
+    # float64 chain too.
+    wave_dev = torch.from_numpy(wav_long).to(dev)
+    window = kernels.stft_window(cfg, dev)
+    fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+    wave64 = wave_dev.T.double()
+    ref_power = kernels.wave_stft_power_plain(wave64, window, hop, n_fft)[0]
+    power = kernels.wave_stft_power(wave_dev.T.contiguous(), window, hop, n_fft)[0]
+    check(power.shape == ref_power.shape == (frames_long, n_fft // 2 + 1),
+          f"K1 on the long file {tuple(power.shape)}")
+    k1_rel = float(((power.double() - ref_power).abs()
+                    / ref_power.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    mel = kernels.mel_log(power, kernels.mel_bands(cfg, dev))
+    k2_err = float((mel.double() - kernels.mel_log_plain(power.double(), fb64)).abs().max())
+    ref_mel = kernels.mel_log_plain(ref_power, fb64)
+    del ref_power, power, mel, wave64
+    log(f"[files] K1 on the long file ({frames_long} rows of one signal): max err / frame "
+        f"peak {k1_rel:.3e} (tol {K1_REL_TOL}); K2 on its rows vs float64 {k2_err:.3e} dB "
+        f"(tol {DB_TOL})")
+    check(k1_rel <= K1_REL_TOL, "K1 on the long file within 1e-5 x frame peak of float64")
+    check(k2_err <= DB_TOL, "K2 on the long file within 1e-4 dB of float64")
+
+    # The spectrogram archs: windowed == whole forward, one K1 + K2 a file.
+    scores, file_launches, peak_mib, halos = {}, {}, {}, {}
+    for arch in ("CnnAvgPooling", "MobileNetV1"):
+        model = models[arch]
+        halo = halos[arch] = infer.halo_floor(model, FILE_HALO)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kernels.reset_launch_counts()
+        log_mel, got = infer.predict_file(model, long_wav, cfg, mean, std, window=FILE_WINDOW,
+                                          halo=FILE_HALO, device=DEVICE)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        peak_mib[arch] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        file_launches[arch] = launched
+        with torch.inference_mode():
+            norm = (log_mel - torch.from_numpy(mean).to(dev)) / torch.from_numpy(std).to(dev)
+            whole = model(norm[None])[0]
+            whole = whole if emits_scores(model) else torch.sigmoid(whole)
+        whole = whole.cpu().numpy()
+        mel_err = float((log_mel[0].double() - ref_mel).abs().max())
+        log(f"[files] {arch} predict_file's log-mel {tuple(log_mel.shape)} vs the float64 "
+            f"chain {mel_err:.3e} dB (tol {DB_TOL})")
+        check(log_mel.shape == (1,) + tuple(ref_mel.shape) and mel_err <= DB_TOL,
+              f"{arch} predict_file's log-mel within 1e-4 dB of the float64 chain")
+        check(got.shape == whole.shape == (8 * (frames_long // 8), cfg.classes_num),
+              f"{arch} windowed frames {got.shape} == whole {whole.shape}")
+        check(bool(np.isfinite(got).all()), f"{arch} scores finite")
+        err = float(np.abs(got - whole).max())
+        log(f"[files] {arch} predict_file on the long file, window {FILE_WINDOW}, halo "
+            f"{FILE_HALO} ({halo} after the floor): {got.shape[0]} frames, scores min "
+            f"{got.min():.6f} max {got.max():.6f} std {got.std():.6f}; launches {launched}; "
+            f"vs the whole forward on the card {err:.3e} (tol {SCORE_TOL})")
+        check(launched == {"wave_stft_power": 1, "mel_log": 1},
+              f"{arch} predict_file launched one K1 and one K2")
+        check(err <= SCORE_TOL, f"{arch} windowed scores equal the whole forward")
+        short_mel, short = infer.predict_file(model, short_wav, cfg, mean, std,
+                                              window=FILE_WINDOW, halo=halo, device=DEVICE)
+        short_mel_cpu, short_cpu = infer.predict_file(cpu_models[arch], short_wav, cfg, mean,
+                                                      std, window=FILE_WINDOW, halo=halo,
+                                                      device="cpu")
+        cpu_err = float(np.abs(short - short_cpu).max())
+        cpu_mel_err = float((short_mel.cpu() - short_mel_cpu).abs().max())
+        log(f"[files] {arch} on the short file, card vs CPU: log-mel {cpu_mel_err:.3e} dB "
+            f"(tol {DB_TOL}), scores {cpu_err:.3e} (tol {SCORE_TOL})")
+        check(short_mel.shape == short_mel_cpu.shape and cpu_mel_err <= DB_TOL,
+              f"{arch} log-mel on the card matches the CPU")
+        check(short.shape == short_cpu.shape and cpu_err <= SCORE_TOL,
+              f"{arch} card matches the CPU")
+        scores[arch] = (got, short)
+
+    # M5: both stems on the long file, the card's framing, card vs CPU.
+    m5 = models["M5"]
+    m5_s2d = M5(cfg.classes_num, conv1_s2d=True)
+    m5_s2d.load_state_dict(m5.state_dict(), strict=True)
+    m5_s2d = m5_s2d.to(dev).eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = infer.predict_file_m5(m5, long_wav, wcfg, device=DEVICE)
+    peak_mib["M5"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    got_s2d = infer.predict_file_m5(m5_s2d, long_wav, wcfg, device=DEVICE)
+    n_m5 = (wav_long.shape[0] - wcfg.frame_size) // wcfg.hop_size + 1
+    stem_err = float(np.abs(got - got_s2d).max())
+    log(f"[files] M5 predict_file_m5 on the long file: {got.shape[0]} frames, scores min "
+        f"{got.min():.6f} max {got.max():.6f} std {got.std():.6f}; direct vs "
+        f"space-to-depth stem {stem_err:.3e} (tol {SCORE_TOL})")
+    check(got.shape == got_s2d.shape == (n_m5, cfg.classes_num), f"M5 frames {got.shape}")
+    check(stem_err <= SCORE_TOL, "M5's two stems agree")
+    framed = infer.hop_frames(wave_dev, wcfg)
+    host = torch.from_numpy(wav_long[:, 0]).unfold(0, wcfg.frame_size, wcfg.hop_size)
+    check(framed.shape == (n_m5, 1, wcfg.frame_size) and torch.equal(framed[:, 0].cpu(), host),
+          "M5's framing on the card equals unfold on the host")
+    del framed, host
+    short = infer.predict_file_m5(m5, short_wav, wcfg, device=DEVICE)
+    short_cpu = infer.predict_file_m5(cpu_models["M5"], short_wav, wcfg, device="cpu")
+    cpu_err = float(np.abs(short - short_cpu).max())
+    log(f"[files] M5 framing on the card equals the host's; on the short file, card vs "
+        f"CPU: {cpu_err:.3e} (tol {SCORE_TOL})")
+    check(short.shape == short_cpu.shape and cpu_err <= SCORE_TOL, "M5 card matches the CPU")
+    scores["M5"] = (got, short)
+
+    # MobileNetV1 on phase 3's batch.
+    samples = sr * SECONDS
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 1)
+           * 32767).round().to(torch.int16)[..., None]
+    predict_mn = make_batch_predictor(models["MobileNetV1"], cfg, mean=mean, std=std,
+                                      device=DEVICE)
+    kernels.reset_launch_counts()
+    mn_batch = predict_mn(pcm)
+    torch.cuda.synchronize()
+    mn_launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    mn_cpu = make_batch_predictor(cpu_models["MobileNetV1"], cfg, mean=mean, std=std,
+                                  device="cpu")(pcm[:1].cpu())
+    mn_err = float((mn_batch[:1].cpu() - mn_cpu).abs().max())
+    log(f"[files] MobileNetV1 make_batch_predictor on {BATCH} x {SECONDS} s: "
+        f"{tuple(mn_batch.shape)}, min {float(mn_batch.min()):.6f} max "
+        f"{float(mn_batch.max()):.6f}; launches {mn_launched}; clip 0 vs CPU {mn_err:.3e} "
+        f"(tol {SCORE_TOL})")
+    check(mn_launched == {"wave_stft_power": 1, "mel_log": 1},
+          "MobileNetV1's batch launched one K1 and one K2")
+    check(bool(((mn_batch >= 0) & (mn_batch <= 1)).all()), "MobileNetV1 batch scores in [0, 1]")
+    check(mn_err <= SCORE_TOL, "MobileNetV1 clip 0 matches the CPU")
+    log(f"[files] checks {time.perf_counter() - t0:.1f} s")
+
+    # The CLI without --batch, the three archs side by side.
+    t1 = time.perf_counter()
+    procs = {}
+    for arch, model in models.items():
+        torch.save({"iterations": 0, "model": model.state_dict(), "optimizer": {}},
+                   tmp / f"{arch}.pth")
+        out = tmp / f"out_{arch}"
+        args = ["sed_tpu_torch.cli.infer", "--no_plot", "--arch", arch, "--ckpt",
+                tmp / f"{arch}.pth", "--device", DEVICE, "--outputs_dir", out]
+        if arch != "M5":
+            args += ["--mean_std_file", tmp / "files_mean_std.pkl"]
+        procs[arch] = (out, subprocess.Popen(
+            [sys.executable, "-m", *map(str, args), long_wav, short_wav], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    cli_err = {}
+    for arch, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            print(stdout[-4000:], stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, f"cli.infer --arch {arch} exit code {proc.returncode}")
+        err = 0.0
+        for path, want in zip((long_wav, short_wav), scores[arch]):
+            got = np.load(out / f"{Path(path).stem}_scores.npy")
+            check(got.shape == want.shape, f"cli.infer --arch {arch} shape {got.shape}")
+            err = max(err, float(np.abs(got - want).max()))
+        cli_err[arch] = err
+        check(err <= SCORE_TOL, f"cli.infer --arch {arch} scores match predict_file")
+    log(f"[files] python -m sed_tpu_torch.cli.infer --no_plot --arch ..., both files: max "
+        f"diff vs the in-process scores " + ", ".join(f"{a} {e:.3e}" for a, e in cli_err.items())
+        + f" (tol {SCORE_TOL}); {time.perf_counter() - t1:.1f} s")
+
+    # Times: per-file calls on the long file, each split into its stages
+    # inside the same call (the device synchronized at each stage's end).
+    t1 = time.perf_counter()
+
+    def staged(call):
+        """{stage: [ms]} of FILE_REPS calls after one warm-up, with the whole
+        call ("file") and the call without the read as the stages' sums."""
+        runs = {}
+        for rep in range(FILE_REPS + 1):
+            timings = {}
+            torch.cuda.synchronize()
+            call(timings)
+            for stage, sec in timings.items():
+                if rep:
+                    runs.setdefault(stage, []).append(sec * 1e3)
+        runs["no_read"] = [f + m for f, m in zip(runs["featurizer"], runs["model"])]
+        runs["file"] = [r + n for r, n in zip(runs["read"], runs["no_read"])]
+        return runs
+
+    ms = {arch: staged(lambda timings, model=models[arch], halo=halos[arch]: infer.predict_file(
+        model, long_wav, cfg, mean, std, FILE_WINDOW, halo, device=DEVICE, timings=timings))
+        for arch in ("CnnAvgPooling", "MobileNetV1")}
+    ms["M5"] = staged(lambda timings: infer.predict_file_m5(m5, long_wav, wcfg, device=DEVICE,
+                                                            timings=timings))
+    # M5's stems in turns: direct, s2d, s2d, direct (model only, long file).
+    stem_ms = {"direct": [], "s2d": []}
+    for stem in ("direct", "s2d", "s2d", "direct"):
+        net = m5 if stem == "direct" else m5_s2d
+        stem_ms[stem].append(time_ms(torch, lambda net=net: infer.score_frames_m5(
+            net, infer.hop_frames(wave_dev, wcfg))))
+    # M5's frame bucket in turns, up and down (direct stem, model only).
+    bucket_ms = {b: [] for b in M5_BUCKETS}
+    for b in M5_BUCKETS + M5_BUCKETS[::-1]:
+        bucket_ms[b].append(time_ms(torch, lambda b=b: infer.score_frames_m5(
+            m5, infer.hop_frames(wave_dev, wcfg), b), reps=REPS // 2))
+    mn_batch_ms = time_ms(torch, lambda: predict_mn(pcm))
+
+    def spread(xs):
+        return f"{statistics.median(xs):.4f} ms [{min(xs):.4f}, {max(xs):.4f}]"
+
+    log(f"[times] {smi}; per-file calls on the {long_s:.0f} s file ({frames_long} frames; M5 "
+        f"{n_m5} frames): median [min, max] of {FILE_REPS} calls after one warm-up, each call "
+        f"split into its stages (perf_counter, the device synchronized at each stage's end)")
+    for arch in models:
+        t = ms[arch]
+        what = ("float32 cast on the host, upload, hop framing" if arch == "M5"
+                else "float32 cast on the host, upload, K1 + K2, normalization")
+        file_s, no_read_s = statistics.median(t["file"]), statistics.median(t["no_read"])
+        log(f"[times] {arch}: WAV read (scipy decode, float64, mono) {spread(t['read'])} | "
+            f"featurizer ({what}) {spread(t['featurizer'])} | model (+ sigmoid + scores to the "
+            f"host) {spread(t['model'])} | per file {spread(t['file'])} "
+            f"({long_s / file_s * 1e3:.1f} audio-s/s) | without the read {spread(t['no_read'])} "
+            f"({long_s / no_read_s * 1e3:.1f} audio-s/s) | peak device memory "
+            f"{peak_mib[arch]:.1f} MiB above what was allocated before the call")
+    log(f"[times] M5 stem A/B (model only, {n_m5} frames in buckets of 32, CUDA-event medians "
+        f"of {REPS}, in turns direct, s2d, s2d, direct): direct {stem_ms['direct'][0]:.4f} / "
+        f"{stem_ms['direct'][1]:.4f} ms, space-to-depth {stem_ms['s2d'][0]:.4f} / "
+        f"{stem_ms['s2d'][1]:.4f} ms (s2d / direct "
+        f"{statistics.mean(stem_ms['s2d']) / statistics.mean(stem_ms['direct']):.3f})")
+    log(f"[times] M5 frame bucket (direct stem, model only, CUDA-event medians of {REPS // 2}, "
+        f"in turns up then down): " + ", ".join(
+            f"{b}: {t[0]:.4f} / {t[1]:.4f} ms" for b, t in bucket_ms.items()))
+    log(f"[times] MobileNetV1 batch {BATCH} x {SECONDS} s {mn_batch_ms:.4f} ms "
+        f"({BATCH * SECONDS / mn_batch_ms * 1e3:.1f} audio-s/s)")
+    log(f"[files] times {time.perf_counter() - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    return {k: sum(file_launches[a].get(k, 0) for a in file_launches)
+            for k in ("wave_stft_power", "mel_log")}
+
+
 def main() -> int:
     import torch
 
@@ -750,7 +1076,7 @@ def main() -> int:
         wavfile.write(path, sr, pcm[i, : secs * sr, 0].cpu().numpy())
         wavs.append(path)
     out = tmp / "out_infer"
-    run_cli(["sed_tpu_torch.cli.infer", "--batch", *common, "--outputs_dir", out,
+    run_cli(["sed_tpu_torch.cli.infer", "--batch", "--no_plot", *common, "--outputs_dir", out,
              "--event_threshold", "0.5", *wavs], "cli.infer")
     for path in wavs:
         check((out / f"{path.stem}_scores.csv").is_file(), "cli.infer wrote scores csv")
@@ -1105,20 +1431,27 @@ def main() -> int:
     impl_entries = impls_phase(torch, cfg, dev, bound, win_nnz, lesions)
     log(f"[times] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 10. the per-file path --------------------------------------------
+    with tempfile.TemporaryDirectory() as files_tmp:
+        file_launches = files_phase(torch, cfg, dev, smi, Path(files_tmp))
+    log(f"[files] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     print(json.dumps({"kernels": [
         {"name": "wave_stft_power",
          "kernel": "wave_stft_power_kernel<LOG2_M> (stockham_fft, PackedWaveLoad, PowerStore)",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:412",
-         "launches": launches["wave_stft_power"], "max_abs_err": k1_abs,
+         "launches": launches["wave_stft_power"],
+         "file_launches": file_launches["wave_stft_power"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib_ms},
         {"name": "mel_log",
          "kernel": "mel_log_kernel<R> (bulk copies into a ring, segment_sums)",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:72",
-         "launches": launches["mel_log"], "max_abs_err": k2_err,
+         "launches": launches["mel_log"], "file_launches": file_launches["mel_log"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms, "tick_rows": k2t_n,
          "tick_ms": k2t_ms, "tick_queued_ms": k2t_q_ms,

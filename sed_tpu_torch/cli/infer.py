@@ -1,18 +1,31 @@
 """Inference CLI: per-frame event scores for audio files (counterpart of
-``sed_tpu.cli.infer``, ``--batch`` CnnAvgPooling path).
+``sed_tpu.cli.infer``).
 
+    python -m sed_tpu_torch.cli.infer --ckpt model.pth long_recording.wav
     python -m sed_tpu_torch.cli.infer --batch --ckpt model.pth a.wav b.wav
+    python -m sed_tpu_torch.cli.infer --arch M5 --ckpt m5.pth a.wav
 
 Loads a ``.pth`` holding the reference container ``{'model': state_dict,
-...}`` (what ``python -m sed_tpu.cli.export_torch`` writes) or a bare state
-dict into ``CnnAvgPooling(TRAIN_CHANNEL_AND_POOL)``, scores the files in
-length groups on ``--device`` (default ``cuda``), and writes
-``{name}_scores.npy``, ``{name}_scores.csv`` and, with ``--event_threshold``,
-``{name}_events.csv`` to ``--outputs_dir``.  No plot is drawn.
+...}`` (what ``python -m sed_tpu.cli.export_torch`` writes for each arch) or
+a bare state dict into ``--arch`` (CnnAvgPooling(TRAIN_CHANNEL_AND_POOL),
+MobileNetV1 or M5) and scores on ``--device`` (default ``cuda``):
 
-Not ported yet, and refused rather than ignored: the windowed per-file path
-(no ``--batch``, ``--window``/``--halo``), ``--quantize``, ``--bf16``, the
-other archs, ``--num_devices`` > 1 and the fast/turbo featurizer tiers.
+  * the spectrogram archs, by default one file at a time: featurize the
+    whole recording on the card (K1 + K2), then an exact windowed forward
+    over ``--window`` frames with ``--halo`` frames of context on each side
+    (raised to the model's receptive-field floor when smaller);
+  * the spectrogram archs with ``--batch``: files grouped by length, one
+    batched pass per group;
+  * M5: the hop-strided 31680-sample frames of each file, framed on the
+    card and scored in buckets of 32 frames.
+
+Writes ``{name}_scores.npy``, ``{name}_scores.csv``, with
+``--event_threshold`` ``{name}_events.csv``, and for the spectrogram archs
+without ``--no_plot`` a ``{name}.png`` (this needs matplotlib) to
+``--outputs_dir``.
+
+Not ported yet, and refused by name rather than ignored: ``--quantize``,
+``--bf16``, ``--num_devices`` > 1 and the fast/turbo featurizer tiers.
 """
 
 from __future__ import annotations
@@ -21,6 +34,8 @@ import argparse
 import os
 
 import numpy as np
+
+ARCHS = ("CnnAvgPooling", "MobileNetV1", "M5")
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -35,25 +50,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "raw log-mel features are used when absent")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to run on: cuda (default) or cpu")
-    parser.add_argument("--batch", action="store_true", default=False,
-                        help="score files as batches grouped by length "
-                             "(the only path ported so far; required)")
-    parser.add_argument("--window", type=int, default=None,
-                        help="windowed per-file path: not ported")
-    parser.add_argument("--halo", type=int, default=None,
-                        help="windowed per-file path: not ported")
-    parser.add_argument("--no_plot", action="store_true", default=False,
-                        help="accepted for compatibility; the port draws no plot")
+    parser.add_argument("--window", type=int, default=1024,
+                        help="time-axis window (frames) for very long recordings")
+    parser.add_argument("--halo", type=int, default=64,
+                        help="context frames on each side of a window (raised "
+                             "to the model's receptive-field floor)")
+    parser.add_argument("--no_plot", action="store_true", default=False)
     parser.add_argument("--featurizer_precision", type=str, default="parity",
+                        choices=["parity", "fast", "turbo"],
                         help="FFT precision tier; only 'parity' is ported")
     parser.add_argument("--quantize", choices=["int8"], default=None,
                         help="int8 serving: not ported")
-    parser.add_argument("--bf16", action="store_true", default=False,
-                        help="bfloat16 forward: not ported")
+    parser.add_argument("--batch", action="store_true", default=False,
+                        help="score files as batches grouped by length "
+                             "(fastest for many equal-length clips)")
     parser.add_argument("--num_devices", type=int, default=1,
                         help="data-parallel devices: only 1 is ported")
-    parser.add_argument("--arch", type=str, default="CnnAvgPooling",
-                        help="model family; only CnnAvgPooling is ported")
     parser.add_argument("--event_threshold", type=float, default=None,
                         help="also extract event intervals (frames with "
                              "score >= threshold) to <name>_events.csv")
@@ -64,18 +76,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tau_labels", type=str, default="doorslam",
                         help="comma-separated event classes — must match the "
                              "checkpoint's training config")
+    parser.add_argument("--arch", type=str, default="CnnAvgPooling", choices=ARCHS,
+                        help="model family the checkpoint was trained with "
+                             "(M5 = waveform path: one score per hop-strided "
+                             "31680-sample frame)")
+    parser.add_argument("--bf16", action="store_true", default=False,
+                        help="bfloat16 forward: not ported")
     return parser
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     unported = [flag for flag, on in (
-        ("the windowed per-file path (run with --batch)", not args.batch),
-        ("--window", args.window is not None),
-        ("--halo", args.halo is not None),
         ("--quantize", args.quantize is not None),
         ("--bf16", args.bf16),
         ("--num_devices > 1", args.num_devices != 1),
-        (f"--arch {args.arch}", args.arch != "CnnAvgPooling"),
         (f"--featurizer_precision {args.featurizer_precision}",
          args.featurizer_precision != "parity"),
     ) if on]
@@ -83,15 +97,24 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
 
 
-def load_model(ckpt_path: str, classes_num: int):
-    """CnnAvgPooling(TRAIN_CHANNEL_AND_POOL) with the weights of ``ckpt_path``."""
+def load_model(ckpt_path: str, classes_num: int, arch: str = "CnnAvgPooling"):
+    """A model of family ``arch`` (CnnAvgPooling is TRAIN_CHANNEL_AND_POOL)
+    with the weights of ``ckpt_path`` (reference keys, ``strict=True``)."""
     import torch
 
-    from sed_tpu_torch.models.cnn import CnnAvgPooling, TRAIN_CHANNEL_AND_POOL
+    from sed_tpu_torch.models.cnn import CnnAvgPooling, MobileNetV1, TRAIN_CHANNEL_AND_POOL
+    from sed_tpu_torch.models.m5 import M5
 
+    constructors = {
+        "CnnAvgPooling": lambda: CnnAvgPooling(classes_num, TRAIN_CHANNEL_AND_POOL),
+        "MobileNetV1": lambda: MobileNetV1(classes_num),
+        "M5": lambda: M5(classes_num),
+    }
+    if arch not in constructors:
+        raise ValueError(f"unknown arch {arch!r}")
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     state_dict = ckpt["model"] if "model" in ckpt else ckpt
-    model = CnnAvgPooling(classes_num, TRAIN_CHANNEL_AND_POOL)
+    model = constructors[arch]()
     model.load_state_dict(state_dict, strict=True)
     return model
 
@@ -107,13 +130,152 @@ def load_mean_std(path: str):
     return d["mean"], d["std"]
 
 
+def halo_floor(model, halo: int) -> int:
+    """``halo`` raised to the model's receptive-field floor,
+    8 * ceil((rf // 2 + 1) / 8), with a message when it is raised.
+
+    CnnAvgPooling's receptive field comes from its ``model_config``,
+    MobileNetV1's is fixed; any other model has no windowed path."""
+    from sed_tpu_torch.models.cnn import MobileNetV1, mobilenet_receptive_field
+    from sed_tpu_torch.parallel.time_shard import receptive_field
+
+    if hasattr(model, "model_config"):
+        rf = receptive_field(model.model_config)
+    elif isinstance(model, MobileNetV1):
+        rf = mobilenet_receptive_field()
+    else:
+        raise ValueError(f"{type(model).__name__} has no windowed spectrogram path; "
+                         f"expected CnnAvgPooling or MobileNetV1")
+    min_halo = 8 * (-(-(rf // 2 + 1) // 8))
+    if halo < min_halo:
+        print(f"halo {halo} < receptive field requirement {min_halo}; using {min_halo}")
+        halo = min_halo
+    return halo
+
+
+def _stage_timer(device, timings):
+    """``stage(name)``: with a ``timings`` dict, store the seconds since the
+    previous stage (or since this call) under ``name``, after synchronizing
+    ``device``; without one, do nothing."""
+    if timings is None:
+        return lambda name: None
+    import time
+
+    import torch
+
+    last = [time.perf_counter()]
+
+    def stage(name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        timings[name] = now - last[0]
+        last[0] = now
+
+    return stage
+
+
+def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int = 1024,
+                 halo: int = 64, featurizer_precision=None, device="cuda", timings=None):
+    """Read one file, featurize it on ``device`` and score every frame.
+
+    Returns (log_mel (channels, frames, mel) tensor on ``device``, scores
+    (frames', classes) numpy).  CnnAvgPooling's logits go through a sigmoid;
+    MobileNetV1 emits scores itself.  One K1 and one K2 launch per call on
+    CUDA; the scores stay on the card until the end.  ``timings``: a dict
+    that receives the seconds of this call's stages, ``read`` (the WAV),
+    ``featurizer`` (the float32 cast, upload, K1 + K2, normalization) and
+    ``model`` (the windowed forward and the scores to the host).
+    """
+    import torch
+
+    from sed_tpu_torch.inference import emits_scores, no_tf32, resolve_device
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+    from sed_tpu_torch.ops.featurizer import logmel_features, resolve_featurizer_precision
+    from sed_tpu_torch.parallel.time_shard import windowed_forward
+
+    resolve_featurizer_precision(featurizer_precision)
+    device = resolve_device(device)
+    no_tf32()
+    model = model.to(device).eval()
+    halo = halo_floor(model, halo)
+    stage = _stage_timer(device, timings)
+    wav = read_multichannel_audio(audio_path, target_fs=cfg.working_sample_rate, cfg=cfg)
+    stage("read")
+    with torch.inference_mode():
+        log_mel = logmel_features(torch.from_numpy(wav.astype(np.float32)).to(device), cfg,
+                                  "auto", "auto", featurizer_precision)
+        feats = log_mel
+        if mean is not None:
+            feats = (log_mel - torch.as_tensor(np.asarray(mean, np.float32), device=device)) \
+                / torch.as_tensor(np.asarray(std, np.float32), device=device)
+        stage("featurizer")
+        out = windowed_forward(model, feats[None], window=window, halo=halo)[0]
+        scores = (out if emits_scores(model) else torch.sigmoid(out)).cpu().numpy()
+    stage("model")
+    return log_mel, scores
+
+
+def hop_frames(waveform, cfg):
+    """(samples, channels) tensor -> (n, channels, frame) view of its
+    hop-strided frames, starting at 0, hop, 2 * hop, ...
+
+    These are the frames of ``frame_coverage_labels`` in ``sed_tpu``'s
+    ``data/events.py``, whose centres are these starts plus frame // 2;
+    ``unfold`` makes them on the tensor's device without a copy.
+    """
+    width = 2 * (cfg.frame_size // 2)
+    if waveform.shape[0] < width:
+        return waveform.new_zeros((0, waveform.shape[1], width))
+    return waveform.T.unfold(1, width, cfg.hop_size).transpose(0, 1)
+
+
+def score_frames_m5(model, frames, frame_bucket: int = 32):
+    """Sigmoid scores (n, classes) of (n, channels, frame) frames, scored in
+    batches of ``frame_bucket`` frames (the last one holds the rest)."""
+    import torch
+
+    if frames.shape[0] == 0:
+        return frames.new_zeros((0, model.fc.out_features))
+    with torch.inference_mode():
+        return torch.cat([torch.sigmoid(model(frames[i:i + frame_bucket].contiguous()))
+                          for i in range(0, frames.shape[0], frame_bucket)])
+
+
+def predict_file_m5(model, audio_path: str, cfg, frame_bucket: int = 32, device="cuda",
+                    timings=None):
+    """Waveform-path inference: the file's hop-strided frames (the offline
+    validation split) scored independently by M5, one sigmoid confidence per
+    frame and class.  The waveform is uploaded once and framed on
+    ``device``.  Returns (frames, classes) numpy scores.  ``timings``: as
+    for :func:`predict_file`, with ``featurizer`` the float32 cast, upload
+    and framing."""
+    import torch
+
+    from sed_tpu_torch.inference import no_tf32, resolve_device
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+
+    device = resolve_device(device)
+    no_tf32()
+    model = model.to(device).eval()
+    stage = _stage_timer(device, timings)
+    wav = read_multichannel_audio(audio_path, target_fs=cfg.working_sample_rate, cfg=cfg)
+    stage("read")
+    frames = hop_frames(torch.from_numpy(wav.astype(np.float32)).to(device), cfg)
+    stage("featurizer")
+    scores = score_frames_m5(model, frames, frame_bucket).cpu().numpy()
+    stage("model")
+    return scores
+
+
 def write_outputs(scores: np.ndarray, audio_file: str, args, cfg) -> None:
     """``{base}_scores.npy``, ``{base}_scores.csv`` and, with
     ``--event_threshold``, ``{base}_events.csv``."""
     base = os.path.splitext(os.path.basename(audio_file))[0]
     np.save(os.path.join(args.outputs_dir, f"{base}_scores.npy"), scores)
     with open(os.path.join(args.outputs_dir, f"{base}_scores.csv"), "w") as f:
-        # time_sec uses the reference's integer frames_per_second (fs//hop).
+        # time_sec uses the reference's integer frames_per_second (fs//hop)
+        # for every arch.
         f.write("frame,time_sec," + ",".join(cfg.tau_sed_labels) + "\n")
         for i, row in enumerate(scores):
             vals = ",".join(f"{v:.6f}" for v in row)
@@ -136,19 +298,78 @@ def main(argv=None):
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
 
-    from sed_tpu_torch.configs import SpectrogramConfig
-    from sed_tpu_torch.inference import batch_predict_files
+    from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
 
-    cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
+    labels = tuple(args.tau_labels.split(","))
+    if args.arch == "M5":
+        cfg = WaveformConfig(tau_sed_labels=labels)
+        if args.batch:
+            parser.error("--batch applies to the spectrogram archs; the M5 "
+                         "path already scores all frames of a file batched")
+        ignored = [f for f, on in (
+            ("--mean_std_file", bool(args.mean_std_file)),
+            ("--featurizer_precision", args.featurizer_precision != "parity"),
+            ("--window", args.window != 1024),
+            ("--halo", args.halo != 64),
+        ) if on]
+        if ignored:
+            print(f"note: {', '.join(ignored)} have no effect on the M5 "
+                  f"waveform path (no featurizer, frames scored whole)")
+    else:
+        cfg = SpectrogramConfig(tau_sed_labels=labels)
+        if not args.no_plot:
+            from sed_tpu_torch.utils.plotting import require_matplotlib
+
+            try:
+                require_matplotlib()
+            except RuntimeError as e:
+                parser.error(str(e))
+
+    import torch
+
+    from sed_tpu_torch.inference import resolve_device
+
+    device = resolve_device(args.device)
     mean, std = load_mean_std(args.mean_std_file)
-    model = load_model(args.ckpt, cfg.classes_num)
+    model = load_model(args.ckpt, cfg.classes_num, args.arch)
     os.makedirs(args.outputs_dir, exist_ok=True)
-    batch_scores = batch_predict_files(model, args.audio_files, cfg, mean=mean,
-                                       std=std, device=args.device)
+
+    batch_scores = None
+    if args.batch:
+        from sed_tpu_torch.inference import batch_predict_files
+
+        batch_scores = batch_predict_files(model, args.audio_files, cfg, mean=mean,
+                                           std=std, device=device)
+
     for audio_file in args.audio_files:
         print(f"Processing {audio_file}")
-        scores = batch_scores[audio_file]
+        log_mel = None
+        if batch_scores is not None:
+            scores = batch_scores[audio_file]
+            if not args.no_plot:  # features re-derived only when a plot needs them
+                from sed_tpu_torch.io.audio import read_multichannel_audio
+                from sed_tpu_torch.ops.featurizer import logmel_features
+
+                wav = read_multichannel_audio(audio_file, target_fs=cfg.working_sample_rate,
+                                              cfg=cfg)
+                with torch.inference_mode():
+                    log_mel = logmel_features(
+                        torch.from_numpy(wav.astype(np.float32)).to(device), cfg)
+        elif args.arch == "M5":
+            scores = predict_file_m5(model, audio_file, cfg, device=device)
+        else:
+            log_mel, scores = predict_file(model, audio_file, cfg, mean, std,
+                                           window=args.window, halo=args.halo,
+                                           device=device)
         write_outputs(scores, audio_file, args, cfg)
+        if not args.no_plot and log_mel is not None:
+            from sed_tpu_torch.utils.plotting import plot_sample_features
+
+            base = os.path.splitext(os.path.basename(audio_file))[0]
+            plot_sample_features(log_mel.cpu().numpy(), mode="spectogram", output=scores,
+                                 file_name=base,
+                                 plot_path=os.path.join(args.outputs_dir, f"{base}.png"),
+                                 cfg=cfg)
         mx = float(scores.max()) if scores.size else float("nan")
         print(f"  frames={scores.shape[0]}, max score={mx:.3f}")
 

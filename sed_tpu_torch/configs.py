@@ -16,6 +16,16 @@ import math
 from typing import Tuple
 
 
+def human_format(num: float) -> str:
+    """Format a number with K/M/G suffixes: 48000 -> '48.0K'."""
+    magnitude = 0
+    num = float(num)
+    while abs(num) >= 1000:
+        magnitude += 1
+        num /= 1000.0
+    return "%.1f%s" % (num, ["", "K", "M", "G", "T", "P"][magnitude])
+
+
 @dataclasses.dataclass(frozen=True)
 class AudioConfig:
     """Shared audio constants."""
@@ -66,6 +76,32 @@ class SpectrogramConfig(AudioConfig):
     def train_crop_size(self) -> int:
         return self.frames_per_second * 10
 
+    @property
+    def cfg_descriptor(self) -> str:
+        """Name of the feature cache directory."""
+        return (
+            f"Spectogram_SaR-{human_format(self.working_sample_rate)}"
+            f"_FrS-{human_format(self.frame_size)}"
+            f"_HoS-{human_format(self.hop_size)}"
+            f"_Mel-{self.mel_bins}"
+            f"_Ch-{self.audio_channels}"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveformConfig(AudioConfig):
+    """Waveform feature constants (the M5 family)."""
+
+    @property
+    def cfg_descriptor(self) -> str:
+        return (
+            f"WaveForm_SaR-{human_format(self.working_sample_rate)}"
+            f"_FrS-{human_format(self.frame_size)}"
+            f"_HoS-{human_format(self.hop_size)}"
+            f"_Ch-{self.audio_channels}"
+        )
+
 
 DEFAULT_AUDIO = AudioConfig()
 DEFAULT_SPECTROGRAM = SpectrogramConfig()
+DEFAULT_WAVEFORM = WaveformConfig()

@@ -1,8 +1,10 @@
 """High-level batched inference (counterpart of ``sed_tpu.inference``).
 
 Equal-length recordings ride the batch axis through one pass: featurize
-(K1 + K2 on CUDA) -> CnnAvgPooling -> sigmoid.  Parallelism over several
-cards (``mesh`` in ``sed_tpu``) is not ported yet.
+(K1 + K2 on CUDA) -> CnnAvgPooling or MobileNetV1 -> sigmoid scores.  A
+single long recording instead goes through
+``sed_tpu_torch.parallel.time_shard.windowed_forward`` (``cli/infer.py``).
+Parallelism over several cards (``mesh`` in ``sed_tpu``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,23 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def emits_scores(model: torch.nn.Module) -> bool:
+    """True when ``model``'s forward already applies the sigmoid
+    (MobileNetV1 with ``emit='scores'``, the reference's forward)."""
+    return getattr(model, "emit", "logits") == "scores"
+
+
+def no_tf32() -> None:
+    """Keep cuDNN convolutions and matmuls in full float32 for the process.
+
+    cuDNN runs float32 convolutions in TF32 by default, which keeps about
+    three decimal digits and would take the scores far outside the 1e-5
+    budget against ``sed_tpu``; every scoring entry point calls this.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def make_batch_predictor(
     model: torch.nn.Module,
     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
@@ -38,20 +57,17 @@ def make_batch_predictor(
 
     ``waveforms``: (batch, samples, channels) array or tensor, float32,
     int16 (PCM16) or uint8 (µ-law); ``scores``: (batch, frames', classes)
-    sigmoid confidences, a tensor on ``device``.  ``model`` is moved to
-    ``device`` and put in eval mode.
-
-    Parity: this sets ``torch.backends.cudnn.allow_tf32 = False`` and
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` for the process.
-    cuDNN runs float32 convolutions in TF32 by default, which keeps about
-    three decimal digits and would take the scores far outside the 1e-5
-    budget against ``sed_tpu``.
+    sigmoid confidences, a tensor on ``device``.  ``model`` is CnnAvgPooling
+    or MobileNetV1; it is moved to ``device`` and put in eval mode.  A model
+    that emits scores gets no second sigmoid, which would squeeze every
+    score into [0.5, 0.731].  TF32 is turned off for the process
+    (:func:`no_tf32`).
     """
     resolve_featurizer_precision(featurizer_precision)
     device = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()
     model = model.to(device).eval()
+    sigmoid = not emits_scores(model)
 
     def as_stat(a):
         return None if a is None else torch.as_tensor(np.asarray(a, np.float32),
@@ -65,7 +81,8 @@ def make_batch_predictor(
         feats = logmel_features_batch(x, cfg)        # (B, C, T, M): NCHW
         if mean_t is not None:
             feats = (feats - mean_t) / std_t
-        return torch.sigmoid(model(feats))
+        out = model(feats)
+        return torch.sigmoid(out) if sigmoid else out
 
     return predict
 

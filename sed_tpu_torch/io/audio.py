@@ -5,7 +5,9 @@ WAV decode through ``scipy.io.wavfile`` with soundfile-style float
 normalization, the reference's channel policy, and a polyphase Kaiser
 windowed-sinc resampler (``scipy.signal.resample_poly`` with an explicit
 64-zero-crossing FIR).  ``sed_tpu``'s optional native C++ reader is not
-ported; this is the same math as its scipy path.
+ported; this is the same math as its scipy path, and
+:func:`read_multichannel_audio_batch` runs it in a thread pool where
+``sed_tpu`` would use the native reader's.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ def read_wav(path: str):
     if data.ndim == 1:
         data = data[:, None]
     return data, sample_rate
+
+
+def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
+    """Write float audio in [-1, 1] as 16-bit PCM."""
+    from scipy.io import wavfile
+
+    clipped = np.clip(np.asarray(data, dtype=np.float64), -1.0, 1.0)
+    wavfile.write(path, sample_rate, (clipped * 32767.0).astype(np.int16))
 
 
 def _kaiser_sinc_fir(up: int, down: int, beta: float = KAISER_BEST_BETA,
@@ -91,3 +101,29 @@ def read_multichannel_audio(
             axis=1,
         )
     return audio
+
+
+def read_multichannel_audio_batch(
+    audio_paths,
+    target_fs: int | None = None,
+    cfg: AudioConfig = DEFAULT_AUDIO,
+    workers: int = 0,
+) -> list:
+    """Many files -> list of float32 (samples, channels), in order.
+
+    ``workers <= 1`` reads one file after another through
+    :func:`read_multichannel_audio`; ``workers > 1`` runs the same reads in a
+    ``ThreadPoolExecutor`` of that many threads (scipy's decode and
+    resampling release the GIL for most of their time).
+    """
+    audio_paths = list(audio_paths)
+
+    def read(path):
+        return read_multichannel_audio(path, target_fs, cfg).astype(np.float32)
+
+    if workers > 1 and len(audio_paths) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            return list(ex.map(read, audio_paths))
+    return [read(p) for p in audio_paths]

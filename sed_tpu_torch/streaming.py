@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
-from sed_tpu_torch.inference import resolve_device
+from sed_tpu_torch.inference import no_tf32, resolve_device
 from sed_tpu_torch.ops.featurizer import logmel_frames
 from sed_tpu_torch.parallel.time_shard import receptive_field
 
@@ -70,8 +70,7 @@ def make_stream_fns(model: torch.nn.Module,
     """
     refuse_unported(qparams)
     device = resolve_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()
     model = model.to(device).eval()
 
     def as_stat(a):

@@ -7,7 +7,7 @@ report (start_s, end_s, peak) intervals per class.  Pure NumPy on the host.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -71,3 +71,15 @@ def events_to_csv(
         for name, evs in zip(class_names, events):
             for s, e, p in evs:
                 f.write(f"{name},{s:.3f},{e:.3f},{p:.6f}\n")
+
+
+def event_dict(
+    events: Sequence[Sequence[Event]],
+    class_names: Sequence[str],
+) -> Dict[str, List[Dict[str, float]]]:
+    """extract_events output as a JSON-friendly mapping."""
+    return {
+        name: [{"start_sec": round(s, 3), "end_sec": round(e, 3),
+                "peak": round(p, 6)} for s, e, p in evs]
+        for name, evs in zip(class_names, events)
+    }

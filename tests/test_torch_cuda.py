@@ -12,17 +12,24 @@ Tolerances (against the plain versions computed in float64 on the card):
     row counts across its persistent grid, on rows off a 16-byte boundary,
     at every n_fft 4..32768 and at 65,537 bins);
   * K5 against K1 then K2: equal bit for bit, at every n_fft 4..32768;
-  * scores, CUDA against CPU: <= 1e-4 abs (another summation order).
+  * scores, CUDA against CPU: <= 1e-4 abs (another summation order);
+  * the windowed per-file path against the whole-recording forward on the
+    card, and M5's two stems against each other: <= 1e-4 abs.
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
-from sed_tpu_torch.configs import SpectrogramConfig
+from sed_tpu_torch.cli import infer as cli
+from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
 from sed_tpu_torch.device_streaming import DeviceStreamingDetector
 from sed_tpu_torch.inference import batch_predict_files, make_batch_predictor
-from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
+from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+from sed_tpu_torch.models.m5 import M5
 from sed_tpu_torch.ops import cuda_featurizer as kernels
 from sed_tpu_torch.ops import featurizer
 from sed_tpu_torch.ops import mel as mel_ops
@@ -746,3 +753,97 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     big = torch.zeros(65536, device=cuda)
     with pytest.raises(ValueError, match="shared-memory"):
         kernels.wave_stft_mel_log(waves, big, 1000, 65536, bands)
+
+
+def seeded_model(arch, seed=0):
+    """``arch`` with seeded weights and seeded BatchNorm statistics."""
+    g = torch.Generator().manual_seed(seed)
+    model = {"CnnAvgPooling": lambda: CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, generator=g),
+             "MobileNetV1": lambda: MobileNetV1(1, generator=g),
+             "M5": lambda: M5(1, generator=g)}[arch]()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.uniform_(-0.5, 0.5, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.bias.uniform_(-0.3, 0.3, generator=g)
+    return model.eval()
+
+
+def burst_wav(path, seconds, sr=48000, seed=0):
+    """Noise with tonal bursts, int16."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    burst = (np.sin(2 * np.pi * 0.05 * t) > 0.6) * np.sin(2 * np.pi * 2000.0 * t)
+    x = np.clip(0.2 * rng.standard_normal(t.size) + 0.5 * burst, -1, 1)
+    wavfile.write(path, sr, (x * 32767).astype(np.int16))
+    return str(path)
+
+
+@pytest.mark.parametrize("arch,window,halo", [("CnnAvgPooling", 64, 32),
+                                              ("MobileNetV1", 64, 64)])
+def test_predict_file_windowed_equals_whole_forward_on_the_card(cuda, tmp_path, arch,
+                                                                window, halo):
+    """Several windows and a ragged tail (91.3 s: 277 frames); one K1 and
+    one K2 launch per file."""
+    path = burst_wav(tmp_path / "long.wav", 91.3, seed=1)
+    model = seeded_model(arch, seed=2)
+    kernels.reset_launch_counts()
+    log_mel, got = cli.predict_file(model, path, PROD, window=window, halo=halo,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"wave_stft_power": 1,
+                                                                "mel_log": 1}
+    assert log_mel.device.type == "cuda" and log_mel.shape == (1, 277, 64)
+    with torch.inference_mode():
+        whole = model(log_mel[None])[0]
+        whole = whole if arch == "MobileNetV1" else torch.sigmoid(whole)
+    assert got.shape == tuple(whole.shape) == (272, 1)
+    assert float(np.abs(got - whole.cpu().numpy()).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["CnnAvgPooling", "MobileNetV1", "M5"])
+def test_per_file_paths_cuda_match_cpu(cuda, tmp_path, arch):
+    path = burst_wav(tmp_path / "clip.wav", 75.0, seed=3)
+    model = seeded_model(arch, seed=4)
+    cpu_model = copy.deepcopy(model)
+    if arch == "M5":
+        got = cli.predict_file_m5(model, path, WaveformConfig(), device="cuda")
+        want = cli.predict_file_m5(cpu_model, path, WaveformConfig(), device="cpu")
+    else:
+        _, got = cli.predict_file(model, path, PROD, window=64, halo=64, device="cuda")
+        _, want = cli.predict_file(cpu_model, path, PROD, window=64, halo=64, device="cpu")
+    assert got.shape == want.shape and got.shape[0] > 0
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+def test_m5_stems_agree_on_the_card(cuda):
+    direct = seeded_model("M5", seed=5).to(cuda)
+    s2d = M5(1, conv1_s2d=True)
+    s2d.load_state_dict(direct.state_dict(), strict=True)
+    s2d = s2d.to(cuda).eval()
+    x = signals(40, WaveformConfig().frame_size, 48000, cuda, seed=6)[:, None]
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        a, b = torch.sigmoid(direct(x)), torch.sigmoid(s2d(x))
+    assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_m5_framing_on_the_card_equals_the_host(cuda):
+    cfg = WaveformConfig()
+    wav = signals(2, 7 * cfg.frame_size + 123, 48000, cuda, seed=7).T.contiguous()
+    got = cli.hop_frames(wav, cfg)
+    want = cli.hop_frames(wav.cpu(), cfg)
+    assert got.device.type == "cuda" and got.shape == want.shape == (13, 2, cfg.frame_size)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got[3, 1], wav[3 * cfg.hop_size: 3 * cfg.hop_size + cfg.frame_size, 1])
+
+
+def test_mobilenet_batch_predictor_cuda_matches_cpu(cuda):
+    model = seeded_model("MobileNetV1", seed=8)
+    cpu_model = copy.deepcopy(model)
+    x = signals(2, 10 * 48000, 48000, cuda, seed=9)[..., None]
+    got = make_batch_predictor(model, PROD, device="cuda")(x)
+    want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
+    assert got.shape == want.shape == (2, 24, 1)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

@@ -3,8 +3,9 @@
 JAX side: ``logmel_features_batch(use_pallas='full')`` (interpret mode) ->
 flax CnnAvgPooling -> sigmoid, i.e. bench.py's ``pipeline_fn``.  Port side:
 ``make_batch_predictor(..., device='cpu')`` on the converted weights.
-Scores must agree to <= 1e-5 abs.  Also ``batch_predict_files`` on WAV files
-and the ``python -m sed_tpu_torch.cli.infer --batch`` entry point.
+Scores must agree to <= 1e-5 abs.  Also ``batch_predict_files`` on WAV files,
+the ``python -m sed_tpu_torch.cli.infer --batch`` entry point, and the CLI's
+options: those still refused by name and those ported since.
 """
 
 import os
@@ -166,11 +167,8 @@ def test_bare_state_dict_checkpoint_loads(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    [],                                  # no --batch: windowed path
-    ["--batch", "--window", "512"],
     ["--batch", "--quantize", "int8"],
     ["--batch", "--bf16"],
-    ["--batch", "--arch", "M5"],
     ["--batch", "--num_devices", "2"],
     ["--batch", "--featurizer_precision", "fast"],
 ])
@@ -179,6 +177,38 @@ def test_cli_refuses_unported_options(flags, capsys):
         cli.main(["--ckpt", "unused.pth", *flags, "a.wav"])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    [],                                  # no --batch: the windowed path
+    ["--batch", "--window", "512"],      # accepted; --batch does not window
+    ["--batch", "--arch", "M5"],         # refused with sed_tpu's message
+])
+def test_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
+    sr = 48000
+    paths = write_wavs(tmp_path, [4 * sr], sr, seed=6)
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL,
+                          generator=torch.Generator().manual_seed(1))
+    torch.save({"model": model.state_dict()}, tmp_path / "model.pth")
+    out = tmp_path / "out"
+    argv = ["--ckpt", str(tmp_path / "model.pth"), "--device", "cpu", "--no_plot",
+            "--outputs_dir", str(out), *flags, *paths]
+    if "M5" in flags:
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        assert ("--batch applies to the spectrogram archs; the M5 path already "
+                "scores all frames of a file batched") in capsys.readouterr().err
+        return
+    cli.main(argv)
+    assert "not ported" not in capsys.readouterr().err
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+
+    wav = read_multichannel_audio(paths[0], target_fs=sr).astype(np.float32)
+    want = make_batch_predictor(model, SpectrogramConfig(), device="cpu")(wav[None])[0]
+    got = np.load(out / "clip0_scores.npy")
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=ATOL)
 
 
 def test_cuda_device_is_never_silently_replaced():
