@@ -85,14 +85,41 @@ non-zero on the first failure.  Phases:
               audio-s/s with and without the read, M5's direct stem against
               its space-to-depth stem and its frame bucket (32, 128, 256),
               MobileNetV1's batch, and peak device memory.
+ 11. train    training of the spectrogram family on the card: a seeded
+              FilmClap-layout corpus (32 x 60 s 48 kHz int16 WAVs, 3-5 s
+              tonal bursts as the labelled events) preprocessed in logMel
+              mode by ``preprocess_film_clap_data`` (exactly one K1 and one
+              K2 launch a file, counts reset just before and read just
+              after; one file within 1e-4 dB of ``device="cpu"``) and 8 of
+              them in Complex mode (no launch); ``train`` of CnnAvgPooling
+              (TRAIN_CHANNEL_AND_POOL) at batch 128, 400 steps at lr 3e-3:
+              the validation loss falls and AP > max(AP0, 0.5), metrics.jsonl
+              with sed_tpu's keys, no featurizer launch while training; the
+              first 5 steps on the card against the CPU from one state, in
+              float64 (losses 1e-4 relative, first gradients 1e-4 of each
+              tensor's largest; in float32 the card's BatchNorm backward
+              sums in float32 and its gradients part from float64 by ~4e-3,
+              so the first float32 loss is compared and the float32
+              gradients reported); resume from a checkpoint at step 10 equal
+              to the uninterrupted run (cuDNN deterministic for both), and
+              the checkpoint scored through ``cli/infer.load_model``;
+              Complex mode with augmentation (finite losses, the transform
+              card against CPU within 1e-4 dB); MobileNetV1 (emit='logits');
+              ``make_batch_evaluator`` on 4 x 60 s int16 clips against
+              ``make_batch_predictor`` (one K1 and one K2 launch); times:
+              the train step for each arch, mode and augmentation, its split
+              by profiler range, im/sec, evaluate ms per recording,
+              preprocess ms per file (read, featurize), peak memory.
 
-Then one ``{"kernels": [...]}`` JSON line (K1–K10), the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
+training path's launches), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import pickle
 import statistics
@@ -123,6 +150,23 @@ FILE_SECONDS = (1200.0, 120.0)  # per-file phase: the long file (card), the shor
 FILE_WINDOW, FILE_HALO = 1024, 64  # cli/infer.py's defaults
 FILE_REPS = 5       # per-file calls timed by stage (they read the WAV)
 M5_BUCKETS = [32, 128, 256]  # M5 frame buckets timed in phase 10
+TRAIN_FILES, TRAIN_SECONDS = 32, 60.0   # phase 11 corpus: FilmClap layout, 48 kHz mono
+TRAIN_COMPLEX_FILES = 8   # of them, also preprocessed in Complex mode
+TRAIN_BATCH = 128         # cli/main.py's batch (crop: cfg.train_crop_size, 30 frames)
+TRAIN_STEPS, TRAIN_LR = 400, 3e-3   # tests/test_loop.py's learning rate
+CPU_STEPS = 5             # card against CPU
+RESUME_AT, RESUME_STEPS = 10, 20
+FEW_STEPS = 10            # Complex + augmentation, MobileNetV1
+EVAL_CLIPS = 4            # make_batch_evaluator: 4 x 60 s int16 clips
+TRAIN_REL_TOL = 1e-4      # card against CPU: losses (relative), gradients (x largest |grad|)
+TRAIN_PROFILE_STEPS = 5
+JSONL_KEYS = {"iteration", "train_loss", "val_loss", "AP", "max_f1", "max_f5", "event_tp",
+              "event_fp", "event_fn", "event_precision", "event_recall", "event_f1",
+              "segment_tp", "segment_fp", "segment_fn", "segment_precision", "segment_recall",
+              "segment_f1", "segment_substitutions", "segment_deletions", "segment_insertions",
+              "segment_n_ref", "segment_error_rate", "AP_per_class", "macro_AP",
+              "event_macro_precision", "event_macro_recall", "event_macro_f1",
+              "segment_macro_precision", "segment_macro_recall", "segment_macro_f1"}
 REPS = 20
 QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
 
@@ -885,6 +929,419 @@ def files_phase(torch, cfg, dev, smi, tmp):
             for k in ("wave_stft_power", "mel_log")}
 
 
+def film_clap_corpus(root, files, seconds, sr, seed):
+    """A FilmClap-layout corpus (io/film_clap.py): ``files`` mono int16 WAVs
+    of noise with tonal bursts as the labelled events, and the label JSON
+    beside them.  FilmClap labels are event centres, each event spanning
+    +-time_margin (0.33 s); a burst of 3-5 s is labelled by centres 0.33 s
+    apart along it, whose intervals join into one event of the burst's
+    length (long enough for the model's 8-frame output steps).  One burst
+    per 15 s.  Returns the WAV paths."""
+    import json as _json
+
+    from scipy.io import wavfile
+
+    from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM
+    from sed_tpu_torch.io.film_clap import LABEL_FILE
+
+    half = DEFAULT_SPECTROGRAM.time_margin
+    film_dir = root / "FilmClap" / "film"
+    film_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    slot = 15.0
+    labels, paths = {}, []
+    for i in range(files):
+        x = 0.05 * rng.standard_normal(n)
+        x += 0.03 * np.sin(2 * np.pi * rng.uniform(200, 6000) * np.arange(n) / sr)
+        centers = []
+        for j in range(max(1, int(seconds // slot))):
+            length = rng.uniform(3.0, 5.0)
+            start = j * slot + rng.uniform(1.0, slot - length - 1.0)
+            a, b = int(start * sr), int((start + length) * sr)
+            t = np.arange(b - a) / sr
+            x[a:b] += 0.3 * (np.sin(2 * np.pi * 2000.0 * t) + np.sin(2 * np.pi * 3100.0 * t))
+            centers += list(np.arange(start + half, start + length - half + 1e-9, half))
+        path = str(film_dir / f"clip_{i:02d}.wav")
+        wavfile.write(path, sr, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+        labels[path] = [float(c) for c in centers]
+        paths.append(path)
+    with open(root / "FilmClap" / LABEL_FILE, "w") as f:
+        _json.dump(labels, f)
+    return paths
+
+
+def subset_corpus(root, paths, source_root):
+    """A FilmClap root whose label file lists ``paths`` of ``source_root``'s."""
+    import json as _json
+
+    from sed_tpu_torch.io.film_clap import LABEL_FILE
+
+    with open(source_root / "FilmClap" / LABEL_FILE) as f:
+        labels = _json.load(f)
+    (root / "FilmClap").mkdir(parents=True, exist_ok=True)
+    with open(root / "FilmClap" / LABEL_FILE, "w") as f:
+        _json.dump({p: labels[p] for p in paths}, f)
+
+
+def profile_parts(torch, fn, n: int):
+    """``torch.profiler`` over ``n`` calls of ``fn``: (device ms per call of
+    the kernels each ``train_step/...`` range launched on the calling
+    thread, [(kernel, ms per call), ...] largest first).  Both empty when
+    the profiler captured no device time.  The ranges' own device-side
+    annotations are not kernels and are left out of the list."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.events():
+        if e.name.startswith("train_step/") and e.device_type == DeviceType.CPU:
+            parts[e.name] = parts.get(e.name, 0.0) + e.device_time_total / 1e3 / n
+    kernels_ = sorted(((e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                       and not e.key.startswith("train_step/")), key=lambda r: -r[1])
+    return {k: v for k, v in parts.items() if v > 0}, kernels_
+
+
+def train_phase(torch, cfg, dev, smi, tmp):
+    """Phase 11: training of the spectrogram family (see the module
+    docstring).  Returns the K1 and K2 launches of its path: the logMel
+    preprocess and the batch evaluator."""
+    import contextlib
+    import io
+    import re
+
+    from sed_tpu_torch.cli import infer
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.data.events import create_event_matrix
+    from sed_tpu_torch.data.preprocess import featurize_file
+    from sed_tpu_torch.data.spectrogram_dataset import (SpectrogramDataset,
+                                                        preprocess_film_clap_data)
+    from sed_tpu_torch.inference import make_batch_evaluator, make_batch_predictor
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.train import checkpoint, loop
+    from sed_tpu_torch.train.state import init_state
+
+    t0 = time.perf_counter()
+    sr = cfg.working_sample_rate
+    # Model output frames of one file: 8 * floor(frames / 8).
+    out_frames = 8 * ((1 + int(TRAIN_SECONDS * sr) // cfg.hop_size) // 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = tmp / "data"
+    wavs = film_clap_corpus(data, TRAIN_FILES, TRAIN_SECONDS, sr, 30)
+    log(f"[train] {TRAIN_FILES} x {TRAIN_SECONDS:.0f} s WAVs written (FilmClap layout, a 3-5 s "
+        f"tonal burst per 15 s); {time.perf_counter() - t0:.1f} s")
+
+    # ---- preprocess: logMel (K1 + K2 once a file), Complex on a subset ----
+    launches = {}
+    pre_t = {}
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    features_dir, mean_std = preprocess_film_clap_data(str(data), "logMel", cfg=cfg,
+                                                       device=DEVICE, plot_sample=False)
+    pre_s = time.perf_counter() - t1
+    launches["preprocess"] = {k: kernels.LAUNCHES[k] for k in ("wave_stft_power", "mel_log")}
+    log(f"[train] preprocess logMel: {TRAIN_FILES} files in {pre_s:.2f} s; launches "
+        f"{launches['preprocess']}")
+    for k in ("wave_stft_power", "mel_log"):
+        check(launches["preprocess"][k] == TRAIN_FILES,
+              f"{k} launched once per preprocessed file ({launches['preprocess'][k]})")
+    pre_t = {}
+    for path in wavs[:4]:   # the read / featurize split, timed apart
+        featurize_file(path, cfg, "logMel", device=DEVICE, timings=pre_t)
+    with open(Path(features_dir) / "film_clip_00_logMel_features_and_labels.pkl", "rb") as f:
+        card_feats = pickle.load(f)["features"]
+    cpu_feats = featurize_file(wavs[0], cfg, "logMel", device="cpu")
+    pre_db = float(np.abs(card_feats - cpu_feats).max())
+    log(f"[train] preprocessed log-mel, card against device='cpu' (one file, "
+        f"{card_feats.shape}): {pre_db:.3e} dB (tol {DB_TOL})")
+    check(pre_db <= DB_TOL, "preprocessed features on the card within 1e-4 dB of the CPU's")
+
+    cx_root = tmp / "data_complex"
+    subset_corpus(cx_root, wavs[:TRAIN_COMPLEX_FILES], data)
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    cx_dir, cx_mean_std = preprocess_film_clap_data(str(cx_root), "Complex", cfg=cfg,
+                                                    device=DEVICE, plot_sample=False)
+    cx_s = time.perf_counter() - t1
+    cx_launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"[train] preprocess Complex: {TRAIN_COMPLEX_FILES} files in {cx_s:.2f} s; "
+        f"launches {cx_launched}")
+    check(not cx_launched, "Complex preprocessing launches no featurizer kernel")
+
+    # ---- CnnAvgPooling(TRAIN_CHANNEL_AND_POOL), logMel, 400 steps ---------
+    dataset = SpectrogramDataset(features_dir, mean_std, 0.25, preprocessed_mode="logMel",
+                                 cfg=cfg, seed=0)
+    n_val = len(dataset.val_feature_paths)
+    model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL)
+    state = init_state(model, TRAIN_LR, dev, seed=0)
+    init_sd = copy.deepcopy({k: v.cpu() for k, v in state.model.state_dict().items()})
+    out_dir = tmp / "run_cnn"
+
+    def eval_all(st):
+        res = loop.evaluate(st.model, st, dataset, "spectogram", 5.0, str(out_dir), 0,
+                            make_plots=False, cfg=cfg)
+        return float(np.mean(res[0])), float(np.mean(res[3]))
+
+    loss0, ap0 = eval_all(state)
+    kernels.reset_launch_counts()
+    printed = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        state = loop.train(model, dataset, "spectogram", num_steps=TRAIN_STEPS, lr=TRAIN_LR,
+                           log_freq=TRAIN_STEPS // 2, outputs_dir=str(out_dir),
+                           batch_size=TRAIN_BATCH, cfg=cfg, initial_state=state,
+                           make_plots=False, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches["train"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t1 = time.perf_counter()
+    loss1, ap1 = eval_all(state)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) / n_val * 1e3
+    im_sec = [float(x) for x in re.findall(r"im/sec: ([0-9.]+)", printed.getvalue())]
+    records = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
+    log(f"[train] CnnAvgPooling(TRAIN_CHANNEL_AND_POOL) logMel, batch {TRAIN_BATCH}, "
+        f"{len(dataset)} starts, {n_val} validation recordings: {TRAIN_STEPS} steps at lr "
+        f"{TRAIN_LR} in {train_s:.2f} s (with {len(records)} evaluations); val loss "
+        f"{loss0:.4f} -> {loss1:.4f}, AP {ap0:.4f} -> {ap1:.4f}; im/sec as train prints it "
+        f"{im_sec}; launches during training {launches['train']}")
+    check(loss1 < loss0, f"validation loss falls ({loss0:.4f} -> {loss1:.4f})")
+    check(ap1 > max(ap0, 0.5), f"AP {ap1:.4f} > max(AP0 {ap0:.4f}, 0.5)")
+    check(len(records) == 2 and set(records[0]) == JSONL_KEYS,
+          f"metrics.jsonl records with sed_tpu's keys ({sorted(set(records[0]) ^ JSONL_KEYS)})")
+    check(not launches["train"], "training launches no featurizer kernel")
+    check({p.name for p in (out_dir / "checkpoints").iterdir()} ==
+          {f"iteration_{TRAIN_STEPS // 2}.pt", f"iteration_{TRAIN_STEPS}.pt"},
+          "train() writes a checkpoint each log point")
+
+    # ---- card against CPU: the same state, batches, no augmentation -------
+    # In float64 for the 5 steps.  In float32 the card's first gradients part
+    # from float64 by ~4e-3 of a tensor's largest (at block 3's second
+    # BatchNorm bias, a sum over 14,336 terms a channel, whose backward the
+    # card sums in float32), where the CPU's, which sums float32 in float64,
+    # stay within ~6e-6; Adam's sign-like first update carries that into
+    # later losses.  In float32 the first loss is compared, and the first
+    # gradients reported with the tensor where they differ most.
+    batches = list(dataset.epoch_start_indices(TRAIN_BATCH))
+    step = pipe.make_spectrogram_train_step(cfg, 5.0, "logMel", augment=False)
+
+    def run(where, dtype, n):
+        m = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL)
+        m.load_state_dict(init_sd)
+        st = init_state(m.to(dtype), TRAIN_LR, where)
+        bufs = pipe.spectrogram_buffers_from_dataset(dataset, where)
+        bufs = dataclasses.replace(bufs, features=bufs.features.to(dtype),
+                                   events=bufs.events.to(dtype), mean=bufs.mean.to(dtype),
+                                   std=bufs.std.to(dtype))
+        losses, grads = [], None
+        for i in range(n):
+            losses.append(float(step(st, bufs, batches[i])))
+            if i == 0:
+                grads = {k: p.grad.detach().cpu().double()
+                         for k, p in st.model.named_parameters()}
+        return losses, grads
+
+    def grad_err(a, b):
+        """(largest of |a - b| / b's largest |grad| over the tensors, that tensor)."""
+        return max((float((a[k] - g).abs().max() / g.abs().max().clamp_min(1e-300)), k)
+                   for k, g in b.items())
+
+    t1 = time.perf_counter()
+    cpu64, cpu64_g = run("cpu", torch.float64, CPU_STEPS)
+    card64, card64_g = run(DEVICE, torch.float64, CPU_STEPS)
+    cpu32, cpu32_g = run("cpu", torch.float32, 1)
+    card32, card32_g = run(DEVICE, torch.float32, 1)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card64, cpu64))
+    grad_rel = grad_err(card64_g, cpu64_g)[0]
+    loss32_rel = abs(card32[0] - cpu32[0]) / abs(cpu32[0])
+    log(f"[train] card against CPU from one state, float64, {CPU_STEPS} steps: losses {card64} "
+        f"vs {cpu64}, max rel err {loss_rel:.3e}; first gradients max err / tensor's largest "
+        f"|grad| {grad_rel:.3e} (tol {TRAIN_REL_TOL}); {time.perf_counter() - t1:.1f} s")
+    log(f"[train] card against CPU, float32, first step: loss {card32[0]} vs {cpu32[0]} (rel err "
+        f"{loss32_rel:.3e}, tol {TRAIN_REL_TOL}); gradients max err / tensor's largest |grad| "
+        f"(the tensor): card against CPU %.3e (%s), card against float64 %.3e (%s), CPU "
+        f"against float64 %.3e (%s)" % (*grad_err(card32_g, cpu32_g), *grad_err(card32_g, cpu64_g),
+                                        *grad_err(cpu32_g, cpu64_g)))
+    check(loss_rel <= TRAIN_REL_TOL, "card losses within 1e-4 relative of the CPU's (float64)")
+    check(grad_rel <= TRAIN_REL_TOL, "card gradients within 1e-4 of the CPU's (float64)")
+    check(loss32_rel <= TRAIN_REL_TOL, "card's first float32 loss within 1e-4 of the CPU's")
+
+    # ---- resume: save at step S, load, continue == uninterrupted ----------
+    bufs = pipe.spectrogram_buffers_from_dataset(dataset, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def fresh(seed=None):
+            m = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL)
+            m.load_state_dict(init_sd)
+            return init_state(m, TRAIN_LR, dev, seed=seed)
+
+        cont = fresh()
+        cont_losses = [float(step(cont, bufs, batches[i])) for i in range(RESUME_STEPS)]
+        first = fresh()
+        for i in range(RESUME_AT):
+            step(first, bufs, batches[i])
+        ckpt = checkpoint.save_checkpoint(first, str(tmp / "run_resume"), RESUME_AT)
+        resumed = checkpoint.load_checkpoint(ckpt, fresh(seed=99), model_only=False)
+        res_losses = [float(step(resumed, bufs, batches[i]))
+                      for i in range(RESUME_AT, RESUME_STEPS)]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    res_loss_err = max(abs(a - b) for a, b in zip(res_losses, cont_losses[RESUME_AT:]))
+    res_param_err = max(float((a - b).abs().max()) for a, b in
+                        zip(cont.model.state_dict().values(), resumed.model.state_dict().values()))
+    log(f"[train] resume at step {RESUME_AT} of {RESUME_STEPS} (cuDNN deterministic for both "
+        f"runs): max loss err {res_loss_err:.3e}, max parameter / statistic err "
+        f"{res_param_err:.3e} (tol 1e-6)")
+    check(resumed.step == RESUME_STEPS and res_loss_err <= 1e-6 and res_param_err <= 1e-6,
+          "resumed training equals the uninterrupted run")
+    scorer = infer.load_model(ckpt, cfg.classes_num, "CnnAvgPooling")
+    _, scores = infer.predict_file(scorer, wavs[-1], cfg, dataset.mean, dataset.std,
+                                   device=DEVICE)
+    check(scores.shape == (out_frames, cfg.classes_num) and np.isfinite(scores).all(),
+          f"iteration_{RESUME_AT}.pt scores a WAV through cli/infer.load_model")
+    log(f"[train] iteration_{RESUME_AT}.pt loads into cli/infer.load_model and scores "
+        f"{Path(wavs[-1]).name}: {scores.shape}")
+    del bufs, cont, first, resumed
+
+    # ---- Complex mode with augmentation -----------------------------------
+    cx_data = SpectrogramDataset(cx_dir, cx_mean_std, 0.25, augment_data=True,
+                                 preprocessed_mode="Complex", cfg=cfg, seed=0)
+    cx_printed = io.StringIO()
+    with contextlib.redirect_stdout(cx_printed):
+        cx_state = loop.train(CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL), cx_data,
+                              "spectogram", num_steps=FEW_STEPS, lr=TRAIN_LR,
+                              log_freq=FEW_STEPS, outputs_dir=str(tmp / "run_complex"),
+                              batch_size=TRAIN_BATCH, augment=True, preprocessed_mode="Complex",
+                              cfg=cfg, make_plots=False, device=DEVICE)
+    cx_rec = json.loads(open(tmp / "run_complex" / "metrics.jsonl").read().splitlines()[-1])
+    cx_bufs = pipe.spectrogram_buffers_from_dataset(cx_data, dev)
+    cx_starts = torch.as_tensor(cx_data.train_start_indices[:16], device=dev)
+    f, _ = pipe.make_gather_crops(cfg)(cx_bufs, cx_starts)
+    transform = pipe.make_transform(cfg, "Complex")
+    with torch.no_grad():
+        card_x = transform(cx_bufs, f).cpu()
+        cpu_bufs = pipe.spectrogram_buffers_from_dataset(cx_data, "cpu")
+        cpu_x = transform(cpu_bufs, f.cpu())
+    cx_db = float((card_x - cpu_x).abs().max())
+    log(f"[train] Complex + augmentation: {FEW_STEPS} steps, last train loss "
+        f"{cx_rec['train_loss']:.4f}, val loss {cx_rec['val_loss']:.4f}; the transform's "
+        f"log-mel of 16 crops, card against CPU: {cx_db:.3e} dB (tol {DB_TOL})")
+    check(np.isfinite(cx_rec["train_loss"]) and np.isfinite(cx_rec["val_loss"]),
+          "Complex-mode training losses are finite")
+    check(cx_db <= DB_TOL, "Complex transform on the card within 1e-4 dB of the CPU's")
+    del cx_bufs, cpu_bufs, f, cx_state
+
+    # ---- MobileNetV1 (emit='logits') --------------------------------------
+    mn_printed = io.StringIO()
+    with contextlib.redirect_stdout(mn_printed):
+        mn_state = loop.train(MobileNetV1(cfg.classes_num, emit="logits"), dataset, "spectogram",
+                              num_steps=FEW_STEPS, lr=TRAIN_LR, log_freq=FEW_STEPS,
+                              outputs_dir=str(tmp / "run_mobilenet"), batch_size=TRAIN_BATCH,
+                              cfg=cfg, make_plots=False, device=DEVICE)
+    mn_rec = json.loads(open(tmp / "run_mobilenet" / "metrics.jsonl").read().splitlines()[-1])
+    mn_ckpt = tmp / "run_mobilenet" / "checkpoints" / f"iteration_{FEW_STEPS}.pt"
+    mn_loaded = infer.load_model(str(mn_ckpt), cfg.classes_num, "MobileNetV1")
+    check(torch.equal(mn_loaded.fc1.weight, mn_state.model.fc1.weight.cpu()),
+          "the MobileNetV1 checkpoint loads into load_model(arch='MobileNetV1')")
+    log(f"[train] MobileNetV1 (emit='logits'): {FEW_STEPS} steps and one evaluation, train "
+        f"loss {mn_rec['train_loss']:.4f}, val loss {mn_rec['val_loss']:.4f}, AP "
+        f"{mn_rec['AP']:.4f}; iteration_{FEW_STEPS}.pt loads into load_model(arch='MobileNetV1')")
+    check(np.isfinite(mn_rec["train_loss"]) and np.isfinite(mn_rec["val_loss"]),
+          "MobileNetV1 training losses are finite")
+
+    # ---- make_batch_evaluator on 4 x 60 s int16 clips ---------------------
+    from scipy.io import wavfile
+
+    clips = np.stack([wavfile.read(p)[1] for p in wavs[:EVAL_CLIPS]])[..., None]
+    with open(data / "FilmClap" / "paths_and_labels_fixed_Meron.txt") as f:
+        centers = json.load(f)
+    targets = np.stack([create_event_matrix(
+        out_frames, np.array(centers[p]) - cfg.time_margin, np.array(centers[p]) + cfg.time_margin,
+        cfg) for p in wavs[:EVAL_CLIPS]])
+    evaluate = make_batch_evaluator(state.model, cfg, dataset.mean, dataset.std, device=DEVICE)
+    predict = make_batch_predictor(state.model, cfg, dataset.mean, dataset.std, device=DEVICE)
+    clips_dev = torch.from_numpy(clips).to(dev)
+    kernels.reset_launch_counts()
+    ev_scores, ev_losses, _, _, ev_aps = evaluate(clips_dev, targets)
+    torch.cuda.synchronize()
+    launches["evaluator"] = {k: kernels.LAUNCHES[k] for k in ("wave_stft_power", "mel_log")}
+    ev_err = float((ev_scores - predict(clips_dev)[:, :out_frames]).abs().max())
+    log(f"[train] make_batch_evaluator on {EVAL_CLIPS} x {TRAIN_SECONDS:.0f} s int16 clips: "
+        f"scores against make_batch_predictor {ev_err:.3e} (tol {SCORE_TOL}); losses "
+        f"{[round(float(v), 4) for v in ev_losses]}, APs {[round(float(v), 4) for v in ev_aps]}; "
+        f"launches {launches['evaluator']}")
+    check(ev_err <= SCORE_TOL, "batch evaluator scores equal the batch predictor's")
+    check(launches["evaluator"] == {"wave_stft_power": 1, "mel_log": 1},
+          "one K1 and one K2 launch per make_batch_evaluator call")
+
+    # ---- times -------------------------------------------------------------
+    log(f"[times] phase 11 on {smi}; each line's card is this one:")
+    log(f"[times] preprocess (logMel, {TRAIN_SECONDS:.0f} s files, mean of 4): read (scipy decode, mono) "
+        f"{pre_t['read'] / 4 * 1e3:.2f} ms | featurize (float32 cast, upload, K1 + K2, "
+        f"download) {pre_t['featurize'] / 4 * 1e3:.2f} ms per file; whole job "
+        f"{pre_s / TRAIN_FILES * 1e3:.2f} ms per file logMel, {cx_s / TRAIN_COMPLEX_FILES * 1e3:.2f}"
+        f" ms Complex; {smi}")
+    log(f"[times] evaluate (bucketed exact forward, host metrics): {eval_ms:.2f} ms per "
+        f"{TRAIN_SECONDS:.0f} s validation recording; train() im/sec {im_sec} "
+        f"(the reference's definition: steps x batch / wall-s since the start, evaluations "
+        f"included; {smi})")
+    step_ms, parts, top = {}, {}, []
+    cx_bufs = pipe.spectrogram_buffers_from_dataset(cx_data, dev)
+    lm_bufs = pipe.spectrogram_buffers_from_dataset(dataset, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for arch in ("CnnAvgPooling", "MobileNetV1"):
+        for mode, bufs, data_ in (("logMel", lm_bufs, dataset), ("Complex", cx_bufs, cx_data)):
+            for aug in (False, True):
+                m = (CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL) if arch == "CnnAvgPooling"
+                     else MobileNetV1(cfg.classes_num, emit="logits"))
+                st = init_state(m, TRAIN_LR, dev, seed=1)
+                fn_step = pipe.make_spectrogram_train_step(cfg, 5.0, mode, augment=aug)
+                starts = torch.as_tensor(data_.train_start_indices[:TRAIN_BATCH], device=dev)
+                step_ms[arch, mode, aug] = time_ms(
+                    torch, lambda: fn_step(st, bufs, starts, gen))
+                if arch == "CnnAvgPooling" and mode == "logMel" and not aug:
+                    parts, top = profile_parts(torch, lambda: fn_step(st, bufs, starts, gen),
+                                               TRAIN_PROFILE_STEPS)
+    for (arch, mode, aug), ms in step_ms.items():
+        log(f"[times] train step {arch} {mode} augmentation {'on' if aug else 'off'}, batch "
+            f"{TRAIN_BATCH} x {cfg.train_crop_size} frames: {ms:.4f} ms (CUDA-event median of "
+            f"{REPS}; {TRAIN_BATCH / ms * 1e3:.1f} im/sec; {smi})")
+    if parts and top:
+        part = {k.split("/")[1]: v for k, v in parts.items()}
+        busy = sum(ms for _, ms in top)
+        # The autograd engine runs the backward on its own thread, outside
+        # the train_step/backward range: its kernels are the rest of the step's.
+        part["backward"] = busy - sum(v for k, v in part.items() if k != "backward")
+        log(f"[times] CnnAvgPooling logMel step by part (torch.profiler, "
+            f"{TRAIN_PROFILE_STEPS} steps, device ms per step, {smi}; backward = the kernels outside "
+            f"the other ranges): gather + transform "
+            f"{part.get('gather', 0.0) + part.get('transform', 0.0):.4f}, forward + backward "
+            f"{part.get('forward', 0.0) + part['backward']:.4f}, optimizer "
+            f"{part.get('optimizer', 0.0):.4f} (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(part.items(), key=lambda r: -r[1])) + ")")
+        log(f"[times] its kernels: {busy:.4f} ms a step "
+            f"({busy / step_ms['CnnAvgPooling', 'logMel', False]:.1%} of the step); the 8 largest:")
+        for kname, ms in top[:8]:
+            log(f"[times]   {ms:.4f} ms  {kname[:90]}")
+    else:
+        log("[times] step by part: torch.profiler captured no device time (not measured)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    log(f"[times] phase 11 peak device memory {peak:.1f} MiB ({smi})")
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return {k: launches["preprocess"][k] + launches["evaluator"][k]
+            for k in ("wave_stft_power", "mel_log")}
+
+
 def main() -> int:
     import torch
 
@@ -1436,6 +1893,11 @@ def main() -> int:
         file_launches = files_phase(torch, cfg, dev, smi, Path(files_tmp))
     log(f"[files] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 11. training ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as train_tmp:
+        train_launches = train_phase(torch, cfg, dev, smi, Path(train_tmp))
+    log(f"[train] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     print(json.dumps({"kernels": [
         {"name": "wave_stft_power",
@@ -1443,7 +1905,8 @@ def main() -> int:
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:412",
          "launches": launches["wave_stft_power"],
-         "file_launches": file_launches["wave_stft_power"], "max_abs_err": k1_abs,
+         "file_launches": file_launches["wave_stft_power"],
+         "train_launches": train_launches["wave_stft_power"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": k1_lib_ms},
         {"name": "mel_log",
@@ -1451,6 +1914,7 @@ def main() -> int:
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:72",
          "launches": launches["mel_log"], "file_launches": file_launches["mel_log"],
+         "train_launches": train_launches["mel_log"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms, "tick_rows": k2t_n,

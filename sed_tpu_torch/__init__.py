@@ -4,21 +4,28 @@ The module paths mirror ``sed_tpu`` so each counterpart is easy to find.
 The package imports torch, numpy and scipy only; it never imports JAX or
 anything of ``sed_tpu`` and keeps its own copies of what it needs.
 
-Covered so far (scoring and streaming; training is not ported yet):
+Covered so far (scoring, streaming, and training of the spectrogram
+family; waveform (M5) training is not ported yet):
 
   configs:    AudioConfig, SpectrogramConfig, WaveformConfig
   features:   logmel_features(_batch), multichannel_stft,
               multichannel_complex_to_log_mel -> ops.cuda_featurizer
               (hand-written CUDA kernels on CUDA tensors, their plain
               PyTorch versions on CPU tensors)
+  data:       SpectrogramDataset, preprocess_data
   models:     CnnAvgPooling, MobileNetV1, M5, models.convert (sed_tpu
               weights in), models.describe
+  training:   train, evaluate, make_optimizer, save_checkpoint,
+              load_checkpoint
+  metrics:    calculate_metrics, f_score, event_based_metrics,
+              event_metrics_from_scores
   inference:  batch_predict_files, windowed_forward (one long recording),
               StreamingDetector, DeviceStreamingDetector, StreamPool,
               StreamServer / StreamClient
-  CLIs:       python -m sed_tpu_torch.cli.infer (windowed per file, --batch,
-              --arch CnnAvgPooling|MobileNetV1|M5), cli.stream,
-              cli.serve_socket
+  CLIs:       python -m sed_tpu_torch.cli.main (--train_features
+              Spectogram), python -m sed_tpu_torch.cli.infer (windowed
+              per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5),
+              cli.stream, cli.serve_socket
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Top-level names are imported lazily, so ``import sed_tpu_torch`` stays light.
@@ -34,9 +41,16 @@ _EXPORTS = {
     "logmel_features_batch": "sed_tpu_torch.ops.featurizer",
     "multichannel_stft": "sed_tpu_torch.ops.featurizer",
     "multichannel_complex_to_log_mel": "sed_tpu_torch.ops.featurizer",
+    "SpectrogramDataset": "sed_tpu_torch.data.spectrogram_dataset",
+    "preprocess_data": "sed_tpu_torch.data.preprocess",
     "CnnAvgPooling": "sed_tpu_torch.models.cnn",
     "MobileNetV1": "sed_tpu_torch.models.cnn",
     "M5": "sed_tpu_torch.models.m5",
+    "train": "sed_tpu_torch.train.loop",
+    "evaluate": "sed_tpu_torch.train.loop",
+    "make_optimizer": "sed_tpu_torch.train.optim",
+    "save_checkpoint": "sed_tpu_torch.train.checkpoint",
+    "load_checkpoint": "sed_tpu_torch.train.checkpoint",
     "batch_predict_files": "sed_tpu_torch.inference",
     "StreamingDetector": "sed_tpu_torch.streaming",
     "BatchedStreamingDetector": "sed_tpu_torch.streaming",
@@ -46,6 +60,10 @@ _EXPORTS = {
     "StreamServer": "sed_tpu_torch.serve_socket",
     "StreamClient": "sed_tpu_torch.serve_socket",
     "windowed_forward": "sed_tpu_torch.parallel.time_shard",
+    "calculate_metrics": "sed_tpu_torch.utils.metrics",
+    "f_score": "sed_tpu_torch.utils.metrics",
+    "event_based_metrics": "sed_tpu_torch.utils.event_metrics",
+    "event_metrics_from_scores": "sed_tpu_torch.utils.event_metrics",
     "extract_events": "sed_tpu_torch.utils.events_post",
     "mulaw_encode": "sed_tpu_torch.ops.mulaw",
     "mulaw_decode": "sed_tpu_torch.ops.mulaw",

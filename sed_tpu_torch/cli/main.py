@@ -1,0 +1,223 @@
+"""Training CLI with the reference's flag surface (counterpart of
+``sed_tpu.cli.main``; reference main.py:85-141).
+
+    python -m sed_tpu_torch.cli.main --train_features Spectogram \\
+        --dataset_dir data --dataset_name FilmClap --model CnnAvgPooling
+
+Trains the spectrogram family (CnnAvgPooling(TRAIN_CHANNEL_AND_POOL), or
+MobileNetV1 emitting logits) on ``--device`` (default ``cuda``; ``cpu``
+runs the plain versions of the kernels).  Checkpoints are the port's
+``checkpoints/iteration_{n}.pt``; ``--ckpt`` restores the weights only, like
+the reference resume (main.py:37-39), ``--resume auto`` the full state of
+the run's latest checkpoint.  ``--no_plot`` (the port's addition) skips the
+PNGs, which need matplotlib; metrics.jsonl is written either way.
+
+Not ported yet, and refused by name before any work: ``--train_features
+Waveform``, ``--steps_per_call`` > 1, ``--num_devices`` > 1, ``--bf16``,
+``--profile_dir``, ``--preprocess_workers`` > 0, and plots without
+matplotlib.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def parse_val_descriptor(value):
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        return value
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Sound event detection training "
+                                                 "(PyTorch/CUDA port)")
+    # Training data
+    parser.add_argument("--dataset_dir", type=str, default="../data", help="Directory of dataset.")
+    parser.add_argument("--dataset_name", type=str, default="FilmClap", help="FilmClap or TAU")
+    parser.add_argument("--train_features", type=str, default="Waveform",
+                        help="Spectogram or Waveform (Waveform is not ported yet)")
+    parser.add_argument("--model", type=str, default="CnnAvgPooling",
+                        choices=["CnnAvgPooling", "MobileNetV1"],
+                        help="spectrogram model family; MobileNetV1 trains with its "
+                             "head emitting logits, and its checkpoints load into "
+                             "cli.infer --arch MobileNetV1")
+    # Spectrogram-only arguments
+    parser.add_argument("--preprocess_mode", type=str, default="logMel",
+                        help="logMel or Complex; relevant only for Spectogram features")
+    parser.add_argument("--force_preprocess", action="store_true", default=False)
+    parser.add_argument("--preprocess_workers", type=int, default=0,
+                        help="native reader pool: only 0 is ported")
+    # Train
+    parser.add_argument("--outputs_root", type=str, default="training_dir")
+    parser.add_argument("--ckpt", type=str, default="")
+    parser.add_argument("--resume", type=str, default="none", choices=["none", "auto"],
+                        help="auto: restore the latest full checkpoint (weights, "
+                             "optimizer state, schedule, step) of the run directory "
+                             "and continue. --ckpt stays model-only like the "
+                             "reference resume (main.py:37-39)")
+    parser.add_argument("--val_descriptor", default=0.2,
+                        help="float for percentage, string for fold substring")
+    parser.add_argument("--train_tag", type=str, default="")
+    # Training tricks
+    parser.add_argument("--augment_data", action="store_true", default=False)
+    parser.add_argument("--balance_classes", action="store_true", default=False)
+    parser.add_argument("--recall_priority", type=float, default=5,
+                        help="priority factor for the bce loss")
+    parser.add_argument("--tau_labels", type=str, default="doorslam",
+                        help="comma-separated TAU event classes")
+    # Hyper parameters
+    parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--lr", type=float, default=0.000001)
+    parser.add_argument("--num_train_steps", type=int, default=100000)
+    parser.add_argument("--log_freq", type=int, default=5000)
+    # Infrastructure
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to train on: cuda (default) or cpu")
+    parser.add_argument("--num_devices", type=int, default=1,
+                        help="data-parallel devices: only 1 is ported")
+    parser.add_argument("--steps_per_call", type=int, default=1,
+                        help="train steps per dispatch: only 1 is ported")
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--bf16", action="store_true", default=False,
+                        help="bfloat16 model compute: not ported")
+    parser.add_argument("--debug_nans", action="store_true", default=False,
+                        help="torch.autograd anomaly detection (NaN/inf in backward)")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="profiler trace of steps 10-20: not ported")
+    parser.add_argument("--no_plot", action="store_true", default=False,
+                        help="write no PNGs (they need matplotlib)")
+    return parser
+
+
+def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
+    """``parser.error`` naming every option that is not ported, before any work."""
+    unported = [flag for flag, on in (
+        ("--train_features Waveform", args.train_features.lower() == "waveform"),
+        ("--steps_per_call > 1", args.steps_per_call != 1),
+        ("--num_devices > 1", args.num_devices != 1),
+        ("--bf16", args.bf16),
+        ("--profile_dir", bool(args.profile_dir)),
+        ("--preprocess_workers > 0", args.preprocess_workers != 0),
+    ) if on]
+    if unported:
+        parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
+    if args.train_features.lower() != "spectogram":
+        parser.error(f"training features can be raw waveform or spectogram only, "
+                     f"'{args.train_features}' given")
+    if not args.no_plot:
+        from sed_tpu_torch.utils.plotting import require_matplotlib
+
+        try:
+            require_matplotlib()
+        except RuntimeError as e:
+            parser.error(str(e))
+
+
+def get_spectrogram_dataset_and_model(args):
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.data.spectrogram_dataset import (SpectrogramDataset,
+                                                        preprocess_film_clap_data,
+                                                        preprocess_tau_sed_data)
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+
+    cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
+    if args.dataset_name.lower() == "tau":
+        features_dir, mean_std_file = preprocess_tau_sed_data(
+            args.dataset_dir, fold_name="eval", preprocess_mode=args.preprocess_mode,
+            force_preprocess=args.force_preprocess, cfg=cfg,
+            device=args.device, plot_sample=not args.no_plot,
+        )
+    elif args.dataset_name.lower() == "filmclap":
+        features_dir, mean_std_file = preprocess_film_clap_data(
+            args.dataset_dir, preprocessed_mode=args.preprocess_mode,
+            force_preprocess=args.force_preprocess, cfg=cfg,
+            device=args.device, plot_sample=not args.no_plot,
+        )
+    else:
+        raise ValueError(
+            f"Only tau and filmclap datasets are supported, '{args.dataset_name}' given"
+        )
+
+    dataset = SpectrogramDataset(
+        features_dir, mean_std_file,
+        augment_data=args.augment_data,
+        balance_classes=args.balance_classes,
+        val_descriptor=parse_val_descriptor(args.val_descriptor),
+        preprocessed_mode=args.preprocess_mode,
+        cfg=cfg,
+        seed=args.seed,
+    )
+    if args.model == "MobileNetV1":
+        model = MobileNetV1(classes_num=cfg.classes_num, emit="logits")
+        descriptor = f"MobileNetV1-{args.preprocess_mode}-{cfg.cfg_descriptor}"
+    else:
+        # Model config from the reference training CLI (main.py:35).
+        model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL)
+        descriptor = f"{args.preprocess_mode}-{cfg.cfg_descriptor}"
+    return dataset, model, cfg, descriptor, "spectogram"
+
+
+def main(argv=None):
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    refuse_unported(parser, args)
+
+    import torch
+
+    from sed_tpu_torch.inference import resolve_device
+
+    resolve_device(args.device)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+
+    dataset, model, cfg, descriptor, mode = get_spectrogram_dataset_and_model(args)
+
+    train_name = f"{args.dataset_name}_cfg({descriptor}_b{args.batch_size}_lr{args.lr}_{args.train_tag}"
+    if args.balance_classes:
+        train_name += "_BC"
+    if args.augment_data:
+        train_name += "_AD"
+    outputs_dir = os.path.join(args.outputs_root, train_name)
+
+    from sed_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+    from sed_tpu_torch.train.loop import train
+    from sed_tpu_torch.train.state import init_state
+
+    initial_state = None
+    resume_path = None
+    model_only = True
+    if args.resume == "auto":
+        resume_path = latest_checkpoint(outputs_dir)
+        model_only = False
+        if resume_path:
+            print(f"Auto-resuming from {resume_path}")
+    if resume_path is None and args.ckpt:
+        resume_path = args.ckpt
+        model_only = True
+    if resume_path:
+        template = init_state(model, args.lr, args.device, args.seed)
+        initial_state = load_checkpoint(resume_path, template, model_only=model_only)
+
+    train(
+        model, dataset, mode,
+        num_steps=args.num_train_steps,
+        lr=args.lr,
+        log_freq=args.log_freq,
+        outputs_dir=outputs_dir,
+        batch_size=args.batch_size,
+        pos_weight=args.recall_priority,
+        augment=args.augment_data,
+        preprocessed_mode=args.preprocess_mode,
+        cfg=cfg,
+        seed=args.seed,
+        initial_state=initial_state,
+        make_plots=not args.no_plot,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
 """High-level batched inference (counterpart of ``sed_tpu.inference``).
 
 Equal-length recordings ride the batch axis through one pass: featurize
-(K1 + K2 on CUDA) -> CnnAvgPooling or MobileNetV1 -> sigmoid scores.  A
+(K1 + K2 on CUDA) -> CnnAvgPooling or MobileNetV1 -> sigmoid scores
+(:func:`make_batch_predictor`), or scores, losses and the frame metrics of a
+validation batch (:func:`make_batch_evaluator`).  A
 single long recording instead goes through
 ``sed_tpu_torch.parallel.time_shard.windowed_forward`` (``cli/infer.py``).
 Parallelism over several cards (``mesh`` in ``sed_tpu``) is not ported yet.
@@ -138,3 +140,58 @@ def batch_predict_files(
         for i, (path, _) in enumerate(group):
             results[path] = scores[i]
     return results
+
+
+def make_batch_evaluator(
+    model: torch.nn.Module,
+    cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+    mean: Optional[np.ndarray] = None,
+    std: Optional[np.ndarray] = None,
+    pos_weight: float = 5.0,
+    device="cuda",
+):
+    """Build ``evaluate(waveforms, targets)``: score and grade a batch of
+    equal-length validation recordings on ``device`` in one pass.
+
+    ``waveforms``: (batch, samples, channels) as for
+    :func:`make_batch_predictor` (float32, int16 or uint8); ``targets``:
+    (batch, frames, classes) 0/1.  Featurize (K1 + K2 on CUDA), normalize,
+    run the model, truncate logits and targets to the common frame count
+    (utils/common.py:20-22), then per recording the weighted BCE and the
+    21-threshold metric sweep (``utils.metrics.calculate_metrics_torch``).
+    Returns tensors on ``device``: (scores (B, F, C), losses (B,), recalls
+    (B, 21), precisions (B, 21), APs (B,)).  ``model`` must emit logits (a
+    MobileNetV1 needs ``emit='logits'``).  TF32 is turned off.
+    """
+    from sed_tpu_torch.train.loss import weighted_bce_elementwise
+    from sed_tpu_torch.utils.metrics import calculate_metrics_torch
+
+    if emits_scores(model):
+        raise ValueError("make_batch_evaluator needs a model that emits logits "
+                         "(MobileNetV1(emit='logits'))")
+    device = resolve_device(device)
+    no_tf32()
+    model = model.to(device).eval()
+
+    def as_stat(a):
+        return None if a is None else torch.as_tensor(np.asarray(a, np.float32),
+                                                      device=device)
+
+    mean_t, std_t = as_stat(mean), as_stat(std)
+
+    @torch.inference_mode()
+    def evaluate(waveforms, targets):
+        x = torch.as_tensor(waveforms, device=device)
+        feats = logmel_features_batch(x, cfg)
+        if mean_t is not None:
+            feats = (feats - mean_t) / std_t
+        logits = model(feats)
+        t = torch.as_tensor(targets, device=device).to(torch.float32)
+        n = min(logits.shape[1], t.shape[1])
+        logits, t = logits[:, :n], t[:, :n]
+        losses = weighted_bce_elementwise(logits, t, pos_weight).mean(dim=(1, 2))
+        scores = torch.sigmoid(logits)
+        recalls, precisions, aps = calculate_metrics_torch(scores, t)
+        return scores, losses, recalls, precisions, aps
+
+    return evaluate

@@ -22,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sed_tpu_torch.models.layers import (BN_EPS, ConvBlock, init_batch_norm_,
+from sed_tpu_torch.models.layers import (BN_EPS, BatchNorm2d, ConvBlock, init_batch_norm_,
                                          interpolate, kaiming_uniform_)
 
 # Reference DEFAULT_CHANNEL_AND_POOL.
@@ -111,7 +111,7 @@ def _pool(stride: int) -> nn.Module:
 def _conv_bn(in_ch: int, out_ch: int, stride: int) -> nn.Sequential:
     """conv3x3 -> avg-pool(stride) -> BN -> ReLU."""
     return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
-                         _pool(stride), nn.BatchNorm2d(out_ch, eps=BN_EPS),
+                         _pool(stride), BatchNorm2d(out_ch, eps=BN_EPS),
                          nn.ReLU())
 
 
@@ -120,8 +120,8 @@ def _conv_dw(in_ch: int, out_ch: int, stride: int) -> nn.Sequential:
     -> BN -> ReLU."""
     return nn.Sequential(
         nn.Conv2d(in_ch, in_ch, 3, padding=1, groups=in_ch, bias=False),
-        _pool(stride), nn.BatchNorm2d(in_ch, eps=BN_EPS), nn.ReLU(),
-        nn.Conv2d(in_ch, out_ch, 1, bias=False), nn.BatchNorm2d(out_ch, eps=BN_EPS),
+        _pool(stride), BatchNorm2d(in_ch, eps=BN_EPS), nn.ReLU(),
+        nn.Conv2d(in_ch, out_ch, 1, bias=False), BatchNorm2d(out_ch, eps=BN_EPS),
         nn.ReLU())
 
 
@@ -142,7 +142,7 @@ class MobileNetV1(nn.Module):
             raise ValueError(f"emit must be 'scores' or 'logits', got {emit!r}")
         self.emit = emit
         with torch.device("meta"):
-            self.bn0 = nn.BatchNorm2d(64, eps=BN_EPS)   # the reference's; never called
+            self.bn0 = BatchNorm2d(64, eps=BN_EPS)   # the reference's; never called
             blocks, in_ch = [], 1
             for kind, out_ch, stride in MOBILENET_STACK:
                 blocks.append((_conv_bn if kind == "bn" else _conv_dw)(in_ch, out_ch, stride))

@@ -4,7 +4,8 @@ NCHW layout: (batch, channels, time, mel).  Initialization matches the
 reference: conv and linear weights ``kaiming_uniform_(a=0, fan_in,
 leaky_relu)``, i.e. bound sqrt(6 / fan_in); biases zero; BatchNorm scale 1,
 bias 0, running statistics (0, 1).  Draws come from an explicit
-``torch.Generator``.
+``torch.Generator``.  :class:`BatchNorm2d` updates its running variance in
+training as ``sed_tpu`` (flax) does.
 """
 
 from __future__ import annotations
@@ -17,6 +18,35 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward updates ``running_var``
+    with the *biased* batch variance.
+
+    This follows ``sed_tpu``'s flax ``BatchNorm`` (momentum 0.9, i.e. torch's
+    0.1), not the original torch reference: torch's own layer stores the
+    unbiased variance, which would drift from ``sed_tpu``'s statistics most
+    in the deep, small-spatial blocks.  The batch is still normalized with
+    its biased variance, as both do; the evaluation forward, the parameters
+    and the state-dict keys are ``nn.BatchNorm2d``'s.  torch's own update,
+    ``r = (1 - m) * old + m * var * n / (n - 1)`` over n values a channel,
+    becomes ``r * (n - 1) / n + old * (1 - m) / n = (1 - m) * old + m *
+    var``: no second pass over the batch.  The result replaces the buffer
+    rather than writing into it, since autograd keeps the one the batch
+    norm was given.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        old = self.running_var.clone()
+        y = super().forward(x)
+        with torch.no_grad():
+            self.running_var = torch.add(self.running_var * ((n - 1) / n), old,
+                                         alpha=(1.0 - self.momentum) / n)
+        return y
 
 
 def kaiming_uniform_(weight: torch.Tensor,
@@ -46,7 +76,7 @@ def interpolate(x: torch.Tensor, ratio: int) -> torch.Tensor:
 
 
 class ConvBlock(nn.Module):
-    """2 x (3x3 conv without bias -> BN (eval, eps 1e-5) -> ReLU) -> avg pool.
+    """2 x (3x3 conv without bias -> BN (eps 1e-5) -> ReLU) -> avg pool.
 
     ``pool_size == 1`` is a no-op; larger pools floor odd sizes, as
     ``F.avg_pool2d`` and flax's VALID ``avg_pool`` both do.
@@ -55,9 +85,9 @@ class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, pool_size: int = 2):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(out_channels, eps=BN_EPS)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(out_channels, eps=BN_EPS)
         self.pool_size = pool_size
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:

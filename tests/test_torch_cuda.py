@@ -847,3 +847,169 @@ def test_mobilenet_batch_predictor_cuda_matches_cpu(cuda):
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     assert got.shape == want.shape == (2, 24, 1)
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Training (slice B): the train step, train-mode BatchNorm, checkpoints.
+# Tolerances: card against CPU in float64, losses within 1e-9 relative and
+# parameters, statistics and gradients within 1e-9 of each tensor's largest
+# (in float32 the card's BatchNorm backward sums in float32 and its
+# gradients part from float64 by up to ~4e-3 of a tensor's largest, the
+# CPU's by ~6e-6, and Adam's sign-like first update carries that into
+# later steps); in float32 the first loss within 1e-4 relative; running
+# statistics within 1e-6.
+# ---------------------------------------------------------------------------
+
+class _TrainStore:
+    """A packed training split like SpectrogramDataset's."""
+
+    def __init__(self, complex_mode, cfg, frames=200, seed=0):
+        rng = np.random.default_rng(seed)
+        bins = cfg.freq_bins if complex_mode else cfg.mel_bins
+        shape = (1, frames, bins)
+        f = rng.standard_normal(shape).astype(np.float32)
+        if complex_mode:
+            f = (f + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        self.train_features = f
+        self.train_event_matrix = (rng.random((frames, 1)) > 0.7).astype(np.float32)
+        self.train_start_indices = rng.permutation(frames - cfg.train_crop_size).astype(np.int32)
+        self.mean = f.mean(axis=(0, 1))
+        self.std = f.std(axis=(0, 1))
+
+
+def _buffers(store, device, dtype):
+    import dataclasses
+
+    from sed_tpu_torch.data import device_pipeline as pipe
+
+    b = pipe.spectrogram_buffers_from_dataset(store, device)
+    return dataclasses.replace(b, features=b.features.to(dtype), events=b.events.to(dtype),
+                               mean=b.mean.to(dtype), std=b.std.to(dtype))
+
+
+@pytest.mark.parametrize("mode", ["logMel", "Complex"])
+def test_train_step_on_the_card_matches_cpu(cuda, mode):
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.train.state import init_state
+
+    store = _TrainStore(mode == "Complex", SMALL)
+    starts = store.train_start_indices[:16]
+    step = pipe.make_spectrogram_train_step(SMALL, 5.0, mode, augment=False)
+    base = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda):
+        for dtype in (torch.float64, torch.float32):
+            state = init_state(copy.deepcopy(base).to(dtype), 1e-3, dev)
+            bufs = _buffers(store, dev, dtype)
+            losses, grads = [], None
+            for i in range(3 if dtype == torch.float64 else 1):
+                losses.append(float(step(state, bufs, starts)))
+                if i == 0:
+                    grads = {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+            runs[str(dev), dtype] = (losses, grads, {k: v.detach().cpu() for k, v in
+                                                     state.model.state_dict().items()})
+    cpu, gpu = runs["cpu", torch.float64], runs[str(cuda), torch.float64]
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-9)
+    for mine, theirs in ((gpu[1], cpu[1]), (gpu[2], cpu[2])):
+        for key, want in theirs.items():
+            scale = max(want.abs().max().item(), 1e-300) if want.is_floating_point() else 1
+            assert (mine[key] - want).abs().max().item() <= 1e-9 * scale, key
+    np.testing.assert_allclose(runs[str(cuda), torch.float32][0],
+                               runs["cpu", torch.float32][0], rtol=1e-4)
+
+
+def test_first_gradients_on_the_card_match_cpu(cuda):
+    from sed_tpu_torch.train.loss import weighted_bce_with_logits
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(16, 1, 30, 64, generator=g, dtype=torch.float64)
+    y = (torch.rand(16, 30, 1, generator=g) > 0.7).double()
+    grads = {}
+    for dev in ("cpu", cuda):
+        model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL,
+                              generator=torch.Generator().manual_seed(0)).double().to(dev).train()
+        weighted_bce_with_logits(model(x.to(dev)), y.to(dev)).backward()
+        grads[str(dev)] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    for key, want in grads["cpu"].items():
+        err = (grads[str(cuda)][key] - want).abs().max().item()
+        assert err <= 1e-9 * want.abs().max().item(), (key, err)
+
+
+def test_train_mode_batch_norm_on_the_card(cuda):
+    from sed_tpu_torch.models.layers import BatchNorm2d
+
+    g = torch.Generator().manual_seed(2)
+    xs = [torch.randn(8, 6, 5, 7, generator=g) * 2 + 0.5 for _ in range(4)]
+    stats = []
+    for dev in ("cpu", cuda):
+        bn = BatchNorm2d(6).to(dev).train()
+        for x in xs:
+            bn(x.to(dev))
+        stats.append((bn.running_mean.cpu(), bn.running_var.cpu()))
+    # The flax rule in float64: 0.9 * old + 0.1 * the biased batch variance.
+    mean, var = torch.zeros(6, dtype=torch.float64), torch.ones(6, dtype=torch.float64)
+    for x in xs:
+        v, m = torch.var_mean(x.double(), dim=(0, 2, 3), correction=0)
+        mean, var = 0.9 * mean + 0.1 * m, 0.9 * var + 0.1 * v
+    for got_mean, got_var in stats:
+        assert (got_mean.double() - mean).abs().max() <= 1e-6
+        assert (got_var.double() - var).abs().max() <= 1e-6
+
+
+def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.train import checkpoint
+    from sed_tpu_torch.train.state import init_state
+
+    store = _TrainStore(False, SMALL)
+    state = init_state(CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL), 1e-3, cuda, seed=0)
+    bufs = pipe.spectrogram_buffers_from_dataset(store, cuda)
+    step = pipe.make_spectrogram_train_step(SMALL, augment=False)
+    for _ in range(2):
+        step(state, bufs, store.train_start_indices[:8])
+    path = checkpoint.save_checkpoint(state, str(tmp_path), 2)
+    cpu_state = checkpoint.load_checkpoint(
+        path, init_state(CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL), 1e-3, "cpu", seed=5))
+    assert cpu_state.step == 2
+    for key, value in state.model.state_dict().items():
+        assert torch.equal(value.cpu(), cpu_state.model.state_dict()[key]), key
+    p = next(cpu_state.model.parameters())
+    assert cpu_state.optimizer.state[p]["exp_avg"].device.type == "cpu"
+    model = cli.load_model(path, 1, "CnnAvgPooling")
+    assert torch.equal(model.event_fc.weight, cpu_state.model.event_fc.weight)
+
+
+def test_augmentation_draws_on_the_card(cuda):
+    from sed_tpu_torch.data import device_pipeline as pipe
+
+    store = _TrainStore(True, SMALL)
+    bufs = pipe.spectrogram_buffers_from_dataset(store, cuda)
+    gather = pipe.make_gather_crops(SMALL)
+    f, e = gather(bufs, torch.as_tensor(store.train_start_indices[:8], device=cuda))
+    aug = pipe.make_augment_batch(SMALL, "Complex")
+    a = aug(torch.Generator(device=cuda).manual_seed(3), bufs, f, e)
+    b = aug(torch.Generator(device=cuda).manual_seed(3), bufs, f, e)
+    assert torch.equal(a[0], b[0]) and a[0].is_cuda
+    # The same draws applied on the CPU give the same crops.
+    d = pipe.draw_augmentation(torch.Generator(device=cuda).manual_seed(3), bufs, f.shape, True)
+    cpu_d = pipe.AugmentDraws(d.u_mix.cpu(), d.ptr.cpu(), d.u_noise.cpu(), d.noise.cpu())
+    cpu_bufs = pipe.spectrogram_buffers_from_dataset(store, "cpu")
+    cf, ce = pipe.apply_augmentation(cpu_bufs, f.cpu(), e.cpu(), cpu_d, gather, True)
+    assert (cf - a[0].cpu()).abs().max() <= 1e-6 and torch.equal(ce, a[1].cpu())
+
+
+def test_batch_evaluator_launches_k1_and_k2_once(cuda):
+    from sed_tpu_torch.inference import make_batch_evaluator
+
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, generator=torch.Generator().manual_seed(0))
+    waves = signals(2, 11 * PROD.working_sample_rate, PROD.working_sample_rate, cuda)
+    targets = torch.zeros(2, 32, 1, device=cuda)
+    evaluate = make_batch_evaluator(model, PROD, device=cuda)
+    kernels.reset_launch_counts()
+    scores, losses, recalls, precisions, aps = evaluate(waves[..., None], targets)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_power"] == 1 and kernels.LAUNCHES["mel_log"] == 1
+    cpu = make_batch_evaluator(copy.deepcopy(model), PROD, device="cpu")(
+        waves[..., None].cpu(), targets.cpu())
+    assert (scores.cpu() - cpu[0]).abs().max() <= 1e-4
+    assert recalls.shape == (2, 21) and aps.shape == (2,)
