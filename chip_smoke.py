@@ -111,9 +111,41 @@ non-zero on the first failure.  Phases:
               by profiler range, im/sec, evaluate ms per recording,
               preprocess ms per file (read, featurize), peak memory.
 
+ 12. wavetrain M5 training on the card, on phase 11's corpus:
+              ``WaveformDataset`` (0.25 validation) and
+              ``waveform_buffers_from_dataset`` (one upload);
+              ``train(mode="waveform")`` of M5(1) at batch 128 x 31,680
+              samples, 400 steps at lr 3e-3: the validation loss falls and AP
+              > max(AP0, 0.5), metrics.jsonl with sed_tpu's keys, no launch of
+              any K1–K10 kernel while training (counts reset just before, read
+              just after); the first 5 steps on the card against the CPU from
+              one state in float64 at batch 32 (losses 1e-4 relative, first
+              gradients 1e-4 of each tensor's largest), the first float32
+              loss, and the float32 gradients' distance from float64;
+              augmentation on (finite losses, the apply card against CPU
+              within 1e-6 on one set of draws); ``make_multi_step`` with K = 4
+              against 4 single calls (one state, one generator seed, cuDNN
+              deterministic) for M5 and CnnAvgPooling: equal; resume at step
+              10 equal to the uninterrupted run; ``profile_dir`` with
+              steps_per_call 4: one trace of steps 12-20 holding
+              ``train_step/forward`` and ``/backward``;
+              ``make_batch_predictor`` and ``make_batch_evaluator`` called
+              again after ``model.train()`` score as in eval mode, leave the
+              running statistics alone, and a train step runs after them (P2);
+              both TF32 flags off inside each call and the caller's after it
+              (P3); ``python -m sed_tpu_torch.cli.main --no_plot`` with its
+              defaults (Waveform, M5) on 4 of the files for 4 steps (run
+              beside the untimed checks), its checkpoint scored by ``python -m
+              sed_tpu_torch.cli.infer --arch M5`` against the in-process
+              scores; times: M5's step with augmentation off and on (and once
+              with cuDNN's benchmark mode), its split by profiler range and
+              the kernels' share, the step with steps_per_call 1 and 4 for M5,
+              CnnAvgPooling and MobileNetV1, im/sec, evaluate ms a recording,
+              peak memory.
+
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
-training path's launches), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+training path's launches, every entry with phase 12's, 0), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -160,6 +192,12 @@ FEW_STEPS = 10            # Complex + augmentation, MobileNetV1
 EVAL_CLIPS = 4            # make_batch_evaluator: 4 x 60 s int16 clips
 TRAIN_REL_TOL = 1e-4      # card against CPU: losses (relative), gradients (x largest |grad|)
 TRAIN_PROFILE_STEPS = 5
+WAVE_BATCH = 128          # cli/main.py's batch: 128 crops of 31,680 samples (M5)
+WAVE_CPU_BATCH = 32       # M5 card against CPU in float64 (cut from 128: the CPU's time)
+WAVE_VAL = 0.25           # validation share of phase 11's corpus (8 of 32 files)
+WAVE_CLI_FILES = 4        # the training CLI's run: a subset of the corpus
+CONV_BIASES = (".0.bias", ".3.bias")   # M5's conv biases, each removed by a BatchNorm
+STEPS_PER_CALL = 4
 JSONL_KEYS = {"iteration", "train_loss", "val_loss", "AP", "max_f1", "max_f5", "event_tp",
               "event_fp", "event_fn", "event_precision", "event_recall", "event_f1",
               "segment_tp", "segment_fp", "segment_fn", "segment_precision", "segment_recall",
@@ -169,6 +207,18 @@ JSONL_KEYS = {"iteration", "train_loss", "val_loss", "AP", "max_f1", "max_f5", "
               "segment_macro_precision", "segment_macro_recall", "segment_macro_f1"}
 REPS = 20
 QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
+
+# The launch counters (``cuda_featurizer.LAUNCHES``) of each entry of the
+# kernels line.
+ENTRY_COUNTERS = {
+    "wave_stft_power": ("wave_stft_power",), "mel_log": ("mel_log",),
+    "frames_stft_power": ("frames_stft_power",), "power_to_logmel_cuda": ("mel_log",),
+    "wave_stft_mel_log": ("wave_stft_mel_log",), "wave_packed_fft": ("wave_packed_fft",),
+    "stft_eo_power_from_waveform": ("wave_stft_power",),
+    "stft_power_from_waveform_raw": ("wave_stft_power",),
+    "logmel_waveform_rolledge": ("wave_stft_power", "mel_log"),
+    "stft_power_from_waveform(slice, roll_nodb)": ("wave_stft_power",),
+}
 
 # Memory rate (B/s) and FP32 rate outside the tensor cores (FLOP/s) of the
 # card, from NVIDIA's data sheets, by product name; the SXM part by default.
@@ -250,6 +300,26 @@ def run_cli(args, what: str) -> str:
     return proc.stdout
 
 
+_cli_runs = []
+
+
+def start_cli(args, log_path):
+    """Start ``python -m <args>`` from the repository root in the background,
+    its output to ``log_path``; ``finish_cli`` waits for it."""
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", *map(str, args)], cwd=REPO,
+                                stdout=f, stderr=subprocess.STDOUT)
+    _cli_runs.append(proc)
+    return proc
+
+
+def finish_cli(proc, log_path, what: str) -> None:
+    proc.wait(timeout=600)
+    if proc.returncode != 0:
+        print(Path(log_path).read_text()[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"{what} exit code {proc.returncode}")
+
+
 def profile_ticks(torch, fn, n: int):
     """Device time per call of ``fn`` by kernel, from ``torch.profiler`` over
     ``n`` calls: ``[(kernel name, ms per call), ...]``, largest first; empty
@@ -324,8 +394,10 @@ def start_lesions(kernels):
         _lesion_builds.append((name, proc, so, build_log))
 
 
-def stop_lesions() -> None:
-    for _, proc, _, _ in _lesion_builds:
+def stop_background() -> None:
+    """Stop what the script started and has not waited for: lesion builds
+    and CLI runs."""
+    for proc in [proc for _, proc, _, _ in _lesion_builds] + _cli_runs:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -1009,10 +1081,17 @@ def profile_parts(torch, fn, n: int):
     return {k: v for k, v in parts.items() if v > 0}, kernels_
 
 
+def grad_err(a, b):
+    """(largest of |a - b| / b's largest |grad| over the tensors, that tensor)."""
+    return max((float((a[k] - g).abs().max() / g.abs().max().clamp_min(1e-300)), k)
+               for k, g in b.items())
+
+
 def train_phase(torch, cfg, dev, smi, tmp):
     """Phase 11: training of the spectrogram family (see the module
-    docstring).  Returns the K1 and K2 launches of its path: the logMel
-    preprocess and the batch evaluator."""
+    docstring).  Returns the K1 and K2 launches of its path (the logMel
+    preprocess and the batch evaluator), and the corpus (``tmp / "data"``:
+    its WAVs, ``wavs``) and logMel dataset (``dataset``) for phase 12."""
     import contextlib
     import io
     import re
@@ -1149,11 +1228,6 @@ def train_phase(torch, cfg, dev, smi, tmp):
                 grads = {k: p.grad.detach().cpu().double()
                          for k, p in st.model.named_parameters()}
         return losses, grads
-
-    def grad_err(a, b):
-        """(largest of |a - b| / b's largest |grad| over the tensors, that tensor)."""
-        return max((float((a[k] - g).abs().max() / g.abs().max().clamp_min(1e-300)), k)
-                   for k, g in b.items())
 
     t1 = time.perf_counter()
     cpu64, cpu64_g = run("cpu", torch.float64, CPU_STEPS)
@@ -1338,8 +1412,400 @@ def train_phase(torch, cfg, dev, smi, tmp):
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     log(f"[times] phase 11 peak device memory {peak:.1f} MiB ({smi})")
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
-    return {k: launches["preprocess"][k] + launches["evaluator"][k]
-            for k in ("wave_stft_power", "mel_log")}
+    return ({k: launches["preprocess"][k] + launches["evaluator"][k]
+             for k in ("wave_stft_power", "mel_log")}, {"wavs": wavs, "dataset": dataset})
+
+
+def trace_names(path):
+    """The event names of a Chrome trace file."""
+    with open(path) as f:
+        return {e.get("name") for e in json.load(f)["traceEvents"]}
+
+
+def wavetrain_phase(torch, cfg, dev, smi, tmp, spec):
+    """Phase 12: M5 training on the card (see the module docstring), on
+    phase 11's corpus under ``tmp`` (``spec``: its WAVs and logMel dataset).
+    Returns the launch counts of every kernel wrapper while M5 trained."""
+    import contextlib
+    import io
+    import itertools
+    import re
+
+    from scipy.io import wavfile
+
+    from sed_tpu_torch.cli import infer
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.data.waveform_dataset import WaveformDataset
+    from sed_tpu_torch.inference import make_batch_evaluator, make_batch_predictor
+    from sed_tpu_torch.io.film_clap import get_film_clap_paths_and_labels
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+    from sed_tpu_torch.models.m5 import M5
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.train import checkpoint, loop
+    from sed_tpu_torch.train.state import init_state
+
+    t0 = time.perf_counter()
+    wcfg = WaveformConfig()
+    data, wavs = tmp / "data", spec["wavs"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- the dataset and its buffers (one upload) --------------------------
+    quiet = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        dataset = WaveformDataset(get_film_clap_paths_and_labels(str(data / "FilmClap"),
+                                                                 wcfg.time_margin),
+                                  WAVE_VAL, cfg=wcfg, seed=0)
+    ds_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    bufs = pipe.waveform_buffers_from_dataset(dataset, dev)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t1
+    n_val, total = len(dataset.val_file_names), dataset.long_waveform.shape[1]
+    up_mib = sum(t.numel() * t.element_size() for t in (bufs.waveform, bufs.labels,
+                                                         bufs.start_indices)) / 2**20
+    check(bufs.waveform.shape == (1, total) and bufs.waveform.dtype == torch.float32
+          and bufs.labels.shape == (total,) and bufs.labels.dtype == torch.float32
+          and bufs.start_indices.dtype == torch.int64 and bufs.waveform.device == dev,
+          "waveform buffers on the card: samples and labels float32, starts int64")
+    check(torch.equal(bufs.waveform[0, -wcfg.frame_size:].cpu(),
+                      torch.from_numpy(dataset.long_waveform[0, -wcfg.frame_size:]))
+          and torch.equal(bufs.start_indices[:1000].cpu(), torch.from_numpy(
+              dataset.possible_start_indices[:1000]).long()),
+          "the uploaded buffers equal the dataset's arrays")
+    log(f"[wavetrain] WaveformDataset on phase 11's corpus: {total} samples of "
+        f"{len(wavs) - n_val} files, {len(dataset)} starts, {n_val} validation recordings "
+        f"in {ds_s:.2f} s; one upload ({up_mib:.1f} MiB) in {up_s:.2f} s")
+
+    # ---- M5(1), 400 steps at batch 128 ---------------------------------------
+    model = M5(wcfg.classes_num)
+    state = init_state(model, TRAIN_LR, dev, seed=0)
+    init_sd = copy.deepcopy({k: v.cpu() for k, v in state.model.state_dict().items()})
+    out_dir = tmp / "run_m5"
+
+    def eval_all(st):
+        res = loop.evaluate(st.model, st, dataset, "waveform", 5.0, str(out_dir), 0,
+                            make_plots=False, cfg=wcfg)
+        return float(np.mean(res[0])), float(np.mean(res[3]))
+
+    loss0, ap0 = eval_all(state)
+    kernels.reset_launch_counts()
+    printed = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        state = loop.train(model, dataset, "waveform", num_steps=TRAIN_STEPS, lr=TRAIN_LR,
+                           log_freq=TRAIN_STEPS // 2, outputs_dir=str(out_dir),
+                           batch_size=WAVE_BATCH, cfg=wcfg, initial_state=state,
+                           make_plots=False, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    t1 = time.perf_counter()
+    loss1, ap1 = eval_all(state)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) / n_val * 1e3
+    im_sec = [float(x) for x in re.findall(r"im/sec: ([0-9.]+)", printed.getvalue())]
+    records = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
+    log(f"[wavetrain] M5(1), batch {WAVE_BATCH} x {wcfg.frame_size} samples: {TRAIN_STEPS} steps "
+        f"at lr {TRAIN_LR} in {train_s:.2f} s (with {len(records)} evaluations); val loss "
+        f"{loss0:.4f} -> {loss1:.4f}, AP {ap0:.4f} -> {ap1:.4f}; im/sec as train prints it "
+        f"{im_sec}; launches during training {launches}")
+    check(loss1 < loss0, f"validation loss falls ({loss0:.4f} -> {loss1:.4f})")
+    check(ap1 > max(ap0, 0.5), f"AP {ap1:.4f} > max(AP0 {ap0:.4f}, 0.5)")
+    check(len(records) == 2 and set(records[0]) == JSONL_KEYS,
+          f"metrics.jsonl records with sed_tpu's keys ({sorted(set(records[0]) ^ JSONL_KEYS)})")
+    check(not any(launches.values()), "M5 training launches none of K1-K10")
+    check({p.name for p in (out_dir / "checkpoints").iterdir()} ==
+          {f"iteration_{TRAIN_STEPS // 2}.pt", f"iteration_{TRAIN_STEPS}.pt"},
+          "train() writes a checkpoint each log point")
+    del state
+
+    # The training CLI with its defaults (Waveform, M5, batch 128) on a few
+    # of the files runs beside the checks below, none of which is timed.
+    cli_root, cli_log = tmp / "data_cli", tmp / "cli_main.log"
+    subset_corpus(cli_root, wavs[:WAVE_CLI_FILES], data)
+    t_cli = time.perf_counter()
+    cli_proc = start_cli(["sed_tpu_torch.cli.main", "--dataset_dir", cli_root, "--outputs_root",
+                          tmp / "cli_runs", "--num_train_steps", 4, "--log_freq", 4, "--no_plot",
+                          "--device", DEVICE], cli_log)
+
+    # ---- card against CPU: one state, the same batches ---------------------
+    # Float64 at batch WAVE_CPU_BATCH (the CPU's time); in float32 the first
+    # loss is compared and the gradients' distances reported.  M5's conv
+    # biases each feed a BatchNorm, which removes them: their gradients are
+    # zero up to rounding, so they are left out of the gradient comparison
+    # (their largest |grad| is printed).
+    cpu_bufs = pipe.waveform_buffers_from_dataset(dataset, "cpu")
+    step = pipe.make_waveform_train_step(wcfg, 5.0, augment=False)
+
+    def as_dtype(b, dtype):
+        return dataclasses.replace(b, waveform=b.waveform.to(dtype), labels=b.labels.to(dtype))
+
+    def run(where, b, dtype, n):
+        m = M5(wcfg.classes_num)
+        m.load_state_dict(init_sd)
+        st = init_state(m.to(dtype), TRAIN_LR, where)
+        b = as_dtype(b, dtype)
+        losses, grads = [], None
+        for s in itertools.islice(dataset.epoch_start_indices(WAVE_CPU_BATCH), n):
+            losses.append(float(step(st, b, s)))
+            if grads is None:
+                grads = {k: p.grad.detach().cpu().double() for k, p in st.model.named_parameters()}
+        biases = max(float(g.abs().max()) for k, g in grads.items() if k.endswith(CONV_BIASES))
+        return losses, {k: g for k, g in grads.items() if not k.endswith(CONV_BIASES)}, biases
+
+    t1 = time.perf_counter()
+    cpu64, cpu64_g, cpu64_b = run("cpu", cpu_bufs, torch.float64, CPU_STEPS)
+    card64, card64_g, card64_b = run(DEVICE, bufs, torch.float64, CPU_STEPS)
+    cpu32, cpu32_g, _ = run("cpu", cpu_bufs, torch.float32, 1)
+    card32, card32_g, card32_b = run(DEVICE, bufs, torch.float32, 1)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card64, cpu64))
+    grad_rel = grad_err(card64_g, cpu64_g)[0]
+    loss32_rel = abs(card32[0] - cpu32[0]) / abs(cpu32[0])
+    log(f"[wavetrain] card against CPU from one state, float64, batch {WAVE_CPU_BATCH}, "
+        f"{CPU_STEPS} steps: losses {card64} vs {cpu64}, max rel err {loss_rel:.3e}; first "
+        f"gradients max err / tensor's largest |grad| {grad_rel:.3e} (tol {TRAIN_REL_TOL}; "
+        f"the conv biases' largest |grad|: card {card64_b:.3e}, CPU {cpu64_b:.3e}, card "
+        f"float32 {card32_b:.3e}); {time.perf_counter() - t1:.1f} s")
+    log(f"[wavetrain] card against CPU, float32, first step: loss {card32[0]} vs {cpu32[0]} "
+        f"(rel err {loss32_rel:.3e}, tol {TRAIN_REL_TOL}); gradients max err / tensor's largest "
+        f"|grad| (the tensor): card against CPU %.3e (%s), card against float64 %.3e (%s), CPU "
+        f"against float64 %.3e (%s)" % (*grad_err(card32_g, cpu32_g), *grad_err(card32_g, cpu64_g),
+                                        *grad_err(cpu32_g, cpu64_g)))
+    check(loss_rel <= TRAIN_REL_TOL, "card losses within 1e-4 relative of the CPU's (float64)")
+    check(grad_rel <= TRAIN_REL_TOL, "card gradients within 1e-4 of the CPU's (float64)")
+    check(loss32_rel <= TRAIN_REL_TOL, "card's first float32 loss within 1e-4 of the CPU's")
+
+    # ---- augmentation: a short run, and the apply card against CPU ---------
+    aug_out = tmp / "run_m5_aug"
+    with contextlib.redirect_stdout(io.StringIO()):
+        loop.train(M5(wcfg.classes_num), dataset, "waveform", num_steps=FEW_STEPS, lr=TRAIN_LR,
+                   log_freq=FEW_STEPS, outputs_dir=str(aug_out), batch_size=WAVE_BATCH,
+                   augment=True, cfg=wcfg, make_plots=False, limit_val_samples=1,
+                   device=DEVICE)
+    aug_rec = json.loads(open(aug_out / "metrics.jsonl").read().splitlines()[-1])
+    gather = pipe.make_waveform_gather(wcfg)
+    starts = torch.as_tensor(dataset.possible_start_indices[:WAVE_BATCH], device=dev)
+    w, y = gather(bufs, starts)
+    d = pipe.draw_augmentation(torch.Generator(device=dev).manual_seed(3), bufs, w.shape, False)
+    card_x, card_y = pipe.apply_augmentation(bufs, w, y, d, gather, False, pipe.WAVE_MIX_CUM)
+    cpu_d = pipe.AugmentDraws(d.u_mix.cpu(), d.ptr.cpu(), d.u_noise.cpu(), d.noise.cpu())
+    cpu_x, cpu_y = pipe.apply_augmentation(cpu_bufs, w.cpu(), y.cpu(), cpu_d, gather, False,
+                                           pipe.WAVE_MIX_CUM)
+    aug_err = float((card_x.cpu() - cpu_x).abs().max())
+    log(f"[wavetrain] augmentation on: {FEW_STEPS} steps, last train loss "
+        f"{aug_rec['train_loss']:.4f}, val loss {aug_rec['val_loss']:.4f}; the apply on one set "
+        f"of {WAVE_BATCH} draws, card against CPU: {aug_err:.3e} (tol 1e-6), labels "
+        f"{'equal' if torch.equal(card_y.cpu(), cpu_y) else 'differ'}")
+    check(np.isfinite(aug_rec["train_loss"]) and np.isfinite(aug_rec["val_loss"]),
+          "augmented M5 training losses are finite")
+    check(aug_err <= 1e-6 and torch.equal(card_y.cpu(), cpu_y),
+          "the augmentation apply on the card equals the CPU's")
+    del cpu_bufs, w, y, d, card_x, cpu_x
+
+    # ---- K steps in one call against K single calls, resume ----------------
+    spec_data = spec["dataset"]
+    spec_bufs = pipe.spectrogram_buffers_from_dataset(spec_data, dev)
+    block = np.stack(list(itertools.islice(dataset.epoch_start_indices(WAVE_BATCH),
+                                           STEPS_PER_CALL)))
+    spec_block = np.stack(list(itertools.islice(spec_data.epoch_start_indices(TRAIN_BATCH),
+                                                STEPS_PER_CALL)))
+    families = {
+        "M5": (lambda: M5(wcfg.classes_num), pipe.make_waveform_train_step(wcfg, 5.0, True),
+               bufs, block),
+        "CnnAvgPooling": (lambda: CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL),
+                          pipe.make_spectrogram_train_step(cfg, 5.0, "logMel", True),
+                          spec_bufs, spec_block),
+        "MobileNetV1": (lambda: MobileNetV1(cfg.classes_num, emit="logits"),
+                        pipe.make_spectrogram_train_step(cfg, 5.0, "logMel", True),
+                        spec_bufs, spec_block),
+    }
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arch in ("M5", "CnnAvgPooling"):
+            fresh, fn_step, b, blk = families[arch]
+            single = init_state(fresh(), TRAIN_LR, dev, seed=2)
+            gen = torch.Generator(device=dev).manual_seed(11)
+            want = torch.stack([fn_step(single, b, s, gen) for s in blk])
+            multi = init_state(fresh(), TRAIN_LR, dev, seed=2)
+            gen = torch.Generator(device=dev).manual_seed(11)
+            got = pipe.make_multi_step(fn_step, STEPS_PER_CALL)(multi, b, blk, gen)
+            p_err = max(float((u - v).abs().max()) for u, v in zip(
+                single.model.state_dict().values(), multi.model.state_dict().values()))
+            log(f"[wavetrain] make_multi_step, {arch}, K = {STEPS_PER_CALL} with augmentation "
+                f"against {STEPS_PER_CALL} single calls (one state, one generator seed, cuDNN "
+                f"deterministic): losses {got.tolist()} vs {want.tolist()}, max parameter / "
+                f"statistic err {p_err:.3e}")
+            check(torch.equal(got, want) and p_err == 0.0,
+                  f"{arch}: K steps in one call equal K single calls")
+
+        cont = init_state(M5(wcfg.classes_num), TRAIN_LR, dev, seed=0)
+        batches = list(itertools.islice(dataset.epoch_start_indices(WAVE_BATCH), RESUME_STEPS))
+        cont_losses = [float(step(cont, bufs, s)) for s in batches]
+        first = init_state(M5(wcfg.classes_num), TRAIN_LR, dev, seed=0)
+        for s in batches[:RESUME_AT]:
+            step(first, bufs, s)
+        ckpt = checkpoint.save_checkpoint(first, str(tmp / "run_m5_resume"), RESUME_AT)
+        resumed = checkpoint.load_checkpoint(
+            ckpt, init_state(M5(wcfg.classes_num), TRAIN_LR, dev, seed=99), model_only=False)
+        res_losses = [float(step(resumed, bufs, s)) for s in batches[RESUME_AT:]]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    res_loss_err = max(abs(a - b) for a, b in zip(res_losses, cont_losses[RESUME_AT:]))
+    res_param_err = max(float((a - b).abs().max()) for a, b in
+                        zip(cont.model.state_dict().values(), resumed.model.state_dict().values()))
+    log(f"[wavetrain] resume at step {RESUME_AT} of {RESUME_STEPS} (cuDNN deterministic for both "
+        f"runs): max loss err {res_loss_err:.3e}, max parameter / statistic err "
+        f"{res_param_err:.3e} (tol 1e-6)")
+    check(resumed.step == RESUME_STEPS and res_loss_err <= 1e-6 and res_param_err <= 1e-6,
+          "resumed M5 training equals the uninterrupted run")
+    del cont, first, resumed
+
+    # ---- profile_dir: a trace of steps 12-20 in K-step calls ---------------
+    prof_dir = tmp / "m5_profile"
+    with contextlib.redirect_stdout(io.StringIO()):
+        loop.train(M5(wcfg.classes_num), dataset, "waveform", num_steps=20, lr=TRAIN_LR,
+                   log_freq=20, outputs_dir=str(tmp / "run_m5_profile"), batch_size=WAVE_BATCH,
+                   cfg=wcfg, make_plots=False, limit_val_samples=1, profile_dir=str(prof_dir),
+                   steps_per_call=STEPS_PER_CALL, device=DEVICE)
+    traces = sorted(p.name for p in prof_dir.iterdir())
+    names = trace_names(prof_dir / traces[0]) if traces else set()
+    log(f"[wavetrain] profile_dir with steps_per_call {STEPS_PER_CALL}: {traces}, "
+        f"{(prof_dir / traces[0]).stat().st_size / 2**20 if traces else 0:.1f} MiB, ranges "
+        f"{sorted(n for n in names if str(n).startswith('train_step/'))}")
+    check(traces == ["train_steps_12-20.json"]
+          and {"train_step/forward", "train_step/backward"} <= names,
+          "profile_dir holds a trace of steps 12-20 with the step's ranges")
+
+    # ---- the predictor and the evaluator after model.train(); TF32 flags ---
+    clips = np.stack([wavfile.read(p)[1] for p in wavs[:EVAL_CLIPS]])[..., None]
+    clips_dev = torch.from_numpy(clips).to(dev)
+    out_frames = 8 * ((1 + clips.shape[1] // cfg.hop_size) // 8)
+    targets = torch.zeros(EVAL_CLIPS, out_frames, 1, device=dev)
+    cnn = seed_batch_norms(torch, CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL,
+                                                generator=torch.Generator().manual_seed(4)), 4)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    seen, after = [], []
+    hook = cnn.register_forward_hook(lambda *_: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        predict = make_batch_predictor(cnn, cfg, spec_data.mean, spec_data.std, device=DEVICE)
+        evaluate = make_batch_evaluator(cnn, cfg, spec_data.mean, spec_data.std, device=DEVICE)
+        calls = []
+        for mode in ("eval", "train"):
+            if mode == "train":
+                stats = {k: v.clone() for k, v in cnn.state_dict().items() if "running" in k}
+                cnn.train()
+            calls.append((predict(clips_dev), evaluate(clips_dev, targets)[0]))
+            after.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        stats_same = all(torch.equal(v, stats[k]) for k, v in cnn.state_dict().items()
+                         if k in stats)
+        p2_loss = float(pipe.make_spectrogram_train_step(cfg)(
+            init_state(cnn, TRAIN_LR, dev), spec_bufs, spec_block[0]))
+        after.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+    finally:
+        hook.remove()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    p2_err = max(float((a - b).abs().max()) for a, b in zip(calls[0], calls[1]))
+    log(f"[wavetrain] P2: make_batch_predictor and make_batch_evaluator on {EVAL_CLIPS} x "
+        f"{TRAIN_SECONDS:.0f} s "
+        f"int16 clips, called again after model.train(): scores differ by {p2_err:.3e} "
+        f"(tol 1e-6), running statistics {'unchanged' if stats_same else 'CHANGED'} (then "
+        f"changed by the train step), a train step after them: loss {p2_loss:.4f}")
+    log(f"[wavetrain] P3: TF32 flags (cuDNN, matmul) set True by the caller: inside the calls "
+        f"{sorted(set(seen))}, after each call {after}")
+    check(p2_err <= 1e-6, "the predictor and evaluator score in eval mode after model.train()")
+    check(stats_same, "scoring after model.train() leaves the running statistics alone")
+    check(np.isfinite(p2_loss), "a train step runs after the scoring calls")
+    check(set(seen) == {(False, False)} and set(after) == {(True, True)},
+          "TF32 off inside each call, the caller's flags after it")
+    del predict, evaluate, cnn, calls
+
+    # ---- the CLI's checkpoint scored by cli.infer --arch M5 ------------------
+    finish_cli(cli_proc, cli_log, "cli.main (Waveform)")
+    (cli_ckpt,) = (tmp / "cli_runs").glob("*/checkpoints/iteration_4.pt")
+    cli_out = tmp / "cli_infer"
+    run_cli(["sed_tpu_torch.cli.infer", "--arch", "M5", "--no_plot", "--ckpt", cli_ckpt,
+             "--outputs_dir", cli_out, "--device", DEVICE, wavs[0]], "cli.infer --arch M5")
+    cli_scores = np.load(cli_out / f"{Path(wavs[0]).stem}_scores.npy")
+    ref = infer.predict_file_m5(infer.load_model(str(cli_ckpt), 1, "M5"), wavs[0], wcfg,
+                                device=DEVICE)
+    cli_err = float(np.abs(cli_scores - ref).max())
+    log(f"[wavetrain] python -m sed_tpu_torch.cli.main --no_plot (defaults: Waveform, M5, batch "
+        f"128) on {WAVE_CLI_FILES} files, 4 steps -> {cli_ckpt.relative_to(tmp)}; cli.infer "
+        f"--arch M5 scores {Path(wavs[0]).name}: {cli_scores.shape}, against the in-process "
+        f"predict_file_m5 {cli_err:.3e} (tol {SCORE_TOL}); {time.perf_counter() - t_cli:.1f} s "
+        f"since the training CLI started")
+    check(cli_scores.shape == ref.shape == (1 + (clips.shape[1] - wcfg.frame_size)
+                                            // wcfg.hop_size, 1),
+          f"cli.infer --arch M5 scores one value a frame ({cli_scores.shape})")
+    check(cli_err <= SCORE_TOL, "the CLI's M5 scores equal the in-process ones")
+
+    # ---- times ---------------------------------------------------------------
+    log(f"[times] phase 12 on {smi}; each line's card is this one:")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    step_ms, parts, top = {}, {}, []
+    for aug in (False, True):
+        st = init_state(M5(wcfg.classes_num), TRAIN_LR, dev, seed=1)
+        fn_step = pipe.make_waveform_train_step(wcfg, 5.0, augment=aug)
+        step_ms[aug] = time_ms(torch, lambda: fn_step(st, bufs, starts, gen))
+        if not aug:
+            parts, top = profile_parts(torch, lambda: fn_step(st, bufs, starts, gen),
+                                       TRAIN_PROFILE_STEPS)
+        log(f"[times] train step M5 augmentation {'on' if aug else 'off'}, batch {WAVE_BATCH} x "
+            f"{wcfg.frame_size} samples: {step_ms[aug]:.4f} ms (CUDA-event median of {REPS}; "
+            f"{WAVE_BATCH / step_ms[aug] * 1e3:.1f} im/sec; {smi})")
+    if parts and top:
+        part = {k.split("/")[1]: v for k, v in parts.items()}
+        busy = sum(ms for _, ms in top)
+        part["backward"] = busy - sum(v for k, v in part.items() if k != "backward")
+        log(f"[times] M5 step by part (torch.profiler, {TRAIN_PROFILE_STEPS} steps, device ms per "
+            f"step, {smi}; backward = the kernels outside the other ranges): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(part.items(), key=lambda r: -r[1])))
+        log(f"[times] its kernels: {busy:.4f} ms a step ({busy / step_ms[False]:.1%} of the "
+            f"step); the 8 largest:")
+        for kname, ms in top[:8]:
+            log(f"[times]   {ms:.4f} ms  {kname[:90]}")
+    else:
+        log("[times] M5 step by part: torch.profiler captured no device time (not measured)")
+    # cuDNN picks its algorithms by heuristics (the port leaves benchmark
+    # mode off); timed once with them measured at the first call instead.
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        st = init_state(M5(wcfg.classes_num), TRAIN_LR, dev, seed=1)
+        fn_step = pipe.make_waveform_train_step(wcfg, 5.0, augment=False)
+        bench_ms = time_ms(torch, lambda: fn_step(st, bufs, starts, gen))
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    log(f"[times] train step M5 augmentation off with cuDNN's benchmark mode on (a measurement "
+        f"only): {bench_ms:.4f} ms (CUDA-event median of {REPS}; {smi})")
+    # Both forms with STEPS_PER_CALL steps between the events, as train()
+    # queues its steps without waiting for the card.
+    for arch, (fresh, fn_step, b, blk) in families.items():
+        st = init_state(fresh(), TRAIN_LR, dev, seed=1)
+        blk_dev = torch.as_tensor(blk, device=dev)
+        multi = pipe.make_multi_step(fn_step, STEPS_PER_CALL)
+        one = [time_ms(torch, lambda: fn_step(st, b, blk_dev[0], gen), calls=STEPS_PER_CALL)]
+        many = time_ms(torch, lambda: multi(st, b, blk_dev, gen)) / STEPS_PER_CALL
+        one.append(time_ms(torch, lambda: fn_step(st, b, blk_dev[0], gen), calls=STEPS_PER_CALL))
+        log(f"[times] train step {arch} (augmentation on), {STEPS_PER_CALL} steps between the "
+            f"events: steps_per_call 1 {one[0]:.4f} / {one[1]:.4f} ms, steps_per_call "
+            f"{STEPS_PER_CALL} {many:.4f} ms a step (CUDA-event medians of {REPS}, single steps "
+            f"before and after; {smi})")
+    log(f"[times] evaluate (M5, frames padded to {loop.WAVEFORM_EVAL_BUCKET}, host metrics): "
+        f"{eval_ms:.2f} ms per {TRAIN_SECONDS:.0f} s validation recording; train() im/sec "
+        f"{im_sec} (the reference's definition; {smi})")
+    del bufs, spec_bufs, families
+
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    log(f"[times] phase 12 peak device memory {peak:.1f} MiB ({smi})")
+    log(f"[wavetrain] phase {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1359,6 +1825,10 @@ def main() -> int:
     from sed_tpu_torch.ops.mel import mel_filterbank
     from sed_tpu_torch.ops.mulaw import mulaw_encode
 
+    # The script's own reference forwards and timings run in full float32,
+    # as each entry point of the port does for its own call.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE, 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1893,13 +2363,16 @@ def main() -> int:
         file_launches = files_phase(torch, cfg, dev, smi, Path(files_tmp))
     log(f"[files] total {time.perf_counter() - phase_t0:.1f} s")
 
-    # ---- 11. training ------------------------------------------------------
+    # ---- 11. training; 12. M5 training on the same corpus -------------------
     with tempfile.TemporaryDirectory() as train_tmp:
-        train_launches = train_phase(torch, cfg, dev, smi, Path(train_tmp))
-    log(f"[train] total {time.perf_counter() - phase_t0:.1f} s")
+        train_launches, corpus = train_phase(torch, cfg, dev, smi, Path(train_tmp))
+        log(f"[train] total {time.perf_counter() - phase_t0:.1f} s")
+        wave_launches = wavetrain_phase(torch, cfg, dev, smi, Path(train_tmp), corpus)
+        del corpus
+    log(f"[wavetrain] total {time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": "wave_stft_power",
          "kernel": "wave_stft_power_kernel<LOG2_M> (stockham_fft, PackedWaveLoad, PowerStore)",
          "route": "cuda", "source": source,
@@ -1930,7 +2403,10 @@ def main() -> int:
          "bound_by": k3_by, "library_ms": k3_lib_ms, "queued_ms": k3_q_ms,
          "queued_plain_ms": k3_q_plain_ms, "queued_library_ms": k3_q_lib_ms},
         *impl_entries,
-    ]}), flush=True)
+    ]
+    for e in entries:   # phase 12's path, M5 training: every count is 0
+        e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
@@ -1941,4 +2417,4 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     finally:
-        stop_lesions()
+        stop_background()

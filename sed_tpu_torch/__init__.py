@@ -4,15 +4,15 @@ The module paths mirror ``sed_tpu`` so each counterpart is easy to find.
 The package imports torch, numpy and scipy only; it never imports JAX or
 anything of ``sed_tpu`` and keeps its own copies of what it needs.
 
-Covered so far (scoring, streaming, and training of the spectrogram
-family; waveform (M5) training is not ported yet):
+Covered so far (scoring, streaming of the spectrogram family, and
+training of all three model families):
 
   configs:    AudioConfig, SpectrogramConfig, WaveformConfig
   features:   logmel_features(_batch), multichannel_stft,
               multichannel_complex_to_log_mel -> ops.cuda_featurizer
               (hand-written CUDA kernels on CUDA tensors, their plain
               PyTorch versions on CPU tensors)
-  data:       SpectrogramDataset, preprocess_data
+  data:       SpectrogramDataset, WaveformDataset, preprocess_data
   models:     CnnAvgPooling, MobileNetV1, M5, models.convert (sed_tpu
               weights in), models.describe
   training:   train, evaluate, make_optimizer, save_checkpoint,
@@ -23,7 +23,7 @@ family; waveform (M5) training is not ported yet):
               StreamingDetector, DeviceStreamingDetector, StreamPool,
               StreamServer / StreamClient
   CLIs:       python -m sed_tpu_torch.cli.main (--train_features
-              Spectogram), python -m sed_tpu_torch.cli.infer (windowed
+              Waveform or Spectogram), python -m sed_tpu_torch.cli.infer (windowed
               per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5),
               cli.stream, cli.serve_socket
 
@@ -42,6 +42,7 @@ _EXPORTS = {
     "multichannel_stft": "sed_tpu_torch.ops.featurizer",
     "multichannel_complex_to_log_mel": "sed_tpu_torch.ops.featurizer",
     "SpectrogramDataset": "sed_tpu_torch.data.spectrogram_dataset",
+    "WaveformDataset": "sed_tpu_torch.data.waveform_dataset",
     "preprocess_data": "sed_tpu_torch.data.preprocess",
     "CnnAvgPooling": "sed_tpu_torch.models.cnn",
     "MobileNetV1": "sed_tpu_torch.models.cnn",

@@ -189,20 +189,20 @@ def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int =
     """
     import torch
 
-    from sed_tpu_torch.inference import emits_scores, no_tf32, resolve_device
+    from sed_tpu_torch.inference import emits_scores, resolve_device
     from sed_tpu_torch.io.audio import read_multichannel_audio
     from sed_tpu_torch.ops.featurizer import logmel_features, resolve_featurizer_precision
     from sed_tpu_torch.parallel.time_shard import windowed_forward
+    from sed_tpu_torch.utils.precision import full_float32
 
     resolve_featurizer_precision(featurizer_precision)
     device = resolve_device(device)
-    no_tf32()
     model = model.to(device).eval()
     halo = halo_floor(model, halo)
     stage = _stage_timer(device, timings)
     wav = read_multichannel_audio(audio_path, target_fs=cfg.working_sample_rate, cfg=cfg)
     stage("read")
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():
         log_mel = logmel_features(torch.from_numpy(wav.astype(np.float32)).to(device), cfg,
                                   "auto", "auto", featurizer_precision)
         feats = log_mel
@@ -252,18 +252,19 @@ def predict_file_m5(model, audio_path: str, cfg, frame_bucket: int = 32, device=
     and framing."""
     import torch
 
-    from sed_tpu_torch.inference import no_tf32, resolve_device
+    from sed_tpu_torch.inference import resolve_device
     from sed_tpu_torch.io.audio import read_multichannel_audio
+    from sed_tpu_torch.utils.precision import full_float32
 
     device = resolve_device(device)
-    no_tf32()
     model = model.to(device).eval()
     stage = _stage_timer(device, timings)
     wav = read_multichannel_audio(audio_path, target_fs=cfg.working_sample_rate, cfg=cfg)
     stage("read")
     frames = hop_frames(torch.from_numpy(wav.astype(np.float32)).to(device), cfg)
     stage("featurizer")
-    scores = score_frames_m5(model, frames, frame_bucket).cpu().numpy()
+    with full_float32():
+        scores = score_frames_m5(model, frames, frame_bucket).cpu().numpy()
     stage("model")
     return scores
 

@@ -1,21 +1,23 @@
 """Training CLI with the reference's flag surface (counterpart of
 ``sed_tpu.cli.main``; reference main.py:85-141).
 
+    python -m sed_tpu_torch.cli.main --dataset_dir data --dataset_name FilmClap
     python -m sed_tpu_torch.cli.main --train_features Spectogram \\
         --dataset_dir data --dataset_name FilmClap --model CnnAvgPooling
 
-Trains the spectrogram family (CnnAvgPooling(TRAIN_CHANNEL_AND_POOL), or
-MobileNetV1 emitting logits) on ``--device`` (default ``cuda``; ``cpu``
+Trains M5 on raw waveform frames (``--train_features Waveform``, the
+default) or the spectrogram family (CnnAvgPooling(TRAIN_CHANNEL_AND_POOL),
+or MobileNetV1 emitting logits) on ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions of the kernels).  Checkpoints are the port's
 ``checkpoints/iteration_{n}.pt``; ``--ckpt`` restores the weights only, like
 the reference resume (main.py:37-39), ``--resume auto`` the full state of
-the run's latest checkpoint.  ``--no_plot`` (the port's addition) skips the
-PNGs, which need matplotlib; metrics.jsonl is written either way.
+the run's latest checkpoint.  ``--steps_per_call K`` runs K steps a call,
+``--profile_dir`` writes a profiler trace of steps 10-20.  ``--no_plot``
+(the port's addition) skips the PNGs, which need matplotlib; metrics.jsonl
+is written either way.
 
-Not ported yet, and refused by name before any work: ``--train_features
-Waveform``, ``--steps_per_call`` > 1, ``--num_devices`` > 1, ``--bf16``,
-``--profile_dir``, ``--preprocess_workers`` > 0, and plots without
-matplotlib.
+Not ported yet, and refused by name before any work: ``--num_devices`` > 1,
+``--bf16``, ``--preprocess_workers`` > 0, and plots without matplotlib.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dataset_dir", type=str, default="../data", help="Directory of dataset.")
     parser.add_argument("--dataset_name", type=str, default="FilmClap", help="FilmClap or TAU")
     parser.add_argument("--train_features", type=str, default="Waveform",
-                        help="Spectogram or Waveform (Waveform is not ported yet)")
+                        help="Waveform (M5 on raw frames; its checkpoints load into "
+                             "cli.infer --arch M5) or Spectogram (--model)")
     parser.add_argument("--model", type=str, default="CnnAvgPooling",
                         choices=["CnnAvgPooling", "MobileNetV1"],
                         help="spectrogram model family; MobileNetV1 trains with its "
@@ -79,14 +82,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_devices", type=int, default=1,
                         help="data-parallel devices: only 1 is ported")
     parser.add_argument("--steps_per_call", type=int, default=1,
-                        help="train steps per dispatch: only 1 is ported")
+                        help="train steps per call: K > 1 runs K steps on a (K, batch) "
+                             "block of start indices; num_train_steps and log_freq "
+                             "must be multiples of K")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--bf16", action="store_true", default=False,
                         help="bfloat16 model compute: not ported")
     parser.add_argument("--debug_nans", action="store_true", default=False,
                         help="torch.autograd anomaly detection (NaN/inf in backward)")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="profiler trace of steps 10-20: not ported")
+                        help="write a torch.profiler trace of steps 10-20 there "
+                             "(a Chrome trace file)")
     parser.add_argument("--no_plot", action="store_true", default=False,
                         help="write no PNGs (they need matplotlib)")
     return parser
@@ -95,16 +101,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` naming every option that is not ported, before any work."""
     unported = [flag for flag, on in (
-        ("--train_features Waveform", args.train_features.lower() == "waveform"),
-        ("--steps_per_call > 1", args.steps_per_call != 1),
         ("--num_devices > 1", args.num_devices != 1),
         ("--bf16", args.bf16),
-        ("--profile_dir", bool(args.profile_dir)),
         ("--preprocess_workers > 0", args.preprocess_workers != 0),
     ) if on]
     if unported:
         parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
-    if args.train_features.lower() != "spectogram":
+    if args.train_features.lower() not in ("spectogram", "waveform"):
         parser.error(f"training features can be raw waveform or spectogram only, "
                      f"'{args.train_features}' given")
     if not args.no_plot:
@@ -160,6 +163,43 @@ def get_spectrogram_dataset_and_model(args):
     return dataset, model, cfg, descriptor, "spectogram"
 
 
+def get_waveform_dataset_and_model(args):
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.data.waveform_dataset import WaveformDataset
+    from sed_tpu_torch.io.film_clap import get_film_clap_paths_and_labels
+    from sed_tpu_torch.io.tau import ensure_tau_data, get_tau_sed_paths_and_labels
+    from sed_tpu_torch.models.m5 import M5
+
+    cfg = WaveformConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
+    if args.dataset_name.lower() == "tau":
+        audio_dir, meta_data_dir = ensure_tau_data(
+            f"{args.dataset_dir}/Tau_sound_events_2019", fold_name="eval"
+        )
+        items = get_tau_sed_paths_and_labels(audio_dir, meta_data_dir, cfg)
+    elif args.dataset_name.lower() == "filmclap":
+        items = get_film_clap_paths_and_labels(
+            os.path.join(args.dataset_dir, "FilmClap"), cfg.time_margin
+        )
+    else:
+        raise ValueError(
+            f"Only tau and filmclap datasets are supported, '{args.dataset_name}' given"
+        )
+
+    dataset = WaveformDataset(
+        items,
+        augment_data=args.augment_data,
+        balance_classes=args.balance_classes,
+        val_descriptor=parse_val_descriptor(args.val_descriptor),
+        cfg=cfg,
+        seed=args.seed,
+        workers=args.preprocess_workers,
+    )
+    # The reference hardcodes M5(1) (main.py:69) because classes_num is pinned
+    # to 1; with a real multi-class label list the head must match.
+    model = M5(cfg.classes_num)
+    return dataset, model, cfg, cfg.cfg_descriptor, "waveform"
+
+
 def main(argv=None):
     parser = build_arg_parser()
     args = parser.parse_args(argv)
@@ -173,7 +213,13 @@ def main(argv=None):
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
-    dataset, model, cfg, descriptor, mode = get_spectrogram_dataset_and_model(args)
+    if args.train_features.lower() == "spectogram":
+        dataset, model, cfg, descriptor, mode = get_spectrogram_dataset_and_model(args)
+    else:
+        if args.model != "CnnAvgPooling":
+            raise ValueError("--model selects the spectrogram family; "
+                             "waveform training uses M5")
+        dataset, model, cfg, descriptor, mode = get_waveform_dataset_and_model(args)
 
     train_name = f"{args.dataset_name}_cfg({descriptor}_b{args.batch_size}_lr{args.lr}_{args.train_tag}"
     if args.balance_classes:
@@ -215,6 +261,8 @@ def main(argv=None):
         seed=args.seed,
         initial_state=initial_state,
         make_plots=not args.no_plot,
+        profile_dir=args.profile_dir or None,
+        steps_per_call=args.steps_per_call,
         device=args.device,
     )
 

@@ -19,6 +19,7 @@ import torch
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.ops.featurizer import (logmel_features_batch,
                                           resolve_featurizer_precision)
+from sed_tpu_torch.utils.precision import full_float32
 
 
 def resolve_device(device) -> torch.device:
@@ -36,17 +37,6 @@ def emits_scores(model: torch.nn.Module) -> bool:
     return getattr(model, "emit", "logits") == "scores"
 
 
-def no_tf32() -> None:
-    """Keep cuDNN convolutions and matmuls in full float32 for the process.
-
-    cuDNN runs float32 convolutions in TF32 by default, which keeps about
-    three decimal digits and would take the scores far outside the 1e-5
-    budget against ``sed_tpu``; every scoring entry point calls this.
-    """
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def make_batch_predictor(
     model: torch.nn.Module,
     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
@@ -60,15 +50,16 @@ def make_batch_predictor(
     ``waveforms``: (batch, samples, channels) array or tensor, float32,
     int16 (PCM16) or uint8 (µ-law); ``scores``: (batch, frames', classes)
     sigmoid confidences, a tensor on ``device``.  ``model`` is CnnAvgPooling
-    or MobileNetV1; it is moved to ``device`` and put in eval mode.  A model
-    that emits scores gets no second sigmoid, which would squeeze every
-    score into [0.5, 0.731].  TF32 is turned off for the process
-    (:func:`no_tf32`).
+    or MobileNetV1, moved to ``device``.  Each call puts it in eval mode
+    (running BatchNorm statistics, which the call leaves as they were) and
+    leaves it there, and runs in full float32 (``full_float32``: TF32 off
+    for the call, the caller's settings back after).  A model that emits
+    scores gets no second sigmoid, which would squeeze every score into
+    [0.5, 0.731].
     """
     resolve_featurizer_precision(featurizer_precision)
     device = resolve_device(device)
-    no_tf32()
-    model = model.to(device).eval()
+    model = model.to(device)
     sigmoid = not emits_scores(model)
 
     def as_stat(a):
@@ -78,7 +69,9 @@ def make_batch_predictor(
     mean_t, std_t = as_stat(mean), as_stat(std)
 
     @torch.inference_mode()
+    @full_float32()
     def predict(waveforms) -> torch.Tensor:
+        model.eval()
         x = torch.as_tensor(waveforms, device=device)
         feats = logmel_features_batch(x, cfg)        # (B, C, T, M): NCHW
         if mean_t is not None:
@@ -161,7 +154,9 @@ def make_batch_evaluator(
     21-threshold metric sweep (``utils.metrics.calculate_metrics_torch``).
     Returns tensors on ``device``: (scores (B, F, C), losses (B,), recalls
     (B, 21), precisions (B, 21), APs (B,)).  ``model`` must emit logits (a
-    MobileNetV1 needs ``emit='logits'``).  TF32 is turned off.
+    MobileNetV1 needs ``emit='logits'``).  Each call puts the model in eval
+    mode and leaves it there, in full float32, as
+    :func:`make_batch_predictor`'s does.
     """
     from sed_tpu_torch.train.loss import weighted_bce_elementwise
     from sed_tpu_torch.utils.metrics import calculate_metrics_torch
@@ -170,8 +165,7 @@ def make_batch_evaluator(
         raise ValueError("make_batch_evaluator needs a model that emits logits "
                          "(MobileNetV1(emit='logits'))")
     device = resolve_device(device)
-    no_tf32()
-    model = model.to(device).eval()
+    model = model.to(device)
 
     def as_stat(a):
         return None if a is None else torch.as_tensor(np.asarray(a, np.float32),
@@ -180,7 +174,9 @@ def make_batch_evaluator(
     mean_t, std_t = as_stat(mean), as_stat(std)
 
     @torch.inference_mode()
+    @full_float32()
     def evaluate(waveforms, targets):
+        model.eval()
         x = torch.as_tensor(waveforms, device=device)
         feats = logmel_features_batch(x, cfg)
         if mean_t is not None:

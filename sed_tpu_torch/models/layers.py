@@ -4,8 +4,8 @@ NCHW layout: (batch, channels, time, mel).  Initialization matches the
 reference: conv and linear weights ``kaiming_uniform_(a=0, fan_in,
 leaky_relu)``, i.e. bound sqrt(6 / fan_in); biases zero; BatchNorm scale 1,
 bias 0, running statistics (0, 1).  Draws come from an explicit
-``torch.Generator``.  :class:`BatchNorm2d` updates its running variance in
-training as ``sed_tpu`` (flax) does.
+``torch.Generator``.  :class:`BatchNorm2d` and :class:`BatchNorm1d` update
+their running variance in training as ``sed_tpu`` (flax) does.
 """
 
 from __future__ import annotations
@@ -20,17 +20,18 @@ from torch import nn
 BN_EPS = 1e-5
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training forward updates ``running_var``
-    with the *biased* batch variance.
+class _BiasedRunningVar:
+    """Mixin for a torch batch norm whose training forward updates
+    ``running_var`` with the *biased* batch variance.
 
     This follows ``sed_tpu``'s flax ``BatchNorm`` (momentum 0.9, i.e. torch's
-    0.1), not the original torch reference: torch's own layer stores the
+    0.1), not the original torch reference: torch's own layers store the
     unbiased variance, which would drift from ``sed_tpu``'s statistics most
     in the deep, small-spatial blocks.  The batch is still normalized with
     its biased variance, as both do; the evaluation forward, the parameters
-    and the state-dict keys are ``nn.BatchNorm2d``'s.  torch's own update,
-    ``r = (1 - m) * old + m * var * n / (n - 1)`` over n values a channel,
+    and the state-dict keys are the torch layer's.  torch's own update,
+    ``r = (1 - m) * old + m * var * n / (n - 1)`` over the n values a
+    channel has in the batch (batch x length, or batch x height x width),
     becomes ``r * (n - 1) / n + old * (1 - m) / n = (1 - m) * old + m *
     var``: no second pass over the batch.  The result replaces the buffer
     rather than writing into it, since autograd keeps the one the batch
@@ -47,6 +48,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var = torch.add(self.running_var * ((n - 1) / n), old,
                                          alpha=(1.0 - self.momentum) / n)
         return y
+
+
+class BatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running variance (CnnAvgPooling,
+    MobileNetV1)."""
+
+
+class BatchNorm1d(_BiasedRunningVar, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's running variance (M5)."""
 
 
 def kaiming_uniform_(weight: torch.Tensor,

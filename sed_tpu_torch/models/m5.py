@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sed_tpu_torch.models.layers import BN_EPS, init_batch_norm_, kaiming_uniform_
+from sed_tpu_torch.models.layers import BN_EPS, BatchNorm1d, init_batch_norm_, kaiming_uniform_
 
 # Waveform samples per block for the space-to-depth stem.
 S2D_BLOCK = 16
@@ -90,7 +90,7 @@ def s2d_conv1(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
 def _conv_bn_relu(in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                   pad: int = 1):
     return [nn.Conv1d(in_ch, out_ch, kernel, stride=stride, padding=pad),
-            nn.BatchNorm1d(out_ch, eps=BN_EPS), nn.ReLU()]
+            BatchNorm1d(out_ch, eps=BN_EPS), nn.ReLU()]
 
 
 class M5(nn.Module):

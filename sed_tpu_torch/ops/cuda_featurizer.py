@@ -58,6 +58,7 @@ import torch
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.ops import mel as mel_ops
 from sed_tpu_torch.ops import stft as stft_ops
+from sed_tpu_torch.utils.precision import full_float32
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "featurizer.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -495,7 +496,7 @@ def _check_bands(bands: MelBands, device: torch.device) -> None:
 def mel_log_plain(power: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: dense ``power @ fb`` (TF32 off), clamp, 10*log10.
     Computes in the dtype of ``power`` (float32 or float64)."""
-    with stft_ops.full_precision_matmul():
+    with full_float32():
         melp = torch.matmul(power, fb.to(power.dtype))
     return mel_ops.power_to_db(melp)
 

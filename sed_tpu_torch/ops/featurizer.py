@@ -27,6 +27,7 @@ from sed_tpu_torch.ops import cuda_featurizer as kernels
 from sed_tpu_torch.ops import mel as mel_ops
 from sed_tpu_torch.ops import stft as stft_ops
 from sed_tpu_torch.ops.mulaw import mulaw_decode, mulaw_decode_np
+from sed_tpu_torch.utils.precision import full_float32
 
 # The parity tier is the only one ported.  sed_tpu's 'fast' ('bf16x3') and
 # 'turbo' ('bf16x1') tiers, and its raw 'bf16xN' strings, count bf16 passes
@@ -106,7 +107,7 @@ def power_to_logmel(power: torch.Tensor,
     if use_pallas:
         return kernels.power_to_logmel_cuda(power, cfg)
     fb = torch.from_numpy(mel_ops.mel_filterbank(cfg)).to(power.device)
-    with stft_ops.full_precision_matmul():
+    with full_float32():
         melp = torch.matmul(power.to(torch.float32), fb)
     return mel_ops.power_to_db(melp)
 

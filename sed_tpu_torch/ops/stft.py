@@ -22,13 +22,13 @@ Two FFT backends, as in ``sed_tpu`` (``fft_impl``):
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
+from sed_tpu_torch.utils.precision import full_float32
 
 
 def symmetric_hann(win_length: int) -> np.ndarray:
@@ -82,18 +82,6 @@ def windowed_frames(y: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
     return frame_signal(y, cfg.nfft, cfg.hop_size) * window
 
 
-@contextlib.contextmanager
-def full_precision_matmul():
-    """Float32 matrix products in full float32 on the card (TF32 off) for the
-    duration, restoring the caller's setting after."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
 # ---------------------------------------------------------------------------
 # Matmul rFFT: N = N1 * N2 Cooley-Tukey with the DFT stages as matmuls.
 # ---------------------------------------------------------------------------
@@ -133,7 +121,7 @@ def _cfft_matmul(xr: torch.Tensor, xi: torch.Tensor, m: int):
     batch = xr.shape[:-1]
     xr = xr.reshape(batch + (n2, n1))
     xi = xi.reshape(batch + (n2, n1))
-    with full_precision_matmul():
+    with full_float32():
         # Inner DFT over n2: Y[k2, n1] = sum_n2 W2[k2, n2] x[n2, n1] (complex).
         yr = torch.matmul(w2r, xr) - torch.matmul(w2i, xi)
         yi = torch.matmul(w2r, xi) + torch.matmul(w2i, xr)

@@ -23,11 +23,11 @@ Two classes:
   * :class:`StreamingDetector` — the single-stream API.
 
 The model is a ``torch.nn.Module`` holding its weights, in the place of
-``sed_tpu``'s (model, params, batch_stats) triple.  Parity: building the
-stream functions sets ``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32`` to False for the process, as
-``make_batch_predictor`` does; the streaming invariant (scores equal
-offline) holds only at FP32.
+``sed_tpu``'s (model, params, batch_stats) triple.  Parity: each call of
+the stream functions runs in full float32 (``utils.precision.full_float32``:
+cuDNN's and matmul's TF32 off for the call, the caller's settings back
+after), as ``make_batch_predictor``'s does; the streaming invariant (scores
+equal offline) holds only at FP32.
 """
 
 from __future__ import annotations
@@ -38,9 +38,10 @@ import numpy as np
 import torch
 
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
-from sed_tpu_torch.inference import no_tf32, resolve_device
+from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.ops.featurizer import logmel_frames
 from sed_tpu_torch.parallel.time_shard import receptive_field
+from sed_tpu_torch.utils.precision import full_float32
 
 
 def refuse_unported(qparams=None, mesh=None) -> None:
@@ -66,12 +67,13 @@ def make_stream_fns(model: torch.nn.Module,
     ``forward``: (batch, 1, frames, mel) NCHW -> (batch, frames', classes)
     sigmoid scores on ``device``.
 
-    ``model`` is moved to ``device`` and put in eval mode.
+    ``model`` is moved to ``device``.  Each call of ``forward`` puts it in
+    eval mode (running BatchNorm statistics, left as they were) and leaves
+    it there; both functions run in full float32 for the call.
     """
     refuse_unported(qparams)
     device = resolve_device(device)
-    no_tf32()
-    model = model.to(device).eval()
+    model = model.to(device)
 
     def as_stat(a):
         return None if a is None else torch.as_tensor(np.asarray(a, np.float32),
@@ -80,6 +82,7 @@ def make_stream_fns(model: torch.nn.Module,
     mean_t, std_t = as_stat(mean), as_stat(std)
 
     @torch.no_grad()
+    @full_float32()
     def featurize(frames) -> torch.Tensor:
         lm = logmel_frames(torch.as_tensor(frames, device=device), cfg)
         if mean_t is not None:
@@ -87,7 +90,9 @@ def make_stream_fns(model: torch.nn.Module,
         return lm
 
     @torch.no_grad()
+    @full_float32()
     def forward(x) -> torch.Tensor:
+        model.eval()
         return torch.sigmoid(model(torch.as_tensor(x, device=device)))
 
     return featurize, forward

@@ -1,12 +1,13 @@
-"""Training orchestration and whole-recording evaluation (counterpart of the
-spectrogram path of ``sed_tpu.train.loop``).
+"""Training orchestration and whole-recording evaluation (counterpart of
+``sed_tpu.train.loop``).
 
 Reference: train.py:12-132 (eval + train).  The hot loop is the device step
-of :mod:`sed_tpu_torch.data.device_pipeline`; this module owns epochs,
-logging (the reference's im/sec, train.py:113-115), periodic evaluation on
-whole validation recordings, metrics.jsonl, diagnostic images and
-checkpoints.  Not ported yet, and refused by name: the waveform (M5) mode,
-``steps_per_call`` > 1, ``mesh`` and ``profile_dir``.
+of :mod:`sed_tpu_torch.data.device_pipeline`, for the spectrogram family
+(CnnAvgPooling, MobileNetV1) or the raw waveform (M5), one step or K steps
+a call; this module owns epochs, logging (the reference's im/sec,
+train.py:113-115), periodic evaluation on whole validation recordings,
+metrics.jsonl, diagnostic images, checkpoints and a profiler trace of steps
+10-20.  Not ported yet, and refused by name: ``mesh`` (slice G).
 """
 
 from __future__ import annotations
@@ -17,16 +18,28 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from sed_tpu_torch.configs import SpectrogramConfig
-from sed_tpu_torch.data.device_pipeline import (make_spectrogram_train_step,
-                                                spectrogram_buffers_from_dataset)
-from sed_tpu_torch.inference import no_tf32, resolve_device
+from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
+from sed_tpu_torch.data.device_pipeline import (make_multi_step, make_spectrogram_train_step,
+                                                make_waveform_train_step,
+                                                spectrogram_buffers_from_dataset,
+                                                waveform_buffers_from_dataset)
+from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.train.checkpoint import save_checkpoint
 from sed_tpu_torch.train.loss import weighted_bce_with_logits_np
 from sed_tpu_torch.train.state import init_state, make_eval_forward
 from sed_tpu_torch.utils.metrics import calculate_metrics
+from sed_tpu_torch.utils.precision import full_float32
 from sed_tpu_torch.utils.progress import ProgressPlotter
+
+MODES = ("spectogram", "waveform")
+# M5 evaluation pads a recording's frames to a multiple of this (sed_tpu's
+# bucket; frames are independent in eval mode, so the padding changes no
+# score).
+WAVEFORM_EVAL_BUCKET = 32
+# The profiler window of train(profile_dir=...): steps 10 to 20.
+PROFILE_STEPS = (10, 20)
 
 
 def _sigmoid_np(x: np.ndarray) -> np.ndarray:
@@ -35,11 +48,8 @@ def _sigmoid_np(x: np.ndarray) -> np.ndarray:
                     np.exp(x) / (1.0 + np.exp(x))).astype(np.float32)
 
 
-def _refuse_waveform(mode: str) -> None:
-    if mode == "waveform":
-        raise NotImplementedError("waveform (M5) training is not ported yet "
-                                  "(see ROADMAP.md, slice B part 2)")
-    if mode != "spectogram":
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
         raise ValueError(f"mode must be 'spectogram' or 'waveform', got {mode!r}")
 
 
@@ -57,18 +67,22 @@ def evaluate(
 ):
     """Whole-recording evaluation (reference: train.py:12-74).
 
-    Each validation recording goes through the fully convolutional model as
-    one (1, channels, frames, mel) batch on the model's device: for
-    CnnAvgPooling through ``parallel.time_shard.bucketed_forward_exact``
-    (a bucket-padded main pass and an exact tail pass, so a set of mixed
-    lengths runs a few distinct shapes), otherwise as it is.  Losses,
+    Spectrogram mode: each validation recording goes through the fully
+    convolutional model as one (1, channels, frames, mel) batch on the
+    model's device: for CnnAvgPooling through
+    ``parallel.time_shard.bucketed_forward_exact`` (a bucket-padded main
+    pass and an exact tail pass, so a set of mixed lengths runs a few
+    distinct shapes), otherwise as it is.  Waveform mode: a recording is a
+    batch of hop-strided (frames, channels, samples) frames, each scoring
+    one logit a class; the batch axis is padded to a multiple of
+    :data:`WAVEFORM_EVAL_BUCKET`.  The model runs in eval mode.  Losses,
     sigmoid and metrics run on the host in numpy.  Returns (losses,
     recall_sets, precision_sets, APs, event_metrics), the last a
     per-recording list of event- and segment-based metric dicts, or []
     when ``cfg`` is None.  ``state`` is the :class:`TrainState` whose model
     is evaluated (``model`` is kept for ``sed_tpu``'s signature).
     """
-    _refuse_waveform(mode)
+    _check_mode(mode)
     model = state.model if state is not None else model
     forward = make_eval_forward(model)
     device = next(model.parameters()).device
@@ -76,7 +90,7 @@ def evaluate(
     event_ms = []
     debug = []  # (input, output_scores, target, name)
 
-    model_config = getattr(model, "model_config", None)
+    model_config = getattr(model, "model_config", None) if mode == "spectogram" else None
     if model_config is not None:
         from sed_tpu_torch.models.cnn import num_pools
         from sed_tpu_torch.parallel.time_shard import (bucketed_forward_exact,
@@ -93,16 +107,29 @@ def evaluate(
 
     for input_np, target_np, name in dataset.get_validation_sampler(limit_val_samples):
         x = torch.from_numpy(np.ascontiguousarray(input_np, np.float32)).to(device)
-        if model_config is not None:
-            logits = bucketed_forward_exact(forward, x, stride, halo)
+        if mode == "waveform":
+            # (frames, channels, samples): a batch of frames, NCW.
+            n = x.shape[0]
+            padded = WAVEFORM_EVAL_BUCKET * -(-n // WAVEFORM_EVAL_BUCKET)
+            logits = forward(F.pad(x, (0, 0, 0, 0, 0, padded - n)))[:n].cpu().numpy()
+            loss = weighted_bce_with_logits_np(logits, np.asarray(target_np), pos_weight,
+                                               multi_frame=False)
+            scores = _sigmoid_np(logits)
+            target = np.asarray(target_np)
+            if target.ndim == 1:   # scalar labels -> (frames, 1) like the scores
+                target = target.reshape(-1, 1)
+            plot_input = np.transpose(np.asarray(input_np), (1, 0, 2))
         else:
-            logits = forward(x)
-        logits = logits.cpu().numpy()
-        loss = weighted_bce_with_logits_np(logits, np.asarray(target_np), pos_weight,
-                                           multi_frame=True)
-        scores = _sigmoid_np(logits)[0]
-        target = np.asarray(target_np)[0]
-        plot_input = np.asarray(input_np)[0]
+            if model_config is not None:
+                logits = bucketed_forward_exact(forward, x, stride, halo)
+            else:
+                logits = forward(x)
+            logits = logits.cpu().numpy()
+            loss = weighted_bce_with_logits_np(logits, np.asarray(target_np), pos_weight,
+                                               multi_frame=True)
+            scores = _sigmoid_np(logits)[0]
+            target = np.asarray(target_np)[0]
+            plot_input = np.asarray(input_np)[0]
 
         recal_vals, precision_vals, ap = calculate_metrics(scores, target)
         losses.append(float(loss))
@@ -188,6 +215,30 @@ def report_log_point(plotter: ProgressPlotter, outputs_dir: str, iteration: int,
         plotter.plot(outputs_dir)
 
 
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device: torch.device, profile_dir: str, first: int, last: int) -> str:
+    """Wait for the card, stop ``prof`` and export its Chrome trace into
+    ``profile_dir``; returns the file's path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"train_steps_{first}-{last}.json")
+    prof.export_chrome_trace(path)
+    print(f"\t- profiler trace of steps {first}-{last}: {path}")
+    return path
+
+
 def train(
     model,
     dataset,
@@ -212,36 +263,57 @@ def train(
 ):
     """Train loop (reference: train.py:77-132) on the device pipeline.
 
+    ``mode`` 'spectogram' trains CnnAvgPooling or MobileNetV1 on a
+    :class:`SpectrogramDataset`, 'waveform' M5 on a :class:`WaveformDataset`.
     The model is initialized from ``seed`` (a CPU ``torch.Generator``) and
     trained on ``device``, unless ``initial_state`` (a :class:`TrainState`,
     e.g. from ``load_checkpoint``) is given, whose model then trains.  The
     augmentation draws come from a device generator seeded ``seed + 1``.
     Every ``log_freq`` steps: the im/sec line, an evaluation, a
-    metrics.jsonl record and ``checkpoints/iteration_{n}.pt``.  TF32 is
-    turned off for the process (``inference.no_tf32``).  Returns the final
-    :class:`TrainState`.
+    metrics.jsonl record and ``checkpoints/iteration_{n}.pt``.  The loop
+    runs in full float32 (``full_float32``).
+
+    ``steps_per_call`` K > 1 runs K steps a call
+    (``device_pipeline.make_multi_step``) on a (K, batch) block of start
+    indices; num_steps and log_freq must be multiples of K, and so must a
+    resumed state's step.  ``profile_dir``: a ``torch.profiler`` trace of
+    steps 10-20 (on block edges with K > 1), exported there as a Chrome
+    trace file.  Returns the final :class:`TrainState`.
     """
-    _refuse_waveform(mode)
-    unported = [name for name, on in (("mesh", mesh is not None),
-                                      ("steps_per_call > 1", steps_per_call != 1),
-                                      ("profile_dir", bool(profile_dir))) if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
+    _check_mode(mode)
+    if mesh is not None:
+        raise NotImplementedError("not ported yet: mesh (see ROADMAP.md, slice G)")
+    if steps_per_call > 1 and (num_steps % steps_per_call or log_freq % steps_per_call):
+        raise ValueError("num_steps and log_freq must be multiples of steps_per_call")
+    if steps_per_call > 1 and initial_state is not None \
+            and int(initial_state.step) % steps_per_call:
+        raise ValueError(
+            f"resumed step {int(initial_state.step)} is not a multiple of "
+            f"steps_per_call={steps_per_call}"
+        )
     device = resolve_device(device)
-    no_tf32()
     print("Training:")
     print("\t- Using device: ", device)
     os.makedirs(os.path.join(outputs_dir, "checkpoints"), exist_ok=True)
     plotter = ProgressPlotter()
 
-    cfg = cfg or SpectrogramConfig()
-    buffers = spectrogram_buffers_from_dataset(dataset, device)
-    step_fn = make_spectrogram_train_step(cfg, pos_weight, preprocessed_mode, augment)
+    if mode == "spectogram":
+        cfg = cfg or SpectrogramConfig()
+        buffers = spectrogram_buffers_from_dataset(dataset, device)
+        step_fn = make_spectrogram_train_step(cfg, pos_weight, preprocessed_mode, augment)
+    else:
+        cfg = cfg or WaveformConfig()
+        buffers = waveform_buffers_from_dataset(dataset, device)
+        step_fn = make_waveform_train_step(cfg, pos_weight, augment)
+    if steps_per_call > 1:
+        step_fn = make_multi_step(step_fn, steps_per_call)
     state = initial_state if initial_state is not None else init_state(model, lr, device, seed)
 
-    if hasattr(state.model, "model_config"):
-        from sed_tpu_torch.models.describe import describe_cnn
+    from sed_tpu_torch.models.describe import describe_cnn, describe_m5
 
+    if mode == "waveform":
+        print(describe_m5(state.model))
+    elif hasattr(state.model, "model_config"):
         print(describe_cnn(state.model, cfg))
 
     generator = torch.Generator(device=device).manual_seed(seed + 1)
@@ -259,30 +331,49 @@ def train(
     # Per-step losses stay on the device; they come to the host at log
     # points only, so the host keeps the card's queue full.
     pending_losses = []
-    while iterations < num_steps:
-        for starts in dataset.epoch_start_indices(batch_size):
-            pending_losses.append(step_fn(state, buffers, starts, generator))
-            iterations += 1
+    starts_block = []   # the batches of one call with steps_per_call > 1
+    profiler, profiled_from = None, 0
+    with full_float32():
+        while iterations < num_steps:
+            for starts in dataset.epoch_start_indices(batch_size):
+                if profile_dir and profiler is None and iterations >= PROFILE_STEPS[0]:
+                    profiler, profiled_from = _start_profile(device), iterations
+                if steps_per_call > 1:
+                    starts_block.append(starts)
+                    if len(starts_block) < steps_per_call:
+                        continue
+                    losses = step_fn(state, buffers, np.stack(starts_block), generator)
+                    pending_losses.extend(losses.unbind())
+                    starts_block = []
+                    iterations += steps_per_call
+                else:
+                    pending_losses.append(step_fn(state, buffers, starts, generator))
+                    iterations += 1
+                if profiler is not None and iterations >= PROFILE_STEPS[1]:
+                    _stop_profile(profiler, device, profile_dir, profiled_from, iterations)
+                    profiler, profile_dir = None, None
 
-            if iterations % log_freq == 0:
-                losses = torch.stack(pending_losses).cpu().tolist()
-                pending_losses = []
-                for loss in losses:
-                    plotter.report_train_loss(loss)
-                # Same definition as the reference (train.py:113-115),
-                # counting only steps run in this session.
-                im_sec = (iterations - start_iterations) * batch_size / (
-                    time() - training_start_time)
-                print(f"epoch: {epoch}, step: {iterations}, loss: {losses[-1]:.2f}, "
-                      f"im/sec: {im_sec:.1f}")
-                results = evaluate(model, state, dataset, mode, pos_weight, outputs_dir,
-                                   iterations, limit_val_samples=limit_val_samples,
-                                   make_plots=make_plots, cfg=cfg)
-                report_log_point(plotter, outputs_dir, iterations, results, make_plots)
-                save_checkpoint(state, outputs_dir, iterations)
+                if iterations % log_freq == 0:
+                    losses = torch.stack(pending_losses).cpu().tolist()
+                    pending_losses = []
+                    for loss in losses:
+                        plotter.report_train_loss(loss)
+                    # Same definition as the reference (train.py:113-115),
+                    # counting only the steps this call has run.
+                    im_sec = (iterations - start_iterations) * batch_size / (
+                        time() - training_start_time)
+                    print(f"epoch: {epoch}, step: {iterations}, loss: {losses[-1]:.2f}, "
+                          f"im/sec: {im_sec:.1f}")
+                    results = evaluate(model, state, dataset, mode, pos_weight, outputs_dir,
+                                       iterations, limit_val_samples=limit_val_samples,
+                                       make_plots=make_plots, cfg=cfg)
+                    report_log_point(plotter, outputs_dir, iterations, results, make_plots)
+                    save_checkpoint(state, outputs_dir, iterations)
 
-            if iterations >= num_steps:
-                break
-        epoch += 1
+                if iterations >= num_steps:
+                    break
+            epoch += 1
+        if profiler is not None:   # the run ended inside the window
+            _stop_profile(profiler, device, profile_dir, profiled_from, iterations)
 
     return state

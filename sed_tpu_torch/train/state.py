@@ -18,9 +18,9 @@ from typing import Callable, Optional
 import torch
 from torch.profiler import record_function
 
-from sed_tpu_torch.inference import no_tf32
 from sed_tpu_torch.train.loss import weighted_bce_with_logits
 from sed_tpu_torch.train.optim import make_optimizer
+from sed_tpu_torch.utils.precision import full_float32
 
 
 @dataclasses.dataclass
@@ -69,11 +69,11 @@ def make_train_step(
 
     ``augment_fn(generator, x, y) -> (x, y)`` runs first when given.  The
     model runs in training mode (BatchNorm on the batch's statistics,
-    updating its running ones); the returned loss is detached.  TF32 is
-    turned off for the process (``inference.no_tf32``).
+    updating its running ones); the returned loss is detached.  Each step
+    runs in full float32 (``utils.precision.full_float32``).
     """
-    no_tf32()
 
+    @full_float32()
     def step(state: TrainState, x, y, generator=None):
         if augment_fn is not None:
             x, y = augment_fn(generator, x, y)
@@ -87,8 +87,10 @@ def make_train_step(
 
 def make_eval_forward(model: torch.nn.Module) -> Callable:
     """``forward(x)``: the model in evaluation mode (running BatchNorm
-    statistics), without autograd."""
+    statistics; the call puts it there and leaves it there), without
+    autograd, in full float32."""
 
+    @full_float32()
     def forward(x):
         model.eval()
         with torch.inference_mode():

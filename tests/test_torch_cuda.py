@@ -36,6 +36,7 @@ from sed_tpu_torch.ops import mel as mel_ops
 from sed_tpu_torch.ops import stft as stft_ops
 from sed_tpu_torch.ops.mulaw import mulaw_encode
 from sed_tpu_torch.stream_pool import StreamPool
+from sed_tpu_torch.utils.precision import full_float32
 
 pytestmark = pytest.mark.gpu
 
@@ -795,7 +796,7 @@ def test_predict_file_windowed_equals_whole_forward_on_the_card(cuda, tmp_path, 
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"wave_stft_power": 1,
                                                                 "mel_log": 1}
     assert log_mel.device.type == "cuda" and log_mel.shape == (1, 277, 64)
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():   # predict_file's precision
         whole = model(log_mel[None])[0]
         whole = whole if arch == "MobileNetV1" else torch.sigmoid(whole)
     assert got.shape == tuple(whole.shape) == (272, 1)
@@ -823,8 +824,7 @@ def test_m5_stems_agree_on_the_card(cuda):
     s2d.load_state_dict(direct.state_dict(), strict=True)
     s2d = s2d.to(cuda).eval()
     x = signals(40, WaveformConfig().frame_size, 48000, cuda, seed=6)[:, None]
-    torch.backends.cudnn.allow_tf32 = False
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():
         a, b = torch.sigmoid(direct(x)), torch.sigmoid(s2d(x))
     assert float((a - b).abs().max()) <= 1e-4
 
@@ -954,6 +954,130 @@ def test_train_mode_batch_norm_on_the_card(cuda):
     for got_mean, got_var in stats:
         assert (got_mean.double() - mean).abs().max() <= 1e-6
         assert (got_var.double() - var).abs().max() <= 1e-6
+
+
+def test_train_mode_batch_norm_1d_on_the_card(cuda):
+    """M5's BatchNorm1d: the flax rule over (batch, length) a channel."""
+    from sed_tpu_torch.models.layers import BatchNorm1d
+
+    g = torch.Generator().manual_seed(4)
+    xs = [torch.randn(8, 6, 50, generator=g) * 2 + 0.5 for _ in range(4)]
+    stats = []
+    for dev in ("cpu", cuda):
+        bn = BatchNorm1d(6).to(dev).train()
+        for x in xs:
+            bn(x.to(dev))
+        stats.append((bn.running_mean.cpu(), bn.running_var.cpu()))
+    mean, var = torch.zeros(6, dtype=torch.float64), torch.ones(6, dtype=torch.float64)
+    for x in xs:
+        v, m = torch.var_mean(x.double(), dim=(0, 2), correction=0)
+        mean, var = 0.9 * mean + 0.1 * m, 0.9 * var + 0.1 * v
+    for got_mean, got_var in stats:
+        assert (got_mean.double() - mean).abs().max() <= 1e-6
+        assert (got_var.double() - var).abs().max() <= 1e-6
+
+
+class _WaveStore:
+    """A packed waveform training split like WaveformDataset's."""
+
+    def __init__(self, cfg, seed=0):
+        rng = np.random.default_rng(seed)
+        samples = 4 * cfg.frame_size
+        self.long_waveform = (0.1 * rng.standard_normal((1, samples))).astype(np.float32)
+        self.all_start_indices_labels = rng.random(samples) > 0.8
+        self.possible_start_indices = rng.permutation(samples - cfg.frame_size).astype(np.int32)
+
+
+@pytest.mark.parametrize("augment", [False, True], ids=["plain", "augment"])
+def test_waveform_train_step_on_the_card_matches_cpu(cuda, augment):
+    """M5 steps from one state, card against CPU: float64 within 1e-9
+    (losses relative, gradients and state of each tensor's largest); the
+    first float32 loss within 1e-4.  With augmentation, both apply the
+    card's draws (the same generator state on both is not possible).  The
+    conv biases are frozen: each feeds a BatchNorm, which removes it, so its
+    gradient is zero up to rounding (~1e-15 in float64), which Adam would
+    turn into steps that differ between the two and reach the running
+    means."""
+    import dataclasses
+
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.train.state import init_state, make_train_step
+
+    wcfg = WaveformConfig(working_sample_rate=8000)
+    store = _WaveStore(wcfg)
+    starts = store.possible_start_indices[:16]
+    gather = pipe.make_waveform_gather(wcfg)
+    card_bufs = pipe.waveform_buffers_from_dataset(store, cuda)
+    draws = pipe.draw_augmentation(torch.Generator(device=cuda).manual_seed(1), card_bufs,
+                                   (len(starts), 1, wcfg.frame_size), False)
+    step = pipe.make_waveform_train_step(wcfg, 5.0, augment=False)
+    ready_step = make_train_step(5.0, multi_frame=False)
+    base = M5(1, generator=torch.Generator().manual_seed(0))
+
+    def run_step(state, bufs, dev, dtype):
+        if not augment:
+            return step(state, bufs, starts)
+        d = pipe.AugmentDraws(draws.u_mix.to(dev), draws.ptr.to(dev), draws.u_noise.to(dev),
+                              draws.noise.to(dev, dtype))
+        x, y = gather(bufs, torch.as_tensor(starts, device=dev))
+        return ready_step(state, *pipe.apply_augmentation(bufs, x, y, d, gather, False,
+                                                          pipe.WAVE_MIX_CUM))
+
+    for name, p in base.named_parameters():
+        if name.endswith((".0.bias", ".3.bias")):
+            p.requires_grad_(False)
+    runs = {}
+    for dev in ("cpu", cuda):
+        for dtype in (torch.float64, torch.float32):
+            state = init_state(copy.deepcopy(base).to(dtype), 1e-3, dev)
+            bufs = pipe.waveform_buffers_from_dataset(store, dev)
+            bufs = dataclasses.replace(bufs, waveform=bufs.waveform.to(dtype),
+                                       labels=bufs.labels.to(dtype))
+            losses, grads = [], None
+            for i in range(3 if dtype == torch.float64 else 1):
+                losses.append(float(run_step(state, bufs, dev, dtype)))
+                if i == 0:
+                    grads = {k: p.grad.cpu() for k, p in state.model.named_parameters()
+                             if p.requires_grad}
+            runs[str(dev), dtype] = (losses, grads, {k: v.detach().cpu() for k, v in
+                                                     state.model.state_dict().items()})
+    cpu, gpu = runs["cpu", torch.float64], runs[str(cuda), torch.float64]
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-9)
+    assert len(cpu[1]) == 29   # 9 conv and 1 dense weights, 9 BatchNorm pairs, fc's bias
+    for mine, theirs in ((gpu[1], cpu[1]), (gpu[2], cpu[2])):
+        for key, want in theirs.items():
+            scale = max(want.abs().max().item(), 1e-300) if want.is_floating_point() else 1
+            assert (mine[key] - want).abs().max().item() <= 1e-9 * scale, key
+    np.testing.assert_allclose(runs[str(cuda), torch.float32][0],
+                               runs["cpu", torch.float32][0], rtol=1e-4)
+
+
+def test_multi_step_on_the_card_equals_single_steps(cuda):
+    """K = 4 steps in one call against 4 single calls, one generator seed,
+    cuDNN deterministic: equal losses and weights."""
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.train.state import init_state
+
+    wcfg = WaveformConfig(working_sample_rate=8000)
+    store = _WaveStore(wcfg)
+    bufs = pipe.waveform_buffers_from_dataset(store, cuda)
+    step = pipe.make_waveform_train_step(wcfg, 5.0, augment=True)
+    block = np.stack([store.possible_start_indices[8 * i:8 * i + 8] for i in range(4)])
+    base = M5(1, generator=torch.Generator().manual_seed(0))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = init_state(copy.deepcopy(base), 1e-3, cuda)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        want = torch.stack([step(single, bufs, s, gen) for s in block])
+        multi = init_state(copy.deepcopy(base), 1e-3, cuda)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        got = pipe.make_multi_step(step, 4)(multi, bufs, block, gen)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(got, want)
+    for (k, v), w in zip(single.model.state_dict().items(), multi.model.state_dict().values()):
+        assert torch.equal(v, w), k
 
 
 def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
