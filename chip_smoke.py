@@ -143,9 +143,36 @@ non-zero on the first failure.  Phases:
               CnnAvgPooling and MobileNetV1, im/sec, evaluate ms a recording,
               peak memory.
 
+ 13. serve    sed_tpu's checkpoints and the live serving of MobileNetV1 and M5,
+              at full width with seeded weights and BatchNorm statistics:
+              for each arch a port ``iteration_7.pt`` through ``python -m
+              sed_tpu_torch.cli.export_torch`` (a reference ``.pth``) and
+              ``cli.import_torch`` (``iteration_7.pt`` again), every weight
+              bit-equal; ``load_model_and_state`` of the ``.pth`` and of the
+              imported ``.pt`` on the card scores phase 10's 2-minute WAV as
+              the original weights (one K1 and one K2 a spectrogram file,
+              counts reset just before, read just after), and so does ``cli.infer
+              --no_plot`` of the imported file; MobileNetV1 (its logits view,
+              halo 88) in a 32-slot ``StreamPool`` on phase 5's run (uneven
+              pieces, late joins, an early leaver), every stream against
+              ``make_batch_predictor``, K3 and K2 on its ticks, and again with
+              ``featurizer="xla"`` (no launch); M5 in
+              ``DeviceWaveformStreamPool`` and ``WaveformStreamPool`` on the
+              same run with one mulaw stream and a 20 s backlog (blocks of 16
+              rounds), every stream against offline framing, the two pools
+              against each other, no K1–K10 launch; ``cli.stream --arch
+              MobileNetV1`` and ``--arch M5`` (both ``--m5_pool``) on three
+              WAVs; ``StreamServer`` over a MobileNetV1 pool and an M5 device
+              pool, two pcm16 clients and one mulaw client each, against
+              offline scoring; times: MobileNetV1's tick and M5's device
+              round at 32 slots (CUDA events), each pool's feed + tick by the
+              host clock, the device time of both by kernel
+              (``torch.profiler``), audio-s per wall-s and peak memory of the
+              three pool runs.
+
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
-training path's launches, every entry with phase 12's, 0), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+training path's launches, every entry with phase 12's, 0, and phase 13's),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -198,6 +225,12 @@ WAVE_VAL = 0.25           # validation share of phase 11's corpus (8 of 32 files
 WAVE_CLI_FILES = 4        # the training CLI's run: a subset of the corpus
 CONV_BIASES = (".0.bias", ".3.bias")   # M5's conv biases, each removed by a BatchNorm
 STEPS_PER_CALL = 4
+SERVE_ARCHS = ("CnnAvgPooling", "MobileNetV1", "M5")
+SERVE_STEP = 7            # the step the converted checkpoints carry
+SERVE_MULAW = 4           # the M5 pools' mulaw stream
+SERVE_BACKLOG = (3, 20 * 48000)   # M5 stream 3's first piece: 20 s, more than 16 rounds
+SERVE_STREAM_RUNS = (("MobileNetV1", []), ("M5", ["--m5_pool", "device"]),
+                     ("M5", ["--m5_pool", "host"]))
 JSONL_KEYS = {"iteration", "train_loss", "val_loss", "AP", "max_f1", "max_f5", "event_tp",
               "event_fp", "event_fn", "event_precision", "event_recall", "event_f1",
               "segment_tp", "segment_fp", "segment_fn", "segment_precision", "segment_recall",
@@ -421,6 +454,52 @@ def finish_lesions():
         fn.argtypes, fn.restype = typed.argtypes, typed.restype
         fns[name] = fn
     return fns
+
+
+def drive_pool(torch, dev, pool, clips, chunk, seed, backlog=None):
+    """Phase 5's run of a pool: every clip a stream, fed in pieces of 0.4 to
+    1.6 chunks a tick (stream ``backlog[0]``'s first piece ``backlog[1]``
+    samples), the streams of ``LATE_JOINS`` joining late, each stream leaving
+    through ``leave_many`` when its audio ends.  The launch counts and the
+    peak memory are reset just before and read just after.  Returns (each
+    stream's scores, wall seconds, launches, peak MiB, ticks)."""
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+
+    rng = np.random.default_rng(seed)
+    recs = [{"wav": c, "pos": 0, "blocks": []} for c in clips]
+    waiting = list(range(len(clips)))
+    active, tick = {}, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    while waiting or active:
+        for i in [i for i in waiting if LATE_JOINS.get(i, 0) <= tick]:
+            active[pool.join()] = recs[i]
+            waiting.remove(i)
+        leaving = []
+        for slot, rec in active.items():
+            n = int(chunk * rng.uniform(0.4, 1.6))
+            if backlog and rec is recs[backlog[0]] and rec["pos"] == 0:
+                n = backlog[1]
+            piece = rec["wav"][rec["pos"]: rec["pos"] + n]
+            pool.feed(slot, piece)
+            rec["pos"] += len(piece)
+            if rec["pos"] >= len(rec["wav"]):
+                leaving.append(slot)
+        for slot, sc in pool.tick().items():
+            active[slot]["blocks"].append(sc)
+        tails = pool.leave_many(leaving) if leaving else {}
+        for slot in leaving:
+            tail = tails[slot]
+            if isinstance(tail, Exception):
+                raise tail
+            active.pop(slot)["blocks"].append(tail)
+        tick += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([np.concatenate(r["blocks"]) for r in recs], wall, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated(dev) / 2**20, tick)
 
 
 def score_all(torch, predict, clips):
@@ -1808,6 +1887,387 @@ def wavetrain_phase(torch, cfg, dev, smi, tmp, spec):
     return launches
 
 
+def serve_phase(torch, cfg, dev, smi, tmp, mean, std):
+    """Phase 13: sed_tpu's checkpoints and the live serving of MobileNetV1
+    and M5 on the card (see the module docstring).  ``mean``, ``std``:
+    phase 3's normalization.  Returns the launch counts of the phase's
+    main-path runs, summed."""
+    from scipy.io import wavfile
+
+    from sed_tpu_torch.cli import infer
+    from sed_tpu_torch.cli.serve_socket import warmup_pool
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.inference import make_batch_predictor
+    from sed_tpu_torch.models.cnn import MobileNetV1
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops.mulaw import mulaw_decode_np, mulaw_encode
+    from sed_tpu_torch.serve_socket import StreamClient, StreamServer
+    from sed_tpu_torch.stream_pool import StreamPool
+    from sed_tpu_torch.train.checkpoint import save_checkpoint
+    from sed_tpu_torch.train.state import init_state
+    from sed_tpu_torch.waveform_streaming import DeviceWaveformStreamPool, WaveformStreamPool
+
+    t0 = time.perf_counter()
+    sr = chunk = cfg.working_sample_rate
+    wcfg = WaveformConfig()
+    served = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def count(launches):
+        for k, v in launches.items():
+            served[k] += v
+
+    # ---- the weights, their files and the audio ------------------------------
+    models, pts = {}, {}
+    for i, arch in enumerate(SERVE_ARCHS):
+        model = infer.build_model(arch, cfg.classes_num)
+        model.reset_parameters(torch.Generator().manual_seed(30 + i))
+        models[arch] = seed_batch_norms(torch, model, 40 + i)
+        state = init_state(copy.deepcopy(model), 1e-3, "cpu")
+        state.step = SERVE_STEP
+        pts[arch] = save_checkpoint(state, str(tmp / arch), SERVE_STEP)
+        models[arch].to(dev)
+    logits = MobileNetV1(cfg.classes_num, emit="logits")
+    logits.load_state_dict(models["MobileNetV1"].state_dict())
+    halo = infer.halo_floor(logits, 64)
+    check(halo == 88, f"MobileNetV1's halo floor {halo}")
+    with open(tmp / "mean_std.pkl", "wb") as f:
+        pickle.dump({"mean": mean, "std": std}, f)
+    short = str(burst_wav(tmp / "short.wav", FILE_SECONDS[1], sr, 11))
+    audio = (make_signals(torch, POOL_SLOTS, sr * POOL_SECONDS, sr, dev, 13) * 32767
+             ).round().to(torch.int16).cpu().numpy()
+    clips = [audio[i] for i in range(POOL_SLOTS)]
+    clips[EARLY_LEAVER] = clips[EARLY_LEAVER][: int(EARLY_SECONDS * sr)]
+    m5_clips = list(clips)
+    m5_clips[SERVE_MULAW] = mulaw_encode(clips[SERVE_MULAW])
+    wavs = []
+    for i, secs in enumerate(CLI_SECONDS):
+        wavs.append(tmp / f"stream{i}.wav")
+        wavfile.write(wavs[-1], sr, audio[i, : int(secs * sr)])
+
+    # ---- the CLIs, in the background: converters, cli.infer, cli.stream -------
+    def spec_args(arch):
+        return ["--mean_std_file", tmp / "mean_std.pkl"] if arch != "M5" else []
+
+    stream_runs = {}
+    for arch, extra in SERVE_STREAM_RUNS:
+        out = tmp / f"out_stream_{arch}_{'_'.join(extra)}"
+        args = ["sed_tpu_torch.cli.stream", "--ckpt", pts[arch], "--arch", arch, *extra,
+                *spec_args(arch), "--device", DEVICE, "--outputs_dir", out, "--slots", "2",
+                "--stagger_ticks", "2", *wavs]
+        stream_runs[arch, tuple(extra)] = (out, start_cli(args, out.with_suffix(".log")))
+    chain = {}
+
+    def conversions():
+        """export_torch, then import_torch, then cli.infer of the imported
+        file: each step the three archs side by side."""
+        try:
+            for step in ("export", "import", "infer"):
+                procs = {}
+                for arch in SERVE_ARCHS:
+                    pth, run = tmp / f"{arch}.pth", tmp / f"imported_{arch}"
+                    args = {
+                        "export": ["sed_tpu_torch.cli.export_torch", "--ckpt", pts[arch],
+                                   "--out", pth],
+                        "import": ["sed_tpu_torch.cli.import_torch", "--pth", pth,
+                                   "--out", run],
+                        "infer": ["sed_tpu_torch.cli.infer", "--no_plot", "--ckpt",
+                                  run / "checkpoints" / f"iteration_{SERVE_STEP}.pt",
+                                  *spec_args(arch), "--outputs_dir", tmp / f"out_infer_{arch}",
+                                  short],
+                    }[step] + ["--arch", arch, "--device", DEVICE]
+                    log_path = tmp / f"{step}_{arch}.log"
+                    procs[arch] = (start_cli(args, log_path), log_path)
+                for arch, (proc, log_path) in procs.items():
+                    finish_cli(proc, log_path, f"cli.{step} --arch {arch}")
+        except Exception as e:  # noqa: BLE001 - raised in the main thread
+            chain["error"] = e
+
+    chain_thread = threading.Thread(target=conversions)
+    chain_thread.start()
+
+    # ---- untimed checks beside the CLIs ---------------------------------------
+    predict_mn = make_batch_predictor(models["MobileNetV1"], cfg, mean=mean, std=std,
+                                      device=DEVICE)
+    full = [i for i in range(POOL_SLOTS) if i != EARLY_LEAVER]
+    want_mn = dict(zip(full, score_all(torch, predict_mn, [clips[i] for i in full])))
+    want_mn[EARLY_LEAVER] = score_all(torch, predict_mn, [clips[EARLY_LEAVER]])[0]
+    m5 = models["M5"]
+
+    def m5_offline(y):
+        f32 = mulaw_decode_np(y) if y.dtype == np.uint8 else y.astype(np.float32) / 32768.0
+        frames = infer.hop_frames(torch.from_numpy(f32).to(dev)[:, None], wcfg)
+        with torch.inference_mode():
+            return infer.score_frames_m5(m5, frames).cpu().numpy()
+
+    want_m5 = [m5_offline(y) for y in m5_clips]
+
+    def max_err(got, want, what):
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g.shape == w.shape, f"{what} stream {i}: {g.shape} != offline {w.shape}")
+            err = max(err, float(np.abs(g - w).max()))
+        check(err <= SCORE_TOL, f"{what} within {SCORE_TOL} of offline scoring")
+        return err
+
+    xpool = StreamPool(copy.deepcopy(logits), cfg, slots=POOL_SLOTS, chunk_samples=chunk,
+                       halo=halo, mean=mean, std=std, featurizer="xla", device=DEVICE)
+    got, _, xla_launches, _, _ = drive_pool(torch, dev, xpool, clips, chunk, seed=13)
+    count(xla_launches)
+    xla_err = max_err(got, [want_mn[i] for i in range(POOL_SLOTS)], "MobileNetV1 pool, xla")
+    check(sum(xla_launches.values()) == 0, "featurizer='xla' launches no kernel of the port")
+    del xpool
+    log(f"[serve] MobileNetV1 StreamPool(featurizer='xla'), {POOL_SLOTS} streams: launches "
+        f"{xla_launches}; max diff vs make_batch_predictor {xla_err:.3e} (tol {SCORE_TOL})")
+
+    server_err, server_launches = {}, dict.fromkeys(kernels.LAUNCHES, 0)
+    for arch in ("MobileNetV1", "M5"):
+        server_err[arch] = 0.0
+        for wire, sent in (("pcm16", [audio[i, : int(s * sr)] for i, s in
+                                      enumerate(SERVER_SECONDS[:2])]),
+                           ("mulaw", [audio[2, : int(MULAW_SECONDS * sr)]])):
+            if arch == "M5":
+                spool = DeviceWaveformStreamPool(m5, wcfg, slots=len(sent), device=DEVICE)
+            else:
+                spool = StreamPool(copy.deepcopy(logits), cfg, slots=len(sent),
+                                   chunk_samples=chunk, halo=halo, mean=mean, std=std,
+                                   device=DEVICE)
+            warmup_pool(spool, wire)
+            kernels.reset_launch_counts()
+            server = StreamServer(spool, host="127.0.0.1", port=0, tick_interval=0.02,
+                                  wire=wire)
+            server.start()
+            results = {}
+
+            def client(i, y, server=server, wire=wire, results=results):
+                try:
+                    c = StreamClient(*server.address, classes_num=cfg.classes_num, wire=wire)
+                    for pos in range(0, len(y), 20000):
+                        c.send(y[pos: pos + 20000])
+                    results[i] = c.finish()
+                except Exception as e:  # noqa: BLE001 - reported below
+                    results[i] = e
+
+            try:
+                threads = [threading.Thread(target=client, args=(i, y))
+                           for i, y in enumerate(sent)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                    check(not t.is_alive(), f"{arch} {wire} client finished")
+            finally:
+                server.stop()
+            torch.cuda.synchronize()
+            count(kernels.LAUNCHES)
+            for k, n in kernels.LAUNCHES.items():
+                server_launches[k] += n
+            for i, y in enumerate(sent):
+                if isinstance(results[i], Exception):
+                    raise results[i]
+                y = mulaw_encode(y) if wire == "mulaw" else y
+                ref = m5_offline(y) if arch == "M5" else score_all(torch, predict_mn, [y])[0]
+                server_err[arch] = max(server_err[arch], max_err([results[i]], [ref],
+                                                                 f"{arch} {wire} client"))
+            del spool
+    log(f"[serve] StreamServer: MobileNetV1 and M5 (device pool), each with 2 pcm16 clients "
+        f"and 1 mulaw client: max diff vs offline MobileNetV1 {server_err['MobileNetV1']:.3e}, "
+        f"M5 {server_err['M5']:.3e} (tol {SCORE_TOL}); launches {server_launches}")
+    check(server_launches["frames_stft_power"] > 0 and server_launches["mel_log"] > 0,
+          "K3 and K2 ran in the MobileNetV1 server")
+
+    # ---- the CLIs' results -------------------------------------------------------
+    chain_thread.join(timeout=900)
+    check(not chain_thread.is_alive(), "the converter CLIs finished")
+    if "error" in chain:
+        raise chain["error"]
+    cpu_sd = {a: {k: v.cpu() for k, v in m.state_dict().items()} for a, m in models.items()}
+    conv_err = {}
+    for arch in SERVE_ARCHS:
+        pth = tmp / f"{arch}.pth"
+        pt = tmp / f"imported_{arch}" / "checkpoints" / f"iteration_{SERVE_STEP}.pt"
+        ref = torch.load(pth, map_location="cpu", weights_only=True)
+        imported = torch.load(pt, map_location="cpu", weights_only=True)
+        check(ref["iterations"] == imported["step"] == SERVE_STEP, f"{arch} step carried")
+        for key, value in cpu_sd[arch].items():
+            if key.endswith("num_batches_tracked"):
+                check(int(imported["model"][key]) == 0, f"{arch} {key} exported as 0")
+            elif key.startswith("bn0."):   # MobileNetV1's dead bn0: its initial values
+                fill = 1.0 if key.endswith(("weight", "running_var")) else 0.0
+                check(bool((imported["model"][key] == fill).all()), f"{arch} {key}")
+            else:
+                check(torch.equal(ref["model"][key], value)
+                      and torch.equal(imported["model"][key], value),
+                      f"{arch} {key} bit-equal after export and import")
+        acfg = wcfg if arch == "M5" else cfg
+        if arch == "M5":
+            want = infer.predict_file_m5(models[arch], short, wcfg, device=DEVICE)
+        else:
+            _, want = infer.predict_file(models[arch], short, cfg, mean, std, device=DEVICE)
+        conv_err[arch] = 0.0
+        for path in (pth, pt):
+            loaded, state = infer.load_model_and_state(str(path), acfg, arch=arch,
+                                                       device=DEVICE)
+            check(state.step == 0 and next(loaded.parameters()).device.type == dev.type,
+                  f"{arch} {path.name} loaded on the card with a fresh state")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            if arch == "M5":
+                got = infer.predict_file_m5(loaded, short, wcfg, device=DEVICE)
+            else:
+                _, got = infer.predict_file(loaded, short, cfg, mean, std, device=DEVICE)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            count(kernels.LAUNCHES)
+            want_launched = {} if arch == "M5" else {"wave_stft_power": 1, "mel_log": 1}
+            check(launched == want_launched, f"{arch} {path.name}: launches {launched}")
+            check(got.shape == want.shape, f"{arch} {path.name} scores shape {got.shape}")
+            conv_err[arch] = max(conv_err[arch], float(np.abs(got - want).max()))
+        cli_got = np.load(tmp / f"out_infer_{arch}" / "short_scores.npy")
+        check(cli_got.shape == want.shape, f"cli.infer --arch {arch} shape {cli_got.shape}")
+        conv_err[arch] = max(conv_err[arch], float(np.abs(cli_got - want).max()))
+        check(conv_err[arch] <= SCORE_TOL, f"{arch}: converted files score as the original")
+    log(f"[serve] export_torch -> import_torch on the card: every weight bit-equal, step "
+        f"{SERVE_STEP} carried; the .pth and the imported .pt through load_model_and_state "
+        f"(one K1 + one K2 a spectrogram file) and cli.infer --no_plot on the {FILE_SECONDS[1]:.0f} "
+        f"s WAV: max diff vs the original weights " + ", ".join(
+            f"{a} {e:.3e}" for a, e in conv_err.items()) + f" (tol {SCORE_TOL})")
+    stream_err = {}
+    for (arch, extra), (out, proc) in stream_runs.items():
+        finish_cli(proc, out.with_suffix(".log"), f"cli.stream --arch {arch} {extra}")
+        summary = json.loads(out.with_suffix(".log").read_text().strip().splitlines()[-1])
+        for path in wavs:
+            got = np.load(out / f"{path.stem}_scores.npy")
+            y = wavfile.read(path)[1]
+            want = m5_offline(y) if arch == "M5" else score_all(torch, predict_mn, [y])[0]
+            stream_err[arch, extra] = max(stream_err.get((arch, extra), 0.0),
+                                          max_err([got], [want], f"cli.stream {arch} {extra}"))
+        launched = summary["kernel_launches"]
+        if arch == "M5":
+            check(sum(launched.values()) == 0, f"cli.stream --arch M5 {extra}: no launch")
+        else:
+            check(launched["frames_stft_power"] > 0 and launched["mel_log"] > 0,
+                  "K3 and K2 ran in cli.stream --arch MobileNetV1")
+    log(f"[serve] cli.stream on {len(wavs)} WAVs (2 slots, staggered): max diff vs offline "
+        + ", ".join(f"{a} {' '.join(e) or '(halo 88)'} {v:.3e}" for (a, e), v in
+                    stream_err.items()) + f" (tol {SCORE_TOL}); checks "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- timed: the pools' runs, ticks and memory, nothing beside them --------
+    pool = StreamPool(copy.deepcopy(logits), cfg, slots=POOL_SLOTS, chunk_samples=chunk,
+                      halo=halo, mean=mean, std=std, device=DEVICE)
+    got, mn_wall, mn_launches, mn_peak, ticks = drive_pool(torch, dev, pool, clips, chunk,
+                                                           seed=13)
+    count(mn_launches)
+    mn_err = max_err(got, [want_mn[i] for i in range(POOL_SLOTS)], "MobileNetV1 pool")
+    check(mn_launches["frames_stft_power"] > 0 and mn_launches["mel_log"] > 0,
+          "K3 and K2 ran on MobileNetV1's streaming path")
+    check(mn_launches["frames_stft_power"] == mn_launches["mel_log"]
+          and sum(mn_launches.values()) == 2 * mn_launches["mel_log"],
+          "MobileNetV1's pool launches K3 and K2 only, in pairs")
+    del pool
+    m5_runs, blocks = {}, []
+    for name, make in (("device", lambda: DeviceWaveformStreamPool(m5, wcfg, slots=POOL_SLOTS,
+                                                                   device=DEVICE)),
+                       ("host", lambda: WaveformStreamPool(m5, wcfg, slots=POOL_SLOTS,
+                                                           device=DEVICE))):
+        mpool = make()
+        if name == "device":
+            push_rounds = mpool._push_rounds
+            mpool._push_rounds = lambda rounds: (blocks.append(len(rounds)),
+                                                 push_rounds(rounds))[1]
+        got, wall, launches, peak, _ = drive_pool(torch, dev, mpool, m5_clips, chunk, seed=14,
+                                                  backlog=SERVE_BACKLOG)
+        count(launches)
+        check(sum(launches.values()) == 0, f"M5 {name} pool launches no K1-K10 kernel")
+        m5_runs[name] = (got, wall, peak, max_err(got, want_m5, f"M5 {name} pool"))
+        if name == "device":
+            check(max(blocks) == DeviceWaveformStreamPool.ROUNDS_PER_CALL,
+                  f"the backlog went in blocks of {DeviceWaveformStreamPool.ROUNDS_PER_CALL} "
+                  f"rounds ({max(blocks)})")
+        del mpool
+    pools_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(m5_runs["device"][0], m5_runs["host"][0]))
+    check(pools_err <= SCORE_TOL, "the M5 device and host pools agree")
+    log(f"[serve] MobileNetV1 StreamPool (halo {halo}), {POOL_SLOTS} streams x {POOL_SECONDS} s "
+        f"int16 as phase 5, {ticks} ticks: launches {mn_launches}; max diff vs "
+        f"make_batch_predictor {mn_err:.3e} (tol {SCORE_TOL})")
+    log(f"[serve] M5 DeviceWaveformStreamPool and WaveformStreamPool, {POOL_SLOTS} streams "
+        f"(stream {SERVE_MULAW} mulaw, stream {SERVE_BACKLOG[0]}'s first piece "
+        f"{SERVE_BACKLOG[1] // sr} s: blocks of up to {max(blocks)} rounds): no launch; max "
+        f"diff vs offline framing device {m5_runs['device'][3]:.3e}, host "
+        f"{m5_runs['host'][3]:.3e}; device vs host {pools_err:.3e} (tol {SCORE_TOL})")
+
+    # Ticks at 32 slots: MobileNetV1's (K3 + K2 + the model) and M5's device
+    # round, one 1 s chunk a slot, by CUDA events; each pool's tick with
+    # its feeds by the host clock (the host pool's work is on the host).
+    tpool = StreamPool(copy.deepcopy(logits), cfg, slots=POOL_SLOTS, chunk_samples=chunk,
+                       halo=halo, mean=mean, std=std, device=DEVICE)
+    tslots = [tpool.join() for _ in range(POOL_SLOTS)]
+    for k in range(2):
+        tpool.push({s: audio[s, k * chunk: (k + 1) * chunk] for s in tslots})
+    check(len(tpool._admitted) == POOL_SLOTS, "every timing slot admitted")
+    one = {s: audio[s, 2 * chunk: 3 * chunk] for s in tslots}
+    mn_tick_ms = time_ms(torch, lambda: tpool._push_rounds([one]))
+    mn_kernels = profile_ticks(torch, lambda: tpool._push_rounds([one]), n=5)
+    dpool = DeviceWaveformStreamPool(m5, wcfg, slots=POOL_SLOTS, device=DEVICE)
+    dslots = [dpool.join() for _ in range(POOL_SLOTS)]
+    for k in range(2):
+        dpool.push({s: audio[s, k * chunk: (k + 1) * chunk] for s in dslots})
+    m5_tick_ms = time_ms(torch, lambda: dpool._push_rounds([one]))
+    m5_kernels = profile_ticks(torch, lambda: dpool._push_rounds([one]), n=5)
+    hpool = WaveformStreamPool(m5, wcfg, slots=POOL_SLOTS, device=DEVICE)
+    hslots = [hpool.join() for _ in range(POOL_SLOTS)]
+
+    def host_tick_ms(p, slots):
+        times = []
+        for rep in range(REPS + 3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for s in slots:
+                p.feed(s, one[s])
+            p.tick()
+            torch.cuda.synchronize()
+            if rep >= 3:
+                times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    dev_tick_host_ms = host_tick_ms(dpool, dslots)
+    host_tick_host_ms = host_tick_ms(hpool, hslots)
+    del tpool, dpool, hpool
+
+    audio_s = sum(len(c) for c in clips) / sr
+    log(f"[times] phase 13 on {smi}; each line's card is this one:")
+    log(f"[times] MobileNetV1 pool tick, one round of {POOL_SLOTS} slots (K3 + K2 + "
+        f"MobileNetV1): {mn_tick_ms:.4f} ms (CUDA-event median of {REPS})")
+    log(f"[times] M5 device pool round, {POOL_SLOTS} slots x 1 s ({POOL_SLOTS} x "
+        f"{(chunk - 1) // wcfg.hop_size + 1} frames scored): {m5_tick_ms:.4f} ms (CUDA-event "
+        f"median of {REPS})")
+    log(f"[times] feed {POOL_SLOTS} x 1 s + tick(), host clock, median of {REPS}: M5 device "
+        f"pool {dev_tick_host_ms:.4f} ms | M5 host pool {host_tick_host_ms:.4f} ms (host / "
+        f"device {host_tick_host_ms / dev_tick_host_ms:.3f})")
+    for what, rows, tick_ms in (("MobileNetV1 pool tick", mn_kernels, mn_tick_ms),
+                                ("M5 device pool round", m5_kernels, m5_tick_ms)):
+        if rows:
+            busy = sum(ms for _, ms in rows)
+            log(f"[times] {what} on the device (torch.profiler, 5 ticks): {busy:.4f} ms of "
+                f"kernels a tick, {busy / tick_ms:.1%} of the {tick_ms:.4f} ms tick; the 8 "
+                f"largest and the port's own:")
+            for i, (kname, ms) in enumerate(rows):
+                if i < 8 or any(k in kname for k in kernels.LAUNCHES):
+                    log(f"[times]   {ms:.4f} ms  {kname[:90]}")
+        else:
+            log(f"[times] {what} on the device: torch.profiler captured no device time "
+                f"(not measured)")
+    for what, wall, peak in (("MobileNetV1 pool", mn_wall, mn_peak),
+                             ("M5 device pool", m5_runs["device"][1], m5_runs["device"][2]),
+                             ("M5 host pool", m5_runs["host"][1], m5_runs["host"][2])):
+        log(f"[times] {what} run: {audio_s:.1f} audio-s in {wall:.3f} wall-s = "
+            f"{audio_s / wall:.1f} audio-s per wall-s; peak device memory {peak:.1f} MiB")
+    log(f"[serve] launches on phase 13's main path: {served}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -2025,38 +2485,8 @@ def main() -> int:
     pool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
                       std=std, device=DEVICE)
     pool.profile = {}
-    rng = np.random.default_rng(2)
-    recs = [{"wav": c, "pos": 0, "blocks": []} for c in clips]
-    waiting = list(range(POOL_SLOTS))
-    active, tick = {}, 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    run_t0 = time.perf_counter()
-    while waiting or active:
-        for i in [i for i in waiting if LATE_JOINS.get(i, 0) <= tick]:
-            active[pool.join()] = recs[i]
-            waiting.remove(i)
-        leaving = []
-        for slot, rec in active.items():
-            piece = rec["wav"][rec["pos"]: rec["pos"] + int(chunk * rng.uniform(0.4, 1.6))]
-            pool.feed(slot, piece)
-            rec["pos"] += len(piece)
-            if rec["pos"] >= len(rec["wav"]):
-                leaving.append(slot)
-        for slot, sc in pool.tick().items():
-            active[slot]["blocks"].append(sc)
-        tails = pool.leave_many(leaving) if leaving else {}
-        for slot in leaving:
-            tail = tails[slot]
-            if isinstance(tail, Exception):
-                raise tail
-            active.pop(slot)["blocks"].append(tail)
-        tick += 1
-    torch.cuda.synchronize()
-    pool_wall = time.perf_counter() - run_t0
-    pool_launches = dict(kernels.LAUNCHES)
-    pool_peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    got_pool, pool_wall, pool_launches, pool_peak_mib, tick = drive_pool(
+        torch, dev, pool, clips, chunk, seed=2)
     pool_audio_s = sum(len(c) for c in clips) / sr
     log(f"[pool] {POOL_SLOTS} streams ({len(LATE_JOINS)} joining late, stream "
         f"{EARLY_LEAVER} leaving after {EARLY_SECONDS} s), {tick} ticks; launches "
@@ -2067,8 +2497,7 @@ def main() -> int:
     want = dict(zip(full, score_all(torch, predict, [clips[i] for i in full])))
     want[EARLY_LEAVER] = score_all(torch, predict, [clips[EARLY_LEAVER]])[0]
     pool_err = 0.0
-    for i, rec in enumerate(recs):
-        got = np.concatenate(rec["blocks"])
+    for i, got in enumerate(got_pool):
         check(got.shape == want[i].shape,
               f"stream {i}: {got.shape[0]} frames, offline {want[i].shape[0]}")
         pool_err = max(pool_err, float(np.abs(got - want[i]).max()))
@@ -2077,7 +2506,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     check(pool_err <= SCORE_TOL, "pool scores match make_batch_predictor")
     profile = pool.profile
-    del pool, recs
+    del pool, got_pool
 
     # ---- 6. the streaming CLI ----------------------------------------------
     t0 = time.perf_counter()
@@ -2371,6 +2800,11 @@ def main() -> int:
         del corpus
     log(f"[wavetrain] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 13. checkpoints and the live serving of MobileNetV1 and M5 ----------
+    with tempfile.TemporaryDirectory() as serve_tmp:
+        serve_launches = serve_phase(torch, cfg, dev, smi, Path(serve_tmp), mean, std)
+    log(f"[serve] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -2406,6 +2840,7 @@ def main() -> int:
     ]
     for e in entries:   # phase 12's path, M5 training: every count is 0
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["serve_launches"] = sum(serve_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

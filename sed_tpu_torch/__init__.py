@@ -21,11 +21,15 @@ training of all three model families):
               event_metrics_from_scores
   inference:  batch_predict_files, windowed_forward (one long recording),
               StreamingDetector, DeviceStreamingDetector, StreamPool,
+              (Batched)WaveformStreamingDetector, WaveformStreamPool (M5),
               StreamServer / StreamClient
+  checkpoints: cli.infer.load_model_and_state (port .pt, reference .pth,
+              sed_tpu .ckpt), train.torch_import / torch_export
   CLIs:       python -m sed_tpu_torch.cli.main (--train_features
               Waveform or Spectogram), python -m sed_tpu_torch.cli.infer (windowed
               per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5),
-              cli.stream, cli.serve_socket
+              cli.stream, cli.serve_socket (--arch, --m5_pool),
+              cli.import_torch, cli.export_torch
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Top-level names are imported lazily, so ``import sed_tpu_torch`` stays light.
@@ -58,6 +62,9 @@ _EXPORTS = {
     "make_stream_fns": "sed_tpu_torch.streaming",
     "DeviceStreamingDetector": "sed_tpu_torch.device_streaming",
     "StreamPool": "sed_tpu_torch.stream_pool",
+    "WaveformStreamingDetector": "sed_tpu_torch.waveform_streaming",
+    "BatchedWaveformStreamingDetector": "sed_tpu_torch.waveform_streaming",
+    "WaveformStreamPool": "sed_tpu_torch.waveform_streaming",
     "StreamServer": "sed_tpu_torch.serve_socket",
     "StreamClient": "sed_tpu_torch.serve_socket",
     "windowed_forward": "sed_tpu_torch.parallel.time_shard",

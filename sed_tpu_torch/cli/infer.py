@@ -5,10 +5,11 @@
     python -m sed_tpu_torch.cli.infer --batch --ckpt model.pth a.wav b.wav
     python -m sed_tpu_torch.cli.infer --arch M5 --ckpt m5.pth a.wav
 
-Loads a ``.pth`` holding the reference container ``{'model': state_dict,
-...}`` (what ``python -m sed_tpu.cli.export_torch`` writes for each arch) or
-a bare state dict into ``--arch`` (CnnAvgPooling(TRAIN_CHANNEL_AND_POOL),
-MobileNetV1 or M5) and scores on ``--device`` (default ``cuda``):
+Loads ``--ckpt`` through :func:`load_model_and_state` into ``--arch``
+(CnnAvgPooling(TRAIN_CHANNEL_AND_POOL), MobileNetV1 or M5): a port
+``iteration_{n}.pt``, a reference ``.pth`` (the container ``{'model':
+state_dict, ...}`` or a bare state dict) or a ``sed_tpu`` msgpack ``.ckpt``.
+It scores on ``--device`` (default ``cuda``):
 
   * the spectrogram archs, by default one file at a time: featurize the
     whole recording on the card (K1 + K2), then an exact windowed forward
@@ -43,7 +44,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                                                  "(PyTorch/CUDA port)")
     parser.add_argument("audio_files", type=str, nargs="+")
     parser.add_argument("--ckpt", type=str, required=True,
-                        help=".pth with {'model': state_dict} or a bare state dict")
+                        help="a port iteration_{n}.pt, a reference .pth ({'model': "
+                             "state_dict} or a bare state dict) or a sed_tpu .ckpt")
     parser.add_argument("--outputs_dir", type=str, default="inference_outputs")
     parser.add_argument("--mean_std_file", type=str, default="",
                         help="optional normalization stats from preprocessing; "
@@ -97,11 +99,9 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
 
 
-def load_model(ckpt_path: str, classes_num: int, arch: str = "CnnAvgPooling"):
-    """A model of family ``arch`` (CnnAvgPooling is TRAIN_CHANNEL_AND_POOL)
-    with the weights of ``ckpt_path`` (reference keys, ``strict=True``)."""
-    import torch
-
+def build_model(arch: str, classes_num: int):
+    """A fresh model of family ``arch``: CnnAvgPooling(TRAIN_CHANNEL_AND_POOL),
+    MobileNetV1 (scores-emitting, the reference's forward) or M5."""
     from sed_tpu_torch.models.cnn import CnnAvgPooling, MobileNetV1, TRAIN_CHANNEL_AND_POOL
     from sed_tpu_torch.models.m5 import M5
 
@@ -112,11 +112,51 @@ def load_model(ckpt_path: str, classes_num: int, arch: str = "CnnAvgPooling"):
     }
     if arch not in constructors:
         raise ValueError(f"unknown arch {arch!r}")
+    return constructors[arch]()
+
+
+def load_model(ckpt_path: str, classes_num: int, arch: str = "CnnAvgPooling"):
+    """A model of family ``arch`` (CnnAvgPooling is TRAIN_CHANNEL_AND_POOL)
+    with the weights of the ``.pth``/``.pt`` file ``ckpt_path`` (reference
+    keys, ``strict=True``)."""
+    import torch
+
+    model = build_model(arch, classes_num)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     state_dict = ckpt["model"] if "model" in ckpt else ckpt
-    model = constructors[arch]()
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def load_model_and_state(ckpt_path: str, cfg, batch_hint: int = 1,
+                         arch: str = "CnnAvgPooling", bf16: bool = False,
+                         device="cuda"):
+    """``(model, state)``: a model of family ``arch`` on ``device`` with the
+    weights of ``ckpt_path`` (``strict=True``), and a ``TrainState`` around
+    it with a fresh optimizer at step 0, the model-only load ``sed_tpu``
+    makes (its counterpart, ``sed_tpu/cli/infer.py``).
+
+    ``ckpt_path`` is a port ``iteration_{n}.pt``, a reference ``.pth``
+    (``{'model': state_dict, ...}`` or a bare state dict) or a ``sed_tpu``
+    msgpack ``.ckpt`` (:func:`sed_tpu_torch.train.checkpoint.read_model_weights`),
+    so a user can pass the same file to either package's CLI.
+    ``batch_hint`` sized ``sed_tpu``'s init input; the port's modules need
+    none, so it is unused.  ``bf16=True`` is refused: the bfloat16 tier is
+    not ported.
+    """
+    from sed_tpu_torch.inference import resolve_device
+    from sed_tpu_torch.train.checkpoint import read_model_weights
+    from sed_tpu_torch.train.state import init_state
+
+    if bf16:
+        raise NotImplementedError("bf16=True: the bfloat16 serving tier is not ported "
+                                  "(see ROADMAP.md)")
+    device = resolve_device(device)
+    model = build_model(arch, cfg.classes_num)
+    state_dict, _ = read_model_weights(ckpt_path, arch)
+    model.load_state_dict(state_dict, strict=True)
+    state = init_state(model, 1e-6, device)
+    return state.model, state
 
 
 def load_mean_std(path: str):
@@ -130,9 +170,10 @@ def load_mean_std(path: str):
     return d["mean"], d["std"]
 
 
-def halo_floor(model, halo: int) -> int:
+def halo_floor(model, halo: int, log=print) -> int:
     """``halo`` raised to the model's receptive-field floor,
-    8 * ceil((rf // 2 + 1) / 8), with a message when it is raised.
+    8 * ceil((rf // 2 + 1) / 8), with a message to ``log`` when it is
+    raised.
 
     CnnAvgPooling's receptive field comes from its ``model_config``,
     MobileNetV1's is fixed; any other model has no windowed path."""
@@ -148,7 +189,7 @@ def halo_floor(model, halo: int) -> int:
                          f"expected CnnAvgPooling or MobileNetV1")
     min_halo = 8 * (-(-(rf // 2 + 1) // 8))
     if halo < min_halo:
-        print(f"halo {halo} < receptive field requirement {min_halo}; using {min_halo}")
+        log(f"halo {halo} < receptive field requirement {min_halo}; using {min_halo}")
         halo = min_halo
     return halo
 
@@ -332,7 +373,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     mean, std = load_mean_std(args.mean_std_file)
-    model = load_model(args.ckpt, cfg.classes_num, args.arch)
+    model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, device=device)
     os.makedirs(args.outputs_dir, exist_ok=True)
 
     batch_scores = None

@@ -1,17 +1,20 @@
 """Live streaming server CLI: PCM over TCP in, per-frame scores out
-(counterpart of ``sed_tpu.cli.serve_socket``, spectrogram pool path).
+(counterpart of ``sed_tpu.cli.serve_socket``).
 
     python -m sed_tpu_torch.cli.serve_socket --ckpt model.pth --port 8123 \\
+        [--arch CnnAvgPooling|MobileNetV1|M5] [--m5_pool device|host] \\
         [--slots 8] [--chunk_seconds 1.0] [--wire pcm16|mulaw] \\
-        [--device cuda|cpu] [--run_seconds N]
+        [--featurizer auto|pallas|xla] [--device cuda|cpu] [--run_seconds N]
 
-Each TCP connection is one live stream over the lifecycle pool
-(``sed_tpu_torch/stream_pool.py``): clients write length-prefixed int16 PCM
-(or µ-law bytes) at their own rate, batched device ticks score every stream
-with a full chunk staged, and closing the stream drains the exact tail (wire
-protocol: ``sed_tpu_torch/serve_socket.py``).  The server prints one JSON
-line with its address, then serves until ``--run_seconds`` pass (0 =
-forever).
+Each TCP connection is one live stream over the pool of ``--arch``
+(``cli.stream.build_pool``: ``StreamPool`` for the spectrogram families,
+MobileNetV1 as its logits view with its halo floor; the M5 pools of
+``sed_tpu_torch/waveform_streaming.py``): clients write length-prefixed
+int16 PCM (or µ-law bytes) at their own rate, batched device ticks score
+every stream with a full chunk staged, and closing the stream drains the
+exact tail (wire protocol: ``sed_tpu_torch/serve_socket.py``).  The server
+prints one JSON line with its address, then serves until ``--run_seconds``
+pass (0 = forever).
 
 Before it accepts connections on a CUDA device it runs a warmup ladder
 (:func:`warmup_pool`) that drives every tick and drain shape once, so the
@@ -19,9 +22,8 @@ first clients do not pay the kernel build and the card's first-call costs;
 ``--no_warmup`` skips it.
 
 Not ported yet, and refused rather than ignored: the same options as
-``sed_tpu_torch.cli.stream`` (``--arch`` other than CnnAvgPooling,
-``--m5_pool``, ``--quantize``, ``--bf16``, ``--featurizer xla``, the
-fast/turbo featurizer tiers) and ``--calib_wav``.
+``sed_tpu_torch.cli.stream`` (``--quantize``, ``--bf16``, ``--num_devices``
+> 1, the fast/turbo featurizer tiers) and ``--calib_wav``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Live PCM streaming scorer "
                                             "(PyTorch/CUDA port)")
     p.add_argument("--ckpt", type=str, required=True,
-                   help=".pth with {'model': state_dict} or a bare state dict")
+                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=0,
                    help="0 = pick a free port (printed on stdout)")
@@ -54,7 +56,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "the same encoding")
     p.add_argument("--halo", type=int, default=64)
     p.add_argument("--featurizer", type=str, default="auto",
-                   help="auto|pallas (xla is not ported)")
+                   help="auto|pallas (K3 + K2) or xla (PyTorch ops)")
     p.add_argument("--featurizer_precision", type=str, default="parity",
                    help="FFT precision tier; only 'parity' is ported")
     p.add_argument("--quantize", choices=["int8"], default=None,
@@ -62,9 +64,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--calib_wav", type=str, default="",
                    help="int8 calibration audio: not ported")
     p.add_argument("--arch", type=str, default="CnnAvgPooling",
-                   help="model family; only CnnAvgPooling is ported")
-    p.add_argument("--m5_pool", choices=["device", "host"], default=None,
-                   help="M5 serving pool: not ported")
+                   choices=["CnnAvgPooling", "MobileNetV1", "M5"],
+                   help="model family: the spectrogram families stream over the "
+                        "device-ring pool; M5 streams hop-strided waveform frames "
+                        "(scored the moment each completes)")
+    p.add_argument("--m5_pool", choices=["device", "host"], default="device",
+                   help="M5 pool: 'device' (sample rings on the card, raw chunks "
+                        "uploaded; scores emit per 1 s chunk; the default) or 'host' "
+                        "(rolling host buffers; a frame scores on the tick after its "
+                        "last sample arrives)")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 forward: not ported")
     p.add_argument("--no_warmup", action="store_true", default=False,
@@ -94,20 +102,26 @@ def warmup_pool(pool, wire: str = "pcm16") -> float:
 
     The ladder: one stream through startup and single-round ticks; then every
     slot joined, two all-slot rounds, and multi-round blocks with 1, 4 and
-    all slots active; then one batched drain of every slot.  It is a plain
-    function (``sed_tpu`` ran the same ladder inline, on accelerators only),
-    so the CPU tests run it too (fault R4).
+    all slots active; then one batched drain of every slot.  A pool with no
+    fixed chunk (``pool.chunk`` None: M5's host pool, whose piece here is
+    one frame) has no multi-round blocks and stops after the first stream,
+    which leaves.  It is a plain function (``sed_tpu`` ran
+    the same ladder inline, on accelerators only), so the CPU tests run it
+    too (fault R4).
     """
     from sed_tpu_torch.ops.mulaw import mulaw_encode
 
     t0 = time.time()
     rng = np.random.default_rng(0)
-    base = (3000 * rng.standard_normal(pool.chunk)).astype(np.int16)
+    base = (3000 * rng.standard_normal(pool.chunk or pool.cfg.frame_size)).astype(np.int16)
     piece = mulaw_encode(base) if wire == "mulaw" else base
     first = pool.join()
     for _ in range(4):
         pool.feed(first, piece)
         pool.tick()
+    if pool.chunk is None:
+        pool.leave(first)
+        return time.time() - t0
     slots = [first] + [pool.join() for _ in range(pool.slots - 1)]
     for _ in range(2):
         for s in slots:
@@ -122,7 +136,7 @@ def warmup_pool(pool, wire: str = "pcm16") -> float:
 
 
 def main(argv=None):
-    from sed_tpu_torch.cli.stream import refuse_unported
+    from sed_tpu_torch.cli.stream import build_pool, refuse_unported, serving_config
 
     parser = build_arg_parser()
     args = parser.parse_args(argv)
@@ -130,19 +144,16 @@ def main(argv=None):
     if args.calib_wav:
         parser.error("not ported yet: --calib_wav (see ROADMAP.md)")
 
-    from sed_tpu_torch.cli.infer import load_mean_std, load_model
-    from sed_tpu_torch.configs import SpectrogramConfig
     from sed_tpu_torch.serve_socket import StreamServer
-    from sed_tpu_torch.stream_pool import StreamPool
 
-    cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
-    mean, std = load_mean_std(args.mean_std_file)
-    model = load_model(args.ckpt, cfg.classes_num)
-    pool = StreamPool(
-        model, cfg, slots=args.slots,
-        chunk_samples=int(round(args.chunk_seconds * cfg.working_sample_rate)),
-        halo=args.halo, mean=mean, std=std, featurizer=args.featurizer,
-        featurizer_precision=args.featurizer_precision, device=args.device)
+    cfg = serving_config(args)
+
+    def note(msg):
+        print(msg, file=sys.stderr, flush=True)
+
+    pool = build_pool(
+        args, cfg, args.slots, int(round(args.chunk_seconds * cfg.working_sample_rate)),
+        note=note, m5_ignored=["--chunk_seconds"] if args.chunk_seconds != 1.0 else [])
     if not args.no_warmup and pool.device.type == "cuda":
         secs = warmup_pool(pool, args.wire)
         print(f"warmup: {secs:.1f}s (every tick and drain shape driven once)",

@@ -1,5 +1,5 @@
-"""Streaming CLI: score WAV files through the StreamPool lifecycle
-(counterpart of ``sed_tpu.cli.stream``, spectrogram pool path).
+"""Streaming CLI: score WAV files through a pool's lifecycle (counterpart
+of ``sed_tpu.cli.stream``).
 
 Each file becomes one stream: files join as slots free up (optionally
 staggered), feed() one chunk's worth of audio per tick (the last piece is
@@ -9,18 +9,23 @@ through one leave_many(), which drains their remainders exactly.  Scores per
 file equal offline scoring of the same audio.
 
     python -m sed_tpu_torch.cli.stream a.wav b.wav c.wav --ckpt model.pth \\
+        [--arch CnnAvgPooling|MobileNetV1|M5] [--m5_pool device|host] \\
         [--chunk_seconds 1.0] [--slots 8] [--stagger_ticks 2] \\
-        [--event_threshold 0.5] [--device cuda|cpu]
+        [--featurizer auto|pallas|xla] [--event_threshold 0.5] [--device cuda|cpu]
 
-Loads ``--ckpt`` like ``sed_tpu_torch.cli.infer`` (a ``.pth`` holding
-``{'model': state_dict}`` or a bare state dict of
-CnnAvgPooling(TRAIN_CHANNEL_AND_POOL)), writes ``<name>_scores.npy`` (and,
-with ``--event_threshold``, ``<name>_events.csv``) per file and prints one
-JSON summary line, which includes the kernel launch counts of the run.
+``--ckpt`` is read by ``cli.infer.load_model_and_state``: a port
+``iteration_{n}.pt``, a reference ``.pth`` or a ``sed_tpu`` msgpack
+``.ckpt``.  The spectrogram archs stream over ``StreamPool`` (device rings,
+K3 + K2 a tick; ``--featurizer xla`` featurizes in PyTorch ops instead);
+MobileNetV1 streams its logits view with its halo raised to its
+receptive-field floor (88).  M5 streams hop-strided waveform frames over
+``DeviceWaveformStreamPool`` (``--m5_pool device``, the default) or
+``WaveformStreamPool`` (``host``).  Writes ``<name>_scores.npy`` (and, with
+``--event_threshold``, ``<name>_events.csv``) per file and prints one JSON
+summary line, which includes the kernel launch counts of the run.
 
-Not ported yet, and refused rather than ignored: ``--arch`` other than
-CnnAvgPooling, ``--m5_pool``, ``--quantize``, ``--bf16``, ``--num_devices``
-> 1, ``--featurizer xla`` and the fast/turbo featurizer tiers.
+Not ported yet, and refused rather than ignored: ``--quantize``, ``--bf16``,
+``--num_devices`` > 1 and the fast/turbo featurizer tiers.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         description="Streaming (lifecycle) sound-event scoring (PyTorch/CUDA port)")
     p.add_argument("audio_files", type=str, nargs="+")
     p.add_argument("--ckpt", type=str, required=True,
-                   help=".pth with {'model': state_dict} or a bare state dict")
+                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt")
     p.add_argument("--outputs_dir", type=str, default="streaming_outputs")
     p.add_argument("--chunk_seconds", type=float, default=1.0,
                    help="chunk every stream pushes per tick")
@@ -57,7 +62,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="receptive-field halo (frames, stride-aligned)")
     p.add_argument("--featurizer", type=str, default="auto",
                    help="auto|pallas: the tick featurizes through the CUDA "
-                        "kernels K3 + K2 (xla is not ported)")
+                        "kernels K3 + K2; xla: in PyTorch ops")
     p.add_argument("--featurizer_precision", type=str, default="parity",
                    help="FFT precision tier; only 'parity' is ported")
     p.add_argument("--num_devices", type=int, default=1,
@@ -74,9 +79,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="comma-separated event classes — must match the "
                         "checkpoint's training config")
     p.add_argument("--arch", type=str, default="CnnAvgPooling",
-                   help="model family; only CnnAvgPooling is ported")
-    p.add_argument("--m5_pool", choices=["device", "host"], default=None,
-                   help="M5 serving pool: not ported")
+                   choices=["CnnAvgPooling", "MobileNetV1", "M5"],
+                   help="model family: the spectrogram families stream over the "
+                        "device-ring pool; M5 streams hop-strided waveform frames")
+    p.add_argument("--m5_pool", choices=["device", "host"], default="device",
+                   help="M5 pool: 'device' (sample rings on the card, raw chunks "
+                        "uploaded; the default) or 'host' (rolling host buffers)")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 forward: not ported")
     return p
@@ -84,14 +92,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit with a usage error naming every unported option that was given
-    (shared with ``cli.serve_socket``)."""
+    (shared with ``cli.serve_socket``).  ``--num_devices`` with M5 gets
+    ``sed_tpu``'s message: sharding applies to the spectrogram pool."""
+    if args.arch == "M5" and getattr(args, "num_devices", 1) > 1:
+        parser.error("--num_devices applies to the spectrogram pool")
     unported = [flag for flag, on in (
-        (f"--arch {args.arch}", args.arch != "CnnAvgPooling"),
-        ("--m5_pool", args.m5_pool is not None),
         ("--quantize", args.quantize is not None),
         ("--bf16", args.bf16),
         ("--num_devices > 1", getattr(args, "num_devices", 1) != 1),
-        ("--featurizer xla", args.featurizer == "xla"),
         (f"--featurizer_precision {args.featurizer_precision}",
          args.featurizer_precision != "parity"),
     ) if on]
@@ -99,21 +107,70 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
 
 
+def serving_config(args):
+    """``WaveformConfig`` for M5, ``SpectrogramConfig`` otherwise, with the
+    classes of ``--tau_labels``."""
+    from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
+
+    labels = tuple(args.tau_labels.split(","))
+    if args.arch == "M5":
+        return WaveformConfig(tau_sed_labels=labels)
+    return SpectrogramConfig(tau_sed_labels=labels)
+
+
+def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=()):
+    """The serving pool of ``args`` (shared with ``cli.serve_socket``):
+    ``--ckpt`` loaded into ``--arch`` on ``--device`` and the pool of its
+    family.  MobileNetV1 is served as its logits view (the pool applies the
+    sigmoid) with ``--halo`` raised to its receptive-field floor.  M5 gets
+    the ``--m5_pool`` pool at its default chunk of one second, as
+    ``sed_tpu``'s, and ``note`` names the options it ignores (those of
+    ``m5_ignored`` first)."""
+    from sed_tpu_torch.cli.infer import halo_floor, load_mean_std, load_model_and_state
+
+    note = note or log
+    model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, device=args.device)
+    if args.arch == "M5":
+        from sed_tpu_torch.waveform_streaming import (DeviceWaveformStreamPool,
+                                                      WaveformStreamPool)
+
+        ignored = list(m5_ignored) + [f for f, on in (
+            ("--halo", args.halo != 64),
+            ("--featurizer", args.featurizer != "auto"),
+            ("--featurizer_precision", args.featurizer_precision != "parity"),
+            ("--mean_std_file", bool(args.mean_std_file)),
+        ) if on]
+        if ignored:
+            note(f"note: {', '.join(ignored)} have no effect on the M5 pool")
+        if args.m5_pool == "device":
+            return DeviceWaveformStreamPool(model, cfg, slots=slots, device=args.device)
+        return WaveformStreamPool(model, cfg, slots=slots, device=args.device)
+
+    from sed_tpu_torch.stream_pool import StreamPool
+
+    if args.arch == "MobileNetV1":
+        from sed_tpu_torch.models.cnn import MobileNetV1
+
+        logits = MobileNetV1(cfg.classes_num, emit="logits")
+        logits.load_state_dict(model.state_dict(), strict=True)
+        model = logits
+        args.halo = halo_floor(model, args.halo, log=note)
+    mean, std = load_mean_std(args.mean_std_file)
+    return StreamPool(model, cfg, slots=slots, chunk_samples=chunk, halo=args.halo,
+                      mean=mean, std=std, featurizer=args.featurizer,
+                      featurizer_precision=args.featurizer_precision, device=args.device)
+
+
 def main(argv=None):
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
 
-    from sed_tpu_torch.cli.infer import load_mean_std, load_model
-    from sed_tpu_torch.configs import SpectrogramConfig
     from sed_tpu_torch.io.audio import read_multichannel_audio
     from sed_tpu_torch.ops import cuda_featurizer as kernels
-    from sed_tpu_torch.stream_pool import StreamPool
 
-    cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
+    cfg = serving_config(args)
     chunk = int(round(args.chunk_seconds * cfg.working_sample_rate))
-    mean, std = load_mean_std(args.mean_std_file)
-    model = load_model(args.ckpt, cfg.classes_num)
     os.makedirs(args.outputs_dir, exist_ok=True)
 
     # File queue: (path, mono float32 waveform).  Reading up front keeps the
@@ -124,11 +181,7 @@ def main(argv=None):
         queue.append({"path": path, "wav": wav[:, 0].astype(np.float32), "pos": 0,
                       "scores": []})
     slots = args.slots or min(len(queue), 32)
-    pool = StreamPool(model, cfg, slots=slots, chunk_samples=chunk,
-                      halo=args.halo, mean=mean, std=std,
-                      featurizer=args.featurizer,
-                      featurizer_precision=args.featurizer_precision,
-                      device=args.device)
+    pool = build_pool(args, cfg, slots, chunk)
 
     kernels.reset_launch_counts()
     active = {}           # slot -> file record
@@ -168,7 +221,7 @@ def main(argv=None):
             tail = tails[slot]
             if isinstance(tail, Exception):
                 raise tail
-            if tail.shape[0] == 0 and len(rec["wav"]) <= cfg.nfft // 2:
+            if tail.shape[0] == 0 and len(rec["wav"]) <= getattr(cfg, "nfft", 0) // 2:
                 log(f"tick {tick}: {os.path.basename(rec['path'])} too short "
                     f"to featurize; emitting empty scores")
             if tail.shape[0]:

@@ -46,15 +46,14 @@ SCHEDULE_SCALARS = 6
 def resolve_tick_featurizer(featurizer: str, cfg, mesh=None) -> str:
     """'auto' and 'pallas' -> 'pallas': the tick featurizes through the
     hand-written kernels K3 + K2 on CUDA and their plain versions on the
-    CPU.  ``sed_tpu``'s 'xla' path (a matmul DFT in XLA ops) is not ported
-    and raises ``NotImplementedError``, as does a ``mesh``."""
+    CPU.  'xla' -> 'xla': ``sed_tpu``'s XLA tick featurizer, here the rFFT
+    and mel projection in PyTorch ops (``ops.featurizer.logmel_frames_xla``),
+    taken only when named.  A ``mesh`` raises ``NotImplementedError``."""
     refuse_unported(mesh=mesh)
     if featurizer in ("auto", "pallas"):
         return "pallas"
     if featurizer == "xla":
-        raise NotImplementedError(
-            "featurizer='xla' is not ported: the tick featurizes through the "
-            "CUDA kernels K3 + K2 (see ROADMAP.md, slice E)")
+        return "xla"
     raise ValueError(f"featurizer must be auto|xla|pallas, got {featurizer}")
 
 
@@ -177,13 +176,13 @@ class DeviceStreamingDetector:
         qparams=None,
         device="cuda",
     ):
-        """``featurizer``: 'auto' or 'pallas' (see
+        """``featurizer``: 'auto', 'pallas' or 'xla' (see
         :func:`resolve_tick_featurizer`).  ``featurizer_precision``: None or
         'parity'.  ``extract_impl``: 'slices' (default) or 'span' (see
         :class:`RingTick`).  ``mesh`` and ``qparams`` are not ported and
         raise."""
         refuse_unported(qparams)
-        resolve_tick_featurizer(featurizer, cfg, mesh)
+        featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
         resolve_featurizer_precision(featurizer_precision)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -201,7 +200,8 @@ class DeviceStreamingDetector:
         # Startup runs through the host class until every reflection-
         # dependent frame is featurized and the ring covers the live window.
         self._stream_fns = make_stream_fns(model, cfg, mean=self.mean,
-                                           std=self.std, device=self.device)
+                                           std=self.std, device=self.device,
+                                           featurizer=featurizer)
         self._host = BatchedStreamingDetector(
             model, cfg, batch=batch, halo=halo, total_stride=total_stride,
             bucket=bucket, mean=mean, std=std, stream_fns=self._stream_fns)

@@ -99,3 +99,11 @@ def m5_state_dict(params, batch_stats) -> dict:
     sd["fc.weight"] = _t(np.asarray(params["Dense_0"]["kernel"]).T)
     sd["fc.bias"] = _t(params["Dense_0"]["bias"])
     return sd
+
+
+# Model family -> its converter of flax (params, batch_stats) trees.
+FLAX_CONVERTERS = {
+    "CnnAvgPooling": cnn_avg_pooling_state_dict,
+    "MobileNetV1": mobilenet_state_dict,
+    "M5": m5_state_dict,
+}

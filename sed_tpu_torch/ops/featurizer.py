@@ -13,8 +13,9 @@ their names and meaning:
   * ``fft_impl`` ('fft', 'matmul', 'auto' = 'fft'): the STFT of the
     use_pallas=True/False paths (:mod:`sed_tpu_torch.ops.stft`);
   * :func:`logmel_frames` is K3 STFT power + K2 for pre-framed rows (the
-    streaming tick); ``cuda_featurizer.logmel_waveform`` takes every
-    ``impl`` name of ``sed_tpu``'s ``logmel_waveform_pallas``.
+    streaming tick); :func:`logmel_frames_xla` the same function in PyTorch
+    ops (the tick's ``featurizer='xla'``); ``cuda_featurizer.logmel_waveform``
+    takes every ``impl`` name of ``sed_tpu``'s ``logmel_waveform_pallas``.
 """
 
 from __future__ import annotations
@@ -215,3 +216,15 @@ def logmel_frames(frames: torch.Tensor, cfg: SpectrogramConfig = DEFAULT_SPECTRO
     device = frames.device
     power = kernels.frames_stft_power(frames, kernels.stft_window(cfg, device), cfg.nfft)
     return kernels.mel_log(power, kernels.mel_bands(cfg, device))
+
+
+def logmel_frames_xla(frames: torch.Tensor,
+                      cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM) -> torch.Tensor:
+    """(rows, n_fft) raw frames, float32 or int16 (PCM16) -> (rows, mel_bins)
+    float32 log-mel in PyTorch ops, no kernel of the port: the windowed rFFT
+    (:func:`sed_tpu_torch.ops.stft.rfft_realimag`) then
+    :func:`realimag_to_log_mel` (``sed_tpu``'s XLA tick featurizer)."""
+    window = torch.tensor(stft_ops.padded_window(cfg.frame_size, cfg.nfft), device=frames.device)
+    with full_float32():
+        re, im = stft_ops.rfft_realimag(ingest_to_f32(frames) * window, cfg.nfft)
+        return realimag_to_log_mel(re, im, cfg)

@@ -230,15 +230,20 @@ def _resolve_fft_impl(fft_impl: str) -> str:
     return fft_impl
 
 
+def rfft_realimag(frames: torch.Tensor, n_fft: int, fft_impl: str = "auto"):
+    """Real FFT of (..., n_fft) windowed frames by ``fft_impl``: (real,
+    imag), each (..., n_fft//2 + 1)."""
+    if _resolve_fft_impl(fft_impl) == "matmul":
+        return rfft_matmul_realimag(frames, n_fft)
+    spec = torch.fft.rfft(frames, dim=-1)
+    return spec.real, spec.imag
+
+
 def stft_realimag(y: torch.Tensor,
                   cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                   fft_impl: str = "auto"):
     """(..., samples) -> ((..., frames, bins) real, (..., frames, bins) imag)."""
-    frames = windowed_frames(y, cfg)
-    if _resolve_fft_impl(fft_impl) == "matmul":
-        return rfft_matmul_realimag(frames, cfg.nfft)
-    spec = torch.fft.rfft(frames, dim=-1)
-    return spec.real, spec.imag
+    return rfft_realimag(windowed_frames(y, cfg), cfg.nfft, fft_impl)
 
 
 def stft(y: torch.Tensor,

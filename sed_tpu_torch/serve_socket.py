@@ -89,7 +89,9 @@ def _recv_frame(sock: socket.socket,
 class StreamServer:
     """Serve a StreamPool over TCP.
 
-    ``pool``: a configured :class:`sed_tpu_torch.stream_pool.StreamPool`.
+    ``pool``: a configured :class:`sed_tpu_torch.stream_pool.StreamPool`, or
+    an M5 pool of :mod:`sed_tpu_torch.waveform_streaming` (the server uses
+    only ``join``, ``feed``, ``tick`` and ``leave_many``).
     ``tick_interval``: seconds between batched device ticks (clamped to
     >= 1 ms — the tick loop is timer-driven, not staged-gated).
     ``wire``: client audio encoding — 'pcm16' int16 (default) or 'mulaw'

@@ -56,6 +56,31 @@ def wire_dtype(chunks) -> np.dtype:
     return np.dtype(np.float32)
 
 
+def flatten_pieces(pieces: List[np.ndarray]) -> np.ndarray:
+    """Concatenate a slot's staged pieces; mixed dtypes promote through the
+    host ingest rules (:func:`ingest_to_f32_np`)."""
+    if len(pieces) == 1:
+        return pieces[0]
+    if len({p.dtype for p in pieces}) == 1:
+        return np.concatenate(pieces)
+    return np.concatenate([ingest_to_f32_np(p) for p in pieces])
+
+
+def full_chunk_rounds(take: Dict[int, np.ndarray], pos: Dict[int, int], chunk: int) -> list:
+    """The rounds of full chunks in the claimed audio ``take`` from each
+    slot's position ``pos``: ``[{slot: (chunk,) array}, ...]``, a slot in
+    every round until its audio has less than a chunk left."""
+    rounds, rpos = [], dict(pos)
+    while True:
+        chunks = {b: a[rpos[b]: rpos[b] + chunk] for b, a in take.items()
+                  if a.size - rpos[b] >= chunk}
+        if not chunks:
+            return rounds
+        for b in chunks:
+            rpos[b] += chunk
+        rounds.append(chunks)
+
+
 class StreamPool:
     """A pool of ``slots`` concurrent streams with join/leave lifecycle.
 
@@ -90,11 +115,13 @@ class StreamPool:
         qparams=None,
         device="cuda",
     ):
-        """``featurizer``: 'auto' or 'pallas'; ``featurizer_precision``: None
+        """``featurizer``: 'auto', 'pallas' (K3 + K2) or 'xla' (PyTorch ops;
+        see ``device_streaming.resolve_tick_featurizer``) for the tick and the
+        host startup and drains alike; ``featurizer_precision``: None
         or 'parity'; ``extract_impl``: 'slices' or 'span'; ``mesh`` and
         ``qparams`` are not ported and raise."""
         refuse_unported(qparams)
-        resolve_tick_featurizer(featurizer, cfg, mesh)
+        featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
         resolve_featurizer_precision(featurizer_precision)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -116,7 +143,8 @@ class StreamPool:
         # One (featurize, forward) pair serves every host detector the pool
         # builds (join startup, leave drain) and the ring tick.
         self._stream_fns = make_stream_fns(model, cfg, mean=self.mean,
-                                           std=self.std, device=self.device)
+                                           std=self.std, device=self.device,
+                                           featurizer=featurizer)
         self._pending: Dict[int, BatchedStreamingDetector] = {}
         self._admitted: Dict[int, dict] = {}   # slot -> schedule counters
         # Staged audio is a per-slot list of fed pieces under its own lock,
@@ -201,7 +229,7 @@ class StreamPool:
         with self._stage_lock:
             pieces = self._staged.pop(b, None)
             self._staged_n.pop(b, None)
-        rem = self._flatten(pieces) if pieces else None
+        rem = flatten_pieces(pieces) if pieces else None
         if b in self._pending:
             h = self._pending.pop(b)
             if (h._buf_start + h._samples.shape[1] == 0
@@ -316,16 +344,6 @@ class StreamPool:
         with self._stage_lock:
             return self._staged_n.get(b, 0)
 
-    @staticmethod
-    def _flatten(pieces: List[np.ndarray]) -> np.ndarray:
-        """Concatenate staged pieces; mixed dtypes promote through the
-        host ingest rules (:func:`ingest_to_f32_np`)."""
-        if len(pieces) == 1:
-            return pieces[0]
-        if len({p.dtype for p in pieces}) == 1:
-            return np.concatenate(pieces)
-        return np.concatenate([ingest_to_f32_np(p) for p in pieces])
-
     def _prof(self, **kv) -> None:
         if self.profile is not None:
             for k, v in kv.items():
@@ -353,7 +371,7 @@ class StreamPool:
             take: Dict[int, np.ndarray] = {}
             for b in list(self._staged):
                 if self._staged_n.get(b, 0) >= self.chunk:
-                    take[b] = self._flatten(self._staged.pop(b))
+                    take[b] = flatten_pieces(self._staged.pop(b))
                     self._staged_n[b] = 0
         pos = {b: 0 for b in take}
         ok = False
@@ -371,16 +389,7 @@ class StreamPool:
                     pos[b] += self.chunk
                     out.setdefault(b, []).append(o[b])
             self._prof(pending_s=time.perf_counter() - t0)
-            rounds, rpos = [], dict(pos)
-            while True:
-                chunks = {b: a[rpos[b]: rpos[b] + self.chunk]
-                          for b, a in take.items()
-                          if a.size - rpos[b] >= self.chunk}
-                if not chunks:
-                    break
-                for b in chunks:
-                    rpos[b] += self.chunk
-                rounds.append(chunks)
+            rounds = full_chunk_rounds(take, pos, self.chunk)
             for j in range(0, len(rounds), self.ROUNDS_PER_CALL):
                 block = rounds[j: j + self.ROUNDS_PER_CALL]
                 o = self._push_rounds(block)

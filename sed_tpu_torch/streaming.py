@@ -39,7 +39,8 @@ import torch
 
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.inference import resolve_device
-from sed_tpu_torch.ops.featurizer import logmel_frames
+from sed_tpu_torch.models.cnn import MobileNetV1, mobilenet_receptive_field
+from sed_tpu_torch.ops.featurizer import logmel_frames, logmel_frames_xla
 from sed_tpu_torch.parallel.time_shard import receptive_field
 from sed_tpu_torch.utils.precision import full_float32
 
@@ -57,7 +58,8 @@ def refuse_unported(qparams=None, mesh=None) -> None:
 
 def make_stream_fns(model: torch.nn.Module,
                     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
-                    mean=None, std=None, qparams=None, device="cuda"):
+                    mean=None, std=None, qparams=None, device="cuda",
+                    featurizer: str = "auto"):
     """The ``(featurize, forward)`` pair every detector of one model and
     normalization shares (a pool passes one pair to each per-stream
     detector it builds).
@@ -67,11 +69,25 @@ def make_stream_fns(model: torch.nn.Module,
     ``forward``: (batch, 1, frames, mel) NCHW -> (batch, frames', classes)
     sigmoid scores on ``device``.
 
+    ``featurizer``: 'auto' and 'pallas' featurize through
+    :func:`sed_tpu_torch.ops.featurizer.logmel_frames` (K3 + K2 on CUDA);
+    'xla' through ``logmel_frames_xla`` (the windowed rFFT and the mel
+    projection in PyTorch ops, no kernel of the port), chosen only by that
+    explicit name.
+
     ``model`` is moved to ``device``.  Each call of ``forward`` puts it in
     eval mode (running BatchNorm statistics, left as they were) and leaves
-    it there; both functions run in full float32 for the call.
+    it there; both functions run in full float32 for the call.  ``forward``
+    applies the sigmoid: give it a logits-emitting model (MobileNetV1 with
+    ``emit='logits'``).
     """
     refuse_unported(qparams)
+    if featurizer in ("auto", "pallas"):
+        featurize_frames = lambda x: logmel_frames(x, cfg)  # noqa: E731
+    elif featurizer == "xla":
+        featurize_frames = lambda x: logmel_frames_xla(x, cfg)  # noqa: E731
+    else:
+        raise ValueError(f"featurizer must be auto|xla|pallas, got {featurizer}")
     device = resolve_device(device)
     model = model.to(device)
 
@@ -84,7 +100,7 @@ def make_stream_fns(model: torch.nn.Module,
     @torch.no_grad()
     @full_float32()
     def featurize(frames) -> torch.Tensor:
-        lm = logmel_frames(torch.as_tensor(frames, device=device), cfg)
+        lm = featurize_frames(torch.as_tensor(frames, device=device))
         if mean_t is not None:
             lm = (lm - mean_t) / std_t
         return lm
@@ -221,14 +237,17 @@ class BatchedStreamingDetector:
         if halo % total_stride:
             raise ValueError(f"halo={halo} must be a multiple of "
                              f"total_stride={total_stride}")
+        rf = None
         if hasattr(model, "model_config"):
             rf = receptive_field(model.model_config)
-            if halo < (rf + 1) // 2:
-                need = total_stride * (-(-((rf + 1) // 2) // total_stride))
-                raise ValueError(
-                    f"halo={halo} frames is smaller than half the model's "
-                    f"receptive field ({rf} frames); emitted scores would be "
-                    f"corrupted — use halo >= {need}")
+        elif isinstance(model, MobileNetV1):
+            rf = mobilenet_receptive_field()
+        if rf is not None and halo < (rf + 1) // 2:
+            need = total_stride * (-(-((rf + 1) // 2) // total_stride))
+            raise ValueError(
+                f"halo={halo} frames is smaller than half the model's "
+                f"receptive field ({rf} frames); emitted scores would be "
+                f"corrupted — use halo >= {need}")
         self.model = model
         self.cfg = cfg
         self.batch = batch

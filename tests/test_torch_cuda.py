@@ -1137,3 +1137,130 @@ def test_batch_evaluator_launches_k1_and_k2_once(cuda):
         waves[..., None].cpu(), targets.cpu())
     assert (scores.cpu() - cpu[0]).abs().max() <= 1e-4
     assert recalls.shape == (2, 21) and aps.shape == (2,)
+
+
+# ---- slice E, MobileNetV1 and M5 serving; sed_tpu's checkpoints --------------
+
+
+def _msgpack(x) -> bytes:
+    """The msgpack of flax's checkpoint layout (maps, str, int, ndarrays as
+    extension type 1), written here because the card's host has neither
+    flax nor msgpack."""
+    if isinstance(x, dict):
+        return (b"\xdf" + len(x).to_bytes(4, "big")
+                + b"".join(_msgpack(k) + _msgpack(v) for k, v in x.items()))
+    if isinstance(x, str):
+        return b"\xdb" + len(x.encode()).to_bytes(4, "big") + x.encode()
+    if isinstance(x, list):
+        return b"\xdd" + len(x).to_bytes(4, "big") + b"".join(_msgpack(v) for v in x)
+    if isinstance(x, bytes):
+        return b"\xc6" + len(x).to_bytes(4, "big") + x
+    if isinstance(x, int):
+        return b"\xd3" + x.to_bytes(8, "big", signed=True)
+    payload = _msgpack([[int(d) for d in x.shape], x.dtype.name, x.tobytes()])
+    return b"\xc9" + len(payload).to_bytes(4, "big") + b"\x01" + payload
+
+
+def m5_flax_tree(model):
+    """``sed_tpu``'s {params, batch_stats} of the port's M5 (the inverse of
+    ``models.convert.m5_state_dict``)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    pairs = [("conv_block1", 0)] + [(f"conv_block{b}", i) for b in range(2, 6) for i in (0, 3)]
+    params, stats = {}, {}
+    for j, (block, idx) in enumerate(pairs):
+        params[f"Conv_{j}"] = {"kernel": np.ascontiguousarray(
+            sd[f"{block}.{idx}.weight"].transpose(2, 1, 0)), "bias": sd[f"{block}.{idx}.bias"]}
+        bn = f"{block}.{idx + 1}"
+        params[f"BatchNorm_{j}"] = {"scale": sd[f"{bn}.weight"], "bias": sd[f"{bn}.bias"]}
+        stats[f"BatchNorm_{j}"] = {"mean": sd[f"{bn}.running_mean"],
+                                   "var": sd[f"{bn}.running_var"]}
+    params["Dense_0"] = {"kernel": np.ascontiguousarray(sd["fc.weight"].T),
+                         "bias": sd["fc.bias"]}
+    return params, stats
+
+
+def test_load_model_and_state_of_a_sed_tpu_checkpoint_scores_on_the_card(cuda, tmp_path):
+    """A msgpack .ckpt in sed_tpu's layout loads through the port's reader
+    onto the card and scores as the original weights on the CPU."""
+    model = seeded_model("M5", 5)
+    params, stats = m5_flax_tree(model)
+    path = tmp_path / "iteration_9.ckpt"
+    path.write_bytes(_msgpack({"step": 9, "params": params, "batch_stats": stats,
+                               "opt_state": {"0": {"count": np.zeros((), np.int32)}}}))
+    loaded, state = cli.load_model_and_state(str(path), WaveformConfig(), arch="M5")
+    assert next(loaded.parameters()).device.type == "cuda" and state.step == 0
+    frames = signals(6, 31680, 48000, torch.device("cpu"), seed=3)[:, None]
+    with torch.no_grad(), full_float32():
+        got = loaded.eval()(frames.to(cuda)).cpu()
+        want = model(frames)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_m5_device_pool_on_the_card_matches_cpu(cuda):
+    """DeviceWaveformStreamPool on the card against the same pool on the CPU:
+    int16 and µ-law streams, uneven feeds, a backlog of more than
+    ROUNDS_PER_CALL chunks, leave_many; no featurizer kernel launches."""
+    from sed_tpu_torch.waveform_streaming import DeviceWaveformStreamPool
+
+    model = seeded_model("M5", 6)
+    rng = np.random.default_rng(6)
+    clips = [(3000 * rng.standard_normal(n)).astype(np.int16)
+             for n in (20 * 48000 + 777, 7 * 48000, 9 * 48000 + 5)]
+    clips[2] = mulaw_encode(clips[2])
+    out = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        pool = DeviceWaveformStreamPool(copy.deepcopy(model), WaveformConfig(), slots=4,
+                                        device=dev)
+        slots = [pool.join() for _ in clips]
+        acc = {s: [] for s in slots}
+        pool.feed(slots[0], clips[0])          # the backlog: 20 chunks at once
+        for pos in range(0, 9 * 48000 + 5, 30000):
+            for s, y in zip(slots[1:], clips[1:]):
+                pool.feed(s, y[pos:pos + 30000])
+            for s, sc in pool.tick().items():
+                acc[s].append(sc)
+        for s, tail in pool.leave_many(slots).items():
+            acc[s].append(tail)
+        out[str(dev)] = [np.concatenate(acc[s]) for s in slots]
+    assert sum(kernels.LAUNCHES.values()) == 0
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert a.shape == b.shape and a.shape[0] > 0
+        assert float(np.abs(a - b).max()) <= 1e-4
+
+
+def test_mobilenet_pool_launches_k3_and_k2_on_every_tick(cuda):
+    """MobileNetV1's logits view in a StreamPool: one K3 and one K2 per
+    featurize call (startup frames, each tick, the drain), none with
+    featurizer='xla', whose scores match within 1e-4."""
+    model = seeded_model("MobileNetV1", 7)
+    logits = MobileNetV1(1, emit="logits")
+    logits.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(7)
+    audio = (3000 * rng.standard_normal((2, 8 * 48000))).astype(np.int16)
+    got = {}
+    for feat in ("auto", "xla"):
+        pool = StreamPool(copy.deepcopy(logits), PROD, slots=2, halo=88, featurizer=feat,
+                          device=cuda)
+        slots = [pool.join(), pool.join()]
+        kernels.reset_launch_counts()
+        blocks = {s: [] for s in slots}
+        for k in range(8):
+            for s, sc in pool.push({s: audio[s, k * 48000:(k + 1) * 48000]
+                                    for s in slots}).items():
+                blocks[s].append(sc)
+        for s, tail in pool.leave_many(slots).items():
+            blocks[s].append(tail)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if feat == "auto":
+            assert launches["frames_stft_power"] >= 8 and launches["mel_log"] >= 8
+            assert launches["frames_stft_power"] == launches["mel_log"]
+        else:
+            assert sum(launches.values()) == 0
+        got[feat] = [np.concatenate(blocks[s]) for s in slots]
+    want = make_batch_predictor(model, PROD, device="cpu")(audio[..., None]).numpy()
+    for s in range(2):
+        assert got["auto"][s].shape == got["xla"][s].shape == want[s].shape
+        assert float(np.abs(got["auto"][s] - want[s]).max()) <= 1e-4
+        assert float(np.abs(got["xla"][s] - want[s]).max()) <= 1e-4

@@ -1,4 +1,6 @@
-"""sed_tpu_torch stands alone: it imports neither JAX nor anything of sed_tpu."""
+"""sed_tpu_torch stands alone: it imports neither JAX nor anything of sed_tpu,
+nor msgpack (the card's host has no such package; the port reads sed_tpu's
+msgpack checkpoints with its own decoder)."""
 
 import ast
 import subprocess
@@ -7,7 +9,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sed_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chex", "sed_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chex", "msgpack", "sed_tpu"}
 
 
 def port_sources():

@@ -278,8 +278,7 @@ def test_warmup_ladder_runs_on_cpu_and_leaves_the_pool_empty(models):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch", "M5"], ["--m5_pool", "host"], ["--quantize", "int8"], ["--bf16"],
-    ["--featurizer", "xla"], ["--featurizer_precision", "turbo"],
+    ["--quantize", "int8"], ["--bf16"], ["--featurizer_precision", "turbo"],
     ["--calib_wav", "a.wav"],
 ])
 def test_cli_refuses_unported_options(flags, capsys):
@@ -287,6 +286,51 @@ def test_cli_refuses_unported_options(flags, capsys):
         cli.main(["--ckpt", "unused.pth", *flags])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--arch", "M5"], ["--m5_pool", "host"],
+                                   ["--featurizer", "xla"]])
+def test_cli_options_once_refused_as_unported(flags, tmp_path):
+    """Each option this CLI once refused now builds its pool, as ``main``
+    does (``cli.stream.build_pool``), and serves a client: M5's device pool
+    (the default ``--m5_pool``), ``--m5_pool host`` (no effect on
+    CnnAvgPooling, as in sed_tpu) and the xla tick featurizer.  The client's
+    scores equal the pool's offline counterpart."""
+    from sed_tpu_torch.cli.infer import build_model, predict_file_m5
+    from sed_tpu_torch.cli.stream import build_pool, refuse_unported, serving_config
+    from sed_tpu_torch.configs import WaveformConfig
+    from scipy.io import wavfile
+
+    parser = cli.build_arg_parser()
+    args = parser.parse_args(["--ckpt", str(tmp_path / "model.pth"), "--device", "cpu",
+                              *flags])
+    refuse_unported(parser, args)
+    model = build_model(args.arch, 1)
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    torch.save({"model": model.state_dict()}, tmp_path / "model.pth")
+    cfg = serving_config(args)
+    pool = build_pool(args, cfg, 2, cfg.working_sample_rate)
+    want_pool = "DeviceWaveformStreamPool" if args.arch == "M5" else "StreamPool"
+    assert type(pool).__name__ == want_pool
+    y = pcm(3 * 48000 + 777, 6)
+    srv = StreamServer(pool, tick_interval=0.02)
+    srv.start()
+    try:
+        c = StreamClient(*srv.address, classes_num=1)
+        for pos in range(0, len(y), 20000):
+            c.send(y[pos: pos + 20000])
+        got = c.finish()
+    finally:
+        srv.stop()
+    if args.arch == "M5":
+        wavfile.write(tmp_path / "y.wav", 48000, y)
+        want = predict_file_m5(model, str(tmp_path / "y.wav"), WaveformConfig(),
+                               device="cpu")
+    else:
+        want = make_batch_predictor(model, SpectrogramConfig(), device="cpu")(
+            y[None, :, None]).numpy()[0]
+    assert got.shape == want.shape and got.shape[0] > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
 def test_cli_serves_a_client_on_cpu(tmp_path):

@@ -90,12 +90,50 @@ def test_stream_cli_short_file_does_not_abort_run(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch", "M5"], ["--arch", "MobileNetV1"], ["--m5_pool", "device"],
     ["--quantize", "int8"], ["--bf16"], ["--num_devices", "2"],
-    ["--featurizer", "xla"], ["--featurizer_precision", "fast"],
+    ["--featurizer_precision", "fast"],
 ])
 def test_stream_cli_refuses_unported_options(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["a.wav", "--ckpt", "unused.pth", *flags])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_stream_cli_refuses_num_devices_for_m5_as_sed_tpu_does(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["a.wav", "--ckpt", "unused.pth", "--arch", "M5", "--num_devices", "2"])
+    assert exc.value.code == 2
+    assert "--num_devices applies to the spectrogram pool" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--arch", "M5"], ["--arch", "MobileNetV1"], ["--m5_pool", "device"],
+    ["--featurizer", "xla"],
+])
+def test_stream_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
+    """Each option this CLI once refused now scores a file as offline
+    scoring of its arch does: M5's hop-strided frames (``predict_file_m5``),
+    MobileNetV1 through its logits view with its halo floor, ``--m5_pool``
+    (no effect on CnnAvgPooling) and the xla tick featurizer."""
+    from sed_tpu_torch.cli.infer import build_model, predict_file_m5
+    from sed_tpu_torch.configs import WaveformConfig
+
+    arch = flags[1] if flags[0] == "--arch" else "CnnAvgPooling"
+    model = build_model(arch, 1)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    torch.save({"model": model.state_dict()}, tmp_path / "model.pth")
+    y = write_wav(tmp_path / "clip.wav", 4 * SR + 321, 5)
+    out = tmp_path / "out"
+    cli.main([str(tmp_path / "clip.wav"), "--ckpt", str(tmp_path / "model.pth"),
+              "--device", "cpu", "--outputs_dir", str(out), *flags])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["files"] == 1 and sum(summary["kernel_launches"].values()) == 0
+    got = np.load(out / "clip_scores.npy")
+    if arch == "M5":
+        want = predict_file_m5(model, str(tmp_path / "clip.wav"), WaveformConfig(),
+                               device="cpu")
+    else:
+        want = make_batch_predictor(model, CFG, device="cpu")(y[None, :, None]).numpy()[0]
+    assert got.shape == want.shape and got.shape[0] > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

@@ -457,8 +457,8 @@ def test_pool_cpu_run_launches_no_kernel_and_refuses_unported(models):
     p.leave(s)
     assert sum(kernels.LAUNCHES.values()) == 0
     port = models[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamPool(port, CFG, featurizer="xla", device="cpu")
+    with pytest.raises(ValueError, match="auto|xla|pallas"):
+        StreamPool(port, CFG, featurizer="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamPool(port, CFG, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -467,3 +467,16 @@ def test_pool_cpu_run_launches_no_kernel_and_refuses_unported(models):
         StreamPool(port, CFG, featurizer_precision="fast", device="cpu")
     with pytest.raises(ValueError, match="extract_impl"):
         StreamPool(port, CFG, extract_impl="bogus", device="cpu")
+
+
+def test_pool_xla_featurizer_matches_fresh_streams(models):
+    """featurizer='xla' (the windowed rFFT and the mel projection in PyTorch
+    ops, ``ops.featurizer.logmel_frames_xla``) for the startup, the ring
+    tick and the drain: the blocks of a fresh sed_tpu detector."""
+    rng = np.random.default_rng(11)
+    audio = (0.1 * rng.standard_normal((10, CHUNK))).astype(np.float32)
+    p = pool(models, 2, featurizer="xla")
+    s = p.join()
+    got = [p.push({s: c})[s] for c in audio]
+    assert s in p._admitted
+    assert_stream_matches(models, got, p.leave(s), audio, "xla")

@@ -296,8 +296,7 @@ def test_device_detector_validation(models):
 
 def test_unported_options_raise(models):
     port = models[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_streaming.resolve_tick_featurizer("xla", CFG)
+    assert device_streaming.resolve_tick_featurizer("xla", CFG) == "xla"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         device_streaming.resolve_tick_featurizer("auto", CFG, mesh=object())
     with pytest.raises(ValueError):
@@ -306,9 +305,8 @@ def test_unported_options_raise(models):
     assert device_streaming.resolve_tick_featurizer("pallas", CFG) == "pallas"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         streaming.BatchedStreamingDetector(port, CFG, qparams={}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        device_streaming.DeviceStreamingDetector(port, CFG, featurizer="xla",
-                                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        device_streaming.DeviceStreamingDetector(port, CFG, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="receptive field"):
         streaming.BatchedStreamingDetector(port, CFG, halo=8, device="cpu")
 
