@@ -170,9 +170,42 @@ non-zero on the first failure.  Phases:
               (``torch.profiler``), audio-s per wall-s and peak memory of the
               three pool runs.
 
+ 14. int8    int8 PTQ and QAT on the card (``ops/int8.py``: im2col gathers and
+              ``torch._int_mm``; ``models/quantize.py``, ``models/qat.py``),
+              at full width with seeded weights and BatchNorm statistics:
+              ``int8_matmul`` at odd shapes (rows 1-16, K 9/79/288/1152, N
+              1/11/64) and five int8 convolutions equal to their plain
+              versions; ``predict_file(quantize="int8")`` on phase 10's
+              2-minute WAV for CnnAvgPooling and MobileNetV1 (one K1 and one
+              K2 a file, counts reset just before, read just after) and
+              ``predict_file_m5(quantize="int8")`` (no K1–K10), each equal to
+              its artifact's forward on the card, the artifact's card scores
+              within 5e-3 of its CPU scores (M5 on 32 frames), and against
+              the float run of the same file (reported); ``cli.infer
+              --quantize int8`` for the three archs (side by side) against
+              the in-process scores; an int8 ``StreamPool`` (CnnAvgPooling,
+              calibrated on stream 0) on phase 5's run, every stream within
+              5e-3 of offline int8 scoring, K3 + K2 on its ticks; an int8
+              ``DeviceWaveformStreamPool`` (M5) on phase 13's run within 1e-6
+              of offline int8, no K1–K10; ``qat_finetune(mode="distill")`` at
+              full width on the served CnnAvgPooling: 20 float32 steps on
+              the card lower the int8 deviation (timed), and from one state
+              the first 5 losses on the card follow the CPU's in float64
+              (1e-4 relative; float32 reported); on phase 3's model (every folded
+              BatchNorm bias exactly 0, so exactly cancelled sums sit on the
+              ReLU's kink) the float64 first-step gradients card vs CPU and
+              CPU vs CPU with the activation scales one ulp up (reported),
+              and with the biases moved 1e-6 off 0 card vs CPU (1e-10);
+              times:
+              int8 against float32 forwards of each arch (16 x 60 s, M5 on a
+              128-frame block), ``_int_mm``'s share of the int8 forward's
+              device time (``torch.profiler``), each int8 forward's peak
+              memory, and the 32-slot tick in float32 and int8.
+
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
-training path's launches, every entry with phase 12's, 0, and phase 13's),
-the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+training path's launches, every entry with phase 12's, 0, phase 13's and
+phase 14's), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -238,6 +271,15 @@ JSONL_KEYS = {"iteration", "train_loss", "val_loss", "AP", "max_f1", "max_f5", "
               "segment_n_ref", "segment_error_rate", "AP_per_class", "macro_AP",
               "event_macro_precision", "event_macro_recall", "event_macro_f1",
               "segment_macro_precision", "segment_macro_recall", "segment_macro_f1"}
+INT8_SHAPES = [(m, k, n) for m in (1, 5, 16) for k in (9, 79, 288, 1152) for n in (1, 11, 64)]
+INT8_BAND = 5e-3    # card int8 against the CPU's on one artifact (sed_tpu's band
+                    # between its own two int8 graphs)
+M5_INT8_TOL = 1e-6  # M5 streamed int8 against offline int8 (sed_tpu's)
+M5_CPU_FRAMES = 32  # frames of the 2-minute file M5's CPU int8 scores
+M5_BLOCK = 128      # M5's timed block of frames
+# QAT at full width: Adam moves each of a layer's ~147k weights by about lr a
+# step, so the 20 distill steps take lr 1e-6.
+QAT_STEPS, QAT_LR = 20, 1e-6
 REPS = 20
 QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
 
@@ -2268,6 +2310,434 @@ def serve_phase(torch, cfg, dev, smi, tmp, mean, std):
     return served
 
 
+def profile_int_mm(torch, fn, n: int):
+    """``torch.profiler`` over ``n`` calls of ``fn``: (device ms per call of
+    every kernel, of those ``aten::_int_mm`` launched, the largest kernels
+    [(name, ms per call), ...]); all empty when the profiler captured no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    int_mm = sum(e.device_time_total for e in prof.key_averages()
+                 if e.key == "aten::_int_mm") / 1e3 / n
+    return sum(ms for _, ms in rows), int_mm, sorted(rows, key=lambda r: -r[1])
+
+
+def int8_phase(torch, cfg, dev, smi, tmp, model, mean, std):
+    """Phase 14: int8 PTQ and QAT on the card (see the module docstring).
+    ``model``, ``mean``, ``std``: phase 3's CnnAvgPooling and normalization.
+    Returns the launch counts of the phase's main-path runs, summed."""
+    from sed_tpu_torch.cli import infer
+    from sed_tpu_torch.cli.stream import calibrate_int8
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.inference import emits_scores
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+    from sed_tpu_torch.models import quantize as q
+    from sed_tpu_torch.models.qat import qat_cnn_forward, qat_export, qat_finetune, qat_init
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops import int8
+    from sed_tpu_torch.ops.featurizer import logmel_features, logmel_features_batch
+    from sed_tpu_torch.parallel.time_shard import windowed_forward
+    from sed_tpu_torch.stream_pool import StreamPool
+    from sed_tpu_torch.utils.precision import full_float32
+    from sed_tpu_torch.waveform_streaming import DeviceWaveformStreamPool
+
+    t0 = time.perf_counter()
+    sr = chunk = cfg.working_sample_rate
+    wcfg = WaveformConfig()
+    launched = dict.fromkeys(kernels.LAUNCHES, 0)
+    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
+    std_t = torch.as_tensor(np.asarray(std, np.float32), device=dev)
+
+    def count(launches):
+        for k, v in launches.items():
+            launched[k] += v
+
+    def normalized(feats):
+        return (feats - mean_t) / std_t
+
+    models = {}
+    for i, arch in enumerate(SERVE_ARCHS):
+        m = infer.build_model(arch, cfg.classes_num)
+        m.reset_parameters(torch.Generator().manual_seed(50 + i))
+        models[arch] = seed_batch_norms(torch, m, 60 + i)
+        torch.save({"model": m.state_dict()}, tmp / f"{arch}.pth")
+        m.to(dev)
+    with open(tmp / "mean_std.pkl", "wb") as f:
+        pickle.dump({"mean": mean, "std": std}, f)
+    short = str(burst_wav(tmp / "short.wav", FILE_SECONDS[1], sr, 11))
+    cli_runs = {}
+    for arch in SERVE_ARCHS:
+        out = tmp / f"out_infer_{arch}"
+        spec = ["--mean_std_file", tmp / "mean_std.pkl"] if arch != "M5" else []
+        cli_runs[arch] = (out, start_cli(
+            ["sed_tpu_torch.cli.infer", "--no_plot", "--quantize", "int8", "--arch", arch,
+             "--ckpt", tmp / f"{arch}.pth", *spec, "--device", DEVICE, "--outputs_dir", out,
+             short], out.with_suffix(".log")))
+
+    # ---- the int8 products against their plain version ----------------------
+    g = torch.Generator().manual_seed(14)
+
+    def rand_int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+    for m, k, n in INT8_SHAPES:
+        a, b = rand_int8(m, k), rand_int8(k, n)
+        got = int8.int8_matmul(a.to(dev), b.to(dev))
+        check(torch.equal(got.cpu(), int8.int8_matmul_plain(a, b)),
+              f"int8_matmul ({m}, {k}) @ ({k}, {n}) equals the plain version")
+    convs = [("2d", (2, 182, 64, 1), (32, 1, 3, 3), 1), ("2d", (2, 91, 32, 32), (64, 32, 3, 3), 1),
+             ("2d", (2, 23, 8, 1024), (1024, 1024, 1, 1), 0),
+             ("1d", (2, wcfg.frame_size, 1), (64, 1, 79), (4, 39)),
+             ("1d", (2, 1980, 64), (64, 64, 3), (1, 1))]
+    for kind, xs, ws, pad in convs:
+        x, w = rand_int8(*xs), rand_int8(*ws)
+        run = ((lambda x, w, pad=pad: int8.int8_conv2d_nhwc(x, w, pad)) if kind == "2d"
+               else (lambda x, w, pad=pad: int8.int8_conv1d_nwc(x, w, *pad)))
+        check(torch.equal(run(x.to(dev), w.to(dev)).cpu(), run(x, w)),
+              f"int8 conv{kind} {xs} x {ws} equals the plain version")
+    log(f"[int8] int8_matmul at {len(INT8_SHAPES)} shapes (rows 1-16, K 9/79/288/1152, N "
+        f"1/11/64) and {len(convs)} convolutions (CnnAvgPooling's first two, MobileNetV1's "
+        f"widest pointwise, M5's stem and a 3-tap) equal their plain versions exactly")
+
+    # ---- the per-file path with --quantize int8 -------------------------------
+    wav = read_multichannel_audio(short, target_fs=sr, cfg=cfg).astype(np.float32)
+    in_process, lines = {}, []
+    for arch in ("CnnAvgPooling", "MobileNetV1"):
+        net = models[arch]
+        halo = infer.halo_floor(net, FILE_HALO, log=lambda msg: None)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        int8.reset_launch_counts()
+        _, got = infer.predict_file(net, short, cfg, mean, std, FILE_WINDOW, FILE_HALO,
+                                    quantize="int8", device=DEVICE)
+        torch.cuda.synchronize()
+        launches, int_mm = dict(kernels.LAUNCHES), int8.LAUNCHES["int_mm"]
+        count(launches)
+        check(launches["wave_stft_power"] == 1 and launches["mel_log"] == 1
+              and sum(launches.values()) == 2, f"{arch} int8 file: one K1 and one K2 ({launches})")
+        check(int_mm > 0, f"{arch} int8 file reached _int_mm")
+        _, flt = infer.predict_file(net, short, cfg, mean, std, FILE_WINDOW, FILE_HALO,
+                                    device=DEVICE)
+        # The same artifact on the card and on the CPU.
+        with torch.inference_mode(), full_float32():
+            x = normalized(logmel_features(torch.from_numpy(wav).to(dev), cfg))[None]
+            qp, fwd = q.quantize_model(net, [x[:, :, ::max(1, x.shape[2] // 2048)]])
+            qp_cpu = q.qparams_to(qp, "cpu")
+            act = (lambda v: v) if emits_scores(net) else torch.sigmoid
+            card = act(windowed_forward(lambda b: fwd(qp, b), x, FILE_WINDOW, halo)[0])
+            cpu = act(windowed_forward(lambda b: fwd(qp_cpu, b), x.cpu(), FILE_WINDOW, halo)[0])
+        card, cpu = card.cpu().numpy(), cpu.numpy()
+        check(got.shape == flt.shape == card.shape == cpu.shape and np.isfinite(got).all(),
+              f"{arch} int8 file scores {got.shape}")
+        entry_err = float(np.abs(got - card).max())
+        cpu_err = float(np.abs(card - cpu).max())
+        dev_f = float(np.abs(got - flt).max())
+        corr = float(np.corrcoef(got.ravel(), flt.ravel())[0, 1])
+        check(entry_err <= INT8_BAND, f"{arch} predict_file int8 equals its own artifact's")
+        check(cpu_err <= INT8_BAND, f"{arch} card int8 within {INT8_BAND} of the CPU's")
+        in_process[arch] = got
+        lines.append(f"{arch}: launches {launches} + {int_mm} _int_mm; predict_file vs the "
+                     f"artifact's windowed forward {entry_err:.3e}, card vs CPU on one "
+                     f"artifact {cpu_err:.3e} (tol {INT8_BAND}); int8 vs float32 max "
+                     f"{dev_f:.3e}, corr {corr:.6f}")
+    m5 = models["M5"]
+    kernels.reset_launch_counts()
+    int8.reset_launch_counts()
+    got = infer.predict_file_m5(m5, short, wcfg, quantize="int8", device=DEVICE)
+    torch.cuda.synchronize()
+    launches, int_mm = dict(kernels.LAUNCHES), int8.LAUNCHES["int_mm"]
+    count(launches)
+    check(sum(launches.values()) == 0 and int_mm > 0,
+          f"M5 int8 file: no K1-K10 launch, _int_mm reached ({launches}, {int_mm})")
+    flt = infer.predict_file_m5(m5, short, wcfg, device=DEVICE)
+    frames = infer.hop_frames(torch.from_numpy(wav).to(dev), wcfg)
+    qp = q.quantize_m5(m5, [frames[::max(1, frames.shape[0] // 256)]])
+    card = torch.cat([torch.sigmoid(q.quantized_m5_forward(qp, frames[i:i + 32]))
+                      for i in range(0, frames.shape[0], 32)]).cpu().numpy()
+    cpu = torch.sigmoid(q.quantized_m5_forward(q.qparams_to(qp, "cpu"),
+                                               frames[:M5_CPU_FRAMES].cpu())).numpy()
+    entry_err = float(np.abs(got - card).max())
+    cpu_err = float(np.abs(card[:M5_CPU_FRAMES] - cpu).max())
+    dev_f = float(np.abs(got - flt).max())
+    corr = float(np.corrcoef(got.ravel(), flt.ravel())[0, 1])
+    check(got.shape == flt.shape == card.shape and np.isfinite(got).all(),
+          f"M5 int8 file scores {got.shape}")
+    check(entry_err <= INT8_BAND and cpu_err <= INT8_BAND, "M5 int8 file: entry and CPU")
+    in_process["M5"] = got
+    lines.append(f"M5: launches {launches} + {int_mm} _int_mm; predict_file_m5 vs the "
+                 f"artifact's forward {entry_err:.3e}, card vs CPU on one artifact "
+                 f"({M5_CPU_FRAMES} frames) {cpu_err:.3e}; int8 vs float32 max {dev_f:.3e}, "
+                 f"corr {corr:.6f}")
+    for line in lines:
+        log(f"[int8] {FILE_SECONDS[1]:.0f} s file, {line}")
+    del frames
+
+    # ---- int8 StreamPool (CnnAvgPooling) on phase 5's run ----------------------
+    audio = (make_signals(torch, POOL_SLOTS, sr * POOL_SECONDS, sr, dev, 2) * 32767
+             ).round().to(torch.int16).cpu().numpy()
+    clips = [audio[i] for i in range(POOL_SLOTS)]
+    clips[EARLY_LEAVER] = clips[EARLY_LEAVER][: int(EARLY_SECONDS * sr)]
+    qp_pool = calibrate_int8(model, "CnnAvgPooling", cfg, clips[0].astype(np.float32) / 32768.0,
+                             mean, std)
+    pool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean, std=std,
+                      qparams=qp_pool, device=DEVICE)
+    int8.reset_launch_counts()
+    got_pool, pool_wall, pool_launches, pool_peak, ticks = drive_pool(
+        torch, dev, pool, clips, chunk, seed=2)
+    pool_int_mm = int8.LAUNCHES["int_mm"]
+    count(pool_launches)
+    check(pool_launches["frames_stft_power"] > 0 and pool_launches["mel_log"] > 0
+          and pool_int_mm > 0, f"K3, K2 and _int_mm ran in the int8 pool ({pool_launches})")
+    pool_err = 0.0
+    with torch.inference_mode(), full_float32():
+        for i, clip in enumerate(clips):
+            x = normalized(logmel_features_batch(torch.from_numpy(clip).to(dev)[None, :, None],
+                                                 cfg))
+            want = q.quantized_scores(qp_pool, x)[0].cpu().numpy()
+            check(got_pool[i].shape == want.shape,
+                  f"int8 stream {i}: {got_pool[i].shape} != offline {want.shape}")
+            pool_err = max(pool_err, float(np.abs(got_pool[i] - want).max()))
+    check(pool_err <= INT8_BAND, "int8 pool within 5e-3 of offline int8 scoring")
+    pool_audio_s = sum(len(c) for c in clips) / sr
+    log(f"[int8] StreamPool int8 (CnnAvgPooling, calibrated on stream 0): {POOL_SLOTS} "
+        f"streams, {ticks} ticks; launches {pool_launches} + {pool_int_mm} _int_mm; max diff "
+        f"vs offline int8 {pool_err:.3e} (tol {INT8_BAND}); {pool_audio_s / pool_wall:.1f} "
+        f"audio-s per wall-s; peak {pool_peak:.1f} MiB")
+    del pool
+
+    # ---- int8 DeviceWaveformStreamPool (M5) on phase 13's run --------------------
+    audio13 = (make_signals(torch, POOL_SLOTS, sr * POOL_SECONDS, sr, dev, 13) * 32767
+               ).round().to(torch.int16).cpu().numpy()
+    m5_clips = [audio13[i] for i in range(POOL_SLOTS)]
+    m5_clips[EARLY_LEAVER] = m5_clips[EARLY_LEAVER][: int(EARLY_SECONDS * sr)]
+    qp_m5 = calibrate_int8(m5, "M5", wcfg, m5_clips[0].astype(np.float32) / 32768.0)
+    m5_pool = DeviceWaveformStreamPool(m5, wcfg, slots=POOL_SLOTS, qparams=qp_m5, device=DEVICE)
+    got_m5, m5_wall, m5_launches, m5_peak, m5_ticks = drive_pool(
+        torch, dev, m5_pool, m5_clips, chunk, seed=13)
+    count(m5_launches)
+    check(sum(m5_launches.values()) == 0, f"no K1-K10 launch in the M5 int8 pool ({m5_launches})")
+    m5_err = 0.0
+    for i, clip in enumerate(m5_clips):
+        fr = infer.hop_frames(torch.from_numpy(clip.astype(np.float32) / 32768.0)
+                              .to(dev)[:, None], wcfg)
+        want = torch.cat([torch.sigmoid(q.quantized_m5_forward(qp_m5, fr[j:j + 32]))
+                          for j in range(0, fr.shape[0], 32)]).cpu().numpy()
+        check(got_m5[i].shape == want.shape, f"M5 int8 stream {i}: {got_m5[i].shape}")
+        m5_err = max(m5_err, float(np.abs(got_m5[i] - want).max()))
+    check(m5_err <= M5_INT8_TOL, f"M5 int8 pool within {M5_INT8_TOL} of offline int8")
+    m5_audio_s = sum(len(c) for c in m5_clips) / sr
+    log(f"[int8] DeviceWaveformStreamPool int8 (M5): {m5_ticks} ticks, launches {m5_launches}; "
+        f"max diff vs offline int8 {m5_err:.3e} (tol {M5_INT8_TOL}); "
+        f"{m5_audio_s / m5_wall:.1f} audio-s per wall-s; peak {m5_peak:.1f} MiB")
+    del m5_pool, audio13, m5_clips
+
+    # ---- the CLI runs against the in-process int8 scores ------------------------
+    cli_err = 0.0
+    for arch, (out, proc) in cli_runs.items():
+        finish_cli(proc, out.with_suffix(".log"), f"cli.infer --quantize int8 --arch {arch}")
+        got = np.load(out / "short_scores.npy")
+        check(got.shape == in_process[arch].shape, f"cli.infer int8 {arch} shape")
+        cli_err = max(cli_err, float(np.abs(got - in_process[arch]).max()))
+    check(cli_err <= INT8_BAND, "cli.infer --quantize int8 within 5e-3 of in-process int8")
+    log(f"[int8] python -m sed_tpu_torch.cli.infer --quantize int8 for the three archs: max "
+        f"diff vs in-process int8 {cli_err:.3e} (tol {INT8_BAND})")
+
+    # ---- QAT on the card ---------------------------------------------------------
+    # Full width: the served CnnAvgPooling (seeded BatchNorm statistics, so
+    # its folded biases are not 0) on 2 x 16 x crop frames of the pool's
+    # log-mel, the float model's logits as targets.
+    with torch.inference_mode(), full_float32():
+        feats = normalized(logmel_features_batch(
+            torch.from_numpy(audio[:BATCH]).to(dev)[..., None], cfg))      # (16, 1, 182, 64)
+    crop = cfg.train_crop_size
+    qat_xs = [feats[:, :, :crop].clone(), feats[:, :, -crop:].clone()]
+    served = models["CnnAvgPooling"]
+
+    def qat_state(net):
+        with torch.no_grad(), full_float32():
+            teachers = [net.eval()(x) for x in qat_xs]
+        tr, st = qat_init(net, qat_xs)
+        return teachers, tr, st, [(x.cpu().numpy(), t.cpu().numpy())
+                                  for x, t in zip(qat_xs, teachers)]
+
+    def tree64(tr):
+        tr = q.qparams_to(tr, "cpu")
+        return {"blocks": [{k: [t.double() for t in v] for k, v in b.items()}
+                           for b in tr["blocks"]],
+                "dense": {k: v.double() for k, v in tr["dense"].items()}}
+
+    def ex64(ex):
+        return [(x.astype(np.float64), t.astype(np.float64)) for x, t in ex]
+
+    def max_dev(teachers, tr, st):
+        exported = qat_export(tr, st)
+        return max(float((q.quantized_scores(exported, x) - torch.sigmoid(t)).abs().max())
+                   for x, t in zip(qat_xs, teachers))
+
+    def qat_losses(tr, st, ex):
+        """The loss after k = 0..CPU_STEPS-1 steps on the k-th example, on the
+        card and on the CPU from one state, and their largest relative
+        difference."""
+        losses = {}
+        for where in (DEVICE, "cpu"):
+            st_w = q.qparams_to(st, where)
+            losses[where] = []
+            for k in range(CPU_STEPS):
+                x, t = ex[k % 2]
+                tuned = qat_finetune(tr, st, ex, mode="distill", steps=k, lr=QAT_LR,
+                                     device=where)
+                with torch.no_grad(), full_float32():
+                    logits = qat_cnn_forward(tuned, st_w, torch.from_numpy(x).to(where))
+                    losses[where].append(float(((logits - torch.from_numpy(t).to(where)) ** 2)
+                                               .mean()))
+        return losses, max(abs(a - b) / abs(b) for a, b in zip(losses[DEVICE], losses["cpu"]))
+
+    def first_grads(tr, st, x, t, where):
+        leaves = []
+
+        def leaf(v):
+            leaves.append(v.detach().to(where).clone().requires_grad_(True))
+            return leaves[-1]
+        tr = {"blocks": [{k: [leaf(v) for v in vs] for k, vs in b.items()} for b in tr["blocks"]],
+              "dense": {k: leaf(v) for k, v in tr["dense"].items()}}
+        with full_float32():
+            loss = ((qat_cnn_forward(tr, q.qparams_to(st, where), torch.from_numpy(x).to(where))
+                     - torch.from_numpy(t).to(where)) ** 2).mean()
+            loss.backward()
+        return [v.grad.cpu() for v in leaves]
+
+    def grad_rel(a, b):
+        return max(float((u - v).abs().max() / v.abs().max()) for u, v in zip(a, b))
+
+    teachers, tr, st, ex = qat_state(served)
+    losses64, rel64 = qat_losses(tree64(tr), st, ex64(ex))
+    losses32, rel32 = qat_losses(tr, st, ex)
+    torch.cuda.synchronize()
+    t_qat = time.perf_counter()
+    tuned = qat_finetune(tr, st, ex, mode="distill", steps=QAT_STEPS, lr=QAT_LR, device=DEVICE)
+    torch.cuda.synchronize()
+    qat_s = time.perf_counter() - t_qat
+    dev_before, dev_after = max_dev(teachers, tr, st), max_dev(teachers, tuned, st)
+    log(f"[int8] QAT at full width (served CnnAvgPooling, 2 x {BATCH} x {crop} frames), "
+        f"{QAT_STEPS} float32 distill steps at lr {QAT_LR} on the card: {qat_s:.3f} s; max int8 "
+        f"deviation {dev_before:.4e} -> {dev_after:.4e}")
+    log(f"[int8] QAT first {CPU_STEPS} losses, card vs CPU from one state: float64 card "
+        f"{[f'{v:.12e}' for v in losses64[DEVICE]]} CPU {[f'{v:.12e}' for v in losses64['cpu']]}"
+        f" max relative diff {rel64:.3e}; float32 card {[f'{v:.6e}' for v in losses32[DEVICE]]}"
+        f" CPU {[f'{v:.6e}' for v in losses32['cpu']]} max relative diff {rel32:.3e} "
+        f"(float64 held to {TRAIN_REL_TOL}; float32 reported: its summation orders flip "
+        f"fake-quant roundings)")
+    check(dev_after < dev_before, "QAT lowers the int8 deviation at full width")
+    check(rel64 <= TRAIN_REL_TOL, "QAT float64 losses on the card follow the CPU's")
+
+    # Phase 3's model has BatchNorm at its initial statistics, so every folded
+    # bias is exactly 0: a ReLU input that is an exactly cancelled lattice sum
+    # (an int32 dot product of 0 in the int8 forward) is then 0 or a rounding
+    # residue of either sign, which sets its gradient to 1/2, 1 or 0 by the
+    # summation order.  Reported: the float64 first-step gradients card vs
+    # CPU and the CPU against itself with the activation scales one ulp up,
+    # with the biases at 0 and moved 1e-6 off it, and the largest weights'
+    # w/scale (the clip's bound) and gradients; held: with the biases moved
+    # the card's gradients follow the CPU's.
+    _, tr3, st3, ex3 = qat_state(model)
+    x3, t3 = ex64(ex3)[0]
+    w64 = tree64(tr3)
+    zero_bias = sum(int((v == 0).sum()) for b in w64["blocks"] for v in b["b"])
+    n_bias = sum(v.numel() for b in w64["blocks"] for v in b["b"])
+    g_card, g_cpu = first_grads(w64, st3, x3, t3, DEVICE), first_grads(w64, st3, x3, t3, "cpu")
+
+    # The activation scales one float64 ulp up: every fake-quant activation
+    # keeps its integer and moves by about an ulp, the weights' lattice and
+    # its clip stay as they were.
+    inf = torch.tensor(float("inf"), dtype=torch.float64)
+    st_ulp = dict(st3, act_scales=[torch.nextafter(s.double().cpu(), inf)
+                                   for s in st3["act_scales"]])
+    g_ulp = first_grads(w64, st_ulp, x3, t3, "cpu")
+    moved = {"blocks": [dict(b, b=[v + 1e-6 for v in b["b"]]) for b in w64["blocks"]],
+             "dense": w64["dense"]}
+    g_moved = first_grads(moved, st3, x3, t3, "cpu")
+    moved_rel = grad_rel(first_grads(moved, st3, x3, t3, DEVICE), g_moved)
+    moved_ulp_rel = grad_rel(first_grads(moved, st_ulp, x3, t3, "cpu"), g_moved)
+    weights = [w for b in w64["blocks"] for w in b["w"]] + [w64["dense"]["w"]]
+    leaf_names = [k for b in w64["blocks"] for k in b for _ in b[k]] + list(w64["dense"])
+    w_grads = {"card": [g for g, n in zip(g_card, leaf_names) if n == "w"],
+               "cpu": [g for g, n in zip(g_cpu, leaf_names) if n == "w"]}
+    bound_q, bound_g = [], {"card": 0.0, "cpu": 0.0}
+    for i, w in enumerate(weights):
+        flat = w.flatten(1)
+        top = flat.abs().argmax(1, keepdim=True)
+        scale = flat.abs().amax(1) * (1.0 / 127.0)
+        bound_q.append(flat.abs().gather(1, top).squeeze(1) / scale)
+        for where in bound_g:
+            g = w_grads[where][i].flatten(1).gather(1, top)
+            bound_g[where] = max(bound_g[where], float(g.abs().max()))
+    bound_q = torch.cat(bound_q)
+    log(f"[int8] QAT, phase 3's model (BatchNorm at its initial statistics: {zero_bias} of "
+        f"{n_bias} folded biases exactly 0), float64 first-step gradients: card vs CPU "
+        f"{grad_rel(g_card, g_cpu):.3e}, CPU vs CPU with the activation scales one ulp up "
+        f"{grad_rel(g_ulp, g_cpu):.3e} (x the largest |grad| of each tensor); with the biases "
+        f"moved 1e-6: card vs CPU {moved_rel:.3e}, CPU vs CPU with the scales one ulp up "
+        f"{moved_ulp_rel:.3e}; each channel's largest weight at w/scale "
+        f"{float(bound_q.min()):.17g} to {float(bound_q.max()):.17g} (the clip's bound is 127), "
+        f"its gradient at most {bound_g['card']:.3e} (card) / {bound_g['cpu']:.3e} (CPU)")
+    check(moved_rel <= 1e-10, "QAT gradients off the ReLU ties: the card follows the CPU")
+
+    # ---- times ------------------------------------------------------------------
+    mob = models["MobileNetV1"]
+    block = infer.hop_frames(torch.from_numpy(audio[0].astype(np.float32) / 32768.0)
+                             .to(dev)[:, None], wcfg)[:M5_BLOCK].contiguous()
+    with torch.inference_mode():
+        arts = {"CnnAvgPooling": (model, feats), "MobileNetV1": (mob, feats), "M5": (m5, block)}
+        times = {}
+        for arch, (net, x) in arts.items():
+            qp, fwd = q.quantize_model(net, [x])
+            float_ms = time_ms(torch, lambda net=net, x=x: net(x))
+            int8_ms = time_ms(torch, lambda qp=qp, fwd=fwd, x=x: fwd(qp, x))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            fwd(qp, x)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+            busy, mm, top = profile_int_mm(torch, lambda qp=qp, fwd=fwd, x=x: fwd(qp, x), 5)
+            times[arch] = (float_ms, int8_ms, peak, busy, mm, top)
+    # The 32-slot tick, float and int8.
+    tick = {}
+    for tag, qparams in (("float32", None), ("int8", qp_pool)):
+        tpool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
+                           std=std, qparams=qparams, device=DEVICE)
+        slots = [tpool.join() for _ in range(POOL_SLOTS)]
+        for k in range(2):
+            tpool.push({s: audio[s, k * chunk: (k + 1) * chunk] for s in slots})
+        one = {s: audio[s, 2 * chunk: 3 * chunk] for s in slots}
+        tick[tag] = time_ms(torch, lambda tpool=tpool, one=one: tpool._push_rounds([one]))
+        del tpool
+    log(f"[times] {smi}; int8 against float32, CUDA-event medians of {REPS}:")
+    for arch, (float_ms, int8_ms, peak, busy, mm, top) in times.items():
+        shape = (f"a block of {M5_BLOCK} frames" if arch == "M5"
+                 else f"{BATCH} x {SECONDS} s, {feats.shape[2]} frames")
+        share = (f"_int_mm {mm:.4f} ms of {busy:.4f} ms of kernels ({mm / busy:.1%})"
+                 if busy > 0 else "torch.profiler captured no device time (not measured)")
+        log(f"[times] {arch} forward ({shape}): float32 {float_ms:.4f} ms | int8 "
+            f"{int8_ms:.4f} ms ({int8_ms / float_ms:.2f}x); {share}; int8 peak above its "
+            f"inputs {peak:.1f} MiB")
+        for name, ms in top[:4]:
+            log(f"[times]   {ms:.4f} ms  {name[:90]}")
+    log(f"[times] {POOL_SLOTS}-slot tick (one round): float32 {tick['float32']:.4f} ms | int8 "
+        f"{tick['int8']:.4f} ms ({tick['int8'] / tick['float32']:.2f}x)")
+    log(f"[int8] {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2805,6 +3275,11 @@ def main() -> int:
         serve_launches = serve_phase(torch, cfg, dev, smi, Path(serve_tmp), mean, std)
     log(f"[serve] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 14. int8 PTQ and QAT ----------------------------------------------------
+    with tempfile.TemporaryDirectory() as int8_tmp:
+        int8_launches = int8_phase(torch, cfg, dev, smi, Path(int8_tmp), model, mean, std)
+    log(f"[int8] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -2841,6 +3316,7 @@ def main() -> int:
     for e in entries:   # phase 12's path, M5 training: every count is 0
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["serve_launches"] = sum(serve_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["int8_launches"] = sum(int8_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,8 +4,8 @@ The module paths mirror ``sed_tpu`` so each counterpart is easy to find.
 The package imports torch, numpy and scipy only; it never imports JAX or
 anything of ``sed_tpu`` and keeps its own copies of what it needs.
 
-Covered so far (scoring, streaming of the spectrogram family, and
-training of all three model families):
+Covered so far (scoring, streaming and training of all three model
+families, int8 PTQ and QAT):
 
   configs:    AudioConfig, SpectrogramConfig, WaveformConfig
   features:   logmel_features(_batch), multichannel_stft,
@@ -14,7 +14,10 @@ training of all three model families):
               PyTorch versions on CPU tensors)
   data:       SpectrogramDataset, WaveformDataset, preprocess_data
   models:     CnnAvgPooling, MobileNetV1, M5, models.convert (sed_tpu
-              weights in), models.describe
+              weights and int8 artifacts in), models.describe
+  int8:       quantize_cnn, quantized_scores (models.quantize, with
+              MobileNetV1's and M5's), qat_init, qat_finetune, qat_export
+              (models.qat); int8 products in ops.int8 (torch._int_mm on CUDA)
   training:   train, evaluate, make_optimizer, save_checkpoint,
               load_checkpoint
   metrics:    calculate_metrics, f_score, event_based_metrics,
@@ -27,8 +30,9 @@ training of all three model families):
               sed_tpu .ckpt), train.torch_import / torch_export
   CLIs:       python -m sed_tpu_torch.cli.main (--train_features
               Waveform or Spectogram), python -m sed_tpu_torch.cli.infer (windowed
-              per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5),
-              cli.stream, cli.serve_socket (--arch, --m5_pool),
+              per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5,
+              --quantize int8), cli.stream, cli.serve_socket (--arch,
+              --m5_pool, --quantize int8),
               cli.import_torch, cli.export_torch
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -51,6 +55,11 @@ _EXPORTS = {
     "CnnAvgPooling": "sed_tpu_torch.models.cnn",
     "MobileNetV1": "sed_tpu_torch.models.cnn",
     "M5": "sed_tpu_torch.models.m5",
+    "quantize_cnn": "sed_tpu_torch.models.quantize",
+    "quantized_scores": "sed_tpu_torch.models.quantize",
+    "qat_init": "sed_tpu_torch.models.qat",
+    "qat_finetune": "sed_tpu_torch.models.qat",
+    "qat_export": "sed_tpu_torch.models.qat",
     "train": "sed_tpu_torch.train.loop",
     "evaluate": "sed_tpu_torch.train.loop",
     "make_optimizer": "sed_tpu_torch.train.optim",

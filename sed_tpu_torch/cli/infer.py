@@ -20,13 +20,20 @@ It scores on ``--device`` (default ``cuda``):
   * M5: the hop-strided 31680-sample frames of each file, framed on the
     card and scored in buckets of 32 frames.
 
+``--quantize int8`` scores the per-file paths through the int8 forward
+(``models/quantize.py``), calibrated on the file itself: the spectrogram
+archs on a strided subsample of its features spanning the whole file, M5
+on a strided subsample of its frames.  With ``--batch`` it has no effect
+(a note says so; the batch path scores in float), and it excludes
+``--bf16``.
+
 Writes ``{name}_scores.npy``, ``{name}_scores.csv``, with
 ``--event_threshold`` ``{name}_events.csv``, and for the spectrogram archs
 without ``--no_plot`` a ``{name}.png`` (this needs matplotlib) to
 ``--outputs_dir``.
 
-Not ported yet, and refused by name rather than ignored: ``--quantize``,
-``--bf16``, ``--num_devices`` > 1 and the fast/turbo featurizer tiers.
+Not ported yet, and refused by name rather than ignored: ``--bf16``,
+``--num_devices`` > 1 and the fast/turbo featurizer tiers.
 """
 
 from __future__ import annotations
@@ -62,7 +69,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         choices=["parity", "fast", "turbo"],
                         help="FFT precision tier; only 'parity' is ported")
     parser.add_argument("--quantize", choices=["int8"], default=None,
-                        help="int8 serving: not ported")
+                        help="int8 serving forward (lossy), calibrated on each "
+                             "file; the per-file paths only")
     parser.add_argument("--batch", action="store_true", default=False,
                         help="score files as batches grouped by length "
                              "(fastest for many equal-length clips)")
@@ -89,7 +97,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     unported = [flag for flag, on in (
-        ("--quantize", args.quantize is not None),
         ("--bf16", args.bf16),
         ("--num_devices > 1", args.num_devices != 1),
         (f"--featurizer_precision {args.featurizer_precision}",
@@ -217,12 +224,16 @@ def _stage_timer(device, timings):
 
 
 def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int = 1024,
-                 halo: int = 64, featurizer_precision=None, device="cuda", timings=None):
+                 halo: int = 64, quantize=None, featurizer_precision=None, device="cuda",
+                 timings=None):
     """Read one file, featurize it on ``device`` and score every frame.
 
     Returns (log_mel (channels, frames, mel) tensor on ``device``, scores
     (frames', classes) numpy).  CnnAvgPooling's logits go through a sigmoid;
-    MobileNetV1 emits scores itself.  One K1 and one K2 launch per call on
+    MobileNetV1 emits scores itself.  ``quantize='int8'`` scores with the
+    int8 forward, calibrated over the whole file (every
+    ``frames // 2048``-th frame, not a prefix: a prefix would clip loud
+    events later in a long recording).  One K1 and one K2 launch per call on
     CUDA; the scores stay on the card until the end.  ``timings``: a dict
     that receives the seconds of this call's stages, ``read`` (the WAV),
     ``featurizer`` (the float32 cast, upload, K1 + K2, normalization) and
@@ -251,7 +262,14 @@ def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int =
             feats = (log_mel - torch.as_tensor(np.asarray(mean, np.float32), device=device)) \
                 / torch.as_tensor(np.asarray(std, np.float32), device=device)
         stage("featurizer")
-        out = windowed_forward(model, feats[None], window=window, halo=halo)[0]
+        x = feats[None]
+        forward = model
+        if quantize == "int8":
+            from sed_tpu_torch.models import quantize as q
+
+            qp, q_forward = q.quantize_model(model, [x[:, :, ::max(1, x.shape[2] // 2048)]])
+            forward = lambda b: q_forward(qp, b)  # noqa: E731
+        out = windowed_forward(forward, x, window=window, halo=halo)[0]
         scores = (out if emits_scores(model) else torch.sigmoid(out)).cpu().numpy()
     stage("model")
     return log_mel, scores
@@ -272,7 +290,8 @@ def hop_frames(waveform, cfg):
 
 
 def score_frames_m5(model, frames, frame_bucket: int = 32):
-    """Sigmoid scores (n, classes) of (n, channels, frame) frames, scored in
+    """Sigmoid scores (n, classes) of (n, channels, frame) frames by
+    ``model`` (M5, or with frames any callable of its logits), scored in
     batches of ``frame_bucket`` frames (the last one holds the rest)."""
     import torch
 
@@ -283,14 +302,15 @@ def score_frames_m5(model, frames, frame_bucket: int = 32):
                           for i in range(0, frames.shape[0], frame_bucket)])
 
 
-def predict_file_m5(model, audio_path: str, cfg, frame_bucket: int = 32, device="cuda",
-                    timings=None):
+def predict_file_m5(model, audio_path: str, cfg, quantize=None, frame_bucket: int = 32,
+                    device="cuda", timings=None):
     """Waveform-path inference: the file's hop-strided frames (the offline
     validation split) scored independently by M5, one sigmoid confidence per
     frame and class.  The waveform is uploaded once and framed on
-    ``device``.  Returns (frames, classes) numpy scores.  ``timings``: as
-    for :func:`predict_file`, with ``featurizer`` the float32 cast, upload
-    and framing."""
+    ``device``.  ``quantize='int8'`` scores with the int8 forward,
+    calibrated on every ``frames // 256``-th frame.  Returns (frames,
+    classes) numpy scores.  ``timings``: as for :func:`predict_file`, with
+    ``featurizer`` the float32 cast, upload and framing."""
     import torch
 
     from sed_tpu_torch.inference import resolve_device
@@ -304,8 +324,14 @@ def predict_file_m5(model, audio_path: str, cfg, frame_bucket: int = 32, device=
     stage("read")
     frames = hop_frames(torch.from_numpy(wav.astype(np.float32)).to(device), cfg)
     stage("featurizer")
+    forward = model
+    if quantize == "int8" and frames.shape[0]:
+        from sed_tpu_torch.models.quantize import quantize_model
+
+        qp, q_forward = quantize_model(model, [frames[::max(1, frames.shape[0] // 256)]])
+        forward = lambda b: q_forward(qp, b)  # noqa: E731
     with full_float32():
-        scores = score_frames_m5(model, frames, frame_bucket).cpu().numpy()
+        scores = score_frames_m5(forward, frames, frame_bucket).cpu().numpy()
     stage("model")
     return scores
 
@@ -338,6 +364,9 @@ def write_outputs(scores: np.ndarray, audio_file: str, args, cfg) -> None:
 def main(argv=None):
     parser = build_arg_parser()
     args = parser.parse_args(argv)
+    if args.bf16 and args.quantize:
+        raise SystemExit("--bf16 and --quantize are mutually exclusive "
+                         "serving tiers (int8 replaces the float forward)")
     _refuse_unported(parser, args)
 
     from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
@@ -378,6 +407,9 @@ def main(argv=None):
 
     batch_scores = None
     if args.batch:
+        if args.quantize:
+            print("--quantize applies to the per-file windowed path; "
+                  "--batch uses the float forward")
         from sed_tpu_torch.inference import batch_predict_files
 
         batch_scores = batch_predict_files(model, args.audio_files, cfg, mean=mean,
@@ -398,11 +430,12 @@ def main(argv=None):
                     log_mel = logmel_features(
                         torch.from_numpy(wav.astype(np.float32)).to(device), cfg)
         elif args.arch == "M5":
-            scores = predict_file_m5(model, audio_file, cfg, device=device)
+            scores = predict_file_m5(model, audio_file, cfg, quantize=args.quantize,
+                                     device=device)
         else:
             log_mel, scores = predict_file(model, audio_file, cfg, mean, std,
                                            window=args.window, halo=args.halo,
-                                           device=device)
+                                           quantize=args.quantize, device=device)
         write_outputs(scores, audio_file, args, cfg)
         if not args.no_plot and log_mel is not None:
             from sed_tpu_torch.utils.plotting import plot_sample_features

@@ -4,7 +4,8 @@
     python -m sed_tpu_torch.cli.serve_socket --ckpt model.pth --port 8123 \\
         [--arch CnnAvgPooling|MobileNetV1|M5] [--m5_pool device|host] \\
         [--slots 8] [--chunk_seconds 1.0] [--wire pcm16|mulaw] \\
-        [--featurizer auto|pallas|xla] [--device cuda|cpu] [--run_seconds N]
+        [--featurizer auto|pallas|xla] [--device cuda|cpu] [--run_seconds N] \\
+        [--quantize int8 --calib_wav a.wav]
 
 Each TCP connection is one live stream over the pool of ``--arch``
 (``cli.stream.build_pool``: ``StreamPool`` for the spectrogram families,
@@ -21,9 +22,14 @@ Before it accepts connections on a CUDA device it runs a warmup ladder
 first clients do not pay the kernel build and the card's first-call costs;
 ``--no_warmup`` skips it.
 
+``--quantize int8`` serves CnnAvgPooling and M5 through the int8 forward,
+its activation scales calibrated on ``--calib_wav`` (no input exists at
+start); MobileNetV1 int8 is refused with ``sed_tpu``'s message (it is served
+int8 by the per-file path).
+
 Not ported yet, and refused rather than ignored: the same options as
-``sed_tpu_torch.cli.stream`` (``--quantize``, ``--bf16``, ``--num_devices``
-> 1, the fast/turbo featurizer tiers) and ``--calib_wav``.
+``sed_tpu_torch.cli.stream`` (``--bf16``, ``--num_devices`` > 1, the
+fast/turbo featurizer tiers).
 """
 
 from __future__ import annotations
@@ -60,9 +66,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--featurizer_precision", type=str, default="parity",
                    help="FFT precision tier; only 'parity' is ported")
     p.add_argument("--quantize", choices=["int8"], default=None,
-                   help="int8 serving: not ported")
+                   help="score with the int8 forward (lossy serving mode, "
+                        "CnnAvgPooling and M5); requires --calib_wav")
     p.add_argument("--calib_wav", type=str, default="",
-                   help="int8 calibration audio: not ported")
+                   help="wav file whose audio calibrates the int8 activation scales "
+                        "(no input files exist at server start)")
     p.add_argument("--arch", type=str, default="CnnAvgPooling",
                    choices=["CnnAvgPooling", "MobileNetV1", "M5"],
                    help="model family: the spectrogram families stream over the "
@@ -141,8 +149,6 @@ def main(argv=None):
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
-    if args.calib_wav:
-        parser.error("not ported yet: --calib_wav (see ROADMAP.md)")
 
     from sed_tpu_torch.serve_socket import StreamServer
 
@@ -151,9 +157,29 @@ def main(argv=None):
     def note(msg):
         print(msg, file=sys.stderr, flush=True)
 
+    calib = None
+    if args.quantize == "int8":
+        if args.arch == "MobileNetV1":
+            raise SystemExit("--quantize int8 streaming is implemented for "
+                             "CnnAvgPooling and M5; MobileNetV1 int8 serving "
+                             "is the batched path (infer/serve --quantize)")
+        if not args.calib_wav:
+            raise SystemExit("--quantize int8 requires --calib_wav")
+        from sed_tpu_torch.io.audio import read_multichannel_audio
+
+        calib = read_multichannel_audio(args.calib_wav, target_fs=cfg.working_sample_rate,
+                                        cfg=cfg)[:, 0].astype(np.float32)
+        if args.arch == "M5" and len(calib) < 2 * (cfg.frame_size // 2):
+            raise SystemExit(
+                f"--calib_wav is too short to yield a single {cfg.frame_size}-sample frame "
+                f"({cfg.frame_size / cfg.working_sample_rate:.2f}s at "
+                f"{cfg.working_sample_rate} Hz); supply a longer wav")
     pool = build_pool(
         args, cfg, args.slots, int(round(args.chunk_seconds * cfg.working_sample_rate)),
-        note=note, m5_ignored=["--chunk_seconds"] if args.chunk_seconds != 1.0 else [])
+        note=note, m5_ignored=["--chunk_seconds"] if args.chunk_seconds != 1.0 else [],
+        calib_wav=calib)
+    if calib is not None:
+        note(f"int8 serving mode: calibrated on {args.calib_wav}")
     if not args.no_warmup and pool.device.type == "cuda":
         secs = warmup_pool(pool, args.wire)
         print(f"warmup: {secs:.1f}s (every tick and drain shape driven once)",

@@ -24,7 +24,12 @@ receptive-field floor (88).  M5 streams hop-strided waveform frames over
 ``--event_threshold``, ``<name>_events.csv``) per file and prints one JSON
 summary line, which includes the kernel launch counts of the run.
 
-Not ported yet, and refused rather than ignored: ``--quantize``, ``--bf16``,
+``--quantize int8`` serves every arch through the int8 forward
+(``models/quantize.py``), its activation scales calibrated on the first
+file: M5 on its hop-strided frames, the spectrogram archs on its log-mel
+features (normalized by ``--mean_std_file``).  It excludes ``--bf16``.
+
+Not ported yet, and refused rather than ignored: ``--bf16``,
 ``--num_devices`` > 1 and the fast/turbo featurizer tiers.
 """
 
@@ -68,7 +73,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_devices", type=int, default=1,
                    help="sharded pool: only 1 is ported")
     p.add_argument("--quantize", choices=["int8"], default=None,
-                   help="int8 serving: not ported")
+                   help="int8 serving forward (lossy), calibrated on the first file")
     p.add_argument("--mean_std_file", type=str, default="")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device to run on: cuda (default) or cpu")
@@ -93,11 +98,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit with a usage error naming every unported option that was given
     (shared with ``cli.serve_socket``).  ``--num_devices`` with M5 gets
-    ``sed_tpu``'s message: sharding applies to the spectrogram pool."""
+    ``sed_tpu``'s message: sharding applies to the spectrogram pool; so
+    does ``--bf16`` with ``--quantize``."""
+    if args.bf16 and args.quantize:
+        raise SystemExit("--bf16 and --quantize are mutually exclusive "
+                         "serving tiers (int8 replaces the float forward)")
     if args.arch == "M5" and getattr(args, "num_devices", 1) > 1:
         parser.error("--num_devices applies to the spectrogram pool")
     unported = [flag for flag, on in (
-        ("--quantize", args.quantize is not None),
         ("--bf16", args.bf16),
         ("--num_devices > 1", getattr(args, "num_devices", 1) != 1),
         (f"--featurizer_precision {args.featurizer_precision}",
@@ -118,18 +126,50 @@ def serving_config(args):
     return SpectrogramConfig(tau_sed_labels=labels)
 
 
-def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=()):
+def calibrate_int8(model, arch: str, cfg, wav: np.ndarray, mean=None, std=None):
+    """The int8 artifact of ``model`` (on its device) calibrated on one mono
+    float32 recording ``wav``: M5 on its hop-strided frames (the caller
+    checks it holds one), the spectrogram archs on its log-mel features
+    (K1 + K2 on the card), normalized by ``mean``/``std`` when given."""
+    import torch
+
+    from sed_tpu_torch.models import quantize as q
+    from sed_tpu_torch.utils.precision import full_float32
+
+    device = next(model.parameters()).device
+    x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(device)
+    if arch == "M5":
+        from sed_tpu_torch.cli.infer import hop_frames
+
+        batch = hop_frames(x[:, None], cfg)
+    else:
+        from sed_tpu_torch.ops.featurizer import logmel_features_batch
+
+        with torch.no_grad(), full_float32():
+            batch = logmel_features_batch(x[None, :, None], cfg)
+            if mean is not None:
+                batch = (batch - torch.as_tensor(np.asarray(mean, np.float32), device=device)) \
+                    / torch.as_tensor(np.asarray(std, np.float32), device=device)
+    return q.quantize_model(model, [batch])[0]
+
+
+def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), calib_wav=None):
     """The serving pool of ``args`` (shared with ``cli.serve_socket``):
     ``--ckpt`` loaded into ``--arch`` on ``--device`` and the pool of its
     family.  MobileNetV1 is served as its logits view (the pool applies the
     sigmoid) with ``--halo`` raised to its receptive-field floor.  M5 gets
     the ``--m5_pool`` pool at its default chunk of one second, as
     ``sed_tpu``'s, and ``note`` names the options it ignores (those of
-    ``m5_ignored`` first)."""
+    ``m5_ignored`` first).  With ``--quantize int8`` the pool scores through
+    the int8 forward, calibrated on ``calib_wav`` (:func:`calibrate_int8`)."""
     from sed_tpu_torch.cli.infer import halo_floor, load_mean_std, load_model_and_state
 
     note = note or log
     model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, device=args.device)
+    mean, std = load_mean_std(args.mean_std_file) if args.arch != "M5" else (None, None)
+    qparams = None
+    if args.quantize == "int8":
+        qparams = calibrate_int8(model, args.arch, cfg, calib_wav, mean, std)
     if args.arch == "M5":
         from sed_tpu_torch.waveform_streaming import (DeviceWaveformStreamPool,
                                                       WaveformStreamPool)
@@ -143,8 +183,9 @@ def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=()):
         if ignored:
             note(f"note: {', '.join(ignored)} have no effect on the M5 pool")
         if args.m5_pool == "device":
-            return DeviceWaveformStreamPool(model, cfg, slots=slots, device=args.device)
-        return WaveformStreamPool(model, cfg, slots=slots, device=args.device)
+            return DeviceWaveformStreamPool(model, cfg, slots=slots, qparams=qparams,
+                                            device=args.device)
+        return WaveformStreamPool(model, cfg, slots=slots, qparams=qparams, device=args.device)
 
     from sed_tpu_torch.stream_pool import StreamPool
 
@@ -155,10 +196,10 @@ def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=()):
         logits.load_state_dict(model.state_dict(), strict=True)
         model = logits
         args.halo = halo_floor(model, args.halo, log=note)
-    mean, std = load_mean_std(args.mean_std_file)
     return StreamPool(model, cfg, slots=slots, chunk_samples=chunk, halo=args.halo,
                       mean=mean, std=std, featurizer=args.featurizer,
-                      featurizer_precision=args.featurizer_precision, device=args.device)
+                      featurizer_precision=args.featurizer_precision, qparams=qparams,
+                      device=args.device)
 
 
 def main(argv=None):
@@ -181,7 +222,13 @@ def main(argv=None):
         queue.append({"path": path, "wav": wav[:, 0].astype(np.float32), "pos": 0,
                       "scores": []})
     slots = args.slots or min(len(queue), 32)
-    pool = build_pool(args, cfg, slots, chunk)
+    calib = queue[0]["wav"]
+    if args.quantize == "int8" and args.arch == "M5" and len(calib) < 2 * (cfg.frame_size // 2):
+        raise SystemExit(f"first file is too short to calibrate int8 "
+                         f"(needs >= {cfg.frame_size} samples)")
+    pool = build_pool(args, cfg, slots, chunk, calib_wav=calib)
+    if args.quantize == "int8":
+        log(f"int8 serving mode: activation scales calibrated on {queue[0]['path']}")
 
     kernels.reset_launch_counts()
     active = {}           # slot -> file record

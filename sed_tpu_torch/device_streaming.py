@@ -179,9 +179,9 @@ class DeviceStreamingDetector:
         """``featurizer``: 'auto', 'pallas' or 'xla' (see
         :func:`resolve_tick_featurizer`).  ``featurizer_precision``: None or
         'parity'.  ``extract_impl``: 'slices' (default) or 'span' (see
-        :class:`RingTick`).  ``mesh`` and ``qparams`` are not ported and
-        raise."""
-        refuse_unported(qparams)
+        :class:`RingTick`).  ``qparams``: an int8 serving artifact
+        (``models.quantize``), scored by the tick, the startup and the flush
+        alike.  ``mesh`` is not ported and raises."""
         featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
         resolve_featurizer_precision(featurizer_precision)
         self.device = resolve_device(device)
@@ -200,8 +200,8 @@ class DeviceStreamingDetector:
         # Startup runs through the host class until every reflection-
         # dependent frame is featurized and the ring covers the live window.
         self._stream_fns = make_stream_fns(model, cfg, mean=self.mean,
-                                           std=self.std, device=self.device,
-                                           featurizer=featurizer)
+                                           std=self.std, qparams=qparams,
+                                           device=self.device, featurizer=featurizer)
         self._host = BatchedStreamingDetector(
             model, cfg, batch=batch, halo=halo, total_stride=total_stride,
             bucket=bucket, mean=mean, std=std, stream_fns=self._stream_fns)

@@ -5,6 +5,8 @@ Takes the JAX package's parameter trees as nested dicts of numpy arrays
 dict that loads into the port's module with ``strict=True``.  The keys and
 the ``num_batches_tracked`` buffers are those of the reference checkpoints.
 Every conversion is a transpose of the same float32 data, so it is exact.
+:func:`qparams_from_flax` carries ``sed_tpu``'s int8 serving artifact
+across the same way (int8 weights transposed, everything else as it is).
 """
 
 from __future__ import annotations
@@ -107,3 +109,65 @@ FLAX_CONVERTERS = {
     "MobileNetV1": mobilenet_state_dict,
     "M5": m5_state_dict,
 }
+
+
+def _q(a, dtype=np.float32) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype))
+
+
+def _qdense_from_flax(d: dict) -> dict:
+    """An int8 dense head: the (in, out) kernel -> Linear's (out, in)."""
+    return {"qweight": _q(np.asarray(d["qweight"]).T, np.int8), "w_scale": _q(d["w_scale"]),
+            "act_scale": _q(d["act_scale"]), "bias": _q(d["bias"])}
+
+
+def _static(v):
+    """A static of the artifact as a Python value (an int, a str or None),
+    also from the 0-d numpy array a tree map may have made of it."""
+    if v is None or isinstance(v, (int, str)):
+        return v
+    v = np.asarray(v)
+    return str(v) if v.dtype.kind in "US" else int(v)
+
+
+def qparams_from_flax(tree) -> dict:
+    """``sed_tpu``'s int8 serving artifact of any family -> the port's (see
+    :mod:`sed_tpu_torch.models.quantize`), tensors on the CPU.
+
+    ``tree``: the dict ``sed_tpu.models.quantize.quantize_cnn``,
+    ``quantize_mobilenet``, ``quantize_m5`` or ``qat.qat_export`` returns,
+    with numpy (or JAX) array leaves.  Int8 weights move to the port's
+    layouts, HWIO -> OIHW and M5's WIO -> (out, in, k), dense kernels
+    (in, out) -> (out, in); scales, affines and biases stay float32; the
+    statics (pools, strides, pads, kinds, ``interp``) are kept.  The family
+    is read from the keys, as ``quantized_serving_scores`` reads it.
+    """
+    if "dense1" in tree:
+        blocks = []
+        for b in tree["blocks"]:
+            entry = {"kind": _static(b["kind"]), "stride": _static(b["stride"]),
+                     "dw_kernel": _oihw(b["dw_kernel"]), "bn0_gain": _q(b["bn0_gain"]),
+                     "bn0_bias": _q(b["bn0_bias"])}
+            if entry["kind"] == "dw":
+                entry.update(
+                    qweight=_q(np.transpose(np.asarray(b["qweight"]), (3, 2, 0, 1)), np.int8),
+                    w_scale=_q(b["w_scale"]), act_scale=_q(b["act_scale"]),
+                    bn1_gain=_q(b["bn1_gain"]), bn1_bias=_q(b["bn1_bias"]))
+            blocks.append(entry)
+        return {"blocks": blocks, "dense0": _qdense_from_flax(tree["dense0"]),
+                "dense1": _qdense_from_flax(tree["dense1"]), "interp": _static(tree["interp"])}
+    if "convs" in tree:
+        convs = [{"qweight": _q(np.transpose(np.asarray(c["qweight"]), (2, 1, 0)), np.int8),
+                  "w_scale": _q(c["w_scale"]), "act_scale": _q(c["act_scale"]),
+                  "bn_gain": _q(c["bn_gain"]), "bn_bias": _q(c["bn_bias"]),
+                  "stride": _static(c["stride"]), "pad": _static(c["pad"]),
+                  "pool": _static(c["pool"])} for c in tree["convs"]]
+        return {"convs": convs, "dense": _qdense_from_flax(tree["dense"])}
+    layers = [{"convs": [{"qweight": _q(np.transpose(np.asarray(c["qweight"]), (3, 2, 0, 1)),
+                                        np.int8),
+                          "w_scale": _q(c["w_scale"]), "act_scale": _q(c["act_scale"]),
+                          "bn_gain": _q(c["bn_gain"]), "bn_bias": _q(c["bn_bias"])}
+                         for c in layer["convs"]],
+               "pool": _static(layer["pool"])} for layer in tree["layers"]]
+    return {"layers": layers, "dense": _qdense_from_flax(tree["dense"]),
+            "interp": _static(tree["interp"])}

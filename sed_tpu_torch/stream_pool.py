@@ -42,8 +42,7 @@ from sed_tpu_torch.device_streaming import (SCHEDULE_SCALARS, RingTick,
                                             schedule_row)
 from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.ops.featurizer import ingest_to_f32_np, resolve_featurizer_precision
-from sed_tpu_torch.streaming import (BatchedStreamingDetector, make_stream_fns,
-                                     refuse_unported, tick_schedule)
+from sed_tpu_torch.streaming import BatchedStreamingDetector, make_stream_fns, tick_schedule
 
 
 def wire_dtype(chunks) -> np.dtype:
@@ -118,9 +117,10 @@ class StreamPool:
         """``featurizer``: 'auto', 'pallas' (K3 + K2) or 'xla' (PyTorch ops;
         see ``device_streaming.resolve_tick_featurizer``) for the tick and the
         host startup and drains alike; ``featurizer_precision``: None
-        or 'parity'; ``extract_impl``: 'slices' or 'span'; ``mesh`` and
-        ``qparams`` are not ported and raise."""
-        refuse_unported(qparams)
+        or 'parity'; ``extract_impl``: 'slices' or 'span'; ``qparams``: an
+        int8 serving artifact (``models.quantize``), scored by the tick,
+        the startup and the drains alike; ``mesh`` is not ported and
+        raises."""
         featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
         resolve_featurizer_precision(featurizer_precision)
         self.device = resolve_device(device)
@@ -143,8 +143,8 @@ class StreamPool:
         # One (featurize, forward) pair serves every host detector the pool
         # builds (join startup, leave drain) and the ring tick.
         self._stream_fns = make_stream_fns(model, cfg, mean=self.mean,
-                                           std=self.std, device=self.device,
-                                           featurizer=featurizer)
+                                           std=self.std, qparams=qparams,
+                                           device=self.device, featurizer=featurizer)
         self._pending: Dict[int, BatchedStreamingDetector] = {}
         self._admitted: Dict[int, dict] = {}   # slot -> schedule counters
         # Staged audio is a per-slot list of fed pieces under its own lock,

@@ -40,17 +40,15 @@ import torch
 from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.models.cnn import MobileNetV1, mobilenet_receptive_field
+from sed_tpu_torch.models.quantize import qparams_to, quantized_serving_scores
 from sed_tpu_torch.ops.featurizer import logmel_frames, logmel_frames_xla
 from sed_tpu_torch.parallel.time_shard import receptive_field
 from sed_tpu_torch.utils.precision import full_float32
 
 
-def refuse_unported(qparams=None, mesh=None) -> None:
-    """``qparams`` (int8 serving, slice D) and ``mesh`` (sharded serving,
-    slice G) are not ported: raise ``NotImplementedError`` when given."""
-    if qparams is not None:
-        raise NotImplementedError("int8 serving (qparams) is not ported yet "
-                                  "(see ROADMAP.md, slice D)")
+def refuse_unported(mesh=None) -> None:
+    """``mesh`` (sharded serving, slice G) is not ported: raise
+    ``NotImplementedError`` when given."""
     if mesh is not None:
         raise NotImplementedError("sharded serving over a mesh is not ported "
                                   "yet (see ROADMAP.md, slice G)")
@@ -67,7 +65,10 @@ def make_stream_fns(model: torch.nn.Module,
     ``featurize``: (rows, nfft) frames, float32 or int16, array or tensor ->
     (rows, mel) normalized log-mel, a tensor on ``device``.
     ``forward``: (batch, 1, frames, mel) NCHW -> (batch, frames', classes)
-    sigmoid scores on ``device``.
+    sigmoid scores on ``device``; with ``qparams`` (an int8 artifact of
+    ``models.quantize.quantize_cnn``, ``quantize_mobilenet`` or
+    ``models.qat.qat_export``, moved to ``device``) it is
+    ``quantized_serving_scores``, the family read from the artifact.
 
     ``featurizer``: 'auto' and 'pallas' featurize through
     :func:`sed_tpu_torch.ops.featurizer.logmel_frames` (K3 + K2 on CUDA);
@@ -81,7 +82,6 @@ def make_stream_fns(model: torch.nn.Module,
     applies the sigmoid: give it a logits-emitting model (MobileNetV1 with
     ``emit='logits'``).
     """
-    refuse_unported(qparams)
     if featurizer in ("auto", "pallas"):
         featurize_frames = lambda x: logmel_frames(x, cfg)  # noqa: E731
     elif featurizer == "xla":
@@ -105,11 +105,17 @@ def make_stream_fns(model: torch.nn.Module,
             lm = (lm - mean_t) / std_t
         return lm
 
-    @torch.no_grad()
-    @full_float32()
-    def forward(x) -> torch.Tensor:
-        model.eval()
-        return torch.sigmoid(model(torch.as_tensor(x, device=device)))
+    if qparams is not None:
+        qparams = qparams_to(qparams, device)
+
+        def forward(x) -> torch.Tensor:
+            return quantized_serving_scores(qparams, torch.as_tensor(x, device=device))
+    else:
+        @torch.no_grad()
+        @full_float32()
+        def forward(x) -> torch.Tensor:
+            model.eval()
+            return torch.sigmoid(model(torch.as_tensor(x, device=device)))
 
     return featurize, forward
 
@@ -229,11 +235,12 @@ class BatchedStreamingDetector:
         stream_fns=None,
         device="cuda",
     ):
-        """``stream_fns``: optionally a shared ``(featurize, forward)`` pair
-        from :func:`make_stream_fns`, built with the same model, cfg, mean
-        and std; it decides the device, and ``device`` is then unused.
-        ``qparams`` (int8 serving) is not ported and raises."""
-        refuse_unported(qparams)
+        """``qparams``: an int8 serving artifact (``models.quantize`` /
+        ``models.qat.qat_export``): the stream scores through the int8
+        forward.  ``stream_fns``: optionally a shared ``(featurize,
+        forward)`` pair from :func:`make_stream_fns`, built with the same
+        model, cfg, mean, std and qparams; it decides the device, and
+        ``device`` is then unused."""
         if halo % total_stride:
             raise ValueError(f"halo={halo} must be a multiple of "
                              f"total_stride={total_stride}")
@@ -266,8 +273,8 @@ class BatchedStreamingDetector:
         self._emitted = 0            # frames whose scores have been emitted
 
         if stream_fns is None:
-            stream_fns = make_stream_fns(model, cfg, mean=self.mean,
-                                         std=self.std, device=device)
+            stream_fns = make_stream_fns(model, cfg, mean=self.mean, std=self.std,
+                                         qparams=qparams, device=device)
         self._featurize, self._forward = stream_fns
 
     @classmethod

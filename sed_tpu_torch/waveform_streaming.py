@@ -20,8 +20,10 @@ last sample arrives, and equals the offline score of that frame.
 The model is a ``torch.nn.Module`` holding its weights, in the place of
 ``sed_tpu``'s (model, params, batch_stats) triple.  Every scoring call puts
 it in eval mode and runs in full float32 (``utils.precision.full_float32``).
-No featurizer kernel runs here: M5 reads samples.  ``qparams`` (int8, slice
-D) and ``mesh`` (slice G) are not ported and raise.
+No featurizer kernel runs here: M5 reads samples.  ``qparams`` switches the
+forward to the int8 M5 path (``models.quantize.quantized_m5_forward``), a
+lossy serving mode with the same contract.  ``mesh`` (slice G) is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from sed_tpu_torch.configs import DEFAULT_WAVEFORM, WaveformConfig
 from sed_tpu_torch.inference import resolve_device
+from sed_tpu_torch.models.quantize import qparams_to, quantized_m5_forward
 from sed_tpu_torch.ops.featurizer import ingest_to_f32, ingest_to_f32_np
 from sed_tpu_torch.stream_pool import flatten_pieces, full_chunk_rounds, wire_dtype
 from sed_tpu_torch.streaming import refuse_unported
@@ -47,9 +50,18 @@ def make_m5_score_fn(model: torch.nn.Module, qparams=None, device="cuda"):
     """One ``score(frames) -> scores`` function for every detector and slot
     of one model: (n, frame) float32 array or tensor -> (n, classes) sigmoid
     scores, a tensor on ``device``.  ``model`` is moved to ``device``; each
-    call puts it in eval mode, leaves it there, and runs in full float32."""
-    refuse_unported(qparams)
+    call puts it in eval mode, leaves it there, and runs in full float32.
+    With ``qparams`` (``models.quantize.quantize_m5``'s artifact, moved to
+    ``device``) it scores through the int8 forward instead."""
     device = resolve_device(device)
+    if qparams is not None:
+        qparams = qparams_to(qparams, device)
+
+        def score_int8(frames) -> torch.Tensor:
+            x = torch.as_tensor(frames, device=device)[:, None, :]
+            return torch.sigmoid(quantized_m5_forward(qparams, x))
+
+        return score_int8
     model = model.to(device)
 
     @torch.no_grad()
@@ -86,10 +98,10 @@ class BatchedWaveformStreamingDetector:
     def __init__(self, model: torch.nn.Module, cfg: WaveformConfig = DEFAULT_WAVEFORM,
                  batch: int = 1, frame_bucket: int = 8, qparams=None, score_fn=None,
                  device="cuda"):
-        """``score_fn``: a shared scorer from :func:`make_m5_score_fn`
-        (built with the same model); it decides the device, and ``device``
-        is then unused."""
-        refuse_unported(qparams)
+        """``qparams``: an int8 M5 artifact, scored through the int8
+        forward.  ``score_fn``: a shared scorer from :func:`make_m5_score_fn`
+        (built with the same model and qparams); it decides the device, and
+        ``device`` is then unused."""
         self.cfg = cfg
         self.batch = int(batch)
         self._frame = 2 * (cfg.frame_size // 2)
@@ -101,7 +113,7 @@ class BatchedWaveformStreamingDetector:
         # _buf[:, 0] is emitted * hop.
         self._buf = np.zeros((self.batch, 0), np.float32)
         self._score = score_fn if score_fn is not None else make_m5_score_fn(
-            model, device=device)
+            model, qparams, device=device)
 
     def _ready(self, total: int) -> int:
         return 0 if total < self._frame else (total - self._frame) // self._hop + 1
@@ -175,11 +187,10 @@ class WaveformStreamPool:
 
     def __init__(self, model: torch.nn.Module, cfg: WaveformConfig = DEFAULT_WAVEFORM,
                  slots: int = 8, frame_bucket: int = 8, qparams=None, device="cuda"):
-        refuse_unported(qparams)
         self.cfg = cfg
         self.slots = int(slots)
         self._bucket = int(frame_bucket)
-        self._score = make_m5_score_fn(model, device=device)
+        self._score = make_m5_score_fn(model, qparams, device=device)
         self.device = resolve_device(device)
         self._make = lambda: WaveformStreamingDetector(
             model, cfg, frame_bucket=frame_bucket, score_fn=self._score)
@@ -311,7 +322,7 @@ class DeviceWaveformStreamPool:
     def __init__(self, model: torch.nn.Module, cfg: WaveformConfig = DEFAULT_WAVEFORM,
                  slots: int = 8, chunk_samples=None, qparams=None, mesh=None,
                  device="cuda"):
-        refuse_unported(qparams, mesh)
+        refuse_unported(mesh)
         self.cfg = cfg
         self.slots = int(slots)
         self.chunk = C = int(chunk_samples or cfg.working_sample_rate)
@@ -325,7 +336,7 @@ class DeviceWaveformStreamPool:
         self._F = (C - 1) // self._hop + 1       # most frames a chunk completes
         self._L = C + self._frame + self._hop    # ring length
         self.device = resolve_device(device)
-        self._score = make_m5_score_fn(model, device=self.device)
+        self._score = make_m5_score_fn(model, qparams, device=self.device)
         self._buf = torch.zeros(self.slots, self._L, device=self.device)
         self._rows = torch.arange(self.slots, device=self.device)[:, None]
         self._counters: Dict[int, dict] = {}   # slot -> {"total", "emitted"}

@@ -1264,3 +1264,78 @@ def test_mobilenet_pool_launches_k3_and_k2_on_every_tick(cuda):
         assert got["auto"][s].shape == got["xla"][s].shape == want[s].shape
         assert float(np.abs(got["auto"][s] - want[s]).max()) <= 1e-4
         assert float(np.abs(got["xla"][s] - want[s]).max()) <= 1e-4
+
+
+# -- int8 serving: ops/int8.py and models/quantize.py -------------------------
+
+INT8_SHAPES = [(m, k, n) for m in (1, 16, 300) for k in (9, 79, 192, 288, 1152)
+               for n in (1, 11, 64)]
+
+
+def int8_tensor(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_matmul_on_the_card_is_exact(cuda, m, k, n):
+    """``torch._int_mm`` on operands padded to its shape rules (rows > 16, K
+    and N multiples of 8): one launch, equal to the plain version."""
+    from sed_tpu_torch.ops import int8
+
+    a, b = int8_tensor((m, k), m * k + n), int8_tensor((k, n), m + k * n)
+    before = int8.LAUNCHES["int_mm"]
+    got = int8.int8_matmul(a.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert int8.LAUNCHES["int_mm"] == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8.int8_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("conv", ["2d-3x3-cin1", "2d-3x3", "2d-1x1", "1d-stem", "1d-3"])
+def test_int8_convs_on_the_card_are_exact(cuda, conv):
+    from sed_tpu_torch.ops import int8
+
+    kind, shape = {"2d-3x3-cin1": ("2d", (1, 32, 3, 1)), "2d-3x3": ("2d", (32, 64, 3, 1)),
+                   "2d-1x1": ("2d", (64, 11, 1, 0)), "1d-stem": ("1d", (1, 64, 79, 4, 39)),
+                   "1d-3": ("1d", (64, 128, 3, 1, 1))}[conv]
+    before = int8.LAUNCHES["int_mm"]
+    if kind == "2d":
+        cin, cout, k, pad = shape
+        x, w = int8_tensor((3, 30, 64, cin), 1), int8_tensor((cout, cin, k, k), 2)
+        run = lambda x, w: int8.int8_conv2d_nhwc(x, w, pad)  # noqa: E731
+    else:
+        cin, cout, k, stride, pad = shape
+        x, w = int8_tensor((3, 2003, cin), 3), int8_tensor((cout, cin, k), 4)
+        run = lambda x, w: int8.int8_conv1d_nwc(x, w, stride, pad)  # noqa: E731
+    got = run(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert int8.LAUNCHES["int_mm"] == before + 1
+    assert torch.equal(got.cpu(), run(x, w))
+
+
+@pytest.mark.parametrize("arch", ["CnnAvgPooling", "MobileNetV1", "M5"])
+def test_int8_forward_on_the_card_matches_cpu(cuda, arch):
+    """One artifact (calibrated on the CPU), scored on the card and on the
+    CPU: within 5e-3; the card's forward reaches ``_int_mm``."""
+    from sed_tpu_torch.models import quantize as q
+    from sed_tpu_torch.ops import int8
+
+    model = cli.build_model(arch, 1)
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    if arch == "M5":
+        x = 0.1 * torch.randn(8, 1, WaveformConfig().frame_size, generator=g)
+        qp = q.quantize_model(model, [x])[0]
+        forward = lambda p, v: torch.sigmoid(q.quantized_m5_forward(p, v))  # noqa: E731
+    else:
+        x = torch.randn(4, 1, 182, 64, generator=g)
+        qp = q.quantize_model(model, [x])[0]
+        forward = q.quantized_serving_scores
+    want = forward(qp, x)
+    before = int8.LAUNCHES["int_mm"]
+    got = forward(q.qparams_to(qp, cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert int8.LAUNCHES["int_mm"] > before
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 5e-3

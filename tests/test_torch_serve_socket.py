@@ -277,10 +277,7 @@ def test_warmup_ladder_runs_on_cpu_and_leaves_the_pool_empty(models):
         assert pool.join() == 0
 
 
-@pytest.mark.parametrize("flags", [
-    ["--quantize", "int8"], ["--bf16"], ["--featurizer_precision", "turbo"],
-    ["--calib_wav", "a.wav"],
-])
+@pytest.mark.parametrize("flags", [["--bf16"], ["--featurizer_precision", "turbo"]])
 def test_cli_refuses_unported_options(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["--ckpt", "unused.pth", *flags])
@@ -288,19 +285,32 @@ def test_cli_refuses_unported_options(flags, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
+CALIB = "<calib.wav>"   # a flag value the test replaces with a seeded WAV
+
+
 @pytest.mark.parametrize("flags", [["--arch", "M5"], ["--m5_pool", "host"],
-                                   ["--featurizer", "xla"]])
+                                   ["--featurizer", "xla"],
+                                   ["--quantize", "int8", "--calib_wav", CALIB],
+                                   ["--arch", "M5", "--quantize", "int8", "--calib_wav", CALIB]])
 def test_cli_options_once_refused_as_unported(flags, tmp_path):
     """Each option this CLI once refused now builds its pool, as ``main``
     does (``cli.stream.build_pool``), and serves a client: M5's device pool
     (the default ``--m5_pool``), ``--m5_pool host`` (no effect on
-    CnnAvgPooling, as in sed_tpu) and the xla tick featurizer.  The client's
-    scores equal the pool's offline counterpart."""
-    from sed_tpu_torch.cli.infer import build_model, predict_file_m5
-    from sed_tpu_torch.cli.stream import build_pool, refuse_unported, serving_config
+    CnnAvgPooling, as in sed_tpu), the xla tick featurizer, and int8
+    serving calibrated on ``--calib_wav`` for CnnAvgPooling and M5.  The
+    client's scores equal the pool's offline counterpart (int8: offline
+    int8 scoring with the same calibration, within sed_tpu's 5e-3 band)."""
+    from sed_tpu_torch.cli.infer import build_model, hop_frames, predict_file_m5
+    from sed_tpu_torch.cli.stream import (build_pool, calibrate_int8, refuse_unported,
+                                          serving_config)
     from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.models.quantize import quantized_m5_forward, quantized_scores
+    from sed_tpu_torch.ops.featurizer import logmel_features_batch
     from scipy.io import wavfile
 
+    calib = pcm(5 * 48000, 8)
+    wavfile.write(tmp_path / "calib.wav", 48000, calib)
+    flags = [str(tmp_path / "calib.wav") if f == CALIB else f for f in flags]
     parser = cli.build_arg_parser()
     args = parser.parse_args(["--ckpt", str(tmp_path / "model.pth"), "--device", "cpu",
                               *flags])
@@ -309,7 +319,9 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path):
     model.reset_parameters(torch.Generator().manual_seed(4))
     torch.save({"model": model.state_dict()}, tmp_path / "model.pth")
     cfg = serving_config(args)
-    pool = build_pool(args, cfg, 2, cfg.working_sample_rate)
+    calib_f32 = calib.astype(np.float32) / 32768.0
+    pool = build_pool(args, cfg, 2, cfg.working_sample_rate,
+                      calib_wav=calib_f32 if args.quantize else None)
     want_pool = "DeviceWaveformStreamPool" if args.arch == "M5" else "StreamPool"
     assert type(pool).__name__ == want_pool
     y = pcm(3 * 48000 + 777, 6)
@@ -322,7 +334,16 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path):
         got = c.finish()
     finally:
         srv.stop()
-    if args.arch == "M5":
+    tol = ATOL
+    if args.quantize:
+        tol = 5e-3
+        qp = calibrate_int8(model, args.arch, cfg, calib_f32)
+        x = torch.from_numpy(y.astype(np.float32) / 32768.0)
+        if args.arch == "M5":
+            want = torch.sigmoid(quantized_m5_forward(qp, hop_frames(x[:, None], cfg))).numpy()
+        else:
+            want = quantized_scores(qp, logmel_features_batch(x[None, :, None], cfg)).numpy()[0]
+    elif args.arch == "M5":
         wavfile.write(tmp_path / "y.wav", 48000, y)
         want = predict_file_m5(model, str(tmp_path / "y.wav"), WaveformConfig(),
                                device="cpu")
@@ -330,7 +351,7 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path):
         want = make_batch_predictor(model, SpectrogramConfig(), device="cpu")(
             y[None, :, None]).numpy()[0]
     assert got.shape == want.shape and got.shape[0] > 0
-    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
 def test_cli_serves_a_client_on_cpu(tmp_path):

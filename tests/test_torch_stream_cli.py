@@ -90,8 +90,7 @@ def test_stream_cli_short_file_does_not_abort_run(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--quantize", "int8"], ["--bf16"], ["--num_devices", "2"],
-    ["--featurizer_precision", "fast"],
+    ["--bf16"], ["--num_devices", "2"], ["--featurizer_precision", "fast"],
 ])
 def test_stream_cli_refuses_unported_options(flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -109,15 +108,20 @@ def test_stream_cli_refuses_num_devices_for_m5_as_sed_tpu_does(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--arch", "M5"], ["--arch", "MobileNetV1"], ["--m5_pool", "device"],
-    ["--featurizer", "xla"],
+    ["--featurizer", "xla"], ["--quantize", "int8"],
 ])
 def test_stream_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     """Each option this CLI once refused now scores a file as offline
     scoring of its arch does: M5's hop-strided frames (``predict_file_m5``),
     MobileNetV1 through its logits view with its halo floor, ``--m5_pool``
-    (no effect on CnnAvgPooling) and the xla tick featurizer."""
+    (no effect on CnnAvgPooling), the xla tick featurizer, and int8 serving
+    calibrated on the first file (against offline int8 scoring with the same
+    calibration, within sed_tpu's 5e-3 band)."""
     from sed_tpu_torch.cli.infer import build_model, predict_file_m5
+    from sed_tpu_torch.cli.stream import calibrate_int8
     from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.models.quantize import quantized_scores
+    from sed_tpu_torch.ops.featurizer import logmel_features_batch
 
     arch = flags[1] if flags[0] == "--arch" else "CnnAvgPooling"
     model = build_model(arch, 1)
@@ -130,10 +134,16 @@ def test_stream_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["files"] == 1 and sum(summary["kernel_launches"].values()) == 0
     got = np.load(out / "clip_scores.npy")
-    if arch == "M5":
+    tol = ATOL
+    if "--quantize" in flags:
+        tol = 5e-3
+        x = torch.from_numpy(y.astype(np.float32) / 32768.0)
+        qp = calibrate_int8(model, arch, CFG, x.numpy())
+        want = quantized_scores(qp, logmel_features_batch(x[None, :, None], CFG)).numpy()[0]
+    elif arch == "M5":
         want = predict_file_m5(model, str(tmp_path / "clip.wav"), WaveformConfig(),
                                device="cpu")
     else:
         want = make_batch_predictor(model, CFG, device="cpu")(y[None, :, None]).numpy()[0]
     assert got.shape == want.shape and got.shape[0] > 0
-    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)

@@ -461,8 +461,21 @@ def test_pool_cpu_run_launches_no_kernel_and_refuses_unported(models):
         StreamPool(port, CFG, featurizer="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamPool(port, CFG, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamPool(port, CFG, qparams={}, device="cpu")
+    # Once refused: an int8 pool slot equals a fresh int8 detector.
+    from sed_tpu_torch.models.quantize import quantize_cnn
+    from sed_tpu_torch.streaming import BatchedStreamingDetector
+
+    audio = (0.1 * np.random.default_rng(12).standard_normal((6, CHUNK))).astype(np.float32)
+    qp = quantize_cnn(port, [np.random.default_rng(13).standard_normal(
+        (1, 1, 64, CFG.mel_bins)).astype(np.float32)])
+    p8 = StreamPool(port, CFG, slots=2, qparams=qp, device="cpu", **KW)
+    s8 = p8.join()
+    got = joined([p8.push({s8: c})[s8] for c in audio] + [p8.leave(s8)])
+    det = BatchedStreamingDetector(port, CFG, batch=1, halo=64, total_stride=8, bucket=64,
+                                   qparams=qp, device="cpu")
+    want = joined([det.push(c[None])[0] for c in audio] + [det.flush()[0]])
+    assert got.shape == want.shape and got.shape[0] > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamPool(port, CFG, featurizer_precision="fast", device="cpu")
     with pytest.raises(ValueError, match="extract_impl"):

@@ -303,8 +303,15 @@ def test_unported_options_raise(models):
         device_streaming.resolve_tick_featurizer("bogus", CFG)
     assert device_streaming.resolve_tick_featurizer("auto", CFG) == "pallas"
     assert device_streaming.resolve_tick_featurizer("pallas", CFG) == "pallas"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        streaming.BatchedStreamingDetector(port, CFG, qparams={}, device="cpu")
+    # Once refused: qparams (int8) now scores through the int8 forward.
+    from sed_tpu_torch.models.quantize import quantize_cnn, quantized_serving_scores
+
+    window = np.random.default_rng(3).standard_normal((1, 1, 64, CFG.mel_bins)).astype(
+        np.float32)
+    qp = quantize_cnn(port, [window])
+    det = streaming.BatchedStreamingDetector(port, CFG, qparams=qp, device="cpu", **KW)
+    np.testing.assert_array_equal(det._score(window[:, 0]),
+                                  quantized_serving_scores(qp, torch.from_numpy(window)).numpy())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         device_streaming.DeviceStreamingDetector(port, CFG, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="receptive field"):

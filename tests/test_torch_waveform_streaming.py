@@ -355,12 +355,24 @@ def test_pools_launch_no_kernel_refuse_unported_and_need_a_card(m5):
     pool.tick()
     pool.leave(s)
     assert sum(kernels.LAUNCHES.values()) == 0
-    with pytest.raises(NotImplementedError, match="slice D"):
-        ws.DeviceWaveformStreamPool(m5[3], CFG, qparams={}, device="cpu")
     with pytest.raises(NotImplementedError, match="slice G"):
         ws.DeviceWaveformStreamPool(m5[3], CFG, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice D"):
-        ws.WaveformStreamPool(m5[3], CFG, qparams={}, device="cpu")
+    # Once refused: qparams (int8) in both pools, each equal to offline int8
+    # scoring of the frames.
+    from sed_tpu_torch.models.quantize import quantize_m5, quantized_m5_forward
+
+    wav = (0.1 * np.random.default_rng(21).standard_normal(2 * SR + FRAME)).astype(np.float32)
+    frames = hop_frames(torch.from_numpy(wav)[:, None], CFG)
+    qp = quantize_m5(m5[3], [frames])
+    want = torch.sigmoid(quantized_m5_forward(qp, frames)).numpy()
+    for cls, kw in ((ws.DeviceWaveformStreamPool, dict(chunk_samples=SR)),
+                    (ws.WaveformStreamPool, {})):
+        p8 = cls(m5[3], CFG, slots=1, qparams=qp, device="cpu", **kw)
+        s8 = p8.join()
+        p8.feed(s8, wav)
+        got = collect([p8.tick().get(s8, np.zeros((0, 1), np.float32)), p8.leave(s8)])
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="chunk_samples"):
         ws.DeviceWaveformStreamPool(m5[3], CFG, chunk_samples=FRAME - 1, device="cpu")
     if not torch.cuda.is_available():
