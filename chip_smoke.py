@@ -202,10 +202,32 @@ non-zero on the first failure.  Phases:
               device time (``torch.profiler``), each int8 forward's peak
               memory, and the 32-slot tick in float32 and int8.
 
+ 15. aot     AOT serving artifacts (``sed_tpu_torch.export``, ``cli/serve.py``)
+              at full width, 16 x 60 s int16: eight artifacts built by
+              ``python -m sed_tpu_torch.cli.serve build`` side by side
+              (CnnAvgPooling float32, int8, QAT int8 and bf16; MobileNetV1
+              float32 and int8; M5 float32 and int8; the spectrogram archs
+              with phase 3's statistics, int8 calibrated on a WAV); each
+              loaded here (``load_aot_fn``) and held against the eager path on
+              the same PCM with the artifact's own weights (float32 and bf16
+              within 1e-5, int8 equal), one call's launch counts reset just
+              before and read just after (one K1 and one K2 for each
+              spectrogram artifact, none for M5), CnnAvgPooling's float32
+              artifact within 1e-5 of ``make_batch_predictor`` and its bf16
+              one within 0.05 of it; ``cli.serve run`` in a fresh process on a
+              copy of the package with no ``_build/`` and an ``nvcc`` that
+              only records being called, twice (cold: the artifact installs
+              its library; warm), nvcc never running, its scores against
+              this process's; times: build seconds and bytes per artifact,
+              artifact_load_seconds and load_to_first_result_seconds cold and
+              warm beside phase 1's nvcc seconds, each artifact's batch
+              against the same work called eagerly and ``make_batch_predictor``,
+              and bf16 against float32 forwards of each arch.
+
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
-training path's launches, every entry with phase 12's, 0, phase 13's and
-phase 14's), the ``nvidia-smi`` line, and last ``{"ok": true, "device":
-{...}}``.
+training path's launches, every entry with phase 12's, 0, phase 13's,
+phase 14's and phase 15's), the ``nvidia-smi`` line, and last ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -280,6 +302,22 @@ M5_BLOCK = 128      # M5's timed block of frames
 # QAT at full width: Adam moves each of a layer's ~147k weights by about lr a
 # step, so the 20 distill steps take lr 1e-6.
 QAT_STEPS, QAT_LR = 20, 1e-6
+# The serving artifacts of phase 15: (tag, arch, build flags).  "CALIB" is
+# the calibration WAV.
+AOT_BUILDS = (
+    ("cnn_f32", "CnnAvgPooling", []),
+    ("cnn_int8", "CnnAvgPooling", ["--quantize", "int8", "--calib_wav", "CALIB"]),
+    ("cnn_qat", "CnnAvgPooling", ["--quantize", "int8", "--calib_wav", "CALIB",
+                                  "--qat_steps", "10", "--qat_lr", "1e-6"]),
+    ("cnn_bf16", "CnnAvgPooling", ["--bf16"]),
+    ("mobilenet_f32", "MobileNetV1", []),
+    ("mobilenet_int8", "MobileNetV1", ["--quantize", "int8", "--calib_wav", "CALIB"]),
+    ("m5_f32", "M5", []),
+    ("m5_int8", "M5", ["--quantize", "int8", "--calib_wav", "CALIB"]),
+)
+AOT_TOL = 1e-5      # a float32 artifact against the eager path
+AOT_M5_REPS = 5     # timed groups of M5's artifacts (device-bound: 58 and 166 ms)
+BF16_BAND = 0.05    # bf16 scores against float32's (sed_tpu's band, tests/test_stream_pool.py:737)
 REPS = 20
 QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
 
@@ -2738,6 +2776,273 @@ def int8_phase(torch, cfg, dev, smi, tmp, model, mean, std):
     return launched
 
 
+def start_fresh_run(tmp, artifact, wavs, copy, env, tag):
+    """Start ``cli.serve run`` in a fresh process on the package copy
+    ``copy``; ``finish_fresh_run`` waits for it."""
+    out = tmp / f"fresh_{tag}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sed_tpu_torch.cli.serve", "run", "--artifact", str(artifact),
+         *map(str, wavs), "--outputs_dir", str(out), "--event_threshold", "0.5",
+         "--device", DEVICE], cwd=copy, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    _cli_runs.append(proc)
+    return proc, time.perf_counter(), out, tag
+
+
+def finish_fresh_run(run):
+    """(the run's JSON line, its load stages line, wall seconds, outputs dir)."""
+    proc, t0, out, tag = run
+    stdout, stderr = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(stdout[-4000:], stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"fresh cli.serve run ({tag}) exit code {proc.returncode}")
+    stages = [ln for ln in stderr.splitlines() if ln.startswith("load stages")]
+    return json.loads(stdout.strip().splitlines()[-1]), stages[-1], wall, out
+
+
+def aot_phase(torch, cfg, dev, smi, tmp, model, mean, std, nvcc_s):
+    """Phase 15: AOT serving artifacts (see the module docstring).
+    ``model``, ``mean``, ``std``: phase 3's CnnAvgPooling and normalization;
+    ``nvcc_s``: phase 1's build seconds.  Returns the launch counts of the
+    artifacts' calls on the batch, summed."""
+    import os
+    import shutil
+
+    from scipy.io import wavfile
+
+    from sed_tpu_torch import export as ex
+    from sed_tpu_torch.cli import infer, serve
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.inference import make_batch_predictor
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops.featurizer import logmel_features_batch
+    from sed_tpu_torch.utils.precision import full_float32
+
+    t0 = time.perf_counter()
+    sr = cfg.working_sample_rate
+    samples = sr * SECONDS
+    wcfg = WaveformConfig()
+    ckpts = {"CnnAvgPooling": tmp / "CnnAvgPooling.pth"}
+    torch.save({"model": model.state_dict()}, ckpts["CnnAvgPooling"])
+    for i, arch in enumerate(("MobileNetV1", "M5")):
+        m = infer.build_model(arch, cfg.classes_num)
+        m.reset_parameters(torch.Generator().manual_seed(70 + i))
+        seed_batch_norms(torch, m, 80 + i)
+        ckpts[arch] = tmp / f"{arch}.pth"
+        torch.save({"model": m.state_dict()}, ckpts[arch])
+    with open(tmp / "mean_std.pkl", "wb") as f:
+        pickle.dump({"mean": mean, "std": std}, f)
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 15) * 32767).round() \
+        .to(torch.int16)[..., None]
+    pcm_np = pcm.cpu().numpy()
+    calib = tmp / "calib.wav"
+    wavfile.write(calib, sr, pcm_np[1, :, 0])
+    # The fresh process's files: clip 0 whole, clip 1's first three quarters.
+    cut = 3 * samples // 4
+    run_wavs = [tmp / "serve0.wav", tmp / "serve1.wav"]
+    wavfile.write(run_wavs[0], sr, pcm_np[0, :, 0])
+    wavfile.write(run_wavs[1], sr, pcm_np[1, :cut, 0])
+
+    def build_argv(arch, flags, out):
+        flags = [str(calib) if f == "CALIB" else f for f in flags]
+        spec = ["--mean_std_file", str(tmp / "mean_std.pkl")] if arch != "M5" else []
+        return ["build", "--ckpt", str(ckpts[arch]), "--arch", arch, "--batch", str(BATCH),
+                "--seconds", str(SECONDS), "--out", str(out), *spec, *flags,
+                "--device", DEVICE]
+
+    # ---- the builds, side by side; the same heads built here meanwhile ---------
+    t_build = time.perf_counter()
+    procs = {tag: start_cli(["sed_tpu_torch.cli.serve", *build_argv(arch, flags,
+                                                                     tmp / f"{tag}.aot")],
+                            tmp / f"{tag}.log") for tag, arch, flags in AOT_BUILDS}
+    heads = {tag: serve.build_head(serve.build_arg_parser().parse_args(
+        build_argv(arch, flags, tmp / "x.aot")), dev)[0].to(dev)
+        for tag, arch, flags in AOT_BUILDS}
+    built = {}
+    for tag, proc in procs.items():
+        finish_cli(proc, tmp / f"{tag}.log", f"cli.serve build {tag}")
+        lines = [ln for ln in (tmp / f"{tag}.log").read_text().splitlines()
+                 if ln.startswith("{")]
+        built[tag] = json.loads(lines[-1])
+    builds_wall = time.perf_counter() - t_build
+
+    # ---- a fresh process on a copy of the package with no _build/ -------------
+    copy = tmp / "fresh"
+    shutil.copytree(REPO / "sed_tpu_torch", copy / "sed_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    fake = tmp / "cuda_home" / "bin"
+    fake.mkdir(parents=True)
+    marker = tmp / "nvcc_ran"
+    (fake / "nvcc").write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    (fake / "nvcc").chmod(0o755)
+    env = dict(os.environ, PYTHONPATH=str(copy), CUDA_HOME=str(tmp / "cuda_home"))
+    lib = copy / "sed_tpu_torch" / "ops" / "_build" / kernels.library_path().name
+    check(not lib.exists(), "the copy starts with no kernel library")
+    # The cold run alone; the warm one beside this process's checks below.
+    fresh = {"cold": finish_fresh_run(start_fresh_run(tmp, tmp / "cnn_f32.aot", run_wavs,
+                                                      copy, env, "cold"))}
+    check(lib.is_file(), "the cold run installed the kernel library in the copy's _build/")
+    warm = start_fresh_run(tmp, tmp / "cnn_f32.aot", run_wavs, copy, env, "warm")
+    # What a fresh process pays to import torch, then torch.export's
+    # deserializer (which brings torch._dynamo): the loader's "program" stage
+    # holds the second when nothing imported it before.
+    probe = subprocess.Popen(
+        [sys.executable, "-c", "import time; t0 = time.perf_counter(); import torch; "
+         "t1 = time.perf_counter(); import torch._export.serde.serialize; "
+         "print(f'{t1 - t0:.3f} {time.perf_counter() - t1:.3f}')"],
+        stdout=subprocess.PIPE, text=True)
+    _cli_runs.append(probe)
+
+    # ---- each artifact in this process against the eager path -----------------
+    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device=DEVICE)
+    with torch.inference_mode():
+        feats = logmel_features_batch(pcm, cfg)
+        main_eager = predict(pcm)
+
+    def m5_windows(x):
+        return torch.cat([infer.hop_frames(x[b].float() / 32768.0, wcfg)
+                          for b in range(x.shape[0])])
+
+    launched = dict.fromkeys(kernels.LAUNCHES, 0)
+    got_scores, rows, calls, eager_fns = {}, [], {}, {}
+    for tag, arch, flags in AOT_BUILDS:
+        call = ex.load_aot_fn((tmp / f"{tag}.aot").read_bytes())
+        spectrogram = arch != "M5"
+        check(call.header["device_type"] == dev.type
+              and call.header["custom_ops"] == (["mel_log", "wave_stft_power"]
+                                                if spectrogram else []),
+              f"{tag}: a {dev.type} program holding {call.header['custom_ops']}")
+        check((call.header["kernel_library"] is not None) == spectrogram,
+              f"{tag}: carries the kernel library exactly when it holds K1 and K2")
+        head = heads.pop(tag)
+        shipped = {k.removeprefix("head."): v for k, v in call.module.state_dict().items()
+                   if k.startswith("head.")}
+        same_weights = all(torch.equal(v, shipped[k]) for k, v in head.state_dict().items())
+        head.load_state_dict(shipped)   # the artifact's own (QAT trains per process)
+        head.eval()
+        with torch.inference_mode(), full_float32():
+            if spectrogram:
+                eager_fn = lambda head=head: head(logmel_features_batch(pcm, cfg))  # noqa: E731
+            else:
+                eager_fn = lambda head=head: head(m5_windows(pcm)).reshape(  # noqa: E731
+                    BATCH, -1, cfg.classes_num)
+            eager = eager_fn()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = call(pcm)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            launched[k] += v
+        want_launches = ({"wave_stft_power": 1, "mel_log": 1} if spectrogram else {})
+        check({k: v for k, v in launches.items() if v} == want_launches,
+              f"{tag}: one call launched {launches}")
+        check(got.shape == eager.shape and bool(torch.isfinite(got).all())
+              and got.dtype == torch.float32, f"{tag}: finite float32 scores {tuple(got.shape)}")
+        err = float((got - eager).abs().max())
+        if "int8" in tag or "qat" in tag:
+            check(torch.equal(got, eager), f"{tag}: equal to the eager int8 forward ({err:.3e})")
+        else:
+            check(err <= AOT_TOL, f"{tag}: within {AOT_TOL} of the eager forward ({err:.3e})")
+        got_scores[tag], calls[tag], eager_fns[tag] = got, call, eager_fn
+        rows.append((tag, built[tag], err, same_weights, launches, call.load_timings))
+        del eager
+    fresh["warm"] = finish_fresh_run(warm)
+    import_s = probe.communicate(timeout=300)[0].split()
+    check(probe.returncode == 0 and len(import_s) == 2, "the import probe ran")
+    check(not marker.exists(), "nvcc did not run in either fresh process")
+    # Alone on the card again.  M5's batch is device-bound (58 and 166 ms of
+    # kernels), so 5 groups time it as well as 20 and save ~8 s.
+    times = {}
+    for tag, call in calls.items():
+        reps = AOT_M5_REPS if tag.startswith("m5") else REPS
+        with torch.inference_mode(), full_float32():
+            times[tag] = (time_ms(torch, lambda call=call: call(pcm), reps=reps, warmup=1),
+                          time_ms(torch, eager_fns[tag], reps=reps, warmup=1))
+    main_err = float((got_scores["cnn_f32"] - main_eager).abs().max())
+    check(main_err <= AOT_TOL, f"cnn_f32 within {AOT_TOL} of make_batch_predictor "
+                               f"({main_err:.3e})")
+    bf16_dev = float((got_scores["cnn_bf16"] - got_scores["cnn_f32"]).abs().max())
+    check(bf16_dev <= BF16_BAND, f"bf16 within {BF16_BAND} of float32 ({bf16_dev:.3e})")
+
+    # The fresh process's scores against this process's artifact scores.
+    fresh_err = 0.0
+    for tag, (_, _, _, out) in fresh.items():
+        for i, (row, n) in enumerate(((0, samples), (1, cut))):
+            got = np.load(out / f"serve{i}_scores.npy")
+            n_frames = min(got_scores["cnn_f32"].shape[1], 1 + n // cfg.hop_size)
+            want = got_scores["cnn_f32"][row, :n_frames].cpu().numpy()
+            check(got.shape == want.shape, f"fresh {tag} serve{i}: {got.shape} != {want.shape}")
+            if i == 0:   # a zero-padded tail changes the last frames' context
+                fresh_err = max(fresh_err, float(np.abs(got - want).max()))
+    check(fresh_err <= AOT_TOL, f"the fresh process's scores within {AOT_TOL} ({fresh_err:.3e})")
+
+    # ---- bf16 against float32 forwards --------------------------------------------
+    bf16_rows = []
+    norm = (feats - torch.as_tensor(mean, device=dev)) / torch.as_tensor(std, device=dev)
+    block = m5_windows(pcm[:1])[:M5_BLOCK].contiguous()
+    for arch in SERVE_ARCHS:
+        nets = [infer.load_model_and_state(str(ckpts[arch]), wcfg if arch == "M5" else cfg,
+                                           arch=arch, bf16=b, device=dev)[0].eval()
+                for b in (False, True)]
+        x = block if arch == "M5" else norm
+        with torch.inference_mode(), full_float32():
+            f32_ms, bf16_ms = (time_ms(torch, lambda net=net: net(x)) for net in nets)
+        bf16_rows.append((arch, f32_ms, bf16_ms))
+
+    log(f"[aot] {len(AOT_BUILDS)} artifacts built by `python -m sed_tpu_torch.cli.serve build` "
+        f"side by side in {builds_wall:.1f} s; phase 1's nvcc build {nvcc_s:.2f} s")
+    for tag, b, err, same, launches, stages in rows:
+        log(f"[aot] {tag}: {b['bytes']} B, build_seconds {b['build_seconds']}; loaded here "
+            f"in " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" s; one call on "
+            f"{BATCH} x {SECONDS} s int16: launches {({k: v for k, v in launches.items() if v})}, "
+            f"max |artifact - eager| {err:.3e}, in-process build reproduces its weights: {same}")
+    log(f"[aot] cnn_f32 against make_batch_predictor: max {main_err:.3e} (tol {AOT_TOL}, "
+        f"equal: {bool(torch.equal(got_scores['cnn_f32'], main_eager))}); cnn_bf16 against "
+        f"cnn_f32: max {bf16_dev:.3e} (band {BF16_BAND}); cnn_int8 / cnn_qat against cnn_f32: "
+        f"{float((got_scores['cnn_int8'] - got_scores['cnn_f32']).abs().max()):.3e} / "
+        f"{float((got_scores['cnn_qat'] - got_scores['cnn_f32']).abs().max()):.3e}")
+    beside = " (beside this process's checks)"
+    for tag, (line, stages, wall, _) in fresh.items():
+        log(f"[aot] fresh process, {tag} (`cli.serve run` of cnn_f32.aot on 2 WAVs, copy of the "
+            f"package {'with an empty' if tag == 'cold' else 'with the installed'} _build/): "
+            f"artifact_load_seconds {line['artifact_load_seconds']}, "
+            f"load_to_first_result_seconds {line['load_to_first_result_seconds']}, process "
+            f"wall {wall:.2f} s{beside if tag == 'warm' else ''}; "
+            f"{stages}; nvcc never ran; scores within {fresh_err:.3e} of this process's")
+    log(f"[aot] a fresh process (beside the warm one) imports torch in {import_s[0]} s, then "
+        f"torch.export's deserializer (torch._export.serde.serialize) in {import_s[1]} s")
+    log(f"[times] {smi}; AOT artifacts against the eager path, CUDA-event medians of {REPS} "
+        f"({AOT_M5_REPS} for M5), {BATCH} x {SECONDS} s int16 in, scores out:")
+    for tag, (ms, eager_ms) in times.items():
+        log(f"[times] {tag}: artifact {ms:.4f} ms | eager {eager_ms:.4f} ms "
+            f"({ms / eager_ms:.3f}x)")
+    main_ms = time_ms(torch, lambda: predict(pcm))
+    art_ms = times["cnn_f32"][0]
+    log(f"[times] make_batch_predictor on the same batch {main_ms:.4f} ms (cnn_f32 artifact "
+        f"{art_ms:.4f} ms, {art_ms / main_ms:.3f}x)")
+    profiles = {}
+    for what, fn, ms in (("cnn_f32 artifact", lambda: calls["cnn_f32"](pcm), art_ms),
+                         ("make_batch_predictor", lambda: predict(pcm), main_ms)):
+        profiles[what] = dict(profile_ticks(torch, fn, 5))
+        busy = sum(profiles[what].values())
+        log(f"[times] {what}: {busy:.4f} ms of kernels a call (torch.profiler, 5 calls), the "
+            f"card idle {max(0.0, 1 - busy / ms):.1%} of its {ms:.4f} ms" if busy else
+            f"[times] {what}: torch.profiler captured no device time (not measured)")
+    art, eager = profiles.values()
+    for name in sorted(set(art) | set(eager), key=lambda n: -abs(art.get(n, 0) - eager.get(n, 0)))[:8]:
+        log(f"[times]   artifact {art.get(name, 0):.4f} ms | predictor {eager.get(name, 0):.4f} ms  "
+            f"{name[:90]}")
+    for arch, f32_ms, bf16_ms in bf16_rows:
+        shape = (f"a block of {M5_BLOCK} frames" if arch == "M5"
+                 else f"{BATCH} x {SECONDS} s, {feats.shape[2]} frames")
+        log(f"[times] {arch} forward ({shape}): float32 {f32_ms:.4f} ms | bf16 {bf16_ms:.4f} ms "
+            f"({bf16_ms / f32_ms:.2f}x)")
+    log(f"[aot] {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -3280,6 +3585,12 @@ def main() -> int:
         int8_launches = int8_phase(torch, cfg, dev, smi, Path(int8_tmp), model, mean, std)
     log(f"[int8] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 15. AOT serving artifacts -------------------------------------------------
+    with tempfile.TemporaryDirectory() as aot_tmp:
+        aot_launches = aot_phase(torch, cfg, dev, smi, Path(aot_tmp), model, mean, std,
+                                 info.seconds)
+    log(f"[aot] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -3317,6 +3628,7 @@ def main() -> int:
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["serve_launches"] = sum(serve_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["int8_launches"] = sum(int8_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["aot_launches"] = sum(aot_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,7 +5,7 @@ The package imports torch, numpy and scipy only; it never imports JAX or
 anything of ``sed_tpu`` and keeps its own copies of what it needs.
 
 Covered so far (scoring, streaming and training of all three model
-families, int8 PTQ and QAT):
+families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts):
 
   configs:    AudioConfig, SpectrogramConfig, WaveformConfig
   features:   logmel_features(_batch), multichannel_stft,
@@ -27,12 +27,16 @@ families, int8 PTQ and QAT):
               (Batched)WaveformStreamingDetector, WaveformStreamPool (M5),
               StreamServer / StreamClient
   checkpoints: cli.infer.load_model_and_state (port .pt, reference .pth,
-              sed_tpu .ckpt), train.torch_import / torch_export
+              sed_tpu .ckpt; bf16=True the bf16 tier), train.torch_import /
+              torch_export
+  serving:    export (aot_export_pipeline, aot_export_m5_pipeline,
+              load_aot_pipeline, export_scorer, load_scorer: torch.export
+              programs with K1 and K2 as custom operators)
   CLIs:       python -m sed_tpu_torch.cli.main (--train_features
               Waveform or Spectogram), python -m sed_tpu_torch.cli.infer (windowed
               per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5,
-              --quantize int8), cli.stream, cli.serve_socket (--arch,
-              --m5_pool, --quantize int8),
+              --quantize int8, --bf16), cli.stream, cli.serve_socket (--arch,
+              --m5_pool, --quantize int8), cli.serve (build, run),
               cli.import_torch, cli.export_torch
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

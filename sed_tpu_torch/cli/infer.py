@@ -25,15 +25,16 @@ It scores on ``--device`` (default ``cuda``):
 archs on a strided subsample of its features spanning the whole file, M5
 on a strided subsample of its frames.  With ``--batch`` it has no effect
 (a note says so; the batch path scores in float), and it excludes
-``--bf16``.
+``--bf16``, the bfloat16 forward (float32 parameters and statistics,
+``models/cnn.py``) on every path.
 
 Writes ``{name}_scores.npy``, ``{name}_scores.csv``, with
 ``--event_threshold`` ``{name}_events.csv``, and for the spectrogram archs
 without ``--no_plot`` a ``{name}.png`` (this needs matplotlib) to
 ``--outputs_dir``.
 
-Not ported yet, and refused by name rather than ignored: ``--bf16``,
-``--num_devices`` > 1 and the fast/turbo featurizer tiers.
+Not ported yet, and refused by name rather than ignored: ``--num_devices``
+> 1 and the fast/turbo featurizer tiers.
 """
 
 from __future__ import annotations
@@ -91,13 +92,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "(M5 = waveform path: one score per hop-strided "
                              "31680-sample frame)")
     parser.add_argument("--bf16", action="store_true", default=False,
-                        help="bfloat16 forward: not ported")
+                        help="compute the model forward in bfloat16 (parameters "
+                             "stay float32): a lossy serving tier, not the parity "
+                             "path")
     return parser
 
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     unported = [flag for flag, on in (
-        ("--bf16", args.bf16),
         ("--num_devices > 1", args.num_devices != 1),
         (f"--featurizer_precision {args.featurizer_precision}",
          args.featurizer_precision != "parity"),
@@ -106,16 +108,18 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
         parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
 
 
-def build_model(arch: str, classes_num: int):
+def build_model(arch: str, classes_num: int, dtype=None):
     """A fresh model of family ``arch``: CnnAvgPooling(TRAIN_CHANNEL_AND_POOL),
-    MobileNetV1 (scores-emitting, the reference's forward) or M5."""
+    MobileNetV1 (scores-emitting, the reference's forward) or M5, computing
+    in ``dtype`` (None: the input's; ``torch.bfloat16``: the bf16 tier)."""
     from sed_tpu_torch.models.cnn import CnnAvgPooling, MobileNetV1, TRAIN_CHANNEL_AND_POOL
     from sed_tpu_torch.models.m5 import M5
 
     constructors = {
-        "CnnAvgPooling": lambda: CnnAvgPooling(classes_num, TRAIN_CHANNEL_AND_POOL),
-        "MobileNetV1": lambda: MobileNetV1(classes_num),
-        "M5": lambda: M5(classes_num),
+        "CnnAvgPooling": lambda: CnnAvgPooling(classes_num, TRAIN_CHANNEL_AND_POOL,
+                                               dtype=dtype),
+        "MobileNetV1": lambda: MobileNetV1(classes_num, dtype=dtype),
+        "M5": lambda: M5(classes_num, dtype=dtype),
     }
     if arch not in constructors:
         raise ValueError(f"unknown arch {arch!r}")
@@ -148,18 +152,18 @@ def load_model_and_state(ckpt_path: str, cfg, batch_hint: int = 1,
     msgpack ``.ckpt`` (:func:`sed_tpu_torch.train.checkpoint.read_model_weights`),
     so a user can pass the same file to either package's CLI.
     ``batch_hint`` sized ``sed_tpu``'s init input; the port's modules need
-    none, so it is unused.  ``bf16=True`` is refused: the bfloat16 tier is
-    not ported.
+    none, so it is unused.  ``bf16=True`` builds the bf16 serving tier:
+    the forward computes in bfloat16, the weights and statistics stay
+    float32 and the logits return as float32 (flax's ``dtype``).
     """
+    import torch
+
     from sed_tpu_torch.inference import resolve_device
     from sed_tpu_torch.train.checkpoint import read_model_weights
     from sed_tpu_torch.train.state import init_state
 
-    if bf16:
-        raise NotImplementedError("bf16=True: the bfloat16 serving tier is not ported "
-                                  "(see ROADMAP.md)")
     device = resolve_device(device)
-    model = build_model(arch, cfg.classes_num)
+    model = build_model(arch, cfg.classes_num, torch.bfloat16 if bf16 else None)
     state_dict, _ = read_model_weights(ckpt_path, arch)
     model.load_state_dict(state_dict, strict=True)
     state = init_state(model, 1e-6, device)
@@ -402,7 +406,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     mean, std = load_mean_std(args.mean_std_file)
-    model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, device=device)
+    model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, bf16=args.bf16,
+                                    device=device)
     os.makedirs(args.outputs_dir, exist_ok=True)
 
     batch_scores = None

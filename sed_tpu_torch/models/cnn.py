@@ -4,7 +4,10 @@
 NCHW input (batch, channels, frames, mel_bins), the featurizer's own output
 layout.  CnnAvgPooling emits per-frame logits (the caller applies the
 sigmoid); MobileNetV1 emits sigmoid scores by default, as the reference
-does.  The state-dict keys are the reference's, which is what
+does.  ``dtype=torch.bfloat16`` is ``sed_tpu``'s bf16 serving tier (its
+``dtype``): the forward computes in bfloat16 (``models.layers``), the
+parameters and BatchNorm statistics stay float32, and the output returns
+as float32; the default ``None`` computes in the input's dtype.  The state-dict keys are the reference's, which is what
 ``sed_tpu.train.torch_export`` emits, so exported checkpoints load with
 ``strict=True``:
 
@@ -22,8 +25,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sed_tpu_torch.models.layers import (BN_EPS, BatchNorm2d, ConvBlock, init_batch_norm_,
-                                         interpolate, kaiming_uniform_)
+from sed_tpu_torch.models.layers import (BN_EPS, BatchNorm2d, Conv2d, ConvBlock, Linear,
+                                         init_batch_norm_, interpolate, kaiming_uniform_)
 
 # Reference DEFAULT_CHANNEL_AND_POOL.
 DEFAULT_CHANNEL_AND_POOL: Tuple[Tuple[int, int], ...] = ((64, 2), (128, 2), (256, 2), (512, 1))
@@ -73,16 +76,18 @@ class CnnAvgPooling(nn.Module):
 
     def __init__(self, classes_num: int,
                  model_config: Sequence[Tuple[int, int]] = DEFAULT_CHANNEL_AND_POOL,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.model_config = tuple(tuple(c) for c in model_config)
+        self.dtype = dtype
         with torch.device("meta"):
             blocks, in_ch = [], 1
             for out_ch, pool in self.model_config:
                 blocks.append(ConvBlock(in_ch, out_ch, pool))
                 in_ch = out_ch
             self.conv_blocks = nn.ModuleList(blocks)
-            self.event_fc = nn.Linear(in_ch, classes_num, bias=True)
+            self.event_fc = Linear(in_ch, classes_num, bias=True)
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
 
@@ -94,11 +99,14 @@ class CnnAvgPooling(nn.Module):
             self.event_fc.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         for block in self.conv_blocks:
             x = block(x)
         x = x.mean(dim=3).transpose(1, 2)   # (batch, frames', channels)
         logits = self.event_fc(x)           # (batch, frames', classes)
-        return interpolate(logits, 2 ** num_pools(self.model_config))
+        logits = interpolate(logits, 2 ** num_pools(self.model_config))
+        return logits if self.dtype is None else logits.float()
 
 
 def _pool(stride: int) -> nn.Module:
@@ -110,7 +118,7 @@ def _pool(stride: int) -> nn.Module:
 
 def _conv_bn(in_ch: int, out_ch: int, stride: int) -> nn.Sequential:
     """conv3x3 -> avg-pool(stride) -> BN -> ReLU."""
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
+    return nn.Sequential(Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
                          _pool(stride), BatchNorm2d(out_ch, eps=BN_EPS),
                          nn.ReLU())
 
@@ -119,9 +127,9 @@ def _conv_dw(in_ch: int, out_ch: int, stride: int) -> nn.Sequential:
     """Depthwise conv3x3 -> avg-pool(stride) -> BN -> ReLU -> pointwise 1x1
     -> BN -> ReLU."""
     return nn.Sequential(
-        nn.Conv2d(in_ch, in_ch, 3, padding=1, groups=in_ch, bias=False),
+        Conv2d(in_ch, in_ch, 3, padding=1, groups=in_ch, bias=False),
         _pool(stride), BatchNorm2d(in_ch, eps=BN_EPS), nn.ReLU(),
-        nn.Conv2d(in_ch, out_ch, 1, bias=False), BatchNorm2d(out_ch, eps=BN_EPS),
+        Conv2d(in_ch, out_ch, 1, bias=False), BatchNorm2d(out_ch, eps=BN_EPS),
         nn.ReLU())
 
 
@@ -136,11 +144,13 @@ class MobileNetV1(nn.Module):
     """
 
     def __init__(self, classes_num: int, emit: str = "scores",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if emit not in ("scores", "logits"):
             raise ValueError(f"emit must be 'scores' or 'logits', got {emit!r}")
         self.emit = emit
+        self.dtype = dtype
         with torch.device("meta"):
             self.bn0 = BatchNorm2d(64, eps=BN_EPS)   # the reference's; never called
             blocks, in_ch = [], 1
@@ -148,8 +158,8 @@ class MobileNetV1(nn.Module):
                 blocks.append((_conv_bn if kind == "bn" else _conv_dw)(in_ch, out_ch, stride))
                 in_ch = out_ch
             self.features = nn.Sequential(*blocks)
-            self.fc1 = nn.Linear(in_ch, 1024, bias=True)
-            self.fc_audioset = nn.Linear(1024, classes_num, bias=True)
+            self.fc1 = Linear(in_ch, 1024, bias=True)
+            self.fc_audioset = Linear(1024, classes_num, bias=True)
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
 
@@ -164,9 +174,13 @@ class MobileNetV1(nn.Module):
                 init_batch_norm_(module)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.features(x)
         x = x.mean(dim=3).transpose(1, 2)   # (batch, frames', 1024)
         x = self.fc_audioset(torch.relu(self.fc1(x)))
+        if self.dtype is not None:
+            x = x.float()
         if self.emit == "scores":
             x = torch.sigmoid(x)
         return interpolate(x, 2 ** 3)

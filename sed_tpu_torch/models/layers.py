@@ -6,6 +6,12 @@ leaky_relu)``, i.e. bound sqrt(6 / fan_in); biases zero; BatchNorm scale 1,
 bias 0, running statistics (0, 1).  Draws come from an explicit
 ``torch.Generator``.  :class:`BatchNorm2d` and :class:`BatchNorm1d` update
 their running variance in training as ``sed_tpu`` (flax) does.
+
+A reduced compute dtype (bfloat16, the serving tier) works as flax's
+``dtype``: the parameters and BatchNorm statistics stay float32;
+:class:`Conv2d`, :class:`Conv1d` and :class:`Linear` cast their weights to
+a bfloat16 input's dtype and compute in it; the batch norms normalize such
+an input in float32 and return it in its own dtype (flax's ``_normalize``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,35 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+REDUCED_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def reduced_like(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t`` cast to ``x``'s dtype when that is a reduced one, else ``t``."""
+    if t is None or x.dtype not in REDUCED_DTYPES:
+        return t
+    return t.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in a reduced input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, reduced_like(self.weight, x), reduced_like(self.bias, x))
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` that computes in a reduced input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, reduced_like(self.weight, x), reduced_like(self.bias, x))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in a reduced input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, reduced_like(self.weight, x), reduced_like(self.bias, x))
 
 
 class _BiasedRunningVar:
@@ -40,6 +75,8 @@ class _BiasedRunningVar:
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            # A reduced input with the float32 statistics: torch normalizes it
+            # in float32 and returns its own dtype, flax's ``_normalize``.
             return super().forward(x)
         n = x.numel() // x.shape[1]
         old = self.running_var.clone()
@@ -94,9 +131,9 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, pool_size: int = 2):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
         self.bn1 = BatchNorm2d(out_channels, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(out_channels, eps=BN_EPS)
         self.pool_size = pool_size
 

@@ -18,6 +18,10 @@ from the same weights, so one state dict loads into either:
 ``sed_tpu`` picks the space-to-depth stem by default in float32, from a
 measurement on a TPU (it fills the MXU's lanes).  The port's default is the
 direct stem; ``chip_smoke.py`` times both on the card.
+
+``dtype=torch.bfloat16`` is ``sed_tpu``'s bf16 serving tier, as for the
+spectrogram CNNs (``models.cnn``): bfloat16 compute, float32 parameters,
+statistics and logits.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sed_tpu_torch.models.layers import BN_EPS, BatchNorm1d, init_batch_norm_, kaiming_uniform_
+from sed_tpu_torch.models.layers import (BN_EPS, BatchNorm1d, Conv1d, Linear, reduced_like,
+                                         init_batch_norm_, kaiming_uniform_)
 
 # Waveform samples per block for the space-to-depth stem.
 S2D_BLOCK = 16
@@ -89,7 +94,7 @@ def s2d_conv1(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
 
 def _conv_bn_relu(in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                   pad: int = 1):
-    return [nn.Conv1d(in_ch, out_ch, kernel, stride=stride, padding=pad),
+    return [Conv1d(in_ch, out_ch, kernel, stride=stride, padding=pad),
             BatchNorm1d(out_ch, eps=BN_EPS), nn.ReLU()]
 
 
@@ -101,9 +106,11 @@ class M5(nn.Module):
     """
 
     def __init__(self, classes_num: int, conv1_s2d: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1_s2d = conv1_s2d
+        self.dtype = dtype
         with torch.device("meta"):
             self.conv_block1 = nn.Sequential(*_conv_bn_relu(1, 64, 79, 4, 39),
                                              nn.MaxPool1d(4))
@@ -115,7 +122,7 @@ class M5(nn.Module):
                                              *_conv_bn_relu(128, 128), nn.MaxPool1d(4))
             self.conv_block5 = nn.Sequential(*_conv_bn_relu(128, 256),
                                              *_conv_bn_relu(256, 256))
-            self.fc = nn.Linear(256, classes_num, bias=True)
+            self.fc = Linear(256, classes_num, bias=True)
         self.to_empty(device="cpu")
         self.reset_parameters(generator)
 
@@ -129,14 +136,17 @@ class M5(nn.Module):
                 init_batch_norm_(module)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         conv, bn, relu, pool = self.conv_block1
         if self.conv1_s2d:
-            x = s2d_conv1(x, conv.weight, conv.bias, stride=conv.stride[0],
-                          pad=conv.padding[0])
+            x = s2d_conv1(x, reduced_like(conv.weight, x), reduced_like(conv.bias, x),
+                          stride=conv.stride[0], pad=conv.padding[0])
         else:
             x = conv(x)
         x = pool(relu(bn(x)))
         for block in (self.conv_block2, self.conv_block3, self.conv_block4,
                       self.conv_block5):
             x = block(x)
-        return self.fc(x.mean(dim=2))   # global mean over time -> (batch, classes)
+        logits = self.fc(x.mean(dim=2))   # global mean over time -> (batch, classes)
+        return logits if self.dtype is None else logits.float()

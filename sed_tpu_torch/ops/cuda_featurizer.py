@@ -34,9 +34,19 @@ map each of sed_tpu's ten TPU kernels onto these five.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 ``_build/`` next to this file (git-ignored), as a shared library with a
-plain C interface, loaded with ctypes.  ``LAUNCHES`` counts the kernel
-launches of each wrapper, so a caller can show that a run went through the
-kernels.
+plain C interface, loaded with ctypes; :func:`install_library` puts a
+library built elsewhere from the same source there instead (the serving
+artifacts of ``sed_tpu_torch.export`` carry one).  ``LAUNCHES`` counts the
+kernel launches of each wrapper, so a caller can show that a run went
+through the kernels.
+
+K1 and K2 are also registered as the custom operators
+``torch.ops.sed_tpu_torch.wave_stft_power`` and
+``torch.ops.sed_tpu_torch.mel_log``, whose CPU kernels are the plain
+versions and whose CUDA kernels are the launches; their wrappers call
+them, so a ``torch.export`` program holds both kernels and counts their
+launches as eager calls do.  K3, K5 and K6 are bound directly: a program
+that exports their paths needs the same wrapping first.
 """
 
 from __future__ import annotations
@@ -101,17 +111,49 @@ def _nvcc() -> str:
     return nvcc
 
 
+def library_digest() -> str:
+    """The hash of ``csrc/featurizer.cu`` and the nvcc flags that names the
+    library built from them."""
+    src = SOURCE.read_bytes()
+    return hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+
+
+def library_path(digest: Optional[str] = None) -> Path:
+    """Where :func:`build` puts (and finds) the library of ``digest``
+    (default: the current source's)."""
+    return BUILD_DIR / f"libsed_featurizer_{digest or library_digest()}.so"
+
+
+def install_library(data: bytes, digest: str, sha256: str) -> Path:
+    """Put the bytes of a library built from this source (``digest``) into
+    ``_build/`` under :func:`build`'s name, unless one is there already, so
+    the kernels load without ``nvcc``.  Refuses bytes of another source or
+    whose sha256 is not ``sha256``.  The bytes are native code that the
+    process will run: pass only a library you built."""
+    if digest != library_digest():
+        raise ValueError(f"kernel library {digest} was built from another "
+                         f"featurizer.cu than this one ({library_digest()})")
+    if hashlib.sha256(data).hexdigest() != sha256:
+        raise ValueError(f"kernel library {digest}: its bytes do not match their sha256")
+    path = library_path(digest)
+    if not path.exists():   # a temporary file renamed, as build() writes it
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_bytes(data)
+        os.replace(tmp, path)
+    return path
+
+
 def build(force: bool = False) -> BuildInfo:
     """Compile ``csrc/featurizer.cu`` into ``_build/``.
 
-    The library's name carries a hash of the source and flags, so an edited
-    source is rebuilt and an unchanged one is reused unless ``force``.  The
-    build writes a temporary file and renames it, so concurrent processes
-    never load a half-written library.
+    The library's name carries a hash of the source and flags
+    (:func:`library_digest`), so an edited source is rebuilt and an
+    unchanged one is reused unless ``force``.  The build writes a temporary
+    file and renames it, so concurrent processes never load a half-written
+    library.
     """
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"libsed_featurizer_{digest}.so"
+    path = library_path()
     if path.exists() and not force:
         return BuildInfo(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -225,6 +267,13 @@ def _check_waves(name: str, waves: torch.Tensor, window: torch.Tensor, hop: int,
     return n_frames
 
 
+def _require_cpu_or_cuda(name: str, t: torch.Tensor) -> None:
+    """The custom operators have CPU and CUDA kernels only (on the meta
+    device their fake kernel would answer with an empty tensor)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
                     n_fft: int) -> torch.Tensor:
     """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_fft/2 + 1) f32
@@ -235,12 +284,29 @@ def wave_stft_power(waves: torch.Tensor, window: torch.Tensor, hop: int,
     twiddles and the W_N^k table).  Unlike the TPU kernel, which emits all
     n_fft bins in its (k2, k1) tile layout for a folded filterbank, this
     returns the one-sided spectrum in natural order: the same mel product,
-    without Mosaic's layout.
+    without Mosaic's layout.  Both go through the custom operator
+    ``sed_tpu_torch::wave_stft_power``.
     """
-    if waves.device.type == "cpu":
-        return wave_stft_power_plain(waves, window, hop, n_fft)
+    _require_cpu_or_cuda("wave_stft_power", waves)
+    return torch.ops.sed_tpu_torch.wave_stft_power(waves, window, hop, n_fft)
+
+
+@torch.library.custom_op("sed_tpu_torch::wave_stft_power", mutates_args=(),
+                         device_types="cpu")
+def _wave_stft_power_op(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                        n_fft: int) -> torch.Tensor:
+    return wave_stft_power_plain(waves, window, hop, n_fft)
+
+
+@_wave_stft_power_op.register_fake
+def _wave_stft_power_fake(waves, window, hop, n_fft):
+    return waves.new_empty((waves.shape[0], 1 + waves.shape[1] // hop, n_fft // 2 + 1))
+
+
+@_wave_stft_power_op.register_kernel("cuda")
+def _wave_stft_power_cuda(waves, window, hop, n_fft):
     if waves.device.type != "cuda":
-        raise ValueError(f"wave_stft_power: unsupported device {waves.device}")
+        raise ValueError(f"waves is on {waves.device}, expected a CUDA device")
     device = waves.device
     n_frames = _check_waves("wave_stft_power", waves, window, hop, n_fft)
     n_sig, n_samples = waves.shape
@@ -464,11 +530,32 @@ def mel_segments_numpy(lo: np.ndarray, hi: np.ndarray, offset: np.ndarray):
     return segments, np.asarray(first, dtype=np.int32), work
 
 
-@functools.lru_cache(maxsize=8)
+def _cached_real(fn):
+    """``functools.cache`` for the device tables the wrappers' callers pass
+    in, except that a result made while ``torch.export`` traces (a fake
+    tensor, with no data) is returned but never kept: the next eager call
+    would get it."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def cached(*args):
+        if args not in cache:
+            out = fn(*args)
+            t = out.dense if isinstance(out, MelBands) else out
+            if isinstance(t, torch._subclasses.FakeTensor):
+                return out
+            cache[args] = out
+        return cache[args]
+
+    return cached
+
+
+@_cached_real
 def mel_bands(cfg: SpectrogramConfig, device: torch.device) -> MelBands:
     """K2's and K5's band description of ``cfg``'s filterbank (float64 cast
     to f32)."""
-    fb = mel_ops.mel_filterbank(cfg, dtype=np.float32)
+    # Contiguous: an exported program saves its tables whole, not as views.
+    fb = np.ascontiguousarray(mel_ops.mel_filterbank(cfg, dtype=np.float32))
     lo, hi, offset, weights = mel_bands_numpy(fb)
     segments, band_first, work = mel_segments_numpy(lo, hi, offset)
     weights = np.concatenate([weights, np.zeros(MEL_SEGMENT_BINS, np.float32)])
@@ -478,7 +565,7 @@ def mel_bands(cfg: SpectrogramConfig, device: torch.device) -> MelBands:
                       for a in (segments, band_first, work, weights, fb)), span=span)
 
 
-@functools.lru_cache(maxsize=8)
+@_cached_real
 def stft_window(cfg: SpectrogramConfig, device: torch.device) -> torch.Tensor:
     """The padded Hann window of ``cfg`` as a f32 tensor on ``device``."""
     return torch.from_numpy(
@@ -507,12 +594,33 @@ def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
     CPU tensors take :func:`mel_log_plain`; CUDA tensors launch K2, which
     reads each row's band span once through shared memory and sums the
     bands by segments (:class:`MelBands`).  Any row count and any base
-    alignment: rows need not start on a 16-byte boundary.
+    alignment: rows need not start on a 16-byte boundary.  Both go through
+    the custom operator ``sed_tpu_torch::mel_log``, which takes the band
+    tensors and span in place of the :class:`MelBands`.
     """
-    if power.device.type == "cpu":
-        return mel_log_plain(power, bands.dense)
+    _require_cpu_or_cuda("mel_log", power)
+    return torch.ops.sed_tpu_torch.mel_log(power, bands.segments, bands.band_first,
+                                           bands.work, bands.weights, bands.dense,
+                                           *bands.span)
+
+
+@torch.library.custom_op("sed_tpu_torch::mel_log", mutates_args=(), device_types="cpu")
+def _mel_log_op(power: torch.Tensor, segments: torch.Tensor, band_first: torch.Tensor,
+                work: torch.Tensor, weights: torch.Tensor, dense: torch.Tensor,
+                span_first: int, span_end: int) -> torch.Tensor:
+    return mel_log_plain(power, dense)
+
+
+@_mel_log_op.register_fake
+def _mel_log_fake(power, segments, band_first, work, weights, dense, span_first, span_end):
+    return power.new_empty((power.shape[0], dense.shape[1]))
+
+
+@_mel_log_op.register_kernel("cuda")
+def _mel_log_cuda(power, segments, band_first, work, weights, dense, span_first, span_end):
     if power.device.type != "cuda":
-        raise ValueError(f"mel_log: unsupported device {power.device}")
+        raise ValueError(f"power is on {power.device}, expected a CUDA device")
+    bands = MelBands(segments, band_first, work, weights, dense, (span_first, span_end))
     device = power.device
     _require_cuda_f32("power", power, device)
     _check_bands(bands, device)

@@ -264,8 +264,10 @@ def test_load_model_and_state_scores_like_sed_tpu(arch, fmt, saved, sed_tpu_scor
 
 def test_load_model_and_state_refuses_bf16_orbax_and_unknown(saved, tmp_path):
     _, _, ckpt = saved["M5"]
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        cli.load_model_and_state(ckpt, WCFG, arch="M5", bf16=True, device="cpu")
+    # bf16=True, once refused, now builds the bf16 serving tier over the
+    # same float32 weights (tests/test_torch_bf16.py holds it to sed_tpu's).
+    model, _ = cli.load_model_and_state(ckpt, WCFG, arch="M5", bf16=True, device="cpu")
+    assert model.dtype == torch.bfloat16 and model.fc.weight.dtype == torch.float32
     orbax = tmp_path / "iteration_5.ckpt.orbax"
     orbax.mkdir()
     with pytest.raises(ValueError, match="msgpack"):

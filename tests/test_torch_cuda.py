@@ -1339,3 +1339,152 @@ def test_int8_forward_on_the_card_matches_cpu(cuda, arch):
     assert int8.LAUNCHES["int_mm"] > before
     assert got.shape == want.shape
     assert float((got.cpu() - want).abs().max()) <= 5e-3
+
+
+# ---------------------------------------------------------------------------
+# AOT serving artifacts (sed_tpu_torch.export): K1 and K2 as custom operators
+# ---------------------------------------------------------------------------
+
+def pcm_clips(n, seconds, cuda, seed=0, sr=48000):
+    return (signals(n, seconds * sr, sr, cuda, seed).clamp(-1, 1) * 32767) \
+        .round().to(torch.int16)[..., None]
+
+
+@pytest.mark.parametrize("name", ["wave_stft_power", "mel_log"])
+def test_custom_ops_pass_opcheck_on_the_card(cuda, name):
+    waves = signals(2, 5 * 8000, 8000, cuda)
+    window = kernels.stft_window(SMALL, cuda)
+    if name == "wave_stft_power":
+        op, args = torch.ops.sed_tpu_torch.wave_stft_power, (waves, window, SMALL.hop_size,
+                                                             SMALL.nfft)
+    else:
+        bands = kernels.mel_bands(SMALL, cuda)
+        power = kernels.wave_stft_power(waves, window, SMALL.hop_size, SMALL.nfft)
+        op, args = torch.ops.sed_tpu_torch.mel_log, (
+            power.reshape(-1, SMALL.freq_bins), bands.segments, bands.band_first, bands.work,
+            bands.weights, bands.dense, *bands.span)
+    result = torch.library.opcheck(op, args)
+    assert all(v == "SUCCESS" for v in result.values()), result
+
+
+def test_exported_pipeline_equals_the_eager_predictor_on_the_card(cuda):
+    """The CUDA artifact's scores equal ``make_batch_predictor``'s bit for
+    bit, and each call launches K1 and K2 once; it refuses the CPU."""
+    from sed_tpu_torch import export as ex
+
+    model = seeded_model("CnnAvgPooling", 3).to(cuda)
+    pcm = pcm_clips(2, 11, cuda, seed=4)
+    with torch.inference_mode():
+        feats = featurizer.logmel_features_batch(pcm, PROD)
+    mean, std = feats.mean(dim=(0, 1, 2)).cpu().numpy(), feats.std(dim=(0, 1, 2)).cpu().numpy()
+    blob = ex.aot_export_pipeline(ex.cnn_serving(model, mean, std), 2, pcm.shape[1], PROD,
+                                  device=cuda)
+    call = ex.load_aot_fn(blob)
+    assert call.header["custom_ops"] == ["mel_log", "wave_stft_power"]
+    # ``cuda`` has no index: the featurizer's tables must still be constants
+    # of the program, not host tables copied to the card on every call.
+    assert "lift_fresh_copy" not in call.module.code
+    assert call.header["kernel_library"]["digest"] == kernels.library_digest()
+    want = make_batch_predictor(model, PROD, mean=mean, std=std, device=cuda)(pcm)
+    kernels.reset_launch_counts()
+    got = call(pcm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_power"] == 1 and kernels.LAUNCHES["mel_log"] == 1
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(ex.load_aot_pipeline(blob)(pcm.cpu().numpy()),
+                                  want.cpu().numpy())
+    with pytest.raises(ValueError, match="traced on cuda and runs only there"):
+        ex.load_aot_pipeline(blob, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["CnnAvgPooling", "MobileNetV1", "M5"])
+def test_exported_int8_and_bf16_heads_equal_their_eager_forwards(cuda, arch):
+    """int8 (``torch._int_mm`` in the graph) and bf16 artifacts on the card
+    against their heads called eagerly: equal."""
+    from sed_tpu_torch import export as ex
+    from sed_tpu_torch.models import quantize as q
+
+    model = seeded_model(arch, 6).to(cuda)
+    if arch == "M5":
+        cfg = WaveformConfig()
+        pcm = pcm_clips(2, 4, cuda, seed=7)
+        frames = cli.hop_frames(pcm[0].float() / 32768.0, cfg)
+        heads = {"int8": ex.m5_quantized_serving(q.quantize_m5(model, [frames])),
+                 "bf16": ex.m5_serving(M5(1, dtype=torch.bfloat16).to(cuda))}
+        heads["bf16"].model.load_state_dict(model.state_dict())
+        export = lambda h: ex.aot_export_m5_pipeline(h, 2, pcm.shape[1], cfg,  # noqa: E731
+                                                     device=cuda)
+        n = (pcm.shape[1] - 2 * (cfg.frame_size // 2)) // cfg.hop_size + 1
+        windows = pcm[..., 0].float().div(32768.0).unfold(1, 2 * (cfg.frame_size // 2),
+                                                          cfg.hop_size)[:, :n]
+        eager = lambda h: h(windows.reshape(-1, 1, windows.shape[-1])).reshape(2, n, -1)  # noqa: E731
+    else:
+        pcm = pcm_clips(2, 11, cuda, seed=7)
+        with torch.inference_mode():
+            feats = featurizer.logmel_features_batch(pcm, PROD)
+        if arch == "MobileNetV1":
+            model.emit = "logits"
+            int8_head = ex.mobilenet_quantized_serving(q.quantize_mobilenet(model, [feats]))
+            bf16 = MobileNetV1(1, emit="logits", dtype=torch.bfloat16)
+        else:
+            int8_head = ex.quantized_serving(q.quantize_cnn(model, [feats]))
+            bf16 = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, dtype=torch.bfloat16)
+        bf16.load_state_dict(model.state_dict())
+        heads = {"int8": int8_head, "bf16": ex.cnn_serving(bf16.to(cuda))}
+        export = lambda h: ex.aot_export_pipeline(h, 2, pcm.shape[1], PROD,  # noqa: E731
+                                                  device=cuda)
+        eager = lambda h: h(feats)  # noqa: E731
+    for tier, head in heads.items():
+        call = ex.load_aot_fn(export(head))
+        with torch.inference_mode(), full_float32():
+            want = eager(head.eval())
+        got = call(pcm)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want), (tier, float((got - want).abs().max()))
+
+
+def test_library_installed_from_an_artifact_loads_and_launches(cuda, tmp_path):
+    """A fresh process on a copy of the package with an empty ``_build/``
+    and an ``nvcc`` that only records being called: the artifact installs
+    its library, the program launches K1 and K2 from it, and nvcc never
+    runs."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from sed_tpu_torch import export as ex
+
+    model = seeded_model("CnnAvgPooling", 8).to(cuda)
+    pcm = pcm_clips(2, 11, cuda, seed=9)
+    blob = ex.aot_export_pipeline(ex.cnn_serving(model), 2, pcm.shape[1], PROD, device=cuda)
+    (tmp_path / "a.aot").write_bytes(blob)
+    np.save(tmp_path / "pcm.npy", pcm.cpu().numpy())
+    want = ex.load_aot_pipeline(blob)(pcm.cpu().numpy())
+    package = Path(kernels.__file__).resolve().parents[1]
+    shutil.copytree(package, tmp_path / "copy" / "sed_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    fake = tmp_path / "cuda_home" / "bin"
+    fake.mkdir(parents=True)
+    (fake / "nvcc").write_text(f"#!/bin/sh\ntouch {tmp_path / 'nvcc_ran'}\nexit 1\n")
+    (fake / "nvcc").chmod(0o755)
+    script = (
+        "import json, sys, numpy as np\n"
+        "from sed_tpu_torch import export as ex\n"
+        "from sed_tpu_torch.ops import cuda_featurizer as k\n"
+        f"call = ex.load_aot_pipeline(open({str(tmp_path / 'a.aot')!r}, 'rb').read())\n"
+        f"np.save({str(tmp_path / 'got.npy')!r}, call(np.load({str(tmp_path / 'pcm.npy')!r})))\n"
+        "print(json.dumps({'launches': k.LAUNCHES, 'library': str(k.library_path()),\n"
+        "                  'exists': k.library_path().exists()}))\n")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path / "copy"),
+               CUDA_HOME=str(tmp_path / "cuda_home"))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path / "copy", env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["exists"] and out["library"].startswith(str(tmp_path / "copy"))
+    assert out["launches"]["wave_stft_power"] == 1 and out["launches"]["mel_log"] == 1
+    assert not (tmp_path / "nvcc_ran").exists()
+    np.testing.assert_array_equal(np.load(tmp_path / "got.npy"), want)

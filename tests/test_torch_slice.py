@@ -167,7 +167,7 @@ def test_bare_state_dict_checkpoint_loads(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--batch", "--bf16"],
+    ["--batch", "--featurizer_precision", "turbo"],
     ["--batch", "--num_devices", "2"],
     ["--batch", "--featurizer_precision", "fast"],
 ])
@@ -183,6 +183,7 @@ def test_cli_refuses_unported_options(flags, capsys):
     ["--batch", "--window", "512"],      # accepted; --batch does not window
     ["--batch", "--arch", "M5"],         # refused with sed_tpu's message
     ["--batch", "--quantize", "int8"],   # sed_tpu's note; --batch scores in float
+    ["--batch", "--bf16"],               # the bf16 tier: within its band of float32
 ])
 def test_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     sr = 48000
@@ -212,7 +213,9 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     want = make_batch_predictor(model, SpectrogramConfig(), device="cpu")(wav[None])[0]
     got = np.load(out / "clip0_scores.npy")
     assert got.shape == tuple(want.shape)
-    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=ATOL)
+    # sed_tpu's band for the bf16 tier on scores (tests/test_stream_pool.py:737).
+    np.testing.assert_allclose(got, want.numpy(), rtol=0,
+                               atol=0.05 if "--bf16" in flags else ATOL)
 
 
 def test_cuda_device_is_never_silently_replaced():
