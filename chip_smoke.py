@@ -224,10 +224,34 @@ non-zero on the first failure.  Phases:
               against the same work called eagerly and ``make_batch_predictor``,
               and bf16 against float32 forwards of each arch.
 
+ 16. bf16    the bf16 tier on the live paths and in training, and the native
+              WAV reader (``sed_tpu_torch/io/native.py``, built with g++ from
+              ``io/csrc/sed_native.cpp`` in phase 1): phase 3's CnnAvgPooling
+              as a bfloat16-compute copy in a 32-slot ``StreamPool`` on phase
+              5's run beside the float32 pool (every stream within 0.05, not
+              equal; the same K3 and K2 launches, counts reset just before
+              and read just after each run), MobileNetV1's logits view (halo
+              88) and M5 in ``DeviceWaveformStreamPool``, bf16 against float32,
+              on phase 13's 32 streams cut to 20 s; CnnAvgPooling (logMel) and
+              M5 trained 100 steps at batch 128 on phase 11's corpus in bf16
+              and float32 from one init (the bf16 validation loss falls;
+              parameters, optimizer state, BatchNorm statistics and the
+              checkpoint float32; no featurizer launch), M5's
+              ``WaveformDataset`` read with ``workers=8`` equal to
+              ``workers=0``'s; the reader: phase 10's 20-minute WAV through
+              ``read_wav`` equal to the scipy plain version, phase 11's 32
+              WAVs through ``read_multichannel_audio_batch(workers=8)`` equal
+              to ``workers=0`` and to the plain path, and ``preprocess_data
+              (workers=8)`` (one K1 and one K2 a file) writing ``workers=0``'s
+              pickles; times: the tick and M5's round in bf16 and float32
+              (with the tick's device time by kernel), the bf16 and float32
+              train steps, the 20-minute read native against scipy, the
+              corpus read and the preprocessing with 8 workers against 0.
+
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
 training path's launches, every entry with phase 12's, 0, phase 13's,
-phase 14's and phase 15's), the ``nvidia-smi`` line, and last ``{"ok":
-true, "device": {...}}``.
+phase 14's, phase 15's and phase 16's), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -318,6 +342,11 @@ AOT_BUILDS = (
 AOT_TOL = 1e-5      # a float32 artifact against the eager path
 AOT_M5_REPS = 5     # timed groups of M5's artifacts (device-bound: 58 and 166 ms)
 BF16_BAND = 0.05    # bf16 scores against float32's (sed_tpu's band, tests/test_stream_pool.py:737)
+BF16_SECONDS = 20   # phase 16's MobileNetV1 and M5 streams (phase 13's, cut from 60 s)
+BF16_STEPS = 100    # phase 16's bf16 training steps a model
+READ_WORKERS = 8    # the native reader's threads (the card's host has 8 cores)
+READ_REPS = 3       # reads timed a case
+
 REPS = 20
 QUEUED = 20         # calls in a row between one pair of events (time_ms's calls)
 
@@ -1139,7 +1168,7 @@ def files_phase(torch, cfg, dev, smi, tmp):
         what = ("float32 cast on the host, upload, hop framing" if arch == "M5"
                 else "float32 cast on the host, upload, K1 + K2, normalization")
         file_s, no_read_s = statistics.median(t["file"]), statistics.median(t["no_read"])
-        log(f"[times] {arch}: WAV read (scipy decode, float64, mono) {spread(t['read'])} | "
+        log(f"[times] {arch}: WAV read (native decode, float64, mono) {spread(t['read'])} | "
             f"featurizer ({what}) {spread(t['featurizer'])} | model (+ sigmoid + scores to the "
             f"host) {spread(t['model'])} | per file {spread(t['file'])} "
             f"({long_s / file_s * 1e3:.1f} audio-s/s) | without the read {spread(t['no_read'])} "
@@ -1519,7 +1548,7 @@ def train_phase(torch, cfg, dev, smi, tmp):
 
     # ---- times -------------------------------------------------------------
     log(f"[times] phase 11 on {smi}; each line's card is this one:")
-    log(f"[times] preprocess (logMel, {TRAIN_SECONDS:.0f} s files, mean of 4): read (scipy decode, mono) "
+    log(f"[times] preprocess (logMel, {TRAIN_SECONDS:.0f} s files, mean of 4): read (native decode, mono) "
         f"{pre_t['read'] / 4 * 1e3:.2f} ms | featurize (float32 cast, upload, K1 + K2, "
         f"download) {pre_t['featurize'] / 4 * 1e3:.2f} ms per file; whole job "
         f"{pre_s / TRAIN_FILES * 1e3:.2f} ms per file logMel, {cx_s / TRAIN_COMPLEX_FILES * 1e3:.2f}"
@@ -3043,6 +3072,307 @@ def aot_phase(torch, cfg, dev, smi, tmp, model, mean, std, nvcc_s):
     return launched
 
 
+def stored_float32(state) -> bool:
+    """Every floating tensor of the model's state dict and of the
+    optimizer's state is float32."""
+    tensors = list(state.model.state_dict().values()) + [
+        v for s in state.optimizer.state.values() for v in s.values() if hasattr(v, "dtype")]
+    return all(t.dtype == state_dtype(t) for t in tensors)
+
+
+def state_dtype(t):
+    """float32 for a floating tensor, its own dtype otherwise."""
+    import torch
+
+    return torch.float32 if t.is_floating_point() else t.dtype
+
+
+def median_seconds(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times)
+
+
+def bf16_phase(torch, cfg, dev, smi, tmp, model, mean, std, spec):
+    """Phase 16: the bf16 tier on the live paths and in training, and the
+    native reader (see the module docstring).  ``model``, ``mean``, ``std``:
+    phase 3's; ``spec``: phase 11's corpus under ``tmp``.  Returns the launch
+    counts of the phase's main-path runs, summed."""
+    import contextlib
+    import io
+
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.data.preprocess import preprocess_data
+    from sed_tpu_torch.data.waveform_dataset import WaveformDataset
+    from sed_tpu_torch.io import audio as audio_io
+    from sed_tpu_torch.io import native
+    from sed_tpu_torch.io.film_clap import get_film_clap_paths_and_labels
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+    from sed_tpu_torch.models.m5 import M5
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.stream_pool import StreamPool
+    from sed_tpu_torch.train import loop
+    from sed_tpu_torch.train.state import init_state
+    from sed_tpu_torch.waveform_streaming import DeviceWaveformStreamPool
+
+    t0 = time.perf_counter()
+    sr = chunk = cfg.working_sample_rate
+    wcfg = WaveformConfig()
+    bf16 = torch.bfloat16
+    counted = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def count(launches):
+        for k, v in launches.items():
+            counted[k] += v
+
+    def tier_of(make, weights, dtype):
+        m = make(dtype)
+        m.load_state_dict(weights.state_dict())
+        return m.to(dev).eval()
+
+    def compare(tag, runs, launch_keys):
+        """bf16 against float32 scores of every stream of one pool's run."""
+        (f_scores, f_wall, f_launch, f_peak, ticks), (b_scores, b_wall, b_launch, b_peak, _) = (
+            runs["f32"], runs["bf16"])
+        err = 0.0
+        for i, (a, b) in enumerate(zip(b_scores, f_scores)):
+            check(a.shape == b.shape and a.shape[0] > 0, f"{tag} stream {i}: bf16 {a.shape} "
+                  f"frames, float32 {b.shape}")
+            err = max(err, float(np.abs(a - b).max()))
+        audio_s = sum(len(s) for s in streams[tag]) / sr
+        log(f"[bf16] {tag}, {len(f_scores)} streams, {ticks} ticks: bf16 against float32 "
+            f"scores max {err:.3e} (band {BF16_BAND}); launches bf16 {b_launch}, float32 "
+            f"{f_launch}; wall {b_wall:.3f} / {f_wall:.3f} s ({audio_s / b_wall:.1f} / "
+            f"{audio_s / f_wall:.1f} audio-s per wall-s), peak {b_peak:.1f} / {f_peak:.1f} MiB "
+            f"(bf16 / float32; {smi})")
+        check(0.0 < err <= BF16_BAND, f"{tag}: bf16 within {BF16_BAND} of float32 (and not "
+              f"equal to it: {err:.3e})")
+        for k in launch_keys:
+            check(b_launch[k] == f_launch[k] > 0, f"{tag}: {k} launched on the bf16 run as on "
+                  f"the float32 one ({b_launch[k]}, {f_launch[k]})")
+        check(not any(v for k, v in b_launch.items() if k not in launch_keys),
+              f"{tag}: no other kernel launched")
+        count(b_launch)
+
+    # ---- the bf16 tick: CnnAvgPooling on phase 5's run ------------------------
+    cnn = {"f32": model, "bf16": tier_of(
+        lambda d: CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL, dtype=d), model, bf16)}
+    audio = (make_signals(torch, POOL_SLOTS, sr * POOL_SECONDS, sr, dev, 2) * 32767
+             ).round().to(torch.int16).cpu().numpy()
+    clips = [audio[i] for i in range(POOL_SLOTS)]
+    clips[EARLY_LEAVER] = clips[EARLY_LEAVER][: int(EARLY_SECONDS * sr)]
+    streams = {"CnnAvgPooling StreamPool": clips}
+    runs = {}
+    for tier, m in cnn.items():
+        pool = StreamPool(m, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean, std=std,
+                          device=DEVICE)
+        runs[tier] = drive_pool(torch, dev, pool, clips, chunk, seed=2)
+    compare("CnnAvgPooling StreamPool", runs, ("frames_stft_power", "mel_log"))
+    tick_ms, tick_dev = {}, {}
+    for tier, m in cnn.items():
+        tpool = StreamPool(m, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean, std=std,
+                           device=DEVICE)
+        tslots = [tpool.join() for _ in range(POOL_SLOTS)]
+        for k in range(2):
+            tpool.push({s: audio[s, k * chunk: (k + 1) * chunk] for s in tslots})
+        one = {s: audio[s, 2 * chunk: 3 * chunk] for s in tslots}
+        tick_ms[tier] = time_ms(torch, lambda: tpool._push_rounds([one]))
+        tick_dev[tier] = profile_ticks(torch, lambda: tpool._push_rounds([one]), n=5)
+        del tpool
+    for tier in ("f32", "bf16"):
+        rows = tick_dev[tier]
+        busy = sum(ms for _, ms in rows)
+        log(f"[times] {tier} tick, {POOL_SLOTS} slots, CnnAvgPooling: {tick_ms[tier]:.4f} ms "
+            f"(CUDA-event median of {REPS}); kernels {busy:.4f} ms a tick (torch.profiler, 5 "
+            f"ticks), the largest: " + ", ".join(f"{n[:48]} {ms:.4f}" for n, ms in rows[:3])
+            + f" ({smi})" if rows else
+            f"[times] {tier} tick: {tick_ms[tier]:.4f} ms; device time not measured ({smi})")
+    log(f"[times] bf16 tick / float32 tick {tick_ms['bf16'] / tick_ms['f32']:.3f} ({smi})")
+
+    # ---- MobileNetV1 and M5 bf16 pools on phase 13's streams ------------------
+    short = (make_signals(torch, POOL_SLOTS, sr * BF16_SECONDS, sr, dev, 13) * 32767
+             ).round().to(torch.int16).cpu().numpy()
+    clips = [short[i] for i in range(POOL_SLOTS)]
+    # Phase 13's weights: MobileNetV1 and M5 seeded as its SERVE_ARCHS.
+    mobilenet = seed_batch_norms(
+        torch, MobileNetV1(cfg.classes_num, generator=torch.Generator().manual_seed(31)), 41)
+    runs = {}
+    for tier, d in (("f32", None), ("bf16", bf16)):
+        logits = tier_of(lambda d: MobileNetV1(cfg.classes_num, emit="logits", dtype=d),
+                         mobilenet, d)
+        pool = StreamPool(logits, cfg, slots=POOL_SLOTS, chunk_samples=chunk, halo=88,
+                          mean=mean, std=std, device=DEVICE)
+        runs[tier] = drive_pool(torch, dev, pool, clips, chunk, seed=13)
+    streams["MobileNetV1 StreamPool (halo 88)"] = clips
+    compare("MobileNetV1 StreamPool (halo 88)", runs, ("frames_stft_power", "mel_log"))
+    m5 = seed_batch_norms(torch, M5(wcfg.classes_num, generator=torch.Generator().manual_seed(32)),
+                          42)
+    runs, round_ms = {}, {}
+    for tier, d in (("f32", None), ("bf16", bf16)):
+        m = tier_of(lambda d: M5(wcfg.classes_num, dtype=d), m5, d)
+        runs[tier] = drive_pool(torch, dev, DeviceWaveformStreamPool(
+            m, wcfg, slots=POOL_SLOTS, device=DEVICE), clips, chunk, seed=13)
+        dpool = DeviceWaveformStreamPool(m, wcfg, slots=POOL_SLOTS, device=DEVICE)
+        dslots = [dpool.join() for _ in range(POOL_SLOTS)]
+        for k in range(2):
+            dpool.push({s: short[s, k * chunk: (k + 1) * chunk] for s in dslots})
+        one = {s: short[s, 2 * chunk: 3 * chunk] for s in dslots}
+        round_ms[tier] = time_ms(torch, lambda: dpool._push_rounds([one]))
+        del dpool
+    streams["M5 DeviceWaveformStreamPool"] = clips
+    compare("M5 DeviceWaveformStreamPool", runs, ())
+    log(f"[times] M5 device pool round, {POOL_SLOTS} slots: bf16 {round_ms['bf16']:.4f} ms, "
+        f"float32 {round_ms['f32']:.4f} ms (CUDA-event medians of {REPS}; {smi})")
+    del runs, audio, short, clips, streams
+
+    # ---- bf16 training: CnnAvgPooling (logMel) and M5 at batch 128 ---------
+    data = tmp / "data"
+    quiet = io.StringIO()
+    wave_sets = {}
+    for w in (0, READ_WORKERS):
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            wave_sets[w] = WaveformDataset(get_film_clap_paths_and_labels(
+                str(data / "FilmClap"), wcfg.time_margin), WAVE_VAL, cfg=wcfg, seed=0, workers=w)
+        wave_sets[w, "s"] = time.perf_counter() - t1
+    a, b = wave_sets[0], wave_sets[READ_WORKERS]
+    check(np.array_equal(a.long_waveform, b.long_waveform)
+          and np.array_equal(a.possible_start_indices, b.possible_start_indices)
+          and np.array_equal(a.all_start_indices_labels, b.all_start_indices_labels),
+          f"WaveformDataset(workers={READ_WORKERS}) equals workers=0's")
+    log(f"[bf16] WaveformDataset on phase 11's corpus: workers={READ_WORKERS} (the native "
+        f"reader's threads) {wave_sets[READ_WORKERS, 's']:.2f} s, workers=0 "
+        f"{wave_sets[0, 's']:.2f} s, equal arrays ({smi})")
+    cases = (("CnnAvgPooling logMel", spec["dataset"], "spectogram", cfg, TRAIN_BATCH,
+              lambda d: CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL, dtype=d)),
+             ("M5", wave_sets[READ_WORKERS], "waveform", wcfg, WAVE_BATCH,
+              lambda d: M5(wcfg.classes_num, dtype=d)))
+    for name, dataset, mode, mcfg, batch, make in cases:
+        init = make(None)
+        init.reset_parameters(torch.Generator().manual_seed(16))
+        out, step_ms = {}, {}
+        for tier, d in (("f32", None), ("bf16", bf16)):
+            m = make(d)
+            m.load_state_dict(init.state_dict())
+            state = init_state(m, TRAIN_LR, dev)
+            run_dir = tmp / f"run16_{mode}_{tier}"
+
+            def val_loss(st):
+                res = loop.evaluate(st.model, st, dataset, mode, 5.0, str(run_dir), 0,
+                                    make_plots=False, cfg=mcfg)
+                return float(np.mean(res[0]))
+
+            loss0 = val_loss(state)
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(quiet):
+                state = loop.train(m, dataset, mode, num_steps=BF16_STEPS, lr=TRAIN_LR,
+                                   log_freq=BF16_STEPS, outputs_dir=str(run_dir),
+                                   batch_size=batch, cfg=mcfg, initial_state=state,
+                                   make_plots=False, device=DEVICE)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+            launched = dict(kernels.LAUNCHES)
+            count(launched)
+            loss1 = val_loss(state)
+            rec = json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[-1])
+            ckpt = torch.load(run_dir / "checkpoints" / f"iteration_{BF16_STEPS}.pt",
+                              weights_only=True)
+            ckpt_ok = all(t.dtype == state_dtype(t) for t in list(ckpt["model"].values()) + [
+                v for s in ckpt["optimizer"]["state"].values() for v in s.values()
+                if hasattr(v, "dtype")])
+            out[tier] = (loss0, loss1, rec["train_loss"], train_s)
+            if tier == "bf16":
+                check(loss1 < loss0 and np.isfinite(rec["train_loss"]),
+                      f"{name} bf16: the validation loss falls ({loss0:.4f} -> {loss1:.4f})")
+                check(state.model.dtype == bf16 and stored_float32(state) and ckpt_ok,
+                      f"{name} bf16: parameters, optimizer state, BatchNorm statistics and "
+                      f"the checkpoint are float32")
+                check(not any(launched.values()), f"{name} bf16 training launches no "
+                      f"featurizer kernel ({launched})")
+            if mode == "spectogram":
+                bufs = pipe.spectrogram_buffers_from_dataset(dataset, dev)
+                fn = pipe.make_spectrogram_train_step(mcfg, 5.0, "logMel", augment=False)
+            else:
+                bufs = pipe.waveform_buffers_from_dataset(dataset, dev)
+                fn = pipe.make_waveform_train_step(mcfg, 5.0, augment=False)
+            starts = torch.as_tensor(dataset.train_start_indices[:batch] if mode == "spectogram"
+                                     else dataset.possible_start_indices[:batch], device=dev)
+            step_ms[tier] = time_ms(torch, lambda: fn(state, bufs, starts))
+            del bufs, state
+        log(f"[bf16] {name}, batch {batch}, {BF16_STEPS} steps at lr {TRAIN_LR} from one "
+            f"init: val loss bf16 {out['bf16'][0]:.4f} -> {out['bf16'][1]:.4f}, float32 "
+            f"{out['f32'][0]:.4f} -> {out['f32'][1]:.4f}; last train loss bf16 "
+            f"{out['bf16'][2]:.4f}, float32 {out['f32'][2]:.4f}; train() {out['bf16'][3]:.2f} / "
+            f"{out['f32'][3]:.2f} s (bf16 / float32, evaluation included)")
+        log(f"[times] {name} train step, batch {batch}: bf16 {step_ms['bf16']:.4f} ms, float32 "
+            f"{step_ms['f32']:.4f} ms (CUDA-event medians of {REPS}; bf16 / float32 "
+            f"{step_ms['bf16'] / step_ms['f32']:.3f}; {smi})")
+    del wave_sets, cases
+
+    # ---- the native reader -------------------------------------------------
+    info = native.build()
+    log(f"[reader] native reader library {info.path.name} (g++ {' '.join(native.CXXFLAGS)})")
+    long_path = str(burst_wav(tmp / "long16.wav", FILE_SECONDS[0], sr, 10))  # phase 10
+    got, _ = audio_io.read_wav(long_path)
+    want, _ = audio_io.read_wav_plain(long_path)
+    check(np.array_equal(got, want), "the native read_wav equals the scipy decode (int16)")
+    del got, want
+    native_s = median_seconds(lambda: audio_io.read_wav(long_path), READ_REPS)
+    plain_s = median_seconds(lambda: audio_io.read_wav_plain(long_path), READ_REPS)
+    log(f"[times] read_wav of the {FILE_SECONDS[0] / 60:.0f}-minute 48 kHz int16 WAV: native "
+        f"{native_s * 1e3:.1f} ms, scipy (the plain version) {plain_s * 1e3:.1f} ms (medians of "
+        f"{READ_REPS}; native / scipy {native_s / plain_s:.3f}; {smi})")
+    wavs = spec["wavs"]
+    batches, batch_s = {}, {}
+    for w in (READ_WORKERS, 0):
+        batches[w] = audio_io.read_multichannel_audio_batch(wavs, sr, cfg, workers=w)
+        batch_s[w] = median_seconds(
+            lambda: audio_io.read_multichannel_audio_batch(wavs, sr, cfg, workers=w), READ_REPS)
+    plain = audio_io.read_multichannel_audio_batch_plain(wavs, sr, cfg, workers=READ_WORKERS)
+    check(all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in
+              zip(batches[READ_WORKERS], batches[0], plain)),
+          f"the corpus read with workers={READ_WORKERS}, workers=0 and the plain path: equal")
+    log(f"[times] read_multichannel_audio_batch of phase 11's {len(wavs)} x "
+        f"{TRAIN_SECONDS:.0f} s WAVs: workers={READ_WORKERS} {batch_s[READ_WORKERS] * 1e3:.1f} "
+        f"ms, workers=0 {batch_s[0] * 1e3:.1f} ms (medians of {READ_REPS}; "
+        f"{batch_s[0] / batch_s[READ_WORKERS]:.2f}x; {smi})")
+    del batches, plain
+    items = get_film_clap_paths_and_labels(str(data / "FilmClap"), cfg.time_margin)
+    pre_s = {}
+    for w in (READ_WORKERS, 0):
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            preprocess_data(items, str(tmp / f"pre16_{w}"), str(tmp / f"pre16_{w}.pkl"),
+                            cfg=cfg, workers=w, device=DEVICE, plot_sample=False)
+        torch.cuda.synchronize()
+        pre_s[w] = time.perf_counter() - t1
+        if w:
+            launched = dict(kernels.LAUNCHES)
+            count(launched)
+            check(launched["wave_stft_power"] == launched["mel_log"] == len(items),
+                  f"preprocess_data(workers={w}): one K1 and one K2 a file ({launched})")
+    same = True
+    for name in sorted(p.name for p in (tmp / "pre16_0").iterdir()) + [None]:
+        pa, pb = ((tmp / f"pre16_{w}" / name) if name else tmp / f"pre16_{w}.pkl"
+                  for w in (0, READ_WORKERS))
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            da, db = pickle.load(fa), pickle.load(fb)
+        same = same and da.keys() == db.keys() and all(
+            np.array_equal(np.asarray(da[k]), np.asarray(db[k])) for k in da if da[k] is not None)
+    check(same, f"preprocess_data(workers={READ_WORKERS}) pickles equal workers=0's")
+    log(f"[times] preprocess_data (logMel) of the {len(items)} files: workers={READ_WORKERS} "
+        f"{pre_s[READ_WORKERS]:.2f} s, workers=0 {pre_s[0]:.2f} s "
+        f"({pre_s[0] / pre_s[READ_WORKERS]:.2f}x; {smi}); pickles equal")
+    log(f"[bf16] phase {time.perf_counter() - t0:.1f} s; launches on its main paths {counted}")
+    return counted
+
+
 def main() -> int:
     import torch
 
@@ -3074,6 +3404,11 @@ def main() -> int:
     start_lesions(kernels)
     info = kernels.build(force=True)
     log(f"[card] nvcc build: {info.seconds:.2f} s -> {info.path.relative_to(REPO)}")
+    from sed_tpu_torch.io import native
+
+    reader = native.build(force=True)
+    log(f"[card] g++ build of the native WAV reader: {reader.seconds:.2f} s -> "
+        f"{reader.path.relative_to(REPO)}")
     for line in info.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"[card] ptxas: {line.strip()}")
@@ -3568,11 +3903,12 @@ def main() -> int:
     log(f"[files] total {time.perf_counter() - phase_t0:.1f} s")
 
     # ---- 11. training; 12. M5 training on the same corpus -------------------
-    with tempfile.TemporaryDirectory() as train_tmp:
-        train_launches, corpus = train_phase(torch, cfg, dev, smi, Path(train_tmp))
-        log(f"[train] total {time.perf_counter() - phase_t0:.1f} s")
-        wave_launches = wavetrain_phase(torch, cfg, dev, smi, Path(train_tmp), corpus)
-        del corpus
+    # The corpus stays until phase 16, which trains and reads it again.
+    train_dir = tempfile.TemporaryDirectory()
+    train_tmp = Path(train_dir.name)
+    train_launches, corpus = train_phase(torch, cfg, dev, smi, train_tmp)
+    log(f"[train] total {time.perf_counter() - phase_t0:.1f} s")
+    wave_launches = wavetrain_phase(torch, cfg, dev, smi, train_tmp, corpus)
     log(f"[wavetrain] total {time.perf_counter() - phase_t0:.1f} s")
 
     # ---- 13. checkpoints and the live serving of MobileNetV1 and M5 ----------
@@ -3590,6 +3926,12 @@ def main() -> int:
         aot_launches = aot_phase(torch, cfg, dev, smi, Path(aot_tmp), model, mean, std,
                                  info.seconds)
     log(f"[aot] total {time.perf_counter() - phase_t0:.1f} s")
+
+    # ---- 16. the bf16 tier on the live paths and in training; the reader -------
+    bf16_launches = bf16_phase(torch, cfg, dev, smi, train_tmp, model, mean, std, corpus)
+    del corpus
+    train_dir.cleanup()
+    log(f"[bf16] total {time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
@@ -3629,6 +3971,7 @@ def main() -> int:
         e["serve_launches"] = sum(serve_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["int8_launches"] = sum(int8_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["aot_launches"] = sum(aot_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["bf16_launches"] = sum(bf16_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

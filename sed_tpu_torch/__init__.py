@@ -13,6 +13,9 @@ families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts):
               (hand-written CUDA kernels on CUDA tensors, their plain
               PyTorch versions on CPU tensors)
   data:       SpectrogramDataset, WaveformDataset, preprocess_data
+              (workers > 0: the native reader's threads)
+  audio I/O:  io.audio (WAV decode through io.native, the port's own copy
+              of the C++ reader, built with g++ at first use)
   models:     CnnAvgPooling, MobileNetV1, M5, models.convert (sed_tpu
               weights and int8 artifacts in), models.describe
   int8:       quantize_cnn, quantized_scores (models.quantize, with
@@ -33,11 +36,12 @@ families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts):
               load_aot_pipeline, export_scorer, load_scorer: torch.export
               programs with K1 and K2 as custom operators)
   CLIs:       python -m sed_tpu_torch.cli.main (--train_features
-              Waveform or Spectogram), python -m sed_tpu_torch.cli.infer (windowed
-              per file, --batch, --arch CnnAvgPooling|MobileNetV1|M5,
-              --quantize int8, --bf16), cli.stream, cli.serve_socket (--arch,
-              --m5_pool, --quantize int8), cli.serve (build, run),
-              cli.import_torch, cli.export_torch
+              Waveform or Spectogram, --bf16, --preprocess_workers), python
+              -m sed_tpu_torch.cli.infer (windowed per file, --batch, --arch
+              CnnAvgPooling|MobileNetV1|M5, --quantize int8, --bf16),
+              cli.stream, cli.serve_socket (--arch, --m5_pool, --quantize
+              int8, --bf16), cli.serve (build, run), cli.import_torch,
+              cli.export_torch
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Top-level names are imported lazily, so ``import sed_tpu_torch`` stays light.

@@ -16,8 +16,17 @@ the run's latest checkpoint.  ``--steps_per_call K`` runs K steps a call,
 (the port's addition) skips the PNGs, which need matplotlib; metrics.jsonl
 is written either way.
 
-Not ported yet, and refused by name before any work: ``--num_devices`` > 1,
-``--bf16``, ``--preprocess_workers`` > 0, and plots without matplotlib.
+``--bf16`` trains CnnAvgPooling and M5 with their compute in bfloat16
+(``models.layers``): parameters, optimizer state, BatchNorm statistics and
+checkpoints stay float32, and the logits, loss, augmentation and metrics
+float32; MobileNetV1 refuses it with ``sed_tpu``'s ``ValueError``.
+``--preprocess_workers N`` reads the WAVs on N threads of the native reader
+(``io/native.py``): the logMel/Complex preprocessing pipelines its reads
+ahead of the featurizer, and the waveform dataset loads its files in one
+batch.
+
+Not ported yet, and refused by name before any work: ``--num_devices`` > 1
+and plots without matplotlib.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="logMel or Complex; relevant only for Spectogram features")
     parser.add_argument("--force_preprocess", action="store_true", default=False)
     parser.add_argument("--preprocess_workers", type=int, default=0,
-                        help="native reader pool: only 0 is ported")
+                        help="native reader threads for the WAV reads (0: one file "
+                             "after another in this thread)")
     # Train
     parser.add_argument("--outputs_root", type=str, default="training_dir")
     parser.add_argument("--ckpt", type=str, default="")
@@ -87,7 +97,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "must be multiples of K")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--bf16", action="store_true", default=False,
-                        help="bfloat16 model compute: not ported")
+                        help="bfloat16 model compute (CnnAvgPooling and M5); parameters, "
+                             "optimizer state and checkpoints stay float32")
     parser.add_argument("--debug_nans", action="store_true", default=False,
                         help="torch.autograd anomaly detection (NaN/inf in backward)")
     parser.add_argument("--profile_dir", type=str, default="",
@@ -102,8 +113,6 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """``parser.error`` naming every option that is not ported, before any work."""
     unported = [flag for flag, on in (
         ("--num_devices > 1", args.num_devices != 1),
-        ("--bf16", args.bf16),
-        ("--preprocess_workers > 0", args.preprocess_workers != 0),
     ) if on]
     if unported:
         parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
@@ -119,6 +128,14 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
             parser.error(str(e))
 
 
+def compute_dtype(args):
+    """The models' compute dtype: ``torch.bfloat16`` under ``--bf16``, else
+    None (the input's, float32)."""
+    import torch
+
+    return torch.bfloat16 if args.bf16 else None
+
+
 def get_spectrogram_dataset_and_model(args):
     from sed_tpu_torch.configs import SpectrogramConfig
     from sed_tpu_torch.data.spectrogram_dataset import (SpectrogramDataset,
@@ -131,13 +148,15 @@ def get_spectrogram_dataset_and_model(args):
         features_dir, mean_std_file = preprocess_tau_sed_data(
             args.dataset_dir, fold_name="eval", preprocess_mode=args.preprocess_mode,
             force_preprocess=args.force_preprocess, cfg=cfg,
-            device=args.device, plot_sample=not args.no_plot,
+            workers=args.preprocess_workers, device=args.device,
+            plot_sample=not args.no_plot,
         )
     elif args.dataset_name.lower() == "filmclap":
         features_dir, mean_std_file = preprocess_film_clap_data(
             args.dataset_dir, preprocessed_mode=args.preprocess_mode,
             force_preprocess=args.force_preprocess, cfg=cfg,
-            device=args.device, plot_sample=not args.no_plot,
+            workers=args.preprocess_workers, device=args.device,
+            plot_sample=not args.no_plot,
         )
     else:
         raise ValueError(
@@ -158,7 +177,7 @@ def get_spectrogram_dataset_and_model(args):
         descriptor = f"MobileNetV1-{args.preprocess_mode}-{cfg.cfg_descriptor}"
     else:
         # Model config from the reference training CLI (main.py:35).
-        model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL)
+        model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL, dtype=compute_dtype(args))
         descriptor = f"{args.preprocess_mode}-{cfg.cfg_descriptor}"
     return dataset, model, cfg, descriptor, "spectogram"
 
@@ -196,7 +215,7 @@ def get_waveform_dataset_and_model(args):
     )
     # The reference hardcodes M5(1) (main.py:69) because classes_num is pinned
     # to 1; with a real multi-class label list the head must match.
-    model = M5(cfg.classes_num)
+    model = M5(cfg.classes_num, dtype=compute_dtype(args))
     return dataset, model, cfg, cfg.cfg_descriptor, "waveform"
 
 
@@ -214,6 +233,9 @@ def main(argv=None):
         torch.autograd.set_detect_anomaly(True)
 
     if args.train_features.lower() == "spectogram":
+        if args.model == "MobileNetV1" and args.bf16:
+            # sed_tpu raises this after preprocessing; the port before any work.
+            raise ValueError("--bf16 is implemented for CnnAvgPooling only")
         dataset, model, cfg, descriptor, mode = get_spectrogram_dataset_and_model(args)
     else:
         if args.model != "CnnAvgPooling":

@@ -5,7 +5,7 @@
         [--arch CnnAvgPooling|MobileNetV1|M5] [--m5_pool device|host] \\
         [--slots 8] [--chunk_seconds 1.0] [--wire pcm16|mulaw] \\
         [--featurizer auto|pallas|xla] [--device cuda|cpu] [--run_seconds N] \\
-        [--quantize int8 --calib_wav a.wav]
+        [--quantize int8 --calib_wav a.wav | --bf16]
 
 Each TCP connection is one live stream over the pool of ``--arch``
 (``cli.stream.build_pool``: ``StreamPool`` for the spectrogram families,
@@ -27,9 +27,15 @@ its activation scales calibrated on ``--calib_wav`` (no input exists at
 start); MobileNetV1 int8 is refused with ``sed_tpu``'s message (it is served
 int8 by the per-file path).
 
+``--bf16`` serves CnnAvgPooling and M5 in the bf16 tier, as
+``cli.stream --bf16`` does.  MobileNetV1 is served in float32 under it, with
+a note on stderr: ``sed_tpu``'s server rebuilds MobileNetV1's logits view
+without the bf16 dtype, and the port keeps that behaviour per CLI (its
+stream CLI scores MobileNetV1 in bf16).
+
 Not ported yet, and refused rather than ignored: the same options as
-``sed_tpu_torch.cli.stream`` (``--bf16``, ``--num_devices`` > 1, the
-fast/turbo featurizer tiers).
+``sed_tpu_torch.cli.stream`` (``--num_devices`` > 1, the fast/turbo
+featurizer tiers).
 """
 
 from __future__ import annotations
@@ -82,7 +88,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(rolling host buffers; a frame scores on the tick after its "
                         "last sample arrives)")
     p.add_argument("--bf16", action="store_true", default=False,
-                   help="bfloat16 forward: not ported")
+                   help="bfloat16 forward (lossy serving tier; MobileNetV1 stays "
+                        "float32 here, as in sed_tpu); excludes --quantize")
     p.add_argument("--no_warmup", action="store_true", default=False,
                    help="skip the warmup ladder before serving")
     p.add_argument("--max_frame_bytes", type=int, default=64 << 20,
@@ -177,7 +184,7 @@ def main(argv=None):
     pool = build_pool(
         args, cfg, args.slots, int(round(args.chunk_seconds * cfg.working_sample_rate)),
         note=note, m5_ignored=["--chunk_seconds"] if args.chunk_seconds != 1.0 else [],
-        calib_wav=calib)
+        calib_wav=calib, mobilenet_bf16=False)
     if calib is not None:
         note(f"int8 serving mode: calibrated on {args.calib_wav}")
     if not args.no_warmup and pool.device.type == "cuda":

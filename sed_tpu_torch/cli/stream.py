@@ -29,8 +29,14 @@ summary line, which includes the kernel launch counts of the run.
 file: M5 on its hop-strided frames, the spectrogram archs on its log-mel
 features (normalized by ``--mean_std_file``).  It excludes ``--bf16``.
 
-Not ported yet, and refused rather than ignored: ``--bf16``,
-``--num_devices`` > 1 and the fast/turbo featurizer tiers.
+``--bf16`` serves every arch in the bf16 tier (``load_model_and_state(...,
+bf16=True)``): the CNN computes in bfloat16 from the float32 weights, while
+the featurizer (K3 + K2), the normalization, the carried ring state and the
+scores stay float32.  MobileNetV1's logits view keeps the bfloat16 dtype
+here, as ``sed_tpu``'s stream CLI does.
+
+Not ported yet, and refused rather than ignored: ``--num_devices`` > 1 and
+the fast/turbo featurizer tiers.
 """
 
 from __future__ import annotations
@@ -91,7 +97,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="M5 pool: 'device' (sample rings on the card, raw chunks "
                         "uploaded; the default) or 'host' (rolling host buffers)")
     p.add_argument("--bf16", action="store_true", default=False,
-                   help="bfloat16 forward: not ported")
+                   help="bfloat16 forward (lossy serving tier); excludes --quantize")
     return p
 
 
@@ -106,7 +112,6 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     if args.arch == "M5" and getattr(args, "num_devices", 1) > 1:
         parser.error("--num_devices applies to the spectrogram pool")
     unported = [flag for flag, on in (
-        ("--bf16", args.bf16),
         ("--num_devices > 1", getattr(args, "num_devices", 1) != 1),
         (f"--featurizer_precision {args.featurizer_precision}",
          args.featurizer_precision != "parity"),
@@ -153,19 +158,24 @@ def calibrate_int8(model, arch: str, cfg, wav: np.ndarray, mean=None, std=None):
     return q.quantize_model(model, [batch])[0]
 
 
-def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), calib_wav=None):
+def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), calib_wav=None,
+               mobilenet_bf16: bool = True):
     """The serving pool of ``args`` (shared with ``cli.serve_socket``):
-    ``--ckpt`` loaded into ``--arch`` on ``--device`` and the pool of its
-    family.  MobileNetV1 is served as its logits view (the pool applies the
-    sigmoid) with ``--halo`` raised to its receptive-field floor.  M5 gets
-    the ``--m5_pool`` pool at its default chunk of one second, as
+    ``--ckpt`` loaded into ``--arch`` on ``--device`` (the bf16 tier under
+    ``--bf16``) and the pool of its family.  MobileNetV1 is served as its
+    logits view (the pool applies the sigmoid) with ``--halo`` raised to its
+    receptive-field floor; the view keeps the bf16 dtype unless
+    ``mobilenet_bf16`` is False (``cli.serve_socket``, whose ``sed_tpu``
+    counterpart rebuilds the view in float32), and ``note`` then says so.
+    M5 gets the ``--m5_pool`` pool at its default chunk of one second, as
     ``sed_tpu``'s, and ``note`` names the options it ignores (those of
     ``m5_ignored`` first).  With ``--quantize int8`` the pool scores through
     the int8 forward, calibrated on ``calib_wav`` (:func:`calibrate_int8`)."""
     from sed_tpu_torch.cli.infer import halo_floor, load_mean_std, load_model_and_state
 
     note = note or log
-    model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, device=args.device)
+    model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, bf16=args.bf16,
+                                    device=args.device)
     mean, std = load_mean_std(args.mean_std_file) if args.arch != "M5" else (None, None)
     qparams = None
     if args.quantize == "int8":
@@ -192,7 +202,11 @@ def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), cali
     if args.arch == "MobileNetV1":
         from sed_tpu_torch.models.cnn import MobileNetV1
 
-        logits = MobileNetV1(cfg.classes_num, emit="logits")
+        dtype = model.dtype if mobilenet_bf16 else None
+        if args.bf16 and not mobilenet_bf16:
+            note("note: --bf16 serves MobileNetV1 in float32 here: its logits view is "
+                 "rebuilt without the bf16 dtype, as sed_tpu's socket server does")
+        logits = MobileNetV1(cfg.classes_num, emit="logits", dtype=dtype)
         logits.load_state_dict(model.state_dict(), strict=True)
         model = logits
         args.halo = halo_floor(model, args.halo, log=note)

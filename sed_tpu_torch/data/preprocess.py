@@ -9,7 +9,9 @@ The log-mel runs on ``device`` through the port's featurizer: K1 (STFT
 power) then K2 (mel-log) on CUDA, once per file, their plain versions on the
 CPU.  'Complex' mode runs the STFT on ``device`` and keeps the complex
 spectrum on the host.  File I/O and pickling stay on the host; the pickles
-are ``sed_tpu``'s format (with ``class_indices``).
+are ``sed_tpu``'s format (with ``class_indices``).  ``workers > 0`` reads
+the files ahead on the native reader's C++ threads while the device
+featurizes, as ``sed_tpu``'s pipelined acquisition stage does.
 """
 
 from __future__ import annotations
@@ -79,6 +81,52 @@ def featurize_file(
     return feats
 
 
+def _waveform_producer(paths, cfg, workers, out_queue):
+    """Producer thread: decode + channel policy + resample files in groups of
+    ``max(2, workers)`` on the native reader's threads, ahead of the
+    featurize/pickle consumer.  Puts ``(index, waveform, None)`` in order; a
+    group that fails is re-read file by file, so a file that fails to decode
+    is put as ``(index, None, its exception)`` and the consumer raises it at
+    the same file as the sequential path would."""
+    from sed_tpu_torch.io.audio import read_multichannel_audio_batch
+
+    group = max(2, workers)
+    for base in range(0, len(paths), group):
+        chunk = paths[base: base + group]
+        try:
+            waves = read_multichannel_audio_batch(chunk, target_fs=cfg.working_sample_rate,
+                                                  cfg=cfg, workers=workers)
+        except Exception:  # noqa: BLE001 - re-read per file to attribute the error
+            for j, p in enumerate(chunk):
+                try:
+                    w = read_multichannel_audio_batch([p], target_fs=cfg.working_sample_rate,
+                                                      cfg=cfg)[0]
+                    out_queue.put((base + j, w, None))
+                except Exception as e:  # noqa: BLE001 - raised by the consumer
+                    out_queue.put((base + j, None, e))
+            continue
+        for j, w in enumerate(waves):
+            out_queue.put((base + j, w, None))
+
+
+def _pipelined_waveforms(paths, cfg, workers):
+    """The waveforms of ``paths`` in order, read ahead by
+    :func:`_waveform_producer` on a daemon thread (a bounded queue of
+    ``2 * max(2, workers)``); a file's read error is raised at its turn."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=2 * max(2, workers))
+    threading.Thread(target=_waveform_producer, args=(paths, cfg, workers, q),
+                     daemon=True).start()
+    for i in range(len(paths)):
+        idx, w, err = q.get()
+        assert idx == i  # the producer puts in order
+        if err is not None:
+            raise err
+        yield w
+
+
 def preprocess_data(
     audio_path_and_labels,
     output_dir: str,
@@ -92,23 +140,31 @@ def preprocess_data(
 ) -> None:
     """Featurize + pickle every labeled file, then the global mean/std.
 
-    ``workers > 0`` (``sed_tpu``'s pipelined native C++ reader) is not
-    ported and raises ``NotImplementedError``.  ``plot_sample`` draws one
-    random file's log-mel (``data_sample.png``) when matplotlib is
+    ``workers > 0`` runs the acquisition stage (WAV decode, channel policy,
+    resampling) as a pipelined producer: files are read ``max(2, workers)``
+    at a time on the native reader's ``workers`` C++ threads while this
+    thread featurizes on ``device`` and pickles, so the read of the next
+    files overlaps the featurizer.  At the working rate the pickles and
+    mean/std equal ``workers=0``'s; resampled sources go through the
+    native resampler instead of scipy's (the same Kaiser design, both within
+    -140 dBFS of a float64 oracle), not bit-equal.  ``plot_sample`` draws
+    one random file's log-mel (``data_sample.png``) when matplotlib is
     installed and says it skipped the plot otherwise.
     """
-    if workers > 0:
-        raise NotImplementedError(
-            "preprocess workers > 0 (sed_tpu's native C++ reader pool) is not "
-            "ported; use workers=0 (see ROADMAP.md, H4)")
     print("Preprocessing collected data")
     os.makedirs(output_dir, exist_ok=True)
 
     items = list(audio_path_and_labels)
+    waves = None
+    if workers > 0 and len(items) > 1:
+        waves = _pipelined_waveforms([it[0] for it in items], cfg, workers)
     all_features = []
     for item in items:
         audio_path, start_times, end_times, audio_name = item
-        feature = featurize_file(audio_path, cfg, preprocess_mode, fft_impl, device)
+        if waves is not None:
+            feature = featurize_waveform(next(waves), cfg, preprocess_mode, fft_impl, device)
+        else:
+            feature = featurize_file(audio_path, cfg, preprocess_mode, fft_impl, device)
         all_features.append(feature)
         output_path = os.path.join(
             output_dir, audio_name + f"_{preprocess_mode}_features_and_labels.pkl"

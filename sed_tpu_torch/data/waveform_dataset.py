@@ -23,7 +23,7 @@ import numpy as np
 from sed_tpu_torch.configs import DEFAULT_WAVEFORM, WaveformConfig
 from sed_tpu_torch.data.events import frame_coverage_labels, start_index_labels
 from sed_tpu_torch.data.split import split_train_val
-from sed_tpu_torch.io.audio import read_multichannel_audio
+from sed_tpu_torch.io.audio import read_multichannel_audio_batch
 from sed_tpu_torch.io.labels import event_class_indices
 
 
@@ -38,10 +38,6 @@ class WaveformDataset:
         seed: Optional[int] = None,
         workers: int = 0,
     ):
-        if workers > 0:
-            raise NotImplementedError(
-                "WaveformDataset workers > 0 (sed_tpu's native C++ reader pool) is not "
-                "ported; use workers=0 (see ROADMAP.md, H4)")
         self.cfg = cfg
         self.balance_classes = balance_classes
         self.augment_data = augment_data
@@ -70,9 +66,12 @@ class WaveformDataset:
             return cls if multiclass else None
 
         def _load_all(items):
-            return [read_multichannel_audio(
-                it[0], target_fs=cfg.working_sample_rate, cfg=cfg)
-                for it in items]
+            # workers > 1: decode + resample on the native reader's threads,
+            # equal at the working rate; resampled sources cross from scipy's
+            # resampler to the reader's, the same Kaiser design.
+            return read_multichannel_audio_batch(
+                [it[0] for it in items], target_fs=cfg.working_sample_rate, cfg=cfg,
+                workers=workers)
 
         waveforms: List[np.ndarray] = []
         start_labels: List[np.ndarray] = []

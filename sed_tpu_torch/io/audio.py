@@ -1,13 +1,18 @@
 """Host-side audio reading, channel policy and resampling (counterpart of
 ``sed_tpu.io.audio``).
 
-WAV decode through ``scipy.io.wavfile`` with soundfile-style float
-normalization, the reference's channel policy, and a polyphase Kaiser
+WAV decode through the native C++ reader (``sed_tpu_torch.io.native``,
+built at first use), as ``sed_tpu`` decodes whenever its library is built:
+PCM 8/16/24/32 and float32/64, the samples through float32, normalized like
+soundfile.  Then the reference's channel policy and a polyphase Kaiser
 windowed-sinc resampler (``scipy.signal.resample_poly`` with an explicit
-64-zero-crossing FIR).  ``sed_tpu``'s optional native C++ reader is not
-ported; this is the same math as its scipy path, and
-:func:`read_multichannel_audio_batch` runs it in a thread pool where
-``sed_tpu`` would use the native reader's.
+64-zero-crossing FIR).  :func:`read_multichannel_audio_batch` with
+``workers > 1`` runs the whole pipeline on the reader's C++ threads.
+
+The plain versions, which the tests hold the reader against and the main
+path never calls: :func:`read_wav_plain` (``scipy.io.wavfile``, float64
+throughout) and :func:`read_multichannel_audio_batch_plain` (that decoder,
+the same policy and scipy resampler, in a Python thread pool).
 """
 
 from __future__ import annotations
@@ -34,7 +39,16 @@ def _normalize_to_float(data: np.ndarray) -> np.ndarray:
 
 
 def read_wav(path: str):
-    """Decode a WAV file -> (float64 (samples, channels), sample_rate)."""
+    """Decode a WAV file through the native reader -> (float64 (samples,
+    channels), sample_rate).  A failed build of the reader raises."""
+    from sed_tpu_torch.io.native import read_wav_native
+
+    return read_wav_native(path)
+
+
+def read_wav_plain(path: str):
+    """:func:`read_wav`'s plain version: ``scipy.io.wavfile`` decode with
+    soundfile-style normalization, float64 throughout."""
     from scipy.io import wavfile
 
     sample_rate, data = wavfile.read(path)
@@ -88,6 +102,10 @@ def read_multichannel_audio(
     channels, truncate.
     """
     audio, sample_rate = read_wav(audio_path)
+    return _policy_and_resample(audio, sample_rate, target_fs, cfg)
+
+
+def _policy_and_resample(audio, sample_rate, target_fs, cfg):
     if audio.shape[1] < cfg.audio_channels:
         audio = np.repeat(audio.mean(axis=1, keepdims=True), cfg.audio_channels, axis=1)
     elif cfg.audio_channels == 1:
@@ -112,14 +130,39 @@ def read_multichannel_audio_batch(
     """Many files -> list of float32 (samples, channels), in order.
 
     ``workers <= 1`` reads one file after another through
-    :func:`read_multichannel_audio`; ``workers > 1`` runs the same reads in a
-    ``ThreadPoolExecutor`` of that many threads (scipy's decode and
-    resampling release the GIL for most of their time).
+    :func:`read_multichannel_audio`; ``workers > 1`` runs decode, channel
+    policy and resampling on ``workers`` threads of the native reader
+    (``load_multichannel_batch_native``, outside the GIL), as ``sed_tpu``
+    does when its library is built.  At equal rates the two agree to the
+    float32 rounding of the channel mean; a resampled file crosses from
+    scipy's resampler to the reader's, the same Kaiser design, both within
+    -140 dBFS of a float64 oracle (``benchmarks/RESAMPLER_PARITY.json``).
     """
+    audio_paths = list(audio_paths)
+    if workers > 1 and len(audio_paths) > 1:
+        from sed_tpu_torch.io.native import load_multichannel_batch_native
+
+        return load_multichannel_batch_native(audio_paths, cfg.audio_channels, target_fs,
+                                              threads=workers)
+    return [read_multichannel_audio(p, target_fs, cfg).astype(np.float32)
+            for p in audio_paths]
+
+
+def read_multichannel_audio_batch_plain(
+    audio_paths,
+    target_fs: int | None = None,
+    cfg: AudioConfig = DEFAULT_AUDIO,
+    workers: int = 0,
+) -> list:
+    """:func:`read_multichannel_audio_batch`'s plain version: the scipy
+    decoder (:func:`read_wav_plain`), the same channel policy and scipy's
+    resampler, on a ``ThreadPoolExecutor`` of ``workers`` threads when
+    ``workers > 1``."""
     audio_paths = list(audio_paths)
 
     def read(path):
-        return read_multichannel_audio(path, target_fs, cfg).astype(np.float32)
+        audio, sample_rate = read_wav_plain(path)
+        return _policy_and_resample(audio, sample_rate, target_fs, cfg).astype(np.float32)
 
     if workers > 1 and len(audio_paths) > 1:
         from concurrent.futures import ThreadPoolExecutor

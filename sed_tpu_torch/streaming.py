@@ -80,7 +80,10 @@ def make_stream_fns(model: torch.nn.Module,
     eval mode (running BatchNorm statistics, left as they were) and leaves
     it there; both functions run in full float32 for the call.  ``forward``
     applies the sigmoid: give it a logits-emitting model (MobileNetV1 with
-    ``emit='logits'``).
+    ``emit='logits'``).  A bf16-tier model (``dtype=torch.bfloat16``, as
+    ``sed_tpu``'s pools take a ``dtype=bfloat16`` model) computes only its
+    own forward in bfloat16: the frames, the log-mel, the normalization, the
+    state every detector and pool carries, and the scores stay float32.
     """
     if featurizer in ("auto", "pallas"):
         featurize_frames = lambda x: logmel_frames(x, cfg)  # noqa: E731

@@ -50,8 +50,9 @@ def make_m5_score_fn(model: torch.nn.Module, qparams=None, device="cuda"):
     """One ``score(frames) -> scores`` function for every detector and slot
     of one model: (n, frame) float32 array or tensor -> (n, classes) sigmoid
     scores, a tensor on ``device``.  ``model`` is moved to ``device``; each
-    call puts it in eval mode, leaves it there, and runs in full float32.
-    With ``qparams`` (``models.quantize.quantize_m5``'s artifact, moved to
+    call puts it in eval mode, leaves it there, and runs in full float32; a
+    bf16-tier M5 (``dtype=torch.bfloat16``) computes its forward in bfloat16
+    on the float32 frames and returns float32 scores.  With ``qparams`` (``models.quantize.quantize_m5``'s artifact, moved to
     ``device``) it scores through the int8 forward instead."""
     device = resolve_device(device)
     if qparams is not None:

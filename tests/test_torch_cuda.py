@@ -1488,3 +1488,83 @@ def test_library_installed_from_an_artifact_loads_and_launches(cuda, tmp_path):
     assert out["launches"]["wave_stft_power"] == 1 and out["launches"]["mel_log"] == 1
     assert not (tmp_path / "nvcc_ran").exists()
     np.testing.assert_array_equal(np.load(tmp_path / "got.npy"), want)
+
+
+# -- the bf16 tier on the live paths; the native reader -------------------------
+
+@pytest.mark.parametrize("arch", ["CnnAvgPooling", "MobileNetV1"])
+def test_bf16_tick_on_the_card_follows_float32(cuda, arch):
+    """A StreamPool whose model computes in bfloat16 (the stream CLI's
+    ``--bf16``) on the card: K3 and K2 on every tick as in float32, the ring
+    state float32, and every stream's scores within sed_tpu's 0.05 band of
+    the float32 pool's (not equal: the CNN does run in bfloat16)."""
+    model = seeded_model(arch, 10)
+    rng = np.random.default_rng(10)
+    audio = (3000 * rng.standard_normal((3, 9 * 48000 + 321))).astype(np.int16)
+    halo = 88 if arch == "MobileNetV1" else 64
+    got, launches = {}, {}
+    for tier, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        if arch == "MobileNetV1":
+            m = MobileNetV1(1, emit="logits", dtype=dtype)
+        else:
+            m = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, dtype=dtype)
+        m.load_state_dict(model.state_dict())
+        pool = StreamPool(m, PROD, slots=3, halo=halo, device=cuda)
+        slots = [pool.join() for _ in range(3)]
+        blocks = {s: [] for s in slots}
+        kernels.reset_launch_counts()
+        for pos in range(0, audio.shape[1], 30000):
+            for s in slots:
+                pool.feed(s, audio[s, pos:pos + 30000])
+            for s, sc in pool.tick().items():
+                blocks[s].append(sc)
+        for s, tail in pool.leave_many(slots).items():
+            blocks[s].append(tail)
+        torch.cuda.synchronize()
+        launches[tier] = dict(kernels.LAUNCHES)
+        got[tier] = [np.concatenate(blocks[s]) for s in slots]
+    assert launches["bf16"] == launches["f32"] and launches["bf16"]["frames_stft_power"] >= 9
+    assert launches["bf16"]["frames_stft_power"] == launches["bf16"]["mel_log"]
+    dev = 0.0
+    for a, b in zip(got["bf16"], got["f32"]):
+        assert a.shape == b.shape and a.shape[0] > 0 and a.dtype == np.float32
+        dev = max(dev, float(np.abs(a - b).max()))
+    assert 0.0 < dev <= 0.05, dev
+
+
+def test_native_reader_in_a_cuda_process(cuda, tmp_path):
+    """The native reader (built with g++ at first use) in a process that
+    holds a CUDA context: ``read_wav`` equal to the scipy plain version on
+    int16 PCM, the batch loader on four threads equal to the sequential
+    path, and ``preprocess_data(workers=2)`` on the card writing the
+    pickles of ``workers=0``."""
+    import os
+    import pickle
+
+    from sed_tpu_torch.data.preprocess import preprocess_data
+    from sed_tpu_torch.io import audio, native
+
+    torch.zeros(1, device=cuda)
+    rng = np.random.default_rng(12)
+    paths = []
+    for i in range(5):
+        paths.append(str(tmp_path / f"c{i}.wav"))
+        wavfile.write(paths[-1], 48000, (3000 * rng.standard_normal(3 * 48000 + 77 * i))
+                      .astype(np.int16))
+    assert native.native_available() and native.build().path.exists()
+    got, sr = audio.read_wav(paths[0])
+    want, _ = audio.read_wav_plain(paths[0])
+    assert sr == 48000
+    np.testing.assert_array_equal(got, want)
+    par = audio.read_multichannel_audio_batch(paths, 48000, workers=4)
+    seq = audio.read_multichannel_audio_batch(paths, 48000, workers=0)
+    for a, b in zip(par, seq):
+        np.testing.assert_array_equal(a, b)
+    items = [(p, np.array([0.5]), np.array([1.0]), f"c{i}") for i, p in enumerate(paths)]
+    for w in (0, 2):
+        preprocess_data(items, str(tmp_path / f"f{w}"), str(tmp_path / f"m{w}.pkl"),
+                        workers=w, device=cuda, plot_sample=False)
+    for name in sorted(os.listdir(tmp_path / "f0")):
+        with open(tmp_path / "f0" / name, "rb") as fa, open(tmp_path / "f2" / name, "rb") as fb:
+            np.testing.assert_array_equal(pickle.load(fa)["features"],
+                                          pickle.load(fb)["features"])

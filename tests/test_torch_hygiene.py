@@ -50,3 +50,17 @@ print(len(names))
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 15
+
+
+def test_no_source_reaches_into_sed_tpus_native_directory():
+    """The native reader is built from the port's own copy of its source
+    (``sed_tpu_torch/io/csrc``): no string in the port names the repository's
+    ``native/`` directory or its library."""
+    for path in port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                v = node.value
+                assert not (v == "native" or v.startswith("native/") or "/native/" in v
+                            or "libsed_native.so" in v or "native/Makefile" in v), (
+                    f"{path.relative_to(REPO)}: {v[:80]!r}")

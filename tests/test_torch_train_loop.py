@@ -425,7 +425,8 @@ def test_train_cli_resume_auto(film_clap_root, tmp_path):
     assert not torch.equal(third["model"]["event_fc.weight"], first["model"]["event_fc.weight"])
 
 
-PORTED_FLAGS = {"--train_features Waveform", "--steps_per_call > 1", "--profile_dir"}
+PORTED_FLAGS = {"--train_features Waveform", "--steps_per_call > 1", "--profile_dir",
+                "--bf16", "--preprocess_workers > 0"}
 
 
 @pytest.mark.parametrize("flags,name", [
@@ -438,9 +439,10 @@ PORTED_FLAGS = {"--train_features Waveform", "--steps_per_call > 1", "--profile_
 ])
 def test_train_cli_refuses_unported_flags(tmp_path, capsys, flags, name):
     """The flags still unported are refused by name before any work; the
-    three that are ported now (the Waveform features, steps_per_call and
-    profile_dir) pass the check (their runs: tests/test_torch_waveform_train.py
-    and tests/test_torch_multi_step.py)."""
+    five that are ported now (the Waveform features, steps_per_call,
+    profile_dir, bf16 and preprocess_workers) pass the check (their runs:
+    tests/test_torch_waveform_train.py, tests/test_torch_multi_step.py,
+    tests/test_torch_bf16_train.py and tests/test_torch_native_io.py)."""
     argv = ["--dataset_dir", str(tmp_path / "absent"), "--train_features", "Spectogram",
             "--device", "cpu", "--no_plot", *flags]
     if name in PORTED_FLAGS:

@@ -160,8 +160,16 @@ def test_waveform_dataset_multiclass_matches_sed_tpu(corpus):
 
 
 def test_waveform_dataset_refuses_workers(corpus):
-    with pytest.raises(NotImplementedError, match="H4"):
-        WaveformDataset(corpus, cfg=WCFG, workers=2)
+    """``workers > 0``, once refused, loads the files on the native reader's
+    threads: at the working rate the dataset equals ``workers=0``'s."""
+    a = WaveformDataset(corpus, cfg=WCFG, seed=0)
+    b = WaveformDataset(corpus, cfg=WCFG, seed=0, workers=2)
+    np.testing.assert_array_equal(a.long_waveform, b.long_waveform)
+    np.testing.assert_array_equal(a.all_start_indices_labels, b.all_start_indices_labels)
+    np.testing.assert_array_equal(a.possible_start_indices, b.possible_start_indices)
+    for (f, l, _), (g, m, _) in zip(a.get_validation_sampler(), b.get_validation_sampler()):
+        np.testing.assert_array_equal(f, g)
+        np.testing.assert_array_equal(l, m)
 
 
 # ---------------------------------------------------------------------------
