@@ -247,11 +247,40 @@ non-zero on the first failure.  Phases:
               (with the tick's device time by kernel), the bf16 and float32
               train steps, the 20-minute read native against scipy, the
               corpus read and the preprocessing with 8 workers against 0.
+ 17. mesh    data parallelism (``sed_tpu_torch.parallel``) at world size 1
+              over NCCL, in this process: ``create_mesh(1)``; ``train(mesh=)``
+              against ``train()`` for one float32 CnnAvgPooling step at batch
+              128 on phase 11's corpus (loss, parameters at lr 1e-6,
+              BatchNorm statistics, the gradients it applied within
+              ``MESH_GRAD32_REL`` of their tensor's largest, the checkpoint),
+              the float32 step of CnnAvgPooling and M5 through
+              ``shard_train_step`` against the plain step (the same, with the
+              first gradients), and 5 float64 steps with augmentation of each (M5 as two calls of
+              ``steps_per_call=2`` and one single step) against the plain
+              steps, at ``tests/test_parallel.py``'s tolerances;
+              ``make_batch_predictor(mesh=)`` on phase 3's batch (one K1 and
+              one K2 launch a call, counts reset just before and read just
+              after, within 1e-6 of the plain predictor) and
+              ``batch_predict_files(mesh=)`` on 3 of phase 11's WAVs; a
+              32-slot ``StreamPool(mesh=)`` on phase 5's run cut to 20 s,
+              with 'auto' (K3 and K2 on the rank, in pairs, counts reset
+              just before and read just after) and with 'xla' (no launch),
+              each against ``make_batch_predictor`` and against each other,
+              and ``featurizer='pallas'`` refused with ``sed_tpu``'s error;
+              the group torn down after; ``python -m
+              sed_tpu_torch.cli.main --num_devices 2`` refused with
+              ``sed_tpu``'s message on a one-card host (with two cards or
+              more: 20 steps of ``cli.main`` and ``cli.infer --batch`` at 2
+              ranks against 1); times: the float32 train step of each arch
+              (and its host enqueue time) and the 16 x 60 s scoring batch,
+              plain and on the mesh, in turns, and the train steps again in
+              two child processes (``mesh_step_child``), NCCL's flight
+              recorder off in one and on in the other.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
 training path's launches, every entry with phase 12's, 0, phase 13's,
-phase 14's, phase 15's and phase 16's), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+phase 14's, phase 15's, phase 16's and phase 17's), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -259,6 +288,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import pickle
 import statistics
 import subprocess
@@ -344,6 +374,19 @@ AOT_M5_REPS = 5     # timed groups of M5's artifacts (device-bound: 58 and 166 m
 BF16_BAND = 0.05    # bf16 scores against float32's (sed_tpu's band, tests/test_stream_pool.py:737)
 BF16_SECONDS = 20   # phase 16's MobileNetV1 and M5 streams (phase 13's, cut from 60 s)
 BF16_STEPS = 100    # phase 16's bf16 training steps a model
+MESH_LR = 1e-6      # phase 17's float32 steps (the training CLI's lr; see mesh_phase)
+MESH_STEPS = 5      # phase 17's float64 steps a model, mesh against plain
+MESH_POOL_SECONDS = 20   # phase 17's pool run: phase 5's, cut from 60 s
+MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-5   # tests/test_parallel.py:70, :72
+MESH_BN_RTOL, MESH_BN_ATOL = 1e-5, 1e-6        # tests/test_parallel.py:75
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 1e-3, 5e-6    # tests/test_parallel.py:214-215
+MESH_SCORE_TOL = 1e-6                          # tests/test_parallel.py:95
+# Phase 17's float32 first gradients, mesh against plain: each tensor's
+# largest difference over its largest value.  The readings were 2.8e-3 to
+# 6.6e-3 (PERF.md, PR 16), as far as cuDNN's own float32 gradients sit from
+# float64 (4.4e-3, PR 10); a wrong gradient (a sign, a missing term) is O(1).
+MESH_GRAD32_REL = 2e-2
+MESH_CLI_RTOL = 1e-4    # cli.main's float32 losses, 2 ranks against 1, over 20 steps
 READ_WORKERS = 8    # the native reader's threads (the card's host has 8 cores)
 READ_REPS = 3       # reads timed a case
 
@@ -3373,6 +3416,460 @@ def bf16_phase(torch, cfg, dev, smi, tmp, model, mean, std, spec):
     return counted
 
 
+def mesh_step_child() -> None:
+    """Phase 17's child process: the float32 train step of CnnAvgPooling
+    (logMel crops) and of M5 at batch 128 on seeded buffers, plain and
+    through ``shard_train_step`` on ``create_mesh(1)``, in turns plain,
+    mesh, mesh, plain: the CUDA-event median of ``REPS`` calls and the
+    host's mean ms a call without a sync.  Prints one JSON line ``{arch:
+    {tag: [[ms, host ms], ...]}}``.  NCCL's flight recorder is as this
+    process's environment has it; torch reads its buffer size once a
+    process, so phase 17 starts one child with it off and one with it on."""
+    import torch
+
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM as cfg
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
+    from sed_tpu_torch.models.m5 import M5
+    from sed_tpu_torch.parallel.data_parallel import shard_train_step
+    from sed_tpu_torch.parallel.mesh import create_mesh
+    from sed_tpu_torch.parallel.multihost import shutdown_multihost
+    from sed_tpu_torch.train.state import init_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE, 0)
+    rng = np.random.default_rng(0)
+    wcfg = WaveformConfig()
+    frames, samples = 20000, 40 * wcfg.frame_size
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    spec = pipe.SpectrogramBuffers(
+        features=up(rng.standard_normal((1, frames, cfg.mel_bins))),
+        events=up(rng.random((frames, 1)) > 0.8),
+        start_indices=torch.arange(frames - cfg.train_crop_size, device=dev),
+        mean=torch.zeros(cfg.mel_bins, device=dev), std=torch.ones(cfg.mel_bins, device=dev))
+    wave = pipe.WaveformBuffers(
+        waveform=up(0.1 * rng.standard_normal((1, samples))),
+        labels=up(rng.random(samples) > 0.8),
+        start_indices=torch.arange(samples - wcfg.frame_size, device=dev))
+    archs = {
+        "CnnAvgPooling": (lambda: CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL), spec,
+                          pipe.make_spectrogram_train_step(cfg, 5.0, "logMel", False),
+                          rng.integers(0, frames - cfg.train_crop_size, TRAIN_BATCH)),
+        "M5": (lambda: M5(1), wave, pipe.make_waveform_train_step(wcfg, 5.0, False),
+               rng.integers(0, samples - wcfg.frame_size, WAVE_BATCH)),
+    }
+    mesh = create_mesh(1)
+    out = {}
+    try:
+        for arch, (make, bufs, raw, starts) in archs.items():
+            for tag in ("plain", "mesh", "mesh", "plain"):
+                st = init_state(make(), MESH_LR, dev, seed=0)
+                step = raw if tag == "plain" else shard_train_step(raw, mesh)
+                ms = time_ms(torch, lambda: step(st, bufs, starts))
+                t1 = time.perf_counter()
+                for _ in range(REPS):
+                    step(st, bufs, starts)
+                host = (time.perf_counter() - t1) / REPS * 1e3
+                torch.cuda.synchronize()
+                out.setdefault(arch, {}).setdefault(tag, []).append([ms, host])
+    finally:
+        shutdown_multihost()
+    print(json.dumps(out), flush=True)
+
+
+def recorder_phase(smi) -> None:
+    """Phase 17's times of the mesh step with NCCL's flight recorder off
+    (``TORCH_FR_BUFFER_SIZE=0``, as ``multihost.launch``'s ranks run) and on
+    (2000 entries, torch's default), a fresh process each
+    (:func:`mesh_step_child`)."""
+    got = {}
+    for tag, size in (("off", "0"), ("on", "2000")):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("TORCH_FR_BUFFER_SIZE", "TORCH_NCCL_TRACE_BUFFER_SIZE")}
+        env["TORCH_FR_BUFFER_SIZE"] = size
+        proc = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                               "chip_smoke.mesh_step_child()"], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"the mesh step's child with the flight recorder {tag} "
+              f"(exit {proc.returncode}): {proc.stderr[-3000:]}")
+        got[tag] = json.loads(proc.stdout.strip().splitlines()[-1])
+    for arch in got["off"]:
+        parts = []
+        for tag in ("off", "on"):
+            t = got[tag][arch]
+            ratio = min(t["mesh"])[0] / min(t["plain"])[0]
+            parts.append(f"recorder {tag}: " + "; ".join(
+                f"{k} " + ", ".join(f"{a:.4f} ({h:.4f})" for a, h in v) for k, v in t.items())
+                + f" ({ratio:.3f}x)")
+        log(f"[times] {arch} float32 train step at batch "
+            f"{TRAIN_BATCH if arch != 'M5' else WAVE_BATCH}, plain and on create_mesh(1), a "
+            f"fresh process for each setting of NCCL's flight recorder, ms (host enqueue ms): "
+            + " | ".join(parts) + f" (CUDA-event medians of {REPS}, the host's mean over "
+            f"{REPS} calls without a sync; in turns plain, mesh, mesh, plain; {smi})")
+
+
+def mesh_phase(torch, cfg, dev, smi, tmp, model, mean, std, spec):
+    """Phase 17: the data-parallel paths at world size 1 over NCCL (see the
+    module docstring).  ``model``, ``mean``, ``std``: phase 3's; ``spec``:
+    phase 11's corpus under ``tmp``.  Returns the launch counts of the
+    phase's main-path runs, summed."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.data.waveform_dataset import WaveformDataset
+    from sed_tpu_torch.inference import batch_predict_files, make_batch_predictor
+    from sed_tpu_torch.io.film_clap import get_film_clap_paths_and_labels
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
+    from sed_tpu_torch.models.m5 import M5
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.parallel.data_parallel import shard_train_step
+    from sed_tpu_torch.parallel.mesh import create_mesh
+    from sed_tpu_torch.parallel.multihost import shutdown_multihost
+    from sed_tpu_torch.stream_pool import StreamPool
+    from sed_tpu_torch.train import loop
+    from sed_tpu_torch.train.state import init_state
+
+    t0 = time.perf_counter()
+    sr = chunk = cfg.working_sample_rate
+    wcfg = WaveformConfig()
+    counted = dict.fromkeys(kernels.LAUNCHES, 0)
+    quiet = io.StringIO()
+
+    def count(launches):
+        for k, v in launches.items():
+            counted[k] += v
+
+    def state_errs(got, want):
+        """(max parameter error, max BatchNorm-statistic excess over rtol
+        1e-5 / atol 1e-6) of two state dicts."""
+        p_err, bn_excess = 0.0, 0.0
+        for key, w in want.items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            d = (got[key].double() - w.double()).abs()
+            if "running_" in key:
+                bn_excess = max(bn_excess, float(
+                    (d - (MESH_BN_ATOL + MESH_BN_RTOL * w.double().abs())).max()))
+            else:
+                p_err = max(p_err, float(d.max()))
+        return p_err, bn_excess
+
+    def grad_rel(got, want):
+        """The largest of each tensor's largest gradient difference over its
+        largest value; M5's conv biases aside (each feeds a BatchNorm, so
+        their gradients are rounding noise)."""
+        return max(float((got[k] - g).abs().max() / g.abs().max())
+                   for k, g in want.items()
+                   if float(g.abs().max()) > 0 and not k.endswith(CONV_BIASES))
+
+    mesh = create_mesh(1)
+    try:
+        check(mesh.size == 1 and mesh.device == dev and dist.get_backend() == "nccl",
+              f"create_mesh(1): one rank over NCCL on {dev} ({mesh})")
+        log(f"[mesh] create_mesh(1): {mesh}, backend {dist.get_backend()}")
+
+        # ---- training: one float32 step through train(), CnnAvgPooling ----
+        dataset = spec["dataset"]
+        runs = {}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            st = init_state(CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL), MESH_LR,
+                            dev, seed=0)
+            out = tmp / f"run17_{tag}"
+            with contextlib.redirect_stdout(quiet):
+                st = loop.train(st.model, dataset, "spectogram", num_steps=1, lr=MESH_LR,
+                                log_freq=1, outputs_dir=str(out), batch_size=TRAIN_BATCH,
+                                cfg=cfg, initial_state=st, make_plots=False, device=DEVICE,
+                                mesh=m)
+            record = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])
+            runs[tag] = (record["train_loss"], {k: v.cpu() for k, v in
+                                                st.model.state_dict().items()},
+                         sorted(p.name for p in (out / "checkpoints").iterdir()),
+                         {k: p.grad.detach().double().cpu()
+                          for k, p in st.model.named_parameters()})
+        loss_rel = abs(runs["mesh"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+        p_err, bn_excess = state_errs(runs["mesh"][1], runs["plain"][1])
+        g_rel = grad_rel(runs["mesh"][3], runs["plain"][3])
+        log(f"[mesh] train(mesh=) against train(), CnnAvgPooling logMel, one float32 step at "
+            f"batch {TRAIN_BATCH}, lr {MESH_LR}: loss {runs['mesh'][0]:.7f} vs "
+            f"{runs['plain'][0]:.7f} (rel {loss_rel:.3e}, tol {MESH_LOSS_RTOL}), parameters "
+            f"{p_err:.3e} (tol {MESH_PARAM_ATOL}), BatchNorm statistics excess over rtol "
+            f"{MESH_BN_RTOL} / atol {MESH_BN_ATOL}: {bn_excess:.3e}; the gradients it applied, "
+            f"largest difference relative to its tensor's largest: {g_rel:.3e} (tol "
+            f"{MESH_GRAD32_REL})")
+        check(loss_rel <= MESH_LOSS_RTOL and p_err <= MESH_PARAM_ATOL and bn_excess <= 0
+              and g_rel <= MESH_GRAD32_REL, "train(mesh=) float32 step equals train()")
+        check(runs["mesh"][2] == runs["plain"][2] == ["iteration_1.pt"],
+              f"train(mesh=) writes train()'s checkpoint ({runs['mesh'][2]})")
+
+        # ---- the steps themselves: float32 M5, float64 K steps, and times ----
+        with contextlib.redirect_stdout(quiet):
+            wave = WaveformDataset(get_film_clap_paths_and_labels(
+                str(tmp / "data" / "FilmClap"), wcfg.time_margin), WAVE_VAL, cfg=wcfg, seed=0)
+        spec_bufs = pipe.spectrogram_buffers_from_dataset(dataset, dev)
+        wave_bufs = pipe.waveform_buffers_from_dataset(wave, dev)
+        archs = {
+            "CnnAvgPooling": (lambda: CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL),
+                              spec_bufs, lambda aug: pipe.make_spectrogram_train_step(
+                                  cfg, 5.0, "logMel", aug),
+                              list(dataset.epoch_start_indices(TRAIN_BATCH))),
+            "M5": (lambda: M5(wcfg.classes_num), wave_bufs,
+                   lambda aug: pipe.make_waveform_train_step(wcfg, 5.0, aug),
+                   list(wave.epoch_start_indices(WAVE_BATCH))),
+        }
+
+        def as_dtype(bufs, dtype):
+            return dataclasses.replace(bufs, **{
+                f.name: getattr(bufs, f.name).to(dtype)
+                for f in dataclasses.fields(bufs)
+                if getattr(bufs, f.name).is_floating_point() and f.name != "events"
+                and f.name != "labels"})
+
+        step_ms = {}
+
+        def time_step(arch, tag, on):
+            """The float32 step of ``arch``, plain or on the mesh ``on``:
+            (CUDA-event ms, the host's ms a call without a sync)."""
+            make, bufs, maker, batches = archs[arch]
+            st = init_state(make(), MESH_LR, dev, seed=0)
+            raw = maker(False)
+            step = raw if on is None else shard_train_step(raw, on)
+            ms = time_ms(torch, lambda: step(st, bufs, batches[1]))
+            t1 = time.perf_counter()
+            for _ in range(REPS):
+                step(st, bufs, batches[1])
+            host = (time.perf_counter() - t1) / REPS * 1e3
+            torch.cuda.synchronize()
+            step_ms.setdefault(arch, {}).setdefault(tag, []).append((ms, host))
+
+        for arch, (make, bufs, maker, batches) in archs.items():
+            # One float32 step: loss, parameters (lr 1e-6), statistics and
+            # the first gradients (MESH_GRAD32_REL).
+            outs = {}
+            for tag in ("plain", "mesh"):
+                st = init_state(make(), MESH_LR, dev, seed=0)
+                raw = maker(False)
+                step = raw if tag == "plain" else shard_train_step(raw, mesh)
+                loss = float(step(st, bufs, batches[0]))
+                outs[tag] = (loss, {k: p.grad.detach().double().cpu()
+                                    for k, p in st.model.named_parameters()},
+                             {k: v.cpu() for k, v in st.model.state_dict().items()})
+            loss_rel = abs(outs["mesh"][0] - outs["plain"][0]) / abs(outs["plain"][0])
+            p_err, bn_excess = state_errs(outs["mesh"][2], outs["plain"][2])
+            g_rel = grad_rel(outs["mesh"][1], outs["plain"][1])
+            log(f"[mesh] {arch} float32 step at batch {len(batches[0])}, mesh against "
+                f"plain: loss rel {loss_rel:.3e}, parameters {p_err:.3e} (lr {MESH_LR}), "
+                f"BatchNorm excess {bn_excess:.3e}; first gradients (M5's conv biases "
+                f"aside), largest difference relative to its tensor's largest: {g_rel:.3e} "
+                f"(tol {MESH_GRAD32_REL})")
+            check(loss_rel <= MESH_LOSS_RTOL and p_err <= MESH_PARAM_ATOL and bn_excess <= 0
+                  and g_rel <= MESH_GRAD32_REL,
+                  f"{arch}: the mesh's float32 step equals the plain step")
+
+            # MESH_STEPS float64 steps with augmentation; M5 as two calls of
+            # steps_per_call=2 and one single step.
+            outs = {}
+            for tag in ("plain", "mesh"):
+                st = init_state(make().double(), TRAIN_LR, dev, seed=0)
+                b64 = as_dtype(bufs, torch.float64)
+                gen = torch.Generator(device=dev).manual_seed(17)
+                raw = maker(True)
+                wrap = (lambda f, k=1: f) if tag == "plain" else \
+                    (lambda f, k=1: shard_train_step(f, mesh, steps_per_call=k))
+                losses, grads = [], None
+                if arch == "M5":
+                    multi = wrap(pipe.make_multi_step(raw, 2), 2)
+                    for i in (0, 2):
+                        losses += multi(st, b64, np.stack(batches[i:i + 2]), gen).tolist()
+                        if grads is None:
+                            grads = {k: p.grad.detach().cpu()
+                                     for k, p in st.model.named_parameters()}
+                    losses.append(float(wrap(raw)(st, b64, batches[4], gen)))
+                else:
+                    for i in range(MESH_STEPS):
+                        losses.append(float(wrap(raw)(st, b64, batches[i], gen)))
+                        if grads is None:
+                            grads = {k: p.grad.detach().cpu()
+                                     for k, p in st.model.named_parameters()}
+                outs[tag] = (np.array(losses), grads,
+                             {k: v.cpu() for k, v in st.model.state_dict().items()})
+            loss_rel = float(np.abs(outs["mesh"][0] / outs["plain"][0] - 1).max())
+            p_err, bn_excess = state_errs(outs["mesh"][2], outs["plain"][2])
+            g_excess = max(float(((outs["mesh"][1][k] - g).abs()
+                                  - (MESH_GRAD_ATOL + MESH_GRAD_RTOL * g.abs())).max())
+                           for k, g in outs["plain"][1].items())
+            how = ("2 calls of steps_per_call=2 and one single step" if arch == "M5"
+                   else f"{MESH_STEPS} single steps")
+            log(f"[mesh] {arch} float64, augmentation on, {how}, mesh against plain: losses "
+                f"rel {loss_rel:.3e}, parameters {p_err:.3e} (lr {TRAIN_LR}), BatchNorm "
+                f"excess {bn_excess:.3e}, first gradients' excess over rtol {MESH_GRAD_RTOL} "
+                f"/ atol {MESH_GRAD_ATOL}: {g_excess:.3e}")
+            check(len(outs["mesh"][0]) == MESH_STEPS and loss_rel <= MESH_LOSS_RTOL
+                  and p_err <= MESH_PARAM_ATOL and bn_excess <= 0 and g_excess <= 0,
+                  f"{arch}: {MESH_STEPS} float64 mesh steps equal the plain steps")
+
+            # Times: the float32 step, plain and on the mesh, in turns.
+            kernels.reset_launch_counts()
+            for tag in ("plain", "mesh", "mesh", "plain"):
+                time_step(arch, tag, None if tag == "plain" else mesh)
+            check(not any(kernels.LAUNCHES.values()), "training launches no featurizer kernel")
+        for arch, t in step_ms.items():
+            log(f"[times] {arch} float32 train step at batch "
+                f"{TRAIN_BATCH if arch != 'M5' else WAVE_BATCH}, ms (host enqueue ms): "
+                + "; ".join(f"{tag} " + ", ".join(f"{a:.4f} ({h:.4f})" for a, h in v)
+                            for tag, v in t.items())
+                + f" (CUDA-event medians of {REPS}, the host's mean over {REPS} calls without "
+                f"a sync; in turns plain, mesh, mesh, plain: the all-gathers, all-reduces and "
+                f"the global BatchNorm cost {min(t['mesh'])[0] / min(t['plain'])[0]:.3f}x; "
+                f"in this process, TORCH_FR_BUFFER_SIZE "
+                f"{os.environ.get('TORCH_FR_BUFFER_SIZE', 'unset')}; {smi})")
+        del spec_bufs, wave_bufs, wave
+
+        # ---- batch scoring: phase 3's batch through make_batch_predictor ----
+        pcm = (make_signals(torch, BATCH, SECONDS * sr, sr, dev, 1)
+               * 32767).round().to(torch.int16)[..., None]
+        predict = make_batch_predictor(model, cfg, mean=mean, std=std, device=DEVICE)
+        sharded = make_batch_predictor(model, cfg, mean=mean, std=std, mesh=mesh)
+        scores = predict(pcm)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = sharded(pcm)
+        torch.cuda.synchronize()
+        launched = dict(kernels.LAUNCHES)
+        count(launched)
+        err = float((got - scores).abs().max())
+        log(f"[mesh] make_batch_predictor(mesh=) on phase 3's {BATCH} x {SECONDS} s int16 "
+            f"batch: launches {launched}; scores {tuple(got.shape)}, max diff vs phase 3 "
+            f"{err:.3e} (tol {MESH_SCORE_TOL})")
+        check(launched["wave_stft_power"] == 1 and launched["mel_log"] == 1
+              and sum(launched.values()) == 2, "one K1 and one K2 launch a mesh predictor call")
+        check(got.shape == scores.shape and err <= MESH_SCORE_TOL,
+              "mesh scores equal phase 3's")
+        wavs = [str(p) for p in spec["wavs"][:3]]
+        want = batch_predict_files(model, wavs, cfg, mean, std, device=DEVICE)
+        kernels.reset_launch_counts()
+        files = batch_predict_files(model, wavs, cfg, mean, std, mesh=mesh)
+        torch.cuda.synchronize()
+        count(kernels.LAUNCHES)
+        f_err = max(float(np.abs(files[p] - want[p]).max()) for p in wavs)
+        log(f"[mesh] batch_predict_files(mesh=) on 3 of phase 11's WAVs: launches "
+            f"{dict(kernels.LAUNCHES)}; max diff vs the plain call {f_err:.3e}")
+        check(sorted(files) == sorted(wavs) and f_err <= MESH_SCORE_TOL,
+              "batch_predict_files(mesh=) equals the plain call")
+        score_ms = {}
+        for tag in ("plain", "mesh", "mesh", "plain"):
+            fn = predict if tag == "plain" else sharded
+            score_ms.setdefault(tag, []).append(time_ms(torch, lambda fn=fn: fn(pcm)))
+        log(f"[times] {BATCH} x {SECONDS} s scoring: plain "
+            f"{', '.join(f'{x:.4f}' for x in score_ms['plain'])} ms, mesh of 1 "
+            f"{', '.join(f'{x:.4f}' for x in score_ms['mesh'])} ms (CUDA-event medians of "
+            f"{REPS}, in turns; {min(score_ms['mesh']) / min(score_ms['plain']):.3f}x; {smi})")
+
+        # ---- streaming: phase 5's run cut to 20 s on a 32-slot mesh pool ----
+        audio = (make_signals(torch, POOL_SLOTS, sr * POOL_SECONDS, sr, dev, 2) * 32767
+                 ).round().to(torch.int16).cpu().numpy()[:, : sr * MESH_POOL_SECONDS]
+        clips = [audio[i] for i in range(POOL_SLOTS)]
+        want = score_all(torch, predict, clips)
+        try:
+            StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean, std=std,
+                       featurizer="pallas", mesh=mesh)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        check(refused.startswith("featurizer='pallas' is not supported with a mesh"),
+              f"featurizer='pallas' with a mesh raises sed_tpu's error ({refused!r})")
+        pooled = {}
+        for feat in ("auto", "xla"):
+            pool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean,
+                              std=std, mesh=mesh, featurizer=feat)
+            got_pool, wall, launched, peak, ticks = drive_pool(torch, dev, pool, clips, chunk,
+                                                               seed=2)
+            count(launched)
+            del pool
+            p_err = 0.0
+            for i, g in enumerate(got_pool):
+                check(g.shape == want[i].shape,
+                      f"mesh pool ({feat}) stream {i}: {g.shape} vs {want[i].shape}")
+                p_err = max(p_err, float(np.abs(g - want[i]).max()))
+            pooled[feat] = got_pool
+            log(f"[mesh] StreamPool(mesh=, featurizer={feat!r}), {POOL_SLOTS} slots, phase "
+                f"5's run cut to {MESH_POOL_SECONDS} s: {ticks} ticks in {wall:.2f} s, "
+                f"launches {launched}; max diff vs make_batch_predictor {p_err:.3e} (tol "
+                f"{SCORE_TOL}); peak {peak:.0f} MiB")
+            check(p_err <= SCORE_TOL, f"mesh pool ({feat}) scores match make_batch_predictor")
+            if feat == "auto":
+                check(launched["frames_stft_power"] >= ticks
+                      and launched["frames_stft_power"] == launched["mel_log"]
+                      and sum(launched.values()) == 2 * launched["mel_log"],
+                      "the mesh pool's 'auto' tick runs K3 and K2 on its rank, in pairs")
+            else:
+                check(not any(launched.values()), "the mesh pool's 'xla' launches no kernel")
+        x_err = max(float(np.abs(a - b).max()) for a, b in zip(pooled["auto"], pooled["xla"]))
+        log(f"[mesh] the mesh pool's K3 + K2 tick against its 'xla' tick: max diff "
+            f"{x_err:.3e} (tol {SCORE_TOL})")
+        check(x_err <= SCORE_TOL, "the mesh pool's K3 + K2 tick matches its 'xla' tick")
+        del got_pool, pooled, audio, clips
+    finally:
+        shutdown_multihost()
+    check(not dist.is_initialized(), "no process group is left after phase 17")
+    recorder_phase(smi)
+
+    # ---- the CLIs: --num_devices 2 on this host -------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        proc = subprocess.run(
+            [sys.executable, "-m", "sed_tpu_torch.cli.main", "--num_devices", "2",
+             "--dataset_dir", str(tmp / "absent"), "--outputs_root", str(tmp / "absent_run"),
+             "--no_plot", "--device", DEVICE], cwd=REPO, capture_output=True, text=True,
+            timeout=300)
+        said = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+        log(f"[mesh] cli.main --num_devices 2 on {n_cards} card: exit {proc.returncode}, "
+            f"{said!r}")
+        check(proc.returncode != 0
+              and said == f"--num_devices 2 but only {n_cards} devices are visible"
+              and not (tmp / "absent_run").exists(),
+              "cli.main --num_devices 2 refuses a one-card host before any work")
+    else:
+        sub = tmp / "data17"
+        subset_corpus(sub, spec["wavs"][:4], tmp / "data")
+        outs = {}
+        for n in (1, 2):
+            run_cli(["sed_tpu_torch.cli.main", "--dataset_dir", sub, "--train_features",
+                     "Spectogram", "--outputs_root", tmp / f"cli17_{n}", "--batch_size", "32",
+                     "--num_train_steps", "20", "--log_freq", "10", "--val_descriptor",
+                     "clip_03", "--no_plot", "--device", DEVICE, "--num_devices", n],
+                    f"cli.main --num_devices {n}")
+            (run,) = (tmp / f"cli17_{n}").iterdir()
+            outs[n] = [json.loads(x)["train_loss"]
+                       for x in (run / "metrics.jsonl").read_text().splitlines()]
+            if n == 1:
+                ckpt = run / "checkpoints" / "iteration_20.pt"
+        for n in (1, 2):
+            run_cli(["sed_tpu_torch.cli.infer", *spec["wavs"][:3], "--ckpt", ckpt, "--batch",
+                     "--no_plot", "--outputs_dir", tmp / f"infer17_{n}", "--device", DEVICE,
+                     "--num_devices", n], f"cli.infer --batch --num_devices {n}")
+        rel = float(np.abs(np.array(outs[2]) / np.array(outs[1]) - 1).max())
+        s_err = max(float(np.abs(np.load(tmp / "infer17_2" / f"{Path(p).stem}_scores.npy")
+                                 - np.load(tmp / "infer17_1" / f"{Path(p).stem}_scores.npy"))
+                          .max()) for p in spec["wavs"][:3])
+        log(f"[mesh] {n_cards} cards: cli.main 20 steps at 2 ranks against 1: losses rel "
+            f"{rel:.3e} (tol {MESH_CLI_RTOL}); cli.infer --batch at 2 ranks against 1 on one "
+            f"checkpoint: {s_err:.3e} (tol {MESH_SCORE_TOL})")
+        check(rel <= MESH_CLI_RTOL and len(outs[2]) == len(outs[1]) == 2,
+              "cli.main at 2 ranks follows 1 rank")
+        check(s_err <= MESH_SCORE_TOL, "cli.infer --batch at 2 ranks equals 1 rank")
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s; launches on its main paths {counted}")
+    return counted
+
+
 def main() -> int:
     import torch
 
@@ -3929,9 +4426,13 @@ def main() -> int:
 
     # ---- 16. the bf16 tier on the live paths and in training; the reader -------
     bf16_launches = bf16_phase(torch, cfg, dev, smi, train_tmp, model, mean, std, corpus)
+    log(f"[bf16] total {time.perf_counter() - phase_t0:.1f} s")
+
+    # ---- 17. data parallelism: a one-rank NCCL mesh ------------------------------
+    mesh_launches = mesh_phase(torch, cfg, dev, smi, train_tmp, model, mean, std, corpus)
     del corpus
     train_dir.cleanup()
-    log(f"[bf16] total {time.perf_counter() - phase_t0:.1f} s")
+    log(f"[mesh] total {time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
@@ -3972,6 +4473,7 @@ def main() -> int:
         e["int8_launches"] = sum(int8_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["aot_launches"] = sum(aot_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["bf16_launches"] = sum(bf16_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["mesh_launches"] = sum(mesh_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,7 +5,8 @@ The package imports torch, numpy and scipy only; it never imports JAX or
 anything of ``sed_tpu`` and keeps its own copies of what it needs.
 
 Covered so far (scoring, streaming and training of all three model
-families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts):
+families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts, data
+parallelism):
 
   configs:    AudioConfig, SpectrogramConfig, WaveformConfig
   features:   logmel_features(_batch), multichannel_stft,
@@ -32,6 +33,11 @@ families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts):
   checkpoints: cli.infer.load_model_and_state (port .pt, reference .pth,
               sed_tpu .ckpt; bf16=True the bf16 tier), train.torch_import /
               torch_export
+  parallel:   parallel.mesh (create_mesh, shard_batch, replicate),
+              parallel.data_parallel (shard_train_step, shard_inference),
+              parallel.multihost (initialize_multihost, launch): one rank a
+              device on torch.distributed; mesh= in train, the batch
+              predictors and the pools
   serving:    export (aot_export_pipeline, aot_export_m5_pipeline,
               load_aot_pipeline, export_scorer, load_scorer: torch.export
               programs with K1 and K2 as custom operators)
@@ -41,7 +47,8 @@ families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts):
               CnnAvgPooling|MobileNetV1|M5, --quantize int8, --bf16),
               cli.stream, cli.serve_socket (--arch, --m5_pool, --quantize
               int8, --bf16), cli.serve (build, run), cli.import_torch,
-              cli.export_torch
+              cli.export_torch; --num_devices in cli.main, cli.infer
+              --batch and cli.stream
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Top-level names are imported lazily, so ``import sed_tpu_torch`` stays light.
@@ -85,6 +92,7 @@ _EXPORTS = {
     "StreamServer": "sed_tpu_torch.serve_socket",
     "StreamClient": "sed_tpu_torch.serve_socket",
     "windowed_forward": "sed_tpu_torch.parallel.time_shard",
+    "create_mesh": "sed_tpu_torch.parallel.mesh",
     "calculate_metrics": "sed_tpu_torch.utils.metrics",
     "f_score": "sed_tpu_torch.utils.metrics",
     "event_based_metrics": "sed_tpu_torch.utils.event_metrics",

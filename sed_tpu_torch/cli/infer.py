@@ -33,8 +33,14 @@ Writes ``{name}_scores.npy``, ``{name}_scores.csv``, with
 without ``--no_plot`` a ``{name}.png`` (this needs matplotlib) to
 ``--outputs_dir``.
 
-Not ported yet, and refused by name rather than ignored: ``--num_devices``
-> 1 and the fast/turbo featurizer tiers.
+``--num_devices N`` > 1 (with ``--batch``) shards each length group's
+batch over N ranks, one process per device (``parallel.multihost.launch``:
+spawned here, or the ranks ``torchrun`` started), as ``sed_tpu``'s mesh
+does; rank 0 writes the outputs.  With ``--device cuda`` N may not exceed
+the visible cards; ``--device cpu`` runs N gloo ranks.
+
+Not ported yet, and refused by name rather than ignored: the fast/turbo
+featurizer tiers.
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="score files as batches grouped by length "
                              "(fastest for many equal-length clips)")
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="data-parallel devices: only 1 is ported")
+                        help="with --batch: shard each group's batch over this "
+                             "many devices, one rank each (groups are padded)")
     parser.add_argument("--event_threshold", type=float, default=None,
                         help="also extract event intervals (frames with "
                              "score >= threshold) to <name>_events.csv")
@@ -100,7 +107,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     unported = [flag for flag, on in (
-        ("--num_devices > 1", args.num_devices != 1),
         (f"--featurizer_precision {args.featurizer_precision}",
          args.featurizer_precision != "parity"),
     ) if on]
@@ -368,6 +374,8 @@ def write_outputs(scores: np.ndarray, audio_file: str, args, cfg) -> None:
 def main(argv=None):
     parser = build_arg_parser()
     args = parser.parse_args(argv)
+    if args.num_devices > 1 and not args.batch:
+        parser.error("--num_devices shards the batched path; add --batch")
     if args.bf16 and args.quantize:
         raise SystemExit("--bf16 and --quantize are mutually exclusive "
                          "serving tiers (int8 replaces the float forward)")
@@ -400,25 +408,38 @@ def main(argv=None):
             except RuntimeError as e:
                 parser.error(str(e))
 
+    from sed_tpu_torch.parallel.multihost import run_on_devices
+
+    run_on_devices(run, args.num_devices, args.device, (args, cfg))
+
+
+def run(args, cfg, mesh=None) -> None:
+    """Load the model and score every file on ``args.device`` or, under
+    ``mesh``, this rank's shard of each ``--batch`` group on its device;
+    rank 0 alone writes the outputs."""
     import torch
 
     from sed_tpu_torch.inference import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.rank == 0
     mean, std = load_mean_std(args.mean_std_file)
     model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, bf16=args.bf16,
                                     device=device)
-    os.makedirs(args.outputs_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.outputs_dir, exist_ok=True)
 
     batch_scores = None
     if args.batch:
-        if args.quantize:
+        if args.quantize and primary:
             print("--quantize applies to the per-file windowed path; "
                   "--batch uses the float forward")
         from sed_tpu_torch.inference import batch_predict_files
 
         batch_scores = batch_predict_files(model, args.audio_files, cfg, mean=mean,
-                                           std=std, device=device)
+                                           std=std, device=device, mesh=mesh)
+    if not primary:
+        return
 
     for audio_file in args.audio_files:
         print(f"Processing {audio_file}")

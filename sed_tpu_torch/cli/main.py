@@ -25,8 +25,15 @@ float32; MobileNetV1 refuses it with ``sed_tpu``'s ``ValueError``.
 ahead of the featurizer, and the waveform dataset loads its files in one
 batch.
 
-Not ported yet, and refused by name before any work: ``--num_devices`` > 1
-and plots without matplotlib.
+``--num_devices N`` > 1 trains data-parallel on N ranks, one process per
+device (``parallel.multihost.launch``): spawned here, or the ranks that
+``torchrun --nproc_per_node N`` started.  Every rank runs this CLI's work on
+its own device (NCCL on ``cuda:{rank}``, gloo on the CPU with ``--device
+cpu``), ``--batch_size`` is the global batch and must divide by N, and only
+rank 0 preprocesses first, prints and writes the run's files.  Fewer
+visible cards than N is refused before any work.
+
+Refused by name before any work: plots without matplotlib.
 """
 
 from __future__ import annotations
@@ -90,7 +97,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to train on: cuda (default) or cpu")
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="data-parallel devices: only 1 is ported")
+                        help=">1 trains data-parallel over a ('data',) mesh of that "
+                             "many devices, one rank each; batch_size is global")
     parser.add_argument("--steps_per_call", type=int, default=1,
                         help="train steps per call: K > 1 runs K steps on a (K, batch) "
                              "block of start indices; num_train_steps and log_freq "
@@ -110,12 +118,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """``parser.error`` naming every option that is not ported, before any work."""
-    unported = [flag for flag, on in (
-        ("--num_devices > 1", args.num_devices != 1),
-    ) if on]
-    if unported:
-        parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
+    """Refuse, before any work, what cannot run: unknown training features,
+    plots without matplotlib, and ``--num_devices`` beyond the visible
+    devices (``sed_tpu``'s message) or not dividing ``--batch_size``."""
+    from sed_tpu_torch.parallel.multihost import check_num_devices
+
+    check_num_devices(args.num_devices, args.device)
+    if args.num_devices > 1 and args.batch_size % args.num_devices:
+        # sed_tpu's train() raises this after preprocessing; the port before
+        # any work.
+        raise ValueError(f"global batch_size={args.batch_size} must be divisible by "
+                         f"the mesh size {args.num_devices}")
     if args.train_features.lower() not in ("spectogram", "waveform"):
         parser.error(f"training features can be raw waveform or spectogram only, "
                      f"'{args.train_features}' given")
@@ -136,32 +149,43 @@ def compute_dtype(args):
     return torch.bfloat16 if args.bf16 else None
 
 
-def get_spectrogram_dataset_and_model(args):
+def get_spectrogram_dataset_and_model(args, mesh=None):
+    """The dataset, model, config, run descriptor and mode of the
+    spectrogram family.  Under ``mesh`` rank 0 preprocesses (and plots)
+    first and the other ranks then read its cached features."""
     from sed_tpu_torch.configs import SpectrogramConfig
     from sed_tpu_torch.data.spectrogram_dataset import (SpectrogramDataset,
                                                         preprocess_film_clap_data,
                                                         preprocess_tau_sed_data)
     from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling, MobileNetV1
+    from sed_tpu_torch.parallel.mesh import barrier
 
     cfg = SpectrogramConfig(tau_sed_labels=tuple(args.tau_labels.split(",")))
-    if args.dataset_name.lower() == "tau":
-        features_dir, mean_std_file = preprocess_tau_sed_data(
-            args.dataset_dir, fold_name="eval", preprocess_mode=args.preprocess_mode,
-            force_preprocess=args.force_preprocess, cfg=cfg,
-            workers=args.preprocess_workers, device=args.device,
-            plot_sample=not args.no_plot,
-        )
-    elif args.dataset_name.lower() == "filmclap":
-        features_dir, mean_std_file = preprocess_film_clap_data(
-            args.dataset_dir, preprocessed_mode=args.preprocess_mode,
-            force_preprocess=args.force_preprocess, cfg=cfg,
-            workers=args.preprocess_workers, device=args.device,
-            plot_sample=not args.no_plot,
-        )
-    else:
+    primary = mesh is None or mesh.rank == 0
+    device = args.device if mesh is None else mesh.device
+
+    def preprocess(force: bool):
+        if args.dataset_name.lower() == "tau":
+            return preprocess_tau_sed_data(
+                args.dataset_dir, fold_name="eval", preprocess_mode=args.preprocess_mode,
+                force_preprocess=force, cfg=cfg, workers=args.preprocess_workers,
+                device=device, plot_sample=primary and not args.no_plot,
+            )
+        if args.dataset_name.lower() == "filmclap":
+            return preprocess_film_clap_data(
+                args.dataset_dir, preprocessed_mode=args.preprocess_mode,
+                force_preprocess=force, cfg=cfg, workers=args.preprocess_workers,
+                device=device, plot_sample=primary and not args.no_plot,
+            )
         raise ValueError(
             f"Only tau and filmclap datasets are supported, '{args.dataset_name}' given"
         )
+
+    if primary:
+        features_dir, mean_std_file = preprocess(args.force_preprocess)
+    barrier(mesh)
+    if not primary:
+        features_dir, mean_std_file = preprocess(False)
 
     dataset = SpectrogramDataset(
         features_dir, mean_std_file,
@@ -224,19 +248,28 @@ def main(argv=None):
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
 
-    import torch
-
     from sed_tpu_torch.inference import resolve_device
 
     resolve_device(args.device)
+    if args.train_features.lower() == "spectogram" and args.model == "MobileNetV1" \
+            and args.bf16:
+        # sed_tpu raises this after preprocessing; the port before any work.
+        raise ValueError("--bf16 is implemented for CnnAvgPooling only")
+    from sed_tpu_torch.parallel.multihost import run_on_devices
+
+    run_on_devices(run, args.num_devices, args.device, (args,))
+
+
+def run(args, mesh=None) -> None:
+    """Preprocess, build the dataset and the model, restore a checkpoint and
+    train, on ``args.device`` or, under ``mesh``, on this rank's device."""
+    import torch
+
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
     if args.train_features.lower() == "spectogram":
-        if args.model == "MobileNetV1" and args.bf16:
-            # sed_tpu raises this after preprocessing; the port before any work.
-            raise ValueError("--bf16 is implemented for CnnAvgPooling only")
-        dataset, model, cfg, descriptor, mode = get_spectrogram_dataset_and_model(args)
+        dataset, model, cfg, descriptor, mode = get_spectrogram_dataset_and_model(args, mesh)
     else:
         if args.model != "CnnAvgPooling":
             raise ValueError("--model selects the spectrogram family; "
@@ -265,8 +298,9 @@ def main(argv=None):
     if resume_path is None and args.ckpt:
         resume_path = args.ckpt
         model_only = True
+    device = args.device if mesh is None else mesh.device
     if resume_path:
-        template = init_state(model, args.lr, args.device, args.seed)
+        template = init_state(model, args.lr, device, args.seed)
         initial_state = load_checkpoint(resume_path, template, model_only=model_only)
 
     train(
@@ -284,6 +318,7 @@ def main(argv=None):
         initial_state=initial_state,
         make_plots=not args.no_plot,
         profile_dir=args.profile_dir or None,
+        mesh=mesh,
         steps_per_call=args.steps_per_call,
         device=args.device,
     )

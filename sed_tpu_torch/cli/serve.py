@@ -188,9 +188,16 @@ def build_cnn_head(args, cfg, device):
                                     device=device)
     if args.arch == "MobileNetV1":
         # The logits view of the same weights; the head applies the sigmoid.
-        # (sed_tpu builds the view as a new float32 module, which drops
-        # --bf16; the port keeps the loaded model's dtype.)
-        model.emit = "logits"
+        # sed_tpu builds the view as a new float32 module, which drops
+        # --bf16; so does the port, as cli.serve_socket does.
+        from sed_tpu_torch.models.cnn import MobileNetV1
+
+        if args.bf16:
+            log("note: --bf16 serves MobileNetV1 in float32 here: its logits view is "
+                "rebuilt without the bf16 dtype, as sed_tpu's serve build does")
+        logits = MobileNetV1(cfg.classes_num, emit="logits").to(device)
+        logits.load_state_dict(model.state_dict(), strict=True)
+        model = logits
     mean, std = load_mean_std(args.mean_std_file)
     if args.quantize != "int8":
         return cnn_serving(model, mean, std)

@@ -33,9 +33,9 @@ a note on stderr: ``sed_tpu``'s server rebuilds MobileNetV1's logits view
 without the bf16 dtype, and the port keeps that behaviour per CLI (its
 stream CLI scores MobileNetV1 in bf16).
 
-Not ported yet, and refused rather than ignored: the same options as
-``sed_tpu_torch.cli.stream`` (``--num_devices`` > 1, the fast/turbo
-featurizer tiers).
+Not ported yet, and refused rather than ignored: the fast/turbo featurizer
+tiers (as in ``sed_tpu_torch.cli.stream``).  Like ``sed_tpu``'s socket CLI
+it has no ``--num_devices``.
 """
 
 from __future__ import annotations

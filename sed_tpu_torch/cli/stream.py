@@ -35,8 +35,18 @@ the featurizer (K3 + K2), the normalization, the carried ring state and the
 scores stay float32.  MobileNetV1's logits view keeps the bfloat16 dtype
 here, as ``sed_tpu``'s stream CLI does.
 
-Not ported yet, and refused rather than ignored: ``--num_devices`` > 1 and
-the fast/turbo featurizer tiers.
+``--num_devices N`` > 1 shards the spectrogram pool's slots over N ranks,
+one process per device (``parallel.multihost.launch``), with the slot count
+rounded up to a multiple of N, as ``sed_tpu``'s does; every rank drives the
+same loop on the same files, each rank's tick runs K3 + K2 on its slots
+under ``--featurizer auto`` (``sed_tpu``'s falls back to XLA there; an
+explicit 'pallas' is refused with ``sed_tpu``'s message: ROADMAP quirk Q2),
+and rank 0 alone logs and writes.  M5 is refused with ``sed_tpu``'s message.  With
+``--device cuda`` N may not exceed the visible cards; ``--device cpu`` runs
+N gloo ranks.
+
+Not ported yet, and refused rather than ignored: the fast/turbo featurizer
+tiers.
 """
 
 from __future__ import annotations
@@ -51,7 +61,11 @@ import numpy as np
 
 
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    """One line on stderr, from the primary rank only."""
+    from sed_tpu_torch.parallel.multihost import is_primary_host
+
+    if is_primary_host():
+        print(msg, file=sys.stderr, flush=True)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -77,7 +91,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--featurizer_precision", type=str, default="parity",
                    help="FFT precision tier; only 'parity' is ported")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="sharded pool: only 1 is ported")
+                   help="shard the pool's slots over a data mesh of this many "
+                        "devices, one rank each (slots are rounded up to a "
+                        "multiple)")
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="int8 serving forward (lossy), calibrated on the first file")
     p.add_argument("--mean_std_file", type=str, default="")
@@ -112,7 +128,6 @@ def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     if args.arch == "M5" and getattr(args, "num_devices", 1) > 1:
         parser.error("--num_devices applies to the spectrogram pool")
     unported = [flag for flag, on in (
-        ("--num_devices > 1", getattr(args, "num_devices", 1) != 1),
         (f"--featurizer_precision {args.featurizer_precision}",
          args.featurizer_precision != "parity"),
     ) if on]
@@ -159,7 +174,7 @@ def calibrate_int8(model, arch: str, cfg, wav: np.ndarray, mean=None, std=None):
 
 
 def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), calib_wav=None,
-               mobilenet_bf16: bool = True):
+               mobilenet_bf16: bool = True, mesh=None):
     """The serving pool of ``args`` (shared with ``cli.serve_socket``):
     ``--ckpt`` loaded into ``--arch`` on ``--device`` (the bf16 tier under
     ``--bf16``) and the pool of its family.  MobileNetV1 is served as its
@@ -170,12 +185,15 @@ def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), cali
     M5 gets the ``--m5_pool`` pool at its default chunk of one second, as
     ``sed_tpu``'s, and ``note`` names the options it ignores (those of
     ``m5_ignored`` first).  With ``--quantize int8`` the pool scores through
-    the int8 forward, calibrated on ``calib_wav`` (:func:`calibrate_int8`)."""
+    the int8 forward, calibrated on ``calib_wav`` (:func:`calibrate_int8`).
+    ``mesh``: the spectrogram pool's slots sharded over its ranks, each on
+    its own device."""
     from sed_tpu_torch.cli.infer import halo_floor, load_mean_std, load_model_and_state
 
     note = note or log
+    device = args.device if mesh is None else mesh.device
     model, _ = load_model_and_state(args.ckpt, cfg, arch=args.arch, bf16=args.bf16,
-                                    device=args.device)
+                                    device=device)
     mean, std = load_mean_std(args.mean_std_file) if args.arch != "M5" else (None, None)
     qparams = None
     if args.quantize == "int8":
@@ -211,22 +229,31 @@ def build_pool(args, cfg, slots: int, chunk: int, note=None, m5_ignored=(), cali
         model = logits
         args.halo = halo_floor(model, args.halo, log=note)
     return StreamPool(model, cfg, slots=slots, chunk_samples=chunk, halo=args.halo,
-                      mean=mean, std=std, featurizer=args.featurizer,
+                      mean=mean, std=std, mesh=mesh, featurizer=args.featurizer,
                       featurizer_precision=args.featurizer_precision, qparams=qparams,
-                      device=args.device)
+                      device=device)
 
 
 def main(argv=None):
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     refuse_unported(parser, args)
+    from sed_tpu_torch.parallel.multihost import run_on_devices
 
+    run_on_devices(run, args.num_devices, args.device, (args,))
+
+
+def run(args, mesh=None) -> None:
+    """Read the files and stream them through the pool; under ``mesh``
+    every rank runs this loop alike and rank 0 alone writes."""
     from sed_tpu_torch.io.audio import read_multichannel_audio
     from sed_tpu_torch.ops import cuda_featurizer as kernels
 
     cfg = serving_config(args)
     chunk = int(round(args.chunk_seconds * cfg.working_sample_rate))
-    os.makedirs(args.outputs_dir, exist_ok=True)
+    primary = mesh is None or mesh.rank == 0
+    if primary:
+        os.makedirs(args.outputs_dir, exist_ok=True)
 
     # File queue: (path, mono float32 waveform).  Reading up front keeps the
     # tick loop pure feed/score; a live deployment feeds sockets here.
@@ -236,11 +263,13 @@ def main(argv=None):
         queue.append({"path": path, "wav": wav[:, 0].astype(np.float32), "pos": 0,
                       "scores": []})
     slots = args.slots or min(len(queue), 32)
+    if mesh is not None:
+        slots = mesh.size * (-(-slots // mesh.size))
     calib = queue[0]["wav"]
     if args.quantize == "int8" and args.arch == "M5" and len(calib) < 2 * (cfg.frame_size // 2):
         raise SystemExit(f"first file is too short to calibrate int8 "
                          f"(needs >= {cfg.frame_size} samples)")
-    pool = build_pool(args, cfg, slots, chunk, calib_wav=calib)
+    pool = build_pool(args, cfg, slots, chunk, calib_wav=calib, mesh=mesh)
     if args.quantize == "int8":
         log(f"int8 serving mode: activation scales calibrated on {queue[0]['path']}")
 
@@ -287,12 +316,15 @@ def main(argv=None):
                     f"to featurize; emitting empty scores")
             if tail.shape[0]:
                 rec["scores"].append(tail)
-            _finalize(rec, cfg, args)
+            if primary:
+                _finalize(rec, cfg, args)
             log(f"tick {tick}: {os.path.basename(rec['path'])} left slot {slot}")
         tick += 1
 
     wall = time.time() - t0
     audio_s = pushed_samples / cfg.working_sample_rate
+    if not primary:
+        return
     print(json.dumps({
         "files": len(queue),
         "ticks": tick,

@@ -33,7 +33,9 @@ import torch
 from torch.profiler import record_function
 
 from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
+from sed_tpu_torch.models.layers import global_batch_norm
 from sed_tpu_torch.ops import mel as mel_ops
+from sed_tpu_torch.parallel.mesh import local_rows
 from sed_tpu_torch.train.loss import weighted_bce_with_logits
 from sed_tpu_torch.train.state import TrainState, apply_update
 from sed_tpu_torch.utils.precision import full_float32
@@ -169,18 +171,28 @@ class AugmentDraws:
 
 
 def draw_augmentation(generator: torch.Generator, buffers, feats_shape,
-                      complex_mode: bool) -> AugmentDraws:
+                      complex_mode: bool, mesh=None) -> AugmentDraws:
     """Draw from ``generator`` (on the device of ``buffers``, a
-    :class:`SpectrogramBuffers` or :class:`WaveformBuffers`)."""
+    :class:`SpectrogramBuffers` or :class:`WaveformBuffers`).
+
+    With a ``mesh`` ``feats_shape`` is this rank's shard: the draws are made
+    for the global batch, as ``sed_tpu``'s replicated key draws them, from
+    the generator every rank holds alike, and this rank keeps its rows; so
+    the mesh step draws what the single-device step draws."""
     device = buffers.start_indices.device
+    rows = slice(None)
     batch = feats_shape[0]
+    if mesh is not None:
+        batch *= mesh.size
+        rows = local_rows(mesh, batch)
+        feats_shape = (batch,) + tuple(feats_shape[1:])
     noise_shape = tuple(feats_shape[:-1]) if complex_mode else tuple(feats_shape)
     return AugmentDraws(
-        u_mix=torch.rand(batch, generator=generator, device=device),
+        u_mix=torch.rand(batch, generator=generator, device=device)[rows],
         ptr=torch.randint(0, buffers.start_indices.shape[0], (batch, MAX_MIX),
-                          generator=generator, device=device),
-        u_noise=torch.rand(batch, generator=generator, device=device),
-        noise=torch.randn(noise_shape, generator=generator, device=device),
+                          generator=generator, device=device)[rows],
+        u_noise=torch.rand(batch, generator=generator, device=device)[rows],
+        noise=torch.randn(noise_shape, generator=generator, device=device)[rows],
     )
 
 
@@ -223,13 +235,13 @@ def apply_augmentation(buffers, feats: torch.Tensor, events: torch.Tensor,
 
 
 def make_augment_batch(cfg: SpectrogramConfig, preprocessed_mode: str = "logMel") -> Callable:
-    """``augment(generator, buffers, feats, events) -> (feats, events)``:
-    :func:`draw_augmentation` then :func:`apply_augmentation`."""
+    """``augment(generator, buffers, feats, events, mesh=None) -> (feats,
+    events)``: :func:`draw_augmentation` then :func:`apply_augmentation`."""
     complex_mode = preprocessed_mode != "logMel"
     gather_crops = make_gather_crops(cfg)
 
-    def augment_batch(generator, buffers: SpectrogramBuffers, feats, events):
-        draws = draw_augmentation(generator, buffers, feats.shape, complex_mode)
+    def augment_batch(generator, buffers: SpectrogramBuffers, feats, events, mesh=None):
+        draws = draw_augmentation(generator, buffers, feats.shape, complex_mode, mesh)
         return apply_augmentation(buffers, feats, events, draws, gather_crops, complex_mode)
 
     return augment_batch
@@ -241,33 +253,42 @@ def make_spectrogram_train_step(
     preprocessed_mode: str = "logMel",
     augment: bool = False,
 ) -> Callable:
-    """``step(state, buffers, starts (B,), generator=None) -> loss``: gather,
-    augment (with ``augment``, drawing from ``generator``), transform,
-    forward, loss, backward and the optimizer step, on the buffers' device.
-    The loss comes back detached, on the device.  Each part runs in a
-    ``torch.profiler`` range (``train_step/gather``, ``/augment``,
-    ``/transform``, ``/forward``, ``/backward``, ``/optimizer``).  The step
-    runs in full float32 (``full_float32``), as ``sed_tpu`` trains at full
-    float32 precision."""
+    """``step(state, buffers, starts (B,), generator=None, mesh=None) ->
+    loss``: gather, augment (with ``augment``, drawing from ``generator``),
+    transform, forward, loss, backward and the optimizer step, on the
+    buffers' device.  The loss comes back detached, on the device.  Each
+    part runs in a ``torch.profiler`` range (``train_step/gather``,
+    ``/augment``, ``/transform``, ``/forward``, ``/backward``,
+    ``/optimizer``).  The step runs in full float32 (``full_float32``), as
+    ``sed_tpu`` trains at full float32 precision.
+
+    ``mesh`` (``parallel.mesh.Mesh``; ``parallel.data_parallel.
+    shard_train_step`` passes it): ``starts`` are this rank's shard of the
+    global batch; the augmentation is drawn for the global batch
+    (:func:`draw_augmentation`), the batch norms normalize with the global
+    batch statistics (``models.layers.global_batch_norm``) and the
+    gradients are averaged over the ranks before the update
+    (``train.state.apply_update``)."""
     gather_crops = make_gather_crops(cfg)
     transform = make_transform(cfg, preprocessed_mode)
     augment_batch = make_augment_batch(cfg, preprocessed_mode)
 
     @full_float32()
-    def step(state: TrainState, buffers: SpectrogramBuffers, starts, generator=None):
+    def step(state: TrainState, buffers: SpectrogramBuffers, starts, generator=None,
+             mesh=None):
         with record_function("train_step/gather"):
             starts = torch.as_tensor(starts, device=buffers.features.device)
             feats, events = gather_crops(buffers, starts)
         if augment:
             with record_function("train_step/augment"):
-                feats, events = augment_batch(generator, buffers, feats, events)
+                feats, events = augment_batch(generator, buffers, feats, events, mesh)
         with record_function("train_step/transform"):
             x = transform(buffers, feats)              # (B, C, crop, mel): NCHW
-        with record_function("train_step/forward"):
+        with record_function("train_step/forward"), global_batch_norm(state.model, mesh):
             state.model.train()
             loss = weighted_bce_with_logits(state.model(x), events, pos_weight,
                                             multi_frame=True)
-        apply_update(state, loss)
+        apply_update(state, loss, mesh)
         return loss.detach()
 
     return step
@@ -293,38 +314,40 @@ def make_waveform_train_step(
     augment: bool = False,
 ) -> Callable:
     """The raw-waveform step (M5): ``step(state, buffers, starts (B,),
-    generator=None) -> loss``.  Gather the crops (NCW, the model's layout),
-    augment (with ``augment``: :data:`WAVE_MIX_CUM` mixes and noise, drawn
-    from ``generator``), forward, single-frame loss, backward and the
-    optimizer step, in the spectrogram step's profiler ranges and in full
-    float32."""
+    generator=None, mesh=None) -> loss``.  Gather the crops (NCW, the
+    model's layout), augment (with ``augment``: :data:`WAVE_MIX_CUM` mixes
+    and noise, drawn from ``generator``), forward, single-frame loss,
+    backward and the optimizer step, in the spectrogram step's profiler
+    ranges and in full float32; ``mesh`` as the spectrogram step's."""
     gather = make_waveform_gather(cfg)
 
     @full_float32()
-    def step(state: TrainState, buffers: WaveformBuffers, starts, generator=None):
+    def step(state: TrainState, buffers: WaveformBuffers, starts, generator=None,
+             mesh=None):
         with record_function("train_step/gather"):
             starts = torch.as_tensor(starts, device=buffers.waveform.device)
             waves, labels = gather(buffers, starts)
         if augment:
             with record_function("train_step/augment"):
-                draws = draw_augmentation(generator, buffers, waves.shape, False)
+                draws = draw_augmentation(generator, buffers, waves.shape, False, mesh)
                 waves, labels = apply_augmentation(buffers, waves, labels, draws, gather,
                                                    False, WAVE_MIX_CUM)
-        with record_function("train_step/forward"):
+        with record_function("train_step/forward"), global_batch_norm(state.model, mesh):
             state.model.train()
             loss = weighted_bce_with_logits(state.model(waves), labels, pos_weight,
                                             multi_frame=False)
-        apply_update(state, loss)
+        apply_update(state, loss, mesh)
         return loss.detach()
 
     return step
 
 
 def make_multi_step(step_fn: Callable, steps_per_call: int) -> Callable:
-    """``multi(state, buffers, starts_block (K, B), generator=None) -> losses
-    (K,)``: K = ``steps_per_call`` calls of ``step_fn`` in one call, with one
-    upload of the block, the losses kept on the device and no host
-    synchronization between the steps.
+    """``multi(state, buffers, starts_block (K, B), generator=None,
+    mesh=None) -> losses (K,)``: K = ``steps_per_call`` calls of ``step_fn``
+    (a step of this module, given ``mesh``) in one call, with one upload of
+    the block, the losses kept on the device and no host synchronization
+    between the steps.
 
     Identical to K single calls drawing from the same generator, as
     ``sed_tpu``'s scan of K steps is to K single calls with the same key
@@ -332,11 +355,13 @@ def make_multi_step(step_fn: Callable, steps_per_call: int) -> Callable:
     replayed from a captured CUDA graph.
     """
 
-    def multi(state: TrainState, buffers, starts_block, generator=None) -> torch.Tensor:
+    def multi(state: TrainState, buffers, starts_block, generator=None,
+              mesh=None) -> torch.Tensor:
         block = torch.as_tensor(starts_block, device=buffers.start_indices.device)
         if block.ndim != 2 or block.shape[0] != steps_per_call:
             raise ValueError(f"starts_block must be ({steps_per_call}, batch), "
                              f"got {tuple(block.shape)}")
-        return torch.stack([step_fn(state, buffers, starts, generator) for starts in block])
+        return torch.stack([step_fn(state, buffers, starts, generator, mesh)
+                            for starts in block])
 
     return multi

@@ -20,7 +20,10 @@ padding) and the exact tail (flush) reuse the host class: the first pushes
 run through a :class:`BatchedStreamingDetector`, whose state then moves into
 the device rings; flush() moves it back.
 
-Serving shape: B lockstep streams, a fixed chunk size per push.
+Serving shape: B lockstep streams, a fixed chunk size per push.  With a
+``mesh`` (``parallel.mesh``) each rank keeps the ring rows of its slice of
+the streams and ticks them; the host part and the returned scores are the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -34,8 +37,8 @@ from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM, SpectrogramConfig
 from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.ops.featurizer import (ingest_to_f32, ingest_to_f32_np,
                                           resolve_featurizer_precision)
-from sed_tpu_torch.streaming import (BatchedStreamingDetector, make_stream_fns,
-                                     refuse_unported, tick_schedule)
+from sed_tpu_torch.parallel.mesh import gather_rows, local_rows
+from sed_tpu_torch.streaming import BatchedStreamingDetector, make_stream_fns, tick_schedule
 
 # Columns of one slot's row of a tick schedule, after its frames_max frame
 # offsets (see :func:`schedule_row`).
@@ -48,13 +51,24 @@ def resolve_tick_featurizer(featurizer: str, cfg, mesh=None) -> str:
     hand-written kernels K3 + K2 on CUDA and their plain versions on the
     CPU.  'xla' -> 'xla': ``sed_tpu``'s XLA tick featurizer, here the rFFT
     and mel projection in PyTorch ops (``ops.featurizer.logmel_frames_xla``),
-    taken only when named.  A ``mesh`` raises ``NotImplementedError``."""
-    refuse_unported(mesh=mesh)
-    if featurizer in ("auto", "pallas"):
+    taken only when named.
+
+    Under a ``mesh`` each rank ticks its own shard of the slots with an
+    ordinary call, so 'auto' still resolves to K3 + K2.  ``sed_tpu`` falls
+    back to 'xla' there, since GSPMD cannot partition a pallas_call; the
+    port keeps only its refusal of an explicit 'pallas' with a mesh, word
+    for word, so that a command line ``sed_tpu`` refuses is refused here too
+    (ROADMAP quirk Q2)."""
+    if featurizer == "auto":
         return "pallas"
-    if featurizer == "xla":
-        return "xla"
-    raise ValueError(f"featurizer must be auto|xla|pallas, got {featurizer}")
+    if featurizer not in ("xla", "pallas"):
+        raise ValueError(f"featurizer must be auto|xla|pallas, got {featurizer}")
+    if featurizer == "pallas" and mesh is not None:
+        raise ValueError(
+            "featurizer='pallas' is not supported with a mesh: the Pallas "
+            "kernels cannot be GSPMD-partitioned inside the sharded tick "
+            "step (use 'auto'/'xla' for sharded serving)")
+    return featurizer
 
 
 def ring_geometry(cfg, chunk: int, halo: int, total_stride: int, bucket: int):
@@ -181,10 +195,17 @@ class DeviceStreamingDetector:
         'parity'.  ``extract_impl``: 'slices' (default) or 'span' (see
         :class:`RingTick`).  ``qparams``: an int8 serving artifact
         (``models.quantize``), scored by the tick, the startup and the flush
-        alike.  ``mesh`` is not ported and raises."""
+        alike.  ``mesh``: this rank ticks its slice of the ``batch`` streams
+        on ``mesh.device`` (``device`` is not used); every rank pushes the
+        whole batch and gets every stream's scores."""
+        if mesh is not None:
+            assert batch % mesh.size == 0, \
+                f"batch {batch} must divide over the {mesh.size}-device mesh"
         featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
         resolve_featurizer_precision(featurizer_precision)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self._mesh = mesh
+        self._rows = local_rows(mesh, batch)
         self.cfg = cfg
         self.batch = batch
         self.chunk = int(chunk_samples)
@@ -226,20 +247,20 @@ class DeviceStreamingDetector:
         lo = t_total - self._l
         src_lo = max(h._buf_start, lo)
         buf[:, src_lo - lo:] = h._samples[:, src_lo - h._buf_start:]
-        self._buf = torch.from_numpy(buf).to(self.device)
+        self._buf = torch.from_numpy(buf[self._rows]).to(self.device)
 
         mel = np.zeros((self.batch, self._m, self.cfg.mel_bins), np.float32)
         n = h._n_frames - h._mel_start
         mel[:, :n] = h._frames_mel[:, :n]
-        self._mel = torch.from_numpy(mel).to(self.device)
+        self._mel = torch.from_numpy(mel[self._rows]).to(self.device)
         self._device_mode = True
         self._host = None
 
     def _migrate_to_host(self) -> BatchedStreamingDetector:
         c = self._counters
         lo = max(0, c["t_total"] - self._l)
-        buf = self._buf.cpu().numpy()
-        mel = self._mel.cpu().numpy()
+        buf = gather_rows(self._mesh, self._buf).cpu().numpy()
+        mel = gather_rows(self._mesh, self._mel).cpu().numpy()
         return BatchedStreamingDetector.from_state(
             self._model, self.cfg, batch=self.batch, halo=self.halo,
             total_stride=self.stride, bucket=self._m, mean=self.mean,
@@ -272,13 +293,13 @@ class DeviceStreamingDetector:
                                 self._emit_max, self._m, self._l, self.cfg,
                                 self.stride, self.halo)
         row = schedule_row(offs, n_new, write_pos, win_off, e_off, shift)
-        sched = torch.from_numpy(np.tile(row, (self.batch, 1))).to(self.device)
+        sched = torch.from_numpy(np.tile(row, (self._buf.shape[0], 1))).to(self.device)
         if chunk.dtype not in (np.int16, np.uint8):
             chunk = chunk.astype(np.float32)
         self._buf, self._mel, out = self._tick(
-            self._buf, self._mel, torch.from_numpy(chunk).to(self.device), sched)
+            self._buf, self._mel, torch.from_numpy(chunk[self._rows]).to(self.device), sched)
         self._counters = new_c
-        return out[:, :emit_n].cpu().numpy()
+        return gather_rows(self._mesh, out[:, :emit_n].contiguous()).cpu().numpy()
 
     def flush(self) -> np.ndarray:
         """End of stream: exact tail through the host flush.  Terminal:

@@ -36,7 +36,7 @@ The port's heads and pipelines take port models with their weights inside
 ``nn.Module``s; ``aot_export_*`` and :func:`aot_export_fn` export any module.
 A program runs only on the device type it was traced on: the featurizer
 and the int8 products pick their CUDA or CPU kernels while tracing.
-``mesh=`` (sharded artifacts) is slice G and is refused.
+``mesh=`` (sharded artifacts, the second part of slice G) is refused.
 
 .. warning:: loading a CUDA artifact installs and runs the native library
    it carries.  Load TRUSTED artifacts only (ones you built).

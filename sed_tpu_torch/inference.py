@@ -6,7 +6,9 @@ Equal-length recordings ride the batch axis through one pass: featurize
 validation batch (:func:`make_batch_evaluator`).  A
 single long recording instead goes through
 ``sed_tpu_torch.parallel.time_shard.windowed_forward`` (``cli/infer.py``).
-Parallelism over several cards (``mesh`` in ``sed_tpu``) is not ported yet.
+With a ``mesh`` (``parallel.mesh``, one rank per card) the batch axis is
+sharded over the ranks and the scores gathered on every rank; recordings are
+independent, so the forward itself communicates nothing.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ def make_batch_predictor(
     std: Optional[np.ndarray] = None,
     featurizer_precision=None,
     device="cuda",
+    *,
+    mesh=None,
 ):
     """Build ``predict(waveforms) -> scores``.
 
@@ -56,9 +60,17 @@ def make_batch_predictor(
     for the call, the caller's settings back after).  A model that emits
     scores gets no second sigmoid, which would squeeze every score into
     [0.5, 0.731].
+
+    ``mesh`` (keyword only: the positional order already differs from
+    ``sed_tpu``'s ``(model, cfg, mesh, mean, std, ...)``): each rank scores
+    its contiguous slice of the batch on ``mesh.device`` (``device`` is not
+    used; a host array is sliced before the upload) and every rank returns
+    the global (batch, frames', classes) scores, as ``sed_tpu``'s global
+    array (``parallel.data_parallel.shard_inference``).  The batch must
+    divide by the mesh size.
     """
     resolve_featurizer_precision(featurizer_precision)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     model = model.to(device)
     sigmoid = not emits_scores(model)
 
@@ -79,6 +91,10 @@ def make_batch_predictor(
         out = model(feats)
         return torch.sigmoid(out) if sigmoid else out
 
+    if mesh is not None:
+        from sed_tpu_torch.parallel.data_parallel import shard_inference
+
+        return shard_inference(predict, mesh)
     return predict
 
 
@@ -90,18 +106,25 @@ def batch_predict_files(
     std=None,
     featurizer_precision=None,
     device="cuda",
+    *,
+    mesh=None,
 ):
     """Read many audio files, group them by sample length, score each group.
 
     Returns {path: (frames', classes) numpy scores}.  On CUDA the upload is
     double-buffered: while the card scores one group, the host stacks the
-    next into pinned memory and copies it on a side stream.
+    next into pinned memory and copies it on a side stream.  With ``mesh``
+    (keyword only, see :func:`make_batch_predictor`) every rank reads the
+    files, pads each group with zero rows to a multiple of the mesh size,
+    uploads and scores its slice, and returns every file's scores; the
+    padding rows are dropped.
     """
     from sed_tpu_torch.io.audio import read_multichannel_audio
+    from sed_tpu_torch.parallel.mesh import gather_rows, local_rows
 
-    predictor = make_batch_predictor(model, cfg, mean, std,
-                                     featurizer_precision, device)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
+    predictor = make_batch_predictor(model, cfg, mean, std, featurizer_precision, device)
+    n_dev = 1 if mesh is None else mesh.size
     by_len = {}
     for path in audio_paths:
         wav = read_multichannel_audio(path, target_fs=cfg.working_sample_rate, cfg=cfg)
@@ -111,7 +134,11 @@ def batch_predict_files(
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def stage(group) -> torch.Tensor:
-        batch = torch.from_numpy(np.stack([w for _, w in group]))
+        batch = np.stack([w for _, w in group])
+        pad = (-len(batch)) % n_dev
+        if pad:
+            batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)])
+        batch = torch.from_numpy(batch[local_rows(mesh, len(batch))])
         if copy_stream is None:
             return batch
         batch = batch.pin_memory()
@@ -126,7 +153,7 @@ def batch_predict_files(
             compute = torch.cuda.current_stream(device)
             compute.wait_stream(copy_stream)
             batch.record_stream(compute)
-        scores = predictor(batch)
+        scores = gather_rows(mesh, predictor(batch))
         if gi + 1 < len(groups):
             staged = stage(groups[gi + 1])
         scores = scores.cpu().numpy()
@@ -142,6 +169,8 @@ def make_batch_evaluator(
     std: Optional[np.ndarray] = None,
     pos_weight: float = 5.0,
     device="cuda",
+    *,
+    mesh=None,
 ):
     """Build ``evaluate(waveforms, targets)``: score and grade a batch of
     equal-length validation recordings on ``device`` in one pass.
@@ -156,7 +185,9 @@ def make_batch_evaluator(
     (B, 21), precisions (B, 21), APs (B,)).  ``model`` must emit logits (a
     MobileNetV1 needs ``emit='logits'``).  Each call puts the model in eval
     mode and leaves it there, in full float32, as
-    :func:`make_batch_predictor`'s does.
+    :func:`make_batch_predictor`'s does.  With ``mesh`` (keyword only) each
+    rank grades its slice of the recordings and every rank returns all five
+    results for the whole batch.
     """
     from sed_tpu_torch.train.loss import weighted_bce_elementwise
     from sed_tpu_torch.utils.metrics import calculate_metrics_torch
@@ -164,7 +195,7 @@ def make_batch_evaluator(
     if emits_scores(model):
         raise ValueError("make_batch_evaluator needs a model that emits logits "
                          "(MobileNetV1(emit='logits'))")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device
     model = model.to(device)
 
     def as_stat(a):
@@ -190,4 +221,12 @@ def make_batch_evaluator(
         recalls, precisions, aps = calculate_metrics_torch(scores, t)
         return scores, losses, recalls, precisions, aps
 
+    if mesh is not None:
+        from sed_tpu_torch.parallel.mesh import gather_rows, local_rows
+
+        def sharded(waveforms, targets):
+            rows = local_rows(mesh, waveforms.shape[0])
+            return tuple(gather_rows(mesh, r) for r in evaluate(waveforms[rows], targets[rows]))
+
+        return sharded
     return evaluate

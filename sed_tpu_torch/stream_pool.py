@@ -25,6 +25,13 @@ device, one download of the scores.
 
 A slot's scores equal a fresh single-stream detector on the same audio, with
 identical emission boundaries (tests/test_torch_stream_pool.py).
+
+With a ``mesh`` (``parallel.mesh``, one rank per device) the slot axis of
+the rings is sharded: each rank keeps and ticks the rows of its slice of
+the slots, and the scores of every tick are gathered, so every rank returns
+what the one-process pool returns.  Everything on the host (the schedule,
+the startup and the drains) runs identically on every rank, which must all
+make the same calls with the same audio (the SPMD contract).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from sed_tpu_torch.device_streaming import (SCHEDULE_SCALARS, RingTick,
                                             schedule_row)
 from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.ops.featurizer import ingest_to_f32_np, resolve_featurizer_precision
+from sed_tpu_torch.parallel.mesh import gather_rows, local_rows, row_from_owner
 from sed_tpu_torch.streaming import BatchedStreamingDetector, make_stream_fns, tick_schedule
 
 
@@ -119,11 +127,17 @@ class StreamPool:
         host startup and drains alike; ``featurizer_precision``: None
         or 'parity'; ``extract_impl``: 'slices' or 'span'; ``qparams``: an
         int8 serving artifact (``models.quantize``), scored by the tick,
-        the startup and the drains alike; ``mesh`` is not ported and
-        raises."""
+        the startup and the drains alike; ``mesh``: this rank's slice of the
+        slots on ``mesh.device`` (``device`` is not used; ``slots`` must
+        divide by the mesh size, and an explicit 'pallas' is refused)."""
+        if mesh is not None and slots % mesh.size != 0:
+            raise ValueError(
+                f"slots {slots} must divide over the {mesh.size}-device mesh")
         featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
         resolve_featurizer_precision(featurizer_precision)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self._mesh = mesh
+        self._rows = local_rows(mesh, int(slots))
         self.cfg = cfg
         self.slots = int(slots)
         self.chunk = int(chunk_samples)
@@ -161,8 +175,9 @@ class StreamPool:
         # upload to split it from the ticks; leave it None in production.
         self.profile: Optional[dict] = None
 
-        self._buf = torch.zeros(self.slots, self._l, device=self.device)
-        self._mel = torch.zeros(self.slots, self._m, cfg.mel_bins, device=self.device)
+        local = self._rows.stop - self._rows.start
+        self._buf = torch.zeros(local, self._l, device=self.device)
+        self._mel = torch.zeros(local, self._m, cfg.mel_bins, device=self.device)
         self._tick = RingTick(*self._stream_fns, cfg, self.chunk,
                               self._frames_max, self._emit_max, self._m,
                               extract_impl)
@@ -202,8 +217,9 @@ class StreamPool:
         mel_row = np.zeros((self._m, self.cfg.mel_bins), np.float32)
         n = h._n_frames - h._mel_start
         mel_row[:n] = h._frames_mel[0, :n]
-        self._buf[b] = torch.from_numpy(buf_row).to(self.device)
-        self._mel[b] = torch.from_numpy(mel_row).to(self.device)
+        if self._rows.start <= b < self._rows.stop:   # the slot's owning rank
+            self._buf[b - self._rows.start] = torch.from_numpy(buf_row).to(self.device)
+            self._mel[b - self._rows.start] = torch.from_numpy(mel_row).to(self.device)
         self._admitted[b] = counters
         self._pending.pop(b)
 
@@ -240,8 +256,8 @@ class StreamPool:
             raise ValueError(f"slot {b} is not joined")
         c = self._admitted.pop(b)
         lo = max(0, c["t_total"] - self._l)
-        buf_row = np.array(self._buf[b].cpu())[None]   # copies, also on the CPU
-        mel_row = np.array(self._mel[b].cpu())[None]
+        buf_row = row_from_owner(self._mesh, self._buf, b).cpu().numpy()[None]
+        mel_row = row_from_owner(self._mesh, self._mel, b).cpu().numpy()[None]
         h = self._host_detector(
             samples=buf_row[:, lo - (c["t_total"] - self._l):], buf_start=lo,
             n_frames=c["n_frames"],
@@ -423,27 +439,34 @@ class StreamPool:
 
         (``sed_tpu`` pads K to ROUNDS_PER_CALL with no-op rounds and the
         upload to a power-of-4 row count, to bound jit's compiled programs;
-        eager PyTorch compiles nothing, so only real rounds and chunks go.)"""
+        eager PyTorch compiles nothing, so only real rounds and chunks go.)
+
+        Under a mesh every rank computes every slot's schedule and uploads
+        the chunks and schedule rows of its own slots only."""
         if not all(b in self._admitted for r in rounds for b in r):
             raise ValueError("_push_rounds takes admitted slots only")
         t0 = time.perf_counter()
         B, F, K = self.slots, self._frames_max, len(rounds)
+        lo, hi = self._rows.start, self._rows.stop
         counters = {b: dict(c) for b, c in self._admitted.items()}
         sched = np.zeros((K, B, F + SCHEDULE_SCALARS), np.int64)
-        idx = np.zeros((K, B), np.int64)
+        idx = np.zeros((K, hi - lo), np.int64)
         emit_n: List[Dict[int, int]] = [{} for _ in range(K)]
         cells = [(k, b) for k, r in enumerate(rounds) for b in r]
+        mine = [(k, b) for k, b in cells if lo <= b < hi]
         dt = wire_dtype([rounds[k][b] for k, b in cells])
-        wire = np.zeros((len(cells), self.chunk), dt)
-        for j, (k, b) in enumerate(cells):
+        wire = np.zeros((max(1, len(mine)), self.chunk), dt)
+        for k, b in cells:
             (offs, n_new, write_pos, win_off, e_off, shift, emit_n[k][b],
              counters[b]) = tick_schedule(
                  counters[b], self.chunk, F, self._emit_max, self._m, self._l,
                  self.cfg, self.stride, self.halo)
             sched[k, b] = schedule_row(offs, n_new, write_pos, win_off, e_off, shift)
+        for j, (k, b) in enumerate(mine):
             ck = rounds[k][b]
             wire[j] = ck if ck.dtype == dt else ingest_to_f32_np(ck)
-            idx[k, b] = j  # idle cells gather row 0; their rows are no-ops
+            idx[k, b - lo] = j  # idle cells gather row 0; their rows are no-ops
+        sched = np.ascontiguousarray(sched[:, lo:hi])
 
         t1 = time.perf_counter()
         wire_d = torch.from_numpy(wire).to(self.device)
@@ -456,7 +479,8 @@ class StreamPool:
         for k in range(K):
             buf, mel, o = self._tick(buf, mel, wire_d[idx_d[k]], sched_d[k])
             outs.append(o)
-        dev_out = torch.stack(outs).cpu().numpy()   # (K, B, emit_max, classes)
+        # (K, B, emit_max, classes), every rank's slots in slot order.
+        dev_out = gather_rows(self._mesh, torch.stack(outs), dim=1).cpu().numpy()
         self._buf, self._mel = buf, mel
         self._prof(blocks=1, rounds_real=K, chunks_real=len(cells),
                    h2d_bytes=wire.nbytes + sched.nbytes + idx.nbytes,

@@ -46,14 +46,6 @@ from sed_tpu_torch.parallel.time_shard import receptive_field
 from sed_tpu_torch.utils.precision import full_float32
 
 
-def refuse_unported(mesh=None) -> None:
-    """``mesh`` (sharded serving, slice G) is not ported: raise
-    ``NotImplementedError`` when given."""
-    if mesh is not None:
-        raise NotImplementedError("sharded serving over a mesh is not ported "
-                                  "yet (see ROADMAP.md, slice G)")
-
-
 def make_stream_fns(model: torch.nn.Module,
                     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                     mean=None, std=None, qparams=None, device="cuda",

@@ -7,7 +7,9 @@ of :mod:`sed_tpu_torch.data.device_pipeline`, for the spectrogram family
 a call; this module owns epochs, logging (the reference's im/sec,
 train.py:113-115), periodic evaluation on whole validation recordings,
 metrics.jsonl, diagnostic images, checkpoints and a profiler trace of steps
-10-20.  Not ported yet, and refused by name: ``mesh`` (slice G).
+10-20.  With a ``mesh`` every rank runs the loop on its shard of each batch
+(``parallel.data_parallel``), and the primary rank alone logs, evaluates
+and writes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from sed_tpu_torch.data.device_pipeline import (make_multi_step, make_spectrogra
                                                 spectrogram_buffers_from_dataset,
                                                 waveform_buffers_from_dataset)
 from sed_tpu_torch.inference import resolve_device
+from sed_tpu_torch.parallel.mesh import barrier
 from sed_tpu_torch.train.checkpoint import save_checkpoint
 from sed_tpu_torch.train.loss import weighted_bce_with_logits_np
 from sed_tpu_torch.train.state import init_state, make_eval_forward
@@ -279,10 +282,25 @@ def train(
     resumed state's step.  ``profile_dir``: a ``torch.profiler`` trace of
     steps 10-20 (on block edges with K > 1), exported there as a Chrome
     trace file.  Returns the final :class:`TrainState`.
+
+    ``mesh`` (``parallel.mesh.Mesh``): data-parallel training, one rank per
+    device, every rank calling ``train`` with the same arguments (the SPMD
+    contract).  ``batch_size`` is the global batch and must divide by the
+    mesh size; each rank's step takes its shard of every batch
+    (``parallel.data_parallel.shard_train_step``) and the model and buffers
+    live on ``mesh.device`` (``device`` is not used).  The state stays
+    replicated: BatchNorm uses the global batch statistics and the
+    gradients are averaged before each update.  The primary rank alone
+    prints, evaluates, plots, writes metrics.jsonl and the checkpoints and
+    traces, and the ranks wait for it at each log point, so the run writes
+    the files a one-process run writes.
     """
     _check_mode(mode)
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: mesh (see ROADMAP.md, slice G)")
+    if mesh is not None and batch_size % mesh.size != 0:
+        raise ValueError(
+            f"global batch_size={batch_size} must be divisible by the mesh "
+            f"size {mesh.size}"
+        )
     if steps_per_call > 1 and (num_steps % steps_per_call or log_freq % steps_per_call):
         raise ValueError("num_steps and log_freq must be multiples of steps_per_call")
     if steps_per_call > 1 and initial_state is not None \
@@ -291,10 +309,19 @@ def train(
             f"resumed step {int(initial_state.step)} is not a multiple of "
             f"steps_per_call={steps_per_call}"
         )
-    device = resolve_device(device)
-    print("Training:")
-    print("\t- Using device: ", device)
-    os.makedirs(os.path.join(outputs_dir, "checkpoints"), exist_ok=True)
+    device = resolve_device(device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.rank == 0
+
+    def say(*args):
+        if primary:
+            print(*args)
+
+    say("Training:")
+    say("\t- Using device: ", device)
+    if primary:
+        os.makedirs(os.path.join(outputs_dir, "checkpoints"), exist_ok=True)
+    if not primary:
+        profile_dir = None
     plotter = ProgressPlotter()
 
     if mode == "spectogram":
@@ -307,14 +334,18 @@ def train(
         step_fn = make_waveform_train_step(cfg, pos_weight, augment)
     if steps_per_call > 1:
         step_fn = make_multi_step(step_fn, steps_per_call)
+    if mesh is not None:
+        from sed_tpu_torch.parallel.data_parallel import shard_train_step
+
+        step_fn = shard_train_step(step_fn, mesh, steps_per_call=steps_per_call)
     state = initial_state if initial_state is not None else init_state(model, lr, device, seed)
 
     from sed_tpu_torch.models.describe import describe_cnn, describe_m5
 
     if mode == "waveform":
-        print(describe_m5(state.model))
+        say(describe_m5(state.model))
     elif hasattr(state.model, "model_config"):
-        print(describe_cnn(state.model, cfg))
+        say(describe_cnn(state.model, cfg))
 
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     iterations = int(state.step)
@@ -356,19 +387,23 @@ def train(
                 if iterations % log_freq == 0:
                     losses = torch.stack(pending_losses).cpu().tolist()
                     pending_losses = []
-                    for loss in losses:
-                        plotter.report_train_loss(loss)
-                    # Same definition as the reference (train.py:113-115),
-                    # counting only the steps this call has run.
-                    im_sec = (iterations - start_iterations) * batch_size / (
-                        time() - training_start_time)
-                    print(f"epoch: {epoch}, step: {iterations}, loss: {losses[-1]:.2f}, "
-                          f"im/sec: {im_sec:.1f}")
-                    results = evaluate(model, state, dataset, mode, pos_weight, outputs_dir,
-                                       iterations, limit_val_samples=limit_val_samples,
-                                       make_plots=make_plots, cfg=cfg)
-                    report_log_point(plotter, outputs_dir, iterations, results, make_plots)
-                    save_checkpoint(state, outputs_dir, iterations)
+                    if primary:
+                        for loss in losses:
+                            plotter.report_train_loss(loss)
+                        # Same definition as the reference (train.py:113-115),
+                        # counting only the steps this call has run.
+                        im_sec = (iterations - start_iterations) * batch_size / (
+                            time() - training_start_time)
+                        print(f"epoch: {epoch}, step: {iterations}, loss: {losses[-1]:.2f}, "
+                              f"im/sec: {im_sec:.1f}")
+                        results = evaluate(model, state, dataset, mode, pos_weight,
+                                           outputs_dir, iterations,
+                                           limit_val_samples=limit_val_samples,
+                                           make_plots=make_plots, cfg=cfg)
+                        report_log_point(plotter, outputs_dir, iterations, results,
+                                         make_plots)
+                        save_checkpoint(state, outputs_dir, iterations)
+                    barrier(mesh)
 
                 if iterations >= num_steps:
                     break

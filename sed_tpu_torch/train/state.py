@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import torch
 from torch.profiler import record_function
 
+from sed_tpu_torch.parallel.mesh import all_reduce_mean_
 from sed_tpu_torch.train.loss import weighted_bce_with_logits
 from sed_tpu_torch.train.optim import make_optimizer
 from sed_tpu_torch.utils.precision import full_float32
@@ -47,13 +48,17 @@ def init_state(model: torch.nn.Module, lr: float, device="cuda",
     return TrainState(model, optimizer, scheduler, 0)
 
 
-def apply_update(state: TrainState, loss: torch.Tensor) -> None:
+def apply_update(state: TrainState, loss: torch.Tensor, mesh=None) -> None:
     """Backward, the AMSGrad update, the schedule's step and the count
     (profiler ranges ``train_step/backward`` and ``train_step/optimizer``).
-    The gradients stay on the parameters until the next update."""
+    The gradients stay on the parameters until the next update.  With a
+    ``mesh`` (``parallel.mesh.Mesh``) the gradients are averaged over its
+    ranks before the update, so that every rank applies the same one."""
     with record_function("train_step/backward"):
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_mean_(mesh, [p.grad for p in state.model.parameters()
+                                if p.grad is not None])
     with record_function("train_step/optimizer"):
         state.optimizer.step()
         state.scheduler.step()

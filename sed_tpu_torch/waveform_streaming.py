@@ -22,8 +22,8 @@ The model is a ``torch.nn.Module`` holding its weights, in the place of
 it in eval mode and runs in full float32 (``utils.precision.full_float32``).
 No featurizer kernel runs here: M5 reads samples.  ``qparams`` switches the
 forward to the int8 M5 path (``models.quantize.quantized_m5_forward``), a
-lossy serving mode with the same contract.  ``mesh`` (slice G) is not
-ported and raises.
+lossy serving mode with the same contract.  ``DeviceWaveformStreamPool``
+takes a ``mesh`` (``parallel.mesh``) and shards its slots over the ranks.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from sed_tpu_torch.inference import resolve_device
 from sed_tpu_torch.models.quantize import qparams_to, quantized_m5_forward
 from sed_tpu_torch.ops.featurizer import ingest_to_f32, ingest_to_f32_np
 from sed_tpu_torch.stream_pool import flatten_pieces, full_chunk_rounds, wire_dtype
-from sed_tpu_torch.streaming import refuse_unported
+from sed_tpu_torch.parallel.mesh import gather_rows, local_rows, row_from_owner
 from sed_tpu_torch.utils.precision import full_float32
 
 # Rows of one leave-time scoring block (sed_tpu's tail block).
@@ -315,6 +315,13 @@ class DeviceWaveformStreamPool:
     0, each is independent, so a slot is on the ring from its join; the host
     scores only the sub-chunk remainder at leave.  Same
     ``join/feed/tick/push/leave/leave_many`` surface as the host pool.
+
+    ``mesh`` (``parallel.mesh``): the slot axis of the ring and of every
+    round shards over the ranks, each scoring its slots' frames on
+    ``mesh.device`` (``device`` is not used), and the scores are gathered on
+    every rank; ``slots`` must divide by the mesh size.  Backlogs run as
+    single-round calls under a mesh, as ``sed_tpu``'s do.  The host
+    schedule runs identically on every rank (the SPMD contract).
     """
 
     THREAD_SAFE_FEED = True
@@ -323,7 +330,9 @@ class DeviceWaveformStreamPool:
     def __init__(self, model: torch.nn.Module, cfg: WaveformConfig = DEFAULT_WAVEFORM,
                  slots: int = 8, chunk_samples=None, qparams=None, mesh=None,
                  device="cuda"):
-        refuse_unported(mesh)
+        if mesh is not None and int(slots) % mesh.size != 0:
+            raise ValueError(
+                f"slots {int(slots)} must divide over the {mesh.size}-device mesh")
         self.cfg = cfg
         self.slots = int(slots)
         self.chunk = C = int(chunk_samples or cfg.working_sample_rate)
@@ -336,10 +345,13 @@ class DeviceWaveformStreamPool:
             raise ValueError(f"chunk_samples {C} < frame {self._frame}")
         self._F = (C - 1) // self._hop + 1       # most frames a chunk completes
         self._L = C + self._frame + self._hop    # ring length
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self._mesh = mesh
+        self._shard = local_rows(mesh, self.slots)
+        local = self._shard.stop - self._shard.start
         self._score = make_m5_score_fn(model, qparams, device=self.device)
-        self._buf = torch.zeros(self.slots, self._L, device=self.device)
-        self._rows = torch.arange(self.slots, device=self.device)[:, None]
+        self._buf = torch.zeros(local, self._L, device=self.device)
+        self._rows = torch.arange(local, device=self.device)[:, None]
         self._counters: Dict[int, dict] = {}   # slot -> {"total", "emitted"}
         self._staged: Dict[int, List[np.ndarray]] = {}
         self._staged_n: Dict[int, int] = {}
@@ -351,8 +363,8 @@ class DeviceWaveformStreamPool:
     def _round(self, buf, chunk, active, offs):
         """One round: shift the active rows by their chunk, cut F frames a
         slot at its ring-relative ``offs`` (B, F), score the (B * F) block.
-        Inactive rows stay bit-untouched."""
-        B, F, C, frame = self.slots, self._F, self.chunk, self._frame
+        Inactive rows stay bit-untouched.  B is this rank's slots."""
+        B, F, C, frame = buf.shape[0], self._F, self.chunk, self._frame
         newc = ingest_to_f32(chunk)
         buf = torch.where(active[:, None], torch.cat([buf[:, C:], newc], dim=1), buf)
         frames = buf.unfold(1, frame, 1)[self._rows, offs]        # (B, F, frame)
@@ -378,22 +390,35 @@ class DeviceWaveformStreamPool:
         """K consecutive rounds (``[{slot: (chunk,) array}, ...]``) in one
         device call: the real chunks go up once, the K rounds run back to
         back, the scores come down once.  Counters commit after the call, so
-        a fault leaves the pool consistent."""
-        B, F, K = self.slots, self._F, len(rounds)
+        a fault leaves the pool consistent.  Under a mesh the rounds run one
+        call each (``sed_tpu``'s sharded dispatch) and each rank uploads its
+        own slots' chunks and schedule only."""
+        if self._mesh is not None and len(rounds) > 1:
+            out: dict = {}
+            for r in rounds:
+                for b, v in self._push_rounds([r]).items():
+                    out.setdefault(b, []).append(v)
+            return {b: (np.concatenate(v) if len(v) > 1 else v[0]) for b, v in out.items()}
+        lo, hi = self._shard.start, self._shard.stop
+        F, K = self._F, len(rounds)
         counters = {b: dict(c) for b, c in self._counters.items()}
-        active = np.zeros((K, B), bool)
-        offs = np.zeros((K, B, F), np.int64)
-        idx = np.zeros((K, B), np.int64)
+        active = np.zeros((K, hi - lo), bool)
+        offs = np.zeros((K, hi - lo, F), np.int64)
+        idx = np.zeros((K, hi - lo), np.int64)
         emit_n = [dict() for _ in range(K)]
         cells = [(k, b) for k, r in enumerate(rounds) for b in r]
         dt = wire_dtype([rounds[k][b] for k, b in cells])
-        wire = np.zeros((len(cells), self.chunk), dt)
-        for j, (k, b) in enumerate(cells):
+        mine = [(k, b) for k, b in cells if lo <= b < hi]
+        wire = np.zeros((max(1, len(mine)), self.chunk), dt)
+        for k, b in cells:
+            o, emit_n[k][b], counters[b] = self._slot_scalars(counters[b])
+            if lo <= b < hi:
+                offs[k, b - lo] = o
+        for j, (k, b) in enumerate(mine):
             ck = rounds[k][b]
             wire[j] = ck if ck.dtype == dt else ingest_to_f32_np(ck)
-            idx[k, b] = j          # idle cells gather row 0; their rows stay
-            active[k, b] = True
-            offs[k, b], emit_n[k][b], counters[b] = self._slot_scalars(counters[b])
+            idx[k, b - lo] = j     # idle cells gather row 0; their rows stay
+            active[k, b - lo] = True
         wire_d = torch.from_numpy(wire).to(self.device)
         active_d = torch.from_numpy(active).to(self.device)
         offs_d = torch.from_numpy(offs).to(self.device)
@@ -402,7 +427,8 @@ class DeviceWaveformStreamPool:
         for k in range(K):
             buf, o = self._round(buf, wire_d[idx_d[k]], active_d[k], offs_d[k])
             outs.append(o)
-        dev_out = torch.stack(outs).cpu().numpy()       # (K, B, F, classes)
+        # (K, B, F, classes), every rank's slots in slot order.
+        dev_out = gather_rows(self._mesh, torch.stack(outs), dim=1).cpu().numpy()
         self._buf = buf
         out: dict = {}
         for k, r in enumerate(rounds):
@@ -498,7 +524,7 @@ class DeviceWaveformStreamPool:
         k = ready - c["emitted"]
         if k <= 0:
             return np.zeros((0, self._frame), np.float32)
-        row = self._buf[b].cpu().numpy()
+        row = row_from_owner(self._mesh, self._buf, b).cpu().numpy()
         hist = min(total, self._L)
         sig = np.concatenate([row[self._L - hist:], rem])
         base = total2 - sig.size                    # sample index of sig[0]

@@ -1568,3 +1568,88 @@ def test_native_reader_in_a_cuda_process(cuda, tmp_path):
         with open(tmp_path / "f0" / name, "rb") as fa, open(tmp_path / "f2" / name, "rb") as fb:
             np.testing.assert_array_equal(pickle.load(fa)["features"],
                                           pickle.load(fb)["features"])
+
+
+# ---- slice G part 1: a one-rank NCCL mesh ----------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """``create_mesh(1)``: a one-rank NCCL group on the card, torn down after."""
+    from sed_tpu_torch.parallel.mesh import create_mesh
+    from sed_tpu_torch.parallel.multihost import shutdown_multihost
+
+    mesh = create_mesh(1)
+    try:
+        yield mesh
+    finally:
+        shutdown_multihost()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_mesh_train_step_on_the_card_matches_the_plain_step(nccl_mesh, dtype):
+    """One CnnAvgPooling step with augmentation, the mesh's (NCCL all-reduces,
+    the global BatchNorm) against the plain one (cuDNN's BatchNorm) from one
+    state and one generator seed: the loss within rtol 1e-5, the BatchNorm
+    statistics within rtol 1e-5 / atol 1e-6, parameters within 1e-5 (at lr
+    1e-6 in float32, where the two BatchNorm backwards' float32 sums may
+    flip the sign of a near-zero gradient, which Adam's first step turns
+    into a move of lr), and the gradients the update applied: within rtol
+    1e-3 / atol 5e-6 in float64 (tests/test_parallel.py:214-215), and in
+    float32 within 2e-2 of each tensor's largest (the mesh's float32
+    gradients part from cuDNN's by 2.8e-3 to 6.6e-3 of it, PERF.md)."""
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.parallel.data_parallel import shard_train_step
+    from sed_tpu_torch.train.state import init_state
+
+    rng = np.random.default_rng(3)
+    total = 40 * PROD.train_crop_size
+    bufs = pipe.SpectrogramBuffers(
+        features=torch.from_numpy(rng.standard_normal((1, total, 64))).to(nccl_mesh.device,
+                                                                           dtype),
+        events=torch.from_numpy((rng.random((total, 1)) > 0.8).astype(np.float32)).to(
+            nccl_mesh.device),
+        start_indices=torch.arange(total - PROD.train_crop_size, device=nccl_mesh.device),
+        mean=torch.zeros(64, device=nccl_mesh.device, dtype=dtype),
+        std=torch.ones(64, device=nccl_mesh.device, dtype=dtype))
+    starts = rng.integers(0, total - PROD.train_crop_size, size=32)
+    raw = pipe.make_spectrogram_train_step(PROD, 5.0, "logMel", True)
+    lr = 1e-3 if dtype == torch.float64 else 1e-6
+    out = []
+    for step in (raw, shard_train_step(raw, nccl_mesh)):
+        model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL,
+                              generator=torch.Generator().manual_seed(0)).to(dtype)
+        state = init_state(model, lr, nccl_mesh.device)
+        loss = step(state, bufs, starts, torch.Generator(device=nccl_mesh.device).manual_seed(4))
+        out.append((float(loss), {k: v.cpu() for k, v in state.model.state_dict().items()},
+                    {k: p.grad.cpu() for k, p in state.model.named_parameters()}))
+    (loss1, sd1, g1), (loss2, sd2, g2) = out
+    assert abs(loss2 - loss1) <= 1e-5 * abs(loss1)
+    for key, want in g1.items():
+        if dtype == torch.float64:
+            torch.testing.assert_close(g2[key], want, rtol=1e-3, atol=5e-6, msg=key)
+        else:
+            assert (g2[key] - want).abs().max() <= 2e-2 * want.abs().max(), key
+    for key, want in sd1.items():
+        if key.endswith("num_batches_tracked"):
+            assert torch.equal(sd2[key], want)
+        elif "running_" in key:
+            torch.testing.assert_close(sd2[key], want, rtol=1e-5, atol=1e-6, msg=key)
+        else:
+            assert (sd2[key] - want).abs().max() <= 1e-5, key
+
+
+def test_mesh_predictor_on_the_card_launches_k1_and_k2_once(nccl_mesh):
+    """``make_batch_predictor(mesh=)`` at world size 1: one K1 and one K2
+    launch a call, scores within 1e-6 of the plain predictor."""
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, generator=torch.Generator().manual_seed(0))
+    waves = (signals(4, 11 * PROD.working_sample_rate, PROD.working_sample_rate, nccl_mesh.device)
+             * 32767).round().to(torch.int16)[..., None]
+    plain = make_batch_predictor(model, PROD, device=nccl_mesh.device)(waves)
+    predict = make_batch_predictor(model, PROD, mesh=nccl_mesh)
+    kernels.reset_launch_counts()
+    got = predict(waves)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_power"] == 1 and kernels.LAUNCHES["mel_log"] == 1
+    assert got.shape == plain.shape
+    assert (got - plain).abs().max() <= 1e-6

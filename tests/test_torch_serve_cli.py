@@ -110,6 +110,9 @@ CASES = {
                                             "--qat_steps", "3"], BAND),
     "CnnAvgPooling-bf16": ("CnnAvgPooling", ["--bf16"], BF16_BAND),
     "M5-bf16": ("M5", ["--bf16"], BF16_BAND),
+    # sed_tpu rebuilds MobileNetV1's logits view in float32, so --bf16
+    # scores in float32 there (and in the port, fault F1): float32's budget.
+    "MobileNetV1-bf16": ("MobileNetV1", ["--bf16"], ATOL),
 }
 
 
@@ -134,6 +137,25 @@ def test_serve_build_and_run_follow_sed_tpu(case, files, tmp_path, capsys):
         np.testing.assert_allclose(ours, theirs, rtol=0, atol=tol, err_msg=f"clip{i}")
         assert_same_events(pout / f"clip{i}_events.csv", jout / f"clip{i}_events.csv", tol)
     print(f"{case}: serve run, port vs sed_tpu max {worst:.3e} (tol {tol})")
+
+
+def test_mobilenet_bf16_artifact_is_the_float32_artifact(files, tmp_path, capsys):
+    """F1: ``build --bf16 --arch MobileNetV1`` exports the float32 logits
+    view of the loaded weights, as sed_tpu's serve build does, and says so
+    on stderr: its scores equal the float32 artifact's."""
+    _, wavs, ckpts, mean_std = files
+    cpu = ["--device", "cpu"]
+    _, _, f32 = build_and_run(serve.main, "f32", "MobileNetV1", [], files, tmp_path, capsys,
+                              device=cpu)
+    serve.main(["build", "--ckpt", ckpts["MobileNetV1"], "--arch", "MobileNetV1", "--batch",
+                "2", "--seconds", "4", "--out", str(tmp_path / "bf16.aot"),
+                "--mean_std_file", mean_std, "--bf16", *cpu])
+    assert "--bf16 serves MobileNetV1 in float32" in capsys.readouterr().err
+    serve.main(["run", "--artifact", str(tmp_path / "bf16.aot"), *wavs, "--outputs_dir",
+                str(tmp_path / "bf16"), *cpu])
+    for i in range(len(wavs)):
+        np.testing.assert_array_equal(np.load(tmp_path / "bf16" / f"clip{i}_scores.npy"),
+                                      np.load(f32 / f"clip{i}_scores.npy"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

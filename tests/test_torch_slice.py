@@ -168,14 +168,21 @@ def test_bare_state_dict_checkpoint_loads(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--batch", "--featurizer_precision", "turbo"],
-    ["--batch", "--num_devices", "2"],
+    ["--num_devices", "2"],
     ["--batch", "--featurizer_precision", "fast"],
 ])
 def test_cli_refuses_unported_options(flags, capsys):
+    """The fast/turbo tiers are refused as not ported; ``--num_devices`` is
+    ported for ``--batch`` (tests/test_torch_parallel_cli.py) and refused
+    without it with sed_tpu's usage error."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--ckpt", "unused.pth", *flags, "a.wav"])
     assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if "--num_devices" in flags:
+        assert "--num_devices shards the batched path; add --batch" in err
+    else:
+        assert "not ported" in err
 
 
 @pytest.mark.parametrize("flags", [

@@ -90,12 +90,19 @@ def test_stream_cli_short_file_does_not_abort_run(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--featurizer_precision", "turbo"], ["--num_devices", "2"],
+    ["--featurizer_precision", "turbo"], ["--num_devices", "64"],
     ["--featurizer_precision", "fast"],
 ])
 def test_stream_cli_refuses_unported_options(flags, capsys):
+    """The fast/turbo tiers are refused as not ported; ``--num_devices`` is
+    ported (tests/test_torch_parallel_cli.py) and refuses more ranks than
+    visible cards, with sed_tpu's message, before reading any file."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["a.wav", "--ckpt", "unused.pth", *flags])
+    if "--num_devices" in flags:
+        assert str(exc.value.code) == (f"--num_devices 64 but only "
+                                       f"{torch.cuda.device_count()} devices are visible")
+        return
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
 

@@ -459,8 +459,13 @@ def test_pool_cpu_run_launches_no_kernel_and_refuses_unported(models):
     port = models[3]
     with pytest.raises(ValueError, match="auto|xla|pallas"):
         StreamPool(port, CFG, featurizer="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamPool(port, CFG, mesh=object(), device="cpu")
+    # Once refused: mesh (tests/test_torch_parallel.py); slots that do not
+    # divide over it raise sed_tpu's error.
+    from sed_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="slots 3 must divide over the 2-device mesh"):
+        StreamPool(port, CFG, slots=3, mesh=Mesh(None, 2, 0, torch.device("cpu")),
+                   device="cpu")
     # Once refused: an int8 pool slot equals a fresh int8 detector.
     from sed_tpu_torch.models.quantize import quantize_cnn
     from sed_tpu_torch.streaming import BatchedStreamingDetector

@@ -297,8 +297,10 @@ def test_device_detector_validation(models):
 def test_unported_options_raise(models):
     port = models[3]
     assert device_streaming.resolve_tick_featurizer("xla", CFG) == "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_streaming.resolve_tick_featurizer("auto", CFG, mesh=object())
+    # Once refused: under a mesh 'auto' resolves to K3 + K2 on each rank
+    # (sed_tpu falls back to 'xla': quirk Q2); 'xla' stays 'xla'.
+    assert device_streaming.resolve_tick_featurizer("auto", CFG, mesh=object()) == "pallas"
+    assert device_streaming.resolve_tick_featurizer("xla", CFG, mesh=object()) == "xla"
     with pytest.raises(ValueError):
         device_streaming.resolve_tick_featurizer("bogus", CFG)
     assert device_streaming.resolve_tick_featurizer("auto", CFG) == "pallas"
@@ -312,8 +314,11 @@ def test_unported_options_raise(models):
     det = streaming.BatchedStreamingDetector(port, CFG, qparams=qp, device="cpu", **KW)
     np.testing.assert_array_equal(det._score(window[:, 0]),
                                   quantized_serving_scores(qp, torch.from_numpy(window)).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_streaming.DeviceStreamingDetector(port, CFG, mesh=object(), device="cpu")
+    from sed_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(AssertionError, match="batch 3 must divide over the 2-device mesh"):
+        device_streaming.DeviceStreamingDetector(
+            port, CFG, batch=3, mesh=Mesh(None, 2, 0, torch.device("cpu")), device="cpu")
     with pytest.raises(ValueError, match="receptive field"):
         streaming.BatchedStreamingDetector(port, CFG, halo=8, device="cpu")
 

@@ -209,17 +209,21 @@ def test_evaluate_plots_best_and_worst(features, tmp_path):
 
 
 def test_waveform_mode_and_unported_options_are_refused(features, tmp_path):
-    """The waveform mode, steps_per_call and profile_dir are ported (their
-    runs: tests/test_torch_waveform_train.py, test_torch_multi_step.py); an
-    unknown mode, mesh, steps_per_call that does not divide the run and a
-    batch larger than the dataset are still refused before any step."""
+    """The waveform mode, steps_per_call, profile_dir and mesh are ported
+    (their runs: tests/test_torch_waveform_train.py, test_torch_multi_step.py,
+    test_torch_parallel.py); an unknown mode, a batch that does not divide
+    over the mesh, steps_per_call that does not divide the run and a batch
+    larger than the dataset are still refused before any step."""
+    from sed_tpu_torch.parallel.mesh import Mesh
+
     a, _ = datasets(features)
     port = cnn.CnnAvgPooling(1, SMALL)
     with pytest.raises(ValueError, match="mode"):
         loop.train(port, a, "wave", 2, 1e-3, 2, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        loop.train(port, a, "spectogram", 2, 1e-3, 2, str(tmp_path), device="cpu",
-                   mesh=object())
+    with pytest.raises(ValueError, match="global batch_size=4 must be divisible by the "
+                                         "mesh size 3"):
+        loop.train(port, a, "spectogram", 2, 1e-3, 2, str(tmp_path), batch_size=4,
+                   mesh=Mesh(None, 3, 0, torch.device("cpu")))
     with pytest.raises(ValueError, match="multiples of steps_per_call"):
         loop.train(port, a, "spectogram", 6, 1e-3, 3, str(tmp_path), device="cpu",
                    steps_per_call=2)
@@ -426,7 +430,7 @@ def test_train_cli_resume_auto(film_clap_root, tmp_path):
 
 
 PORTED_FLAGS = {"--train_features Waveform", "--steps_per_call > 1", "--profile_dir",
-                "--bf16", "--preprocess_workers > 0"}
+                "--bf16", "--preprocess_workers > 0", "--num_devices > 1"}
 
 
 @pytest.mark.parametrize("flags,name", [
@@ -439,10 +443,11 @@ PORTED_FLAGS = {"--train_features Waveform", "--steps_per_call > 1", "--profile_
 ])
 def test_train_cli_refuses_unported_flags(tmp_path, capsys, flags, name):
     """The flags still unported are refused by name before any work; the
-    five that are ported now (the Waveform features, steps_per_call,
-    profile_dir, bf16 and preprocess_workers) pass the check (their runs:
-    tests/test_torch_waveform_train.py, tests/test_torch_multi_step.py,
-    tests/test_torch_bf16_train.py and tests/test_torch_native_io.py)."""
+    six that are ported now (the Waveform features, steps_per_call,
+    profile_dir, bf16, preprocess_workers and num_devices on the CPU's gloo
+    ranks) pass the check (their runs: tests/test_torch_waveform_train.py,
+    tests/test_torch_multi_step.py, tests/test_torch_bf16_train.py,
+    tests/test_torch_native_io.py and tests/test_torch_parallel_cli.py)."""
     argv = ["--dataset_dir", str(tmp_path / "absent"), "--train_features", "Spectogram",
             "--device", "cpu", "--no_plot", *flags]
     if name in PORTED_FLAGS:

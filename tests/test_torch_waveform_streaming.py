@@ -355,8 +355,13 @@ def test_pools_launch_no_kernel_refuse_unported_and_need_a_card(m5):
     pool.tick()
     pool.leave(s)
     assert sum(kernels.LAUNCHES.values()) == 0
-    with pytest.raises(NotImplementedError, match="slice G"):
-        ws.DeviceWaveformStreamPool(m5[3], CFG, mesh=object(), device="cpu")
+    # Once refused: mesh (tests/test_torch_parallel.py); slots that do not
+    # divide over it raise sed_tpu's error.
+    from sed_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="slots 3 must divide over the 2-device mesh"):
+        ws.DeviceWaveformStreamPool(m5[3], CFG, slots=3,
+                                    mesh=Mesh(None, 2, 0, torch.device("cpu")), device="cpu")
     # Once refused: qparams (int8) in both pools, each equal to offline int8
     # scoring of the frames.
     from sed_tpu_torch.models.quantize import quantize_m5, quantized_m5_forward
