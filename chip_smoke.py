@@ -276,11 +276,27 @@ non-zero on the first failure.  Phases:
               plain and on the mesh, in turns, and the train steps again in
               two child processes (``mesh_step_child``), NCCL's flight
               recorder off in one and on in the other.
+ 18. shard   sharded AOT artifacts and the resume of ``sed_tpu``'s ``.ckpt``:
+              phase 3's CnnAvgPooling in float32 and int8 (calibrated on the
+              batch's features) exported plain and with ``mesh=`` on
+              ``create_mesh(1)`` over NCCL, the sharded ones loaded with
+              ``load_aot_fn(mesh=)`` (placed on the rank's device; its rows,
+              then the gather), one call's launch counts reset just before
+              and read just after (one K1 and one K2 through the exported
+              graph), scores within 1e-6 of the plain artifact's; the
+              full-width CnnAvgPooling and M5 trained 2 float32 steps on
+              phase 11's corpus, saved as the port's ``.pt`` and written as
+              ``sed_tpu``'s ``.ckpt`` by ``tests/torch_flax_ckpt.py`` (no
+              JAX on the card's host), 3 float64 steps from each equal to
+              1e-12; ``python -m sed_tpu_torch.cli.main --resume auto`` (M5)
+              for 4 steps in a run directory that holds only a ``.ckpt``;
+              times: each sharded artifact's batch against the plain one's,
+              in turns.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
 training path's launches, every entry with phase 12's, 0, phase 13's,
-phase 14's, phase 15's, phase 16's and phase 17's), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.
+phase 14's, phase 15's, phase 16's, phase 17's and phase 18's), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -387,6 +403,9 @@ MESH_SCORE_TOL = 1e-6                          # tests/test_parallel.py:95
 # float64 (4.4e-3, PR 10); a wrong gradient (a sign, a missing term) is O(1).
 MESH_GRAD32_REL = 2e-2
 MESH_CLI_RTOL = 1e-4    # cli.main's float32 losses, 2 ranks against 1, over 20 steps
+SHARD_STEPS = 3     # phase 18's float64 steps a model from the .ckpt and from the .pt
+SHARD_RESUME_REL = 1e-12   # phase 18: the .ckpt resume against the .pt resume, float64
+SHARD_CLI_BATCH = 16       # phase 18's cli.main --resume auto (M5) batch
 READ_WORKERS = 8    # the native reader's threads (the card's host has 8 cores)
 READ_REPS = 3       # reads timed a case
 
@@ -3870,6 +3889,220 @@ def mesh_phase(torch, cfg, dev, smi, tmp, model, mean, std, spec):
     return counted
 
 
+def sharded_phase(torch, cfg, dev, smi, tmp, model, mean, std, spec):
+    """Phase 18: sharded AOT artifacts at world size 1 and the resume of
+    ``sed_tpu``'s ``.ckpt`` (see the module docstring).  ``model``,
+    ``mean``, ``std``: phase 3's; ``spec``: phase 11's corpus under
+    ``tmp``.  Returns the launch counts of the sharded artifacts' calls."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_flax_ckpt   # sed_tpu's msgpack .ckpt, written without flax
+
+    from sed_tpu_torch import export as ex
+    from sed_tpu_torch.configs import WaveformConfig
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.data.waveform_dataset import WaveformDataset
+    from sed_tpu_torch.io.film_clap import get_film_clap_paths_and_labels
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
+    from sed_tpu_torch.models.m5 import M5
+    from sed_tpu_torch.models.quantize import quantize_cnn
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops.featurizer import logmel_features_batch
+    from sed_tpu_torch.parallel.mesh import create_mesh
+    from sed_tpu_torch.parallel.multihost import shutdown_multihost
+    from sed_tpu_torch.train import checkpoint
+    from sed_tpu_torch.train.state import init_state
+    from sed_tpu_torch.utils.precision import full_float32
+
+    t0 = time.perf_counter()
+    sr = cfg.working_sample_rate
+    samples = sr * SECONDS
+    launched = dict.fromkeys(kernels.LAUNCHES, 0)
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 18) * 32767).round() \
+        .to(torch.int16)[..., None]
+    with torch.inference_mode():
+        feats = logmel_features_batch(pcm, cfg)
+        norm = (feats - torch.as_tensor(mean, device=dev)) / torch.as_tensor(std, device=dev)
+    heads = {"cnn_f32": ex.cnn_serving(model, mean, std),
+             "cnn_int8": ex.quantized_serving(quantize_cnn(model, [norm.clone()]), mean, std)}
+    del feats, norm
+
+    # ---- sharded artifacts on a one-rank NCCL mesh against the plain ones ----
+    mesh = create_mesh(1)
+    try:
+        check(mesh.size == 1 and mesh.device == dev, f"create_mesh(1) on {dev} ({mesh})")
+        rows, times = [], {}
+        for tag, head in heads.items():
+            t1 = time.perf_counter()
+            blobs = {"plain": ex.aot_export_pipeline(head, BATCH, samples, cfg, device=DEVICE),
+                     "sharded": ex.aot_export_pipeline(head, BATCH, samples, cfg, mesh=mesh)}
+            export_s = time.perf_counter() - t1
+            hdr = ex.load_aot_fn(blobs["sharded"], mesh=mesh).header
+            check(hdr["n_devices"] == 1 and hdr["shard_shape"] == hdr["input_shape"]
+                  == [BATCH, samples, 1] and hdr["custom_ops"] == ["mel_log", "wave_stft_power"],
+                  f"{tag}: the sharded artifact's header ({hdr['n_devices']} device, shard "
+                  f"{hdr['shard_shape']}, {hdr['custom_ops']})")
+            calls = {"plain": ex.load_aot_fn(blobs["plain"]),
+                     "sharded": ex.load_aot_fn(blobs["sharded"], mesh=mesh)}
+            check(calls["sharded"].device == dev, f"{tag}: placed on the rank's {dev}")
+            plain = calls["plain"](pcm)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = calls["sharded"](pcm)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            for k, v in launches.items():
+                launched[k] += v
+            check({k: v for k, v in launches.items() if v} == {"wave_stft_power": 1,
+                                                                "mel_log": 1},
+                  f"{tag}: one sharded call launched {launches}")
+            err = float((got - plain).abs().max())
+            check(got.shape == plain.shape and bool(torch.isfinite(got).all())
+                  and err <= MESH_SCORE_TOL,
+                  f"{tag}: sharded scores {tuple(got.shape)} within {MESH_SCORE_TOL} of the "
+                  f"plain artifact's ({err:.3e})")
+            with torch.inference_mode(), full_float32():
+                for which in ("plain", "sharded", "sharded", "plain"):
+                    times.setdefault(tag, {}).setdefault(which, []).append(
+                        time_ms(torch, lambda c=calls[which]: c(pcm)))
+                split = {}
+                for which, call in calls.items():
+                    # The host's enqueue ms a call (no sync) and the device's
+                    # ms by kernel (torch.profiler): the gather's share.
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    for _ in range(REPS):
+                        call(pcm)
+                    host = (time.perf_counter() - t1) / REPS * 1e3
+                    torch.cuda.synchronize()
+                    split[which] = (host, dict(profile_ticks(torch, lambda c=call: c(pcm), 5)))
+            rows.append((tag, export_s, err, bool(torch.equal(got, plain)), launches,
+                         calls["sharded"].load_timings, split))
+            del calls, got, plain
+    finally:
+        shutdown_multihost()
+    check(not torch.distributed.is_initialized(), "no process group is left after phase 18")
+    for tag, export_s, err, equal, launches, stages, split in rows:
+        log(f"[shard] {tag}: plain and sharded (create_mesh(1), NCCL) artifacts exported in "
+            f"{export_s:.1f} s; sharded loaded in " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()) + f" s; one sharded call on "
+            f"{BATCH} x {SECONDS} s int16: launches {({k: v for k, v in launches.items() if v})}"
+            f"; max |sharded - plain| {err:.3e} (equal: {equal})")
+        gather = {w: sum(v for k, v in by_kernel.items() if "nccl" in k.lower())
+                  for w, (_, by_kernel) in split.items()}
+        log(f"[times] {tag} a call, plain | sharded: host enqueue (mean of {REPS}, no sync) "
+            f"{split['plain'][0]:.4f} | {split['sharded'][0]:.4f} ms; kernels (torch.profiler, "
+            f"5 calls) {sum(split['plain'][1].values()):.4f} | "
+            f"{sum(split['sharded'][1].values()):.4f} ms, of which NCCL "
+            f"{gather['plain']:.4f} | {gather['sharded']:.4f} ms ({smi})")
+    for tag, t in times.items():
+        log(f"[times] {tag} artifact, {BATCH} x {SECONDS} s, plain "
+            f"{', '.join(f'{x:.4f}' for x in t['plain'])} ms | sharded on create_mesh(1) "
+            f"{', '.join(f'{x:.4f}' for x in t['sharded'])} ms (CUDA-event medians of {REPS}, "
+            f"in turns plain, sharded, sharded, plain; "
+            f"{min(t['sharded']) / min(t['plain']):.3f}x; {smi})")
+
+    # ---- sed_tpu's .ckpt resumed, against the .pt of the same state ----------
+    wcfg = WaveformConfig()
+    with contextlib.redirect_stdout(io.StringIO()):
+        wave = WaveformDataset(get_film_clap_paths_and_labels(
+            str(tmp / "data" / "FilmClap"), wcfg.time_margin), WAVE_VAL, cfg=wcfg, seed=0)
+    dataset = spec["dataset"]
+    archs = {
+        "CnnAvgPooling": (lambda: CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL),
+                          pipe.spectrogram_buffers_from_dataset(dataset, dev),
+                          pipe.make_spectrogram_train_step(cfg, 5.0, "logMel", False),
+                          list(dataset.epoch_start_indices(TRAIN_BATCH))),
+        "M5": (lambda: M5(wcfg.classes_num), pipe.waveform_buffers_from_dataset(wave, dev),
+               pipe.make_waveform_train_step(wcfg, 5.0, False),
+               list(wave.epoch_start_indices(WAVE_BATCH))),
+    }
+
+    def as_float64(bufs):
+        return dataclasses.replace(bufs, **{
+            f.name: getattr(bufs, f.name).double() for f in dataclasses.fields(bufs)
+            if getattr(bufs, f.name).is_floating_point() and f.name not in ("events", "labels")})
+
+    m5_state = None
+    for arch, (make, bufs, step, batches) in archs.items():
+        t1 = time.perf_counter()
+        state = init_state(make(), TRAIN_LR, dev, seed=0)
+        for i in range(2):
+            step(state, bufs, batches[i])
+        out = tmp / f"resume18_{arch}"
+        pt = Path(checkpoint.save_checkpoint(state, str(out), 2))
+        ckpt = pt.with_suffix(".ckpt")
+        torch_flax_ckpt.write_flax_checkpoint(ckpt, state, arch)
+        b64 = as_float64(bufs)
+        runs = {}
+        # cuDNN's deterministic algorithms: its default float64 convolution
+        # backward of M5 parts two runs of one state by ~4e-10 on an H100.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for path in (pt, ckpt):
+                resumed = checkpoint.load_checkpoint(
+                    str(path), init_state(make().double(), TRAIN_LR, dev, seed=1))
+                losses = [float(step(resumed, b64, batches[i]))
+                          for i in range(2, 2 + SHARD_STEPS)]
+                runs[path.suffix] = (np.array(losses), resumed)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        (l_pt, s_pt), (l_ck, s_ck) = runs[".pt"], runs[".ckpt"]
+        loss_rel = float(np.abs(l_ck / l_pt - 1).max())
+        p_rel = max(float((a.double() - b.double()).abs().max()
+                          / b.double().abs().max().clamp_min(1e-300))
+                    for (k, a), b in zip(s_ck.model.state_dict().items(),
+                                         s_pt.model.state_dict().values())
+                    if a.is_floating_point())
+        log(f"[shard] {arch} at full width: 2 float32 steps at batch {len(batches[0])}, saved "
+            f"as the port's {pt.name} ({pt.stat().st_size} B) and written as sed_tpu's "
+            f"{ckpt.name} ({ckpt.stat().st_size} B, tests/torch_flax_ckpt.py); "
+            f"{SHARD_STEPS} float64 steps from each: losses {l_ck.tolist()} vs "
+            f"{l_pt.tolist()}, largest relative difference {loss_rel:.3e}, parameters and "
+            f"statistics {p_rel:.3e} of each tensor's largest (tol {SHARD_RESUME_REL}); "
+            f"{time.perf_counter() - t1:.1f} s")
+        check(s_ck.step == s_pt.step == 2 + SHARD_STEPS and np.isfinite(l_ck).all()
+              and loss_rel <= SHARD_RESUME_REL and p_rel <= SHARD_RESUME_REL,
+              f"{arch}: the .ckpt resume equals the .pt resume in float64")
+        if arch == "M5":
+            m5_state = state
+        del runs, s_pt, s_ck, b64, bufs
+    del archs, wave
+
+    # ---- cli.main --resume auto from a run directory holding only a .ckpt -----
+    data = tmp / "data18"
+    subset_corpus(data, spec["wavs"][:WAVE_CLI_FILES], tmp / "data")
+    lr = 1e-6   # the CLI's default, which names the run directory
+    run_dir = (tmp / "cli18" / f"FilmClap_cfg({wcfg.cfg_descriptor}_b{SHARD_CLI_BATCH}_lr{lr}_"
+               / "checkpoints")
+    run_dir.mkdir(parents=True)
+    torch_flax_ckpt.write_flax_checkpoint(run_dir / "iteration_2.ckpt", m5_state, "M5")
+    del m5_state
+    said = run_cli(["sed_tpu_torch.cli.main", "--dataset_dir", data, "--outputs_root",
+                    tmp / "cli18", "--batch_size", SHARD_CLI_BATCH, "--num_train_steps", 6,
+                    "--log_freq", 2, "--val_descriptor", 0.5, "--resume", "auto", "--no_plot",
+                    "--device", DEVICE],
+                   "cli.main --resume auto from a .ckpt")
+    records = [json.loads(x) for x in (run_dir.parent / "metrics.jsonl").read_text().splitlines()]
+    saved = torch.load(run_dir / "iteration_6.pt", map_location="cpu", weights_only=True)
+    resumed_from = [ln for ln in said.splitlines() if "Auto-resuming" in ln]
+    log(f"[shard] cli.main --resume auto (M5, batch {SHARD_CLI_BATCH}) in a run directory "
+        f"holding only iteration_2.ckpt: {resumed_from}; logged iterations {[r['iteration'] for r in records]}, train losses "
+        f"{[r['train_loss'] for r in records]}; iteration_6.pt at step {saved['step']}")
+    check(f"Auto-resuming from {run_dir / 'iteration_2.ckpt'}" in said
+          and [r["iteration"] for r in records] == [4, 6]
+          and all(np.isfinite(r["train_loss"]) for r in records)
+          and saved["step"] == 6 and int(saved["optimizer"]["state"][0]["step"]) == 6
+          and saved["scheduler"]["last_epoch"] == 6,
+          "cli.main --resume auto continues from sed_tpu's .ckpt for 4 steps")
+    log(f"[shard] phase {time.perf_counter() - t0:.1f} s; launches of the sharded calls "
+        f"{({k: v for k, v in launched.items() if v})}")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -4430,9 +4663,13 @@ def main() -> int:
 
     # ---- 17. data parallelism: a one-rank NCCL mesh ------------------------------
     mesh_launches = mesh_phase(torch, cfg, dev, smi, train_tmp, model, mean, std, corpus)
+    log(f"[mesh] total {time.perf_counter() - phase_t0:.1f} s")
+
+    # ---- 18. sharded artifacts; sed_tpu's .ckpt resumed ---------------------------
+    shard_launches = sharded_phase(torch, cfg, dev, smi, train_tmp, model, mean, std, corpus)
     del corpus
     train_dir.cleanup()
-    log(f"[mesh] total {time.perf_counter() - phase_t0:.1f} s")
+    log(f"[shard] total {time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
@@ -4474,6 +4711,7 @@ def main() -> int:
         e["aot_launches"] = sum(aot_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["bf16_launches"] = sum(bf16_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["mesh_launches"] = sum(mesh_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["shard_launches"] = sum(shard_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -11,7 +11,9 @@ or MobileNetV1 emitting logits) on ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions of the kernels).  Checkpoints are the port's
 ``checkpoints/iteration_{n}.pt``; ``--ckpt`` restores the weights only, like
 the reference resume (main.py:37-39), ``--resume auto`` the full state of
-the run's latest checkpoint.  ``--steps_per_call K`` runs K steps a call,
+the run's latest checkpoint.  Both also read ``sed_tpu``'s msgpack
+``iteration_{n}.ckpt`` (``train/checkpoint.load_checkpoint``), so a run
+started under ``sed_tpu`` continues here.  ``--steps_per_call K`` runs K steps a call,
 ``--profile_dir`` writes a profiler trace of steps 10-20.  ``--no_plot``
 (the port's addition) skips the PNGs, which need matplotlib; metrics.jsonl
 is written either way.

@@ -16,8 +16,17 @@ no ``nvcc``, printing the load-to-first-result time.
 (batch, samples, 1) int16 PCM; ``run`` decodes, resamples, pads or crops
 each file to that length and scores the files ``batch`` at a time.  Both
 run on ``--device`` (default ``cuda``); ``run`` refuses an artifact traced
-for another device type.  Not ported yet, and refused by name:
-``--num_devices`` > 1 (slice G) and the fast/turbo featurizer tiers.
+for another device type.
+
+``build --num_devices N`` (the spectrogram families) exports a sharded
+artifact (``export.py``): one rank's program on ``--batch / N`` rows, built
+on each of N ranks (``parallel.multihost.run_on_devices``: NCCL on the
+cards, gloo with ``--device cpu``), rank 0 writing it.  ``--batch`` must
+divide by N, and fewer visible cards than N are refused, with ``sed_tpu``'s
+words.  ``run`` reads the artifact's device count and, above 1, runs on
+that many ranks: every rank decodes the same files and scores its rows,
+and rank 0 alone writes the outputs and prints the JSON line.  Not ported
+yet, and refused by name: the fast/turbo featurizer tiers.
 """
 
 from __future__ import annotations
@@ -74,7 +83,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["parity", "fast", "turbo"],
                    help="FFT precision tier; only 'parity' is ported")
     b.add_argument("--num_devices", type=int, default=1,
-                   help="sharded multi-device artifacts: only 1 is ported")
+                   help="export a sharded artifact: each of this many ranks (one a "
+                        "device) runs one program on its --batch / N rows and the "
+                        "scores are gathered; 'run' then runs as many ranks")
     b.add_argument("--tau_labels", type=str, default="doorslam",
                    help="comma-separated event classes; must match the "
                         "checkpoint's training config")
@@ -135,13 +146,16 @@ def _refuse(args) -> None:
                          "serving tiers (int8 replaces the float forward)")
     if args.arch != "CnnAvgPooling" and args.qat_steps > 0:
         raise SystemExit("--qat_steps is CnnAvgPooling-only (models/qat.py)")
-    unported = [flag for flag, on in (
-        ("--num_devices > 1 (sharded artifacts are slice G)", args.num_devices != 1),
-        (f"--featurizer_precision {args.featurizer_precision}",
-         args.featurizer_precision != "parity"),
-    ) if on]
-    if unported:
-        raise SystemExit(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
+    if args.num_devices > 1:
+        if args.arch == "M5":
+            raise SystemExit("--num_devices: the sharded artifact path is "
+                             "built for the spectrogram families")
+        if args.batch % args.num_devices != 0:
+            raise SystemExit(f"--batch {args.batch} must divide over "
+                             f"--num_devices {args.num_devices}")
+    if args.featurizer_precision != "parity":
+        raise SystemExit(f"not ported yet: --featurizer_precision "
+                         f"{args.featurizer_precision} (see ROADMAP.md)")
 
 
 def build_m5_head(args, cfg, device):
@@ -248,11 +262,19 @@ def build_head(args, device):
 
 
 def cmd_build(args) -> None:
+    from sed_tpu_torch.parallel.multihost import run_on_devices
+
+    _refuse(args)
+    run_on_devices(build, args.num_devices, args.device, (args,))
+
+
+def build(args, mesh=None) -> None:
+    """Export ``args``' artifact on ``args.device`` or, under ``mesh``, its
+    sharded artifact on this rank's device; rank 0 alone writes it."""
     from sed_tpu_torch.export import aot_export_m5_pipeline, aot_export_pipeline
     from sed_tpu_torch.inference import resolve_device
 
-    _refuse(args)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     t0 = time.time()
     head, cfg = build_head(args, device)
     samples = cfg.working_sample_rate * args.seconds
@@ -265,8 +287,10 @@ def cmd_build(args) -> None:
     else:
         use_pallas = False if args.use_pallas == "off" else args.use_pallas
         blob = aot_export_pipeline(head, args.batch, samples, cfg, use_pallas=use_pallas,
-                                   meta=meta, device=device)
+                                   mesh=mesh, meta=meta, device=device)
     build_s = time.time() - t0
+    if mesh is not None and mesh.rank:
+        return
     with open(args.out, "wb") as f:
         f.write(blob)
     log(f"built {args.out}: {len(blob) / 1e6:.1f} MB in {build_s:.1f}s "
@@ -292,21 +316,37 @@ def frames_of(arch: str, n_samples: int, cfg) -> int:
 
 
 def cmd_run(args) -> None:
+    from sed_tpu_torch.export import artifact_devices
+    from sed_tpu_torch.parallel.multihost import run_on_devices
+
+    with open(args.artifact, "rb") as f:
+        n_devices = artifact_devices(f.read(), args.device)
+    run_on_devices(run, n_devices, args.device, (args,))
+
+
+def run(args, mesh=None) -> None:
+    """Score ``args.audio_files`` with the artifact on ``args.device`` or,
+    under ``mesh``, this rank's rows of each batch on its device (every rank
+    decodes the same files); rank 0 alone writes the outputs."""
     from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
     from sed_tpu_torch.export import load_aot_pipeline
 
+    primary = mesh is None or mesh.rank == 0
     t_load0 = time.time()
     with open(args.artifact, "rb") as f:
-        call = load_aot_pipeline(f.read(), device=args.device)  # trusted artifacts only
+        call = load_aot_pipeline(f.read(), device=args.device, mesh=mesh)  # trusted only
     t_loaded = time.time()
-    log("load stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in call.load_timings.items()))
+    if primary:
+        log("load stages (s): " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in call.load_timings.items()))
     batch, samples, _ = call.input_shape
     arch = call.meta.get("arch", "CnnAvgPooling")
     labels = tuple(args.tau_labels.split(","))
     cfg = (WaveformConfig(tau_sed_labels=labels) if arch == "M5"
            else SpectrogramConfig(tau_sed_labels=labels))
 
-    os.makedirs(args.outputs_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.outputs_dir, exist_ok=True)
     first_result_s = None
     for lo in range(0, len(args.audio_files), batch):
         group = args.audio_files[lo:lo + batch]
@@ -315,6 +355,8 @@ def cmd_run(args) -> None:
         scores = np.asarray(call(pcm))
         if first_result_s is None:
             first_result_s = time.time() - t_load0
+        if not primary:
+            continue
         for i, path in enumerate(group):
             # The frames scored over the zero-padded tail are trimmed.
             s = scores[i, :min(scores.shape[1], frames_of(arch, int(lengths[i]), cfg))]
@@ -331,6 +373,8 @@ def cmd_run(args) -> None:
                     args.outputs_dir, f"{base}_events.csv"))
             log(f"{path}: frames={s.shape[0]}, max score={s.max():.3f}" if s.size else
                 f"{path}: shorter than one frame — 0 scores")
+    if not primary:
+        return
     print(json.dumps({
         "artifact_load_seconds": round(t_loaded - t_load0, 2),
         "load_to_first_result_seconds": round(first_result_s, 2),

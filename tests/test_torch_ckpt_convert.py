@@ -285,14 +285,6 @@ def test_load_model_and_state_needs_a_card_unless_asked_for_the_cpu(saved):
         cli.load_model_and_state(saved["M5"][2], WCFG, arch="M5")
 
 
-def test_full_resume_of_a_sed_tpu_checkpoint_names_the_converters(saved):
-    from sed_tpu_torch.models.m5 import M5
-    from sed_tpu_torch.train.state import init_state
-
-    with pytest.raises(ValueError, match="load_model_and_state.*export_torch"):
-        checkpoint.load_checkpoint(saved["M5"][2], init_state(M5(1), 1e-3, "cpu"))
-
-
 # ---- export and import -----------------------------------------------------------
 
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+import torch_flax_ckpt
 from sed_tpu_torch.cli import infer as cli
 from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
 from sed_tpu_torch.device_streaming import DeviceStreamingDetector
@@ -1142,51 +1143,15 @@ def test_batch_evaluator_launches_k1_and_k2_once(cuda):
 # ---- slice E, MobileNetV1 and M5 serving; sed_tpu's checkpoints --------------
 
 
-def _msgpack(x) -> bytes:
-    """The msgpack of flax's checkpoint layout (maps, str, int, ndarrays as
-    extension type 1), written here because the card's host has neither
-    flax nor msgpack."""
-    if isinstance(x, dict):
-        return (b"\xdf" + len(x).to_bytes(4, "big")
-                + b"".join(_msgpack(k) + _msgpack(v) for k, v in x.items()))
-    if isinstance(x, str):
-        return b"\xdb" + len(x.encode()).to_bytes(4, "big") + x.encode()
-    if isinstance(x, list):
-        return b"\xdd" + len(x).to_bytes(4, "big") + b"".join(_msgpack(v) for v in x)
-    if isinstance(x, bytes):
-        return b"\xc6" + len(x).to_bytes(4, "big") + x
-    if isinstance(x, int):
-        return b"\xd3" + x.to_bytes(8, "big", signed=True)
-    payload = _msgpack([[int(d) for d in x.shape], x.dtype.name, x.tobytes()])
-    return b"\xc9" + len(payload).to_bytes(4, "big") + b"\x01" + payload
-
-
-def m5_flax_tree(model):
-    """``sed_tpu``'s {params, batch_stats} of the port's M5 (the inverse of
-    ``models.convert.m5_state_dict``)."""
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
-    pairs = [("conv_block1", 0)] + [(f"conv_block{b}", i) for b in range(2, 6) for i in (0, 3)]
-    params, stats = {}, {}
-    for j, (block, idx) in enumerate(pairs):
-        params[f"Conv_{j}"] = {"kernel": np.ascontiguousarray(
-            sd[f"{block}.{idx}.weight"].transpose(2, 1, 0)), "bias": sd[f"{block}.{idx}.bias"]}
-        bn = f"{block}.{idx + 1}"
-        params[f"BatchNorm_{j}"] = {"scale": sd[f"{bn}.weight"], "bias": sd[f"{bn}.bias"]}
-        stats[f"BatchNorm_{j}"] = {"mean": sd[f"{bn}.running_mean"],
-                                   "var": sd[f"{bn}.running_var"]}
-    params["Dense_0"] = {"kernel": np.ascontiguousarray(sd["fc.weight"].T),
-                         "bias": sd["fc.bias"]}
-    return params, stats
-
-
 def test_load_model_and_state_of_a_sed_tpu_checkpoint_scores_on_the_card(cuda, tmp_path):
     """A msgpack .ckpt in sed_tpu's layout loads through the port's reader
     onto the card and scores as the original weights on the CPU."""
     model = seeded_model("M5", 5)
-    params, stats = m5_flax_tree(model)
+    params, stats = torch_flax_ckpt.flax_trees("M5", model.state_dict())
     path = tmp_path / "iteration_9.ckpt"
-    path.write_bytes(_msgpack({"step": 9, "params": params, "batch_stats": stats,
-                               "opt_state": {"0": {"count": np.zeros((), np.int32)}}}))
+    path.write_bytes(torch_flax_ckpt.msgpack({
+        "step": 9, "params": params, "batch_stats": stats,
+        "opt_state": {"0": {"count": np.zeros((), np.int32)}}}))
     loaded, state = cli.load_model_and_state(str(path), WaveformConfig(), arch="M5")
     assert next(loaded.parameters()).device.type == "cuda" and state.step == 0
     frames = signals(6, 31680, 48000, torch.device("cpu"), seed=3)[:, None]

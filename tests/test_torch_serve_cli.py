@@ -198,7 +198,6 @@ def test_build_refusals_match_sed_tpu(case, files, tmp_path):
 
 
 @pytest.mark.parametrize("flags, named", [
-    (["--num_devices", "2"], "--num_devices > 1"),
     (["--featurizer_precision", "fast"], "--featurizer_precision fast"),
 ])
 def test_build_refuses_what_is_not_ported(flags, named, files, tmp_path):

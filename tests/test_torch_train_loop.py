@@ -271,7 +271,7 @@ def test_checkpoint_round_trip(features, tmp_path):
     torch.testing.assert_close(state.model(x), model_only.model(x), atol=1e-7, rtol=0)
 
 
-@pytest.mark.parametrize("suffix", [".ckpt", ".ckpt.orbax", ".ckpt.orbax/"])
+@pytest.mark.parametrize("suffix", [".ckpt.orbax", ".ckpt.orbax/"])
 def test_sed_tpu_checkpoints_are_refused_by_name(tmp_path, suffix):
     template = init_state(cnn.CnnAvgPooling(1, SMALL), 1e-3, "cpu")
     with pytest.raises(ValueError, match="sed_tpu"):
@@ -311,11 +311,11 @@ def test_latest_checkpoint_tie_break(tmp_path):
     ckpt_dir.mkdir()
     for name, mtime in (("iteration_2.pt", 100), ("iteration_10.pt", 200),
                         ("iteration_010.pt", 300), ("iteration_x.pt", 400),
-                        ("iteration_50.ckpt", 500), ("notes.txt", 600)):
+                        ("iteration_5.ckpt", 500), ("notes.txt", 600)):
         (ckpt_dir / name).write_bytes(b"")
         os.utime(ckpt_dir / name, (mtime, mtime))
     # Equal iteration counts: the most recently written wins; sed_tpu's
-    # .ckpt files never count.
+    # .ckpt files count by their iteration (5 loses to 10).
     assert checkpoint.latest_checkpoint(str(tmp_path)) == str(ckpt_dir / "iteration_010.pt")
     os.utime(ckpt_dir / "iteration_10.pt", (700, 700))
     assert checkpoint.latest_checkpoint(str(tmp_path)) == str(ckpt_dir / "iteration_10.pt")
