@@ -292,11 +292,35 @@ non-zero on the first failure.  Phases:
               for 4 steps in a run directory that holds only a ``.ckpt``;
               times: each sharded artifact's batch against the plain one's,
               in turns.
+ 19. classical the SVM baseline (``sed_tpu_torch.classical``), ``sed_tpu``'s
+              orbax checkpoints and the exploration scripts: a seeded
+              FilmClap-layout corpus made on the card (16 x 342 s and one
+              20 s 48 kHz int16 WAV, clap-like events in noise);
+              ``get_raw_data`` on the card (16,619 rows), the short file's
+              rows within 1e-4 dB of ``device="cpu"``; ``SVMDetector(
+              soft_svm=True)`` fitted on 16,384 rows x 64 mel bins on the
+              card (recall-priority weights; fit and predict times, SMO
+              iterations, support vectors, peak memory beside the card's
+              name and power limit; ``evaluate_model`` on the short file);
+              the same fit of the first 2,048 rows against the CPU's float64
+              fit in a process of its own (``svm_cpu_child``, run beside the
+              card's fits): decision values and probabilities within 1e-3;
+              libzstd loaded, the committed orbax fixture
+              (``tests/golden/torch_orbax``) read equal to its msgpack twin
+              and resumed on the card for 2 steps, equal to the ``.ckpt``'s
+              resume; ``python -m sed_tpu_torch.scripts.analyze_spectogram
+              --no_plot`` on a 60 s WAV (called in this process: one K1 and
+              one K2 launch, counts reset just before and read just after;
+              within 1e-4 dB of the CPU), ``scripts.play_with_spectograms``
+              on 4 of the WAVs (one K1 and one K2 a preprocessed file; its
+              held-out accuracy within 2 rows of the same features through
+              the CPU's SVC) and ``scripts.plot_waveform_frames --no_plot``
+              on one (20 crops).
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
 training path's launches, every entry with phase 12's, 0, phase 13's,
-phase 14's, phase 15's, phase 16's, phase 17's and phase 18's), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+phase 14's, phase 15's, phase 16's, phase 17's, phase 18's and phase 19's),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -406,6 +430,15 @@ MESH_CLI_RTOL = 1e-4    # cli.main's float32 losses, 2 ranks against 1, over 20 
 SHARD_STEPS = 3     # phase 18's float64 steps a model from the .ckpt and from the .pt
 SHARD_RESUME_REL = 1e-12   # phase 18: the .ckpt resume against the .pt resume, float64
 SHARD_CLI_BATCH = 16       # phase 18's cli.main --resume auto (M5) batch
+SVM_FILES, SVM_SECONDS = 16, 342.0   # phase 19's corpus: 16 x 342 s (16,560 rows) + a short file
+SVM_SHORT_SECONDS = 20.0  # its last file, also featurized on the CPU
+SVM_ROWS = 16384          # the soft SVC fitted on the card: 16,384 rows x 64 mel bins
+SVM_CPU_ROWS = 2048       # the fit held against the CPU's float64 fit of the same rows
+SVM_TOL = 1e-3            # that bound: decision values and probabilities (the solver's tol)
+SCRIPT_FILES = 4          # play_with_spectograms' subset of phase 19's corpus
+PLOT_FILES = 1            # plot_waveform_frames' (it keeps the first 20 positive crops)
+SCRIPT_HOLDOUT = 100      # play_with_spectograms' held-out rows (its default)
+ANALYZE_SECONDS = 60.0    # scripts.analyze_spectogram's WAV
 READ_WORKERS = 8    # the native reader's threads (the card's host has 8 cores)
 READ_REPS = 3       # reads timed a case
 
@@ -4103,6 +4136,289 @@ def sharded_phase(torch, cfg, dev, smi, tmp, model, mean, std, spec):
     return launched
 
 
+def svm_corpus(torch, root, files, seconds, short_seconds, sr, seed, dev):
+    """Phase 19's FilmClap-layout corpus, made on the card: ``files`` mono
+    int16 WAVs of ``seconds`` and one of ``short_seconds``, noise with a
+    faint tone and clap-like events (a decaying 2 kHz + 3.1 kHz burst of
+    0.4-0.8 s, one per 6 s slot at a random offset), labelled as
+    ``film_clap_corpus`` labels: centres 0.33 s apart along each event.
+    Returns the WAV paths."""
+    import json as _json
+
+    from scipy.io import wavfile
+
+    from sed_tpu_torch.configs import DEFAULT_SPECTROGRAM
+    from sed_tpu_torch.io.film_clap import LABEL_FILE
+
+    half = DEFAULT_SPECTROGRAM.time_margin
+    film_dir = root / "FilmClap" / "film"
+    film_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slot = 6.0
+    labels, paths = {}, []
+    for i, secs in enumerate([seconds] * files + [short_seconds]):
+        n = int(secs * sr)
+        t = torch.arange(n, device=dev, dtype=torch.float64) / sr
+        x = 0.05 * torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+        x += 0.03 * torch.sin(2 * np.pi * rng.uniform(200, 6000) * t)
+        centers = []
+        for j in range(int(secs // slot)):
+            length = rng.uniform(0.4, 0.8)
+            start = j * slot + rng.uniform(0.5, slot - length - 0.5)
+            a, b = int(start * sr), int((start + length) * sr)
+            u = t[: b - a]
+            x[a:b] += rng.uniform(0.2, 0.4) * torch.exp(-2.0 * u / length) * (
+                torch.sin(2 * np.pi * 2000.0 * u) + torch.sin(2 * np.pi * 3100.0 * u))
+            centers += list(np.arange(start + half, start + length - half + 1e-9, half)) or \
+                [start + length / 2]
+        pcm = (x.clamp(-1, 1) * 32767).to(torch.int16).cpu().numpy()
+        path = str(film_dir / f"svm_{i:02d}.wav")
+        wavfile.write(path, sr, pcm)
+        labels[path] = [float(c) for c in centers]
+        paths.append(path)
+    with open(root / "FilmClap" / LABEL_FILE, "w") as f:
+        _json.dump(labels, f)
+    return paths
+
+
+def svm_cpu_child(rows_path: str, out_path: str) -> None:
+    """Phase 19's CPU reference, in a process of its own (it runs beside
+    the card's fit): ``SVMDetector(soft_svm=True, device="cpu")`` on the
+    rows, labels and weights of ``rows_path``; saves its decision values,
+    probabilities, iterations, A, B and fit seconds to ``out_path``."""
+    import torch
+
+    from sed_tpu_torch.classical.svm import SVMDetector
+
+    torch.set_num_threads(1)
+    d = np.load(rows_path)
+    det = SVMDetector(soft_svm=True, device="cpu").fit(d["x"], d["y"], d["w"])
+    np.savez(out_path, dec=det.decision_function(d["x"]), prob=det.predict(d["x"]),
+             n_iter=det.n_iter, prob_ab=[det.prob_a, det.prob_b], seconds=det.fit_seconds,
+             n_sv=len(det.support))
+
+
+def classical_phase(torch, cfg, dev, smi, tmp):
+    """Phase 19: the SVM baseline at full size, sed_tpu's orbax fixture
+    resumed, and the three exploration scripts (see the module docstring).
+    Returns the launch counts of the scripts' runs, summed."""
+    import contextlib
+    import io
+
+    from sed_tpu_torch.classical import svm
+    from sed_tpu_torch.configs import DEFAULT_WAVEFORM as wcfg
+    from sed_tpu_torch.data import device_pipeline as pipe
+    from sed_tpu_torch.io.film_clap import get_film_clap_paths_and_labels
+    from sed_tpu_torch.models.cnn import CnnAvgPooling
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.scripts import analyze_spectogram, play_with_spectograms
+    from sed_tpu_torch.scripts import plot_waveform_frames
+    from sed_tpu_torch.train import checkpoint
+    from sed_tpu_torch.train.flax_ckpt import read_flax_checkpoint
+    from sed_tpu_torch.train.orbax_ckpt import read_orbax_checkpoint, zstd_library
+    from sed_tpu_torch.train.state import init_state
+    from sed_tpu_torch.utils.metrics import calculate_metrics
+
+    t0 = time.perf_counter()
+    sr = wcfg.working_sample_rate
+    data = tmp / "data19"
+
+    # ---- the corpus and get_raw_data on the card ------------------------------------
+    t1 = time.perf_counter()
+    wavs = svm_corpus(torch, data, SVM_FILES, SVM_SECONDS, SVM_SHORT_SECONDS, sr, 19, dev)
+    corpus_s = time.perf_counter() - t1
+    with contextlib.redirect_stdout(io.StringIO()):
+        items = get_film_clap_paths_and_labels(str(data / "FilmClap"), wcfg.time_margin)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    raw = svm.get_raw_data(items, wcfg, dev)
+    raw_s = time.perf_counter() - t1
+    short = [r for r in raw if r[2].endswith(f"svm_{SVM_FILES:02d}")]
+    check(len(raw) == SVM_FILES + 1 and len(short) == 1, "get_raw_data: one entry a file")
+    t1 = time.perf_counter()
+    cpu_short = svm.get_raw_data([it for it in items if it[3] == short[0][2]], wcfg, "cpu")
+    cpu_s = time.perf_counter() - t1
+    db_err = float(np.abs(short[0][0] - cpu_short[0][0]).max())
+    n_rows = sum(len(r[0]) for r in raw)
+    log(f"[classical] corpus: {SVM_FILES} x {SVM_SECONDS:.0f} s + {SVM_SHORT_SECONDS:.0f} s "
+        f"48 kHz WAVs ({sum(os.path.getsize(w) for w in wavs) / 2**20:.0f} MiB) made in "
+        f"{corpus_s:.2f} s; get_raw_data on the card: {n_rows} rows in {raw_s:.2f} s "
+        f"({n_rows / raw_s:.0f} rows/s: read, frames, float64 rFFT, log-mel); the short "
+        f"file's {len(short[0][0])} rows against the CPU ({cpu_s:.2f} s): {db_err:.3e} dB "
+        f"(tol {DB_TOL})")
+    check(db_err <= DB_TOL and all(np.isfinite(r[0]).all() for r in raw),
+          "get_raw_data on the card equals the CPU's rows")
+    check(np.array_equal(short[0][1], cpu_short[0][1]), "the same coverage labels")
+
+    long_rows = [r for r in raw if r is not short[0]]
+    x = np.concatenate([r[0] for r in long_rows])[:SVM_ROWS]
+    y = np.concatenate([r[1] for r in long_rows])[:SVM_ROWS]
+    w = y * 10.0 + (1 - y)
+    check(x.shape == (SVM_ROWS, 64), f"{SVM_ROWS} rows of 64 mel bins ({x.shape})")
+
+    # ---- the CPU reference of SVM_CPU_ROWS rows, beside the card's fits -------------
+    rows_path, out_path = tmp / "svm_rows.npz", tmp / "svm_cpu.npz"
+    np.savez(rows_path, x=x[:SVM_CPU_ROWS], y=y[:SVM_CPU_ROWS], w=w[:SVM_CPU_ROWS])
+    child = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke."
+                              f"svm_cpu_child({str(rows_path)!r}, {str(out_path)!r})"],
+                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+    _cli_runs.append(child)   # stop_background ends it if a check fails first
+
+    # ---- SVMDetector(soft_svm=True) on 16,384 rows on the card ------------------------
+    torch.cuda.reset_peak_memory_stats()
+    det = svm.SVMDetector(soft_svm=True, device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        det.learn([x], [y])
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prob = det.predict(x)
+    predict_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    hard = svm.SVMDetector(soft_svm=False, device=dev).fit(x, y, w)
+    hard_s = time.perf_counter() - t1
+    ap_train = calculate_metrics(prob.reshape(-1, 1), y.reshape(-1, 1))[2]
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        _, _, aps, accs = svm.evaluate_model(det, [short[0]], plot=False)
+    log(f"[classical] {smi}: SVMDetector(soft_svm=True) on {SVM_ROWS} x 64 rows on the "
+        f"card: fit {det.fit_seconds:.2f} s (5 fold fits for Platt's A, B = "
+        f"{det.prob_a:.4f}, {det.prob_b:.4f}, then the final fit: {det.n_iter} SMO "
+        f"iterations, {len(det.support)} support vectors), the hard fit alone "
+        f"{hard_s:.2f} s ({hard.n_iter} iterations, {hard_s / max(1, hard.n_iter) * 1e3:.3f} "
+        f"ms an iteration); predict of {SVM_ROWS} rows {predict_s * 1e3:.1f} ms; peak "
+        f"device memory {peak:.1f} MiB; training-set AP {ap_train:.4f}; the short file "
+        f"(evaluate_model): AP {aps[0]:.4f}, accuracy {accs[0]:.4f}")
+    check(np.isfinite(prob).all() and ((prob >= 0) & (prob <= 1)).all()
+          and det.n_iter > 0 and hard.n_iter == det.n_iter and ap_train > 0.5,
+          "the 16,384-row soft SVC fits on the card")
+
+    # ---- 2,048 rows: the card against the CPU's float64 fit ---------------------------
+    t1 = time.perf_counter()
+    small = svm.SVMDetector(soft_svm=True, device=dev).fit(x[:SVM_CPU_ROWS], y[:SVM_CPU_ROWS],
+                                                           w[:SVM_CPU_ROWS])
+    small_s = time.perf_counter() - t1
+    said_child = child.communicate(timeout=600)[0]
+    if child.returncode != 0:
+        print(said_child[-4000:], file=sys.stderr)
+    check(child.returncode == 0, f"the CPU SVM child exit code {child.returncode}")
+    ref = np.load(out_path)
+    dec_gap = float(np.abs(small.decision_function(x[:SVM_CPU_ROWS]) - ref["dec"]).max())
+    prob_gap = float(np.abs(small.predict(x[:SVM_CPU_ROWS]) - ref["prob"]).max())
+    log(f"[classical] {SVM_CPU_ROWS} rows: card fit {small_s:.2f} s ({small.n_iter} "
+        f"iterations) against the CPU's float64 fit {float(ref['seconds']):.2f} s "
+        f"({int(ref['n_iter'])} iterations, one thread, its own process): decision values "
+        f"{dec_gap:.3e}, probabilities {prob_gap:.3e} apart (tol {SVM_TOL}); A, B "
+        f"{small.prob_a!r}, {small.prob_b!r} vs {ref['prob_ab'].tolist()}")
+    check(dec_gap <= SVM_TOL and prob_gap <= SVM_TOL, "the card's SVM fit follows the CPU's")
+    del x, y, w, raw, det, hard, small
+
+    # ---- sed_tpu's orbax fixture: libzstd, the reader, a resume on the card ------------
+    t1 = time.perf_counter()
+    golden = REPO / "tests" / "golden" / "torch_orbax"
+    zver = zstd_library().ZSTD_versionNumber()
+    tree = read_orbax_checkpoint(str(golden / "iteration_2.ckpt.orbax"))
+    twin = read_flax_checkpoint(str(golden / "iteration_2.ckpt"))
+
+    def same(a, b):
+        if isinstance(b, dict):
+            return isinstance(a, dict) and a.keys() == b.keys() and all(
+                same(a[k], b[k]) for k in b)
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+    read_s = time.perf_counter() - t1
+    check(same(tree, twin), "the orbax fixture equals its msgpack twin")
+    small_cfg = ((8, 2), (16, 2))
+    rng = np.random.default_rng(19)
+    crop, mel, total = cfg.train_crop_size, cfg.mel_bins, 4 * cfg.train_crop_size
+    bufs = pipe.SpectrogramBuffers(
+        features=torch.from_numpy(rng.standard_normal((1, total, mel)).astype(np.float32)).to(dev),
+        events=torch.from_numpy((rng.random((total, 1)) > 0.7).astype(np.float32)).to(dev),
+        start_indices=torch.arange(total - crop, device=dev),
+        mean=torch.zeros(mel, device=dev), std=torch.ones(mel, device=dev))
+    step = pipe.make_spectrogram_train_step(cfg, 5.0, "logMel", False)
+    starts = [rng.integers(0, total - crop, 8) for _ in range(2)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for name in ("iteration_2.ckpt.orbax", "iteration_2.ckpt"):
+            st = checkpoint.load_checkpoint(str(golden / name), init_state(
+                CnnAvgPooling(1, small_cfg), 1e-3, dev, seed=5))
+            runs.append(([float(step(st, bufs, s)) for s in starts], st.step))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[classical] orbax: libzstd {zver} loaded; the fixture "
+        f"(tests/golden/torch_orbax, sed_tpu's CnnAvgPooling{small_cfg} after 2 steps) read "
+        f"equal to its msgpack twin ({read_s:.3f} s for both reads); resumed on the card, "
+        f"2 steps: losses {runs[0][0]} (from the .ckpt: {runs[1][0]}), step {runs[0][1]}; "
+        f"{time.perf_counter() - t1:.2f} s")
+    check(runs[0] == runs[1] and runs[0][1] == 4 and np.isfinite(runs[0][0]).all(),
+          "the orbax resume on the card equals the .ckpt resume")
+
+    # ---- the scripts --------------------------------------------------------------------
+    launched = {k: 0 for k in kernels.LAUNCHES}
+    wav = burst_wav(str(tmp / "analyze.wav"), ANALYZE_SECONDS, sr, 19)
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        feature = analyze_spectogram.main([wav, "--out", str(tmp / "analysis.png"),
+                                           "--device", DEVICE, "--no_plot"])
+    counts = dict(kernels.LAUNCHES)
+    analyze_s = time.perf_counter() - t1
+    for k, v in counts.items():
+        launched[k] += v
+    want, _ = analyze_spectogram.segment_features(wav, device="cpu")
+    err = float(np.abs(feature - want).max())
+    log(f"[classical] scripts.analyze_spectogram --no_plot on a {ANALYZE_SECONDS:.0f} s WAV: "
+        f"{said.getvalue().strip()!r} in {analyze_s:.2f} s; launches "
+        f"{({k: v for k, v in counts.items() if v})}; against the CPU {err:.3e} dB")
+    check(counts["wave_stft_power"] == 1 and counts["mel_log"] == 1
+          and sum(counts.values()) == 2, "analyze_spectogram launches K1 and K2 once each")
+    check(err <= DB_TOL and (tmp / "analysis.npz").exists(), "analyze_spectogram's features")
+
+    sub = tmp / "data19s"
+    subset_corpus(sub, wavs[:SCRIPT_FILES], data)
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        acc = play_with_spectograms.main(["--dataset_dir", str(sub), "--holdout",
+                                          str(SCRIPT_HOLDOUT),
+                                          "--device", DEVICE, "--no_plot"])
+    counts = dict(kernels.LAUNCHES)
+    play_s = time.perf_counter() - t1
+    for k, v in counts.items():
+        launched[k] += v
+    with contextlib.redirect_stdout(io.StringIO()):   # the card's features, the CPU's SVM
+        cpu_acc = play_with_spectograms.main(["--dataset_dir", str(sub), "--holdout",
+                                              str(SCRIPT_HOLDOUT), "--device", "cpu",
+                                              "--no_plot"])
+    log(f"[classical] scripts.play_with_spectograms on {SCRIPT_FILES} of the WAVs: "
+        f"{said.getvalue().strip().splitlines()[-1]!r} in {play_s:.2f} s (preprocessing "
+        f"included); launches {({k: v for k, v in counts.items() if v})}; the same "
+        f"features through the CPU's SVC: accuracy {cpu_acc}")
+    check(counts["wave_stft_power"] == counts["mel_log"] == SCRIPT_FILES
+          and abs(acc - cpu_acc) <= 2 / SCRIPT_HOLDOUT,
+          "play_with_spectograms preprocesses on the card and classifies as the CPU")
+    sub1 = tmp / "data19p"
+    subset_corpus(sub1, wavs[:PLOT_FILES], data)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        indices, frames = plot_waveform_frames.main([
+            "--dataset_dir", str(sub1), "--out_dir", str(tmp / "debug19"), "--num_frames",
+            "20", "--device", DEVICE, "--no_plot"])
+    saved = np.load(tmp / "debug19" / plot_waveform_frames.NPZ_NAME)
+    log(f"[classical] scripts.plot_waveform_frames --no_plot on {PLOT_FILES} of the WAVs: "
+        f"{said.getvalue().strip().splitlines()[-1]!r} in {time.perf_counter() - t1:.2f} s; "
+        f"frames {saved['frames'].shape}")
+    check(saved["frames"].shape == (20, 1, wcfg.frame_size)
+          and np.isfinite(saved["frames"]).all(), "plot_waveform_frames writes 20 crops")
+    log(f"[classical] phase {time.perf_counter() - t0:.1f} s; launches of the scripts' runs "
+        f"{({k: v for k, v in launched.items() if v})}")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -4671,6 +4987,11 @@ def main() -> int:
     train_dir.cleanup()
     log(f"[shard] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 19. the SVM baseline, sed_tpu's orbax checkpoints, the scripts ----------
+    with tempfile.TemporaryDirectory() as classical_tmp:
+        classical_launches = classical_phase(torch, cfg, dev, smi, Path(classical_tmp))
+    log(f"[classical] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -4712,6 +5033,7 @@ def main() -> int:
         e["bf16_launches"] = sum(bf16_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["mesh_launches"] = sum(mesh_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["shard_launches"] = sum(shard_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["classical_launches"] = sum(classical_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

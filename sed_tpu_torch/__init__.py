@@ -6,7 +6,7 @@ anything of ``sed_tpu`` and keeps its own copies of what it needs.
 
 Covered so far (scoring, streaming and training of all three model
 families, int8 PTQ and QAT, the bf16 tier, AOT serving artifacts, data
-parallelism):
+parallelism, the SVM baseline and the exploration scripts):
 
   configs:    AudioConfig, SpectrogramConfig, WaveformConfig
   features:   logmel_features(_batch), multichannel_stft,
@@ -31,7 +31,7 @@ parallelism):
               (Batched)WaveformStreamingDetector, WaveformStreamPool (M5),
               StreamServer / StreamClient
   checkpoints: cli.infer.load_model_and_state (port .pt, reference .pth,
-              sed_tpu .ckpt; bf16=True the bf16 tier), train.torch_import /
+              sed_tpu .ckpt and .ckpt.orbax; bf16=True the bf16 tier), train.torch_import /
               torch_export
   parallel:   parallel.mesh (create_mesh, shard_batch, replicate),
               parallel.data_parallel (shard_train_step, shard_inference),
@@ -41,6 +41,11 @@ parallelism):
   serving:    export (aot_export_pipeline, aot_export_m5_pipeline,
               load_aot_pipeline, export_scorer, load_scorer: torch.export
               programs with K1 and K2 as custom operators)
+  classical:  classical.svm (SVMDetector: scikit-learn's weighted RBF SVC
+              with libsvm's probabilities, solved on the device by
+              classical.svc; featurize_frames, get_raw_data, the CLI)
+  scripts:    python -m sed_tpu_torch.scripts.analyze_spectogram,
+              .play_with_spectograms, .plot_waveform_frames
   CLIs:       python -m sed_tpu_torch.cli.main (--train_features
               Waveform or Spectogram, --bf16, --preprocess_workers), python
               -m sed_tpu_torch.cli.infer (windowed per file, --batch, --arch

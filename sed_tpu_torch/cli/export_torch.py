@@ -4,10 +4,10 @@ torch ``.pth`` (counterpart of ``sed_tpu.cli.export_torch``).
     python -m sed_tpu_torch.cli.export_torch --ckpt runs/.../iteration_60000.pt \\
         --arch CnnAvgPooling --out iteration_60000.pth [--device cuda|cpu]
 
-``--ckpt`` is a port ``iteration_{n}.pt`` or a ``sed_tpu`` msgpack ``.ckpt``
-(the file ``python -m sed_tpu.cli.export_torch`` takes).  The weights load
-once, ``strict=True``, into the model on ``--device`` before the file is
-written.  Prints one JSON line.  The format:
+``--ckpt`` is a port ``iteration_{n}.pt``, a ``sed_tpu`` msgpack ``.ckpt``
+or its orbax ``.ckpt.orbax`` directory (the files ``python -m
+sed_tpu.cli.export_torch`` takes).  The weights load once, ``strict=True``,
+into the model on ``--device`` before the file is written.  Prints one JSON line.  The format:
 sed_tpu_torch/train/torch_export.py.
 """
 
@@ -21,7 +21,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Export a checkpoint to the reference .pth format (PyTorch/CUDA port)")
     p.add_argument("--ckpt", type=str, required=True,
-                   help="a port iteration_{n}.pt or a sed_tpu .ckpt (msgpack)")
+                   help="a port iteration_{n}.pt or a sed_tpu .ckpt (msgpack) / .ckpt.orbax")
     p.add_argument("--out", type=str, required=True,
                    help="output .pth path (reference container: "
                         "{'iterations', 'model', 'optimizer'})")

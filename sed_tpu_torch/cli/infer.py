@@ -8,8 +8,8 @@
 Loads ``--ckpt`` through :func:`load_model_and_state` into ``--arch``
 (CnnAvgPooling(TRAIN_CHANNEL_AND_POOL), MobileNetV1 or M5): a port
 ``iteration_{n}.pt``, a reference ``.pth`` (the container ``{'model':
-state_dict, ...}`` or a bare state dict) or a ``sed_tpu`` msgpack ``.ckpt``.
-It scores on ``--device`` (default ``cuda``):
+state_dict, ...}`` or a bare state dict) or a ``sed_tpu`` msgpack ``.ckpt``
+or orbax ``.ckpt.orbax``.  It scores on ``--device`` (default ``cuda``):
 
   * the spectrogram archs, by default one file at a time: featurize the
     whole recording on the card (K1 + K2), then an exact windowed forward
@@ -59,7 +59,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("audio_files", type=str, nargs="+")
     parser.add_argument("--ckpt", type=str, required=True,
                         help="a port iteration_{n}.pt, a reference .pth ({'model': "
-                             "state_dict} or a bare state dict) or a sed_tpu .ckpt")
+                             "state_dict} or a bare state dict) or a sed_tpu .ckpt / .ckpt.orbax")
     parser.add_argument("--outputs_dir", type=str, default="inference_outputs")
     parser.add_argument("--mean_std_file", type=str, default="",
                         help="optional normalization stats from preprocessing; "
@@ -155,7 +155,8 @@ def load_model_and_state(ckpt_path: str, cfg, batch_hint: int = 1,
 
     ``ckpt_path`` is a port ``iteration_{n}.pt``, a reference ``.pth``
     (``{'model': state_dict, ...}`` or a bare state dict) or a ``sed_tpu``
-    msgpack ``.ckpt`` (:func:`sed_tpu_torch.train.checkpoint.read_model_weights`),
+    msgpack ``.ckpt`` or orbax ``.ckpt.orbax``
+    (:func:`sed_tpu_torch.train.checkpoint.read_model_weights`),
     so a user can pass the same file to either package's CLI.
     ``batch_hint`` sized ``sed_tpu``'s init input; the port's modules need
     none, so it is unused.  ``bf16=True`` builds the bf16 serving tier:

@@ -52,7 +52,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     b = sub.add_parser("build", help="export + serialize the serving graph")
     b.add_argument("--ckpt", type=str, required=True,
-                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt")
+                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt / .ckpt.orbax")
     b.add_argument("--out", type=str, required=True)
     b.add_argument("--arch", type=str, default="CnnAvgPooling", choices=ARCHS,
                    help="checkpoint's model family.  MobileNetV1 serves through "

@@ -52,7 +52,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Live PCM streaming scorer "
                                             "(PyTorch/CUDA port)")
     p.add_argument("--ckpt", type=str, required=True,
-                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt")
+                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt / .ckpt.orbax")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=0,
                    help="0 = pick a free port (printed on stdout)")

@@ -73,7 +73,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         description="Streaming (lifecycle) sound-event scoring (PyTorch/CUDA port)")
     p.add_argument("audio_files", type=str, nargs="+")
     p.add_argument("--ckpt", type=str, required=True,
-                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt")
+                   help="a port iteration_{n}.pt, a reference .pth or a sed_tpu .ckpt / .ckpt.orbax")
     p.add_argument("--outputs_dir", type=str, default="streaming_outputs")
     p.add_argument("--chunk_seconds", type=float, default=1.0,
                    help="chunk every stream pushes per tick")

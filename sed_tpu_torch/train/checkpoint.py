@@ -9,13 +9,14 @@ The format is the port's own: ``torch.save`` of ``{"model": state_dict,
 
 :func:`read_model_weights` reads the weights of every checkpoint a user may
 hold: the port's ``.pt``, the reference's ``.pth`` and ``sed_tpu``'s msgpack
-``.ckpt`` (through :mod:`sed_tpu_torch.train.flax_ckpt`).  A full resume
-(:func:`load_checkpoint`) reads the port's ``.pt`` and ``sed_tpu``'s
-``.ckpt``: its optax AMSGrad state becomes ``torch.optim.Adam``'s
-(:func:`adam_state_from_optax`) and its schedule's count the ``LambdaLR``'s
-epoch, so a run started under ``sed_tpu`` continues here.
-:func:`latest_checkpoint` counts the files of both packages.  ``sed_tpu``'s
-``.ckpt.orbax`` directories are refused by name.
+``.ckpt`` (through :mod:`sed_tpu_torch.train.flax_ckpt`) and its orbax
+``.ckpt.orbax`` directories (through :mod:`sed_tpu_torch.train.orbax_ckpt`).
+A full resume (:func:`load_checkpoint`) reads the port's ``.pt`` and both of
+``sed_tpu``'s formats: its optax AMSGrad state becomes
+``torch.optim.Adam``'s (:func:`adam_state_from_optax`) and its schedule's
+count the ``LambdaLR``'s epoch, so a run started under ``sed_tpu``
+continues here.  :func:`latest_checkpoint` counts the files of both
+packages.
 """
 
 from __future__ import annotations
@@ -54,13 +55,23 @@ def save_checkpoint(state: TrainState, outputs_dir: str, iteration: int) -> str:
     return path
 
 
-def _refuse_orbax(path: str) -> None:
+def is_sed_tpu_checkpoint(path: str) -> bool:
+    """True for ``sed_tpu``'s files: a msgpack ``.ckpt`` or an orbax
+    directory (``.ckpt.orbax``, or any directory)."""
+    return (path.endswith(FLAX_SUFFIX) or path.rstrip(os.sep).endswith(ORBAX_SUFFIX)
+            or os.path.isdir(path))
+
+
+def read_sed_tpu_tree(path: str) -> dict:
+    """``sed_tpu``'s train state as a nested dict of numpy arrays, from
+    its msgpack ``.ckpt`` or its orbax directory."""
     if path.rstrip(os.sep).endswith(ORBAX_SUFFIX) or os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a sed_tpu orbax checkpoint directory, which the port does not "
-            f"read (see ROADMAP.md); save it with sed_tpu's msgpack backend "
-            f"(save_checkpoint(..., backend='msgpack'), the default) and pass the "
-            f"{FLAX_SUFFIX} file")
+        from sed_tpu_torch.train.orbax_ckpt import read_orbax_checkpoint
+
+        return read_orbax_checkpoint(path)
+    from sed_tpu_torch.train.flax_ckpt import read_flax_checkpoint
+
+    return read_flax_checkpoint(path)
 
 
 def _arch_of(model: torch.nn.Module) -> str:
@@ -115,12 +126,11 @@ def adam_state_from_optax(opt_state, arch: str, model: torch.nn.Module, batch_st
 
 
 def _resume_from_flax(path: str, template: TrainState, model_only: bool) -> TrainState:
-    """:func:`load_checkpoint` of a ``sed_tpu`` ``.ckpt``."""
+    """:func:`load_checkpoint` of a ``sed_tpu`` ``.ckpt`` or ``.ckpt.orbax``."""
     from sed_tpu_torch.models.convert import FLAX_CONVERTERS
-    from sed_tpu_torch.train.flax_ckpt import read_flax_checkpoint
 
     arch = _arch_of(template.model)
-    tree = read_flax_checkpoint(path)
+    tree = read_sed_tpu_tree(path)
     try:
         weights = FLAX_CONVERTERS[arch](tree["params"], tree["batch_stats"])
     except KeyError as e:
@@ -147,9 +157,9 @@ def _resume_from_flax(path: str, template: TrainState, model_only: bool) -> Trai
 def load_checkpoint(path: str, template: TrainState, model_only: bool = False) -> TrainState:
     """Restore a checkpoint into ``template`` (in place; it is returned).
 
-    ``path``: the port's ``iteration_{n}.pt`` or ``sed_tpu``'s msgpack
-    ``iteration_{n}.ckpt`` of the template's model family.  From a
-    ``.ckpt``: the weights and BatchNorm statistics through
+    ``path``: the port's ``iteration_{n}.pt``, or ``sed_tpu``'s msgpack
+    ``iteration_{n}.ckpt`` or orbax ``iteration_{n}.ckpt.orbax`` of the
+    template's model family.  From ``sed_tpu``'s: the weights and BatchNorm statistics through
     ``models/convert.FLAX_CONVERTERS``, the AMSGrad moments and counts
     (:func:`adam_state_from_optax`), each group's ``lr`` at the schedule's
     count (``base_lr * lr_factor(count)``, ``base_lr`` the template's, as
@@ -158,10 +168,9 @@ def load_checkpoint(path: str, template: TrainState, model_only: bool = False) -
 
     ``model_only=True`` mirrors the reference resume (main.py:37-39): the
     weights and BatchNorm statistics only, keeping the template's fresh
-    optimizer, schedule and step.  An orbax directory is refused by name.
+    optimizer, schedule and step.
     """
-    _refuse_orbax(path)
-    if path.endswith(FLAX_SUFFIX):
+    if is_sed_tpu_checkpoint(path):
         return _resume_from_flax(path, template, model_only)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     template.model.load_state_dict(ckpt["model"], strict=True)
@@ -176,23 +185,20 @@ def read_model_weights(path: str, arch: str):
     """``(state_dict, step)`` of a checkpoint of model family ``arch``
     (CnnAvgPooling, MobileNetV1 or M5), on the CPU with the reference's keys.
 
-    Reads a ``sed_tpu`` msgpack ``.ckpt`` (its params and batch statistics
-    through ``models/convert.py``; ``step``: its step), or anything
+    Reads a ``sed_tpu`` msgpack ``.ckpt`` or orbax ``.ckpt.orbax`` (its
+    params and batch statistics through ``models/convert.py``; ``step``:
+    its step), or anything
     ``torch.load`` reads with ``weights_only=True``: the port's
     ``iteration_{n}.pt`` (``step``: its step), the reference container
     ``{'iterations', 'model', ...}`` (``step``: its iterations) or a bare
-    state dict (``step`` 0).  ``sed_tpu``'s ``.ckpt.orbax`` directories are
-    refused by name.
+    state dict (``step`` 0).
     """
     from sed_tpu_torch.models.convert import FLAX_CONVERTERS
 
     if arch not in FLAX_CONVERTERS:
         raise ValueError(f"unknown arch {arch!r}")
-    _refuse_orbax(path)
-    if path.endswith(FLAX_SUFFIX):
-        from sed_tpu_torch.train.flax_ckpt import read_flax_checkpoint
-
-        tree = read_flax_checkpoint(path)
+    if is_sed_tpu_checkpoint(path):
+        tree = read_sed_tpu_tree(path)
         return (FLAX_CONVERTERS[arch](tree["params"], tree["batch_stats"]),
                 int(np.asarray(tree["step"])))
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
@@ -206,8 +212,7 @@ def latest_checkpoint(outputs_dir: str) -> Optional[str]:
     broken by the latest mtime, as ``sed_tpu`` breaks them; None when there
     is none.  The port's ``.pt``, ``sed_tpu``'s ``.ckpt`` and its
     ``.ckpt.orbax`` directories all count, so a run started under
-    ``sed_tpu`` resumes here; an orbax directory that wins is refused when
-    loaded, never passed over for an older file."""
+    ``sed_tpu`` resumes here."""
     ckpt_dir = os.path.join(outputs_dir, "checkpoints")
     if not os.path.isdir(ckpt_dir):
         return None

@@ -25,6 +25,16 @@ def require_matplotlib() -> None:
                            "pass --no_plot to score without it") from e
 
 
+def refuse_plot_without_matplotlib(parser, no_plot: bool) -> None:
+    """``parser.error`` (exit 2, before any work) when a plot is asked
+    for and matplotlib is absent."""
+    if not no_plot:
+        try:
+            require_matplotlib()
+        except RuntimeError as e:
+            parser.error(str(e))
+
+
 def plot_waveform(ax, waveform, sample_rate):
     """10x subsampled amplitude plot."""
     ax.set_facecolor("k")

@@ -263,15 +263,26 @@ def test_load_model_and_state_scores_like_sed_tpu(arch, fmt, saved, sed_tpu_scor
 
 
 def test_load_model_and_state_refuses_bf16_orbax_and_unknown(saved, tmp_path):
-    _, _, ckpt = saved["M5"]
+    """bf16 and sed_tpu's orbax directories, once refused, now load; a
+    directory that is no orbax checkpoint, an unknown arch and weights of
+    another arch are refused."""
+    _, state, ckpt = saved["M5"]
     # bf16=True, once refused, now builds the bf16 serving tier over the
     # same float32 weights (tests/test_torch_bf16.py holds it to sed_tpu's).
     model, _ = cli.load_model_and_state(ckpt, WCFG, arch="M5", bf16=True, device="cpu")
     assert model.dtype == torch.bfloat16 and model.fc.weight.dtype == torch.float32
-    orbax = tmp_path / "iteration_5.ckpt.orbax"
-    orbax.mkdir()
-    with pytest.raises(ValueError, match="msgpack"):
-        cli.load_model_and_state(str(orbax), WCFG, arch="M5", device="cpu")
+    # sed_tpu's orbax save of the same state loads to the same weights.
+    orbax = jax_checkpoint.save_checkpoint(state, str(tmp_path), 123, backend="orbax")
+    assert orbax.endswith(".ckpt.orbax")
+    from_orbax, st = cli.load_model_and_state(orbax, WCFG, arch="M5", device="cpu")
+    from_ckpt, _ = cli.load_model_and_state(ckpt, WCFG, arch="M5", device="cpu")
+    assert st.step == 0
+    for (k, v), w in zip(from_orbax.state_dict().items(), from_ckpt.state_dict().values()):
+        assert torch.equal(v, w), k
+    empty = tmp_path / "iteration_5.ckpt.orbax"
+    empty.mkdir()
+    with pytest.raises(ValueError, match="not an orbax OCDBT checkpoint"):
+        cli.load_model_and_state(str(empty), WCFG, arch="M5", device="cpu")
     with pytest.raises(ValueError, match="unknown arch"):
         cli.load_model_and_state(ckpt, WCFG, arch="M6", device="cpu")
     with pytest.raises(RuntimeError, match="Error"):

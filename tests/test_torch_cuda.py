@@ -1618,3 +1618,48 @@ def test_mesh_predictor_on_the_card_launches_k1_and_k2_once(nccl_mesh):
     assert kernels.LAUNCHES["wave_stft_power"] == 1 and kernels.LAUNCHES["mel_log"] == 1
     assert got.shape == plain.shape
     assert (got - plain).abs().max() <= 1e-6
+
+
+# ---- the SVM baseline (sed_tpu_torch.classical) ------------------------------------
+
+SVM_CARD_TOL = 1e-3   # decision values and probabilities, card against CPU (the solver's tol)
+
+
+def svm_problem(n=400, d=16, seed=0, rp=10.0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d))
+    y = (x[:, 0] + 0.5 * x[:, 1] ** 2 + 0.7 * rng.standard_normal(n) > 1.0).astype(float)
+    return x, y, y * rp + (1 - y)
+
+
+def test_svm_featurizer_on_the_card_matches_cpu(cuda):
+    from sed_tpu_torch.classical.svm import featurize_frames
+
+    wcfg = WaveformConfig()
+    frames = np.random.default_rng(0).standard_normal((8, wcfg.frame_size))
+    frames[0] *= 1e-4
+    got = featurize_frames(frames, wcfg, device=cuda)
+    want = featurize_frames(frames, wcfg, device="cpu")
+    assert got.shape == want.shape == (8, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_svc_solver_on_the_card_matches_cpu(cuda):
+    """The weighted soft SVC fitted on the card against the CPU fit of the
+    same rows, and the CUDA-graph iterations equal to eager ones."""
+    from sed_tpu_torch.classical import svc
+    from sed_tpu_torch.classical.svm import SVMDetector
+
+    x, y, w = svm_problem()
+    card = SVMDetector(device=cuda).fit(x, y, w)
+    host = SVMDetector(device="cpu").fit(x, y, w)
+    np.testing.assert_allclose(card.decision_function(x), host.decision_function(x),
+                               rtol=0, atol=SVM_CARD_TOL)
+    np.testing.assert_allclose(card.predict(x), host.predict(x), rtol=0, atol=SVM_CARD_TOL)
+    xd = torch.as_tensor(x, device=cuda)
+    yd = torch.as_tensor(np.where(y == 0, 1.0, -1.0), device=cuda)
+    cd = torch.as_tensor(w, device=cuda)
+    graphed = svc.solve_dual(xd, yd, cd, svc.gamma_scale(x), graph=True)
+    eager = svc.solve_dual(xd, yd, cd, svc.gamma_scale(x), graph=False)
+    assert graphed.n_iter == eager.n_iter > 0 and graphed.rho == eager.rho
+    assert torch.equal(graphed.alpha, eager.alpha)

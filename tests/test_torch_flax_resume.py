@@ -357,8 +357,9 @@ def test_ckpt_resume_equals_pt_resume_in_float64(arch, tmp_path):
 
 def test_latest_checkpoint_counts_both_packages_files(tmp_path):
     """The largest iteration of .pt, .ckpt and .ckpt.orbax, ties to the
-    newest; an orbax directory that wins is refused at load (no fallback
-    to an older file).  On sed_tpu's own files, sed_tpu's answer."""
+    newest; an orbax directory that wins loads (a full resume, equal to
+    the resume of the msgpack save of the same state).  On sed_tpu's own
+    files, sed_tpu's answer."""
     ckpts = tmp_path / "checkpoints"
     ckpts.mkdir()
 
@@ -380,11 +381,21 @@ def test_latest_checkpoint_counts_both_packages_files(tmp_path):
     assert jax_checkpoint.latest_checkpoint(str(tmp_path)) == newest_ckpt
     newest_pt = touch("iteration_5.pt", 10)
     assert checkpoint.latest_checkpoint(str(tmp_path)) == newest_pt
-    orbax = touch("iteration_7.ckpt.orbax", 60)
+    a = Arch("CnnAvgPooling")
+    state, _ = a.jax_steps(seeded_start(a), range(1))
+    orbax = jax_checkpoint.save_checkpoint(state, str(tmp_path), 7, backend="orbax")
+    os.utime(orbax, (time.time() - 60, time.time() - 60))
+    twin = jax_checkpoint.save_checkpoint(state, str(tmp_path / "twin"), 7)
     assert checkpoint.latest_checkpoint(str(tmp_path)) == orbax
     assert jax_checkpoint.latest_checkpoint(str(tmp_path)) == orbax
-    with pytest.raises(ValueError, match="orbax checkpoint directory.*msgpack"):
-        checkpoint.load_checkpoint(orbax, init_state(CnnAvgPooling(1, SMALL), LR, "cpu"))
+    got = checkpoint.load_checkpoint(orbax, init_state(CnnAvgPooling(1, SMALL), LR, "cpu"))
+    want = checkpoint.load_checkpoint(twin, init_state(CnnAvgPooling(1, SMALL), LR, "cpu"))
+    assert got.step == want.step == 1
+    for (k, v), w in zip(got.model.state_dict().items(), want.model.state_dict().values()):
+        assert torch.equal(v, w), k
+    for p, q in zip(got.model.parameters(), want.model.parameters()):
+        for m in MOMENTS.values():
+            assert torch.equal(got.optimizer.state[p][m], want.optimizer.state[q][m])
     assert checkpoint.latest_checkpoint(str(tmp_path / "absent")) is None
 
 

@@ -1,6 +1,7 @@
 """sed_tpu_torch stands alone: it imports neither JAX nor anything of sed_tpu,
-nor msgpack (the card's host has no such package; the port reads sed_tpu's
-msgpack checkpoints with its own decoder)."""
+nor msgpack, scikit-learn, orbax, tensorstore or zstandard (the card's host
+has no such package; the port reads sed_tpu's msgpack and orbax checkpoints
+with its own decoders and solves its SVM itself)."""
 
 import ast
 import subprocess
@@ -9,7 +10,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "sed_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chex", "msgpack", "sed_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "chex", "msgpack", "sed_tpu", "sklearn",
+             "orbax", "tensorstore", "zstandard"}
 
 
 def port_sources():

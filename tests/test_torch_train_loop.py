@@ -273,8 +273,20 @@ def test_checkpoint_round_trip(features, tmp_path):
 
 @pytest.mark.parametrize("suffix", [".ckpt.orbax", ".ckpt.orbax/"])
 def test_sed_tpu_checkpoints_are_refused_by_name(tmp_path, suffix):
+    """sed_tpu's orbax directories, once refused, load: the committed
+    fixture (tests/torch_orbax_fixture.py), named with and without the
+    trailing separator, restores as its msgpack twin does; a missing one
+    raises, naming sed_tpu's layout."""
+    golden = os.path.join(os.path.dirname(__file__), "golden", "torch_orbax")
+    path = os.path.join(golden, "iteration_2" + suffix)
+    got = checkpoint.load_checkpoint(path, init_state(cnn.CnnAvgPooling(1, SMALL), 1e-3, "cpu"))
+    want = checkpoint.load_checkpoint(os.path.join(golden, "iteration_2.ckpt"),
+                                      init_state(cnn.CnnAvgPooling(1, SMALL), 1e-3, "cpu"))
+    assert got.step == want.step == 2
+    for (k, v), w in zip(got.model.state_dict().items(), want.model.state_dict().values()):
+        assert torch.equal(v, w), k
     template = init_state(cnn.CnnAvgPooling(1, SMALL), 1e-3, "cpu")
-    with pytest.raises(ValueError, match="sed_tpu"):
+    with pytest.raises(ValueError, match="not an orbax OCDBT checkpoint"):
         checkpoint.load_checkpoint(str(tmp_path / f"iteration_4{suffix}"), template)
 
 
