@@ -13,7 +13,8 @@ non-zero on the first failure.  Phases:
               the build time and ptxas' registers, shared memory and spills;
               the lesion builds (``LESIONS``: K6's three, the drain's
               exchange of K3 and K1, K5's epilogue, K2's copies and sums)
-              start beside it, one nvcc for each distinct edit;
+              start beside it, one nvcc for each distinct edit, without the
+              tier kernel's instances (``LESION_FLAGS``);
   2. kernels  K1 and K2 against their plain versions computed in float64 on
               the card, at the batch path's shapes (16 x 60 s), and K2 on the
               batch's rows from row 1 on (off a 16-byte boundary, up to the
@@ -65,9 +66,10 @@ non-zero on the first failure.  Phases:
               without its band epilogue (wrong results, timing only: what
               each part of their time is);
  10. files    the per-file path of ``cli/infer.py`` without ``--batch``, on
-              two seeded WAVs (noise with tonal bursts, 48 kHz int16): 20
-              minutes (3,637 frames: four uniform windows of 1,152 frames and
-              a ragged tail) and 2 minutes, with CnnAvgPooling
+              two seeded WAVs (noise with tonal bursts, 48 kHz int16): 10
+              minutes (1,819 frames: uniform windows of 1,152 frames and a
+              ragged tail; cut from 20 minutes to hold the script near 700
+              s) and 2 minutes, with CnnAvgPooling
               (TRAIN_CHANNEL_AND_POOL), MobileNetV1 and M5, each with seeded
               weights and BatchNorm statistics: ``predict_file`` (window 1024,
               halo 64, 88 after MobileNetV1's floor) equal to the whole
@@ -238,14 +240,14 @@ non-zero on the first failure.  Phases:
               parameters, optimizer state, BatchNorm statistics and the
               checkpoint float32; no featurizer launch), M5's
               ``WaveformDataset`` read with ``workers=8`` equal to
-              ``workers=0``'s; the reader: phase 10's 20-minute WAV through
+              ``workers=0``'s; the reader: phase 10's 10-minute WAV through
               ``read_wav`` equal to the scipy plain version, phase 11's 32
               WAVs through ``read_multichannel_audio_batch(workers=8)`` equal
               to ``workers=0`` and to the plain path, and ``preprocess_data
               (workers=8)`` (one K1 and one K2 a file) writing ``workers=0``'s
               pickles; times: the tick and M5's round in bf16 and float32
               (with the tick's device time by kernel), the bf16 and float32
-              train steps, the 20-minute read native against scipy, the
+              train steps, the 10-minute read native against scipy, the
               corpus read and the preprocessing with 8 workers against 0.
  17. mesh    data parallelism (``sed_tpu_torch.parallel``) at world size 1
               over NCCL, in this process: ``create_mesh(1)``; ``train(mesh=)``
@@ -316,11 +318,39 @@ non-zero on the first failure.  Phases:
               held-out accuracy within 2 rows of the same features through
               the CPU's SVC) and ``scripts.plot_waveform_frames --no_plot``
               on one (20 crops).
+ 20. tiers   the reduced-precision featurizer tiers: ``cli.serve build
+              --featurizer_precision turbo`` started in the background; K1t
+              (``wave_dft_power_bf16``, the bf16 tensor-core DFT with K1's
+              framing) on a 16 x 60 s batch and K3t (``frames_dft_power_bf16``,
+              K3's rows, float32 and int16) at the tick's 160 rows, each at
+              ``TIER_PRECISIONS`` (fast, turbo, bf16x4, bf16x6 and the pair
+              (bf16x1, bf16x3)) against its plain version (``tier_rel_tol``);
+              K2's bf16x1 and bf16x3 product modes at 2912 and 160 rows
+              against theirs (1.5e-5 dB); each kernel's output nearer its
+              own mode's plain version than the next modes' (``kernels.
+              mode_fraction``, ``TIER_NEIGHBOURS``, ``MEL_NEIGHBOURS``);
+              fast's and turbo's log-mel against float64 on broadband noise (1e-3 and 0.05 dB; sums of sines
+              reported only); ``make_batch_predictor`` at fast and turbo (one
+              K1t and one K2 launch a call, counts reset just before and read
+              just after; scores within 1e-4 and 2e-3 of parity's),
+              ``cli.infer --batch --featurizer_precision fast`` in this
+              process, ``predict_file`` at turbo, a 32-slot ``StreamPool`` at
+              turbo on phase 5's run cut to 20 s (K3t, no K3), and
+              ``logmel_waveform(mel_precision=)`` (K2's bf16 modes), each
+              against the batch path at its tier; the turbo artifact: its
+              custom operators, one call's launches (one K1t, one K2), equal
+              to the eager path, and ``cli.serve run`` in a fresh process;
+              times: each tier's K1t and K3t (one call and queued) beside K1
+              and K3, their plain versions, ``torch.stft`` + abs^2 (a higher
+              fidelity), the same split operands through cuBLAS bf16
+              matmuls, the bound (bytes, or tensor FLOPs at the card's dense
+              bf16 peak), K2's modes, and the batch at each tier.
 
-Then one ``{"kernels": [...]}`` JSON line (K1–K10; K1's and K2's with the
-training path's launches, every entry with phase 12's, 0, phase 13's,
-phase 14's, phase 15's, phase 16's, phase 17's, phase 18's and phase 19's),
-the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` JSON line (K1–K10, then K1t, K3t and K2's
+bf16 modes with phase 20's figures; K1's and K2's with the training path's
+launches, every entry with phase 12's, 0, phase 13's, phase 14's, phase
+15's, phase 16's, phase 17's, phase 18's, phase 19's and phase 20's), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -354,7 +384,7 @@ MULAW_SECONDS = 14.0
 K1_REL_TOL = 1e-5   # K1, K3: abs error / frame peak power, against float64
 DB_TOL = 1e-4       # K2, K1+K2 and K3+K2: dB, against float64
 SCORE_TOL = 1e-4    # scores, against the batch path or the CPU
-FILE_SECONDS = (1200.0, 120.0)  # per-file phase: the long file (card), the short one (+ CPU)
+FILE_SECONDS = (600.0, 120.0)   # per-file phase: the long file (card), the short one (+ CPU)
 FILE_WINDOW, FILE_HALO = 1024, 64  # cli/infer.py's defaults
 FILE_REPS = 5       # per-file calls timed by stage (they read the WAV)
 M5_BUCKETS = [32, 128, 256]  # M5 frame buckets timed in phase 10
@@ -455,12 +485,15 @@ ENTRY_COUNTERS = {
     "stft_power_from_waveform_raw": ("wave_stft_power",),
     "logmel_waveform_rolledge": ("wave_stft_power", "mel_log"),
     "stft_power_from_waveform(slice, roll_nodb)": ("wave_stft_power",),
+    "wave_dft_power_bf16": ("wave_dft_power_bf16",),
+    "frames_dft_power_bf16": ("frames_dft_power_bf16",), "mel_log_bf16": ("mel_log_bf16",),
 }
 
-# Memory rate (B/s) and FP32 rate outside the tensor cores (FLOP/s) of the
-# card, from NVIDIA's data sheets, by product name; the SXM part by default.
-PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12)}
-DEFAULT_PEAK = (3.35e12, 67.0e12)
+# Memory rate (B/s), FP32 rate outside the tensor cores and dense bf16
+# tensor-core rate (FLOP/s, without sparsity) of the card, from NVIDIA's
+# data sheets, by product name; the SXM part by default.
+PEAKS = {"PCIe": (2.0e12, 51.2e12, 756e12), "NVL": (3.9e12, 60.0e12, 835e12)}
+DEFAULT_PEAK = (3.35e12, 67.0e12, 989e12)
 
 
 def log(msg: str) -> None:
@@ -603,9 +636,13 @@ LESIONS = {
                     "  (void)kWarps;"),
     "K2 copies": ("sed_mel_log", "        stage_chunk<R>(a, ring, full, g, k, seq, lane);",
                   "        mbar_arrive(full + seq % D); if (lane == 0) mbar_arrive(full + seq % D);"),
-    "K2 sums": ("sed_mel_log", "        segment_sums<R>(x, w, s.y, lane, sum);",
+    "K2 sums": ("sed_mel_log", "        segment_sums<R, kPasses>(x, w, s.y, lane, sum);",
                 "        for (int r = 0; r < R; ++r) sum[r] = 0.f;"),
 }
+# The lesions time K1-K6 only: their builds leave out the tier kernel's 48
+# instances (featurizer.cu, SED_FEATURIZER_NO_TIERS), which would double
+# each build's time.
+LESION_FLAGS = ("-DSED_FEATURIZER_NO_TIERS",)
 _lesion_builds = []
 
 
@@ -625,8 +662,8 @@ def start_lesions(kernels):
         cu, so, build_log = out / f"{stem}.cu", out / f"lib{stem}.so", out / f"{stem}.log"
         cu.write_text(src.replace(old, new))
         with open(build_log, "w") as f:
-            proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
-                                    stdout=f, stderr=subprocess.STDOUT)
+            proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *LESION_FLAGS,
+                                     "-o", str(so), str(cu)], stdout=f, stderr=subprocess.STDOUT)
         started[old, new] = (proc, so, build_log)
         _lesion_builds.append((name, proc, so, build_log))
 
@@ -1056,7 +1093,7 @@ def files_phase(torch, cfg, dev, smi, tmp):
     log(f"[files] {long_s:.0f} s and {short_s:.0f} s WAVs written ({frames_long} frames in "
         f"the long one); {time.perf_counter() - t0:.1f} s")
 
-    # K1 and K2 at the long file's shape, one signal of 3,637 rows, against
+    # K1 and K2 at the long file's shape, one signal of 1,819 rows, against
     # float64: the log-mel of each predict_file below is held against the
     # float64 chain too.
     wave_dev = torch.from_numpy(wav_long).to(dev)
@@ -4419,6 +4456,501 @@ def classical_phase(torch, cfg, dev, smi, tmp):
     return launched
 
 
+# The featurizer tiers (phase 20): each precision the kernels are held at;
+# the score and fidelity bounds of the tiers that have names.
+TIER_PRECISIONS = ("bf16x3", "bf16x1", "bf16x4", "bf16x6", ("bf16x1", "bf16x3"))
+TIER_NAMES = {"bf16x3": "fast", "bf16x1": "turbo"}
+TIER_SCORE_TOL = {"fast": 1e-4, "turbo": 2e-3}   # against the parity scores (record 0, 6.2e-4)
+TIER_DB_TOL = {"fast": 1e-3, "turbo": 0.05}      # log-mel on broadband noise vs float64
+TIER_POOL_SECONDS = 20    # phase 20's pool run: phase 5's, cut from 60 s as phase 17's
+TIER_PLAIN_REPS = 5       # the plain versions' float64 chains, timed fewer times
+# The modes next to each precision, which its kernel's output must not lean
+# towards (mode_fraction): the lo.lo term, each stage's lo chunks, the x6
+# terms.  K2's bf16x3 next to its f32 product (None) and to bf16x1.
+TIER_NEIGHBOURS = {
+    "bf16x3": ("bf16x4", ("bf16x1", "bf16x3")),
+    "bf16x1": (("bf16x3", "bf16x1"), ("bf16x1", "bf16x3")),
+    "bf16x4": ("bf16x3", "bf16x6"),
+    "bf16x6": ("bf16x4",),
+    ("bf16x1", "bf16x3"): ("bf16x3", "bf16x1"),
+}
+MEL_NEIGHBOURS = {"bf16x1": ("bf16x3",), "bf16x3": (None, "bf16x1")}
+# Nearer its own mode's plain version than the next's (kernels.mode_fraction),
+# and, run at the next mode, nearer that one's: where two modes differ by
+# terms ~2^-16 of the products (lo.lo, bf16x6's), the tensor cores' float32
+# sums keep only part of them, so neither reading is 0 or 1 (PERF.md).
+MODE_FRACTION_TOL = 0.5
+MEL_MODE_DB_TOL = 1.5e-5   # K2's bf16 modes vs their plain versions (readings 7.5e-6, 7.9e-6)
+
+
+def tier_rel_tol(passes) -> float:
+    """K1t and K3t against their plain versions, x the frame's peak power.
+    The tensor cores' f32 accumulation (its order, its alignment of the
+    terms) against the plain version's exact float64 sums: ~1e-5; where the
+    outer stage is bf16x1, an ulp of difference in the twiddled T flips its
+    one bf16 rounding (2^-8 of it): 7.3e-5 at 16 x 60 s.  The modes next to
+    each other are told apart by ``kernels.mode_fraction``, not by these
+    limits."""
+    return 1.5e-3 if passes[1] == 1 else 3e-5
+
+
+def fractions_text(entry) -> str:
+    """``entry``'s mode fractions, each beside the kernel's own fraction when
+    run at that mode and the gap to that mode."""
+    return ", ".join(f"{nb} {v['fraction']:.3e} (run at {nb}: {v['at_next']:.4f}; gap "
+                     f"{v['gap']:.2e})" for nb, v in entry["mode_fraction"].items())
+
+
+def tier_tag(precision) -> str:
+    if isinstance(precision, tuple):
+        return "(" + ", ".join(str(p) for p in precision) + ")"
+    return f"{precision} ({TIER_NAMES[precision]})" if precision in TIER_NAMES else precision
+
+
+def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
+    """Phase 20: the featurizer tiers (see the module docstring).  ``model``,
+    ``mean``, ``std``: phase 3's CnnAvgPooling and normalization;
+    ``peaks``: the card's (memory B/s, FP32 FLOP/s, dense bf16 FLOP/s).
+    Returns (the kernels line's entries of K1t, K3t and K2's bf16 modes, the
+    launch counts of the phase's runs, summed)."""
+    from sed_tpu_torch import export as ex
+    from sed_tpu_torch.cli import infer as infer_cli
+    from sed_tpu_torch.inference import make_batch_predictor
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops.mel import mel_filterbank
+    from sed_tpu_torch.stream_pool import StreamPool
+    from scipy.io import wavfile
+
+    t0 = time.perf_counter()
+    bw, _, bf16_peak = peaks
+    sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
+    samples = sr * SECONDS
+    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+    n2 = n_fft // n1
+    window = kernels.stft_window(cfg, dev)
+    bands = kernels.mel_bands(cfg, dev)
+    fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # The artifact: cli.serve build at turbo, in the background from the start.
+    torch.save({"model": model.state_dict()}, tmp / "model.pth")
+    with open(tmp / "mean_std.pkl", "wb") as f:
+        pickle.dump({"mean": mean, "std": std}, f)
+    common = ["--ckpt", tmp / "model.pth", "--mean_std_file", tmp / "mean_std.pkl",
+              "--device", DEVICE]
+    build = start_cli(["sed_tpu_torch.cli.serve", "build", *common, "--batch", str(BATCH),
+                       "--seconds", str(SECONDS), "--featurizer_precision", "turbo",
+                       "--out", tmp / "turbo.aot"], tmp / "build.log")
+
+    # ---- the kernels against their plain versions ----------------------------
+    # Each kernel's error on tones, silence and a quiet signal; which mode it
+    # ran on broadband noise, where every bin of a frame counts alike (on
+    # tones a few bins carry a frame, too few to see the modes' gap).
+    waves = make_signals(torch, BATCH, samples, sr, dev, 20)    # tones, silence, a quiet one
+    g = torch.Generator(device=dev).manual_seed(21)
+    noise = (0.3 * torch.randn(BATCH, samples, generator=g, device=dev)).contiguous()
+    k3_rows = POOL_SLOTS * (-(-sr // hop) + 1)
+    per = k3_rows // BATCH
+
+    def tick_rows(x):
+        rows = x[:, : n_fft + (per - 1) * hop].unfold(1, n_fft, hop)
+        f32 = rows.reshape(-1, n_fft)[:k3_rows].clamp(-1, 1).contiguous()
+        return {"float32": f32, "int16": (f32 * 32767).round().to(torch.int16)}
+
+    rows, noise_rows = tick_rows(waves), tick_rows(noise)
+    rows_f32 = rows["float32"]
+    n_frames = 1 + samples // hop
+    frames = BATCH * n_frames
+    k1t, k3t = {}, {}
+    plain = {}
+
+    def plain_of(name, x, prec):
+        """The plain version of K1t (``name`` "K1t ...") or K3t at ``prec``,
+        kept for the modes next to it."""
+        if (name, prec) not in plain:
+            plain[name, prec] = (
+                kernels.wave_dft_power_bf16_plain(x, window, hop, n_fft, prec)
+                if name.startswith("K1t") else
+                kernels.frames_dft_power_bf16_plain(x, window, n_fft, prec))
+        return plain[name, prec]
+
+    def against_plain(name, kernel, x, x_noise, prec, tol):
+        """{max_abs_err, rel_err, mode_fraction: {neighbour: {fraction,
+        gap}}} of ``kernel`` at ``prec``: on ``x`` against its plain version,
+        on ``x_noise`` against the next modes', checked."""
+        got = kernel(x, prec)
+        want = plain_of(name, x, prec)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{name} at {prec}: shape")
+        err = (got - want).abs()
+        rel = float((err / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+        check(rel <= tol, f"{name} at {prec} within {tol} x frame peak of its plain version")
+        got, want = kernel(x_noise, prec), plain_of(name + " noise", x_noise, prec)
+        peak = want.amax(dim=-1, keepdim=True)
+        fractions = {}
+        for nb in TIER_NEIGHBOURS[prec]:
+            other = plain_of(name + " noise", x_noise, nb)
+            t = kernels.mode_fraction(got, want, other, peak)
+            t_next = kernels.mode_fraction(kernel(x_noise, nb), want, other, peak)
+            gap = float(((other - want).abs() / peak).max())
+            fractions[tier_tag(nb)] = {"fraction": t, "at_next": t_next, "gap": gap}
+            check(abs(t) <= MODE_FRACTION_TOL,
+                  f"{name} at {prec} runs its own mode, not {nb}'s (fraction {t:.3e})")
+            check(t_next >= 1 - MODE_FRACTION_TOL,
+                  f"{name} at {nb} lies nearer {nb}'s plain version than {prec}'s "
+                  f"(fraction {t_next:.3e})")
+        return {"max_abs_err": float(err.max()), "rel_err": rel, "mode_fraction": fractions}
+
+    def k1t_kernel(x, prec):
+        return kernels.wave_dft_power_bf16(x, window, hop, n_fft, prec)
+
+    def k3t_kernel(x, prec):
+        return kernels.frames_dft_power_bf16(x, window, n_fft, prec)
+
+    for prec in TIER_PRECISIONS:
+        tol = tier_rel_tol(kernels.tier_passes(prec))
+        k1t[prec] = {**against_plain("K1t", k1t_kernel, waves, noise, prec, tol), "tol": tol}
+        for tag in ("float32", "int16"):
+            k3t[prec, tag] = against_plain(f"K3t {tag}", k3t_kernel, rows[tag],
+                                           noise_rows[tag], prec, tol)
+        log(f"[tiers] {tier_tag(prec)}: K1t ({BATCH}, {n_frames}, {n_bins}) vs plain max err / "
+            f"frame peak {k1t[prec]['rel_err']:.3e}, K3t {k3_rows} rows float32 "
+            f"{k3t[prec, 'float32']['rel_err']:.3e}, int16 {k3t[prec, 'int16']['rel_err']:.3e} "
+            f"(tol {tol}); on noise, fraction towards the next modes (tol {MODE_FRACTION_TOL}): "
+            f"K1t {fractions_text(k1t[prec])}; K3t float32 "
+            f"{fractions_text(k3t[prec, 'float32'])}; int16 {fractions_text(k3t[prec, 'int16'])}")
+    plain.clear()
+    power = kernels.wave_stft_power(waves, window, hop, n_fft).reshape(-1, n_bins)
+    tick_power = kernels.frames_stft_power(rows_f32, window, n_fft)
+    mel_err, mel_fraction = {}, {}
+    for mp in ("bf16x1", "bf16x3"):
+        mel_fraction[mp] = {}
+        for rows_tag, p in (("rows", power), ("tick", tick_power)):
+            got = kernels.mel_log(p, bands, mp)
+            torch.cuda.synchronize()
+            want = kernels.mel_log_plain(p.double(), fb64, mp)
+            db = float((got.double() - want).abs().max())
+            mel_err[mp] = max(mel_err.get(mp, 0.0), db)
+            for nb in MEL_NEIGHBOURS[mp]:
+                other = kernels.mel_log_plain(p.double(), fb64, nb)
+                t = kernels.mode_fraction(got, want, other)
+                t_next = kernels.mode_fraction(kernels.mel_log(p, bands, nb), want, other)
+                gap = float((other - want).abs().max())
+                mel_fraction[mp][f"{nb or 'f32'}, {rows_tag}"] = {
+                    "fraction": t, "at_next": t_next, "gap": gap}
+                check(abs(t) <= MODE_FRACTION_TOL,
+                      f"K2 at {mp} runs its own mode, not {nb or 'f32'}'s (fraction {t:.3e})")
+                check(t_next >= 1 - MODE_FRACTION_TOL,
+                      f"K2 at {nb or 'f32'} lies nearer its plain version than {mp}'s "
+                      f"(fraction {t_next:.3e})")
+        log(f"[tiers] K2 at mel_precision {mp} ({power.shape[0]} and {tick_power.shape[0]} "
+            f"rows) vs its plain version: {mel_err[mp]:.3e} dB (tol {MEL_MODE_DB_TOL}); "
+            f"fraction towards the next modes (tol {MODE_FRACTION_TOL}): "
+            f"{fractions_text({'mode_fraction': mel_fraction[mp]})}")
+        check(mel_err[mp] <= MEL_MODE_DB_TOL,
+              f"K2's {mp} mode within {MEL_MODE_DB_TOL} dB of its plain version")
+
+    # ---- fidelity: the tiers' log-mel against float64 ------------------------
+    for tag, x in (("broadband noise", noise), ("sum of sines", waves)):
+        ref = kernels.mel_log_plain(kernels.wave_stft_power_plain(
+            x.double(), window.double(), hop, n_fft).reshape(-1, n_bins), fb64)
+        for prec, name in TIER_NAMES.items():
+            lm = kernels.logmel_waveform(x, cfg, precision=prec).reshape(-1, cfg.mel_bins)
+            db = float((lm.double() - ref).abs().max())
+            if tag == "broadband noise":
+                log(f"[tiers] {name} log-mel vs float64 on {tag}: {db:.3e} dB "
+                    f"(tol {TIER_DB_TOL[name]})")
+                check(db <= TIER_DB_TOL[name], f"{name} within its dB bound on noise")
+            else:
+                log(f"[tiers] {name} log-mel vs float64 on {tag} (tones, silence, a quiet "
+                    f"signal; report only): {db:.3e} dB")
+    del noise, ref, lm
+
+    # ---- the batch path: make_batch_predictor, cli.infer --batch -------------
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 22) * 32767).round() \
+        .to(torch.int16)[..., None]
+    predict = {tier: make_batch_predictor(model, cfg, mean=mean, std=std,
+                                          featurizer_precision=tier, device=DEVICE)
+               for tier in ("parity", "fast", "turbo")}
+    scores = {"parity": predict["parity"](pcm)}
+    batch_launches = {}
+    for tier in ("fast", "turbo"):
+        kernels.reset_launch_counts()
+        scores[tier] = predict[tier](pcm)
+        torch.cuda.synchronize()
+        batch_launches[tier] = dict(kernels.LAUNCHES)
+        add(batch_launches[tier])
+        check(batch_launches[tier]["wave_dft_power_bf16"] == 1
+              and batch_launches[tier]["mel_log"] == 1
+              and batch_launches[tier]["wave_stft_power"] == 0,
+              f"the {tier} batch path launched K1t and K2 (and no K1)")
+        diff = float((scores[tier] - scores["parity"]).abs().max())
+        log(f"[tiers] make_batch_predictor at {tier}: launches {batch_launches[tier]}; scores "
+            f"vs parity max {diff:.3e} (tol {TIER_SCORE_TOL[tier]})")
+        check(diff <= TIER_SCORE_TOL[tier], f"{tier} scores within their bound of parity")
+    wavs = []
+    pcm_np = pcm.cpu().numpy()
+    for i, secs in enumerate((60, 45)):
+        path = tmp / f"tier{i}.wav"
+        wavfile.write(path, sr, pcm_np[i, : secs * sr, 0])
+        wavs.append(path)
+    kernels.reset_launch_counts()
+    infer_cli.main([*map(str, wavs), "--batch", "--no_plot", *map(str, common),
+                    "--featurizer_precision", "fast", "--outputs_dir", str(tmp / "out_fast")])
+    torch.cuda.synchronize()
+    cli_launches = dict(kernels.LAUNCHES)
+    add(cli_launches)
+    check(cli_launches["wave_dft_power_bf16"] > 0 and cli_launches["wave_stft_power"] == 0,
+          "cli.infer --batch --featurizer_precision fast launched K1t")
+    from sed_tpu_torch.io.audio import read_multichannel_audio
+
+    cli_err = 0.0
+    for path in wavs:
+        wav = read_multichannel_audio(str(path), target_fs=sr, cfg=cfg)
+        want = predict["fast"](wav[None].astype(np.float32))[0].cpu().numpy()
+        got = np.load(tmp / "out_fast" / f"{path.stem}_scores.npy")
+        check(got.shape == want.shape, f"cli.infer fast {path.stem} shape")
+        cli_err = max(cli_err, float(np.abs(got - want).max()))
+    log(f"[tiers] cli.infer --batch --featurizer_precision fast on {len(wavs)} files "
+        f"(in this process): launches {cli_launches}; max diff vs make_batch_predictor "
+        f"{cli_err:.3e} (tol {SCORE_TOL})")
+    check(cli_err <= SCORE_TOL, "cli.infer at fast matches make_batch_predictor")
+
+    # ---- the per-file path at turbo -------------------------------------------
+    kernels.reset_launch_counts()
+    _, file_scores = infer_cli.predict_file(model, str(wavs[0]), cfg, mean, std,
+                                            featurizer_precision="turbo", device=DEVICE)
+    torch.cuda.synchronize()
+    file_launches = dict(kernels.LAUNCHES)
+    add(file_launches)
+    check(file_launches["wave_dft_power_bf16"] == 1 and file_launches["mel_log"] == 1,
+          "predict_file at turbo launched one K1t and one K2")
+    file_err = float(np.abs(file_scores - scores["turbo"][0].cpu().numpy()).max())
+    log(f"[tiers] predict_file at turbo on the 60 s file: launches {file_launches}; vs the "
+        f"turbo batch path {file_err:.3e} (tol {SCORE_TOL})")
+    check(file_err <= SCORE_TOL, "predict_file at turbo matches the batch path")
+
+    # ---- the streaming pool at turbo ------------------------------------------
+    chunk = sr
+    audio = (make_signals(torch, POOL_SLOTS, TIER_POOL_SECONDS * sr, sr, dev, 23) * 32767
+             ).round().to(torch.int16).cpu().numpy()
+    clips = [audio[i] for i in range(POOL_SLOTS)]
+    pool = StreamPool(model, cfg, slots=POOL_SLOTS, chunk_samples=chunk, mean=mean, std=std,
+                      featurizer_precision="turbo", device=DEVICE)
+    got_pool, pool_wall, pool_launches, pool_peak, ticks = drive_pool(
+        torch, dev, pool, clips, chunk, seed=23)
+    add(pool_launches)
+    check(pool_launches["frames_dft_power_bf16"] > 0 and pool_launches["mel_log"] > 0
+          and pool_launches["frames_stft_power"] == 0,
+          "the turbo pool launched K3t and K2 (and no K3)")
+    want_pool = score_all(torch, predict["turbo"], clips)
+    pool_err = max(float(np.abs(g - w).max()) for g, w in zip(got_pool, want_pool))
+    check(all(g.shape == w.shape for g, w in zip(got_pool, want_pool)), "pool frame counts")
+    log(f"[tiers] {POOL_SLOTS}-slot StreamPool at turbo, {TIER_POOL_SECONDS} s streams, "
+        f"{ticks} ticks: launches {pool_launches}; vs the turbo batch path {pool_err:.3e} "
+        f"(tol {SCORE_TOL}); {POOL_SLOTS * TIER_POOL_SECONDS / pool_wall:.1f} audio-s per "
+        f"wall-s, peak {pool_peak:.1f} MiB")
+    check(pool_err <= SCORE_TOL, "the turbo pool matches the turbo batch path")
+    del pool
+
+    # ---- K2's bf16 modes through logmel_waveform ------------------------------
+    kernels.reset_launch_counts()
+    for mp in ("bf16x1", "bf16x3"):
+        kernels.logmel_waveform(waves, cfg, mel_precision=mp)
+    torch.cuda.synchronize()
+    mel_launches = dict(kernels.LAUNCHES)
+    add(mel_launches)
+    check(mel_launches["mel_log_bf16"] == 2, "logmel_waveform(mel_precision=) launched K2's "
+          "bf16 modes")
+
+    # ---- the artifact at turbo: built by cli.serve, called here, run fresh ------
+    finish_cli(build, tmp / "build.log", "cli.serve build --featurizer_precision turbo")
+    built = json.loads([ln for ln in (tmp / "build.log").read_text().splitlines()
+                        if ln.startswith("{")][-1])
+    check(built["featurizer_precision"] == "turbo", "the build's JSON line names the tier")
+    fresh = start_fresh_run(tmp, tmp / "turbo.aot", wavs, REPO, dict(os.environ), "turbo")
+    call = ex.load_aot_fn((tmp / "turbo.aot").read_bytes())
+    check(call.header["custom_ops"] == ["mel_log", "wave_dft_power_bf16"]
+          and call.header["meta"].get("featurizer_precision") == "turbo",
+          f"the turbo artifact holds {call.header['custom_ops']}, meta {call.header['meta']}")
+    call(pcm)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    aot_scores = call(pcm)
+    torch.cuda.synchronize()
+    aot_launches = dict(kernels.LAUNCHES)
+    add(aot_launches)
+    check(aot_launches["wave_dft_power_bf16"] == 1 and aot_launches["mel_log"] == 1,
+          "one call of the turbo artifact launched one K1t and one K2")
+    aot_err = float((aot_scores - scores["turbo"]).abs().max())
+    check(aot_err <= AOT_TOL, "the turbo artifact equals the eager turbo path")
+    _, _, run_wall, run_out = finish_fresh_run(fresh)
+    # The 60 s file is row 0 of the batch, whole: its scores are the call's.
+    got = np.load(run_out / f"{wavs[0].stem}_scores.npy")
+    check(got.shape == tuple(aot_scores[0].shape), "the fresh run's frame count")
+    fresh_err = float(np.abs(got - aot_scores[0].cpu().numpy()).max())
+    log(f"[tiers] cli.serve build --featurizer_precision turbo: {built['build_seconds']} s, "
+        f"custom ops {call.header['custom_ops']}; a call's launches {aot_launches}, vs eager "
+        f"{aot_err:.3e} (tol {AOT_TOL}); cli.serve run in a fresh process {run_wall:.1f} s, "
+        f"its full-length file vs this process's call {fresh_err:.3e} (tol {SCORE_TOL})")
+    check(fresh_err <= SCORE_TOL, "the fresh run of the turbo artifact matches")
+
+    # ---- times -----------------------------------------------------------------
+    signals = (pcm[..., 0].float() / 32768.0).contiguous()
+    windowed = stft_ops.frame_signal(signals, n_fft, hop) * window      # (B, F, n_fft)
+    consts = kernels._tier_constants(n_fft, dev)
+    (w2r, w2i), (w1r, w1i), (twr, twi) = consts[2:]
+    h = n1 // 2 + 1
+
+    def bf(t, c):
+        return [x.to(torch.bfloat16) for x in kernels.split_bf16(t, c)]
+
+    def chain_fn(passes):
+        """The same algorithm as cuBLAS bf16 matmuls of the same split operands
+        (bf16 outputs: a timing yardstick, not a result)."""
+        ci, co = (kernels._tier_chunks(p) for p in passes)
+        xs = bf(windowed.reshape(-1, n2, n1), ci)
+        a2r, a2i = bf(w2r, ci), bf(w2i, ci)
+        b1r, b1i = bf(w1r[:, :h].contiguous(), co), bf(w1i[:, :h].contiguous(), co)
+        terms = [kernels._TIER_TERMS[:p] for p in passes]
+
+        def run():
+            yr = sum(torch.matmul(a2r[i], xs[j]) for i, j in terms[0]).float()
+            yi = sum(torch.matmul(a2i[i], xs[j]) for i, j in terms[0]).float()
+            tr, ti = bf(yr * twr - yi * twi, co), bf(yr * twi + yi * twr, co)
+            zr = sum(torch.matmul(tr[i], b1r[j]) - torch.matmul(ti[i], b1i[j])
+                     for i, j in terms[1]).float()
+            zi = sum(torch.matmul(tr[i], b1i[j]) + torch.matmul(ti[i], b1r[j])
+                     for i, j in terms[1]).float()
+            return zr * zr + zi * zi
+        return run
+
+    k1_ms = time_ms(torch, lambda: kernels.wave_stft_power(signals, window, hop, n_fft))
+    lib_ms = time_ms(torch, lambda: torch.stft(
+        signals, n_fft, hop, window=window, center=True, pad_mode="reflect",
+        return_complex=True).abs() ** 2)
+    tick_frames = rows_f32
+    k3_ms = time_ms(torch, lambda: kernels.frames_stft_power(tick_frames, window, n_fft))
+    k3_q_ms = time_ms(torch, lambda: kernels.frames_stft_power(tick_frames, window, n_fft),
+                      calls=QUEUED)
+    k3_lib_ms = time_ms(torch, lambda: torch.fft.rfft(tick_frames * window).abs() ** 2)
+    tw_bytes = 8 * n1 * n2
+    win_bytes = 4 * n_fft
+    out_bytes = 4 * frames * n_bins
+    times = {}
+    for prec in TIER_PRECISIONS:
+        passes = kernels.tier_passes(prec)
+        ci, co = (kernels._tier_chunks(p) for p in passes)
+        table_bytes = 2 * (ci * 2 * n2 * n2 + co * (n1 + 8) * 2 * n1) + tw_bytes + win_bytes
+        ops_frame = passes[0] * 4 * n2 * n2 * n1 + passes[1] * 8 * n2 * n1 * h
+        t = {"ms": time_ms(torch, lambda: kernels.wave_dft_power_bf16(
+                 signals, window, hop, n_fft, prec)),
+             "plain_ms": time_ms(torch, lambda: kernels.wave_dft_power_bf16_plain(
+                 signals, window, hop, n_fft, prec), reps=TIER_PLAIN_REPS, warmup=1),
+             "matmul_chain_ms": time_ms(torch, chain_fn(passes), reps=TIER_PLAIN_REPS,
+                                        warmup=1)}
+        b_bytes, b_ops = 4 * signals.numel() + out_bytes + table_bytes, frames * ops_frame
+        t_bytes, t_ops = b_bytes / bw * 1e3, b_ops / bf16_peak * 1e3
+        t["bound_ms"], t["bound_by"] = max(t_bytes, t_ops), (
+            "bytes" if t_bytes >= t_ops else "operations")
+        t["tensor_gflop"] = b_ops / 1e9
+        t["mbytes"] = b_bytes / 1e6
+        # K3t at the tick's rows: one call, and QUEUED calls in a row.
+        r_bytes = 4 * tick_frames.numel() + 4 * k3_rows * n_bins + table_bytes
+        r_ops = k3_rows * ops_frame
+        r_bound = max(r_bytes / bw * 1e3, r_ops / bf16_peak * 1e3)
+        t["rows"] = {
+            "ms": time_ms(torch, lambda: kernels.frames_dft_power_bf16(
+                tick_frames, window, n_fft, prec)),
+            "queued_ms": time_ms(torch, lambda: kernels.frames_dft_power_bf16(
+                tick_frames, window, n_fft, prec), calls=QUEUED),
+            "plain_ms": time_ms(torch, lambda: kernels.frames_dft_power_bf16_plain(
+                tick_frames, window, n_fft, prec), reps=TIER_PLAIN_REPS, warmup=1),
+            "bound_ms": r_bound,
+            "bound_by": "bytes" if r_bytes / bw >= r_ops / bf16_peak else "operations"}
+        times[prec] = t
+        log(f"[tiers] times {tier_tag(prec)}: K1t {t['ms']:.4f} ms (K1 {k1_ms:.4f}) | plain "
+            f"{t['plain_ms']:.4f} ms | bf16 matmul chain {t['matmul_chain_ms']:.4f} ms | "
+            f"torch.stft+abs^2 {lib_ms:.4f} ms | bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{t['mbytes']:.1f} MB, {t['tensor_gflop']:.1f} tensor GFLOP at "
+            f"{bf16_peak / 1e12:.0f} TFLOP/s) | bound share {t['bound_ms'] / t['ms']:.1%}; K3t "
+            f"at {k3_rows} rows {t['rows']['ms']:.4f} ms, queued {t['rows']['queued_ms']:.4f} "
+            f"ms (K3 {k3_ms:.4f} / {k3_q_ms:.4f}), plain {t['rows']['plain_ms']:.4f} ms, "
+            f"bound {r_bound:.4f} ms")
+    mel_times = {}
+    nnz = bands.nnz
+    for mp in ("bf16x1", "bf16x3"):
+        mel_times[mp] = {
+            "ms": time_ms(torch, lambda: kernels.mel_log(power, bands, mp)),
+            "plain_ms": time_ms(torch, lambda: kernels.mel_log_plain(power, bands.dense, mp),
+                                reps=TIER_PLAIN_REPS, warmup=1)}
+    k2_ms = time_ms(torch, lambda: kernels.mel_log(power, bands))
+    k2_lib_ms = time_ms(torch, lambda: 10.0 * torch.log10(
+        torch.clamp(torch.matmul(power, bands.dense), min=1e-10)))
+    k2_bytes = 4 * (power.numel() + power.shape[0] * bands.n_mels
+                    + nnz + 5 * bands.n_segments + bands.n_mels + 1)
+    k2_bound = k2_bytes / bw * 1e3
+    log(f"[tiers] K2's bf16 modes at {power.shape[0]} rows: bf16x1 "
+        f"{mel_times['bf16x1']['ms']:.4f} ms, bf16x3 {mel_times['bf16x3']['ms']:.4f} ms (f32 "
+        f"{k2_ms:.4f} ms) | plain {mel_times['bf16x1']['plain_ms']:.4f} / "
+        f"{mel_times['bf16x3']['plain_ms']:.4f} ms | matmul+log10 {k2_lib_ms:.4f} ms | bound "
+        f"{k2_bound:.4f} ms (bytes)")
+    batch_ms = {tier: time_ms(torch, lambda fn=fn: fn(pcm)) for tier, fn in predict.items()}
+    log(f"[tiers] {smi}; the {BATCH} x {SECONDS} s batch (make_batch_predictor): " + ", ".join(
+        f"{tier} {ms:.4f} ms ({BATCH * SECONDS / (ms / 1e3):.1f} audio-s/s)"
+        for tier, ms in batch_ms.items()))
+    log(f"[tiers] phase {time.perf_counter() - t0:.1f} s; launches of its runs {total}")
+
+    source = "sed_tpu_torch/ops/csrc/featurizer.cu"
+    fast = times["bf16x3"]
+    entries = [
+        {"name": "wave_dft_power_bf16",
+         "kernel": "tier_dft_kernel<N1, P1, P2> (K1's framing; mma.sync.m16n8k16 bf16)",
+         "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:412",
+         "launches": batch_launches["fast"]["wave_dft_power_bf16"],
+         "precision": "bf16x3", "max_abs_err": k1t["bf16x3"]["max_abs_err"],
+         "ms": fast["ms"], "plain_ms": fast["plain_ms"], "bound_ms": fast["bound_ms"],
+         "bound_by": fast["bound_by"], "library_ms": lib_ms,
+         "matmul_chain_ms": fast["matmul_chain_ms"], "k1_ms": k1_ms,
+         "cli_launches": cli_launches["wave_dft_power_bf16"],
+         "file_launches": file_launches["wave_dft_power_bf16"],
+         "artifact_launches": aot_launches["wave_dft_power_bf16"],
+         "tiers": {tier_tag(p): {**k1t[p], **{k: v for k, v in times[p].items()
+                                              if k != "rows"}} for p in TIER_PRECISIONS},
+         "batch_ms": batch_ms},
+        {"name": "frames_dft_power_bf16",
+         "kernel": "tier_dft_kernel<N1, P1, P2> (K3's rows; mma.sync.m16n8k16 bf16)",
+         "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:283",
+         "launches": pool_launches["frames_dft_power_bf16"], "precision": "bf16x1",
+         "max_abs_err": k3t["bf16x1", "float32"]["max_abs_err"],
+         "ms": times["bf16x1"]["rows"]["ms"], "plain_ms": times["bf16x1"]["rows"]["plain_ms"],
+         "bound_ms": times["bf16x1"]["rows"]["bound_ms"],
+         "bound_by": times["bf16x1"]["rows"]["bound_by"], "library_ms": k3_lib_ms,
+         "queued_ms": times["bf16x1"]["rows"]["queued_ms"], "k3_ms": k3_ms,
+         "k3_queued_ms": k3_q_ms,
+         "tiers": {tier_tag(p): {**{k: v for k, v in k3t[p, "float32"].items()},
+                                 **times[p]["rows"]} for p in TIER_PRECISIONS}},
+        {"name": "mel_log_bf16",
+         "kernel": "mel_log_kernel<R, kPasses> (K2's bf16x1 and bf16x3 product modes)",
+         "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:72",
+         "launches": mel_launches["mel_log_bf16"], "precision": "bf16x3",
+         "max_abs_err": mel_err["bf16x3"], "ms": mel_times["bf16x3"]["ms"],
+         "plain_ms": mel_times["bf16x3"]["plain_ms"], "bound_ms": k2_bound,
+         "bound_by": "bytes", "library_ms": k2_lib_ms, "k2_ms": k2_ms,
+         "modes": {mp: {"max_abs_err": mel_err[mp], "mode_fraction": mel_fraction[mp],
+                        **mel_times[mp]} for mp in mel_times}},
+    ]
+    return entries, total
+
+
 def main() -> int:
     import torch
 
@@ -4465,7 +4997,8 @@ def main() -> int:
         f"wave_stft_mel_log_kernel the same threads, "
         f"{6 * cfg.nfft + 4 + 4 * (n_seg + kernels.MEL_SEGMENT_BINS)} B (the exchange buffer, "
         f"the power row, the sums of the {n_seg} segments, the segment loads' slack)")
-    bw, flops_peak = card_peaks(name)
+    peaks = card_peaks(name)
+    bw, flops_peak, _ = peaks
 
     sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
     m = n_fft // 2
@@ -4829,7 +5362,8 @@ def main() -> int:
     def k2_raw_run(fn, x, out):
         err = fn(x.data_ptr(), bands.segments.data_ptr(), bands.band_first.data_ptr(),
                  bands.work.data_ptr(), bands.weights.data_ptr(), out.data_ptr(), x.shape[0],
-                 n_bins, bands.n_mels, bands.n_segments, *bands.span, dev.index, k3_stream)
+                 n_bins, bands.n_mels, bands.n_segments, *bands.span, 0, dev.index,
+                 k3_stream)
         check(err == 0, f"K2 raw launch ({err})")
 
     k2_out = torch.empty(frames, bands.n_mels, device=dev)
@@ -4992,6 +5526,12 @@ def main() -> int:
         classical_launches = classical_phase(torch, cfg, dev, smi, Path(classical_tmp))
     log(f"[classical] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 20. the featurizer tiers: the bf16 tensor-core DFT, K2's bf16 modes ----
+    with tempfile.TemporaryDirectory() as tiers_tmp:
+        tier_entries, tier_launches = tiers_phase(torch, cfg, dev, smi, Path(tiers_tmp), model,
+                                                  mean, std, peaks)
+    log(f"[tiers] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -5024,6 +5564,7 @@ def main() -> int:
          "bound_by": k3_by, "library_ms": k3_lib_ms, "queued_ms": k3_q_ms,
          "queued_plain_ms": k3_q_plain_ms, "queued_library_ms": k3_q_lib_ms},
         *impl_entries,
+        *tier_entries,
     ]
     for e in entries:   # phase 12's path, M5 training: every count is 0
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
@@ -5034,6 +5575,7 @@ def main() -> int:
         e["mesh_launches"] = sum(mesh_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["shard_launches"] = sum(shard_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["classical_launches"] = sum(classical_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["tier_launches"] = sum(tier_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -74,7 +74,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_plot", action="store_true", default=False)
     parser.add_argument("--featurizer_precision", type=str, default="parity",
                         choices=["parity", "fast", "turbo"],
-                        help="FFT precision tier; only 'parity' is ported")
+                        help="FFT precision tier: 'parity' (default; the golden "
+                             "f32 FFT), 'fast' (bf16x3) or 'turbo' (bf16x1), the "
+                             "bf16 tensor-core DFT")
     parser.add_argument("--quantize", choices=["int8"], default=None,
                         help="int8 serving forward (lossy), calibrated on each "
                              "file; the per-file paths only")
@@ -103,15 +105,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "stay float32): a lossy serving tier, not the parity "
                              "path")
     return parser
-
-
-def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    unported = [flag for flag, on in (
-        (f"--featurizer_precision {args.featurizer_precision}",
-         args.featurizer_precision != "parity"),
-    ) if on]
-    if unported:
-        parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
 
 
 def build_model(arch: str, classes_num: int, dtype=None):
@@ -245,7 +238,8 @@ def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int =
     int8 forward, calibrated over the whole file (every
     ``frames // 2048``-th frame, not a prefix: a prefix would clip loud
     events later in a long recording).  One K1 and one K2 launch per call on
-    CUDA; the scores stay on the card until the end.  ``timings``: a dict
+    CUDA (K1t in K1's place at a reduced ``featurizer_precision``: 'fast',
+    'turbo' or a raw 'bf16xN'); the scores stay on the card until the end.  ``timings``: a dict
     that receives the seconds of this call's stages, ``read`` (the WAV),
     ``featurizer`` (the float32 cast, upload, K1 + K2, normalization) and
     ``model`` (the windowed forward and the scores to the host).
@@ -258,7 +252,7 @@ def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int =
     from sed_tpu_torch.parallel.time_shard import windowed_forward
     from sed_tpu_torch.utils.precision import full_float32
 
-    resolve_featurizer_precision(featurizer_precision)
+    precision = resolve_featurizer_precision(featurizer_precision)
     device = resolve_device(device)
     model = model.to(device).eval()
     halo = halo_floor(model, halo)
@@ -267,7 +261,7 @@ def predict_file(model, audio_path: str, cfg, mean=None, std=None, window: int =
     stage("read")
     with torch.inference_mode(), full_float32():
         log_mel = logmel_features(torch.from_numpy(wav.astype(np.float32)).to(device), cfg,
-                                  "auto", "auto", featurizer_precision)
+                                  "auto", "auto", precision)
         feats = log_mel
         if mean is not None:
             feats = (log_mel - torch.as_tensor(np.asarray(mean, np.float32), device=device)) \
@@ -380,7 +374,6 @@ def main(argv=None):
     if args.bf16 and args.quantize:
         raise SystemExit("--bf16 and --quantize are mutually exclusive "
                          "serving tiers (int8 replaces the float forward)")
-    _refuse_unported(parser, args)
 
     from sed_tpu_torch.configs import SpectrogramConfig, WaveformConfig
 
@@ -438,7 +431,8 @@ def run(args, cfg, mesh=None) -> None:
         from sed_tpu_torch.inference import batch_predict_files
 
         batch_scores = batch_predict_files(model, args.audio_files, cfg, mean=mean,
-                                           std=std, device=device, mesh=mesh)
+                                           std=std, device=device, mesh=mesh,
+                                           featurizer_precision=args.featurizer_precision)
     if not primary:
         return
 
@@ -462,7 +456,8 @@ def run(args, cfg, mesh=None) -> None:
         else:
             log_mel, scores = predict_file(model, audio_file, cfg, mean, std,
                                            window=args.window, halo=args.halo,
-                                           quantize=args.quantize, device=device)
+                                           quantize=args.quantize, device=device,
+                                           featurizer_precision=args.featurizer_precision)
         write_outputs(scores, audio_file, args, cfg)
         if not args.no_plot and log_mel is not None:
             from sed_tpu_torch.utils.plotting import plot_sample_features

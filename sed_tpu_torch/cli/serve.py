@@ -81,7 +81,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "PyTorch STFT and mel product")
     b.add_argument("--featurizer_precision", type=str, default="parity",
                    choices=["parity", "fast", "turbo"],
-                   help="FFT precision tier; only 'parity' is ported")
+                   help="FFT precision tier baked into the artifact: 'parity' "
+                        "(default), 'fast' (bf16x3) or 'turbo' (bf16x1), the bf16 "
+                        "tensor-core DFT; spectrogram archs only")
     b.add_argument("--num_devices", type=int, default=1,
                    help="export a sharded artifact: each of this many ranks (one a "
                         "device) runs one program on its --batch / N rows and the "
@@ -153,9 +155,6 @@ def _refuse(args) -> None:
         if args.batch % args.num_devices != 0:
             raise SystemExit(f"--batch {args.batch} must divide over "
                              f"--num_devices {args.num_devices}")
-    if args.featurizer_precision != "parity":
-        raise SystemExit(f"not ported yet: --featurizer_precision "
-                         f"{args.featurizer_precision} (see ROADMAP.md)")
 
 
 def build_m5_head(args, cfg, device):
@@ -281,13 +280,16 @@ def build(args, mesh=None) -> None:
     meta = {"arch": args.arch}
     if args.bf16:
         meta["dtype"] = "bfloat16"   # informational: the program computes in it
+    if args.arch != "M5":
+        meta["featurizer_precision"] = args.featurizer_precision   # informational
     if args.arch == "M5":
         blob = aot_export_m5_pipeline(head, args.batch, samples, cfg, meta=meta,
                                       device=device)
     else:
         use_pallas = False if args.use_pallas == "off" else args.use_pallas
         blob = aot_export_pipeline(head, args.batch, samples, cfg, use_pallas=use_pallas,
-                                   mesh=mesh, meta=meta, device=device)
+                                   mesh=mesh, featurizer_precision=args.featurizer_precision,
+                                   meta=meta, device=device)
     build_s = time.time() - t0
     if mesh is not None and mesh.rank:
         return

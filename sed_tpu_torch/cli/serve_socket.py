@@ -4,7 +4,8 @@
     python -m sed_tpu_torch.cli.serve_socket --ckpt model.pth --port 8123 \\
         [--arch CnnAvgPooling|MobileNetV1|M5] [--m5_pool device|host] \\
         [--slots 8] [--chunk_seconds 1.0] [--wire pcm16|mulaw] \\
-        [--featurizer auto|pallas|xla] [--device cuda|cpu] [--run_seconds N] \\
+        [--featurizer auto|pallas|xla] [--featurizer_precision parity|fast|turbo] \\
+        [--device cuda|cpu] [--run_seconds N] \\
         [--quantize int8 --calib_wav a.wav | --bf16]
 
 Each TCP connection is one live stream over the pool of ``--arch``
@@ -33,9 +34,10 @@ a note on stderr: ``sed_tpu``'s server rebuilds MobileNetV1's logits view
 without the bf16 dtype, and the port keeps that behaviour per CLI (its
 stream CLI scores MobileNetV1 in bf16).
 
-Not ported yet, and refused rather than ignored: the fast/turbo featurizer
-tiers (as in ``sed_tpu_torch.cli.stream``).  Like ``sed_tpu``'s socket CLI
-it has no ``--num_devices``.
+``--featurizer_precision fast|turbo`` serves the spectrogram families'
+pools through K3t, the bf16 tensor-core DFT at bf16x3 or bf16x1, as
+``cli.stream`` does (``--featurizer xla`` and M5 ignore it).  Like
+``sed_tpu``'s socket CLI it has no ``--num_devices``.
 """
 
 from __future__ import annotations
@@ -70,7 +72,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--featurizer", type=str, default="auto",
                    help="auto|pallas (K3 + K2) or xla (PyTorch ops)")
     p.add_argument("--featurizer_precision", type=str, default="parity",
-                   help="FFT precision tier; only 'parity' is ported")
+                   choices=["parity", "fast", "turbo"],
+                   help="FFT precision tier of the pool's featurizer (K3t at "
+                        "fast and turbo)")
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="score with the int8 forward (lossy serving mode, "
                         "CnnAvgPooling and M5); requires --calib_wav")

@@ -89,7 +89,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="auto|pallas: the tick featurizes through the CUDA "
                         "kernels K3 + K2; xla: in PyTorch ops")
     p.add_argument("--featurizer_precision", type=str, default="parity",
-                   help="FFT precision tier; only 'parity' is ported")
+                   choices=["parity", "fast", "turbo"],
+                   help="FFT precision tier of the pool's featurizer: parity "
+                        "(default), fast (bf16x3) or turbo (bf16x1), the bf16 "
+                        "tensor-core DFT; ignored by --featurizer xla and M5")
     p.add_argument("--num_devices", type=int, default=1,
                    help="shard the pool's slots over a data mesh of this many "
                         "devices, one rank each (slots are rounded up to a "
@@ -118,21 +121,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit with a usage error naming every unported option that was given
-    (shared with ``cli.serve_socket``).  ``--num_devices`` with M5 gets
-    ``sed_tpu``'s message: sharding applies to the spectrogram pool; so
-    does ``--bf16`` with ``--quantize``."""
+    """Exit on the option combinations ``sed_tpu``'s stream CLIs refuse
+    (shared with ``cli.serve_socket``), with its messages: ``--num_devices``
+    with M5 (sharding applies to the spectrogram pool) and ``--bf16`` with
+    ``--quantize``."""
     if args.bf16 and args.quantize:
         raise SystemExit("--bf16 and --quantize are mutually exclusive "
                          "serving tiers (int8 replaces the float forward)")
     if args.arch == "M5" and getattr(args, "num_devices", 1) > 1:
         parser.error("--num_devices applies to the spectrogram pool")
-    unported = [flag for flag, on in (
-        (f"--featurizer_precision {args.featurizer_precision}",
-         args.featurizer_precision != "parity"),
-    ) if on]
-    if unported:
-        parser.error(f"not ported yet: {', '.join(unported)} (see ROADMAP.md)")
 
 
 def serving_config(args):

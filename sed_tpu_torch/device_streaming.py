@@ -192,7 +192,10 @@ class DeviceStreamingDetector:
     ):
         """``featurizer``: 'auto', 'pallas' or 'xla' (see
         :func:`resolve_tick_featurizer`).  ``featurizer_precision``: None or
-        'parity'.  ``extract_impl``: 'slices' (default) or 'span' (see
+        'parity' (K3), 'fast' or 'turbo' (K3t, the bf16 tensor-core DFT) or a
+        raw 'bf16xN' string (``resolve_featurizer_precision``), for the
+        tick and the host startup and flush alike (sed_tpu's startup stays
+        at parity); ``featurizer='xla'`` ignores it.  ``extract_impl``: 'slices' (default) or 'span' (see
         :class:`RingTick`).  ``qparams``: an int8 serving artifact
         (``models.quantize``), scored by the tick, the startup and the flush
         alike.  ``mesh``: this rank ticks its slice of the ``batch`` streams
@@ -202,7 +205,7 @@ class DeviceStreamingDetector:
             assert batch % mesh.size == 0, \
                 f"batch {batch} must divide over the {mesh.size}-device mesh"
         featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
-        resolve_featurizer_precision(featurizer_precision)
+        precision = resolve_featurizer_precision(featurizer_precision)
         self.device = resolve_device(device) if mesh is None else mesh.device
         self._mesh = mesh
         self._rows = local_rows(mesh, batch)
@@ -222,7 +225,8 @@ class DeviceStreamingDetector:
         # dependent frame is featurized and the ring covers the live window.
         self._stream_fns = make_stream_fns(model, cfg, mean=self.mean,
                                            std=self.std, qparams=qparams,
-                                           device=self.device, featurizer=featurizer)
+                                           device=self.device, featurizer=featurizer,
+                                           precision=precision)
         self._host = BatchedStreamingDetector(
             model, cfg, batch=batch, halo=halo, total_stride=total_stride,
             bucket=bucket, mean=mean, std=std, stream_fns=self._stream_fns)

@@ -362,8 +362,12 @@ def aot_export_pipeline(head: nn.Module, batch: int, samples: int,
 
     ``use_pallas`` 'auto' and 'full' put K1 and K2 in the graph (their
     kernels on CUDA, plain versions on the CPU); True is the PyTorch STFT
-    then K2; False PyTorch ops throughout.  ``featurizer_precision``: the
-    parity tier only (``resolve_featurizer_precision``)."""
+    then K2; False PyTorch ops throughout.  ``featurizer_precision``
+    (``resolve_featurizer_precision``): None or 'parity', or 'fast', 'turbo'
+    or a raw 'bf16xN' string, which bakes K1t into the graph in K1's place,
+    as the custom operator ``sed_tpu_torch::wave_dft_power_bf16`` with the
+    tier's passes as its arguments (the 'full' path; the others ignore it, as
+    sed_tpu's XLA path does)."""
     precision = resolve_featurizer_precision(featurizer_precision)
     device = resolve_device(device) if mesh is None else mesh.device
     spec = torch.zeros((batch, samples, 1), dtype=pcm_dtype, device=device)

@@ -68,8 +68,12 @@ def make_batch_predictor(
     the global (batch, frames', classes) scores, as ``sed_tpu``'s global
     array (``parallel.data_parallel.shard_inference``).  The batch must
     divide by the mesh size.
+
+    ``featurizer_precision``: None or 'parity' (K1), 'fast' or 'turbo' (K1t,
+    the bf16 tensor-core DFT at bf16x3 or bf16x1), or a raw 'bf16xN' string
+    (``resolve_featurizer_precision``).
     """
-    resolve_featurizer_precision(featurizer_precision)
+    precision = resolve_featurizer_precision(featurizer_precision)
     device = resolve_device(device) if mesh is None else mesh.device
     model = model.to(device)
     sigmoid = not emits_scores(model)
@@ -85,7 +89,7 @@ def make_batch_predictor(
     def predict(waveforms) -> torch.Tensor:
         model.eval()
         x = torch.as_tensor(waveforms, device=device)
-        feats = logmel_features_batch(x, cfg)        # (B, C, T, M): NCHW
+        feats = logmel_features_batch(x, cfg, pallas_precision=precision)   # NCHW
         if mean_t is not None:
             feats = (feats - mean_t) / std_t
         out = model(feats)

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of the log-mel featurizer.
 //
 // Built by sed_tpu_torch/ops/cuda_featurizer.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libsed_featurizer.so featurizer.cu
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -c featurizer.cu, twice side by side (with
+//        -DSED_FEATURIZER_NO_TIERS, and with -DSED_FEATURIZER_TIERS_ONLY),
+//   then nvcc -shared -o libsed_featurizer.so of the two objects,
 // into a shared library with a plain C interface, loaded with ctypes.  Every
 // entry point launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() after the launch (the Python wrapper raises on non-zero)
@@ -173,12 +175,60 @@
 //   (k2, k1) layout of the half transform (flat j = k2*n1 + k1 holds bin
 //   n2*k1 + k2); the tests permute sed_tpu's output, never this one.
 //
+// K1t / K3t  sed_tier_dft_power (tier_dft_kernel<N1, P1, P2>)
+//   Replaces sed_tpu/ops/pallas_featurizer.py _make_wave_fft_power_kernel_roll
+//   (:412; K1t, and K7-K10 at a tier) and _make_fft_power_kernel (:283; K3t)
+//   at a reduced precision: their dot_inner / dot_outer from _stage_dots
+//   (:272) over _make_dot (:191), 'bf16x1' (turbo), 'bf16x3' (fast),
+//   'bf16x4', 'bf16x6', or an (inner, outer) pair of them.
+//   Computes sed_tpu's two-stage matmul DFT of each windowed frame, n_fft =
+//   n1 * n2 (n1 = 2^(log2 n_fft / 2)): Y = W2 @ X over n2 (X[a][b] =
+//   x[a n1 + b]), the f32 twiddle T = Y * W_N^(k2 b), Z = T @ W1 over n1,
+//   |Z|^2 to bin n2 k1 + k2, for the one-sided bins 0..n_fft/2 in natural
+//   order (K1's and K3's output, which K2 reads).  Each product is split as
+//   _make_dot splits it: every operand into bf16 chunks by round to nearest
+//   even (P = 1: one chunk; 3 and 4: hi, lo; 6: three), the (chunk, chunk)
+//   terms of the tier (tier_term) accumulated in f32 by
+//   mma.sync.m16n8k16.bf16 on the tensor cores.  The loader is K1's framing
+//   (frame_load's start and interior test, reflect_index) or K3's rows
+//   (float32, or int16 with the window pre-scaled by 1/32768).
+//   Bound on an H100 SXM: operations at fast, bytes or operations at
+//   turbo.  At 16 x 60 s (2912 frames, n1 128, n2 256) it reads the 184 MB
+//   waveform and writes 191 MB of power (0.112 ms at 3.35 TB/s) against,
+//   a frame, P1 x 4 n2^2 n1 + P2 x 8 n2 n1 (n1/2 + 1) tensor FLOP: 147 GFLOP
+//   at turbo (0.149 ms at 989 TFLOP/s dense bf16), 442 at fast (0.447 ms).
+//   Even at its bound, fast does not beat K1 (~0.4 ms) here.
+//   Design: one CTA of 8 warps per (frame, 64 k2 rows); n2 / 64 CTAs share
+//   a frame, re-read from L2.  Stage 1 tiles k (a) by 32 through shared
+//   memory: the W2 rows' pre-split chunks (rows interleaved so a thread's
+//   mma fragment holds Yr and Yi of one (k2, b)) by cp.async into two
+//   buffers, the frame's samples into registers, both for tile t + 1 while
+//   tile t multiplies; the samples are windowed and split into [a][b]
+//   tiles read by ldmatrix.trans.  The twiddle epilogue splits T into
+//   shared memory (k2 rows x [Tr | Ti]), never device memory.  Stage 2 is
+//   one real product [Tr Ti] @ [[W1r W1i]; [-W1i W1r]] over the one-sided
+//   columns k1 < n1/2 (interleaved Zr, Zi so a thread squares its own),
+//   with the column pair k1 = n1/2 (bin n_fft/2) taken by one warp of the
+//   first CTA; its tiles come by cp.async into two buffers.  Shared memory
+//   52-158 KB and 153-212 registers: one CTA an SM.  The split tables are
+//   made once on the host from sed_tpu's f32 constants and cached per
+//   device.  The library's other object holds everything else: the two
+//   compile side by side (see sed_tier_dft_power).
+//   Known divergence from sed_tpu: one-sided natural-order power in place of
+//   all n_fft bins in the (k2, k1) layout with a folded filterbank; the
+//   tensor cores' f32 accumulation (its order, its alignment of the terms)
+//   in place of the MXU's: ~1e-5 x frame peak from the exact sums of the
+//   plain version (wave_dft_power_bf16_plain), which tests hold against
+//   sed_tpu's kernels at the same tier.  K2's bf16x1 / bf16x3 product modes
+//   (mel_log_kernel<R, kPasses>, mel_fma) serve sed_tpu's mel_precision.
+//
 // K7 (impl 'eo'), K8 ('rollraw'), K9 ('rolledge') and K10 ('slice',
 // 'roll_nodb') of sed_tpu compute K1's one-sided power (K9: K1 then K2) and
 // differ only in how the TPU moves waveform bytes into VMEM; K1 already
 // reads the raw waveform, reflects on the index and uses the even/odd
 // identity X[k] = E[k] + W^k O[k], so their counterpart is K1.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -250,11 +300,35 @@ __device__ __forceinline__ void segment_weights(const float* __restrict__ weight
   for (int j = 0; j < kSegSteps; ++j) w[j] = __ldg(weights + s.z + lane + 32 * j);
 }
 
+// f32 -> the f32 value of its bf16 rounding (round to nearest even, as
+// astype(jnp.bfloat16) and torch's .to(torch.bfloat16) round).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// acc + x * w at K2's product mode kPasses: 0, f32 (the parity mel, which
+// serves sed_tpu's None and 'bf16x4'); 1, sed_tpu's 'bf16x1': x and w
+// rounded to bf16, their product exact in f32; 3, 'bf16x3': the hi*hi +
+// hi*lo + lo*hi terms of the bf16 splits (lo = bf16(v - hi)), each exact.
+template <int kPasses>
+__device__ __forceinline__ float mel_fma(float x, float w, float acc) {
+  if constexpr (kPasses == 0) {
+    return fmaf(x, w, acc);
+  } else {
+    const float xh = bf16_round(x), wh = bf16_round(w);
+    if constexpr (kPasses == 1) return fmaf(xh, wh, acc);
+    acc = fmaf(xh, wh, acc);
+    acc = fmaf(xh, bf16_round(w - wh), acc);
+    return fmaf(bf16_round(x - xh), wh, acc);
+  }
+}
+
 // A segment's sums of R rows from the lane's power bins x[r][j] (bin
 // first + lane + 32j of row r) and weights w[j], loaded before this call
 // (past the segment's end, whatever lies there: only the lane's bins inside
 // the segment enter its fmaf chain); lane 0 is left with them in sum[].
-template <int R>
+// kPasses: the product mode (mel_fma).
+template <int R, int kPasses = 0>
 __device__ __forceinline__ void segment_sums(const float (&x)[R][kSegSteps],
                                              const float (&w)[kSegSteps], int bins, int lane,
                                              float (&sum)[R]) {
@@ -263,7 +337,7 @@ __device__ __forceinline__ void segment_sums(const float (&x)[R][kSegSteps],
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < kSegSteps; ++j)
-      if (lane + 32 * j < bins) acc = fmaf(x[r][j], w[j], acc);
+      if (lane + 32 * j < bins) acc = mel_fma<kPasses>(x[r][j], w[j], acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
     sum[r] = acc;
@@ -943,7 +1017,9 @@ constexpr long long mel_smem_bytes(int n_seg, int n_mels) {
 // group, each for all R rows at once; the sums go to seg_sums of the group
 // (two buffers, by group parity); after a barrier of the summing warps, one
 // thread per (row, band) adds the band's segments and writes out.
-template <int R>
+// kPasses: the product mode of the band sums (mel_fma): 0 f32, 1 and 3 the
+// bf16x1 and bf16x3 tiers of sed_tpu's mel_precision.
+template <int R, int kPasses>
 __global__ void __launch_bounds__(kMelThreads, kMelMinBlocks<R>) mel_log_kernel(const MelArgs a) {
   constexpr int D = kMelSlots<R>;
   constexpr int C = kMelChunk<R>;
@@ -1010,7 +1086,7 @@ __global__ void __launch_bounds__(kMelThreads, kMelMinBlocks<R>) mel_log_kernel(
         float x[R][kSegSteps];
         ring_bins<R, D>(ring, base, s, lane, x);
         float sum[R];
-        segment_sums<R>(x, w, s.y, lane, sum);
+        segment_sums<R, kPasses>(x, w, s.y, lane, sum);
         if (lane == 0) {
 #pragma unroll
           for (int r = 0; r < R; ++r) sums[r * a.n_seg + s.w] = sum[r];
@@ -1108,24 +1184,474 @@ int with_log2_m(int log2_m, const Launch& launch) {
 // K2 over R rows at a time: the ring (R rows of kMelSlots<R> chunks), two
 // buffers of R * n_seg segment sums, the barriers before them; as many
 // persistent CTAs as fit on the card at once, or one per group of rows.
-template <int R>
+template <int R, int kPasses = 0>
 int launch_mel_log(const MelArgs& args, int n_sm, cudaStream_t stream) {
   const long long bytes = mel_smem_bytes<R>(args.n_seg, args.n_mels);
   if (bytes > 232448) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(bytes);
-  cudaError_t err = cudaFuncSetAttribute(mel_log_kernel<R>,
+  cudaError_t err = cudaFuncSetAttribute(mel_log_kernel<R, kPasses>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_log_kernel<R>, kMelThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_log_kernel<R, kPasses>,
+                                                      kMelThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long groups = (args.rows + R - 1) / R;
   const long long ctas = groups < 1LL * per_sm * n_sm ? groups : 1LL * per_sm * n_sm;
-  mel_log_kernel<R><<<static_cast<unsigned>(ctas), kMelThreads, smem, stream>>>(args);
+  mel_log_kernel<R, kPasses><<<static_cast<unsigned>(ctas), kMelThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K1t / K3t: the bf16 tensor-core DFT of the reduced-precision tiers,
+// tier_dft_kernel<N1, P1, P2>.  sed_tpu's two-stage matmul DFT (n_fft =
+// n1 * n2, stft.py _matmul_fft_constants) with every product split into bf16
+// chunks as its _make_dot does, on the tensor cores by mma.sync.m16n8k16.
+// ---------------------------------------------------------------------------
+
+// bf16 chunks an operand is split into at P passes (1: bf16x1; 3, 4:
+// bf16x3, bf16x4, hi and lo; 6: bf16x6, three chunks), and whether the
+// product of chunk ca of one operand and chunk cb of the other is one of
+// its terms: x1 (0,0); x3 adds (0,1), (1,0); x4 (1,1); x6 (2,0), (0,2).
+__host__ __device__ constexpr int tier_chunks(int passes) {
+  return passes == 1 ? 1 : (passes == 6 ? 3 : 2);
+}
+__host__ __device__ constexpr bool tier_term(int passes, int ca, int cb) {
+  return passes == 1   ? ca + cb == 0
+         : passes == 3 ? ca + cb <= 1
+         : passes == 4 ? ca <= 1 && cb <= 1
+                       : ca + cb <= 2;
+}
+
+// v split into C bf16 chunks by round to nearest even: c[0] = bf16(v),
+// c[i] = bf16(v - c[0] - ... - c[i-1]), each residual exact in f32.  It is
+// sed_tpu's _split_bf16 (hi = bf16(a), lo = a - hi; three chunks as its
+// _split3), with each chunk rounded to bf16 as the TPU's matrix unit rounds
+// an operand at Precision.DEFAULT.
+template <int C>
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16 (&c)[C]) {
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    c[i] = __float2bfloat16_rn(v);
+    v -= __bfloat162float(c[i]);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void split_bf16x2(float v0, float v1, unsigned (&c)[C]) {
+  __nv_bfloat16 a[C], b[C];
+  split_bf16<C>(v0, a);
+  split_bf16<C>(v1, b);
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const __nv_bfloat162 pair = __halves2bfloat162(a[i], b[i]);
+    c[i] = *reinterpret_cast<const unsigned*>(&pair);
+  }
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_address(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// A fragment of mma.m16n8k16 (16 rows x 16 k of a row-major [m][k] tile at
+// p, row stride `stride` elements) by ldmatrix: lane l gives row l & 15,
+// column (l >> 4) * 8.
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const __nv_bfloat16* p, int stride,
+                                       int lane) {
+  const unsigned addr = smem_address(p + (lane & 15) * stride + (lane >> 4) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// B fragment (16 k x 8 n) of a [k][n] tile (n contiguous) by ldmatrix.trans:
+// lane l gives row k = l & 15.
+__device__ __forceinline__ void load_b_kn(unsigned (&b)[2], const __nv_bfloat16* p, int stride,
+                                          int lane) {
+  const unsigned addr = smem_address(p + (lane & 15) * stride);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// B fragment (16 k x 8 n) of an [n][k] tile (k contiguous) by ldmatrix:
+// lane l gives row n = l & 7, column ((l >> 3) & 1) * 8.
+__device__ __forceinline__ void load_b_nk(unsigned (&b)[2], const __nv_bfloat16* p, int stride,
+                                          int lane) {
+  const unsigned addr = smem_address(p + (lane & 7) * stride + ((lane >> 3) & 1) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// d += a b on the tensor cores: bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Where a block's frame comes from, and its samples times the window, read
+// only where the window is non-zero (as K1's and K3's loaders read them).
+// kind 0: K1's centred frame of a waveform, reflect-padded on the index
+// (frame_load's start and interior test, reflect_index); 1: K3's rows of
+// f32 samples; 2: K3's rows of int16 PCM, the window pre-scaled by 1/32768.
+struct TierSource {
+  const void* data;
+  const float* window;
+  long long n_samples;  // kind 0: samples of a signal
+  int n_frames, hop;    // kind 0
+  int kind;
+};
+
+struct TierFrame {
+  const float* y;    // kind 0: the signal; 1: the row
+  const short* y16;  // kind 2: the row
+  const float* window;
+  long long start, n;
+  bool interior;
+  int kind;
+
+  __device__ __forceinline__ TierFrame(const TierSource& src, long long row, int n_fft) {
+    window = src.window;
+    kind = src.kind;
+    y16 = nullptr;
+    start = 0;
+    n = n_fft;
+    interior = true;
+    if (kind == 0) {
+      const long long sig = row / src.n_frames;
+      y = static_cast<const float*>(src.data) + sig * src.n_samples;
+      start = (row - sig * src.n_frames) * src.hop - n_fft / 2;
+      n = src.n_samples;
+      interior = start >= 0 && start + n_fft <= n;
+    } else if (kind == 1) {
+      y = static_cast<const float*>(src.data) + row * n_fft;
+    } else {
+      y = nullptr;
+      y16 = static_cast<const short*>(src.data) + row * n_fft;
+    }
+  }
+
+  // Samples s and s + 1 (s even), unwindowed: every load is issued without
+  // waiting for the window (windowed() applies it as K1 and K3 do).
+  __device__ __forceinline__ float2 raw(int s) const {
+    if (kind == 0) {
+      if (interior) return make_float2(y[start + s], y[start + s + 1]);
+      return make_float2(y[reflect_index(start + s, n)], y[reflect_index(start + s + 1, n)]);
+    }
+    if (kind == 1) return reinterpret_cast<const float2*>(y)[s >> 1];
+    const short2 q = reinterpret_cast<const short2*>(y16)[s >> 1];
+    return make_float2(static_cast<float>(q.x), static_cast<float>(q.y));
+  }
+};
+
+// x times the window w, 0 where the window is 0 (K1's and K3's loaders).
+__device__ __forceinline__ float2 windowed(float2 x, float2 w) {
+  return make_float2(w.x != 0.f ? w.x * x.x : 0.f, w.y != 0.f ? w.y * x.y : 0.f);
+}
+
+constexpr int kTierThreads = 256;  // 8 warps: 2 (m) x 4 (n) in both stages
+constexpr int kTierRows = 64;      // k2 rows of a block (BM)
+constexpr int kTierK = 32;         // k of a staged tile, both stages
+constexpr int kTierPad = 8;        // bf16 of padding a row of shared memory
+
+// Shared memory of tier_dft_kernel<N1, P1, P2>, in bytes: the stage-2 A
+// operand T (C2 chunks of kTierRows x (2 n1 + pad)), then one region that
+// holds stage 1's staged tiles (two buffers of C1 chunks of A: 2 kTierRows
+// x (kTierK + pad); one of X: C1 chunks of kTierK x (n1 + pad)) and later
+// stage 2's (two buffers of C2 chunks of (n1 + 8) x (kTierK + pad)).
+__host__ __device__ constexpr int tier_smem_t(int n1, int p2) {
+  return tier_chunks(p2) * kTierRows * (2 * n1 + kTierPad) * 2;
+}
+__host__ __device__ constexpr int tier_smem_a1(int p1) {
+  return 2 * tier_chunks(p1) * 2 * kTierRows * (kTierK + kTierPad) * 2;
+}
+__host__ __device__ constexpr int tier_smem_stage1(int n1, int p1) {
+  return tier_smem_a1(p1) + tier_chunks(p1) * kTierK * (n1 + kTierPad) * 2;
+}
+__host__ __device__ constexpr int tier_smem_stage2(int n1, int p2) {
+  return 2 * tier_chunks(p2) * (n1 + 8) * (kTierK + kTierPad) * 2;
+}
+__host__ __device__ constexpr int tier_smem_bytes(int n1, int p1, int p2) {
+  return tier_smem_t(n1, p2) + (tier_smem_stage1(n1, p1) > tier_smem_stage2(n1, p2)
+                                    ? tier_smem_stage1(n1, p1)
+                                    : tier_smem_stage2(n1, p2));
+}
+
+// One block: frame `row` = blockIdx.x / n_blk, k2 rows k0 .. k0 + 63 (k0 =
+// 64 (blockIdx.x % n_blk)), n2 = 64 n_blk.  tab1: C1 chunks of (2 n2, n2),
+// row 16t + 8h + i = W2 (h = 0 real, 1 imaginary) at k2 = 8t + i; tab2: C2
+// chunks of (n1 + 8, 2 n1), column 2j + h (h = 0: Zr, 1: Zi) over k = the
+// n1 entries that multiply Tr, then the n1 that multiply Ti; twiddle: (n2,
+// n1) f32 W_N^(k2 b).  Out: bins k = n2 k1 + k2 <= n_fft / 2 of the row.
+template <int N1, int P1, int P2>
+__global__ void __launch_bounds__(kTierThreads, 1)
+tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
+                const __nv_bfloat16* __restrict__ tab2, const float2* __restrict__ twiddle,
+                float* __restrict__ out, int n_blk) {
+  constexpr int C1 = tier_chunks(P1), C2 = tier_chunks(P2);
+  constexpr int BM = kTierRows, KT = kTierK;
+  constexpr int TM1 = BM / 16, TN1 = N1 / 32;  // a warp's m and n tiles, stage 1
+  constexpr int TM2 = BM / 32, TN2 = N1 / 32;  // stage 2
+  constexpr int ST = 2 * N1 + kTierPad;        // row stride of T
+  constexpr int SA1 = KT + kTierPad;           // of stage 1's A tile
+  constexpr int SX = N1 + kTierPad;            // of stage 1's X tile
+  constexpr int SB2 = KT + kTierPad;           // of stage 2's B tile
+  constexpr int NC2 = N1 + 8;                  // stage 2's columns: n1/2 + 4 pairs
+  extern __shared__ __align__(16) unsigned char tier_smem[];
+  auto* ts = reinterpret_cast<__nv_bfloat16*>(tier_smem);
+  constexpr int A1 = C1 * 2 * BM * SA1;       // elements of one A buffer
+  constexpr int B2 = C2 * NC2 * SB2;           // of one stage-2 B buffer
+  constexpr int XP = KT * N1 / 2 / kTierThreads;  // sample pairs a thread loads a tile
+  auto* a1s = ts + C2 * BM * ST;               // two buffers
+  auto* x1s = a1s + 2 * A1;
+  auto* b2s = a1s;  // two buffers; stage 2 reuses stage 1's region
+
+  const int n2 = BM * n_blk;
+  const int n_fft = N1 * n2;
+  const long long row = blockIdx.x / n_blk;
+  const int blk = blockIdx.x - static_cast<int>(row * n_blk);
+  const int k0 = BM * blk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const TierFrame frame(src, row, n_fft);
+
+  // Stage 1: [Yr; Yi] (rows interleaved by 8) = W2[k2 rows] @ X, X[a][b] =
+  // x[a n1 + b], over k = a in tiles of KT, pipelined: while tile t is
+  // multiplied, the W2 rows of tile t + 1 come by cp.async into the other A
+  // buffer and its samples into registers.
+  const auto copy_a1 = [&](int a0, __nv_bfloat16* dst) {
+    // 2 BM rows x KT bf16 a chunk, 16 bytes a copy.
+    for (int i = tid; i < C1 * 2 * BM * (KT / 8); i += kTierThreads) {
+      const int c = i / (2 * BM * (KT / 8));
+      const int r = (i / (KT / 8)) % (2 * BM);
+      const int q = i % (KT / 8);
+      cp_async_16(dst + (c * 2 * BM + r) * SA1 + q * 8,
+                  tab1 + (static_cast<long long>(c) * 2 * n2 + 2 * k0 + r) * n2 + a0 + q * 8);
+    }
+  };
+  float2 xv[XP], xw[XP];
+  const auto load_x = [&](int a0) {  // samples a0 n1 .. (a0 + KT) n1 and their window
+#pragma unroll
+    for (int j = 0; j < XP; ++j) {
+      const int s = a0 * N1 + 2 * (tid + j * kTierThreads);
+      xv[j] = frame.raw(s);
+      xw[j] = __ldg(reinterpret_cast<const float2*>(frame.window) + (s >> 1));
+    }
+  };
+  const auto store_x = [&]() {  // windowed, split, into X's tile as [a][b]
+#pragma unroll
+    for (int j = 0; j < XP; ++j) {
+      const int s = 2 * (tid + j * kTierThreads);
+      const float2 v = windowed(xv[j], xw[j]);
+      unsigned c[C1];
+      split_bf16x2<C1>(v.x, v.y, c);
+      const int a = s / N1, b = s % N1;
+#pragma unroll
+      for (int ci = 0; ci < C1; ++ci)
+        *reinterpret_cast<unsigned*>(x1s + (ci * KT + a) * SX + b) = c[ci];
+    }
+  };
+  float acc1[TM1][TN1][4] = {};
+  load_x(0);
+  copy_a1(0, a1s);
+  for (int a0 = 0, buf = 0; a0 < n2; a0 += KT, buf ^= 1) {
+    store_x();
+    cp_async_wait_all();
+    __syncthreads();
+    if (a0 + KT < n2) {
+      copy_a1(a0 + KT, a1s + (buf ^ 1) * A1);
+      load_x(a0 + KT);
+    }
+    const __nv_bfloat16* a1 = a1s + buf * A1;
+#pragma unroll
+    for (int ks = 0; ks < KT; ks += 16) {
+      unsigned bf[C1][TN1][2];
+#pragma unroll
+      for (int cb = 0; cb < C1; ++cb)
+#pragma unroll
+        for (int j = 0; j < TN1; ++j)
+          load_b_kn(bf[cb][j], x1s + (cb * KT + ks) * SX + (wn * TN1 + j) * 8, SX, lane);
+#pragma unroll
+      for (int ca = 0; ca < C1; ++ca) {
+        unsigned af[TM1][4];
+#pragma unroll
+        for (int i = 0; i < TM1; ++i)
+          load_a(af[i], a1 + (ca * 2 * BM + (wm * TM1 + i) * 16) * SA1 + ks, SA1, lane);
+#pragma unroll
+        for (int cb = 0; cb < C1; ++cb) {
+          if (!tier_term(P1, ca, cb)) continue;
+#pragma unroll
+          for (int i = 0; i < TM1; ++i)
+#pragma unroll
+            for (int j = 0; j < TN1; ++j) mma_bf16(acc1[i][j], af[i], bf[cb][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Stage 2's first B tile flies while the twiddle epilogue runs.
+  const auto copy_b2 = [&](int kk0, __nv_bfloat16* dst) {
+    for (int i = tid; i < C2 * NC2 * (KT / 8); i += kTierThreads) {
+      const int c = i / (NC2 * (KT / 8));
+      const int col = (i / (KT / 8)) % NC2;
+      const int q = i % (KT / 8);
+      cp_async_16(dst + (c * NC2 + col) * SB2 + q * 8,
+                  tab2 + (static_cast<long long>(c) * NC2 + col) * 2 * N1 + kk0 + q * 8);
+    }
+  };
+  copy_b2(0, b2s);
+
+  // Twiddle, in f32 as sed_tpu's (tr = yr twr - yi twi, ti = yr twi + yi
+  // twr, no fused multiply-add), split, into T: Tr at k = b, Ti at n1 + b.
+#pragma unroll
+  for (int i = 0; i < TM1; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN1; ++j) {
+      const int k2l = (wm * TM1 + i) * 8 + g;
+      const int b = (wn * TN1 + j) * 8 + 2 * tig;
+      const float4 tw =
+          *reinterpret_cast<const float4*>(twiddle + static_cast<long long>(k0 + k2l) * N1 + b);
+      const float* y = acc1[i][j];  // yr(b), yr(b + 1), yi(b), yi(b + 1)
+      const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
+      const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
+      const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
+      const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
+      unsigned cr[C2], cim[C2];
+      split_bf16x2<C2>(tr0, tr1, cr);
+      split_bf16x2<C2>(ti0, ti1, cim);
+#pragma unroll
+      for (int c = 0; c < C2; ++c) {
+        *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + b) = cr[c];
+        *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + N1 + b) = cim[c];
+      }
+    }
+  }
+
+  // Stage 2: [Zr Zi] (columns interleaved) = [Tr Ti] @ [[W1r W1i]; [-W1i
+  // W1r]] over the one-sided columns k1 < n1 / 2; warp 0 of block 0 also
+  // takes the tile of k1 = n1 / 2 .. n1 / 2 + 3, whose row k2 = 0 is bin
+  // n_fft / 2.
+  const bool nyquist = blk == 0 && warp == 0;
+  float acc2[TM2][TN2][4] = {};
+  float accn[4] = {};
+  for (int kk0 = 0, buf = 0; kk0 < 2 * N1; kk0 += KT, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kk0 has landed (and, the first time, T is written)
+    if (kk0 + KT < 2 * N1) copy_b2(kk0 + KT, b2s + (buf ^ 1) * B2);
+    const __nv_bfloat16* b2 = b2s + buf * B2;
+#pragma unroll
+    for (int ks = 0; ks < KT; ks += 16) {
+      unsigned bf[C2][TN2][2];
+      unsigned bn[C2][2];
+#pragma unroll
+      for (int cb = 0; cb < C2; ++cb) {
+#pragma unroll
+        for (int j = 0; j < TN2; ++j)
+          load_b_nk(bf[cb][j], b2 + (cb * NC2 + (wn * TN2 + j) * 8) * SB2 + ks, SB2, lane);
+        if (nyquist) load_b_nk(bn[cb], b2 + (cb * NC2 + N1) * SB2 + ks, SB2, lane);
+      }
+#pragma unroll
+      for (int ca = 0; ca < C2; ++ca) {
+        unsigned af[TM2][4];
+#pragma unroll
+        for (int i = 0; i < TM2; ++i)
+          load_a(af[i], ts + (ca * BM + (wm * TM2 + i) * 16) * ST + kk0 + ks, ST, lane);
+#pragma unroll
+        for (int cb = 0; cb < C2; ++cb) {
+          if (!tier_term(P2, ca, cb)) continue;
+#pragma unroll
+          for (int i = 0; i < TM2; ++i)
+#pragma unroll
+            for (int j = 0; j < TN2; ++j) mma_bf16(acc2[i][j], af[i], bf[cb][j]);
+          if (nyquist) mma_bf16(accn, af[0], bn[cb]);
+        }
+      }
+    }
+  }
+
+  // |Z|^2 (zr zr + zi zi, no fused multiply-add) to bin n2 k1 + k2.
+  float* o = out + row * (n_fft / 2 + 1LL);
+#pragma unroll
+  for (int i = 0; i < TM2; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN2; ++j) {
+      const int k2 = k0 + (wm * TM2 + i) * 16 + g;
+      const int k1 = (wn * TN2 + j) * 4 + tig;
+      const float* z = acc2[i][j];
+      o[n2 * k1 + k2] = __fadd_rn(__fmul_rn(z[0], z[0]), __fmul_rn(z[1], z[1]));
+      o[n2 * k1 + k2 + 8] = __fadd_rn(__fmul_rn(z[2], z[2]), __fmul_rn(z[3], z[3]));
+    }
+  }
+  if (nyquist && lane == 0)
+    o[n_fft / 2] = __fadd_rn(__fmul_rn(accn[0], accn[0]), __fmul_rn(accn[1], accn[1]));
+}
+
+// tier_dft_kernel<N1, P1, P2> over `rows` frames of n_fft = 2^log2_n.
+template <int N1, int P1, int P2>
+int launch_tier_dft(const TierSource& src, const __nv_bfloat16* tab1, const __nv_bfloat16* tab2,
+                    const float2* twiddle, float* out, long long rows, int log2_n,
+                    cudaStream_t stream) {
+  constexpr int smem = tier_smem_bytes(N1, P1, P2);
+  static_assert(smem <= 232448, "tier_dft_kernel: shared memory");
+  const int n_blk = (1 << log2_n) / N1 / kTierRows;
+  const long long blocks = rows * n_blk;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(tier_dft_kernel<N1, P1, P2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  tier_dft_kernel<N1, P1, P2><<<static_cast<unsigned>(blocks), kTierThreads, smem, stream>>>(
+      src, tab1, tab2, twiddle, out, n_blk);
+  return cudaGetLastError();
+}
+
+// launch(integral_constant<P>) for P = passes in 1, 3, 4, 6.
+template <typename Launch>
+int with_passes(int passes, const Launch& launch) {
+  switch (passes) {
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 3: return launch(std::integral_constant<int, 3>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 6: return launch(std::integral_constant<int, 6>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#ifndef SED_FEATURIZER_TIERS_ONLY
+// K2 at product mode `passes` (mel_fma) on the current device: kMelRows rows
+// at a time once every SM has a group of them; one row at a time below that
+// (the streaming tick's 160 rows: one wave of CTAs).
+int launch_mel_log_mode(const MelArgs& args, int passes, int device, cudaStream_t s) {
+  int n_sm = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const bool many = args.rows >= static_cast<long long>(kMelRows) * n_sm;
+  switch (passes) {
+    case 0:
+      return many ? launch_mel_log<kMelRows>(args, n_sm, s) : launch_mel_log<1>(args, n_sm, s);
+    case 1:
+      return many ? launch_mel_log<kMelRows, 1>(args, n_sm, s)
+                  : launch_mel_log<1, 1>(args, n_sm, s);
+    case 3:
+      return many ? launch_mel_log<kMelRows, 3>(args, n_sm, s)
+                  : launch_mel_log<1, 3>(args, n_sm, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#endif  // SED_FEATURIZER_TIERS_ONLY
 
 // Makes `device` the calling thread's current device for the guard's life and
 // restores the caller's device on every return path, error paths included, so
@@ -1158,6 +1684,7 @@ class DeviceGuard {
 
 extern "C" {
 
+#ifndef SED_FEATURIZER_TIERS_ONLY
 const char* sed_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -1202,23 +1729,18 @@ int sed_frames_stft_power(const void* frames, int frames_are_int16,
   });
 }
 
+// K2 at product mode `passes` (mel_fma: 0 f32, 1 bf16x1, 3 bf16x3).
 int sed_mel_log(const void* power, const void* segments, const void* band_first,
                 const void* work, const void* weights, void* out, long long rows, int n_bins,
-                int n_mels, int n_seg, int span_lo, int span_hi, int device, void* stream) {
+                int n_mels, int n_seg, int span_lo, int span_hi, int passes, int device,
+                void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  int n_sm = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
   const MelArgs args{static_cast<const float*>(power), static_cast<const int4*>(segments),
                      static_cast<const int*>(band_first), static_cast<const int*>(work),
                      static_cast<const float*>(weights), static_cast<float*>(out), rows,
                      n_bins, n_mels, n_seg, span_lo, span_hi};
-  const auto s = static_cast<cudaStream_t>(stream);
-  // kMelRows rows at a time once every SM has a group of them; one row at a
-  // time below that (the streaming tick's 160 rows: one wave of CTAs).
-  return rows >= static_cast<long long>(kMelRows) * n_sm ? launch_mel_log<kMelRows>(args, n_sm, s)
-                                                         : launch_mel_log<1>(args, n_sm, s);
+  return launch_mel_log_mode(args, passes, device, static_cast<cudaStream_t>(stream));
 }
 
 int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twiddle,
@@ -1266,5 +1788,47 @@ int sed_wave_packed_fft(const void* wave, const void* window,
                               tw, re, im, n_samples, n_frames, hop);
   });
 }
+
+#endif  // SED_FEATURIZER_TIERS_ONLY
+
+#ifndef SED_FEATURIZER_NO_TIERS
+// K1t (kind 0: waveforms, as K1 frames them) and K3t (kind 1, 2: rows of
+// f32 or int16, as K3 reads them): one-sided |X|^2 of `rows` frames of
+// n_fft = 2^log2_n (log2_n 11..15) by the bf16 tensor-core DFT at
+// inner_passes / outer_passes (1, 3, 4, 6) in its two stages.  Its 48
+// instances take as long to compile as the rest of the file, so the library
+// is linked from two objects of this file compiled side by side:
+// -DSED_FEATURIZER_TIERS_ONLY (this entry) and -DSED_FEATURIZER_NO_TIERS
+// (every other; the lesion builds of chip_smoke.py too).
+int sed_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
+                       const void* tab2, const void* twiddle, void* out, long long rows,
+                       long long n_samples, int n_frames, int hop, int log2_n,
+                       int inner_passes, int outer_passes, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (log2_n < 11 || log2_n > 15 || kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* power = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto at_n1 = [&](auto n1_constant) {
+    constexpr int N1 = decltype(n1_constant)::value;
+    return with_passes(inner_passes, [&](auto p1_constant) {
+      return with_passes(outer_passes, [&](auto p2_constant) {
+        constexpr int P1 = decltype(p1_constant)::value, P2 = decltype(p2_constant)::value;
+        return launch_tier_dft<N1, P1, P2>(src, t1, t2, tw, power, rows, log2_n, s);
+      });
+    });
+  };
+  // n1 = 2^(log2_n / 2): 32 for 11, 64 for 12 and 13, 128 for 14 and 15.
+  switch (log2_n / 2) {
+    case 5: return at_n1(std::integral_constant<int, 32>{});
+    case 6: return at_n1(std::integral_constant<int, 64>{});
+    default: return at_n1(std::integral_constant<int, 128>{});
+  }
+}
+#endif  // SED_FEATURIZER_NO_TIERS
 
 }  // extern "C"

@@ -17,13 +17,21 @@ replaces, what bounds it and how it is designed):
   * K5 :func:`wave_stft_mel_log` — K1 then K2 in one launch, waveforms ->
     (n_sig, n_frames, mel) f32 with no power array in device memory;
   * K6 :func:`wave_packed_fft` — waveforms -> (Zr, Zi), each (n_sig,
-    n_frames, n_fft/2) f32, the packed complex FFT of each frame.
+    n_frames, n_fft/2) f32, the packed complex FFT of each frame;
+  * K1t :func:`wave_dft_power_bf16` and K3t :func:`frames_dft_power_bf16` —
+    K1's and K3's functions at sed_tpu's reduced-precision tiers ('fast'
+    bf16x3, 'turbo' bf16x1, the raw 'bf16xN' strings and per-stage pairs):
+    sed_tpu's two-stage matmul DFT with each product split into bf16 chunks
+    as its ``_make_dot`` splits them, on the tensor cores (one kernel,
+    ``tier_dft_kernel``, with K1's and K3's loaders).  K2 takes sed_tpu's
+    ``mel_precision`` 'bf16x1' and 'bf16x3' as product modes.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
 :func:`mel_log_plain`, :func:`frames_stft_power_plain`,
-:func:`wave_stft_mel_log_plain`, :func:`wave_packed_fft_plain`); a CUDA
-tensor launches the kernel or raises.  There is no fallback from a failed
+:func:`wave_stft_mel_log_plain`, :func:`wave_packed_fft_plain`,
+:func:`wave_dft_power_bf16_plain`, :func:`frames_dft_power_bf16_plain`); a
+CUDA tensor launches the kernel or raises.  There is no fallback from a failed
 build or launch to the plain version.
 
 The drivers at the end carry ``sed_tpu``'s names without ``_pallas``
@@ -40,13 +48,14 @@ artifacts of ``sed_tpu_torch.export`` carry one).  ``LAUNCHES`` counts the
 kernel launches of each wrapper, so a caller can show that a run went
 through the kernels.
 
-K1 and K2 are also registered as the custom operators
-``torch.ops.sed_tpu_torch.wave_stft_power`` and
-``torch.ops.sed_tpu_torch.mel_log``, whose CPU kernels are the plain
-versions and whose CUDA kernels are the launches; their wrappers call
-them, so a ``torch.export`` program holds both kernels and counts their
-launches as eager calls do.  K3, K5 and K6 are bound directly: a program
-that exports their paths needs the same wrapping first.
+K1, K2 and K1t are also registered as the custom operators
+``torch.ops.sed_tpu_torch.wave_stft_power``, ``torch.ops.sed_tpu_torch.mel_log``
+and ``torch.ops.sed_tpu_torch.wave_dft_power_bf16``, whose CPU kernels are
+the plain versions and whose CUDA kernels are the launches; their wrappers
+call them, so a ``torch.export`` program holds the kernels and counts their
+launches as eager calls do.  K3, K3t, K5, K6 and K2's bf16 product modes are
+bound directly: a program that exports their paths needs the same wrapping
+first.
 """
 
 from __future__ import annotations
@@ -74,6 +83,15 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "featurizer.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# How build() makes the library, and all that library_digest() hashes beside
+# the source: each unit's macro picks one object of the source (featurizer.cu:
+# the tier DFT kernel's 48 instances, then everything else), the objects are
+# compiled side by side with "compile" and joined by one nvcc with "link".
+BUILD_RECIPE = {
+    "compile": tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",),
+    "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_NO_TIERS"),
+    "link": ("-shared",),
+}
 
 # Largest dynamic shared memory a Hopper block can use (227 KB); the FFT
 # kernels keep n_fft/2 complex f32 points there (K5 also the power row).
@@ -81,7 +99,8 @@ _MAX_SMEM_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
 
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
-            "wave_stft_mel_log": 0, "wave_packed_fft": 0}
+            "wave_stft_mel_log": 0, "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
+            "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -112,10 +131,10 @@ def _nvcc() -> str:
 
 
 def library_digest() -> str:
-    """The hash of ``csrc/featurizer.cu`` and the nvcc flags that names the
-    library built from them."""
+    """The hash of ``csrc/featurizer.cu`` and of :data:`BUILD_RECIPE` that
+    names the library built from them."""
     src = SOURCE.read_bytes()
-    return hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return hashlib.sha1(src + repr(sorted(BUILD_RECIPE.items())).encode()).hexdigest()[:12]
 
 
 def library_path(digest: Optional[str] = None) -> Path:
@@ -145,9 +164,10 @@ def install_library(data: bytes, digest: str, sha256: str) -> Path:
 
 
 def build(force: bool = False) -> BuildInfo:
-    """Compile ``csrc/featurizer.cu`` into ``_build/``.
+    """Compile ``csrc/featurizer.cu`` into ``_build/``: two objects of it
+    side by side, then the shared library of both (:data:`BUILD_RECIPE`).
 
-    The library's name carries a hash of the source and flags
+    The library's name carries a hash of the source and the recipe
     (:func:`library_digest`), so an edited source is rebuilt and an
     unchanged one is reused unless ``force``.  The build writes a temporary
     file and renames it, so concurrent processes never load a half-written
@@ -158,14 +178,29 @@ def build(force: bool = False) -> BuildInfo:
         return BuildInfo(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    units = BUILD_RECIPE["units"]
+    objs = [path.with_suffix(f".{os.getpid()}.{i}.o") for i in range(len(units))]
+    cmds = [[_nvcc(), *BUILD_RECIPE["compile"], unit, "-o", str(obj), str(SOURCE)]
+            for unit, obj in zip(units, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(cmd, proc.returncode) for cmd, proc in zip(cmds, procs) if proc.returncode]
+    if not failed:
+        cmd = [_nvcc(), *BUILD_RECIPE["link"], "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append((cmd, link.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        cmd, code = failed[0]
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, path)
     return BuildInfo(path, seconds, log)
 
@@ -180,7 +215,7 @@ def _library() -> ctypes.CDLL:
                                         i32, i32, vp]
     lib.sed_wave_stft_power.restype = i32
     lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
-                                i32, vp]
+                                i32, i32, vp]
     lib.sed_mel_log.restype = i32
     lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
@@ -190,6 +225,9 @@ def _library() -> ctypes.CDLL:
     lib.sed_wave_packed_fft.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                         i32, i32, vp]
     lib.sed_wave_packed_fft.restype = i32
+    lib.sed_tier_dft_power.argtypes = [vp, i32, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                                       i32, i32, i32, vp]
+    lib.sed_tier_dft_power.restype = i32
     return lib
 
 
@@ -580,15 +618,34 @@ def _check_bands(bands: MelBands, device: torch.device) -> None:
     _require_cuda_f32("bands.weights", bands.weights, device)
 
 
-def mel_log_plain(power: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+def mel_passes(mel_precision) -> int:
+    """sed_tpu's ``mel_precision`` -> K2's product mode: 0 (f32) for None,
+    'bf16x4' (sed_tpu's parity mel) and 'bf16x6'; 1 for 'bf16x1', 3 for
+    'bf16x3'."""
+    if mel_precision in (None, "bf16x4", "bf16x6"):
+        return 0
+    if mel_precision in ("bf16x1", "bf16x3"):
+        return TIER_PASSES[mel_precision]
+    raise ValueError(f"unknown mel_precision {mel_precision!r}: expected None, "
+                     f"'bf16x6', 'bf16x4', 'bf16x3' or 'bf16x1'")
+
+
+def mel_log_plain(power: torch.Tensor, fb: torch.Tensor, mel_precision=None) -> torch.Tensor:
     """Plain version of K2: dense ``power @ fb`` (TF32 off), clamp, 10*log10.
-    Computes in the dtype of ``power`` (float32 or float64)."""
-    with full_float32():
-        melp = torch.matmul(power, fb.to(power.dtype))
+    Computes in the dtype of ``power`` (float32 or float64); at
+    ``mel_precision`` 'bf16x1' or 'bf16x3' the product takes that tier's bf16
+    chunks of both operands (:func:`tier_matmul`)."""
+    passes = mel_passes(mel_precision)
+    fb = fb.to(power.dtype)
+    if passes:
+        melp = tier_matmul(power, fb, passes)
+    else:
+        with full_float32():
+            melp = torch.matmul(power, fb)
     return mel_ops.power_to_db(melp)
 
 
-def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
+def mel_log(power: torch.Tensor, bands: MelBands, mel_precision=None) -> torch.Tensor:
     """(rows, n_bins) f32 power -> (rows, n_mels) f32 log-mel.
 
     CPU tensors take :func:`mel_log_plain`; CUDA tensors launch K2, which
@@ -596,12 +653,20 @@ def mel_log(power: torch.Tensor, bands: MelBands) -> torch.Tensor:
     bands by segments (:class:`MelBands`).  Any row count and any base
     alignment: rows need not start on a 16-byte boundary.  Both go through
     the custom operator ``sed_tpu_torch::mel_log``, which takes the band
-    tensors and span in place of the :class:`MelBands`.
+    tensors and span in place of the :class:`MelBands`.  ``mel_precision``
+    'bf16x1' or 'bf16x3' (:func:`mel_passes`) runs K2's bf16 product mode of
+    that tier, bound directly (no operator: no exported program asks for it),
+    counted under ``LAUNCHES["mel_log_bf16"]``.
     """
     _require_cpu_or_cuda("mel_log", power)
-    return torch.ops.sed_tpu_torch.mel_log(power, bands.segments, bands.band_first,
-                                           bands.work, bands.weights, bands.dense,
-                                           *bands.span)
+    passes = mel_passes(mel_precision)
+    if passes == 0:
+        return torch.ops.sed_tpu_torch.mel_log(power, bands.segments, bands.band_first,
+                                               bands.work, bands.weights, bands.dense,
+                                               *bands.span)
+    if power.device.type == "cpu":
+        return mel_log_plain(power, bands.dense, mel_precision)
+    return _launch_mel_log(power, bands, passes)
 
 
 @torch.library.custom_op("sed_tpu_torch::mel_log", mutates_args=(), device_types="cpu")
@@ -621,6 +686,11 @@ def _mel_log_cuda(power, segments, band_first, work, weights, dense, span_first,
     if power.device.type != "cuda":
         raise ValueError(f"power is on {power.device}, expected a CUDA device")
     bands = MelBands(segments, band_first, work, weights, dense, (span_first, span_end))
+    return _launch_mel_log(power, bands, 0)
+
+
+def _launch_mel_log(power: torch.Tensor, bands: MelBands, passes: int) -> torch.Tensor:
+    """K2 on a CUDA tensor at product mode ``passes`` (:func:`mel_passes`)."""
     device = power.device
     _require_cuda_f32("power", power, device)
     _check_bands(bands, device)
@@ -633,10 +703,10 @@ def _mel_log_cuda(power, segments, band_first, work, weights, dense, span_first,
     err = _library().sed_mel_log(
         power.data_ptr(), bands.segments.data_ptr(), bands.band_first.data_ptr(),
         bands.work.data_ptr(), bands.weights.data_ptr(), out.data_ptr(), rows,
-        bands.n_bins, bands.n_mels, bands.n_segments, *bands.span, device.index,
+        bands.n_bins, bands.n_mels, bands.n_segments, *bands.span, passes, device.index,
         _stream(device))
     _check_launch("mel_log", err)
-    LAUNCHES["mel_log"] += 1
+    LAUNCHES["mel_log" if passes == 0 else "mel_log_bf16"] += 1   # K2 / its bf16 modes
     return out
 
 
@@ -688,15 +758,302 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
 
 
 # ---------------------------------------------------------------------------
+# K1t, K3t: the reduced-precision tiers' bf16 tensor-core DFT
+# ---------------------------------------------------------------------------
+
+# sed_tpu's raw precision strings of its matmul DFT (_make_dot) and the bf16
+# passes each product takes.
+TIER_PASSES = {"bf16x1": 1, "bf16x3": 3, "bf16x4": 4, "bf16x6": 6}
+# The (chunk of a, chunk of b) product terms of a tier, in _make_dot's order:
+# a tier of P passes sums the first P.
+_TIER_TERMS = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (0, 2))
+# The n_fft the tier kernel takes (n1 = 2^(log2 n_fft // 2) >= 32, n2 >= 64).
+TIER_LOG2_N = range(11, 16)
+
+
+def _stage_passes(p) -> int:
+    if p is None:
+        return 6  # Precision.HIGHEST: sed_tpu records bf16x6 equal to it
+    if isinstance(p, str) and p in TIER_PASSES:
+        return TIER_PASSES[p]
+    raise ValueError(f"unknown featurizer precision {p!r}: expected None, "
+                     f"{', '.join(map(repr, TIER_PASSES))} or an (inner, outer) "
+                     f"pair of them")
+
+
+def tier_passes(precision):
+    """sed_tpu's ``precision`` of its FFT -> None (the parity tier: K1, K3)
+    or the (inner, outer) bf16 passes of the two DFT stages: 'bf16x1',
+    'bf16x3', 'bf16x4' or 'bf16x6' for both, or an ``(inner, outer)`` pair
+    of those, in which None (sed_tpu's HIGHEST) is 6 passes."""
+    if precision is None:
+        return None
+    if isinstance(precision, (tuple, list)):
+        if len(precision) != 2:
+            raise ValueError(f"a per-stage precision is an (inner, outer) pair, got "
+                             f"{precision!r}")
+        return tuple(_stage_passes(p) for p in precision)
+    if precision not in TIER_PASSES:
+        raise ValueError(f"unknown featurizer precision {precision!r}: expected None, "
+                         f"{', '.join(map(repr, TIER_PASSES))} or an (inner, outer) "
+                         f"pair of them")
+    return (TIER_PASSES[precision],) * 2
+
+
+def _tier_chunks(passes: int) -> int:
+    return 1 if passes == 1 else 3 if passes == 6 else 2
+
+
+def split_bf16(a: torch.Tensor, chunks: int) -> list:
+    """``a`` -> ``chunks`` bf16-valued tensors of its dtype whose sum is
+    ``a`` to the last chunk's rounding: c0 = bf16(a), c1 = bf16(a - c0), ...
+    by round to nearest even (sed_tpu's ``_split_bf16``, its ``_split3`` for
+    three, with each chunk rounded to bf16 as the TPU's matrix unit rounds
+    an operand)."""
+    out = []
+    for _ in range(chunks):
+        c = a.to(torch.bfloat16).to(a.dtype)
+        out.append(c)
+        a = a - c
+    return out
+
+
+def tier_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """``a @ b`` at sed_tpu's ``_make_dot`` tier of ``passes`` (1, 3, 4, 6):
+    the products of the operands' bf16 chunks, each summed in float64 (the
+    products are exact) and rounded once to the operands' dtype, as an exact
+    accumulator would give them, then added in that dtype in ``_make_dot``'s
+    order.  Float64 sums make the result independent of how a library blocks
+    the sum (a float32 one differs by an ulp between batch shapes, which
+    moves a bf16 rounding of the next stage)."""
+    n = _tier_chunks(passes)
+    ca, cb = split_bf16(a, n), split_bf16(b, n)
+    out = None
+    for i, j in _TIER_TERMS[:passes]:
+        d = torch.matmul(ca[i].double(), cb[j].double()).to(a.dtype)
+        out = d if out is None else out + d
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _tier_constants(n_fft: int, device: torch.device):
+    """sed_tpu's f32 matmul-FFT constants (``_matmul_fft_constants``) on
+    ``device``: n1, n2, W2 (re, im), W1 (re, im), twiddles (re, im)."""
+    n1, n2, w2, w1, tw = stft_ops._matmul_fft_constants(n_fft)
+    return (n1, n2, *(tuple(torch.from_numpy(c).to(device) for c in pair)
+                      for pair in (w2, w1, tw)))
+
+
+def _tier_power_plain(x: torch.Tensor, n_fft: int, passes) -> torch.Tensor:
+    """(..., n_fft) windowed f32 frames -> (..., n_fft/2 + 1) one-sided power
+    by sed_tpu's two-stage matmul DFT at (inner, outer) ``passes``, step by
+    step at its rounding points: Y = W2 @ X, T = Y * tw (f32, yr*twr - yi*twi),
+    Z = T @ W1 as dot(tr, w1r) - dot(ti, w1i), |Z|^2, bin n2*k1 + k2; only
+    the columns k1 <= n1/2 of the outer stage, which hold the one-sided bins."""
+    inner, outer = passes
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = _tier_constants(n_fft, x.device)
+    lead = x.shape[:-1]
+    x = x.reshape(*lead, n2, n1)
+    yr, yi = tier_matmul(w2r, x, inner), tier_matmul(w2i, x, inner)
+    tr = yr * twr - yi * twi
+    ti = yr * twi + yi * twr
+    h = n1 // 2 + 1
+    w1r, w1i = w1r[:, :h], w1i[:, :h]
+    zr = tier_matmul(tr, w1r, outer) - tier_matmul(ti, w1i, outer)
+    zi = tier_matmul(tr, w1i, outer) + tier_matmul(ti, w1r, outer)
+    power = zr * zr + zi * zi                          # (..., k2, k1)
+    return power.transpose(-1, -2).reshape(*lead, h * n2)[..., : n_fft // 2 + 1].contiguous()
+
+
+def wave_dft_power_bf16_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                              n_fft: int, precision) -> torch.Tensor:
+    """Plain version of K1t: K1's reflect-centred framing and window, then
+    :func:`_tier_power_plain` at ``precision`` (:func:`tier_passes`)."""
+    frames = stft_ops.frame_signal(waves.to(torch.float32), n_fft, hop) * window
+    return _tier_power_plain(frames, n_fft, _reduced_passes(precision))
+
+
+def frames_dft_power_bf16_plain(frames: torch.Tensor, window: torch.Tensor, n_fft: int,
+                                precision) -> torch.Tensor:
+    """Plain version of K3t: rows times the window (int16 rows are PCM16: the
+    window scaled by 1/32768, as K3), then :func:`_tier_power_plain`."""
+    if frames.shape[-1] != n_fft:
+        raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
+    w = window.to(torch.float32)
+    if frames.dtype == torch.int16:
+        w = w / 32768.0
+    return _tier_power_plain(frames.to(torch.float32) * w, n_fft, _reduced_passes(precision))
+
+
+def mode_fraction(got: torch.Tensor, want: torch.Tensor, neighbour: torch.Tensor,
+                  scale: Optional[torch.Tensor] = None) -> float:
+    """How far ``got`` (a kernel's output) lies from ``want`` (the plain
+    version at its mode) towards ``neighbour`` (the plain version at the
+    mode next to it), along the line between them: 0 at its own mode, 1 at
+    the neighbour's.  The noise of the kernel's float32 sums is not
+    correlated with the gap between the modes, so this tells apart modes
+    whose gap is below that noise at any one element (bf16x3 from bf16x4).
+    ``scale``: divides both differences, e.g. each frame's peak power."""
+    e, d = got.double() - want.double(), neighbour.double() - want.double()
+    if scale is not None:
+        e, d = e / scale, d / scale
+    return float((e * d).sum() / (d * d).sum())
+
+
+def _reduced_passes(precision):
+    passes = tier_passes(precision)
+    if passes is None:
+        raise ValueError("the bf16 tier DFT takes a reduced precision; None is the "
+                         "parity tier (K1, K3)")
+    return passes
+
+
+def _check_tier_size(n_fft: int, window: torch.Tensor) -> int:
+    """Returns log2 n_fft if the tier kernel takes it."""
+    log2_n = n_fft.bit_length() - 1
+    if n_fft & (n_fft - 1) or log2_n not in TIER_LOG2_N:
+        raise ValueError(f"the bf16 tier DFT takes n_fft a power of two from "
+                         f"{2 ** TIER_LOG2_N[0]} to {2 ** TIER_LOG2_N[-1]}, got {n_fft}")
+    if window.shape != (n_fft,):
+        raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
+    return log2_n
+
+
+@functools.lru_cache(maxsize=16)
+def _tier_tables(n_fft: int, inner_chunks: int, outer_chunks: int, device: torch.device):
+    """The tier kernel's tables on ``device``, from sed_tpu's f32 constants
+    split once (bf16): tab1, ``inner_chunks`` x (2 n2, n2), row 16t + 8h + i
+    the W2 row k2 = 8t + i (h = 0 real, 1 imaginary); tab2, ``outer_chunks``
+    x (n1 + 8, 2 n1), column 2j + h (h = 0: Zr, 1: Zi) of the outer stage
+    over [Tr | Ti]: (W1r, -W1i) and (W1i, W1r) at k1 = j < n1/2 + 4; the
+    (n2, n1) f32 twiddles as (re, im) pairs."""
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(n_fft)
+    w2 = np.stack([w2r.reshape(n2 // 8, 8, n2), w2i.reshape(n2 // 8, 8, n2)],
+                  axis=1).reshape(2 * n2, n2)
+    j = np.arange(n1 // 2 + 4)
+    w1 = np.empty((n1 + 8, 2 * n1), np.float32)
+    w1[0::2, :n1], w1[0::2, n1:] = w1r[:, j].T, -w1i[:, j].T
+    w1[1::2, :n1], w1[1::2, n1:] = w1i[:, j].T, w1r[:, j].T
+
+    def chunks(a, n):
+        parts = split_bf16(torch.from_numpy(np.ascontiguousarray(a)), n)
+        return torch.stack([c.to(torch.bfloat16) for c in parts]).to(device)
+
+    tw = torch.from_numpy(np.stack([twr, twi], axis=-1)).to(device)
+    return chunks(w2, inner_chunks), chunks(w1, outer_chunks), tw
+
+
+def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
+                 out: torch.Tensor, rows: int, n_samples: int, n_frames: int, hop: int,
+                 n_fft: int, passes) -> None:
+    device = data.device
+    log2_n = _check_tier_size(n_fft, window)
+    if rows * (n_fft >> (log2_n // 2)) // 64 > _MAX_GRID_X:
+        raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
+    inner, outer = passes
+    tab1, tab2, tw = _tier_tables(n_fft, _tier_chunks(inner), _tier_chunks(outer), device)
+    err = _library().sed_tier_dft_power(
+        data.data_ptr(), kind, window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(),
+        tw.data_ptr(), out.data_ptr(), rows, n_samples, n_frames, hop, log2_n, inner, outer,
+        device.index, _stream(device))
+    _check_launch(name, err)
+    LAUNCHES[name] += 1
+
+
+def wave_dft_power_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_fft: int,
+                        precision) -> torch.Tensor:
+    """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_fft/2 + 1) f32
+    power of K1's frames by sed_tpu's matmul DFT at a reduced ``precision``
+    (:func:`tier_passes`: 'bf16x1' turbo, 'bf16x3' fast, 'bf16x4',
+    'bf16x6', or an (inner, outer) pair).
+
+    CPU tensors take :func:`wave_dft_power_bf16_plain`; CUDA tensors launch
+    K1t (``tier_dft_kernel`` with K1's framing; n_fft 2048..32768).  Both go
+    through the custom operator ``sed_tpu_torch::wave_dft_power_bf16``, which
+    takes the two stages' passes as ints, so an exported program holds it.
+    """
+    _require_cpu_or_cuda("wave_dft_power_bf16", waves)
+    inner, outer = _reduced_passes(precision)
+    return torch.ops.sed_tpu_torch.wave_dft_power_bf16(waves, window, hop, n_fft, inner, outer)
+
+
+@torch.library.custom_op("sed_tpu_torch::wave_dft_power_bf16", mutates_args=(),
+                         device_types="cpu")
+def _wave_dft_power_bf16_op(waves: torch.Tensor, window: torch.Tensor, hop: int, n_fft: int,
+                            inner_passes: int, outer_passes: int) -> torch.Tensor:
+    return wave_dft_power_bf16_plain(waves, window, hop, n_fft,
+                                     (f"bf16x{inner_passes}", f"bf16x{outer_passes}"))
+
+
+@_wave_dft_power_bf16_op.register_fake
+def _wave_dft_power_bf16_fake(waves, window, hop, n_fft, inner_passes, outer_passes):
+    return waves.new_empty((waves.shape[0], 1 + waves.shape[1] // hop, n_fft // 2 + 1))
+
+
+@_wave_dft_power_bf16_op.register_kernel("cuda")
+def _wave_dft_power_bf16_cuda(waves, window, hop, n_fft, inner_passes, outer_passes):
+    if waves.device.type != "cuda":
+        raise ValueError(f"waves is on {waves.device}, expected a CUDA device")
+    passes = (inner_passes, outer_passes)
+    if not set(passes) <= set(TIER_PASSES.values()):
+        raise ValueError(f"wave_dft_power_bf16: passes {passes} not in {set(TIER_PASSES.values())}")
+    n_frames = _check_waves("wave_dft_power_bf16", waves, window, hop, n_fft)
+    n_sig, n_samples = waves.shape
+    out = torch.empty((n_sig, n_frames, n_fft // 2 + 1), dtype=torch.float32,
+                      device=waves.device)
+    if n_sig:
+        _launch_tier("wave_dft_power_bf16", 0, waves, window, out, n_sig * n_frames,
+                     n_samples, n_frames, hop, n_fft, passes)
+    return out
+
+
+def frames_dft_power_bf16(frames: torch.Tensor, window: torch.Tensor, n_fft: int,
+                          precision) -> torch.Tensor:
+    """(rows, n_fft) f32 or int16 frames -> (rows, n_fft/2 + 1) f32 power of
+    K3's function by sed_tpu's matmul DFT at a reduced ``precision`` (as
+    :func:`wave_dft_power_bf16`).
+
+    CPU tensors take :func:`frames_dft_power_bf16_plain`; CUDA tensors launch
+    K3t (``tier_dft_kernel`` with K3's row loads; the window of int16 rows
+    scaled by 1/32768 on the card, as :func:`frames_stft_power`).
+    """
+    passes = _reduced_passes(precision)
+    if frames.device.type == "cpu":
+        return frames_dft_power_bf16_plain(frames, window, n_fft, precision)
+    if frames.device.type != "cuda":
+        raise ValueError(f"frames_dft_power_bf16: unsupported device {frames.device}")
+    device = frames.device
+    if frames.dtype not in (torch.float32, torch.int16):
+        raise TypeError(f"frames must be float32 or int16, got {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    _require_cuda_f32("window", window, device)
+    if frames.ndim != 2 or frames.shape[1] != n_fft:
+        raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
+    rows = frames.shape[0]
+    out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
+    if rows == 0:
+        _check_tier_size(n_fft, window)
+        return out
+    frames = _pair_aligned(frames)
+    is_int16 = frames.dtype == torch.int16
+    if is_int16:
+        window = window / 32768.0
+    _launch_tier("frames_dft_power_bf16", 2 if is_int16 else 1, frames, window, out, rows,
+                 0, 1, 1, n_fft, passes)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The drivers, under sed_tpu's names (pallas_featurizer.py without _pallas)
 # ---------------------------------------------------------------------------
 
 # sed_tpu's implementation names of the waveform featurizer, and the kernels
-# each launches here.  sed_tpu's variants move waveform bytes into the TPU's
-# VMEM in different ways (span DMA, phase switches, reflect buffers, single
-# or double buffering); the function they compute is K1's (K1 then K2 for
-# 'rolledge'), so K1 is their counterpart.  'pack' is K6 then the unpack and
-# K2; 'fuse' is K5.
+# each launches here at the parity tier.  sed_tpu's variants move waveform
+# bytes into the TPU's VMEM in different ways (span DMA, phase switches,
+# reflect buffers, single or double buffering); the function they compute is
+# K1's (K1 then K2 for 'rolledge'), so K1 is their counterpart.  'pack' is K6
+# then the unpack and K2; 'fuse' is K5.
 IMPL_KERNELS = {
     "roll": ("wave_stft_power", "mel_log"),
     "roll_nodb": ("wave_stft_power", "mel_log"),
@@ -707,6 +1064,18 @@ IMPL_KERNELS = {
     "pack": ("wave_packed_fft", "mel_log"),
     "fuse": ("wave_stft_mel_log",),
 }
+# What each name launches at a reduced tier (a ``precision`` other than
+# None): K1t in K1's place; 'slice' ignores the precision, as sed_tpu's slice
+# kernel has none.  'fuse' and 'pack' raise NotImplementedError there (their
+# kernels, K5 and K6, have no bf16 passes: ROADMAP.md).
+REDUCED_IMPL_KERNELS = {
+    "roll": ("wave_dft_power_bf16", "mel_log"),
+    "roll_nodb": ("wave_dft_power_bf16", "mel_log"),
+    "slice": ("wave_stft_power", "mel_log"),
+    "rollraw": ("wave_dft_power_bf16", "mel_log"),
+    "rolledge": ("wave_dft_power_bf16", "mel_log"),
+    "eo": ("wave_dft_power_bf16", "mel_log"),
+}
 
 # sed_tpu's frames per TPU tile (FFT_TILE_R): its raw-read geometry, whose
 # preconditions the port keeps, is counted in these tiles.
@@ -714,22 +1083,16 @@ _TPU_TILE_FRAMES = 8
 _TPU_TILE_K = 2048  # sed_tpu's TILE_K: 'fuse' needs nfft to be a multiple
 
 
-def _check_precision(precision, mel_precision=None) -> None:
-    """The parity tier only: ``precision`` None (sed_tpu's HIGHEST FFT) and
-    ``mel_precision`` None or 'bf16x4' (sed_tpu's parity mel).  The port's
-    FP32 kernels have no bf16 passes to count (ROADMAP.md, deferred
-    featurizer tiers)."""
-    if precision is not None:
+def _refuse_reduced(impl: str, precision, mel_precision=None) -> None:
+    """'fuse' and 'pack' at a reduced tier: not ported (ROADMAP.md)."""
+    if tier_passes(precision) is not None:
         raise NotImplementedError(
-            f"featurizer precision {precision!r} is not ported: the port runs "
-            f"the parity tier only (see ROADMAP.md, deferred featurizer tiers)")
-    if mel_precision in ("bf16x1", "bf16x3"):
+            f"impl {impl!r} at featurizer precision {precision!r} is not ported: its "
+            f"kernel has no bf16 passes; the roll family runs the tiers (see ROADMAP.md)")
+    if mel_passes(mel_precision):
         raise NotImplementedError(
-            f"mel_precision {mel_precision!r} is not ported: the port's mel is "
-            f"FP32, at least as accurate as the parity 'bf16x4' (see ROADMAP.md)")
-    if mel_precision not in (None, "bf16x4"):
-        raise ValueError(f"unknown mel_precision {mel_precision!r}: expected None, "
-                         f"'bf16x4', 'bf16x3' or 'bf16x1'")
+            f"impl {impl!r} at mel_precision {mel_precision!r} is not ported: its kernel "
+            f"has no bf16 product mode; the roll family runs it (see ROADMAP.md)")
 
 
 def _check_rollraw(cfg: SpectrogramConfig, n_samples: int, impl: str) -> None:
@@ -757,40 +1120,49 @@ def _check_even_odd(cfg: SpectrogramConfig, impl: str) -> None:
                          f"nfft {cfg.nfft}, hop {cfg.hop_size}")
 
 
+def _wave_power(waveforms: torch.Tensor, cfg: SpectrogramConfig, precision) -> torch.Tensor:
+    """K1 at the parity tier (``precision`` None), K1t at a reduced one."""
+    window = stft_window(cfg, waveforms.device)
+    if tier_passes(precision) is None:
+        return wave_stft_power(waveforms, window, cfg.hop_size, cfg.nfft)
+    return wave_dft_power_bf16(waveforms, window, cfg.hop_size, cfg.nfft, precision)
+
+
 def stft_power_from_waveform(waveforms: torch.Tensor,
                              cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                              impl: str = "roll", precision=None) -> torch.Tensor:
     """(n_signals, samples) f32 -> (n_signals, n_frames, n_fft/2 + 1) one-
-    sided power through K1, for each of sed_tpu's impl names 'roll',
-    'roll_nodb', 'slice' and 'rollraw'.
+    sided power through K1 (K1t at a reduced ``precision``,
+    :func:`tier_passes`), for each of sed_tpu's impl names 'roll',
+    'roll_nodb', 'slice' and 'rollraw'.  'slice' ignores ``precision``, as
+    sed_tpu's slice kernel has none.
 
     ``sed_tpu`` returns all n_fft bins in its (k2, k1) tile layout; the
     port returns the one-sided spectrum in natural order (K1's divergence).
     'roll_aligned_debug' gives wrong values by design in ``sed_tpu`` (a
     profiling aid) and raises ``NotImplementedError``.
     """
-    _check_precision(precision)
+    tier_passes(precision)
     if impl == "rollraw":
-        return stft_power_from_waveform_raw(waveforms, cfg)
+        return stft_power_from_waveform_raw(waveforms, cfg, precision)
     if impl == "roll_aligned_debug":
         raise NotImplementedError("impl 'roll_aligned_debug' is a profiling aid of "
                                   "sed_tpu that gives wrong values; it is not ported")
     if impl not in ("roll", "roll_nodb", "slice"):
         raise ValueError(f"unknown impl {impl!r} for stft_power_from_waveform")
-    return wave_stft_power(waveforms, stft_window(cfg, waveforms.device),
-                           cfg.hop_size, cfg.nfft)
+    return _wave_power(waveforms, cfg, None if impl == "slice" else precision)
 
 
 def stft_power_from_waveform_raw(waveforms: torch.Tensor,
                                  cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                                  precision=None) -> torch.Tensor:
-    """impl='rollraw': K1, under sed_tpu's preconditions for it (raises
-    ``ValueError`` where sed_tpu asserts).  K1 reads the unpadded waveform
-    and reflects on the index for every frame, which is rollraw's design."""
-    _check_precision(precision)
+    """impl='rollraw': K1 (K1t at a reduced ``precision``), under sed_tpu's
+    preconditions for it (raises ``ValueError`` where sed_tpu asserts).  K1
+    reads the unpadded waveform and reflects on the index for every frame,
+    which is rollraw's design."""
+    tier_passes(precision)
     _check_rollraw(cfg, waveforms.shape[-1], "rollraw")
-    return wave_stft_power(waveforms, stft_window(cfg, waveforms.device),
-                           cfg.hop_size, cfg.nfft)
+    return _wave_power(waveforms, cfg, precision)
 
 
 def stft_eo_power_from_waveform(waveforms: torch.Tensor,
@@ -798,16 +1170,17 @@ def stft_eo_power_from_waveform(waveforms: torch.Tensor,
                                 precision=None) -> torch.Tensor:
     """impl='eo': (n_signals, samples) -> (n_signals, n_frames, m + 1) one-
     sided power (m = n_fft/2, column m the Nyquist bin) through K1, whose
-    unpack is the even/odd identity X[k] = E[k] + W^k O[k].
+    unpack is the even/odd identity X[k] = E[k] + W^k O[k]; K1t at a reduced
+    ``precision`` (sed_tpu's even/odd packing rounds elsewhere: the same
+    tier's class, not its bits).
 
     ``sed_tpu`` writes columns 0..m-1 in the half transform's (k2, k1) tile
     layout and pads to m + 128 columns; the port writes natural order, no
     padding.
     """
-    _check_precision(precision)
+    tier_passes(precision)
     _check_even_odd(cfg, "eo")
-    return wave_stft_power(waveforms, stft_window(cfg, waveforms.device),
-                           cfg.hop_size, cfg.nfft)
+    return _wave_power(waveforms, cfg, precision)
 
 
 def stft_packed_from_waveform(waveforms: torch.Tensor,
@@ -816,8 +1189,9 @@ def stft_packed_from_waveform(waveforms: torch.Tensor,
     """impl='pack': (n_signals, samples) -> (Zr, Zi), each (n_signals,
     n_frames, m), Z = FFT_m((x_even + i*x_odd) * window) of each centred
     frame in natural bin order, through K6.  Feed to
-    :func:`packed_power_onesided`, then :func:`power_to_logmel_cuda`."""
-    _check_precision(precision)
+    :func:`packed_power_onesided`, then :func:`power_to_logmel_cuda`.  The
+    parity tier only (:func:`_refuse_reduced`)."""
+    _refuse_reduced("pack", precision)
     _check_even_odd(cfg, "pack")
     return wave_packed_fft(waveforms, stft_window(cfg, waveforms.device),
                            cfg.hop_size, cfg.nfft)
@@ -834,14 +1208,15 @@ def packed_power_onesided(zr: torch.Tensor, zi: torch.Tensor,
 
 
 def power_to_logmel_cuda(power: torch.Tensor,
-                         cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM) -> torch.Tensor:
+                         cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
+                         mel_precision=None) -> torch.Tensor:
     """K4 (sed_tpu's ``power_to_logmel_pallas``): (..., freq_bins) one-sided
     power -> (..., mel_bins) f32 log-mel through K2, which takes any number
     of bins with no filterbank size limit (sed_tpu streams its filterbank
-    over K past 24 MB)."""
+    over K past 24 MB); ``mel_precision`` as :func:`mel_log`."""
     lead = power.shape[:-1]
     x = power.reshape(-1, power.shape[-1]).to(torch.float32).contiguous()
-    mel = mel_log(x, mel_bands(cfg, power.device))
+    mel = mel_log(x, mel_bands(cfg, power.device), mel_precision)
     return mel.reshape(*lead, cfg.mel_bins)
 
 
@@ -849,8 +1224,9 @@ def logmel_waveform_fused(waveforms: torch.Tensor,
                           cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                           precision=None, mel_precision="bf16x4") -> torch.Tensor:
     """impl='fuse': (n_signals, samples) -> (n_signals, n_frames, mel_bins)
-    through K5, equal to K1 then K2 bit for bit."""
-    _check_precision(precision, mel_precision)
+    through K5, equal to K1 then K2 bit for bit.  The parity tier only
+    (:func:`_refuse_reduced`)."""
+    _refuse_reduced("fuse", precision, mel_precision)
     if cfg.nfft % _TPU_TILE_K:
         raise ValueError(f"fuse needs nfft % {_TPU_TILE_K} == 0, got {cfg.nfft}")
     device = waveforms.device
@@ -861,14 +1237,13 @@ def logmel_waveform_fused(waveforms: torch.Tensor,
 def logmel_waveform_rolledge(waveforms: torch.Tensor,
                              cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                              precision=None) -> torch.Tensor:
-    """impl='rolledge': K1 then K2, under sed_tpu's rollraw preconditions.
-    sed_tpu splits its grid into raw-read interior tiles and repacked edge
-    strips; K1 reflects on the index, so every frame is an interior one."""
-    _check_precision(precision)
+    """impl='rolledge': K1 (K1t at a reduced ``precision``) then K2, under
+    sed_tpu's rollraw preconditions.  sed_tpu splits its grid into raw-read
+    interior tiles and repacked edge strips; K1 reflects on the index, so
+    every frame is an interior one.  Its mel is the parity mel, as sed_tpu's."""
+    tier_passes(precision)
     _check_rollraw(cfg, waveforms.shape[-1], "rolledge")
-    device = waveforms.device
-    power = wave_stft_power(waveforms, stft_window(cfg, device), cfg.hop_size, cfg.nfft)
-    return power_to_logmel_cuda(power, cfg)
+    return power_to_logmel_cuda(_wave_power(waveforms, cfg, precision), cfg)
 
 
 def logmel_waveform(waveforms: torch.Tensor,
@@ -879,20 +1254,23 @@ def logmel_waveform(waveforms: torch.Tensor,
     log-mel (counterpart of ``logmel_waveform_pallas``).
 
     ``impl`` takes every name of ``sed_tpu`` (:data:`IMPL_KERNELS` lists the
-    kernels each launches on a CUDA tensor; a CPU tensor takes their plain
-    versions).  ``precision`` and ``mel_precision``: the parity tier only
-    (:func:`_check_precision`).
+    kernels each launches on a CUDA tensor at the parity tier,
+    :data:`REDUCED_IMPL_KERNELS` at a reduced ``precision``; a CPU tensor
+    takes their plain versions).  ``precision``: sed_tpu's values
+    (:func:`tier_passes`); ``mel_precision`` (:func:`mel_passes`) reaches K2
+    on the paths where sed_tpu's reaches its mel kernel ('roll', 'roll_nodb',
+    'slice', 'rollraw'; 'eo', 'rolledge' and 'pack' run the parity mel).
     """
-    _check_precision(precision, mel_precision)
+    tier_passes(precision)
+    mel_passes(mel_precision)
     if impl == "fuse":
-        return logmel_waveform_fused(waveforms, cfg, precision, mel_precision)
+        return logmel_waveform_fused(waveforms, cfg, precision, mel_precision or "bf16x4")
     if impl == "rolledge":
         return logmel_waveform_rolledge(waveforms, cfg, precision)
     if impl == "eo":
-        power = stft_eo_power_from_waveform(waveforms, cfg, precision)
-    elif impl == "pack":
+        return power_to_logmel_cuda(stft_eo_power_from_waveform(waveforms, cfg, precision), cfg)
+    if impl == "pack":
         zr, zi = stft_packed_from_waveform(waveforms, cfg, precision)
-        power = packed_power_onesided(zr, zi, cfg.nfft)
-    else:
-        power = stft_power_from_waveform(waveforms, cfg, impl, precision)
-    return power_to_logmel_cuda(power, cfg)
+        return power_to_logmel_cuda(packed_power_onesided(zr, zi, cfg.nfft), cfg)
+    power = stft_power_from_waveform(waveforms, cfg, impl, precision)
+    return power_to_logmel_cuda(power, cfg, mel_precision)

@@ -15,7 +15,12 @@ their names and meaning:
   * :func:`logmel_frames` is K3 STFT power + K2 for pre-framed rows (the
     streaming tick); :func:`logmel_frames_xla` the same function in PyTorch
     ops (the tick's ``featurizer='xla'``); ``cuda_featurizer.logmel_waveform``
-    takes every ``impl`` name of ``sed_tpu``'s ``logmel_waveform_pallas``.
+    takes every ``impl`` name of ``sed_tpu``'s ``logmel_waveform_pallas``;
+  * ``pallas_precision`` / ``precision``: sed_tpu's serving tiers
+    (:data:`FEATURIZER_PRECISION_TIERS`, :func:`resolve_featurizer_precision`)
+    on the kernel paths: a reduced tier runs K1t (K3t for frames) in K1's
+    (K3's) place, the bf16 tensor-core DFT; the PyTorch-ops paths ignore it,
+    as sed_tpu's XLA path does.
 """
 
 from __future__ import annotations
@@ -30,28 +35,34 @@ from sed_tpu_torch.ops import stft as stft_ops
 from sed_tpu_torch.ops.mulaw import mulaw_decode, mulaw_decode_np
 from sed_tpu_torch.utils.precision import full_float32
 
-# The parity tier is the only one ported.  sed_tpu's 'fast' ('bf16x3') and
-# 'turbo' ('bf16x1') tiers, and its raw 'bf16xN' strings, count bf16 passes
-# of the TPU's matrix unit in its matmul DFT; the port's FP32 kernels have no
-# such passes (ROADMAP.md, queue 1: deferred featurizer tiers).
-FEATURIZER_PRECISION_TIERS = ("parity",)
-_UNPORTED_TIERS = ("fast", "turbo", "bf16x1", "bf16x3", "bf16x4", "bf16x6")
+# sed_tpu's serving tiers of the featurizer's FFT (its ops/featurizer.py):
+# 'parity' the f32 kernels (K1, K3); 'fast' bf16x3 and 'turbo' bf16x1 split-
+# operand products of its matmul DFT, here the bf16 tensor-core kernel (K1t,
+# K3t).  The mel stage stays at parity in every tier.
+FEATURIZER_PRECISION_TIERS = {
+    "parity": None,
+    "fast": "bf16x3",
+    "turbo": "bf16x1",
+}
 
 
 def resolve_featurizer_precision(tier):
-    """None or 'parity' -> None (the parity featurizer).
+    """Map a user-facing tier name to a ``pallas_precision`` value.
 
-    The reduced-precision tiers of ``sed_tpu`` raise ``NotImplementedError``
-    (see ROADMAP.md); any other name raises ``ValueError``.
+    Accepts None (parity), a tier name from FEATURIZER_PRECISION_TIERS, or a
+    raw precision string ('bf16x1'/'bf16x3'/'bf16x4'/'bf16x6') for
+    benchmarking.  The PyTorch-ops (non-kernel) featurizer path ignores the
+    value, as sed_tpu's XLA path does.
     """
-    if tier is None or tier == "parity":
+    if tier is None:
         return None
-    if tier in _UNPORTED_TIERS:
-        raise NotImplementedError(
-            f"featurizer precision tier {tier!r} is not ported: the port runs "
-            f"the parity tier only (see ROADMAP.md, deferred featurizer tiers)")
-    raise ValueError(f"unknown featurizer precision tier {tier!r}: expected "
-                     f"one of {FEATURIZER_PRECISION_TIERS} or None")
+    if tier in FEATURIZER_PRECISION_TIERS:
+        return FEATURIZER_PRECISION_TIERS[tier]
+    if tier in ("bf16x1", "bf16x3", "bf16x4", "bf16x6"):
+        return tier
+    raise ValueError(
+        f"unknown featurizer precision tier {tier!r}: expected one of "
+        f"{sorted(FEATURIZER_PRECISION_TIERS)} or a raw bf16xN string")
 
 
 def ingest_to_f32(waveform: torch.Tensor) -> torch.Tensor:
@@ -173,10 +184,11 @@ def logmel_features_batch(waveforms: torch.Tensor,
 
     ``waveforms`` is float, int16 (PCM16) or uint8 (µ-law) on every path.
     ``use_pallas`` and ``fft_impl`` as in the module docstring: 'auto' and
-    'full' run K1 + K2 on CUDA.  ``pallas_precision``: None or 'parity'
-    (see :func:`resolve_featurizer_precision`).
+    'full' run K1 + K2 on CUDA.  ``pallas_precision``: None (parity), or a
+    reduced precision of sed_tpu (``resolve_featurizer_precision``'s values,
+    or an (inner, outer) pair), which the 'full' path runs through K1t; the
+    other paths ignore it, as sed_tpu's XLA path does.
     """
-    resolve_featurizer_precision(pallas_precision)
     if waveforms.ndim != 3:
         raise ValueError(f"waveforms must be (batch, samples, channels), "
                          f"got {tuple(waveforms.shape)}")
@@ -185,7 +197,7 @@ def logmel_features_batch(waveforms: torch.Tensor,
         waveforms.transpose(1, 2).reshape(b * c, samples)).contiguous()
     use_pallas = resolve_pallas(use_pallas, cfg)
     if use_pallas == "full":
-        mel = kernels.logmel_waveform(signals, cfg)
+        mel = kernels.logmel_waveform(signals, cfg, precision=pallas_precision)
     else:
         re, im = stft_ops.stft_realimag(signals, cfg, fft_impl)
         mel = realimag_to_log_mel(re, im, cfg, use_pallas)
@@ -206,15 +218,21 @@ def logmel_frames(frames: torch.Tensor, cfg: SpectrogramConfig = DEFAULT_SPECTRO
     """(rows, n_fft) raw frames, float32 or int16 (PCM16) -> (rows, mel_bins)
     float32 log-mel (counterpart of ``logmel_frames_pallas``).
 
-    K3 then K2 on CUDA, both plain versions on CPU.  ``precision``: None or
-    'parity' (see :func:`resolve_featurizer_precision`).
+    K3 then K2 on CUDA, both plain versions on CPU.  ``precision``: None
+    (parity), or a reduced precision of sed_tpu (a value of
+    ``resolve_featurizer_precision``, or an (inner, outer) pair), which runs
+    K3t, the bf16 tensor-core DFT, in K3's place.
     """
-    resolve_featurizer_precision(precision)
+    passes = kernels.tier_passes(precision)
     if frames.dtype != torch.int16:
         frames = frames.to(torch.float32)
     frames = frames.contiguous()
     device = frames.device
-    power = kernels.frames_stft_power(frames, kernels.stft_window(cfg, device), cfg.nfft)
+    window = kernels.stft_window(cfg, device)
+    if passes is None:
+        power = kernels.frames_stft_power(frames, window, cfg.nfft)
+    else:
+        power = kernels.frames_dft_power_bf16(frames, window, cfg.nfft, precision)
     return kernels.mel_log(power, kernels.mel_bands(cfg, device))
 
 

@@ -125,7 +125,9 @@ class StreamPool:
         """``featurizer``: 'auto', 'pallas' (K3 + K2) or 'xla' (PyTorch ops;
         see ``device_streaming.resolve_tick_featurizer``) for the tick and the
         host startup and drains alike; ``featurizer_precision``: None
-        or 'parity'; ``extract_impl``: 'slices' or 'span'; ``qparams``: an
+        or 'parity' (K3), 'fast' or 'turbo' (K3t) or a raw 'bf16xN' string,
+        for the tick, the startup and the drains alike (sed_tpu's startup
+        stays at parity; ``featurizer='xla'`` ignores it); ``extract_impl``: 'slices' or 'span'; ``qparams``: an
         int8 serving artifact (``models.quantize``), scored by the tick,
         the startup and the drains alike; ``mesh``: this rank's slice of the
         slots on ``mesh.device`` (``device`` is not used; ``slots`` must
@@ -134,7 +136,7 @@ class StreamPool:
             raise ValueError(
                 f"slots {slots} must divide over the {mesh.size}-device mesh")
         featurizer = resolve_tick_featurizer(featurizer, cfg, mesh)
-        resolve_featurizer_precision(featurizer_precision)
+        precision = resolve_featurizer_precision(featurizer_precision)
         self.device = resolve_device(device) if mesh is None else mesh.device
         self._mesh = mesh
         self._rows = local_rows(mesh, int(slots))
@@ -158,7 +160,8 @@ class StreamPool:
         # builds (join startup, leave drain) and the ring tick.
         self._stream_fns = make_stream_fns(model, cfg, mean=self.mean,
                                            std=self.std, qparams=qparams,
-                                           device=self.device, featurizer=featurizer)
+                                           device=self.device, featurizer=featurizer,
+                                           precision=precision)
         self._pending: Dict[int, BatchedStreamingDetector] = {}
         self._admitted: Dict[int, dict] = {}   # slot -> schedule counters
         # Staged audio is a per-slot list of fed pieces under its own lock,

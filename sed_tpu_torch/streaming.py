@@ -49,7 +49,7 @@ from sed_tpu_torch.utils.precision import full_float32
 def make_stream_fns(model: torch.nn.Module,
                     cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                     mean=None, std=None, qparams=None, device="cuda",
-                    featurizer: str = "auto"):
+                    featurizer: str = "auto", precision=None):
     """The ``(featurize, forward)`` pair every detector of one model and
     normalization shares (a pool passes one pair to each per-stream
     detector it builds).
@@ -66,7 +66,9 @@ def make_stream_fns(model: torch.nn.Module,
     :func:`sed_tpu_torch.ops.featurizer.logmel_frames` (K3 + K2 on CUDA);
     'xla' through ``logmel_frames_xla`` (the windowed rFFT and the mel
     projection in PyTorch ops, no kernel of the port), chosen only by that
-    explicit name.
+    explicit name.  ``precision``: the FFT's precision on the 'auto' and
+    'pallas' paths (``logmel_frames``: None the parity K3, a reduced one
+    K3t); 'xla' ignores it, as sed_tpu's XLA tick does.
 
     ``model`` is moved to ``device``.  Each call of ``forward`` puts it in
     eval mode (running BatchNorm statistics, left as they were) and leaves
@@ -78,7 +80,7 @@ def make_stream_fns(model: torch.nn.Module,
     state every detector and pool carries, and the scores stay float32.
     """
     if featurizer in ("auto", "pallas"):
-        featurize_frames = lambda x: logmel_frames(x, cfg)  # noqa: E731
+        featurize_frames = lambda x: logmel_frames(x, cfg, precision)  # noqa: E731
     elif featurizer == "xla":
         featurize_frames = lambda x: logmel_frames_xla(x, cfg)  # noqa: E731
     else:

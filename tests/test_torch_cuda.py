@@ -483,7 +483,8 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
     got = make_batch_predictor(model, PROD, device=cuda)(x).cpu()
     assert kernels.LAUNCHES == {"wave_stft_power": 1, "mel_log": 1,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
-                                "wave_packed_fft": 0}
+                                "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
@@ -1663,3 +1664,140 @@ def test_svc_solver_on_the_card_matches_cpu(cuda):
     eager = svc.solve_dual(xd, yd, cd, svc.gamma_scale(x), graph=False)
     assert graphed.n_iter == eager.n_iter > 0 and graphed.rho == eager.rho
     assert torch.equal(graphed.alpha, eager.alpha)
+
+
+# ---------------------------------------------------------------------------
+# K1t and K3t (the bf16 tensor-core DFT of the reduced tiers), K2's bf16 modes
+# ---------------------------------------------------------------------------
+
+def tier_tol(precision) -> float:
+    """Against the plain version (exact float64 sums of the same bf16
+    products), x the frame's peak power: the tensor cores' f32 accumulation
+    ~1e-5; where the outer stage is bf16x1, an ulp of difference in the
+    twiddled T flips its one bf16 rounding (7.3e-5 at 16 x 60 s).
+    Neighbouring modes are told apart by ``kernels.mode_fraction``, not by
+    these limits."""
+    return 1.5e-3 if kernels.tier_passes(precision)[1] == 1 else 3e-5
+
+
+# The mode next to each precision the tests run, which the kernel's output
+# must not lean towards: the lo.lo term, the inner stage's lo chunks, the x6
+# terms; K2's bf16x3 next to its f32 product (None).
+TIER_NEIGHBOUR = {"bf16x3": "bf16x4", "bf16x1": ("bf16x3", "bf16x1"),
+                  ("bf16x6", "bf16x4"): "bf16x4", ("bf16x1", "bf16x3"): "bf16x3"}
+MEL_NEIGHBOUR = {"bf16x1": "bf16x3", "bf16x3": None}
+MODE_FRACTION_TOL = 0.5   # nearer its own mode than the next (chip_smoke.py's MODE_FRACTION_TOL)
+
+
+def tier_cfg(n_fft: int) -> SpectrogramConfig:
+    cfg = SpectrogramConfig(working_sample_rate=8000, time_margin=0.7 * n_fft / 16000)
+    assert cfg.nfft == n_fft
+    return cfg
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x1", ("bf16x6", "bf16x4"),
+                                       ("bf16x1", "bf16x3")], ids=str)
+@pytest.mark.parametrize("n_fft", [2048, 4096, 8192, 16384, 32768])
+def test_k1t_matches_its_plain_version(cuda, n_fft, precision):
+    cfg = tier_cfg(n_fft) if n_fft != PROD.nfft else PROD
+    waves = signals(3, 5 * cfg.working_sample_rate + 321, cfg.working_sample_rate, cuda)
+    window = kernels.stft_window(cfg, cuda)
+    before = kernels.LAUNCHES["wave_dft_power_bf16"]
+    got = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_dft_power_bf16"] == before + 1
+    want = kernels.wave_dft_power_bf16_plain(waves, window, cfg.hop_size, n_fft, precision)
+    assert got.shape == want.shape == (3, 1 + waves.shape[1] // cfg.hop_size, n_fft // 2 + 1)
+    peak = want.amax(dim=-1, keepdim=True)
+    rel = float(((got - want).abs() / peak.clamp_min(1e-30)).max())
+    assert rel <= tier_tol(precision), rel
+    # The mode, on broadband noise: on the tones above a few bins carry each
+    # frame, too few to see the gap between the modes.
+    g = torch.Generator(device=cuda).manual_seed(5)
+    noise = 0.3 * torch.randn(waves.shape, generator=g, device=cuda)
+    got = kernels.wave_dft_power_bf16(noise, window, cfg.hop_size, n_fft, precision)
+    want, neighbour = (kernels.wave_dft_power_bf16_plain(noise, window, cfg.hop_size, n_fft, p)
+                       for p in (precision, TIER_NEIGHBOUR[precision]))
+    peak = want.amax(dim=-1, keepdim=True)
+    t = kernels.mode_fraction(got, want, neighbour, peak)
+    assert abs(t) <= MODE_FRACTION_TOL, t
+    at_next = kernels.wave_dft_power_bf16(noise, window, cfg.hop_size, n_fft,
+                                          TIER_NEIGHBOUR[precision])
+    t_next = kernels.mode_fraction(at_next, want, neighbour, peak)
+    assert t_next >= 1 - MODE_FRACTION_TOL, t_next
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x1"])
+def test_k3t_matches_its_plain_version(cuda, precision, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rows = 0.3 * torch.randn(160, SMALL.nfft, generator=g, device=cuda)
+    if dtype == torch.int16:
+        rows = (rows * 8000).round().to(torch.int16)
+    window = kernels.stft_window(SMALL, cuda)
+    before = kernels.LAUNCHES["frames_dft_power_bf16"]
+    got = kernels.frames_dft_power_bf16(rows, window, SMALL.nfft, precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frames_dft_power_bf16"] == before + 1
+    want = kernels.frames_dft_power_bf16_plain(rows, window, SMALL.nfft, precision)
+    peak = want.amax(dim=-1, keepdim=True)
+    rel = float(((got - want).abs() / peak).max())
+    assert rel <= tier_tol(precision), rel
+    neighbour = kernels.frames_dft_power_bf16_plain(rows, window, SMALL.nfft,
+                                                    TIER_NEIGHBOUR[precision])
+    t = kernels.mode_fraction(got, want, neighbour, peak)
+    assert abs(t) <= MODE_FRACTION_TOL, t
+    at_next = kernels.frames_dft_power_bf16(rows, window, SMALL.nfft, TIER_NEIGHBOUR[precision])
+    t_next = kernels.mode_fraction(at_next, want, neighbour, peak)
+    assert t_next >= 1 - MODE_FRACTION_TOL, t_next
+    lm = featurizer.logmel_frames(rows, SMALL, precision)   # K3t then K2
+    assert lm.shape == (160, SMALL.mel_bins) and bool(torch.isfinite(lm).all())
+
+
+@pytest.mark.parametrize("rows", [100, 600])
+@pytest.mark.parametrize("mel_precision", ["bf16x1", "bf16x3"])
+def test_k2_bf16_modes_match_their_plain_versions(cuda, mel_precision, rows):
+    """Both row paths of K2 (one row at a time below 4 x the SMs, four
+    above) at each bf16 product mode: one launch, within 1.5e-5 dB of the
+    plain version's exact products (phase 20 reads 7.5e-6 and 7.9e-6), and
+    nearer them than the next mode's."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    power = torch.rand(rows, PROD.freq_bins, generator=g, device=cuda) ** 4 * 1e3
+    bands = kernels.mel_bands(PROD, cuda)
+    before = kernels.LAUNCHES["mel_log_bf16"]
+    got = kernels.mel_log(power, bands, mel_precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mel_log_bf16"] == before + 1
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(PROD, np.float64)).to(cuda)
+    want = kernels.mel_log_plain(power.double(), fb64, mel_precision)
+    err = float((got.double() - want).abs().max())
+    assert err <= 1.5e-5, err
+    neighbour = kernels.mel_log_plain(power.double(), fb64, MEL_NEIGHBOUR[mel_precision])
+    t = kernels.mode_fraction(got, want, neighbour)
+    assert abs(t) <= MODE_FRACTION_TOL, t
+    at_next = kernels.mel_log(power, bands, MEL_NEIGHBOUR[mel_precision])
+    t_next = kernels.mode_fraction(at_next, want, neighbour)
+    assert t_next >= 1 - MODE_FRACTION_TOL, t_next
+
+
+def test_tier_kernels_refuse_what_they_do_not_take(cuda):
+    small = SpectrogramConfig(working_sample_rate=8000, time_margin=0.05)   # n_fft 1024
+    waves = signals(1, 8000, 8000, cuda)
+    with pytest.raises(ValueError, match="2048 to 32768"):
+        kernels.wave_dft_power_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
+                                    small.nfft, "bf16x3")
+    window = kernels.stft_window(SMALL, cuda)
+    with pytest.raises(ValueError, match="featurizer precision"):
+        kernels.wave_dft_power_bf16(waves, window, SMALL.hop_size, SMALL.nfft, "bf16x2")
+    with pytest.raises(ValueError, match="parity tier"):
+        kernels.frames_dft_power_bf16(torch.zeros(2, SMALL.nfft, device=cuda), window,
+                                      SMALL.nfft, None)
+    with pytest.raises(TypeError, match="float32 or int16"):
+        kernels.frames_dft_power_bf16(torch.zeros(2, SMALL.nfft, device=cuda,
+                                                  dtype=torch.float64), window, SMALL.nfft,
+                                      "bf16x3")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.frames_dft_power_bf16(torch.zeros(SMALL.nfft, 2, device=cuda).t(), window,
+                                      SMALL.nfft, "bf16x3")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.logmel_waveform(waves, SMALL, impl="fuse", precision="bf16x1")

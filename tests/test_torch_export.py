@@ -122,13 +122,16 @@ def op_args(name):
     window = kernels.stft_window(CFG, CPU)
     if name == "wave_stft_power":
         return torch.ops.sed_tpu_torch.wave_stft_power, (waves, window, CFG.hop_size, CFG.nfft)
+    if name == "wave_dft_power_bf16":
+        return (torch.ops.sed_tpu_torch.wave_dft_power_bf16,
+                (waves, window, CFG.hop_size, CFG.nfft, 3, 1))
     power = kernels.wave_stft_power(waves, window, CFG.hop_size, CFG.nfft).reshape(-1, CFG.freq_bins)
     bands = kernels.mel_bands(CFG, CPU)
     return torch.ops.sed_tpu_torch.mel_log, (power, bands.segments, bands.band_first, bands.work,
                                              bands.weights, bands.dense, *bands.span)
 
 
-@pytest.mark.parametrize("name", ["wave_stft_power", "mel_log"])
+@pytest.mark.parametrize("name", ["wave_stft_power", "mel_log", "wave_dft_power_bf16"])
 def test_custom_ops_pass_opcheck(name):
     """Schema, fake kernel, autograd registration and AOT dispatch of each
     operator, on the CPU (its kernel there is the plain version)."""
@@ -137,12 +140,14 @@ def test_custom_ops_pass_opcheck(name):
     assert all(v == "SUCCESS" for v in result.values()), result
 
 
-@pytest.mark.parametrize("name", ["wave_stft_power", "mel_log"])
+@pytest.mark.parametrize("name", ["wave_stft_power", "mel_log", "wave_dft_power_bf16"])
 def test_custom_ops_equal_the_plain_versions_and_fake_their_shapes(name):
     op, args = op_args(name)
     got = op(*args)
     if name == "wave_stft_power":
         want = kernels.wave_stft_power_plain(*args)
+    elif name == "wave_dft_power_bf16":
+        want = kernels.wave_dft_power_bf16_plain(*args[:4], ("bf16x3", "bf16x1"))
     else:
         want = kernels.mel_log_plain(args[0], args[5])
     assert torch.equal(got, want)
@@ -216,6 +221,30 @@ def test_exported_program_equals_the_eager_forward(fams, norm):
     pcm = pcm_batch(3)
     with torch.no_grad():
         want = head(logmel_features_batch(torch.from_numpy(pcm), CFG)).numpy()
+    np.testing.assert_array_equal(call(pcm), want)
+
+
+@pytest.mark.parametrize("tier, sharded", [("fast", False), ("turbo", False), ("fast", True)])
+def test_fast_tier_program_equals_the_eager_forward(fams, norm, tier, sharded):
+    """A reduced tier bakes K1t into the graph as the custom operator
+    ``sed_tpu_torch::wave_dft_power_bf16`` (its passes as arguments), with
+    and without a mesh (here one rank's: the program is traced on its rows);
+    the loaded program equals the head called eagerly on the port's
+    featurizer at that tier."""
+    from sed_tpu_torch.ops.featurizer import resolve_featurizer_precision
+    from sed_tpu_torch.parallel.mesh import Mesh
+
+    head = ex.cnn_serving(fams["CnnAvgPooling"].port, *norm)
+    mesh = Mesh(None, 1, 0, CPU) if sharded else None
+    blob = ex.aot_export_pipeline(head, B, SAMPLES, CFG, featurizer_precision=tier,
+                                  mesh=mesh, device="cpu")
+    call = ex.load_aot_pipeline(blob)
+    assert call.header["custom_ops"] == ["mel_log", "wave_dft_power_bf16"]
+    pcm = pcm_batch(5)
+    precision = resolve_featurizer_precision(tier)
+    with torch.no_grad():
+        want = head(logmel_features_batch(torch.from_numpy(pcm), CFG,
+                                          pallas_precision=precision)).numpy()
     np.testing.assert_array_equal(call(pcm), want)
 
 
@@ -501,6 +530,50 @@ def test_library_install_needs_no_nvcc(build_dir):
     assert path.read_bytes() == data
 
 
+def test_build_runs_the_recipe_that_names_the_library(build_dir, monkeypatch):
+    """build() compiles each unit of ``BUILD_RECIPE`` with its compile flags
+    and links the objects with its link flags, and the library's digest
+    changes with every part of that recipe, so a changed recipe is never
+    served a library built by the old one (nor installed from an artifact)."""
+    import subprocess
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    calls = []
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            calls.append(cmd)
+
+        def communicate(self):
+            return "", None
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"\x7fELF")
+        return SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", Proc)
+    monkeypatch.setattr(subprocess, "run", run)
+    recipe = dict(kernels.BUILD_RECIPE)
+    info = kernels.build()
+    assert info.path == kernels.library_path() and info.path.read_bytes() == b"\x7fELF"
+    *compiles, link = calls
+    assert [c[1:1 + len(recipe["compile"]) + 1] for c in compiles] == [
+        [*recipe["compile"], unit] for unit in recipe["units"]]
+    objs = [c[c.index("-o") + 1] for c in compiles]
+    assert link[1:1 + len(recipe["link"])] == list(recipe["link"]) and link[-len(objs):] == objs
+    digest = kernels.library_digest()
+    for key in recipe:
+        monkeypatch.setitem(kernels.BUILD_RECIPE, key, recipe[key] + ("-DOTHER",))
+        assert kernels.library_digest() != digest, key
+        monkeypatch.setitem(kernels.BUILD_RECIPE, key, recipe[key])
+    assert kernels.library_digest() == digest
+
+
 def test_loader_installs_the_library_of_a_cuda_artifact(blob, build_dir, monkeypatch):
     """Through the loader: a CUDA artifact's library lands in ``_build/``
     before the loader reaches the card, with no nvcc (the CPU stands in for
@@ -531,9 +604,12 @@ def test_loader_installs_the_library_of_a_cuda_artifact(blob, build_dir, monkeyp
 
 
 def test_export_refuses_mesh_fast_tiers_and_training_batch_norm(fams):
+    """The fast and turbo tiers are ported (test_fast_tier_program_*); a tier
+    that sed_tpu does not name is refused with its message, as is a training-
+    mode batch norm."""
     head = ex.cnn_serving(fams["CnnAvgPooling"].port)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ex.aot_export_pipeline(head, B, SAMPLES, CFG, featurizer_precision="fast",
+    with pytest.raises(ValueError, match="unknown featurizer precision tier 'fastest'"):
+        ex.aot_export_pipeline(head, B, SAMPLES, CFG, featurizer_precision="fastest",
                                device="cpu")
 
     class TrainingNorm(torch.nn.Module):

@@ -104,7 +104,8 @@ def test_cpu_tensors_never_launch_kernels():
             kernels.logmel_waveform(signals, cfg, impl=impl)
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
-                                "wave_packed_fft": 0}
+                                "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -128,13 +129,24 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 
 @pytest.mark.parametrize("tier", ["fast", "turbo", "bf16x1", "bf16x3", "bf16x6"])
-def test_reduced_precision_tiers_are_not_ported(tier):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        featurizer.resolve_featurizer_precision(tier)
-    with pytest.raises(NotImplementedError):
-        featurizer.logmel_features_batch(torch.zeros(1, 9000, 1),
-                                         SpectrogramConfig(**SMALL),
-                                         pallas_precision=tier)
+def test_reduced_precision_tiers_run_on_the_kernel_path(tier):
+    """Each tier resolves to sed_tpu's precision value; the 'full' path runs
+    it through K1t (here its plain version) then K2; the PyTorch-ops path
+    ignores it, as sed_tpu's XLA path does."""
+    from sed_tpu.ops.featurizer import resolve_featurizer_precision as jax_resolve
+
+    precision = featurizer.resolve_featurizer_precision(tier)
+    assert precision == jax_resolve(tier)
+    cfg = SpectrogramConfig(**SMALL)
+    x = torch.from_numpy(_clips("int16", batch=1, seconds=2, sr=8000))
+    got = featurizer.logmel_features_batch(x, cfg, pallas_precision=precision)
+    want = kernels.logmel_waveform(featurizer.ingest_to_f32(x[..., 0]), cfg,
+                                   precision=precision)
+    torch.testing.assert_close(got[:, 0], want, rtol=0, atol=0)
+    assert not torch.equal(got, featurizer.logmel_features_batch(x, cfg))
+    torch.testing.assert_close(
+        featurizer.logmel_features_batch(x, cfg, use_pallas=False, pallas_precision=precision),
+        featurizer.logmel_features_batch(x, cfg, use_pallas=False), rtol=0, atol=0)
 
 
 def test_precision_resolution_and_ingest_rules():

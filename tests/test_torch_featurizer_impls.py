@@ -326,14 +326,10 @@ _REFUSALS = [
      lambda x, c: kernels.stft_power_from_waveform(x, c, impl="roll_aligned_debug")),
     ("unknown-impl", ValueError, "unknown impl",
      lambda x, c: kernels.logmel_waveform(x, c, impl="bogus")),
-    ("precision-bf16x3", NotImplementedError, "parity tier",
-     lambda x, c: kernels.logmel_waveform(x, c, precision="bf16x3")),
-    ("precision-bf16x1", NotImplementedError, "parity tier",
+    ("precision-bf16x1", NotImplementedError, "not ported.*ROADMAP",
      lambda x, c: kernels.stft_packed_from_waveform(x, c, precision="bf16x1")),
-    ("precision-bf16x6", NotImplementedError, "parity tier",
+    ("precision-bf16x6", NotImplementedError, "not ported.*ROADMAP",
      lambda x, c: kernels.logmel_waveform(x, c, impl="fuse", precision="bf16x6")),
-    ("mel-bf16x1", NotImplementedError, "mel_precision",
-     lambda x, c: kernels.logmel_waveform(x, c, mel_precision="bf16x1")),
     ("mel-bf16x3", NotImplementedError, "mel_precision",
      lambda x, c: kernels.logmel_waveform_fused(x, c, mel_precision="bf16x3")),
     ("mel-unknown", ValueError, "mel_precision",
@@ -350,9 +346,6 @@ _REFUSALS = [
                                                    impl="rollraw")),
     ("rolledge-too-short", ValueError, "too short",
      lambda x, c: kernels.logmel_waveform_rolledge(_SHORT_PROD, SpectrogramConfig())),
-    ("features-tier", NotImplementedError, "ROADMAP",
-     lambda x, c: featurizer.logmel_features_batch(x[..., None], c, use_pallas=True,
-                                                   pallas_precision="fast")),
 ]
 
 
@@ -361,6 +354,31 @@ def test_refusals_by_name(case):
     exc, match, call = case
     with pytest.raises(exc, match=match):
         call(torch.zeros(1, 9000), SpectrogramConfig(**SMALL))
+
+
+# Refused by name before the tiers were ported; each now runs as sed_tpu's
+# does (tests/test_torch_featurizer_tiers.py holds the tiers' values).
+_ONCE_REFUSED = [
+    ("precision-bf16x3", lambda x, c: kernels.logmel_waveform(x, c, precision="bf16x3"),
+     lambda x, c: kernels.power_to_logmel_cuda(kernels.wave_dft_power_bf16(
+         x, kernels.stft_window(c, CPU), c.hop_size, c.nfft, "bf16x3"), c)),
+    ("mel-bf16x1", lambda x, c: kernels.logmel_waveform(x, c, mel_precision="bf16x1"),
+     lambda x, c: kernels.mel_log_plain(
+         kernels.wave_stft_power(x, kernels.stft_window(c, CPU), c.hop_size, c.nfft)[0],
+         kernels.mel_bands(c, CPU).dense, "bf16x1")[None]),
+    # sed_tpu's use_pallas=True path (STFT then the mel kernel) ignores the tier.
+    ("features-tier", lambda x, c: featurizer.logmel_features_batch(
+        x[..., None], c, use_pallas=True, pallas_precision="fast")[:, 0],
+     lambda x, c: featurizer.logmel_features_batch(x[..., None], c, use_pallas=True)[:, 0]),
+]
+
+
+@pytest.mark.parametrize("case", [pytest.param(c[1:], id=c[0]) for c in _ONCE_REFUSED])
+def test_reduced_tiers_once_refused_by_name(case):
+    call, want = case
+    x = torch.from_numpy(_signals(1, 2, 8000, seed=7))
+    cfg = SpectrogramConfig(**SMALL)
+    torch.testing.assert_close(call(x, cfg), want(x, cfg), rtol=0, atol=0)
 
 
 def test_parity_precision_names_are_accepted():

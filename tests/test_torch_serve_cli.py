@@ -37,6 +37,10 @@ SR = 48000
 LENGTHS = (5 * SR + 321, 3 * SR + 777, SR // 2)
 ARCHS = ("CnnAvgPooling", "MobileNetV1", "M5")
 ATOL, BAND, BF16_BAND = 1e-5, 5e-3, 0.05
+# The featurizer tiers' score bands against the parity scores (sed_tpu's
+# hardware record: 0 and 6.2e-4, benchmarks/FAST_FEATURIZER.json); on the CPU
+# sed_tpu's artifact runs its XLA featurizer, which ignores the tier.
+FAST_BAND, TURBO_BAND = 1e-4, 2e-3
 
 
 @pytest.fixture(autouse=True)
@@ -113,6 +117,9 @@ CASES = {
     # sed_tpu rebuilds MobileNetV1's logits view in float32, so --bf16
     # scores in float32 there (and in the port, fault F1): float32's budget.
     "MobileNetV1-bf16": ("MobileNetV1", ["--bf16"], ATOL),
+    # Once refused as not ported: the port bakes K1t into the artifact.
+    "CnnAvgPooling-fast": ("CnnAvgPooling", ["--featurizer_precision", "fast"], FAST_BAND),
+    "MobileNetV1-turbo": ("MobileNetV1", ["--featurizer_precision", "turbo"], TURBO_BAND),
 }
 
 
@@ -125,8 +132,9 @@ def test_serve_build_and_run_follow_sed_tpu(case, files, tmp_path, capsys):
     pb, pr, pout = build_and_run(serve.main, "ours", arch, extra, files, tmp_path, capsys,
                                  device=["--device", "cpu"])
     assert set(pb) == set(jb) and set(pr) == set(jr)
-    assert {k: pb[k] for k in ("arch", "batch", "seconds", "quantize")} == \
-        {k: jb[k] for k in ("arch", "batch", "seconds", "quantize")}
+    keys = ("arch", "batch", "seconds", "quantize") + (
+        ("featurizer_precision",) if arch != "M5" else ())
+    assert {k: pb[k] for k in keys} == {k: jb[k] for k in keys}
     assert pr["files"] == jr["files"] == len(wavs)
     worst = 0.0
     for i in range(len(wavs)):
@@ -195,17 +203,6 @@ def test_build_refusals_match_sed_tpu(case, files, tmp_path):
             main(argv)
         messages.append(str(exc.value.code))
     assert messages[0] == messages[1]
-
-
-@pytest.mark.parametrize("flags, named", [
-    (["--featurizer_precision", "fast"], "--featurizer_precision fast"),
-])
-def test_build_refuses_what_is_not_ported(flags, named, files, tmp_path):
-    _, _, ckpts, _ = files
-    with pytest.raises(SystemExit, match="not ported yet") as exc:
-        serve.main(["build", "--ckpt", ckpts["CnnAvgPooling"], "--out",
-                    str(tmp_path / "x.aot"), *flags])
-    assert named in str(exc.value.code)
 
 
 def test_run_refuses_a_sed_tpu_artifact_and_a_device_it_was_not_built_for(files, tmp_path,

@@ -277,15 +277,6 @@ def test_warmup_ladder_runs_on_cpu_and_leaves_the_pool_empty(models):
         assert pool.join() == 0
 
 
-@pytest.mark.parametrize("flags", [["--featurizer_precision", "fast"],
-                                   ["--featurizer_precision", "turbo"]])
-def test_cli_refuses_unported_options(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--ckpt", "unused.pth", *flags])
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 CALIB = "<calib.wav>"   # a flag value the test replaces with a seeded WAV
 
 
@@ -293,7 +284,8 @@ CALIB = "<calib.wav>"   # a flag value the test replaces with a seeded WAV
                                    ["--featurizer", "xla"],
                                    ["--quantize", "int8", "--calib_wav", CALIB],
                                    ["--arch", "M5", "--quantize", "int8", "--calib_wav", CALIB],
-                                   ["--bf16"]])
+                                   ["--bf16"], ["--featurizer_precision", "fast"],
+                                   ["--featurizer_precision", "turbo"]])
 def test_cli_options_once_refused_as_unported(flags, tmp_path):
     """Each option this CLI once refused now builds its pool, as ``main``
     does (``cli.stream.build_pool``), and serves a client: M5's device pool
@@ -303,7 +295,8 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path):
     bf16 tier.  The client's scores equal the pool's offline counterpart
     (int8: offline int8 scoring with the same calibration, within sed_tpu's
     5e-3 band; bf16: offline float32 scoring, within sed_tpu's 0.05 band for
-    the tier)."""
+    the tier), and the featurizer tiers (K3t's plain version; offline scoring
+    at the same tier, K1t's)."""
     from sed_tpu_torch.cli.infer import build_model, hop_frames, predict_file_m5
     from sed_tpu_torch.cli.stream import (build_pool, calibrate_int8, refuse_unported,
                                           serving_config)
@@ -352,8 +345,9 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path):
         want = predict_file_m5(model, str(tmp_path / "y.wav"), WaveformConfig(),
                                device="cpu")
     else:
-        want = make_batch_predictor(model, SpectrogramConfig(), device="cpu")(
-            y[None, :, None]).numpy()[0]
+        want = make_batch_predictor(model, SpectrogramConfig(),
+                                    featurizer_precision=args.featurizer_precision,
+                                    device="cpu")(y[None, :, None]).numpy()[0]
     assert got.shape == want.shape and got.shape[0] > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 

@@ -83,7 +83,8 @@ def test_slice_scores_match_jax_pipeline():
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
-                                "wave_packed_fft": 0}
+                                "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
 
 
 def test_mean_std_normalization_matches_jax_predictor():
@@ -167,22 +168,17 @@ def test_bare_state_dict_checkpoint_loads(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--batch", "--featurizer_precision", "turbo"],
     ["--num_devices", "2"],
-    ["--batch", "--featurizer_precision", "fast"],
 ])
 def test_cli_refuses_unported_options(flags, capsys):
-    """The fast/turbo tiers are refused as not ported; ``--num_devices`` is
-    ported for ``--batch`` (tests/test_torch_parallel_cli.py) and refused
-    without it with sed_tpu's usage error."""
+    """``--num_devices`` is ported for ``--batch``
+    (tests/test_torch_parallel_cli.py) and refused without it with sed_tpu's
+    usage error; the fast/turbo tiers, once refused here, are ported
+    (test_cli_options_once_refused_as_unported)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["--ckpt", "unused.pth", *flags, "a.wav"])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    if "--num_devices" in flags:
-        assert "--num_devices shards the batched path; add --batch" in err
-    else:
-        assert "not ported" in err
+    assert "--num_devices shards the batched path; add --batch" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [
@@ -191,6 +187,11 @@ def test_cli_refuses_unported_options(flags, capsys):
     ["--batch", "--arch", "M5"],         # refused with sed_tpu's message
     ["--batch", "--quantize", "int8"],   # sed_tpu's note; --batch scores in float
     ["--batch", "--bf16"],               # the bf16 tier: within its band of float32
+    # The featurizer tiers (K1t's plain version here): equal to the batch
+    # predictor at the same tier, per file and batched.
+    ["--batch", "--featurizer_precision", "turbo"],
+    ["--batch", "--featurizer_precision", "fast"],
+    ["--featurizer_precision", "turbo"],
 ])
 def test_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     sr = 48000
@@ -217,7 +218,10 @@ def test_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     from sed_tpu_torch.io.audio import read_multichannel_audio
 
     wav = read_multichannel_audio(paths[0], target_fs=sr).astype(np.float32)
-    want = make_batch_predictor(model, SpectrogramConfig(), device="cpu")(wav[None])[0]
+    tier = flags[flags.index("--featurizer_precision") + 1] \
+        if "--featurizer_precision" in flags else None
+    want = make_batch_predictor(model, SpectrogramConfig(), featurizer_precision=tier,
+                                device="cpu")(wav[None])[0]
     got = np.load(out / "clip0_scores.npy")
     assert got.shape == tuple(want.shape)
     # sed_tpu's band for the bf16 tier on scores (tests/test_stream_pool.py:737).

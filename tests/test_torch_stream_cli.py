@@ -89,22 +89,16 @@ def test_stream_cli_short_file_does_not_abort_run(ckpt, tmp_path):
     assert np.load(out / "short_scores.npy").shape == (0, 1)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--featurizer_precision", "turbo"], ["--num_devices", "64"],
-    ["--featurizer_precision", "fast"],
-])
+@pytest.mark.parametrize("flags", [["--num_devices", "64"]])
 def test_stream_cli_refuses_unported_options(flags, capsys):
-    """The fast/turbo tiers are refused as not ported; ``--num_devices`` is
-    ported (tests/test_torch_parallel_cli.py) and refuses more ranks than
-    visible cards, with sed_tpu's message, before reading any file."""
+    """``--num_devices`` is ported (tests/test_torch_parallel_cli.py) and
+    refuses more ranks than visible cards, with sed_tpu's message, before
+    reading any file; the fast/turbo tiers, once refused here, are ported
+    (test_stream_cli_options_once_refused_as_unported)."""
     with pytest.raises(SystemExit) as exc:
         cli.main(["a.wav", "--ckpt", "unused.pth", *flags])
-    if "--num_devices" in flags:
-        assert str(exc.value.code) == (f"--num_devices 64 but only "
-                                       f"{torch.cuda.device_count()} devices are visible")
-        return
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert str(exc.value.code) == (f"--num_devices 64 but only "
+                                   f"{torch.cuda.device_count()} devices are visible")
 
 
 def test_stream_cli_refuses_num_devices_for_m5_as_sed_tpu_does(capsys):
@@ -117,6 +111,7 @@ def test_stream_cli_refuses_num_devices_for_m5_as_sed_tpu_does(capsys):
 @pytest.mark.parametrize("flags", [
     ["--arch", "M5"], ["--arch", "MobileNetV1"], ["--m5_pool", "device"],
     ["--featurizer", "xla"], ["--quantize", "int8"], ["--bf16"],
+    ["--featurizer_precision", "turbo"], ["--featurizer_precision", "fast"],
 ])
 def test_stream_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     """Each option this CLI once refused now scores a file as offline
@@ -125,7 +120,9 @@ def test_stream_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
     (no effect on CnnAvgPooling), the xla tick featurizer, int8 serving
     calibrated on the first file (against offline int8 scoring with the same
     calibration, within sed_tpu's 5e-3 band), and the bf16 tier (against
-    offline float32 scoring, within sed_tpu's 0.05 band for the tier)."""
+    offline float32 scoring, within sed_tpu's 0.05 band for the tier), and
+    the featurizer tiers (K3t's plain version; against offline scoring at
+    the same tier, K1t's)."""
     from sed_tpu_torch.cli.infer import build_model, predict_file_m5
     from sed_tpu_torch.cli.stream import calibrate_int8
     from sed_tpu_torch.configs import WaveformConfig
@@ -153,6 +150,8 @@ def test_stream_cli_options_once_refused_as_unported(flags, tmp_path, capsys):
         want = predict_file_m5(model, str(tmp_path / "clip.wav"), WaveformConfig(),
                                device="cpu")
     else:
-        want = make_batch_predictor(model, CFG, device="cpu")(y[None, :, None]).numpy()[0]
+        tier = flags[1] if flags[0] == "--featurizer_precision" else None
+        want = make_batch_predictor(model, CFG, featurizer_precision=tier, device="cpu")(
+            y[None, :, None]).numpy()[0]
     assert got.shape == want.shape and got.shape[0] > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)

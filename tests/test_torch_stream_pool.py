@@ -481,8 +481,11 @@ def test_pool_cpu_run_launches_no_kernel_and_refuses_unported(models):
     want = joined([det.push(c[None])[0] for c in audio] + [det.flush()[0]])
     assert got.shape == want.shape and got.shape[0] > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamPool(port, CFG, featurizer_precision="fast", device="cpu")
+    # The fast tier, once refused here, builds (K3t); a tier sed_tpu does not
+    # name is refused with its message.
+    assert StreamPool(port, CFG, featurizer_precision="fast", device="cpu").slots == 8
+    with pytest.raises(ValueError, match="unknown featurizer precision tier"):
+        StreamPool(port, CFG, featurizer_precision="faster", device="cpu")
     with pytest.raises(ValueError, match="extract_impl"):
         StreamPool(port, CFG, extract_impl="bogus", device="cpu")
 
