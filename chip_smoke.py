@@ -13,8 +13,9 @@ non-zero on the first failure.  Phases:
               the build time and ptxas' registers, shared memory and spills;
               the lesion builds (``LESIONS``: K6's three, the drain's
               exchange of K3 and K1, K5's epilogue, K2's copies and sums)
-              start beside it, one nvcc for each distinct edit, without the
-              tier kernel's instances (``LESION_FLAGS``);
+              start after it, beside phases 2-7, one nvcc for each
+              distinct edit, without the tier kernels' instances
+              (``LESION_FLAGS``);
   2. kernels  K1 and K2 against their plain versions computed in float64 on
               the card, at the batch path's shapes (16 x 60 s), and K2 on the
               batch's rows from row 1 on (off a 16-byte boundary, up to the
@@ -346,11 +347,32 @@ non-zero on the first failure.  Phases:
               matmuls, the bound (bytes, or tensor FLOPs at the card's dense
               bf16 peak), K2's modes, and the batch at each tier.
 
+ 21. fusepack 'fuse' and 'pack' at the reduced tiers, on phase 3's 16 x 60 s
+              batch ingested to f32: ``logmel_waveform(impl='fuse')`` at
+              each of ``TIER_PRECISIONS`` and at the mel modes
+              (``FUSE_MEL_RUNS``: K5b at parity, K5t at a tier), and
+              ``impl='pack'`` at each precision, launch counts reset just
+              before and read just after each (exactly ``impl_kernels``' row,
+              once each: ``REDUCED_IMPL_KERNELS``' at a tier); K5t equal to K1t
+              then K2 and K5b to K1 then K2's mode (bit for bit; 1e-5 dB at
+              most); K6t (``wave_packed_fft_bf16``) against its plain version
+              (``tier_rel_tol`` x the frame's peak |Z|) and nearer its own
+              mode than the next ones on broadband noise (``mode_fraction``);
+              both impls' log-mel against float64 on broadband noise at fast
+              and turbo (1e-3 and 0.05 dB); times: K5t beside K1t then K2 and
+              K6t beside 'pack' at each precision, K5b beside K1 then K2b and
+              K5, the parity 'fuse' and 'pack', the plain versions at fast,
+              each bound (tensor FLOPs at the dense bf16 peak, the mel's at
+              FP32, or bytes) and the PyTorch yardsticks (``torch.stft`` +
+              abs^2 + ``matmul`` + ``log10``; ``torch.fft.fft`` of the packed
+              frames).
+
 Then one ``{"kernels": [...]}`` JSON line (K1–K10, then K1t, K3t and K2's
-bf16 modes with phase 20's figures; K1's and K2's with the training path's
-launches, every entry with phase 12's, 0, phase 13's, phase 14's, phase
-15's, phase 16's, phase 17's, phase 18's, phase 19's and phase 20's), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+bf16 modes with phase 20's figures, then K5t, K5b and K6t with phase 21's;
+K1's and K2's with the training path's launches, every entry with phase
+12's, 0, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase
+18's, phase 19's, phase 20's and phase 21's), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -487,6 +509,9 @@ ENTRY_COUNTERS = {
     "stft_power_from_waveform(slice, roll_nodb)": ("wave_stft_power",),
     "wave_dft_power_bf16": ("wave_dft_power_bf16",),
     "frames_dft_power_bf16": ("frames_dft_power_bf16",), "mel_log_bf16": ("mel_log_bf16",),
+    "wave_stft_mel_log_bf16": ("wave_stft_mel_log_bf16",),
+    "wave_stft_mel_log_mel_bf16": ("wave_stft_mel_log_mel_bf16",),
+    "wave_packed_fft_bf16": ("wave_packed_fft_bf16",),
 }
 
 # Memory rate (B/s), FP32 rate outside the tensor cores and dense bf16
@@ -631,23 +656,23 @@ LESIONS = {
                           "    constexpr bool in_registers = T == 1;",
                           "    constexpr bool in_registers = true;"),
     "K5 epilogue": ("sed_wave_stft_mel_log",
-                    "  mel_log_row<kWarps>(power, seg, band_first, weights, power + m + 1, row, "
-                    "n_mels, n_seg);",
+                    "  mel_log_row_mode<kWarps>(mel_passes, power, seg, band_first, weights, "
+                    "power + m + 1, row,\n                           n_mels, n_seg);",
                     "  (void)kWarps;"),
     "K2 copies": ("sed_mel_log", "        stage_chunk<R>(a, ring, full, g, k, seq, lane);",
                   "        mbar_arrive(full + seq % D); if (lane == 0) mbar_arrive(full + seq % D);"),
     "K2 sums": ("sed_mel_log", "        segment_sums<R, kPasses>(x, w, s.y, lane, sum);",
                 "        for (int r = 0; r < R; ++r) sum[r] = 0.f;"),
 }
-# The lesions time K1-K6 only: their builds leave out the tier kernel's 48
-# instances (featurizer.cu, SED_FEATURIZER_NO_TIERS), which would double
-# each build's time.
+# The lesions time K1-K6 only: their builds leave out the tier kernels' 3 x
+# 48 instances (featurizer.cu, SED_FEATURIZER_NO_TIERS), which would
+# multiply each build's time.
 LESION_FLAGS = ("-DSED_FEATURIZER_NO_TIERS",)
 _lesion_builds = []
 
 
 def start_lesions(kernels):
-    """Start one nvcc per distinct edit (all at once, beside the main build);
+    """Start one nvcc per distinct edit (all at once, after the main build);
     lesions that make the same edit share its library."""
     src = kernels.SOURCE.read_text()
     out = kernels.BUILD_DIR / "lesions"
@@ -928,7 +953,7 @@ def impls_phase(torch, cfg, dev, bound, win_nnz, lesions):
         err = fn(waves.data_ptr(), window.data_ptr(), tw.data_ptr(), unpack.data_ptr(),
                  bands.segments.data_ptr(), bands.band_first.data_ptr(),
                  bands.weights.data_ptr(), k5_out.data_ptr(), BATCH, samples,
-                 k5_out.shape[1], hop, n_fft.bit_length() - 2, n_mels, bands.n_segments,
+                 k5_out.shape[1], hop, n_fft.bit_length() - 2, n_mels, bands.n_segments, 0,
                  dev.index, stream)
         check(err == 0, f"K5 raw launch ({err})")
 
@@ -4951,6 +4976,266 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
     return entries, total
 
 
+# 'fuse' and 'pack' at the tiers (phase 21) run phase 20's precisions and
+# bounds; 'fuse' also runs these (precision, mel_precision) pairs: K5b at
+# parity, K5t at a tier with a mel mode.
+FUSE_MEL_RUNS = ((None, "bf16x1"), (None, "bf16x3"), ("bf16x1", "bf16x3"),
+                 ("bf16x3", "bf16x1"))
+FUSE_BIT_DB_TOL = 1e-5    # K5t / K5b against their two-kernel chain, if not bit for bit
+
+
+def fusepack_phase(torch, cfg, dev, smi, peaks):
+    """Phase 21: 'fuse' and 'pack' at the reduced tiers (see the module
+    docstring).  ``peaks``: the card's (memory B/s, FP32 FLOP/s, dense bf16
+    FLOP/s).  Returns (the kernels line's entries of K5t, K5b and K6t, the
+    launch counts of the phase's runs, summed)."""
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops.featurizer import ingest_to_f32
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    t0 = time.perf_counter()
+    bw, fp32_peak, bf16_peak = peaks
+    sr, hop, n_fft, n_bins = cfg.working_sample_rate, cfg.hop_size, cfg.nfft, cfg.freq_bins
+    m, n_mels = n_fft // 2, cfg.mel_bins
+    samples = sr * SECONDS
+    window = kernels.stft_window(cfg, dev)
+    bands = kernels.mel_bands(cfg, dev)
+    fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    # Phase 3's batch (same seed), ingested to f32 on the card, as phase 9's.
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 1) * 32767).round().to(torch.int16)
+    waves = ingest_to_f32(pcm).contiguous()
+    g = torch.Generator(device=dev).manual_seed(24)
+    noise = (0.3 * torch.randn(BATCH, samples, generator=g, device=dev)).contiguous()
+    n_frames = 1 + samples // hop
+    frames = BATCH * n_frames
+
+    def run(impl, prec, mel=None, x=None):
+        """logmel_waveform on the batch, launch counts reset just before and
+        read just after: exactly impl_kernels' row, once each."""
+        kernels.reset_launch_counts()
+        out = kernels.logmel_waveform(waves if x is None else x, cfg, impl=impl, precision=prec,
+                                      mel_precision=mel)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for k, n in kernels.LAUNCHES.items():
+            total[k] += n
+        names = kernels.impl_kernels(impl, prec, mel)
+        check(out.shape == (BATCH, n_frames, n_mels), f"{impl} at {prec}, {mel}: shape")
+        check(launched == dict.fromkeys(names, 1),
+              f"logmel_waveform({impl!r}, {prec}, {mel}) launched {names} once each, not "
+              f"{launched}")
+        return out, launched
+
+    # ---- K5t and K5b: 'fuse' against its two-kernel chain ------------------
+    fuse_err, fuse_launches = {}, {}
+    for prec, mel in [(p, None) for p in TIER_PRECISIONS] + list(FUSE_MEL_RUNS):
+        out, launched = run("fuse", prec, mel)
+        fuse_launches[prec, mel] = launched
+        power = (kernels.wave_stft_power(waves, window, hop, n_fft) if prec is None
+                 else kernels.wave_dft_power_bf16(waves, window, hop, n_fft, prec))
+        two = kernels.mel_log(power.reshape(-1, n_bins), bands, mel).reshape(out.shape)
+        torch.cuda.synchronize()
+        differ = int((out != two).sum())
+        db = float((out - two).abs().max())
+        fuse_err[prec, mel] = db
+        log(f"[fusepack] fuse at {tier_tag(prec) if prec else 'parity'}, mel_precision {mel}: "
+            f"launches {launched}; vs {'K1' if prec is None else 'K1t'} then K2 {db:.3e} dB, "
+            f"{differ} values differ (0 expected; tol {FUSE_BIT_DB_TOL})")
+        check(db <= FUSE_BIT_DB_TOL, f"fuse at {prec}, {mel} equals its two-kernel chain")
+    del power, two
+
+    # ---- K6t: 'pack' against its plain version; its modes ---------------------
+    k6t, pack_launches = {}, {}
+    for prec in TIER_PRECISIONS:
+        _, pack_launches[prec] = run("pack", prec)
+        passes = kernels.tier_passes(prec)
+        tol = tier_rel_tol(passes)
+        zr, zi = kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, prec)
+        wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, prec)
+        torch.cuda.synchronize()
+        peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True).clamp_min(1e-30)
+        err = max(float((z - w).abs().max()) for z, w in ((zr, wr), (zi, wi)))
+        rel = max(float(((z - w).abs() / peak).max()) for z, w in ((zr, wr), (zi, wi)))
+        del zr, zi, wr, wi
+        check(rel <= tol, f"K6t at {prec} within {tol} x frame peak |Z| of its plain version")
+
+        def packed(fn, p):
+            return torch.cat(fn(noise, window, hop, n_fft, p), dim=-1)
+
+        want = packed(kernels.wave_packed_fft_bf16_plain, prec)
+        wr, wi = want.chunk(2, dim=-1)
+        scale = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+        got = packed(kernels.wave_packed_fft_bf16, prec)
+        fractions = {}
+        for nb in TIER_NEIGHBOURS[prec]:
+            other = packed(kernels.wave_packed_fft_bf16_plain, nb)
+            t = kernels.mode_fraction(got, want, other, scale)
+            t_next = kernels.mode_fraction(packed(kernels.wave_packed_fft_bf16, nb), want,
+                                           other, scale)
+            gap = float(((other - want).abs() / scale).max())
+            fractions[tier_tag(nb)] = {"fraction": t, "at_next": t_next, "gap": gap}
+            check(abs(t) <= MODE_FRACTION_TOL,
+                  f"K6t at {prec} runs its own mode, not {nb}'s (fraction {t:.3e})")
+            check(t_next >= 1 - MODE_FRACTION_TOL,
+                  f"K6t at {nb} lies nearer {nb}'s plain version than {prec}'s "
+                  f"(fraction {t_next:.3e})")
+        del want, got, other, wr, wi
+        k6t[prec] = {"max_abs_err": err, "rel_err": rel, "tol": tol,
+                     "mode_fraction": fractions}
+        log(f"[fusepack] pack at {tier_tag(prec)}: launches {pack_launches[prec]}; K6t 2 x "
+            f"({BATCH}, {n_frames}, {m}) vs plain max err / frame peak |Z| {rel:.3e} (tol "
+            f"{tol}); on noise, fraction towards the next modes (tol {MODE_FRACTION_TOL}): "
+            f"{fractions_text(k6t[prec])}")
+
+    # ---- fidelity: log-mel against float64 on broadband noise -----------------
+    ref = kernels.mel_log_plain(kernels.wave_stft_power_plain(
+        noise.double(), window.double(), hop, n_fft).reshape(-1, n_bins), fb64)
+    fidelity = {}
+    for impl in ("fuse", "pack"):
+        for prec, name in TIER_NAMES.items():
+            out, _ = run(impl, prec, x=noise)
+            db = float((out.reshape(-1, n_mels).double() - ref).abs().max())
+            fidelity[impl, name] = db
+            log(f"[fusepack] {impl} at {name} log-mel vs float64 on broadband noise: "
+                f"{db:.3e} dB (tol {TIER_DB_TOL[name]})")
+            check(db <= TIER_DB_TOL[name], f"{impl} at {name} within its dB bound on noise")
+    del ref, out
+
+    # ---- times ----------------------------------------------------------------
+    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+    n2 = n_fft // n1
+    p1 = 1 << ((m.bit_length() - 1) // 2)
+    p2 = m // p1
+    h = n1 // 2 + 1
+    nnz = bands.nnz
+    wave_b = 4 * waves.numel()
+    mel_tables = 4 * (nnz + 5 * bands.n_segments + n_mels + 1)
+    out_mel_b = 4 * frames * n_mels
+    windowed = stft_ops.frame_signal(waves, n_fft, hop) * window
+    packed_frames = torch.complex(windowed[..., 0::2].contiguous(),
+                                  windowed[..., 1::2].contiguous())
+    del windowed
+    lib_fuse_ms = time_ms(torch, lambda: 10.0 * torch.log10(torch.clamp(torch.matmul(
+        torch.stft(waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                   return_complex=True).abs().square().transpose(1, 2), bands.dense),
+        min=1e-10)))
+    lib_pack_ms = time_ms(torch, lambda: torch.fft.fft(packed_frames, dim=-1))
+    del packed_frames
+    parity = {impl: time_ms(torch, lambda impl=impl: kernels.logmel_waveform(
+        waves, cfg, impl=impl)) for impl in ("fuse", "pack")}
+    k1k2_ms = time_ms(torch, lambda: kernels.mel_log(kernels.wave_stft_power(
+        waves, window, hop, n_fft).reshape(-1, n_bins), bands))
+
+    def bound(n_bytes, t_ops):
+        t_bytes = n_bytes / bw * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    times = {}
+    for prec in TIER_PRECISIONS:
+        passes = kernels.tier_passes(prec)
+        ci, co = (kernels._tier_chunks(p) for p in passes)
+        k5t_tables = 2 * (ci * 2 * n2 * n2 + co * (n1 + 8) * 2 * n1) + 8 * n1 * n2 + 4 * n_fft
+        k6t_tables = 2 * (ci * 2 * p2 * 2 * p2 + co * 2 * p1 * 2 * p1) + 8 * p1 * p2 + 4 * n_fft
+        k5t_ops = frames * (passes[0] * 4 * n2 * n2 * n1 + passes[1] * 8 * n2 * n1 * h)
+        k6t_ops = frames * (passes[0] * 8 * p2 * p2 * p1 + passes[1] * 8 * p2 * p1 * p1)
+        t = {
+            "k5t_ms": time_ms(torch, lambda: kernels.wave_stft_mel_log_bf16(
+                waves, window, hop, n_fft, bands, prec)),
+            "k1t_k2_ms": time_ms(torch, lambda: kernels.mel_log(kernels.wave_dft_power_bf16(
+                waves, window, hop, n_fft, prec).reshape(-1, n_bins), bands)),
+            "k6t_ms": time_ms(torch, lambda: kernels.wave_packed_fft_bf16(
+                waves, window, hop, n_fft, prec)),
+            "pack_ms": time_ms(torch, lambda: kernels.logmel_waveform(
+                waves, cfg, impl="pack", precision=prec)),
+            "k5t_tensor_gflop": k5t_ops / 1e9, "k6t_tensor_gflop": k6t_ops / 1e9}
+        t["k5t_bound_ms"], t["k5t_bound_by"] = bound(
+            wave_b + k5t_tables + mel_tables + out_mel_b,
+            k5t_ops / bf16_peak * 1e3 + 2 * nnz * frames / fp32_peak * 1e3)
+        t["k6t_bound_ms"], t["k6t_bound_by"] = bound(
+            wave_b + k6t_tables + 2 * 4 * frames * m, k6t_ops / bf16_peak * 1e3)
+        times[prec] = t
+        log(f"[fusepack] {smi}; times {tier_tag(prec)}: K5t {t['k5t_ms']:.4f} ms | K1t then K2 "
+            f"{t['k1t_k2_ms']:.4f} ms | bound {t['k5t_bound_ms']:.4f} ms ({t['k5t_bound_by']}: "
+            f"{t['k5t_tensor_gflop']:.1f} tensor GFLOP) | share {t['k5t_bound_ms'] / t['k5t_ms']:.1%}"
+            f"; K6t {t['k6t_ms']:.4f} ms | bound {t['k6t_bound_ms']:.4f} ms ({t['k6t_bound_by']}: "
+            f"{t['k6t_tensor_gflop']:.1f} tensor GFLOP) | share "
+            f"{t['k6t_bound_ms'] / t['k6t_ms']:.1%}; pack (K6t, unpack, K2) {t['pack_ms']:.4f} ms")
+    fast = times["bf16x3"]
+    fast["k5t_plain_ms"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_bf16_plain(
+        waves, window, hop, n_fft, bands.dense, "bf16x3"), reps=TIER_PLAIN_REPS, warmup=1)
+    fast["k6t_plain_ms"] = time_ms(torch, lambda: kernels.wave_packed_fft_bf16_plain(
+        waves, window, hop, n_fft, "bf16x3"), reps=TIER_PLAIN_REPS, warmup=1)
+    k5b = {mel: {"ms": time_ms(torch, lambda mel=mel: kernels.wave_stft_mel_log(
+                     waves, window, hop, n_fft, bands, mel)),
+                 "k1_k2b_ms": time_ms(torch, lambda mel=mel: kernels.mel_log(
+                     kernels.wave_stft_power(waves, window, hop, n_fft).reshape(-1, n_bins),
+                     bands, mel))}
+           for mel in ("bf16x1", "bf16x3")}
+    k5b["bf16x3"]["plain_ms"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_plain(
+        waves, window, hop, n_fft, bands.dense, "bf16x3"), reps=TIER_PLAIN_REPS, warmup=1)
+    k5_ms = time_ms(torch, lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands))
+    win_nnz = int(torch.count_nonzero(window))
+    k5b_bound = bound(wave_b + 4 * (n_fft + 4 * m) + mel_tables + out_mel_b,
+                      (fft_ops(frames, m, win_nnz) + 3 * 2 * nnz * frames) / fp32_peak * 1e3)
+    log(f"[fusepack] {smi}; times: K5b bf16x1 {k5b['bf16x1']['ms']:.4f} ms (K1 then K2b "
+        f"{k5b['bf16x1']['k1_k2b_ms']:.4f}), bf16x3 {k5b['bf16x3']['ms']:.4f} ms (K1 then K2b "
+        f"{k5b['bf16x3']['k1_k2b_ms']:.4f}; plain {k5b['bf16x3']['plain_ms']:.4f}) | K5 "
+        f"{k5_ms:.4f} ms | bound at bf16x3 {k5b_bound[0]:.4f} ms ({k5b_bound[1]}); plain at "
+        f"fast: K5t {fast['k5t_plain_ms']:.4f} ms, K6t {fast['k6t_plain_ms']:.4f} ms; "
+        f"yardsticks: torch.stft+abs^2+matmul+log10 {lib_fuse_ms:.4f} ms, torch.fft.fft of the "
+        f"packed frames {lib_pack_ms:.4f} ms; parity fuse {parity['fuse']:.4f} ms, pack "
+        f"{parity['pack']:.4f} ms, K1 then K2 {k1k2_ms:.4f} ms")
+    log(f"[fusepack] {smi}; phase {time.perf_counter() - t0:.1f} s; launches of its runs "
+        f"{ {k: v for k, v in total.items() if v} }")
+
+    source = "sed_tpu_torch/ops/csrc/featurizer.cu"
+    mel_runs = [k for k in fuse_launches if k[0] is not None]
+    entries = [
+        {"name": "wave_stft_mel_log_bf16",
+         "kernel": "tier_dft_mel_log_kernel<N1, P1, P2> (tier_dft, a cluster a frame, "
+                   "K2's segment sums over distributed shared memory)",
+         "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:550",
+         "launches": sum(fuse_launches[k].get("wave_stft_mel_log_bf16", 0) for k in mel_runs),
+         "precision": "bf16x3", "max_abs_err": max(fuse_err[k] for k in mel_runs),
+         "ms": fast["k5t_ms"], "plain_ms": fast["k5t_plain_ms"],
+         "bound_ms": fast["k5t_bound_ms"], "bound_by": fast["k5t_bound_by"],
+         "library_ms": lib_fuse_ms, "k1t_k2_ms": fast["k1t_k2_ms"],
+         "fidelity_db": {name: fidelity["fuse", name] for name in TIER_NAMES.values()},
+         "tiers": {tier_tag(p): {k: v for k, v in times[p].items() if k.startswith(
+             ("k5t", "k1t"))} | {"vs_two_kernels_db": fuse_err[p, None]}
+                   for p in TIER_PRECISIONS}},
+        {"name": "wave_stft_mel_log_mel_bf16",
+         "kernel": "wave_stft_mel_log_kernel<LOG2_M> (mel_log_row_mode: K2's product modes)",
+         "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:550",
+         "launches": sum(fuse_launches[k].get("wave_stft_mel_log_mel_bf16", 0)
+                         for k in fuse_launches),
+         "precision": "mel bf16x3", "max_abs_err": max(fuse_err[None, mel]
+                                                      for mel in ("bf16x1", "bf16x3")),
+         "ms": k5b["bf16x3"]["ms"], "plain_ms": k5b["bf16x3"]["plain_ms"],
+         "bound_ms": k5b_bound[0], "bound_by": k5b_bound[1], "library_ms": lib_fuse_ms,
+         "k5_ms": k5_ms, "modes": k5b},
+        {"name": "wave_packed_fft_bf16",
+         "kernel": "tier_packed_fft_kernel<N1, P1, P2> (tier_dft with a complex input)",
+         "route": "cuda", "source": source,
+         "replaces": "sed_tpu/ops/pallas_featurizer.py:882",
+         "launches": sum(pack_launches[p].get("wave_packed_fft_bf16", 0)
+                         for p in TIER_PRECISIONS),
+         "precision": "bf16x3", "max_abs_err": k6t["bf16x3"]["max_abs_err"],
+         "ms": fast["k6t_ms"], "plain_ms": fast["k6t_plain_ms"],
+         "bound_ms": fast["k6t_bound_ms"], "bound_by": fast["k6t_bound_by"],
+         "library_ms": lib_pack_ms, "parity_pack_ms": parity["pack"],
+         "parity_fuse_ms": parity["fuse"],
+         "fidelity_db": {name: fidelity["pack", name] for name in TIER_NAMES.values()},
+         "tiers": {tier_tag(p): {**k6t[p], **{k: v for k, v in times[p].items()
+                                              if k.startswith(("k6t", "pack"))}}
+                   for p in TIER_PRECISIONS}},
+    ]
+    return entries, total
+
 def main() -> int:
     import torch
 
@@ -4979,9 +5264,14 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {name}, device count {count}")
     log(f"[card] nvidia-smi: {smi}")
-    start_lesions(kernels)
     info = kernels.build(force=True)
-    log(f"[card] nvcc build: {info.seconds:.2f} s -> {info.path.relative_to(REPO)}")
+    log(f"[card] nvcc build: {info.seconds:.2f} s -> {info.path.relative_to(REPO)} (its objects, "
+        f"side by side, done after: " + ", ".join(
+            f"{unit} {sec:.2f} s" for unit, sec in zip(kernels.BUILD_RECIPE["units"],
+                                                       info.unit_seconds)) + ")")
+    # Phases 8 and 9 time the lesions: their builds run beside phases 2-7, not
+    # beside the library's four objects, which need the host's cores first.
+    start_lesions(kernels)
     from sed_tpu_torch.io import native
 
     reader = native.build(force=True)
@@ -5532,6 +5822,10 @@ def main() -> int:
                                                   mean, std, peaks)
     log(f"[tiers] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 21. 'fuse' and 'pack' at the tiers: K5t, K5b, K6t ---------------------------
+    fusepack_entries, fusepack_launches = fusepack_phase(torch, cfg, dev, smi, peaks)
+    log(f"[fusepack] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -5565,6 +5859,7 @@ def main() -> int:
          "queued_plain_ms": k3_q_plain_ms, "queued_library_ms": k3_q_lib_ms},
         *impl_entries,
         *tier_entries,
+        *fusepack_entries,
     ]
     for e in entries:   # phase 12's path, M5 training: every count is 0
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
@@ -5576,6 +5871,7 @@ def main() -> int:
         e["shard_launches"] = sum(shard_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["classical_launches"] = sum(classical_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["tier_launches"] = sum(tier_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["fusepack_launches"] = sum(fusepack_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,9 +2,10 @@
 //
 // Built by sed_tpu_torch/ops/cuda_featurizer.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -Xcompiler -fPIC -c featurizer.cu, twice side by side (with
-//        -DSED_FEATURIZER_NO_TIERS, and with -DSED_FEATURIZER_TIERS_ONLY),
-//   then nvcc -shared -o libsed_featurizer.so of the two objects,
+//        -Xcompiler -fPIC -c featurizer.cu, four times side by side (with
+//        -DSED_FEATURIZER_NO_TIERS, -DSED_FEATURIZER_TIERS_ONLY,
+//        -DSED_FEATURIZER_FUSED_TIERS_ONLY, -DSED_FEATURIZER_PACKED_TIERS_ONLY),
+//   then nvcc -shared -o libsed_featurizer.so of the four objects,
 // into a shared library with a plain C interface, loaded with ctypes.  Every
 // entry point launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() after the launch (the Python wrapper raises on non-zero)
@@ -175,6 +176,14 @@
 //   (k2, k1) layout of the half transform (flat j = k2*n1 + k1 holds bin
 //   n2*k1 + k2); the tests permute sed_tpu's output, never this one.
 //
+// K5b  sed_wave_stft_mel_log at mel_passes 1 or 3
+//   Replaces _make_wave_fft_mel_kernel_roll (:550) at precision None and
+//   mel_precision 'bf16x1' / 'bf16x3' (its mel_dot, :580).  K5 with K2's
+//   product modes (mel_fma) in its epilogue, chosen at run time
+//   (mel_log_row_mode): the epilogue is bound by its loads, and one instance
+//   per log2 m keeps the build as it was.  Equals K1 then K2 at that mode
+//   bit for bit.
+//
 // K1t / K3t  sed_tier_dft_power (tier_dft_kernel<N1, P1, P2>)
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_wave_fft_power_kernel_roll
 //   (:412; K1t, and K7-K10 at a tier) and _make_fft_power_kernel (:283; K3t)
@@ -210,10 +219,11 @@
 //   columns k1 < n1/2 (interleaved Zr, Zi so a thread squares its own),
 //   with the column pair k1 = n1/2 (bin n_fft/2) taken by one warp of the
 //   first CTA; its tiles come by cp.async into two buffers.  Shared memory
-//   52-158 KB and 153-212 registers: one CTA an SM.  The split tables are
-//   made once on the host from sed_tpu's f32 constants and cached per
-//   device.  The library's other object holds everything else: the two
-//   compile side by side (see sed_tier_dft_power).
+//   32-185 KB (tier_smem_bytes) and 104-214 registers (ptxas, chip_smoke.py
+//   phase 1): one CTA an SM.  The split tables are made once on the host
+//   from sed_tpu's f32 constants and cached per device.  The stages are
+//   tier_dft, which K5t and K6t share; each kernel's instances are an
+//   object of the library of their own (see the tier entry points).
 //   Known divergence from sed_tpu: one-sided natural-order power in place of
 //   all n_fft bins in the (k2, k1) layout with a folded filterbank; the
 //   tensor cores' f32 accumulation (its order, its alignment of the terms)
@@ -222,19 +232,66 @@
 //   sed_tpu's kernels at the same tier.  K2's bf16x1 / bf16x3 product modes
 //   (mel_log_kernel<R, kPasses>, mel_fma) serve sed_tpu's mel_precision.
 //
+// K5t  sed_tier_dft_mel_log (tier_dft_mel_log_kernel<N1, P1, P2>)
+//   Replaces _make_wave_fft_mel_kernel_roll (:550, driven by
+//   logmel_waveform_fused, impl='fuse') at a reduced precision: its
+//   _fft_power_body (:1294) through _stage_dots, then its mel epilogue at
+//   mel_precision (None, 'bf16x4': f32; 'bf16x1', 'bf16x3': K2's modes).
+//   Computes K1t then K2 in one launch, with no power array in device memory.
+//   Bound on an H100 SXM: K1t's (operations at fast; the output is 0.75 MB
+//   in place of 191 MB of power).
+//   Design: K1t's tier_dft, whose n2 / 64 blocks of a frame (4 at n_fft
+//   32768) each hold 64 k2 rows of every k1, so a frame's one-sided power is
+//   spread over blocks, interleaved.  The blocks of a frame are one thread-
+//   block cluster: each puts its |Z|^2 into its own shared memory (T's
+//   region, free after stage 2), and after a cluster barrier the frame's
+//   warps sum K2's segments reading each bin from the block that holds it
+//   (distributed shared memory), into the first block's segment sums; it
+//   adds the bands and writes the row.  K2's order and product mode (chosen
+//   at run time), K1t's power: equal to K1t then K2 bit for bit.
+//
+// K6t  sed_tier_packed_fft (tier_packed_fft_kernel<N1, P1, P2>)
+//   Replaces _make_wave_packed_fft_kernel (:882, driven by
+//   stft_packed_from_waveform_pallas, impl='pack') at a reduced precision:
+//   its dot_inner / dot_outer (:933) over m = n_fft/2 points.
+//   Computes K6's function, Z = DFT_m((x_even + i x_odd) * window) of each
+//   centred frame in natural bin order, by sed_tpu's matmul DFT with bf16-
+//   split products (n1 = n2 = 128 at n_fft 32768; n_fft 4096..32768).
+//   Bound on an H100 SXM: operations at fast.  A frame: P1 x 8 n2^2 n1 + P2 x
+//   8 n2 n1^2 tensor FLOP (sed_tpu's count, :1052): 293 GFLOP at fast and
+//   16 x 60 s, 0.296 ms at 989 TFLOP/s dense bf16 (98 GFLOP, 0.099 ms at
+//   turbo, where the 566 MB, 0.169 ms at 3.35 TB/s, bound it).
+//   Design: K1t's tier_dft with a complex input (kPacked): stage 1 is
+//   [Yr; Yi] = [[W2r, -W2i]; [W2i, W2r]] [Xr; Xi], one real product twice as
+//   deep, each K tile 16 rows of Re z then 16 of Im z (a thread loads two
+//   neighbouring points, four samples, and splits their real and imaginary
+//   parts into the two halves); stage 2 takes all n1 columns, and the drain
+//   writes Zr and Zi.  Its tables are sed_tpu's m-point constants split
+//   once on the host.
+//
 // K7 (impl 'eo'), K8 ('rollraw'), K9 ('rolledge') and K10 ('slice',
 // 'roll_nodb') of sed_tpu compute K1's one-sided power (K9: K1 then K2) and
 // differ only in how the TPU moves waveform bytes into VMEM; K1 already
 // reads the raw waveform, reflects on the index and uses the even/odd
 // identity X[k] = E[k] + W^k O[k], so their counterpart is K1.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 #include <utility>
 
+// One object of the library that holds one tier kernel's entry point alone
+// (see the tier entry points at the end).
+#if defined(SED_FEATURIZER_TIERS_ONLY) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY) || \
+    defined(SED_FEATURIZER_PACKED_TIERS_ONLY)
+#define SED_FEATURIZER_ONE_TIER_UNIT
+#endif
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 // Source index of padded position i (raw coordinates, may be < 0 or >= n)
 // under np.pad(mode="reflect"): the edge sample is not repeated, and depths
@@ -347,13 +404,15 @@ __device__ __forceinline__ void segment_sums(const float (&x)[R][kSegSteps],
 // segment_sums' sum for one thread alone: the 32 lane sums, then the shuffle
 // tree's additions in the order lane 0 sees them (offset o = 16, 8, 4, 2,
 // 1: sum[l] += sum[l + o] for l < o).
+template <int kPasses>
 __device__ __forceinline__ float segment_sum_by_thread(const float* __restrict__ p,
                                                        const float* __restrict__ weights,
                                                        int4 s) {
   float sum[32];
   for (int l = 0; l < 32; ++l) {
     float acc = 0.f;
-    for (int k = l; k < s.y; k += 32) acc = fmaf(p[s.x + k], __ldg(weights + s.z + k), acc);
+    for (int k = l; k < s.y; k += 32)
+      acc = mel_fma<kPasses>(p[s.x + k], __ldg(weights + s.z + k), acc);
     sum[l] = acc;
   }
 #pragma unroll
@@ -372,12 +431,13 @@ __device__ __forceinline__ float band_sum(const float* seg_sums, int first, int 
 }
 
 // K5's band epilogue over one row of one-sided power p in shared memory:
-// out[b] = band_db of band b's sum for every band.  kWarps: warp w takes
-// segments w, w + warps, ... into seg_sums (n_seg floats of shared memory),
-// loading a segment's descriptor two segments ahead and its weights one
-// ahead; then a barrier and one thread per band.  Otherwise (fewer than 32
-// threads) thread t takes bands t, t + T, ... whole.
-template <bool kWarps>
+// out[b] = band_db of band b's sum for every band, at K2's product mode
+// kPasses (mel_fma).  kWarps: warp w takes segments w, w + warps, ... into
+// seg_sums (n_seg floats of shared memory), loading a segment's descriptor
+// two segments ahead and its weights one ahead; then a barrier and one
+// thread per band.  Otherwise (fewer than 32 threads) thread t takes bands
+// t, t + T, ... whole.
+template <bool kWarps, int kPasses>
 __device__ __forceinline__ void mel_log_row(const float* p, const int4* __restrict__ seg,
                                             const int* __restrict__ band_first,
                                             const float* __restrict__ weights, float* seg_sums,
@@ -402,7 +462,7 @@ __device__ __forceinline__ void mel_log_row(const float* p, const int4* __restri
 #pragma unroll
       for (int j = 0; j < kSegSteps; ++j) x[0][j] = p[s.x + lane + 32 * j];
       float sum[1];
-      segment_sums<1>(x, w, s.y, lane, sum);
+      segment_sums<1, kPasses>(x, w, s.y, lane, sum);
       if (lane == 0) seg_sums[i] = sum[0];
       s = next;
 #pragma unroll
@@ -416,9 +476,28 @@ __device__ __forceinline__ void mel_log_row(const float* p, const int4* __restri
       float s = 0.f;
       const int end = __ldg(band_first + b + 1);
       for (int k = __ldg(band_first + b); k < end; ++k)
-        s += segment_sum_by_thread(p, weights, descriptor(k));
+        s += segment_sum_by_thread<kPasses>(p, weights, descriptor(k));
       out[b] = band_db(s);
     }
+  }
+}
+
+// mel_log_row at the product mode mel_passes (0, 1 or 3) chosen at run time:
+// K5's epilogue is bound by its loads, not by the mode's extra roundings.
+template <bool kWarps>
+__device__ __forceinline__ void mel_log_row_mode(int mel_passes, const float* p,
+                                                 const int4* __restrict__ seg,
+                                                 const int* __restrict__ band_first,
+                                                 const float* __restrict__ weights,
+                                                 float* seg_sums, float* __restrict__ out,
+                                                 int n_mels, int n_seg) {
+  switch (mel_passes) {
+    case 1: return mel_log_row<kWarps, 1>(p, seg, band_first, weights, seg_sums, out, n_mels,
+                                          n_seg);
+    case 3: return mel_log_row<kWarps, 3>(p, seg, band_first, weights, seg_sums, out, n_mels,
+                                          n_seg);
+    default: return mel_log_row<kWarps, 0>(p, seg, band_first, weights, seg_sums, out, n_mels,
+                                           n_seg);
   }
 }
 
@@ -1118,7 +1197,8 @@ wave_stft_mel_log_kernel(const float* __restrict__ wave,
                          const int* __restrict__ band_first,
                          const float* __restrict__ weights,
                          float* __restrict__ out,
-                         long long n_samples, int n_frames, int hop, int n_mels, int n_seg) {
+                         long long n_samples, int n_frames, int hop, int n_mels, int n_seg,
+                         int mel_passes) {
   // re: m floats, im: m floats, the power: m + 1 floats, the segment sums:
   // n_seg floats, then kSegBins floats that a short segment's loads may
   // reach past the power row.
@@ -1131,7 +1211,8 @@ wave_stft_mel_log_kernel(const float* __restrict__ wave,
   __syncthreads();
   float* row = out + blockIdx.x * static_cast<long long>(n_mels);
   constexpr bool kWarps = kStockhamThreads<LOG2_M> >= 32;
-  mel_log_row<kWarps>(power, seg, band_first, weights, power + m + 1, row, n_mels, n_seg);
+  mel_log_row_mode<kWarps>(mel_passes, power, seg, band_first, weights, power + m + 1, row,
+                           n_mels, n_seg);
 }
 
 template <int LOG2_M>
@@ -1204,8 +1285,8 @@ int launch_mel_log(const MelArgs& args, int n_sm, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// K1t / K3t: the bf16 tensor-core DFT of the reduced-precision tiers,
-// tier_dft_kernel<N1, P1, P2>.  sed_tpu's two-stage matmul DFT (n_fft =
+// K1t, K3t, K5t, K6t: the bf16 tensor-core DFT of the reduced-precision
+// tiers, tier_dft<N1, P1, P2, kPacked>.  sed_tpu's two-stage matmul DFT (n =
 // n1 * n2, stft.py _matmul_fft_constants) with every product split into bf16
 // chunks as its _make_dot does, on the tensor cores by mma.sync.m16n8k16.
 // ---------------------------------------------------------------------------
@@ -1361,15 +1442,28 @@ __device__ __forceinline__ float2 windowed(float2 x, float2 w) {
 }
 
 constexpr int kTierThreads = 256;  // 8 warps: 2 (m) x 4 (n) in both stages
+constexpr int kTierWarps = kTierThreads / 32;
 constexpr int kTierRows = 64;      // k2 rows of a block (BM)
 constexpr int kTierK = 32;         // k of a staged tile, both stages
 constexpr int kTierPad = 8;        // bf16 of padding a row of shared memory
+// A warp's stage-2 tiles: m tiles of 16 k2 rows, n tiles of 8 columns (four
+// (Zr, Zi) pairs): the one-sided k1 < n1/2 of a real frame, or all n1 of a
+// packed one (kPacked, K6t).
+constexpr int kTierTM2 = kTierRows / 32;
+template <int N1, bool kPacked>
+constexpr int kTierTN2 = kPacked ? N1 / 16 : N1 / 32;
 
-// Shared memory of tier_dft_kernel<N1, P1, P2>, in bytes: the stage-2 A
-// operand T (C2 chunks of kTierRows x (2 n1 + pad)), then one region that
-// holds stage 1's staged tiles (two buffers of C1 chunks of A: 2 kTierRows
-// x (kTierK + pad); one of X: C1 chunks of kTierK x (n1 + pad)) and later
-// stage 2's (two buffers of C2 chunks of (n1 + 8) x (kTierK + pad)).
+// Stage 2's B columns: (Zr, Zi) of k1 < n1/2 + 4 (the last four hold bin
+// n/2 at k2 = 0) of a real frame; of all n1 k1 of a packed one.
+__host__ __device__ constexpr int tier_cols2(int n1, bool packed) {
+  return packed ? 2 * n1 : n1 + 8;
+}
+
+// Shared memory of tier_dft, in bytes: the stage-2 A operand T (C2 chunks
+// of kTierRows x (2 n1 + pad)), then one region that holds stage 1's staged
+// tiles (two buffers of C1 chunks of A: 2 kTierRows x (kTierK + pad); one of
+// X: C1 chunks of kTierK x (n1 + pad)) and later stage 2's (two buffers of
+// C2 chunks of tier_cols2 x (kTierK + pad)).
 __host__ __device__ constexpr int tier_smem_t(int n1, int p2) {
   return tier_chunks(p2) * kTierRows * (2 * n1 + kTierPad) * 2;
 }
@@ -1379,37 +1473,52 @@ __host__ __device__ constexpr int tier_smem_a1(int p1) {
 __host__ __device__ constexpr int tier_smem_stage1(int n1, int p1) {
   return tier_smem_a1(p1) + tier_chunks(p1) * kTierK * (n1 + kTierPad) * 2;
 }
-__host__ __device__ constexpr int tier_smem_stage2(int n1, int p2) {
-  return 2 * tier_chunks(p2) * (n1 + 8) * (kTierK + kTierPad) * 2;
+__host__ __device__ constexpr int tier_smem_stage2(int n1, int p2, bool packed) {
+  return 2 * tier_chunks(p2) * tier_cols2(n1, packed) * (kTierK + kTierPad) * 2;
 }
-__host__ __device__ constexpr int tier_smem_bytes(int n1, int p1, int p2) {
-  return tier_smem_t(n1, p2) + (tier_smem_stage1(n1, p1) > tier_smem_stage2(n1, p2)
+__host__ __device__ constexpr int tier_smem_bytes(int n1, int p1, int p2, bool packed) {
+  return tier_smem_t(n1, p2) + (tier_smem_stage1(n1, p1) > tier_smem_stage2(n1, p2, packed)
                                     ? tier_smem_stage1(n1, p1)
-                                    : tier_smem_stage2(n1, p2));
+                                    : tier_smem_stage2(n1, p2, packed));
 }
 
-// One block: frame `row` = blockIdx.x / n_blk, k2 rows k0 .. k0 + 63 (k0 =
-// 64 (blockIdx.x % n_blk)), n2 = 64 n_blk.  tab1: C1 chunks of (2 n2, n2),
-// row 16t + 8h + i = W2 (h = 0 real, 1 imaginary) at k2 = 8t + i; tab2: C2
-// chunks of (n1 + 8, 2 n1), column 2j + h (h = 0: Zr, 1: Zi) over k = the
-// n1 entries that multiply Tr, then the n1 that multiply Ti; twiddle: (n2,
-// n1) f32 W_N^(k2 b).  Out: bins k = n2 k1 + k2 <= n_fft / 2 of the row.
-template <int N1, int P1, int P2>
-__global__ void __launch_bounds__(kTierThreads, 1)
-tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
-                const __nv_bfloat16* __restrict__ tab2, const float2* __restrict__ twiddle,
-                float* __restrict__ out, int n_blk) {
+// sed_tpu's two-stage matmul DFT of one block's share of a frame, up to
+// stage 2's sums in registers.  The block: frame `row` = blockIdx.x /
+// n_blk, k2 rows k0 .. k0 + 63 (k0 = 64 (blockIdx.x % n_blk)), n2 = 64
+// n_blk, of an n = n1 n2 point DFT: of a real frame of n samples, X[a][b] =
+// x[a n1 + b] (K1t, K3t, K5t), or, kPacked (K6t), of the n complex points
+// z[j] = x[2j] + i x[2j + 1] of a 2n-sample frame, X[a][b] = z[a n1 + b].
+//   tab1: C1 chunks of (2 n2, k_extent), row 16t + 8h + i the coefficients
+//     of Y (h = 0 real, 1 imaginary part) at k2 = 8t + i.  A real frame:
+//     k_extent = n2 columns over a (W2r, W2i).  kPacked: 2 n2, K tile t the
+//     coefficients of Re z at a = 16t .. 16t + 15, then of Im z at the same
+//     a ([W2r | -W2i] for Yr, [W2i | W2r] for Yi), so that stage 1 is the
+//     complex product as one real product twice as deep.
+//   tab2: C2 chunks of (tier_cols2, 2 n1), column 2j + h (h = 0: Zr, 1: Zi)
+//     over k = the n1 entries that multiply Tr, then the n1 that multiply
+//     Ti: (W1r, -W1i) and (W1i, W1r) at k1 = j.
+//   twiddle: (n2, n1) f32 W_n^(k2 b).
+// acc2[i][j] is mma's C fragment (TierTile says which k2, k1 it holds): Zr
+// at c0 and c2, Zi at c1 and c3.  accn: the same of k1 = n1/2 .. n1/2 + 3 in
+// warp 0 of a real frame's first block, whose k2 = 0 row is bin n/2.
+template <int N1, int P1, int P2, bool kPacked>
+__device__ __forceinline__ void tier_dft(const TierSource& src,
+                                         const __nv_bfloat16* __restrict__ tab1,
+                                         const __nv_bfloat16* __restrict__ tab2,
+                                         const float2* __restrict__ twiddle, int n_blk,
+                                         unsigned char* smem,
+                                         float (&acc2)[kTierTM2][kTierTN2<N1, kPacked>][4],
+                                         float (&accn)[4]) {
   constexpr int C1 = tier_chunks(P1), C2 = tier_chunks(P2);
   constexpr int BM = kTierRows, KT = kTierK;
   constexpr int TM1 = BM / 16, TN1 = N1 / 32;  // a warp's m and n tiles, stage 1
-  constexpr int TM2 = BM / 32, TN2 = N1 / 32;  // stage 2
+  constexpr int TM2 = kTierTM2, TN2 = kTierTN2<N1, kPacked>;  // stage 2
   constexpr int ST = 2 * N1 + kTierPad;        // row stride of T
   constexpr int SA1 = KT + kTierPad;           // of stage 1's A tile
   constexpr int SX = N1 + kTierPad;            // of stage 1's X tile
   constexpr int SB2 = KT + kTierPad;           // of stage 2's B tile
-  constexpr int NC2 = N1 + 8;                  // stage 2's columns: n1/2 + 4 pairs
-  extern __shared__ __align__(16) unsigned char tier_smem[];
-  auto* ts = reinterpret_cast<__nv_bfloat16*>(tier_smem);
+  constexpr int NC2 = tier_cols2(N1, kPacked);  // stage 2's columns
+  auto* ts = reinterpret_cast<__nv_bfloat16*>(smem);
   constexpr int A1 = C1 * 2 * BM * SA1;       // elements of one A buffer
   constexpr int B2 = C2 * NC2 * SB2;           // of one stage-2 B buffer
   constexpr int XP = KT * N1 / 2 / kTierThreads;  // sample pairs a thread loads a tile
@@ -1418,61 +1527,86 @@ tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
   auto* b2s = a1s;  // two buffers; stage 2 reuses stage 1's region
 
   const int n2 = BM * n_blk;
-  const int n_fft = N1 * n2;
+  const int k_extent = kPacked ? 2 * n2 : n2;  // stage 1's k
   const long long row = blockIdx.x / n_blk;
   const int blk = blockIdx.x - static_cast<int>(row * n_blk);
   const int k0 = BM * blk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, tig = lane & 3;
-  const TierFrame frame(src, row, n_fft);
+  const TierFrame frame(src, row, (kPacked ? 2 : 1) * N1 * n2);
 
-  // Stage 1: [Yr; Yi] (rows interleaved by 8) = W2[k2 rows] @ X, X[a][b] =
-  // x[a n1 + b], over k = a in tiles of KT, pipelined: while tile t is
-  // multiplied, the W2 rows of tile t + 1 come by cp.async into the other A
-  // buffer and its samples into registers.
-  const auto copy_a1 = [&](int a0, __nv_bfloat16* dst) {
+  // Stage 1: [Yr; Yi] (rows interleaved by 8) = W2[k2 rows] @ X over k in
+  // tiles of KT, pipelined: while tile t is multiplied, the W2 rows of tile
+  // t + 1 come by cp.async into the other A buffer and its samples into
+  // registers.  A tile's samples are those of X's rows a = kk0 .. kk0 + KT -
+  // 1 (real frame) or, kPacked, of z's rows a = kk0/2 .. kk0/2 + 15, whose
+  // real parts fill the tile's first 16 rows and imaginary parts its last.
+  const auto copy_a1 = [&](int kk0, __nv_bfloat16* dst) {
     // 2 BM rows x KT bf16 a chunk, 16 bytes a copy.
     for (int i = tid; i < C1 * 2 * BM * (KT / 8); i += kTierThreads) {
       const int c = i / (2 * BM * (KT / 8));
       const int r = (i / (KT / 8)) % (2 * BM);
       const int q = i % (KT / 8);
       cp_async_16(dst + (c * 2 * BM + r) * SA1 + q * 8,
-                  tab1 + (static_cast<long long>(c) * 2 * n2 + 2 * k0 + r) * n2 + a0 + q * 8);
+                  tab1 + (static_cast<long long>(c) * 2 * n2 + 2 * k0 + r) * k_extent + kk0 +
+                      q * 8);
     }
   };
   float2 xv[XP], xw[XP];
-  const auto load_x = [&](int a0) {  // samples a0 n1 .. (a0 + KT) n1 and their window
+  // Both kinds read samples kk0 n1 .. (kk0 + KT) n1 of the frame: a real
+  // frame's as pairs (thread t: 2t, 2t + 1, then 512 further on), a packed
+  // one's as two pairs of neighbouring points (4t .. 4t + 3, then 1024 on).
+  const auto load_x = [&](int kk0) {
 #pragma unroll
     for (int j = 0; j < XP; ++j) {
-      const int s = a0 * N1 + 2 * (tid + j * kTierThreads);
+      const int s = kPacked ? kk0 * N1 + 4 * (tid + (j >> 1) * kTierThreads) + 2 * (j & 1)
+                            : kk0 * N1 + 2 * (tid + j * kTierThreads);
       xv[j] = frame.raw(s);
       xw[j] = __ldg(reinterpret_cast<const float2*>(frame.window) + (s >> 1));
     }
   };
   const auto store_x = [&]() {  // windowed, split, into X's tile as [a][b]
+    if constexpr (kPacked) {
 #pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      const int s = 2 * (tid + j * kTierThreads);
-      const float2 v = windowed(xv[j], xw[j]);
-      unsigned c[C1];
-      split_bf16x2<C1>(v.x, v.y, c);
-      const int a = s / N1, b = s % N1;
+      for (int j = 0; j < XP / 2; ++j) {
+        const int p = 2 * (tid + j * kTierThreads);  // the tile's points p, p + 1
+        const float2 z0 = windowed(xv[2 * j], xw[2 * j]);
+        const float2 z1 = windowed(xv[2 * j + 1], xw[2 * j + 1]);
+        unsigned cr[C1], ci[C1];
+        split_bf16x2<C1>(z0.x, z1.x, cr);
+        split_bf16x2<C1>(z0.y, z1.y, ci);
+        const int a = p / N1, b = p % N1;
 #pragma unroll
-      for (int ci = 0; ci < C1; ++ci)
-        *reinterpret_cast<unsigned*>(x1s + (ci * KT + a) * SX + b) = c[ci];
+        for (int c = 0; c < C1; ++c) {
+          *reinterpret_cast<unsigned*>(x1s + (c * KT + a) * SX + b) = cr[c];
+          *reinterpret_cast<unsigned*>(x1s + (c * KT + KT / 2 + a) * SX + b) = ci[c];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < XP; ++j) {
+        const int s = 2 * (tid + j * kTierThreads);
+        const float2 v = windowed(xv[j], xw[j]);
+        unsigned c[C1];
+        split_bf16x2<C1>(v.x, v.y, c);
+        const int a = s / N1, b = s % N1;
+#pragma unroll
+        for (int ci = 0; ci < C1; ++ci)
+          *reinterpret_cast<unsigned*>(x1s + (ci * KT + a) * SX + b) = c[ci];
+      }
     }
   };
   float acc1[TM1][TN1][4] = {};
   load_x(0);
   copy_a1(0, a1s);
-  for (int a0 = 0, buf = 0; a0 < n2; a0 += KT, buf ^= 1) {
+  for (int kk0 = 0, buf = 0; kk0 < k_extent; kk0 += KT, buf ^= 1) {
     store_x();
     cp_async_wait_all();
     __syncthreads();
-    if (a0 + KT < n2) {
-      copy_a1(a0 + KT, a1s + (buf ^ 1) * A1);
-      load_x(a0 + KT);
+    if (kk0 + KT < k_extent) {
+      copy_a1(kk0 + KT, a1s + (buf ^ 1) * A1);
+      load_x(kk0 + KT);
     }
     const __nv_bfloat16* a1 = a1s + buf * A1;
 #pragma unroll
@@ -1541,12 +1675,18 @@ tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
   }
 
   // Stage 2: [Zr Zi] (columns interleaved) = [Tr Ti] @ [[W1r W1i]; [-W1i
-  // W1r]] over the one-sided columns k1 < n1 / 2; warp 0 of block 0 also
-  // takes the tile of k1 = n1 / 2 .. n1 / 2 + 3, whose row k2 = 0 is bin
-  // n_fft / 2.
-  const bool nyquist = blk == 0 && warp == 0;
-  float acc2[TM2][TN2][4] = {};
-  float accn[4] = {};
+  // W1r]] over the stage's columns; warp 0 of a real frame's first block
+  // also takes the tile of k1 = n1 / 2 .. n1 / 2 + 3, whose row k2 = 0 is
+  // bin n / 2.
+  const bool nyquist = !kPacked && blk == 0 && warp == 0;
+#pragma unroll
+  for (int i = 0; i < TM2; ++i)
+#pragma unroll
+    for (int j = 0; j < TN2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc2[i][j][c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) accn[c] = 0.f;
   for (int kk0 = 0, buf = 0; kk0 < 2 * N1; kk0 += KT, buf ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // tile kk0 has landed (and, the first time, T is written)
@@ -1581,39 +1721,186 @@ tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
       }
     }
   }
-
-  // |Z|^2 (zr zr + zi zi, no fused multiply-add) to bin n2 k1 + k2.
-  float* o = out + row * (n_fft / 2 + 1LL);
-#pragma unroll
-  for (int i = 0; i < TM2; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN2; ++j) {
-      const int k2 = k0 + (wm * TM2 + i) * 16 + g;
-      const int k1 = (wn * TN2 + j) * 4 + tig;
-      const float* z = acc2[i][j];
-      o[n2 * k1 + k2] = __fadd_rn(__fmul_rn(z[0], z[0]), __fmul_rn(z[1], z[1]));
-      o[n2 * k1 + k2 + 8] = __fadd_rn(__fmul_rn(z[2], z[2]), __fmul_rn(z[3], z[3]));
-    }
-  }
-  if (nyquist && lane == 0)
-    o[n_fft / 2] = __fadd_rn(__fmul_rn(accn[0], accn[0]), __fmul_rn(accn[1], accn[1]));
 }
 
-// tier_dft_kernel<N1, P1, P2> over `rows` frames of n_fft = 2^log2_n.
+// Which bins a thread's stage-2 fragments hold (tier_dft): the block's frame
+// `row`, its share `blk` (k2 rows k0 .. k0 + 63) and n2; fragment acc2[i][j]
+// holds k2 = k2(i) (c0, c1; c2, c3 at k2(i) + 8) and k1 = k1(j), bin n2 k1 +
+// k2.
+template <int N1, bool kPacked>
+struct TierTile {
+  long long row;
+  int blk, n2, k0, lane, warp;
+
+  __device__ __forceinline__ explicit TierTile(int n_blk) {
+    n2 = kTierRows * n_blk;
+    row = blockIdx.x / n_blk;
+    blk = blockIdx.x - static_cast<int>(row * n_blk);
+    k0 = kTierRows * blk;
+    lane = threadIdx.x & 31;
+    warp = threadIdx.x >> 5;
+  }
+  __device__ __forceinline__ int k2(int i) const {
+    return k0 + ((warp >> 2) * kTierTM2 + i) * 16 + (lane >> 2);
+  }
+  __device__ __forceinline__ int k1(int j) const {
+    return ((warp & 3) * kTierTN2<N1, kPacked> + j) * 4 + (lane & 3);
+  }
+};
+
+// |Z|^2 as sed_tpu's zr zr + zi zi, no fused multiply-add.
+__device__ __forceinline__ float tier_power(float zr, float zi) {
+  return __fadd_rn(__fmul_rn(zr, zr), __fmul_rn(zi, zi));
+}
+
+// K1t / K3t: |Z|^2 of the one-sided bins k = n2 k1 + k2 <= n/2 of each
+// frame, to its row of out.
 template <int N1, int P1, int P2>
-int launch_tier_dft(const TierSource& src, const __nv_bfloat16* tab1, const __nv_bfloat16* tab2,
-                    const float2* twiddle, float* out, long long rows, int log2_n,
-                    cudaStream_t stream) {
-  constexpr int smem = tier_smem_bytes(N1, P1, P2);
-  static_assert(smem <= 232448, "tier_dft_kernel: shared memory");
+__global__ void __launch_bounds__(kTierThreads, 1)
+tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
+                const __nv_bfloat16* __restrict__ tab2, const float2* __restrict__ twiddle,
+                float* __restrict__ out, int n_blk) {
+  extern __shared__ __align__(16) unsigned char tier_smem[];
+  float acc2[kTierTM2][kTierTN2<N1, false>][4], accn[4];
+  tier_dft<N1, P1, P2, false>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
+  const TierTile<N1, false> t(n_blk);
+  float* o = out + t.row * (N1 * t.n2 / 2 + 1LL);
+#pragma unroll
+  for (int i = 0; i < kTierTM2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTierTN2<N1, false>; ++j) {
+      const float* z = acc2[i][j];
+      o[t.n2 * t.k1(j) + t.k2(i)] = tier_power(z[0], z[1]);
+      o[t.n2 * t.k1(j) + t.k2(i) + 8] = tier_power(z[2], z[3]);
+    }
+  }
+  if (t.blk == 0 && t.warp == 0 && t.lane == 0) o[N1 * t.n2 / 2] = tier_power(accn[0], accn[1]);
+}
+
+// K5t: K1t's frame, then K5's band epilogue over its power, with no power
+// array in device memory.  The n_blk blocks of a frame are one thread-block
+// cluster.  Each keeps its 64 k2 rows of |Z|^2 in its own shared memory (the
+// T region, free after stage 2): bin n2 k1 + k2 at k1 * 64 + k2 - k0, and
+// the first block bin n/2 at k1 = n1/2.  After a cluster barrier the
+// frame's 8 n_blk warps take the segments i = 8 blk + warp, + 8 n_blk, ...,
+// each summed in K2's order (segment_sums at mel_passes) from bins read in
+// the block that holds them (distributed shared memory), the sum stored in
+// the first block's seg_sums (n_seg floats after tier_dft's shared memory);
+// after a second barrier the first block adds each band's segments
+// (band_sum) and writes the row.  The bins, the sums and their order are
+// K1t's then K2's, so its output equals K1t then K2 bit for bit.
+template <int N1, int P1, int P2>
+__global__ void __launch_bounds__(kTierThreads, 1)
+tier_dft_mel_log_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
+                        const __nv_bfloat16* __restrict__ tab2,
+                        const float2* __restrict__ twiddle, const int4* __restrict__ seg,
+                        const int* __restrict__ band_first, const float* __restrict__ weights,
+                        float* __restrict__ out, int n_mels, int n_seg, int mel_passes,
+                        int n_blk) {
+  extern __shared__ __align__(16) unsigned char tier_smem[];
+  float acc2[kTierTM2][kTierTN2<N1, false>][4], accn[4];
+  tier_dft<N1, P1, P2, false>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
+  const TierTile<N1, false> t(n_blk);
+  float* power = reinterpret_cast<float*>(tier_smem);
+  float* seg_sums = reinterpret_cast<float*>(tier_smem + tier_smem_bytes(N1, P1, P2, false));
+  __syncthreads();  // every warp's stage 2 has read T
+#pragma unroll
+  for (int i = 0; i < kTierTM2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTierTN2<N1, false>; ++j) {
+      const float* z = acc2[i][j];
+      const int q = t.k1(j) * kTierRows + t.k2(i) - t.k0;
+      power[q] = tier_power(z[0], z[1]);
+      power[q + 8] = tier_power(z[2], z[3]);
+    }
+  }
+  if (t.blk == 0 && t.warp == 0 && t.lane == 0)
+    power[N1 / 2 * kTierRows] = tier_power(accn[0], accn[1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int last = N1 * t.n2 / 2;  // bin n/2
+  const int log2_n2 = __ffs(t.n2) - 1;
+  float* sums = cluster.map_shared_rank(seg_sums, 0);
+  for (int i = t.blk * kTierWarps + t.warp; i < n_seg; i += n_blk * kTierWarps) {
+    const int4 s = __ldg(seg + i);
+    float w[kSegSteps];
+    segment_weights(weights, s, t.lane, w);
+    // The lane's bins (past a short segment's end, bin n/2: left out of the sum).
+    float x[1][kSegSteps];
+#pragma unroll
+    for (int j = 0; j < kSegSteps; ++j) {
+      const int k = min(s.x + t.lane + 32 * j, last);
+      const int k2 = k & (t.n2 - 1);
+      x[0][j] = *cluster.map_shared_rank(
+          power + (k >> log2_n2) * kTierRows + (k2 & (kTierRows - 1)), k2 / kTierRows);
+    }
+    float sum[1];
+    switch (mel_passes) {
+      case 1: segment_sums<1, 1>(x, w, s.y, t.lane, sum); break;
+      case 3: segment_sums<1, 3>(x, w, s.y, t.lane, sum); break;
+      default: segment_sums<1, 0>(x, w, s.y, t.lane, sum);
+    }
+    if (t.lane == 0) sums[i] = sum[0];
+  }
+  cluster.sync();
+  if (t.blk == 0)
+    for (int b = threadIdx.x; b < n_mels; b += kTierThreads)
+      out[t.row * n_mels + b] =
+          band_db(band_sum(seg_sums, __ldg(band_first + b), __ldg(band_first + b + 1)));
+}
+
+// K6t: Z of each packed frame (tier_dft, kPacked) as K6 writes it, two
+// (frames, n) arrays of f32, real and imaginary, in natural bin order.
+template <int N1, int P1, int P2>
+__global__ void __launch_bounds__(kTierThreads, 1)
+tier_packed_fft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
+                       const __nv_bfloat16* __restrict__ tab2,
+                       const float2* __restrict__ twiddle, float* __restrict__ out_re,
+                       float* __restrict__ out_im, int n_blk) {
+  extern __shared__ __align__(16) unsigned char tier_smem[];
+  float acc2[kTierTM2][kTierTN2<N1, true>][4], accn[4];
+  tier_dft<N1, P1, P2, true>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
+  const TierTile<N1, true> t(n_blk);
+  const long long base = t.row * N1 * t.n2;
+#pragma unroll
+  for (int i = 0; i < kTierTM2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTierTN2<N1, true>; ++j) {
+      const float* z = acc2[i][j];
+      const long long q = base + t.n2 * t.k1(j) + t.k2(i);
+      out_re[q] = z[0];
+      out_im[q] = z[1];
+      out_re[q + 8] = z[2];
+      out_im[q + 8] = z[3];
+    }
+  }
+}
+
+// `kernel` over `rows` frames of a 2^log2_n-point DFT at n1 = N1: n2 / 64
+// blocks a frame, one thread-block cluster when `cluster` (K5t), `smem`
+// bytes of dynamic shared memory.  The kernel's last parameter is n_blk.
+template <int N1, typename... Params, typename... Args>
+int launch_tier(void (*kernel)(Params...), int smem, long long rows, int log2_n, bool cluster,
+                cudaStream_t stream, const Args&... args) {
   const int n_blk = (1 << log2_n) / N1 / kTierRows;
   const long long blocks = rows * n_blk;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tier_dft_kernel<N1, P1, P2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > 232448 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  tier_dft_kernel<N1, P1, P2><<<static_cast<unsigned>(blocks), kTierThreads, smem, stream>>>(
-      src, tab1, tab2, twiddle, out, n_blk);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(blocks));
+  config.blockDim = dim3(kTierThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n_blk);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = cluster ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, args..., n_blk);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1629,7 +1916,30 @@ int with_passes(int passes, const Launch& launch) {
   }
 }
 
-#ifndef SED_FEATURIZER_TIERS_ONLY
+// launch(N1, P1, P2 as integral_constants) for a 2^log2_n-point DFT (log2_n
+// 11..15: n1 = 2^(log2_n / 2), 32 for 11, 64 for 12 and 13, 128 for 14 and
+// 15) at inner / outer passes (1, 3, 4, 6): 3 x 16 instances of each
+// kernel.
+template <typename Launch>
+int with_tier(int log2_n, int inner_passes, int outer_passes, const Launch& launch) {
+  const auto at_n1 = [&](auto n1_constant) {
+    return with_passes(inner_passes, [&](auto p1_constant) {
+      return with_passes(outer_passes, [&](auto p2_constant) {
+        return launch(n1_constant, p1_constant, p2_constant);
+      });
+    });
+  };
+  switch (log2_n) {
+    case 11: return at_n1(std::integral_constant<int, 32>{});
+    case 12:
+    case 13: return at_n1(std::integral_constant<int, 64>{});
+    case 14:
+    case 15: return at_n1(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+#ifndef SED_FEATURIZER_ONE_TIER_UNIT
 // K2 at product mode `passes` (mel_fma) on the current device: kMelRows rows
 // at a time once every SM has a group of them; one row at a time below that
 // (the streaming tick's 160 rows: one wave of CTAs).
@@ -1651,7 +1961,7 @@ int launch_mel_log_mode(const MelArgs& args, int passes, int device, cudaStream_
       return cudaErrorInvalidValue;
   }
 }
-#endif  // SED_FEATURIZER_TIERS_ONLY
+#endif  // SED_FEATURIZER_ONE_TIER_UNIT
 
 // Makes `device` the calling thread's current device for the guard's life and
 // restores the caller's device on every return path, error paths included, so
@@ -1684,7 +1994,7 @@ class DeviceGuard {
 
 extern "C" {
 
-#ifndef SED_FEATURIZER_TIERS_ONLY
+#ifndef SED_FEATURIZER_ONE_TIER_UNIT
 const char* sed_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -1747,9 +2057,10 @@ int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twid
                           const void* unpack, const void* segments, const void* band_first,
                           const void* weights, void* out, long long n_signals,
                           long long n_samples, int n_frames, int hop, int log2_m, int n_mels,
-                          int n_seg, int device, void* stream) {
+                          int n_seg, int mel_passes, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
+  if (mel_passes != 0 && mel_passes != 1 && mel_passes != 3) return cudaErrorInvalidValue;
   const auto* w = static_cast<const float*>(wave);
   const auto* win = static_cast<const float*>(window);
   const auto* tw = static_cast<const float2*>(twiddle);
@@ -1766,7 +2077,7 @@ int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twid
     const int extra = static_cast<int>(sizeof(float)) * ((1 << L) + 1 + n_seg + kSegBins);
     return launch_stockham<L>(wave_stft_mel_log_kernel<L>, n_signals * n_frames, extra, s, w,
                               win, tw, unpack_tw, seg, first, fb, mel, n_samples, n_frames, hop,
-                              n_mels, n_seg);
+                              n_mels, n_seg, mel_passes);
   });
 }
 
@@ -1789,46 +2100,109 @@ int sed_wave_packed_fft(const void* wave, const void* window,
   });
 }
 
-#endif  // SED_FEATURIZER_TIERS_ONLY
+#endif  // SED_FEATURIZER_ONE_TIER_UNIT
 
-#ifndef SED_FEATURIZER_NO_TIERS
+// The bf16 tier DFT's entry points.  Each one's 48 instances (3 n1 x 16
+// pass pairs) take about as long to compile as the rest of the file, so the
+// library is linked from
+// four objects of this file compiled side by side
+// (cuda_featurizer.BUILD_RECIPE): -DSED_FEATURIZER_TIERS_ONLY (K1t, K3t),
+// -DSED_FEATURIZER_FUSED_TIERS_ONLY (K5t), -DSED_FEATURIZER_PACKED_TIERS_ONLY
+// (K6t) and -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds
+// of chip_smoke.py too).
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_TIERS_ONLY))
 // K1t (kind 0: waveforms, as K1 frames them) and K3t (kind 1, 2: rows of
 // f32 or int16, as K3 reads them): one-sided |X|^2 of `rows` frames of
 // n_fft = 2^log2_n (log2_n 11..15) by the bf16 tensor-core DFT at
-// inner_passes / outer_passes (1, 3, 4, 6) in its two stages.  Its 48
-// instances take as long to compile as the rest of the file, so the library
-// is linked from two objects of this file compiled side by side:
-// -DSED_FEATURIZER_TIERS_ONLY (this entry) and -DSED_FEATURIZER_NO_TIERS
-// (every other; the lesion builds of chip_smoke.py too).
+// inner_passes / outer_passes (1, 3, 4, 6) in its two stages.
 int sed_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
                        const void* tab2, const void* twiddle, void* out, long long rows,
                        long long n_samples, int n_frames, int hop, int log2_n,
                        int inner_passes, int outer_passes, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (log2_n < 11 || log2_n > 15 || kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
   const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
   const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
   const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
   const auto* tw = static_cast<const float2*>(twiddle);
   auto* power = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto at_n1 = [&](auto n1_constant) {
-    constexpr int N1 = decltype(n1_constant)::value;
-    return with_passes(inner_passes, [&](auto p1_constant) {
-      return with_passes(outer_passes, [&](auto p2_constant) {
-        constexpr int P1 = decltype(p1_constant)::value, P2 = decltype(p2_constant)::value;
-        return launch_tier_dft<N1, P1, P2>(src, t1, t2, tw, power, rows, log2_n, s);
-      });
-    });
-  };
-  // n1 = 2^(log2_n / 2): 32 for 11, 64 for 12 and 13, 128 for 14 and 15.
-  switch (log2_n / 2) {
-    case 5: return at_n1(std::integral_constant<int, 32>{});
-    case 6: return at_n1(std::integral_constant<int, 64>{});
-    default: return at_n1(std::integral_constant<int, 128>{});
-  }
+  return with_tier(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    constexpr int smem = tier_smem_bytes(N1, P1, P2, false);
+    static_assert(smem <= 232448, "tier_dft_kernel: shared memory");
+    return launch_tier<N1>(tier_dft_kernel<N1, P1, P2>, smem, rows, log2_n, false, s, src, t1,
+                           t2, tw, power);
+  });
 }
-#endif  // SED_FEATURIZER_NO_TIERS
+#endif
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY))
+// K5t: log-mel rows (n_signals * n_frames, n_mels) of the waveforms' frames,
+// K1t's power at inner_passes / outer_passes (n_fft = 2^log2_n, log2_n
+// 11..15) then K2's band sums at mel_passes (0 f32, 1 bf16x1, 3 bf16x3), in
+// one launch; a frame's n_fft / n1 / 64 blocks are one cluster.
+int sed_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
+                         const void* tab2, const void* twiddle, const void* segments,
+                         const void* band_first, const void* weights, void* out, long long rows,
+                         long long n_samples, int n_frames, int hop, int log2_n,
+                         int inner_passes, int outer_passes, int mel_passes, int n_mels,
+                         int n_seg, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (mel_passes != 0 && mel_passes != 1 && mel_passes != 3) return cudaErrorInvalidValue;
+  if (n_seg < 0 || n_seg > 232448 / 4) return cudaErrorInvalidValue;
+  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* seg = static_cast<const int4*>(segments);
+  const auto* first = static_cast<const int*>(band_first);
+  const auto* fb = static_cast<const float*>(weights);
+  auto* mel = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_tier(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    // tier_dft's shared memory, then the frame's segment sums.
+    const int smem = tier_smem_bytes(N1, P1, P2, false) + 4 * n_seg;
+    return launch_tier<N1>(tier_dft_mel_log_kernel<N1, P1, P2>, smem, rows, log2_n, true, s, src,
+                           t1, t2, tw, seg, first, fb, mel, n_mels, n_seg, mel_passes);
+  });
+}
+#endif
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_PACKED_TIERS_ONLY))
+// K6t: Z = DFT_m((x_even + i x_odd) * window) of the waveforms' `rows`
+// centred frames of 2m samples (m = 2^log2_m, log2_m 11..14) by the bf16
+// tensor-core DFT at inner_passes / outer_passes, to out_re and out_im, each
+// (rows, m) f32 in natural bin order, as K6 writes them.
+int sed_tier_packed_fft(const void* wave, const void* window, const void* tab1,
+                        const void* tab2, const void* twiddle, void* out_re, void* out_im,
+                        long long rows, long long n_samples, int n_frames, int hop, int log2_m,
+                        int inner_passes, int outer_passes, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (log2_m > 14) return cudaErrorInvalidValue;
+  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* re = static_cast<float*>(out_re);
+  auto* im = static_cast<float*>(out_im);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_tier(log2_m, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    constexpr int smem = tier_smem_bytes(N1, P1, P2, true);
+    static_assert(smem <= 232448, "tier_packed_fft_kernel: shared memory");
+    return launch_tier<N1>(tier_packed_fft_kernel<N1, P1, P2>, smem, rows, log2_m, false, s, src,
+                           t1, t2, tw, re, im);
+  });
+}
+#endif
 
 }  // extern "C"

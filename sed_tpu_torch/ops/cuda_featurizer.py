@@ -24,13 +24,19 @@ replaces, what bounds it and how it is designed):
     sed_tpu's two-stage matmul DFT with each product split into bf16 chunks
     as its ``_make_dot`` splits them, on the tensor cores (one kernel,
     ``tier_dft_kernel``, with K1's and K3's loaders).  K2 takes sed_tpu's
-    ``mel_precision`` 'bf16x1' and 'bf16x3' as product modes.
+    ``mel_precision`` 'bf16x1' and 'bf16x3' as product modes;
+  * K5t :func:`wave_stft_mel_log_bf16` — K1t then K2 in one launch (the
+    frame's blocks one thread-block cluster), and K5b, K5 at K2's modes
+    (:func:`wave_stft_mel_log`'s ``mel_precision``);
+  * K6t :func:`wave_packed_fft_bf16` — K6's function by the same bf16 matmul
+    DFT over the m = n_fft/2 packed points (a complex input).
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
 :func:`mel_log_plain`, :func:`frames_stft_power_plain`,
 :func:`wave_stft_mel_log_plain`, :func:`wave_packed_fft_plain`,
-:func:`wave_dft_power_bf16_plain`, :func:`frames_dft_power_bf16_plain`); a
+:func:`wave_dft_power_bf16_plain`, :func:`frames_dft_power_bf16_plain`,
+:func:`wave_stft_mel_log_bf16_plain`, :func:`wave_packed_fft_bf16_plain`); a
 CUDA tensor launches the kernel or raises.  There is no fallback from a failed
 build or launch to the plain version.
 
@@ -38,7 +44,7 @@ The drivers at the end carry ``sed_tpu``'s names without ``_pallas``
 (:func:`logmel_waveform` with every ``impl`` name,
 :func:`stft_power_from_waveform`, :func:`stft_eo_power_from_waveform`,
 :func:`stft_packed_from_waveform`, :func:`logmel_waveform_fused`, ...) and
-map each of sed_tpu's ten TPU kernels onto these five.
+map each of sed_tpu's ten TPU kernels, at each of its tiers, onto these.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 ``_build/`` next to this file (git-ignored), as a shared library with a
@@ -53,13 +59,14 @@ K1, K2 and K1t are also registered as the custom operators
 and ``torch.ops.sed_tpu_torch.wave_dft_power_bf16``, whose CPU kernels are
 the plain versions and whose CUDA kernels are the launches; their wrappers
 call them, so a ``torch.export`` program holds the kernels and counts their
-launches as eager calls do.  K3, K3t, K5, K6 and K2's bf16 product modes are
-bound directly: a program that exports their paths needs the same wrapping
-first.
+launches as eager calls do.  K3, K3t, K5, K5t, K6, K6t and K2's bf16
+product modes are bound directly: a program that exports their paths needs
+the same wrapping first.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -85,11 +92,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # How build() makes the library, and all that library_digest() hashes beside
 # the source: each unit's macro picks one object of the source (featurizer.cu:
-# the tier DFT kernel's 48 instances, then everything else), the objects are
-# compiled side by side with "compile" and joined by one nvcc with "link".
+# the 48 instances of each tier kernel, K1t/K3t, K5t and K6t, then everything
+# else), the objects are compiled side by side with "compile" and joined by
+# one nvcc with "link".
 BUILD_RECIPE = {
     "compile": tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",),
-    "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_NO_TIERS"),
+    "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_FUSED_TIERS_ONLY",
+              "-DSED_FEATURIZER_PACKED_TIERS_ONLY", "-DSED_FEATURIZER_NO_TIERS"),
     "link": ("-shared",),
 }
 
@@ -100,7 +109,8 @@ _MAX_GRID_X = 2**31 - 1
 
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
             "wave_stft_mel_log": 0, "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
-            "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
+            "frames_dft_power_bf16": 0, "mel_log_bf16": 0, "wave_stft_mel_log_mel_bf16": 0,
+            "wave_stft_mel_log_bf16": 0, "wave_packed_fft_bf16": 0}
 
 
 def reset_launch_counts() -> None:
@@ -113,6 +123,7 @@ class BuildInfo:
     path: Path
     seconds: float  # 0.0 when an existing library was reused
     log: str        # nvcc's output, including -Xptxas -v resource usage
+    unit_seconds: tuple = ()  # when each unit's object was compiled, from the start
 
 
 def _nvcc() -> str:
@@ -164,8 +175,9 @@ def install_library(data: bytes, digest: str, sha256: str) -> Path:
 
 
 def build(force: bool = False) -> BuildInfo:
-    """Compile ``csrc/featurizer.cu`` into ``_build/``: two objects of it
-    side by side, then the shared library of both (:data:`BUILD_RECIPE`).
+    """Compile ``csrc/featurizer.cu`` into ``_build/``: one object of it for
+    each unit of :data:`BUILD_RECIPE`, side by side, then the shared library
+    of them all.
 
     The library's name carries a hash of the source and the recipe
     (:func:`library_digest`), so an edited source is rebuilt and an
@@ -185,7 +197,12 @@ def build(force: bool = False) -> BuildInfo:
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    logs = [proc.communicate()[0] for proc in procs]
+
+    def finish(proc):   # its output, and when it ended
+        return proc.communicate()[0], time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        logs, unit_seconds = (list(x) for x in zip(*pool.map(finish, procs)))
     failed = [(cmd, proc.returncode) for cmd, proc in zip(cmds, procs) if proc.returncode]
     if not failed:
         cmd = [_nvcc(), *BUILD_RECIPE["link"], "-o", str(tmp), *map(str, objs)]
@@ -202,7 +219,7 @@ def build(force: bool = False) -> BuildInfo:
         cmd, code = failed[0]
         raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, path)
-    return BuildInfo(path, seconds, log)
+    return BuildInfo(path, seconds, log, tuple(unit_seconds))
 
 
 @functools.cache
@@ -220,7 +237,7 @@ def _library() -> ctypes.CDLL:
     lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
     lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
-                                          i32, i32, i32, i32, i32, vp]
+                                          i32, i32, i32, i32, i32, i32, vp]
     lib.sed_wave_stft_mel_log.restype = i32
     lib.sed_wave_packed_fft.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                         i32, i32, vp]
@@ -228,6 +245,12 @@ def _library() -> ctypes.CDLL:
     lib.sed_tier_dft_power.argtypes = [vp, i32, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                                        i32, i32, i32, vp]
     lib.sed_tier_dft_power.restype = i32
+    lib.sed_tier_dft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
+                                         i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    lib.sed_tier_dft_mel_log.restype = i32
+    lib.sed_tier_packed_fft.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
+                                        i32, i32, i32, vp]
+    lib.sed_tier_packed_fft.restype = i32
     return lib
 
 
@@ -714,23 +737,33 @@ def _launch_mel_log(power: torch.Tensor, bands: MelBands, passes: int) -> torch.
 # K5: waveform -> log-mel in one launch
 # ---------------------------------------------------------------------------
 
-def wave_stft_mel_log_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
-                            n_fft: int, fb: torch.Tensor) -> torch.Tensor:
-    """Plain version of K5: plain K1 then plain K2, in the dtype of ``waves``."""
-    power = wave_stft_power_plain(waves, window, hop, n_fft)
+def _rows_mel_log_plain(power: torch.Tensor, fb: torch.Tensor, mel_precision) -> torch.Tensor:
+    """(n_sig, n_frames, n_bins) power -> log-mel by plain K2 on its rows."""
     n_sig, n_frames, n_bins = power.shape
-    return mel_log_plain(power.reshape(-1, n_bins), fb).reshape(n_sig, n_frames, -1)
+    return mel_log_plain(power.reshape(-1, n_bins), fb, mel_precision).reshape(n_sig, n_frames, -1)
+
+
+def wave_stft_mel_log_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                            n_fft: int, fb: torch.Tensor, mel_precision=None) -> torch.Tensor:
+    """Plain version of K5 (K5b at a bf16 ``mel_precision``): plain K1 then
+    plain K2, in the dtype of ``waves``."""
+    return _rows_mel_log_plain(wave_stft_power_plain(waves, window, hop, n_fft), fb,
+                               mel_precision)
 
 
 def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
-                      n_fft: int, bands: MelBands) -> torch.Tensor:
+                      n_fft: int, bands: MelBands, mel_precision=None) -> torch.Tensor:
     """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_mels) f32
     log-mel: K1 then K2 in one kernel, no power array in device memory.
 
-    CPU tensors take :func:`wave_stft_mel_log_plain`; CUDA tensors launch K5.
+    CPU tensors take :func:`wave_stft_mel_log_plain`; CUDA tensors launch K5,
+    or K5b at a ``mel_precision`` with bf16 passes (:func:`mel_passes`: the
+    same kernel with K2's product mode in its epilogue, counted under
+    ``LAUNCHES["wave_stft_mel_log_mel_bf16"]``).
     """
+    passes = mel_passes(mel_precision)
     if waves.device.type == "cpu":
-        return wave_stft_mel_log_plain(waves, window, hop, n_fft, bands.dense)
+        return wave_stft_mel_log_plain(waves, window, hop, n_fft, bands.dense, mel_precision)
     if waves.device.type != "cuda":
         raise ValueError(f"wave_stft_mel_log: unsupported device {waves.device}")
     device = waves.device
@@ -751,9 +784,9 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
         _twiddles(n_fft, device).data_ptr(), bands.segments.data_ptr(),
         bands.band_first.data_ptr(), bands.weights.data_ptr(), out.data_ptr(), n_sig,
         n_samples, n_frames, hop, n_fft.bit_length() - 2, bands.n_mels,
-        bands.n_segments, device.index, _stream(device))
+        bands.n_segments, passes, device.index, _stream(device))
     _check_launch("wave_stft_mel_log", err)
-    LAUNCHES["wave_stft_mel_log"] += 1
+    LAUNCHES["wave_stft_mel_log" if passes == 0 else "wave_stft_mel_log_mel_bf16"] += 1
     return out
 
 
@@ -767,8 +800,10 @@ TIER_PASSES = {"bf16x1": 1, "bf16x3": 3, "bf16x4": 4, "bf16x6": 6}
 # The (chunk of a, chunk of b) product terms of a tier, in _make_dot's order:
 # a tier of P passes sums the first P.
 _TIER_TERMS = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (0, 2))
-# The n_fft the tier kernel takes (n1 = 2^(log2 n_fft // 2) >= 32, n2 >= 64).
+# The n_fft the tier kernels take (n1 = 2^(log2 n_fft // 2) >= 32, n2 >= 64):
+# K1t, K3t and K5t transform n_fft points; K6t m = n_fft/2.
 TIER_LOG2_N = range(11, 16)
+PACKED_TIER_LOG2_N = range(12, 16)
 
 
 def _stage_passes(p) -> int:
@@ -844,6 +879,27 @@ def _tier_constants(n_fft: int, device: torch.device):
                       for pair in (w2, w1, tw)))
 
 
+def _tier_packed_plain(x: torch.Tensor, n_fft: int, passes):
+    """(..., n_fft) windowed f32 frames -> (Zr, Zi), each (..., m = n_fft/2):
+    sed_tpu's packed matmul DFT (``_make_wave_packed_fft_kernel``) of z =
+    x_even + i*x_odd at (inner, outer) ``passes``, step by step at its
+    rounding points from its m-point constants (``_packed_fft_constants``):
+    Yr = W2r @ Xr - W2i @ Xi, Yi = W2r @ Xi + W2i @ Xr, T = Y * tw (f32),
+    Zr = Tr @ W1r - Ti @ W1i, Zi = Tr @ W1i + Ti @ W1r, bin n2*k1 + k2 in
+    natural order."""
+    inner, outer = passes
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = _tier_constants(n_fft // 2, x.device)
+    lead = x.shape[:-1]
+    xr, xi = (x[..., h::2].reshape(*lead, n2, n1) for h in (0, 1))
+    yr = tier_matmul(w2r, xr, inner) - tier_matmul(w2i, xi, inner)
+    yi = tier_matmul(w2r, xi, inner) + tier_matmul(w2i, xr, inner)
+    tr = yr * twr - yi * twi
+    ti = yr * twi + yi * twr
+    zr = tier_matmul(tr, w1r, outer) - tier_matmul(ti, w1i, outer)
+    zi = tier_matmul(tr, w1i, outer) + tier_matmul(ti, w1r, outer)
+    return tuple(z.transpose(-1, -2).reshape(*lead, n1 * n2).contiguous() for z in (zr, zi))
+
+
 def _tier_power_plain(x: torch.Tensor, n_fft: int, passes) -> torch.Tensor:
     """(..., n_fft) windowed f32 frames -> (..., n_fft/2 + 1) one-sided power
     by sed_tpu's two-stage matmul DFT at (inner, outer) ``passes``, step by
@@ -871,6 +927,24 @@ def wave_dft_power_bf16_plain(waves: torch.Tensor, window: torch.Tensor, hop: in
     :func:`_tier_power_plain` at ``precision`` (:func:`tier_passes`)."""
     frames = stft_ops.frame_signal(waves.to(torch.float32), n_fft, hop) * window
     return _tier_power_plain(frames, n_fft, _reduced_passes(precision))
+
+
+def wave_stft_mel_log_bf16_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                                 n_fft: int, fb: torch.Tensor, precision,
+                                 mel_precision=None) -> torch.Tensor:
+    """Plain version of K5t: plain K1t at ``precision``, then plain K2 at
+    ``mel_precision`` on its rows."""
+    return _rows_mel_log_plain(wave_dft_power_bf16_plain(waves, window, hop, n_fft, precision),
+                               fb, mel_precision)
+
+
+def wave_packed_fft_bf16_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
+                               n_fft: int, precision):
+    """Plain version of K6t: K6's reflect-centred framing and window, then
+    :func:`_tier_packed_plain` at ``precision``; (Zr, Zi), each (n_sig,
+    n_frames, n_fft/2) f32."""
+    frames = stft_ops.frame_signal(waves.to(torch.float32), n_fft, hop) * window
+    return _tier_packed_plain(frames, n_fft, _reduced_passes(precision))
 
 
 def frames_dft_power_bf16_plain(frames: torch.Tensor, window: torch.Tensor, n_fft: int,
@@ -908,30 +982,45 @@ def _reduced_passes(precision):
     return passes
 
 
-def _check_tier_size(n_fft: int, window: torch.Tensor) -> int:
-    """Returns log2 n_fft if the tier kernel takes it."""
+def _check_tier_size(n_fft: int, window: torch.Tensor, packed: bool = False) -> int:
+    """Returns log2 n_fft if the tier kernels take it (``packed``: K6t)."""
+    sizes = PACKED_TIER_LOG2_N if packed else TIER_LOG2_N
     log2_n = n_fft.bit_length() - 1
-    if n_fft & (n_fft - 1) or log2_n not in TIER_LOG2_N:
-        raise ValueError(f"the bf16 tier DFT takes n_fft a power of two from "
-                         f"{2 ** TIER_LOG2_N[0]} to {2 ** TIER_LOG2_N[-1]}, got {n_fft}")
+    if n_fft & (n_fft - 1) or log2_n not in sizes:
+        raise ValueError(f"the {'packed ' if packed else ''}bf16 tier DFT takes n_fft a power "
+                         f"of two from {2 ** sizes[0]} to {2 ** sizes[-1]}, got {n_fft}")
     if window.shape != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
     return log2_n
 
 
 @functools.lru_cache(maxsize=16)
-def _tier_tables(n_fft: int, inner_chunks: int, outer_chunks: int, device: torch.device):
-    """The tier kernel's tables on ``device``, from sed_tpu's f32 constants
-    split once (bf16): tab1, ``inner_chunks`` x (2 n2, n2), row 16t + 8h + i
-    the W2 row k2 = 8t + i (h = 0 real, 1 imaginary); tab2, ``outer_chunks``
-    x (n1 + 8, 2 n1), column 2j + h (h = 0: Zr, 1: Zi) of the outer stage
-    over [Tr | Ti]: (W1r, -W1i) and (W1i, W1r) at k1 = j < n1/2 + 4; the
-    (n2, n1) f32 twiddles as (re, im) pairs."""
-    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(n_fft)
-    w2 = np.stack([w2r.reshape(n2 // 8, 8, n2), w2i.reshape(n2 // 8, 8, n2)],
-                  axis=1).reshape(2 * n2, n2)
-    j = np.arange(n1 // 2 + 4)
-    w1 = np.empty((n1 + 8, 2 * n1), np.float32)
+def _tier_tables(n: int, inner_chunks: int, outer_chunks: int, device: torch.device,
+                 packed: bool = False):
+    """The tier kernels' tables of an n-point DFT on ``device``, from
+    sed_tpu's f32 constants split once (bf16):
+      * tab1, ``inner_chunks`` x (2 n2, k): row 16t + 8h + i the coefficients
+        of Y at k2 = 8t + i (h = 0 real, 1 imaginary part): W2 over k = n2
+        (a real frame); ``packed`` (K6t's complex frame), k = 2 n2, each 32
+        columns t those of Re z at a = 16t .. 16t + 15, then of Im z at the
+        same a: (W2r, -W2i) for Yr, (W2i, W2r) for Yi;
+      * tab2, ``outer_chunks`` x (2 c, 2 n1), column 2j + h (h = 0: Zr, 1:
+        Zi) of the outer stage over [Tr | Ti]: (W1r, -W1i) and (W1i, W1r) at
+        k1 = j < c, c = n1/2 + 4 (the one-sided bins and bin n/2) or, packed,
+        n1;
+      * the (n2, n1) f32 twiddles as (re, im) pairs."""
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(n)
+    yr, yi = w2r, w2i
+    if packed:   # column c of a K tile <- column (Re or Im, a) of [Xr; Xi]
+        c = np.arange(2 * n2)
+        natural = (c % 32) // 16 * n2 + 16 * (c // 32) + c % 16
+        yr = np.concatenate([w2r, -w2i], axis=1)[:, natural]
+        yi = np.concatenate([w2i, w2r], axis=1)[:, natural]
+    k = yr.shape[1]
+    w2 = np.stack([yr.reshape(n2 // 8, 8, k), yi.reshape(n2 // 8, 8, k)],
+                  axis=1).reshape(2 * n2, k)
+    j = np.arange(n1 if packed else n1 // 2 + 4)
+    w1 = np.empty((2 * len(j), 2 * n1), np.float32)
     w1[0::2, :n1], w1[0::2, n1:] = w1r[:, j].T, -w1i[:, j].T
     w1[1::2, :n1], w1[1::2, n1:] = w1i[:, j].T, w1r[:, j].T
 
@@ -943,15 +1032,25 @@ def _tier_tables(n_fft: int, inner_chunks: int, outer_chunks: int, device: torch
     return chunks(w2, inner_chunks), chunks(w1, outer_chunks), tw
 
 
+def _tier_setup(name: str, n_fft: int, window: torch.Tensor, rows: int, passes,
+                device: torch.device, packed: bool = False):
+    """Checks what the tier kernels take; returns log2 of the DFT's points
+    (n_fft, or m = n_fft/2 when ``packed``) and its tables on ``device``
+    (:func:`_tier_tables`: tab1, tab2, the twiddles)."""
+    log2_n = _check_tier_size(n_fft, window, packed) - int(packed)
+    if rows * ((1 << log2_n) >> (log2_n // 2)) // 64 > _MAX_GRID_X:
+        raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
+    inner, outer = passes
+    return log2_n, _tier_tables(1 << log2_n, _tier_chunks(inner), _tier_chunks(outer), device,
+                                packed)
+
+
 def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
                  out: torch.Tensor, rows: int, n_samples: int, n_frames: int, hop: int,
                  n_fft: int, passes) -> None:
     device = data.device
-    log2_n = _check_tier_size(n_fft, window)
-    if rows * (n_fft >> (log2_n // 2)) // 64 > _MAX_GRID_X:
-        raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
+    log2_n, (tab1, tab2, tw) = _tier_setup(name, n_fft, window, rows, passes, device)
     inner, outer = passes
-    tab1, tab2, tw = _tier_tables(n_fft, _tier_chunks(inner), _tier_chunks(outer), device)
     err = _library().sed_tier_dft_power(
         data.data_ptr(), kind, window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(),
         tw.data_ptr(), out.data_ptr(), rows, n_samples, n_frames, hop, log2_n, inner, outer,
@@ -1045,6 +1144,85 @@ def frames_dft_power_bf16(frames: torch.Tensor, window: torch.Tensor, n_fft: int
 
 
 # ---------------------------------------------------------------------------
+# K5t, K6t: 'fuse' and 'pack' at the reduced tiers
+# ---------------------------------------------------------------------------
+
+def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_fft: int,
+                           bands: MelBands, precision, mel_precision=None) -> torch.Tensor:
+    """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_mels) f32
+    log-mel: K1t at a reduced ``precision`` (:func:`tier_passes`) then K2 at
+    ``mel_precision`` (:func:`mel_passes`) in one kernel, no power array in
+    device memory.
+
+    CPU tensors take :func:`wave_stft_mel_log_bf16_plain`; CUDA tensors
+    launch K5t (``tier_dft_mel_log_kernel``, n_fft 2048..32768), equal to
+    :func:`wave_dft_power_bf16` then :func:`mel_log` bit for bit.
+    """
+    passes = _reduced_passes(precision)
+    mode = mel_passes(mel_precision)
+    if waves.device.type == "cpu":
+        return wave_stft_mel_log_bf16_plain(waves, window, hop, n_fft, bands.dense, precision,
+                                            mel_precision)
+    if waves.device.type != "cuda":
+        raise ValueError(f"wave_stft_mel_log_bf16: unsupported device {waves.device}")
+    device = waves.device
+    n_frames = _check_waves("wave_stft_mel_log_bf16", waves, window, hop, n_fft)
+    _check_bands(bands, device)
+    if bands.n_bins != n_fft // 2 + 1:
+        raise ValueError(f"bands cover {bands.n_bins} bins, n_fft {n_fft} has "
+                         f"{n_fft // 2 + 1}")
+    n_sig, n_samples = waves.shape
+    rows = n_sig * n_frames
+    log2_n, (tab1, tab2, tw) = _tier_setup("wave_stft_mel_log_bf16", n_fft, window, rows,
+                                           passes, device)
+    out = torch.empty((n_sig, n_frames, bands.n_mels), dtype=torch.float32, device=device)
+    if n_sig == 0:
+        return out
+    err = _library().sed_tier_dft_mel_log(
+        waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
+        bands.segments.data_ptr(), bands.band_first.data_ptr(), bands.weights.data_ptr(),
+        out.data_ptr(), rows, n_samples, n_frames, hop, log2_n, *passes, mode, bands.n_mels,
+        bands.n_segments, device.index, _stream(device))
+    _check_launch("wave_stft_mel_log_bf16", err)
+    LAUNCHES["wave_stft_mel_log_bf16"] += 1
+    return out
+
+
+def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_fft: int,
+                         precision):
+    """(n_sig, samples) f32 -> (Zr, Zi), each (n_sig, 1 + samples // hop,
+    n_fft/2) f32: K6's function, Z = DFT_m((x_even + i*x_odd) * window) of
+    each centred frame in natural bin order, by sed_tpu's matmul DFT of the
+    m = n_fft/2 points at a reduced ``precision`` (:func:`tier_passes`).
+
+    CPU tensors take :func:`wave_packed_fft_bf16_plain`; CUDA tensors launch
+    K6t (``tier_packed_fft_kernel``, n_fft 4096..32768).
+    """
+    passes = _reduced_passes(precision)
+    if waves.device.type == "cpu":
+        return wave_packed_fft_bf16_plain(waves, window, hop, n_fft, precision)
+    if waves.device.type != "cuda":
+        raise ValueError(f"wave_packed_fft_bf16: unsupported device {waves.device}")
+    device = waves.device
+    n_frames = _check_waves("wave_packed_fft_bf16", waves, window, hop, n_fft)
+    n_sig, n_samples = waves.shape
+    rows = n_sig * n_frames
+    log2_m, (tab1, tab2, tw) = _tier_setup("wave_packed_fft_bf16", n_fft, window, rows, passes,
+                                           device, packed=True)
+    zr = torch.empty((n_sig, n_frames, n_fft // 2), dtype=torch.float32, device=device)
+    zi = torch.empty_like(zr)
+    if n_sig == 0:
+        return zr, zi
+    err = _library().sed_tier_packed_fft(
+        waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
+        zr.data_ptr(), zi.data_ptr(), rows, n_samples, n_frames, hop, log2_m, *passes,
+        device.index, _stream(device))
+    _check_launch("wave_packed_fft_bf16", err)
+    LAUNCHES["wave_packed_fft_bf16"] += 1
+    return zr, zi
+
+
+# ---------------------------------------------------------------------------
 # The drivers, under sed_tpu's names (pallas_featurizer.py without _pallas)
 # ---------------------------------------------------------------------------
 
@@ -1053,7 +1231,8 @@ def frames_dft_power_bf16(frames: torch.Tensor, window: torch.Tensor, n_fft: int
 # bytes into the TPU's VMEM in different ways (span DMA, phase switches,
 # reflect buffers, single or double buffering); the function they compute is
 # K1's (K1 then K2 for 'rolledge'), so K1 is their counterpart.  'pack' is K6
-# then the unpack and K2; 'fuse' is K5.
+# then the unpack and K2; 'fuse' is K5.  :func:`impl_kernels` adds the mel
+# modes.
 IMPL_KERNELS = {
     "roll": ("wave_stft_power", "mel_log"),
     "roll_nodb": ("wave_stft_power", "mel_log"),
@@ -1065,9 +1244,8 @@ IMPL_KERNELS = {
     "fuse": ("wave_stft_mel_log",),
 }
 # What each name launches at a reduced tier (a ``precision`` other than
-# None): K1t in K1's place; 'slice' ignores the precision, as sed_tpu's slice
-# kernel has none.  'fuse' and 'pack' raise NotImplementedError there (their
-# kernels, K5 and K6, have no bf16 passes: ROADMAP.md).
+# None): K1t in K1's place, K6t in K6's, K5t in K5's; 'slice' ignores the
+# precision, as sed_tpu's slice kernel has none.
 REDUCED_IMPL_KERNELS = {
     "roll": ("wave_dft_power_bf16", "mel_log"),
     "roll_nodb": ("wave_dft_power_bf16", "mel_log"),
@@ -1075,24 +1253,29 @@ REDUCED_IMPL_KERNELS = {
     "rollraw": ("wave_dft_power_bf16", "mel_log"),
     "rolledge": ("wave_dft_power_bf16", "mel_log"),
     "eo": ("wave_dft_power_bf16", "mel_log"),
+    "pack": ("wave_packed_fft_bf16", "mel_log"),
+    "fuse": ("wave_stft_mel_log_bf16",),
 }
+# At a bf16 ``mel_precision`` K2 runs its product mode and K5 is K5b, on the
+# names whose mel reads it ('eo', 'rolledge' and 'pack' run the parity mel,
+# as sed_tpu's do); K5t takes the mode as an argument.
+_MEL_MODE_KERNELS = {"mel_log": "mel_log_bf16", "wave_stft_mel_log": "wave_stft_mel_log_mel_bf16"}
+_PARITY_MEL_IMPLS = ("eo", "rolledge", "pack")
+
+
+def impl_kernels(impl: str, precision=None, mel_precision=None) -> tuple:
+    """The kernels (:data:`LAUNCHES` names) that ``logmel_waveform(impl=impl,
+    precision=precision, mel_precision=mel_precision)`` launches on a CUDA
+    tensor, once each."""
+    names = (IMPL_KERNELS if tier_passes(precision) is None else REDUCED_IMPL_KERNELS)[impl]
+    if mel_passes(mel_precision) and impl not in _PARITY_MEL_IMPLS:
+        names = tuple(_MEL_MODE_KERNELS.get(n, n) for n in names)
+    return names
 
 # sed_tpu's frames per TPU tile (FFT_TILE_R): its raw-read geometry, whose
 # preconditions the port keeps, is counted in these tiles.
 _TPU_TILE_FRAMES = 8
 _TPU_TILE_K = 2048  # sed_tpu's TILE_K: 'fuse' needs nfft to be a multiple
-
-
-def _refuse_reduced(impl: str, precision, mel_precision=None) -> None:
-    """'fuse' and 'pack' at a reduced tier: not ported (ROADMAP.md)."""
-    if tier_passes(precision) is not None:
-        raise NotImplementedError(
-            f"impl {impl!r} at featurizer precision {precision!r} is not ported: its "
-            f"kernel has no bf16 passes; the roll family runs the tiers (see ROADMAP.md)")
-    if mel_passes(mel_precision):
-        raise NotImplementedError(
-            f"impl {impl!r} at mel_precision {mel_precision!r} is not ported: its kernel "
-            f"has no bf16 product mode; the roll family runs it (see ROADMAP.md)")
 
 
 def _check_rollraw(cfg: SpectrogramConfig, n_samples: int, impl: str) -> None:
@@ -1188,13 +1371,15 @@ def stft_packed_from_waveform(waveforms: torch.Tensor,
                               precision=None):
     """impl='pack': (n_signals, samples) -> (Zr, Zi), each (n_signals,
     n_frames, m), Z = FFT_m((x_even + i*x_odd) * window) of each centred
-    frame in natural bin order, through K6.  Feed to
-    :func:`packed_power_onesided`, then :func:`power_to_logmel_cuda`.  The
-    parity tier only (:func:`_refuse_reduced`)."""
-    _refuse_reduced("pack", precision)
+    frame in natural bin order, through K6 (K6t at a reduced ``precision``,
+    :func:`tier_passes`).  Feed to :func:`packed_power_onesided`, then
+    :func:`power_to_logmel_cuda`."""
+    passes = tier_passes(precision)
     _check_even_odd(cfg, "pack")
-    return wave_packed_fft(waveforms, stft_window(cfg, waveforms.device),
-                           cfg.hop_size, cfg.nfft)
+    window = stft_window(cfg, waveforms.device)
+    if passes is None:
+        return wave_packed_fft(waveforms, window, cfg.hop_size, cfg.nfft)
+    return wave_packed_fft_bf16(waveforms, window, cfg.hop_size, cfg.nfft, precision)
 
 
 def packed_power_onesided(zr: torch.Tensor, zi: torch.Tensor,
@@ -1224,14 +1409,21 @@ def logmel_waveform_fused(waveforms: torch.Tensor,
                           cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                           precision=None, mel_precision="bf16x4") -> torch.Tensor:
     """impl='fuse': (n_signals, samples) -> (n_signals, n_frames, mel_bins)
-    through K5, equal to K1 then K2 bit for bit.  The parity tier only
-    (:func:`_refuse_reduced`)."""
-    _refuse_reduced("fuse", precision, mel_precision)
+    in one launch: K5 at the parity tier (K5b at a ``mel_precision`` with
+    bf16 passes), K5t at a reduced ``precision``; each equal to its power
+    kernel (K1, K1t) then K2 at ``mel_precision`` bit for bit, as sed_tpu
+    pins fuse == roll."""
+    passes = tier_passes(precision)
+    mel_passes(mel_precision)
     if cfg.nfft % _TPU_TILE_K:
         raise ValueError(f"fuse needs nfft % {_TPU_TILE_K} == 0, got {cfg.nfft}")
     device = waveforms.device
-    return wave_stft_mel_log(waveforms, stft_window(cfg, device), cfg.hop_size,
-                             cfg.nfft, mel_bands(cfg, device))
+    window, bands = stft_window(cfg, device), mel_bands(cfg, device)
+    if passes is None:
+        return wave_stft_mel_log(waveforms, window, cfg.hop_size, cfg.nfft, bands,
+                                 mel_precision)
+    return wave_stft_mel_log_bf16(waveforms, window, cfg.hop_size, cfg.nfft, bands, precision,
+                                  mel_precision)
 
 
 def logmel_waveform_rolledge(waveforms: torch.Tensor,
@@ -1253,13 +1445,13 @@ def logmel_waveform(waveforms: torch.Tensor,
     """(n_signals, samples) f32 -> (n_signals, n_frames, mel_bins) f32
     log-mel (counterpart of ``logmel_waveform_pallas``).
 
-    ``impl`` takes every name of ``sed_tpu`` (:data:`IMPL_KERNELS` lists the
-    kernels each launches on a CUDA tensor at the parity tier,
-    :data:`REDUCED_IMPL_KERNELS` at a reduced ``precision``; a CPU tensor
-    takes their plain versions).  ``precision``: sed_tpu's values
-    (:func:`tier_passes`); ``mel_precision`` (:func:`mel_passes`) reaches K2
-    on the paths where sed_tpu's reaches its mel kernel ('roll', 'roll_nodb',
-    'slice', 'rollraw'; 'eo', 'rolledge' and 'pack' run the parity mel).
+    ``impl`` takes every name of ``sed_tpu`` (:func:`impl_kernels` lists the
+    kernels each launches on a CUDA tensor at each ``precision`` and
+    ``mel_precision``; a CPU tensor takes their plain versions).
+    ``precision``: sed_tpu's values (:func:`tier_passes`); ``mel_precision``
+    (:func:`mel_passes`) reaches K2 (K5's epilogue for 'fuse') on the paths
+    where sed_tpu's reaches its mel kernel ('roll', 'roll_nodb', 'slice',
+    'rollraw', 'fuse'; 'eo', 'rolledge' and 'pack' run the parity mel).
     """
     tier_passes(precision)
     mel_passes(mel_precision)

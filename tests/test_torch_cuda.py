@@ -484,7 +484,9 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
     assert kernels.LAUNCHES == {"wave_stft_power": 1, "mel_log": 1,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
                                 "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
-                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
+                                "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
+                                "wave_packed_fft_bf16": 0}
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
@@ -654,6 +656,39 @@ def test_k1_and_k5_launch_one_kernel_on_the_inputs_device(cuda, name):
     on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(on_device) == 1 and f"{name}_kernel" in on_device[0], on_device
     assert out.device == waves.device
+
+
+@pytest.mark.parametrize("name", ["k5t", "k5b", "k6t"])
+def test_k5t_k5b_k6t_launch_one_kernel(cuda, name):
+    """One CUDA call of K5t's, K5b's and K6t's wrappers is one launch of its
+    kernel and no other device work (torch.profiler).  It runs beside K1's,
+    K5's and K6's: at the end of a whole run of this file the profiler
+    caught no device event at all (PERF.md §7)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    waves = signals(2, 5 * 48000 + 3, 48000, cuda)
+    window, bands = kernels.stft_window(PROD, cuda), kernels.mel_bands(PROD, cuda)
+    hop, n_fft = PROD.hop_size, PROD.nfft
+    counter, kernel, call = {
+        "k5t": ("wave_stft_mel_log_bf16", "tier_dft_mel_log_kernel",
+                lambda: kernels.wave_stft_mel_log_bf16(waves, window, hop, n_fft, bands,
+                                                       "bf16x3", "bf16x1")),
+        "k5b": ("wave_stft_mel_log_mel_bf16", "wave_stft_mel_log_kernel",
+                lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands, "bf16x3")),
+        "k6t": ("wave_packed_fft_bf16", "tier_packed_fft_kernel",
+                lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, "bf16x1")),
+    }[name]
+    call()   # tables cached
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES[counter]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter] == before + 1
+    on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and kernel in on_device[0], on_device
+    assert all(t.device == waves.device for t in (out if isinstance(out, tuple) else (out,)))
 
 
 @pytest.mark.parametrize("impl", sorted(kernels.IMPL_KERNELS))
@@ -1799,5 +1834,122 @@ def test_tier_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.frames_dft_power_bf16(torch.zeros(SMALL.nfft, 2, device=cuda).t(), window,
                                       SMALL.nfft, "bf16x3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.logmel_waveform(waves, SMALL, impl="fuse", precision="bf16x1")
+    small = tier_cfg(2048)   # K6t transforms m = n_fft / 2 points: 2048 is below it
+    with pytest.raises(ValueError, match="4096 to 32768"):
+        kernels.wave_packed_fft_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
+                                     small.nfft, "bf16x3")
+    with pytest.raises(ValueError, match="4096 to 32768"):
+        kernels.logmel_waveform(waves, small, impl="pack", precision="bf16x1")
+
+
+# ---------------------------------------------------------------------------
+# K5t, K5b and K6t: 'fuse' and 'pack' at the reduced tiers
+# ---------------------------------------------------------------------------
+
+FUSE_MODES = [("bf16x3", None), ("bf16x1", None), ("bf16x4", None), ("bf16x6", None),
+              (("bf16x1", "bf16x3"), None), ("bf16x3", "bf16x1"), ("bf16x1", "bf16x3"),
+              (("bf16x6", "bf16x4"), "bf16x3")]
+
+
+@pytest.mark.parametrize("precision, mel_precision", FUSE_MODES, ids=str)
+@pytest.mark.parametrize("n_fft", [2048, 8192, 32768])
+def test_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
+    """K5t is K1t then K2 at mel_precision's mode in one launch: equal bit
+    for bit, with 1, 2 and 4 blocks a frame (one thread-block cluster)."""
+    cfg = tier_cfg(n_fft) if n_fft != PROD.nfft else PROD
+    waves = signals(3, 5 * cfg.working_sample_rate + 321, cfg.working_sample_rate, cuda)
+    window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
+    before = kernels.LAUNCHES["wave_stft_mel_log_bf16"]
+    got = kernels.wave_stft_mel_log_bf16(waves, window, cfg.hop_size, n_fft, bands, precision,
+                                         mel_precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_mel_log_bf16"] == before + 1
+    power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
+    assert got.shape == (3, 1 + waves.shape[1] // cfg.hop_size, bands.n_mels)
+    assert torch.equal(got.reshape(-1, bands.n_mels), two)
+
+
+@pytest.mark.parametrize("mel_precision", ["bf16x1", "bf16x3"])
+@pytest.mark.parametrize("n_fft", [256, 4096, 32768])
+def test_k5b_equals_k1_then_k2b(cuda, n_fft, mel_precision):
+    """K5 at K2's bf16 modes: equal to K1 then K2 at that mode bit for bit,
+    with fewer than 32 threads (whole bands a thread) and with warps."""
+    hop, win = 3 * n_fft // 8, n_fft - n_fft // 8
+    waves = signals(3, 3 * n_fft + 11, 8000, cuda)
+    window = torch.from_numpy(stft_ops.padded_window(win, n_fft).copy()).to(cuda)
+    bands = bands_at(n_fft, cuda)
+    before = kernels.LAUNCHES["wave_stft_mel_log_mel_bf16"]
+    got = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands, mel_precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_mel_log_mel_bf16"] == before + 1
+    power = kernels.wave_stft_power(waves, window, hop, n_fft)
+    two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
+    assert torch.equal(got.reshape(-1, bands.n_mels), two)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x1", ("bf16x6", "bf16x4"),
+                                       ("bf16x1", "bf16x3")], ids=str)
+@pytest.mark.parametrize("n_fft", [4096, 8192, 16384, 32768])
+def test_k6t_matches_its_plain_version(cuda, n_fft, precision):
+    """K6t against its plain version within phase 20's tier_rel_tol x the
+    frame's peak |Z|, and, on broadband noise, nearer its own mode than the
+    next (kernels.mode_fraction)."""
+    cfg = tier_cfg(n_fft) if n_fft != PROD.nfft else PROD
+    waves = signals(3, 5 * cfg.working_sample_rate + 321, cfg.working_sample_rate, cuda)
+    window = kernels.stft_window(cfg, cuda)
+    before = kernels.LAUNCHES["wave_packed_fft_bf16"]
+    zr, zi = kernels.wave_packed_fft_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_packed_fft_bf16"] == before + 1
+    wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, cfg.hop_size, n_fft, precision)
+    assert zr.shape == zi.shape == wr.shape == (3, 1 + waves.shape[1] // cfg.hop_size,
+                                                n_fft // 2)
+    peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+    rel = max(float(((z - w).abs() / peak).max()) for z, w in ((zr, wr), (zi, wi)))
+    assert rel <= tier_tol(precision), rel
+    g = torch.Generator(device=cuda).manual_seed(6)
+    noise = 0.3 * torch.randn(waves.shape, generator=g, device=cuda)
+
+    def packed(fn, prec):
+        return torch.cat(fn(noise, window, cfg.hop_size, n_fft, prec), dim=-1)
+
+    want = packed(kernels.wave_packed_fft_bf16_plain, precision)
+    neighbour = packed(kernels.wave_packed_fft_bf16_plain, TIER_NEIGHBOUR[precision])
+    zr, zi = want.chunk(2, dim=-1)
+    scale = torch.hypot(zr, zi).amax(dim=-1, keepdim=True)
+    t = kernels.mode_fraction(packed(kernels.wave_packed_fft_bf16, precision), want, neighbour,
+                              scale)
+    assert abs(t) <= MODE_FRACTION_TOL, t
+    t_next = kernels.mode_fraction(packed(kernels.wave_packed_fft_bf16,
+                                          TIER_NEIGHBOUR[precision]), want, neighbour, scale)
+    assert t_next >= 1 - MODE_FRACTION_TOL, t_next
+
+
+@pytest.mark.parametrize("impl, precision, mel_precision", [
+    ("fuse", "bf16x3", None), ("fuse", "bf16x1", "bf16x3"), ("fuse", None, "bf16x1"),
+    ("pack", "bf16x3", None), ("pack", ("bf16x1", "bf16x3"), "bf16x1")], ids=str)
+def test_fuse_and_pack_tiers_launch_their_row(cuda, impl, precision, mel_precision):
+    """logmel_waveform at a tier or a mel mode launches exactly the kernels
+    impl_kernels names (REDUCED_IMPL_KERNELS' row at a tier), once each; on
+    broadband noise its log-mel is within the tier's class of float64
+    (fast 1e-3 dB, a bf16x1 stage or mel 0.05 dB)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    waves = (0.3 * torch.randn(2, 20 * 8000 + 1317, generator=g, device=cuda)).contiguous()
+    kernels.reset_launch_counts()
+    got = kernels.logmel_waveform(waves, SMALL, impl=impl, precision=precision,
+                                  mel_precision=mel_precision)
+    torch.cuda.synchronize()
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update(dict.fromkeys(kernels.impl_kernels(impl, precision, mel_precision), 1))
+    assert kernels.LAUNCHES == want_launches
+    if precision is not None:
+        assert kernels.impl_kernels(impl, precision) == kernels.REDUCED_IMPL_KERNELS[impl]
+    window = kernels.stft_window(SMALL, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(SMALL, np.float64)).to(cuda)
+    chain = kernels.wave_stft_mel_log_plain(waves.double(), window, SMALL.hop_size, SMALL.nfft,
+                                            fb64)
+    stages = precision if isinstance(precision, tuple) else (precision,)
+    tol = 0.05 if "bf16x1" in stages + (mel_precision,) else 1e-3
+    assert got.shape == chain.shape
+    assert float((got.double() - chain).abs().max()) <= tol

@@ -16,7 +16,8 @@ import pytest
 from sed_tpu_torch.ops import cuda_featurizer as kernels
 
 ENTRY_POINTS = ("sed_wave_stft_power", "sed_frames_stft_power", "sed_mel_log",
-                "sed_wave_stft_mel_log", "sed_wave_packed_fft", "sed_tier_dft_power")
+                "sed_wave_stft_mel_log", "sed_wave_packed_fft", "sed_tier_dft_power",
+                "sed_tier_dft_mel_log", "sed_tier_packed_fft")
 GUARD = ("const DeviceGuard guard(device);",
          "if (guard.status() != cudaSuccess) return guard.status();")
 

@@ -105,7 +105,9 @@ def test_cpu_tensors_never_launch_kernels():
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
                                 "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
-                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
+                                "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
+                                "wave_packed_fft_bf16": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

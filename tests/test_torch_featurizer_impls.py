@@ -326,12 +326,6 @@ _REFUSALS = [
      lambda x, c: kernels.stft_power_from_waveform(x, c, impl="roll_aligned_debug")),
     ("unknown-impl", ValueError, "unknown impl",
      lambda x, c: kernels.logmel_waveform(x, c, impl="bogus")),
-    ("precision-bf16x1", NotImplementedError, "not ported.*ROADMAP",
-     lambda x, c: kernels.stft_packed_from_waveform(x, c, precision="bf16x1")),
-    ("precision-bf16x6", NotImplementedError, "not ported.*ROADMAP",
-     lambda x, c: kernels.logmel_waveform(x, c, impl="fuse", precision="bf16x6")),
-    ("mel-bf16x3", NotImplementedError, "mel_precision",
-     lambda x, c: kernels.logmel_waveform_fused(x, c, mel_precision="bf16x3")),
     ("mel-unknown", ValueError, "mel_precision",
      lambda x, c: kernels.logmel_waveform(x, c, mel_precision="fp8")),
     ("rollraw-small-nfft", ValueError, "nfft >= 32768",
@@ -366,6 +360,16 @@ _ONCE_REFUSED = [
      lambda x, c: kernels.mel_log_plain(
          kernels.wave_stft_power(x, kernels.stft_window(c, CPU), c.hop_size, c.nfft)[0],
          kernels.mel_bands(c, CPU).dense, "bf16x1")[None]),
+    # 'pack' and 'fuse' at a tier, 'fuse' at a bf16 mel: K6t, K5t and K5b
+    # (tests/test_torch_fuse_pack_tiers.py holds their values).
+    ("precision-bf16x1", lambda x, c: kernels.stft_packed_from_waveform(x, c, precision="bf16x1"),
+     lambda x, c: kernels.wave_packed_fft_bf16(x, kernels.stft_window(c, CPU), c.hop_size,
+                                               c.nfft, "bf16x1")),
+    ("precision-bf16x6", lambda x, c: kernels.logmel_waveform(x, c, impl="fuse",
+                                                              precision="bf16x6"),
+     lambda x, c: kernels.logmel_waveform(x, c, impl="roll", precision="bf16x6")),
+    ("mel-bf16x3", lambda x, c: kernels.logmel_waveform_fused(x, c, mel_precision="bf16x3"),
+     lambda x, c: kernels.logmel_waveform(x, c, mel_precision="bf16x3")),
     # sed_tpu's use_pallas=True path (STFT then the mel kernel) ignores the tier.
     ("features-tier", lambda x, c: featurizer.logmel_features_batch(
         x[..., None], c, use_pallas=True, pallas_precision="fast")[:, 0],

@@ -383,19 +383,27 @@ def test_unknown_tier_names_raise_sed_tpu_error(name):
 
 
 def test_reduced_tiers_refused_on_fuse_and_pack_only():
+    """Once the calls refused: 'fuse' and 'pack' at a reduced tier and 'fuse'
+    at a bf16 mel_precision now compute (K5t, K6t, K5b; their values in
+    test_torch_fuse_pack_tiers.py), and every impl name has a row at a
+    reduced tier.  What stays refused is an unknown precision."""
     x = torch.from_numpy(X[:1])
-    for call in (lambda: kernels.logmel_waveform(x, CFG, impl="fuse", precision="bf16x3"),
-                 lambda: kernels.logmel_waveform(x, CFG, impl="pack", precision="bf16x1"),
-                 lambda: kernels.logmel_waveform_fused(x, CFG, mel_precision="bf16x1"),
-                 lambda: kernels.stft_packed_from_waveform(x, CFG, ("bf16x3", None))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    for precision in ("bf16x3", "bf16x1"):
+        assert torch.equal(kernels.logmel_waveform(x, CFG, impl="fuse", precision=precision),
+                           kernels.logmel_waveform(x, CFG, impl="roll", precision=precision))
+    assert torch.equal(kernels.logmel_waveform_fused(x, CFG, mel_precision="bf16x1"),
+                       kernels.logmel_waveform(x, CFG, mel_precision="bf16x1"))
+    zr, zi = kernels.stft_packed_from_waveform(x, CFG, ("bf16x3", None))
+    assert zr.shape == zi.shape == (1, 1 + x.shape[1] // HOP, N // 2)
+    packed = kernels.logmel_waveform(x, CFG, impl="pack", precision="bf16x1")
+    assert packed.shape == (1, 1 + x.shape[1] // HOP, CFG.mel_bins)
+    assert bool(torch.isfinite(packed).all())
     # 'pack' ignores mel_precision, as sed_tpu's pack path does.
     assert torch.equal(kernels.logmel_waveform(x, CFG, impl="pack", mel_precision="bf16x1"),
                        kernels.logmel_waveform(x, CFG, impl="pack"))
     with pytest.raises(ValueError, match="featurizer precision"):
         kernels.logmel_waveform(x, CFG, precision="bf16x2")
-    assert set(kernels.REDUCED_IMPL_KERNELS) == set(kernels.IMPL_KERNELS) - {"fuse", "pack"}
+    assert set(kernels.REDUCED_IMPL_KERNELS) == set(kernels.IMPL_KERNELS)
     for names in kernels.REDUCED_IMPL_KERNELS.values():
         assert set(names) <= set(kernels.LAUNCHES)
 

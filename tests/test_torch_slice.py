@@ -84,7 +84,9 @@ def test_slice_scores_match_jax_pipeline():
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
                                 "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
-                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
+                                "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
+                                "wave_packed_fft_bf16": 0}
 
 
 def test_mean_std_normalization_matches_jax_predictor():

@@ -175,7 +175,9 @@ def test_logmel_frames_matches_logmel_frames_pallas(dtype):
     assert kernels.LAUNCHES == {"wave_stft_power": 0, "mel_log": 0,
                                 "frames_stft_power": 0, "wave_stft_mel_log": 0,
                                 "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
-                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0}
+                                "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
+                                "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
+                                "wave_packed_fft_bf16": 0}
     want = np.asarray(logmel_frames_pallas(jnp.asarray(x), JCFG, interpret=True))
     assert got.shape == want.shape == (len(x), CFG.mel_bins)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
