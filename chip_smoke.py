@@ -12,10 +12,10 @@ non-zero on the first failure.  Phases:
               kernels from ``sed_tpu_torch/ops/csrc`` with nvcc and prints
               the build time and ptxas' registers, shared memory and spills;
               the lesion builds (``LESIONS``: K6's three, the drain's
-              exchange of K3 and K1, K5's epilogue, K2's copies and sums)
-              start after it, beside phases 2-7, one nvcc for each
-              distinct edit, without the tier kernels' instances
-              (``LESION_FLAGS``);
+              exchange of K3 and K1, K5's epilogue, K2's copies and sums,
+              K6t's frame split, table copies and drain) start after it,
+              beside phases 2-7, one nvcc for each distinct edit, each with
+              only its entry point's object of the source (``LESION_FLAGS``);
   2. kernels  K1 and K2 against their plain versions computed in float64 on
               the card, at the batch path's shapes (16 x 60 s), and K2 on the
               batch's rows from row 1 on (off a 16-byte boundary, up to the
@@ -365,14 +365,38 @@ non-zero on the first failure.  Phases:
               each bound (tensor FLOPs at the dense bf16 peak, the mel's at
               FP32, or bytes) and the PyTorch yardsticks (``torch.stft`` +
               abs^2 + ``matmul`` + ``log10``; ``torch.fft.fft`` of the packed
-              frames).
+              frames); K6t (the wgmma kernel) through its C call at fast and
+              turbo, whole and rebuilt without its frame split, its table
+              copies and its drain's stores (phase 1's lesion builds: wrong
+              results, timing only).
+ 22. wide    n_fft 65536 and 131072 (96 and 192 kHz) through every
+              featurizer kernel: at both rates, on two signals of 5 hops
+              (frames over the reflection edges and interior ones), K1, K3
+              (float32, int16) and K6 over a cluster of 2 or 4 CTAs a frame
+              against float64 (1e-5 x the frame's peak), K1 then K2 within
+              1e-4 dB, K5 and K5b (mel bf16x1, bf16x3) equal to K1 then K2
+              bit for bit, and K1t, K3t, K6t at fast, turbo and bf16x6
+              (n1 256: the staged-T instances) against their plain versions
+              (``tier_rel_tol``) and K5t equal to K1t then K2; at 96 kHz on
+              phase 3's 16 x 60 s batch: ``make_batch_predictor`` (one K1
+              and one K2 launch, counts reset just before and read just
+              after; clip 0 against the CPU within 1e-4), 'fuse', 'pack',
+              and 'roll', 'fuse', 'pack' at fast (exactly ``impl_kernels``'
+              row each), a 4-slot ``StreamPool`` for 8 s (the tick: K3 and
+              K2; scores against the batch path), ``logmel_frames`` within
+              1e-4 dB of float64; times at 96 kHz: K1, K2, K5, K6, K3 (at a
+              32-slot tick's 160 rows, cut from the batch's clips, checked
+              against float64 and timed queued), K1t, K5t and K6t at fast and the
+              predictor, beside their bounds, plain versions and PyTorch
+              yardsticks.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10, then K1t, K3t and K2's
-bf16 modes with phase 20's figures, then K5t, K5b and K6t with phase 21's;
-K1's and K2's with the training path's launches, every entry with phase
-12's, 0, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase
-18's, phase 19's, phase 20's and phase 21's), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.
+bf16 modes with phase 20's figures, then K5t, K5b and K6t with phase 21's,
+then the n_fft 65536 instances of K1, K2, K3, K5, K6, K1t, K5t and K6t with
+phase 22's; K1's and K2's with the training path's launches, every entry
+with phase 12's, 0, phase 13's, phase 14's, phase 15's, phase 16's, phase
+17's, phase 18's, phase 19's, phase 20's, phase 21's and phase 22's), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -637,37 +661,55 @@ def profile_ticks(torch, fn, n: int):
 # how much of its time that part holds.  Each is featurizer.cu with one edit,
 # built beside the real library and timed on the same inputs through the same
 # C call as the real kernel: K3's and K1's in phase 8, K6's and K5's in phase
-# 9.  name -> (C entry point, anchor, replacement).  The edit applies to the
-# whole file; only the named entry point is called.
+# 9, K6t's in phase 21.  name -> (C entry point, ((anchor, replacement),
+# ...)).  The edits apply to the whole file; only the named entry point is
+# called.
 LESIONS = {
-    "K6 loads": ("sed_wave_packed_fft", "  load.template fill<T, P>(v, t);",
+    "K6 loads": ("sed_wave_packed_fft", (("  load.template fill<T, P>(v, t);",
                  "#pragma unroll\n  for (int s = 0; s < kPoints; ++s)\n"
-                 "    v[s] = make_float2(t * 1e-3f + s, s * 0.5f - t);"),
-    "K6 exchanges": ("sed_wave_packed_fft",
-                     "      if (pass + 1 < a || r > 1) stockham_exchange<16, 1>(v, sre, sim, t, T, p);",
-                     ""),
-    "K6 twiddles": ("sed_wave_packed_fft",
-                    "    if (p > 1) {\n      const int k = (t + b * T)",
-                    "    if (false) {\n      const int k = (t + b * T)"),
-    "K3 drain exchange": ("sed_frames_stft_power",
-                          "    constexpr bool in_registers = T == 1;",
-                          "    constexpr bool in_registers = true;"),
-    "K1 drain exchange": ("sed_wave_stft_power",
-                          "    constexpr bool in_registers = T == 1;",
-                          "    constexpr bool in_registers = true;"),
-    "K5 epilogue": ("sed_wave_stft_mel_log",
-                    "  mel_log_row_mode<kWarps>(mel_passes, power, seg, band_first, weights, "
-                    "power + m + 1, row,\n                           n_mels, n_seg);",
-                    "  (void)kWarps;"),
-    "K2 copies": ("sed_mel_log", "        stage_chunk<R>(a, ring, full, g, k, seq, lane);",
-                  "        mbar_arrive(full + seq % D); if (lane == 0) mbar_arrive(full + seq % D);"),
-    "K2 sums": ("sed_mel_log", "        segment_sums<R, kPasses>(x, w, s.y, lane, sum);",
-                "        for (int r = 0; r < R; ++r) sum[r] = 0.f;"),
+                 "    v[s] = make_float2(t * 1e-3f + s, s * 0.5f - t);"),)),
+    "K6 exchanges": ("sed_wave_packed_fft", ((
+        "      if (pass + 1 < a || r > 1) stockham_exchange<16, 1>(v, sre, sim, t, T, p);",
+        ""),)),
+    "K6 twiddles": ("sed_wave_packed_fft", (("    if (p > 1) {\n      const int k = (t + b * T)",
+                                             "    if (false) {\n      const int k = (t + b * T)"),)),
+    "K3 drain exchange": ("sed_frames_stft_power", (("    constexpr bool in_registers = T == 1;",
+                                                     "    constexpr bool in_registers = true;"),)),
+    "K1 drain exchange": ("sed_wave_stft_power", (("    constexpr bool in_registers = T == 1;",
+                                                   "    constexpr bool in_registers = true;"),)),
+    "K5 epilogue": ("sed_wave_stft_mel_log", ((
+        "    mel_log_row_mode<kWarps>(mel_passes, power, seg, band_first, weights, power + m + 1, "
+        "row,\n                             n_mels, n_seg);",
+        "    (void)kWarps;"),)),
+    "K2 copies": ("sed_mel_log", (("        stage_chunk<R>(a, ring, full, g, k, seq, lane);",
+                                   "        mbar_arrive(full + seq % D); if (lane == 0) "
+                                   "mbar_arrive(full + seq % D);"),)),
+    "K2 sums": ("sed_mel_log", (("        segment_sums<R, kPasses>(x, w, s.y, lane, sum);",
+                                 "        for (int r = 0; r < R; ++r) sum[r] = 0.f;"),)),
+    # K6t (tier_packed_fft_kernel) without its frame split (no sample loads,
+    # no bf16 split, no X stores), without its table copies (no bulk copy of
+    # W2 or W1 tiles), without its drain's stores of Z.
+    "K6t frame split": ("sed_tier_packed_fft", (
+        ("      for (int it = 0; it < ITEMS; ++it) {\n        const int q = pt + PT * it;\n"
+         "        const int b = q % N1P, o = q / N1P;\n        // Re (part 0)",
+         "      for (int it = 0; it < 0; ++it) {\n        const int q = pt + PT * it;\n"
+         "        const int b = q % N1P, o = q / N1P;\n        // Re (part 0)"),
+        ("          xs[it][e] = paired ? __ldg(pairs + j) : frame.raw(2 * j);\n          ws[it][e] = __ldg(window + j);",
+         "          xs[it][e] = make_float2(j, e);\n          ws[it][e] = make_float2(e, j);"))),
+    "K6t table copies": ("sed_tier_packed_fft", (
+        ("      if (pt == 0) {\n        mbar_expect_tx(full1 + slot, A1_BYTES);",
+         "      if (false) {\n        mbar_expect_tx(full1 + slot, A1_BYTES);"),
+        ("            mbar_arrive_expect_tx(full2 + slot2, S2);\n            bulk_copy(",
+         "            mbar_arrive(full2 + slot2);\n            if (false) bulk_copy("))),
+    "K6t drain": ("sed_tier_packed_fft", (("      for (int i = 0; i < 2 * 32 * KB / 4 / 128; ++i) {",
+                                           "      for (int i = 0; i < 0; ++i) {"),)),
 }
-# The lesions time K1-K6 only: their builds leave out the tier kernels' 3 x
-# 48 instances (featurizer.cu, SED_FEATURIZER_NO_TIERS), which would
-# multiply each build's time.
-LESION_FLAGS = ("-DSED_FEATURIZER_NO_TIERS",)
+# Each lesion build holds only what phases 8, 9 and 21 call: K1-K6 without
+# the tier kernels' instances, or K6t's entry with the instances of n_fft
+# 32768 alone (log2 m 14), which would otherwise multiply each build's time.
+LESION_FLAGS = {"sed_tier_packed_fft": ("-DSED_FEATURIZER_PACKED_TIERS_ONLY",
+                                        "-DSED_FEATURIZER_PACKED_ONE_SIZE=14")}
+DEFAULT_LESION_FLAGS = ("-DSED_FEATURIZER_NO_TIERS",)
 _lesion_builds = []
 
 
@@ -678,18 +720,22 @@ def start_lesions(kernels):
     out = kernels.BUILD_DIR / "lesions"
     out.mkdir(parents=True, exist_ok=True)
     started = {}
-    for name, (_, old, new) in LESIONS.items():
-        check(src.count(old) == 1, f"lesion {name!r}: its anchor is in featurizer.cu")
-        if (old, new) in started:
-            _lesion_builds.append((name, *started[old, new]))
+    for name, (entry, edits) in LESIONS.items():
+        edited = src
+        for old, new in edits:
+            check(src.count(old) == 1, f"lesion {name!r}: its anchor is in featurizer.cu")
+            edited = edited.replace(old, new)
+        flags = LESION_FLAGS.get(entry, DEFAULT_LESION_FLAGS)
+        if (edits, flags) in started:
+            _lesion_builds.append((name, *started[edits, flags]))
             continue
         stem = name.replace(" ", "_")
         cu, so, build_log = out / f"{stem}.cu", out / f"lib{stem}.so", out / f"{stem}.log"
-        cu.write_text(src.replace(old, new))
+        cu.write_text(edited)
         with open(build_log, "w") as f:
-            proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *LESION_FLAGS,
+            proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags,
                                      "-o", str(so), str(cu)], stdout=f, stderr=subprocess.STDOUT)
-        started[old, new] = (proc, so, build_log)
+        started[edits, flags] = (proc, so, build_log)
         _lesion_builds.append((name, proc, so, build_log))
 
 
@@ -4984,11 +5030,12 @@ FUSE_MEL_RUNS = ((None, "bf16x1"), (None, "bf16x3"), ("bf16x1", "bf16x3"),
 FUSE_BIT_DB_TOL = 1e-5    # K5t / K5b against their two-kernel chain, if not bit for bit
 
 
-def fusepack_phase(torch, cfg, dev, smi, peaks):
+def fusepack_phase(torch, cfg, dev, smi, peaks, lesions):
     """Phase 21: 'fuse' and 'pack' at the reduced tiers (see the module
     docstring).  ``peaks``: the card's (memory B/s, FP32 FLOP/s, dense bf16
-    FLOP/s).  Returns (the kernels line's entries of K5t, K5b and K6t, the
-    launch counts of the phase's runs, summed)."""
+    FLOP/s); ``lesions``: phase 1's lesion builds (K6t's three here).
+    Returns (the kernels line's entries of K5t, K5b and K6t, the launch
+    counts of the phase's runs, summed)."""
     from sed_tpu_torch.ops import cuda_featurizer as kernels
     from sed_tpu_torch.ops import stft as stft_ops
     from sed_tpu_torch.ops.featurizer import ingest_to_f32
@@ -5187,6 +5234,32 @@ def fusepack_phase(torch, cfg, dev, smi, peaks):
         f"yardsticks: torch.stft+abs^2+matmul+log10 {lib_fuse_ms:.4f} ms, torch.fft.fft of the "
         f"packed frames {lib_pack_ms:.4f} ms; parity fuse {parity['fuse']:.4f} ms, pack "
         f"{parity['pack']:.4f} ms, K1 then K2 {k1k2_ms:.4f} ms")
+    # K6t through its C call, whole and without each part (wrong results,
+    # timing only: each part's share).
+    zr = torch.empty(BATCH, n_frames, m, device=dev)
+    zi = torch.empty_like(zr)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k6t_parts = {}
+    for prec in TIER_NAMES:
+        passes = kernels.tier_passes(prec)
+        plan = kernels.packed_plan(p1, *passes)
+        tab1, tab2, tw = kernels._packed_tables(m, *(kernels._tier_chunks(p) for p in passes),
+                                                dev)
+
+        def k6t_raw(fn):
+            err = fn(waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(),
+                     tw.data_ptr(), zr.data_ptr(), zi.data_ptr(), frames, samples, n_frames,
+                     hop, m.bit_length() - 1, *passes, dev.index, stream)
+            check(err == 0, f"K6t raw launch ({err})")
+
+        parts = {"ms": time_ms(torch, lambda: k6t_raw(kernels._library().sed_tier_packed_fft))}
+        for name in ("K6t frame split", "K6t table copies", "K6t drain"):
+            parts[f"without_{name[4:].replace(' ', '_')}_ms"] = time_ms(
+                torch, lambda fn=lesions[name]: k6t_raw(fn))
+        k6t_parts[TIER_NAMES[prec]] = {"plan": plan, **parts}
+    del zr, zi, tab1, tab2, tw
+    log(f"[fusepack] {smi}; K6t through its C call, whole and without each part (wrong "
+        f"results, timing only): {k6t_parts}")
     log(f"[fusepack] {smi}; phase {time.perf_counter() - t0:.1f} s; launches of its runs "
         f"{ {k: v for k, v in total.items() if v} }")
 
@@ -5219,7 +5292,8 @@ def fusepack_phase(torch, cfg, dev, smi, peaks):
          "bound_ms": k5b_bound[0], "bound_by": k5b_bound[1], "library_ms": lib_fuse_ms,
          "k5_ms": k5_ms, "modes": k5b},
         {"name": "wave_packed_fft_bf16",
-         "kernel": "tier_packed_fft_kernel<N1, P1, P2> (tier_dft with a complex input)",
+         "kernel": "tier_packed_fft_kernel<N1, P1, P2> (wgmma, bulk-copied tables, "
+                   "persistent CTAs)",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:882",
          "launches": sum(pack_launches[p].get("wave_packed_fft_bf16", 0)
@@ -5230,11 +5304,339 @@ def fusepack_phase(torch, cfg, dev, smi, peaks):
          "library_ms": lib_pack_ms, "parity_pack_ms": parity["pack"],
          "parity_fuse_ms": parity["fuse"],
          "fidelity_db": {name: fidelity["pack", name] for name in TIER_NAMES.values()},
+         "parts": k6t_parts,
          "tiers": {tier_tag(p): {**k6t[p], **{k: v for k, v in times[p].items()
                                               if k.startswith(("k6t", "pack"))}}
                    for p in TIER_PRECISIONS}},
     ]
     return entries, total
+
+
+# Phase 22: n_fft 65536 and 131072.  The rates whose n_fft passes 32768, and
+# the clip length of the few-frame checks of every new instance.
+WIDE_RATES = (96000, 192000)
+WIDE_HOPS = 5        # hops a signal in the instance checks: 6 frames, edges and interior
+WIDE_POOL_SLOTS, WIDE_POOL_SECONDS = 4, 8    # the tick at 96 kHz: a few ticks of a few slots
+WIDE_TIER_CHECKS = ("bf16x3", "bf16x1", "bf16x6")
+
+
+def wide_phase(torch, dev, smi, peaks):
+    """Phase 22: n_fft 65536 and 131072 (96 and 192 kHz) through every
+    featurizer kernel (see the module docstring).  ``peaks``: the card's
+    (memory B/s, FP32 FLOP/s, dense bf16 FLOP/s).  Returns (the kernels
+    line's entries of the new instances, the launch counts of the phase's
+    main-path runs, summed)."""
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.inference import make_batch_predictor
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops.featurizer import ingest_to_f32, logmel_features_batch, logmel_frames
+    from sed_tpu_torch.ops.mel import mel_filterbank
+    from sed_tpu_torch.stream_pool import StreamPool
+
+    t0 = time.perf_counter()
+    bw, fp32_peak, bf16_peak = peaks
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def counted(fn, *args, **kw):
+        """fn(...) with the launch counts reset just before and read just
+        after; returns (its result, the kernels it launched)."""
+        kernels.reset_launch_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for k, n in kernels.LAUNCHES.items():
+            total[k] += n
+        return out, launched
+
+    def bound(n_bytes, t_ops):
+        t_bytes = n_bytes / bw * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    # ---- every new instance at both rates against its plain version ------------
+    checks = {}
+    for sr in WIDE_RATES:
+        cfg = SpectrogramConfig(working_sample_rate=sr)
+        hop, n_fft, n_bins = cfg.hop_size, cfg.nfft, cfg.freq_bins
+        window, bands = kernels.stft_window(cfg, dev), kernels.mel_bands(cfg, dev)
+        fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(22)
+        n = WIDE_HOPS * hop + 777
+        tone = torch.sin(2 * np.pi * 1000.0 * torch.arange(n, device=dev) / sr)
+        waves = (0.3 * torch.randn(2, n, generator=g, device=dev) + 0.4 * tone).contiguous()
+        got = {}
+        power = kernels.wave_stft_power(waves, window, hop, n_fft)
+        ref = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
+        torch.cuda.synchronize()
+        peak = ref.amax(dim=-1, keepdim=True).clamp_min(1e-30)
+        got["K1 / peak"] = float(((power.double() - ref).abs() / peak).max())
+        check(got["K1 / peak"] <= K1_REL_TOL, f"K1 at n_fft {n_fft} within 1e-5 x frame peak")
+        rows = power.reshape(-1, n_bins)
+        mel = kernels.mel_log(rows, bands)
+        got["K1 then K2 dB"] = float((mel.double() - kernels.mel_log_plain(
+            ref.reshape(-1, n_bins), fb64)).abs().max())
+        check(got["K1 then K2 dB"] <= DB_TOL, f"K1 then K2 at n_fft {n_fft} within 1e-4 dB")
+        for mel_precision in (None, "bf16x1", "bf16x3"):
+            fused = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands, mel_precision)
+            chain = kernels.mel_log(rows, bands, mel_precision)
+            differ = int((fused.reshape(chain.shape) != chain).sum())
+            got[f"K5 {mel_precision} values differing from K1 then K2"] = differ
+            check(differ == 0, f"K5 at n_fft {n_fft}, mel {mel_precision} equals K1 then K2")
+        frames = waves[:, : n_fft + 2 * hop].unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+        pcm16 = (frames.clamp(-1, 1) * 32767).round().to(torch.int16)
+        for tag, x in (("float32", frames), ("int16", pcm16)):
+            want = kernels.frames_stft_power_plain(x, window, n_fft, dtype=torch.float64)
+            err = (kernels.frames_stft_power(x, window, n_fft).double() - want).abs()
+            got[f"K3 {tag} / peak"] = float((err / want.amax(dim=-1, keepdim=True)).max())
+            check(got[f"K3 {tag} / peak"] <= K1_REL_TOL, f"K3 {tag} at n_fft {n_fft}")
+        zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
+        wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft)
+        zpeak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+        got["K6 / peak"] = max(float(((z.double() - w).abs() / zpeak).max())
+                               for z, w in ((zr, wr), (zi, wi)))
+        check(got["K6 / peak"] <= K1_REL_TOL, f"K6 at n_fft {n_fft} within 1e-5 x peak |Z|")
+        for prec in WIDE_TIER_CHECKS:
+            tol = tier_rel_tol(kernels.tier_passes(prec))
+            t_pow = kernels.wave_dft_power_bf16(waves, window, hop, n_fft, prec)
+            want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, prec)
+            got[f"K1t {tier_tag(prec)} / peak"] = rel = float(
+                ((t_pow - want).abs() / want.amax(dim=-1, keepdim=True)).max())
+            check(rel <= tol, f"K1t at {prec}, n_fft {n_fft}, within {tol}")
+            fused = kernels.wave_stft_mel_log_bf16(waves, window, hop, n_fft, bands, prec)
+            differ = int((fused.reshape(-1, bands.n_mels)
+                          != kernels.mel_log(t_pow.reshape(-1, n_bins), bands)).sum())
+            got[f"K5t {tier_tag(prec)} values differing from K1t then K2"] = differ
+            check(differ == 0, f"K5t at {prec}, n_fft {n_fft} equals K1t then K2")
+            rows_t = kernels.frames_dft_power_bf16(frames, window, n_fft, prec)
+            want_t = kernels.frames_dft_power_bf16_plain(frames, window, n_fft, prec)
+            got[f"K3t {tier_tag(prec)} / peak"] = rel = float(
+                ((rows_t - want_t).abs() / want_t.amax(dim=-1, keepdim=True)).max())
+            check(rel <= tol, f"K3t at {prec}, n_fft {n_fft}, within {tol}")
+            zr, zi = kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, prec)
+            wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, prec)
+            zpeak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+            got[f"K6t {tier_tag(prec)} / peak"] = rel = max(
+                float(((z - w).abs() / zpeak).max()) for z, w in ((zr, wr), (zi, wi)))
+            check(rel <= tol, f"K6t at {prec}, n_fft {n_fft}, within {tol}")
+        torch.cuda.synchronize()
+        checks[sr] = got
+        log(f"[wide] {sr} Hz, n_fft {n_fft} ({kernels.stockham_plan(n_fft)['cluster']} CTAs a "
+            f"frame), {2} x {WIDE_HOPS} hops: " + "; ".join(
+                f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in got.items()))
+        del waves, power, ref, rows, mel, frames, zr, zi, wr, wi, t_pow, want
+
+    # ---- 96 kHz at 16 x 60 s: the predictor, every impl, the kernels' times ------
+    sr = WIDE_RATES[0]
+    cfg = SpectrogramConfig(working_sample_rate=sr)
+    hop, n_fft, n_bins, n_mels = cfg.hop_size, cfg.nfft, cfg.freq_bins, cfg.mel_bins
+    m = n_fft // 2
+    samples = sr * SECONDS
+    window, bands = kernels.stft_window(cfg, dev), kernels.mel_bands(cfg, dev)
+    fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+    model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL,
+                          generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 1) * 32767).round().to(
+        torch.int16)[..., None]
+    with torch.inference_mode():
+        feats = logmel_features_batch(pcm[:4], cfg)
+    mean = feats.mean(dim=(0, 1, 2)).cpu().numpy()
+    std = feats.std(dim=(0, 1, 2)).cpu().numpy()
+    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device=DEVICE)
+    scores, predictor_launches = counted(predict, pcm)
+    check(predictor_launches == {"wave_stft_power": 1, "mel_log": 1},
+          f"the 96 kHz predictor launched K1 and K2 once each, not {predictor_launches}")
+    check(bool(torch.isfinite(scores).all()) and bool(((scores >= 0) & (scores <= 1)).all()),
+          "96 kHz scores finite, in [0, 1]")
+    cpu_predict = make_batch_predictor(cpu_model, cfg, mean=mean, std=std, device="cpu")
+    cpu_err = float((scores[:1].cpu() - cpu_predict(pcm[:1].cpu())).abs().max())
+    check(cpu_err <= SCORE_TOL, "96 kHz clip 0 matches the CPU path")
+    del cpu_model, cpu_predict
+    waves = ingest_to_f32(pcm[..., 0]).contiguous()
+    frames = waves.shape[0] * (1 + samples // hop)
+    ref = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
+    power = kernels.wave_stft_power(waves, window, hop, n_fft)
+    k1_abs = float((power.double() - ref).abs().max())
+    rows = power.reshape(-1, n_bins)
+    k2_db = float((kernels.mel_log(rows, bands).double()
+                   - kernels.mel_log_plain(ref.reshape(-1, n_bins), fb64)).abs().max())
+    check(k2_db <= DB_TOL, "96 kHz K1 then K2 within 1e-4 dB of the float64 chain")
+    del ref
+    impl_runs = {}
+    for impl, prec in (("fuse", None), ("pack", None), ("roll", "bf16x3"), ("fuse", "bf16x3"),
+                       ("pack", "bf16x3")):
+        out, launched = counted(kernels.logmel_waveform, waves, cfg, impl=impl, precision=prec)
+        names = kernels.impl_kernels(impl, prec)
+        check(launched == dict.fromkeys(names, 1),
+              f"logmel_waveform({impl!r}, {prec}) at 96 kHz launched {names} once each, not "
+              f"{launched}")
+        check(out.shape == (BATCH, 1 + samples // hop, n_mels) and bool(torch.isfinite(out).all()),
+              f"{impl} at {prec}, 96 kHz: finite log-mel")
+        impl_runs[impl, prec] = launched
+    # The tick at 96 kHz: a few slots, a few ticks, against the batch path.
+    clips = [pcm[i, : WIDE_POOL_SECONDS * sr, 0].cpu().numpy() for i in range(WIDE_POOL_SLOTS)]
+    pool = StreamPool(model, cfg, slots=WIDE_POOL_SLOTS, chunk_samples=sr, mean=mean, std=std,
+                      device=DEVICE)
+    got_pool, _, pool_launches, _, ticks = drive_pool(torch, dev, pool, clips, sr, seed=22)
+    for k, n in pool_launches.items():
+        total[k] += n
+    want = score_all(torch, predict, clips)
+    pool_err = max(float(np.abs(g - w).max()) for g, w in zip(got_pool, want))
+    check(all(g.shape == w.shape for g, w in zip(got_pool, want)), "96 kHz pool frame counts")
+    check(pool_err <= SCORE_TOL, "96 kHz pool scores match make_batch_predictor")
+    check(pool_launches["frames_stft_power"] > 0 and pool_launches["mel_log"] > 0,
+          "K3 and K2 ran in the 96 kHz tick")
+    del pool
+    tick_rows = (torch.from_numpy(np.stack(clips)[:, : n_fft + 4 * hop]).to(dev).float()
+                 / 32768.0).unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+    lm = logmel_frames(tick_rows, cfg)
+    k3_db = float((lm.double() - kernels.mel_log_plain(kernels.frames_stft_power_plain(
+        tick_rows, window, n_fft, dtype=torch.float64), fb64)).abs().max())
+    check(k3_db <= DB_TOL, "96 kHz logmel_frames within 1e-4 dB of float64")
+    log(f"[wide] 96 kHz, {BATCH} x {SECONDS} s: predictor launches {predictor_launches}, clip 0 "
+        f"vs CPU {cpu_err:.3e} (tol {SCORE_TOL}); K1 max abs err {k1_abs:.3e}, K1 then K2 vs "
+        f"float64 {k2_db:.3e} dB; impls launched {dict((f'{i} {p}', l) for (i, p), l in impl_runs.items())}; "
+        f"{WIDE_POOL_SLOTS}-slot pool, {ticks} ticks: launches {pool_launches}, vs batch "
+        f"{pool_err:.3e}; logmel_frames ({tick_rows.shape[0]} rows) vs float64 {k3_db:.3e} dB")
+
+    # ---- times at 96 kHz, 16 x 60 s ------------------------------------------
+    win_nnz = int(torch.count_nonzero(window))
+    nnz = bands.nnz
+    wave_b = 4 * waves.numel()
+    fft_tables = 4 * (n_fft + 2 * (kernels.stockham_plan(n_fft)["cluster"] + 1) * 16384 + 2 * m)
+    mel_tables = 4 * (nnz + 5 * bands.n_segments + n_mels + 1)
+    power_b = 4 * rows.numel()
+    out_mel_b = 4 * frames * n_mels
+    windowed = stft_ops.frame_signal(waves, n_fft, hop) * window
+    packed = torch.complex(windowed[..., 0::2].contiguous(), windowed[..., 1::2].contiguous())
+    del windowed
+    t = {}
+    t["k1"] = time_ms(torch, lambda: kernels.wave_stft_power(waves, window, hop, n_fft))
+    t["k1_plain"] = time_ms(torch, lambda: kernels.wave_stft_power_plain(waves, window, hop, n_fft))
+    t["k1_lib"] = time_ms(torch, lambda: torch.stft(
+        waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+        return_complex=True).abs() ** 2)
+    t["k2"] = time_ms(torch, lambda: kernels.mel_log(rows, bands))
+    t["k2_plain"] = time_ms(torch, lambda: kernels.mel_log_plain(rows, bands.dense))
+    t["k2_lib"] = time_ms(torch, lambda: 10.0 * torch.log10(
+        torch.clamp(torch.matmul(rows, bands.dense), min=1e-10)))
+    t["k5"] = time_ms(torch, lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands))
+    t["k5_plain"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_plain(
+        waves, window, hop, n_fft, bands.dense))
+    t["fuse_lib"] = time_ms(torch, lambda: 10.0 * torch.log10(torch.clamp(torch.matmul(
+        torch.stft(waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                   return_complex=True).abs().square().transpose(1, 2), bands.dense),
+        min=1e-10)))
+    t["k6"] = time_ms(torch, lambda: kernels.wave_packed_fft(waves, window, hop, n_fft))
+    t["k6_plain"] = time_ms(torch, lambda: kernels.wave_packed_fft_plain(waves, window, hop, n_fft))
+    t["k6_lib"] = time_ms(torch, lambda: torch.fft.fft(packed, dim=-1))
+    del packed
+    # K3 is timed at the 32-slot tick's rows (POOL_SLOTS x the frames a 1 s
+    # chunk adds: 10 frames of each of the batch's 16 clips), as phase 2
+    # times it at 48 kHz; the 4-slot pool's rows above only check it.
+    k3_rows = POOL_SLOTS * (-(-sr // hop) + 1)
+    per = k3_rows // BATCH
+    k3_frames = waves[:, : n_fft + (per - 1) * hop].unfold(1, n_fft, hop).reshape(
+        -1, n_fft)[:k3_rows].contiguous()
+    k3_rows = k3_frames.shape[0]
+    k3_want = kernels.frames_stft_power_plain(k3_frames, window, n_fft, dtype=torch.float64)
+    k3_rel = float(((kernels.frames_stft_power(k3_frames, window, n_fft).double() - k3_want).abs()
+                    / k3_want.amax(dim=-1, keepdim=True).clamp(min=1e-30)).max())
+    check(k3_rel <= K1_REL_TOL, f"96 kHz K3 at the tick's {k3_rows} rows within 1e-5 x peak")
+    del k3_want
+    t["k3"] = time_ms(torch, lambda: kernels.frames_stft_power(k3_frames, window, n_fft),
+                      calls=QUEUED)
+    t["k3_plain"] = time_ms(torch, lambda: kernels.frames_stft_power_plain(k3_frames, window, n_fft),
+                            calls=QUEUED)
+    t["k3_lib"] = time_ms(torch, lambda: torch.fft.rfft(k3_frames * window).abs() ** 2,
+                          calls=QUEUED)
+    t["k1t"] = time_ms(torch, lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft,
+                                                                  "bf16x3"))
+    t["k1t_plain"] = time_ms(torch, lambda: kernels.wave_dft_power_bf16_plain(
+        waves, window, hop, n_fft, "bf16x3"), reps=TIER_PLAIN_REPS, warmup=1)
+    t["k5t"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_bf16(
+        waves, window, hop, n_fft, bands, "bf16x3"))
+    t["k6t"] = time_ms(torch, lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft,
+                                                                   "bf16x3"))
+    t["k6t_plain"] = time_ms(torch, lambda: kernels.wave_packed_fft_bf16_plain(
+        waves, window, hop, n_fft, "bf16x3"), reps=TIER_PLAIN_REPS, warmup=1)
+    with torch.inference_mode():
+        t["predictor"] = time_ms(torch, lambda: predict(pcm))
+    audio_s = BATCH * SECONDS / (t["predictor"] / 1e3)
+    del rows, power
+    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+    n2 = n_fft // n1
+    p1 = 1 << ((m.bit_length() - 1) // 2)
+    p2 = m // p1
+    k1_bound = bound(wave_b + fft_tables + power_b, fft_ops(frames, m, win_nnz) / fp32_peak * 1e3)
+    k2_bound = bound(power_b + out_mel_b + mel_tables, 2 * nnz * frames / fp32_peak * 1e3)
+    k5_bound = bound(wave_b + fft_tables + mel_tables + out_mel_b,
+                     (fft_ops(frames, m, win_nnz) + 2 * nnz * frames) / fp32_peak * 1e3)
+    k6_bound = bound(wave_b + fft_tables + 8 * frames * m,
+                     fft_ops(frames, m, win_nnz, unpack=False) / fp32_peak * 1e3)
+    k3_bound = bound(4 * (k3_frames.numel() + k3_rows * (m + 1)) + fft_tables,
+                     fft_ops(k3_rows, m, win_nnz) / fp32_peak * 1e3)
+    k1t_ops = frames * 3 * (4 * n2 * n2 * n1 + 8 * n2 * n1 * (n1 // 2 + 1))
+    k1t_bound = bound(wave_b + power_b, k1t_ops / bf16_peak * 1e3)
+    k5t_bound = bound(wave_b + mel_tables + out_mel_b,
+                      k1t_ops / bf16_peak * 1e3 + 2 * nnz * frames / fp32_peak * 1e3)
+    k6t_ops = frames * 3 * (8 * p2 * p2 * p1 + 8 * p2 * p1 * p1)
+    k6t_bound = bound(wave_b + 8 * frames * m, k6t_ops / bf16_peak * 1e3)
+    log(f"[wide] {smi}; 96 kHz, {BATCH} x {SECONDS} s ({frames} frames), CUDA-event medians: "
+        f"K1 {t['k1']:.4f} ms (bound {k1_bound[0]:.4f}, {k1_bound[1]}: "
+        f"{(wave_b + power_b) / 1e6:.1f} MB of waveform and power; plain {t['k1_plain']:.4f}, "
+        f"torch.stft+abs^2 {t['k1_lib']:.4f}) | K2 {t['k2']:.4f} (bound {k2_bound[0]:.4f}; plain "
+        f"{t['k2_plain']:.4f}, matmul+log10 {t['k2_lib']:.4f}) | K5 {t['k5']:.4f} (bound "
+        f"{k5_bound[0]:.4f}; the torch.stft chain {t['fuse_lib']:.4f}) | K6 {t['k6']:.4f} (bound "
+        f"{k6_bound[0]:.4f}; torch.fft.fft {t['k6_lib']:.4f}) | K3 at {k3_rows} rows (peak-relative "
+        f"err {k3_rel:.3e}), queued "
+        f"{t['k3']:.4f} (bound {k3_bound[0]:.4f}; rfft+abs^2 {t['k3_lib']:.4f}) | fast: K1t "
+        f"{t['k1t']:.4f} (bound {k1t_bound[0]:.4f}), K5t {t['k5t']:.4f}, K6t {t['k6t']:.4f} "
+        f"(bound {k6t_bound[0]:.4f}) | predictor {t['predictor']:.4f} ms, {audio_s:.1f} "
+        f"audio-s/s")
+    log(f"[wide] phase {time.perf_counter() - t0:.1f} s; launches of its runs "
+        f"{ {k: v for k, v in total.items() if v} }")
+
+    source = "sed_tpu_torch/ops/csrc/featurizer.cu"
+
+    def entry(name, kernel, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra):
+        return {"name": name, "kernel": kernel, "route": "cuda", "source": source,
+                "replaces": f"sed_tpu/ops/pallas_featurizer.py:{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms, "n_fft": n_fft,
+                "sample_rate": sr, **extra}
+
+    cluster = kernels.stockham_plan(n_fft)["cluster"]
+    fuse, pack = impl_runs["fuse", None], impl_runs["pack", None]
+    got, fast = checks[sr], tier_tag("bf16x3")
+    return [
+        entry("wave_stft_power", f"wave_stft_power_kernel<15> (a cluster of {cluster} CTAs)",
+              412, predictor_launches["wave_stft_power"], k1_abs, t["k1"], t["k1_plain"],
+              k1_bound, t["k1_lib"], checks=checks),
+        entry("mel_log", f"mel_log_kernel<R> at {n_bins} bins", 72,
+              predictor_launches["mel_log"], k2_db, t["k2"], t["k2_plain"], k2_bound, t["k2_lib"]),
+        entry("frames_stft_power", f"frames_stft_power_kernel<15, Pair> (a cluster of {cluster})",
+              283, pool_launches["frames_stft_power"], k3_db, t["k3"], t["k3_plain"], k3_bound,
+              t["k3_lib"], rows=k3_rows, queued=QUEUED),
+        entry("wave_stft_mel_log", f"wave_stft_mel_log_kernel<15> (a cluster of {cluster})", 550,
+              fuse["wave_stft_mel_log"], got["K5 None values differing from K1 then K2"],
+              t["k5"], t["k5_plain"], k5_bound, t["fuse_lib"]),
+        entry("wave_packed_fft", f"wave_packed_fft_kernel<15> (a cluster of {cluster})", 882,
+              pack["wave_packed_fft"], got["K6 / peak"], t["k6"], t["k6_plain"], k6_bound,
+              t["k6_lib"]),
+        entry("wave_dft_power_bf16", f"tier_dft_kernel<{n1}, 3, 3>", 412,
+              impl_runs["roll", "bf16x3"]["wave_dft_power_bf16"], got[f"K1t {fast} / peak"],
+              t["k1t"], t["k1t_plain"], k1t_bound, t["k1_lib"], precision="bf16x3"),
+        entry("wave_stft_mel_log_bf16", f"tier_dft_mel_log_kernel<{n1}, 3, 3> (a cluster of "
+              f"{n2 // 64})", 550, impl_runs["fuse", "bf16x3"]["wave_stft_mel_log_bf16"],
+              got[f"K5t {fast} values differing from K1t then K2"], t["k5t"],
+              t["k1t_plain"] + t["k2_plain"], k5t_bound, t["fuse_lib"], precision="bf16x3"),
+        entry("wave_packed_fft_bf16", f"tier_packed_fft_kernel<{p1}, 3, 3> (wgmma)", 882,
+              impl_runs["pack", "bf16x3"]["wave_packed_fft_bf16"], got[f"K6t {fast} / peak"],
+              t["k6t"], t["k6t_plain"], k6t_bound, t["k6_lib"], precision="bf16x3"),
+    ], total
+
 
 def main() -> int:
     import torch
@@ -5269,8 +5671,8 @@ def main() -> int:
         f"side by side, done after: " + ", ".join(
             f"{unit} {sec:.2f} s" for unit, sec in zip(kernels.BUILD_RECIPE["units"],
                                                        info.unit_seconds)) + ")")
-    # Phases 8 and 9 time the lesions: their builds run beside phases 2-7, not
-    # beside the library's four objects, which need the host's cores first.
+    # Phases 8, 9 and 21 time the lesions: their builds run beside phases 2-7,
+    # not beside the library's objects, which need the host's cores first.
     start_lesions(kernels)
     from sed_tpu_torch.io import native
 
@@ -5823,8 +6225,12 @@ def main() -> int:
     log(f"[tiers] total {time.perf_counter() - phase_t0:.1f} s")
 
     # ---- 21. 'fuse' and 'pack' at the tiers: K5t, K5b, K6t ---------------------------
-    fusepack_entries, fusepack_launches = fusepack_phase(torch, cfg, dev, smi, peaks)
+    fusepack_entries, fusepack_launches = fusepack_phase(torch, cfg, dev, smi, peaks, lesions)
     log(f"[fusepack] total {time.perf_counter() - phase_t0:.1f} s")
+
+    # ---- 22. n_fft 65536 and 131072: 96 and 192 kHz through every kernel ----------
+    wide_entries, wide_launches = wide_phase(torch, dev, smi, peaks)
+    log(f"[wide] total {time.perf_counter() - phase_t0:.1f} s")
 
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
@@ -5860,6 +6266,7 @@ def main() -> int:
         *impl_entries,
         *tier_entries,
         *fusepack_entries,
+        *wide_entries,
     ]
     for e in entries:   # phase 12's path, M5 training: every count is 0
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
@@ -5872,6 +6279,7 @@ def main() -> int:
         e["classical_launches"] = sum(classical_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["tier_launches"] = sum(tier_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["fusepack_launches"] = sum(fusepack_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["wide_launches"] = sum(wide_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,10 +2,11 @@
 //
 // Built by sed_tpu_torch/ops/cuda_featurizer.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -Xcompiler -fPIC -c featurizer.cu, four times side by side (with
+//        -Xcompiler -fPIC -c featurizer.cu, six times side by side (with
 //        -DSED_FEATURIZER_NO_TIERS, -DSED_FEATURIZER_TIERS_ONLY,
-//        -DSED_FEATURIZER_FUSED_TIERS_ONLY, -DSED_FEATURIZER_PACKED_TIERS_ONLY),
-//   then nvcc -shared -o libsed_featurizer.so of the four objects,
+//        -DSED_FEATURIZER_FUSED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_TIERS_ONLY,
+//        -DSED_FEATURIZER_PACKED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_PACKED_ONLY),
+//   then nvcc -shared -o libsed_featurizer.so of the six objects,
 // into a shared library with a plain C interface, loaded with ctypes.  Every
 // entry point launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() after the launch (the Python wrapper raises on non-zero)
@@ -24,7 +25,8 @@
 //   (~0.11 ms at 3.35 TB/s) against ~4.3 GFLOP (~0.065 ms at 67 TFLOP/s
 //   FP32).
 //   Design: K6's loader and FFT core with K3's power drain.  One CTA of m/16
-//   threads per frame, a template on log2 m (1..14).  PackedWaveLoad reads
+//   threads per frame, a template on log2 m (1..16; above 14 a cluster of 2
+//   or 4 CTAs a frame: cluster_fft, ClusterPowerStore).  PackedWaveLoad reads
 //   the frame straight from the raw waveform into registers, only where the
 //   window is non-zero (the frames that reach an edge reflect on the index
 //   through shared memory: no padded copy, no pre-pass); stockham_fft runs
@@ -52,7 +54,8 @@
 //   two waves of one row's time, so it cannot come near that bound; splitting
 //   a row over a thread-block cluster is the next step (ROADMAP queue 2).
 //   Design: K6's core without the framing.  One CTA of m/16 threads per row,
-//   a template on log2 m (1..14) and on the sample pair type.  PackedRowLoad
+//   a template on log2 m (1..16: a cluster above 14) and on the sample pair
+//   type.  PackedRowLoad
 //   reads packed point t + s*m/16 as one float2 (short2 for int16) straight
 //   into registers, only where the window is non-zero; stockham_fft runs the
 //   m-point FFT in registers (three exchanges at m = 16384); PowerStore, the
@@ -135,7 +138,10 @@
 //   the epilogue overlaps no other frame's FFT, so it gets the even order
 //   and the early loads, not a ring.  Same power code and summation order as
 //   K1 then K2, no fast-math: its output equals K1 -> K2 bit for bit, as
-//   sed_tpu pins fuse == roll.
+//   sed_tpu pins fuse == roll.  Above n_fft 32768 a frame is a cluster
+//   (cluster_fft): each CTA keeps its strided bins' power, and K2's segments
+//   are summed over distributed shared memory as K5t sums them
+//   (cluster_mel_log), still equal to K1 then K2 bit for bit.
 //
 // K6  sed_wave_packed_fft
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_wave_packed_fft_kernel
@@ -148,7 +154,8 @@
 //   Bound on an H100 SXM: bytes.  At 16 x 60 s (2912 frames, m = 16384) it
 //   reads the 184 MB waveform and writes 382 MB of Z: 566 MB, ~0.169 ms at
 //   3.35 TB/s, against ~3.4 GFLOP (~0.05 ms at 67 TFLOP/s FP32).
-//   Design: stockham_fft, a radix-16 Stockham FFT held in registers, in
+//   Design: stockham_fft, a radix-16 Stockham FFT held in registers (over a
+//   thread-block cluster above m = 16384: cluster_fft), in
 //   place of 14 barrier-separated radix-2 passes through shared memory
 //   (1.77-1.80 ms on an H100 80GB HBM3 at 700 W, 10x the bound).
 //   m = 16^a * r (r in 1, 2, 4, 8): a radix-16 passes, then one radix-r
@@ -219,11 +226,14 @@
 //   columns k1 < n1/2 (interleaved Zr, Zi so a thread squares its own),
 //   with the column pair k1 = n1/2 (bin n_fft/2) taken by one warp of the
 //   first CTA; its tiles come by cp.async into two buffers.  Shared memory
-//   32-185 KB (tier_smem_bytes) and 104-214 registers (ptxas, chip_smoke.py
-//   phase 1): one CTA an SM.  The split tables are made once on the host
+//   32-193 KB (tier_smem_bytes) and 104-255 registers (ptxas, chip_smoke.py
+//   phase 1; the n1 = 256 instances spill): one CTA an SM.  n_fft 2048 ..
+//   131072 (n1 32..256).  At n1 = 256 a stage of 6 passes stages T per
+//   chunk (tier_staged).  The split tables are made once on the host
 //   from sed_tpu's f32 constants and cached per device.  The stages are
-//   tier_dft, which K5t and K6t share; each kernel's instances are an
-//   object of the library of their own (see the tier entry points).
+//   tier_dft, which K5t shares; each kernel's instances are an object of
+//   the library of their own, those at n1 = 256 another (see the tier entry
+//   points).
 //   Known divergence from sed_tpu: one-sided natural-order power in place of
 //   all n_fft bins in the (k2, k1) layout with a folded filterbank; the
 //   tensor cores' f32 accumulation (its order, its alignment of the terms)
@@ -241,7 +251,8 @@
 //   Bound on an H100 SXM: K1t's (operations at fast; the output is 0.75 MB
 //   in place of 191 MB of power).
 //   Design: K1t's tier_dft, whose n2 / 64 blocks of a frame (4 at n_fft
-//   32768) each hold 64 k2 rows of every k1, so a frame's one-sided power is
+//   32768 and 65536, 8 at 131072) each hold 64 k2 rows of every k1, so a
+//   frame's one-sided power is
 //   spread over blocks, interleaved.  The blocks of a frame are one thread-
 //   block cluster: each puts its |Z|^2 into its own shared memory (T's
 //   region, free after stage 2), and after a cluster barrier the frame's
@@ -256,18 +267,52 @@
 //   its dot_inner / dot_outer (:933) over m = n_fft/2 points.
 //   Computes K6's function, Z = DFT_m((x_even + i x_odd) * window) of each
 //   centred frame in natural bin order, by sed_tpu's matmul DFT with bf16-
-//   split products (n1 = n2 = 128 at n_fft 32768; n_fft 4096..32768).
+//   split products (n1 = 2^(log2 m / 2): n1 = n2 = 128 at n_fft 32768;
+//   n_fft 4096..131072, n1 32..256).
 //   Bound on an H100 SXM: operations at fast.  A frame: P1 x 8 n2^2 n1 + P2 x
 //   8 n2 n1^2 tensor FLOP (sed_tpu's count, :1052): 293 GFLOP at fast and
 //   16 x 60 s, 0.296 ms at 989 TFLOP/s dense bf16 (98 GFLOP, 0.099 ms at
 //   turbo, where the 566 MB, 0.169 ms at 3.35 TB/s, bound it).
-//   Design: K1t's tier_dft with a complex input (kPacked): stage 1 is
-//   [Yr; Yi] = [[W2r, -W2i]; [W2i, W2r]] [Xr; Xi], one real product twice as
-//   deep, each K tile 16 rows of Re z then 16 of Im z (a thread loads two
-//   neighbouring points, four samples, and splits their real and imaginary
-//   parts into the two halves); stage 2 takes all n1 columns, and the drain
-//   writes Zr and Zi.  Its tables are sed_tpu's m-point constants split
-//   once on the host.
+//   Design (mma.sync fed by ldmatrix, a block barrier a tile and copies
+//   issued by every thread leave Hopper's tensor cores idle; wgmma from
+//   shared memory, bulk copies and warp specialisation do not):
+//   * wgmma.mma_async m64nNk16 (bf16 in, f32 out), both operands in shared
+//     memory by descriptor under the 128-byte swizzle (sw128, K-major tiles
+//     of 64 columns).  Stage 1 is [Yr; Yi] = [[W2r, -W2i]; [W2i, W2r]] [Xr;
+//     Xi] as one real product (A: W2's rows of the unit, Yr and Yi
+//     interleaved by 8 so a thread holds both of one (k2, b); B: the
+//     frame's X, n1p rows b a pass, K tiles of Re z at 32 a then Im z at
+//     the same a); stage 2 is Z^T = W1^T T^T (A: W1's rows, (k1, Zr / Zi)
+//     interleaved by 8; B: T^T, kb rows k2 over K = [Tr | Ti]), so the
+//     drain's rows are kb contiguous bins n2 k1 + k0 ...
+//   * The tables: tab1 and tab2 are made once on the host in the exact
+//     shared-memory image of each 64-row tile (cuda_featurizer.
+//     _packed_tables), so one cp.async.bulk on an mbarrier brings a tile's
+//     chunks (kb / 32 of them a ring-1 slot); a producer thread keeps them
+//     in flight in two rings (stage 1's, d1 slots with the X tiles beside;
+//     stage 2's, two slots).  Their layout does not depend on the
+//     instance's shape, so the host needs nothing of packed_shape.
+//   * The frame split: the producers (one or two warpgroups, the others of
+//     the CTA) load the frame's samples and window pairs a step ahead
+//     (8-byte loads where the frame is aligned), window them and split them
+//     into bf16 chunks (cvt.rn.bf16x2) straight into X's swizzled B layout,
+//     once per unit.  A unit is (frame, kb k2 rows), so a frame is split
+//     n2 / kb times (twice at n_fft 32768): what a CTA holds is kb k2 rows
+//     of one frame, not a whole frame, whose X and T^T (C1 x 4m and C2 x 4m
+//     bytes) do not fit 227 KB beside the rings at n1 >= 128.
+//   * Persistent CTAs, as many as fit (one an SM), walk the units, so one
+//     unit's twiddle, stage 2 and drain overlap the producers' loads,
+//     splits and copies of the next unit's first steps.
+//   * The drain: each 64-row M tile of Z^T goes through shared memory to
+//     16-byte coalesced stores of Zr and Zi rows, while the next tile's
+//     first products run.
+//   Shared memory (packed_shape; T^T C2 x 4 n1 kb B, ring 1 d1 x C1 (n1p +
+//   2 kb) 128 B, ring 2 2 x C2 x 8 KB, the drain 256 (kb + 4) B): kb 64 up to
+//   n1 128 (32 at n1 256, or where 6-pass chunks need the room), n1p up to
+//   128, d1 3 or 2; 103-230 KB at every (n1, C1, C2).  With two producing
+//   warpgroups (384 threads) setmaxnreg gives the multiplying warpgroup 240
+//   registers, the producers 120.  Its tables' layout and the whole data
+//   flow are modelled in numpy by tests/test_torch_packed_tiers.py.
 //
 // K7 (impl 'eo'), K8 ('rollraw'), K9 ('rolledge') and K10 ('slice',
 // 'roll_nodb') of sed_tpu compute K1's one-sided power (K9: K1 then K2) and
@@ -279,13 +324,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <type_traits>
 #include <utility>
 
 // One object of the library that holds one tier kernel's entry point alone
 // (see the tier entry points at the end).
 #if defined(SED_FEATURIZER_TIERS_ONLY) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY) || \
-    defined(SED_FEATURIZER_PACKED_TIERS_ONLY)
+    defined(SED_FEATURIZER_WIDE_TIERS_ONLY) || defined(SED_FEATURIZER_PACKED_TIERS_ONLY) || \
+    defined(SED_FEATURIZER_WIDE_PACKED_ONLY)
 #define SED_FEATURIZER_ONE_TIER_UNIT
 #endif
 
@@ -510,11 +557,21 @@ __device__ __forceinline__ void mel_log_row_mode(int mel_passes, const float* p,
 
 constexpr int kPoints = 16;  // points a thread holds in registers
 
-// Threads of a block over stockham_fft at m = 2^LOG2_M: m/16 (one below
-// m = 16).  Each kernel's launch bound is its own thread count, so
-// instances of fewer than 1024 threads may use more than 64 registers.
+// The most points one CTA's FFT holds: 2^14 (its exchange buffer, 128 KB).
+// Above it (n_fft 65536, 131072) a frame's m points are spread over a
+// thread-block cluster of kClusterCtas CTAs of 2^14 points each
+// (cluster_fft below).
+constexpr int kCtaLog2M = 14;
 template <int LOG2_M>
-constexpr int kStockhamThreads = LOG2_M < 4 ? 1 : (1 << LOG2_M) / kPoints;
+constexpr int kClusterCtas = LOG2_M > kCtaLog2M ? 1 << (LOG2_M - kCtaLog2M) : 1;
+
+// Threads of a block over stockham_fft at m = 2^LOG2_M: m/16 (one below
+// m = 16; 1024 for a cluster's CTA).  Each kernel's launch bound is its own
+// thread count, so instances of fewer than 1024 threads may use more than 64
+// registers.
+template <int LOG2_M>
+constexpr int kStockhamThreads =
+    LOG2_M < 4 ? 1 : (1 << (LOG2_M < kCtaLog2M ? LOG2_M : kCtaLog2M)) / kPoints;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -751,18 +808,21 @@ struct PackedWaveLoad {
   }
 };
 
-// PackedWaveLoad of this block's frame, blockIdx.x = signal * n_frames + t,
-// centred: it starts n_fft/2 = m samples before t * hop.  K1, K5 and K6.
+// PackedWaveLoad of packed points first .. first + points - 1 of frame
+// `frame` = signal * n_frames + t, centred: the frame starts n_fft/2 = m
+// samples before t * hop.  K1, K5 and K6: the whole frame (first 0, points
+// m, frame blockIdx.x), or a cluster CTA's chunk of it.
 template <int LOG2_M>
 __device__ __forceinline__ PackedWaveLoad frame_load(const float* wave, const float* window,
                                                      long long n_samples, int n_frames,
-                                                     int hop, float* sbuf) {
+                                                     int hop, float* sbuf, long long frame,
+                                                     int first = 0,
+                                                     int points = 1 << LOG2_M) {
   constexpr int m = 1 << LOG2_M;
-  const long long frame = blockIdx.x;
   const long long sig = frame / n_frames;
-  const long long start = (frame - sig * n_frames) * hop - m;
-  return {wave + sig * n_samples, window, start, n_samples,
-          start >= 0 && start + 2LL * m <= n_samples, sbuf};
+  const long long start = (frame - sig * n_frames) * hop - m + 2LL * first;
+  return {wave + sig * n_samples, window + 2 * first, start, n_samples,
+          start >= 0 && start + 2LL * points <= n_samples, sbuf};
 }
 
 // K3's loader: packed point j = (x[2j], x[2j+1]) of a pre-framed row of
@@ -854,6 +914,147 @@ struct PowerStore {
   }
 };
 
+// ---------------------------------------------------------------------------
+// cluster_fft: the m = C * M point FFT (M = 2^14, C = 2 or 4: n_fft 65536,
+// 131072) of one frame over a thread-block cluster of C CTAs, each with
+// stockham_fft<14>'s 1024 threads and 128 KB exchange buffer.  One radix-C
+// pass crosses the cluster, first (decimation in frequency): with n = n1 +
+// M q and k = r + C k1 (n1, k1 < M; q, r < C),
+//   Z[r + C k1] = sum_n1 W_M^(n1 k1) W_m^(n1 r) sum_q z[n1 + M q] W_C^(q r),
+// so CTA r loads chunk r (points rM .. rM + M - 1: contiguous loads, each
+// sample read by one CTA), reads the other chunks at the same n1 over
+// distributed shared memory, keeps output r of the C-point DFT (exact:
+// W_C^(q r) is 1, -i, -1 or i), twiddles it by W_m^(n1 r) (float64 on the
+// host, rounded once to f32, after the sub-FFT's pass table) and runs its
+// M-point FFT: it holds bins r + C k1, strided by C.  Decimation in time
+// (the cross pass last) would give contiguous bins but strided loads and a
+// framing whose reflected edges span every CTA; here the loader is K1's,
+// K3's or K6's own on one chunk, and the mirror bin m - k of bin r + C k1 is
+// bin (C - r) mod C + C k1' with k1' = M - 1 - k1 (r > 0) or (M - k1) mod M
+// (r = 0): in the same CTA at C = 2, in CTA C - r for r = 1, 3 at C = 4.
+// tests/test_torch_fft_plan.py models it (cross_pass, cluster_partner).
+// ---------------------------------------------------------------------------
+
+// x * W_C^e, W_C = exp(-2 pi i / C), C = 2 or 4: a power of -i, exact.
+template <int C>
+__device__ __forceinline__ float2 rotate(float2 x, int e) {
+  switch ((e * (4 / C)) & 3) {
+    case 0: return x;
+    case 1: return times_minus_i(x);
+    case 2: return make_float2(-x.x, -x.y);
+    default: return make_float2(-x.y, x.x);
+  }
+}
+
+// The cross pass, as stockham_fft's loader: CTA r fills its registers with
+// its chunk by `chunk` (slot s of thread t: point n1 = t + T*s), puts them in
+// its exchange buffer (natural order), and after a cluster barrier replaces
+// each by sum_q (chunk q at n1) W_C^(q r), q in order, times W_m^(n1 r)
+// (cross: row r of the (C, M) table).  A second cluster barrier lets every
+// CTA finish its remote reads before any exchange overwrites a buffer.
+template <int C, typename Load>
+struct CrossLoad {
+  Load chunk;
+  const float2* cross;
+  float* sre;
+  float* sim;
+  template <int T, int P>
+  __device__ __forceinline__ void fill(float2 (&v)[kPoints], int t) const {
+    constexpr int M = T * P;
+    chunk.template fill<T, P>(v, t);
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      sre[t + T * s] = v[s].x;
+      sim[t + T * s] = v[s].y;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    const int r = static_cast<int>(cluster.block_rank());
+    cluster.sync();
+    const float* re[C];
+    const float* im[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      re[q] = cluster.map_shared_rank(sre, q);
+      im[q] = cluster.map_shared_rank(sim, q);
+    }
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const int n1 = t + T * s;
+      float2 acc = r == 0 ? v[s] : make_float2(re[0][n1], im[0][n1]);
+#pragma unroll
+      for (int q = 1; q < C; ++q) {
+        const float2 x = q == r ? v[s] : make_float2(re[q][n1], im[q][n1]);
+        acc = acc + rotate<C>(x, q * r);
+      }
+      v[s] = r == 0 ? acc : cmul(acc, __ldg(cross + r * M + n1));
+    }
+    cluster.sync();
+  }
+};
+
+// PowerStore over a cluster: |X[k]|^2 of the CTA's bins k = r + C k1 (slot
+// s of thread t: k1 = t + T*s) to dst[k1 * stride], bin m (CTA 0) to
+// *nyquist.  Z goes through the exchange buffer in natural k1 order (after a
+// barrier that lets the last exchange's reads finish); after a cluster
+// barrier each thread reads the mirror from CTA (C - r) mod C, at M - 1 - k1
+// (r > 0) or (M - k1) mod M (r = 0); a last cluster barrier keeps every
+// buffer alive until its partner has read it.  hermitian_power and W_N^k as
+// PowerStore's.
+template <int C>
+struct ClusterPowerStore {
+  float* dst;
+  int stride;
+  float* nyquist;
+  const float2* twiddle;  // W_N^k, k < m
+  float* sre;
+  float* sim;
+  template <int T, int P>
+  __device__ __forceinline__ void drain(const float2 (&v)[kPoints], int t) const {
+    constexpr int M = T * P;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int r = static_cast<int>(cluster.block_rank());
+    if (r == 0 && t == 0) {
+      const float x = v[0].x - v[0].y;
+      *nyquist = x * x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      sre[t + T * s] = v[s].x;
+      sim[t + T * s] = v[s].y;
+    }
+    cluster.sync();
+    const int partner = (C - r) & (C - 1);
+    const float* pre = cluster.map_shared_rank(sre, partner);
+    const float* pim = cluster.map_shared_rank(sim, partner);
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const int k1 = t + T * s;
+      const int a = r == 0 ? (M - k1) & (M - 1) : M - 1 - k1;
+      dst[static_cast<long long>(k1) * stride] =
+          hermitian_power(v[s], make_float2(pre[a], pim[a]), __ldg(twiddle + r + C * k1));
+    }
+    cluster.sync();
+  }
+};
+
+// SplitStore over a cluster: Z[r + C k1] to re/im (the frame's rows).
+template <int C>
+struct ClusterSplitStore {
+  float* re;
+  float* im;
+  template <int T, int P>
+  __device__ __forceinline__ void drain(const float2 (&v)[kPoints], int t) const {
+    const int r = static_cast<int>(cg::this_cluster().block_rank());
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const long long k = r + C * static_cast<long long>(t + T * s);
+      re[k] = v[s].x;
+      im[k] = v[s].y;
+    }
+  }
+};
+
 template <int LOG2_M>
 __global__ void __launch_bounds__(kStockhamThreads<LOG2_M>, 1)
 wave_stft_power_kernel(const float* __restrict__ wave,
@@ -862,11 +1063,25 @@ wave_stft_power_kernel(const float* __restrict__ wave,
                        const float2* __restrict__ unpack,   // W_N^k, k < m
                        float* __restrict__ out,
                        long long n_samples, int n_frames, int hop) {
-  extern __shared__ float exchange[];  // re: m floats, then im: m floats
+  extern __shared__ float exchange[];  // re: m floats, then im: m floats (M: a cluster's CTA)
   constexpr int m = 1 << LOG2_M;
-  const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange);
-  const PowerStore store{out + blockIdx.x * (m + 1LL), unpack, exchange, exchange + m};
-  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+  constexpr int C = kClusterCtas<LOG2_M>;
+  if constexpr (C == 1) {
+    const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange,
+                                          blockIdx.x);
+    const PowerStore store{out + blockIdx.x * (m + 1LL), unpack, exchange, exchange + m};
+    stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+  } else {
+    constexpr int M = m / C;
+    const long long frame = blockIdx.x / C;
+    const int r = static_cast<int>(blockIdx.x % C);
+    float* row = out + frame * (m + 1LL);
+    const CrossLoad<C, PackedWaveLoad> load{
+        frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange, frame, r * M, M),
+        twiddle + M, exchange, exchange + M};
+    const ClusterPowerStore<C> store{row + r, C, row + m, unpack, exchange, exchange + M};
+    stockham_fft<kCtaLog2M>(load, store, twiddle, exchange, exchange + M);
+  }
 }
 
 // Rows of Pair: float2 (f32 samples) or short2 (int16 PCM).
@@ -877,12 +1092,24 @@ frames_stft_power_kernel(const Pair* __restrict__ frames,
                          const float2* __restrict__ twiddle,  // stockham_twiddles
                          const float2* __restrict__ unpack,   // W_N^k, k < m
                          float* __restrict__ out) {
-  extern __shared__ float exchange[];  // re: m floats, then im: m floats
+  extern __shared__ float exchange[];  // re: m floats, then im: m floats (M: a cluster's CTA)
   constexpr int m = 1 << LOG2_M;
-  const long long r = blockIdx.x;
-  const PackedRowLoad<Pair> load{frames + r * m, window};
-  const PowerStore store{out + r * (m + 1LL), unpack, exchange, exchange + m};
-  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+  constexpr int C = kClusterCtas<LOG2_M>;
+  if constexpr (C == 1) {
+    const long long r = blockIdx.x;
+    const PackedRowLoad<Pair> load{frames + r * m, window};
+    const PowerStore store{out + r * (m + 1LL), unpack, exchange, exchange + m};
+    stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+  } else {
+    constexpr int M = m / C;
+    const long long row = blockIdx.x / C;
+    const int r = static_cast<int>(blockIdx.x % C);
+    float* power = out + row * (m + 1LL);
+    const CrossLoad<C, PackedRowLoad<Pair>> load{
+        {frames + row * m + r * M, window + 2 * r * M}, twiddle + M, exchange, exchange + M};
+    const ClusterPowerStore<C> store{power + r, C, power + m, unpack, exchange, exchange + M};
+    stockham_fft<kCtaLog2M>(load, store, twiddle, exchange, exchange + M);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1187,6 +1414,50 @@ __global__ void __launch_bounds__(kMelThreads, kMelMinBlocks<R>) mel_log_kernel(
   }
 }
 
+// K5's band epilogue over a cluster's power (ClusterPowerStore's, after its
+// last cluster barrier): bin k of the frame at power[k / C] of CTA k mod C
+// (bin m: CTA 0, power[M]).  The frame's C * 32 warps take the segments i =
+// 32 r + warp, + 32 C, ..., each summed in K2's order (segment_sums at
+// mel_passes, mel_fma) into CTA 0's seg_sums; after a cluster barrier CTA 0
+// adds each band's segments (band_sum) and writes the row.  The bins and
+// their order are K1's then K2's: equal to them bit for bit.
+template <int C>
+__device__ __forceinline__ void cluster_mel_log(int mel_passes, float* power,
+                                                const int4* __restrict__ seg,
+                                                const int* __restrict__ band_first,
+                                                const float* __restrict__ weights,
+                                                float* seg_sums, float* __restrict__ row,
+                                                int n_mels, int n_seg, int m) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  float* sums = cluster.map_shared_rank(seg_sums, 0);
+  for (int i = r * n_warps + (threadIdx.x >> 5); i < n_seg; i += C * n_warps) {
+    const int4 s = __ldg(seg + i);
+    float w[kSegSteps];
+    segment_weights(weights, s, lane, w);
+    // The lane's bins (past a short segment's end, bin m: left out of the sum).
+    float x[1][kSegSteps];
+#pragma unroll
+    for (int j = 0; j < kSegSteps; ++j) {
+      const int k = min(s.x + lane + 32 * j, m);
+      x[0][j] = *cluster.map_shared_rank(power + k / C, k & (C - 1));
+    }
+    float sum[1];
+    switch (mel_passes) {
+      case 1: segment_sums<1, 1>(x, w, s.y, lane, sum); break;
+      case 3: segment_sums<1, 3>(x, w, s.y, lane, sum); break;
+      default: segment_sums<1, 0>(x, w, s.y, lane, sum);
+    }
+    if (lane == 0) sums[i] = sum[0];
+  }
+  cluster.sync();
+  if (r == 0)
+    for (int b = threadIdx.x; b < n_mels; b += blockDim.x)
+      row[b] = band_db(band_sum(seg_sums, __ldg(band_first + b), __ldg(band_first + b + 1)));
+}
+
 template <int LOG2_M>
 __global__ void __launch_bounds__(kStockhamThreads<LOG2_M>, 1)
 wave_stft_mel_log_kernel(const float* __restrict__ wave,
@@ -1204,15 +1475,36 @@ wave_stft_mel_log_kernel(const float* __restrict__ wave,
   // reach past the power row.
   extern __shared__ float exchange[];
   constexpr int m = 1 << LOG2_M;
-  float* power = exchange + 2 * m;
-  const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange);
-  const PowerStore store{power, unpack, exchange, exchange + m};
-  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
-  __syncthreads();
-  float* row = out + blockIdx.x * static_cast<long long>(n_mels);
-  constexpr bool kWarps = kStockhamThreads<LOG2_M> >= 32;
-  mel_log_row_mode<kWarps>(mel_passes, power, seg, band_first, weights, power + m + 1, row,
-                           n_mels, n_seg);
+  constexpr int C = kClusterCtas<LOG2_M>;
+  if constexpr (C == 1) {
+    float* power = exchange + 2 * m;
+    const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange,
+                                          blockIdx.x);
+    const PowerStore store{power, unpack, exchange, exchange + m};
+    stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+    __syncthreads();
+    float* row = out + blockIdx.x * static_cast<long long>(n_mels);
+    constexpr bool kWarps = kStockhamThreads<LOG2_M> >= 32;
+    mel_log_row_mode<kWarps>(mel_passes, power, seg, band_first, weights, power + m + 1, row,
+                             n_mels, n_seg);
+  } else {
+    // A cluster: CTA r keeps the power of its bins r + C k1 at power[k1]
+    // (CTA 0 bin m at power[M]), then the frame's warps sum K2's segments
+    // as K5t's do, each bin read from the CTA that holds it (bin k: CTA k
+    // mod C, k / C), the sums into CTA 0's seg_sums; CTA 0 adds the bands.
+    constexpr int M = m / C;
+    const long long frame = blockIdx.x / C;
+    const int r = static_cast<int>(blockIdx.x % C);
+    float* power = exchange + 2 * M;  // M + 1 floats
+    float* seg_sums = power + M + 1;  // n_seg floats (CTA 0's)
+    const CrossLoad<C, PackedWaveLoad> load{
+        frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange, frame, r * M, M),
+        twiddle + M, exchange, exchange + M};
+    const ClusterPowerStore<C> store{power, 1, power + M, unpack, exchange, exchange + M};
+    stockham_fft<kCtaLog2M>(load, store, twiddle, exchange, exchange + M);
+    cluster_mel_log<C>(mel_passes, power, seg, band_first, weights, seg_sums,
+                       out + frame * n_mels, n_mels, n_seg, m);
+  }
 }
 
 template <int LOG2_M>
@@ -1223,32 +1515,87 @@ wave_packed_fft_kernel(const float* __restrict__ wave,
                        float* __restrict__ out_re,
                        float* __restrict__ out_im,
                        long long n_samples, int n_frames, int hop) {
-  extern __shared__ float exchange[];  // re: m floats, then im: m floats
+  extern __shared__ float exchange[];  // re: m floats, then im: m floats (M: a cluster's CTA)
   constexpr int m = 1 << LOG2_M;
-  const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange);
-  const long long frame = blockIdx.x;
-  const SplitStore store{out_re + frame * m, out_im + frame * m};
-  stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+  constexpr int C = kClusterCtas<LOG2_M>;
+  if constexpr (C == 1) {
+    const auto load = frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange,
+                                          blockIdx.x);
+    const long long frame = blockIdx.x;
+    const SplitStore store{out_re + frame * m, out_im + frame * m};
+    stockham_fft<LOG2_M>(load, store, twiddle, exchange, exchange + m);
+  } else {
+    constexpr int M = m / C;
+    const long long frame = blockIdx.x / C;
+    const int r = static_cast<int>(blockIdx.x % C);
+    const CrossLoad<C, PackedWaveLoad> load{
+        frame_load<LOG2_M>(wave, window, n_samples, n_frames, hop, exchange, frame, r * M, M),
+        twiddle + M, exchange, exchange + M};
+    const ClusterSplitStore<C> store{out_re + frame * m, out_im + frame * m};
+    stockham_fft<kCtaLog2M>(load, store, twiddle, exchange, exchange + M);
+  }
 }
 
 // A kernel over stockham_fft at m = 2^LOG2_M: kStockhamThreads threads a
-// block; in dynamic shared memory the 2m floats of the exchange buffer, then
-// extra_smem bytes of the kernel's own.
+// block; in dynamic shared memory the 2m floats of the exchange buffer (2M,
+// M = m / C, in each CTA of a cluster), then extra_smem bytes of the
+// kernel's own.  Above 2^14 points each of the `blocks` frames (rows) is a
+// cluster of kClusterCtas CTAs, launched by cudaLaunchKernelEx with its
+// cluster dimension; cudaErrorInvalidConfiguration when no such cluster fits
+// on the card (cudaOccupancyMaxActiveClusters, read once a kernel, device and
+// size: kept per device as smem << 32 | clusters in an atomic, so that
+// threads launching at once on any card each read a whole entry; devices
+// past the cache's 16 ask every launch).
 template <int LOG2_M, typename... Params, typename... Args>
 int launch_stockham(void (*kernel)(Params...), long long blocks, int extra_smem,
                     cudaStream_t stream, const Args&... args) {
   constexpr int threads = kStockhamThreads<LOG2_M>;
-  const int smem = static_cast<int>(sizeof(float2) << LOG2_M) + extra_smem;
+  constexpr int C = kClusterCtas<LOG2_M>;
+  constexpr int kLog2Cta = LOG2_M < kCtaLog2M ? LOG2_M : kCtaLog2M;  // the CTA's points
+  const int smem = static_cast<int>(sizeof(float2) << kLog2Cta) + extra_smem;
+  if (smem > 232448 || blocks * C > 2147483647LL) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
+  if constexpr (C == 1) {
+    kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
+  } else {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(static_cast<unsigned>(blocks * C));
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = static_cast<size_t>(smem);
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    static std::atomic<long long> fits_at[16];  // per device: smem << 32 | clusters
+    int device = 0, fits = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    const long long cached = device < 16 ? fits_at[device].load(std::memory_order_relaxed) : 0;
+    if (cached >> 32 == smem) {
+      fits = static_cast<int>(cached & 0xffffffffLL);
+    } else {
+      err = cudaOccupancyMaxActiveClusters(&fits, kernel, &config);
+      if (err != cudaSuccess) return err;
+      if (device < 16)
+        fits_at[device].store(static_cast<long long>(smem) << 32 | fits,
+                              std::memory_order_relaxed);
+    }
+    if (fits == 0) return cudaErrorInvalidConfiguration;
+    err = cudaLaunchKernelEx(&config, kernel, args...);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
-// launch(std::integral_constant<int, log2_m>{}) for log2 m 1..14 (n_fft
-// 4..32768), which instantiates `launch` once for each; cudaErrorInvalidValue
-// for any other log2 m.
+// launch(std::integral_constant<int, log2_m>{}) for log2 m 1..16 (n_fft
+// 4..131072; above 14 a cluster of 2 or 4 CTAs a frame), which instantiates
+// `launch` once for each; cudaErrorInvalidValue for any other log2 m.
 template <typename Launch, int... L>
 int with_log2_m(int log2_m, const Launch& launch, std::integer_sequence<int, L...>) {
   int err = cudaErrorInvalidValue;
@@ -1259,7 +1606,7 @@ int with_log2_m(int log2_m, const Launch& launch, std::integer_sequence<int, L..
 
 template <typename Launch>
 int with_log2_m(int log2_m, const Launch& launch) {
-  return with_log2_m(log2_m, launch, std::make_integer_sequence<int, 14>{});
+  return with_log2_m(log2_m, launch, std::make_integer_sequence<int, 16>{});
 }
 
 // K2 over R rows at a time: the ring (R rows of kMelSlots<R> chunks), two
@@ -1286,9 +1633,10 @@ int launch_mel_log(const MelArgs& args, int n_sm, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // K1t, K3t, K5t, K6t: the bf16 tensor-core DFT of the reduced-precision
-// tiers, tier_dft<N1, P1, P2, kPacked>.  sed_tpu's two-stage matmul DFT (n =
-// n1 * n2, stft.py _matmul_fft_constants) with every product split into bf16
-// chunks as its _make_dot does, on the tensor cores by mma.sync.m16n8k16.
+// tiers.  sed_tpu's two-stage matmul DFT (n = n1 * n2, stft.py
+// _matmul_fft_constants) with every product split into bf16 chunks as its
+// _make_dot does: K1t, K3t and K5t by tier_dft<N1, P1, P2> on mma.sync.
+// m16n8k16, K6t by tier_packed_fft_kernel<N1, P1, P2> on wgmma.
 // ---------------------------------------------------------------------------
 
 // bf16 chunks an operand is split into at P passes (1: bf16x1; 3, 4:
@@ -1427,11 +1775,12 @@ struct TierFrame {
   // waiting for the window (windowed() applies it as K1 and K3 do).
   __device__ __forceinline__ float2 raw(int s) const {
     if (kind == 0) {
-      if (interior) return make_float2(y[start + s], y[start + s + 1]);
-      return make_float2(y[reflect_index(start + s, n)], y[reflect_index(start + s + 1, n)]);
+      if (interior) return make_float2(__ldg(y + start + s), __ldg(y + start + s + 1));
+      return make_float2(__ldg(y + reflect_index(start + s, n)),
+                         __ldg(y + reflect_index(start + s + 1, n)));
     }
-    if (kind == 1) return reinterpret_cast<const float2*>(y)[s >> 1];
-    const short2 q = reinterpret_cast<const short2*>(y16)[s >> 1];
+    if (kind == 1) return __ldg(reinterpret_cast<const float2*>(y) + (s >> 1));
+    const short2 q = __ldg(reinterpret_cast<const short2*>(y16) + (s >> 1));
     return make_float2(static_cast<float>(q.x), static_cast<float>(q.y));
   }
 };
@@ -1447,25 +1796,29 @@ constexpr int kTierRows = 64;      // k2 rows of a block (BM)
 constexpr int kTierK = 32;         // k of a staged tile, both stages
 constexpr int kTierPad = 8;        // bf16 of padding a row of shared memory
 // A warp's stage-2 tiles: m tiles of 16 k2 rows, n tiles of 8 columns (four
-// (Zr, Zi) pairs): the one-sided k1 < n1/2 of a real frame, or all n1 of a
-// packed one (kPacked, K6t).
+// (Zr, Zi) pairs): the one-sided k1 < n1/2.
 constexpr int kTierTM2 = kTierRows / 32;
-template <int N1, bool kPacked>
-constexpr int kTierTN2 = kPacked ? N1 / 16 : N1 / 32;
+template <int N1>
+constexpr int kTierTN2 = N1 / 32;
 
 // Stage 2's B columns: (Zr, Zi) of k1 < n1/2 + 4 (the last four hold bin
-// n/2 at k2 = 0) of a real frame; of all n1 k1 of a packed one.
-__host__ __device__ constexpr int tier_cols2(int n1, bool packed) {
-  return packed ? 2 * n1 : n1 + 8;
-}
+// n/2 at k2 = 0).
+__host__ __device__ constexpr int tier_cols2(int n1) { return n1 + 8; }
 
 // Shared memory of tier_dft, in bytes: the stage-2 A operand T (C2 chunks
-// of kTierRows x (2 n1 + pad)), then one region that holds stage 1's staged
-// tiles (two buffers of C1 chunks of A: 2 kTierRows x (kTierK + pad); one of
-// X: C1 chunks of kTierK x (n1 + pad)) and later stage 2's (two buffers of
-// C2 chunks of tier_cols2 x (kTierK + pad)).
-__host__ __device__ constexpr int tier_smem_t(int n1, int p2) {
-  return tier_chunks(p2) * kTierRows * (2 * n1 + kTierPad) * 2;
+// of kTierRows x (2 n1 + pad), or one when staged), then one region that
+// holds stage 1's staged tiles (two buffers of C1 chunks of A: 2 kTierRows
+// x (kTierK + pad); one of X: C1 chunks of kTierK x (n1 + pad)) and later
+// stage 2's (two buffers of C2 chunks of tier_cols2 x (kTierK + pad)).
+// At n1 = 256 (n_fft 65536, 131072) T is 66,560 B a chunk, and with a stage
+// of 6 passes (bf16x6, or None in an (inner, outer) pair) the whole layout
+// takes 245-326 KB.  Those instances stage T per chunk (tier_staged): one
+// chunk in shared memory at a time, stage 2 run once a chunk ca over the
+// terms (ca, cb), its f32 T kept in the stage-1 registers meanwhile; 178.7-
+// 193.3 KB at every (C1, C2).  An instance is staged when the whole layout
+// and 8 KB of K5t's segment sums would not fit 227 KB; none below n1 256 is.
+__host__ __device__ constexpr int tier_smem_t(int n1, int p2, bool staged = false) {
+  return (staged ? 1 : tier_chunks(p2)) * kTierRows * (2 * n1 + kTierPad) * 2;
 }
 __host__ __device__ constexpr int tier_smem_a1(int p1) {
   return 2 * tier_chunks(p1) * 2 * kTierRows * (kTierK + kTierPad) * 2;
@@ -1473,75 +1826,75 @@ __host__ __device__ constexpr int tier_smem_a1(int p1) {
 __host__ __device__ constexpr int tier_smem_stage1(int n1, int p1) {
   return tier_smem_a1(p1) + tier_chunks(p1) * kTierK * (n1 + kTierPad) * 2;
 }
-__host__ __device__ constexpr int tier_smem_stage2(int n1, int p2, bool packed) {
-  return 2 * tier_chunks(p2) * tier_cols2(n1, packed) * (kTierK + kTierPad) * 2;
+__host__ __device__ constexpr int tier_smem_stage2(int n1, int p2) {
+  return 2 * tier_chunks(p2) * tier_cols2(n1) * (kTierK + kTierPad) * 2;
 }
-__host__ __device__ constexpr int tier_smem_bytes(int n1, int p1, int p2, bool packed) {
-  return tier_smem_t(n1, p2) + (tier_smem_stage1(n1, p1) > tier_smem_stage2(n1, p2, packed)
-                                    ? tier_smem_stage1(n1, p1)
-                                    : tier_smem_stage2(n1, p2, packed));
+__host__ __device__ constexpr int tier_smem_stages(int n1, int p1, int p2) {
+  return tier_smem_stage1(n1, p1) > tier_smem_stage2(n1, p2) ? tier_smem_stage1(n1, p1)
+                                                               : tier_smem_stage2(n1, p2);
+}
+__host__ __device__ constexpr bool tier_staged(int n1, int p1, int p2) {
+  return tier_smem_t(n1, p2) + tier_smem_stages(n1, p1, p2) + 8192 > 232448;
+}
+__host__ __device__ constexpr int tier_smem_bytes(int n1, int p1, int p2) {
+  return tier_smem_t(n1, p2, tier_staged(n1, p1, p2)) + tier_smem_stages(n1, p1, p2);
 }
 
 // sed_tpu's two-stage matmul DFT of one block's share of a frame, up to
 // stage 2's sums in registers.  The block: frame `row` = blockIdx.x /
 // n_blk, k2 rows k0 .. k0 + 63 (k0 = 64 (blockIdx.x % n_blk)), n2 = 64
-// n_blk, of an n = n1 n2 point DFT: of a real frame of n samples, X[a][b] =
-// x[a n1 + b] (K1t, K3t, K5t), or, kPacked (K6t), of the n complex points
-// z[j] = x[2j] + i x[2j + 1] of a 2n-sample frame, X[a][b] = z[a n1 + b].
-//   tab1: C1 chunks of (2 n2, k_extent), row 16t + 8h + i the coefficients
-//     of Y (h = 0 real, 1 imaginary part) at k2 = 8t + i.  A real frame:
-//     k_extent = n2 columns over a (W2r, W2i).  kPacked: 2 n2, K tile t the
-//     coefficients of Re z at a = 16t .. 16t + 15, then of Im z at the same
-//     a ([W2r | -W2i] for Yr, [W2i | W2r] for Yi), so that stage 1 is the
-//     complex product as one real product twice as deep.
+// n_blk, of an n = n1 n2 point DFT of a real frame of n samples, X[a][b] =
+// x[a n1 + b] (K1t, K3t, K5t).
+//   tab1: C1 chunks of (2 n2, n2), row 16t + 8h + i the coefficients of Y
+//     (h = 0 real, 1 imaginary part) at k2 = 8t + i, over a (W2r, W2i).
 //   tab2: C2 chunks of (tier_cols2, 2 n1), column 2j + h (h = 0: Zr, 1: Zi)
 //     over k = the n1 entries that multiply Tr, then the n1 that multiply
 //     Ti: (W1r, -W1i) and (W1i, W1r) at k1 = j.
 //   twiddle: (n2, n1) f32 W_n^(k2 b).
 // acc2[i][j] is mma's C fragment (TierTile says which k2, k1 it holds): Zr
 // at c0 and c2, Zi at c1 and c3.  accn: the same of k1 = n1/2 .. n1/2 + 3 in
-// warp 0 of a real frame's first block, whose k2 = 0 row is bin n/2.
-template <int N1, int P1, int P2, bool kPacked>
+// warp 0 of the frame's first block, whose k2 = 0 row is bin n/2.
+template <int N1, int P1, int P2>
 __device__ __forceinline__ void tier_dft(const TierSource& src,
                                          const __nv_bfloat16* __restrict__ tab1,
                                          const __nv_bfloat16* __restrict__ tab2,
                                          const float2* __restrict__ twiddle, int n_blk,
                                          unsigned char* smem,
-                                         float (&acc2)[kTierTM2][kTierTN2<N1, kPacked>][4],
+                                         float (&acc2)[kTierTM2][kTierTN2<N1>][4],
                                          float (&accn)[4]) {
   constexpr int C1 = tier_chunks(P1), C2 = tier_chunks(P2);
+  constexpr bool kStaged = tier_staged(N1, P1, P2);
+  constexpr int CT = kStaged ? 1 : C2;         // T's chunks in shared memory
   constexpr int BM = kTierRows, KT = kTierK;
   constexpr int TM1 = BM / 16, TN1 = N1 / 32;  // a warp's m and n tiles, stage 1
-  constexpr int TM2 = kTierTM2, TN2 = kTierTN2<N1, kPacked>;  // stage 2
+  constexpr int TM2 = kTierTM2, TN2 = kTierTN2<N1>;  // stage 2
   constexpr int ST = 2 * N1 + kTierPad;        // row stride of T
   constexpr int SA1 = KT + kTierPad;           // of stage 1's A tile
   constexpr int SX = N1 + kTierPad;            // of stage 1's X tile
   constexpr int SB2 = KT + kTierPad;           // of stage 2's B tile
-  constexpr int NC2 = tier_cols2(N1, kPacked);  // stage 2's columns
+  constexpr int NC2 = tier_cols2(N1);           // stage 2's columns
   auto* ts = reinterpret_cast<__nv_bfloat16*>(smem);
   constexpr int A1 = C1 * 2 * BM * SA1;       // elements of one A buffer
   constexpr int B2 = C2 * NC2 * SB2;           // of one stage-2 B buffer
   constexpr int XP = KT * N1 / 2 / kTierThreads;  // sample pairs a thread loads a tile
-  auto* a1s = ts + C2 * BM * ST;               // two buffers
+  auto* a1s = ts + CT * BM * ST;               // two buffers
   auto* x1s = a1s + 2 * A1;
   auto* b2s = a1s;  // two buffers; stage 2 reuses stage 1's region
 
   const int n2 = BM * n_blk;
-  const int k_extent = kPacked ? 2 * n2 : n2;  // stage 1's k
   const long long row = blockIdx.x / n_blk;
   const int blk = blockIdx.x - static_cast<int>(row * n_blk);
   const int k0 = BM * blk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, tig = lane & 3;
-  const TierFrame frame(src, row, (kPacked ? 2 : 1) * N1 * n2);
+  const TierFrame frame(src, row, N1 * n2);
 
   // Stage 1: [Yr; Yi] (rows interleaved by 8) = W2[k2 rows] @ X over k in
   // tiles of KT, pipelined: while tile t is multiplied, the W2 rows of tile
   // t + 1 come by cp.async into the other A buffer and its samples into
   // registers.  A tile's samples are those of X's rows a = kk0 .. kk0 + KT -
-  // 1 (real frame) or, kPacked, of z's rows a = kk0/2 .. kk0/2 + 15, whose
-  // real parts fill the tile's first 16 rows and imaginary parts its last.
+  // 1.
   const auto copy_a1 = [&](int kk0, __nv_bfloat16* dst) {
     // 2 BM rows x KT bf16 a chunk, 16 bytes a copy.
     for (int i = tid; i < C1 * 2 * BM * (KT / 8); i += kTierThreads) {
@@ -1549,62 +1902,41 @@ __device__ __forceinline__ void tier_dft(const TierSource& src,
       const int r = (i / (KT / 8)) % (2 * BM);
       const int q = i % (KT / 8);
       cp_async_16(dst + (c * 2 * BM + r) * SA1 + q * 8,
-                  tab1 + (static_cast<long long>(c) * 2 * n2 + 2 * k0 + r) * k_extent + kk0 +
-                      q * 8);
+                  tab1 + (static_cast<long long>(c) * 2 * n2 + 2 * k0 + r) * n2 + kk0 + q * 8);
     }
   };
   float2 xv[XP], xw[XP];
-  // Both kinds read samples kk0 n1 .. (kk0 + KT) n1 of the frame: a real
-  // frame's as pairs (thread t: 2t, 2t + 1, then 512 further on), a packed
-  // one's as two pairs of neighbouring points (4t .. 4t + 3, then 1024 on).
+  // Samples kk0 n1 .. (kk0 + KT) n1 of the frame as pairs (thread t: 2t, 2t
+  // + 1, then 512 further on).
   const auto load_x = [&](int kk0) {
 #pragma unroll
     for (int j = 0; j < XP; ++j) {
-      const int s = kPacked ? kk0 * N1 + 4 * (tid + (j >> 1) * kTierThreads) + 2 * (j & 1)
-                            : kk0 * N1 + 2 * (tid + j * kTierThreads);
+      const int s = kk0 * N1 + 2 * (tid + j * kTierThreads);
       xv[j] = frame.raw(s);
       xw[j] = __ldg(reinterpret_cast<const float2*>(frame.window) + (s >> 1));
     }
   };
   const auto store_x = [&]() {  // windowed, split, into X's tile as [a][b]
-    if constexpr (kPacked) {
 #pragma unroll
-      for (int j = 0; j < XP / 2; ++j) {
-        const int p = 2 * (tid + j * kTierThreads);  // the tile's points p, p + 1
-        const float2 z0 = windowed(xv[2 * j], xw[2 * j]);
-        const float2 z1 = windowed(xv[2 * j + 1], xw[2 * j + 1]);
-        unsigned cr[C1], ci[C1];
-        split_bf16x2<C1>(z0.x, z1.x, cr);
-        split_bf16x2<C1>(z0.y, z1.y, ci);
-        const int a = p / N1, b = p % N1;
+    for (int j = 0; j < XP; ++j) {
+      const int s = 2 * (tid + j * kTierThreads);
+      const float2 v = windowed(xv[j], xw[j]);
+      unsigned c[C1];
+      split_bf16x2<C1>(v.x, v.y, c);
+      const int a = s / N1, b = s % N1;
 #pragma unroll
-        for (int c = 0; c < C1; ++c) {
-          *reinterpret_cast<unsigned*>(x1s + (c * KT + a) * SX + b) = cr[c];
-          *reinterpret_cast<unsigned*>(x1s + (c * KT + KT / 2 + a) * SX + b) = ci[c];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < XP; ++j) {
-        const int s = 2 * (tid + j * kTierThreads);
-        const float2 v = windowed(xv[j], xw[j]);
-        unsigned c[C1];
-        split_bf16x2<C1>(v.x, v.y, c);
-        const int a = s / N1, b = s % N1;
-#pragma unroll
-        for (int ci = 0; ci < C1; ++ci)
-          *reinterpret_cast<unsigned*>(x1s + (ci * KT + a) * SX + b) = c[ci];
-      }
+      for (int ci = 0; ci < C1; ++ci)
+        *reinterpret_cast<unsigned*>(x1s + (ci * KT + a) * SX + b) = c[ci];
     }
   };
   float acc1[TM1][TN1][4] = {};
   load_x(0);
   copy_a1(0, a1s);
-  for (int kk0 = 0, buf = 0; kk0 < k_extent; kk0 += KT, buf ^= 1) {
+  for (int kk0 = 0, buf = 0; kk0 < n2; kk0 += KT, buf ^= 1) {
     store_x();
     cp_async_wait_all();
     __syncthreads();
-    if (kk0 + KT < k_extent) {
+    if (kk0 + KT < n2) {
       copy_a1(kk0 + KT, a1s + (buf ^ 1) * A1);
       load_x(kk0 + KT);
     }
@@ -1636,7 +1968,7 @@ __device__ __forceinline__ void tier_dft(const TierSource& src,
     __syncthreads();
   }
 
-  // Stage 2's first B tile flies while the twiddle epilogue runs.
+  // Stage 2's B tiles, by cp.async into two buffers.
   const auto copy_b2 = [&](int kk0, __nv_bfloat16* dst) {
     for (int i = tid; i < C2 * NC2 * (KT / 8); i += kTierThreads) {
       const int c = i / (NC2 * (KT / 8));
@@ -1646,39 +1978,7 @@ __device__ __forceinline__ void tier_dft(const TierSource& src,
                   tab2 + (static_cast<long long>(c) * NC2 + col) * 2 * N1 + kk0 + q * 8);
     }
   };
-  copy_b2(0, b2s);
-
-  // Twiddle, in f32 as sed_tpu's (tr = yr twr - yi twi, ti = yr twi + yi
-  // twr, no fused multiply-add), split, into T: Tr at k = b, Ti at n1 + b.
-#pragma unroll
-  for (int i = 0; i < TM1; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN1; ++j) {
-      const int k2l = (wm * TM1 + i) * 8 + g;
-      const int b = (wn * TN1 + j) * 8 + 2 * tig;
-      const float4 tw =
-          *reinterpret_cast<const float4*>(twiddle + static_cast<long long>(k0 + k2l) * N1 + b);
-      const float* y = acc1[i][j];  // yr(b), yr(b + 1), yi(b), yi(b + 1)
-      const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
-      const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
-      const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
-      const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
-      unsigned cr[C2], cim[C2];
-      split_bf16x2<C2>(tr0, tr1, cr);
-      split_bf16x2<C2>(ti0, ti1, cim);
-#pragma unroll
-      for (int c = 0; c < C2; ++c) {
-        *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + b) = cr[c];
-        *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + N1 + b) = cim[c];
-      }
-    }
-  }
-
-  // Stage 2: [Zr Zi] (columns interleaved) = [Tr Ti] @ [[W1r W1i]; [-W1i
-  // W1r]] over the stage's columns; warp 0 of a real frame's first block
-  // also takes the tile of k1 = n1 / 2 .. n1 / 2 + 3, whose row k2 = 0 is
-  // bin n / 2.
-  const bool nyquist = !kPacked && blk == 0 && warp == 0;
+  const bool nyquist = blk == 0 && warp == 0;
 #pragma unroll
   for (int i = 0; i < TM2; ++i)
 #pragma unroll
@@ -1687,39 +1987,110 @@ __device__ __forceinline__ void tier_dft(const TierSource& src,
       for (int c = 0; c < 4; ++c) acc2[i][j][c] = 0.f;
 #pragma unroll
   for (int c = 0; c < 4; ++c) accn[c] = 0.f;
-  for (int kk0 = 0, buf = 0; kk0 < 2 * N1; kk0 += KT, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // tile kk0 has landed (and, the first time, T is written)
-    if (kk0 + KT < 2 * N1) copy_b2(kk0 + KT, b2s + (buf ^ 1) * B2);
-    const __nv_bfloat16* b2 = b2s + buf * B2;
+
+  // Twiddle, in f32 as sed_tpu's (tr = yr twr - yi twi, ti = yr twi + yi
+  // twr, no fused multiply-add), in place: acc1[i][j] becomes tr(b), tr(b +
+  // 1), ti(b), ti(b + 1).
 #pragma unroll
-    for (int ks = 0; ks < KT; ks += 16) {
-      unsigned bf[C2][TN2][2];
-      unsigned bn[C2][2];
+  for (int i = 0; i < TM1; ++i) {
 #pragma unroll
-      for (int cb = 0; cb < C2; ++cb) {
+    for (int j = 0; j < TN1; ++j) {
+      const int k2l = (wm * TM1 + i) * 8 + g;
+      const int b = (wn * TN1 + j) * 8 + 2 * tig;
+      const float4 tw =
+          *reinterpret_cast<const float4*>(twiddle + static_cast<long long>(k0 + k2l) * N1 + b);
+      float* y = acc1[i][j];  // yr(b), yr(b + 1), yi(b), yi(b + 1)
+      const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
+      const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
+      const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
+      const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
+      y[0] = tr0;
+      y[1] = tr1;
+      y[2] = ti0;
+      y[3] = ti1;
+    }
+  }
+
+  // T's chunks c0 .. c0 + CT - 1, split, into its CT chunks of shared
+  // memory: Tr at k = b, Ti at n1 + b.
+  const auto store_t = [&](int c0) {
 #pragma unroll
-        for (int j = 0; j < TN2; ++j)
-          load_b_nk(bf[cb][j], b2 + (cb * NC2 + (wn * TN2 + j) * 8) * SB2 + ks, SB2, lane);
-        if (nyquist) load_b_nk(bn[cb], b2 + (cb * NC2 + N1) * SB2 + ks, SB2, lane);
-      }
+    for (int i = 0; i < TM1; ++i) {
 #pragma unroll
-      for (int ca = 0; ca < C2; ++ca) {
-        unsigned af[TM2][4];
+      for (int j = 0; j < TN1; ++j) {
+        const int k2l = (wm * TM1 + i) * 8 + g;
+        const int b = (wn * TN1 + j) * 8 + 2 * tig;
+        const float* t = acc1[i][j];
+        unsigned cr[C2], cim[C2];
+        split_bf16x2<C2>(t[0], t[1], cr);
+        split_bf16x2<C2>(t[2], t[3], cim);
 #pragma unroll
-        for (int i = 0; i < TM2; ++i)
-          load_a(af[i], ts + (ca * BM + (wm * TM2 + i) * 16) * ST + kk0 + ks, ST, lane);
-#pragma unroll
-        for (int cb = 0; cb < C2; ++cb) {
-          if (!tier_term(P2, ca, cb)) continue;
-#pragma unroll
-          for (int i = 0; i < TM2; ++i)
-#pragma unroll
-            for (int j = 0; j < TN2; ++j) mma_bf16(acc2[i][j], af[i], bf[cb][j]);
-          if (nyquist) mma_bf16(accn, af[0], bn[cb]);
+        for (int c = 0; c < CT; ++c) {
+          *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + b) = cr[c0 + c];
+          *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + N1 + b) = cim[c0 + c];
         }
       }
     }
+  };
+
+  // Stage 2: [Zr Zi] (columns interleaved) = [Tr Ti] @ [[W1r W1i]; [-W1i
+  // W1r]] over the stage's columns; warp 0 of a real frame's first block
+  // also takes the tile of k1 = n1 / 2 .. n1 / 2 + 3, whose row k2 = 0 is
+  // bin n / 2.  Its terms (ca, cb) with ca in [ca0, ca0 + CT), T's chunk ca
+  // at ca - ca0; its first B tile flies while T is stored.
+  const auto stage2 = [&](int ca0) {
+    copy_b2(0, b2s);
+    store_t(ca0);
+    for (int kk0 = 0, buf = 0; kk0 < 2 * N1; kk0 += KT, buf ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();  // tile kk0 has landed (and, the first time, T is written)
+      if (kk0 + KT < 2 * N1) copy_b2(kk0 + KT, b2s + (buf ^ 1) * B2);
+      const __nv_bfloat16* b2 = b2s + buf * B2;
+#pragma unroll
+      for (int ks = 0; ks < KT; ks += 16) {
+        // The B fragments of every chunk, loaded once a step; staged, those
+        // of one term at a time (T's f32 values hold the registers).
+        unsigned bf[kStaged ? 1 : C2][TN2][2];
+        unsigned bn[kStaged ? 1 : C2][2];
+        const auto load_b = [&](int cb, int slot) {
+#pragma unroll
+          for (int j = 0; j < TN2; ++j)
+            load_b_nk(bf[slot][j], b2 + (cb * NC2 + (wn * TN2 + j) * 8) * SB2 + ks, SB2, lane);
+          if (nyquist) load_b_nk(bn[slot], b2 + (cb * NC2 + N1) * SB2 + ks, SB2, lane);
+        };
+        if constexpr (!kStaged) {
+#pragma unroll
+          for (int cb = 0; cb < C2; ++cb) load_b(cb, cb);
+        }
+#pragma unroll
+        for (int ca = 0; ca < CT; ++ca) {
+          unsigned af[TM2][4];
+#pragma unroll
+          for (int i = 0; i < TM2; ++i)
+            load_a(af[i], ts + (ca * BM + (wm * TM2 + i) * 16) * ST + kk0 + ks, ST, lane);
+#pragma unroll
+          for (int cb = 0; cb < C2; ++cb) {
+            if (!tier_term(P2, ca0 + ca, cb)) continue;
+            const int slot = kStaged ? 0 : cb;
+            if constexpr (kStaged) load_b(cb, 0);
+#pragma unroll
+            for (int i = 0; i < TM2; ++i)
+#pragma unroll
+              for (int j = 0; j < TN2; ++j) mma_bf16(acc2[i][j], af[i], bf[slot][j]);
+            if (nyquist) mma_bf16(accn, af[0], bn[slot]);
+          }
+        }
+      }
+    }
+  };
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int ca = 0; ca < C2; ++ca) {
+      if (ca > 0) __syncthreads();  // every warp is done with chunk ca - 1 and the B tiles
+      stage2(ca);
+    }
+  } else {
+    stage2(0);
   }
 }
 
@@ -1727,7 +2098,7 @@ __device__ __forceinline__ void tier_dft(const TierSource& src,
 // `row`, its share `blk` (k2 rows k0 .. k0 + 63) and n2; fragment acc2[i][j]
 // holds k2 = k2(i) (c0, c1; c2, c3 at k2(i) + 8) and k1 = k1(j), bin n2 k1 +
 // k2.
-template <int N1, bool kPacked>
+template <int N1>
 struct TierTile {
   long long row;
   int blk, n2, k0, lane, warp;
@@ -1744,7 +2115,7 @@ struct TierTile {
     return k0 + ((warp >> 2) * kTierTM2 + i) * 16 + (lane >> 2);
   }
   __device__ __forceinline__ int k1(int j) const {
-    return ((warp & 3) * kTierTN2<N1, kPacked> + j) * 4 + (lane & 3);
+    return ((warp & 3) * kTierTN2<N1> + j) * 4 + (lane & 3);
   }
 };
 
@@ -1761,14 +2132,14 @@ tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
                 const __nv_bfloat16* __restrict__ tab2, const float2* __restrict__ twiddle,
                 float* __restrict__ out, int n_blk) {
   extern __shared__ __align__(16) unsigned char tier_smem[];
-  float acc2[kTierTM2][kTierTN2<N1, false>][4], accn[4];
-  tier_dft<N1, P1, P2, false>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
-  const TierTile<N1, false> t(n_blk);
+  float acc2[kTierTM2][kTierTN2<N1>][4], accn[4];
+  tier_dft<N1, P1, P2>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
+  const TierTile<N1> t(n_blk);
   float* o = out + t.row * (N1 * t.n2 / 2 + 1LL);
 #pragma unroll
   for (int i = 0; i < kTierTM2; ++i) {
 #pragma unroll
-    for (int j = 0; j < kTierTN2<N1, false>; ++j) {
+    for (int j = 0; j < kTierTN2<N1>; ++j) {
       const float* z = acc2[i][j];
       o[t.n2 * t.k1(j) + t.k2(i)] = tier_power(z[0], z[1]);
       o[t.n2 * t.k1(j) + t.k2(i) + 8] = tier_power(z[2], z[3]);
@@ -1798,16 +2169,16 @@ tier_dft_mel_log_kernel(const TierSource src, const __nv_bfloat16* __restrict__ 
                         float* __restrict__ out, int n_mels, int n_seg, int mel_passes,
                         int n_blk) {
   extern __shared__ __align__(16) unsigned char tier_smem[];
-  float acc2[kTierTM2][kTierTN2<N1, false>][4], accn[4];
-  tier_dft<N1, P1, P2, false>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
-  const TierTile<N1, false> t(n_blk);
+  float acc2[kTierTM2][kTierTN2<N1>][4], accn[4];
+  tier_dft<N1, P1, P2>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
+  const TierTile<N1> t(n_blk);
   float* power = reinterpret_cast<float*>(tier_smem);
-  float* seg_sums = reinterpret_cast<float*>(tier_smem + tier_smem_bytes(N1, P1, P2, false));
+  float* seg_sums = reinterpret_cast<float*>(tier_smem + tier_smem_bytes(N1, P1, P2));
   __syncthreads();  // every warp's stage 2 has read T
 #pragma unroll
   for (int i = 0; i < kTierTM2; ++i) {
 #pragma unroll
-    for (int j = 0; j < kTierTN2<N1, false>; ++j) {
+    for (int j = 0; j < kTierTN2<N1>; ++j) {
       const float* z = acc2[i][j];
       const int q = t.k1(j) * kTierRows + t.k2(i) - t.k0;
       power[q] = tier_power(z[0], z[1]);
@@ -1849,30 +2220,485 @@ tier_dft_mel_log_kernel(const TierSource src, const __nv_bfloat16* __restrict__ 
           band_db(band_sum(seg_sums, __ldg(band_first + b), __ldg(band_first + b + 1)));
 }
 
-// K6t: Z of each packed frame (tier_dft, kPacked) as K6 writes it, two
-// (frames, n) arrays of f32, real and imaginary, in natural bin order.
+// ---------------------------------------------------------------------------
+// K6t: tier_packed_fft_kernel<N1, P1, P2>, sed_tpu's matmul DFT of the packed
+// frame on wgmma.  See the header note; its tables' layout is modelled by
+// tests/test_torch_packed_tiers.py against the plain version.
+// ---------------------------------------------------------------------------
+
+// Byte offset of element (r, c), c < 64, of a tile of bf16 rows of 64 (128
+// bytes) under the 128-byte swizzle wgmma reads (16-byte chunk c / 8 of row r
+// at chunk (c / 8) ^ (r mod 8)); a tile starts on a 1024-byte boundary.
+__host__ __device__ constexpr int sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2;
+}
+
+// The matrix descriptor of a K-major tile at shared address `addr` (rows of
+// 128 bytes, 128-byte swizzle, 8-row groups 1024 bytes apart), advanced to
+// its k16 step j (32 bytes a step inside the swizzled row).
+__device__ __forceinline__ unsigned long long sw128_desc(unsigned addr, int j) {
+  return static_cast<unsigned long long>(((addr + 32 * j) >> 4) & 0x3FFF) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Generic-proxy stores to shared memory made visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(smem_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// d += A B by wgmma.mma_async.m64nNk16 (bf16 in, f32 out), A (64 x 16) and B
+// (N x 16) K-major in shared memory by descriptor.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], unsigned long long a,
+                                             unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15} "
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], unsigned long long a,
+                                             unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], unsigned long long a,
+                                             unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63} "
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+constexpr int kPackedRing2 = 2;  // stage 2's ring of W1 tiles
+// Threads of an instance: warpgroup 0 multiplies, the others produce (two
+// where a pass has 64 or more columns, so that twice the loads are in flight).
+__host__ __device__ constexpr int packed_producers(int n1p) { return n1p >= 64 ? 256 : 128; }
+__host__ __device__ constexpr int packed_threads(int n1p) { return 128 + packed_producers(n1p); }
+
+// The shape of an instance: k2 rows a unit (kb), stage 1's columns a pass
+// (n1p; n1 / n1p passes), stage 1's ring slots (d1), and its dynamic shared
+// memory in bytes (1024 of it the base's alignment).  The largest kb (64 up
+// to n1 128, else 32), n1p (up to 128) and d1 (3 or 2), in that order, whose
+// sum fits 227 KB: 103-230 KB at every (n1, C1, C2).  Only the kernel and
+// its launch read it: the host's tables do not depend on it
+// (cuda_featurizer.packed_plan repeats it for launch_plan's report).
+struct PackedShape {
+  int kb, n1p, d1, smem;
+};
+__host__ __device__ constexpr int packed_smem(int n1, int c1, int c2, int kb, int n1p, int d1) {
+  return c2 * (2 * n1 / 64) * kb * 128          // T^T, C2 chunks
+         + d1 * c1 * (n1p + 2 * kb) * 128        // ring 1: X and A1 tiles
+         + kPackedRing2 * c2 * 64 * 128          // ring 2: A2 tiles
+         + 2 * 32 * (kb + 4) * 4                 // the drain's Zr and Zi rows
+         + 2 * 8 * (3 + kPackedRing2)            // the rings' barriers
+         + 1024;
+}
+__host__ __device__ constexpr PackedShape packed_shape(int n1, int p1, int p2) {
+  const int c1 = tier_chunks(p1), c2 = tier_chunks(p2);
+  for (int kb = n1 <= 128 ? 64 : 32; kb >= 32; kb -= 32)
+    for (int n1p = n1 < 128 ? n1 : 128; n1p >= 32; n1p /= 2)
+      for (int d1 = 3; d1 >= 2; --d1)
+        if (packed_smem(n1, c1, c2, kb, n1p, d1) <= 232448)
+          return {kb, n1p, d1, packed_smem(n1, c1, c2, kb, n1p, d1)};
+  return {0, 0, 0, 0};
+}
+
+// K6t.  A unit is (frame, kb k2 rows: k0 = kb * blk); persistent CTAs walk
+// units u = blockIdx.x, + gridDim.x, ...  Warpgroup 1 produces, warpgroup 0
+// consumes, through two rings of shared memory whose slots complete on
+// mbarriers:
+//   ring 1 (stage 1, d1 slots): a K tile of 64 columns, Re z at 32 a then Im
+//     z at the same a (a = 32 kt ..), as X's C1 chunks (n1p rows b of the
+//     pass, K-major: written by the producer's threads, which load, window
+//     and split the frame's samples straight into the swizzled B layout) and
+//     W2's C1 chunks of each of the unit's kb / 32 M tiles of 64 rows (Yr,
+//     Yi interleaved by 8: one bulk copy, cp.async.bulk, of the host's
+//     image a tile);
+//   ring 2 (stage 2, 2 slots): W1's C2 chunks of a 64-row M tile (k1, Zr and
+//     Zi interleaved by 8) and a K tile (one bulk copy).
+// The consumer: stage 1, [Yr; Yi] = W2 [Xr; Xi] (m64 n(n1p) k16, kb / 32 M
+// tiles, A and B by descriptor) over the pass's n1p columns; the twiddle T
+// = Y * W_m^(k2 b) in f32 in registers (sed_tpu's order, no fused
+// multiply-add), split into C2 chunks, into T^T (kb rows k2, K = [Tr | Ti]
+// over b); after n1 / n1p passes, stage 2 in M tiles of 64: Z^T = W1^T T^T
+// (m64 n(kb) k16), each tile's (Zr, Zi) rows through shared memory to 16-byte
+// stores of kb contiguous bins n2 k1 + k0 .. of out_re and out_im.
 template <int N1, int P1, int P2>
-__global__ void __launch_bounds__(kTierThreads, 1)
+__global__ void __launch_bounds__(packed_threads(packed_shape(N1, P1, P2).n1p), 1)
 tier_packed_fft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
-                       const __nv_bfloat16* __restrict__ tab2,
-                       const float2* __restrict__ twiddle, float* __restrict__ out_re,
-                       float* __restrict__ out_im, int n_blk) {
-  extern __shared__ __align__(16) unsigned char tier_smem[];
-  float acc2[kTierTM2][kTierTN2<N1, true>][4], accn[4];
-  tier_dft<N1, P1, P2, true>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
-  const TierTile<N1, true> t(n_blk);
-  const long long base = t.row * N1 * t.n2;
-#pragma unroll
-  for (int i = 0; i < kTierTM2; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTierTN2<N1, true>; ++j) {
-      const float* z = acc2[i][j];
-      const long long q = base + t.n2 * t.k1(j) + t.k2(i);
-      out_re[q] = z[0];
-      out_im[q] = z[1];
-      out_re[q + 8] = z[2];
-      out_im[q + 8] = z[3];
+                  const __nv_bfloat16* __restrict__ tab2, const float2* __restrict__ twiddle,
+                  float* __restrict__ out_re, float* __restrict__ out_im, int n2,
+                  long long units) {
+  constexpr PackedShape kShape = packed_shape(N1, P1, P2);
+  constexpr int C1 = tier_chunks(P1), C2 = tier_chunks(P2);
+  constexpr int KB = kShape.kb, N1P = kShape.n1p, D1 = kShape.d1, D2 = kPackedRing2;
+  constexpr int NH = N1 / N1P;        // stage 1's passes
+  constexpr int MT1 = KB / 32;        // stage 1's M tiles (32 k2 rows, Yr and Yi)
+  constexpr int KT2 = 2 * N1 / 64;    // stage 2's K tiles (and M tiles of 64 rows)
+  constexpr int A1_TILE = C1 * 64 * 128;  // W2's C1 chunks of a 64-row M tile
+  constexpr int X_BYTES = C1 * N1P * 128, A1_BYTES = MT1 * A1_TILE;
+  constexpr int S1 = X_BYTES + A1_BYTES, S2 = C2 * 64 * 128;
+  constexpr int T_BYTES = C2 * KT2 * KB * 128;
+  constexpr int DS = KB + 4;          // the drain's row stride, floats
+  constexpr int PT = packed_producers(N1P);
+  static_assert(KB > 0 && NH * N1P == N1, "tier_packed_fft_kernel: shape");
+  extern __shared__ __align__(16) unsigned char packed_smem_raw[];
+  unsigned char* smem =
+      packed_smem_raw + ((1024 - (smem_address(packed_smem_raw) & 1023)) & 1023);
+  unsigned char* tts = smem;                         // T^T
+  unsigned char* ring1 = tts + T_BYTES;              // D1 slots of S1
+  unsigned char* ring2 = ring1 + D1 * S1;            // D2 slots of S2
+  float* drain = reinterpret_cast<float*>(ring2 + D2 * S2);  // [2][32][DS]
+  auto* full1 = reinterpret_cast<unsigned long long*>(drain + 2 * 32 * DS);
+  auto* empty1 = full1 + D1;
+  auto* full2 = empty1 + D1;
+  auto* empty2 = full2 + D2;
+  const int m = N1 * n2;
+  const int blocks = n2 / KB;   // units a frame
+  const int kt1_count = n2 / 32;  // stage 1's K tiles
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < D1; ++i) {
+      mbar_init(full1 + i, PT);   // the producer's threads; the bulk bytes by expect_tx
+      mbar_init(empty1 + i, 4);   // the consumer's warps
     }
+    for (int i = 0; i < D2; ++i) {
+      mbar_init(full2 + i, 1);
+      mbar_init(empty2 + i, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // With two producing warpgroups (384 threads, 168 registers each at
+  // launch) the producers give registers up to the multiplying warpgroup,
+  // whose stage-1 sums take 128 of them.
+  if (threadIdx.x >= 128) {  // ---- the producers ----
+    if constexpr (PT == 256) asm volatile("setmaxnreg.dec.sync.aligned.u32 120;" ::: "memory");
+    // Steps (unit u, pass h, K tile kt) in the consumer's order.  A step's
+    // items (octet o, row b): points z[a n1 + b] for a = 32 kt + 8 o .. + 7,
+    // windowed and split as one 16-byte chunk of Re and one of Im in each of
+    // X's C1 chunks.  A step's samples and window pairs are loaded a step
+    // ahead, all of them before any is used, so that their latency passes
+    // while the producer waits for the slot and splits the step before.
+    constexpr int ITEMS = 4 * N1P / PT;
+    const int pt = threadIdx.x - 128;
+    const auto* window = reinterpret_cast<const float2*>(src.window);
+    float2 xs[ITEMS][8], ws[ITEMS][8];
+    const auto load_step = [&](const TierFrame& frame, int h, int kt) {
+      // An interior frame whose start is 8-byte aligned: one load a point.
+      const float2* pairs = reinterpret_cast<const float2*>(frame.y + frame.start);
+      const bool paired =
+          frame.interior && (reinterpret_cast<unsigned long long>(pairs) & 7) == 0;
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) {
+        const int q = pt + PT * it;
+        const int b = q % N1P, o = q / N1P;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int j = (32 * kt + 8 * o + e) * N1 + h * N1P + b;
+          xs[it][e] = paired ? __ldg(pairs + j) : frame.raw(2 * j);
+          ws[it][e] = __ldg(window + j);
+        }
+      }
+    };
+    long long u = blockIdx.x, seq1 = 0, seq2 = 0;
+    int h = 0, kt = 0;
+    TierFrame frame(src, u < units ? u / blocks : 0, 2 * m);  // the unit's, built once a unit
+    if (u < units) load_step(frame, h, kt);
+    int blk = static_cast<int>(u % blocks);
+    while (u < units) {
+      const int slot = static_cast<int>(seq1 % D1);
+      if (seq1 >= D1) mbar_wait(empty1 + slot, static_cast<unsigned>((seq1 / D1 - 1) & 1));
+      unsigned char* x = ring1 + slot * S1;
+      if (pt == 0) {
+        mbar_expect_tx(full1 + slot, A1_BYTES);
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt)
+          bulk_copy(reinterpret_cast<float*>(x + X_BYTES + mt * A1_TILE),
+                    reinterpret_cast<const float*>(
+                        tab1 + ((static_cast<long long>(blk) * MT1 + mt) * kt1_count + kt) *
+                                   C1 * 64 * 64),
+                    A1_TILE, full1 + slot);
+      }
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) {
+        const int q = pt + PT * it;
+        const int b = q % N1P, o = q / N1P;
+        // Re (part 0) and Im (part 1) of the 8 points as 4 pairs, split a
+        // chunk at a time by one cvt.rn.bf16x2 a pair (split_bf16's
+        // rounding, the residuals exact in f32).
+        float2 v[2][4];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const float2 z0 = windowed(xs[it][e], ws[it][e]);
+          const float2 z1 = windowed(xs[it][e + 1], ws[it][e + 1]);
+          v[0][e / 2] = make_float2(z0.x, z1.x);
+          v[1][e / 2] = make_float2(z0.y, z1.y);
+        }
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+#pragma unroll
+          for (int ci = 0; ci < C1; ++ci) {
+            uint4 w;
+            unsigned* wp = reinterpret_cast<unsigned*>(&w);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const __nv_bfloat162 pair = __float22bfloat162_rn(v[part][e]);
+              wp[e] = *reinterpret_cast<const unsigned*>(&pair);
+              if (ci + 1 < C1) {
+                const float2 f = __bfloat1622float2(pair);
+                v[part][e] = make_float2(v[part][e].x - f.x, v[part][e].y - f.y);
+              }
+            }
+            *reinterpret_cast<uint4*>(x + ci * N1P * 128 + sw128(b, 32 * part + 8 * o)) = w;
+          }
+        }
+      }
+      fence_async_shared();
+      mbar_arrive(full1 + slot);
+      ++seq1;
+      // The next step, whose loads fly from here on.
+      const long long u_step = u;
+      if (++kt == kt1_count) {
+        kt = 0;
+        if (++h == NH) {
+          h = 0;
+          u += gridDim.x;
+          if (u < units) {
+            frame = TierFrame(src, u / blocks, 2 * m);
+            blk = static_cast<int>(u % blocks);
+          }
+        }
+      }
+      if (u < units) load_step(frame, h, kt);
+      if (u != u_step && pt == 0) {  // the finished unit's W1 tiles, stage 2's
+        for (int mt = 0; mt < KT2; ++mt) {
+          for (int k2t = 0; k2t < KT2; ++k2t, ++seq2) {
+            const int slot2 = static_cast<int>(seq2 % D2);
+            if (seq2 >= D2) mbar_wait(empty2 + slot2, static_cast<unsigned>((seq2 / D2 - 1) & 1));
+            mbar_arrive_expect_tx(full2 + slot2, S2);
+            bulk_copy(reinterpret_cast<float*>(ring2 + slot2 * S2),
+                      reinterpret_cast<const float*>(
+                          tab2 + (static_cast<long long>(mt) * KT2 + k2t) * C2 * 64 * 64),
+                      S2, full2 + slot2);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer ----
+  if constexpr (PT == 256) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const unsigned tts_addr = smem_address(tts), ring1_addr = smem_address(ring1),
+                 ring2_addr = smem_address(ring2);
+  long long seq1 = 0, seq2 = 0;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const long long row = u / blocks;
+    const int blk = static_cast<int>(u - row * blocks);
+    const int k0 = KB * blk;
+    // Stage 1, a pass of N1P columns b at a time, then its T^T columns.
+    for (int h = 0; h < NH; ++h) {
+      float acc[MT1][N1P / 2];
+#pragma unroll
+      for (int mt = 0; mt < MT1; ++mt)
+#pragma unroll
+        for (int i = 0; i < N1P / 2; ++i) acc[mt][i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < kt1_count; ++kt, ++seq1) {
+        const int slot = static_cast<int>(seq1 % D1);
+        mbar_wait(full1 + slot, static_cast<unsigned>((seq1 / D1) & 1));
+        const unsigned x = ring1_addr + slot * S1, a = x + X_BYTES;
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt) fence_operands(acc[mt]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int ca = 0; ca < C1; ++ca)
+#pragma unroll
+            for (int cb = 0; cb < C1; ++cb) {
+              if (!tier_term(P1, ca, cb)) continue;
+#pragma unroll
+              for (int mt = 0; mt < MT1; ++mt)
+                Wgmma<N1P>::mma(acc[mt], sw128_desc(a + mt * A1_TILE + ca * 64 * 128, j),
+                                sw128_desc(x + cb * N1P * 128, j));
+            }
+        wgmma_commit();
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt) fence_operands(acc[mt]);
+        wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(empty1 + prev);
+        prev = slot;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT1; ++mt) fence_operands(acc[mt]);
+      if (lane == 0) mbar_arrive(empty1 + prev);
+      // The twiddle (acc[mt][4i ..]: yr(b), yr(b + 1), yi(b), yi(b + 1) at
+      // k2 row 32 mt + 8 warp + g), split, into T^T: Tr at K = b, Ti at n1 + b.
+#pragma unroll
+      for (int mt = 0; mt < MT1; ++mt) {
+        const int k2l = 32 * mt + 8 * warp + g;
+#pragma unroll
+        for (int i = 0; i < N1P / 8; ++i) {
+          const int b = h * N1P + 8 * i + 2 * tig;
+          const float4 tw = *reinterpret_cast<const float4*>(
+              twiddle + static_cast<long long>(k0 + k2l) * N1 + b);
+          const float* y = acc[mt] + 4 * i;
+          const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
+          const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
+          const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
+          const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
+          unsigned cr[C2], cim[C2];
+          split_bf16x2<C2>(tr0, tr1, cr);
+          split_bf16x2<C2>(ti0, ti1, cim);
+#pragma unroll
+          for (int c = 0; c < C2; ++c) {
+            *reinterpret_cast<unsigned*>(tts + ((c * KT2 + (b >> 6)) * KB) * 128 +
+                                         sw128(k2l, b & 63)) = cr[c];
+            *reinterpret_cast<unsigned*>(tts + ((c * KT2 + ((N1 + b) >> 6)) * KB) * 128 +
+                                         sw128(k2l, (N1 + b) & 63)) = cim[c];
+          }
+        }
+      }
+    }
+    fence_async_shared();
+    asm volatile("bar.sync 1, 128;" ::: "memory");  // T^T is written
+
+    // Stage 2 in M tiles of 64 rows (k1 = 32 mt + 8 warp + g; Zr, Zi), two
+    // accumulators in turn: tile mt's drain runs while tile mt + 1's first
+    // products do (after wgmma_wait<1> at that step, tile mt's are done).
+    const long long base = row * m + k0;
+    const auto drain_tile = [&](int mt, float (&acc2)[KB / 2]) {
+      // Rows k1 (Zr plane 0, Zi plane 1) of kb bins k2 through shared
+      // memory, then 16-byte stores of the bins n2 k1 + k0 ...
+      fence_operands(acc2);
+      asm volatile("bar.sync 1, 128;" ::: "memory");  // the last tile's rows are read
+      const int k1l = 8 * warp + g;
+#pragma unroll
+      for (int i = 0; i < KB / 8; ++i) {
+        const int n = 8 * i + 2 * tig;
+        *reinterpret_cast<float2*>(drain + k1l * DS + n) = make_float2(acc2[4 * i], acc2[4 * i + 1]);
+        *reinterpret_cast<float2*>(drain + (32 + k1l) * DS + n) =
+            make_float2(acc2[4 * i + 2], acc2[4 * i + 3]);
+      }
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 2 * 32 * KB / 4 / 128; ++i) {
+        const int q = t + 128 * i;
+        const int plane = q / (32 * KB / 4);
+        const int r = (q / (KB / 4)) % 32;
+        const int c4 = q % (KB / 4);
+        const float4 v = *reinterpret_cast<const float4*>(drain + (32 * plane + r) * DS + 4 * c4);
+        float* out = plane ? out_im : out_re;
+        *reinterpret_cast<float4*>(out + base + static_cast<long long>(32 * mt + r) * n2 +
+                                   4 * c4) = v;
+      }
+    };
+    float acc2[2][KB / 2];
+    int prev = -1;
+#pragma unroll
+    for (int mt = 0; mt < KT2; ++mt) {
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i) acc2[mt & 1][i] = 0.f;
+#pragma unroll 1
+      for (int kt = 0; kt < KT2; ++kt, ++seq2) {
+        const int slot = static_cast<int>(seq2 % D2);
+        mbar_wait(full2 + slot, static_cast<unsigned>((seq2 / D2) & 1));
+        const unsigned a = ring2_addr + slot * S2;
+        fence_operands(acc2[mt & 1]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int ca = 0; ca < C2; ++ca)
+#pragma unroll
+            for (int cb = 0; cb < C2; ++cb) {
+              if (!tier_term(P2, ca, cb)) continue;
+              Wgmma<KB>::mma(acc2[mt & 1], sw128_desc(a + ca * 64 * 128, j),
+                             sw128_desc(tts_addr + (cb * KT2 + kt) * KB * 128, j));
+            }
+        wgmma_commit();
+        fence_operands(acc2[mt & 1]);
+        wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(empty2 + prev);
+        prev = slot;
+        if (mt > 0 && kt == 0) drain_tile(mt - 1, acc2[(mt - 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty2 + prev);
+    drain_tile(KT2 - 1, acc2[(KT2 - 1) & 1]);
   }
 }
 
@@ -1916,11 +2742,21 @@ int with_passes(int passes, const Launch& launch) {
   }
 }
 
-// launch(N1, P1, P2 as integral_constants) for a 2^log2_n-point DFT (log2_n
-// 11..15: n1 = 2^(log2_n / 2), 32 for 11, 64 for 12 and 13, 128 for 14 and
-// 15) at inner / outer passes (1, 3, 4, 6): 3 x 16 instances of each
-// kernel.
-template <typename Launch>
+template <int kLo, typename AtN1, int... I>
+int with_tier_n1(int log2_n, const AtN1& at_n1, std::integer_sequence<int, I...>) {
+  int err = cudaErrorInvalidValue;
+  (void)((log2_n == kLo + I
+              ? (err = at_n1(std::integral_constant<int, 1 << ((kLo + I) / 2)>{}), true)
+              : false) ||
+         ...);
+  return err;
+}
+
+// launch(N1, P1, P2 as integral_constants) for a 2^log2_n-point DFT, log2_n
+// in kLo..kHi (n1 = 2^(log2_n / 2): 32 for 11, 64 for 12 and 13, 128 for 14
+// and 15, 256 for 16 and 17) at inner / outer passes (1, 3, 4, 6): 16
+// instances of each kernel an n1; cudaErrorInvalidValue outside kLo..kHi.
+template <int kLo, int kHi, typename Launch>
 int with_tier(int log2_n, int inner_passes, int outer_passes, const Launch& launch) {
   const auto at_n1 = [&](auto n1_constant) {
     return with_passes(inner_passes, [&](auto p1_constant) {
@@ -1929,14 +2765,97 @@ int with_tier(int log2_n, int inner_passes, int outer_passes, const Launch& laun
       });
     });
   };
-  switch (log2_n) {
-    case 11: return at_n1(std::integral_constant<int, 32>{});
-    case 12:
-    case 13: return at_n1(std::integral_constant<int, 64>{});
-    case 14:
-    case 15: return at_n1(std::integral_constant<int, 128>{});
-    default: return cudaErrorInvalidValue;
-  }
+  return with_tier_n1<kLo>(log2_n, at_n1, std::make_integer_sequence<int, kHi - kLo + 1>{});
+}
+
+// K1t / K3t over log2_n in kLo..kHi (sed_tier_dft_power), on the current device.
+template <int kLo, int kHi>
+int launch_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
+                         const void* tab2, const void* twiddle, void* out, long long rows,
+                         long long n_samples, int n_frames, int hop, int log2_n,
+                         int inner_passes, int outer_passes, void* stream) {
+  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* power = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_tier<kLo, kHi>(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    constexpr int smem = tier_smem_bytes(N1, P1, P2);
+    static_assert(smem <= 232448, "tier_dft_kernel: shared memory");
+    return launch_tier<N1>(tier_dft_kernel<N1, P1, P2>, smem, rows, log2_n, false, s, src, t1,
+                           t2, tw, power);
+  });
+}
+
+// K5t over log2_n in kLo..kHi (sed_tier_dft_mel_log), on the current device.
+template <int kLo, int kHi>
+int launch_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
+                           const void* tab2, const void* twiddle, const void* segments,
+                           const void* band_first, const void* weights, void* out,
+                           long long rows, long long n_samples, int n_frames, int hop,
+                           int log2_n, int inner_passes, int outer_passes, int mel_passes,
+                           int n_mels, int n_seg, void* stream) {
+  if (mel_passes != 0 && mel_passes != 1 && mel_passes != 3) return cudaErrorInvalidValue;
+  if (n_seg < 0 || n_seg > 232448 / 4) return cudaErrorInvalidValue;
+  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  const auto* seg = static_cast<const int4*>(segments);
+  const auto* first = static_cast<const int*>(band_first);
+  const auto* fb = static_cast<const float*>(weights);
+  auto* mel = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_tier<kLo, kHi>(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    // tier_dft's shared memory, then the frame's segment sums.
+    const int smem = tier_smem_bytes(N1, P1, P2) + 4 * n_seg;
+    return launch_tier<N1>(tier_dft_mel_log_kernel<N1, P1, P2>, smem, rows, log2_n, true, s, src,
+                           t1, t2, tw, seg, first, fb, mel, n_mels, n_seg, mel_passes);
+  });
+}
+
+// K6t over log2_m in kLo..kHi (sed_tier_packed_fft), on the current device.
+template <int kLo, int kHi>
+int launch_packed_fft(const void* wave, const void* window, const void* tab1, const void* tab2,
+                      const void* twiddle, void* out_re, void* out_im, long long rows,
+                      long long n_samples, int n_frames, int hop, int log2_m, int inner_passes,
+                      int outer_passes, void* stream) {
+  int device = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* re = static_cast<float*>(out_re);
+  auto* im = static_cast<float*>(out_im);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_tier<kLo, kHi>(log2_m, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    constexpr PackedShape shape = packed_shape(N1, P1, P2);
+    static_assert(shape.kb > 0 && shape.smem <= 232448, "tier_packed_fft_kernel: shared memory");
+    const auto kernel = tier_packed_fft_kernel<N1, P1, P2>;
+    const int n2 = (1 << log2_m) / N1;
+    const long long units = rows * (n2 / shape.kb);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int per_sm = 0;
+    constexpr int threads = packed_threads(shape.n1p);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shape.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long ctas = units < 1LL * per_sm * n_sm ? units : 1LL * per_sm * n_sm;
+    kernel<<<static_cast<unsigned>(ctas), threads, shape.smem, s>>>(src, t1, t2, tw, re, im, n2,
+                                                                   units);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 #ifndef SED_FEATURIZER_ONE_TIER_UNIT
@@ -1991,6 +2910,64 @@ class DeviceGuard {
 };
 
 }  // namespace
+
+// K1t / K3t and K5t at n1 = 256 (log2_n 16, 17): their instances are the
+// wide object's (-DSED_FEATURIZER_WIDE_TIERS_ONLY), reached from
+// sed_tier_dft_power and sed_tier_dft_mel_log on the current device.
+int launch_wide_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
+                               const void* tab2, const void* twiddle, void* out, long long rows,
+                               long long n_samples, int n_frames, int hop, int log2_n,
+                               int inner_passes, int outer_passes, void* stream);
+int launch_wide_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
+                                 const void* tab2, const void* twiddle, const void* segments,
+                                 const void* band_first, const void* weights, void* out,
+                                 long long rows, long long n_samples, int n_frames, int hop,
+                                 int log2_n, int inner_passes, int outer_passes, int mel_passes,
+                                 int n_mels, int n_seg, void* stream);
+
+// K6t at n1 128 and 256 (log2_m 14..16): their instances are the wide
+// packed object's (-DSED_FEATURIZER_WIDE_PACKED_ONLY), reached from
+// sed_tier_packed_fft on the current device.
+int launch_wide_packed_fft(const void* wave, const void* window, const void* tab1,
+                           const void* tab2, const void* twiddle, void* out_re, void* out_im,
+                           long long rows, long long n_samples, int n_frames, int hop, int log2_m,
+                           int inner_passes, int outer_passes, void* stream);
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_WIDE_PACKED_ONLY))
+int launch_wide_packed_fft(const void* wave, const void* window, const void* tab1,
+                           const void* tab2, const void* twiddle, void* out_re, void* out_im,
+                           long long rows, long long n_samples, int n_frames, int hop, int log2_m,
+                           int inner_passes, int outer_passes, void* stream) {
+  return launch_packed_fft<14, 16>(wave, window, tab1, tab2, twiddle, out_re, out_im, rows,
+                                   n_samples, n_frames, hop, log2_m, inner_passes, outer_passes,
+                                   stream);
+}
+#endif
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_WIDE_TIERS_ONLY))
+int launch_wide_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
+                               const void* tab2, const void* twiddle, void* out, long long rows,
+                               long long n_samples, int n_frames, int hop, int log2_n,
+                               int inner_passes, int outer_passes, void* stream) {
+  return launch_tier_dft_power<16, 17>(data, kind, window, tab1, tab2, twiddle, out, rows,
+                                       n_samples, n_frames, hop, log2_n, inner_passes,
+                                       outer_passes, stream);
+}
+
+int launch_wide_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
+                                 const void* tab2, const void* twiddle, const void* segments,
+                                 const void* band_first, const void* weights, void* out,
+                                 long long rows, long long n_samples, int n_frames, int hop,
+                                 int log2_n, int inner_passes, int outer_passes, int mel_passes,
+                                 int n_mels, int n_seg, void* stream) {
+  return launch_tier_dft_mel_log<16, 17>(wave, window, tab1, tab2, twiddle, segments, band_first,
+                                         weights, out, rows, n_samples, n_frames, hop, log2_n,
+                                         inner_passes, outer_passes, mel_passes, n_mels, n_seg,
+                                         stream);
+}
+#endif
 
 extern "C" {
 
@@ -2073,8 +3050,11 @@ int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twid
   return with_log2_m(log2_m, [&](auto log2_m_constant) {
     constexpr int L = decltype(log2_m_constant)::value;
     // The one-sided power (m + 1 floats), the segment sums and the loads'
-    // slack, after the exchange buffer.
-    const int extra = static_cast<int>(sizeof(float)) * ((1 << L) + 1 + n_seg + kSegBins);
+    // slack, after the exchange buffer; in a cluster's CTA its M + 1 bins and
+    // the segment sums.
+    const int extra = static_cast<int>(sizeof(float)) *
+                      (kClusterCtas<L> == 1 ? (1 << L) + 1 + n_seg + kSegBins
+                                            : (1 << kCtaLog2M) + 1 + n_seg);
     return launch_stockham<L>(wave_stft_mel_log_kernel<L>, n_signals * n_frames, extra, s, w,
                               win, tw, unpack_tw, seg, first, fb, mel, n_samples, n_frames, hop,
                               n_mels, n_seg, mel_passes);
@@ -2102,41 +3082,39 @@ int sed_wave_packed_fft(const void* wave, const void* window,
 
 #endif  // SED_FEATURIZER_ONE_TIER_UNIT
 
-// The bf16 tier DFT's entry points.  Each one's 48 instances (3 n1 x 16
-// pass pairs) take about as long to compile as the rest of the file, so the
-// library is linked from
-// four objects of this file compiled side by side
-// (cuda_featurizer.BUILD_RECIPE): -DSED_FEATURIZER_TIERS_ONLY (K1t, K3t),
-// -DSED_FEATURIZER_FUSED_TIERS_ONLY (K5t), -DSED_FEATURIZER_PACKED_TIERS_ONLY
-// (K6t) and -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds
-// of chip_smoke.py too).
+// The bf16 tier DFT's entry points.  Each kernel's 16 instances an n1 take
+// about as long to compile as the rest of the file, so the library is
+// linked from six objects of this file compiled side by side
+// (cuda_featurizer.BUILD_RECIPE): -DSED_FEATURIZER_TIERS_ONLY (K1t, K3t at
+// n1 32..128), -DSED_FEATURIZER_FUSED_TIERS_ONLY (K5t at n1 32..128),
+// -DSED_FEATURIZER_WIDE_TIERS_ONLY (K1t, K3t and K5t at n1 256: n_fft 65536
+// and 131072, behind launch_wide_tier_dft_power and
+// launch_wide_tier_dft_mel_log above), -DSED_FEATURIZER_PACKED_TIERS_ONLY (K6t
+// at n1 32 and 64), -DSED_FEATURIZER_WIDE_PACKED_ONLY (K6t at n1 128 and 256,
+// behind launch_wide_packed_fft) and
+// -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds of
+// chip_smoke.py too).
 
 #if !defined(SED_FEATURIZER_NO_TIERS) && \
     (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_TIERS_ONLY))
 // K1t (kind 0: waveforms, as K1 frames them) and K3t (kind 1, 2: rows of
 // f32 or int16, as K3 reads them): one-sided |X|^2 of `rows` frames of
-// n_fft = 2^log2_n (log2_n 11..15) by the bf16 tensor-core DFT at
-// inner_passes / outer_passes (1, 3, 4, 6) in its two stages.
+// n_fft = 2^log2_n (log2_n 11..17; 16 and 17 in the wide object) by the bf16
+// tensor-core DFT at inner_passes / outer_passes (1, 3, 4, 6) in its two
+// stages.
 int sed_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
                        const void* tab2, const void* twiddle, void* out, long long rows,
                        long long n_samples, int n_frames, int hop, int log2_n,
                        int inner_passes, int outer_passes, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
-  const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
-  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
-  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  auto* power = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_tier(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
-    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
-    constexpr int smem = tier_smem_bytes(N1, P1, P2, false);
-    static_assert(smem <= 232448, "tier_dft_kernel: shared memory");
-    return launch_tier<N1>(tier_dft_kernel<N1, P1, P2>, smem, rows, log2_n, false, s, src, t1,
-                           t2, tw, power);
-  });
+  if (log2_n > 15)
+    return launch_wide_tier_dft_power(data, kind, window, tab1, tab2, twiddle, out, rows,
+                                      n_samples, n_frames, hop, log2_n, inner_passes,
+                                      outer_passes, stream);
+  return launch_tier_dft_power<11, 15>(data, kind, window, tab1, tab2, twiddle, out, rows,
+                                       n_samples, n_frames, hop, log2_n, inner_passes,
+                                       outer_passes, stream);
 }
 #endif
 
@@ -2144,8 +3122,9 @@ int sed_tier_dft_power(const void* data, int kind, const void* window, const voi
     (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY))
 // K5t: log-mel rows (n_signals * n_frames, n_mels) of the waveforms' frames,
 // K1t's power at inner_passes / outer_passes (n_fft = 2^log2_n, log2_n
-// 11..15) then K2's band sums at mel_passes (0 f32, 1 bf16x1, 3 bf16x3), in
-// one launch; a frame's n_fft / n1 / 64 blocks are one cluster.
+// 11..17; 16 and 17 in the wide object) then K2's band sums at mel_passes (0
+// f32, 1 bf16x1, 3 bf16x3), in one launch; a frame's n_fft / n1 / 64 blocks
+// are one cluster (8 at n_fft 131072).
 int sed_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
                          const void* tab2, const void* twiddle, const void* segments,
                          const void* band_first, const void* weights, void* out, long long rows,
@@ -2154,54 +3133,45 @@ int sed_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
                          int n_seg, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (mel_passes != 0 && mel_passes != 1 && mel_passes != 3) return cudaErrorInvalidValue;
-  if (n_seg < 0 || n_seg > 232448 / 4) return cudaErrorInvalidValue;
-  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
-  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
-  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  const auto* seg = static_cast<const int4*>(segments);
-  const auto* first = static_cast<const int*>(band_first);
-  const auto* fb = static_cast<const float*>(weights);
-  auto* mel = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_tier(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
-    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
-    // tier_dft's shared memory, then the frame's segment sums.
-    const int smem = tier_smem_bytes(N1, P1, P2, false) + 4 * n_seg;
-    return launch_tier<N1>(tier_dft_mel_log_kernel<N1, P1, P2>, smem, rows, log2_n, true, s, src,
-                           t1, t2, tw, seg, first, fb, mel, n_mels, n_seg, mel_passes);
-  });
+  if (log2_n > 15)
+    return launch_wide_tier_dft_mel_log(wave, window, tab1, tab2, twiddle, segments,
+                                        band_first, weights, out, rows, n_samples, n_frames,
+                                        hop, log2_n, inner_passes, outer_passes, mel_passes,
+                                        n_mels, n_seg, stream);
+  return launch_tier_dft_mel_log<11, 15>(wave, window, tab1, tab2, twiddle, segments,
+                                         band_first, weights, out, rows, n_samples, n_frames,
+                                         hop, log2_n, inner_passes, outer_passes, mel_passes,
+                                         n_mels, n_seg, stream);
 }
 #endif
 
 #if !defined(SED_FEATURIZER_NO_TIERS) && \
     (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_PACKED_TIERS_ONLY))
 // K6t: Z = DFT_m((x_even + i x_odd) * window) of the waveforms' `rows`
-// centred frames of 2m samples (m = 2^log2_m, log2_m 11..14) by the bf16
-// tensor-core DFT at inner_passes / outer_passes, to out_re and out_im, each
-// (rows, m) f32 in natural bin order, as K6 writes them.
+// centred frames of 2m samples (m = 2^log2_m, log2_m 11..16; 14..16 in the
+// wide packed object) by the bf16 wgmma DFT (tier_packed_fft_kernel) at
+// inner_passes / outer_passes, to out_re and out_im, each (rows, m) f32 in
+// natural bin order, as K6 writes them.  Built with -DSED_FEATURIZER_PACKED_ONE_SIZE=L, it holds
+// the instances of log2_m L alone (chip_smoke.py's lesion builds).
 int sed_tier_packed_fft(const void* wave, const void* window, const void* tab1,
                         const void* tab2, const void* twiddle, void* out_re, void* out_im,
                         long long rows, long long n_samples, int n_frames, int hop, int log2_m,
                         int inner_passes, int outer_passes, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (log2_m > 14) return cudaErrorInvalidValue;
-  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
-  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
-  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  auto* re = static_cast<float*>(out_re);
-  auto* im = static_cast<float*>(out_im);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_tier(log2_m, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
-    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
-    constexpr int smem = tier_smem_bytes(N1, P1, P2, true);
-    static_assert(smem <= 232448, "tier_packed_fft_kernel: shared memory");
-    return launch_tier<N1>(tier_packed_fft_kernel<N1, P1, P2>, smem, rows, log2_m, false, s, src,
-                           t1, t2, tw, re, im);
-  });
+#ifdef SED_FEATURIZER_PACKED_ONE_SIZE
+  return launch_packed_fft<SED_FEATURIZER_PACKED_ONE_SIZE, SED_FEATURIZER_PACKED_ONE_SIZE>(
+      wave, window, tab1, tab2, twiddle, out_re, out_im, rows, n_samples, n_frames, hop, log2_m,
+      inner_passes, outer_passes, stream);
+#else
+  if (log2_m > 13)
+    return launch_wide_packed_fft(wave, window, tab1, tab2, twiddle, out_re, out_im, rows,
+                                  n_samples, n_frames, hop, log2_m, inner_passes, outer_passes,
+                                  stream);
+  return launch_packed_fft<11, 13>(wave, window, tab1, tab2, twiddle, out_re, out_im, rows,
+                                   n_samples, n_frames, hop, log2_m, inner_passes, outer_passes,
+                                   stream);
+#endif
 }
 #endif
 

@@ -92,19 +92,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # How build() makes the library, and all that library_digest() hashes beside
 # the source: each unit's macro picks one object of the source (featurizer.cu:
-# the 48 instances of each tier kernel, K1t/K3t, K5t and K6t, then everything
-# else), the objects are compiled side by side with "compile" and joined by
-# one nvcc with "link".
+# the instances of each tier kernel, K1t/K3t and K5t at n1 32..128, both at
+# n1 256, K6t at n1 32 and 64, K6t at n1 128 and 256, then everything else),
+# the objects are compiled side by side with "compile" and joined by one
+# nvcc with "link".
 BUILD_RECIPE = {
     "compile": tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",),
     "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_FUSED_TIERS_ONLY",
-              "-DSED_FEATURIZER_PACKED_TIERS_ONLY", "-DSED_FEATURIZER_NO_TIERS"),
+              "-DSED_FEATURIZER_WIDE_TIERS_ONLY", "-DSED_FEATURIZER_PACKED_TIERS_ONLY",
+              "-DSED_FEATURIZER_WIDE_PACKED_ONLY", "-DSED_FEATURIZER_NO_TIERS"),
     "link": ("-shared",),
 }
 
 # Largest dynamic shared memory a Hopper block can use (227 KB); the FFT
-# kernels keep n_fft/2 complex f32 points there (K5 also the power row).
+# kernels keep n_fft/2 complex f32 points there (K5 also the power row), or,
+# above n_fft 32768, 2^14 of them in each CTA of a thread-block cluster of
+# n_fft / 32768 CTAs (at most _MAX_CLUSTER_CTAS).
 _MAX_SMEM_BYTES = 232448
+_CTA_FFT_POINTS = stft_ops.CTA_FFT_POINTS
+_MAX_CLUSTER_CTAS = 4
+MAX_FFT_SIZE = 2 * _CTA_FFT_POINTS * _MAX_CLUSTER_CTAS   # 131072
 _MAX_GRID_X = 2**31 - 1
 
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
@@ -273,13 +280,44 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_fft_size(n_fft: int, window: torch.Tensor, extra_smem: int = 0) -> None:
-    """``extra_smem``: bytes the kernel keeps in shared memory beside the
-    n_fft/2 complex points of its FFT."""
+def stockham_plan(n_fft: int, extra_smem: int = 0) -> dict:
+    """How the Stockham FFT kernels (K1, K3, K5, K6) run an n_fft-point frame
+    on the card: ``{"log2_m", "cluster", "threads", "smem"}``, the CTAs of a
+    frame's thread-block cluster (1 up to n_fft 32768, then 2 and 4) and each
+    CTA's dynamic shared memory, its 2^min(log2 m, 14) complex points plus
+    ``extra_smem`` bytes of the kernel's own.  Raises ``ValueError`` for a
+    size the kernels do not take."""
     if n_fft < 4 or n_fft & (n_fft - 1):
         raise ValueError(f"n_fft must be a power of two >= 4, got {n_fft}")
-    if (n_fft // 2) * 8 + extra_smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"n_fft {n_fft} does not fit the shared-memory FFT")
+    if n_fft > MAX_FFT_SIZE:
+        raise ValueError(
+            f"n_fft {n_fft} exceeds {MAX_FFT_SIZE}: the FFT kernels spread a frame's "
+            f"n_fft/2 points over a thread-block cluster of at most {_MAX_CLUSTER_CTAS} "
+            f"CTAs of {_CTA_FFT_POINTS} points each")
+    m = n_fft // 2
+    points = min(m, _CTA_FFT_POINTS)
+    plan = {"log2_m": m.bit_length() - 1, "cluster": m // points,
+            "threads": max(1, points // 16), "smem": 8 * points + extra_smem}
+    if plan["smem"] > _MAX_SMEM_BYTES:
+        raise ValueError(f"n_fft {n_fft} does not fit the shared-memory FFT "
+                         f"({plan['smem']} B of {_MAX_SMEM_BYTES})")
+    return plan
+
+
+def k5_extra_smem(n_fft: int, n_segments: int) -> int:
+    """K5's shared memory beside its FFT's points: the power row (m + 1
+    floats; a cluster CTA's 2^14 + 1), the segment sums and, in one CTA, the
+    slack that a short segment's loads reach past the row."""
+    m = n_fft // 2
+    if m > _CTA_FFT_POINTS:
+        return 4 * (_CTA_FFT_POINTS + 1 + n_segments)
+    return 4 * (m + 1 + n_segments + MEL_SEGMENT_BINS)
+
+
+def _check_fft_size(n_fft: int, window: torch.Tensor, extra_smem: int = 0) -> None:
+    """``extra_smem``: bytes the kernel keeps in shared memory beside the
+    points of its FFT (:func:`stockham_plan`)."""
+    stockham_plan(n_fft, extra_smem)
     if window.shape != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
 
@@ -297,8 +335,15 @@ def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _stockham_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
     """(n_fft/2, 2) f32 table of the inter-pass twiddles of the Stockham FFT
-    (K1, K3, K5, K6) in pass order (:func:`stft_ops.stockham_twiddles`)."""
-    return torch.from_numpy(np.stack(stft_ops.stockham_twiddles(n_fft), axis=1)).to(device)
+    (K1, K3, K5, K6) in pass order (:func:`stft_ops.stockham_twiddles`).
+    Above n_fft 32768, the 2^14 entries of a cluster CTA's FFT
+    (``stockham_twiddles(32768)``), then the (C, 2^14) table of the cross
+    pass (:func:`stft_ops.cluster_twiddles`), C + 1 rows of 2^14 in all."""
+    parts = [stft_ops.stockham_twiddles(min(n_fft, 2 * _CTA_FFT_POINTS))]
+    if n_fft > 2 * _CTA_FFT_POINTS:
+        parts.append(tuple(a.reshape(-1) for a in stft_ops.cluster_twiddles(n_fft)))
+    table = np.concatenate([np.stack(part, axis=1) for part in parts])
+    return torch.from_numpy(table).to(device)
 
 
 def wave_stft_power_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
@@ -323,7 +368,7 @@ def _check_waves(name: str, waves: torch.Tensor, window: torch.Tensor, hop: int,
         raise ValueError(f"hop must be >= 1, got {hop}")
     n_sig, n_samples = waves.shape
     n_frames = stft_ops.num_frames(n_samples, hop)
-    if n_sig * n_frames > _MAX_GRID_X:
+    if n_sig * n_frames * stockham_plan(n_fft)["cluster"] > _MAX_GRID_X:
         raise ValueError(f"{name}: {n_sig * n_frames} frames exceed one launch's grid")
     return n_frames
 
@@ -491,7 +536,7 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
     if frames.ndim != 2 or frames.shape[1] != n_fft:
         raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
     rows = frames.shape[0]
-    if rows > _MAX_GRID_X:
+    if rows * stockham_plan(n_fft)["cluster"] > _MAX_GRID_X:
         raise ValueError(f"{rows} rows exceed one launch's grid")
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
     if rows == 0:
@@ -767,9 +812,8 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
     if waves.device.type != "cuda":
         raise ValueError(f"wave_stft_mel_log: unsupported device {waves.device}")
     device = waves.device
-    n_frames = _check_waves(
-        "wave_stft_mel_log", waves, window, hop, n_fft,
-        extra_smem=4 * (n_fft // 2 + 1 + bands.n_segments + MEL_SEGMENT_BINS))
+    n_frames = _check_waves("wave_stft_mel_log", waves, window, hop, n_fft,
+                            extra_smem=k5_extra_smem(n_fft, bands.n_segments))
     _check_bands(bands, device)
     if bands.n_bins != n_fft // 2 + 1:
         raise ValueError(f"bands cover {bands.n_bins} bins, n_fft {n_fft} has "
@@ -801,9 +845,10 @@ TIER_PASSES = {"bf16x1": 1, "bf16x3": 3, "bf16x4": 4, "bf16x6": 6}
 # a tier of P passes sums the first P.
 _TIER_TERMS = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (0, 2))
 # The n_fft the tier kernels take (n1 = 2^(log2 n_fft // 2) >= 32, n2 >= 64):
-# K1t, K3t and K5t transform n_fft points; K6t m = n_fft/2.
-TIER_LOG2_N = range(11, 16)
-PACKED_TIER_LOG2_N = range(12, 16)
+# K1t, K3t and K5t transform n_fft points (up to 131072: n1 = 256, n2 = 512);
+# K6t m = n_fft/2.
+TIER_LOG2_N = range(11, 18)
+PACKED_TIER_LOG2_N = range(12, 18)
 
 
 def _stage_passes(p) -> int:
@@ -982,8 +1027,56 @@ def _reduced_passes(precision):
     return passes
 
 
+def tier_smem_bytes(n1: int, inner_passes: int, outer_passes: int) -> int:
+    """K1t's and K3t's dynamic shared memory (featurizer.cu tier_smem_bytes;
+    K5t adds 4 bytes a segment): T (its chunks, or one when staged), then
+    the larger of stage 1's and stage 2's tiles."""
+    c1, c2 = _tier_chunks(inner_passes), _tier_chunks(outer_passes)
+    t = 64 * (2 * n1 + 8) * 2                       # a chunk of T
+    stages = max(2 * c1 * 2 * 64 * 40 * 2 + c1 * 32 * (n1 + 8) * 2,
+                 2 * c2 * (n1 + 8) * 40 * 2)
+    staged = c2 * t + stages + 8192 > _MAX_SMEM_BYTES
+    return (1 if staged else c2) * t + stages
+
+
+def launch_plan(n_fft: int, n_segments: int = 0) -> dict:
+    """What each featurizer kernel launches for one frame (row) at n_fft, by
+    its :data:`LAUNCHES` name: ``{"instance", "cluster", "smem"}``, the
+    template instance, the CTAs of the frame's thread-block cluster (1: no
+    cluster) and the dynamic shared memory of a CTA (the tier kernels: the
+    largest over their pass counts; K5 and K5t with ``n_segments`` segment
+    sums).  Raises ``ValueError`` as the wrappers do for an n_fft the FFT
+    kernels do not take; the tier kernels appear only where they take it."""
+    plan = {}
+    for name, kernel in (("wave_stft_power", "wave_stft_power_kernel"),
+                         ("frames_stft_power", "frames_stft_power_kernel"),
+                         ("wave_packed_fft", "wave_packed_fft_kernel"),
+                         ("wave_stft_mel_log", "wave_stft_mel_log_kernel")):
+        extra = k5_extra_smem(n_fft, n_segments) if name == "wave_stft_mel_log" else 0
+        p = stockham_plan(n_fft, extra)
+        plan[name] = {"instance": f"{kernel}<{p['log2_m']}>", "cluster": p["cluster"],
+                      "smem": p["smem"]}
+    log2_n = n_fft.bit_length() - 1
+    passes = [(a, b) for a in TIER_PASSES.values() for b in TIER_PASSES.values()]
+    if log2_n in TIER_LOG2_N:
+        n1 = 1 << (log2_n // 2)
+        smem = max(tier_smem_bytes(n1, a, b) for a, b in passes)
+        plan["wave_dft_power_bf16"] = {"instance": f"tier_dft_kernel<{n1}, P1, P2>",
+                                       "cluster": 1, "smem": smem}
+        plan["wave_stft_mel_log_bf16"] = {"instance": f"tier_dft_mel_log_kernel<{n1}, P1, P2>",
+                                          "cluster": (n_fft // n1) // 64,
+                                          "smem": smem + 4 * n_segments}
+    if log2_n in PACKED_TIER_LOG2_N:
+        n1 = 1 << ((log2_n - 1) // 2)
+        plan["wave_packed_fft_bf16"] = {
+            "instance": f"tier_packed_fft_kernel<{n1}, P1, P2>", "cluster": 1,
+            "smem": max(packed_plan(n1, a, b)["smem"] for a, b in passes)}
+    return plan
+
+
 def _check_tier_size(n_fft: int, window: torch.Tensor, packed: bool = False) -> int:
-    """Returns log2 n_fft if the tier kernels take it (``packed``: K6t)."""
+    """Returns log2 n_fft if the tier kernels take it (``packed``: K6t, whose
+    DFT has m = n_fft/2 points)."""
     sizes = PACKED_TIER_LOG2_N if packed else TIER_LOG2_N
     log2_n = n_fft.bit_length() - 1
     if n_fft & (n_fft - 1) or log2_n not in sizes:
@@ -995,31 +1088,20 @@ def _check_tier_size(n_fft: int, window: torch.Tensor, packed: bool = False) -> 
 
 
 @functools.lru_cache(maxsize=16)
-def _tier_tables(n: int, inner_chunks: int, outer_chunks: int, device: torch.device,
-                 packed: bool = False):
-    """The tier kernels' tables of an n-point DFT on ``device``, from
+def _tier_tables(n: int, inner_chunks: int, outer_chunks: int, device: torch.device):
+    """K1t's, K3t's and K5t's tables of an n-point DFT on ``device``, from
     sed_tpu's f32 constants split once (bf16):
-      * tab1, ``inner_chunks`` x (2 n2, k): row 16t + 8h + i the coefficients
-        of Y at k2 = 8t + i (h = 0 real, 1 imaginary part): W2 over k = n2
-        (a real frame); ``packed`` (K6t's complex frame), k = 2 n2, each 32
-        columns t those of Re z at a = 16t .. 16t + 15, then of Im z at the
-        same a: (W2r, -W2i) for Yr, (W2i, W2r) for Yi;
+      * tab1, ``inner_chunks`` x (2 n2, n2): row 16t + 8h + i the
+        coefficients of Y at k2 = 8t + i (h = 0 real, 1 imaginary part): W2
+        over a;
       * tab2, ``outer_chunks`` x (2 c, 2 n1), column 2j + h (h = 0: Zr, 1:
         Zi) of the outer stage over [Tr | Ti]: (W1r, -W1i) and (W1i, W1r) at
-        k1 = j < c, c = n1/2 + 4 (the one-sided bins and bin n/2) or, packed,
-        n1;
+        k1 = j < c, c = n1/2 + 4 (the one-sided bins and bin n/2);
       * the (n2, n1) f32 twiddles as (re, im) pairs."""
     n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(n)
-    yr, yi = w2r, w2i
-    if packed:   # column c of a K tile <- column (Re or Im, a) of [Xr; Xi]
-        c = np.arange(2 * n2)
-        natural = (c % 32) // 16 * n2 + 16 * (c // 32) + c % 16
-        yr = np.concatenate([w2r, -w2i], axis=1)[:, natural]
-        yi = np.concatenate([w2i, w2r], axis=1)[:, natural]
-    k = yr.shape[1]
-    w2 = np.stack([yr.reshape(n2 // 8, 8, k), yi.reshape(n2 // 8, 8, k)],
-                  axis=1).reshape(2 * n2, k)
-    j = np.arange(n1 if packed else n1 // 2 + 4)
+    w2 = np.stack([w2r.reshape(n2 // 8, 8, n2), w2i.reshape(n2 // 8, 8, n2)],
+                  axis=1).reshape(2 * n2, n2)
+    j = np.arange(n1 // 2 + 4)
     w1 = np.empty((2 * len(j), 2 * n1), np.float32)
     w1[0::2, :n1], w1[0::2, n1:] = w1r[:, j].T, -w1i[:, j].T
     w1[1::2, :n1], w1[1::2, n1:] = w1i[:, j].T, w1r[:, j].T
@@ -1032,17 +1114,107 @@ def _tier_tables(n: int, inner_chunks: int, outer_chunks: int, device: torch.dev
     return chunks(w2, inner_chunks), chunks(w1, outer_chunks), tw
 
 
+# K6t (featurizer.cu tier_packed_fft_kernel): stage 2's ring of W1 tiles, and the
+# 128-byte swizzle of its shared-memory tiles (rows of 64 bf16).
+_PACKED_RING2 = 2
+
+
+def packed_plan(n1: int, inner_passes: int, outer_passes: int) -> dict:
+    """K6t's shape at n1 and the two stages' passes, as featurizer.cu's
+    ``packed_shape`` computes it: ``kb`` k2 rows a unit, ``n1p`` stage-1
+    columns a pass, ``d1`` stage-1 ring slots and ``smem``, the dynamic
+    shared memory (T^T, the two rings, the drain, the barriers and 1024 bytes
+    of alignment): the largest kb (64 up to n1 128, else 32), then n1p (up
+    to 128), then d1 (3 or 2) that fit 227 KB.  For :func:`launch_plan`'s
+    report and the tests' model of the kernel: no launch reads it (the
+    kernel takes its shape at compile time, and its tables do not depend on
+    it)."""
+    c1, c2 = _tier_chunks(inner_passes), _tier_chunks(outer_passes)
+
+    def smem(kb, n1p, d1):
+        return (c2 * (2 * n1 // 64) * kb * 128 + d1 * c1 * (n1p + 2 * kb) * 128
+                + _PACKED_RING2 * c2 * 64 * 128 + 2 * 32 * (kb + 4) * 4
+                + 2 * 8 * (3 + _PACKED_RING2) + 1024)
+
+    for kb in ((64, 32) if n1 <= 128 else (32,)):
+        n1p = min(n1, 128)
+        while n1p >= 32:
+            for d1 in (3, 2):
+                if smem(kb, n1p, d1) <= _MAX_SMEM_BYTES:
+                    return {"kb": kb, "n1p": n1p, "d1": d1, "smem": smem(kb, n1p, d1)}
+            n1p //= 2
+    raise ValueError(f"K6t has no shape at n1 {n1}, passes {inner_passes}, {outer_passes}")
+
+
+def sw128_image(tile: np.ndarray) -> np.ndarray:
+    """(..., rows, 64) -> the same values at their places under the 128-byte
+    swizzle (featurizer.cu ``sw128``): element (r, c) at column ((c // 8) ^
+    (r % 8)) * 8 + c % 8 of row r."""
+    r = np.arange(tile.shape[-2])[:, None]
+    c = np.arange(64)[None, :]
+    out = np.empty_like(tile)
+    out[..., r, ((c >> 3) ^ (r & 7)) << 3 | (c & 7)] = tile
+    return out
+
+
+def packed_operands(m: int):
+    """K6t's f32 operands of an m-point packed DFT (n1 = 2^(log2 m // 2)),
+    from sed_tpu's constants (``_matmul_fft_constants``):
+      * A1 (2 n2, 2 n2): row 16t + 8h + i the coefficients of Yr (h = 0) or
+        Yi (h = 1) at k2 = 8t + i; column 64 kt + c those of Re z (c < 32)
+        or Im z (c >= 32) at a = 32 kt + c mod 32: W2r and -W2i for Yr, W2i
+        and W2r for Yi;
+      * A2 (2 n1, 2 n1): row 16t + 8h + i the coefficients of Zr (h = 0) or
+        Zi (h = 1) at k1 = 8t + i over [Tr | Ti] (column b, n1 + b): W1r
+        and -W1i for Zr, W1i and W1r for Zi;
+      * the (n2, n1) twiddles as (re, im) pairs."""
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(m)
+    rows = np.arange(2 * n2)
+    k2, h = (rows // 16 * 8 + rows % 8)[:, None], (rows // 8 % 2)[:, None]
+    cols = np.arange(2 * n2)
+    a, im = (cols // 64 * 32 + cols % 32)[None, :], (cols % 64 >= 32)[None, :]
+    a1 = np.where(h == 0, np.where(im, -w2i[k2, a], w2r[k2, a]),
+                  np.where(im, w2r[k2, a], w2i[k2, a]))
+    rows = np.arange(2 * n1)
+    k1, h = (rows // 16 * 8 + rows % 8)[:, None], (rows // 8 % 2)[:, None]
+    cols = np.arange(2 * n1)
+    b, ti = (cols % n1)[None, :], (cols >= n1)[None, :]
+    a2 = np.where(h == 0, np.where(ti, -w1i[b, k1], w1r[b, k1]),
+                  np.where(ti, w1r[b, k1], w1i[b, k1]))
+    return n1, n2, a1.astype(np.float32), a2.astype(np.float32), np.stack([twr, twi], axis=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_tables(m: int, inner_chunks: int, outer_chunks: int, device: torch.device):
+    """K6t's tables on ``device``: the bf16 chunks of :func:`packed_operands`'
+    A1 and A2 in the shared-memory image of each 64-row tile, so that one
+    bulk copy brings a tile's chunks (whatever k2 rows a unit the instance
+    takes, :func:`packed_plan`):
+      * tab1 [mt][kt][chunk][64 rows][64], M tile mt (k2 = 32 mt ..) and K
+        tile kt;
+      * tab2 [mt][kt][chunk][64 rows][64], M tile mt and K tile kt;
+      * the (n2, n1) f32 twiddles as (re, im) pairs."""
+    n1, n2, a1, a2, tw = packed_operands(m)
+
+    def image(a, chunks):
+        parts = np.stack([c.numpy() for c in split_bf16(torch.from_numpy(a), chunks)])
+        r, k = a.shape
+        tiles = parts.reshape(chunks, r // 64, 64, k // 64, 64).transpose(1, 3, 0, 2, 4)
+        flat = np.ascontiguousarray(sw128_image(tiles)).reshape(-1)
+        return torch.from_numpy(flat).to(torch.bfloat16).to(device)
+
+    return image(a1, inner_chunks), image(a2, outer_chunks), torch.from_numpy(tw).to(device)
+
+
 def _tier_setup(name: str, n_fft: int, window: torch.Tensor, rows: int, passes,
-                device: torch.device, packed: bool = False):
-    """Checks what the tier kernels take; returns log2 of the DFT's points
-    (n_fft, or m = n_fft/2 when ``packed``) and its tables on ``device``
-    (:func:`_tier_tables`: tab1, tab2, the twiddles)."""
-    log2_n = _check_tier_size(n_fft, window, packed) - int(packed)
+                device: torch.device):
+    """Checks what K1t, K3t and K5t take; returns log2 n_fft and the tables
+    on ``device`` (:func:`_tier_tables`: tab1, tab2, the twiddles)."""
+    log2_n = _check_tier_size(n_fft, window)
     if rows * ((1 << log2_n) >> (log2_n // 2)) // 64 > _MAX_GRID_X:
         raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
     inner, outer = passes
-    return log2_n, _tier_tables(1 << log2_n, _tier_chunks(inner), _tier_chunks(outer), device,
-                                packed)
+    return log2_n, _tier_tables(1 << log2_n, _tier_chunks(inner), _tier_chunks(outer), device)
 
 
 def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
@@ -1067,7 +1239,7 @@ def wave_dft_power_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_f
     'bf16x6', or an (inner, outer) pair).
 
     CPU tensors take :func:`wave_dft_power_bf16_plain`; CUDA tensors launch
-    K1t (``tier_dft_kernel`` with K1's framing; n_fft 2048..32768).  Both go
+    K1t (``tier_dft_kernel`` with K1's framing; n_fft 2048..131072).  Both go
     through the custom operator ``sed_tpu_torch::wave_dft_power_bf16``, which
     takes the two stages' passes as ints, so an exported program holds it.
     """
@@ -1155,7 +1327,7 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
     device memory.
 
     CPU tensors take :func:`wave_stft_mel_log_bf16_plain`; CUDA tensors
-    launch K5t (``tier_dft_mel_log_kernel``, n_fft 2048..32768), equal to
+    launch K5t (``tier_dft_mel_log_kernel``, n_fft 2048..131072), equal to
     :func:`wave_dft_power_bf16` then :func:`mel_log` bit for bit.
     """
     passes = _reduced_passes(precision)
@@ -1193,10 +1365,10 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
     """(n_sig, samples) f32 -> (Zr, Zi), each (n_sig, 1 + samples // hop,
     n_fft/2) f32: K6's function, Z = DFT_m((x_even + i*x_odd) * window) of
     each centred frame in natural bin order, by sed_tpu's matmul DFT of the
-    m = n_fft/2 points at a reduced ``precision`` (:func:`tier_passes`).
+    m = n_fft/2 packed points at a reduced ``precision`` (:func:`tier_passes`).
 
     CPU tensors take :func:`wave_packed_fft_bf16_plain`; CUDA tensors launch
-    K6t (``tier_packed_fft_kernel``, n_fft 4096..32768).
+    K6t (``tier_packed_fft_kernel``: wgmma, n_fft 4096..131072).
     """
     passes = _reduced_passes(precision)
     if waves.device.type == "cpu":
@@ -1205,11 +1377,12 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
         raise ValueError(f"wave_packed_fft_bf16: unsupported device {waves.device}")
     device = waves.device
     n_frames = _check_waves("wave_packed_fft_bf16", waves, window, hop, n_fft)
+    log2_m = _check_tier_size(n_fft, window, packed=True) - 1
     n_sig, n_samples = waves.shape
     rows = n_sig * n_frames
-    log2_m, (tab1, tab2, tw) = _tier_setup("wave_packed_fft_bf16", n_fft, window, rows, passes,
-                                           device, packed=True)
-    zr = torch.empty((n_sig, n_frames, n_fft // 2), dtype=torch.float32, device=device)
+    m = n_fft // 2
+    tab1, tab2, tw = _packed_tables(m, *(_tier_chunks(p) for p in passes), device)
+    zr = torch.empty((n_sig, n_frames, m), dtype=torch.float32, device=device)
     zi = torch.empty_like(zr)
     if n_sig == 0:
         return zr, zi

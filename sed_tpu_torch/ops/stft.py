@@ -179,6 +179,26 @@ def stockham_twiddles(n_fft: int):
     return out_c, out_s
 
 
+# The most points one CTA's Stockham FFT holds (featurizer.cu kCtaLog2M);
+# above it a frame's m points are spread over a cluster of m / 2^14 CTAs.
+CTA_FFT_POINTS = 1 << 14
+
+
+@functools.lru_cache(maxsize=8)
+def cluster_twiddles(n_fft: int):
+    """cos and sin of the cross pass of the cluster FFT (m = n_fft/2 = C * M
+    points, M = :data:`CTA_FFT_POINTS`): row r of the (C, M) table holds
+    W_m^(r*n1), n1 < M, computed in float64 and rounded once to float32.
+    CTA r of a frame's cluster multiplies its cross-pass output at n1 by it."""
+    m = n_fft // 2
+    c_count = m // CTA_FFT_POINTS
+    theta = -2.0 * np.pi * np.outer(np.arange(c_count), np.arange(CTA_FFT_POINTS)) / m
+    c, s = np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+    c.setflags(write=False)
+    s.setflags(write=False)
+    return c, s
+
+
 def hermitian_unpack(zr: torch.Tensor, zi: torch.Tensor, n_fft: int):
     """Z = FFT_M(x_even + i*x_odd) of real frames (M = n_fft/2, natural bin
     order) -> (real, imag) of their real DFT, each (..., M + 1):

@@ -7,11 +7,16 @@ import neither JAX nor sed_tpu, so they also run where JAX is absent:
 
 Tolerances (against the plain versions computed in float64 on the card):
   * K1 and K3 power, K6's packed Z: abs error <= 1e-5 x the frame's (row's)
-    peak;
+    peak, at every n_fft 4..131072 (above 32768 over a cluster of 2 or 4
+    CTAs a frame);
   * K2, K5, every impl name and the whole featurizer: <= 1e-4 dB (K2 at
     row counts across its persistent grid, on rows off a 16-byte boundary,
-    at every n_fft 4..32768 and at 65,537 bins);
-  * K5 against K1 then K2: equal bit for bit, at every n_fft 4..32768;
+    at every n_fft 4..32768 and at 32,769 and 65,537 bins; every impl at 96
+    and 192 kHz);
+  * K5 against K1 then K2: equal bit for bit, at every n_fft 4..131072;
+  * the tier kernels (K1t, K3t, K5t, K6t) against their plain versions
+    within ``tier_tol``, at n_fft 2048..131072 (K6t 4096..131072, every
+    pass count of each stage);
   * scores, CUDA against CPU: <= 1e-4 abs (another summation order);
   * the windowed per-file path against the whole-recording forward on the
     card, and M5's two stems against each other: <= 1e-4 abs.
@@ -413,9 +418,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                 SMALL.nfft)
     with pytest.raises(ValueError):
         kernels.wave_stft_power(waves, window.cpu(), SMALL.hop_size, SMALL.nfft)
-    big = torch.zeros(65536, device=cuda)
-    with pytest.raises(ValueError, match="shared-memory"):
-        kernels.wave_stft_power(waves, big, 1000, 65536)
+    # Up to n_fft 131072 a frame spreads over a cluster of up to 4 CTAs.
+    big = torch.zeros(262144, device=cuda)
+    with pytest.raises(ValueError, match="cluster of at most 4"):
+        kernels.wave_stft_power(waves, big, 1000, 262144)
     bands = kernels.mel_bands(SMALL, cuda)
     with pytest.raises(ValueError):
         kernels.mel_log(torch.zeros(4, SMALL.freq_bins - 1, device=cuda), bands)
@@ -787,10 +793,11 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         kernels.wave_stft_mel_log(waves, window, SMALL.hop_size, SMALL.nfft,
                                   kernels.mel_bands(SMALL, torch.device("cpu")))
-    # K5 keeps z and the power in shared memory: 32768 fits, 65536 does not.
-    big = torch.zeros(65536, device=cuda)
-    with pytest.raises(ValueError, match="shared-memory"):
-        kernels.wave_stft_mel_log(waves, big, 1000, 65536, bands)
+    # K5 keeps z and the power in shared memory, over a cluster of up to 4
+    # CTAs: 131072 fits, 262144 does not.
+    big = torch.zeros(262144, device=cuda)
+    with pytest.raises(ValueError, match="cluster of at most 4"):
+        kernels.wave_stft_mel_log(waves, big, 1000, 262144, bands)
 
 
 def seeded_model(arch, seed=0):
@@ -1818,7 +1825,7 @@ def test_k2_bf16_modes_match_their_plain_versions(cuda, mel_precision, rows):
 def test_tier_kernels_refuse_what_they_do_not_take(cuda):
     small = SpectrogramConfig(working_sample_rate=8000, time_margin=0.05)   # n_fft 1024
     waves = signals(1, 8000, 8000, cuda)
-    with pytest.raises(ValueError, match="2048 to 32768"):
+    with pytest.raises(ValueError, match="2048 to 131072"):
         kernels.wave_dft_power_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
                                     small.nfft, "bf16x3")
     window = kernels.stft_window(SMALL, cuda)
@@ -1835,10 +1842,10 @@ def test_tier_kernels_refuse_what_they_do_not_take(cuda):
         kernels.frames_dft_power_bf16(torch.zeros(SMALL.nfft, 2, device=cuda).t(), window,
                                       SMALL.nfft, "bf16x3")
     small = tier_cfg(2048)   # K6t transforms m = n_fft / 2 points: 2048 is below it
-    with pytest.raises(ValueError, match="4096 to 32768"):
+    with pytest.raises(ValueError, match="4096 to 131072"):
         kernels.wave_packed_fft_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
                                      small.nfft, "bf16x3")
-    with pytest.raises(ValueError, match="4096 to 32768"):
+    with pytest.raises(ValueError, match="4096 to 131072"):
         kernels.logmel_waveform(waves, small, impl="pack", precision="bf16x1")
 
 
@@ -1890,7 +1897,7 @@ def test_k5b_equals_k1_then_k2b(cuda, n_fft, mel_precision):
 
 @pytest.mark.parametrize("precision", ["bf16x3", "bf16x1", ("bf16x6", "bf16x4"),
                                        ("bf16x1", "bf16x3")], ids=str)
-@pytest.mark.parametrize("n_fft", [4096, 8192, 16384, 32768])
+@pytest.mark.parametrize("n_fft", [4096, 8192, 16384, 32768, 65536, 131072])
 def test_k6t_matches_its_plain_version(cuda, n_fft, precision):
     """K6t against its plain version within phase 20's tier_rel_tol x the
     frame's peak |Z|, and, on broadband noise, nearer its own mode than the
@@ -1953,3 +1960,231 @@ def test_fuse_and_pack_tiers_launch_their_row(cuda, impl, precision, mel_precisi
     tol = 0.05 if "bf16x1" in stages + (mel_precision,) else 1e-3
     assert got.shape == chain.shape
     assert float((got.double() - chain).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# n_fft 65536 and 131072 (96 and 192 kHz): the cluster FFT (K1, K3, K5, K5b,
+# K6), K2 at 32,769 and 65,537 bins, the tier kernels at n1 = 256
+# ---------------------------------------------------------------------------
+
+WIDE = {65536: SpectrogramConfig(working_sample_rate=96000),
+        131072: SpectrogramConfig(working_sample_rate=192000)}
+ALL_PASSES = [(f"bf16x{a}", f"bf16x{b}") for a in (1, 3, 4, 6) for b in (1, 3, 4, 6)]
+
+
+def wide_signals(n_fft, cuda, hops=5, seed=0):
+    """Two signals of ``hops`` hops and a few samples at n_fft's rate: frames
+    over both reflection edges (a cluster CTA's chunk of them may be
+    interior) and interior frames."""
+    cfg = WIDE[n_fft]
+    return cfg, signals(2, hops * cfg.hop_size + 777, cfg.working_sample_rate, cuda, seed)
+
+
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_cluster_fft_kernels_match_float64(cuda, n_fft):
+    """K1, K3 (float32 and int16 rows) and K6 over a cluster of n_fft / 32768
+    CTAs a frame: one launch each, within 1e-5 x each frame's (row's) peak of
+    the float64 plain version; K1 then K2 within 1e-4 dB of the float64
+    chain; K5 and K5b equal to K1 then K2 (at K2's mode) bit for bit."""
+    cfg, waves = wide_signals(n_fft, cuda)
+    hop = cfg.hop_size
+    window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
+    assert kernels.stockham_plan(n_fft)["cluster"] == n_fft // 32768
+    check_k1(waves, window, hop, n_fft)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    power = kernels.wave_stft_power(waves, window, hop, n_fft).reshape(-1, n_fft // 2 + 1)
+    mel = kernels.mel_log(power, bands)
+    ref = kernels.mel_log_plain(kernels.wave_stft_power_plain(
+        waves.double(), window, hop, n_fft).reshape(-1, n_fft // 2 + 1), fb64)
+    assert float((mel.double() - ref).abs().max()) <= 1e-4
+    for mel_precision in (None, "bf16x1", "bf16x3"):
+        key = "wave_stft_mel_log" if mel_precision is None else "wave_stft_mel_log_mel_bf16"
+        before = kernels.LAUNCHES[key]
+        got = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands, mel_precision)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[key] == before + 1
+        assert torch.equal(got.reshape(-1, bands.n_mels), kernels.mel_log(power, bands,
+                                                                          mel_precision))
+    rows = waves[:, : n_fft + 2 * hop].unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+    for x in (rows, (rows * 20000).round().to(torch.int16)):
+        before = kernels.LAUNCHES["frames_stft_power"]
+        got = kernels.frames_stft_power(x, window, n_fft)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["frames_stft_power"] == before + 1
+        want = kernels.frames_stft_power_plain(x, window, n_fft, dtype=torch.float64)
+        peak = want.amax(dim=-1, keepdim=True)
+        assert bool(((got.double() - want).abs() <= 1e-5 * peak).all())
+    before = kernels.LAUNCHES["wave_packed_fft"]
+    zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_packed_fft"] == before + 1
+    wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft)
+    peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+    for z, w in ((zr, wr), (zi, wi)):
+        assert bool(((z.double() - w).abs() <= 1e-5 * peak).all())
+
+
+@pytest.mark.parametrize("rows", [1, 7, 600])
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_k2_at_wide_bins_matches_float64(cuda, n_fft, rows):
+    """K2 (and K4 through it) at 32,769 and 65,537 bins: its ring holds
+    chunks, not rows; one launch, within 1e-4 dB of float64."""
+    cfg = WIDE[n_fft]
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    power = torch.rand(rows, cfg.freq_bins, generator=g, device=cuda) ** 4 * 1e3
+    before = kernels.LAUNCHES["mel_log"]
+    got = kernels.power_to_logmel_cuda(power, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mel_log"] == before + 1
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    assert float((got.double() - kernels.mel_log_plain(power.double(), fb64)).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", sorted(kernels.IMPL_KERNELS))
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_every_impl_at_96_and_192_khz_launches_its_row(cuda, n_fft, impl):
+    """logmel_waveform at 96 and 192 kHz launches exactly IMPL_KERNELS' row
+    once each, within 1e-4 dB of the float64 chain (a signal long enough for
+    'rollraw''s interior tiles, a multiple of 128 samples)."""
+    cfg = WIDE[n_fft]
+    sr = cfg.working_sample_rate
+    waves = signals(2, 6 * sr, sr, cuda, seed=2)
+    kernels.reset_launch_counts()
+    got = kernels.logmel_waveform(waves, cfg, impl=impl)
+    torch.cuda.synchronize()
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update(dict.fromkeys(kernels.IMPL_KERNELS[impl], 1))
+    assert kernels.LAUNCHES == want_launches
+    window = kernels.stft_window(cfg, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    chain = kernels.wave_stft_mel_log_plain(waves.double(), window, cfg.hop_size, n_fft, fb64)
+    assert got.shape == chain.shape
+    assert float((got.double() - chain).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_predictor_and_tick_at_96_and_192_khz(cuda, n_fft):
+    """make_batch_predictor at 96 and 192 kHz (K1 and K2 once) against the
+    CPU within 1e-4, and the tick's logmel_frames (K3 then K2) within 1e-4
+    dB of float64."""
+    cfg = WIDE[n_fft]
+    sr = cfg.working_sample_rate
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, generator=torch.Generator().manual_seed(0))
+    pcm = (signals(2, 11 * sr, sr, cuda, seed=3) * 20000).round().to(torch.int16)[..., None]
+    with torch.inference_mode():
+        feats = featurizer.logmel_features_batch(pcm, cfg)
+    mean = feats.mean(dim=(0, 1, 2)).cpu().numpy()
+    std = feats.std(dim=(0, 1, 2)).cpu().numpy()
+    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device="cuda")
+    kernels.reset_launch_counts()
+    scores = predict(pcm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_power"] == 1 and kernels.LAUNCHES["mel_log"] == 1
+    cpu = make_batch_predictor(copy.deepcopy(model).cpu(), cfg, mean=mean, std=std, device="cpu")
+    assert float((scores.cpu() - cpu(pcm.cpu())).abs().max()) <= 1e-4
+    frames = pcm[0, : cfg.nfft + 4 * cfg.hop_size, 0].unfold(0, cfg.nfft, cfg.hop_size)
+    frames = frames.contiguous()
+    kernels.reset_launch_counts()
+    lm = featurizer.logmel_frames(frames, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frames_stft_power"] == 1 and kernels.LAUNCHES["mel_log"] == 1
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    want = kernels.mel_log_plain(kernels.frames_stft_power_plain(
+        frames, kernels.stft_window(cfg, cuda), cfg.nfft, dtype=torch.float64), fb64)
+    assert float((lm.double() - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("precision", ALL_PASSES, ids=str)
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_wide_k1t_matches_its_plain_version(cuda, n_fft, precision):
+    """K1t at n1 = 256 (n2 256 and 512) at every pass count of each stage,
+    the staged-T instances (a stage of 6 passes) included: one launch,
+    within tier_tol x each frame's peak of the plain version."""
+    cfg, waves = wide_signals(n_fft, cuda, hops=3)
+    window = kernels.stft_window(cfg, cuda)
+    before = kernels.LAUNCHES["wave_dft_power_bf16"]
+    got = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_dft_power_bf16"] == before + 1
+    want = kernels.wave_dft_power_bf16_plain(waves, window, cfg.hop_size, n_fft, precision)
+    assert got.shape == want.shape
+    peak = want.amax(dim=-1, keepdim=True)
+    rel = float(((got - want).abs() / peak.clamp_min(1e-30)).max())
+    assert rel <= tier_tol(precision), rel
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x1"])
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_wide_k1t_runs_its_own_mode(cuda, n_fft, precision):
+    """On broadband noise, K1t at n1 = 256 lies nearer its own mode's plain
+    version than the next mode's, and at the next mode nearer that one's."""
+    cfg, _ = wide_signals(n_fft, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    noise = 0.3 * torch.randn(2, 3 * cfg.hop_size + 777, generator=g, device=cuda)
+    window = kernels.stft_window(cfg, cuda)
+    got = kernels.wave_dft_power_bf16(noise, window, cfg.hop_size, n_fft, precision)
+    want, neighbour = (kernels.wave_dft_power_bf16_plain(noise, window, cfg.hop_size, n_fft, p)
+                       for p in (precision, TIER_NEIGHBOUR[precision]))
+    peak = want.amax(dim=-1, keepdim=True)
+    assert abs(kernels.mode_fraction(got, want, neighbour, peak)) <= MODE_FRACTION_TOL
+    at_next = kernels.wave_dft_power_bf16(noise, window, cfg.hop_size, n_fft,
+                                          TIER_NEIGHBOUR[precision])
+    assert kernels.mode_fraction(at_next, want, neighbour, peak) >= 1 - MODE_FRACTION_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x6", ("bf16x1", "bf16x6")], ids=str)
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_wide_k3t_matches_its_plain_version(cuda, n_fft, precision, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rows = 0.3 * torch.randn(12, n_fft, generator=g, device=cuda)
+    if dtype == torch.int16:
+        rows = (rows * 8000).round().to(torch.int16)
+    window = kernels.stft_window(WIDE[n_fft], cuda)
+    before = kernels.LAUNCHES["frames_dft_power_bf16"]
+    got = kernels.frames_dft_power_bf16(rows, window, n_fft, precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frames_dft_power_bf16"] == before + 1
+    want = kernels.frames_dft_power_bf16_plain(rows, window, n_fft, precision)
+    rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True)).max())
+    assert rel <= tier_tol(precision), rel
+
+
+@pytest.mark.parametrize("precision, mel_precision",
+                         FUSE_MODES + [("bf16x6", "bf16x1"), (("bf16x3", "bf16x6"), None)],
+                         ids=str)
+@pytest.mark.parametrize("n_fft", sorted(WIDE))
+def test_wide_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
+    """K5t at n1 = 256: a frame's 4 (n_fft 65536) or 8 (131072) blocks one
+    cluster; equal to K1t then K2 at mel_precision's mode bit for bit."""
+    cfg, waves = wide_signals(n_fft, cuda, hops=3)
+    window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
+    before = kernels.LAUNCHES["wave_stft_mel_log_bf16"]
+    got = kernels.wave_stft_mel_log_bf16(waves, window, cfg.hop_size, n_fft, bands, precision,
+                                         mel_precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_stft_mel_log_bf16"] == before + 1
+    power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
+    assert torch.equal(got.reshape(-1, bands.n_mels), two)
+
+
+@pytest.mark.parametrize("precision", ALL_PASSES, ids=str)
+@pytest.mark.parametrize("n_fft", [4096, 8192, 16384, 32768, 65536, 131072])
+def test_k6t_every_size_and_pass_count(cuda, n_fft, precision):
+    """The wgmma K6t at log2 m 11..16 (n1 32..256) and every pass count of
+    each stage (each instance's shape, packed_plan): one launch, every bin
+    within tier_tol x the frame's peak |Z| of the plain version, on frames
+    over both reflection edges and interior ones."""
+    cfg = WIDE.get(n_fft) or tier_cfg(n_fft)
+    waves = signals(2, 3 * cfg.hop_size + 777, cfg.working_sample_rate, cuda, seed=9)
+    window = kernels.stft_window(cfg, cuda)
+    before = kernels.LAUNCHES["wave_packed_fft_bf16"]
+    zr, zi = kernels.wave_packed_fft_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wave_packed_fft_bf16"] == before + 1
+    wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, cfg.hop_size, n_fft, precision)
+    assert zr.shape == wr.shape == (2, 1 + waves.shape[1] // cfg.hop_size, n_fft // 2)
+    peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+    rel = max(float(((z - w).abs() / peak).max()) for z, w in ((zr, wr), (zi, wi)))
+    assert rel <= tier_tol(precision), rel

@@ -763,3 +763,155 @@ def test_k2_segments_find_their_bins_in_the_ring(name, rows_at_once):
                 pos = (base + x) % (slots * chunk)
                 assert len(np.unique(pos)) == bins
                 assert ((pos // chunk) == (seq0 + of) % slots).all()
+
+
+# ---------------------------------------------------------------------------
+# The cluster FFT (n_fft 65536, 131072): a cross pass over C CTAs, then each
+# CTA's stockham_fft on 2^14 points; the drain's mirrors across the cluster
+# ---------------------------------------------------------------------------
+
+CTA_POINTS = 1 << 14
+CLUSTER_N_FFT = (65536, 131072)
+
+
+def cross_pass(z, cross, r):
+    """CrossLoad's output in CTA r: sum_q chunk_q W_C^(q r), q in order (W_C
+    a power of -i, exact), times row r of the cross table (r > 0)."""
+    C = len(z) // CTA_POINTS
+    chunks = z.reshape(C, CTA_POINTS)
+    acc = chunks[0].astype(np.complex128)
+    for q in range(1, C):
+        acc = acc + chunks[q] * (-1j) ** ((q * r * (4 // C)) % 4)
+    return acc * cross[r] if r else acc
+
+
+def cluster_fft(z, cross, table, drain=None):
+    """The cluster's FFT of m = C * 2^14 points: CTA r's stockham_fft of its
+    cross-pass output holds bins r + C k1 (k1 its natural order).  ``drain(r,
+    v)`` takes CTA r's registers; by default Z in natural order."""
+    m = len(z)
+    C = m // CTA_POINTS
+    regs = [stockham_fft(cross_pass(z, cross, r), table, drain=lambda v: v) for r in range(C)]
+    if drain is not None:
+        return [drain(r, v, regs) for r, v in enumerate(regs)]
+    out = np.full(m, np.nan, dtype=np.complex128)
+    T = thread_count(14)
+    t = np.arange(T)
+    for r, v in enumerate(regs):
+        for s in range(POINTS):
+            out[r + C * slot_index(t, s, T)] = v[s]
+    return out
+
+
+def cluster_partner(r, k1, C):
+    """ClusterPowerStore: the CTA and the k1 that hold Z[(m - k) mod m] for
+    bin k = r + C k1."""
+    k1 = np.asarray(k1)
+    if r == 0:
+        return 0, (CTA_POINTS - k1) % CTA_POINTS
+    return C - r, CTA_POINTS - 1 - k1
+
+
+def cross64(m):
+    C = m // CTA_POINTS
+    return np.exp(-2j * np.pi * np.outer(np.arange(C), np.arange(CTA_POINTS)) / m)
+
+
+def cross32(m):
+    c, s = stft_ops.cluster_twiddles(2 * m)
+    return c.astype(np.float64) + 1j * s.astype(np.float64)
+
+
+@pytest.mark.parametrize("n_fft", CLUSTER_N_FFT)
+def test_cluster_tables_are_the_f32_rounding_of_float64(n_fft):
+    """The cross table is W_m^(r n1) rounded once to f32, after the 2^14
+    pass-ordered twiddles of a CTA's FFT in the table the kernels read."""
+    m = n_fft // 2
+    c, s = stft_ops.cluster_twiddles(n_fft)
+    want = cross64(m)
+    assert np.array_equal(c, want.real.astype(np.float32))
+    assert np.array_equal(s, want.imag.astype(np.float32))
+    table = kernels._stockham_twiddles(n_fft, torch.device("cpu")).numpy()
+    sub = np.stack(stft_ops.stockham_twiddles(2 * CTA_POINTS), axis=1)
+    assert table.shape == ((m // CTA_POINTS + 1) * CTA_POINTS, 2)
+    assert np.array_equal(table[:CTA_POINTS], sub)
+    assert np.array_equal(table[CTA_POINTS:, 0], c.reshape(-1))
+    assert np.array_equal(table[CTA_POINTS:, 1], s.reshape(-1))
+
+
+@pytest.mark.parametrize("n_fft", CLUSTER_N_FFT)
+def test_cluster_fft_matches_numpy_fft(n_fft):
+    """The cross pass, then each CTA's schedule, in float64 (exact tables)
+    and with the f32 tables the kernels read."""
+    m = n_fft // 2
+    z = random_points(m, n_fft)
+    want = np.fft.fft(z)
+    got = cluster_fft(z, cross64(m), table64(CTA_POINTS))
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+    got32 = cluster_fft(z, cross32(m), table32(CTA_POINTS))
+    assert np.abs(got32 - want).max() <= 2e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_fft", CLUSTER_N_FFT)
+def test_cluster_partner_holds_the_mirror_bin(n_fft):
+    """Bin k = r + C k1's mirror (m - k) mod m is bin partner + C k1', and
+    the partner CTA's k1' covers every position once."""
+    m = n_fft // 2
+    C = m // CTA_POINTS
+    k1 = np.arange(CTA_POINTS)
+    for r in range(C):
+        pr, pk = cluster_partner(r, k1, C)
+        assert pr == (C - r) % C
+        assert np.array_equal(pr + C * pk, (m - (r + C * k1)) % m)
+        assert np.array_equal(np.sort(pk), k1)
+
+
+def cluster_power_drain(z_regs, unpack, C):
+    """ClusterPowerStore of every CTA, as one (m + 1,) row: CTA r's bins r +
+    C k1, each with the mirror from its partner CTA."""
+    m = C * CTA_POINTS
+    T = thread_count(14)
+    t = np.arange(T)
+    shared = []
+    for v in z_regs:
+        buf = np.full(CTA_POINTS, np.nan, dtype=np.complex128)
+        for s in range(POINTS):
+            buf[slot_index(t, s, T)] = v[s]
+        shared.append(buf)
+    row = np.full(m + 1, np.nan)
+    for r, v in enumerate(z_regs):
+        for s in range(POINTS):
+            k1 = slot_index(t, s, T)
+            pr, pk = cluster_partner(r, k1, C)
+            zk, zr = v[s], np.conj(shared[pr][pk])
+            k = r + C * k1
+            x = (zk + zr) / 2 + unpack[k] * (zk - zr) / 2j
+            row[k] = x.real ** 2 + x.imag ** 2
+    row[m] = (z_regs[0][0][0].real - z_regs[0][0][0].imag) ** 2
+    return row
+
+
+@pytest.mark.parametrize("n_fft", CLUSTER_N_FFT)
+def test_model_of_cluster_k1_matches_the_plain_version(n_fft):
+    """K1 over a cluster (each CTA's chunk of the centred frame by K6's
+    loader, the cross pass, the schedule, the cluster drain) against
+    ``wave_stft_power_plain`` in float64: an interior frame and the frames
+    over both reflection edges of a signal of 2.5 frames."""
+    m, hop = n_fft // 2, n_fft // 2
+    C = m // CTA_POINTS
+    window = stft_ops.padded_window(n_fft - n_fft // 8, n_fft).astype(np.float64)
+    y = np.random.default_rng(n_fft).standard_normal(5 * n_fft // 4 + 3)
+    n_frames = 1 + len(y) // hop
+    unpack = table64(m)
+    rows = np.array([cluster_power_drain(
+        cluster_fft(k6_frame_points(y, window, f * hop - m, m), cross64(m), table64(CTA_POINTS),
+                    drain=lambda r, v, regs: regs)[0], unpack, C) for f in range(n_frames)])
+    want = kernels.wave_stft_power_plain(torch.from_numpy(y[None]), torch.from_numpy(window),
+                                         hop, n_fft).numpy()[0]
+    assert rows.shape == want.shape == (n_frames, m + 1)
+    peak = want.max(axis=-1, keepdims=True)
+    assert (np.abs(rows - want) <= 1e-9 * peak).all()
+    # K5 reads bin k from CTA k mod C at k // C: the CTAs' rows rebuild it.
+    k = np.arange(m + 1)
+    per_cta = [np.append(rows[0][r:m:C], rows[0][m] if r == 0 else np.nan) for r in range(C)]
+    assert np.array_equal(np.array([per_cta[kk % C][kk // C] for kk in k]), rows[0])
