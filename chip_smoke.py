@@ -389,14 +389,38 @@ non-zero on the first failure.  Phases:
               against float64 and timed queued), K1t, K5t and K6t at fast and the
               predictor, beside their bounds, plain versions and PyTorch
               yardsticks.
+ 23. range   the ends of the n_fft range through every featurizer
+              kernel: at 1 kHz (n_fft 1024: the tiers' small end), 384 kHz,
+              768 kHz and 1.536 MHz (n_fft 2^18, 2^19, 2^20: the global cross
+              pass and the tier GEMMs), on two 10 s signals of noise, every
+              impl sed_tpu computes there at parity and fast, launch counts
+              reset just before and read just after each (exactly
+              ``impl_kernels(impl, precision, n_fft=)``' row, once each),
+              within 1e-4 dB (parity) and 1e-3 dB (fast) of the float64
+              chain; K1, K3 (float32, int16) and K6 within 1e-5 x peak of
+              float64, K5 and K5b equal to K1 then K2, K1t, K3t, K6t at fast,
+              turbo and bf16x6 within ``tier_rel_tol`` of their plain
+              versions and each nearer its own mode than the next
+              (``mode_fraction``), K5t equal to K1t then K2; at 384 kHz on a
+              16 x 60 s batch the predictor (its row once each; clip 0 within
+              1e-5 of the CPU path); times at 384 kHz and 1.536 MHz, 16 x 60
+              s: K1, K2, K5, K6, K1t, K5t and K6t beside their bounds, plain
+              versions (the tier ones on one clip's frames) and PyTorch
+              calls, and at 384 kHz each launch of the routes on its own
+              through its C call (the cross pass, the sub-rows' FFT, the
+              unpack, the tier GEMMs' two stages) beside a plain version of
+              it.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10, then K1t, K3t and K2's
 bf16 modes with phase 20's figures, then K5t, K5b and K6t with phase 21's,
 then the n_fft 65536 instances of K1, K2, K3, K5, K6, K1t, K5t and K6t with
-phase 22's; K1's and K2's with the training path's launches, every entry
-with phase 12's, 0, phase 13's, phase 14's, phase 15's, phase 16's, phase
-17's, phase 18's, phase 19's, phase 20's, phase 21's and phase 22's), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+phase 22's, then K1, K2, K5, K6, K1t, K5t and K6t at 384 kHz and 1.536 MHz
+and the routes' own kernels (the cross pass, the sub-rows' FFT, the unpack,
+the two tier GEMMs) with phase 23's; K1's and K2's with the training path's
+launches, every entry with phase 12's, 0, phase 13's, phase 14's, phase
+15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, phase
+21's, phase 22's and phase 23's), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -536,6 +560,9 @@ ENTRY_COUNTERS = {
     "wave_stft_mel_log_bf16": ("wave_stft_mel_log_bf16",),
     "wave_stft_mel_log_mel_bf16": ("wave_stft_mel_log_mel_bf16",),
     "wave_packed_fft_bf16": ("wave_packed_fft_bf16",),
+    "fft_cross_pass": ("fft_cross_pass",), "fft_subrows": ("fft_subrows",),
+    "packed_power": ("packed_power",), "tier_inner": ("tier_inner",),
+    "tier_outer": ("tier_outer",),
 }
 
 # Memory rate (B/s), FP32 rate outside the tensor cores and dense bf16
@@ -5638,6 +5665,525 @@ def wide_phase(torch, dev, smi, peaks):
     ], total
 
 
+# Phase 23: the ends of the n_fft range.  The rates of the new sizes checked
+# (1 kHz: the tiers' small end, n_fft 1024; 384 kHz, 768 kHz, 1.536 MHz: n_fft
+# 2^18, 2^19, 2^20), the seconds of the two clips of the checks (the float64
+# plain versions of 2^20 fit beside them), the rates timed at 16 x 60 s, the
+# reps of the tier GEMMs there (up to seconds a call) and the clips their
+# float64 plain versions are timed on (a 2^20 batch of them does not fit).
+RANGE_RATES = (1000, 384000, 768000, 1536000)
+RANGE_CHECK_SECONDS = 10
+RANGE_TIMED_RATES = (384000, 1536000)
+RANGE_TIER_CHECKS = ("bf16x3", "bf16x1", "bf16x6")
+RANGE_SLOW_REPS = 3
+RANGE_PLAIN_CLIPS = 1
+RANGE_SCORE_TOL = 1e-5    # the 384 kHz predictor's clip 0 against the CPU path
+
+
+def cross_pass_plain(torch, z, table, n_fft):
+    """Plain version of fft_cross_pass_kernel: packed frames z (frames, m)
+    complex -> (frames, R, 2^16) sub-rows, the R-point DFT over the frame's
+    chunks (R = 8: radix 4, then radix 2 of each, sub-row r1 + 4 r2) times
+    the cross table (``stft.cross_pass_twiddles``, complex)."""
+    f, m = z.shape
+    M = 1 << 16
+    r_count = m // M
+    if r_count <= 4:
+        return torch.fft.fft(z.view(f, r_count, M), dim=1) * table[: m].view(r_count, M)
+    y = torch.fft.fft(z.view(f, 4, 2 * M), dim=1) * table[: m].view(4, 2 * M)
+    u = torch.fft.fft(y.view(f, 4, 2, M), dim=2)
+    u[:, :, 1] *= table[m:]
+    return u.transpose(1, 2).reshape(f, r_count, M)
+
+
+def range_phase(torch, dev, smi, peaks):
+    """Phase 23: the ends of the n_fft range through every featurizer kernel
+    (see the module docstring).  ``peaks``: the card's (memory B/s, FP32
+    FLOP/s, dense bf16 FLOP/s).  Returns (the kernels line's entries, the
+    launch counts of the phase's main-path runs, summed)."""
+    from sed_tpu_torch.configs import SpectrogramConfig
+    from sed_tpu_torch.inference import make_batch_predictor
+    from sed_tpu_torch.models.cnn import TRAIN_CHANNEL_AND_POOL, CnnAvgPooling
+    from sed_tpu_torch.ops import cuda_featurizer as kernels
+    from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops.featurizer import ingest_to_f32, logmel_features_batch
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    t0 = time.perf_counter()
+    bw, fp32_peak, bf16_peak = peaks
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    fast = "bf16x3"
+
+    def counted(fn, *args, **kw):
+        """fn(...) with the launch counts reset just before and read just
+        after; returns (its result, the kernels it launched)."""
+        kernels.reset_launch_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for k, n in kernels.LAUNCHES.items():
+            total[k] += n
+        return out, launched
+
+    def bound(n_bytes, t_ops):
+        t_bytes = n_bytes / bw * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def rel_peak(got, want):
+        want = want.double()
+        peak = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+        return float(((got.double() - want).abs() / peak).max())
+
+    def rel_z(pair, want_pair):
+        peak = torch.hypot(*(w.double() for w in want_pair)).amax(dim=-1, keepdim=True)
+        return max(float(((g.double() - w.double()).abs() / peak).max())
+                   for g, w in zip(pair, want_pair))
+
+    # ---- every impl and every kernel at each new size, 2 x 10 s of noise -------
+    checks, impl_runs = {}, {}
+    for sr in RANGE_RATES:
+        cfg = SpectrogramConfig(working_sample_rate=sr)
+        hop, n_fft, n_bins = cfg.hop_size, cfg.nfft, cfg.freq_bins
+        window, bands = kernels.stft_window(cfg, dev), kernels.mel_bands(cfg, dev)
+        fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(23)
+        waves = (0.3 * torch.randn(2, RANGE_CHECK_SECONDS * sr, generator=g, device=dev))
+        got = {}
+        ref = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
+        chain64 = kernels.mel_log_plain(ref.reshape(-1, n_bins), fb64).reshape(2, -1, cfg.mel_bins)
+        impls = [i for i in kernels.IMPL_KERNELS
+                 if not (i in ("rollraw", "rolledge") and n_fft < 32768)
+                 and not (i == "fuse" and n_fft % 2048)]
+        worst = {None: 0.0, fast: 0.0}
+        for impl in impls:
+            for prec in (None, fast):
+                out, launched = counted(kernels.logmel_waveform, waves, cfg, impl=impl,
+                                        precision=prec)
+                names = kernels.impl_kernels(impl, prec, n_fft=n_fft)
+                check(launched == dict.fromkeys(names, 1),
+                      f"logmel_waveform({impl!r}, {prec}) at n_fft {n_fft} launched {names} once "
+                      f"each, not {launched}")
+                err = float((out.double() - chain64).abs().max())
+                tol = DB_TOL if prec is None else TIER_DB_TOL["fast"]
+                check(err <= tol, f"{impl} at {prec}, n_fft {n_fft}: {err:.3e} dB of float64")
+                worst[prec] = max(worst[prec], err)
+                impl_runs[sr, impl, prec] = launched
+        got["parity dB (worst impl)"], got["fast dB (worst impl)"] = worst[None], worst[fast]
+        power = kernels.wave_stft_power(waves, window, hop, n_fft)
+        got["K1 / peak"] = rel_peak(power, ref)
+        check(got["K1 / peak"] <= K1_REL_TOL, f"K1 at n_fft {n_fft} within 1e-5 x frame peak")
+        rows = power.reshape(-1, n_bins)
+        for mel_precision in (None, "bf16x1", "bf16x3"):
+            fused = kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands, mel_precision)
+            differ = int((fused.reshape(-1, bands.n_mels)
+                          != kernels.mel_log(rows, bands, mel_precision)).sum())
+            got[f"K5 {mel_precision} values differing from K1 then K2"] = differ
+            check(differ == 0, f"K5 at n_fft {n_fft}, mel {mel_precision} equals K1 then K2")
+        frames = waves[:, : n_fft + 2 * hop].unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+        pcm16 = (frames.clamp(-1, 1) * 32767).round().to(torch.int16)
+        for tag, x in (("float32", frames), ("int16", pcm16)):
+            got[f"K3 {tag} / peak"] = rel_peak(kernels.frames_stft_power(x, window, n_fft),
+                                               kernels.frames_stft_power_plain(
+                                                   x, window, n_fft, dtype=torch.float64))
+            check(got[f"K3 {tag} / peak"] <= K1_REL_TOL, f"K3 {tag} at n_fft {n_fft}")
+        got["K6 / peak"] = rel_z(kernels.wave_packed_fft(waves, window, hop, n_fft),
+                                 kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft))
+        check(got["K6 / peak"] <= K1_REL_TOL, f"K6 at n_fft {n_fft} within 1e-5 x peak |Z|")
+        del ref, chain64
+        for prec in RANGE_TIER_CHECKS:
+            tol = tier_rel_tol(kernels.tier_passes(prec))
+            t_pow = kernels.wave_dft_power_bf16(waves, window, hop, n_fft, prec)
+            want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, prec)
+            got[f"K1t {tier_tag(prec)} / peak"] = rel = rel_peak(t_pow, want)
+            check(rel <= tol, f"K1t at {prec}, n_fft {n_fft}, within {tol}")
+            got[f"K3t {tier_tag(prec)} / peak"] = rel = rel_peak(
+                kernels.frames_dft_power_bf16(frames, window, n_fft, prec),
+                kernels.frames_dft_power_bf16_plain(frames, window, n_fft, prec))
+            check(rel <= tol, f"K3t at {prec}, n_fft {n_fft}, within {tol}")
+            got[f"K6t {tier_tag(prec)} / peak"] = rel = rel_z(
+                kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, prec),
+                kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, prec))
+            check(rel <= tol, f"K6t at {prec}, n_fft {n_fft}, within {tol}")
+            if n_fft >= 2048:
+                fused = kernels.wave_stft_mel_log_bf16(waves, window, hop, n_fft, bands, prec)
+                differ = int((fused.reshape(-1, bands.n_mels)
+                              != kernels.mel_log(t_pow.reshape(-1, n_bins), bands)).sum())
+                got[f"K5t {tier_tag(prec)} values differing from K1t then K2"] = differ
+                check(differ == 0, f"K5t at {prec}, n_fft {n_fft} equals K1t then K2")
+            if prec in TIER_NAMES:   # fast and turbo: nearer its own mode than the next
+                nb = TIER_NEIGHBOURS[prec][0]
+                peak = want.amax(dim=-1, keepdim=True)
+                neighbour = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, nb)
+                own = kernels.mode_fraction(t_pow, want, neighbour, peak)
+                at_next = kernels.mode_fraction(kernels.wave_dft_power_bf16(
+                    waves, window, hop, n_fft, nb), want, neighbour, peak)
+                got[f"K1t {tier_tag(prec)} mode fraction (run at {nb})"] = (own, at_next)
+                check(abs(own) <= MODE_FRACTION_TOL and at_next >= 1 - MODE_FRACTION_TOL,
+                      f"K1t at {prec}, n_fft {n_fft}, runs its own mode")
+                zw = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, prec)
+                zn = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, nb)
+                zg = kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, prec)
+                za = kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, nb)
+                zpeak = torch.hypot(*zw).amax(dim=-1, keepdim=True)
+                own = kernels.mode_fraction(torch.cat(zg), torch.cat(zw), torch.cat(zn),
+                                            torch.cat([zpeak, zpeak]))
+                at_next = kernels.mode_fraction(torch.cat(za), torch.cat(zw), torch.cat(zn),
+                                                torch.cat([zpeak, zpeak]))
+                got[f"K6t {tier_tag(prec)} mode fraction (run at {nb})"] = (own, at_next)
+                check(abs(own) <= MODE_FRACTION_TOL and at_next >= 1 - MODE_FRACTION_TOL,
+                      f"K6t at {prec}, n_fft {n_fft}, runs its own mode")
+        torch.cuda.synchronize()
+        checks[sr] = got
+        log(f"[range] {sr} Hz, n_fft {n_fft} ({kernels.launch_plan(n_fft)['wave_stft_power']['route']}"
+            f" FFT, {kernels.launch_plan(n_fft)['wave_dft_power_bf16']['route']} tiers), 2 x "
+            f"{RANGE_CHECK_SECONDS} s of noise, {len(impls)} impls at parity and fast: " + "; ".join(
+                f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in got.items()))
+        del waves, power, rows, frames, pcm16, t_pow, want
+
+    # ---- 384 kHz, 16 x 60 s: the predictor ------------------------------------
+    sr = 384000
+    cfg = SpectrogramConfig(working_sample_rate=sr)
+    model = CnnAvgPooling(cfg.classes_num, TRAIN_CHANNEL_AND_POOL,
+                          generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    samples = sr * SECONDS
+    pcm = (make_signals(torch, BATCH, samples, sr, dev, 1) * 32767).round().to(
+        torch.int16)[..., None]
+    with torch.inference_mode():
+        feats = logmel_features_batch(pcm[:2], cfg)
+    mean = feats.mean(dim=(0, 1, 2)).cpu().numpy()
+    std = feats.std(dim=(0, 1, 2)).cpu().numpy()
+    del feats
+    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device=DEVICE)
+    scores, predictor_launches = counted(predict, pcm)
+    names = kernels.impl_kernels("roll", n_fft=cfg.nfft)
+    check(predictor_launches == dict.fromkeys(names, 1),
+          f"the 384 kHz predictor launched {names} once each, not {predictor_launches}")
+    check(bool(torch.isfinite(scores).all()) and bool(((scores >= 0) & (scores <= 1)).all()),
+          "384 kHz scores finite, in [0, 1]")
+    cpu_predict = make_batch_predictor(cpu_model, cfg, mean=mean, std=std, device="cpu")
+    cpu_err = float((scores[:1].cpu() - cpu_predict(pcm[:1].cpu())).abs().max())
+    check(cpu_err <= RANGE_SCORE_TOL, f"384 kHz clip 0 within {RANGE_SCORE_TOL} of the CPU path")
+    with torch.inference_mode():
+        predictor_ms = time_ms(torch, lambda: predict(pcm), reps=5, warmup=1)
+    log(f"[range] 384 kHz predictor, {BATCH} x {SECONDS} s: launches {predictor_launches}, clip 0 "
+        f"vs CPU {cpu_err:.3e} (tol {RANGE_SCORE_TOL}), {predictor_ms:.4f} ms, "
+        f"{BATCH * SECONDS / (predictor_ms / 1e3):.1f} audio-s/s")
+    del cpu_model, cpu_predict, predict, model, scores
+    waves_384 = ingest_to_f32(pcm[..., 0]).contiguous()
+    del pcm
+
+    # ---- times at 384 kHz and 2^20, 16 x 60 s ----------------------------------
+    times = {}
+    for sr in RANGE_TIMED_RATES:
+        cfg = SpectrogramConfig(working_sample_rate=sr)
+        hop, n_fft, n_bins, n_mels = cfg.hop_size, cfg.nfft, cfg.freq_bins, cfg.mel_bins
+        m = n_fft // 2
+        samples = sr * SECONDS
+        # 384 kHz: the predictor's batch, ingested; 2^20: make_signals'.
+        waves = waves_384 if sr == 384000 else make_signals(torch, BATCH, samples, sr, dev, 1)
+        waves_384 = None
+        window, bands = kernels.stft_window(cfg, dev), kernels.mel_bands(cfg, dev)
+        frames = waves.shape[0] * (1 + samples // hop)
+        win_nnz = int(torch.count_nonzero(window))
+        t = {"frames": frames}
+        slow = dict(reps=RANGE_SLOW_REPS, warmup=1)
+        t["k1"] = time_ms(torch, lambda: kernels.wave_stft_power(waves, window, hop, n_fft), **slow)
+        t["k1_plain"] = time_ms(torch, lambda: kernels.wave_stft_power_plain(waves, window, hop,
+                                                                             n_fft), **slow)
+        t["k1_lib"] = time_ms(torch, lambda: torch.stft(
+            waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+            return_complex=True).abs() ** 2, **slow)
+        rows = kernels.wave_stft_power(waves, window, hop, n_fft).reshape(-1, n_bins)
+        t["k2"] = time_ms(torch, lambda: kernels.mel_log(rows, bands), **slow)
+        t["k2_plain"] = time_ms(torch, lambda: kernels.mel_log_plain(rows, bands.dense), **slow)
+        t["k2_lib"] = time_ms(torch, lambda: 10.0 * torch.log10(
+            torch.clamp(torch.matmul(rows, bands.dense), min=1e-10)), **slow)
+        del rows
+        t["k5"] = time_ms(torch, lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft,
+                                                                   bands), **slow)
+        t["fuse_lib"] = time_ms(torch, lambda: 10.0 * torch.log10(torch.clamp(torch.matmul(
+            torch.stft(waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+                       return_complex=True).abs().square().transpose(1, 2), bands.dense),
+            min=1e-10)), **slow)
+        t["k6"] = time_ms(torch, lambda: kernels.wave_packed_fft(waves, window, hop, n_fft), **slow)
+        t["k6_plain"] = time_ms(torch, lambda: kernels.wave_packed_fft_plain(waves, window, hop,
+                                                                             n_fft), **slow)
+        windowed = stft_ops.frame_signal(waves, n_fft, hop) * window
+        packed = torch.complex(windowed[..., 0::2].contiguous(), windowed[..., 1::2].contiguous())
+        del windowed
+        t["k6_lib"] = time_ms(torch, lambda: torch.fft.fft(packed, dim=-1), **slow)
+        del packed
+        t["k1t"] = time_ms(torch, lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft,
+                                                                      fast), **slow)
+        t["k5t"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_bf16(
+            waves, window, hop, n_fft, bands, fast), **slow)
+        t["k6t"] = time_ms(torch, lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft,
+                                                                       fast), **slow)
+        part = waves[:RANGE_PLAIN_CLIPS]
+        t["plain_frames"] = part.shape[0] * (1 + samples // hop)
+        t["k1t_plain"] = time_ms(torch, lambda: kernels.wave_dft_power_bf16_plain(
+            part, window, hop, n_fft, fast), reps=2, warmup=1)
+        t["k5t_plain"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_bf16_plain(
+            part, window, hop, n_fft, bands.dense, fast), reps=2, warmup=1)
+        t["k6t_plain"] = time_ms(torch, lambda: kernels.wave_packed_fft_bf16_plain(
+            part, window, hop, n_fft, fast), reps=2, warmup=1)
+        t["k5_plain"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_plain(
+            waves, window, hop, n_fft, bands.dense), **slow)
+        wave_b, power_b = 4 * waves.numel(), 4 * frames * (m + 1)
+        out_mel_b, nnz = 4 * frames * n_mels, bands.nnz
+        mel_tables = 4 * (nnz + 5 * bands.n_segments + n_mels + 1)
+        fft_tables = 4 * (n_fft + 2 * 5 * 16384 + 2 * m + 2 * m)   # pass, sub-row, unpack
+        n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+        n2 = n_fft // n1
+        p1 = 1 << ((m.bit_length() - 1) // 2)
+        p2 = m // p1
+        k1t_ops = frames * 3 * (4 * n2 * n2 * n1 + 8 * n2 * n1 * (n1 // 2 + 1))
+        k6t_ops = frames * 3 * (8 * p2 * p2 * p1 + 8 * p2 * p1 * p1)
+        t["bounds"] = {
+            "k1": bound(wave_b + fft_tables + power_b, fft_ops(frames, m, win_nnz) / fp32_peak * 1e3),
+            "k2": bound(power_b + out_mel_b + mel_tables, 2 * nnz * frames / fp32_peak * 1e3),
+            "k5": bound(wave_b + fft_tables + mel_tables + out_mel_b,
+                        (fft_ops(frames, m, win_nnz) + 2 * nnz * frames) / fp32_peak * 1e3),
+            "k6": bound(wave_b + fft_tables + 8 * frames * m,
+                        fft_ops(frames, m, win_nnz, unpack=False) / fp32_peak * 1e3),
+            "k1t": bound(wave_b + power_b, k1t_ops / bf16_peak * 1e3),
+            "k5t": bound(wave_b + mel_tables + out_mel_b,
+                         k1t_ops / bf16_peak * 1e3 + 2 * nnz * frames / fp32_peak * 1e3),
+            "k6t": bound(wave_b + 8 * frames * m, k6t_ops / bf16_peak * 1e3)}
+        if sr == 384000:   # each launch of the routes on its own, through its C call
+            t["parts"] = route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks)
+        times[sr] = t
+        bnd = t["bounds"]
+        log(f"[range] {smi}; {sr} Hz (n_fft {n_fft}), {BATCH} x {SECONDS} s ({frames} frames), "
+            f"CUDA-event medians: K1 {t['k1']:.4f} ms (bound {bnd['k1'][0]:.4f}, {bnd['k1'][1]}; "
+            f"plain {t['k1_plain']:.4f}, torch.stft+abs^2 {t['k1_lib']:.4f}) | K2 {t['k2']:.4f} "
+            f"(bound {bnd['k2'][0]:.4f}; plain {t['k2_plain']:.4f}, matmul+log10 {t['k2_lib']:.4f})"
+            f" | K5 {t['k5']:.4f} (bound {bnd['k5'][0]:.4f}; plain {t['k5_plain']:.4f}, the "
+            f"torch.stft chain {t['fuse_lib']:.4f}) | K6 {t['k6']:.4f} (bound {bnd['k6'][0]:.4f}; "
+            f"plain {t['k6_plain']:.4f}, torch.fft.fft {t['k6_lib']:.4f}) | fast: K1t "
+            f"{t['k1t']:.4f} (bound {bnd['k1t'][0]:.4f}), K5t {t['k5t']:.4f} (bound "
+            f"{bnd['k5t'][0]:.4f}), K6t {t['k6t']:.4f} (bound {bnd['k6t'][0]:.4f}); their plain "
+            f"versions on {t['plain_frames']} frames: {t['k1t_plain']:.4f}, {t['k5t_plain']:.4f}, "
+            f"{t['k6t_plain']:.4f}")
+        if "parts" in t:
+            log("[range] 384 kHz, each launch on its own: " + "; ".join(
+                f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} "
+                f"{v['bound_by']}, err {v['max_abs_err']:.3e})" for k, v in t["parts"].items()))
+        del waves
+    log(f"[range] phase {time.perf_counter() - t0:.1f} s; launches of its runs "
+        f"{ {k: v for k, v in total.items() if v} }")
+
+    source = "sed_tpu_torch/ops/csrc/featurizer.cu"
+
+    def entry(name, kernel, replaces, launches, err, ms, plain_ms, bnd, library_ms, sr, **extra):
+        return {"name": name, "kernel": kernel, "route": "cuda", "source": source,
+                "replaces": f"sed_tpu/ops/pallas_featurizer.py:{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms,
+                "n_fft": SpectrogramConfig(working_sample_rate=sr).nfft, "sample_rate": sr,
+                **extra}
+
+    entries = []
+    for sr in RANGE_TIMED_RATES:
+        t, got, b = times[sr], checks[sr], times[sr]["bounds"]
+        fast_tag = tier_tag(fast)
+        roll, fuse = impl_runs[sr, "roll", None], impl_runs[sr, "fuse", None]
+        pack = impl_runs[sr, "pack", None]
+        roll_t, fuse_t = impl_runs[sr, "roll", fast], impl_runs[sr, "fuse", fast]
+        pack_t = impl_runs[sr, "pack", fast]
+        plain_of = {"plain_frames": t["plain_frames"], "frames": t["frames"]}
+        entries += [
+            entry("wave_stft_power", "fft_cross_pass_kernel<R> + fft_subrows_kernel<false> + "
+                  "packed_power_kernel", 412, roll["wave_stft_power"], got["K1 / peak"], t["k1"],
+                  t["k1_plain"], b["k1"], t["k1_lib"], sr,
+                  predictor_launches=predictor_launches.get("wave_stft_power", 0)
+                  if sr == 384000 else None, checks=checks),
+            entry("mel_log", f"mel_log_kernel<R> at {SpectrogramConfig(working_sample_rate=sr).freq_bins}"
+                  " bins", 72,
+                  roll["mel_log"], got["parity dB (worst impl)"], t["k2"], t["k2_plain"], b["k2"],
+                  t["k2_lib"], sr),
+            entry("wave_stft_mel_log", "K1's launches, then mel_log_kernel<R>", 550,
+                  fuse["wave_stft_mel_log"], got["K5 None values differing from K1 then K2"],
+                  t["k5"], t["k5_plain"], b["k5"], t["fuse_lib"], sr),
+            entry("wave_packed_fft", "fft_cross_pass_kernel<R> + fft_subrows_kernel<true>", 882,
+                  pack["wave_packed_fft"], got["K6 / peak"], t["k6"], t["k6_plain"], b["k6"],
+                  t["k6_lib"], sr),
+            entry("wave_dft_power_bf16", "tier_inner_kernel<3, false> + tier_outer_kernel<3, "
+                  "false>", 412, roll_t["wave_dft_power_bf16"], got[f"K1t {fast_tag} / peak"],
+                  t["k1t"], t["k1t_plain"], b["k1t"], t["k1_lib"], sr, precision=fast,
+                  **plain_of),
+            entry("wave_stft_mel_log_bf16", "K1t's launches, then mel_log_kernel<R>", 550,
+                  fuse_t["wave_stft_mel_log_bf16"],
+                  got[f"K5t {fast_tag} values differing from K1t then K2"], t["k5t"],
+                  t["k5t_plain"], b["k5t"], t["fuse_lib"], sr, precision=fast, **plain_of),
+            entry("wave_packed_fft_bf16", "tier_inner_kernel<3, true> + tier_outer_kernel<3, "
+                  "true>", 882, pack_t["wave_packed_fft_bf16"], got[f"K6t {fast_tag} / peak"],
+                  t["k6t"], t["k6t_plain"], b["k6t"], t["k6_lib"], sr, precision=fast,
+                  **plain_of),
+        ]
+    parts = times[384000]["parts"]
+    for name, (kernel, replaces) in {
+            "fft_cross_pass": ("fft_cross_pass_kernel<4>", 412),
+            "fft_subrows": ("fft_subrows_kernel<false> (cluster_fft, 4 CTAs a sub-row)", 412),
+            "packed_power": ("packed_power_kernel", 412),
+            "tier_inner": ("tier_inner_kernel<3, false>", 412),
+            "tier_outer": ("tier_outer_kernel<3, false>", 412)}.items():
+        p = parts[name]
+        entries.append(entry(name, kernel, replaces, total[name], p["max_abs_err"], p["ms"],
+                             p["plain_ms"], (p["bound_ms"], p["bound_by"]), p["library_ms"],
+                             384000, part_of="K1 and K3 above n_fft 131072 (K6: the first two)"
+                             if name.startswith(("fft", "packed")) else
+                             "K1t, K3t, K6t outside the instances' sizes"))
+    return entries, total
+
+
+def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
+    """Each launch of K1's route above n_fft 131072 (the cross pass, the
+    sub-rows' FFTs, the unpack) and of K1t's tier GEMMs at fast, alone
+    through the C call its wrapper makes, on ``waves``: its time, its plain
+    version's (on the same inputs), the PyTorch call that computes the same
+    function where there is one, its bound and its error against the plain
+    version (x the frame's peak)."""
+    bw, fp32_peak, bf16_peak = peaks
+    dev = waves.device
+    lib = kernels._library()
+    stream = kernels._stream(dev)
+    n_sig, n = waves.shape
+    n_frames = 1 + n // hop
+    frames = n_sig * n_frames
+    m = n_fft // 2
+    log2_m = m.bit_length() - 1
+    log2_r = log2_m - 16
+    r_count = 1 << log2_r
+    cross = kernels._cross_twiddles(n_fft, dev)
+    z = torch.empty((frames, m, 2), device=dev)
+    slow = dict(reps=RANGE_SLOW_REPS, warmup=1)
+    out = {}
+
+    def pass_call():
+        return lib.sed_fft_cross_pass(waves.data_ptr(), 0, window.data_ptr(), cross.data_ptr(),
+                                      z.data_ptr(), frames, n, n_frames, hop, log2_m, dev.index,
+                                      stream)
+
+    def subrows_call(buf):
+        return lib.sed_fft_subrows(buf.data_ptr(), kernels._stockham_twiddles(131072, dev)
+                                   .data_ptr(), None, None, frames << log2_r, log2_r, 0,
+                                   dev.index, stream)
+
+    # Each launch once on the whole batch; its error on the first clip's frames.
+    pf = RANGE_PLAIN_CLIPS * n_frames
+    check(pass_call() == 0, "the cross pass launches through its C call")
+    windowed = stft_ops_frame(torch, waves, window, hop, n_fft)
+    zc = torch.complex(windowed[..., 0::2], windowed[..., 1::2]).reshape(frames, m)
+    del windowed
+    table = torch.complex(cross[:, 0], cross[:, 1])
+    want = cross_pass_plain(torch, zc[:pf].to(torch.complex128), table.to(torch.complex128),
+                            n_fft)
+    got = torch.view_as_complex(z.view(frames, r_count, 1 << 16, 2))
+    peak = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+    err_pass = float(((got[:pf] - want).abs() / peak).max())
+    sub = z.clone()
+    check(subrows_call(sub) == 0, "the sub-rows' FFT launches through its C call")
+    fft64 = torch.fft.fft(got[:pf].to(torch.complex128), dim=-1)
+    # In place, CTA r of a sub-row's cluster keeps its bins r + 4 k1 at
+    # r 2^14 + k1: the sub-row in natural order.
+    gsub = torch.view_as_complex(sub.view(frames, r_count, 4, 1 << 14, 2)).transpose(2, 3)
+    gsub = gsub.reshape(frames, r_count, 1 << 16)
+    err_sub = float(((gsub[:pf] - fft64).abs()
+                     / fft64.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)).max())
+    power = torch.empty((frames, m + 1), device=dev)
+    unpack = kernels._twiddles(n_fft, dev)
+
+    def power_call():
+        return lib.sed_packed_power(sub.data_ptr(), unpack.data_ptr(), power.data_ptr(), frames,
+                                    log2_m, log2_r, dev.index, stream)
+
+    check(power_call() == 0, "the unpack launches through its C call")
+    natural = gsub[:pf].to(torch.complex128).transpose(1, 2).reshape(pf, m)
+    want_p = kernels.packed_power_onesided(natural.real, natural.imag, n_fft)
+    err_pow = float(((power[:pf].double() - want_p).abs()
+                     / want_p.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    del fft64, natural, want, want_p
+    sub_t = zc.view(frames, r_count, 1 << 16)
+    out["fft_cross_pass"] = {
+        "ms": time_ms(torch, pass_call, **slow),
+        "plain_ms": time_ms(torch, lambda: cross_pass_plain(torch, zc, table, n_fft), **slow),
+        "library_ms": None, "max_abs_err": err_pass,
+        **dict(zip(("bound_ms", "bound_by"), bound(4 * waves.numel() + 8 * frames * m + 8 * m,
+                                                   frames * m * 10 / fp32_peak * 1e3)))}
+    out["fft_subrows"] = {
+        "ms": time_ms(torch, lambda: subrows_call(sub), **slow),
+        "plain_ms": time_ms(torch, lambda: torch.fft.fft(sub_t, dim=-1), **slow),
+        "library_ms": time_ms(torch, lambda: torch.fft.fft(sub_t, dim=-1), **slow),
+        "max_abs_err": err_sub,
+        **dict(zip(("bound_ms", "bound_by"), bound(16 * frames * m + 8 * 5 * 16384,
+                                                   frames * r_count * 5 * 65536 * 16
+                                                   / fp32_peak * 1e3)))}
+    del sub_t
+    natural = gsub.transpose(1, 2).reshape(frames, m)   # Z[s + R k]
+    zr, zi = natural.real.contiguous(), natural.imag.contiguous()
+    del natural
+    out["packed_power"] = {
+        "ms": time_ms(torch, power_call, **slow),
+        "plain_ms": time_ms(torch, lambda: kernels.packed_power_onesided(zr, zi, n_fft), **slow),
+        "library_ms": None, "max_abs_err": err_pow,
+        **dict(zip(("bound_ms", "bound_by"), bound(8 * frames * m + 4 * frames * (m + 1) + 8 * m,
+                                                   19 * frames * m / fp32_peak * 1e3)))}
+    del zr, zi, sub, z, gsub, power
+    # The tier GEMMs at fast: stage 1 to T, stage 2 from T.
+    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+    n2 = n_fft // n1
+    tab1, tab2, tw = kernels._tier_tables(n_fft, 2, 2, dev)
+    t_buf = torch.empty((frames, n2, n1, 2), device=dev)
+    power = torch.empty((frames, m + 1), device=dev)
+
+    def inner_call():
+        return lib.sed_tier_inner(waves.data_ptr(), 0, 0, window.data_ptr(), tab1.data_ptr(),
+                                  tw.data_ptr(), t_buf.data_ptr(), frames, n, n_frames, hop,
+                                  n1.bit_length() - 1, n2.bit_length() - 1, 3, dev.index, stream)
+
+    def outer_call():
+        return lib.sed_tier_outer(t_buf.data_ptr(), tab2.data_ptr(), power.data_ptr(), None,
+                                  frames, n1.bit_length() - 1, n2.bit_length() - 1, 0, 3,
+                                  dev.index, stream)
+
+    check(inner_call() == 0 and outer_call() == 0, "the tier GEMMs launch through their C calls")
+    torch.cuda.synchronize()
+    xf = stft_ops_frame(torch, waves[:RANGE_PLAIN_CLIPS], window, hop, n_fft)
+    t_want = torch.complex(*kernels._tier_inner_plain(xf, n_fft, 3))
+    t_got = torch.view_as_complex(t_buf[:pf]).reshape(t_want.shape)
+    t_peak = t_want.abs().flatten(-2).amax(-1).clamp_min(1e-30)[..., None, None]
+    err_inner = float(((t_got - t_want).abs() / t_peak).max())
+    p_want = kernels._tier_outer_plain(t_got.real.contiguous(), t_got.imag.contiguous(), n_fft, 3)
+    err_outer = float(((power[:pf].reshape(p_want.shape) - p_want).abs()
+                       / p_want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    ops1 = frames * 3 * 4 * n2 * n2 * n1
+    ops2 = frames * 3 * 8 * n2 * n1 * (n1 // 2 + 1)
+    out["tier_inner"] = {
+        "ms": time_ms(torch, inner_call, **slow),
+        "plain_ms": time_ms(torch, lambda: kernels._tier_inner_plain(xf, n_fft, 3), reps=2,
+                            warmup=1),
+        "plain_frames": pf, "library_ms": None, "max_abs_err": err_inner,
+        **dict(zip(("bound_ms", "bound_by"), bound(4 * waves.numel() + 8 * frames * n_fft,
+                                                   ops1 / bf16_peak * 1e3)))}
+    out["tier_outer"] = {
+        "ms": time_ms(torch, outer_call, **slow),
+        "plain_ms": time_ms(torch, lambda: kernels._tier_outer_plain(
+            t_got.real.contiguous(), t_got.imag.contiguous(), n_fft, 3), reps=2, warmup=1),
+        "plain_frames": pf, "library_ms": None, "max_abs_err": err_outer,
+        **dict(zip(("bound_ms", "bound_by"), bound(8 * frames * n_fft + 4 * frames * (m + 1),
+                                                   ops2 / bf16_peak * 1e3)))}
+    return out
+
+
+def stft_ops_frame(torch, waves, window, hop, n_fft):
+    """(n_sig, n) -> (n_sig * frames, n_fft) windowed centred frames."""
+    from sed_tpu_torch.ops import stft as stft_ops
+
+    return (stft_ops.frame_signal(waves, n_fft, hop) * window).reshape(-1, n_fft)
+
+
 def main() -> int:
     import torch
 
@@ -6232,6 +6778,10 @@ def main() -> int:
     wide_entries, wide_launches = wide_phase(torch, dev, smi, peaks)
     log(f"[wide] total {time.perf_counter() - phase_t0:.1f} s")
 
+    # ---- 23. the ends of the n_fft range: 1 kHz, 384 kHz, 768 kHz, 1.536 MHz ------
+    range_entries, range_launches = range_phase(torch, dev, smi, peaks)
+    log(f"[range] total {time.perf_counter() - phase_t0:.1f} s")
+
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
     entries = [
         {"name": "wave_stft_power",
@@ -6267,6 +6817,7 @@ def main() -> int:
         *tier_entries,
         *fusepack_entries,
         *wide_entries,
+        *range_entries,
     ]
     for e in entries:   # phase 12's path, M5 training: every count is 0
         e["wavetrain_launches"] = sum(wave_launches[k] for k in ENTRY_COUNTERS[e["name"]])
@@ -6280,6 +6831,7 @@ def main() -> int:
         e["tier_launches"] = sum(tier_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["fusepack_launches"] = sum(fusepack_launches[k] for k in ENTRY_COUNTERS[e["name"]])
         e["wide_launches"] = sum(wide_launches[k] for k in ENTRY_COUNTERS[e["name"]])
+        e["range_launches"] = sum(range_launches[k] for k in ENTRY_COUNTERS[e["name"]])
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

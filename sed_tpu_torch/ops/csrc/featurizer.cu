@@ -2,11 +2,12 @@
 //
 // Built by sed_tpu_torch/ops/cuda_featurizer.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -Xcompiler -fPIC -c featurizer.cu, six times side by side (with
+//        -Xcompiler -fPIC -c featurizer.cu, seven times side by side (with
 //        -DSED_FEATURIZER_NO_TIERS, -DSED_FEATURIZER_TIERS_ONLY,
 //        -DSED_FEATURIZER_FUSED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_TIERS_ONLY,
-//        -DSED_FEATURIZER_PACKED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_PACKED_ONLY),
-//   then nvcc -shared -o libsed_featurizer.so of the six objects,
+//        -DSED_FEATURIZER_PACKED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_PACKED_ONLY,
+//        -DSED_FEATURIZER_GEMM_TIERS_ONLY),
+//   then nvcc -shared -o libsed_featurizer.so of the seven objects,
 // into a shared library with a plain C interface, loaded with ctypes.  Every
 // entry point launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() after the launch (the Python wrapper raises on non-zero)
@@ -314,6 +315,22 @@
 //   registers, the producers 120.  Its tables' layout and the whole data
 //   flow are modelled in numpy by tests/test_torch_packed_tiers.py.
 //
+// The sizes (cuda_featurizer.launch_plan says what each kernel launches at an
+// n_fft; n_fft above 2^20 raises): K1, K3, K5 and K6 take every power of two
+// 4..2^20, in one launch up to 131072 (above 32768 a frame a cluster of 2 or
+// 4 CTAs: cluster_fft) and above it through the global cross pass
+// (fft_cross_pass_kernel, fft_subrows_kernel, packed_power_kernel; K5 there
+// is K1's launches, then K2: a frame's power does not stay on chip).  K2
+// takes any bin count.  K1t and K3t take 128..2^20 and K6t 256..2^20
+// (sed_tpu's smallest at a tier: its tiles are 128 lanes), their instances
+// 2048..131072 (K6t 4096..131072) and the tier GEMMs (tier_inner_kernel,
+// tier_outer_kernel) elsewhere; K5t takes 2048..2^20 ('fuse' needs n_fft %
+// 2048 == 0), its instances up to 131072, K1t's GEMMs then K2 above (a
+// frame's n2 / 64 blocks would pass a cluster's 8).  One mechanism serves
+// both ends of the tier kernels' range: tier_dft's 64 k2 rows a block and
+// K6t's wgmma M of 64 do not fit n1 = 8..16 below or T's 227 KB at n1 512
+// above, and the instances up to 131072 keep their code.
+//
 // K7 (impl 'eo'), K8 ('rollraw'), K9 ('rolledge') and K10 ('slice',
 // 'roll_nodb') of sed_tpu compute K1's one-sided power (K9: K1 then K2) and
 // differ only in how the TPU moves waveform bytes into VMEM; K1 already
@@ -332,7 +349,7 @@
 // (see the tier entry points at the end).
 #if defined(SED_FEATURIZER_TIERS_ONLY) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY) || \
     defined(SED_FEATURIZER_WIDE_TIERS_ONLY) || defined(SED_FEATURIZER_PACKED_TIERS_ONLY) || \
-    defined(SED_FEATURIZER_WIDE_PACKED_ONLY)
+    defined(SED_FEATURIZER_WIDE_PACKED_ONLY) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY)
 #define SED_FEATURIZER_ONE_TIER_UNIT
 #endif
 
@@ -1790,6 +1807,13 @@ __device__ __forceinline__ float2 windowed(float2 x, float2 w) {
   return make_float2(w.x != 0.f ? w.x * x.x : 0.f, w.y != 0.f ? w.y * x.y : 0.f);
 }
 
+// Packed point j = (x[2j], x[2j+1]) of a frame times the window, 0 where the
+// window is 0 (the values of K1's and K3's loaders).
+__device__ __forceinline__ float2 packed_point(const TierFrame& frame, const float2* window,
+                                               int j) {
+  return windowed(frame.raw(2 * j), __ldg(window + j));
+}
+
 constexpr int kTierThreads = 256;  // 8 warps: 2 (m) x 4 (n) in both stages
 constexpr int kTierWarps = kTierThreads / 32;
 constexpr int kTierRows = 64;      // k2 rows of a block (BM)
@@ -2859,14 +2883,431 @@ int launch_packed_fft(const void* wave, const void* window, const void* tab1, co
 }
 
 #ifndef SED_FEATURIZER_ONE_TIER_UNIT
+// ---------------------------------------------------------------------------
+// The Stockham FFT above n_fft 131072 (K1, K3, K6; K5 runs K1's launches then
+// K2): m = n_fft / 2 = R * 2^16 points, R = 2, 4, 8 at n_fft 2^18, 2^19,
+// 2^20.  A cluster of 4 CTAs holds 2^16 points (cluster_fft) and no cluster
+// holds such a frame, so cluster_fft's decimation in frequency runs once
+// more, through device memory:
+//   fft_cross_pass_kernel<R> reads each frame with K1's or K3's loader values
+//     (TierFrame: K1's framing and reflected edges, K3's f32 or int16 rows;
+//     windowed as PackedWaveLoad and PackedRowLoad window them), forms the
+//     exact radix-R butterflies over its R chunks of M = 2^16 points (rotate,
+//     as CrossLoad's: R = 8 as radix 4, then radix 2, since a radix-8
+//     butterfly would multiply by sqrt(2)/2), twiddles each output by W_m^(n1
+//     r) after each level (float64 on the host, rounded once to f32) and
+//     writes R sub-rows of M complex points, so that Z[s + R k] =
+//     FFT_M(sub-row s)[k];
+//   fft_subrows_kernel runs cluster_fft on each sub-row (the n_fft 131072
+//     FFT: its twiddle table, its cross pass over distributed shared memory)
+//     and writes its Z in place, each CTA's bins r + 4 k1 at k1 of its own
+//     quarter of the row (K1, K3: coalesced stores), or to K6's rows at bin
+//     s + R k (natural order, strided by R);
+//   packed_power_kernel forms K1's and K3's one-sided power from the sub-rows'
+//     Z by PowerStore's arithmetic, in natural bin order.
+// K1 and K3 are three launches, K6 two; the scratch is 8 bytes a point (12.2
+// GB at 2^20 for 2912 frames), from the wrapper's caching allocator.
+// tests/test_torch_fft_plan.py models the three (global_cross_pass,
+// subrow_bins, inplace_store, packed_power).
+// ---------------------------------------------------------------------------
+
+constexpr int kSubLog2M = 16;    // a sub-row's points (a cluster of 4 CTAs)
+constexpr int kPassThreads = 256;
+
+// One thread a (frame, n1), n1 < M: points n1 + M q of the frame (q < R) to
+// sub-rows s of out (frame f at out + f m).  cross: W_m^(n1 r), R rows of M
+// (R = 2, 4); at R = 8, 4 rows of 2M of W_m^(n1' r1), then M of W_2M^n1.
+template <int R>
+__global__ void __launch_bounds__(kPassThreads)
+fft_cross_pass_kernel(const TierSource src, const float2* __restrict__ cross,
+                      float2* __restrict__ out) {
+  constexpr int M = 1 << kSubLog2M;
+  constexpr int m = R * M;
+  const long long i = static_cast<long long>(blockIdx.x) * kPassThreads + threadIdx.x;
+  const long long f = i >> kSubLog2M;
+  const int n1 = static_cast<int>(i & (M - 1));
+  const TierFrame frame(src, f, 2 * m);
+  const auto* window = reinterpret_cast<const float2*>(src.window);
+  float2 z[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) z[q] = packed_point(frame, window, n1 + M * q);
+  float2* row = out + f * m + n1;
+  if constexpr (R <= 4) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float2 acc = z[0];
+#pragma unroll
+      for (int q = 1; q < R; ++q) acc = acc + rotate<R>(z[q], q * r);
+      row[r * M] = r == 0 ? acc : cmul(acc, __ldg(cross + r * M + n1));
+    }
+  } else {
+    // Radix 4 over chunks of 2M (n1' = n1 + M j: points n1 + M (j + 2 q1)),
+    // then radix 2 over each output: sub-row s = r1 + 4 r2.
+    constexpr int M2 = 2 * M;
+    float2 y[4][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int r1 = 0; r1 < 4; ++r1) {
+        float2 acc = z[j];
+#pragma unroll
+        for (int q1 = 1; q1 < 4; ++q1) acc = acc + rotate<4>(z[j + 2 * q1], q1 * r1);
+        y[r1][j] = r1 == 0 ? acc : cmul(acc, __ldg(cross + r1 * M2 + n1 + M * j));
+      }
+    }
+#pragma unroll
+    for (int r1 = 0; r1 < 4; ++r1) {
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const float2 u = y[r1][0] + rotate<2>(y[r1][1], r2);
+        row[(r1 + 4 * r2) * M] = r2 == 0 ? u : cmul(u, __ldg(cross + 4 * M2 + n1));
+      }
+    }
+  }
+}
+
+// A CTA's 2^14 points of a sub-row of complex points, stockham_fft's loader.
+struct ComplexRowLoad {
+  const float2* x;
+  template <int T, int P>
+  __device__ __forceinline__ void fill(float2 (&v)[kPoints], int t) const {
+#pragma unroll
+    for (int s = 0; s < P; ++s) v[s] = x[t + T * s];
+  }
+};
+
+// ClusterSplitStore with strides: bin r + C k1 of the sub-row (CTA r, k1 =
+// t + T s) to re[r * cta + k1 * step] and im[the same].
+template <int C>
+struct ClusterStridedStore {
+  float* re;
+  float* im;
+  long long cta, step;
+  template <int T, int P>
+  __device__ __forceinline__ void drain(const float2 (&v)[kPoints], int t) const {
+    const long long base = cg::this_cluster().block_rank() * cta;
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const long long k = base + (t + T * s) * step;
+      re[k] = v[s].x;
+      im[k] = v[s].y;
+    }
+  }
+};
+
+// cluster_fft of sub-row g = blockIdx.x / C of rows (2^16 complex points a
+// row; frame g >> log2_r, sub-row s = g mod 2^log2_r).  Every CTA's loads end
+// before CrossLoad's first cluster barrier, so the sub-row's Z can go back in
+// its place (kNatural false: K1, K3), bin r + C k1 at r 2^14 + k1; kNatural,
+// to out_re / out_im of the frame at bin s + R k (K6's rows).
+template <bool kNatural>
+__global__ void __launch_bounds__(kStockhamThreads<kSubLog2M>, 1)
+fft_subrows_kernel(float2* rows, const float2* __restrict__ twiddle, float* out_re,
+                   float* out_im, int log2_r) {
+  extern __shared__ float exchange[];  // re: 2^14 floats, then im
+  constexpr int C = kClusterCtas<kSubLog2M>;
+  constexpr int M = 1 << kCtaLog2M;
+  const long long g = blockIdx.x / C;
+  const int r = static_cast<int>(blockIdx.x % C);
+  float2* row = rows + (g << kSubLog2M);
+  const CrossLoad<C, ComplexRowLoad> load{{row + r * M}, twiddle + M, exchange, exchange + M};
+  const long long base =
+      ((g >> log2_r) << (kSubLog2M + log2_r)) + (g & ((1LL << log2_r) - 1));
+  const ClusterStridedStore<C> store =
+      kNatural ? ClusterStridedStore<C>{out_re + base, out_im + base, 1LL << log2_r,
+                                        static_cast<long long>(C) << log2_r}
+               : ClusterStridedStore<C>{reinterpret_cast<float*>(row),
+                                        reinterpret_cast<float*>(row) + 1, 2 * M, 2};
+  stockham_fft<kCtaLog2M>(load, store, twiddle, exchange, exchange + M);
+}
+
+// One-sided power (m + 1 bins a frame) from the sub-rows' Z (m points a
+// frame; Z[k] in sub-row s = k mod R, its bin q = k / R at (q mod 4) 2^14 +
+// q / 4, fft_subrows_kernel's in-place order): bin k < m
+// hermitian_power(Z[k], Z[(m - k) mod m], W_N^k), bin m (Re Z[0] - Im
+// Z[0])^2, as PowerStore.  One thread a bin, blocks_per_row blocks a frame.
+__global__ void __launch_bounds__(kPassThreads)
+packed_power_kernel(const float2* __restrict__ z, const float2* __restrict__ unpack,
+                    float* __restrict__ out, int log2_m, int log2_r, int blocks_per_row) {
+  const long long f = blockIdx.x / blocks_per_row;
+  const int k = static_cast<int>(blockIdx.x - f * blocks_per_row) * kPassThreads + threadIdx.x;
+  const int m = 1 << log2_m;
+  if (k > m) return;
+  const float2* zf = z + (f << log2_m);
+  const auto at = [&](int j) {
+    const int q = j >> log2_r;
+    return __ldg(zf + ((j & ((1 << log2_r) - 1)) << kSubLog2M) + ((q & 3) << kCtaLog2M) +
+                 (q >> 2));
+  };
+  float* row = out + f * (m + 1LL);
+  if (k == m) {
+    const float2 z0 = at(0);
+    const float x = z0.x - z0.y;
+    row[m] = x * x;
+  } else {
+    row[k] = hermitian_power(at(k), at((m - k) & (m - 1)), __ldg(unpack + k));
+  }
+}
+#endif  // SED_FEATURIZER_ONE_TIER_UNIT
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY))
+// ---------------------------------------------------------------------------
+// The tier DFT where tier_dft's and tier_packed_fft_kernel's instances do not
+// reach: K1t and K3t at n_fft 128..1024 and 2^18..2^20, K6t at 256..2048 and
+// 2^18..2^20 (K5t runs K1t's launches then K2 above 131072).  sed_tpu's two
+// stages (n = n1 n2, n1 = 2^(log2 n / 2): n1 8..1024, n2 16..1024) as two
+// tiled GEMMs through device memory:
+//   tier_inner_kernel<P1, kPacked>, stage 1 of every frame at once: rows 16t
+//     + 8h + i (part h of Y at k2 = 8t + i) of [W2 rows] @ [X_f | X_f' | ...]
+//     (column f n1 + b; k = a, X[a][b] = x[a n1 + b], or, for K6t, k = a and
+//     n2 + a over Re z and Im z of point a n1 + b), then the f32 twiddle
+//     (tier_dft's), to T: (frames, n2, n1) float2 in device memory;
+//   tier_outer_kernel<P2, kPacked>, stage 2 over the frames' rows f n2 + k2:
+//     columns 2 k1 + h (Zr, Zi) of [Tr | Ti] @ W1', then |Z|^2 to bin n2 k1 +
+//     k2 (K1t, K3t: k1 < n1/2, and bin n/2 at k2 = 0) or Zr, Zi to K6's rows
+//     at bin n2 k1 + k2 (K6t: every k1).
+// Every operand is split into the tier's bf16 chunks as tier_dft splits it
+// (the tables on the host, the samples and T as they are loaded) and the
+// tier's (chunk, chunk) terms (tier_term) go through mma.sync.m16n8k16 with
+// f32 accumulation.  A block computes 64 x 64 of the output with four warps
+// of 32 x 32, k in tiles of 32 through shared memory; rows, columns and k past
+// an operand's edge are zero (n2 = 16 fills half a k tile, an exact zero
+// product).  T costs 8 bytes a point of device memory.  The frames' 2 n2 / 64
+// row blocks are neighbouring blocks, so a frame's re-reads come from L2.
+// The tables are cuda_featurizer._tier_tables' (K1t, K3t) and _gemm_tables'
+// (K6t); tests/test_torch_packed_tiers.py models both kernels block by block
+// (tier_inner_model, tier_outer_model).
+// ---------------------------------------------------------------------------
+
+constexpr int kGemmThreads = 128;  // 4 warps: 2 (m) x 2 (n), 32 x 32 each
+constexpr int kGemmBM = 64, kGemmBN = 64, kGemmKT = 32;
+constexpr int kGemmSA = kGemmKT + kTierPad;  // row stride of an [m][k] or [n][k] tile
+constexpr int kGemmSB = kGemmBN + kTierPad;  // of stage 1's [k][n] tile
+
+// acc += the tier's terms of one k tile: A chunks as[c] ([m][k]) and B chunks
+// bs ([k][n] when kKN, else [n][k]), the warp's 32 x 32.  The tile's products
+// go to an accumulator of their own, added to acc in f32 once a tile: the
+// tensor cores' accumulation is not round-to-nearest, and over the 1024 and
+// 2048 k of n_fft 2^20 its error in one running sum would pass the plain
+// version's tolerance (tier_rel_tol at bf16x6).
+template <int P, int C, bool kKN, typename BTile>
+__device__ __forceinline__ void gemm_tile(float (&acc)[2][4][4],
+                                          const __nv_bfloat16 (&as)[C][kGemmBM][kGemmSA],
+                                          const BTile& bs, int wm, int wn, int lane) {
+  float part[2][4][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < kGemmKT; ks += 16) {
+    unsigned bf[C][4][2];
+#pragma unroll
+    for (int cb = 0; cb < C; ++cb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kKN)
+          load_b_kn(bf[cb][j], &bs[cb][ks][wn * 32 + j * 8], kGemmSB, lane);
+        else
+          load_b_nk(bf[cb][j], &bs[cb][wn * 32 + j * 8][ks], kGemmSA, lane);
+      }
+#pragma unroll
+    for (int ca = 0; ca < C; ++ca) {
+      unsigned af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) load_a(af[i], &as[ca][wm * 32 + i * 16][ks], kGemmSA, lane);
+#pragma unroll
+      for (int cb = 0; cb < C; ++cb) {
+        if (!tier_term(P, ca, cb)) continue;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], af[i], bf[cb][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+}
+
+// Rows r0 .. r0 + 63, k k0 .. k0 + 31 of a bf16 table of C chunks of (rows,
+// k_len), row-major, into tile[c][r][k]: 16 bytes a load, zero past the edges.
+template <int C>
+__device__ __forceinline__ void load_table_tile(__nv_bfloat16 (&tile)[C][kGemmBM][kGemmSA],
+                                                const __nv_bfloat16* __restrict__ tab, int rows,
+                                                int k_len, int r0, int k0) {
+  for (int i = threadIdx.x; i < C * kGemmBM * (kGemmKT / 8); i += kGemmThreads) {
+    const int c = i / (kGemmBM * (kGemmKT / 8));
+    const int r = i / (kGemmKT / 8) % kGemmBM;
+    const int q = i % (kGemmKT / 8);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows && k0 + 8 * q < k_len)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          tab + (static_cast<long long>(c) * rows + r0 + r) * k_len + k0 + 8 * q));
+    *reinterpret_cast<uint4*>(&tile[c][r][8 * q]) = v;
+  }
+}
+
+template <int P1, bool kPacked>
+__global__ void __launch_bounds__(kGemmThreads)
+tier_inner_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
+                  const float2* __restrict__ twiddle, float2* __restrict__ t_out,
+                  long long frames, int log2_n1, int log2_n2) {
+  constexpr int C = tier_chunks(P1);
+  __shared__ __align__(16) __nv_bfloat16 as[C][kGemmBM][kGemmSA];
+  __shared__ __align__(16) __nv_bfloat16 bs[C][kGemmKT][kGemmSB];
+  const int n1 = 1 << log2_n1, n2 = 1 << log2_n2;
+  const int rows = 2 * n2;
+  const int k_len = kPacked ? 2 * n2 : n2;
+  const long long cols = frames << log2_n1;
+  const int row_blocks = (rows + kGemmBM - 1) / kGemmBM;
+  const int r0 = static_cast<int>(blockIdx.x % row_blocks) * kGemmBM;
+  const long long c0 = static_cast<long long>(blockIdx.x / row_blocks) * kGemmBN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
+  const auto* window = reinterpret_cast<const float2*>(src.window);
+  // A thread loads the column pair (cc, cc + 1) of every B tile: one frame.
+  const int cc = 2 * (tid % (kGemmBN / 2));
+  const long long col = c0 + cc;
+  const TierFrame frame(src, col < cols ? col >> log2_n1 : 0, n1 * n2 * (kPacked ? 2 : 1));
+  const int b = static_cast<int>(col & (n1 - 1));
+  float acc[2][4][4] = {};
+  for (int k0 = 0; k0 < k_len; k0 += kGemmKT) {
+    load_table_tile<C>(as, tab1, rows, k_len, r0, k0);
+    for (int kk = tid / (kGemmBN / 2); kk < kGemmKT; kk += kGemmThreads / (kGemmBN / 2)) {
+      const int k = k0 + kk;
+      float2 v = make_float2(0.f, 0.f);
+      if (k < k_len && col < cols) {
+        if constexpr (kPacked) {
+          const int j = (k < n2 ? k : k - n2) * n1 + b;  // points j, j + 1
+          const float2 p0 = packed_point(frame, window, j);
+          const float2 p1 = packed_point(frame, window, j + 1);
+          v = k < n2 ? make_float2(p0.x, p1.x) : make_float2(p0.y, p1.y);
+        } else {
+          const int s = k * n1 + b;  // samples s, s + 1
+          v = windowed(frame.raw(s), __ldg(window + (s >> 1)));
+        }
+      }
+      unsigned ch[C];
+      split_bf16x2<C>(v.x, v.y, ch);
+#pragma unroll
+      for (int c = 0; c < C; ++c) *reinterpret_cast<unsigned*>(&bs[c][kk][cc]) = ch[c];
+    }
+    __syncthreads();
+    gemm_tile<P1, C, true>(acc, as, bs, wm, wn, lane);
+    __syncthreads();
+  }
+  // acc[i][j]: yr(b), yr(b + 1), yi(b), yi(b + 1) at k2 = row / 2 + g of the
+  // 16-row group at row, b = the column's; the twiddle as tier_dft's.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wm * 32 + i * 16;
+    if (row >= rows) continue;
+    const int k2 = row / 2 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long c = c0 + wn * 32 + j * 8 + 2 * tig;
+      if (c >= cols) continue;
+      const long long f = c >> log2_n1;
+      const int bc = static_cast<int>(c & (n1 - 1));
+      const float4 tw = *reinterpret_cast<const float4*>(twiddle + (k2 << log2_n1) + bc);
+      const float* y = acc[i][j];
+      const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
+      const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
+      const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
+      const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
+      *reinterpret_cast<float4*>(t_out + (((f << log2_n2) + k2) << log2_n1) + bc) =
+          make_float4(tr0, ti0, tr1, ti1);
+    }
+  }
+}
+
+template <int P2, bool kPacked>
+__global__ void __launch_bounds__(kGemmThreads)
+tier_outer_kernel(const float2* __restrict__ t_in, const __nv_bfloat16* __restrict__ tab2,
+                  float* __restrict__ out, float* __restrict__ out_im, long long frames,
+                  int log2_n1, int log2_n2) {
+  constexpr int C = tier_chunks(P2);
+  __shared__ __align__(16) __nv_bfloat16 as[C][kGemmBM][kGemmSA];
+  __shared__ __align__(16) __nv_bfloat16 bs[C][kGemmBN][kGemmSA];
+  const int n1 = 1 << log2_n1, n2 = 1 << log2_n2;
+  const int k_len = 2 * n1;
+  const int n_cols = kPacked ? 2 * n1 : tier_cols2(n1);
+  const long long rows = frames << log2_n2;
+  const int col_blocks = (n_cols + kGemmBN - 1) / kGemmBN;
+  const long long r0 = static_cast<long long>(blockIdx.x / col_blocks) * kGemmBM;
+  const int c0 = static_cast<int>(blockIdx.x % col_blocks) * kGemmBN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
+  float acc[2][4][4] = {};
+  for (int k0 = 0; k0 < k_len; k0 += kGemmKT) {
+    // A: [Tr | Ti] of rows r0.., k pairs (k, k + 1) from T's float4 of (b, b + 1).
+    for (int i = tid; i < kGemmBM * kGemmKT / 2; i += kGemmThreads) {
+      const int r = i / (kGemmKT / 2);
+      const int kk = 2 * (i % (kGemmKT / 2));
+      const int k = k0 + kk;
+      float2 v = make_float2(0.f, 0.f);
+      if (r0 + r < rows && k < k_len) {
+        const int bc = k < n1 ? k : k - n1;
+        const float4 t = __ldg(reinterpret_cast<const float4*>(t_in + ((r0 + r) << log2_n1) + bc));
+        v = k < n1 ? make_float2(t.x, t.z) : make_float2(t.y, t.w);
+      }
+      unsigned ch[C];
+      split_bf16x2<C>(v.x, v.y, ch);
+#pragma unroll
+      for (int c = 0; c < C; ++c) *reinterpret_cast<unsigned*>(&as[c][r][kk]) = ch[c];
+    }
+    load_table_tile<C>(bs, tab2, n_cols, k_len, c0, k0);
+    __syncthreads();
+    gemm_tile<P2, C, false>(acc, as, bs, wm, wn, lane);
+    __syncthreads();
+  }
+  // acc[i][j][2h], [2h + 1]: Zr, Zi of k1 = the column pair's at row + 8h.
+  const long long half = (static_cast<long long>(n1) << log2_n2) / 2;  // bin n/2
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k1 = (c0 + wn * 32 + j * 8 + 2 * tig) / 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r0 + wm * 32 + i * 16 + g + 8 * h;
+        if (row >= rows) continue;
+        const long long f = row >> log2_n2;
+        const int k2 = static_cast<int>(row & (n2 - 1));
+        const float zr = acc[i][j][2 * h], zi = acc[i][j][2 * h + 1];
+        if constexpr (kPacked) {
+          if (k1 < n1) {
+            const long long q = (f << (log2_n1 + log2_n2)) + (static_cast<long long>(k1) << log2_n2) + k2;
+            out[q] = zr;
+            out_im[q] = zi;
+          }
+        } else {
+          float* o = out + f * (half + 1);
+          if (k1 < n1 / 2)
+            o[(static_cast<long long>(k1) << log2_n2) + k2] = tier_power(zr, zi);
+          else if (k1 == n1 / 2 && k2 == 0)
+            o[half] = tier_power(zr, zi);
+        }
+      }
+    }
+  }
+}
+#endif  // the tier GEMMs
+
+#ifndef SED_FEATURIZER_ONE_TIER_UNIT
 // K2 at product mode `passes` (mel_fma) on the current device: kMelRows rows
-// at a time once every SM has a group of them; one row at a time below that
-// (the streaming tick's 160 rows: one wave of CTAs).
+// at a time once every SM has a group of them and their segment sums fit
+// beside the ring (above n_fft 524288 they do not: 3,897 segments at 2^20);
+// one row at a time otherwise (the streaming tick's 160 rows: one wave of
+// CTAs).
 int launch_mel_log_mode(const MelArgs& args, int passes, int device, cudaStream_t s) {
   int n_sm = 0;
   const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const bool many = args.rows >= static_cast<long long>(kMelRows) * n_sm;
+  const bool many = args.rows >= static_cast<long long>(kMelRows) * n_sm &&
+                    mel_smem_bytes<kMelRows>(args.n_seg, args.n_mels) <= 232448;
   switch (passes) {
     case 0:
       return many ? launch_mel_log<kMelRows>(args, n_sm, s) : launch_mel_log<1>(args, n_sm, s);
@@ -3080,18 +3521,149 @@ int sed_wave_packed_fft(const void* wave, const void* window,
   });
 }
 
+// Above n_fft 131072 (log2_m 17..19), K1's, K3's and K6's first launch: the
+// cross pass of `rows` frames (kind as TierSource: 0 waveforms, as K1 and K6
+// frame them; 1, 2 rows of f32 or int16, as K3 reads them) into R = 2^(log2_m
+// - 16) sub-rows a frame of out ((rows, m) complex).  cross: the host's
+// cross_pass_twiddles(n_fft).
+int sed_fft_cross_pass(const void* data, int kind, const void* window, const void* cross,
+                       void* out, long long rows, long long n_samples, int n_frames, int hop,
+                       int log2_m, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  const long long blocks = rows << (kSubLog2M - 8);  // kPassThreads = 2^8 a block
+  if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
+  const auto* tw = static_cast<const float2*>(cross);
+  auto* z = static_cast<float2*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned>(blocks);
+  switch (log2_m) {
+    case 17: fft_cross_pass_kernel<2><<<grid, kPassThreads, 0, s>>>(src, tw, z); break;
+    case 18: fft_cross_pass_kernel<4><<<grid, kPassThreads, 0, s>>>(src, tw, z); break;
+    case 19: fft_cross_pass_kernel<8><<<grid, kPassThreads, 0, s>>>(src, tw, z); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The second launch: cluster_fft of `sub_rows` rows of 2^16 complex points
+// (2^log2_r a frame), in place (natural 0: K1, K3) or to out_re / out_im
+// ((frames, 2^(16 + log2_r)) f32 each, bin s + R k: K6).  twiddle: K1's
+// stockham_twiddles table at n_fft 131072.
+int sed_fft_subrows(void* rows, const void* twiddle, void* out_re, void* out_im,
+                    long long sub_rows, int log2_r, int natural, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (log2_r < 1 || log2_r > 3) return cudaErrorInvalidValue;
+  auto* z = static_cast<float2*>(rows);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* re = static_cast<float*>(out_re);
+  auto* im = static_cast<float*>(out_im);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return natural ? launch_stockham<kSubLog2M>(fft_subrows_kernel<true>, sub_rows, 0, s, z, tw,
+                                              re, im, log2_r)
+                 : launch_stockham<kSubLog2M>(fft_subrows_kernel<false>, sub_rows, 0, s, z, tw,
+                                              re, im, log2_r);
+}
+
+// K1's and K3's third launch: (rows, m + 1) one-sided power from the sub-rows'
+// Z ((rows, m) complex, 2^log2_r sub-rows a frame).  unpack: W_N^k, k < m.
+int sed_packed_power(const void* z, const void* unpack, void* out, long long rows, int log2_m,
+                     int log2_r, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (log2_m < 17 || log2_m > 19 || log2_r != log2_m - kSubLog2M) return cudaErrorInvalidValue;
+  const int per_row = ((1 << log2_m) + kPassThreads) / kPassThreads;  // m + 1 bins
+  const long long blocks = rows * per_row;
+  if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  packed_power_kernel<<<static_cast<unsigned>(blocks), kPassThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(z), static_cast<const float2*>(unpack), static_cast<float*>(out),
+      log2_m, log2_r, per_row);
+  return cudaGetLastError();
+}
+
 #endif  // SED_FEATURIZER_ONE_TIER_UNIT
+
+#if !defined(SED_FEATURIZER_NO_TIERS) && \
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY))
+// The tier GEMMs' launches (tier_inner_kernel, tier_outer_kernel) of
+// `frames` frames of an n1 n2 point DFT, log2_n1 and log2_n2 3..10 (n1 8..1024,
+// n2 8..1024).  Stage 1: kind as TierSource (packed: K6t's packed points of
+// waveforms, kind 0), tab1 the C1 chunks of (2 n2, n2) (packed (2 n2, 2 n2)),
+// twiddle (n2, n1) float2, t_out (frames, n2, n1) float2.
+int sed_tier_inner(const void* data, int kind, int packed, const void* window, const void* tab1,
+                   const void* twiddle, void* t_out, long long frames, long long n_samples,
+                   int n_frames, int hop, int log2_n1, int log2_n2, int passes, int device,
+                   void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (kind < 0 || kind > 2 || (packed && kind != 0) || log2_n1 < 3 || log2_n2 < 3 ||
+      log2_n1 > 10 || log2_n2 > 10)
+    return cudaErrorInvalidValue;
+  const long long col_blocks = ((frames << log2_n1) + kGemmBN - 1) / kGemmBN;
+  const long long blocks = col_blocks * (((2 << log2_n2) + kGemmBM - 1) / kGemmBM);
+  if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
+  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* t = static_cast<float2*>(t_out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_passes(passes, [&](auto p_constant) {
+    constexpr int P = decltype(p_constant)::value;
+    if (packed)
+      tier_inner_kernel<P, true><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
+          src, t1, tw, t, frames, log2_n1, log2_n2);
+    else
+      tier_inner_kernel<P, false><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
+          src, t1, tw, t, frames, log2_n1, log2_n2);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Stage 2: t_in as stage 1 wrote it, tab2 the C2 chunks of (n1 + 8, 2 n1)
+// (packed (2 n1, 2 n1)); out (frames, n/2 + 1) power, or (packed) out and
+// out_im (frames, n) Zr and Zi.
+int sed_tier_outer(const void* t_in, const void* tab2, void* out, void* out_im, long long frames,
+                   int log2_n1, int log2_n2, int packed, int passes, int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  if (log2_n1 < 3 || log2_n2 < 3 || log2_n1 > 10 || log2_n2 > 10) return cudaErrorInvalidValue;
+  const int n_cols = packed ? 2 << log2_n1 : tier_cols2(1 << log2_n1);
+  const long long row_blocks = ((frames << log2_n2) + kGemmBM - 1) / kGemmBM;
+  const long long blocks = row_blocks * ((n_cols + kGemmBN - 1) / kGemmBN);
+  if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const auto* t = static_cast<const float2*>(t_in);
+  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  auto* re = static_cast<float*>(out);
+  auto* im = static_cast<float*>(out_im);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return with_passes(passes, [&](auto p_constant) {
+    constexpr int P = decltype(p_constant)::value;
+    if (packed)
+      tier_outer_kernel<P, true><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
+          t, t2, re, im, frames, log2_n1, log2_n2);
+    else
+      tier_outer_kernel<P, false><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
+          t, t2, re, im, frames, log2_n1, log2_n2);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+#endif
 
 // The bf16 tier DFT's entry points.  Each kernel's 16 instances an n1 take
 // about as long to compile as the rest of the file, so the library is
-// linked from six objects of this file compiled side by side
+// linked from seven objects of this file compiled side by side
 // (cuda_featurizer.BUILD_RECIPE): -DSED_FEATURIZER_TIERS_ONLY (K1t, K3t at
 // n1 32..128), -DSED_FEATURIZER_FUSED_TIERS_ONLY (K5t at n1 32..128),
 // -DSED_FEATURIZER_WIDE_TIERS_ONLY (K1t, K3t and K5t at n1 256: n_fft 65536
 // and 131072, behind launch_wide_tier_dft_power and
 // launch_wide_tier_dft_mel_log above), -DSED_FEATURIZER_PACKED_TIERS_ONLY (K6t
 // at n1 32 and 64), -DSED_FEATURIZER_WIDE_PACKED_ONLY (K6t at n1 128 and 256,
-// behind launch_wide_packed_fft) and
+// behind launch_wide_packed_fft), -DSED_FEATURIZER_GEMM_TIERS_ONLY (the tier
+// GEMMs' sed_tier_inner and sed_tier_outer above) and
 // -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds of
 // chip_smoke.py too).
 

@@ -31,6 +31,14 @@ replaces, what bounds it and how it is designed):
   * K6t :func:`wave_packed_fft_bf16` — K6's function by the same bf16 matmul
     DFT over the m = n_fft/2 packed points (a complex input).
 
+Every kernel takes every power-of-two n_fft that sed_tpu computes for its
+impl and precision, up to :data:`MAX_FFT_SIZE` (2^20); :func:`launch_plan`
+says what each launches at a size, and the wrappers' checks read the same
+functions.  Above n_fft 131072 K1, K3 and K6 run a global cross pass, the
+sub-rows' cluster FFT and (K1, K3) an unpack, and K5 runs K1's launches then
+K2; outside their instances' sizes K1t, K3t and K6t run two tier GEMMs
+through device memory, and K5t (above 131072) K1t's launches then K2.
+
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
 :func:`mel_log_plain`, :func:`frames_stft_power_plain`,
@@ -93,31 +101,43 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # How build() makes the library, and all that library_digest() hashes beside
 # the source: each unit's macro picks one object of the source (featurizer.cu:
 # the instances of each tier kernel, K1t/K3t and K5t at n1 32..128, both at
-# n1 256, K6t at n1 32 and 64, K6t at n1 128 and 256, then everything else),
-# the objects are compiled side by side with "compile" and joined by one
-# nvcc with "link".
+# n1 256, K6t at n1 32 and 64, K6t at n1 128 and 256, the tier GEMMs, then
+# everything else), the objects are compiled side by side with "compile" and
+# joined by one nvcc with "link".
 BUILD_RECIPE = {
     "compile": tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",),
     "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_FUSED_TIERS_ONLY",
               "-DSED_FEATURIZER_WIDE_TIERS_ONLY", "-DSED_FEATURIZER_PACKED_TIERS_ONLY",
-              "-DSED_FEATURIZER_WIDE_PACKED_ONLY", "-DSED_FEATURIZER_NO_TIERS"),
+              "-DSED_FEATURIZER_WIDE_PACKED_ONLY", "-DSED_FEATURIZER_GEMM_TIERS_ONLY",
+              "-DSED_FEATURIZER_NO_TIERS"),
     "link": ("-shared",),
 }
 
 # Largest dynamic shared memory a Hopper block can use (227 KB); the FFT
 # kernels keep n_fft/2 complex f32 points there (K5 also the power row), or,
 # above n_fft 32768, 2^14 of them in each CTA of a thread-block cluster of
-# n_fft / 32768 CTAs (at most _MAX_CLUSTER_CTAS).
+# n_fft / 32768 CTAs (at most _MAX_CLUSTER_CTAS); above n_fft 131072 a global
+# cross pass splits a frame into sub-rows of 2^16 points, each such a cluster.
 _MAX_SMEM_BYTES = 232448
 _CTA_FFT_POINTS = stft_ops.CTA_FFT_POINTS
 _MAX_CLUSTER_CTAS = 4
-MAX_FFT_SIZE = 2 * _CTA_FFT_POINTS * _MAX_CLUSTER_CTAS   # 131072
+CLUSTER_FFT_MAX = 2 * _CTA_FFT_POINTS * _MAX_CLUSTER_CTAS   # 131072: one cluster a frame
+# The largest n_fft any featurizer kernel takes: 1.536 MHz at sed_tpu's frame
+# of 0.66 s (rates above it are not audio).
+MAX_FFT_SIZE = 1 << 20
+_SUB_ROW_POINTS = stft_ops.SUB_ROW_POINTS
+_SUB_ROW_LOG2 = _SUB_ROW_POINTS.bit_length() - 1
 _MAX_GRID_X = 2**31 - 1
 
+# Launches of each wrapper (a call whose kernels ran, whatever its route) and
+# of the kernels of the routes that take more than one launch
+# (:func:`launch_plan`): the cross pass, the sub-row FFTs and the unpack of
+# the Stockham FFT above n_fft 131072, and the tier GEMMs' two stages.
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
             "wave_stft_mel_log": 0, "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
             "frames_dft_power_bf16": 0, "mel_log_bf16": 0, "wave_stft_mel_log_mel_bf16": 0,
-            "wave_stft_mel_log_bf16": 0, "wave_packed_fft_bf16": 0}
+            "wave_stft_mel_log_bf16": 0, "wave_packed_fft_bf16": 0, "fft_cross_pass": 0,
+            "fft_subrows": 0, "packed_power": 0, "tier_inner": 0, "tier_outer": 0}
 
 
 def reset_launch_counts() -> None:
@@ -258,6 +278,17 @@ def _library() -> ctypes.CDLL:
     lib.sed_tier_packed_fft.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                                         i32, i32, i32, vp]
     lib.sed_tier_packed_fft.restype = i32
+    lib.sed_fft_cross_pass.argtypes = [vp, i32, vp, vp, vp, i64, i64, i32, i32, i32, i32, vp]
+    lib.sed_fft_cross_pass.restype = i32
+    lib.sed_fft_subrows.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.sed_fft_subrows.restype = i32
+    lib.sed_packed_power.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.sed_packed_power.restype = i32
+    lib.sed_tier_inner.argtypes = [vp, i32, i32, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+                                   i32, i32, vp]
+    lib.sed_tier_inner.restype = i32
+    lib.sed_tier_outer.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]
+    lib.sed_tier_outer.restype = i32
     return lib
 
 
@@ -282,22 +313,27 @@ def _stream(device: torch.device) -> int:
 
 def stockham_plan(n_fft: int, extra_smem: int = 0) -> dict:
     """How the Stockham FFT kernels (K1, K3, K5, K6) run an n_fft-point frame
-    on the card: ``{"log2_m", "cluster", "threads", "smem"}``, the CTAs of a
-    frame's thread-block cluster (1 up to n_fft 32768, then 2 and 4) and each
-    CTA's dynamic shared memory, its 2^min(log2 m, 14) complex points plus
-    ``extra_smem`` bytes of the kernel's own.  Raises ``ValueError`` for a
-    size the kernels do not take."""
+    on the card: ``{"log2_m", "cross", "cluster", "threads", "smem",
+    "blocks"}``: the sub-rows of the global cross pass (1 up to n_fft 131072;
+    2, 4, 8 at 2^18, 2^19, 2^20), the CTAs of a (sub-)row's thread-block
+    cluster (1 up to n_fft 32768, then 2 and 4), each CTA's dynamic shared
+    memory (its 2^min(log2 m, 14) complex points plus ``extra_smem`` bytes of
+    the kernel's own) and the most blocks a frame takes in one launch.
+    Raises ``ValueError`` for a size the kernels do not take."""
     if n_fft < 4 or n_fft & (n_fft - 1):
         raise ValueError(f"n_fft must be a power of two >= 4, got {n_fft}")
     if n_fft > MAX_FFT_SIZE:
         raise ValueError(
-            f"n_fft {n_fft} exceeds {MAX_FFT_SIZE}: the FFT kernels spread a frame's "
-            f"n_fft/2 points over a thread-block cluster of at most {_MAX_CLUSTER_CTAS} "
-            f"CTAs of {_CTA_FFT_POINTS} points each")
+            f"n_fft {n_fft} exceeds {MAX_FFT_SIZE}, the largest n_fft the featurizer "
+            f"kernels take (1.536 MHz at sed_tpu's 0.66 s frame)")
     m = n_fft // 2
-    points = min(m, _CTA_FFT_POINTS)
-    plan = {"log2_m": m.bit_length() - 1, "cluster": m // points,
-            "threads": max(1, points // 16), "smem": 8 * points + extra_smem}
+    sub = min(m, _SUB_ROW_POINTS)
+    points = min(sub, _CTA_FFT_POINTS)
+    cross = m // sub
+    plan = {"log2_m": m.bit_length() - 1, "cross": cross, "cluster": sub // points,
+            "threads": max(1, points // 16), "smem": 8 * points + extra_smem,
+            # the cross pass: 256 threads a block; the unpack: a bin a thread
+            "blocks": sub // points if cross == 1 else -(-(m + 1) // 256)}
     if plan["smem"] > _MAX_SMEM_BYTES:
         raise ValueError(f"n_fft {n_fft} does not fit the shared-memory FFT "
                          f"({plan['smem']} B of {_MAX_SMEM_BYTES})")
@@ -307,8 +343,11 @@ def stockham_plan(n_fft: int, extra_smem: int = 0) -> dict:
 def k5_extra_smem(n_fft: int, n_segments: int) -> int:
     """K5's shared memory beside its FFT's points: the power row (m + 1
     floats; a cluster CTA's 2^14 + 1), the segment sums and, in one CTA, the
-    slack that a short segment's loads reach past the row."""
+    slack that a short segment's loads reach past the row; 0 above n_fft
+    131072, where K5 runs K1's launches, then K2."""
     m = n_fft // 2
+    if n_fft > CLUSTER_FFT_MAX:
+        return 0
     if m > _CTA_FFT_POINTS:
         return 4 * (_CTA_FFT_POINTS + 1 + n_segments)
     return 4 * (m + 1 + n_segments + MEL_SEGMENT_BINS)
@@ -346,6 +385,54 @@ def _stockham_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(table).to(device)
 
 
+@functools.lru_cache(maxsize=4)
+def _cross_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    """The global cross pass's (R x 2^16, 2) f32 table above n_fft 131072
+    (:func:`stft_ops.cross_pass_twiddles`)."""
+    return torch.from_numpy(np.stack(stft_ops.cross_pass_twiddles(n_fft), axis=1)).to(device)
+
+
+def _cross_fft(data: torch.Tensor, kind: int, window: torch.Tensor, rows: int,
+               n_samples: int, n_frames: int, hop: int, n_fft: int, natural=None):
+    """The Stockham FFT above n_fft 131072, its first two launches: the cross
+    pass of ``rows`` frames (``kind``: 0 waveforms framed as K1 frames them;
+    1, 2 K3's f32 or int16 rows) into R sub-rows of 2^16 points, then the
+    cluster FFT of each.  Returns the (rows, m, 2) f32 scratch holding Z in
+    the sub-rows' order (K1, K3), or, with ``natural`` = (Zr, Zi), writes Z
+    there in natural bin order (K6) and returns None."""
+    device = data.device
+    log2_m = n_fft.bit_length() - 2
+    log2_r = log2_m - _SUB_ROW_LOG2
+    z = torch.empty((rows, n_fft // 2, 2), dtype=torch.float32, device=device)
+    lib = _library()
+    err = lib.sed_fft_cross_pass(data.data_ptr(), kind, window.data_ptr(),
+                                 _cross_twiddles(n_fft, device).data_ptr(), z.data_ptr(), rows,
+                                 n_samples, n_frames, hop, log2_m, device.index, _stream(device))
+    _check_launch("fft_cross_pass", err)
+    LAUNCHES["fft_cross_pass"] += 1
+    re, im = (None, None) if natural is None else (t.data_ptr() for t in natural)
+    err = lib.sed_fft_subrows(z.data_ptr(), _stockham_twiddles(2 * _SUB_ROW_POINTS, device)
+                              .data_ptr(), re, im, rows << log2_r, log2_r,
+                              int(natural is not None), device.index, _stream(device))
+    _check_launch("fft_subrows", err)
+    LAUNCHES["fft_subrows"] += 1
+    return z if natural is None else None
+
+
+def _cross_power(data: torch.Tensor, kind: int, window: torch.Tensor, out: torch.Tensor,
+                 rows: int, n_samples: int, n_frames: int, hop: int, n_fft: int) -> None:
+    """K1's and K3's three launches above n_fft 131072: :func:`_cross_fft`,
+    then the unpack of each frame's Z to its one-sided power in ``out``."""
+    z = _cross_fft(data, kind, window, rows, n_samples, n_frames, hop, n_fft)
+    device = data.device
+    log2_m = n_fft.bit_length() - 2
+    err = _library().sed_packed_power(
+        z.data_ptr(), _twiddles(n_fft, device).data_ptr(), out.data_ptr(), rows, log2_m,
+        log2_m - _SUB_ROW_LOG2, device.index, _stream(device))
+    _check_launch("packed_power", err)
+    LAUNCHES["packed_power"] += 1
+
+
 def wave_stft_power_plain(waves: torch.Tensor, window: torch.Tensor, hop: int,
                           n_fft: int) -> torch.Tensor:
     """Plain version of K1: reflect-centred framing, window, torch.fft.rfft,
@@ -368,7 +455,7 @@ def _check_waves(name: str, waves: torch.Tensor, window: torch.Tensor, hop: int,
         raise ValueError(f"hop must be >= 1, got {hop}")
     n_sig, n_samples = waves.shape
     n_frames = stft_ops.num_frames(n_samples, hop)
-    if n_sig * n_frames * stockham_plan(n_fft)["cluster"] > _MAX_GRID_X:
+    if n_sig * n_frames * stockham_plan(n_fft)["blocks"] > _MAX_GRID_X:
         raise ValueError(f"{name}: {n_sig * n_frames} frames exceed one launch's grid")
     return n_frames
 
@@ -420,6 +507,10 @@ def _wave_stft_power_cuda(waves, window, hop, n_fft):
                       device=device)
     if n_sig == 0:
         return out
+    if n_fft > CLUSTER_FFT_MAX:
+        _cross_power(waves, 0, window, out, n_sig * n_frames, n_samples, n_frames, hop, n_fft)
+        LAUNCHES["wave_stft_power"] += 1
+        return out
     err = _library().sed_wave_stft_power(
         waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
         _twiddles(n_fft, device).data_ptr(), out.data_ptr(), n_sig, n_samples, n_frames,
@@ -463,6 +554,11 @@ def wave_packed_fft(waves: torch.Tensor, window: torch.Tensor, hop: int,
     zr = torch.empty((n_sig, n_frames, m), dtype=torch.float32, device=device)
     zi = torch.empty_like(zr)
     if n_sig == 0:
+        return zr, zi
+    if n_fft > CLUSTER_FFT_MAX:
+        _cross_fft(waves, 0, window, n_sig * n_frames, n_samples, n_frames, hop, n_fft,
+                   natural=(zr, zi))
+        LAUNCHES["wave_packed_fft"] += 1
         return zr, zi
     tw = _stockham_twiddles(n_fft, device)
     err = _library().sed_wave_packed_fft(
@@ -536,7 +632,7 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
     if frames.ndim != 2 or frames.shape[1] != n_fft:
         raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
     rows = frames.shape[0]
-    if rows * stockham_plan(n_fft)["cluster"] > _MAX_GRID_X:
+    if rows * stockham_plan(n_fft)["blocks"] > _MAX_GRID_X:
         raise ValueError(f"{rows} rows exceed one launch's grid")
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
     if rows == 0:
@@ -545,6 +641,10 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
     is_int16 = frames.dtype == torch.int16
     if is_int16:
         window = window / 32768.0
+    if n_fft > CLUSTER_FFT_MAX:
+        _cross_power(frames, 2 if is_int16 else 1, window, out, rows, 0, 1, 1, n_fft)
+        LAUNCHES["frames_stft_power"] += 1
+        return out
     err = _library().sed_frames_stft_power(
         frames.data_ptr(), int(is_int16), window.data_ptr(),
         _stockham_twiddles(n_fft, device).data_ptr(), _twiddles(n_fft, device).data_ptr(),
@@ -804,7 +904,9 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
     CPU tensors take :func:`wave_stft_mel_log_plain`; CUDA tensors launch K5,
     or K5b at a ``mel_precision`` with bf16 passes (:func:`mel_passes`: the
     same kernel with K2's product mode in its epilogue, counted under
-    ``LAUNCHES["wave_stft_mel_log_mel_bf16"]``).
+    ``LAUNCHES["wave_stft_mel_log_mel_bf16"]``).  Above n_fft 131072 K5 is K1's
+    launches, then K2 at that mode (a frame's power does not stay on chip):
+    K1 then K2 by construction.
     """
     passes = mel_passes(mel_precision)
     if waves.device.type == "cpu":
@@ -823,6 +925,14 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
                       device=device)
     if n_sig == 0:
         return out
+    name = "wave_stft_mel_log" if passes == 0 else "wave_stft_mel_log_mel_bf16"
+    if n_fft > CLUSTER_FFT_MAX:
+        power = torch.empty((n_sig * n_frames, n_fft // 2 + 1), dtype=torch.float32,
+                            device=device)
+        _cross_power(waves, 0, window, power, n_sig * n_frames, n_samples, n_frames, hop, n_fft)
+        out = _launch_mel_log(power, bands, passes).reshape(n_sig, n_frames, -1)
+        LAUNCHES[name] += 1
+        return out
     err = _library().sed_wave_stft_mel_log(
         waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
         _twiddles(n_fft, device).data_ptr(), bands.segments.data_ptr(),
@@ -830,7 +940,7 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
         n_samples, n_frames, hop, n_fft.bit_length() - 2, bands.n_mels,
         bands.n_segments, passes, device.index, _stream(device))
     _check_launch("wave_stft_mel_log", err)
-    LAUNCHES["wave_stft_mel_log" if passes == 0 else "wave_stft_mel_log_mel_bf16"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -844,11 +954,19 @@ TIER_PASSES = {"bf16x1": 1, "bf16x3": 3, "bf16x4": 4, "bf16x6": 6}
 # The (chunk of a, chunk of b) product terms of a tier, in _make_dot's order:
 # a tier of P passes sums the first P.
 _TIER_TERMS = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (0, 2))
-# The n_fft the tier kernels take (n1 = 2^(log2 n_fft // 2) >= 32, n2 >= 64):
-# K1t, K3t and K5t transform n_fft points (up to 131072: n1 = 256, n2 = 512);
-# K6t m = n_fft/2.
+# log2 n_fft of the tier kernels' one-launch instances (n1 = 2^(log2 n // 2)
+# >= 32, n2 >= 64, n1 <= 256): tier_dft's (K1t, K3t and K5t transform n_fft
+# points) and tier_packed_fft_kernel's (K6t, m = n_fft/2 points).
 TIER_LOG2_N = range(11, 18)
 PACKED_TIER_LOG2_N = range(12, 18)
+# Every log2 n_fft each tier kernel takes on the card: from the smallest
+# sed_tpu computes at a reduced tier ('roll' and the tick 128, 'pack' 256:
+# its TPU kernels need 128 lanes of a frame or of its m packed points;
+# 'fuse' 2048, its TILE_K) up to MAX_FFT_SIZE.  Outside the instances' sizes
+# K1t, K3t and K6t run the two tier GEMMs, and K5t runs K1t's launches, then
+# K2 (:func:`tier_route`).
+TIER_RANGES = {"wave_dft_power_bf16": range(7, 21), "frames_dft_power_bf16": range(7, 21),
+               "wave_stft_mel_log_bf16": range(11, 21), "wave_packed_fft_bf16": range(8, 21)}
 
 
 def _stage_passes(p) -> int:
@@ -950,19 +1068,31 @@ def _tier_power_plain(x: torch.Tensor, n_fft: int, passes) -> torch.Tensor:
     by sed_tpu's two-stage matmul DFT at (inner, outer) ``passes``, step by
     step at its rounding points: Y = W2 @ X, T = Y * tw (f32, yr*twr - yi*twi),
     Z = T @ W1 as dot(tr, w1r) - dot(ti, w1i), |Z|^2, bin n2*k1 + k2; only
-    the columns k1 <= n1/2 of the outer stage, which hold the one-sided bins."""
+    the columns k1 <= n1/2 of the outer stage, which hold the one-sided bins.
+    Its two stages are :func:`_tier_inner_plain` and :func:`_tier_outer_plain`
+    (the plain versions of the tier GEMMs' two kernels)."""
     inner, outer = passes
-    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = _tier_constants(n_fft, x.device)
-    lead = x.shape[:-1]
-    x = x.reshape(*lead, n2, n1)
+    return _tier_outer_plain(*_tier_inner_plain(x, n_fft, inner), n_fft, outer)
+
+
+def _tier_inner_plain(x: torch.Tensor, n_fft: int, inner: int):
+    """Stage 1 of :func:`_tier_power_plain`: (..., n_fft) windowed frames ->
+    (Tr, Ti), each (..., n2, n1) f32."""
+    n1, n2, (w2r, w2i), _, (twr, twi) = _tier_constants(n_fft, x.device)
+    x = x.reshape(*x.shape[:-1], n2, n1)
     yr, yi = tier_matmul(w2r, x, inner), tier_matmul(w2i, x, inner)
-    tr = yr * twr - yi * twi
-    ti = yr * twi + yi * twr
+    return yr * twr - yi * twi, yr * twi + yi * twr
+
+
+def _tier_outer_plain(tr: torch.Tensor, ti: torch.Tensor, n_fft: int, outer: int):
+    """Stage 2 of :func:`_tier_power_plain`: (Tr, Ti) -> one-sided power."""
+    n1, n2, _, (w1r, w1i), _ = _tier_constants(n_fft, tr.device)
     h = n1 // 2 + 1
     w1r, w1i = w1r[:, :h], w1i[:, :h]
     zr = tier_matmul(tr, w1r, outer) - tier_matmul(ti, w1i, outer)
     zi = tier_matmul(tr, w1i, outer) + tier_matmul(ti, w1r, outer)
     power = zr * zr + zi * zi                          # (..., k2, k1)
+    lead = tr.shape[:-2]
     return power.transpose(-1, -2).reshape(*lead, h * n2)[..., : n_fft // 2 + 1].contiguous()
 
 
@@ -1039,52 +1169,210 @@ def tier_smem_bytes(n1: int, inner_passes: int, outer_passes: int) -> int:
     return (1 if staged else c2) * t + stages
 
 
-def launch_plan(n_fft: int, n_segments: int = 0) -> dict:
-    """What each featurizer kernel launches for one frame (row) at n_fft, by
-    its :data:`LAUNCHES` name: ``{"instance", "cluster", "smem"}``, the
-    template instance, the CTAs of the frame's thread-block cluster (1: no
-    cluster) and the dynamic shared memory of a CTA (the tier kernels: the
-    largest over their pass counts; K5 and K5t with ``n_segments`` segment
-    sums).  Raises ``ValueError`` as the wrappers do for an n_fft the FFT
-    kernels do not take; the tier kernels appear only where they take it."""
+def mel_smem_bytes(rows_at_once: int, n_segments: int, n_mels: int) -> int:
+    """K2's dynamic shared memory at ``rows_at_once`` (featurizer.cu
+    mel_smem_bytes): the barriers, the segments, band_first, the ring and two
+    buffers of segment sums."""
+    slots, chunk = (16, 1024) if rows_at_once == 1 else (4, 2048)
+    return (16 * slots + 16 * n_segments + 16 * ((n_mels + 4) // 4)
+            + 4 * (rows_at_once * slots * chunk + 2 * rows_at_once * n_segments))
+
+
+def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
+    """What each featurizer kernel launches at n_fft on the card, by its
+    :data:`LAUNCHES` name: ``{"route", "kernels", "instance", "cluster",
+    "smem"}``.  ``route``: 'one' (one launch of its instance), 'cross' (K1,
+    K3, K6 above n_fft 131072: the cross pass, the sub-rows' cluster FFT and,
+    K1 and K3, the unpack), 'gemm' (the tier GEMMs' two stages) or 'chain' (K5
+    above 131072, K5t above 131072: the power kernel's launches, then K2);
+    ``kernels``: the :data:`LAUNCHES` names a call adds one to, itself first;
+    ``instance`` the template instance(s), ``cluster`` the CTAs of a frame's
+    (sub-row's) thread-block cluster (1: none) and ``smem`` the largest
+    dynamic shared memory of a CTA (the tier kernels: over their pass counts;
+    K2, K5 and K5t with ``n_segments`` segment sums of ``n_mels`` bands).
+    The multi-launch routes' kernels have entries of their own.  Every kernel
+    appears at each n_fft of its range (4..MAX_FFT_SIZE; the tier kernels
+    :data:`TIER_RANGES`), and an n_fft above MAX_FFT_SIZE raises
+    ``ValueError`` as the wrappers do.  The wrappers' size checks read the
+    same functions (:func:`stockham_plan`, :func:`tier_route`)."""
+    sp = stockham_plan(n_fft)
+    log2_n = n_fft.bit_length() - 1
     plan = {}
+
+    def entry(route, kernels, instance, cluster, smem):
+        return {"route": route, "kernels": kernels, "instance": instance, "cluster": cluster,
+                "smem": smem}
+
+    rows_at_once = 4 if mel_smem_bytes(4, n_segments, n_mels) <= _MAX_SMEM_BYTES else 1
+    plan["mel_log"] = entry("one", ("mel_log",), f"mel_log_kernel<{rows_at_once}, kPasses>", 1,
+                            mel_smem_bytes(rows_at_once, n_segments, n_mels))
+    cross = sp["cross"] > 1
+    if cross:
+        sub = stockham_plan(2 * _SUB_ROW_POINTS)
+        plan["fft_cross_pass"] = entry("one", ("fft_cross_pass",),
+                                       f"fft_cross_pass_kernel<{sp['cross']}>", 1, 0)
+        plan["fft_subrows"] = entry("one", ("fft_subrows",), "fft_subrows_kernel<kNatural>",
+                                    sub["cluster"], sub["smem"])
+        plan["packed_power"] = entry("one", ("packed_power",), "packed_power_kernel", 1, 0)
     for name, kernel in (("wave_stft_power", "wave_stft_power_kernel"),
                          ("frames_stft_power", "frames_stft_power_kernel"),
                          ("wave_packed_fft", "wave_packed_fft_kernel"),
                          ("wave_stft_mel_log", "wave_stft_mel_log_kernel")):
-        extra = k5_extra_smem(n_fft, n_segments) if name == "wave_stft_mel_log" else 0
-        p = stockham_plan(n_fft, extra)
-        plan[name] = {"instance": f"{kernel}<{p['log2_m']}>", "cluster": p["cluster"],
-                      "smem": p["smem"]}
-    log2_n = n_fft.bit_length() - 1
+        if not cross:
+            extra = k5_extra_smem(n_fft, n_segments) if name == "wave_stft_mel_log" else 0
+            p = stockham_plan(n_fft, extra)
+            plan[name] = entry("one", (name,), f"{kernel}<{p['log2_m']}>", p["cluster"],
+                               p["smem"])
+            continue
+        parts = ("fft_cross_pass", "fft_subrows") + (
+            () if name == "wave_packed_fft" else ("packed_power",))
+        if name == "wave_stft_mel_log":
+            parts += ("mel_log",)
+        plan[name] = entry("chain" if name == "wave_stft_mel_log" else "cross", (name, *parts),
+                           " + ".join(plan[k]["instance"] for k in parts),
+                           max(plan[k]["cluster"] for k in parts),
+                           max(plan[k]["smem"] for k in parts))
     passes = [(a, b) for a in TIER_PASSES.values() for b in TIER_PASSES.values()]
-    if log2_n in TIER_LOG2_N:
-        n1 = 1 << (log2_n // 2)
-        smem = max(tier_smem_bytes(n1, a, b) for a, b in passes)
-        plan["wave_dft_power_bf16"] = {"instance": f"tier_dft_kernel<{n1}, P1, P2>",
-                                       "cluster": 1, "smem": smem}
-        plan["wave_stft_mel_log_bf16"] = {"instance": f"tier_dft_mel_log_kernel<{n1}, P1, P2>",
-                                          "cluster": (n_fft // n1) // 64,
-                                          "smem": smem + 4 * n_segments}
-    if log2_n in PACKED_TIER_LOG2_N:
-        n1 = 1 << ((log2_n - 1) // 2)
-        plan["wave_packed_fft_bf16"] = {
-            "instance": f"tier_packed_fft_kernel<{n1}, P1, P2>", "cluster": 1,
-            "smem": max(packed_plan(n1, a, b)["smem"] for a, b in passes)}
+    for name, kernel in (("wave_dft_power_bf16", "tier_dft_kernel"),
+                         ("frames_dft_power_bf16", "tier_dft_kernel"),
+                         ("wave_stft_mel_log_bf16", "tier_dft_mel_log_kernel"),
+                         ("wave_packed_fft_bf16", "tier_packed_fft_kernel")):
+        if log2_n not in TIER_RANGES[name]:
+            continue
+        route = tier_route(name, n_fft)
+        packed = name == "wave_packed_fft_bf16"
+        if route == "one" and packed:
+            n1 = 1 << ((log2_n - 1) // 2)
+            plan[name] = entry(route, (name,), f"{kernel}<{n1}, P1, P2>", 1,
+                               max(packed_plan(n1, a, b)["smem"] for a, b in passes))
+        elif route == "one":
+            n1 = 1 << (log2_n // 2)
+            smem = max(tier_smem_bytes(n1, a, b) for a, b in passes)
+            fused = name == "wave_stft_mel_log_bf16"
+            plan[name] = entry(route, (name,), f"{kernel}<{n1}, P1, P2>",
+                               (n_fft // n1) // 64 if fused else 1,
+                               smem + 4 * n_segments if fused else smem)
+        else:
+            smem = gemm_smem_bytes(3)
+            plan["tier_inner"] = entry("one", ("tier_inner",), "tier_inner_kernel<P1, kPacked>",
+                                       1, smem)
+            plan["tier_outer"] = entry("one", ("tier_outer",), "tier_outer_kernel<P2, kPacked>",
+                                       1, smem)
+            parts = ("tier_inner", "tier_outer") + (("mel_log",) if route == "chain" else ())
+            plan[name] = entry(route, (name, *parts),
+                               " + ".join(plan[k]["instance"] for k in parts), 1,
+                               max(plan[k]["smem"] for k in parts))
     return plan
 
 
-def _check_tier_size(n_fft: int, window: torch.Tensor, packed: bool = False) -> int:
-    """Returns log2 n_fft if the tier kernels take it (``packed``: K6t, whose
-    DFT has m = n_fft/2 points)."""
-    sizes = PACKED_TIER_LOG2_N if packed else TIER_LOG2_N
+def tier_route(name: str, n_fft: int) -> str:
+    """How tier kernel ``name`` (a :data:`TIER_RANGES` key) runs n_fft on the
+    card: 'one' (one launch of its instance), 'gemm' (the two tier GEMMs,
+    ``tier_inner_kernel`` then ``tier_outer_kernel``) or 'chain' (K5t: K1t's
+    launches, then K2).  Raises ``ValueError``, naming the range, for a size
+    it does not take."""
+    sizes = TIER_RANGES[name]
     log2_n = n_fft.bit_length() - 1
-    if n_fft & (n_fft - 1) or log2_n not in sizes:
-        raise ValueError(f"the {'packed ' if packed else ''}bf16 tier DFT takes n_fft a power "
-                         f"of two from {2 ** sizes[0]} to {2 ** sizes[-1]}, got {n_fft}")
+    if n_fft < 1 or n_fft & (n_fft - 1) or log2_n not in sizes:
+        what = {"wave_packed_fft_bf16": "packed ", "wave_stft_mel_log_bf16": "fused "}.get(name, "")
+        raise ValueError(f"the {what}bf16 tier DFT takes n_fft a power of two from "
+                         f"{2 ** sizes[0]} to {2 ** sizes[-1]}, got {n_fft}")
+    if log2_n in (PACKED_TIER_LOG2_N if name == "wave_packed_fft_bf16" else TIER_LOG2_N):
+        return "one"
+    return "chain" if name == "wave_stft_mel_log_bf16" else "gemm"
+
+
+def _check_tier_size(name: str, n_fft: int, window: torch.Tensor) -> str:
+    """:func:`tier_route` of ``name`` at n_fft, and the window's shape."""
+    route = tier_route(name, n_fft)
     if window.shape != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
-    return log2_n
+    return route
+
+
+def _gemm_dims(n: int):
+    """(log2 n1, log2 n2) of sed_tpu's n-point matmul DFT, n1 = 2^(log2 n // 2)."""
+    log2_n = n.bit_length() - 1
+    return log2_n // 2, log2_n - log2_n // 2
+
+
+# The tier GEMMs' shape (featurizer.cu kGemm*): 64 x 64 of the output a block,
+# k tiles of 32, rows of shared memory padded by 8 bf16.
+_GEMM_TILE, _GEMM_K = 64, 32
+
+
+def gemm_smem_bytes(chunks: int) -> int:
+    """The larger of the two tier GEMMs' static shared memory at ``chunks``
+    bf16 chunks an operand: stage 1's A tile and [k][n] B tile, stage 2's A
+    and [n][k] B tiles."""
+    inner = chunks * (_GEMM_TILE * (_GEMM_K + 8) + _GEMM_K * (_GEMM_TILE + 8)) * 2
+    return max(inner, chunks * 2 * _GEMM_TILE * (_GEMM_K + 8) * 2)
+
+
+def gemm_blocks(rows: int, n: int, packed: bool) -> int:
+    """The larger grid of the two tier GEMMs over ``rows`` frames of an
+    n-point DFT."""
+    log2_n1, log2_n2 = _gemm_dims(n)
+    n1, n2 = 1 << log2_n1, 1 << log2_n2
+    cols2 = 2 * n1 if packed else n1 + 8
+    up = lambda a: -(-a // _GEMM_TILE)  # noqa: E731
+    return max(up(rows * n1) * up(2 * n2), up(rows * n2) * up(cols2))
+
+
+@functools.lru_cache(maxsize=8)
+def _packed_gemm_tables(m: int, inner_chunks: int, outer_chunks: int, device: torch.device):
+    """K6t's tables of the tier GEMMs at an m-point DFT on ``device``, bf16
+    chunks of sed_tpu's f32 constants:
+      * tab1, ``inner_chunks`` x (2 n2, 2 n2): row 16t + 8h + i the
+        coefficients of Yr (h = 0) or Yi (h = 1) at k2 = 8t + i over [Re z |
+        Im z] (column a, n2 + a): W2r and -W2i, W2i and W2r;
+      * tab2, ``outer_chunks`` x (2 n1, 2 n1): row 2 k1 + h the coefficients
+        of Zr (h = 0) or Zi over [Tr | Ti]: W1r and -W1i, W1i and W1r, every k1;
+      * the (n2, n1) f32 twiddles as (re, im) pairs."""
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(m)
+    rows = [np.concatenate(pair, axis=1).reshape(n2 // 8, 8, 2 * n2)
+            for pair in ((w2r, -w2i), (w2i, w2r))]
+    w2 = np.stack(rows, axis=1).reshape(2 * n2, 2 * n2)
+    w1 = np.empty((2 * n1, 2 * n1), np.float32)
+    w1[0::2, :n1], w1[0::2, n1:] = w1r.T, -w1i.T
+    w1[1::2, :n1], w1[1::2, n1:] = w1i.T, w1r.T
+    tw = torch.from_numpy(np.stack([twr, twi], axis=-1)).to(device)
+    return _bf16_chunks(w2, inner_chunks, device), _bf16_chunks(w1, outer_chunks, device), tw
+
+
+def _bf16_chunks(a: np.ndarray, n: int, device: torch.device) -> torch.Tensor:
+    """(n, *a.shape) bf16: :func:`split_bf16`'s chunks of ``a``."""
+    parts = split_bf16(torch.from_numpy(np.ascontiguousarray(a)), n)
+    return torch.stack([c.to(torch.bfloat16) for c in parts]).to(device)
+
+
+def _tier_gemm(data: torch.Tensor, kind: int, window: torch.Tensor, tables, out: torch.Tensor,
+               out_im: Optional[torch.Tensor], rows: int, n_samples: int, n_frames: int,
+               hop: int, n: int, passes) -> None:
+    """The two tier GEMMs over ``rows`` frames of an n-point DFT at (inner,
+    outer) ``passes``: stage 1 to a (rows, n2, n1, 2) f32 scratch T, then
+    stage 2 to ``out``, K1t's and K3t's one-sided power (``out_im`` None;
+    ``kind`` as K1t's and K3t's), or K6t's (Zr, Zi) in ``out`` and ``out_im``
+    (n = m, the packed points of waveforms)."""
+    device = data.device
+    packed = out_im is not None
+    log2_n1, log2_n2 = _gemm_dims(n)
+    if gemm_blocks(rows, n, packed) > _MAX_GRID_X:
+        raise ValueError(f"{rows} frames exceed one launch's grid")
+    tab1, tab2, tw = tables
+    inner, outer = passes
+    t = torch.empty((rows, 1 << log2_n2, 1 << log2_n1, 2), dtype=torch.float32, device=device)
+    lib = _library()
+    err = lib.sed_tier_inner(data.data_ptr(), kind, int(packed), window.data_ptr(),
+                             tab1.data_ptr(), tw.data_ptr(), t.data_ptr(), rows, n_samples,
+                             n_frames, hop, log2_n1, log2_n2, inner, device.index, _stream(device))
+    _check_launch("tier_inner", err)
+    LAUNCHES["tier_inner"] += 1
+    err = lib.sed_tier_outer(t.data_ptr(), tab2.data_ptr(), out.data_ptr(),
+                             out_im.data_ptr() if packed else None, rows, log2_n1, log2_n2,
+                             int(packed), outer, device.index, _stream(device))
+    _check_launch("tier_outer", err)
+    LAUNCHES["tier_outer"] += 1
 
 
 @functools.lru_cache(maxsize=16)
@@ -1105,13 +1393,8 @@ def _tier_tables(n: int, inner_chunks: int, outer_chunks: int, device: torch.dev
     w1 = np.empty((2 * len(j), 2 * n1), np.float32)
     w1[0::2, :n1], w1[0::2, n1:] = w1r[:, j].T, -w1i[:, j].T
     w1[1::2, :n1], w1[1::2, n1:] = w1i[:, j].T, w1r[:, j].T
-
-    def chunks(a, n):
-        parts = split_bf16(torch.from_numpy(np.ascontiguousarray(a)), n)
-        return torch.stack([c.to(torch.bfloat16) for c in parts]).to(device)
-
     tw = torch.from_numpy(np.stack([twr, twi], axis=-1)).to(device)
-    return chunks(w2, inner_chunks), chunks(w1, outer_chunks), tw
+    return _bf16_chunks(w2, inner_chunks, device), _bf16_chunks(w1, outer_chunks, device), tw
 
 
 # K6t (featurizer.cu tier_packed_fft_kernel): stage 2's ring of W1 tiles, and the
@@ -1208,20 +1491,28 @@ def _packed_tables(m: int, inner_chunks: int, outer_chunks: int, device: torch.d
 
 def _tier_setup(name: str, n_fft: int, window: torch.Tensor, rows: int, passes,
                 device: torch.device):
-    """Checks what K1t, K3t and K5t take; returns log2 n_fft and the tables
-    on ``device`` (:func:`_tier_tables`: tab1, tab2, the twiddles)."""
-    log2_n = _check_tier_size(n_fft, window)
-    if rows * ((1 << log2_n) >> (log2_n // 2)) // 64 > _MAX_GRID_X:
+    """Checks what K1t, K3t and K5t take; returns their route
+    (:func:`tier_route`) and the tables on ``device`` (:func:`_tier_tables`:
+    tab1, tab2, the twiddles)."""
+    route = _check_tier_size(name, n_fft, window)
+    if route == "one" and rows * (n_fft >> ((n_fft.bit_length() - 1) // 2)) // 64 > _MAX_GRID_X:
         raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
     inner, outer = passes
-    return log2_n, _tier_tables(1 << log2_n, _tier_chunks(inner), _tier_chunks(outer), device)
+    return route, _tier_tables(n_fft, _tier_chunks(inner), _tier_chunks(outer), device)
 
 
 def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
                  out: torch.Tensor, rows: int, n_samples: int, n_frames: int, hop: int,
                  n_fft: int, passes) -> None:
     device = data.device
-    log2_n, (tab1, tab2, tw) = _tier_setup(name, n_fft, window, rows, passes, device)
+    route, tables = _tier_setup(name, n_fft, window, rows, passes, device)
+    if route == "gemm":
+        _tier_gemm(data, kind, window, tables, out, None, rows, n_samples, n_frames, hop, n_fft,
+                   passes)
+        LAUNCHES[name] += 1
+        return
+    tab1, tab2, tw = tables
+    log2_n = n_fft.bit_length() - 1
     inner, outer = passes
     err = _library().sed_tier_dft_power(
         data.data_ptr(), kind, window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(),
@@ -1239,7 +1530,8 @@ def wave_dft_power_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_f
     'bf16x6', or an (inner, outer) pair).
 
     CPU tensors take :func:`wave_dft_power_bf16_plain`; CUDA tensors launch
-    K1t (``tier_dft_kernel`` with K1's framing; n_fft 2048..131072).  Both go
+    K1t (``tier_dft_kernel`` with K1's framing; n_fft 2048..131072; the tier
+    GEMMs at 128..1024 and 2^18..2^20).  Both go
     through the custom operator ``sed_tpu_torch::wave_dft_power_bf16``, which
     takes the two stages' passes as ints, so an exported program holds it.
     """
@@ -1304,7 +1596,7 @@ def frames_dft_power_bf16(frames: torch.Tensor, window: torch.Tensor, n_fft: int
     rows = frames.shape[0]
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
     if rows == 0:
-        _check_tier_size(n_fft, window)
+        _check_tier_size("frames_dft_power_bf16", n_fft, window)
         return out
     frames = _pair_aligned(frames)
     is_int16 = frames.dtype == torch.int16
@@ -1327,7 +1619,8 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
     device memory.
 
     CPU tensors take :func:`wave_stft_mel_log_bf16_plain`; CUDA tensors
-    launch K5t (``tier_dft_mel_log_kernel``, n_fft 2048..131072), equal to
+    launch K5t (``tier_dft_mel_log_kernel``, n_fft 2048..131072; above it, a
+    frame's blocks exceed a cluster: K1t's launches, then K2), equal to
     :func:`wave_dft_power_bf16` then :func:`mel_log` bit for bit.
     """
     passes = _reduced_passes(precision)
@@ -1345,11 +1638,19 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
                          f"{n_fft // 2 + 1}")
     n_sig, n_samples = waves.shape
     rows = n_sig * n_frames
-    log2_n, (tab1, tab2, tw) = _tier_setup("wave_stft_mel_log_bf16", n_fft, window, rows,
-                                           passes, device)
+    route, (tab1, tab2, tw) = _tier_setup("wave_stft_mel_log_bf16", n_fft, window, rows,
+                                          passes, device)
     out = torch.empty((n_sig, n_frames, bands.n_mels), dtype=torch.float32, device=device)
     if n_sig == 0:
         return out
+    if route == "chain":
+        power = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
+        _tier_gemm(waves, 0, window, (tab1, tab2, tw), power, None, rows, n_samples, n_frames,
+                   hop, n_fft, passes)
+        out = _launch_mel_log(power, bands, mode).reshape(n_sig, n_frames, -1)
+        LAUNCHES["wave_stft_mel_log_bf16"] += 1
+        return out
+    log2_n = n_fft.bit_length() - 1
     err = _library().sed_tier_dft_mel_log(
         waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
         bands.segments.data_ptr(), bands.band_first.data_ptr(), bands.weights.data_ptr(),
@@ -1368,7 +1669,8 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
     m = n_fft/2 packed points at a reduced ``precision`` (:func:`tier_passes`).
 
     CPU tensors take :func:`wave_packed_fft_bf16_plain`; CUDA tensors launch
-    K6t (``tier_packed_fft_kernel``: wgmma, n_fft 4096..131072).
+    K6t (``tier_packed_fft_kernel``: wgmma, n_fft 4096..131072; the tier
+    GEMMs at 256..2048 and 2^18..2^20).
     """
     passes = _reduced_passes(precision)
     if waves.device.type == "cpu":
@@ -1377,15 +1679,22 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
         raise ValueError(f"wave_packed_fft_bf16: unsupported device {waves.device}")
     device = waves.device
     n_frames = _check_waves("wave_packed_fft_bf16", waves, window, hop, n_fft)
-    log2_m = _check_tier_size(n_fft, window, packed=True) - 1
+    route = _check_tier_size("wave_packed_fft_bf16", n_fft, window)
+    log2_m = n_fft.bit_length() - 2
     n_sig, n_samples = waves.shape
     rows = n_sig * n_frames
     m = n_fft // 2
-    tab1, tab2, tw = _packed_tables(m, *(_tier_chunks(p) for p in passes), device)
+    chunks = tuple(_tier_chunks(p) for p in passes)
     zr = torch.empty((n_sig, n_frames, m), dtype=torch.float32, device=device)
     zi = torch.empty_like(zr)
     if n_sig == 0:
         return zr, zi
+    if route == "gemm":
+        _tier_gemm(waves, 0, window, _packed_gemm_tables(m, *chunks, device), zr, zi, rows,
+                   n_samples, n_frames, hop, m, passes)
+        LAUNCHES["wave_packed_fft_bf16"] += 1
+        return zr, zi
+    tab1, tab2, tw = _packed_tables(m, *chunks, device)
     err = _library().sed_tier_packed_fft(
         waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
         zr.data_ptr(), zi.data_ptr(), rows, n_samples, n_frames, hop, log2_m, *passes,
@@ -1436,14 +1745,25 @@ _MEL_MODE_KERNELS = {"mel_log": "mel_log_bf16", "wave_stft_mel_log": "wave_stft_
 _PARITY_MEL_IMPLS = ("eo", "rolledge", "pack")
 
 
-def impl_kernels(impl: str, precision=None, mel_precision=None) -> tuple:
+def impl_kernels(impl: str, precision=None, mel_precision=None,
+                 n_fft: Optional[int] = None) -> tuple:
     """The kernels (:data:`LAUNCHES` names) that ``logmel_waveform(impl=impl,
     precision=precision, mel_precision=mel_precision)`` launches on a CUDA
-    tensor, once each."""
+    tensor, once each: the wrappers, and with ``n_fft`` also the kernels of
+    their routes at that size (:func:`launch_plan`)."""
     names = (IMPL_KERNELS if tier_passes(precision) is None else REDUCED_IMPL_KERNELS)[impl]
-    if mel_passes(mel_precision) and impl not in _PARITY_MEL_IMPLS:
+    mode = bool(mel_passes(mel_precision)) and impl not in _PARITY_MEL_IMPLS
+    if mode:
         names = tuple(_MEL_MODE_KERNELS.get(n, n) for n in names)
-    return names
+    if n_fft is None:
+        return names
+    plan, out = launch_plan(n_fft), []
+    parity_name = {v: k for k, v in _MEL_MODE_KERNELS.items()}
+    for name in names:
+        out.append(name)
+        out.extend(_MEL_MODE_KERNELS["mel_log"] if mode and k == "mel_log" else k
+                   for k in plan[parity_name.get(name, name)]["kernels"][1:])
+    return tuple(out)
 
 # sed_tpu's frames per TPU tile (FFT_TILE_R): its raw-read geometry, whose
 # preconditions the port keeps, is counted in these tiles.

@@ -199,6 +199,34 @@ def cluster_twiddles(n_fft: int):
     return c, s
 
 
+# The points of one cluster FFT (4 CTAs of CTA_FFT_POINTS): above n_fft
+# 131072 a frame's m = R * SUB_ROW_POINTS points go through a global cross
+# pass into R sub-rows of this size.
+SUB_ROW_POINTS = 1 << 16
+
+
+@functools.lru_cache(maxsize=4)
+def cross_pass_twiddles(n_fft: int):
+    """cos and sin of the global cross pass above n_fft 131072 (m = n_fft/2 =
+    R * M points, M = :data:`SUB_ROW_POINTS`), flat, computed in float64 and
+    rounded once to float32: for R = 2, 4 row r of (R, M) holds W_m^(r*n1);
+    for R = 8 (radix 4, then radix 2) row r1 of (4, 2M) holds W_m^(r1*n1'),
+    then M entries W_2M^n1."""
+    m = n_fft // 2
+    r_count = m // SUB_ROW_POINTS
+    if r_count not in (2, 4, 8):
+        raise ValueError(f"the cross pass takes n_fft 2^18..2^20, got {n_fft}")
+    radix = min(r_count, 4)
+    theta = -2.0 * np.pi * np.outer(np.arange(radix), np.arange(m // radix)) / m
+    theta = theta.reshape(-1)
+    if r_count == 8:
+        theta = np.concatenate([theta, -2.0 * np.pi * np.arange(SUB_ROW_POINTS) / (m // 4)])
+    c, s = np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+    c.setflags(write=False)
+    s.setflags(write=False)
+    return c, s
+
+
 def hermitian_unpack(zr: torch.Tensor, zi: torch.Tensor, n_fft: int):
     """Z = FFT_M(x_even + i*x_odd) of real frames (M = n_fft/2, natural bin
     order) -> (real, imag) of their real DFT, each (..., M + 1):

@@ -7,16 +7,17 @@ import neither JAX nor sed_tpu, so they also run where JAX is absent:
 
 Tolerances (against the plain versions computed in float64 on the card):
   * K1 and K3 power, K6's packed Z: abs error <= 1e-5 x the frame's (row's)
-    peak, at every n_fft 4..131072 (above 32768 over a cluster of 2 or 4
-    CTAs a frame);
+    peak, at every n_fft 4..2^20 (above 32768 over a cluster of 2 or 4 CTAs
+    a frame, above 131072 a global cross pass into sub-rows of such
+    clusters);
   * K2, K5, every impl name and the whole featurizer: <= 1e-4 dB (K2 at
     row counts across its persistent grid, on rows off a 16-byte boundary,
     at every n_fft 4..32768 and at 32,769 and 65,537 bins; every impl at 96
     and 192 kHz);
-  * K5 against K1 then K2: equal bit for bit, at every n_fft 4..131072;
+  * K5 against K1 then K2: equal bit for bit, at every n_fft 4..2^20;
   * the tier kernels (K1t, K3t, K5t, K6t) against their plain versions
-    within ``tier_tol``, at n_fft 2048..131072 (K6t 4096..131072, every
-    pass count of each stage);
+    within ``tier_tol``, at n_fft 128..2^20 (K6t 256..2^20, K5t
+    2048..2^20; every pass count of each stage);
   * scores, CUDA against CPU: <= 1e-4 abs (another summation order);
   * the windowed per-file path against the whole-recording forward on the
     card, and M5's two stems against each other: <= 1e-4 abs.
@@ -418,10 +419,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                 SMALL.nfft)
     with pytest.raises(ValueError):
         kernels.wave_stft_power(waves, window.cpu(), SMALL.hop_size, SMALL.nfft)
-    # Up to n_fft 131072 a frame spreads over a cluster of up to 4 CTAs.
-    big = torch.zeros(262144, device=cuda)
-    with pytest.raises(ValueError, match="cluster of at most 4"):
-        kernels.wave_stft_power(waves, big, 1000, 262144)
+    # Up to n_fft 2^20 (1.536 MHz), the largest the kernels take.
+    big = torch.zeros(1 << 21, device=cuda)
+    with pytest.raises(ValueError, match="exceeds 1048576"):
+        kernels.wave_stft_power(waves, big, 1000, 1 << 21)
     bands = kernels.mel_bands(SMALL, cuda)
     with pytest.raises(ValueError):
         kernels.mel_log(torch.zeros(4, SMALL.freq_bins - 1, device=cuda), bands)
@@ -492,7 +493,8 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
                                 "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
                                 "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
                                 "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
-                                "wave_packed_fft_bf16": 0}
+                                "wave_packed_fft_bf16": 0, "fft_cross_pass": 0, "fft_subrows": 0,
+                                "packed_power": 0, "tier_inner": 0, "tier_outer": 0}
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
@@ -793,11 +795,10 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         kernels.wave_stft_mel_log(waves, window, SMALL.hop_size, SMALL.nfft,
                                   kernels.mel_bands(SMALL, torch.device("cpu")))
-    # K5 keeps z and the power in shared memory, over a cluster of up to 4
-    # CTAs: 131072 fits, 262144 does not.
-    big = torch.zeros(262144, device=cuda)
-    with pytest.raises(ValueError, match="cluster of at most 4"):
-        kernels.wave_stft_mel_log(waves, big, 1000, 262144, bands)
+    # K5 fuses up to 131072 and chains K1 and K2 up to 2^20; not above it.
+    big = torch.zeros(1 << 21, device=cuda)
+    with pytest.raises(ValueError, match="exceeds 1048576"):
+        kernels.wave_stft_mel_log(waves, big, 1000, 1 << 21, bands)
 
 
 def seeded_model(arch, seed=0):
@@ -1823,9 +1824,10 @@ def test_k2_bf16_modes_match_their_plain_versions(cuda, mel_precision, rows):
 
 
 def test_tier_kernels_refuse_what_they_do_not_take(cuda):
-    small = SpectrogramConfig(working_sample_rate=8000, time_margin=0.05)   # n_fft 1024
+    small = SpectrogramConfig(working_sample_rate=8000, time_margin=0.003)   # n_fft 64
+    assert small.nfft == 64
     waves = signals(1, 8000, 8000, cuda)
-    with pytest.raises(ValueError, match="2048 to 131072"):
+    with pytest.raises(ValueError, match="128 to 1048576"):
         kernels.wave_dft_power_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
                                     small.nfft, "bf16x3")
     window = kernels.stft_window(SMALL, cuda)
@@ -1841,12 +1843,20 @@ def test_tier_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.frames_dft_power_bf16(torch.zeros(SMALL.nfft, 2, device=cuda).t(), window,
                                       SMALL.nfft, "bf16x3")
-    small = tier_cfg(2048)   # K6t transforms m = n_fft / 2 points: 2048 is below it
-    with pytest.raises(ValueError, match="4096 to 131072"):
+    small = tier_cfg(128)   # K6t transforms m = n_fft / 2 points: 128 is below it
+    assert small.hop_size % 2 == 0
+    with pytest.raises(ValueError, match="256 to 1048576"):
         kernels.wave_packed_fft_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
                                      small.nfft, "bf16x3")
-    with pytest.raises(ValueError, match="4096 to 131072"):
+    with pytest.raises(ValueError, match="256 to 1048576"):
         kernels.logmel_waveform(waves, small, impl="pack", precision="bf16x1")
+    # K5t: 'fuse' at a tier starts at 2048, as sed_tpu's does.
+    with pytest.raises(ValueError, match="2048 to 1048576"):
+        kernels.wave_stft_mel_log_bf16(waves, kernels.stft_window(small, cuda), small.hop_size,
+                                       small.nfft, kernels.mel_bands(small, cuda), "bf16x3")
+    with pytest.raises(ValueError, match="exceeds 1048576"):
+        kernels.wave_dft_power_bf16(waves, torch.zeros(1 << 21, device=cuda), 1000, 1 << 21,
+                                    "bf16x3")
 
 
 # ---------------------------------------------------------------------------
@@ -2188,3 +2198,261 @@ def test_k6t_every_size_and_pass_count(cuda, n_fft, precision):
     peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
     rel = max(float(((z - w).abs() / peak).max()) for z, w in ((zr, wr), (zi, wi)))
     assert rel <= tier_tol(precision), rel
+
+
+# ---------------------------------------------------------------------------
+# The ends of the range: n_fft 2^18, 2^19, 2^20 (384 kHz to 1.536 MHz: the
+# Stockham FFT's global cross pass, the tier GEMMs, K5 and K5t as chains, K2
+# at up to 524,289 bins) and the tiers' small end (n_fft 128..1024, K6t
+# 256..2048: the tier GEMMs)
+# ---------------------------------------------------------------------------
+
+TOP = {262144: SpectrogramConfig(working_sample_rate=384000),
+       524288: SpectrogramConfig(working_sample_rate=768000),
+       1048576: SpectrogramConfig(working_sample_rate=1536000)}
+# The tiers' small end: a rate whose n_fft is each size and whose hop is even.
+LOW = {128: SpectrogramConfig(working_sample_rate=122), 256: SpectrogramConfig(working_sample_rate=250),
+       512: SpectrogramConfig(working_sample_rate=400), 1024: SpectrogramConfig(working_sample_rate=1000),
+       2048: SpectrogramConfig(working_sample_rate=2000)}
+GEMM_PASSES = ["bf16x3", "bf16x1", "bf16x6", ("bf16x4", "bf16x1"), ("bf16x1", "bf16x3")]
+
+
+def launched_once(fn, *names):
+    """fn() with the launch counts reset just before; asserts exactly
+    ``names`` launched, once each; returns fn()'s result."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(dict.fromkeys(names, 1))
+    assert kernels.LAUNCHES == want
+    return out
+
+
+def top_signals(n_fft, cuda, hops=3, seed=0):
+    """Two signals of ``hops`` hops and a few samples: frames over both
+    reflection edges and interior ones."""
+    cfg = TOP[n_fft]
+    return cfg, signals(2, hops * cfg.hop_size + 777, cfg.working_sample_rate, cuda, seed)
+
+
+@pytest.mark.parametrize("n_fft", sorted(TOP))
+def test_cross_pass_kernels_match_float64(cuda, n_fft):
+    """K1, K3 (float32 and int16 rows) and K6 through the cross pass into 2,
+    4 or 8 sub-rows (launches: the wrapper's, the pass, the sub-rows, and
+    K1's and K3's unpack), within 1e-5 x each frame's (row's) peak of the
+    float64 plain version; K1 then K2 within 1e-4 dB of the float64 chain;
+    K5 and K5b, K1's launches then K2 at its mode, equal to K1 then K2."""
+    cfg, waves = top_signals(n_fft, cuda)
+    hop, bins = cfg.hop_size, n_fft // 2 + 1
+    window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
+    assert kernels.stockham_plan(n_fft)["cross"] == n_fft // 131072
+    cross = ("fft_cross_pass", "fft_subrows")
+    power = launched_once(lambda: kernels.wave_stft_power(waves, window, hop, n_fft),
+                          "wave_stft_power", *cross, "packed_power")
+    want = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
+    peak = want.amax(dim=-1, keepdim=True)
+    assert bool(((power.double() - want).abs() <= 1e-5 * peak).all())
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    rows = power.reshape(-1, bins)
+    mel = kernels.mel_log(rows, bands)
+    assert float((mel.double() - kernels.mel_log_plain(want.reshape(-1, bins), fb64)).abs().max()) <= 1e-4
+    for mel_precision in (None, "bf16x1", "bf16x3"):
+        key, k2 = (("wave_stft_mel_log", "mel_log") if mel_precision is None
+                   else ("wave_stft_mel_log_mel_bf16", "mel_log_bf16"))
+        got = launched_once(lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands,
+                                                              mel_precision),
+                            key, *cross, "packed_power", k2)
+        assert torch.equal(got.reshape(-1, bands.n_mels), kernels.mel_log(rows, bands,
+                                                                          mel_precision))
+    frames = waves[:, : n_fft + 2 * hop].unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+    for x in (frames, (frames * 20000).round().to(torch.int16)):
+        got = launched_once(lambda: kernels.frames_stft_power(x, window, n_fft),
+                            "frames_stft_power", *cross, "packed_power")
+        want = kernels.frames_stft_power_plain(x, window, n_fft, dtype=torch.float64)
+        assert bool(((got.double() - want).abs() <= 1e-5 * want.amax(dim=-1, keepdim=True)).all())
+    zr, zi = launched_once(lambda: kernels.wave_packed_fft(waves, window, hop, n_fft),
+                           "wave_packed_fft", *cross)
+    wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft)
+    peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+    for z, w in ((zr, wr), (zi, wi)):
+        assert bool(((z.double() - w).abs() <= 1e-5 * peak).all())
+
+
+@pytest.mark.parametrize("rows", [1, 7, 600])
+@pytest.mark.parametrize("n_fft", sorted(TOP))
+def test_k2_at_top_bins_matches_float64(cuda, n_fft, rows):
+    """K2 at 131,073, 262,145 and 524,289 bins (1,010, 1,973 and 3,897
+    segments: four rows at a time where their sums fit beside the ring, one
+    at 2^20): one launch, within 1e-4 dB of float64."""
+    cfg = TOP[n_fft]
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    power = torch.rand(rows, cfg.freq_bins, generator=g, device=cuda) ** 4 * 1e3
+    got = launched_once(lambda: kernels.power_to_logmel_cuda(power, cfg), "mel_log")
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    assert float((got.double() - kernels.mel_log_plain(power.double(), fb64)).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", sorted(kernels.IMPL_KERNELS))
+@pytest.mark.parametrize("n_fft", sorted(TOP))
+def test_every_impl_at_top_rates_launches_its_row(cuda, n_fft, impl):
+    """logmel_waveform at 384 kHz, 768 kHz and 1.536 MHz launches exactly
+    ``impl_kernels(impl, n_fft=n_fft)`` once each, within 1e-4 dB of the
+    float64 chain (a signal long enough for 'rollraw''s interior tiles)."""
+    cfg = TOP[n_fft]
+    sr = cfg.working_sample_rate
+    waves = signals(2, 6 * sr, sr, cuda, seed=2)
+    got = launched_once(lambda: kernels.logmel_waveform(waves, cfg, impl=impl),
+                        *kernels.impl_kernels(impl, n_fft=n_fft))
+    window = kernels.stft_window(cfg, cuda)
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    chain = kernels.wave_stft_mel_log_plain(waves.double(), window, cfg.hop_size, n_fft, fb64)
+    assert got.shape == chain.shape
+    assert float((got.double() - chain).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n_fft", sorted(TOP))
+def test_predictor_and_tick_at_top_rates(cuda, n_fft):
+    """make_batch_predictor (K1's launches and K2 once each) against the CPU
+    within 1e-4, and the tick's logmel_frames (K3's and K2) within 1e-4 dB
+    of float64."""
+    cfg = TOP[n_fft]
+    sr = cfg.working_sample_rate
+    model = CnnAvgPooling(1, TRAIN_CHANNEL_AND_POOL, generator=torch.Generator().manual_seed(0))
+    pcm = (signals(2, 6 * sr, sr, cuda, seed=3) * 20000).round().to(torch.int16)[..., None]
+    with torch.inference_mode():
+        feats = featurizer.logmel_features_batch(pcm, cfg)
+    mean = feats.mean(dim=(0, 1, 2)).cpu().numpy()
+    std = feats.std(dim=(0, 1, 2)).cpu().numpy()
+    predict = make_batch_predictor(model, cfg, mean=mean, std=std, device="cuda")
+    scores = launched_once(lambda: predict(pcm), *kernels.impl_kernels("roll", n_fft=n_fft))
+    cpu = make_batch_predictor(copy.deepcopy(model).cpu(), cfg, mean=mean, std=std, device="cpu")
+    assert float((scores.cpu() - cpu(pcm.cpu())).abs().max()) <= 1e-4
+    frames = pcm[0, : cfg.nfft + 4 * cfg.hop_size, 0].unfold(0, cfg.nfft, cfg.hop_size)
+    frames = frames.contiguous()
+    lm = launched_once(lambda: featurizer.logmel_frames(frames, cfg), "frames_stft_power",
+                       "fft_cross_pass", "fft_subrows", "packed_power", "mel_log")
+    fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
+    want = kernels.mel_log_plain(kernels.frames_stft_power_plain(
+        frames, kernels.stft_window(cfg, cuda), cfg.nfft, dtype=torch.float64), fb64)
+    assert float((lm.double() - want).abs().max()) <= 1e-4
+
+
+def gemm_case(n_fft, cuda, seed=0):
+    cfg = TOP.get(n_fft) or LOW[n_fft]
+    sr = cfg.working_sample_rate
+    return cfg, signals(2, 3 * cfg.hop_size + 77, sr, cuda, seed)
+
+
+@pytest.mark.parametrize("precision", GEMM_PASSES, ids=str)
+@pytest.mark.parametrize("n_fft", [128, 256, 512, 1024] + sorted(TOP))
+def test_gemm_k1t_and_k3t_match_their_plain_versions(cuda, n_fft, precision):
+    """K1t and K3t (float32 and int16 rows) through the tier GEMMs (the
+    wrapper's launch, tier_inner, tier_outer once each): every bin within
+    tier_tol x the frame's peak of the plain version."""
+    cfg, waves = gemm_case(n_fft, cuda)
+    hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
+    got = launched_once(lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft, precision),
+                        "wave_dft_power_bf16", "tier_inner", "tier_outer")
+    want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, precision)
+    assert got.shape == want.shape == (2, 1 + waves.shape[1] // hop, n_fft // 2 + 1)
+    rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    assert rel <= tier_tol(precision), rel
+    rows = signals(2, n_fft + 2 * hop, cfg.working_sample_rate, cuda, seed=4)
+    frames = rows.unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+    for x in (frames, (frames * 8000).round().to(torch.int16)):
+        got = launched_once(lambda: kernels.frames_dft_power_bf16(x, window, n_fft, precision),
+                            "frames_dft_power_bf16", "tier_inner", "tier_outer")
+        want = kernels.frames_dft_power_bf16_plain(x, window, n_fft, precision)
+        rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True)).max())
+        assert rel <= tier_tol(precision), rel
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x1"])
+@pytest.mark.parametrize("n_fft", [128, 1024] + sorted(TOP))
+def test_gemm_k1t_runs_its_own_mode(cuda, n_fft, precision):
+    """On broadband noise the tier GEMMs' K1t lies nearer its own mode's
+    plain version than the next mode's, and at the next mode nearer that
+    one's."""
+    cfg = TOP.get(n_fft) or LOW[n_fft]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    noise = 0.3 * torch.randn(4, 5 * cfg.hop_size + 77, generator=g, device=cuda)
+    window, hop = kernels.stft_window(cfg, cuda), cfg.hop_size
+    got = kernels.wave_dft_power_bf16(noise, window, hop, n_fft, precision)
+    want, neighbour = (kernels.wave_dft_power_bf16_plain(noise, window, hop, n_fft, p)
+                       for p in (precision, TIER_NEIGHBOUR[precision]))
+    peak = want.amax(dim=-1, keepdim=True)
+    assert abs(kernels.mode_fraction(got, want, neighbour, peak)) <= MODE_FRACTION_TOL
+    at_next = kernels.wave_dft_power_bf16(noise, window, hop, n_fft, TIER_NEIGHBOUR[precision])
+    assert kernels.mode_fraction(at_next, want, neighbour, peak) >= 1 - MODE_FRACTION_TOL
+
+
+@pytest.mark.parametrize("precision", GEMM_PASSES, ids=str)
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048] + sorted(TOP))
+def test_gemm_k6t_matches_its_plain_version(cuda, n_fft, precision):
+    """K6t through the tier GEMMs over m = n_fft / 2 packed points (n1 8 ..
+    512): every bin within tier_tol x the frame's peak |Z|."""
+    cfg, waves = gemm_case(n_fft, cuda, seed=9)
+    hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
+    zr, zi = launched_once(lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft,
+                                                                precision),
+                           "wave_packed_fft_bf16", "tier_inner", "tier_outer")
+    wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, precision)
+    assert zr.shape == wr.shape == (2, 1 + waves.shape[1] // hop, n_fft // 2)
+    peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+    rel = max(float(((z - w).abs() / peak).max()) for z, w in ((zr, wr), (zi, wi)))
+    assert rel <= tier_tol(precision), rel
+
+
+@pytest.mark.parametrize("precision, mel_precision", FUSE_MODES, ids=str)
+@pytest.mark.parametrize("n_fft", sorted(TOP))
+def test_top_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
+    """K5t above 131072 (a frame's n2 / 64 blocks exceed a cluster): K1t's
+    GEMMs, then K2 at mel_precision's mode, once each; equal to K1t then K2
+    bit for bit."""
+    cfg, waves = top_signals(n_fft, cuda)
+    window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
+    k2 = "mel_log_bf16" if kernels.mel_passes(mel_precision) else "mel_log"
+    got = launched_once(lambda: kernels.wave_stft_mel_log_bf16(
+        waves, window, cfg.hop_size, n_fft, bands, precision, mel_precision),
+        "wave_stft_mel_log_bf16", "tier_inner", "tier_outer", k2)
+    power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
+    two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
+    assert torch.equal(got.reshape(-1, bands.n_mels), two)
+
+
+# Each impl at the sizes where sed_tpu computes it ('pack' from 256, 'fuse'
+# from 2048).
+FAST_IMPL_CASES = [(n, impl) for n in [128, 256, 1024, 2048] + sorted(TOP)
+                   for impl in ("roll", "eo", "pack", "fuse")
+                   if not (impl == "pack" and n < 256) and not (impl == "fuse" and n < 2048)]
+
+
+@pytest.mark.parametrize("n_fft, impl", FAST_IMPL_CASES, ids=str)
+def test_impls_at_fast_launch_their_row_at_every_size(cuda, n_fft, impl):
+    """logmel_waveform at fast launches exactly ``impl_kernels(impl,
+    'bf16x3', n_fft=n_fft)`` once each, within 1e-3 dB of the chain of the
+    plain versions on the card on broadband noise; the tick's logmel_frames
+    at fast likewise (K3t's launches and K2)."""
+    cfg = TOP.get(n_fft) or LOW[n_fft]
+    hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
+    fb = kernels.mel_bands(cfg, cuda).dense
+    g = torch.Generator(device=cuda).manual_seed(7)
+    noise = 0.3 * torch.randn(2, 4 * hop + 77, generator=g, device=cuda)
+    got = launched_once(lambda: kernels.logmel_waveform(noise, cfg, impl=impl, precision="bf16x3"),
+                        *kernels.impl_kernels(impl, "bf16x3", n_fft=n_fft))
+    if impl == "pack":
+        power = kernels.packed_power_onesided(*kernels.wave_packed_fft_bf16_plain(
+            noise, window, hop, n_fft, "bf16x3"), n_fft)
+        want = kernels.mel_log_plain(power.reshape(-1, n_fft // 2 + 1), fb).reshape(got.shape)
+    else:
+        want = kernels.wave_stft_mel_log_bf16_plain(noise, window, hop, n_fft, fb, "bf16x3")
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-3
+    rows = noise[:, : n_fft + 2 * hop].unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
+    tick = launched_once(lambda: featurizer.logmel_frames(rows, cfg, "bf16x3"),
+                         *kernels.launch_plan(n_fft)["frames_dft_power_bf16"]["kernels"],
+                         "mel_log")
+    want = kernels.mel_log_plain(kernels.frames_dft_power_bf16_plain(rows, window, n_fft,
+                                                                     "bf16x3"), fb)
+    assert float((tick - want).abs().max()) <= 1e-3

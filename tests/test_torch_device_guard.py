@@ -17,7 +17,8 @@ from sed_tpu_torch.ops import cuda_featurizer as kernels
 
 ENTRY_POINTS = ("sed_wave_stft_power", "sed_frames_stft_power", "sed_mel_log",
                 "sed_wave_stft_mel_log", "sed_wave_packed_fft", "sed_tier_dft_power",
-                "sed_tier_dft_mel_log", "sed_tier_packed_fft")
+                "sed_tier_dft_mel_log", "sed_tier_packed_fft", "sed_fft_cross_pass",
+                "sed_fft_subrows", "sed_packed_power", "sed_tier_inner", "sed_tier_outer")
 GUARD = ("const DeviceGuard guard(device);",
          "if (guard.status() != cudaSuccess) return guard.status();")
 

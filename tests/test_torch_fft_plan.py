@@ -915,3 +915,187 @@ def test_model_of_cluster_k1_matches_the_plain_version(n_fft):
     k = np.arange(m + 1)
     per_cta = [np.append(rows[0][r:m:C], rows[0][m] if r == 0 else np.nan) for r in range(C)]
     assert np.array_equal(np.array([per_cta[kk % C][kk // C] for kk in k]), rows[0])
+
+
+# ---------------------------------------------------------------------------
+# Above n_fft 131072 (2^18, 2^19, 2^20): the global cross pass into R = 2, 4, 8
+# sub-rows of 2^16 points (fft_cross_pass_kernel), each sub-row's cluster FFT
+# (fft_subrows_kernel), and the unpack from the sub-rows' Z
+# (packed_power_kernel)
+# ---------------------------------------------------------------------------
+
+SUB_POINTS = stft_ops.SUB_ROW_POINTS
+WIDE_N_FFT = (262144, 524288, 1048576)
+
+
+def rot(q):
+    """W_4^q = (-i)^q, exact."""
+    return (-1j) ** (q % 4)
+
+
+def global_cross_pass(z, cross):
+    """fft_cross_pass_kernel on one frame's m = R * 2^16 packed points ->
+    (R, 2^16) sub-rows.  R = 2, 4: sub-row r = sum_q chunk_q W_R^(q r), q in
+    order, times W_m^(n1 r) (``cross`` row r); R = 8: radix 4 over chunks of
+    2M (n1' = n1 + M j), times W_m^(n1' r1), then radix 2 of each, times
+    W_2M^(n1 r2), to sub-row r1 + 4 r2."""
+    m, M = len(z), SUB_POINTS
+    R = m // M
+    chunks = z.reshape(R, M).astype(np.complex128)
+    out = np.empty((R, M), np.complex128)
+    if R <= 4:
+        for r in range(R):
+            acc = chunks[0].copy()
+            for q in range(1, R):
+                acc = acc + chunks[q] * rot(q * r * (4 // R))
+            out[r] = acc * cross[r] if r else acc
+        return out
+    table, last = cross
+    y = np.empty((4, 2, M), np.complex128)
+    for j in range(2):
+        for r1 in range(4):
+            acc = chunks[j].copy()
+            for q1 in range(1, 4):
+                acc = acc + chunks[j + 2 * q1] * rot(q1 * r1)
+            y[r1, j] = acc * table[r1, M * j: M * (j + 1)] if r1 else acc
+    for r1 in range(4):
+        out[r1] = y[r1, 0] + y[r1, 1]
+        out[r1 + 4] = (y[r1, 0] - y[r1, 1]) * last
+    return out
+
+
+def cross_tables64(m):
+    """The cross pass's tables in float64: (R, M) rows of W_m^(r n1); at R = 8
+    the (4, 2M) rows of W_m^(r1 n1') and the M entries of W_2M^n1."""
+    R, M = m // SUB_POINTS, SUB_POINTS
+    radix = min(R, 4)
+    table = np.exp(-2j * np.pi * np.outer(np.arange(radix), np.arange(m // radix)) / m)
+    return table if R <= 4 else (table, np.exp(-2j * np.pi * np.arange(M) / (2 * M)))
+
+
+def cross_tables32(n_fft):
+    """The same from ``stft_ops.cross_pass_twiddles``, the f32 table the
+    kernel reads."""
+    m = n_fft // 2
+    c, s = stft_ops.cross_pass_twiddles(n_fft)
+    flat = c.astype(np.float64) + 1j * s.astype(np.float64)
+    R, M = m // SUB_POINTS, SUB_POINTS
+    radix = min(R, 4)
+    table = flat[: m].reshape(radix, m // radix)
+    return table if R <= 4 else (table, flat[m:])
+
+
+def subrow_bins(sub, fft=np.fft.fft):
+    """Z of the frame from its sub-rows' FFTs: Z[s + R k] = FFT(sub-row s)[k]
+    (fft_subrows_kernel's natural store, stride R)."""
+    R, M = sub.shape
+    z = np.empty(R * M, np.complex128)
+    for s in range(R):
+        z[s::R] = fft(sub[s])
+    return z
+
+
+def inplace_store(fft_rows):
+    """fft_subrows_kernel's in-place store of each sub-row's FFT (natural
+    bins q of (R, M)): CTA r's bins r + 4 k1 at r 2^14 + k1 of the row."""
+    R, M = fft_rows.shape
+    return fft_rows.reshape(R, M // 4, 4).transpose(0, 2, 1).reshape(R, M)
+
+
+def stored_at(stored, j):
+    """Where packed_power_kernel reads Z[j] of a frame: sub-row s = j mod R,
+    its bin q = j // R at (q mod 4) 2^14 + q // 4."""
+    R, M = stored.shape
+    q = j // R
+    return stored[j % R, (q % 4) * (M // 4) + q // 4]
+
+
+def packed_power(stored, unpack):
+    """packed_power_kernel on one frame: the sub-rows' Z as fft_subrows_kernel
+    stored it -> (m + 1,) power, Z[k] read at sub-row k mod R and its mirror
+    Z[(m - k) mod m] at sub-row (R - k mod R) mod R."""
+    R, M = stored.shape
+    m = R * M
+    k = np.arange(m)
+    zk = stored_at(stored, k)
+    mk = (m - k) % m
+    zm = np.conj(stored_at(stored, mk))
+    x = (zk + zm) / 2 + unpack * (zk - zm) / 2j
+    return np.append(x.real ** 2 + x.imag ** 2, (zk[0].real - zk[0].imag) ** 2)
+
+
+def test_cross_pass_tables_are_the_f32_rounding_of_float64():
+    for n_fft in WIDE_N_FFT:
+        m = n_fft // 2
+        c, s = stft_ops.cross_pass_twiddles(n_fft)
+        want = cross_tables64(m)
+        flat = np.concatenate([np.ravel(a) for a in (want if isinstance(want, tuple) else (want,))])
+        assert c.shape == (m if m // SUB_POINTS <= 4 else m + SUB_POINTS,)
+        assert np.array_equal(c, flat.real.astype(np.float32))
+        assert np.array_equal(s, flat.imag.astype(np.float32))
+        assert np.array_equal(kernels._cross_twiddles(n_fft, torch.device("cpu")).numpy(),
+                              np.stack([c, s], axis=1))
+
+
+@pytest.mark.parametrize("n_fft", WIDE_N_FFT)
+def test_global_cross_pass_then_subrow_ffts_match_numpy_fft(n_fft):
+    """R = 2, 4 and 4 then 2: the cross pass and each sub-row's FFT give the
+    frame's FFT, in float64 (exact tables) and with the f32 table."""
+    m = n_fft // 2
+    z = random_points(m, n_fft)
+    want = np.fft.fft(z)
+    got = subrow_bins(global_cross_pass(z, cross_tables64(m)))
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+    got32 = subrow_bins(global_cross_pass(z, cross_tables32(n_fft)))
+    assert np.abs(got32 - want).max() <= 2e-6 * np.abs(want).max()
+
+
+def test_subrows_are_the_n_fft_131072_cluster_fft():
+    """Each sub-row is the 2^16-point FFT of K1 at n_fft 131072: the cluster
+    FFT's model (cross pass over 4 CTAs, then their schedules) on the
+    sub-rows of a frame at n_fft 2^18."""
+    m = 1 << 17
+    sub = global_cross_pass(random_points(m, 3), cross_tables64(m))
+    got = subrow_bins(sub, lambda x: cluster_fft(x, cross64(SUB_POINTS), table64(CTA_POINTS)))
+    want = subrow_bins(sub)
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_fft", WIDE_N_FFT)
+def test_packed_power_reads_each_bin_and_its_mirror_sub_row(n_fft):
+    """The unpack's reads: bin k at sub-row k mod R, its mirror at sub-row
+    (R - k mod R) mod R (R = 4: sub-rows 1 and 3 need each other, so no
+    sub-row's launch unit could finish its power alone), each (sub-row,
+    column) read once as a bin and once as a mirror."""
+    m = n_fft // 2
+    R = m // SUB_POINTS
+    k = np.arange(m)
+    mk = (m - k) % m
+    assert np.array_equal(mk % R, (R - k % R) % R)
+    assert np.array_equal(np.sort(mk % R * SUB_POINTS + mk // R), k)
+    # Each stored position holds one bin: the in-place order is a permutation.
+    pos = np.arange(SUB_POINTS)
+    assert np.array_equal(np.sort(inplace_store(np.tile(pos, (R, 1)))[0]), pos)
+    assert np.array_equal(stored_at(inplace_store(np.arange(m).reshape(SUB_POINTS, R).T), k), k)
+    if R == 4:
+        assert set(mk[k % R == 1] % R) == {3} and set(mk[k % R == 3] % R) == {1}
+
+
+@pytest.mark.parametrize("n_fft", WIDE_N_FFT)
+def test_model_of_wide_k1_matches_the_plain_version(n_fft):
+    """K1 above n_fft 131072 in float64: K6's loader on the whole frame, the
+    cross pass, the sub-rows' FFTs, the unpack from the sub-rows, against
+    ``wave_stft_power_plain``: the frames over both reflection edges and an
+    interior one of a signal of 2.5 frames (interior frames take the same
+    path with direct loads)."""
+    m, hop = n_fft // 2, n_fft // 2
+    window = stft_ops.padded_window(n_fft - n_fft // 8, n_fft).astype(np.float64)
+    y = np.random.default_rng(n_fft).standard_normal(5 * n_fft // 4 + 3)
+    cross, unpack = cross_tables64(m), table64(m)
+    rows = np.array([packed_power(inplace_store(np.stack([np.fft.fft(s) for s in global_cross_pass(
+        k6_frame_points(y, window, f * hop - m, m), cross)])), unpack)
+        for f in range(1 + len(y) // hop)])
+    want = kernels.wave_stft_power_plain(torch.from_numpy(y[None]), torch.from_numpy(window),
+                                         hop, n_fft).numpy()[0]
+    assert rows.shape == want.shape
+    assert (np.abs(rows - want) <= 1e-9 * want.max(axis=-1, keepdims=True)).all()

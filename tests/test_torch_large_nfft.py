@@ -17,8 +17,8 @@ sed_tpu call a size and class):
   * the tick's ``logmel_frames`` against ``logmel_frames_pallas``, within
     1e-4 dB;
   * ``cuda_featurizer.launch_plan``, what each kernel launches at an n_fft:
-    every plan within the 227 KB a block can use, 131072 the largest n_fft
-    the FFT kernels take.
+    every plan within the 227 KB a block can use (its refusal above the
+    largest n_fft, 2^20, is held in ``test_torch_nfft_range.py``).
 """
 
 import jax
@@ -148,12 +148,3 @@ def test_launch_plan_admits_each_rate_within_shared_memory(sr):
     if log2_n in kernels.PACKED_TIER_LOG2_N:
         assert plan["wave_packed_fft_bf16"]["cluster"] == 1
     assert all(p["smem"] <= 232448 for p in plan.values())
-
-
-def test_launch_plan_refuses_above_131072_as_the_wrappers_do():
-    with pytest.raises(ValueError, match="exceeds 131072") as plan_error:
-        kernels.launch_plan(262144)
-    window = torch.zeros(262144)
-    with pytest.raises(ValueError) as wrapper_error:
-        kernels._check_fft_size(262144, window)
-    assert str(plan_error.value) == str(wrapper_error.value)

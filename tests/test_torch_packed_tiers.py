@@ -140,3 +140,151 @@ def test_packed_plans_fit_and_their_images_are_bulk_copy_sized():
                     copy = c1 * 64 * 64                   # bf16 of one bulk copy
                     assert tab1.numel() == (n2 // 32) * (n2 // 32) * copy
                     assert (2 * copy) % 1024 == 0 and plan["kb"] % 32 == 0
+
+
+# ---------------------------------------------------------------------------
+# The tier GEMMs (tier_inner_kernel, tier_outer_kernel): K1t and K3t at n_fft
+# 128..1024 and 2^18..2^20, K6t at 256..2048 and 2^18..2^20, each stage a
+# GEMM of 64 x 64 blocks over every frame at once through device memory.
+# The model reads the host's tables as the kernels do, multiplies over the
+# tier's terms (float64 sums, rounded to float32), and runs each block's
+# epilogue at the fragment positions of mma.m16n8k16 (lane l: group g = l /
+# 4, column pair 2 (l mod 4)); every T entry and every output bin must be
+# written once, and the result equal the plain version to the float32
+# rounding of the sums.
+# ---------------------------------------------------------------------------
+
+GEMM_TILE = 64
+_W, _I, _J, _L = np.meshgrid(range(4), range(2), range(4), range(32), indexing="ij")
+FRAG_ROW = (_W >> 1) * 32 + _I * 16          # the 16-row group of a fragment
+FRAG_G = _L >> 2
+FRAG_COL = (_W & 1) * 32 + _J * 8 + 2 * (_L & 3)
+
+
+def f32(a):
+    return np.asarray(a, np.float32)
+
+
+def tier_inner_model(x, n, inner, packed):
+    """tier_inner_kernel on ``rows`` frames of windowed samples (real, (rows,
+    n)) or packed points (complex, (rows, n)); returns T (rows, n2, n1)
+    complex (float32 parts)."""
+    rows = x.shape[0]
+    log2_n1, log2_n2 = kernels._gemm_dims(n)
+    n1, n2 = 1 << log2_n1, 1 << log2_n2
+    c1 = kernels._tier_chunks(inner)
+    tables = kernels._packed_gemm_tables if packed else kernels._tier_tables
+    tab1, _, tw = tables(n, c1, 1, CPU)
+    tab1, tw = tab1.float().numpy().astype(np.float64), tw.numpy()
+    if packed:
+        xs = np.concatenate([x.real.reshape(rows, n2, n1), x.imag.reshape(rows, n2, n1)], axis=1)
+    else:
+        xs = x.reshape(rows, n2, n1)
+    k_len = xs.shape[1]
+    assert tab1.shape == (c1, 2 * n2, k_len)
+    b = xs.transpose(1, 0, 2).reshape(k_len, rows * n1)   # column f n1 + b
+    bc = chunks(b, c1)
+    acc = f32(sum(tab1[ca] @ bc[cb] for ca, cb in TERMS[inner]))
+    n_rows, n_cols = 2 * n2, rows * n1
+    t = np.full((rows, n2, n1), np.nan, np.complex128)
+    written = np.zeros((rows, n2, n1), int)
+    row_blocks = -(-n_rows // GEMM_TILE)
+    for block in range(row_blocks * -(-n_cols // GEMM_TILE)):
+        r0, c0 = block % row_blocks * GEMM_TILE, block // row_blocks * GEMM_TILE
+        row, col = r0 + FRAG_ROW, c0 + FRAG_COL
+        keep = (row < n_rows) & (col < n_cols)
+        row, col, g = row[keep], col[keep], FRAG_G[keep]
+        k2 = row // 2 + g
+        f, bb = col >> log2_n1, col & (n1 - 1)
+        for h in (0, 1):   # columns b, b + 1
+            yr, yi = acc[row + g, col + h], acc[row + g + 8, col + h]
+            twr, twi = tw[k2, bb + h, 0], tw[k2, bb + h, 1]
+            tr = f32(f32(yr * twr) - f32(yi * twi))
+            ti = f32(f32(yr * twi) + f32(yi * twr))
+            t[f, k2, bb + h] = tr + 1j * ti.astype(np.float64)
+            np.add.at(written, (f, k2, bb + h), 1)
+    assert (written == 1).all()
+    return t
+
+
+def tier_outer_model(t, n, outer, packed):
+    """tier_outer_kernel on T: (rows, n/2 + 1) power (K1t, K3t) or (rows, n)
+    complex Z (K6t), natural bin order."""
+    rows, n2, n1 = t.shape
+    log2_n2 = n2.bit_length() - 1
+    c2 = kernels._tier_chunks(outer)
+    tables = kernels._packed_gemm_tables if packed else kernels._tier_tables
+    _, tab2, _ = tables(n, 1, c2, CPU)
+    tab2 = tab2.float().numpy().astype(np.float64)
+    n_cols = 2 * n1 if packed else n1 + 8
+    assert tab2.shape == (c2, n_cols, 2 * n1)
+    a = np.concatenate([t.real, t.imag], axis=-1).reshape(rows * n2, 2 * n1)
+    ac = chunks(a, c2)
+    acc = f32(sum(ac[ca] @ tab2[cb].T for ca, cb in TERMS[outer]))
+    n_rows = rows * n2
+    out = np.full((rows, n if packed else n // 2 + 1), np.nan,
+                  np.complex128 if packed else np.float64)
+    written = np.zeros(out.shape, int)
+    col_blocks = -(-n_cols // GEMM_TILE)
+    for block in range(-(-n_rows // GEMM_TILE) * col_blocks):
+        r0, c0 = block // col_blocks * GEMM_TILE, block % col_blocks * GEMM_TILE
+        for h in (0, 1):   # the fragment's rows g and g + 8
+            row, col = r0 + FRAG_ROW + FRAG_G + 8 * h, c0 + FRAG_COL
+            keep = (row < n_rows) & (col < n_cols)
+            row, col = row[keep], col[keep]
+            zr, zi = acc[row, col], acc[row, col + 1]
+            f, k2, k1 = row >> log2_n2, row & (n2 - 1), col // 2
+            if packed:
+                sel = k1 < n1
+                idx = (f[sel], n2 * k1[sel] + k2[sel])
+                out[idx] = zr[sel] + 1j * zi[sel].astype(np.float64)
+            else:
+                sel = (k1 < n1 // 2) | ((k1 == n1 // 2) & (k2 == 0))
+                idx = (f[sel], n2 * k1[sel] + k2[sel])
+                out[idx] = f32(f32(zr[sel] * zr[sel]) + f32(zi[sel] * zi[sel]))
+            np.add.at(written, idx, 1)
+    assert (written == 1).all()
+    return out
+
+
+GEMM_CASES = [(128, "bf16x3", False), (128, "bf16x1", False), (256, ("bf16x6", "bf16x4"), False),
+              (512, "bf16x6", False), (1024, "bf16x3", False), (262144, "bf16x3", False),
+              (1048576, "bf16x1", False), (256, "bf16x3", True), (512, ("bf16x1", "bf16x6"), True),
+              (1024, "bf16x4", True), (2048, "bf16x3", True), (262144, "bf16x6", True),
+              (1048576, "bf16x3", True)]
+
+
+@pytest.mark.parametrize("n_fft, precision, packed", GEMM_CASES, ids=str)
+def test_model_of_the_tier_gemms_matches_the_plain_version(n_fft, precision, packed):
+    """K1t's power (``_tier_power_plain``) or K6t's Z (``_tier_packed_plain``)
+    of 3 frames through both stages' blocks: n1 = 8 (half of stage 1's k
+    tile, a quarter of a block's rows) up to n1 = 1024, n2 = 1024; within
+    5e-6 x the frame's peak (2.0e-6 at most here: an ulp of T flips a bf16
+    rounding of its low chunk), 1.5e-3 where the outer stage is bf16x1 (its
+    one rounding)."""
+    passes = kernels.tier_passes(precision)
+    x = np.random.default_rng(n_fft).standard_normal((3, n_fft)).astype(np.float32)
+    if packed:
+        z = x[:, 0::2] + 1j * x[:, 1::2]
+        got = tier_outer_model(tier_inner_model(z, n_fft // 2, passes[0], True), n_fft // 2,
+                               passes[1], True)
+        wr, wi = kernels._tier_packed_plain(torch.from_numpy(x), n_fft, passes)
+        want = wr.double().numpy() + 1j * wi.double().numpy()
+    else:
+        got = tier_outer_model(tier_inner_model(x, n_fft, passes[0], False), n_fft, passes[1],
+                               False)
+        want = kernels._tier_power_plain(torch.from_numpy(x), n_fft, passes).double().numpy()
+    assert got.shape == want.shape
+    tol = 1.5e-3 if passes[1] == 1 else 5e-6
+    peak = np.abs(want).max(axis=-1, keepdims=True)
+    assert (np.abs(got - want) <= tol * peak).all()
+
+
+def test_gemm_grids_and_shared_memory():
+    """The wrappers' grid check and launch_plan's shared memory follow the
+    kernels' shape: 30,720 B at three chunks, the larger grid of the two
+    stages."""
+    assert kernels.gemm_smem_bytes(3) == 30720 <= 48 * 1024
+    assert kernels.gemm_blocks(2912, 1 << 20, False) == 2912 * 1024 // 64 * (2 * 1024 // 64)
+    assert kernels.gemm_blocks(3, 128, False) == 1 * 1
+    assert kernels.gemm_blocks(5, 1 << 19, True) == 5 * 512 // 64 * 2048 // 64
