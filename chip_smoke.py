@@ -402,21 +402,31 @@ non-zero on the first failure.  Phases:
               turbo and bf16x6 within ``tier_rel_tol`` of their plain
               versions and each nearer its own mode than the next
               (``mode_fraction``), K5t equal to K1t then K2; at 384 kHz on a
-              16 x 60 s batch the predictor (its row once each; clip 0 within
-              1e-5 of the CPU path); times at 384 kHz and 1.536 MHz, 16 x 60
-              s: K1, K2, K5, K6, K1t, K5t and K6t beside their bounds, plain
-              versions (the tier ones on one clip's frames) and PyTorch
-              calls, and at 384 kHz each launch of the routes on its own
+              16 x 60 s batch the predictor (its row once each; clips 0 and
+              15 within 1e-5 of the CPU path); times at 384 kHz and 1.536
+              MHz, 16 x 60 s: K1, K2, K5, K6, K1t, K5t and K6t beside their
+              bounds, plain versions (the tier ones on one clip's frames)
+              and PyTorch calls, and that batch itself (and an untimed one
+              at 768 kHz) checked clip by clip:
+              K1, K3 (float32, int16) and K6 within 1e-5 x peak of float64,
+              K1 then K2 within 1e-4 dB, K1t, K3t and K6t at fast within
+              ``tier_rel_tol`` of their plain versions, K5 and K5t equal to
+              their chains; at 384 kHz each launch of the routes on its own
               through its C call (the cross pass, the sub-rows' FFT, the
               unpack, the tier GEMMs' two stages) beside a plain version of
-              it.
+              it, its error on the first and the last clip's frames.  On
+              the routes of more than one launch the counts are the
+              kernels' (the cross pass, the sub-rows, the unpack, the tier
+              GEMMs' stages, K2), never the wrapper's name.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10, then K1t, K3t and K2's
 bf16 modes with phase 20's figures, then K5t, K5b and K6t with phase 21's,
 then the n_fft 65536 instances of K1, K2, K3, K5, K6, K1t, K5t and K6t with
 phase 22's, then K1, K2, K5, K6, K1t, K5t and K6t at 384 kHz and 1.536 MHz
-and the routes' own kernels (the cross pass, the sub-rows' FFT, the unpack,
-the two tier GEMMs) with phase 23's; K1's and K2's with the training path's
+(a multi-launch route's ``launches``: its kernels' in the main-path run,
+summed, and each in ``route_launches``) and the routes' own kernels (the
+cross pass, the sub-rows' FFT, the unpack, the two tier GEMMs) with phase
+23's; K1's and K2's with the training path's
 launches, every entry with phase 12's, 0, phase 13's, phase 14's, phase
 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, phase
 21's, phase 22's and phase 23's), the ``nvidia-smi`` line, and last
@@ -5667,17 +5677,18 @@ def wide_phase(torch, dev, smi, peaks):
 
 # Phase 23: the ends of the n_fft range.  The rates of the new sizes checked
 # (1 kHz: the tiers' small end, n_fft 1024; 384 kHz, 768 kHz, 1.536 MHz: n_fft
-# 2^18, 2^19, 2^20), the seconds of the two clips of the checks (the float64
-# plain versions of 2^20 fit beside them), the rates timed at 16 x 60 s, the
-# reps of the tier GEMMs there (up to seconds a call) and the clips their
-# float64 plain versions are timed on (a 2^20 batch of them does not fit).
+# 2^18, 2^19, 2^20), the seconds of the two clips of every impl's checks, the
+# rates timed at 16 x 60 s, the rates whose 16 x 60 s batch is checked (clip
+# by clip against float64 and the plain versions), the reps of the tier GEMMs
+# there (up to seconds a call) and the clips their plain versions are timed on.
 RANGE_RATES = (1000, 384000, 768000, 1536000)
 RANGE_CHECK_SECONDS = 10
 RANGE_TIMED_RATES = (384000, 1536000)
+RANGE_BATCH_RATES = (384000, 768000, 1536000)   # 768 kHz: R = 4 sub-rows, checked untimed
 RANGE_TIER_CHECKS = ("bf16x3", "bf16x1", "bf16x6")
 RANGE_SLOW_REPS = 3
 RANGE_PLAIN_CLIPS = 1
-RANGE_SCORE_TOL = 1e-5    # the 384 kHz predictor's clip 0 against the CPU path
+RANGE_SCORE_TOL = 1e-5    # the 384 kHz predictor's first and last clips against the CPU path
 
 
 def cross_pass_plain(torch, z, table, n_fft):
@@ -5862,12 +5873,14 @@ def range_phase(torch, dev, smi, peaks):
     check(bool(torch.isfinite(scores).all()) and bool(((scores >= 0) & (scores <= 1)).all()),
           "384 kHz scores finite, in [0, 1]")
     cpu_predict = make_batch_predictor(cpu_model, cfg, mean=mean, std=std, device="cpu")
-    cpu_err = float((scores[:1].cpu() - cpu_predict(pcm[:1].cpu())).abs().max())
-    check(cpu_err <= RANGE_SCORE_TOL, f"384 kHz clip 0 within {RANGE_SCORE_TOL} of the CPU path")
+    ends = [0, BATCH - 1]   # the last clip's frames lie at the batch's largest offsets
+    cpu_err = float((scores[ends].cpu() - cpu_predict(pcm[ends].cpu())).abs().max())
+    check(cpu_err <= RANGE_SCORE_TOL,
+          f"384 kHz clips 0 and {BATCH - 1} within {RANGE_SCORE_TOL} of the CPU path")
     with torch.inference_mode():
         predictor_ms = time_ms(torch, lambda: predict(pcm), reps=5, warmup=1)
-    log(f"[range] 384 kHz predictor, {BATCH} x {SECONDS} s: launches {predictor_launches}, clip 0 "
-        f"vs CPU {cpu_err:.3e} (tol {RANGE_SCORE_TOL}), {predictor_ms:.4f} ms, "
+    log(f"[range] 384 kHz predictor, {BATCH} x {SECONDS} s: launches {predictor_launches}, clips "
+        f"0 and {BATCH - 1} vs CPU {cpu_err:.3e} (tol {RANGE_SCORE_TOL}), {predictor_ms:.4f} ms, "
         f"{BATCH * SECONDS / (predictor_ms / 1e3):.1f} audio-s/s")
     del cpu_model, cpu_predict, predict, model, scores
     waves_384 = ingest_to_f32(pcm[..., 0]).contiguous()
@@ -5953,6 +5966,7 @@ def range_phase(torch, dev, smi, peaks):
             "k6t": bound(wave_b + 8 * frames * m, k6t_ops / bf16_peak * 1e3)}
         if sr == 384000:   # each launch of the routes on its own, through its C call
             t["parts"] = route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks)
+        t["batch"] = batch_checks(torch, kernels, waves, cfg, window, bands, fast)
         times[sr] = t
         bnd = t["bounds"]
         log(f"[range] {smi}; {sr} Hz (n_fft {n_fft}), {BATCH} x {SECONDS} s ({frames} frames), "
@@ -5966,10 +5980,23 @@ def range_phase(torch, dev, smi, peaks):
             f"{bnd['k5t'][0]:.4f}), K6t {t['k6t']:.4f} (bound {bnd['k6t'][0]:.4f}); their plain "
             f"versions on {t['plain_frames']} frames: {t['k1t_plain']:.4f}, {t['k5t_plain']:.4f}, "
             f"{t['k6t_plain']:.4f}")
+        log(f"[range] {sr} Hz, the timed batch itself ({frames} frames), clip by clip: " + "; ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in t["batch"].items()))
         if "parts" in t:
             log("[range] 384 kHz, each launch on its own: " + "; ".join(
                 f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} "
                 f"{v['bound_by']}, err {v['max_abs_err']:.3e})" for k, v in t["parts"].items()))
+        del waves
+    for sr in RANGE_BATCH_RATES:
+        if sr in times:
+            continue
+        cfg = SpectrogramConfig(working_sample_rate=sr)
+        waves = make_signals(torch, BATCH, sr * SECONDS, sr, dev, 1)
+        batch = batch_checks(torch, kernels, waves, cfg, kernels.stft_window(cfg, dev),
+                             kernels.mel_bands(cfg, dev), fast)
+        log(f"[range] {sr} Hz, a {BATCH} x {SECONDS} s batch ({waves.shape[0] * (1 + waves.shape[1] // cfg.hop_size)} "
+            f"frames), clip by clip: " + "; ".join(
+                f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in batch.items()))
         del waves
     log(f"[range] phase {time.perf_counter() - t0:.1f} s; launches of its runs "
         f"{ {k: v for k, v in total.items() if v} }")
@@ -5977,6 +6004,10 @@ def range_phase(torch, dev, smi, peaks):
     source = "sed_tpu_torch/ops/csrc/featurizer.cu"
 
     def entry(name, kernel, replaces, launches, err, ms, plain_ms, bnd, library_ms, sr, **extra):
+        """``launches`` None: a multi-launch route's, the sum of its kernels'
+        (``route_launches`` in ``extra``)."""
+        if launches is None:
+            launches = sum(extra["route_launches"].values())
         return {"name": name, "kernel": kernel, "route": "cuda", "source": source,
                 "replaces": f"sed_tpu/ops/pallas_featurizer.py:{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
@@ -5984,9 +6015,16 @@ def range_phase(torch, dev, smi, peaks):
                 "n_fft": SpectrogramConfig(working_sample_rate=sr).nfft, "sample_rate": sr,
                 **extra}
 
+    def route(name, run, n_fft):
+        """A multi-launch route's kernels' launches in a main-path run (none is
+        counted under the wrapper's name)."""
+        return {"route_launches": {k: run.get(k, 0)
+                                   for k in kernels.launch_plan(n_fft)[name]["kernels"]}}
+
     entries = []
     for sr in RANGE_TIMED_RATES:
-        t, got, b = times[sr], checks[sr], times[sr]["bounds"]
+        t, got, b, bat = times[sr], checks[sr], times[sr]["bounds"], times[sr]["batch"]
+        n_fft = SpectrogramConfig(working_sample_rate=sr).nfft
         fast_tag = tier_tag(fast)
         roll, fuse = impl_runs[sr, "roll", None], impl_runs[sr, "fuse", None]
         pack = impl_runs[sr, "pack", None]
@@ -5995,32 +6033,38 @@ def range_phase(torch, dev, smi, peaks):
         plain_of = {"plain_frames": t["plain_frames"], "frames": t["frames"]}
         entries += [
             entry("wave_stft_power", "fft_cross_pass_kernel<R> + fft_subrows_kernel<false> + "
-                  "packed_power_kernel", 412, roll["wave_stft_power"], got["K1 / peak"], t["k1"],
-                  t["k1_plain"], b["k1"], t["k1_lib"], sr,
-                  predictor_launches=predictor_launches.get("wave_stft_power", 0)
+                  "packed_power_kernel", 412, None, max(got["K1 / peak"], bat["K1 / peak"]),
+                  t["k1"], t["k1_plain"], b["k1"], t["k1_lib"], sr,
+                  **route("wave_stft_power", roll, n_fft),
+                  predictor_launches=sum(route("wave_stft_power", predictor_launches, n_fft)
+                                         ["route_launches"].values())
                   if sr == 384000 else None, checks=checks),
             entry("mel_log", f"mel_log_kernel<R> at {SpectrogramConfig(working_sample_rate=sr).freq_bins}"
-                  " bins", 72,
-                  roll["mel_log"], got["parity dB (worst impl)"], t["k2"], t["k2_plain"], b["k2"],
-                  t["k2_lib"], sr),
-            entry("wave_stft_mel_log", "K1's launches, then mel_log_kernel<R>", 550,
-                  fuse["wave_stft_mel_log"], got["K5 None values differing from K1 then K2"],
-                  t["k5"], t["k5_plain"], b["k5"], t["fuse_lib"], sr),
+                  " bins", 72, roll["mel_log"],
+                  max(got["parity dB (worst impl)"], bat["K1 then K2 dB"]), t["k2"],
+                  t["k2_plain"], b["k2"], t["k2_lib"], sr),
+            entry("wave_stft_mel_log", "K1's launches, then mel_log_kernel<R>", 550, None,
+                  got["K5 None values differing from K1 then K2"]
+                  + bat["K5 values differing from K1 then K2"], t["k5"], t["k5_plain"], b["k5"],
+                  t["fuse_lib"], sr, **route("wave_stft_mel_log", fuse, n_fft)),
             entry("wave_packed_fft", "fft_cross_pass_kernel<R> + fft_subrows_kernel<true>", 882,
-                  pack["wave_packed_fft"], got["K6 / peak"], t["k6"], t["k6_plain"], b["k6"],
-                  t["k6_lib"], sr),
+                  None, max(got["K6 / peak"], bat["K6 / peak"]), t["k6"], t["k6_plain"],
+                  b["k6"], t["k6_lib"], sr, **route("wave_packed_fft", pack, n_fft)),
             entry("wave_dft_power_bf16", "tier_inner_kernel<3, false> + tier_outer_kernel<3, "
-                  "false>", 412, roll_t["wave_dft_power_bf16"], got[f"K1t {fast_tag} / peak"],
-                  t["k1t"], t["k1t_plain"], b["k1t"], t["k1_lib"], sr, precision=fast,
-                  **plain_of),
-            entry("wave_stft_mel_log_bf16", "K1t's launches, then mel_log_kernel<R>", 550,
-                  fuse_t["wave_stft_mel_log_bf16"],
-                  got[f"K5t {fast_tag} values differing from K1t then K2"], t["k5t"],
-                  t["k5t_plain"], b["k5t"], t["fuse_lib"], sr, precision=fast, **plain_of),
+                  "false>", 412, None,
+                  max(got[f"K1t {fast_tag} / peak"], bat[f"K1t {fast_tag} / peak"]), t["k1t"],
+                  t["k1t_plain"], b["k1t"], t["k1_lib"], sr, precision=fast, **plain_of,
+                  **route("wave_dft_power_bf16", roll_t, n_fft)),
+            entry("wave_stft_mel_log_bf16", "K1t's launches, then mel_log_kernel<R>", 550, None,
+                  got[f"K5t {fast_tag} values differing from K1t then K2"]
+                  + bat["K5t values differing from K1t then K2"], t["k5t"], t["k5t_plain"],
+                  b["k5t"], t["fuse_lib"], sr, precision=fast, **plain_of,
+                  **route("wave_stft_mel_log_bf16", fuse_t, n_fft)),
             entry("wave_packed_fft_bf16", "tier_inner_kernel<3, true> + tier_outer_kernel<3, "
-                  "true>", 882, pack_t["wave_packed_fft_bf16"], got[f"K6t {fast_tag} / peak"],
-                  t["k6t"], t["k6t_plain"], b["k6t"], t["k6_lib"], sr, precision=fast,
-                  **plain_of),
+                  "true>", 882, None,
+                  max(got[f"K6t {fast_tag} / peak"], bat[f"K6t {fast_tag} / peak"]), t["k6t"],
+                  t["k6t_plain"], b["k6t"], t["k6_lib"], sr, precision=fast, **plain_of,
+                  **route("wave_packed_fft_bf16", pack_t, n_fft)),
         ]
     parts = times[384000]["parts"]
     for name, (kernel, replaces) in {
@@ -6038,13 +6082,128 @@ def range_phase(torch, dev, smi, peaks):
     return entries, total
 
 
+def batch_checks(torch, kernels, waves, cfg, window, bands, fast):
+    """Phase 23's kernels on the timed 16 x 60 s batch itself, each once on
+    all its frames (grids and scratch offsets past 2^31 floats at 2^20),
+    held clip by clip (float64 fits a clip beside the batch): K1, K3
+    (float32 and int16 rows) and K6 within 1e-5 x peak of float64, K1 then
+    K2 within 1e-4 dB of the float64 chain, K1t, K3t and K6t at fast within
+    ``tier_rel_tol`` of their plain versions, K5 and K5t equal to their
+    chains over the whole batch.  Returns the worst of each."""
+    from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops.mel import mel_filterbank
+
+    hop, n_fft, n_bins = cfg.hop_size, cfg.nfft, cfg.freq_bins
+    n_sig, n_frames = waves.shape[0], 1 + waves.shape[1] // hop
+    fb64 = torch.from_numpy(mel_filterbank(cfg, np.float64)).to(waves.device)
+    tol = tier_rel_tol(kernels.tier_passes(fast))
+    fast_tag = tier_tag(fast)
+    got = {}
+
+    def worst(key, per_clip):
+        got[key] = max(per_clip(i) for i in range(n_sig))
+        return got[key]
+
+    def rel(a, b, peak):
+        return float(((a.double() - b.double()).abs() / peak.clamp_min(1e-30)).max())
+
+    def clip(i):
+        return waves[i:i + 1]
+
+    power = kernels.wave_stft_power(waves, window, hop, n_fft)
+    rows = power.reshape(-1, n_bins)
+    mel = kernels.mel_log(rows, bands)
+    got["K5 values differing from K1 then K2"] = int((kernels.wave_stft_mel_log(
+        waves, window, hop, n_fft, bands).reshape(-1, bands.n_mels) != mel).sum())
+
+    def k1_clip(i):
+        ref = kernels.wave_stft_power_plain(clip(i).double(), window, hop, n_fft)[0]
+        chain = kernels.mel_log_plain(ref, fb64)
+        db = float((mel[i * n_frames:(i + 1) * n_frames].double() - chain).abs().max())
+        got["K1 then K2 dB"] = max(got.get("K1 then K2 dB", 0.0), db)
+        return rel(power[i], ref, ref.amax(dim=-1, keepdim=True))
+
+    check(worst("K1 / peak", k1_clip) <= K1_REL_TOL, f"K1 on the n_fft {n_fft} batch, clip by clip")
+    check(got["K1 then K2 dB"] <= DB_TOL, f"K1 then K2 on the n_fft {n_fft} batch")
+    check(got["K5 values differing from K1 then K2"] == 0, f"K5 on the n_fft {n_fft} batch")
+    del power, rows, mel
+    t_pow = kernels.wave_dft_power_bf16(waves, window, hop, n_fft, fast)
+    got["K5t values differing from K1t then K2"] = int((kernels.wave_stft_mel_log_bf16(
+        waves, window, hop, n_fft, bands, fast).reshape(-1, bands.n_mels)
+        != kernels.mel_log(t_pow.reshape(-1, n_bins), bands)).sum())
+    check(got["K5t values differing from K1t then K2"] == 0, f"K5t on the n_fft {n_fft} batch")
+
+    def k1t_clip(i):
+        want = kernels.wave_dft_power_bf16_plain(clip(i), window, hop, n_fft, fast)[0]
+        return rel(t_pow[i], want, want.amax(dim=-1, keepdim=True))
+
+    check(worst(f"K1t {fast_tag} / peak", k1t_clip) <= tol, f"K1t on the n_fft {n_fft} batch")
+    del t_pow
+    zr, zi = kernels.wave_packed_fft(waves, window, hop, n_fft)
+
+    def k6_clip(i):
+        wr, wi = (w[0] for w in kernels.wave_packed_fft_plain(clip(i).double(), window, hop,
+                                                              n_fft))
+        peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+        return max(rel(zr[i], wr, peak), rel(zi[i], wi, peak))
+
+    check(worst("K6 / peak", k6_clip) <= K1_REL_TOL, f"K6 on the n_fft {n_fft} batch")
+    del zr, zi
+    zr, zi = kernels.wave_packed_fft_bf16(waves, window, hop, n_fft, fast)
+
+    def k6t_clip(i):
+        wr, wi = (w[0] for w in kernels.wave_packed_fft_bf16_plain(clip(i), window, hop, n_fft,
+                                                                   fast))
+        peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
+        return max(rel(zr[i], wr, peak), rel(zi[i], wi, peak))
+
+    check(worst(f"K6t {fast_tag} / peak", k6t_clip) <= tol, f"K6t on the n_fft {n_fft} batch")
+    del zr, zi
+
+    def k3_checks(tag, x):
+        out = kernels.frames_stft_power(x, window, n_fft)
+
+        def k3_clip(i):
+            part = slice(i * n_frames, (i + 1) * n_frames)
+            want = kernels.frames_stft_power_plain(x[part], window, n_fft, dtype=torch.float64)
+            return rel(out[part], want, want.amax(dim=-1, keepdim=True))
+
+        check(worst(f"K3 {tag} / peak", k3_clip) <= K1_REL_TOL,
+              f"K3 {tag} on the n_fft {n_fft} batch")
+        del out
+        out = kernels.frames_dft_power_bf16(x, window, n_fft, fast)
+
+        def k3t_clip(i):
+            part = slice(i * n_frames, (i + 1) * n_frames)
+            want = kernels.frames_dft_power_bf16_plain(x[part], window, n_fft, fast)
+            return rel(out[part], want, want.amax(dim=-1, keepdim=True))
+
+        check(worst(f"K3t {fast_tag} {tag} / peak", k3t_clip) <= tol,
+              f"K3t {tag} on the n_fft {n_fft} batch")
+
+    torch.cuda.empty_cache()
+    frames = stft_ops.frame_signal(waves, n_fft, hop).reshape(-1, n_fft).contiguous()
+    k3_checks("float32", frames)
+    pcm16 = torch.empty(frames.shape, dtype=torch.int16, device=frames.device)
+    for i in range(n_sig):   # a clip at a time: no batch-sized float temporaries
+        part = slice(i * n_frames, (i + 1) * n_frames)
+        pcm16[part] = (frames[part].clamp(-1, 1) * 32767).round().to(torch.int16)
+    del frames
+    torch.cuda.empty_cache()
+    k3_checks("int16", pcm16)
+    del pcm16
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return got
+
+
 def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
     """Each launch of K1's route above n_fft 131072 (the cross pass, the
     sub-rows' FFTs, the unpack) and of K1t's tier GEMMs at fast, alone
     through the C call its wrapper makes, on ``waves``: its time, its plain
     version's (on the same inputs), the PyTorch call that computes the same
     function where there is one, its bound and its error against the plain
-    version (x the frame's peak)."""
+    version (x the frame's peak) on the first and the last clip's frames."""
     bw, fp32_peak, bf16_peak = peaks
     dev = waves.device
     lib = kernels._library()
@@ -6071,26 +6230,28 @@ def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
                                    .data_ptr(), None, None, frames << log2_r, log2_r, 0,
                                    dev.index, stream)
 
-    # Each launch once on the whole batch; its error on the first clip's frames.
-    pf = RANGE_PLAIN_CLIPS * n_frames
+    # Each launch once on the whole batch; its error on the first and the last
+    # clip's frames (the last at the largest offsets); plain times on the first.
+    pf = n_frames
+    ends = torch.cat([torch.arange(pf), torch.arange(frames - pf, frames)]).to(dev)
     check(pass_call() == 0, "the cross pass launches through its C call")
     windowed = stft_ops_frame(torch, waves, window, hop, n_fft)
     zc = torch.complex(windowed[..., 0::2], windowed[..., 1::2]).reshape(frames, m)
     del windowed
     table = torch.complex(cross[:, 0], cross[:, 1])
-    want = cross_pass_plain(torch, zc[:pf].to(torch.complex128), table.to(torch.complex128),
+    want = cross_pass_plain(torch, zc[ends].to(torch.complex128), table.to(torch.complex128),
                             n_fft)
     got = torch.view_as_complex(z.view(frames, r_count, 1 << 16, 2))
     peak = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
-    err_pass = float(((got[:pf] - want).abs() / peak).max())
+    err_pass = float(((got[ends] - want).abs() / peak).max())
     sub = z.clone()
     check(subrows_call(sub) == 0, "the sub-rows' FFT launches through its C call")
-    fft64 = torch.fft.fft(got[:pf].to(torch.complex128), dim=-1)
+    fft64 = torch.fft.fft(got[ends].to(torch.complex128), dim=-1)
     # In place, CTA r of a sub-row's cluster keeps its bins r + 4 k1 at
     # r 2^14 + k1: the sub-row in natural order.
     gsub = torch.view_as_complex(sub.view(frames, r_count, 4, 1 << 14, 2)).transpose(2, 3)
     gsub = gsub.reshape(frames, r_count, 1 << 16)
-    err_sub = float(((gsub[:pf] - fft64).abs()
+    err_sub = float(((gsub[ends] - fft64).abs()
                      / fft64.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)).max())
     power = torch.empty((frames, m + 1), device=dev)
     unpack = kernels._twiddles(n_fft, dev)
@@ -6100,9 +6261,9 @@ def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
                                     log2_m, log2_r, dev.index, stream)
 
     check(power_call() == 0, "the unpack launches through its C call")
-    natural = gsub[:pf].to(torch.complex128).transpose(1, 2).reshape(pf, m)
+    natural = gsub[ends].to(torch.complex128).transpose(1, 2).reshape(len(ends), m)
     want_p = kernels.packed_power_onesided(natural.real, natural.imag, n_fft)
-    err_pow = float(((power[:pf].double() - want_p).abs()
+    err_pow = float(((power[ends].double() - want_p).abs()
                      / want_p.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
     del fft64, natural, want, want_p
     sub_t = zc.view(frames, r_count, 1 << 16)
@@ -6150,14 +6311,15 @@ def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
 
     check(inner_call() == 0 and outer_call() == 0, "the tier GEMMs launch through their C calls")
     torch.cuda.synchronize()
-    xf = stft_ops_frame(torch, waves[:RANGE_PLAIN_CLIPS], window, hop, n_fft)
-    t_want = torch.complex(*kernels._tier_inner_plain(xf, n_fft, 3))
-    t_got = torch.view_as_complex(t_buf[:pf]).reshape(t_want.shape)
+    xe = stft_ops_frame(torch, waves[[0, n_sig - 1]], window, hop, n_fft)
+    t_want = torch.complex(*kernels._tier_inner_plain(xe, n_fft, 3))
+    t_got = torch.view_as_complex(t_buf[ends]).reshape(t_want.shape)
     t_peak = t_want.abs().flatten(-2).amax(-1).clamp_min(1e-30)[..., None, None]
     err_inner = float(((t_got - t_want).abs() / t_peak).max())
     p_want = kernels._tier_outer_plain(t_got.real.contiguous(), t_got.imag.contiguous(), n_fft, 3)
-    err_outer = float(((power[:pf].reshape(p_want.shape) - p_want).abs()
+    err_outer = float(((power[ends].reshape(p_want.shape) - p_want).abs()
                        / p_want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    xf, t_first = xe[:pf], t_got[:pf]   # the plain versions' times: the first clip
     ops1 = frames * 3 * 4 * n2 * n2 * n1
     ops2 = frames * 3 * 8 * n2 * n1 * (n1 // 2 + 1)
     out["tier_inner"] = {
@@ -6170,7 +6332,7 @@ def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
     out["tier_outer"] = {
         "ms": time_ms(torch, outer_call, **slow),
         "plain_ms": time_ms(torch, lambda: kernels._tier_outer_plain(
-            t_got.real.contiguous(), t_got.imag.contiguous(), n_fft, 3), reps=2, warmup=1),
+            t_first.real.contiguous(), t_first.imag.contiguous(), n_fft, 3), reps=2, warmup=1),
         "plain_frames": pf, "library_ms": None, "max_abs_err": err_outer,
         **dict(zip(("bound_ms", "bound_by"), bound(8 * frames * n_fft + 4 * frames * (m + 1),
                                                    ops2 / bf16_peak * 1e3)))}

@@ -3297,17 +3297,25 @@ tier_outer_kernel(const float2* __restrict__ t_in, const __nv_bfloat16* __restri
 #endif  // the tier GEMMs
 
 #ifndef SED_FEATURIZER_ONE_TIER_UNIT
-// K2 at product mode `passes` (mel_fma) on the current device: kMelRows rows
-// at a time once every SM has a group of them and their segment sums fit
+// The rows a K2 CTA sums at once over `rows` rows on a card of n_sm SMs:
+// kMelRows once every SM has a group of them and their segment sums fit
 // beside the ring (above n_fft 524288 they do not: 3,897 segments at 2^20);
 // one row at a time otherwise (the streaming tick's 160 rows: one wave of
-// CTAs).
+// CTAs).  launch_mel_log_mode launches by it, sed_mel_plan reports it.
+constexpr int mel_rows_at_once(long long rows, int n_seg, int n_mels, int n_sm) {
+  return rows >= static_cast<long long>(kMelRows) * n_sm &&
+                 mel_smem_bytes<kMelRows>(n_seg, n_mels) <= 232448
+             ? kMelRows
+             : 1;
+}
+
+// K2 at product mode `passes` (mel_fma) on the current device, at
+// mel_rows_at_once rows a CTA.
 int launch_mel_log_mode(const MelArgs& args, int passes, int device, cudaStream_t s) {
   int n_sm = 0;
   const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const bool many = args.rows >= static_cast<long long>(kMelRows) * n_sm &&
-                    mel_smem_bytes<kMelRows>(args.n_seg, args.n_mels) <= 232448;
+  const bool many = mel_rows_at_once(args.rows, args.n_seg, args.n_mels, n_sm) == kMelRows;
   switch (passes) {
     case 0:
       return many ? launch_mel_log<kMelRows>(args, n_sm, s) : launch_mel_log<1>(args, n_sm, s);
@@ -3469,6 +3477,21 @@ int sed_mel_log(const void* power, const void* segments, const void* band_first,
                      static_cast<const float*>(weights), static_cast<float*>(out), rows,
                      n_bins, n_mels, n_seg, span_lo, span_hi};
   return launch_mel_log_mode(args, passes, device, static_cast<cudaStream_t>(stream));
+}
+
+// K2's plan for `rows` rows of n_seg segments and n_mels bands on `device`,
+// as sed_mel_log launches it: the rows a CTA sums at once
+// (mel_rows_at_once) and its dynamic shared memory (mel_smem_bytes).
+// cuda_featurizer.launch_plan reads it; it launches nothing.
+int sed_mel_plan(long long rows, int n_seg, int n_mels, int device, int* rows_at_once,
+                 long long* smem) {
+  int n_sm = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *rows_at_once = mel_rows_at_once(rows, n_seg, n_mels, n_sm);
+  *smem = *rows_at_once == kMelRows ? mel_smem_bytes<kMelRows>(n_seg, n_mels)
+                                    : mel_smem_bytes<1>(n_seg, n_mels);
+  return cudaSuccess;
 }
 
 int sed_wave_stft_mel_log(const void* wave, const void* window, const void* twiddle,

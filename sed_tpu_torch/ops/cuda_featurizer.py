@@ -129,10 +129,12 @@ _SUB_ROW_POINTS = stft_ops.SUB_ROW_POINTS
 _SUB_ROW_LOG2 = _SUB_ROW_POINTS.bit_length() - 1
 _MAX_GRID_X = 2**31 - 1
 
-# Launches of each wrapper (a call whose kernels ran, whatever its route) and
-# of the kernels of the routes that take more than one launch
-# (:func:`launch_plan`): the cross pass, the sub-row FFTs and the unpack of
-# the Stockham FFT above n_fft 131072, and the tier GEMMs' two stages.
+# Launches of each kernel: a wrapper adds one to its own name where it
+# launches its one-launch instance; on the routes that take more than one
+# launch (:func:`launch_plan`) it adds one to the name of each kernel it
+# launches (the cross pass, the sub-row FFTs and the unpack of the Stockham
+# FFT above n_fft 131072; the tier GEMMs' two stages; K2 where K5 and K5t
+# chain) and nothing to its own.
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
             "wave_stft_mel_log": 0, "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
             "frames_dft_power_bf16": 0, "mel_log_bf16": 0, "wave_stft_mel_log_mel_bf16": 0,
@@ -261,6 +263,8 @@ def _library() -> ctypes.CDLL:
     lib.sed_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
                                 i32, i32, vp]
     lib.sed_mel_log.restype = i32
+    lib.sed_mel_plan.argtypes = [i64, i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i64)]
+    lib.sed_mel_plan.restype = i32
     lib.sed_frames_stft_power.argtypes = [vp, i32, vp, vp, vp, vp, i64, i32, i32, vp]
     lib.sed_frames_stft_power.restype = i32
     lib.sed_wave_stft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
@@ -313,13 +317,13 @@ def _stream(device: torch.device) -> int:
 
 def stockham_plan(n_fft: int, extra_smem: int = 0) -> dict:
     """How the Stockham FFT kernels (K1, K3, K5, K6) run an n_fft-point frame
-    on the card: ``{"log2_m", "cross", "cluster", "threads", "smem",
-    "blocks"}``: the sub-rows of the global cross pass (1 up to n_fft 131072;
-    2, 4, 8 at 2^18, 2^19, 2^20), the CTAs of a (sub-)row's thread-block
-    cluster (1 up to n_fft 32768, then 2 and 4), each CTA's dynamic shared
-    memory (its 2^min(log2 m, 14) complex points plus ``extra_smem`` bytes of
-    the kernel's own) and the most blocks a frame takes in one launch.
-    Raises ``ValueError`` for a size the kernels do not take."""
+    on the card: ``{"log2_m", "cross", "cluster", "threads", "smem"}``: the
+    sub-rows of the global cross pass (1 up to n_fft 131072; 2, 4, 8 at 2^18,
+    2^19, 2^20), the CTAs of a (sub-)row's thread-block cluster (1 up to
+    n_fft 32768, then 2 and 4) and each CTA's dynamic shared memory (its
+    2^min(log2 m, 14) complex points plus ``extra_smem`` bytes of the
+    kernel's own).  Raises ``ValueError`` for a size the kernels do not
+    take."""
     if n_fft < 4 or n_fft & (n_fft - 1):
         raise ValueError(f"n_fft must be a power of two >= 4, got {n_fft}")
     if n_fft > MAX_FFT_SIZE:
@@ -331,9 +335,7 @@ def stockham_plan(n_fft: int, extra_smem: int = 0) -> dict:
     points = min(sub, _CTA_FFT_POINTS)
     cross = m // sub
     plan = {"log2_m": m.bit_length() - 1, "cross": cross, "cluster": sub // points,
-            "threads": max(1, points // 16), "smem": 8 * points + extra_smem,
-            # the cross pass: 256 threads a block; the unpack: a bin a thread
-            "blocks": sub // points if cross == 1 else -(-(m + 1) // 256)}
+            "threads": max(1, points // 16), "smem": 8 * points + extra_smem}
     if plan["smem"] > _MAX_SMEM_BYTES:
         raise ValueError(f"n_fft {n_fft} does not fit the shared-memory FFT "
                          f"({plan['smem']} B of {_MAX_SMEM_BYTES})")
@@ -397,7 +399,7 @@ def _cross_fft(data: torch.Tensor, kind: int, window: torch.Tensor, rows: int,
     """The Stockham FFT above n_fft 131072, its first two launches: the cross
     pass of ``rows`` frames (``kind``: 0 waveforms framed as K1 frames them;
     1, 2 K3's f32 or int16 rows) into R sub-rows of 2^16 points, then the
-    cluster FFT of each.  Returns the (rows, m, 2) f32 scratch holding Z in
+    cluster FFT of each (their C entries refuse a grid past 2^31 - 1 blocks).  Returns the (rows, m, 2) f32 scratch holding Z in
     the sub-rows' order (K1, K3), or, with ``natural`` = (Zr, Zi), writes Z
     there in natural bin order (K6) and returns None."""
     device = data.device
@@ -455,7 +457,7 @@ def _check_waves(name: str, waves: torch.Tensor, window: torch.Tensor, hop: int,
         raise ValueError(f"hop must be >= 1, got {hop}")
     n_sig, n_samples = waves.shape
     n_frames = stft_ops.num_frames(n_samples, hop)
-    if n_sig * n_frames * stockham_plan(n_fft)["blocks"] > _MAX_GRID_X:
+    if n_sig * n_frames * stockham_plan(n_fft)["cluster"] > _MAX_GRID_X:
         raise ValueError(f"{name}: {n_sig * n_frames} frames exceed one launch's grid")
     return n_frames
 
@@ -509,7 +511,6 @@ def _wave_stft_power_cuda(waves, window, hop, n_fft):
         return out
     if n_fft > CLUSTER_FFT_MAX:
         _cross_power(waves, 0, window, out, n_sig * n_frames, n_samples, n_frames, hop, n_fft)
-        LAUNCHES["wave_stft_power"] += 1
         return out
     err = _library().sed_wave_stft_power(
         waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
@@ -558,7 +559,6 @@ def wave_packed_fft(waves: torch.Tensor, window: torch.Tensor, hop: int,
     if n_fft > CLUSTER_FFT_MAX:
         _cross_fft(waves, 0, window, n_sig * n_frames, n_samples, n_frames, hop, n_fft,
                    natural=(zr, zi))
-        LAUNCHES["wave_packed_fft"] += 1
         return zr, zi
     tw = _stockham_twiddles(n_fft, device)
     err = _library().sed_wave_packed_fft(
@@ -632,7 +632,7 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
     if frames.ndim != 2 or frames.shape[1] != n_fft:
         raise ValueError(f"frames must be (rows, {n_fft}), got {tuple(frames.shape)}")
     rows = frames.shape[0]
-    if rows * stockham_plan(n_fft)["blocks"] > _MAX_GRID_X:
+    if rows * stockham_plan(n_fft)["cluster"] > _MAX_GRID_X:
         raise ValueError(f"{rows} rows exceed one launch's grid")
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
     if rows == 0:
@@ -643,7 +643,6 @@ def frames_stft_power(frames: torch.Tensor, window: torch.Tensor,
         window = window / 32768.0
     if n_fft > CLUSTER_FFT_MAX:
         _cross_power(frames, 2 if is_int16 else 1, window, out, rows, 0, 1, 1, n_fft)
-        LAUNCHES["frames_stft_power"] += 1
         return out
     err = _library().sed_frames_stft_power(
         frames.data_ptr(), int(is_int16), window.data_ptr(),
@@ -906,7 +905,7 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
     same kernel with K2's product mode in its epilogue, counted under
     ``LAUNCHES["wave_stft_mel_log_mel_bf16"]``).  Above n_fft 131072 K5 is K1's
     launches, then K2 at that mode (a frame's power does not stay on chip):
-    K1 then K2 by construction.
+    K1 then K2 by construction, counted under those kernels' names.
     """
     passes = mel_passes(mel_precision)
     if waves.device.type == "cpu":
@@ -930,9 +929,7 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
         power = torch.empty((n_sig * n_frames, n_fft // 2 + 1), dtype=torch.float32,
                             device=device)
         _cross_power(waves, 0, window, power, n_sig * n_frames, n_samples, n_frames, hop, n_fft)
-        out = _launch_mel_log(power, bands, passes).reshape(n_sig, n_frames, -1)
-        LAUNCHES[name] += 1
-        return out
+        return _launch_mel_log(power, bands, passes).reshape(n_sig, n_frames, -1)
     err = _library().sed_wave_stft_mel_log(
         waves.data_ptr(), window.data_ptr(), _stockham_twiddles(n_fft, device).data_ptr(),
         _twiddles(n_fft, device).data_ptr(), bands.segments.data_ptr(),
@@ -1169,13 +1166,23 @@ def tier_smem_bytes(n1: int, inner_passes: int, outer_passes: int) -> int:
     return (1 if staged else c2) * t + stages
 
 
-def mel_smem_bytes(rows_at_once: int, n_segments: int, n_mels: int) -> int:
-    """K2's dynamic shared memory at ``rows_at_once`` (featurizer.cu
-    mel_smem_bytes): the barriers, the segments, band_first, the ring and two
-    buffers of segment sums."""
-    slots, chunk = (16, 1024) if rows_at_once == 1 else (4, 2048)
-    return (16 * slots + 16 * n_segments + 16 * ((n_mels + 4) // 4)
-            + 4 * (rows_at_once * slots * chunk + 2 * rows_at_once * n_segments))
+def mel_plan(n_segments: int, n_mels: int, rows: int = 1 << 40,
+             device: Optional[torch.device] = None) -> Optional[dict]:
+    """K2's plan for ``rows`` rows (default: more than every SM's group) of
+    ``n_segments`` segments and ``n_mels`` bands, as the kernel library
+    launches it on ``device`` (default: the current card): ``{"rows_at_once",
+    "smem"}``, the rows a CTA sums at once and its dynamic shared memory
+    (featurizer.cu ``sed_mel_plan``).  None where no card is present: the
+    library decides both at launch, and a CPU tensor never launches it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    r, smem = ctypes.c_int(), ctypes.c_longlong()
+    err = _library().sed_mel_plan(rows, n_segments, n_mels, device.index, ctypes.byref(r),
+                                  ctypes.byref(smem))
+    _check_launch("mel_plan", err)
+    return {"rows_at_once": r.value, "smem": smem.value}
 
 
 def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
@@ -1185,16 +1192,20 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
     K3, K6 above n_fft 131072: the cross pass, the sub-rows' cluster FFT and,
     K1 and K3, the unpack), 'gemm' (the tier GEMMs' two stages) or 'chain' (K5
     above 131072, K5t above 131072: the power kernel's launches, then K2);
-    ``kernels``: the :data:`LAUNCHES` names a call adds one to, itself first;
-    ``instance`` the template instance(s), ``cluster`` the CTAs of a frame's
-    (sub-row's) thread-block cluster (1: none) and ``smem`` the largest
-    dynamic shared memory of a CTA (the tier kernels: over their pass counts;
-    K2, K5 and K5t with ``n_segments`` segment sums of ``n_mels`` bands).
-    The multi-launch routes' kernels have entries of their own.  Every kernel
-    appears at each n_fft of its range (4..MAX_FFT_SIZE; the tier kernels
-    :data:`TIER_RANGES`), and an n_fft above MAX_FFT_SIZE raises
-    ``ValueError`` as the wrappers do.  The wrappers' size checks read the
-    same functions (:func:`stockham_plan`, :func:`tier_route`)."""
+    ``kernels``: the :data:`LAUNCHES` names a call adds one to (its own name
+    on route 'one', its kernels' names on the others, each with an entry of
+    its own); ``instance`` the template instance(s), ``cluster`` the CTAs of
+    a frame's (sub-row's) thread-block cluster (1: none) and ``smem`` the
+    largest dynamic shared memory of a CTA (the tier kernels: over their
+    pass counts; K5 and K5t with ``n_segments`` segment sums of ``n_mels``
+    bands; 0 for the kernels with static shared memory only: the cross pass,
+    the unpack and the tier GEMMs).  K2's rows at once and shared memory are
+    the library's (:func:`mel_plan`), so where no card is present its entry
+    and the chains' ``smem`` are None.  Every kernel appears at each n_fft of
+    its range (4..MAX_FFT_SIZE; the tier kernels :data:`TIER_RANGES`), and an
+    n_fft above MAX_FFT_SIZE raises ``ValueError`` as the wrappers do.  The
+    wrappers' size checks read the same functions (:func:`stockham_plan`,
+    :func:`tier_route`)."""
     sp = stockham_plan(n_fft)
     log2_n = n_fft.bit_length() - 1
     plan = {}
@@ -1203,9 +1214,14 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
         return {"route": route, "kernels": kernels, "instance": instance, "cluster": cluster,
                 "smem": smem}
 
-    rows_at_once = 4 if mel_smem_bytes(4, n_segments, n_mels) <= _MAX_SMEM_BYTES else 1
-    plan["mel_log"] = entry("one", ("mel_log",), f"mel_log_kernel<{rows_at_once}, kPasses>", 1,
-                            mel_smem_bytes(rows_at_once, n_segments, n_mels))
+    def chain(route, parts):
+        smem = [plan[k]["smem"] for k in parts]
+        return entry(route, parts, " + ".join(plan[k]["instance"] for k in parts),
+                     max(plan[k]["cluster"] for k in parts), None if None in smem else max(smem))
+
+    mel = mel_plan(n_segments, n_mels)
+    plan["mel_log"] = entry("one", ("mel_log",), "mel_log_kernel<%s, kPasses>" % (
+        "R" if mel is None else mel["rows_at_once"]), 1, mel and mel["smem"])
     cross = sp["cross"] > 1
     if cross:
         sub = stockham_plan(2 * _SUB_ROW_POINTS)
@@ -1228,10 +1244,7 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
             () if name == "wave_packed_fft" else ("packed_power",))
         if name == "wave_stft_mel_log":
             parts += ("mel_log",)
-        plan[name] = entry("chain" if name == "wave_stft_mel_log" else "cross", (name, *parts),
-                           " + ".join(plan[k]["instance"] for k in parts),
-                           max(plan[k]["cluster"] for k in parts),
-                           max(plan[k]["smem"] for k in parts))
+        plan[name] = chain("chain" if name == "wave_stft_mel_log" else "cross", parts)
     passes = [(a, b) for a in TIER_PASSES.values() for b in TIER_PASSES.values()]
     for name, kernel in (("wave_dft_power_bf16", "tier_dft_kernel"),
                          ("frames_dft_power_bf16", "tier_dft_kernel"),
@@ -1253,15 +1266,12 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
                                (n_fft // n1) // 64 if fused else 1,
                                smem + 4 * n_segments if fused else smem)
         else:
-            smem = gemm_smem_bytes(3)
             plan["tier_inner"] = entry("one", ("tier_inner",), "tier_inner_kernel<P1, kPacked>",
-                                       1, smem)
+                                       1, 0)
             plan["tier_outer"] = entry("one", ("tier_outer",), "tier_outer_kernel<P2, kPacked>",
-                                       1, smem)
-            parts = ("tier_inner", "tier_outer") + (("mel_log",) if route == "chain" else ())
-            plan[name] = entry(route, (name, *parts),
-                               " + ".join(plan[k]["instance"] for k in parts), 1,
-                               max(plan[k]["smem"] for k in parts))
+                                       1, 0)
+            plan[name] = chain(route, ("tier_inner", "tier_outer") + (
+                ("mel_log",) if route == "chain" else ()))
     return plan
 
 
@@ -1294,29 +1304,6 @@ def _gemm_dims(n: int):
     """(log2 n1, log2 n2) of sed_tpu's n-point matmul DFT, n1 = 2^(log2 n // 2)."""
     log2_n = n.bit_length() - 1
     return log2_n // 2, log2_n - log2_n // 2
-
-
-# The tier GEMMs' shape (featurizer.cu kGemm*): 64 x 64 of the output a block,
-# k tiles of 32, rows of shared memory padded by 8 bf16.
-_GEMM_TILE, _GEMM_K = 64, 32
-
-
-def gemm_smem_bytes(chunks: int) -> int:
-    """The larger of the two tier GEMMs' static shared memory at ``chunks``
-    bf16 chunks an operand: stage 1's A tile and [k][n] B tile, stage 2's A
-    and [n][k] B tiles."""
-    inner = chunks * (_GEMM_TILE * (_GEMM_K + 8) + _GEMM_K * (_GEMM_TILE + 8)) * 2
-    return max(inner, chunks * 2 * _GEMM_TILE * (_GEMM_K + 8) * 2)
-
-
-def gemm_blocks(rows: int, n: int, packed: bool) -> int:
-    """The larger grid of the two tier GEMMs over ``rows`` frames of an
-    n-point DFT."""
-    log2_n1, log2_n2 = _gemm_dims(n)
-    n1, n2 = 1 << log2_n1, 1 << log2_n2
-    cols2 = 2 * n1 if packed else n1 + 8
-    up = lambda a: -(-a // _GEMM_TILE)  # noqa: E731
-    return max(up(rows * n1) * up(2 * n2), up(rows * n2) * up(cols2))
 
 
 @functools.lru_cache(maxsize=8)
@@ -1353,12 +1340,11 @@ def _tier_gemm(data: torch.Tensor, kind: int, window: torch.Tensor, tables, out:
     outer) ``passes``: stage 1 to a (rows, n2, n1, 2) f32 scratch T, then
     stage 2 to ``out``, K1t's and K3t's one-sided power (``out_im`` None;
     ``kind`` as K1t's and K3t's), or K6t's (Zr, Zi) in ``out`` and ``out_im``
-    (n = m, the packed points of waveforms)."""
+    (n = m, the packed points of waveforms).  Their C entries refuse a grid
+    past 2^31 - 1 blocks."""
     device = data.device
     packed = out_im is not None
     log2_n1, log2_n2 = _gemm_dims(n)
-    if gemm_blocks(rows, n, packed) > _MAX_GRID_X:
-        raise ValueError(f"{rows} frames exceed one launch's grid")
     tab1, tab2, tw = tables
     inner, outer = passes
     t = torch.empty((rows, 1 << log2_n2, 1 << log2_n1, 2), dtype=torch.float32, device=device)
@@ -1509,7 +1495,6 @@ def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
     if route == "gemm":
         _tier_gemm(data, kind, window, tables, out, None, rows, n_samples, n_frames, hop, n_fft,
                    passes)
-        LAUNCHES[name] += 1
         return
     tab1, tab2, tw = tables
     log2_n = n_fft.bit_length() - 1
@@ -1647,9 +1632,7 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
         power = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
         _tier_gemm(waves, 0, window, (tab1, tab2, tw), power, None, rows, n_samples, n_frames,
                    hop, n_fft, passes)
-        out = _launch_mel_log(power, bands, mode).reshape(n_sig, n_frames, -1)
-        LAUNCHES["wave_stft_mel_log_bf16"] += 1
-        return out
+        return _launch_mel_log(power, bands, mode).reshape(n_sig, n_frames, -1)
     log2_n = n_fft.bit_length() - 1
     err = _library().sed_tier_dft_mel_log(
         waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
@@ -1692,7 +1675,6 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
     if route == "gemm":
         _tier_gemm(waves, 0, window, _packed_gemm_tables(m, *chunks, device), zr, zi, rows,
                    n_samples, n_frames, hop, m, passes)
-        LAUNCHES["wave_packed_fft_bf16"] += 1
         return zr, zi
     tab1, tab2, tw = _packed_tables(m, *chunks, device)
     err = _library().sed_tier_packed_fft(
@@ -1749,8 +1731,9 @@ def impl_kernels(impl: str, precision=None, mel_precision=None,
                  n_fft: Optional[int] = None) -> tuple:
     """The kernels (:data:`LAUNCHES` names) that ``logmel_waveform(impl=impl,
     precision=precision, mel_precision=mel_precision)`` launches on a CUDA
-    tensor, once each: the wrappers, and with ``n_fft`` also the kernels of
-    their routes at that size (:func:`launch_plan`)."""
+    tensor, once each: the wrappers' one-launch kernels, and with ``n_fft``
+    the kernels of each wrapper's route at that size in its place
+    (:func:`launch_plan`)."""
     names = (IMPL_KERNELS if tier_passes(precision) is None else REDUCED_IMPL_KERNELS)[impl]
     mode = bool(mel_passes(mel_precision)) and impl not in _PARITY_MEL_IMPLS
     if mode:
@@ -1760,9 +1743,12 @@ def impl_kernels(impl: str, precision=None, mel_precision=None,
     plan, out = launch_plan(n_fft), []
     parity_name = {v: k for k, v in _MEL_MODE_KERNELS.items()}
     for name in names:
-        out.append(name)
+        p = plan[parity_name.get(name, name)]
+        if p["route"] == "one":
+            out.append(name)
+            continue
         out.extend(_MEL_MODE_KERNELS["mel_log"] if mode and k == "mel_log" else k
-                   for k in plan[parity_name.get(name, name)]["kernels"][1:])
+                   for k in p["kernels"])
     return tuple(out)
 
 # sed_tpu's frames per TPU tile (FFT_TILE_R): its raw-read geometry, whose

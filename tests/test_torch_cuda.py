@@ -2239,8 +2239,8 @@ def top_signals(n_fft, cuda, hops=3, seed=0):
 @pytest.mark.parametrize("n_fft", sorted(TOP))
 def test_cross_pass_kernels_match_float64(cuda, n_fft):
     """K1, K3 (float32 and int16 rows) and K6 through the cross pass into 2,
-    4 or 8 sub-rows (launches: the wrapper's, the pass, the sub-rows, and
-    K1's and K3's unpack), within 1e-5 x each frame's (row's) peak of the
+    4 or 8 sub-rows (launches: the pass, the sub-rows, and K1's and K3's
+    unpack; none under the wrapper's own name), within 1e-5 x each frame's (row's) peak of the
     float64 plain version; K1 then K2 within 1e-4 dB of the float64 chain;
     K5 and K5b, K1's launches then K2 at its mode, equal to K1 then K2."""
     cfg, waves = top_signals(n_fft, cuda)
@@ -2249,7 +2249,7 @@ def test_cross_pass_kernels_match_float64(cuda, n_fft):
     assert kernels.stockham_plan(n_fft)["cross"] == n_fft // 131072
     cross = ("fft_cross_pass", "fft_subrows")
     power = launched_once(lambda: kernels.wave_stft_power(waves, window, hop, n_fft),
-                          "wave_stft_power", *cross, "packed_power")
+                          *cross, "packed_power")
     want = kernels.wave_stft_power_plain(waves.double(), window, hop, n_fft)
     peak = want.amax(dim=-1, keepdim=True)
     assert bool(((power.double() - want).abs() <= 1e-5 * peak).all())
@@ -2258,21 +2258,20 @@ def test_cross_pass_kernels_match_float64(cuda, n_fft):
     mel = kernels.mel_log(rows, bands)
     assert float((mel.double() - kernels.mel_log_plain(want.reshape(-1, bins), fb64)).abs().max()) <= 1e-4
     for mel_precision in (None, "bf16x1", "bf16x3"):
-        key, k2 = (("wave_stft_mel_log", "mel_log") if mel_precision is None
-                   else ("wave_stft_mel_log_mel_bf16", "mel_log_bf16"))
+        k2 = "mel_log" if mel_precision is None else "mel_log_bf16"
         got = launched_once(lambda: kernels.wave_stft_mel_log(waves, window, hop, n_fft, bands,
                                                               mel_precision),
-                            key, *cross, "packed_power", k2)
+                            *cross, "packed_power", k2)
         assert torch.equal(got.reshape(-1, bands.n_mels), kernels.mel_log(rows, bands,
                                                                           mel_precision))
     frames = waves[:, : n_fft + 2 * hop].unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
     for x in (frames, (frames * 20000).round().to(torch.int16)):
         got = launched_once(lambda: kernels.frames_stft_power(x, window, n_fft),
-                            "frames_stft_power", *cross, "packed_power")
+                            *cross, "packed_power")
         want = kernels.frames_stft_power_plain(x, window, n_fft, dtype=torch.float64)
         assert bool(((got.double() - want).abs() <= 1e-5 * want.amax(dim=-1, keepdim=True)).all())
     zr, zi = launched_once(lambda: kernels.wave_packed_fft(waves, window, hop, n_fft),
-                           "wave_packed_fft", *cross)
+                           *cross)
     wr, wi = kernels.wave_packed_fft_plain(waves.double(), window, hop, n_fft)
     peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
     for z, w in ((zr, wr), (zi, wi)):
@@ -2330,8 +2329,8 @@ def test_predictor_and_tick_at_top_rates(cuda, n_fft):
     assert float((scores.cpu() - cpu(pcm.cpu())).abs().max()) <= 1e-4
     frames = pcm[0, : cfg.nfft + 4 * cfg.hop_size, 0].unfold(0, cfg.nfft, cfg.hop_size)
     frames = frames.contiguous()
-    lm = launched_once(lambda: featurizer.logmel_frames(frames, cfg), "frames_stft_power",
-                       "fft_cross_pass", "fft_subrows", "packed_power", "mel_log")
+    lm = launched_once(lambda: featurizer.logmel_frames(frames, cfg), "fft_cross_pass",
+                       "fft_subrows", "packed_power", "mel_log")
     fb64 = torch.from_numpy(mel_ops.mel_filterbank(cfg, np.float64)).to(cuda)
     want = kernels.mel_log_plain(kernels.frames_stft_power_plain(
         frames, kernels.stft_window(cfg, cuda), cfg.nfft, dtype=torch.float64), fb64)
@@ -2347,13 +2346,13 @@ def gemm_case(n_fft, cuda, seed=0):
 @pytest.mark.parametrize("precision", GEMM_PASSES, ids=str)
 @pytest.mark.parametrize("n_fft", [128, 256, 512, 1024] + sorted(TOP))
 def test_gemm_k1t_and_k3t_match_their_plain_versions(cuda, n_fft, precision):
-    """K1t and K3t (float32 and int16 rows) through the tier GEMMs (the
-    wrapper's launch, tier_inner, tier_outer once each): every bin within
+    """K1t and K3t (float32 and int16 rows) through the tier GEMMs
+    (tier_inner, tier_outer once each): every bin within
     tier_tol x the frame's peak of the plain version."""
     cfg, waves = gemm_case(n_fft, cuda)
     hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
     got = launched_once(lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft, precision),
-                        "wave_dft_power_bf16", "tier_inner", "tier_outer")
+                        "tier_inner", "tier_outer")
     want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, precision)
     assert got.shape == want.shape == (2, 1 + waves.shape[1] // hop, n_fft // 2 + 1)
     rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
@@ -2362,7 +2361,7 @@ def test_gemm_k1t_and_k3t_match_their_plain_versions(cuda, n_fft, precision):
     frames = rows.unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
     for x in (frames, (frames * 8000).round().to(torch.int16)):
         got = launched_once(lambda: kernels.frames_dft_power_bf16(x, window, n_fft, precision),
-                            "frames_dft_power_bf16", "tier_inner", "tier_outer")
+                            "tier_inner", "tier_outer")
         want = kernels.frames_dft_power_bf16_plain(x, window, n_fft, precision)
         rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True)).max())
         assert rel <= tier_tol(precision), rel
@@ -2396,7 +2395,7 @@ def test_gemm_k6t_matches_its_plain_version(cuda, n_fft, precision):
     hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
     zr, zi = launched_once(lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft,
                                                                 precision),
-                           "wave_packed_fft_bf16", "tier_inner", "tier_outer")
+                           "tier_inner", "tier_outer")
     wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, precision)
     assert zr.shape == wr.shape == (2, 1 + waves.shape[1] // hop, n_fft // 2)
     peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
@@ -2415,7 +2414,7 @@ def test_top_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
     k2 = "mel_log_bf16" if kernels.mel_passes(mel_precision) else "mel_log"
     got = launched_once(lambda: kernels.wave_stft_mel_log_bf16(
         waves, window, cfg.hop_size, n_fft, bands, precision, mel_precision),
-        "wave_stft_mel_log_bf16", "tier_inner", "tier_outer", k2)
+        "tier_inner", "tier_outer", k2)
     power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
     two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
     assert torch.equal(got.reshape(-1, bands.n_mels), two)
@@ -2456,3 +2455,23 @@ def test_impls_at_fast_launch_their_row_at_every_size(cuda, n_fft, impl):
     want = kernels.mel_log_plain(kernels.frames_dft_power_bf16_plain(rows, window, n_fft,
                                                                      "bf16x3"), fb)
     assert float((tick - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("log2_n", range(2, 21))
+def test_launch_plan_from_the_library_within_shared_memory(cuda, log2_n):
+    """launch_plan on the card, where K2's rows at once and shared memory
+    come from the library (sed_mel_plan, the rule K2 launches by): every
+    kernel's plan known and within 232,448 B at every power of two 4..2^20
+    with the 64-band bank's segments at that size; K2 four rows at a time
+    up to 2^19 (524,289 bins), one at 2^20, and one for a few rows."""
+    n_fft = 1 << log2_n
+    n_seg = 1
+    if n_fft >= 64:   # a rate whose frame is 3/4 of n_fft
+        cfg = SpectrogramConfig(working_sample_rate=int(0.75 * n_fft / 0.66))
+        assert cfg.nfft == n_fft
+        n_seg = kernels.mel_bands(cfg, torch.device("cpu")).n_segments
+    plan = kernels.launch_plan(n_fft, n_seg)
+    assert all(p["smem"] is not None and p["smem"] <= 232448 for p in plan.values()), plan
+    many = 4 if n_fft <= 524288 else 1
+    assert plan["mel_log"]["instance"] == f"mel_log_kernel<{many}, kPasses>"
+    assert kernels.mel_plan(n_seg, 64, rows=7)["rows_at_once"] == 1

@@ -147,4 +147,6 @@ def test_launch_plan_admits_each_rate_within_shared_memory(sr):
         assert plan["wave_dft_power_bf16"]["cluster"] == 1
     if log2_n in kernels.PACKED_TIER_LOG2_N:
         assert plan["wave_packed_fft_bf16"]["cluster"] == 1
-    assert all(p["smem"] <= 232448 for p in plan.values())
+    # K2's entry (None here) is the library's: tests/test_torch_cuda.py reads
+    # it on the card.
+    assert all(p["smem"] <= 232448 for p in plan.values() if p["smem"] is not None)

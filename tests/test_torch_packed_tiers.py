@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from sed_tpu_torch.ops import cuda_featurizer as kernels
+from sed_tpu_torch.ops import stft as stft_ops
 
 CPU = torch.device("cpu")
 TERMS = {p: [(a, b) for a, b in ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (0, 2))[:p]]
@@ -280,11 +281,22 @@ def test_model_of_the_tier_gemms_matches_the_plain_version(n_fft, precision, pac
     assert (np.abs(got - want) <= tol * peak).all()
 
 
-def test_gemm_grids_and_shared_memory():
-    """The wrappers' grid check and launch_plan's shared memory follow the
-    kernels' shape: 30,720 B at three chunks, the larger grid of the two
-    stages."""
-    assert kernels.gemm_smem_bytes(3) == 30720 <= 48 * 1024
-    assert kernels.gemm_blocks(2912, 1 << 20, False) == 2912 * 1024 // 64 * (2 * 1024 // 64)
-    assert kernels.gemm_blocks(3, 128, False) == 1 * 1
-    assert kernels.gemm_blocks(5, 1 << 19, True) == 5 * 512 // 64 * 2048 // 64
+@pytest.mark.parametrize("log2_n", [7, 8, 9, 10, 11, 18, 19, 20])
+def test_gemm_plans_follow_sed_tpus_factorisation(log2_n):
+    """Where the tier GEMMs run (launch_plan's route 'gemm', K5t's 'chain'),
+    their two stages are entries of their own, with static shared memory
+    only (the compiler bounds it; their C entries refuse a grid past 2^31 -
+    1 blocks), over sed_tpu's n = n1 n2 (n1 = 2^(log2 n // 2)) of the frame
+    (K1t, K3t) or of its m packed points (K6t)."""
+    n_fft = 1 << log2_n
+    plan = kernels.launch_plan(n_fft)
+    for name in kernels.TIER_RANGES:
+        if name not in plan or plan[name]["route"] == "one":
+            continue
+        parts = plan[name]["kernels"]
+        assert parts[:2] == ("tier_inner", "tier_outer")
+        assert parts[2:] == (("mel_log",) if name == "wave_stft_mel_log_bf16" else ())
+        assert plan["tier_inner"]["smem"] == plan["tier_outer"]["smem"] == 0
+        n = n_fft // 2 if name == "wave_packed_fft_bf16" else n_fft
+        n1, n2 = stft_ops._matmul_fft_constants(n)[:2]
+        assert tuple(1 << e for e in kernels._gemm_dims(n)) == (n1, n2)
