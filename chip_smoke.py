@@ -411,22 +411,27 @@ non-zero on the first failure.  Phases:
               K1, K3 (float32, int16) and K6 within 1e-5 x peak of float64,
               K1 then K2 within 1e-4 dB, K1t, K3t and K6t at fast within
               ``tier_rel_tol`` of their plain versions, K5 and K5t equal to
-              their chains; at 384 kHz each launch of the routes on its own
-              through its C call (the cross pass, the sub-rows' FFT, the
-              unpack, the tier GEMMs' two stages) beside a plain version of
-              it, its error on the first and the last clip's frames.  On
-              the routes of more than one launch the counts are the
+              their chains; at 384 kHz each launch of the Stockham route on
+              its own through its C call (the cross pass, the sub-rows' FFT,
+              the unpack) beside a plain version of it, its error on the
+              first and the last clip's frames; at 1 kHz (K1t and K6t at
+              fast too), 384 kHz and 1.536 MHz the tier GEMMs' launches of
+              K1t at fast on their own over every frame group (the split
+              pass, stage 1, stage 2), each beside its plain version, the
+              same chunk planes through cuBLAS bf16 matmuls and its bound.
+              On the routes of more than one launch the counts are the
               kernels' (the cross pass, the sub-rows, the unpack, the tier
-              GEMMs' stages, K2), never the wrapper's name.
+              GEMMs' split pass and stages, K2), never the wrapper's name.
 
 Then one ``{"kernels": [...]}`` JSON line (K1–K10, then K1t, K3t and K2's
 bf16 modes with phase 20's figures, then K5t, K5b and K6t with phase 21's,
 then the n_fft 65536 instances of K1, K2, K3, K5, K6, K1t, K5t and K6t with
 phase 22's, then K1, K2, K5, K6, K1t, K5t and K6t at 384 kHz and 1.536 MHz
 (a multi-launch route's ``launches``: its kernels' in the main-path run,
-summed, and each in ``route_launches``) and the routes' own kernels (the
-cross pass, the sub-rows' FFT, the unpack, the two tier GEMMs) with phase
-23's; K1's and K2's with the training path's
+summed, and each in ``route_launches``), K1t and K6t at 1 kHz, and the
+routes' own kernels (the cross pass, the sub-rows' FFT, the unpack at 384
+kHz; the tier GEMMs' split pass and two stages at 1 kHz, 384 kHz and 1.536
+MHz) with phase 23's; K1's and K2's with the training path's
 launches, every entry with phase 12's, 0, phase 13's, phase 14's, phase
 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, phase
 21's, phase 22's and phase 23's), the ``nvidia-smi`` line, and last
@@ -571,8 +576,8 @@ ENTRY_COUNTERS = {
     "wave_stft_mel_log_mel_bf16": ("wave_stft_mel_log_mel_bf16",),
     "wave_packed_fft_bf16": ("wave_packed_fft_bf16",),
     "fft_cross_pass": ("fft_cross_pass",), "fft_subrows": ("fft_subrows",),
-    "packed_power": ("packed_power",), "tier_inner": ("tier_inner",),
-    "tier_outer": ("tier_outer",),
+    "packed_power": ("packed_power",), "tier_split": ("tier_split",),
+    "tier_inner": ("tier_inner",), "tier_outer": ("tier_outer",),
 }
 
 # Memory rate (B/s), FP32 rate outside the tensor cores and dense bf16
@@ -5678,12 +5683,14 @@ def wide_phase(torch, dev, smi, peaks):
 # Phase 23: the ends of the n_fft range.  The rates of the new sizes checked
 # (1 kHz: the tiers' small end, n_fft 1024; 384 kHz, 768 kHz, 1.536 MHz: n_fft
 # 2^18, 2^19, 2^20), the seconds of the two clips of every impl's checks, the
-# rates timed at 16 x 60 s, the rates whose 16 x 60 s batch is checked (clip
-# by clip against float64 and the plain versions), the reps of the tier GEMMs
-# there (up to seconds a call) and the clips their plain versions are timed on.
+# rates timed at 16 x 60 s (and the tier GEMMs' small end), the rates whose
+# 16 x 60 s batch is checked (clip by clip against float64 and the plain
+# versions), the reps of the tier GEMMs there (up to 0.2 s a call) and the
+# clips their plain versions are timed on.
 RANGE_RATES = (1000, 384000, 768000, 1536000)
 RANGE_CHECK_SECONDS = 10
 RANGE_TIMED_RATES = (384000, 1536000)
+RANGE_SMALL_RATE = 1000   # the tier GEMMs' small end, timed at 16 x 60 s too
 RANGE_BATCH_RATES = (384000, 768000, 1536000)   # 768 kHz: R = 4 sub-rows, checked untimed
 RANGE_TIER_CHECKS = ("bf16x3", "bf16x1", "bf16x6")
 RANGE_SLOW_REPS = 3
@@ -5966,6 +5973,7 @@ def range_phase(torch, dev, smi, peaks):
             "k6t": bound(wave_b + 8 * frames * m, k6t_ops / bf16_peak * 1e3)}
         if sr == 384000:   # each launch of the routes on its own, through its C call
             t["parts"] = route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks)
+        t["gemm_parts"] = gemm_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks)
         t["batch"] = batch_checks(torch, kernels, waves, cfg, window, bands, fast)
         times[sr] = t
         bnd = t["bounds"]
@@ -5986,7 +5994,54 @@ def range_phase(torch, dev, smi, peaks):
             log("[range] 384 kHz, each launch on its own: " + "; ".join(
                 f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.4f} "
                 f"{v['bound_by']}, err {v['max_abs_err']:.3e})" for k, v in t["parts"].items()))
+        log(f"[range] {sr} Hz, the tier GEMMs' launches on their own: " + gemm_parts_text(
+            t["gemm_parts"]))
         del waves
+
+    # ---- the tier GEMMs' small end, 1 kHz, 16 x 60 s: K1t and K6t at fast --------
+    sr = RANGE_SMALL_RATE
+    cfg = SpectrogramConfig(working_sample_rate=sr)
+    hop, n_fft, n_bins = cfg.hop_size, cfg.nfft, cfg.freq_bins
+    m = n_fft // 2
+    waves = make_signals(torch, BATCH, sr * SECONDS, sr, dev, 1)
+    window = kernels.stft_window(cfg, dev)
+    frames = waves.shape[0] * (1 + waves.shape[1] // hop)
+    part = waves[:RANGE_PLAIN_CLIPS]
+    windowed = stft_ops.frame_signal(waves, n_fft, hop) * window
+    packed = torch.complex(windowed[..., 0::2].contiguous(), windowed[..., 1::2].contiguous())
+    del windowed
+    t = {"frames": frames, "plain_frames": part.shape[0] * (1 + waves.shape[1] // hop),
+         "k1t": time_ms(torch, lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft,
+                                                                   fast)),
+         "k6t": time_ms(torch, lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft,
+                                                                    fast)),
+         "k1t_plain": time_ms(torch, lambda: kernels.wave_dft_power_bf16_plain(
+             part, window, hop, n_fft, fast), reps=2, warmup=1),
+         "k6t_plain": time_ms(torch, lambda: kernels.wave_packed_fft_bf16_plain(
+             part, window, hop, n_fft, fast), reps=2, warmup=1),
+         "k1_lib": time_ms(torch, lambda: torch.stft(
+             waves, n_fft, hop, window=window, center=True, pad_mode="reflect",
+             return_complex=True).abs() ** 2),
+         "k6_lib": time_ms(torch, lambda: torch.fft.fft(packed, dim=-1))}
+    del packed
+    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+    n2 = n_fft // n1
+    p1 = 1 << ((m.bit_length() - 1) // 2)
+    p2 = m // p1
+    t["bounds"] = {
+        "k1t": bound(4 * waves.numel() + 4 * frames * (m + 1), frames * 3 * (
+            4 * n2 * n2 * n1 + 8 * n2 * n1 * (n1 // 2 + 1)) / bf16_peak * 1e3),
+        "k6t": bound(4 * waves.numel() + 8 * frames * m, frames * 3 * (
+            8 * p2 * p2 * p1 + 8 * p2 * p1 * p1) / bf16_peak * 1e3)}
+    t["gemm_parts"] = gemm_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks)
+    times[sr] = t
+    log(f"[range] {smi}; {sr} Hz (n_fft {n_fft}), {BATCH} x {SECONDS} s ({frames} frames), fast: "
+        f"K1t {t['k1t']:.4f} ms (bound {t['bounds']['k1t'][0]:.4f}; plain {t['k1t_plain']:.4f} on "
+        f"{t['plain_frames']} frames, torch.stft+abs^2 {t['k1_lib']:.4f}), K6t {t['k6t']:.4f} "
+        f"(bound {t['bounds']['k6t'][0]:.4f}; plain {t['k6t_plain']:.4f}, torch.fft.fft "
+        f"{t['k6_lib']:.4f}); the tier GEMMs' launches on their own: "
+        + gemm_parts_text(t["gemm_parts"]))
+    del waves, part
     for sr in RANGE_BATCH_RATES:
         if sr in times:
             continue
@@ -6050,8 +6105,7 @@ def range_phase(torch, dev, smi, peaks):
             entry("wave_packed_fft", "fft_cross_pass_kernel<R> + fft_subrows_kernel<true>", 882,
                   None, max(got["K6 / peak"], bat["K6 / peak"]), t["k6"], t["k6_plain"],
                   b["k6"], t["k6_lib"], sr, **route("wave_packed_fft", pack, n_fft)),
-            entry("wave_dft_power_bf16", "tier_inner_kernel<3, false> + tier_outer_kernel<3, "
-                  "false>", 412, None,
+            entry("wave_dft_power_bf16", GEMM_ROUTE.format("false"), 412, None,
                   max(got[f"K1t {fast_tag} / peak"], bat[f"K1t {fast_tag} / peak"]), t["k1t"],
                   t["k1t_plain"], b["k1t"], t["k1_lib"], sr, precision=fast, **plain_of,
                   **route("wave_dft_power_bf16", roll_t, n_fft)),
@@ -6060,26 +6114,54 @@ def range_phase(torch, dev, smi, peaks):
                   + bat["K5t values differing from K1t then K2"], t["k5t"], t["k5t_plain"],
                   b["k5t"], t["fuse_lib"], sr, precision=fast, **plain_of,
                   **route("wave_stft_mel_log_bf16", fuse_t, n_fft)),
-            entry("wave_packed_fft_bf16", "tier_inner_kernel<3, true> + tier_outer_kernel<3, "
-                  "true>", 882, None,
+            entry("wave_packed_fft_bf16", GEMM_ROUTE.format("true"), 882, None,
                   max(got[f"K6t {fast_tag} / peak"], bat[f"K6t {fast_tag} / peak"]), t["k6t"],
                   t["k6t_plain"], b["k6t"], t["k6_lib"], sr, precision=fast, **plain_of,
                   **route("wave_packed_fft_bf16", pack_t, n_fft)),
         ]
+    sr = RANGE_SMALL_RATE
+    t, got = times[sr], checks[sr]
+    plain_of = {"plain_frames": t["plain_frames"], "frames": t["frames"]}
+    entries += [
+        entry("wave_dft_power_bf16", GEMM_ROUTE.format("false"), 412, None,
+              got[f"K1t {tier_tag(fast)} / peak"], t["k1t"], t["k1t_plain"], t["bounds"]["k1t"],
+              t["k1_lib"], sr, precision=fast, **plain_of,
+              **route("wave_dft_power_bf16", impl_runs[sr, "roll", fast], 1024)),
+        entry("wave_packed_fft_bf16", GEMM_ROUTE.format("true"), 882, None,
+              got[f"K6t {tier_tag(fast)} / peak"], t["k6t"], t["k6t_plain"], t["bounds"]["k6t"],
+              t["k6_lib"], sr, precision=fast, **plain_of,
+              **route("wave_packed_fft_bf16", impl_runs[sr, "pack", fast], 1024))]
     parts = times[384000]["parts"]
-    for name, (kernel, replaces) in {
-            "fft_cross_pass": ("fft_cross_pass_kernel<4>", 412),
-            "fft_subrows": ("fft_subrows_kernel<false> (cluster_fft, 4 CTAs a sub-row)", 412),
-            "packed_power": ("packed_power_kernel", 412),
-            "tier_inner": ("tier_inner_kernel<3, false>", 412),
-            "tier_outer": ("tier_outer_kernel<3, false>", 412)}.items():
+    for name, kernel in {"fft_cross_pass": "fft_cross_pass_kernel<4>",
+                         "fft_subrows": "fft_subrows_kernel<false> (cluster_fft, 4 CTAs a sub-row)",
+                         "packed_power": "packed_power_kernel"}.items():
         p = parts[name]
-        entries.append(entry(name, kernel, replaces, total[name], p["max_abs_err"], p["ms"],
+        entries.append(entry(name, kernel, 412, total[name], p["max_abs_err"], p["ms"],
                              p["plain_ms"], (p["bound_ms"], p["bound_by"]), p["library_ms"],
-                             384000, part_of="K1 and K3 above n_fft 131072 (K6: the first two)"
-                             if name.startswith(("fft", "packed")) else
-                             "K1t, K3t, K6t outside the instances' sizes"))
+                             384000, part_of="K1 and K3 above n_fft 131072 (K6: the first two)"))
+    for sr in (RANGE_SMALL_RATE, *RANGE_TIMED_RATES):
+        for name, kernel in {"tier_split": "tier_split_kernel<2, false>",
+                             "tier_inner": "tier_inner_kernel<3, 2>",
+                             "tier_outer": "tier_outer_kernel<3, false>"}.items():
+            p = times[sr]["gemm_parts"][name]
+            entries.append(entry(name, kernel, 412, total[name], p["max_abs_err"], p["ms"],
+                                 p["plain_ms"], (p["bound_ms"], p["bound_by"]), p["library_ms"],
+                                 sr, part_of="K1t, K3t, K6t outside the instances' sizes (here "
+                                 "K1t's at fast)", plain_frames=p["plain_frames"],
+                                 groups=p["groups"], group_frames=p["group_frames"]))
     return entries, total
+
+
+# The tier GEMMs' route at fast (kPacked as given).
+GEMM_ROUTE = "tier_split_kernel<2, {0}> + tier_inner_kernel<3, 2> + tier_outer_kernel<3, {0}>"
+
+
+def gemm_parts_text(parts) -> str:
+    return "; ".join(
+        f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} on {v['plain_frames']} frames, "
+        f"cuBLAS {'none' if v['library_ms'] is None else format(v['library_ms'], '.4f')}, bound "
+        f"{v['bound_ms']:.4f} {v['bound_by']}, err {v['max_abs_err']:.3e}, {v['groups']} groups "
+        f"of {v['group_frames']})" for k, v in parts.items())
 
 
 def batch_checks(torch, kernels, waves, cfg, window, bands, fast):
@@ -6292,50 +6374,141 @@ def route_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
         **dict(zip(("bound_ms", "bound_by"), bound(8 * frames * m + 4 * frames * (m + 1) + 8 * m,
                                                    19 * frames * m / fp32_peak * 1e3)))}
     del zr, zi, sub, z, gsub, power
-    # The tier GEMMs at fast: stage 1 to T, stage 2 from T.
-    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
-    n2 = n_fft // n1
-    tab1, tab2, tw = kernels._tier_tables(n_fft, 2, 2, dev)
-    t_buf = torch.empty((frames, n2, n1, 2), device=dev)
+    return out
+
+
+def gemm_parts(torch, kernels, waves, window, hop, n_fft, bound, peaks):
+    """The tier GEMMs' launches of K1t at fast on ``waves``, each alone over
+    every frame group through the C call ``_tier_gemm`` makes: the split
+    pass, stage 1, stage 2; each beside its plain version (on the first
+    clip's frames), the same split operands through cuBLAS bf16 matmuls (each
+    tier term one batched ``torch.matmul`` over the group's chunk planes,
+    summed in f32: a time yardstick, not a result; the split pass has no
+    PyTorch call), its bound, and its error on the first clip's frames of
+    the first group (the split pass: the X planes against split_bf16 of the
+    windowed frames, equal; stage 1: T, the sum of its chunks, against the
+    plain stage 1, x the frame's peak |T|; stage 2: against the plain stage 2
+    of the kernel's T, and the route on the first and the last clip against
+    the plain K1t, x the frame's peak power)."""
+    from sed_tpu_torch.ops import stft as stft_ops
+
+    bw, fp32_peak, bf16_peak = peaks
+    dev = waves.device
+    lib, stream = kernels._library(), kernels._stream(dev)
+    n_sig, n = waves.shape
+    n_frames = 1 + n // hop
+    frames = n_sig * n_frames
+    m = n_fft // 2
+    passes, chunks = (3, 3), 2
+    log2_n1, log2_n2 = kernels._gemm_dims(n_fft)
+    n1, n2 = 1 << log2_n1, 1 << log2_n2
+    plan = kernels.gemm_plan(n_fft, False, passes, frames)
+    tab1, tab2, tw = kernels._gemm_images(n_fft, False, chunks, chunks, plan["tab1_rows"],
+                                          plan["tab2_rows"], dev)
+    groups = kernels.frame_groups(frames, plan["group_frames"])
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=dev)
+    x, t = scratch.data_ptr(), scratch.data_ptr() + plan["x_bytes"]
     power = torch.empty((frames, m + 1), device=dev)
+    shape = (log2_n1, log2_n2, 0, *passes)
 
-    def inner_call():
-        return lib.sed_tier_inner(waves.data_ptr(), 0, 0, window.data_ptr(), tab1.data_ptr(),
-                                  tw.data_ptr(), t_buf.data_ptr(), frames, n, n_frames, hop,
-                                  n1.bit_length() - 1, n2.bit_length() - 1, 3, dev.index, stream)
+    def split_call(r0, g):
+        return lib.sed_tier_split(waves.data_ptr(), 0, window.data_ptr(), x, r0, g, n, n_frames,
+                                  hop, *shape, dev.index, stream)
 
-    def outer_call():
-        return lib.sed_tier_outer(t_buf.data_ptr(), tab2.data_ptr(), power.data_ptr(), None,
-                                  frames, n1.bit_length() - 1, n2.bit_length() - 1, 0, 3,
+    def inner_call(r0, g):
+        return lib.sed_tier_inner(x, tab1.data_ptr(), tw.data_ptr(), t, g, *shape, dev.index,
+                                  stream)
+
+    def outer_call(r0, g):
+        return lib.sed_tier_outer(t, tab2.data_ptr(), power[r0:].data_ptr(), None, g, *shape,
                                   dev.index, stream)
 
-    check(inner_call() == 0 and outer_call() == 0, "the tier GEMMs launch through their C calls")
+    def every_group(call):
+        return lambda: [call(r0, g) for r0, g in groups]
+
+    for r0, g in groups:   # the route, as _tier_gemm runs it
+        check(split_call(r0, g) == inner_call(r0, g) == outer_call(r0, g) == 0,
+              "the tier GEMMs launch through their C calls")
+    r0, g0 = groups[0]
+    check(split_call(r0, g0) == inner_call(r0, g0) == 0, "the first group's planes again")
     torch.cuda.synchronize()
-    xe = stft_ops_frame(torch, waves[[0, n_sig - 1]], window, hop, n_fft)
-    t_want = torch.complex(*kernels._tier_inner_plain(xe, n_fft, 3))
-    t_got = torch.view_as_complex(t_buf[ends]).reshape(t_want.shape)
-    t_peak = t_want.abs().flatten(-2).amax(-1).clamp_min(1e-30)[..., None, None]
-    err_inner = float(((t_got - t_want).abs() / t_peak).max())
-    p_want = kernels._tier_outer_plain(t_got.real.contiguous(), t_got.imag.contiguous(), n_fft, 3)
-    err_outer = float(((power[ends].reshape(p_want.shape) - p_want).abs()
+    pf = min(n_frames, g0)   # the first clip's frames in the first group
+    xe = stft_ops_frame(torch, waves[:1], window, hop, n_fft)[:pf]
+    x_rows = plan["x_bytes"] // (128 * chunks * (-(-n2 // 64)))
+    t_rows = (plan["scratch_bytes"] - plan["x_bytes"]) // (128 * chunks * (-(-2 * n1 // 64)))
+    got_x = kernels.plane_values(scratch[:plan["x_bytes"]], chunks, x_rows, n2, 0, pf * n1)
+    want_x = kernels.split_bf16(xe.view(pf, n2, n1).transpose(1, 2).reshape(pf * n1, n2), chunks)
+    err_split = max(float((gx.float() - wx).abs().max()) for gx, wx in zip(got_x, want_x))
+    del got_x, want_x
+    t_got = kernels.plane_values(scratch[plan["x_bytes"]:], chunks, t_rows, 2 * n1, 0,
+                                 pf * n2).float().sum(dim=0).view(pf, n2, 2 * n1)
+    tr_want, ti_want = kernels._tier_inner_plain(xe, n_fft, passes[0])
+    t_peak = torch.hypot(tr_want, ti_want).flatten(-2).amax(-1).clamp_min(1e-30)[:, None, None]
+    err_inner = max(float(((t_got[..., :n1] - tr_want).abs() / t_peak).max()),
+                    float(((t_got[..., n1:] - ti_want).abs() / t_peak).max()))
+    tr_got, ti_got = t_got[..., :n1].contiguous(), t_got[..., n1:].contiguous()
+    del t_got, tr_want, ti_want
+    p_want = kernels._tier_outer_plain(tr_got, ti_got, n_fft, passes[1])
+    err_outer = float(((power[:pf] - p_want).abs()
                        / p_want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
-    xf, t_first = xe[:pf], t_got[:pf]   # the plain versions' times: the first clip
-    ops1 = frames * 3 * 4 * n2 * n2 * n1
-    ops2 = frames * 3 * 8 * n2 * n1 * (n1 // 2 + 1)
-    out["tier_inner"] = {
-        "ms": time_ms(torch, inner_call, **slow),
-        "plain_ms": time_ms(torch, lambda: kernels._tier_inner_plain(xf, n_fft, 3), reps=2,
-                            warmup=1),
-        "plain_frames": pf, "library_ms": None, "max_abs_err": err_inner,
-        **dict(zip(("bound_ms", "bound_by"), bound(4 * waves.numel() + 8 * frames * n_fft,
-                                                   ops1 / bf16_peak * 1e3)))}
-    out["tier_outer"] = {
-        "ms": time_ms(torch, outer_call, **slow),
-        "plain_ms": time_ms(torch, lambda: kernels._tier_outer_plain(
-            t_first.real.contiguous(), t_first.imag.contiguous(), n_fft, 3), reps=2, warmup=1),
-        "plain_frames": pf, "library_ms": None, "max_abs_err": err_outer,
-        **dict(zip(("bound_ms", "bound_by"), bound(8 * frames * n_fft + 4 * frames * (m + 1),
-                                                   ops2 / bf16_peak * 1e3)))}
+    for i in (0, n_sig - 1):   # the route on the first and the last clip
+        want = kernels.wave_dft_power_bf16_plain(waves[i:i + 1], window, hop, n_fft, "bf16x3")[0]
+        rows = power[i * n_frames:(i + 1) * n_frames]
+        err_outer = max(err_outer, float(((rows - want).abs()
+                                          / want.amax(dim=-1, keepdim=True)).max()))
+    del p_want
+    # cuBLAS over the same chunk planes, group by group (the largest group's
+    # operands, sliced for a smaller one): W (2 n2, n2) by X (g, n2, n1), then
+    # T (g n2, 2 n1) by V^T.
+    w, v, _ = kernels.gemm_operands(n_fft, False)
+    w_c = [c.to(torch.bfloat16) for c in kernels.split_bf16(torch.from_numpy(w).to(dev), chunks)]
+    v_c = [c.to(torch.bfloat16).t() for c in kernels.split_bf16(torch.from_numpy(v).to(dev),
+                                                                 chunks)]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x_c = [torch.randn((g0, n2, n1), generator=gen, device=dev).to(torch.bfloat16)
+           for _ in range(chunks)]
+    t_c = [torch.randn((g0 * n2, 2 * n1), generator=gen, device=dev).to(torch.bfloat16)
+           for _ in range(chunks)]
+    terms = kernels._TIER_TERMS[:passes[0]]
+
+    def inner_lib():
+        for _, g in groups:
+            sum(torch.matmul(w_c[i], x_c[j][:g]).float() for i, j in terms)
+
+    def outer_lib():
+        for _, g in groups:
+            sum(torch.matmul(t_c[i][:g * n2], v_c[j]).float() for i, j in terms)
+
+    slow = dict(reps=RANGE_SLOW_REPS, warmup=1)
+    xf, trf, tif = xe, tr_got, ti_got   # the plain versions' times: the first clip's frames
+    plane_b = 2 * chunks * frames * n_fft          # X's chunks, or Tr's and Ti's halves
+    ops1 = frames * passes[0] * 4 * n2 * n2 * n1
+    ops2 = frames * passes[1] * 8 * n2 * n1 * (n1 // 2 + 1)
+    out = {
+        "tier_split": {
+            "ms": time_ms(torch, every_group(split_call), **slow),
+            "plain_ms": time_ms(torch, lambda: kernels.split_bf16(
+                stft_ops_frame(torch, waves[:1], window, hop, n_fft)[:pf].view(pf, n2, n1)
+                .transpose(1, 2), chunks), reps=2, warmup=1),
+            "library_ms": None, "max_abs_err": err_split,
+            **dict(zip(("bound_ms", "bound_by"), bound(4 * waves.numel() + plane_b,
+                                                       4 * frames * n_fft / fp32_peak * 1e3)))},
+        "tier_inner": {
+            "ms": time_ms(torch, every_group(inner_call), **slow),
+            "plain_ms": time_ms(torch, lambda: kernels._tier_inner_plain(xf, n_fft, passes[0]),
+                                reps=2, warmup=1),
+            "library_ms": time_ms(torch, inner_lib, **slow), "max_abs_err": err_inner,
+            **dict(zip(("bound_ms", "bound_by"), bound(3 * plane_b, ops1 / bf16_peak * 1e3)))},
+        "tier_outer": {
+            "ms": time_ms(torch, every_group(outer_call), **slow),
+            "plain_ms": time_ms(torch, lambda: kernels._tier_outer_plain(trf, tif, n_fft,
+                                                                         passes[1]),
+                                reps=2, warmup=1),
+            "library_ms": time_ms(torch, outer_lib, **slow), "max_abs_err": err_outer,
+            **dict(zip(("bound_ms", "bound_by"), bound(2 * plane_b + 4 * frames * (m + 1),
+                                                       ops2 / bf16_peak * 1e3)))}}
+    for v in out.values():
+        v.update(plain_frames=pf, groups=len(groups), group_frames=g0)
     return out
 
 

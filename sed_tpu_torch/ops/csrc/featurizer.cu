@@ -323,8 +323,9 @@
 // is K1's launches, then K2: a frame's power does not stay on chip).  K2
 // takes any bin count.  K1t and K3t take 128..2^20 and K6t 256..2^20
 // (sed_tpu's smallest at a tier: its tiles are 128 lanes), their instances
-// 2048..131072 (K6t 4096..131072) and the tier GEMMs (tier_inner_kernel,
-// tier_outer_kernel) elsewhere; K5t takes 2048..2^20 ('fuse' needs n_fft %
+// 2048..131072 (K6t 4096..131072) and the tier GEMMs (tier_split_kernel,
+// then tier_inner_kernel and tier_outer_kernel on wgmma) elsewhere; K5t
+// takes 2048..2^20 ('fuse' needs n_fft %
 // 2048 == 0), its instances up to 131072, K1t's GEMMs then K2 above (a
 // frame's n2 / 64 blocks would pass a cluster's 8).  One mechanism serves
 // both ends of the tier kernels' range: tier_dft's 64 k2 rows a block and
@@ -3057,242 +3058,519 @@ packed_power_kernel(const float2* __restrict__ z, const float2* __restrict__ unp
 // reach: K1t and K3t at n_fft 128..1024 and 2^18..2^20, K6t at 256..2048 and
 // 2^18..2^20 (K5t runs K1t's launches then K2 above 131072).  sed_tpu's two
 // stages (n = n1 n2, n1 = 2^(log2 n / 2): n1 8..1024, n2 16..1024) as two
-// tiled GEMMs through device memory:
-//   tier_inner_kernel<P1, kPacked>, stage 1 of every frame at once: rows 16t
-//     + 8h + i (part h of Y at k2 = 8t + i) of [W2 rows] @ [X_f | X_f' | ...]
-//     (column f n1 + b; k = a, X[a][b] = x[a n1 + b], or, for K6t, k = a and
-//     n2 + a over Re z and Im z of point a n1 + b), then the f32 twiddle
-//     (tier_dft's), to T: (frames, n2, n1) float2 in device memory;
-//   tier_outer_kernel<P2, kPacked>, stage 2 over the frames' rows f n2 + k2:
-//     columns 2 k1 + h (Zr, Zi) of [Tr | Ti] @ W1', then |Z|^2 to bin n2 k1 +
-//     k2 (K1t, K3t: k1 < n1/2, and bin n/2 at k2 = 0) or Zr, Zi to K6's rows
-//     at bin n2 k1 + k2 (K6t: every k1).
-// Every operand is split into the tier's bf16 chunks as tier_dft splits it
-// (the tables on the host, the samples and T as they are loaded) and the
-// tier's (chunk, chunk) terms (tier_term) go through mma.sync.m16n8k16 with
-// f32 accumulation.  A block computes 64 x 64 of the output with four warps
-// of 32 x 32, k in tiles of 32 through shared memory; rows, columns and k past
-// an operand's edge are zero (n2 = 16 fills half a k tile, an exact zero
-// product).  T costs 8 bytes a point of device memory.  The frames' 2 n2 / 64
-// row blocks are neighbouring blocks, so a frame's re-reads come from L2.
-// The tables are cuda_featurizer._tier_tables' (K1t, K3t) and _gemm_tables'
-// (K6t); tests/test_torch_packed_tiers.py models both kernels block by block
-// (tier_inner_model, tier_outer_model).
+// GEMMs on wgmma through device memory, over a group of frames at a time
+// (gemm_plan: the group's planes stay under kGemmScratch bytes):
+//   tier_split_kernel<C1, kPacked>, the split pass: each frame of the group
+//     framed and windowed as K1 and K3 read it (TierFrame; K6t's packed
+//     points), split once into stage 1's C1 bf16 chunks (split_bf16, bit for
+//     bit tier_dft's), written as X planes: row f n1 + b, k = a (X[a][b] =
+//     x[a n1 + b]; K6t: k = a over Re z, n2 + a over Im z of point a n1 + b);
+//   tier_inner_kernel<P1, C2>, stage 1: [rows 16t + 8h + i: part h of Y at k2 =
+//     8t + i] = tab1 @ X over the tier's terms, then the f32 twiddle
+//     (tier_dft's) and the split into stage 2's C2 chunks in the epilogue,
+//     written as T planes: row f n2 + k2, k = b (Tr) and n1 + b (Ti);
+//   tier_outer_kernel<P2, kPacked>, stage 2: columns 2 k1 + h (Zr, Zi) of
+//     T @ tab2, then |Z|^2 to bin n2 k1 + k2 (K1t, K3t: k1 < n1/2, and bin
+//     n/2 at k2 = 0) or Zr, Zi to K6's rows at bin n2 k1 + k2 (K6t: every k1).
+// Replaces, at those sizes, what the tier instances replace:
+// _make_wave_fft_power_kernel_roll (:412), _make_fft_power_kernel (:283)
+// and _make_wave_packed_fft_kernel (:882) through _stage_dots (:272) /
+// _make_dot (:191); K5t's _make_wave_fft_mel_kernel_roll (:550) as these,
+// then K2.  Bound on an H100 SXM: operations at fast above n_fft 131072
+// (K1t at 2^18, 16 x 60 s: 9.4 TFLOP, 9.50 ms at 989 TFLOP/s dense bf16,
+// against ~12 GB of planes, 3.7 ms at 3.35 TB/s); bytes at the small end.
+// No main loop splits anything.  Every operand is a plane of C chunks in the
+// shared-memory image wgmma reads (plane_byte: K tiles of 64 k, rows of 128
+// bytes under the 128-byte swizzle), so one bulk copy (cp.async.bulk) brings
+// a chunk of a tile: the tables (cuda_featurizer._gemm_images, made once on
+// the host), the X planes (the split pass) and the T planes (stage 1).
+// Both stages are one persistent kernel (gemm_mainloop) of three
+// warpgroups: one thread of warpgroup 0 keeps the copies of A and B tiles
+// (kGemmBM rows of A, gemm_bn(C) rows of B, every chunk, 64 k) in flight in
+// a ring of gemm_stages(C) slots on mbarriers; warpgroups 1 and 2 each take
+// 64 rows of the CTA tile and issue wgmma.m64nNk16 over the tier's
+// (chunk, chunk) terms (tier_term).  CTAs walk the tiles, so one tile's
+// epilogue (its direct stores) overlaps the next tile's copies; stage 1
+// walks a column tile's row tiles next to each other (the X tile comes
+// from L2 after the first), stage 2 a row tile's column tiles (the T tile).
+// Each 64-deep k tile's products go to an accumulator of their own, added
+// to the tile's sum in f32: the tensor cores' accumulation is not round-to-
+// nearest, and over the 1024 and 2048 k of n_fft 2^20 its error in one
+// running sum passes the plain version's tolerance at bf16x6 (tier_rel_tol;
+// tests/test_torch_packed_tiers.py models the depths).  Rows of an operand
+// past its data (stage 1's 2 n2 = 32 or 64 of a 128-row tile, a group's last
+// row tile) are skipped by the warpgroup that holds them or by the epilogue;
+// k past the operand's (n2 or 2 n1 = 16, 32) is never multiplied.  The
+// same data flow is modelled in numpy by tests/test_torch_packed_tiers.py.
 // ---------------------------------------------------------------------------
 
-constexpr int kGemmThreads = 128;  // 4 warps: 2 (m) x 2 (n), 32 x 32 each
-constexpr int kGemmBM = 64, kGemmBN = 64, kGemmKT = 32;
-constexpr int kGemmSA = kGemmKT + kTierPad;  // row stride of an [m][k] or [n][k] tile
-constexpr int kGemmSB = kGemmBN + kTierPad;  // of stage 1's [k][n] tile
+constexpr int kGemmThreads = 384;  // warpgroup 0 copies, warpgroups 1 and 2 multiply
+constexpr int kGemmBM = 128;       // rows of A a CTA tile: 64 a multiplying warpgroup
+constexpr int kGemmK = 64;         // k of a tile: a row of 128 bytes
+constexpr long long kGemmScratch = 1LL << 31;  // a frame group's X and T planes, bytes
+constexpr int kSplitThreads = 256;
 
-// acc += the tier's terms of one k tile: A chunks as[c] ([m][k]) and B chunks
-// bs ([k][n] when kKN, else [n][k]), the warp's 32 x 32.  The tile's products
-// go to an accumulator of their own, added to acc in f32 once a tile: the
-// tensor cores' accumulation is not round-to-nearest, and over the 1024 and
-// 2048 k of n_fft 2^20 its error in one running sum would pass the plain
-// version's tolerance (tier_rel_tol at bf16x6).
-template <int P, int C, bool kKN, typename BTile>
-__device__ __forceinline__ void gemm_tile(float (&acc)[2][4][4],
-                                          const __nv_bfloat16 (&as)[C][kGemmBM][kGemmSA],
-                                          const BTile& bs, int wm, int wn, int lane) {
-  float part[2][4][4] = {};
+// B rows a CTA tile (128, or 64 at three chunks, bf16x6, whose 128-row slot
+// would not fit three in 227 KB), the ring's slots and bytes, the dynamic
+// shared memory (the ring, its barriers, 1024 bytes of alignment).
+__host__ __device__ constexpr int gemm_bn(int c) { return c == 3 ? 64 : 128; }
+__host__ __device__ constexpr int gemm_slot(int c) { return c * (kGemmBM + gemm_bn(c)) * 128; }
+__host__ __device__ constexpr int gemm_stages(int c) { return c == 1 ? 6 : 3; }
+__host__ __device__ constexpr int gemm_smem(int c) {
+  return gemm_stages(c) * (gemm_slot(c) + 16) + 1024;
+}
+__host__ __device__ constexpr long long round_up(long long x, long long m) {
+  return (x + m - 1) / m * m;
+}
+
+// Byte of element (chunk c, row r, k) of a plane of `rows` rows and kt k
+// tiles a chunk: tile-major, so the rows of one (chunk, k tile) are one run.
+__host__ __device__ __forceinline__ long long plane_byte(int c, long long r, int k, int kt,
+                                                         long long rows) {
+  return ((static_cast<long long>(c) * kt + (k >> 6)) * rows + r) * 128 +
+         ((((k & 63) >> 3) ^ static_cast<int>(r & 7)) << 4) + (k & 7) * 2;
+}
+
+// The layout of a group's planes and tables at (n1, n2), packed or not, C1
+// and C2 chunks, g frames: k tiles, padded rows, bytes.
+struct GemmShape {
+  int log2_n1, log2_n2, packed, c1, c2;
+  long long g;
+  __host__ __device__ int n1() const { return 1 << log2_n1; }
+  __host__ __device__ int n2() const { return 1 << log2_n2; }
+  __host__ __device__ int k1() const { return n2() << packed; }  // stage 1's k
+  __host__ __device__ int k2() const { return 2 * n1(); }        // stage 2's k
+  __host__ __device__ int kt1() const { return (k1() + kGemmK - 1) / kGemmK; }
+  __host__ __device__ int kt2() const { return (k2() + kGemmK - 1) / kGemmK; }
+  __host__ __device__ int cols2() const { return packed ? 2 * n1() : n1() + 8; }
+  __host__ __device__ long long tab1_rows() const { return round_up(2 * n2(), kGemmBM); }
+  __host__ __device__ long long tab2_rows() const { return round_up(cols2(), gemm_bn(c2)); }
+  __host__ __device__ long long x_rows() const { return round_up(g << log2_n1, gemm_bn(c1)); }
+  __host__ __device__ long long t_rows() const { return round_up(g << log2_n2, kGemmBM); }
+  __host__ __device__ long long x_bytes() const { return c1 * kt1() * x_rows() * 128; }
+  __host__ __device__ long long t_bytes() const { return c2 * kt2() * t_rows() * 128; }
+};
+
+// Frames a group: all of them where their planes fit kGemmScratch, else as
+// many as fit (at least one).
+inline long long gemm_group(GemmShape s, long long frames) {
+  const auto bytes = [&s](long long g) {
+    s.g = g;
+    return s.x_bytes() + s.t_bytes();
+  };
+  if (bytes(frames) <= kGemmScratch) return frames;
+  const long long per_frame =
+      128LL * (s.c1 * s.kt1() * s.n1() + s.c2 * s.kt2() * s.n2());  // unpadded
+  long long g = kGemmScratch / per_frame;
+  while (g > 1 && bytes(g) > kGemmScratch) --g;
+  return g < 1 ? 1 : g;
+}
+
+// mbar_wait with a watchdog: a wait of more than 10 s traps, so that a fault
+// of the ring's protocol ends the launch with an error instead of hanging.
+__device__ __forceinline__ void gemm_wait(unsigned long long* bar, unsigned parity) {
+  unsigned long long t0 = 0;
+  for (unsigned spin = 0;; ++spin) {
+    unsigned done = 0;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_address(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// The split pass: a block takes 64 rows r0 .. (r = f n1 + b) of the X
+// planes and 64 of their k (real input: k tile kt; packed: the points' a0 ..
+// a0 + 63, written as Re z at k = a and Im z at n2 + a).  Its threads load
+// the frames' samples along b (K1's and K3's loads and window, TierFrame),
+// hold them in shared memory as [k][r], then write each row's 8 k a thread
+// as C 16-byte chunk stores, four whole 128-byte rows a warp.
+template <int C, bool kPacked>
+__global__ void __launch_bounds__(kSplitThreads)
+tier_split_kernel(const TierSource src, unsigned char* __restrict__ x, long long row0,
+                  GemmShape s) {
+  constexpr int kParts = kPacked ? 2 : 1;  // packed: Re z, Im z
+  __shared__ float vals[kParts][64][65];
+  const int n1 = s.n1(), n2 = s.n2();
+  const int k_tiles = kPacked ? (n2 + 63) / 64 : s.kt1();
+  const long long r0 = static_cast<long long>(blockIdx.x / k_tiles) * 64;
+  const int a0 = static_cast<int>(blockIdx.x % k_tiles) * 64;  // k (packed: a) of the block
+  const int count = min(64, (kPacked ? n2 : s.k1()) - a0);
+  const long long rows = s.g << s.log2_n1;
+  const auto* window = reinterpret_cast<const float2*>(src.window);
+  const int t = threadIdx.x;
+  if constexpr (kPacked) {  // row r0 + t % 64, points a = a0 + t / 64 + 4i
+    const long long r = r0 + t % 64;
+    const TierFrame frame(src, row0 + (r < rows ? r >> s.log2_n1 : 0), 2 * n1 * n2);
+    const int b = static_cast<int>(r & (n1 - 1));
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int a = t / 64 + 4 * i;
+      float2 z = make_float2(0.f, 0.f);
+      if (a < count && r < rows) z = packed_point(frame, window, (a0 + a) * n1 + b);
+      vals[0][a][t % 64] = z.x;
+      vals[1][a][t % 64] = z.y;
+    }
+  } else {  // rows r0 + 2 (t % 32) and the next, k = a0 + t / 32 + 8i
+    const long long r = r0 + 2 * (t % 32);
+    const TierFrame frame(src, row0 + (r < rows ? r >> s.log2_n1 : 0), n1 * n2);
+    const int b = static_cast<int>(r & (n1 - 1));
 #pragma unroll
-  for (int ks = 0; ks < kGemmKT; ks += 16) {
-    unsigned bf[C][4][2];
-#pragma unroll
-    for (int cb = 0; cb < C; ++cb)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (kKN)
-          load_b_kn(bf[cb][j], &bs[cb][ks][wn * 32 + j * 8], kGemmSB, lane);
-        else
-          load_b_nk(bf[cb][j], &bs[cb][wn * 32 + j * 8][ks], kGemmSA, lane);
+    for (int i = 0; i < 8; ++i) {
+      const int k = t / 32 + 8 * i;
+      float2 v = make_float2(0.f, 0.f);
+      if (k < count && r < rows) {
+        const int smp = (a0 + k) * n1 + b;  // samples smp, smp + 1
+        v = windowed(frame.raw(smp), __ldg(window + (smp >> 1)));
       }
+      vals[0][k][2 * (t % 32)] = v.x;
+      vals[0][k][2 * (t % 32) + 1] = v.y;
+    }
+  }
+  __syncthreads();
+  const int kt = s.kt1();
+  const long long x_rows = s.x_rows();
 #pragma unroll
-    for (int ca = 0; ca < C; ++ca) {
-      unsigned af[2][4];
+  for (int part = 0; part < kParts; ++part) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) load_a(af[i], &as[ca][wm * 32 + i * 16][ks], kGemmSA, lane);
+    for (int j = 0; j < 2; ++j) {
+      const int item = t + kSplitThreads * j;  // (row, octet): 8 octets a row
+      const int o = item % 8, rl = item / 8;
+      if (8 * o >= count || r0 + rl >= rows) continue;
+      float w[8];
 #pragma unroll
-      for (int cb = 0; cb < C; ++cb) {
-        if (!tier_term(P, ca, cb)) continue;
+      for (int e = 0; e < 8; ++e) w[e] = vals[part][8 * o + e][rl];
+      const int k = a0 + 8 * o + part * n2;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int c = 0; c < C; ++c) {
+        uint4 out;
+        unsigned* op = reinterpret_cast<unsigned*>(&out);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], af[i], bf[cb][j]);
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(w[2 * e], w[2 * e + 1]);
+          op[e] = *reinterpret_cast<const unsigned*>(&pair);
+          if (c + 1 < C) {
+            const float2 back = __bfloat1622float2(pair);
+            w[2 * e] -= back.x;
+            w[2 * e + 1] -= back.y;
+          }
+        }
+        *reinterpret_cast<uint4*>(x + plane_byte(c, r0 + rl, k, kt, x_rows)) = out;
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
 }
 
-// Rows r0 .. r0 + 63, k k0 .. k0 + 31 of a bf16 table of C chunks of (rows,
-// k_len), row-major, into tile[c][r][k]: 16 bytes a load, zero past the edges.
-template <int C>
-__device__ __forceinline__ void load_table_tile(__nv_bfloat16 (&tile)[C][kGemmBM][kGemmSA],
-                                                const __nv_bfloat16* __restrict__ tab, int rows,
-                                                int k_len, int r0, int k0) {
-  for (int i = threadIdx.x; i < C * kGemmBM * (kGemmKT / 8); i += kGemmThreads) {
-    const int c = i / (kGemmBM * (kGemmKT / 8));
-    const int r = i / (kGemmKT / 8) % kGemmBM;
-    const int q = i % (kGemmKT / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows && k0 + 8 * q < k_len)
-      v = __ldg(reinterpret_cast<const uint4*>(
-          tab + (static_cast<long long>(c) * rows + r0 + r) * k_len + k0 + 8 * q));
-    *reinterpret_cast<uint4*>(&tile[c][r][8 * q]) = v;
+// The two stages' operands and tiles: A planes of a_rows rows (the CTA
+// tile's kGemmBM of them, m_valid holding data), B planes of b_rows rows
+// (BN a tile), k (a multiple of 16) in kt tiles; tile t is (mt, nt) with mt
+// = t % m_tiles (a_fast: stage 1) or nt = t % n_tiles (stage 2).
+struct GemmOperands {
+  const unsigned char* a;
+  const unsigned char* b;
+  long long a_rows, b_rows, m_valid, m_tiles, n_tiles;
+  int k, kt;
+  bool a_fast;
+};
+
+// The persistent CTA's loop over its tiles (see the note above);
+// epilogue(acc, mt, nt, row) is called by each multiplying thread with its
+// m64nBN fragment (acc[4i + 2h + e]: row + 8h, column nt BN + 8i + 2 (lane
+// mod 4) + e, row = mt kGemmBM + 64 w + 16 warp + lane / 4 of its warpgroup
+// w), whose rows all lie past m_valid where it is not called.
+template <int P, typename Epilogue>
+__device__ __forceinline__ void gemm_mainloop(const GemmOperands& op, const Epilogue& epilogue) {
+  constexpr int C = tier_chunks(P), BN = gemm_bn(C), S = gemm_stages(C);
+  constexpr int A_CHUNK = kGemmBM * 128, B_CHUNK = BN * 128, SLOT = gemm_slot(C);
+  extern __shared__ __align__(16) unsigned char gemm_smem_raw[];
+  unsigned char* ring =
+      gemm_smem_raw + ((1024 - (smem_address(gemm_smem_raw) & 1023)) & 1023);
+  auto* full = reinterpret_cast<unsigned long long*>(ring + S * SLOT);
+  auto* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);   // the producer's arrive, the copies' bytes by expect_tx
+      mbar_init(empty + i, 8);  // each multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-}
+  __syncthreads();
+  const long long tiles = op.m_tiles * op.n_tiles;
+  const auto tile_at = [&](long long t, long long& mt, long long& nt) {
+    if (op.a_fast) {
+      mt = t % op.m_tiles;
+      nt = t / op.m_tiles;
+    } else {
+      nt = t % op.n_tiles;
+      mt = t / op.n_tiles;
+    }
+  };
 
-template <int P1, bool kPacked>
-__global__ void __launch_bounds__(kGemmThreads)
-tier_inner_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
-                  const float2* __restrict__ twiddle, float2* __restrict__ t_out,
-                  long long frames, int log2_n1, int log2_n2) {
-  constexpr int C = tier_chunks(P1);
-  __shared__ __align__(16) __nv_bfloat16 as[C][kGemmBM][kGemmSA];
-  __shared__ __align__(16) __nv_bfloat16 bs[C][kGemmKT][kGemmSB];
-  const int n1 = 1 << log2_n1, n2 = 1 << log2_n2;
-  const int rows = 2 * n2;
-  const int k_len = kPacked ? 2 * n2 : n2;
-  const long long cols = frames << log2_n1;
-  const int row_blocks = (rows + kGemmBM - 1) / kGemmBM;
-  const int r0 = static_cast<int>(blockIdx.x % row_blocks) * kGemmBM;
-  const long long c0 = static_cast<long long>(blockIdx.x / row_blocks) * kGemmBN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
-  const auto* window = reinterpret_cast<const float2*>(src.window);
-  // A thread loads the column pair (cc, cc + 1) of every B tile: one frame.
-  const int cc = 2 * (tid % (kGemmBN / 2));
-  const long long col = c0 + cc;
-  const TierFrame frame(src, col < cols ? col >> log2_n1 : 0, n1 * n2 * (kPacked ? 2 : 1));
-  const int b = static_cast<int>(col & (n1 - 1));
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < k_len; k0 += kGemmKT) {
-    load_table_tile<C>(as, tab1, rows, k_len, r0, k0);
-    for (int kk = tid / (kGemmBN / 2); kk < kGemmKT; kk += kGemmThreads / (kGemmBN / 2)) {
-      const int k = k0 + kk;
-      float2 v = make_float2(0.f, 0.f);
-      if (k < k_len && col < cols) {
-        if constexpr (kPacked) {
-          const int j = (k < n2 ? k : k - n2) * n1 + b;  // points j, j + 1
-          const float2 p0 = packed_point(frame, window, j);
-          const float2 p1 = packed_point(frame, window, j + 1);
-          v = k < n2 ? make_float2(p0.x, p1.x) : make_float2(p0.y, p1.y);
-        } else {
-          const int s = k * n1 + b;  // samples s, s + 1
-          v = windowed(frame.raw(s), __ldg(window + (s >> 1)));
+  if (threadIdx.x < 128) {  // ---- the producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x != 0) return;
+    long long seq = 0;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      long long mt, nt;
+      tile_at(t, mt, nt);
+      for (int kt = 0; kt < op.kt; ++kt, ++seq) {
+        const int slot = static_cast<int>(seq % S);
+        if (seq >= S) gemm_wait(empty + slot, static_cast<unsigned>((seq / S - 1) & 1));
+        unsigned char* dst = ring + slot * SLOT;
+        mbar_arrive_expect_tx(full + slot, SLOT);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          bulk_copy(reinterpret_cast<float*>(dst + c * A_CHUNK),
+                    reinterpret_cast<const float*>(
+                        op.a + ((static_cast<long long>(c) * op.kt + kt) * op.a_rows +
+                                mt * kGemmBM) * 128),
+                    A_CHUNK, full + slot);
+          bulk_copy(reinterpret_cast<float*>(dst + C * A_CHUNK + c * B_CHUNK),
+                    reinterpret_cast<const float*>(
+                        op.b + ((static_cast<long long>(c) * op.kt + kt) * op.b_rows + nt * BN) *
+                                   128),
+                    B_CHUNK, full + slot);
         }
       }
-      unsigned ch[C];
-      split_bf16x2<C>(v.x, v.y, ch);
-#pragma unroll
-      for (int c = 0; c < C; ++c) *reinterpret_cast<unsigned*>(&bs[c][kk][cc]) = ch[c];
     }
-    __syncthreads();
-    gemm_tile<P1, C, true>(acc, as, bs, wm, wn, lane);
-    __syncthreads();
+    return;
   }
-  // acc[i][j]: yr(b), yr(b + 1), yi(b), yi(b + 1) at k2 = row / 2 + g of the
-  // 16-row group at row, b = the column's; the twiddle as tier_dft's.
+
+  // ---- the multiplying warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int w = threadIdx.x / 128 - 1, lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const unsigned ring_addr = smem_address(ring);
+  long long seq = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    long long mt, nt;
+    tile_at(t, mt, nt);
+    const bool active = mt * kGemmBM + 64 * w < op.m_valid;
+    float acc[BN / 2], part[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + wm * 32 + i * 16;
-    if (row >= rows) continue;
-    const int k2 = row / 2 + g;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < op.kt; ++kt, ++seq) {
+      const int slot = static_cast<int>(seq % S);
+      gemm_wait(full + slot, static_cast<unsigned>((seq / S) & 1));
+      if (active) {
+        const unsigned a = ring_addr + slot * SLOT + w * 64 * 128, b = ring_addr + slot * SLOT +
+                                                                       C * A_CHUNK;
+        const int steps = min(4, (op.k - kt * kGemmK) >> 4);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+        fence_operands(part);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= steps) break;
+#pragma unroll
+          for (int ca = 0; ca < C; ++ca)
+#pragma unroll
+            for (int cb = 0; cb < C; ++cb) {
+              if (!tier_term(P, ca, cb)) continue;
+              Wgmma<BN>::mma(part, sw128_desc(a + ca * A_CHUNK, j),
+                             sw128_desc(b + cb * B_CHUNK, j));
+            }
+        }
+        wgmma_commit();
+        fence_operands(part);
+        wgmma_wait<0>();
+        fence_operands(part);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+      if (active) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      }
+    }
+    if (active) epilogue(acc, mt, nt, mt * kGemmBM + 64 * w + 16 * warp + (lane >> 2));
+  }
+}
+
+// a[j] of lane q of each quad <- a[q] of its lane j (a 4 x 4 transpose of
+// the quad's words by two exchanges).
+__device__ __forceinline__ void quad_transpose(unsigned (&a)[4], int q) {
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const long long c = c0 + wn * 32 + j * 8 + 2 * tig;
-      if (c >= cols) continue;
-      const long long f = c >> log2_n1;
-      const int bc = static_cast<int>(c & (n1 - 1));
-      const float4 tw = *reinterpret_cast<const float4*>(twiddle + (k2 << log2_n1) + bc);
-      const float* y = acc[i][j];
+      if (j & m) continue;  // the pair (j, j + m)
+      const unsigned recv = __shfl_xor_sync(0xffffffffu, (q & m) ? a[j] : a[j | m], m);
+      if (q & m)
+        a[j] = recv;
+      else
+        a[j | m] = recv;
+    }
+  }
+}
+
+// Stage 1 over a group of s.g frames: X planes (the split pass's) by tab1
+// (C1 chunks of tab1_rows x k1), then the twiddle, split into C2 chunks, to
+// the T planes.  Where a tile's columns are one frame's (n1 >= BN: every
+// size above 131072), each quad of lanes transposes the words of four
+// column pairs, so that a lane stores 16 bytes (8 b of a T row) and a warp
+// two whole 32-byte sectors of each of its 8 rows a store.
+template <int P1, int C2>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+tier_inner_kernel(const unsigned char* __restrict__ x, const unsigned char* __restrict__ tab1,
+                  const float2* __restrict__ twiddle, unsigned char* __restrict__ t_out,
+                  GemmShape s) {
+  constexpr int BN = gemm_bn(tier_chunks(P1));
+  const GemmOperands op{tab1, x, s.tab1_rows(), s.x_rows(), 2LL * s.n2(),
+                        s.tab1_rows() / kGemmBM, s.x_rows() / BN, s.k1(), s.kt1(), true};
+  const int n1 = s.n1(), n2 = s.n2(), kt2 = s.kt2();
+  const long long cols = s.g << s.log2_n1, t_rows = s.t_rows();
+  const int tig = threadIdx.x & 3;
+  gemm_mainloop<P1>(op, [&](const float (&acc)[BN / 2], long long, long long nt, long long row) {
+    // acc[4i ..]: yr(b), yr(b + 1), yi(b), yi(b + 1) at k2 = row / 2 (rows
+    // 16t + g and 16t + 8 + g: Yr and Yi at k2 = 8t + g), b = the column's.
+    const int k2 = static_cast<int>((row >> 4) * 8 + (row & 7));
+    if (k2 >= n2) return;
+    // T of column pair i (b, b + 1), split: (Tr, Ti) words of each chunk.
+    const auto t_words = [&](int i, int b, unsigned (&cr)[C2], unsigned (&ci)[C2]) {
+      const float4 tw = *reinterpret_cast<const float4*>(twiddle + (k2 << s.log2_n1) + b);
+      const float* y = acc + 4 * i;
       const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
       const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
       const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
       const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
-      *reinterpret_cast<float4*>(t_out + (((f << log2_n2) + k2) << log2_n1) + bc) =
-          make_float4(tr0, ti0, tr1, ti1);
+      split_bf16x2<C2>(tr0, tr1, cr);
+      split_bf16x2<C2>(ti0, ti1, ci);
+    };
+    if (n1 >= BN) {  // the tile's columns: b0 .. b0 + BN - 1 of frame f
+      const long long col0 = nt * BN;
+      const long long rt = ((col0 >> s.log2_n1) << s.log2_n2) + k2;
+      const int b0 = static_cast<int>(col0 & (n1 - 1)), sw = static_cast<int>(rt & 7);
+      unsigned char* t_row = t_out + rt * 128;
+#pragma unroll
+      for (int ig = 0; ig < BN / 32; ++ig) {
+        unsigned w[2][C2][4];  // Tr and Ti, chunk, column pair 4 ig + j
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          unsigned cr[C2], ci[C2];
+          t_words(4 * ig + j, b0 + 8 * (4 * ig + j) + 2 * tig, cr, ci);
+#pragma unroll
+          for (int c = 0; c < C2; ++c) {
+            w[0][c][j] = cr[c];
+            w[1][c][j] = ci[c];
+          }
+        }
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
+#pragma unroll
+          for (int c = 0; c < C2; ++c) {
+            quad_transpose(w[part][c], tig);  // this lane: pair 4 ig + tig, b 8 of them
+            const int k = part * n1 + b0 + 8 * (4 * ig + tig);
+            *reinterpret_cast<uint4*>(t_row + (static_cast<long long>(c) * kt2 + (k >> 6)) *
+                                                  t_rows * 128 + ((((k & 63) >> 3) ^ sw) << 4)) =
+                make_uint4(w[part][c][0], w[part][c][1], w[part][c][2], w[part][c][3]);
+          }
+      }
+      return;
     }
-  }
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {  // the small end: columns of several frames
+      const long long col = nt * BN + 8 * i + 2 * tig;
+      if (col >= cols) continue;
+      const int b = static_cast<int>(col & (n1 - 1));
+      const long long rt = ((col >> s.log2_n1) << s.log2_n2) + k2;
+      unsigned cr[C2], ci[C2];
+      t_words(i, b, cr, ci);
+#pragma unroll
+      for (int c = 0; c < C2; ++c) {
+        *reinterpret_cast<unsigned*>(t_out + plane_byte(c, rt, b, kt2, t_rows)) = cr[c];
+        *reinterpret_cast<unsigned*>(t_out + plane_byte(c, rt, n1 + b, kt2, t_rows)) = ci[c];
+      }
+    }
+  });
 }
 
+// Stage 2 over a group of s.g frames: the T planes by tab2 (C2 chunks of
+// tab2_rows x 2 n1), to |Z|^2 in out (rows of n/2 + 1) or, kPacked, Zr and
+// Zi in out and out_im (rows of n).
 template <int P2, bool kPacked>
-__global__ void __launch_bounds__(kGemmThreads)
-tier_outer_kernel(const float2* __restrict__ t_in, const __nv_bfloat16* __restrict__ tab2,
-                  float* __restrict__ out, float* __restrict__ out_im, long long frames,
-                  int log2_n1, int log2_n2) {
-  constexpr int C = tier_chunks(P2);
-  __shared__ __align__(16) __nv_bfloat16 as[C][kGemmBM][kGemmSA];
-  __shared__ __align__(16) __nv_bfloat16 bs[C][kGemmBN][kGemmSA];
-  const int n1 = 1 << log2_n1, n2 = 1 << log2_n2;
-  const int k_len = 2 * n1;
-  const int n_cols = kPacked ? 2 * n1 : tier_cols2(n1);
-  const long long rows = frames << log2_n2;
-  const int col_blocks = (n_cols + kGemmBN - 1) / kGemmBN;
-  const long long r0 = static_cast<long long>(blockIdx.x / col_blocks) * kGemmBM;
-  const int c0 = static_cast<int>(blockIdx.x % col_blocks) * kGemmBN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tig = lane & 3;
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < k_len; k0 += kGemmKT) {
-    // A: [Tr | Ti] of rows r0.., k pairs (k, k + 1) from T's float4 of (b, b + 1).
-    for (int i = tid; i < kGemmBM * kGemmKT / 2; i += kGemmThreads) {
-      const int r = i / (kGemmKT / 2);
-      const int kk = 2 * (i % (kGemmKT / 2));
-      const int k = k0 + kk;
-      float2 v = make_float2(0.f, 0.f);
-      if (r0 + r < rows && k < k_len) {
-        const int bc = k < n1 ? k : k - n1;
-        const float4 t = __ldg(reinterpret_cast<const float4*>(t_in + ((r0 + r) << log2_n1) + bc));
-        v = k < n1 ? make_float2(t.x, t.z) : make_float2(t.y, t.w);
-      }
-      unsigned ch[C];
-      split_bf16x2<C>(v.x, v.y, ch);
+__global__ void __launch_bounds__(kGemmThreads, 1)
+tier_outer_kernel(const unsigned char* __restrict__ t_in, const unsigned char* __restrict__ tab2,
+                  float* __restrict__ out, float* __restrict__ out_im, GemmShape s) {
+  constexpr int BN = gemm_bn(tier_chunks(P2));
+  const long long rows = s.g << s.log2_n2;
+  const GemmOperands op{t_in, tab2, s.t_rows(), s.tab2_rows(), rows, s.t_rows() / kGemmBM,
+                        s.tab2_rows() / BN, s.k2(), s.kt2(), false};
+  const int n1 = s.n1(), n2 = s.n2();
+  const long long n = static_cast<long long>(n1) << s.log2_n2;
+  const int tig = threadIdx.x & 3;
+  gemm_mainloop<P2>(op, [&](const float (&acc)[BN / 2], long long, long long nt, long long row0) {
+    // acc[4i + 2h], [4i + 2h + 1]: Zr, Zi of k1 = the column pair's at row0 + 8h.
 #pragma unroll
-      for (int c = 0; c < C; ++c) *reinterpret_cast<unsigned*>(&as[c][r][kk]) = ch[c];
-    }
-    load_table_tile<C>(bs, tab2, n_cols, k_len, c0, k0);
-    __syncthreads();
-    gemm_tile<P2, C, false>(acc, as, bs, wm, wn, lane);
-    __syncthreads();
-  }
-  // acc[i][j][2h], [2h + 1]: Zr, Zi of k1 = the column pair's at row + 8h.
-  const long long half = (static_cast<long long>(n1) << log2_n2) / 2;  // bin n/2
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 8 * h;
+      if (row >= rows) continue;
+      const long long f = row >> s.log2_n2;
+      const int k2 = static_cast<int>(row & (n2 - 1));
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k1 = (c0 + wn * 32 + j * 8 + 2 * tig) / 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long row = r0 + wm * 32 + i * 16 + g + 8 * h;
-        if (row >= rows) continue;
-        const long long f = row >> log2_n2;
-        const int k2 = static_cast<int>(row & (n2 - 1));
-        const float zr = acc[i][j][2 * h], zi = acc[i][j][2 * h + 1];
+      for (int i = 0; i < BN / 8; ++i) {
+        const int k1 = static_cast<int>((nt * BN + 8 * i) / 2) + tig;
+        const float zr = acc[4 * i + 2 * h], zi = acc[4 * i + 2 * h + 1];
         if constexpr (kPacked) {
           if (k1 < n1) {
-            const long long q = (f << (log2_n1 + log2_n2)) + (static_cast<long long>(k1) << log2_n2) + k2;
+            const long long q = f * n + (static_cast<long long>(k1) << s.log2_n2) + k2;
             out[q] = zr;
             out_im[q] = zi;
           }
         } else {
-          float* o = out + f * (half + 1);
+          float* o = out + f * (n / 2 + 1);
           if (k1 < n1 / 2)
-            o[(static_cast<long long>(k1) << log2_n2) + k2] = tier_power(zr, zi);
+            o[(static_cast<long long>(k1) << s.log2_n2) + k2] = tier_power(zr, zi);
           else if (k1 == n1 / 2 && k2 == 0)
-            o[half] = tier_power(zr, zi);
+            o[n / 2] = tier_power(zr, zi);
         }
       }
     }
-  }
+  });
+}
+
+// kernel<<<grid, kGemmThreads, smem>>> with the grid the tiles' count, at
+// most a CTA an SM.
+template <typename... Params, typename... Args>
+int launch_gemm(void (*kernel)(Params...), int smem, long long tiles, int device,
+                cudaStream_t stream, const Args&... args) {
+  int n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = tiles < n_sm ? tiles : n_sm;
+  if (grid < 1) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(grid));
+  config.blockDim = dim3(kGemmThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The shape of a group of `frames` frames, or an error for a size or pass
+// count the GEMMs do not take.
+cudaError_t gemm_shape(int log2_n1, int log2_n2, int packed, int inner, int outer,
+                       long long frames, GemmShape* s) {
+  const bool passes_ok = (inner == 1 || inner == 3 || inner == 4 || inner == 6) &&
+                         (outer == 1 || outer == 3 || outer == 4 || outer == 6);
+  if (!passes_ok || log2_n1 < 3 || log2_n2 < 4 || log2_n1 > 10 || log2_n2 > 10 ||
+      log2_n1 > log2_n2 || frames < 1 || (packed != 0 && packed != 1))
+    return cudaErrorInvalidValue;
+  *s = GemmShape{log2_n1, log2_n2, packed, tier_chunks(inner), tier_chunks(outer), frames};
+  return cudaSuccess;
 }
 #endif  // the tier GEMMs
 
@@ -3612,66 +3890,112 @@ int sed_packed_power(const void* z, const void* unpack, void* out, long long row
 
 #if !defined(SED_FEATURIZER_NO_TIERS) && \
     (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY))
-// The tier GEMMs' launches (tier_inner_kernel, tier_outer_kernel) of
-// `frames` frames of an n1 n2 point DFT, log2_n1 and log2_n2 3..10 (n1 8..1024,
-// n2 8..1024).  Stage 1: kind as TierSource (packed: K6t's packed points of
-// waveforms, kind 0), tab1 the C1 chunks of (2 n2, n2) (packed (2 n2, 2 n2)),
-// twiddle (n2, n1) float2, t_out (frames, n2, n1) float2.
-int sed_tier_inner(const void* data, int kind, int packed, const void* window, const void* tab1,
-                   const void* twiddle, void* t_out, long long frames, long long n_samples,
-                   int n_frames, int hop, int log2_n1, int log2_n2, int passes, int device,
-                   void* stream) {
+// The tier GEMMs of `frames` frames of an n1 n2-point DFT (log2_n1 3..10,
+// log2_n2 4..10, n1 <= n2), packed (K6t) or not, at inner / outer passes
+// (1, 3, 4, 6); each entry takes one group of frames (sed_tier_gemm_plan).
+//
+// The plan at `frames` frames, as the three entries launch them: plan[0]
+// frames a group (kGemmScratch), [1] the bytes of a group's planes (X, then
+// T), [2] X's bytes, [3] tab1's rows, [4] tab2's rows (the tables' padding to
+// the tiles), [5] [6] stage 1's and stage 2's dynamic shared memory.
+// cuda_featurizer.gemm_plan reads it; it launches nothing.
+int sed_tier_gemm_plan(int log2_n1, int log2_n2, int packed, int inner, int outer,
+                       long long frames, long long* plan) {
+  GemmShape s;
+  const cudaError_t err = gemm_shape(log2_n1, log2_n2, packed, inner, outer, frames, &s);
+  if (err != cudaSuccess) return err;
+  s.g = gemm_group(s, frames);
+  const long long values[] = {s.g,           s.x_bytes() + s.t_bytes(), s.x_bytes(),
+                              s.tab1_rows(), s.tab2_rows(),           gemm_smem(s.c1),
+                              gemm_smem(s.c2)};
+  for (int i = 0; i < 7; ++i) plan[i] = values[i];
+  return cudaSuccess;
+}
+
+// The split pass: frames row0 .. row0 + frames - 1 of the source (kind as
+// TierSource; packed: K6t's packed points of waveforms, kind 0) into the X
+// planes at x (the group's first sed_tier_gemm_plan plan[2] bytes).
+int sed_tier_split(const void* data, int kind, const void* window, void* x, long long row0,
+                   long long frames, long long n_samples, int n_frames, int hop, int log2_n1,
+                   int log2_n2, int packed, int inner, int outer, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (kind < 0 || kind > 2 || (packed && kind != 0) || log2_n1 < 3 || log2_n2 < 3 ||
-      log2_n1 > 10 || log2_n2 > 10)
-    return cudaErrorInvalidValue;
-  const long long col_blocks = ((frames << log2_n1) + kGemmBN - 1) / kGemmBN;
-  const long long blocks = col_blocks * (((2 << log2_n2) + kGemmBM - 1) / kGemmBM);
-  if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  GemmShape s;
+  const cudaError_t err = gemm_shape(log2_n1, log2_n2, packed, inner, outer, frames, &s);
+  if (err != cudaSuccess) return err;
+  if (kind < 0 || kind > 2 || (packed && kind != 0) || row0 < 0) return cudaErrorInvalidValue;
+  const long long blocks = ((frames << log2_n1) + 63) / 64 *
+                           (packed ? (s.n2() + 63) / 64 : s.kt1());
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
-  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  auto* t = static_cast<float2*>(t_out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_passes(passes, [&](auto p_constant) {
-    constexpr int P = decltype(p_constant)::value;
-    if (packed)
-      tier_inner_kernel<P, true><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
-          src, t1, tw, t, frames, log2_n1, log2_n2);
-    else
-      tier_inner_kernel<P, false><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
-          src, t1, tw, t, frames, log2_n1, log2_n2);
+  auto* planes = static_cast<unsigned char*>(x);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto launch = [&](auto kernel) {
+    kernel<<<static_cast<unsigned>(blocks), kSplitThreads, 0, st>>>(src, planes, row0, s);
     return static_cast<int>(cudaGetLastError());
+  };
+  switch (s.c1 + 4 * packed) {
+    case 1: return launch(tier_split_kernel<1, false>);
+    case 2: return launch(tier_split_kernel<2, false>);
+    case 3: return launch(tier_split_kernel<3, false>);
+    case 5: return launch(tier_split_kernel<1, true>);
+    case 6: return launch(tier_split_kernel<2, true>);
+    default: return launch(tier_split_kernel<3, true>);
+  }
+}
+
+// Stage 1 of a group: the X planes at x by tab1 (the C1 chunks of
+// cuda_featurizer._gemm_images' image), the twiddle (n2, n1) float2, to the
+// T planes at t (plan[2] bytes after x).
+int sed_tier_inner(const void* x, const void* tab1, const void* twiddle, void* t,
+                   long long frames, int log2_n1, int log2_n2, int packed, int inner, int outer,
+                   int device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.status() != cudaSuccess) return guard.status();
+  GemmShape s;
+  const cudaError_t err = gemm_shape(log2_n1, log2_n2, packed, inner, outer, frames, &s);
+  if (err != cudaSuccess) return err;
+  const long long tiles = s.tab1_rows() / kGemmBM * (s.x_rows() / gemm_bn(s.c1));
+  const auto* xp = static_cast<const unsigned char*>(x);
+  const auto* t1 = static_cast<const unsigned char*>(tab1);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* tp = static_cast<unsigned char*>(t);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_passes(inner, [&](auto p_constant) {
+    constexpr int P = decltype(p_constant)::value;
+    constexpr int smem = gemm_smem(tier_chunks(P));
+    const auto launch = [&](auto kernel) {
+      return launch_gemm(kernel, smem, tiles, device, st, xp, t1, tw, tp, s);
+    };
+    return s.c2 == 1   ? launch(tier_inner_kernel<P, 1>)
+           : s.c2 == 2 ? launch(tier_inner_kernel<P, 2>)
+                       : launch(tier_inner_kernel<P, 3>);
   });
 }
 
-// Stage 2: t_in as stage 1 wrote it, tab2 the C2 chunks of (n1 + 8, 2 n1)
-// (packed (2 n1, 2 n1)); out (frames, n/2 + 1) power, or (packed) out and
-// out_im (frames, n) Zr and Zi.
-int sed_tier_outer(const void* t_in, const void* tab2, void* out, void* out_im, long long frames,
-                   int log2_n1, int log2_n2, int packed, int passes, int device, void* stream) {
+// Stage 2 of a group: the T planes at t by tab2, to out (frames, n/2 + 1)
+// power, or (packed) out and out_im (frames, n) Zr and Zi.
+int sed_tier_outer(const void* t, const void* tab2, void* out, void* out_im, long long frames,
+                   int log2_n1, int log2_n2, int packed, int inner, int outer, int device,
+                   void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (log2_n1 < 3 || log2_n2 < 3 || log2_n1 > 10 || log2_n2 > 10) return cudaErrorInvalidValue;
-  const int n_cols = packed ? 2 << log2_n1 : tier_cols2(1 << log2_n1);
-  const long long row_blocks = ((frames << log2_n2) + kGemmBM - 1) / kGemmBM;
-  const long long blocks = row_blocks * ((n_cols + kGemmBN - 1) / kGemmBN);
-  if (blocks < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
-  const auto* t = static_cast<const float2*>(t_in);
-  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
+  GemmShape s;
+  const cudaError_t err = gemm_shape(log2_n1, log2_n2, packed, inner, outer, frames, &s);
+  if (err != cudaSuccess) return err;
+  const long long tiles = s.t_rows() / kGemmBM * (s.tab2_rows() / gemm_bn(s.c2));
+  const auto* tp = static_cast<const unsigned char*>(t);
+  const auto* t2 = static_cast<const unsigned char*>(tab2);
   auto* re = static_cast<float*>(out);
   auto* im = static_cast<float*>(out_im);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_passes(passes, [&](auto p_constant) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_passes(outer, [&](auto p_constant) {
     constexpr int P = decltype(p_constant)::value;
-    if (packed)
-      tier_outer_kernel<P, true><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
-          t, t2, re, im, frames, log2_n1, log2_n2);
-    else
-      tier_outer_kernel<P, false><<<static_cast<unsigned>(blocks), kGemmThreads, 0, s>>>(
-          t, t2, re, im, frames, log2_n1, log2_n2);
-    return static_cast<int>(cudaGetLastError());
+    constexpr int smem = gemm_smem(tier_chunks(P));
+    return packed ? launch_gemm(tier_outer_kernel<P, true>, smem, tiles, device, st, tp, t2, re,
+                                im, s)
+                  : launch_gemm(tier_outer_kernel<P, false>, smem, tiles, device, st, tp, t2,
+                                re, im, s);
   });
 }
 #endif
@@ -3686,7 +4010,8 @@ int sed_tier_outer(const void* t_in, const void* tab2, void* out, void* out_im, 
 // launch_wide_tier_dft_mel_log above), -DSED_FEATURIZER_PACKED_TIERS_ONLY (K6t
 // at n1 32 and 64), -DSED_FEATURIZER_WIDE_PACKED_ONLY (K6t at n1 128 and 256,
 // behind launch_wide_packed_fft), -DSED_FEATURIZER_GEMM_TIERS_ONLY (the tier
-// GEMMs' sed_tier_inner and sed_tier_outer above) and
+// GEMMs' sed_tier_gemm_plan, sed_tier_split, sed_tier_inner and
+// sed_tier_outer above) and
 // -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds of
 // chip_smoke.py too).
 

@@ -36,8 +36,9 @@ impl and precision, up to :data:`MAX_FFT_SIZE` (2^20); :func:`launch_plan`
 says what each launches at a size, and the wrappers' checks read the same
 functions.  Above n_fft 131072 K1, K3 and K6 run a global cross pass, the
 sub-rows' cluster FFT and (K1, K3) an unpack, and K5 runs K1's launches then
-K2; outside their instances' sizes K1t, K3t and K6t run two tier GEMMs
-through device memory, and K5t (above 131072) K1t's launches then K2.
+K2; outside their instances' sizes K1t, K3t and K6t run the tier GEMMs (a
+split pass to bf16 chunk planes, then two wgmma GEMMs, a frame group at a
+time: :func:`gemm_plan`), and K5t (above 131072) K1t's launches then K2.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
@@ -133,13 +134,14 @@ _MAX_GRID_X = 2**31 - 1
 # launches its one-launch instance; on the routes that take more than one
 # launch (:func:`launch_plan`) it adds one to the name of each kernel it
 # launches (the cross pass, the sub-row FFTs and the unpack of the Stockham
-# FFT above n_fft 131072; the tier GEMMs' two stages; K2 where K5 and K5t
-# chain) and nothing to its own.
+# FFT above n_fft 131072; the tier GEMMs' split pass and two stages, once a
+# frame group each; K2 where K5 and K5t chain) and nothing to its own.
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
             "wave_stft_mel_log": 0, "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
             "frames_dft_power_bf16": 0, "mel_log_bf16": 0, "wave_stft_mel_log_mel_bf16": 0,
             "wave_stft_mel_log_bf16": 0, "wave_packed_fft_bf16": 0, "fft_cross_pass": 0,
-            "fft_subrows": 0, "packed_power": 0, "tier_inner": 0, "tier_outer": 0}
+            "fft_subrows": 0, "packed_power": 0, "tier_split": 0, "tier_inner": 0,
+            "tier_outer": 0}
 
 
 def reset_launch_counts() -> None:
@@ -288,10 +290,14 @@ def _library() -> ctypes.CDLL:
     lib.sed_fft_subrows.restype = i32
     lib.sed_packed_power.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
     lib.sed_packed_power.restype = i32
-    lib.sed_tier_inner.argtypes = [vp, i32, i32, vp, vp, vp, vp, i64, i64, i32, i32, i32, i32,
+    lib.sed_tier_gemm_plan.argtypes = [i32, i32, i32, i32, i32, i64, ctypes.POINTER(i64)]
+    lib.sed_tier_gemm_plan.restype = i32
+    lib.sed_tier_split.argtypes = [vp, i32, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32,
                                    i32, i32, vp]
+    lib.sed_tier_split.restype = i32
+    lib.sed_tier_inner.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i32, vp]
     lib.sed_tier_inner.restype = i32
-    lib.sed_tier_outer.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, vp]
+    lib.sed_tier_outer.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, i32, i32, vp]
     lib.sed_tier_outer.restype = i32
     return lib
 
@@ -960,8 +966,8 @@ PACKED_TIER_LOG2_N = range(12, 18)
 # sed_tpu computes at a reduced tier ('roll' and the tick 128, 'pack' 256:
 # its TPU kernels need 128 lanes of a frame or of its m packed points;
 # 'fuse' 2048, its TILE_K) up to MAX_FFT_SIZE.  Outside the instances' sizes
-# K1t, K3t and K6t run the two tier GEMMs, and K5t runs K1t's launches, then
-# K2 (:func:`tier_route`).
+# K1t, K3t and K6t run the tier GEMMs (:data:`GEMM_KERNELS`), and K5t runs
+# K1t's launches, then K2 (:func:`tier_route`).
 TIER_RANGES = {"wave_dft_power_bf16": range(7, 21), "frames_dft_power_bf16": range(7, 21),
                "wave_stft_mel_log_bf16": range(11, 21), "wave_packed_fft_bf16": range(8, 21)}
 
@@ -1067,7 +1073,7 @@ def _tier_power_plain(x: torch.Tensor, n_fft: int, passes) -> torch.Tensor:
     Z = T @ W1 as dot(tr, w1r) - dot(ti, w1i), |Z|^2, bin n2*k1 + k2; only
     the columns k1 <= n1/2 of the outer stage, which hold the one-sided bins.
     Its two stages are :func:`_tier_inner_plain` and :func:`_tier_outer_plain`
-    (the plain versions of the tier GEMMs' two kernels)."""
+    (the plain versions of the tier GEMMs' two stages)."""
     inner, outer = passes
     return _tier_outer_plain(*_tier_inner_plain(x, n_fft, inner), n_fft, outer)
 
@@ -1190,19 +1196,22 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
     :data:`LAUNCHES` name: ``{"route", "kernels", "instance", "cluster",
     "smem"}``.  ``route``: 'one' (one launch of its instance), 'cross' (K1,
     K3, K6 above n_fft 131072: the cross pass, the sub-rows' cluster FFT and,
-    K1 and K3, the unpack), 'gemm' (the tier GEMMs' two stages) or 'chain' (K5
-    above 131072, K5t above 131072: the power kernel's launches, then K2);
-    ``kernels``: the :data:`LAUNCHES` names a call adds one to (its own name
-    on route 'one', its kernels' names on the others, each with an entry of
-    its own); ``instance`` the template instance(s), ``cluster`` the CTAs of
-    a frame's (sub-row's) thread-block cluster (1: none) and ``smem`` the
+    K1 and K3, the unpack), 'gemm' (the tier GEMMs: the split pass and two
+    stages, :data:`GEMM_KERNELS`) or 'chain' (K5 above 131072, K5t above
+    131072: the power kernel's launches, then K2); ``kernels``: the
+    :data:`LAUNCHES` names a call adds one to (its own name on route 'one',
+    its kernels' names on the others, each with an entry of its own; the tier
+    GEMMs' once a frame group, :func:`gemm_plan`); ``instance`` the template
+    instance(s), ``cluster`` the CTAs of a frame's (sub-row's) thread-block
+    cluster (1: none) and ``smem`` the
     largest dynamic shared memory of a CTA (the tier kernels: over their
     pass counts; K5 and K5t with ``n_segments`` segment sums of ``n_mels``
     bands; 0 for the kernels with static shared memory only: the cross pass,
-    the unpack and the tier GEMMs).  K2's rows at once and shared memory are
-    the library's (:func:`mel_plan`), so where no card is present its entry
-    and the chains' ``smem`` are None.  Every kernel appears at each n_fft of
-    its range (4..MAX_FFT_SIZE; the tier kernels :data:`TIER_RANGES`), and an
+    the unpack and the tier GEMMs' split pass).  K2's rows at once and shared
+    memory and the tier GEMMs' stages' shared memory are the library's
+    (:func:`mel_plan`, :func:`gemm_plan`), so where no card is present their
+    entries and the chains' ``smem`` are None.  Every kernel appears at each
+    n_fft of its range (4..MAX_FFT_SIZE; the tier kernels :data:`TIER_RANGES`), and an
     n_fft above MAX_FFT_SIZE raises ``ValueError`` as the wrappers do.  The
     wrappers' size checks read the same functions (:func:`stockham_plan`,
     :func:`tier_route`)."""
@@ -1266,21 +1275,25 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
                                (n_fft // n1) // 64 if fused else 1,
                                smem + 4 * n_segments if fused else smem)
         else:
-            plan["tier_inner"] = entry("one", ("tier_inner",), "tier_inner_kernel<P1, kPacked>",
+            n = n_fft // 2 if packed else n_fft
+            stages = [gemm_plan(n, packed, p, 1) for p in passes]
+            smem = {k: None if None in stages else max(s[k] for s in stages)
+                    for k in ("smem_inner", "smem_outer")}
+            plan["tier_split"] = entry("one", ("tier_split",), "tier_split_kernel<C1, kPacked>",
                                        1, 0)
+            plan["tier_inner"] = entry("one", ("tier_inner",), "tier_inner_kernel<P1, C2>", 1,
+                                       smem["smem_inner"])
             plan["tier_outer"] = entry("one", ("tier_outer",), "tier_outer_kernel<P2, kPacked>",
-                                       1, 0)
-            plan[name] = chain(route, ("tier_inner", "tier_outer") + (
-                ("mel_log",) if route == "chain" else ()))
+                                       1, smem["smem_outer"])
+            plan[name] = chain(route, GEMM_KERNELS + (("mel_log",) if route == "chain" else ()))
     return plan
 
 
 def tier_route(name: str, n_fft: int) -> str:
     """How tier kernel ``name`` (a :data:`TIER_RANGES` key) runs n_fft on the
-    card: 'one' (one launch of its instance), 'gemm' (the two tier GEMMs,
-    ``tier_inner_kernel`` then ``tier_outer_kernel``) or 'chain' (K5t: K1t's
-    launches, then K2).  Raises ``ValueError``, naming the range, for a size
-    it does not take."""
+    card: 'one' (one launch of its instance), 'gemm' (the tier GEMMs,
+    :data:`GEMM_KERNELS`) or 'chain' (K5t: K1t's launches, then K2).  Raises
+    ``ValueError``, naming the range, for a size it does not take."""
     sizes = TIER_RANGES[name]
     log2_n = n_fft.bit_length() - 1
     if n_fft < 1 or n_fft & (n_fft - 1) or log2_n not in sizes:
@@ -1300,65 +1313,162 @@ def _check_tier_size(name: str, n_fft: int, window: torch.Tensor) -> str:
     return route
 
 
+# The tier GEMMs' launches, once a frame group each: the split pass, stage 1,
+# stage 2 (featurizer.cu tier_split_kernel, tier_inner_kernel,
+# tier_outer_kernel).
+GEMM_KERNELS = ("tier_split", "tier_inner", "tier_outer")
+_GEMM_PLAN_KEYS = ("group_frames", "scratch_bytes", "x_bytes", "tab1_rows", "tab2_rows",
+                   "smem_inner", "smem_outer")
+
+
+def gemm_plan(n: int, packed: bool, passes, frames: int) -> Optional[dict]:
+    """The tier GEMMs over ``frames`` frames of an n-point DFT (K6t: n = m
+    packed points) at (inner, outer) ``passes`` as the kernel library
+    launches them (its ``sed_tier_gemm_plan``): ``group_frames`` (the frames
+    a group of launches takes, its planes within the library's scratch
+    budget), ``scratch_bytes`` (a group's X and T planes), ``x_bytes`` (X's
+    part, T's offset), ``tab1_rows`` and ``tab2_rows`` (the tables' rows
+    with the tiles' padding) and each stage's ``smem_inner``, ``smem_outer``.
+    None where no card is present: the library decides all of them, and a
+    CPU tensor never launches the GEMMs."""
+    if not torch.cuda.is_available():
+        return None
+    inner, outer = passes
+    return _gemm_plan(*_gemm_dims(n), int(packed), inner, outer, frames)
+
+
+@functools.lru_cache(maxsize=64)
+def _gemm_plan(log2_n1: int, log2_n2: int, packed: int, inner: int, outer: int,
+               frames: int) -> dict:
+    values = (ctypes.c_longlong * len(_GEMM_PLAN_KEYS))()
+    err = _library().sed_tier_gemm_plan(log2_n1, log2_n2, packed, inner, outer, frames, values)
+    _check_launch("tier_gemm_plan", err)
+    return dict(zip(_GEMM_PLAN_KEYS, values))
+
+
+def frame_groups(frames: int, group_frames: int) -> list:
+    """(first frame, frames) of each group of launches of the tier GEMMs over
+    ``frames`` frames, ``group_frames`` a group (:func:`gemm_plan`)."""
+    return [(r, min(group_frames, frames - r)) for r in range(0, frames, group_frames)]
+
+
+def plane_image(a: np.ndarray, chunks: int, rows: int) -> torch.Tensor:
+    """The tier GEMMs' plane of (r, k) f32 ``a``, r <= ``rows``: its
+    ``chunks`` bf16 chunks (:func:`split_bf16`), each in K tiles of 64 k,
+    each tile ``rows`` rows of 64 under the 128-byte swizzle (featurizer.cu
+    ``plane_byte``: element (c, r, k) at ((c kt + k // 64) rows + r) 128 +
+    the swizzled place of k % 64 in the row); rows past r and k past a's
+    zero.  A flat bf16 tensor on the CPU."""
+    r, k = a.shape
+    kt = -(-k // 64)
+    full = np.zeros((rows, kt * 64), np.float32)
+    full[:r, :k] = a
+    parts = np.stack([c.numpy() for c in split_bf16(torch.from_numpy(full), chunks)])
+    tiles = parts.reshape(chunks, rows, kt, 64).transpose(0, 2, 1, 3)
+    flat = np.ascontiguousarray(sw128_image(tiles)).reshape(-1)
+    return torch.from_numpy(flat).to(torch.bfloat16)
+
+
+def plane_values(planes: torch.Tensor, chunks: int, rows: int, k: int, row0: int,
+                 n_rows: int) -> torch.Tensor:
+    """(chunks, n_rows, k) bf16: rows row0 .. row0 + n_rows - 1 of a plane of
+    ``rows`` rows and k columns a chunk (:func:`plane_image`'s layout), read
+    from ``planes``, its flat bf16 values or bytes (a group's X or T planes
+    on the card), on their device."""
+    flat = planes.view(torch.bfloat16) if planes.dtype == torch.uint8 else planes
+    kt = -(-k // 64)
+    r = torch.arange(row0, row0 + n_rows, device=flat.device)[:, None]
+    kk = torch.arange(k, device=flat.device)[None, :]
+    c = torch.arange(chunks, device=flat.device)[:, None, None]
+    return flat[((c * kt + kk // 64) * rows + r) * 64 + ((kk % 64 // 8) ^ (r % 8)) * 8 + kk % 8]
+
+
+def gemm_operands(n: int, packed: bool):
+    """The tier GEMMs' f32 tables of an n-point DFT (K6t: n = m packed
+    points; n1 = 2^(log2 n // 2)), from sed_tpu's constants
+    (``_matmul_fft_constants``):
+      * W (2 n2, k1): row 16t + 8h + i the coefficients of part h (0 real,
+        1 imaginary) of Y at k2 = 8t + i over stage 1's k: a (X[a][b] =
+        x[a n1 + b]), W2r and W2i; packed, a over Re z and n2 + a over Im z,
+        W2r and -W2i for Yr, W2i and W2r for Yi;
+      * V (2 c, 2 n1): row 2 k1 + h the coefficients of Zr (h = 0) or Zi
+        over [Tr | Ti]: W1r and -W1i, W1i and W1r, at k1 < c = n1/2 + 4 (K1t,
+        K3t: the one-sided bins and bin n/2) or every k1 (K6t, c = n1);
+      * the (n2, n1) twiddles as (re, im) pairs."""
+    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(n)
+    if packed:
+        parts = [np.concatenate(pair, axis=1) for pair in ((w2r, -w2i), (w2i, w2r))]
+    else:
+        parts = [w2r, w2i]
+    k = parts[0].shape[1]
+    w = np.stack([p.reshape(n2 // 8, 8, k) for p in parts], axis=1).reshape(2 * n2, k)
+    j = np.arange(n1 if packed else n1 // 2 + 4)
+    v = np.empty((2 * len(j), 2 * n1), np.float32)
+    v[0::2, :n1], v[0::2, n1:] = w1r[:, j].T, -w1i[:, j].T
+    v[1::2, :n1], v[1::2, n1:] = w1i[:, j].T, w1r[:, j].T
+    return w.astype(np.float32), v, np.stack([twr, twi], axis=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _gemm_images(n: int, packed: bool, c1: int, c2: int, tab1_rows: int, tab2_rows: int,
+                 device: torch.device):
+    """The tier GEMMs' tables on ``device``: :func:`gemm_operands`' W and V
+    as ``c1`` and ``c2`` chunk planes of ``tab1_rows`` and ``tab2_rows`` rows
+    (:func:`plane_image`; the rows :func:`gemm_plan` gives), and the
+    twiddles."""
+    w, v, tw = gemm_operands(n, packed)
+    return (plane_image(w, c1, tab1_rows).to(device), plane_image(v, c2, tab2_rows).to(device),
+            torch.from_numpy(tw).to(device))
+
+
 def _gemm_dims(n: int):
     """(log2 n1, log2 n2) of sed_tpu's n-point matmul DFT, n1 = 2^(log2 n // 2)."""
     log2_n = n.bit_length() - 1
     return log2_n // 2, log2_n - log2_n // 2
 
 
-@functools.lru_cache(maxsize=8)
-def _packed_gemm_tables(m: int, inner_chunks: int, outer_chunks: int, device: torch.device):
-    """K6t's tables of the tier GEMMs at an m-point DFT on ``device``, bf16
-    chunks of sed_tpu's f32 constants:
-      * tab1, ``inner_chunks`` x (2 n2, 2 n2): row 16t + 8h + i the
-        coefficients of Yr (h = 0) or Yi (h = 1) at k2 = 8t + i over [Re z |
-        Im z] (column a, n2 + a): W2r and -W2i, W2i and W2r;
-      * tab2, ``outer_chunks`` x (2 n1, 2 n1): row 2 k1 + h the coefficients
-        of Zr (h = 0) or Zi over [Tr | Ti]: W1r and -W1i, W1i and W1r, every k1;
-      * the (n2, n1) f32 twiddles as (re, im) pairs."""
-    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(m)
-    rows = [np.concatenate(pair, axis=1).reshape(n2 // 8, 8, 2 * n2)
-            for pair in ((w2r, -w2i), (w2i, w2r))]
-    w2 = np.stack(rows, axis=1).reshape(2 * n2, 2 * n2)
-    w1 = np.empty((2 * n1, 2 * n1), np.float32)
-    w1[0::2, :n1], w1[0::2, n1:] = w1r.T, -w1i.T
-    w1[1::2, :n1], w1[1::2, n1:] = w1i.T, w1r.T
-    tw = torch.from_numpy(np.stack([twr, twi], axis=-1)).to(device)
-    return _bf16_chunks(w2, inner_chunks, device), _bf16_chunks(w1, outer_chunks, device), tw
+def _tier_gemm(data: torch.Tensor, kind: int, window: torch.Tensor, out: torch.Tensor,
+               out_im: Optional[torch.Tensor], rows: int, n_samples: int, n_frames: int,
+               hop: int, n: int, passes) -> None:
+    """The tier GEMMs over ``rows`` frames of an n-point DFT at (inner,
+    outer) ``passes``, a frame group at a time (:func:`gemm_plan`): the split
+    pass to the group's X planes, stage 1 to its T planes, stage 2 to
+    ``out``, K1t's and K3t's one-sided power (``out_im`` None; ``kind`` as
+    K1t's and K3t's), or K6t's (Zr, Zi) in ``out`` and ``out_im`` (n = m,
+    the packed points of waveforms).  Their C entries refuse a grid past
+    2^31 - 1 blocks."""
+    device = data.device
+    packed = out_im is not None
+    inner, outer = passes
+    plan = gemm_plan(n, packed, passes, rows)
+    tab1, tab2, tw = _gemm_images(n, packed, _tier_chunks(inner), _tier_chunks(outer),
+                                  plan["tab1_rows"], plan["tab2_rows"], device)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=device)
+    x = scratch.data_ptr()
+    t = x + plan["x_bytes"]
+    row_bytes = 4 * (n if packed else n // 2 + 1)
+    shape = (*_gemm_dims(n), int(packed), inner, outer)
+    lib, stream = _library(), _stream(device)
+    for row0, g in frame_groups(rows, plan["group_frames"]):
+        err = lib.sed_tier_split(data.data_ptr(), kind, window.data_ptr(), x, row0, g, n_samples,
+                                 n_frames, hop, *shape, device.index, stream)
+        _check_launch("tier_split", err)
+        LAUNCHES["tier_split"] += 1
+        err = lib.sed_tier_inner(x, tab1.data_ptr(), tw.data_ptr(), t, g, *shape, device.index,
+                                 stream)
+        _check_launch("tier_inner", err)
+        LAUNCHES["tier_inner"] += 1
+        err = lib.sed_tier_outer(t, tab2.data_ptr(), out.data_ptr() + row0 * row_bytes,
+                                 out_im.data_ptr() + row0 * row_bytes if packed else None, g,
+                                 *shape, device.index, stream)
+        _check_launch("tier_outer", err)
+        LAUNCHES["tier_outer"] += 1
 
 
 def _bf16_chunks(a: np.ndarray, n: int, device: torch.device) -> torch.Tensor:
     """(n, *a.shape) bf16: :func:`split_bf16`'s chunks of ``a``."""
     parts = split_bf16(torch.from_numpy(np.ascontiguousarray(a)), n)
     return torch.stack([c.to(torch.bfloat16) for c in parts]).to(device)
-
-
-def _tier_gemm(data: torch.Tensor, kind: int, window: torch.Tensor, tables, out: torch.Tensor,
-               out_im: Optional[torch.Tensor], rows: int, n_samples: int, n_frames: int,
-               hop: int, n: int, passes) -> None:
-    """The two tier GEMMs over ``rows`` frames of an n-point DFT at (inner,
-    outer) ``passes``: stage 1 to a (rows, n2, n1, 2) f32 scratch T, then
-    stage 2 to ``out``, K1t's and K3t's one-sided power (``out_im`` None;
-    ``kind`` as K1t's and K3t's), or K6t's (Zr, Zi) in ``out`` and ``out_im``
-    (n = m, the packed points of waveforms).  Their C entries refuse a grid
-    past 2^31 - 1 blocks."""
-    device = data.device
-    packed = out_im is not None
-    log2_n1, log2_n2 = _gemm_dims(n)
-    tab1, tab2, tw = tables
-    inner, outer = passes
-    t = torch.empty((rows, 1 << log2_n2, 1 << log2_n1, 2), dtype=torch.float32, device=device)
-    lib = _library()
-    err = lib.sed_tier_inner(data.data_ptr(), kind, int(packed), window.data_ptr(),
-                             tab1.data_ptr(), tw.data_ptr(), t.data_ptr(), rows, n_samples,
-                             n_frames, hop, log2_n1, log2_n2, inner, device.index, _stream(device))
-    _check_launch("tier_inner", err)
-    LAUNCHES["tier_inner"] += 1
-    err = lib.sed_tier_outer(t.data_ptr(), tab2.data_ptr(), out.data_ptr(),
-                             out_im.data_ptr() if packed else None, rows, log2_n1, log2_n2,
-                             int(packed), outer, device.index, _stream(device))
-    _check_launch("tier_outer", err)
-    LAUNCHES["tier_outer"] += 1
 
 
 @functools.lru_cache(maxsize=16)
@@ -1478,10 +1588,13 @@ def _packed_tables(m: int, inner_chunks: int, outer_chunks: int, device: torch.d
 def _tier_setup(name: str, n_fft: int, window: torch.Tensor, rows: int, passes,
                 device: torch.device):
     """Checks what K1t, K3t and K5t take; returns their route
-    (:func:`tier_route`) and the tables on ``device`` (:func:`_tier_tables`:
-    tab1, tab2, the twiddles)."""
+    (:func:`tier_route`) and, on route 'one', the instance's tables on
+    ``device`` (:func:`_tier_tables`: tab1, tab2, the twiddles; None on the
+    others: the tier GEMMs make their own)."""
     route = _check_tier_size(name, n_fft, window)
-    if route == "one" and rows * (n_fft >> ((n_fft.bit_length() - 1) // 2)) // 64 > _MAX_GRID_X:
+    if route != "one":
+        return route, None
+    if rows * (n_fft >> ((n_fft.bit_length() - 1) // 2)) // 64 > _MAX_GRID_X:
         raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
     inner, outer = passes
     return route, _tier_tables(n_fft, _tier_chunks(inner), _tier_chunks(outer), device)
@@ -1493,8 +1606,7 @@ def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
     device = data.device
     route, tables = _tier_setup(name, n_fft, window, rows, passes, device)
     if route == "gemm":
-        _tier_gemm(data, kind, window, tables, out, None, rows, n_samples, n_frames, hop, n_fft,
-                   passes)
+        _tier_gemm(data, kind, window, out, None, rows, n_samples, n_frames, hop, n_fft, passes)
         return
     tab1, tab2, tw = tables
     log2_n = n_fft.bit_length() - 1
@@ -1623,16 +1735,15 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
                          f"{n_fft // 2 + 1}")
     n_sig, n_samples = waves.shape
     rows = n_sig * n_frames
-    route, (tab1, tab2, tw) = _tier_setup("wave_stft_mel_log_bf16", n_fft, window, rows,
-                                          passes, device)
+    route, tables = _tier_setup("wave_stft_mel_log_bf16", n_fft, window, rows, passes, device)
     out = torch.empty((n_sig, n_frames, bands.n_mels), dtype=torch.float32, device=device)
     if n_sig == 0:
         return out
     if route == "chain":
         power = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
-        _tier_gemm(waves, 0, window, (tab1, tab2, tw), power, None, rows, n_samples, n_frames,
-                   hop, n_fft, passes)
+        _tier_gemm(waves, 0, window, power, None, rows, n_samples, n_frames, hop, n_fft, passes)
         return _launch_mel_log(power, bands, mode).reshape(n_sig, n_frames, -1)
+    tab1, tab2, tw = tables
     log2_n = n_fft.bit_length() - 1
     err = _library().sed_tier_dft_mel_log(
         waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
@@ -1673,8 +1784,7 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
     if n_sig == 0:
         return zr, zi
     if route == "gemm":
-        _tier_gemm(waves, 0, window, _packed_gemm_tables(m, *chunks, device), zr, zi, rows,
-                   n_samples, n_frames, hop, m, passes)
+        _tier_gemm(waves, 0, window, zr, zi, rows, n_samples, n_frames, hop, m, passes)
         return zr, zi
     tab1, tab2, tw = _packed_tables(m, *chunks, device)
     err = _library().sed_tier_packed_fft(

@@ -494,7 +494,8 @@ def test_predictor_and_files_cuda_match_cpu(cuda, tmp_path):
                                 "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
                                 "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
                                 "wave_packed_fft_bf16": 0, "fft_cross_pass": 0, "fft_subrows": 0,
-                                "packed_power": 0, "tier_inner": 0, "tier_outer": 0}
+                                "packed_power": 0, "tier_split": 0, "tier_inner": 0,
+                                "tier_outer": 0}
     want = make_batch_predictor(cpu_model, PROD, device="cpu")(x.cpu())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
@@ -2214,7 +2215,8 @@ TOP = {262144: SpectrogramConfig(working_sample_rate=384000),
 LOW = {128: SpectrogramConfig(working_sample_rate=122), 256: SpectrogramConfig(working_sample_rate=250),
        512: SpectrogramConfig(working_sample_rate=400), 1024: SpectrogramConfig(working_sample_rate=1000),
        2048: SpectrogramConfig(working_sample_rate=2000)}
-GEMM_PASSES = ["bf16x3", "bf16x1", "bf16x6", ("bf16x4", "bf16x1"), ("bf16x1", "bf16x3")]
+GEMM_PASSES = ["bf16x3", "bf16x1", "bf16x6", ("bf16x4", "bf16x1"), ("bf16x1", "bf16x3"),
+               ("bf16x6", "bf16x4")]
 
 
 def launched_once(fn, *names):
@@ -2347,12 +2349,12 @@ def gemm_case(n_fft, cuda, seed=0):
 @pytest.mark.parametrize("n_fft", [128, 256, 512, 1024] + sorted(TOP))
 def test_gemm_k1t_and_k3t_match_their_plain_versions(cuda, n_fft, precision):
     """K1t and K3t (float32 and int16 rows) through the tier GEMMs
-    (tier_inner, tier_outer once each): every bin within
+    (tier_split, tier_inner, tier_outer once each): every bin within
     tier_tol x the frame's peak of the plain version."""
     cfg, waves = gemm_case(n_fft, cuda)
     hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
     got = launched_once(lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft, precision),
-                        "tier_inner", "tier_outer")
+                        *kernels.GEMM_KERNELS)
     want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, precision)
     assert got.shape == want.shape == (2, 1 + waves.shape[1] // hop, n_fft // 2 + 1)
     rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
@@ -2361,7 +2363,7 @@ def test_gemm_k1t_and_k3t_match_their_plain_versions(cuda, n_fft, precision):
     frames = rows.unfold(1, n_fft, hop).reshape(-1, n_fft).contiguous()
     for x in (frames, (frames * 8000).round().to(torch.int16)):
         got = launched_once(lambda: kernels.frames_dft_power_bf16(x, window, n_fft, precision),
-                            "tier_inner", "tier_outer")
+                            *kernels.GEMM_KERNELS)
         want = kernels.frames_dft_power_bf16_plain(x, window, n_fft, precision)
         rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True)).max())
         assert rel <= tier_tol(precision), rel
@@ -2395,12 +2397,37 @@ def test_gemm_k6t_matches_its_plain_version(cuda, n_fft, precision):
     hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
     zr, zi = launched_once(lambda: kernels.wave_packed_fft_bf16(waves, window, hop, n_fft,
                                                                 precision),
-                           "tier_inner", "tier_outer")
+                           *kernels.GEMM_KERNELS)
     wr, wi = kernels.wave_packed_fft_bf16_plain(waves, window, hop, n_fft, precision)
     assert zr.shape == wr.shape == (2, 1 + waves.shape[1] // hop, n_fft // 2)
     peak = torch.hypot(wr, wi).amax(dim=-1, keepdim=True)
     rel = max(float(((z - w).abs() / peak).max()) for z, w in ((zr, wr), (zi, wi)))
     assert rel <= tier_tol(precision), rel
+
+
+def test_gemm_frame_groups_on_the_card(cuda):
+    """K1t at 2^20 and bf16x6 over more frames than the library's plan puts
+    in a group (gemm_plan, its scratch within 2 GiB): each of the tier
+    GEMMs' kernels launched once a group, every frame within tier_tol of the
+    plain version."""
+    n_fft = 1 << 20
+    cfg = TOP[n_fft]
+    hop, window = cfg.hop_size, kernels.stft_window(cfg, cuda)
+    plan = kernels.gemm_plan(n_fft, False, (6, 6), 1 << 20)
+    waves = signals(1, (plan["group_frames"] + 8) * hop, cfg.working_sample_rate, cuda, seed=11)
+    frames = 1 + waves.shape[1] // hop
+    groups = kernels.frame_groups(frames, kernels.gemm_plan(n_fft, False, (6, 6), frames)
+                                  ["group_frames"])
+    assert len(groups) == 2
+    assert kernels.gemm_plan(n_fft, False, (6, 6), frames)["scratch_bytes"] <= 1 << 31
+    kernels.reset_launch_counts()
+    got = kernels.wave_dft_power_bf16(waves, window, hop, n_fft, "bf16x6")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == dict.fromkeys(
+        kernels.GEMM_KERNELS, len(groups))
+    want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, "bf16x6")
+    rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True).clamp_min(1e-30)).max())
+    assert rel <= tier_tol("bf16x6"), rel
 
 
 @pytest.mark.parametrize("precision, mel_precision", FUSE_MODES, ids=str)
@@ -2414,7 +2441,7 @@ def test_top_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
     k2 = "mel_log_bf16" if kernels.mel_passes(mel_precision) else "mel_log"
     got = launched_once(lambda: kernels.wave_stft_mel_log_bf16(
         waves, window, cfg.hop_size, n_fft, bands, precision, mel_precision),
-        "tier_inner", "tier_outer", k2)
+        *kernels.GEMM_KERNELS, k2)
     power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
     two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
     assert torch.equal(got.reshape(-1, bands.n_mels), two)

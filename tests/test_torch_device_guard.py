@@ -18,7 +18,8 @@ from sed_tpu_torch.ops import cuda_featurizer as kernels
 ENTRY_POINTS = ("sed_wave_stft_power", "sed_frames_stft_power", "sed_mel_log",
                 "sed_wave_stft_mel_log", "sed_wave_packed_fft", "sed_tier_dft_power",
                 "sed_tier_dft_mel_log", "sed_tier_packed_fft", "sed_fft_cross_pass",
-                "sed_fft_subrows", "sed_packed_power", "sed_tier_inner", "sed_tier_outer")
+                "sed_fft_subrows", "sed_packed_power", "sed_tier_split", "sed_tier_inner",
+                "sed_tier_outer")
 GUARD = ("const DeviceGuard guard(device);",
          "if (guard.status() != cudaSuccess) return guard.status();")
 
@@ -44,8 +45,10 @@ def launches(body) -> bool:
 def test_the_launching_entry_points_are_the_five_wrapped_ones():
     functions = extern_c_functions()
     assert {n for n, (_, body) in functions.items() if launches(body)} == set(ENTRY_POINTS)
-    # beside them, two that launch nothing: the error string and K2's plan
-    assert set(functions) == set(ENTRY_POINTS) | {"sed_error_string", "sed_mel_plan"}
+    # beside them, three that launch nothing: the error string, K2's plan and
+    # the tier GEMMs' plan
+    assert set(functions) == set(ENTRY_POINTS) | {"sed_error_string", "sed_mel_plan",
+                                                  "sed_tier_gemm_plan"}
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -108,7 +108,8 @@ def test_cpu_tensors_never_launch_kernels():
                                 "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
                                 "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
                                 "wave_packed_fft_bf16": 0, "fft_cross_pass": 0, "fft_subrows": 0,
-                                "packed_power": 0, "tier_inner": 0, "tier_outer": 0}
+                                "packed_power": 0, "tier_split": 0, "tier_inner": 0,
+                                "tier_outer": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -246,13 +246,15 @@ def test_launch_plan_covers_every_size_within_shared_memory(log2_n):
     K5 a chain); the tier kernels over their range, their instances where
     they reach, the GEMMs (K5t a chain) elsewhere; every route's kernels
     with plans of their own, and a multi-launch route counting its kernels,
-    not itself.  K2's shared memory is the library's choice (None here, read
-    on the card by test_torch_cuda.py), so are the chains' that end in it."""
+    not itself.  K2's and the tier GEMMs' stages' shared memory is the
+    library's choice (None here, read on the card by test_torch_cuda.py), so
+    are the routes' that run them."""
     n_fft = 1 << log2_n
     n_seg = segments_at(n_fft) if n_fft >= 64 else 1
     plan = kernels.launch_plan(n_fft, n_seg)
     unknown = {name for name, p in plan.items() if p["smem"] is None}
-    assert unknown == {name for name, p in plan.items() if "mel_log" in p["kernels"]}
+    library = {"mel_log", "tier_inner", "tier_outer"}
+    assert unknown == {name for name, p in plan.items() if library & set(p["kernels"])}
     assert all(p["smem"] <= 232448 for p in plan.values() if p["smem"] is not None)
     for name in ("wave_stft_power", "frames_stft_power", "wave_packed_fft", "wave_stft_mel_log",
                  "mel_log"):

@@ -17,6 +17,8 @@ rounding of the sums, at every n1 and at pass counts that take every shape
 ``packed_plan`` picks.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -144,108 +146,251 @@ def test_packed_plans_fit_and_their_images_are_bulk_copy_sized():
 
 
 # ---------------------------------------------------------------------------
-# The tier GEMMs (tier_inner_kernel, tier_outer_kernel): K1t and K3t at n_fft
-# 128..1024 and 2^18..2^20, K6t at 256..2048 and 2^18..2^20, each stage a
-# GEMM of 64 x 64 blocks over every frame at once through device memory.
-# The model reads the host's tables as the kernels do, multiplies over the
-# tier's terms (float64 sums, rounded to float32), and runs each block's
-# epilogue at the fragment positions of mma.m16n8k16 (lane l: group g = l /
-# 4, column pair 2 (l mod 4)); every T entry and every output bin must be
-# written once, and the result equal the plain version to the float32
-# rounding of the sums.
+# The tier GEMMs (tier_split_kernel, tier_inner_kernel, tier_outer_kernel):
+# K1t and K3t at n_fft 128..1024 and 2^18..2^20, K6t at 256..2048 and
+# 2^18..2^20, over a group of frames at a time.  The split pass writes the
+# frames' bf16 chunks once, as X planes; stage 1 multiplies the table W
+# (cuda_featurizer._gemm_images) by them on wgmma and writes the twiddled T
+# as chunk planes; stage 2 multiplies T by V.  Every operand is a plane in
+# the shared-memory image the tiles' bulk copies bring (featurizer.cu
+# plane_byte).  The model below writes and reads the planes through that
+# layout, multiplies over the tier's terms (float64 sums, rounded to
+# float32) and runs each epilogue at the fragment positions of
+# wgmma.m64nNk16 (row 16 warp + lane / 4 and 8 below it, column pair 8i + 2
+# (lane mod 4)); every plane element and every output bin must be written
+# once, and the result equal the plain version to the float32 rounding of
+# the sums.  The shapes (a CTA tile's 128 rows of A and 128 rows of B, 64 at
+# bf16x6; the planes' padding; the frame groups) are the model's copy of
+# what the library's sed_tier_gemm_plan reports on the card.
 # ---------------------------------------------------------------------------
 
-GEMM_TILE = 64
-_W, _I, _J, _L = np.meshgrid(range(4), range(2), range(4), range(32), indexing="ij")
-FRAG_ROW = (_W >> 1) * 32 + _I * 16          # the 16-row group of a fragment
-FRAG_G = _L >> 2
-FRAG_COL = (_W & 1) * 32 + _J * 8 + 2 * (_L & 3)
+GEMM_BM, GEMM_K, GEMM_SCRATCH = 128, 64, 1 << 31
 
 
 def f32(a):
     return np.asarray(a, np.float32)
 
 
-def tier_inner_model(x, n, inner, packed):
-    """tier_inner_kernel on ``rows`` frames of windowed samples (real, (rows,
-    n)) or packed points (complex, (rows, n)); returns T (rows, n2, n1)
-    complex (float32 parts)."""
-    rows = x.shape[0]
+def gemm_bn(c):
+    return 64 if c == 3 else 128
+
+
+def round_up(x, m):
+    return -(-x // m) * m
+
+
+def gemm_shape(n, packed, passes, g):
+    """featurizer.cu GemmShape of g frames of an n-point DFT."""
     log2_n1, log2_n2 = kernels._gemm_dims(n)
     n1, n2 = 1 << log2_n1, 1 << log2_n2
-    c1 = kernels._tier_chunks(inner)
-    tables = kernels._packed_gemm_tables if packed else kernels._tier_tables
-    tab1, _, tw = tables(n, c1, 1, CPU)
-    tab1, tw = tab1.float().numpy().astype(np.float64), tw.numpy()
+    c1, c2 = (kernels._tier_chunks(p) for p in passes)
+    k1, k2 = n2 * (2 if packed else 1), 2 * n1
+    s = dict(n1=n1, n2=n2, c1=c1, c2=c2, k1=k1, k2=k2, kt1=-(-k1 // GEMM_K),
+             kt2=-(-k2 // GEMM_K), g=g, packed=packed,
+             tab1_rows=round_up(2 * n2, GEMM_BM),
+             tab2_rows=round_up(2 * n1 if packed else n1 + 8, gemm_bn(c2)),
+             x_rows=round_up(g * n1, gemm_bn(c1)), t_rows=round_up(g * n2, GEMM_BM))
+    s["x_bytes"] = 128 * c1 * s["kt1"] * s["x_rows"]
+    s["t_bytes"] = 128 * c2 * s["kt2"] * s["t_rows"]
+    return s
+
+
+def gemm_group(n, packed, passes, frames):
+    """featurizer.cu gemm_group: frames a group under GEMM_SCRATCH bytes."""
+    def size(g):
+        s = gemm_shape(n, packed, passes, g)
+        return s["x_bytes"] + s["t_bytes"]
+    if size(frames) <= GEMM_SCRATCH:
+        return frames
+    s = gemm_shape(n, packed, passes, 1)
+    g = GEMM_SCRATCH // (128 * (s["c1"] * s["kt1"] * s["n1"] + s["c2"] * s["kt2"] * s["n2"]))
+    while g > 1 and size(g) > GEMM_SCRATCH:
+        g -= 1
+    return max(g, 1)
+
+
+def plane_index(c, r, k, kt, rows):
+    """bf16 element of (chunk c, row r, k) of a plane (plane_byte / 2)."""
+    return ((c * kt + k // 64) * rows + r) * 64 + (((k % 64) // 8) ^ (r % 8)) * 8 + k % 8
+
+
+def read_planes(flat, chunks, rows, k, n_rows=None):
+    """(chunks, n_rows, k) of a plane of ``rows`` rows, through plane_index."""
+    r = np.arange(rows if n_rows is None else n_rows)[:, None]
+    kk = np.arange(k)[None, :]
+    return np.stack([flat[plane_index(c, r, kk, -(-k // 64), rows)] for c in range(chunks)])
+
+
+def split_model(xw, n, packed, passes):
+    """tier_split_kernel on a group of windowed frames ``xw`` ((g, n) real,
+    or complex packed points): block (row tile rt, k tile kt) holds rows r =
+    64 rt .. (r = f n1 + b) and k 64 kt .. (packed: points a = 64 kt .. of
+    each row, Re z to k = a, Im z to n2 + a) as [k][r], then writes each
+    (row, octet of k) as chunk stores of 8 values.  Returns the X planes (NaN
+    where not written), how often each element was written, and the shape."""
+    g = xw.shape[0]
+    s = gemm_shape(n, packed, passes, g)
+    n1, n2, c1 = s["n1"], s["n2"], s["c1"]
+    rows = g * n1
+    k_tiles = -(-n2 // 64) if packed else s["kt1"]
+    flat = np.full(c1 * s["kt1"] * s["x_rows"] * 64, np.nan)
+    writes = np.zeros(flat.shape, int)
+    blk = np.arange(-(-rows // 64) * k_tiles)[:, None, None, None]
+    r0, a0 = blk // k_tiles * 64, blk % k_tiles * 64
+    count = np.minimum(64, (n2 if packed else s["k1"]) - a0)
+    rl = np.arange(64)[None, :, None, None]            # the item's row
+    o = np.arange(8)[None, None, :, None]              # its octet of k
+    e = np.arange(8)[None, None, None, :]              # a value of the octet
+    full = (blk.shape[0], 64, 8, 8)
+    r, a = np.broadcast_to(r0 + rl, full), np.broadcast_to(a0 + 8 * o + e, full)
+    keep = np.broadcast_to((8 * o < count) & (r0 + rl < rows), full)
+    r, a = r[keep], a[keep]
+    src = xw[r // n1, a * n1 + r % n1]
+    for part in ((0, 1) if packed else (0,)):
+        val = (src.imag if part else src.real) if packed else src
+        for c, chunk in enumerate(chunks(val, c1)):
+            idx = plane_index(c, r, a + part * n2, s["kt1"], s["x_rows"])
+            flat[idx] = chunk
+            np.add.at(writes, idx, 1)
+    return flat, writes, s
+
+
+def x_transposed(xw, n, packed):
+    """X^T of the group: row f n1 + b, k = a (packed: Re z, then Im z)."""
+    n1, n2 = (1 << e for e in kernels._gemm_dims(n))
+    g = xw.shape[0]
+    x = xw.reshape(g, n2, n1)
     if packed:
-        xs = np.concatenate([x.real.reshape(rows, n2, n1), x.imag.reshape(rows, n2, n1)], axis=1)
-    else:
-        xs = x.reshape(rows, n2, n1)
-    k_len = xs.shape[1]
-    assert tab1.shape == (c1, 2 * n2, k_len)
-    b = xs.transpose(1, 0, 2).reshape(k_len, rows * n1)   # column f n1 + b
-    bc = chunks(b, c1)
-    acc = f32(sum(tab1[ca] @ bc[cb] for ca, cb in TERMS[inner]))
-    n_rows, n_cols = 2 * n2, rows * n1
-    t = np.full((rows, n2, n1), np.nan, np.complex128)
-    written = np.zeros((rows, n2, n1), int)
-    row_blocks = -(-n_rows // GEMM_TILE)
-    for block in range(row_blocks * -(-n_cols // GEMM_TILE)):
-        r0, c0 = block % row_blocks * GEMM_TILE, block // row_blocks * GEMM_TILE
-        row, col = r0 + FRAG_ROW, c0 + FRAG_COL
-        keep = (row < n_rows) & (col < n_cols)
-        row, col, g = row[keep], col[keep], FRAG_G[keep]
-        k2 = row // 2 + g
-        f, bb = col >> log2_n1, col & (n1 - 1)
-        for h in (0, 1):   # columns b, b + 1
-            yr, yi = acc[row + g, col + h], acc[row + g + 8, col + h]
-            twr, twi = tw[k2, bb + h, 0], tw[k2, bb + h, 1]
-            tr = f32(f32(yr * twr) - f32(yi * twi))
-            ti = f32(f32(yr * twi) + f32(yi * twr))
-            t[f, k2, bb + h] = tr + 1j * ti.astype(np.float64)
-            np.add.at(written, (f, k2, bb + h), 1)
-    assert (written == 1).all()
-    return t
+        x = np.concatenate([x.real, x.imag], axis=1)
+    return x.transpose(0, 2, 1).reshape(g * n1, -1)
 
 
-def tier_outer_model(t, n, outer, packed):
-    """tier_outer_kernel on T: (rows, n/2 + 1) power (K1t, K3t) or (rows, n)
-    complex Z (K6t), natural bin order."""
-    rows, n2, n1 = t.shape
-    log2_n2 = n2.bit_length() - 1
-    c2 = kernels._tier_chunks(outer)
-    tables = kernels._packed_gemm_tables if packed else kernels._tier_tables
-    _, tab2, _ = tables(n, 1, c2, CPU)
-    tab2 = tab2.float().numpy().astype(np.float64)
-    n_cols = 2 * n1 if packed else n1 + 8
-    assert tab2.shape == (c2, n_cols, 2 * n1)
-    a = np.concatenate([t.real, t.imag], axis=-1).reshape(rows * n2, 2 * n1)
-    ac = chunks(a, c2)
-    acc = f32(sum(ac[ca] @ tab2[cb].T for ca, cb in TERMS[outer]))
-    n_rows = rows * n2
-    out = np.full((rows, n if packed else n // 2 + 1), np.nan,
+def inner_model(x_flat, s, inner):
+    """tier_inner_kernel: T planes (NaN where not written), their writes and
+    the f32 T they split, (g n2, 2 n1): [Tr | Ti] of row f n2 + k2."""
+    n1, n2, c1, c2, g = s["n1"], s["n2"], s["c1"], s["c2"], s["g"]
+    w_img, _, tw = kernels._gemm_images(1 << (n1 * n2).bit_length() - 1, s["packed"], c1, c2,
+                                       s["tab1_rows"], s["tab2_rows"], CPU)
+    a = read_planes(w_img.float().numpy().astype(np.float64), c1, s["tab1_rows"], s["k1"])
+    b = read_planes(x_flat, c1, s["x_rows"], s["k1"], g * n1)
+    d = f32(sum(a[ca] @ b[cb].T for ca, cb in TERMS[inner]))   # (tab1_rows, g n1)
+    tw = tw.numpy()
+    # The fragments' rows 16t + lane / 4 (Yr at k2 = 8t + lane / 4; Yi 8 below)
+    # and column pairs (b, b + 1) of every tile that holds data.
+    rows = np.arange(s["tab1_rows"])
+    rows = rows[(rows % 16 < 8) & (rows // 16 * 8 + rows % 8 < n2)][:, None]
+    cols = np.arange(0, g * n1, 2)[None, :]
+    k2 = rows // 16 * 8 + rows % 8
+    f, bb = cols // n1, cols % n1
+    flat = np.full(c2 * s["kt2"] * s["t_rows"] * 64, np.nan)
+    writes = np.zeros(flat.shape, int)
+    t = np.full((g * n2, 2 * n1), np.nan, np.float32)
+    for h in (0, 1):   # columns b, b + 1
+        yr, yi = d[rows, cols + h], d[rows + 8, cols + h]
+        twr, twi = tw[k2, bb + h, 0], tw[k2, bb + h, 1]
+        tr = f32(f32(yr * twr) - f32(yi * twi))
+        ti = f32(f32(yr * twi) + f32(yi * twr))
+        rt = f * n2 + k2
+        for k, v in ((bb + h, tr), (n1 + bb + h, ti)):
+            t[rt, k] = v
+            for c, chunk in enumerate(chunks(v, c2)):
+                idx = plane_index(c, rt, k, s["kt2"], s["t_rows"])
+                flat[idx] = chunk
+                np.add.at(writes, idx, 1)
+    return flat, writes, t
+
+
+def outer_model(t_flat, s, outer):
+    """tier_outer_kernel: (g, n/2 + 1) power, or (g, n) complex Z (packed)."""
+    n1, n2, c2, g = s["n1"], s["n2"], s["c2"], s["g"]
+    n = n1 * n2
+    _, v_img, _ = kernels._gemm_images(n, s["packed"], s["c1"], c2, s["tab1_rows"],
+                                       s["tab2_rows"], CPU)
+    a = read_planes(t_flat, c2, s["t_rows"], s["k2"], g * n2)
+    b = read_planes(v_img.float().numpy().astype(np.float64), c2, s["tab2_rows"], s["k2"])
+    d = f32(sum(a[ca] @ b[cb].T for ca, cb in TERMS[outer]))   # (g n2, tab2_rows)
+    packed = s["packed"]
+    out = np.full((g, n if packed else n // 2 + 1), np.nan,
                   np.complex128 if packed else np.float64)
     written = np.zeros(out.shape, int)
-    col_blocks = -(-n_cols // GEMM_TILE)
-    for block in range(-(-n_rows // GEMM_TILE) * col_blocks):
-        r0, c0 = block // col_blocks * GEMM_TILE, block % col_blocks * GEMM_TILE
-        for h in (0, 1):   # the fragment's rows g and g + 8
-            row, col = r0 + FRAG_ROW + FRAG_G + 8 * h, c0 + FRAG_COL
-            keep = (row < n_rows) & (col < n_cols)
-            row, col = row[keep], col[keep]
-            zr, zi = acc[row, col], acc[row, col + 1]
-            f, k2, k1 = row >> log2_n2, row & (n2 - 1), col // 2
-            if packed:
-                sel = k1 < n1
-                idx = (f[sel], n2 * k1[sel] + k2[sel])
-                out[idx] = zr[sel] + 1j * zi[sel].astype(np.float64)
-            else:
-                sel = (k1 < n1 // 2) | ((k1 == n1 // 2) & (k2 == 0))
-                idx = (f[sel], n2 * k1[sel] + k2[sel])
-                out[idx] = f32(f32(zr[sel] * zr[sel]) + f32(zi[sel] * zi[sel]))
-            np.add.at(written, idx, 1)
+    rows = np.arange(g * n2)[:, None]
+    k1 = np.arange(s["tab2_rows"] // 2)[None, :]
+    f, k2 = rows // n2, rows % n2
+    zr, zi = d[rows, 2 * k1], d[rows, 2 * k1 + 1]
+    sel = (k1 < n1) if packed else (k1 < n1 // 2) | ((k1 == n1 // 2) & (k2 == 0))
+    sel = np.broadcast_to(sel, zr.shape)
+    idx = (np.broadcast_to(f, zr.shape)[sel], np.broadcast_to(n2 * k1 + k2, zr.shape)[sel])
+    if packed:
+        out[idx] = zr[sel] + 1j * zi[sel].astype(np.float64)
+    else:
+        out[idx] = f32(f32(zr[sel] * zr[sel]) + f32(zi[sel] * zi[sel]))
+    np.add.at(written, idx, 1)
     assert (written == 1).all()
     return out
+
+
+def windowed_frames(kind, n_fft, seed):
+    """Three frames as the split pass reads them, windowed, with the plain
+    version's input beside: kind 0 K1's centred frames of a waveform, 1 K3's
+    float32 rows, 2 its int16 rows (the window scaled by 1/32768)."""
+    rng = np.random.default_rng(seed)
+    window = torch.from_numpy(np.hanning(n_fft + 2)[1:-1].astype(np.float32))
+    hop = n_fft // 2
+    if kind == 0:
+        waves = torch.from_numpy(rng.standard_normal((1, 2 * hop + 5)).astype(np.float32))
+        return (stft_ops.frame_signal(waves, n_fft, hop) * window)[0].numpy()
+    rows = rng.standard_normal((3, n_fft)).astype(np.float32)
+    if kind == 1:
+        return rows * window.numpy()
+    pcm = np.round(np.clip(rows, -4, 4) * 8000).astype(np.int16)
+    return pcm.astype(np.float32) * (window / 32768.0).numpy()
+
+
+SPLIT_CASES = [(kind, n_fft, packed) for n_fft in (128, 1024, 262144)
+               for kind, packed in ((0, False), (1, False), (2, False), (0, True))
+               if not (packed and n_fft < 256)]
+
+
+@pytest.mark.parametrize("kind, n_fft, packed", SPLIT_CASES, ids=str)
+def test_split_pass_planes_are_the_windowed_frames_chunks(kind, n_fft, packed):
+    """The split pass writes every element of the group's X planes once, and
+    chunk c of row f n1 + b at k = a is chunk c of split_bf16 of the windowed
+    frame's x[a n1 + b] (packed: of Re z, then Im z, of point a n1 + b), for
+    K1t's framing, K3t's float32 and int16 rows and K6t's packed points, at
+    three chunks (bf16x6; fewer chunks are its first ones)."""
+    xw = windowed_frames(kind, n_fft, n_fft + kind)
+    n = n_fft // 2 if packed else n_fft
+    if packed:
+        xw = xw[:, 0::2] + 1j * xw[:, 1::2]
+    flat, writes, s = split_model(xw, n, packed, (6, 6))
+    got = read_planes(flat, s["c1"], s["x_rows"], s["k1"], s["g"] * s["n1"])
+    want = chunks(x_transposed(xw, n, packed), 3)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    logical = plane_index(np.arange(3)[:, None, None], np.arange(s["g"] * s["n1"])[:, None],
+                          np.arange(s["k1"])[None, :], s["kt1"], s["x_rows"])
+    assert (writes[logical] == 1).all() and writes.sum() == logical.size
+
+
+@pytest.mark.parametrize("n_fft, precision", [(512, "bf16x6"), (1024, ("bf16x1", "bf16x3")),
+                                              (262144, "bf16x3")], ids=str)
+def test_t_planes_are_the_twiddled_t_split(n_fft, precision):
+    """Stage 1's epilogue writes every element of the T planes once (row f n2
+    + k2, k = b for Tr, n1 + b for Ti): chunk c equals chunk c of
+    split_bf16 of the f32 T, which is within 2e-6 x its peak of the plain
+    version's stage 1 (``_tier_inner_plain``; float32 sums in another order)."""
+    passes = kernels.tier_passes(precision)
+    xw = windowed_frames(0, n_fft, 7)
+    flat_x, _, s = split_model(xw, n_fft, False, passes)
+    flat, writes, t = inner_model(flat_x, s, passes[0])
+    n1, n2, g = s["n1"], s["n2"], s["g"]
+    got = read_planes(flat, s["c2"], s["t_rows"], s["k2"], g * n2)   # (c2, g n2, 2 n1)
+    logical = plane_index(np.arange(s["c2"])[:, None, None], np.arange(g * n2)[:, None],
+                          np.arange(2 * n1)[None, :], s["kt2"], s["t_rows"])
+    assert (writes[logical] == 1).all() and writes.sum() == logical.size
+    tr, ti = kernels._tier_inner_plain(torch.from_numpy(xw), n_fft, passes[0])
+    want = np.concatenate([tr.numpy(), ti.numpy()], axis=-1).reshape(g * n2, 2 * n1)
+    assert all(np.array_equal(a, b) for a, b in zip(got, chunks(t, s["c2"])))
+    assert np.abs(t - want).max() <= 2e-6 * np.abs(want).max()
 
 
 GEMM_CASES = [(128, "bf16x3", False), (128, "bf16x1", False), (256, ("bf16x6", "bf16x4"), False),
@@ -258,22 +403,20 @@ GEMM_CASES = [(128, "bf16x3", False), (128, "bf16x1", False), (256, ("bf16x6", "
 @pytest.mark.parametrize("n_fft, precision, packed", GEMM_CASES, ids=str)
 def test_model_of_the_tier_gemms_matches_the_plain_version(n_fft, precision, packed):
     """K1t's power (``_tier_power_plain``) or K6t's Z (``_tier_packed_plain``)
-    of 3 frames through both stages' blocks: n1 = 8 (half of stage 1's k
-    tile, a quarter of a block's rows) up to n1 = 1024, n2 = 1024; within
-    5e-6 x the frame's peak (2.0e-6 at most here: an ulp of T flips a bf16
-    rounding of its low chunk), 1.5e-3 where the outer stage is bf16x1 (its
-    one rounding)."""
+    of 3 frames through the split pass and both stages: n1 = 8 (a quarter of
+    a 64-deep k tile, stage 1's 32 rows of a 128-row tile) up to n1 = 1024,
+    n2 = 1024; within 5e-6 x the frame's peak, 1.5e-3 where the outer stage
+    is bf16x1 (its one rounding)."""
     passes = kernels.tier_passes(precision)
     x = np.random.default_rng(n_fft).standard_normal((3, n_fft)).astype(np.float32)
+    n = n_fft // 2 if packed else n_fft
+    xw = x[:, 0::2] + 1j * x[:, 1::2] if packed else x
+    flat_x, _, s = split_model(xw, n, packed, passes)
+    got = outer_model(inner_model(flat_x, s, passes[0])[0], s, passes[1])
     if packed:
-        z = x[:, 0::2] + 1j * x[:, 1::2]
-        got = tier_outer_model(tier_inner_model(z, n_fft // 2, passes[0], True), n_fft // 2,
-                               passes[1], True)
         wr, wi = kernels._tier_packed_plain(torch.from_numpy(x), n_fft, passes)
         want = wr.double().numpy() + 1j * wi.double().numpy()
     else:
-        got = tier_outer_model(tier_inner_model(x, n_fft, passes[0], False), n_fft, passes[1],
-                               False)
         want = kernels._tier_power_plain(torch.from_numpy(x), n_fft, passes).double().numpy()
     assert got.shape == want.shape
     tol = 1.5e-3 if passes[1] == 1 else 5e-6
@@ -281,22 +424,103 @@ def test_model_of_the_tier_gemms_matches_the_plain_version(n_fft, precision, pac
     assert (np.abs(got - want) <= tol * peak).all()
 
 
+def trunc32(x):
+    """float64 -> float32 rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def wgmma_sum(ac, bc, passes, depth):
+    """sum over the tier's terms of ac[ca] @ bc[cb] as the kernels take it, in
+    a model of the tensor cores' accumulation: each k16 step of a term adds
+    its exact products to the accumulator and truncates it to float32.  With
+    ``depth`` each run of that many k goes to an accumulator of its own, added
+    to the total in float32 (round to nearest); None: one running sum."""
+    k = ac[0].shape[1]
+    depth = depth or k
+    total = np.zeros((ac[0].shape[0], bc[0].shape[1]), np.float32)
+    for k0 in range(0, k, depth):
+        part = np.zeros_like(total)
+        for j in range(k0, min(k, k0 + depth), 16):
+            for ca, cb in TERMS[passes]:
+                part = trunc32(part.astype(np.float64) + ac[ca][:, j:j + 16] @ bc[cb][j:j + 16])
+        total = f32(total + part)
+    return total
+
+
+@functools.lru_cache(maxsize=1)
+def frame_2_20():
+    """One frame of noise at n_fft 2^20, its plain power at bf16x6."""
+    x = np.random.default_rng(20).standard_normal(1 << 20).astype(np.float32)
+    return x, kernels._tier_power_plain(torch.from_numpy(x[None]), 1 << 20, (6, 6))[0].numpy()
+
+
+@pytest.mark.parametrize("depth, holds", [(GEMM_K, True), (None, False)], ids=str)
+def test_partial_per_k_tile_holds_tier_rel_tol_at_bf16x6(depth, holds):
+    """At n_fft 2^20 and bf16x6 (stage 1's k 1024, stage 2's 2048), on one
+    frame (32 of its k2 rows, each bin k1 < n1/2 of them): the kernels'
+    accumulator a 64-deep k tile, added in float32, holds ``tier_rel_tol``
+    (3e-5 x the frame's peak) of the plain version in the model of the
+    tensor cores' truncating accumulation (2.2e-6 here); one running sum over
+    all k does not (4e-5: what PR-era measurements on the card found)."""
+    x, want = frame_2_20()
+    n = 1 << 20
+    w, v, tw = kernels.gemm_operands(n, False)
+    n1 = n2 = 1024
+    k2s = np.arange(0, n2, 32)
+    rows = np.stack([16 * (k2s // 8) + k2s % 8, 16 * (k2s // 8) + 8 + k2s % 8], 1).reshape(-1)
+    y = wgmma_sum(chunks(w[rows], 3), chunks(x.reshape(n2, n1), 3), 6, depth)
+    yr, yi = y.reshape(len(k2s), 2, n1).transpose(1, 0, 2)
+    twr, twi = tw[k2s, :, 0], tw[k2s, :, 1]
+    tr, ti = f32(f32(yr * twr) - f32(yi * twi)), f32(f32(yr * twi) + f32(yi * twr))
+    z = wgmma_sum(chunks(np.concatenate([tr, ti], axis=1), 3), [c.T for c in chunks(v, 3)], 6,
+                  depth)
+    zr, zi = z[:, 0:n1:2], z[:, 1:n1:2]
+    got = f32(f32(zr * zr) + f32(zi * zi)).T            # (k1 < n1/2, k2)
+    err = np.abs(got - want[n2 * np.arange(n1 // 2)[:, None] + k2s]).max() / np.abs(want).max()
+    assert (err <= 3e-5) == holds, err
+
+
+@pytest.mark.parametrize("n_fft, packed", [(128, False), (1024, False), (2048, True),
+                                           (262144, False), (524288, False), (1048576, False),
+                                           (262144, True), (1048576, True)], ids=str)
+def test_frame_groups_cover_every_frame_once(n_fft, packed):
+    """At every pass count, 16 x 60 s (2912 frames) and a few frames go in
+    groups whose planes stay under the library's 2 GiB: every frame in
+    exactly one group, in order; all in one group at the small end."""
+    n = n_fft // 2 if packed else n_fft
+    for passes in [(a, b) for a in (1, 3, 4, 6) for b in (1, 3, 4, 6)]:
+        for frames in (2912, 5):
+            group = gemm_group(n, packed, passes, frames)
+            s = gemm_shape(n, packed, passes, group)
+            assert s["x_bytes"] + s["t_bytes"] <= GEMM_SCRATCH or group == 1
+            groups = kernels.frame_groups(frames, group)
+            covered = np.concatenate([np.arange(r, r + g) for r, g in groups])
+            assert np.array_equal(covered, np.arange(frames))
+            assert all(0 < g <= group for _, g in groups)
+            if n_fft <= 2048:
+                assert len(groups) == 1
+
+
 @pytest.mark.parametrize("log2_n", [7, 8, 9, 10, 11, 18, 19, 20])
 def test_gemm_plans_follow_sed_tpus_factorisation(log2_n):
     """Where the tier GEMMs run (launch_plan's route 'gemm', K5t's 'chain'),
-    their two stages are entries of their own, with static shared memory
-    only (the compiler bounds it; their C entries refuse a grid past 2^31 -
-    1 blocks), over sed_tpu's n = n1 n2 (n1 = 2^(log2 n // 2)) of the frame
-    (K1t, K3t) or of its m packed points (K6t)."""
+    the split pass and their two stages are entries of their own (the split
+    pass with static shared memory only; the stages' from the library,
+    None without a card), over sed_tpu's n = n1 n2 (n1 = 2^(log2 n // 2)) of
+    the frame (K1t, K3t) or of its m packed points (K6t)."""
     n_fft = 1 << log2_n
     plan = kernels.launch_plan(n_fft)
     for name in kernels.TIER_RANGES:
         if name not in plan or plan[name]["route"] == "one":
             continue
         parts = plan[name]["kernels"]
-        assert parts[:2] == ("tier_inner", "tier_outer")
-        assert parts[2:] == (("mel_log",) if name == "wave_stft_mel_log_bf16" else ())
-        assert plan["tier_inner"]["smem"] == plan["tier_outer"]["smem"] == 0
+        assert parts[:3] == kernels.GEMM_KERNELS == ("tier_split", "tier_inner", "tier_outer")
+        assert parts[3:] == (("mel_log",) if name == "wave_stft_mel_log_bf16" else ())
+        assert plan["tier_split"]["smem"] == 0
+        assert plan["tier_inner"]["smem"] is None and plan["tier_outer"]["smem"] is None
         n = n_fft // 2 if name == "wave_packed_fft_bf16" else n_fft
         n1, n2 = stft_ops._matmul_fft_constants(n)[:2]
         assert tuple(1 << e for e in kernels._gemm_dims(n)) == (n1, n2)

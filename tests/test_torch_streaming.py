@@ -178,7 +178,8 @@ def test_logmel_frames_matches_logmel_frames_pallas(dtype):
                                 "frames_dft_power_bf16": 0, "mel_log_bf16": 0,
                                 "wave_stft_mel_log_mel_bf16": 0, "wave_stft_mel_log_bf16": 0,
                                 "wave_packed_fft_bf16": 0, "fft_cross_pass": 0, "fft_subrows": 0,
-                                "packed_power": 0, "tier_inner": 0, "tier_outer": 0}
+                                "packed_power": 0, "tier_split": 0, "tier_inner": 0,
+                                "tier_outer": 0}
     want = np.asarray(logmel_frames_pallas(jnp.asarray(x), JCFG, interpret=True))
     assert got.shape == want.shape == (len(x), CFG.mel_bins)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
