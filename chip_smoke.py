@@ -322,8 +322,10 @@ non-zero on the first failure.  Phases:
  20. tiers   the reduced-precision featurizer tiers: ``cli.serve build
               --featurizer_precision turbo`` started in the background; K1t
               (``wave_dft_power_bf16``, the bf16 tensor-core DFT with K1's
-              framing) on a 16 x 60 s batch and K3t (``frames_dft_power_bf16``,
-              K3's rows, float32 and int16) at the tick's 160 rows, each at
+              framing: the split pass, then ``tier_fused_kernel``; the tier
+              GEMMs at bf16x6, as the library's plan says) on a 16 x
+              60 s batch and K3t (``frames_dft_power_bf16``, K3's rows,
+              float32 and int16) at the tick's 160 rows, each at
               ``TIER_PRECISIONS`` (fast, turbo, bf16x4, bf16x6 and the pair
               (bf16x1, bf16x3)) against its plain version (``tier_rel_tol``);
               K2's bf16x1 and bf16x3 product modes at 2912 and 160 rows
@@ -342,7 +344,9 @@ non-zero on the first failure.  Phases:
               custom operators, one call's launches (one K1t, one K2), equal
               to the eager path, and ``cli.serve run`` in a fresh process;
               times: each tier's K1t and K3t (one call and queued) beside K1
-              and K3, their plain versions, ``torch.stft`` + abs^2 (a higher
+              and K3, K1t's split pass and fused kernel on their own and the
+              tier GEMMs' route over the same frames (through the C calls),
+              their plain versions, ``torch.stft`` + abs^2 (a higher
               fidelity), the same split operands through cuBLAS bf16
               matmuls, the bound (bytes, or tensor FLOPs at the card's dense
               bf16 peak), K2's modes, and the batch at each tier.
@@ -376,13 +380,15 @@ non-zero on the first failure.  Phases:
               against float64 (1e-5 x the frame's peak), K1 then K2 within
               1e-4 dB, K5 and K5b (mel bf16x1, bf16x3) equal to K1 then K2
               bit for bit, and K1t, K3t, K6t at fast, turbo and bf16x6
-              (n1 256: the staged-T instances) against their plain versions
+              (n1 256: K1t and K3t on the tier GEMMs, which the library's
+              fused plan gives them there) against their plain versions
               (``tier_rel_tol``) and K5t equal to K1t then K2; at 96 kHz on
               phase 3's 16 x 60 s batch: ``make_batch_predictor`` (one K1
               and one K2 launch, counts reset just before and read just
               after; clip 0 against the CPU within 1e-4), 'fuse', 'pack',
               and 'roll', 'fuse', 'pack' at fast (exactly ``impl_kernels``'
-              row each), a 4-slot ``StreamPool`` for 8 s (the tick: K3 and
+              row each, the tier GEMMs' kernels once a frame group), a
+              4-slot ``StreamPool`` for 8 s (the tick: K3 and
               K2; scores against the batch path), ``logmel_frames`` within
               1e-4 dB of float64; times at 96 kHz: K1, K2, K5, K6, K3 (at a
               32-slot tick's 160 rows, cut from the batch's clips, checked
@@ -4631,6 +4637,7 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
     from sed_tpu_torch.inference import make_batch_predictor
     from sed_tpu_torch.ops import cuda_featurizer as kernels
     from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops import tier_gemm_sweep as tier_sweep
     from sed_tpu_torch.ops.mel import mel_filterbank
     from sed_tpu_torch.stream_pool import StreamPool
     from scipy.io import wavfile
@@ -4960,6 +4967,9 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
         passes = kernels.tier_passes(prec)
         ci, co = (kernels._tier_chunks(p) for p in passes)
         table_bytes = 2 * (ci * 2 * n2 * n2 + co * (n1 + 8) * 2 * n1) + tw_bytes + win_bytes
+        # K1t's parts through the C calls: the split pass, the fused kernel,
+        # and the tier GEMMs' route over the same frames as a yardstick.
+        parts = tier_sweep._fused_parts(torch, kernels, signals, window, cfg, prec, dev)
         ops_frame = passes[0] * 4 * n2 * n2 * n1 + passes[1] * 8 * n2 * n1 * h
         t = {"ms": time_ms(torch, lambda: kernels.wave_dft_power_bf16(
                  signals, window, hop, n_fft, prec)),
@@ -4973,6 +4983,8 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
             "bytes" if t_bytes >= t_ops else "operations")
         t["tensor_gflop"] = b_ops / 1e9
         t["mbytes"] = b_bytes / 1e6
+        t["split_ms"], t["fused_ms"] = parts[f"split_{sr}_{prec}"], parts[f"fused_{sr}_{prec}"]
+        t["gemm_route_ms"] = parts.get(f"gemm_route_{sr}_{prec}")
         # K3t at the tick's rows: one call, and QUEUED calls in a row.
         r_bytes = 4 * tick_frames.numel() + 4 * k3_rows * n_bins + table_bytes
         r_ops = k3_rows * ops_frame
@@ -4991,7 +5003,9 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
             f"{t['plain_ms']:.4f} ms | bf16 matmul chain {t['matmul_chain_ms']:.4f} ms | "
             f"torch.stft+abs^2 {lib_ms:.4f} ms | bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
             f"{t['mbytes']:.1f} MB, {t['tensor_gflop']:.1f} tensor GFLOP at "
-            f"{bf16_peak / 1e12:.0f} TFLOP/s) | bound share {t['bound_ms'] / t['ms']:.1%}; K3t "
+            f"{bf16_peak / 1e12:.0f} TFLOP/s) | bound share {t['bound_ms'] / t['ms']:.1%}; the "
+            f"split pass {t['split_ms']:.4f} ms, the fused kernel {t['fused_ms']:.4f} ms, the "
+            f"tier GEMMs' route {t['gemm_route_ms']} ms; K3t "
             f"at {k3_rows} rows {t['rows']['ms']:.4f} ms, queued {t['rows']['queued_ms']:.4f} "
             f"ms (K3 {k3_ms:.4f} / {k3_q_ms:.4f}), plain {t['rows']['plain_ms']:.4f} ms, "
             f"bound {r_bound:.4f} ms")
@@ -5023,7 +5037,8 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
     fast = times["bf16x3"]
     entries = [
         {"name": "wave_dft_power_bf16",
-         "kernel": "tier_dft_kernel<N1, P1, P2> (K1's framing; mma.sync.m16n8k16 bf16)",
+         "kernel": f"tier_split_kernel<C1, false> (K1's framing) + tier_fused_kernel<P1, P2, "
+                   f"{n1}> (wgmma, T in shared memory)",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:412",
          "launches": batch_launches["fast"]["wave_dft_power_bf16"],
@@ -5031,6 +5046,8 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
          "ms": fast["ms"], "plain_ms": fast["plain_ms"], "bound_ms": fast["bound_ms"],
          "bound_by": fast["bound_by"], "library_ms": lib_ms,
          "matmul_chain_ms": fast["matmul_chain_ms"], "k1_ms": k1_ms,
+         "split_ms": fast["split_ms"], "fused_ms": fast["fused_ms"],
+         "gemm_route_ms": fast["gemm_route_ms"],
          "cli_launches": cli_launches["wave_dft_power_bf16"],
          "file_launches": file_launches["wave_dft_power_bf16"],
          "artifact_launches": aot_launches["wave_dft_power_bf16"],
@@ -5038,7 +5055,8 @@ def tiers_phase(torch, cfg, dev, smi, tmp, model, mean, std, peaks):
                                               if k != "rows"}} for p in TIER_PRECISIONS},
          "batch_ms": batch_ms},
         {"name": "frames_dft_power_bf16",
-         "kernel": "tier_dft_kernel<N1, P1, P2> (K3's rows; mma.sync.m16n8k16 bf16)",
+         "kernel": f"tier_split_kernel<C1, false> (K3's rows) + tier_fused_kernel<P1, P2, "
+                   f"{n1}> (wgmma, T in shared memory)",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:283",
          "launches": pool_launches["frames_dft_power_bf16"], "precision": "bf16x1",
@@ -5080,6 +5098,7 @@ def fusepack_phase(torch, cfg, dev, smi, peaks, lesions):
     counts of the phase's runs, summed)."""
     from sed_tpu_torch.ops import cuda_featurizer as kernels
     from sed_tpu_torch.ops import stft as stft_ops
+    from sed_tpu_torch.ops import tier_gemm_sweep as tier_sweep
     from sed_tpu_torch.ops.featurizer import ingest_to_f32
     from sed_tpu_torch.ops.mel import mel_filterbank
 
@@ -5110,7 +5129,7 @@ def fusepack_phase(torch, cfg, dev, smi, peaks, lesions):
         launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
         for k, n in kernels.LAUNCHES.items():
             total[k] += n
-        names = kernels.impl_kernels(impl, prec, mel)
+        names = kernels.impl_kernels(impl, prec, mel, n_fft=n_fft)
         check(out.shape == (BATCH, n_frames, n_mels), f"{impl} at {prec}, {mel}: shape")
         check(launched == dict.fromkeys(names, 1),
               f"logmel_waveform({impl!r}, {prec}, {mel}) launched {names} once each, not "
@@ -5252,6 +5271,9 @@ def fusepack_phase(torch, cfg, dev, smi, peaks, lesions):
             f"{t['k6t_tensor_gflop']:.1f} tensor GFLOP) | share "
             f"{t['k6t_bound_ms'] / t['k6t_ms']:.1%}; pack (K6t, unpack, K2) {t['pack_ms']:.4f} ms")
     fast = times["bf16x3"]
+    # K5t's first launch, the split pass, on its own through its C call.
+    split_ms = tier_sweep._fused_parts(torch, kernels, waves, window, cfg, "bf16x3",
+                                       dev)[f"split_{cfg.working_sample_rate}_bf16x3"]
     fast["k5t_plain_ms"] = time_ms(torch, lambda: kernels.wave_stft_mel_log_bf16_plain(
         waves, window, hop, n_fft, bands.dense, "bf16x3"), reps=TIER_PLAIN_REPS, warmup=1)
     fast["k6t_plain_ms"] = time_ms(torch, lambda: kernels.wave_packed_fft_bf16_plain(
@@ -5309,8 +5331,8 @@ def fusepack_phase(torch, cfg, dev, smi, peaks, lesions):
     mel_runs = [k for k in fuse_launches if k[0] is not None]
     entries = [
         {"name": "wave_stft_mel_log_bf16",
-         "kernel": "tier_dft_mel_log_kernel<N1, P1, P2> (tier_dft, a cluster a frame, "
-                   "K2's segment sums over distributed shared memory)",
+         "kernel": f"K1t's route, then K2: tier_split_kernel<C1, false> + "
+                   f"tier_fused_kernel<P1, P2, {n1}> + mel_log_kernel<R, kPasses>",
          "route": "cuda", "source": source,
          "replaces": "sed_tpu/ops/pallas_featurizer.py:550",
          "launches": sum(fuse_launches[k].get("wave_stft_mel_log_bf16", 0) for k in mel_runs),
@@ -5318,6 +5340,7 @@ def fusepack_phase(torch, cfg, dev, smi, peaks, lesions):
          "ms": fast["k5t_ms"], "plain_ms": fast["k5t_plain_ms"],
          "bound_ms": fast["k5t_bound_ms"], "bound_by": fast["k5t_bound_by"],
          "library_ms": lib_fuse_ms, "k1t_k2_ms": fast["k1t_k2_ms"],
+         "split_ms": split_ms,
          "fidelity_db": {name: fidelity["fuse", name] for name in TIER_NAMES.values()},
          "tiers": {tier_tag(p): {k: v for k, v in times[p].items() if k.startswith(
              ("k5t", "k1t"))} | {"vs_two_kernels_db": fuse_err[p, None]}
@@ -5509,9 +5532,14 @@ def wide_phase(torch, dev, smi, peaks):
     for impl, prec in (("fuse", None), ("pack", None), ("roll", "bf16x3"), ("fuse", "bf16x3"),
                        ("pack", "bf16x3")):
         out, launched = counted(kernels.logmel_waveform, waves, cfg, impl=impl, precision=prec)
-        names = kernels.impl_kernels(impl, prec)
-        check(launched == dict.fromkeys(names, 1),
-              f"logmel_waveform({impl!r}, {prec}) at 96 kHz launched {names} once each, not "
+        names = kernels.impl_kernels(impl, prec, n_fft=n_fft)
+        want = dict.fromkeys(names, 1)
+        if "tier_inner" in names:   # K1t's tier GEMMs (n1 256): each kernel once a frame group
+            plan = kernels.gemm_plan(n_fft, False, kernels.tier_passes(prec), frames)
+            for k in kernels.GEMM_KERNELS:
+                want[k] = len(kernels.frame_groups(frames, plan["group_frames"]))
+        check(launched == want,
+              f"logmel_waveform({impl!r}, {prec}) at 96 kHz launched {names} ({want}), not "
               f"{launched}")
         check(out.shape == (BATCH, 1 + samples // hop, n_mels) and bool(torch.isfinite(out).all()),
               f"{impl} at {prec}, 96 kHz: finite log-mel")
@@ -5651,6 +5679,13 @@ def wide_phase(torch, dev, smi, peaks):
 
     cluster = kernels.stockham_plan(n_fft)["cluster"]
     fuse, pack = impl_runs["fuse", None], impl_runs["pack", None]
+    plan = kernels.launch_plan(n_fft, bands.n_segments)
+
+    def route_launches(impl, name):
+        """The launches of ``name``'s route in the 'impl' run at fast: its
+        own where it is one launch, its kernels' (each once) summed where
+        it is more (n1 256: the tier GEMMs, K5t then K2)."""
+        return sum(impl_runs[impl, "bf16x3"].get(k, 0) for k in plan[name]["kernels"])
     got, fast = checks[sr], tier_tag("bf16x3")
     return [
         entry("wave_stft_power", f"wave_stft_power_kernel<15> (a cluster of {cluster} CTAs)",
@@ -5667,13 +5702,15 @@ def wide_phase(torch, dev, smi, peaks):
         entry("wave_packed_fft", f"wave_packed_fft_kernel<15> (a cluster of {cluster})", 882,
               pack["wave_packed_fft"], got["K6 / peak"], t["k6"], t["k6_plain"], k6_bound,
               t["k6_lib"]),
-        entry("wave_dft_power_bf16", f"tier_dft_kernel<{n1}, 3, 3>", 412,
-              impl_runs["roll", "bf16x3"]["wave_dft_power_bf16"], got[f"K1t {fast} / peak"],
-              t["k1t"], t["k1t_plain"], k1t_bound, t["k1_lib"], precision="bf16x3"),
-        entry("wave_stft_mel_log_bf16", f"tier_dft_mel_log_kernel<{n1}, 3, 3> (a cluster of "
-              f"{n2 // 64})", 550, impl_runs["fuse", "bf16x3"]["wave_stft_mel_log_bf16"],
+        entry("wave_dft_power_bf16", plan["wave_dft_power_bf16"]["instance"], 412,
+              route_launches("roll", "wave_dft_power_bf16"), got[f"K1t {fast} / peak"],
+              t["k1t"], t["k1t_plain"], k1t_bound, t["k1_lib"], precision="bf16x3",
+              tier_route=plan["wave_dft_power_bf16"]["route"]),
+        entry("wave_stft_mel_log_bf16", plan["wave_stft_mel_log_bf16"]["instance"], 550,
+              route_launches("fuse", "wave_stft_mel_log_bf16"),
               got[f"K5t {fast} values differing from K1t then K2"], t["k5t"],
-              t["k1t_plain"] + t["k2_plain"], k5t_bound, t["fuse_lib"], precision="bf16x3"),
+              t["k1t_plain"] + t["k2_plain"], k5t_bound, t["fuse_lib"], precision="bf16x3",
+              tier_route=plan["wave_stft_mel_log_bf16"]["route"]),
         entry("wave_packed_fft_bf16", f"tier_packed_fft_kernel<{p1}, 3, 3> (wgmma)", 882,
               impl_runs["pack", "bf16x3"]["wave_packed_fft_bf16"], got[f"K6t {fast} / peak"],
               t["k6t"], t["k6t_plain"], k6t_bound, t["k6_lib"], precision="bf16x3"),
@@ -6560,9 +6597,17 @@ def main() -> int:
     reader = native.build(force=True)
     log(f"[card] g++ build of the native WAV reader: {reader.seconds:.2f} s -> "
         f"{reader.path.relative_to(REPO)}")
-    for line in info.log.splitlines():
+    spilling = []
+    lines = info.log.splitlines()
+    for i, line in enumerate(lines):
         if any(k in line for k in ("Compiling entry", "registers", "spill")):
             log(f"[card] ptxas: {line.strip()}")
+        if "Compiling entry" in line and "tier_fused_kernel" in line:
+            spill = next((x for x in lines[i + 1:i + 4] if "spill stores" in x), "")
+            if spill and " 0 bytes spill stores" not in spill:
+                spilling.append(line.strip())
+    log(f"[card] ptxas: tier_fused_kernel instances that spill: {len(spilling)}")
+    check(not spilling, f"tier_fused_kernel spills no register ({spilling[:2]})")
     n_seg = kernels.mel_bands(cfg, torch.device("cpu")).n_segments
     log(f"[card] K1 wave_stft_power_kernel, K3 frames_stft_power_kernel and K6 "
         f"wave_packed_fft_kernel at n_fft {cfg.nfft}: {cfg.nfft // 32} threads a frame "

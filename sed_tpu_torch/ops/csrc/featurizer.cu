@@ -2,12 +2,11 @@
 //
 // Built by sed_tpu_torch/ops/cuda_featurizer.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -Xcompiler -fPIC -c featurizer.cu, seven times side by side (with
+//        -Xcompiler -fPIC -c featurizer.cu, five times side by side (with
 //        -DSED_FEATURIZER_NO_TIERS, -DSED_FEATURIZER_TIERS_ONLY,
-//        -DSED_FEATURIZER_FUSED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_TIERS_ONLY,
 //        -DSED_FEATURIZER_PACKED_TIERS_ONLY, -DSED_FEATURIZER_WIDE_PACKED_ONLY,
 //        -DSED_FEATURIZER_GEMM_TIERS_ONLY),
-//   then nvcc -shared -o libsed_featurizer.so of the seven objects,
+//   then nvcc -shared -o libsed_featurizer.so of the five objects,
 // into a shared library with a plain C interface, loaded with ctypes.  Every
 // entry point launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() after the launch (the Python wrapper raises on non-zero)
@@ -192,7 +191,8 @@
 //   per log2 m keeps the build as it was.  Equals K1 then K2 at that mode
 //   bit for bit.
 //
-// K1t / K3t  sed_tier_dft_power (tier_dft_kernel<N1, P1, P2>)
+// K1t / K3t  sed_tier_split, then sed_tier_dft_power
+//   (tier_split_kernel<C1, false>, then tier_fused_kernel<P1, P2, N1>)
 //   Replaces sed_tpu/ops/pallas_featurizer.py _make_wave_fft_power_kernel_roll
 //   (:412; K1t, and K7-K10 at a tier) and _make_fft_power_kernel (:283; K3t)
 //   at a reduced precision: their dot_inner / dot_outer from _stage_dots
@@ -205,36 +205,30 @@
 //   order (K1's and K3's output, which K2 reads).  Each product is split as
 //   _make_dot splits it: every operand into bf16 chunks by round to nearest
 //   even (P = 1: one chunk; 3 and 4: hi, lo; 6: three), the (chunk, chunk)
-//   terms of the tier (tier_term) accumulated in f32 by
-//   mma.sync.m16n8k16.bf16 on the tensor cores.  The loader is K1's framing
-//   (frame_load's start and interior test, reflect_index) or K3's rows
-//   (float32, or int16 with the window pre-scaled by 1/32768).
+//   terms of the tier (tier_term) accumulated in f32 on the tensor cores.
+//   The frames are K1's framing (frame_load's start and interior test,
+//   reflect_index) or K3's rows (float32, or int16 with the window
+//   pre-scaled by 1/32768), read by the split pass.
 //   Bound on an H100 SXM: operations at fast, bytes or operations at
 //   turbo.  At 16 x 60 s (2912 frames, n1 128, n2 256) it reads the 184 MB
 //   waveform and writes 191 MB of power (0.112 ms at 3.35 TB/s) against,
 //   a frame, P1 x 4 n2^2 n1 + P2 x 8 n2 n1 (n1/2 + 1) tensor FLOP: 147 GFLOP
 //   at turbo (0.149 ms at 989 TFLOP/s dense bf16), 442 at fast (0.447 ms).
 //   Even at its bound, fast does not beat K1 (~0.4 ms) here.
-//   Design: one CTA of 8 warps per (frame, 64 k2 rows); n2 / 64 CTAs share
-//   a frame, re-read from L2.  Stage 1 tiles k (a) by 32 through shared
-//   memory: the W2 rows' pre-split chunks (rows interleaved so a thread's
-//   mma fragment holds Yr and Yi of one (k2, b)) by cp.async into two
-//   buffers, the frame's samples into registers, both for tile t + 1 while
-//   tile t multiplies; the samples are windowed and split into [a][b]
-//   tiles read by ldmatrix.trans.  The twiddle epilogue splits T into
-//   shared memory (k2 rows x [Tr | Ti]), never device memory.  Stage 2 is
-//   one real product [Tr Ti] @ [[W1r W1i]; [-W1i W1r]] over the one-sided
-//   columns k1 < n1/2 (interleaved Zr, Zi so a thread squares its own),
-//   with the column pair k1 = n1/2 (bin n_fft/2) taken by one warp of the
-//   first CTA; its tiles come by cp.async into two buffers.  Shared memory
-//   32-193 KB (tier_smem_bytes) and 104-255 registers (ptxas, chip_smoke.py
-//   phase 1; the n1 = 256 instances spill): one CTA an SM.  n_fft 2048 ..
-//   131072 (n1 32..256).  At n1 = 256 a stage of 6 passes stages T per
-//   chunk (tier_staged).  The split tables are made once on the host
-//   from sed_tpu's f32 constants and cached per device.  The stages are
-//   tier_dft, which K5t shares; each kernel's instances are an object of
-//   the library of their own, those at n1 = 256 another (see the tier entry
-//   points).
+//   Design: mma.sync fed by ldmatrix, a block barrier a tile, copies issued
+//   by every thread and each block re-splitting its frame left Hopper's
+//   tensor cores idle in the kernel this one replaced.  Here the split pass
+//   writes each frame's bf16 chunks once, then tier_fused_kernel, one
+//   persistent wgmma kernel of three warpgroups a CTA, takes both stages of
+//   each (frame, 64 k2 rows) unit from bulk-copied tiles of the tier GEMMs'
+//   tables and X planes, T kept in shared memory in the image stage 2's
+//   wgmma reads (see the note at tier_fused_kernel).  It takes n_fft
+//   2048..32768 (n1 32..128) but where four stage-1 passes would re-read
+//   the table (fused_route); there, at 65536 and 131072 (n1 256, where T
+//   and a ring do not fit 227 KB together) and outside 2048..131072 the tier
+//   GEMMs (tier_inner_kernel, tier_outer_kernel) follow the split pass
+//   instead.  sed_tier_fused_plan says which, and each launch takes a frame
+//   group (X planes within 2 GiB).
 //   Known divergence from sed_tpu: one-sided natural-order power in place of
 //   all n_fft bins in the (k2, k1) layout with a folded filterbank; the
 //   tensor cores' f32 accumulation (its order, its alignment of the terms)
@@ -243,24 +237,18 @@
 //   sed_tpu's kernels at the same tier.  K2's bf16x1 / bf16x3 product modes
 //   (mel_log_kernel<R, kPasses>, mel_fma) serve sed_tpu's mel_precision.
 //
-// K5t  sed_tier_dft_mel_log (tier_dft_mel_log_kernel<N1, P1, P2>)
+// K5t  K1t's launches, then sed_mel_log
 //   Replaces _make_wave_fft_mel_kernel_roll (:550, driven by
 //   logmel_waveform_fused, impl='fuse') at a reduced precision: its
 //   _fft_power_body (:1294) through _stage_dots, then its mel epilogue at
 //   mel_precision (None, 'bf16x4': f32; 'bf16x1', 'bf16x3': K2's modes).
-//   Computes K1t then K2 in one launch, with no power array in device memory.
-//   Bound on an H100 SXM: K1t's (operations at fast; the output is 0.75 MB
-//   in place of 191 MB of power).
-//   Design: K1t's tier_dft, whose n2 / 64 blocks of a frame (4 at n_fft
-//   32768 and 65536, 8 at 131072) each hold 64 k2 rows of every k1, so a
-//   frame's one-sided power is
-//   spread over blocks, interleaved.  The blocks of a frame are one thread-
-//   block cluster: each puts its |Z|^2 into its own shared memory (T's
-//   region, free after stage 2), and after a cluster barrier the frame's
-//   warps sum K2's segments reading each bin from the block that holds it
-//   (distributed shared memory), into the first block's segment sums; it
-//   adds the bands and writes the row.  K2's order and product mode (chosen
-//   at run time), K1t's power: equal to K1t then K2 bit for bit.
+//   Computes K1t then K2: K1t's route (the split pass, then tier_fused_kernel
+//   or the tier GEMMs) to a power array, then K2 at mel_precision's mode,
+//   equal to K1t then K2 by construction.
+//   Bound on an H100 SXM: K1t's (operations at fast).
+//   Design: a kernel of its own (tier_fused_kernel with K2's band sums over
+//   a thread-block cluster a frame) was slower than this chain at every
+//   tier in the same call (PERF.md section 6), so the chain runs it.
 //
 // K6t  sed_tier_packed_fft (tier_packed_fft_kernel<N1, P1, P2>)
 //   Replaces _make_wave_packed_fft_kernel (:882, driven by
@@ -322,15 +310,15 @@
 // (fft_cross_pass_kernel, fft_subrows_kernel, packed_power_kernel; K5 there
 // is K1's launches, then K2: a frame's power does not stay on chip).  K2
 // takes any bin count.  K1t and K3t take 128..2^20 and K6t 256..2^20
-// (sed_tpu's smallest at a tier: its tiles are 128 lanes), their instances
-// 2048..131072 (K6t 4096..131072) and the tier GEMMs (tier_split_kernel,
-// then tier_inner_kernel and tier_outer_kernel on wgmma) elsewhere; K5t
-// takes 2048..2^20 ('fuse' needs n_fft %
-// 2048 == 0), its instances up to 131072, K1t's GEMMs then K2 above (a
-// frame's n2 / 64 blocks would pass a cluster's 8).  One mechanism serves
-// both ends of the tier kernels' range: tier_dft's 64 k2 rows a block and
-// K6t's wgmma M of 64 do not fit n1 = 8..16 below or T's 227 KB at n1 512
-// above, and the instances up to 131072 keep their code.
+// (sed_tpu's smallest at a tier: its tiles are 128 lanes): K1t and K3t by
+// the split pass, then tier_fused_kernel at 2048..32768 or the tier GEMMs
+// (tier_inner_kernel and tier_outer_kernel on wgmma) elsewhere; K6t by its
+// instances at 4096..131072 and the split pass and the tier GEMMs
+// elsewhere; K5t takes 2048..2^20 ('fuse' needs n_fft % 2048 == 0), its
+// fused kernel where K1t's, K1t's GEMMs then K2 above.  One mechanism serves
+// both ends of the tier kernels' range: the units' 64 k2 rows and wgmma's M
+// of 64 do not fit n1 = 8..16 below, nor T beside a ring in 227 KB at n1
+// 256..1024 above.
 //
 // K7 (impl 'eo'), K8 ('rollraw'), K9 ('rolledge') and K10 ('slice',
 // 'roll_nodb') of sed_tpu compute K1's one-sided power (K9: K1 then K2) and
@@ -348,8 +336,7 @@
 
 // One object of the library that holds one tier kernel's entry point alone
 // (see the tier entry points at the end).
-#if defined(SED_FEATURIZER_TIERS_ONLY) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY) || \
-    defined(SED_FEATURIZER_WIDE_TIERS_ONLY) || defined(SED_FEATURIZER_PACKED_TIERS_ONLY) || \
+#if defined(SED_FEATURIZER_TIERS_ONLY) || defined(SED_FEATURIZER_PACKED_TIERS_ONLY) || \
     defined(SED_FEATURIZER_WIDE_PACKED_ONLY) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY)
 #define SED_FEATURIZER_ONE_TIER_UNIT
 #endif
@@ -1653,8 +1640,9 @@ int launch_mel_log(const MelArgs& args, int n_sm, cudaStream_t stream) {
 // K1t, K3t, K5t, K6t: the bf16 tensor-core DFT of the reduced-precision
 // tiers.  sed_tpu's two-stage matmul DFT (n = n1 * n2, stft.py
 // _matmul_fft_constants) with every product split into bf16 chunks as its
-// _make_dot does: K1t, K3t and K5t by tier_dft<N1, P1, P2> on mma.sync.
-// m16n8k16, K6t by tier_packed_fft_kernel<N1, P1, P2> on wgmma.
+// _make_dot does, on wgmma: K1t and K3t (K5t's first part) by the split
+// pass and tier_fused_kernel<P1, P2, N1> or the tier GEMMs (further down),
+// K6t by tier_packed_fft_kernel<N1, P1, P2>.
 // ---------------------------------------------------------------------------
 
 // bf16 chunks an operand is split into at P passes (1: bf16x1; 3, 4:
@@ -1695,56 +1683,6 @@ __device__ __forceinline__ void split_bf16x2(float v0, float v1, unsigned (&c)[C
     const __nv_bfloat162 pair = __halves2bfloat162(a[i], b[i]);
     c[i] = *reinterpret_cast<const unsigned*>(&pair);
   }
-}
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_address(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// A fragment of mma.m16n8k16 (16 rows x 16 k of a row-major [m][k] tile at
-// p, row stride `stride` elements) by ldmatrix: lane l gives row l & 15,
-// column (l >> 4) * 8.
-__device__ __forceinline__ void load_a(unsigned (&a)[4], const __nv_bfloat16* p, int stride,
-                                       int lane) {
-  const unsigned addr = smem_address(p + (lane & 15) * stride + (lane >> 4) * 8);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// B fragment (16 k x 8 n) of a [k][n] tile (n contiguous) by ldmatrix.trans:
-// lane l gives row k = l & 15.
-__device__ __forceinline__ void load_b_kn(unsigned (&b)[2], const __nv_bfloat16* p, int stride,
-                                          int lane) {
-  const unsigned addr = smem_address(p + (lane & 15) * stride);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
-// B fragment (16 k x 8 n) of an [n][k] tile (k contiguous) by ldmatrix:
-// lane l gives row n = l & 7, column ((l >> 3) & 1) * 8.
-__device__ __forceinline__ void load_b_nk(unsigned (&b)[2], const __nv_bfloat16* p, int stride,
-                                          int lane) {
-  const unsigned addr = smem_address(p + (lane & 7) * stride + ((lane >> 3) & 1) * 8);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
-// d += a b on the tensor cores: bf16 operands, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Where a block's frame comes from, and its samples times the window, read
@@ -1815,434 +1753,9 @@ __device__ __forceinline__ float2 packed_point(const TierFrame& frame, const flo
   return windowed(frame.raw(2 * j), __ldg(window + j));
 }
 
-constexpr int kTierThreads = 256;  // 8 warps: 2 (m) x 4 (n) in both stages
-constexpr int kTierWarps = kTierThreads / 32;
-constexpr int kTierRows = 64;      // k2 rows of a block (BM)
-constexpr int kTierK = 32;         // k of a staged tile, both stages
-constexpr int kTierPad = 8;        // bf16 of padding a row of shared memory
-// A warp's stage-2 tiles: m tiles of 16 k2 rows, n tiles of 8 columns (four
-// (Zr, Zi) pairs): the one-sided k1 < n1/2.
-constexpr int kTierTM2 = kTierRows / 32;
-template <int N1>
-constexpr int kTierTN2 = N1 / 32;
-
-// Stage 2's B columns: (Zr, Zi) of k1 < n1/2 + 4 (the last four hold bin
-// n/2 at k2 = 0).
-__host__ __device__ constexpr int tier_cols2(int n1) { return n1 + 8; }
-
-// Shared memory of tier_dft, in bytes: the stage-2 A operand T (C2 chunks
-// of kTierRows x (2 n1 + pad), or one when staged), then one region that
-// holds stage 1's staged tiles (two buffers of C1 chunks of A: 2 kTierRows
-// x (kTierK + pad); one of X: C1 chunks of kTierK x (n1 + pad)) and later
-// stage 2's (two buffers of C2 chunks of tier_cols2 x (kTierK + pad)).
-// At n1 = 256 (n_fft 65536, 131072) T is 66,560 B a chunk, and with a stage
-// of 6 passes (bf16x6, or None in an (inner, outer) pair) the whole layout
-// takes 245-326 KB.  Those instances stage T per chunk (tier_staged): one
-// chunk in shared memory at a time, stage 2 run once a chunk ca over the
-// terms (ca, cb), its f32 T kept in the stage-1 registers meanwhile; 178.7-
-// 193.3 KB at every (C1, C2).  An instance is staged when the whole layout
-// and 8 KB of K5t's segment sums would not fit 227 KB; none below n1 256 is.
-__host__ __device__ constexpr int tier_smem_t(int n1, int p2, bool staged = false) {
-  return (staged ? 1 : tier_chunks(p2)) * kTierRows * (2 * n1 + kTierPad) * 2;
-}
-__host__ __device__ constexpr int tier_smem_a1(int p1) {
-  return 2 * tier_chunks(p1) * 2 * kTierRows * (kTierK + kTierPad) * 2;
-}
-__host__ __device__ constexpr int tier_smem_stage1(int n1, int p1) {
-  return tier_smem_a1(p1) + tier_chunks(p1) * kTierK * (n1 + kTierPad) * 2;
-}
-__host__ __device__ constexpr int tier_smem_stage2(int n1, int p2) {
-  return 2 * tier_chunks(p2) * tier_cols2(n1) * (kTierK + kTierPad) * 2;
-}
-__host__ __device__ constexpr int tier_smem_stages(int n1, int p1, int p2) {
-  return tier_smem_stage1(n1, p1) > tier_smem_stage2(n1, p2) ? tier_smem_stage1(n1, p1)
-                                                               : tier_smem_stage2(n1, p2);
-}
-__host__ __device__ constexpr bool tier_staged(int n1, int p1, int p2) {
-  return tier_smem_t(n1, p2) + tier_smem_stages(n1, p1, p2) + 8192 > 232448;
-}
-__host__ __device__ constexpr int tier_smem_bytes(int n1, int p1, int p2) {
-  return tier_smem_t(n1, p2, tier_staged(n1, p1, p2)) + tier_smem_stages(n1, p1, p2);
-}
-
-// sed_tpu's two-stage matmul DFT of one block's share of a frame, up to
-// stage 2's sums in registers.  The block: frame `row` = blockIdx.x /
-// n_blk, k2 rows k0 .. k0 + 63 (k0 = 64 (blockIdx.x % n_blk)), n2 = 64
-// n_blk, of an n = n1 n2 point DFT of a real frame of n samples, X[a][b] =
-// x[a n1 + b] (K1t, K3t, K5t).
-//   tab1: C1 chunks of (2 n2, n2), row 16t + 8h + i the coefficients of Y
-//     (h = 0 real, 1 imaginary part) at k2 = 8t + i, over a (W2r, W2i).
-//   tab2: C2 chunks of (tier_cols2, 2 n1), column 2j + h (h = 0: Zr, 1: Zi)
-//     over k = the n1 entries that multiply Tr, then the n1 that multiply
-//     Ti: (W1r, -W1i) and (W1i, W1r) at k1 = j.
-//   twiddle: (n2, n1) f32 W_n^(k2 b).
-// acc2[i][j] is mma's C fragment (TierTile says which k2, k1 it holds): Zr
-// at c0 and c2, Zi at c1 and c3.  accn: the same of k1 = n1/2 .. n1/2 + 3 in
-// warp 0 of the frame's first block, whose k2 = 0 row is bin n/2.
-template <int N1, int P1, int P2>
-__device__ __forceinline__ void tier_dft(const TierSource& src,
-                                         const __nv_bfloat16* __restrict__ tab1,
-                                         const __nv_bfloat16* __restrict__ tab2,
-                                         const float2* __restrict__ twiddle, int n_blk,
-                                         unsigned char* smem,
-                                         float (&acc2)[kTierTM2][kTierTN2<N1>][4],
-                                         float (&accn)[4]) {
-  constexpr int C1 = tier_chunks(P1), C2 = tier_chunks(P2);
-  constexpr bool kStaged = tier_staged(N1, P1, P2);
-  constexpr int CT = kStaged ? 1 : C2;         // T's chunks in shared memory
-  constexpr int BM = kTierRows, KT = kTierK;
-  constexpr int TM1 = BM / 16, TN1 = N1 / 32;  // a warp's m and n tiles, stage 1
-  constexpr int TM2 = kTierTM2, TN2 = kTierTN2<N1>;  // stage 2
-  constexpr int ST = 2 * N1 + kTierPad;        // row stride of T
-  constexpr int SA1 = KT + kTierPad;           // of stage 1's A tile
-  constexpr int SX = N1 + kTierPad;            // of stage 1's X tile
-  constexpr int SB2 = KT + kTierPad;           // of stage 2's B tile
-  constexpr int NC2 = tier_cols2(N1);           // stage 2's columns
-  auto* ts = reinterpret_cast<__nv_bfloat16*>(smem);
-  constexpr int A1 = C1 * 2 * BM * SA1;       // elements of one A buffer
-  constexpr int B2 = C2 * NC2 * SB2;           // of one stage-2 B buffer
-  constexpr int XP = KT * N1 / 2 / kTierThreads;  // sample pairs a thread loads a tile
-  auto* a1s = ts + CT * BM * ST;               // two buffers
-  auto* x1s = a1s + 2 * A1;
-  auto* b2s = a1s;  // two buffers; stage 2 reuses stage 1's region
-
-  const int n2 = BM * n_blk;
-  const long long row = blockIdx.x / n_blk;
-  const int blk = blockIdx.x - static_cast<int>(row * n_blk);
-  const int k0 = BM * blk;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, tig = lane & 3;
-  const TierFrame frame(src, row, N1 * n2);
-
-  // Stage 1: [Yr; Yi] (rows interleaved by 8) = W2[k2 rows] @ X over k in
-  // tiles of KT, pipelined: while tile t is multiplied, the W2 rows of tile
-  // t + 1 come by cp.async into the other A buffer and its samples into
-  // registers.  A tile's samples are those of X's rows a = kk0 .. kk0 + KT -
-  // 1.
-  const auto copy_a1 = [&](int kk0, __nv_bfloat16* dst) {
-    // 2 BM rows x KT bf16 a chunk, 16 bytes a copy.
-    for (int i = tid; i < C1 * 2 * BM * (KT / 8); i += kTierThreads) {
-      const int c = i / (2 * BM * (KT / 8));
-      const int r = (i / (KT / 8)) % (2 * BM);
-      const int q = i % (KT / 8);
-      cp_async_16(dst + (c * 2 * BM + r) * SA1 + q * 8,
-                  tab1 + (static_cast<long long>(c) * 2 * n2 + 2 * k0 + r) * n2 + kk0 + q * 8);
-    }
-  };
-  float2 xv[XP], xw[XP];
-  // Samples kk0 n1 .. (kk0 + KT) n1 of the frame as pairs (thread t: 2t, 2t
-  // + 1, then 512 further on).
-  const auto load_x = [&](int kk0) {
-#pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      const int s = kk0 * N1 + 2 * (tid + j * kTierThreads);
-      xv[j] = frame.raw(s);
-      xw[j] = __ldg(reinterpret_cast<const float2*>(frame.window) + (s >> 1));
-    }
-  };
-  const auto store_x = [&]() {  // windowed, split, into X's tile as [a][b]
-#pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      const int s = 2 * (tid + j * kTierThreads);
-      const float2 v = windowed(xv[j], xw[j]);
-      unsigned c[C1];
-      split_bf16x2<C1>(v.x, v.y, c);
-      const int a = s / N1, b = s % N1;
-#pragma unroll
-      for (int ci = 0; ci < C1; ++ci)
-        *reinterpret_cast<unsigned*>(x1s + (ci * KT + a) * SX + b) = c[ci];
-    }
-  };
-  float acc1[TM1][TN1][4] = {};
-  load_x(0);
-  copy_a1(0, a1s);
-  for (int kk0 = 0, buf = 0; kk0 < n2; kk0 += KT, buf ^= 1) {
-    store_x();
-    cp_async_wait_all();
-    __syncthreads();
-    if (kk0 + KT < n2) {
-      copy_a1(kk0 + KT, a1s + (buf ^ 1) * A1);
-      load_x(kk0 + KT);
-    }
-    const __nv_bfloat16* a1 = a1s + buf * A1;
-#pragma unroll
-    for (int ks = 0; ks < KT; ks += 16) {
-      unsigned bf[C1][TN1][2];
-#pragma unroll
-      for (int cb = 0; cb < C1; ++cb)
-#pragma unroll
-        for (int j = 0; j < TN1; ++j)
-          load_b_kn(bf[cb][j], x1s + (cb * KT + ks) * SX + (wn * TN1 + j) * 8, SX, lane);
-#pragma unroll
-      for (int ca = 0; ca < C1; ++ca) {
-        unsigned af[TM1][4];
-#pragma unroll
-        for (int i = 0; i < TM1; ++i)
-          load_a(af[i], a1 + (ca * 2 * BM + (wm * TM1 + i) * 16) * SA1 + ks, SA1, lane);
-#pragma unroll
-        for (int cb = 0; cb < C1; ++cb) {
-          if (!tier_term(P1, ca, cb)) continue;
-#pragma unroll
-          for (int i = 0; i < TM1; ++i)
-#pragma unroll
-            for (int j = 0; j < TN1; ++j) mma_bf16(acc1[i][j], af[i], bf[cb][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Stage 2's B tiles, by cp.async into two buffers.
-  const auto copy_b2 = [&](int kk0, __nv_bfloat16* dst) {
-    for (int i = tid; i < C2 * NC2 * (KT / 8); i += kTierThreads) {
-      const int c = i / (NC2 * (KT / 8));
-      const int col = (i / (KT / 8)) % NC2;
-      const int q = i % (KT / 8);
-      cp_async_16(dst + (c * NC2 + col) * SB2 + q * 8,
-                  tab2 + (static_cast<long long>(c) * NC2 + col) * 2 * N1 + kk0 + q * 8);
-    }
-  };
-  const bool nyquist = blk == 0 && warp == 0;
-#pragma unroll
-  for (int i = 0; i < TM2; ++i)
-#pragma unroll
-    for (int j = 0; j < TN2; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc2[i][j][c] = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) accn[c] = 0.f;
-
-  // Twiddle, in f32 as sed_tpu's (tr = yr twr - yi twi, ti = yr twi + yi
-  // twr, no fused multiply-add), in place: acc1[i][j] becomes tr(b), tr(b +
-  // 1), ti(b), ti(b + 1).
-#pragma unroll
-  for (int i = 0; i < TM1; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN1; ++j) {
-      const int k2l = (wm * TM1 + i) * 8 + g;
-      const int b = (wn * TN1 + j) * 8 + 2 * tig;
-      const float4 tw =
-          *reinterpret_cast<const float4*>(twiddle + static_cast<long long>(k0 + k2l) * N1 + b);
-      float* y = acc1[i][j];  // yr(b), yr(b + 1), yi(b), yi(b + 1)
-      const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
-      const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
-      const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
-      const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
-      y[0] = tr0;
-      y[1] = tr1;
-      y[2] = ti0;
-      y[3] = ti1;
-    }
-  }
-
-  // T's chunks c0 .. c0 + CT - 1, split, into its CT chunks of shared
-  // memory: Tr at k = b, Ti at n1 + b.
-  const auto store_t = [&](int c0) {
-#pragma unroll
-    for (int i = 0; i < TM1; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN1; ++j) {
-        const int k2l = (wm * TM1 + i) * 8 + g;
-        const int b = (wn * TN1 + j) * 8 + 2 * tig;
-        const float* t = acc1[i][j];
-        unsigned cr[C2], cim[C2];
-        split_bf16x2<C2>(t[0], t[1], cr);
-        split_bf16x2<C2>(t[2], t[3], cim);
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + b) = cr[c0 + c];
-          *reinterpret_cast<unsigned*>(ts + (c * BM + k2l) * ST + N1 + b) = cim[c0 + c];
-        }
-      }
-    }
-  };
-
-  // Stage 2: [Zr Zi] (columns interleaved) = [Tr Ti] @ [[W1r W1i]; [-W1i
-  // W1r]] over the stage's columns; warp 0 of a real frame's first block
-  // also takes the tile of k1 = n1 / 2 .. n1 / 2 + 3, whose row k2 = 0 is
-  // bin n / 2.  Its terms (ca, cb) with ca in [ca0, ca0 + CT), T's chunk ca
-  // at ca - ca0; its first B tile flies while T is stored.
-  const auto stage2 = [&](int ca0) {
-    copy_b2(0, b2s);
-    store_t(ca0);
-    for (int kk0 = 0, buf = 0; kk0 < 2 * N1; kk0 += KT, buf ^= 1) {
-      cp_async_wait_all();
-      __syncthreads();  // tile kk0 has landed (and, the first time, T is written)
-      if (kk0 + KT < 2 * N1) copy_b2(kk0 + KT, b2s + (buf ^ 1) * B2);
-      const __nv_bfloat16* b2 = b2s + buf * B2;
-#pragma unroll
-      for (int ks = 0; ks < KT; ks += 16) {
-        // The B fragments of every chunk, loaded once a step; staged, those
-        // of one term at a time (T's f32 values hold the registers).
-        unsigned bf[kStaged ? 1 : C2][TN2][2];
-        unsigned bn[kStaged ? 1 : C2][2];
-        const auto load_b = [&](int cb, int slot) {
-#pragma unroll
-          for (int j = 0; j < TN2; ++j)
-            load_b_nk(bf[slot][j], b2 + (cb * NC2 + (wn * TN2 + j) * 8) * SB2 + ks, SB2, lane);
-          if (nyquist) load_b_nk(bn[slot], b2 + (cb * NC2 + N1) * SB2 + ks, SB2, lane);
-        };
-        if constexpr (!kStaged) {
-#pragma unroll
-          for (int cb = 0; cb < C2; ++cb) load_b(cb, cb);
-        }
-#pragma unroll
-        for (int ca = 0; ca < CT; ++ca) {
-          unsigned af[TM2][4];
-#pragma unroll
-          for (int i = 0; i < TM2; ++i)
-            load_a(af[i], ts + (ca * BM + (wm * TM2 + i) * 16) * ST + kk0 + ks, ST, lane);
-#pragma unroll
-          for (int cb = 0; cb < C2; ++cb) {
-            if (!tier_term(P2, ca0 + ca, cb)) continue;
-            const int slot = kStaged ? 0 : cb;
-            if constexpr (kStaged) load_b(cb, 0);
-#pragma unroll
-            for (int i = 0; i < TM2; ++i)
-#pragma unroll
-              for (int j = 0; j < TN2; ++j) mma_bf16(acc2[i][j], af[i], bf[slot][j]);
-            if (nyquist) mma_bf16(accn, af[0], bn[slot]);
-          }
-        }
-      }
-    }
-  };
-  if constexpr (kStaged) {
-#pragma unroll
-    for (int ca = 0; ca < C2; ++ca) {
-      if (ca > 0) __syncthreads();  // every warp is done with chunk ca - 1 and the B tiles
-      stage2(ca);
-    }
-  } else {
-    stage2(0);
-  }
-}
-
-// Which bins a thread's stage-2 fragments hold (tier_dft): the block's frame
-// `row`, its share `blk` (k2 rows k0 .. k0 + 63) and n2; fragment acc2[i][j]
-// holds k2 = k2(i) (c0, c1; c2, c3 at k2(i) + 8) and k1 = k1(j), bin n2 k1 +
-// k2.
-template <int N1>
-struct TierTile {
-  long long row;
-  int blk, n2, k0, lane, warp;
-
-  __device__ __forceinline__ explicit TierTile(int n_blk) {
-    n2 = kTierRows * n_blk;
-    row = blockIdx.x / n_blk;
-    blk = blockIdx.x - static_cast<int>(row * n_blk);
-    k0 = kTierRows * blk;
-    lane = threadIdx.x & 31;
-    warp = threadIdx.x >> 5;
-  }
-  __device__ __forceinline__ int k2(int i) const {
-    return k0 + ((warp >> 2) * kTierTM2 + i) * 16 + (lane >> 2);
-  }
-  __device__ __forceinline__ int k1(int j) const {
-    return ((warp & 3) * kTierTN2<N1> + j) * 4 + (lane & 3);
-  }
-};
-
 // |Z|^2 as sed_tpu's zr zr + zi zi, no fused multiply-add.
 __device__ __forceinline__ float tier_power(float zr, float zi) {
   return __fadd_rn(__fmul_rn(zr, zr), __fmul_rn(zi, zi));
-}
-
-// K1t / K3t: |Z|^2 of the one-sided bins k = n2 k1 + k2 <= n/2 of each
-// frame, to its row of out.
-template <int N1, int P1, int P2>
-__global__ void __launch_bounds__(kTierThreads, 1)
-tier_dft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
-                const __nv_bfloat16* __restrict__ tab2, const float2* __restrict__ twiddle,
-                float* __restrict__ out, int n_blk) {
-  extern __shared__ __align__(16) unsigned char tier_smem[];
-  float acc2[kTierTM2][kTierTN2<N1>][4], accn[4];
-  tier_dft<N1, P1, P2>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
-  const TierTile<N1> t(n_blk);
-  float* o = out + t.row * (N1 * t.n2 / 2 + 1LL);
-#pragma unroll
-  for (int i = 0; i < kTierTM2; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTierTN2<N1>; ++j) {
-      const float* z = acc2[i][j];
-      o[t.n2 * t.k1(j) + t.k2(i)] = tier_power(z[0], z[1]);
-      o[t.n2 * t.k1(j) + t.k2(i) + 8] = tier_power(z[2], z[3]);
-    }
-  }
-  if (t.blk == 0 && t.warp == 0 && t.lane == 0) o[N1 * t.n2 / 2] = tier_power(accn[0], accn[1]);
-}
-
-// K5t: K1t's frame, then K5's band epilogue over its power, with no power
-// array in device memory.  The n_blk blocks of a frame are one thread-block
-// cluster.  Each keeps its 64 k2 rows of |Z|^2 in its own shared memory (the
-// T region, free after stage 2): bin n2 k1 + k2 at k1 * 64 + k2 - k0, and
-// the first block bin n/2 at k1 = n1/2.  After a cluster barrier the
-// frame's 8 n_blk warps take the segments i = 8 blk + warp, + 8 n_blk, ...,
-// each summed in K2's order (segment_sums at mel_passes) from bins read in
-// the block that holds them (distributed shared memory), the sum stored in
-// the first block's seg_sums (n_seg floats after tier_dft's shared memory);
-// after a second barrier the first block adds each band's segments
-// (band_sum) and writes the row.  The bins, the sums and their order are
-// K1t's then K2's, so its output equals K1t then K2 bit for bit.
-template <int N1, int P1, int P2>
-__global__ void __launch_bounds__(kTierThreads, 1)
-tier_dft_mel_log_kernel(const TierSource src, const __nv_bfloat16* __restrict__ tab1,
-                        const __nv_bfloat16* __restrict__ tab2,
-                        const float2* __restrict__ twiddle, const int4* __restrict__ seg,
-                        const int* __restrict__ band_first, const float* __restrict__ weights,
-                        float* __restrict__ out, int n_mels, int n_seg, int mel_passes,
-                        int n_blk) {
-  extern __shared__ __align__(16) unsigned char tier_smem[];
-  float acc2[kTierTM2][kTierTN2<N1>][4], accn[4];
-  tier_dft<N1, P1, P2>(src, tab1, tab2, twiddle, n_blk, tier_smem, acc2, accn);
-  const TierTile<N1> t(n_blk);
-  float* power = reinterpret_cast<float*>(tier_smem);
-  float* seg_sums = reinterpret_cast<float*>(tier_smem + tier_smem_bytes(N1, P1, P2));
-  __syncthreads();  // every warp's stage 2 has read T
-#pragma unroll
-  for (int i = 0; i < kTierTM2; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTierTN2<N1>; ++j) {
-      const float* z = acc2[i][j];
-      const int q = t.k1(j) * kTierRows + t.k2(i) - t.k0;
-      power[q] = tier_power(z[0], z[1]);
-      power[q + 8] = tier_power(z[2], z[3]);
-    }
-  }
-  if (t.blk == 0 && t.warp == 0 && t.lane == 0)
-    power[N1 / 2 * kTierRows] = tier_power(accn[0], accn[1]);
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int last = N1 * t.n2 / 2;  // bin n/2
-  const int log2_n2 = __ffs(t.n2) - 1;
-  float* sums = cluster.map_shared_rank(seg_sums, 0);
-  for (int i = t.blk * kTierWarps + t.warp; i < n_seg; i += n_blk * kTierWarps) {
-    const int4 s = __ldg(seg + i);
-    float w[kSegSteps];
-    segment_weights(weights, s, t.lane, w);
-    // The lane's bins (past a short segment's end, bin n/2: left out of the sum).
-    float x[1][kSegSteps];
-#pragma unroll
-    for (int j = 0; j < kSegSteps; ++j) {
-      const int k = min(s.x + t.lane + 32 * j, last);
-      const int k2 = k & (t.n2 - 1);
-      x[0][j] = *cluster.map_shared_rank(
-          power + (k >> log2_n2) * kTierRows + (k2 & (kTierRows - 1)), k2 / kTierRows);
-    }
-    float sum[1];
-    switch (mel_passes) {
-      case 1: segment_sums<1, 1>(x, w, s.y, t.lane, sum); break;
-      case 3: segment_sums<1, 3>(x, w, s.y, t.lane, sum); break;
-      default: segment_sums<1, 0>(x, w, s.y, t.lane, sum);
-    }
-    if (t.lane == 0) sums[i] = sum[0];
-  }
-  cluster.sync();
-  if (t.blk == 0)
-    for (int b = threadIdx.x; b < n_mels; b += kTierThreads)
-      out[t.row * n_mels + b] =
-          band_db(band_sum(seg_sums, __ldg(band_first + b), __ldg(band_first + b + 1)));
 }
 
 // ---------------------------------------------------------------------------
@@ -2297,6 +1810,33 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned
 // (N x 16) K-major in shared memory by descriptor.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], unsigned long long a,
+                                             unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], unsigned long long a,
+                                             unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<32> {
@@ -2727,34 +2267,6 @@ tier_packed_fft_kernel(const TierSource src, const __nv_bfloat16* __restrict__ t
   }
 }
 
-// `kernel` over `rows` frames of a 2^log2_n-point DFT at n1 = N1: n2 / 64
-// blocks a frame, one thread-block cluster when `cluster` (K5t), `smem`
-// bytes of dynamic shared memory.  The kernel's last parameter is n_blk.
-template <int N1, typename... Params, typename... Args>
-int launch_tier(void (*kernel)(Params...), int smem, long long rows, int log2_n, bool cluster,
-                cudaStream_t stream, const Args&... args) {
-  const int n_blk = (1 << log2_n) / N1 / kTierRows;
-  const long long blocks = rows * n_blk;
-  if (smem > 232448 || blocks > 2147483647LL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(blocks));
-  config.blockDim = dim3(kTierThreads);
-  config.dynamicSmemBytes = static_cast<size_t>(smem);
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(n_blk);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = cluster ? 1 : 0;
-  err = cudaLaunchKernelEx(&config, kernel, args..., n_blk);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // launch(integral_constant<P>) for P = passes in 1, 3, 4, 6.
 template <typename Launch>
 int with_passes(int passes, const Launch& launch) {
@@ -2791,56 +2303,6 @@ int with_tier(int log2_n, int inner_passes, int outer_passes, const Launch& laun
     });
   };
   return with_tier_n1<kLo>(log2_n, at_n1, std::make_integer_sequence<int, kHi - kLo + 1>{});
-}
-
-// K1t / K3t over log2_n in kLo..kHi (sed_tier_dft_power), on the current device.
-template <int kLo, int kHi>
-int launch_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
-                         const void* tab2, const void* twiddle, void* out, long long rows,
-                         long long n_samples, int n_frames, int hop, int log2_n,
-                         int inner_passes, int outer_passes, void* stream) {
-  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
-  const TierSource src{data, static_cast<const float*>(window), n_samples, n_frames, hop, kind};
-  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
-  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  auto* power = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_tier<kLo, kHi>(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
-    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
-    constexpr int smem = tier_smem_bytes(N1, P1, P2);
-    static_assert(smem <= 232448, "tier_dft_kernel: shared memory");
-    return launch_tier<N1>(tier_dft_kernel<N1, P1, P2>, smem, rows, log2_n, false, s, src, t1,
-                           t2, tw, power);
-  });
-}
-
-// K5t over log2_n in kLo..kHi (sed_tier_dft_mel_log), on the current device.
-template <int kLo, int kHi>
-int launch_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
-                           const void* tab2, const void* twiddle, const void* segments,
-                           const void* band_first, const void* weights, void* out,
-                           long long rows, long long n_samples, int n_frames, int hop,
-                           int log2_n, int inner_passes, int outer_passes, int mel_passes,
-                           int n_mels, int n_seg, void* stream) {
-  if (mel_passes != 0 && mel_passes != 1 && mel_passes != 3) return cudaErrorInvalidValue;
-  if (n_seg < 0 || n_seg > 232448 / 4) return cudaErrorInvalidValue;
-  const TierSource src{wave, static_cast<const float*>(window), n_samples, n_frames, hop, 0};
-  const auto* t1 = static_cast<const __nv_bfloat16*>(tab1);
-  const auto* t2 = static_cast<const __nv_bfloat16*>(tab2);
-  const auto* tw = static_cast<const float2*>(twiddle);
-  const auto* seg = static_cast<const int4*>(segments);
-  const auto* first = static_cast<const int*>(band_first);
-  const auto* fb = static_cast<const float*>(weights);
-  auto* mel = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return with_tier<kLo, kHi>(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
-    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
-    // tier_dft's shared memory, then the frame's segment sums.
-    const int smem = tier_smem_bytes(N1, P1, P2) + 4 * n_seg;
-    return launch_tier<N1>(tier_dft_mel_log_kernel<N1, P1, P2>, smem, rows, log2_n, true, s, src,
-                           t1, t2, tw, seg, first, fb, mel, n_mels, n_seg, mel_passes);
-  });
 }
 
 // K6t over log2_m in kLo..kHi (sed_tier_packed_fft), on the current device.
@@ -3052,22 +2514,25 @@ packed_power_kernel(const float2* __restrict__ z, const float2* __restrict__ unp
 #endif  // SED_FEATURIZER_ONE_TIER_UNIT
 
 #if !defined(SED_FEATURIZER_NO_TIERS) && \
-    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY))
+    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_GEMM_TIERS_ONLY) || \
+     defined(SED_FEATURIZER_TIERS_ONLY))
 // ---------------------------------------------------------------------------
-// The tier DFT where tier_dft's and tier_packed_fft_kernel's instances do not
-// reach: K1t and K3t at n_fft 128..1024 and 2^18..2^20, K6t at 256..2048 and
-// 2^18..2^20 (K5t runs K1t's launches then K2 above 131072).  sed_tpu's two
-// stages (n = n1 n2, n1 = 2^(log2 n / 2): n1 8..1024, n2 16..1024) as two
-// GEMMs on wgmma through device memory, over a group of frames at a time
+// The tier DFT where tier_fused_kernel's and tier_packed_fft_kernel's
+// instances do not reach: K1t and K3t at n_fft 128..1024, 65536..2^20 and
+// where fused_route declines, K6t at 256..2048 and 2^18..2^20 (K5t runs
+// K1t's launches, then K2).  The split pass also feeds tier_fused_kernel
+// (further down).  sed_tpu's two stages (n = n1 n2, n1 = 2^(log2 n / 2): n1
+// 8..1024, n2 16..1024) as two GEMMs on wgmma through device memory, over a
+// group of frames at a time
 // (gemm_plan: the group's planes stay under kGemmScratch bytes):
 //   tier_split_kernel<C1, kPacked>, the split pass: each frame of the group
 //     framed and windowed as K1 and K3 read it (TierFrame; K6t's packed
-//     points), split once into stage 1's C1 bf16 chunks (split_bf16, bit for
-//     bit tier_dft's), written as X planes: row f n1 + b, k = a (X[a][b] =
+//     points), split once into stage 1's C1 bf16 chunks (split_bf16's
+//     rounding), written as X planes: row f n1 + b, k = a (X[a][b] =
 //     x[a n1 + b]; K6t: k = a over Re z, n2 + a over Im z of point a n1 + b);
 //   tier_inner_kernel<P1, C2>, stage 1: [rows 16t + 8h + i: part h of Y at k2 =
 //     8t + i] = tab1 @ X over the tier's terms, then the f32 twiddle
-//     (tier_dft's) and the split into stage 2's C2 chunks in the epilogue,
+//     (sed_tpu's order) and the split into stage 2's C2 chunks in the epilogue,
 //     written as T planes: row f n2 + k2, k = b (Tr) and n1 + b (Ti);
 //   tier_outer_kernel<P2, kPacked>, stage 2: columns 2 k1 + h (Zr, Zi) of
 //     T @ tab2, then |Z|^2 to bin n2 k1 + k2 (K1t, K3t: k1 < n1/2, and bin
@@ -3572,6 +3037,334 @@ cudaError_t gemm_shape(int log2_n1, int log2_n2, int packed, int inner, int oute
   *s = GemmShape{log2_n1, log2_n2, packed, tier_chunks(inner), tier_chunks(outer), frames};
   return cudaSuccess;
 }
+
+// ---------------------------------------------------------------------------
+// K1t and K3t (tier_fused_kernel<P1, P2, N1>) at the sizes and pass counts
+// where fused_route takes them: n_fft 2048..32768 (n1 32..128, n2 64..256).
+// K5t is K1t's route, then K2.
+// The split pass (tier_split_kernel above) writes each frame's C1 bf16
+// chunks once, as a group's X planes; then one persistent kernel takes both
+// stages of a unit, (frame, 64 k2 rows), with T in shared memory only.  It
+// reads the tier GEMMs' tables and planes (cuda_featurizer._gemm_images,
+// plane_byte), so each chunk of a tile is one bulk copy:
+//   * the first thread of warp 8 (after the two multiplying warpgroups)
+//     keeps copies in flight in a ring of D slots on mbarriers, in the
+//     consumers' order: for each of the unit's stage-1
+//     passes (np columns b of n1) and each 64-deep k tile, the unit's 128
+//     rows of the tab1 plane (Yr, Yi of its 64 k2 rows, interleaved by 8)
+//     and the pass's np rows of the frame's X plane; then, for each of stage
+//     2's 2 n1 / 64 k tiles, the n1 + 8 rows of the tab2 plane (columns 2 k1
+//     + h: the one-sided k1 < n1 / 2, then bin n / 2's at k1 = n1 / 2);
+//   * warpgroups 0 and 1 each multiply 64 of the 128 rows (32 k2 rows) by
+//     wgmma.m64n(np)k16 over the tier's terms, a k tile's products into an
+//     accumulator of their own, added to the pass's sum in f32 (as the
+//     GEMMs); the epilogue twiddles in f32 (sed_tpu's order, no fused
+//     multiply-add), splits T into C2 chunks (split_bf16) and stores them in
+//     the K-major swizzled image that stage 2's wgmma reads as A (64 rows k2,
+//     K = [Tr | Ti] over b: C2 x 2 n1 / 64 tiles of 8 KB); a proxy fence and
+//     a named barrier of the two warpgroups make T whole;
+//   * stage 2: each warpgroup multiplies T by its half of the tab2 tile's
+//     columns (wgmma.m64n(n1/2)k16; warpgroup 1 also bin n / 2's 8 columns,
+//     m64n8k16, in a frame's first unit), one running f32 sum over the 2 n1
+//     <= 256 k (the mma.sync kernel it replaced summed 512 so); then |Z|^2
+//     (tier_power) to bin n2 k1 + k2, 8 contiguous bins a quad of lanes.
+// CTAs walk the units u = blockIdx.x, + gridDim.x, ..., a frame's n2 / 64
+// units next to each other (its X tiles come from L2 after the first); the
+// producer runs up to D tiles ahead, so the next unit's first tiles land
+// while this unit's stage 2 and drain run.  T is free for the next unit once
+// both warpgroups are through stage 2 (a named barrier before a unit's
+// first T store).
+// The shape (fused_shape: np columns a pass, D slots) is the first, by np =
+// n1, 64, 32 and D = 4, 3, 2, whose T, ring and barriers fit 227 KB.  At n1
+// 256 (n_fft 65536, 131072) T is 64 KB a chunk and a stage-2 slot 33 KB a
+// chunk, so no shape fits but at outer bf16x1; kFusedMaxN1 keeps those sizes
+// on the tier GEMMs.  fused_route also leaves to the GEMMs the shapes of
+// four stage-1 passes (np 32: bf16x6 at both stages at n1 128), which
+// re-read tab1 four times a unit and took 14-16% longer than the GEMMs in
+// the same call; everywhere else the fused kernel was faster or level
+// (PERF.md section 6; tier_gemm_sweep.py routes).  sed_tier_fused_plan
+// reports the route and the shape.
+// ---------------------------------------------------------------------------
+
+constexpr int kFusedRows = 64;  // k2 rows a unit
+constexpr int kFusedMaxN1 = 128;
+// Two multiplying warpgroups, then one producing warp.  ptxas gives each
+// thread at most 168 registers (three warps share an SM sub-partition's
+// 16,384): a stage-1 pass's sum and its k tile's partial take 128 at np 128.
+constexpr int kFusedThreads = 288;
+
+// A ring slot (the larger of a stage-1 tile, tab1's 128 rows and np rows of
+// X, and a stage-2 tile, tab2's n1 + 8 rows, every chunk), the dynamic
+// shared memory (T, the ring, the barriers, 1024 bytes of alignment), and
+// the shape: np, D, a slot's and T's bytes.
+struct FusedShape {
+  int np, slots, slot, t_bytes, smem;
+};
+__host__ __device__ constexpr int fused_slot(int n1, int c1, int c2, int np) {
+  return c1 * (kGemmBM + np) * 128 > c2 * (n1 + 8) * 128 ? c1 * (kGemmBM + np) * 128
+                                                         : c2 * (n1 + 8) * 128;
+}
+__host__ __device__ constexpr int fused_smem(int n1, int c1, int c2, int np, int slots) {
+  return c2 * n1 * 256 + slots * fused_slot(n1, c1, c2, np) + 8 * 2 * slots + 1024;
+}
+__host__ __device__ constexpr FusedShape fused_shape(int n1, int p1, int p2) {
+  const int c1 = tier_chunks(p1), c2 = tier_chunks(p2);
+  if (n1 >= 32 && n1 <= kFusedMaxN1)
+    for (int np = n1; np >= 32; np /= 2)
+      for (int slots = 4; slots >= 2; --slots)
+        if (fused_smem(n1, c1, c2, np, slots) <= 232448)
+          return {np, slots, fused_slot(n1, c1, c2, np), c2 * n1 * 256,
+                  fused_smem(n1, c1, c2, np, slots)};
+  return {0, 0, 0, 0, 0};
+}
+
+// Whether K1t and K3t take the fused kernel at n1 and the passes (else the
+// tier GEMMs): where a shape fits, in at most two stage-1 passes.
+__host__ __device__ constexpr bool fused_route(int n1, int p1, int p2) {
+  return fused_shape(n1, p1, p2).np * 2 >= n1;
+}
+
+// Frames a group of the fused route: all of them where their X planes fit
+// kGemmScratch, else as many as fit (at least one).
+inline long long fused_group(GemmShape s, long long frames) {
+  s.g = frames;
+  if (s.x_bytes() <= kGemmScratch) return frames;
+  long long g = kGemmScratch / (128LL * s.c1 * s.kt1() * s.n1());
+  for (s.g = g; g > 1 && s.x_bytes() > kGemmScratch; s.g = --g) {
+  }
+  return g < 1 ? 1 : g;
+}
+
+template <int P1, int P2, int N1>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+tier_fused_kernel(const unsigned char* __restrict__ x, const unsigned char* __restrict__ tab1,
+                  const unsigned char* __restrict__ tab2, const float2* __restrict__ twiddle,
+                  float* __restrict__ out, GemmShape s) {
+  constexpr int C1 = tier_chunks(P1), C2 = tier_chunks(P2);
+  constexpr FusedShape kShape = fused_shape(N1, P1, P2);
+  constexpr int NP = kShape.np, D = kShape.slots, SLOT = kShape.slot;
+  constexpr int NH = N1 / NP;       // stage 1's passes
+  constexpr int KT2 = 2 * N1 / 64;  // stage 2's k tiles
+  constexpr int NB = N1 / 2;        // stage 2's columns a warpgroup
+  constexpr int A_CHUNK = kGemmBM * 128, X_CHUNK = NP * 128, B_CHUNK = (N1 + 8) * 128;
+  constexpr int T_TILE = kFusedRows * 128;
+  static_assert(NP > 0 && NH * NP == N1 && KT2 >= 1, "tier_fused_kernel: shape");
+  extern __shared__ __align__(16) unsigned char fused_smem_raw[];
+  unsigned char* ts = fused_smem_raw + ((1024 - (smem_address(fused_smem_raw) & 1023)) & 1023);
+  unsigned char* ring = ts + kShape.t_bytes;
+  auto* full = reinterpret_cast<unsigned long long*>(ring + D * SLOT);
+  auto* empty = full + D;
+  const int n2 = s.n2(), n_blk = n2 / kFusedRows, kt1 = s.kt1();
+  const long long units = s.g * n_blk, tab1_rows = s.tab1_rows(), x_rows = s.x_rows(),
+                  tab2_rows = s.tab2_rows();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < D; ++i) {
+      mbar_init(full + i, 1);   // the producer's arrive, the copies' bytes by expect_tx
+      mbar_init(empty + i, 8);  // each multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // ---- the producer: warp 8's first thread ----
+    if (threadIdx.x != 256) return;
+    long long seq = 0;
+    const auto next_slot = [&](unsigned bytes) {
+      const int slot = static_cast<int>(seq % D);
+      if (seq >= D) gemm_wait(empty + slot, static_cast<unsigned>((seq / D - 1) & 1));
+      mbar_arrive_expect_tx(full + slot, bytes);
+      ++seq;
+      return slot;
+    };
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const long long f = u / n_blk, blk = u - f * n_blk;
+      for (int h = 0; h < NH; ++h)
+        for (int kt = 0; kt < kt1; ++kt) {
+          const int slot = next_slot(C1 * (A_CHUNK + X_CHUNK));
+          unsigned char* dst = ring + slot * SLOT;
+#pragma unroll
+          for (int c = 0; c < C1; ++c) {
+            const long long plane = static_cast<long long>(c) * kt1 + kt;
+            bulk_copy(reinterpret_cast<float*>(dst + c * A_CHUNK),
+                      reinterpret_cast<const float*>(tab1 +
+                                                     (plane * tab1_rows + blk * kGemmBM) * 128),
+                      A_CHUNK, full + slot);
+            bulk_copy(reinterpret_cast<float*>(dst + C1 * A_CHUNK + c * X_CHUNK),
+                      reinterpret_cast<const float*>(x + (plane * x_rows + f * N1 + h * NP) * 128),
+                      X_CHUNK, full + slot);
+          }
+        }
+      for (int kt = 0; kt < KT2; ++kt) {
+        const int slot = next_slot(C2 * B_CHUNK);
+        unsigned char* dst = ring + slot * SLOT;
+#pragma unroll
+        for (int c = 0; c < C2; ++c)
+          bulk_copy(reinterpret_cast<float*>(dst + c * B_CHUNK),
+                    reinterpret_cast<const float*>(
+                        tab2 + (static_cast<long long>(c) * KT2 + kt) * tab2_rows * 128),
+                    B_CHUNK, full + slot);
+      }
+    }
+    return;
+  }
+
+  // ---- the multiplying warpgroups: threads 0..255 ----
+  const int w = threadIdx.x / 128, lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const unsigned ring_addr = smem_address(ring), ts_addr = smem_address(ts);
+  const int n_half = N1 * n2 / 2;  // bin n / 2
+  long long seq = 0;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const long long f = u / n_blk;
+    const int blk = static_cast<int>(u - f * n_blk), k0 = kFusedRows * blk;
+    // Stage 1, a pass of NP columns b at a time, each into its T columns.
+#pragma unroll 1
+    for (int h = 0; h < NH; ++h) {
+      float acc[NP / 2], part[NP / 2];
+#pragma unroll
+      for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < kt1; ++kt, ++seq) {
+        const int slot = static_cast<int>(seq % D);
+        gemm_wait(full + slot, static_cast<unsigned>((seq / D) & 1));
+        const unsigned a = ring_addr + slot * SLOT + w * 64 * 128,
+                       b = ring_addr + slot * SLOT + C1 * A_CHUNK;
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) part[i] = 0.f;
+        fence_operands(part);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int ca = 0; ca < C1; ++ca)
+#pragma unroll
+            for (int cb = 0; cb < C1; ++cb) {
+              if (!tier_term(P1, ca, cb)) continue;
+              Wgmma<NP>::mma(part, sw128_desc(a + ca * A_CHUNK, j),
+                             sw128_desc(b + cb * X_CHUNK, j));
+            }
+        wgmma_commit();
+        fence_operands(part);
+        wgmma_wait<0>();
+        fence_operands(part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
+#pragma unroll
+        for (int i = 0; i < NP / 2; ++i) acc[i] += part[i];
+      }
+      // Both warpgroups are through the last unit's stage 2: T is free.
+      if (h == 0) asm volatile("bar.sync 1, 256;" ::: "memory");
+      // The twiddle (acc[4i ..]: yr(b), yr(b + 1), yi(b), yi(b + 1) at k2 row
+      // 32 w + 8 warp + g), split, into T: Tr at K = b, Ti at n1 + b.
+      const int k2l = 32 * w + 8 * warp + g;
+      const float2* tw_row = twiddle + static_cast<long long>(k0 + k2l) * N1;
+#pragma unroll
+      for (int i = 0; i < NP / 8; ++i) {
+        const int b = h * NP + 8 * i + 2 * tig;
+        const float4 tw = *reinterpret_cast<const float4*>(tw_row + b);
+        const float* y = acc + 4 * i;
+        const float tr0 = __fsub_rn(__fmul_rn(y[0], tw.x), __fmul_rn(y[2], tw.y));
+        const float ti0 = __fadd_rn(__fmul_rn(y[0], tw.y), __fmul_rn(y[2], tw.x));
+        const float tr1 = __fsub_rn(__fmul_rn(y[1], tw.z), __fmul_rn(y[3], tw.w));
+        const float ti1 = __fadd_rn(__fmul_rn(y[1], tw.w), __fmul_rn(y[3], tw.z));
+        unsigned cr[C2], ci[C2];
+        split_bf16x2<C2>(tr0, tr1, cr);
+        split_bf16x2<C2>(ti0, ti1, ci);
+#pragma unroll
+        for (int c = 0; c < C2; ++c) {
+          *reinterpret_cast<unsigned*>(ts + (c * KT2 + (b >> 6)) * T_TILE + sw128(k2l, b & 63)) =
+              cr[c];
+          *reinterpret_cast<unsigned*>(ts + (c * KT2 + ((N1 + b) >> 6)) * T_TILE +
+                                       sw128(k2l, (N1 + b) & 63)) = ci[c];
+        }
+      }
+    }
+    fence_async_shared();
+    asm volatile("bar.sync 1, 256;" ::: "memory");  // T is whole
+
+    // Stage 2: [Zr Zi] of this warpgroup's columns = T tab2, K tile by K tile;
+    // warpgroup 2 of a frame's first unit also bin n / 2's columns.
+    float acc2[NB / 2], accn[4];
+#pragma unroll
+    for (int i = 0; i < NB / 2; ++i) acc2[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) accn[i] = 0.f;
+    const bool nyquist = blk == 0 && w == 1;
+    for (int kt = 0; kt < KT2; ++kt, ++seq) {
+      const int slot = static_cast<int>(seq % D);
+      gemm_wait(full + slot, static_cast<unsigned>((seq / D) & 1));
+      const unsigned bt = ring_addr + slot * SLOT, at = ts_addr + kt * T_TILE;
+      fence_operands(acc2);
+      fence_operands(accn);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int ca = 0; ca < C2; ++ca)
+#pragma unroll
+          for (int cb = 0; cb < C2; ++cb) {
+            if (!tier_term(P2, ca, cb)) continue;
+            Wgmma<NB>::mma(acc2, sw128_desc(at + ca * KT2 * T_TILE, j),
+                           sw128_desc(bt + cb * B_CHUNK + w * NB * 128, j));
+          }
+      if (nyquist) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int ca = 0; ca < C2; ++ca)
+#pragma unroll
+            for (int cb = 0; cb < C2; ++cb) {
+              if (!tier_term(P2, ca, cb)) continue;
+              Wgmma<8>::mma(accn, sw128_desc(at + ca * KT2 * T_TILE, j),
+                            sw128_desc(bt + cb * B_CHUNK + N1 * 128, j));
+            }
+      }
+      wgmma_commit();
+      fence_operands(acc2);
+      fence_operands(accn);
+      wgmma_wait<0>();
+      fence_operands(acc2);
+      fence_operands(accn);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+
+    // |Z|^2 (acc2[4i + 2hh + e]: k2 = k0 + 16 warp + lane / 4 + 8 hh, k1 =
+    // n1 / 4 w + 4 i + lane mod 4; e = 0 Zr, 1 Zi) to bin n2 k1 + k2, bin
+    // n / 2 from accn.
+    float* o = out + f * (n_half + 1LL) + k0 + 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < NB / 8; ++i) {
+      const int k1 = NB / 2 * w + 4 * i + (lane & 3);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        o[n2 * k1 + 8 * hh] = tier_power(acc2[4 * i + 2 * hh], acc2[4 * i + 2 * hh + 1]);
+    }
+    if (nyquist && warp == 0 && lane == 0)
+      out[f * (n_half + 1LL) + n_half] = tier_power(accn[0], accn[1]);
+  }
+}
+
+// tier_fused_kernel over a group (s.g frames) at n1 = N1 and inner / outer
+// passes P1, P2: a CTA an SM walking the units.
+template <int N1, int P1, int P2>
+int launch_fused(const unsigned char* x, const unsigned char* tab1, const unsigned char* tab2,
+                 const float2* twiddle, float* out, const GemmShape& s, int device,
+                 cudaStream_t stream) {
+  constexpr FusedShape shape = fused_shape(N1, P1, P2);
+  static_assert(shape.np > 0 && shape.smem <= 232448, "tier_fused_kernel: shared memory");
+  const auto kernel = tier_fused_kernel<P1, P2, N1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shape.smem);
+  if (err != cudaSuccess) return err;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long units = s.g * (s.n2() / kFusedRows);
+  kernel<<<static_cast<unsigned>(units < n_sm ? units : n_sm), kFusedThreads, shape.smem,
+           stream>>>(x, tab1, tab2, twiddle, out, s);
+  return cudaGetLastError();
+}
+
 #endif  // the tier GEMMs
 
 #ifndef SED_FEATURIZER_ONE_TIER_UNIT
@@ -3638,20 +3431,6 @@ class DeviceGuard {
 
 }  // namespace
 
-// K1t / K3t and K5t at n1 = 256 (log2_n 16, 17): their instances are the
-// wide object's (-DSED_FEATURIZER_WIDE_TIERS_ONLY), reached from
-// sed_tier_dft_power and sed_tier_dft_mel_log on the current device.
-int launch_wide_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
-                               const void* tab2, const void* twiddle, void* out, long long rows,
-                               long long n_samples, int n_frames, int hop, int log2_n,
-                               int inner_passes, int outer_passes, void* stream);
-int launch_wide_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
-                                 const void* tab2, const void* twiddle, const void* segments,
-                                 const void* band_first, const void* weights, void* out,
-                                 long long rows, long long n_samples, int n_frames, int hop,
-                                 int log2_n, int inner_passes, int outer_passes, int mel_passes,
-                                 int n_mels, int n_seg, void* stream);
-
 // K6t at n1 128 and 256 (log2_m 14..16): their instances are the wide
 // packed object's (-DSED_FEATURIZER_WIDE_PACKED_ONLY), reached from
 // sed_tier_packed_fft on the current device.
@@ -3669,30 +3448,6 @@ int launch_wide_packed_fft(const void* wave, const void* window, const void* tab
   return launch_packed_fft<14, 16>(wave, window, tab1, tab2, twiddle, out_re, out_im, rows,
                                    n_samples, n_frames, hop, log2_m, inner_passes, outer_passes,
                                    stream);
-}
-#endif
-
-#if !defined(SED_FEATURIZER_NO_TIERS) && \
-    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_WIDE_TIERS_ONLY))
-int launch_wide_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
-                               const void* tab2, const void* twiddle, void* out, long long rows,
-                               long long n_samples, int n_frames, int hop, int log2_n,
-                               int inner_passes, int outer_passes, void* stream) {
-  return launch_tier_dft_power<16, 17>(data, kind, window, tab1, tab2, twiddle, out, rows,
-                                       n_samples, n_frames, hop, log2_n, inner_passes,
-                                       outer_passes, stream);
-}
-
-int launch_wide_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
-                                 const void* tab2, const void* twiddle, const void* segments,
-                                 const void* band_first, const void* weights, void* out,
-                                 long long rows, long long n_samples, int n_frames, int hop,
-                                 int log2_n, int inner_passes, int outer_passes, int mel_passes,
-                                 int n_mels, int n_seg, void* stream) {
-  return launch_tier_dft_mel_log<16, 17>(wave, window, tab1, tab2, twiddle, segments, band_first,
-                                         weights, out, rows, n_samples, n_frames, hop, log2_n,
-                                         inner_passes, outer_passes, mel_passes, n_mels, n_seg,
-                                         stream);
 }
 #endif
 
@@ -3912,6 +3667,45 @@ int sed_tier_gemm_plan(int log2_n1, int log2_n2, int packed, int inner, int oute
   return cudaSuccess;
 }
 
+// K1t's and K3t's plan at n_fft 2^log2_n (11..17), inner / outer passes,
+// over `frames` frames on `device`, as cuda_featurizer launches them:
+// plan[0] 1 where the split pass and tier_fused_kernel run them
+// (fused_route), 0 where the tier GEMMs do (n1 256, four stage-1 passes; K5t
+// is either, then K2); where a fused_shape fits (whichever the route), [1]
+// frames a group of the fused kernel (its X planes within kGemmScratch), [2]
+// a group's X bytes, [3] tab1's and [4] tab2's rows (the tier GEMMs'
+// tables), [5] threads, [6] dynamic shared memory, [7] k2 rows a unit, [8]
+// stage 1's columns a pass, [9] ring slots, [10] CTAs over a group; else
+// 0.  It launches nothing.
+int sed_tier_fused_plan(int log2_n, int inner, int outer, long long frames, int device,
+                        long long* plan) {
+  for (int i = 0; i < 11; ++i) plan[i] = 0;
+  if (log2_n < 11 || log2_n > 17) return cudaErrorInvalidValue;
+  GemmShape s;
+  cudaError_t err = gemm_shape(log2_n / 2, log2_n - log2_n / 2, 0, inner, outer, frames, &s);
+  if (err != cudaSuccess) return err;
+  const FusedShape shape = fused_shape(s.n1(), inner, outer);
+  if (shape.np == 0) return cudaSuccess;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  s.g = fused_group(s, frames);
+  const long long units = s.g * (s.n2() / kFusedRows);
+  const long long values[] = {fused_route(s.n1(), inner, outer) ? 1 : 0,
+                              s.g,
+                              s.x_bytes(),
+                              s.tab1_rows(),
+                              s.tab2_rows(),
+                              kFusedThreads,
+                              shape.smem,
+                              kFusedRows,
+                              shape.np,
+                              shape.slots,
+                              units < n_sm ? units : n_sm};
+  for (int i = 0; i < 11; ++i) plan[i] = values[i];
+  return cudaSuccess;
+}
+
 // The split pass: frames row0 .. row0 + frames - 1 of the source (kind as
 // TierSource; packed: K6t's packed points of waveforms, kind 0) into the X
 // planes at x (the group's first sed_tier_gemm_plan plan[2] bytes).
@@ -4000,68 +3794,45 @@ int sed_tier_outer(const void* t, const void* tab2, void* out, void* out_im, lon
 }
 #endif
 
-// The bf16 tier DFT's entry points.  Each kernel's 16 instances an n1 take
-// about as long to compile as the rest of the file, so the library is
-// linked from seven objects of this file compiled side by side
-// (cuda_featurizer.BUILD_RECIPE): -DSED_FEATURIZER_TIERS_ONLY (K1t, K3t at
-// n1 32..128), -DSED_FEATURIZER_FUSED_TIERS_ONLY (K5t at n1 32..128),
-// -DSED_FEATURIZER_WIDE_TIERS_ONLY (K1t, K3t and K5t at n1 256: n_fft 65536
-// and 131072, behind launch_wide_tier_dft_power and
-// launch_wide_tier_dft_mel_log above), -DSED_FEATURIZER_PACKED_TIERS_ONLY (K6t
-// at n1 32 and 64), -DSED_FEATURIZER_WIDE_PACKED_ONLY (K6t at n1 128 and 256,
-// behind launch_wide_packed_fft), -DSED_FEATURIZER_GEMM_TIERS_ONLY (the tier
-// GEMMs' sed_tier_gemm_plan, sed_tier_split, sed_tier_inner and
-// sed_tier_outer above) and
-// -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds of
-// chip_smoke.py too).
+// The bf16 tier DFT's entry points.  Each kernel's instances take about as
+// long to compile as the rest of the file, so the library is linked from
+// five objects of this file compiled side by side
+// (cuda_featurizer.BUILD_RECIPE): -DSED_FEATURIZER_TIERS_ONLY (K1t, K3t:
+// tier_fused_kernel at n1 32..128), -DSED_FEATURIZER_PACKED_TIERS_ONLY (K6t
+// at n1 32 and 64), -DSED_FEATURIZER_WIDE_PACKED_ONLY (K6t at n1 128 and
+// 256, behind launch_wide_packed_fft), -DSED_FEATURIZER_GEMM_TIERS_ONLY (the
+// split pass, the tier GEMMs and both tier plans: sed_tier_gemm_plan,
+// sed_tier_fused_plan, sed_tier_split, sed_tier_inner and sed_tier_outer
+// above) and -DSED_FEATURIZER_NO_TIERS (every other entry; the lesion builds
+// of chip_smoke.py too).
 
 #if !defined(SED_FEATURIZER_NO_TIERS) && \
     (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_TIERS_ONLY))
-// K1t (kind 0: waveforms, as K1 frames them) and K3t (kind 1, 2: rows of
-// f32 or int16, as K3 reads them): one-sided |X|^2 of `rows` frames of
-// n_fft = 2^log2_n (log2_n 11..17; 16 and 17 in the wide object) by the bf16
-// tensor-core DFT at inner_passes / outer_passes (1, 3, 4, 6) in its two
-// stages.
-int sed_tier_dft_power(const void* data, int kind, const void* window, const void* tab1,
-                       const void* tab2, const void* twiddle, void* out, long long rows,
-                       long long n_samples, int n_frames, int hop, int log2_n,
-                       int inner_passes, int outer_passes, int device, void* stream) {
+// K1t and K3t (K5t's first part) where sed_tier_fused_plan's plan[0] is 1:
+// one-sided |X|^2 of a group of `frames` frames of n_fft = 2^log2_n (11..15)
+// to out ((frames, n_fft / 2 + 1) f32) by tier_fused_kernel at inner_passes
+// / outer_passes (1, 3, 4, 6; any whose fused_shape fits), from the group's
+// X planes at x (sed_tier_split: K1's framing or K3's rows), the tier GEMMs'
+// tables tab1 and tab2 and the (n2, n1) twiddles.
+int sed_tier_dft_power(const void* x, const void* tab1, const void* tab2, const void* twiddle,
+                       void* out, long long frames, int log2_n, int inner_passes,
+                       int outer_passes, int device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.status() != cudaSuccess) return guard.status();
-  if (log2_n > 15)
-    return launch_wide_tier_dft_power(data, kind, window, tab1, tab2, twiddle, out, rows,
-                                      n_samples, n_frames, hop, log2_n, inner_passes,
-                                      outer_passes, stream);
-  return launch_tier_dft_power<11, 15>(data, kind, window, tab1, tab2, twiddle, out, rows,
-                                       n_samples, n_frames, hop, log2_n, inner_passes,
-                                       outer_passes, stream);
-}
-#endif
-
-#if !defined(SED_FEATURIZER_NO_TIERS) && \
-    (!defined(SED_FEATURIZER_ONE_TIER_UNIT) || defined(SED_FEATURIZER_FUSED_TIERS_ONLY))
-// K5t: log-mel rows (n_signals * n_frames, n_mels) of the waveforms' frames,
-// K1t's power at inner_passes / outer_passes (n_fft = 2^log2_n, log2_n
-// 11..17; 16 and 17 in the wide object) then K2's band sums at mel_passes (0
-// f32, 1 bf16x1, 3 bf16x3), in one launch; a frame's n_fft / n1 / 64 blocks
-// are one cluster (8 at n_fft 131072).
-int sed_tier_dft_mel_log(const void* wave, const void* window, const void* tab1,
-                         const void* tab2, const void* twiddle, const void* segments,
-                         const void* band_first, const void* weights, void* out, long long rows,
-                         long long n_samples, int n_frames, int hop, int log2_n,
-                         int inner_passes, int outer_passes, int mel_passes, int n_mels,
-                         int n_seg, int device, void* stream) {
-  const DeviceGuard guard(device);
-  if (guard.status() != cudaSuccess) return guard.status();
-  if (log2_n > 15)
-    return launch_wide_tier_dft_mel_log(wave, window, tab1, tab2, twiddle, segments,
-                                        band_first, weights, out, rows, n_samples, n_frames,
-                                        hop, log2_n, inner_passes, outer_passes, mel_passes,
-                                        n_mels, n_seg, stream);
-  return launch_tier_dft_mel_log<11, 15>(wave, window, tab1, tab2, twiddle, segments,
-                                         band_first, weights, out, rows, n_samples, n_frames,
-                                         hop, log2_n, inner_passes, outer_passes, mel_passes,
-                                         n_mels, n_seg, stream);
+  GemmShape s;
+  const cudaError_t err =
+      gemm_shape(log2_n / 2, log2_n - log2_n / 2, 0, inner_passes, outer_passes, frames, &s);
+  if (err != cudaSuccess) return err;
+  const auto* xp = static_cast<const unsigned char*>(x);
+  const auto* t1 = static_cast<const unsigned char*>(tab1);
+  const auto* t2 = static_cast<const unsigned char*>(tab2);
+  const auto* tw = static_cast<const float2*>(twiddle);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_tier<11, 15>(log2_n, inner_passes, outer_passes, [&](auto n1, auto p1, auto p2) {
+    constexpr int N1 = decltype(n1)::value, P1 = decltype(p1)::value, P2 = decltype(p2)::value;
+    return launch_fused<N1, P1, P2>(xp, t1, t2, tw, o, s, device, st);
+  });
 }
 #endif
 

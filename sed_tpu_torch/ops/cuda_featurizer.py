@@ -22,12 +22,13 @@ replaces, what bounds it and how it is designed):
     K1's and K3's functions at sed_tpu's reduced-precision tiers ('fast'
     bf16x3, 'turbo' bf16x1, the raw 'bf16xN' strings and per-stage pairs):
     sed_tpu's two-stage matmul DFT with each product split into bf16 chunks
-    as its ``_make_dot`` splits them, on the tensor cores (one kernel,
-    ``tier_dft_kernel``, with K1's and K3's loaders).  K2 takes sed_tpu's
+    as its ``_make_dot`` splits them, on the tensor cores (the split pass,
+    ``tier_split_kernel``, with K1's framing or K3's rows, then one
+    persistent wgmma kernel of both stages, ``tier_fused_kernel``, or the
+    tier GEMMs: :func:`fused_plan` says which).  K2 takes sed_tpu's
     ``mel_precision`` 'bf16x1' and 'bf16x3' as product modes;
-  * K5t :func:`wave_stft_mel_log_bf16` — K1t then K2 in one launch (the
-    frame's blocks one thread-block cluster), and K5b, K5 at K2's modes
-    (:func:`wave_stft_mel_log`'s ``mel_precision``);
+  * K5t :func:`wave_stft_mel_log_bf16` — K1t's launches, then K2; and K5b,
+    K5 at K2's modes (:func:`wave_stft_mel_log`'s ``mel_precision``);
   * K6t :func:`wave_packed_fft_bf16` — K6's function by the same bf16 matmul
     DFT over the m = n_fft/2 packed points (a complex input).
 
@@ -36,9 +37,10 @@ impl and precision, up to :data:`MAX_FFT_SIZE` (2^20); :func:`launch_plan`
 says what each launches at a size, and the wrappers' checks read the same
 functions.  Above n_fft 131072 K1, K3 and K6 run a global cross pass, the
 sub-rows' cluster FFT and (K1, K3) an unpack, and K5 runs K1's launches then
-K2; outside their instances' sizes K1t, K3t and K6t run the tier GEMMs (a
-split pass to bf16 chunk planes, then two wgmma GEMMs, a frame group at a
-time: :func:`gemm_plan`), and K5t (above 131072) K1t's launches then K2.
+K2; K1t and K3t run a split pass to bf16 chunk planes, then, where the
+library's :func:`fused_plan` takes the size, the fused kernel (a frame group a
+launch), elsewhere (and K6t outside its instances' sizes) the tier GEMMs' two
+wgmma stages (:func:`gemm_plan`); K5t runs K1t's launches, then K2.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain PyTorch version beside it (:func:`wave_stft_power_plain`,
@@ -101,14 +103,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # How build() makes the library, and all that library_digest() hashes beside
 # the source: each unit's macro picks one object of the source (featurizer.cu:
-# the instances of each tier kernel, K1t/K3t and K5t at n1 32..128, both at
-# n1 256, K6t at n1 32 and 64, K6t at n1 128 and 256, the tier GEMMs, then
-# everything else), the objects are compiled side by side with "compile" and
+# the instances of each tier kernel, K1t/K3t's fused kernel, K6t at n1 32
+# and 64, K6t at n1 128 and 256, the split pass and the tier GEMMs,
+# then everything else), the objects are compiled side by side with "compile" and
 # joined by one nvcc with "link".
 BUILD_RECIPE = {
     "compile": tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",),
-    "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_FUSED_TIERS_ONLY",
-              "-DSED_FEATURIZER_WIDE_TIERS_ONLY", "-DSED_FEATURIZER_PACKED_TIERS_ONLY",
+    "units": ("-DSED_FEATURIZER_TIERS_ONLY", "-DSED_FEATURIZER_PACKED_TIERS_ONLY",
               "-DSED_FEATURIZER_WIDE_PACKED_ONLY", "-DSED_FEATURIZER_GEMM_TIERS_ONLY",
               "-DSED_FEATURIZER_NO_TIERS"),
     "link": ("-shared",),
@@ -135,7 +136,9 @@ _MAX_GRID_X = 2**31 - 1
 # launch (:func:`launch_plan`) it adds one to the name of each kernel it
 # launches (the cross pass, the sub-row FFTs and the unpack of the Stockham
 # FFT above n_fft 131072; the tier GEMMs' split pass and two stages, once a
-# frame group each; K2 where K5 and K5t chain) and nothing to its own.
+# frame group each; K2 where K5 and K5t chain), and on K1t's and K3t's
+# fused route (K5t's first part) one to the split pass's and one to its own,
+# once a frame group each.
 LAUNCHES = {"wave_stft_power": 0, "mel_log": 0, "frames_stft_power": 0,
             "wave_stft_mel_log": 0, "wave_packed_fft": 0, "wave_dft_power_bf16": 0,
             "frames_dft_power_bf16": 0, "mel_log_bf16": 0, "wave_stft_mel_log_mel_bf16": 0,
@@ -275,12 +278,10 @@ def _library() -> ctypes.CDLL:
     lib.sed_wave_packed_fft.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32,
                                         i32, i32, vp]
     lib.sed_wave_packed_fft.restype = i32
-    lib.sed_tier_dft_power.argtypes = [vp, i32, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
-                                       i32, i32, i32, vp]
+    lib.sed_tier_dft_power.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
     lib.sed_tier_dft_power.restype = i32
-    lib.sed_tier_dft_mel_log.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
-                                         i32, i32, i32, i32, i32, i32, i32, i32, vp]
-    lib.sed_tier_dft_mel_log.restype = i32
+    lib.sed_tier_fused_plan.argtypes = [i32, i32, i32, i64, i32, ctypes.POINTER(i64)]
+    lib.sed_tier_fused_plan.restype = i32
     lib.sed_tier_packed_fft.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i32,
                                         i32, i32, i32, vp]
     lib.sed_tier_packed_fft.restype = i32
@@ -954,20 +955,25 @@ def wave_stft_mel_log(waves: torch.Tensor, window: torch.Tensor, hop: int,
 # sed_tpu's raw precision strings of its matmul DFT (_make_dot) and the bf16
 # passes each product takes.
 TIER_PASSES = {"bf16x1": 1, "bf16x3": 3, "bf16x4": 4, "bf16x6": 6}
+# Every (inner, outer) pass count of the tiers.
+_EVERY_PASSES = tuple((a, b) for a in TIER_PASSES.values() for b in TIER_PASSES.values())
 # The (chunk of a, chunk of b) product terms of a tier, in _make_dot's order:
 # a tier of P passes sums the first P.
 _TIER_TERMS = ((0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (0, 2))
-# log2 n_fft of the tier kernels' one-launch instances (n1 = 2^(log2 n // 2)
-# >= 32, n2 >= 64, n1 <= 256): tier_dft's (K1t, K3t and K5t transform n_fft
-# points) and tier_packed_fft_kernel's (K6t, m = n_fft/2 points).
+# log2 n_fft where K1t and K3t (and K5t, K1t's route then K2) ask the
+# library's plan (:func:`fused_plan`) whether the fused kernel takes the size
+# (n1 = 2^(log2 n // 2) >= 32, n2 >= 64, n1 <= 256; the library answers per
+# size and passes), and of K6t's
+# one-launch instances (tier_packed_fft_kernel, m = n_fft/2 points).
 TIER_LOG2_N = range(11, 18)
 PACKED_TIER_LOG2_N = range(12, 18)
 # Every log2 n_fft each tier kernel takes on the card: from the smallest
 # sed_tpu computes at a reduced tier ('roll' and the tick 128, 'pack' 256:
 # its TPU kernels need 128 lanes of a frame or of its m packed points;
-# 'fuse' 2048, its TILE_K) up to MAX_FFT_SIZE.  Outside the instances' sizes
-# K1t, K3t and K6t run the tier GEMMs (:data:`GEMM_KERNELS`), and K5t runs
-# K1t's launches, then K2 (:func:`tier_route`).
+# 'fuse' 2048, its TILE_K) up to MAX_FFT_SIZE.  Where the fused kernel does not
+# take a size and passes (:func:`tier_route`) K1t and K3t run the tier GEMMs
+# (:data:`GEMM_KERNELS`); K5t runs K1t's launches, then K2; K6t runs the
+# GEMMs outside its instances' sizes.
 TIER_RANGES = {"wave_dft_power_bf16": range(7, 21), "frames_dft_power_bf16": range(7, 21),
                "wave_stft_mel_log_bf16": range(11, 21), "wave_packed_fft_bf16": range(8, 21)}
 
@@ -1160,18 +1166,6 @@ def _reduced_passes(precision):
     return passes
 
 
-def tier_smem_bytes(n1: int, inner_passes: int, outer_passes: int) -> int:
-    """K1t's and K3t's dynamic shared memory (featurizer.cu tier_smem_bytes;
-    K5t adds 4 bytes a segment): T (its chunks, or one when staged), then
-    the larger of stage 1's and stage 2's tiles."""
-    c1, c2 = _tier_chunks(inner_passes), _tier_chunks(outer_passes)
-    t = 64 * (2 * n1 + 8) * 2                       # a chunk of T
-    stages = max(2 * c1 * 2 * 64 * 40 * 2 + c1 * 32 * (n1 + 8) * 2,
-                 2 * c2 * (n1 + 8) * 40 * 2)
-    staged = c2 * t + stages + 8192 > _MAX_SMEM_BYTES
-    return (1 if staged else c2) * t + stages
-
-
 def mel_plan(n_segments: int, n_mels: int, rows: int = 1 << 40,
              device: Optional[torch.device] = None) -> Optional[dict]:
     """K2's plan for ``rows`` rows (default: more than every SM's group) of
@@ -1191,30 +1185,38 @@ def mel_plan(n_segments: int, n_mels: int, rows: int = 1 << 40,
     return {"rows_at_once": r.value, "smem": smem.value}
 
 
-def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
+def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64, passes=None) -> dict:
     """What each featurizer kernel launches at n_fft on the card, by its
     :data:`LAUNCHES` name: ``{"route", "kernels", "instance", "cluster",
     "smem"}``.  ``route``: 'one' (one launch of its instance), 'cross' (K1,
     K3, K6 above n_fft 131072: the cross pass, the sub-rows' cluster FFT and,
-    K1 and K3, the unpack), 'gemm' (the tier GEMMs: the split pass and two
-    stages, :data:`GEMM_KERNELS`) or 'chain' (K5 above 131072, K5t above
-    131072: the power kernel's launches, then K2); ``kernels``: the
-    :data:`LAUNCHES` names a call adds one to (its own name on route 'one',
-    its kernels' names on the others, each with an entry of its own; the tier
-    GEMMs' once a frame group, :func:`gemm_plan`); ``instance`` the template
-    instance(s), ``cluster`` the CTAs of a frame's (sub-row's) thread-block
-    cluster (1: none) and ``smem`` the
-    largest dynamic shared memory of a CTA (the tier kernels: over their
-    pass counts; K5 and K5t with ``n_segments`` segment sums of ``n_mels``
-    bands; 0 for the kernels with static shared memory only: the cross pass,
-    the unpack and the tier GEMMs' split pass).  K2's rows at once and shared
-    memory and the tier GEMMs' stages' shared memory are the library's
-    (:func:`mel_plan`, :func:`gemm_plan`), so where no card is present their
-    entries and the chains' ``smem`` are None.  Every kernel appears at each
-    n_fft of its range (4..MAX_FFT_SIZE; the tier kernels :data:`TIER_RANGES`), and an
-    n_fft above MAX_FFT_SIZE raises ``ValueError`` as the wrappers do.  The
-    wrappers' size checks read the same functions (:func:`stockham_plan`,
-    :func:`tier_route`)."""
+    K1 and K3, the unpack), 'fused' (K1t, K3t where the library's
+    :func:`fused_plan` takes the size: the split pass, then
+    ``tier_fused_kernel``), 'gemm' (the tier GEMMs: the split pass and two
+    stages, :data:`GEMM_KERNELS`) or 'chain' (K5 above 131072, K5t: the
+    power kernel's launches, then K2); ``kernels``: the :data:`LAUNCHES`
+    names a call adds one to (its own name on route 'one', its kernels'
+    names on the others, each with an entry of its own but the fused
+    kernel's, counted under the calling wrapper's name; the tier GEMMs' and
+    the fused route's once a frame group, :func:`gemm_plan`,
+    :func:`fused_plan`); ``instance`` the template instance(s), ``cluster``
+    the CTAs of a frame's (sub-row's) thread-block cluster (1: none) and
+    ``smem`` the largest dynamic shared memory of a CTA (the tier kernels:
+    over their pass counts; K5 with ``n_segments`` segment sums of
+    ``n_mels`` bands; 0 for the kernels with static shared memory only: the
+    cross pass, the unpack and the tier GEMMs' split pass).  ``passes``: the
+    tier kernels' (inner, outer) passes, which the library's choice of
+    route at :data:`TIER_LOG2_N` may depend on (None: every pass count).
+    K2's rows at once and shared memory, the tier GEMMs' stages' shared
+    memory and, at :data:`TIER_LOG2_N`, K1t's, K3t's and K5t's route and
+    all of their entry are the library's (:func:`mel_plan`,
+    :func:`gemm_plan`, :func:`fused_plan`), so where no card is present, or
+    where the pass counts take different routes and ``passes`` is None,
+    those entries (every key of the last) and the chains' ``smem`` are None.
+    Every kernel appears at each n_fft of its range (4..MAX_FFT_SIZE; the
+    tier kernels :data:`TIER_RANGES`), and an n_fft above MAX_FFT_SIZE
+    raises ``ValueError`` as the wrappers do.  The wrappers' size checks
+    read the same functions (:func:`stockham_plan`, :func:`tier_route`)."""
     sp = stockham_plan(n_fft)
     log2_n = n_fft.bit_length() - 1
     plan = {}
@@ -1254,29 +1256,34 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
         if name == "wave_stft_mel_log":
             parts += ("mel_log",)
         plan[name] = chain("chain" if name == "wave_stft_mel_log" else "cross", parts)
-    passes = [(a, b) for a in TIER_PASSES.values() for b in TIER_PASSES.values()]
-    for name, kernel in (("wave_dft_power_bf16", "tier_dft_kernel"),
-                         ("frames_dft_power_bf16", "tier_dft_kernel"),
-                         ("wave_stft_mel_log_bf16", "tier_dft_mel_log_kernel"),
-                         ("wave_packed_fft_bf16", "tier_packed_fft_kernel")):
+    every = [passes] if passes else _EVERY_PASSES
+    for name in TIER_RANGES:
         if log2_n not in TIER_RANGES[name]:
             continue
-        route = tier_route(name, n_fft)
-        packed = name == "wave_packed_fft_bf16"
-        if route == "one" and packed:
+        route = tier_route(name, n_fft, passes)
+        if route == "one":
             n1 = 1 << ((log2_n - 1) // 2)
-            plan[name] = entry(route, (name,), f"{kernel}<{n1}, P1, P2>", 1,
-                               max(packed_plan(n1, a, b)["smem"] for a, b in passes))
-        elif route == "one":
-            n1 = 1 << (log2_n // 2)
-            smem = max(tier_smem_bytes(n1, a, b) for a, b in passes)
-            fused = name == "wave_stft_mel_log_bf16"
-            plan[name] = entry(route, (name,), f"{kernel}<{n1}, P1, P2>",
-                               (n_fft // n1) // 64 if fused else 1,
-                               smem + 4 * n_segments if fused else smem)
+            plan[name] = entry(route, (name,), f"tier_packed_fft_kernel<{n1}, P1, P2>", 1,
+                               max(packed_plan(n1, a, b)["smem"] for a, b in every))
+        elif route is None:   # the library's choice, without a card or by pass count
+            plan[name] = entry(None, None, None, None, None)
+        elif route == "fused":
+            fused = [fused_plan(n_fft, p, 1) for p in every]
+            plan["tier_split"] = entry("one", ("tier_split",), "tier_split_kernel<C1, kPacked>",
+                                       1, 0)
+            plan[name] = entry(route, ("tier_split", name),
+                               f"tier_split_kernel<C1, kPacked> + tier_fused_kernel<P1, P2, "
+                               f"{1 << (log2_n // 2)}>", 1, max(f["smem"] for f in fused))
+        elif name == "wave_stft_mel_log_bf16":   # K1t's route, then K2
+            k1t = plan["wave_dft_power_bf16"]
+            parts = tuple(name if k == "wave_dft_power_bf16" else k for k in k1t["kernels"])
+            smem = [k1t["smem"], plan["mel_log"]["smem"]]
+            plan[name] = entry(route, parts + ("mel_log",),
+                               k1t["instance"] + " + " + plan["mel_log"]["instance"], 1,
+                               None if None in smem else max(smem))
         else:
-            n = n_fft // 2 if packed else n_fft
-            stages = [gemm_plan(n, packed, p, 1) for p in passes]
+            n = n_fft // 2 if name == "wave_packed_fft_bf16" else n_fft
+            stages = [gemm_plan(n, name == "wave_packed_fft_bf16", p, 1) for p in every]
             smem = {k: None if None in stages else max(s[k] for s in stages)
                     for k in ("smem_inner", "smem_outer")}
             plan["tier_split"] = entry("one", ("tier_split",), "tier_split_kernel<C1, kPacked>",
@@ -1285,29 +1292,43 @@ def launch_plan(n_fft: int, n_segments: int = 0, n_mels: int = 64) -> dict:
                                        smem["smem_inner"])
             plan["tier_outer"] = entry("one", ("tier_outer",), "tier_outer_kernel<P2, kPacked>",
                                        1, smem["smem_outer"])
-            plan[name] = chain(route, GEMM_KERNELS + (("mel_log",) if route == "chain" else ()))
+            plan[name] = chain(route, GEMM_KERNELS)
     return plan
 
 
-def tier_route(name: str, n_fft: int) -> str:
+def tier_route(name: str, n_fft: int, passes=None) -> Optional[str]:
     """How tier kernel ``name`` (a :data:`TIER_RANGES` key) runs n_fft on the
-    card: 'one' (one launch of its instance), 'gemm' (the tier GEMMs,
-    :data:`GEMM_KERNELS`) or 'chain' (K5t: K1t's launches, then K2).  Raises
-    ``ValueError``, naming the range, for a size it does not take."""
+    card at (inner, outer) ``passes`` (None: every pass count): 'one' (K6t's
+    instance), 'fused' (K1t, K3t: the split pass, then
+    ``tier_fused_kernel``), 'gemm' (the tier GEMMs, :data:`GEMM_KERNELS`)
+    or 'chain' (K5t: K1t's route, then K2).  At :data:`TIER_LOG2_N` K1t and
+    K3t take the library's choice (:func:`fused_plan`), and K5t follows
+    them: None where no card is present, or where the pass counts take
+    different routes and ``passes`` is None.  Raises ``ValueError``, naming
+    the range, for a size it does not take."""
     sizes = TIER_RANGES[name]
     log2_n = n_fft.bit_length() - 1
     if n_fft < 1 or n_fft & (n_fft - 1) or log2_n not in sizes:
         what = {"wave_packed_fft_bf16": "packed ", "wave_stft_mel_log_bf16": "fused "}.get(name, "")
         raise ValueError(f"the {what}bf16 tier DFT takes n_fft a power of two from "
                          f"{2 ** sizes[0]} to {2 ** sizes[-1]}, got {n_fft}")
-    if log2_n in (PACKED_TIER_LOG2_N if name == "wave_packed_fft_bf16" else TIER_LOG2_N):
-        return "one"
-    return "chain" if name == "wave_stft_mel_log_bf16" else "gemm"
+    if name == "wave_packed_fft_bf16":
+        return "one" if log2_n in PACKED_TIER_LOG2_N else "gemm"
+    if name == "wave_stft_mel_log_bf16":
+        return "chain" if tier_route("wave_dft_power_bf16", n_fft, passes) else None
+    if log2_n not in TIER_LOG2_N:
+        return "gemm"
+    plans = [fused_plan(n_fft, p, 1) for p in ([passes] if passes else _EVERY_PASSES)]
+    if None in plans:
+        return None
+    routes = {"fused" if p["fused"] else "gemm" for p in plans}
+    return routes.pop() if len(routes) == 1 else None
 
 
-def _check_tier_size(name: str, n_fft: int, window: torch.Tensor) -> str:
-    """:func:`tier_route` of ``name`` at n_fft, and the window's shape."""
-    route = tier_route(name, n_fft)
+def _check_tier_size(name: str, n_fft: int, window: torch.Tensor, passes) -> str:
+    """:func:`tier_route` of ``name`` at n_fft and ``passes``, and the
+    window's shape."""
+    route = tier_route(name, n_fft, passes)
     if window.shape != (n_fft,):
         raise ValueError(f"window must be ({n_fft},), got {tuple(window.shape)}")
     return route
@@ -1350,6 +1371,46 @@ def frame_groups(frames: int, group_frames: int) -> list:
     """(first frame, frames) of each group of launches of the tier GEMMs over
     ``frames`` frames, ``group_frames`` a group (:func:`gemm_plan`)."""
     return [(r, min(group_frames, frames - r)) for r in range(0, frames, group_frames)]
+
+
+# K1t's and K3t's fused route (featurizer.cu sed_tier_fused_plan): whether
+# it takes the size, then, where the kernel's shape fits, its frame group,
+# the group's X planes, the tables' rows, threads, shared memory, k2 rows a
+# unit, stage 1's columns a pass, ring slots and CTAs.
+_FUSED_PLAN_KEYS = ("fused", "group_frames", "x_bytes", "tab1_rows", "tab2_rows", "threads",
+                    "smem", "unit_rows", "np", "slots", "ctas")
+
+
+def fused_plan(n_fft: int, passes, frames: int,
+               device: Optional[torch.device] = None) -> Optional[dict]:
+    """K1t's and K3t's plan at n_fft (a :data:`TIER_LOG2_N` size) and (inner,
+    outer) ``passes`` over ``frames`` frames, as the kernel library launches
+    them on ``device`` (default: the current card; its
+    ``sed_tier_fused_plan``): ``fused`` (True where the split pass and
+    ``tier_fused_kernel`` run the size; False where the tier GEMMs do), and
+    where the kernel's shape fits (``np`` non-zero, whichever the route)
+    ``group_frames`` (the frames a group of launches takes, its X planes
+    within the library's scratch budget), ``x_bytes`` (a group's X planes),
+    ``tab1_rows`` and ``tab2_rows`` (the tier GEMMs' tables), ``threads``,
+    ``smem`` (dynamic shared memory), ``unit_rows`` (k2 rows a unit),
+    ``np`` (stage 1's columns a pass), ``slots`` (the ring's) and ``ctas``
+    (the grid over a group).  None where no card is present."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    inner, outer = passes
+    return _fused_plan(n_fft.bit_length() - 1, inner, outer, frames, device.index)
+
+
+@functools.lru_cache(maxsize=256)
+def _fused_plan(log2_n: int, inner: int, outer: int, frames: int, device: int) -> dict:
+    values = (ctypes.c_longlong * len(_FUSED_PLAN_KEYS))()
+    err = _library().sed_tier_fused_plan(log2_n, inner, outer, frames, device, values)
+    _check_launch("tier_fused_plan", err)
+    plan = dict(zip(_FUSED_PLAN_KEYS, values))
+    plan["fused"] = bool(plan["fused"])
+    return plan
 
 
 def plane_image(a: np.ndarray, chunks: int, rows: int) -> torch.Tensor:
@@ -1465,34 +1526,6 @@ def _tier_gemm(data: torch.Tensor, kind: int, window: torch.Tensor, out: torch.T
         LAUNCHES["tier_outer"] += 1
 
 
-def _bf16_chunks(a: np.ndarray, n: int, device: torch.device) -> torch.Tensor:
-    """(n, *a.shape) bf16: :func:`split_bf16`'s chunks of ``a``."""
-    parts = split_bf16(torch.from_numpy(np.ascontiguousarray(a)), n)
-    return torch.stack([c.to(torch.bfloat16) for c in parts]).to(device)
-
-
-@functools.lru_cache(maxsize=16)
-def _tier_tables(n: int, inner_chunks: int, outer_chunks: int, device: torch.device):
-    """K1t's, K3t's and K5t's tables of an n-point DFT on ``device``, from
-    sed_tpu's f32 constants split once (bf16):
-      * tab1, ``inner_chunks`` x (2 n2, n2): row 16t + 8h + i the
-        coefficients of Y at k2 = 8t + i (h = 0 real, 1 imaginary part): W2
-        over a;
-      * tab2, ``outer_chunks`` x (2 c, 2 n1), column 2j + h (h = 0: Zr, 1:
-        Zi) of the outer stage over [Tr | Ti]: (W1r, -W1i) and (W1i, W1r) at
-        k1 = j < c, c = n1/2 + 4 (the one-sided bins and bin n/2);
-      * the (n2, n1) f32 twiddles as (re, im) pairs."""
-    n1, n2, (w2r, w2i), (w1r, w1i), (twr, twi) = stft_ops._matmul_fft_constants(n)
-    w2 = np.stack([w2r.reshape(n2 // 8, 8, n2), w2i.reshape(n2 // 8, 8, n2)],
-                  axis=1).reshape(2 * n2, n2)
-    j = np.arange(n1 // 2 + 4)
-    w1 = np.empty((2 * len(j), 2 * n1), np.float32)
-    w1[0::2, :n1], w1[0::2, n1:] = w1r[:, j].T, -w1i[:, j].T
-    w1[1::2, :n1], w1[1::2, n1:] = w1i[:, j].T, w1r[:, j].T
-    tw = torch.from_numpy(np.stack([twr, twi], axis=-1)).to(device)
-    return _bf16_chunks(w2, inner_chunks, device), _bf16_chunks(w1, outer_chunks, device), tw
-
-
 # K6t (featurizer.cu tier_packed_fft_kernel): stage 2's ring of W1 tiles, and the
 # 128-byte swizzle of its shared-memory tiles (rows of 64 bf16).
 _PACKED_RING2 = 2
@@ -1585,38 +1618,46 @@ def _packed_tables(m: int, inner_chunks: int, outer_chunks: int, device: torch.d
     return image(a1, inner_chunks), image(a2, outer_chunks), torch.from_numpy(tw).to(device)
 
 
-def _tier_setup(name: str, n_fft: int, window: torch.Tensor, rows: int, passes,
-                device: torch.device):
-    """Checks what K1t, K3t and K5t take; returns their route
-    (:func:`tier_route`) and, on route 'one', the instance's tables on
-    ``device`` (:func:`_tier_tables`: tab1, tab2, the twiddles; None on the
-    others: the tier GEMMs make their own)."""
-    route = _check_tier_size(name, n_fft, window)
-    if route != "one":
-        return route, None
-    if rows * (n_fft >> ((n_fft.bit_length() - 1) // 2)) // 64 > _MAX_GRID_X:
-        raise ValueError(f"{name}: {rows} frames exceed one launch's grid")
+def _tier_fused(name: str, data: torch.Tensor, kind: int, window: torch.Tensor,
+                out: torch.Tensor, rows: int, n_samples: int, n_frames: int, hop: int,
+                n_fft: int, passes) -> None:
+    """K1t's and K3t's fused route over ``rows`` frames, one-sided power to
+    ``out``, a frame group at a time (:func:`fused_plan`): the split pass to
+    the group's X planes (``kind`` as K1t's and K3t's), then
+    ``tier_fused_kernel`` on the tier GEMMs' tables, counted under
+    ``name``."""
+    device = data.device
     inner, outer = passes
-    return route, _tier_tables(n_fft, _tier_chunks(inner), _tier_chunks(outer), device)
+    plan = fused_plan(n_fft, passes, rows, device)
+    tab1, tab2, tw = _gemm_images(n_fft, False, _tier_chunks(inner), _tier_chunks(outer),
+                                  plan["tab1_rows"], plan["tab2_rows"], device)
+    scratch = torch.empty(plan["x_bytes"], dtype=torch.uint8, device=device)
+    x = scratch.data_ptr()
+    log2_n = n_fft.bit_length() - 1
+    shape = (*_gemm_dims(n_fft), 0, inner, outer)
+    row_bytes = 4 * (n_fft // 2 + 1)
+    lib, stream = _library(), _stream(device)
+    for row0, g in frame_groups(rows, plan["group_frames"]):
+        err = lib.sed_tier_split(data.data_ptr(), kind, window.data_ptr(), x, row0, g, n_samples,
+                                 n_frames, hop, *shape, device.index, stream)
+        _check_launch("tier_split", err)
+        LAUNCHES["tier_split"] += 1
+        err = lib.sed_tier_dft_power(x, tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
+                                     out.data_ptr() + row0 * row_bytes, g, log2_n, inner, outer,
+                                     device.index, stream)
+        _check_launch(name, err)
+        LAUNCHES[name] += 1
 
 
 def _launch_tier(name: str, kind: int, data: torch.Tensor, window: torch.Tensor,
                  out: torch.Tensor, rows: int, n_samples: int, n_frames: int, hop: int,
                  n_fft: int, passes) -> None:
-    device = data.device
-    route, tables = _tier_setup(name, n_fft, window, rows, passes, device)
-    if route == "gemm":
+    """K1t's route (K3t's, K5t's first part; the fused kernel counted under
+    ``name``) at n_fft and ``passes``: one-sided power to ``out``."""
+    if tier_route("wave_dft_power_bf16", n_fft, passes) == "gemm":
         _tier_gemm(data, kind, window, out, None, rows, n_samples, n_frames, hop, n_fft, passes)
-        return
-    tab1, tab2, tw = tables
-    log2_n = n_fft.bit_length() - 1
-    inner, outer = passes
-    err = _library().sed_tier_dft_power(
-        data.data_ptr(), kind, window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(),
-        tw.data_ptr(), out.data_ptr(), rows, n_samples, n_frames, hop, log2_n, inner, outer,
-        device.index, _stream(device))
-    _check_launch(name, err)
-    LAUNCHES[name] += 1
+    else:
+        _tier_fused(name, data, kind, window, out, rows, n_samples, n_frames, hop, n_fft, passes)
 
 
 def wave_dft_power_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_fft: int,
@@ -1627,8 +1668,9 @@ def wave_dft_power_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_f
     'bf16x6', or an (inner, outer) pair).
 
     CPU tensors take :func:`wave_dft_power_bf16_plain`; CUDA tensors launch
-    K1t (``tier_dft_kernel`` with K1's framing; n_fft 2048..131072; the tier
-    GEMMs at 128..1024 and 2^18..2^20).  Both go
+    K1t: the split pass with K1's framing, then ``tier_fused_kernel`` where
+    the library's :func:`fused_plan` takes the size and passes (n_fft
+    2048..32768), the tier GEMMs elsewhere (128..2^20).  Both go
     through the custom operator ``sed_tpu_torch::wave_dft_power_bf16``, which
     takes the two stages' passes as ints, so an exported program holds it.
     """
@@ -1674,8 +1716,8 @@ def frames_dft_power_bf16(frames: torch.Tensor, window: torch.Tensor, n_fft: int
     :func:`wave_dft_power_bf16`).
 
     CPU tensors take :func:`frames_dft_power_bf16_plain`; CUDA tensors launch
-    K3t (``tier_dft_kernel`` with K3's row loads; the window of int16 rows
-    scaled by 1/32768 on the card, as :func:`frames_stft_power`).
+    K3t (K1t's route with K3's rows in the split pass; the window of int16
+    rows scaled by 1/32768 on the card, as :func:`frames_stft_power`).
     """
     passes = _reduced_passes(precision)
     if frames.device.type == "cpu":
@@ -1693,7 +1735,7 @@ def frames_dft_power_bf16(frames: torch.Tensor, window: torch.Tensor, n_fft: int
     rows = frames.shape[0]
     out = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
     if rows == 0:
-        _check_tier_size("frames_dft_power_bf16", n_fft, window)
+        _check_tier_size("frames_dft_power_bf16", n_fft, window, passes)
         return out
     frames = _pair_aligned(frames)
     is_int16 = frames.dtype == torch.int16
@@ -1712,13 +1754,13 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
                            bands: MelBands, precision, mel_precision=None) -> torch.Tensor:
     """(n_sig, samples) f32 -> (n_sig, 1 + samples // hop, n_mels) f32
     log-mel: K1t at a reduced ``precision`` (:func:`tier_passes`) then K2 at
-    ``mel_precision`` (:func:`mel_passes`) in one kernel, no power array in
-    device memory.
+    ``mel_precision`` (:func:`mel_passes`).
 
     CPU tensors take :func:`wave_stft_mel_log_bf16_plain`; CUDA tensors
-    launch K5t (``tier_dft_mel_log_kernel``, n_fft 2048..131072; above it, a
-    frame's blocks exceed a cluster: K1t's launches, then K2), equal to
-    :func:`wave_dft_power_bf16` then :func:`mel_log` bit for bit.
+    launch K5t: K1t's route (the split pass, then ``tier_fused_kernel``,
+    counted under this wrapper's name, or the tier GEMMs) to a power array,
+    then K2; equal to :func:`wave_dft_power_bf16` then :func:`mel_log` bit
+    for bit.
     """
     passes = _reduced_passes(precision)
     mode = mel_passes(mel_precision)
@@ -1735,24 +1777,13 @@ def wave_stft_mel_log_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, 
                          f"{n_fft // 2 + 1}")
     n_sig, n_samples = waves.shape
     rows = n_sig * n_frames
-    route, tables = _tier_setup("wave_stft_mel_log_bf16", n_fft, window, rows, passes, device)
-    out = torch.empty((n_sig, n_frames, bands.n_mels), dtype=torch.float32, device=device)
+    _check_tier_size("wave_stft_mel_log_bf16", n_fft, window, passes)
     if n_sig == 0:
-        return out
-    if route == "chain":
-        power = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
-        _tier_gemm(waves, 0, window, power, None, rows, n_samples, n_frames, hop, n_fft, passes)
-        return _launch_mel_log(power, bands, mode).reshape(n_sig, n_frames, -1)
-    tab1, tab2, tw = tables
-    log2_n = n_fft.bit_length() - 1
-    err = _library().sed_tier_dft_mel_log(
-        waves.data_ptr(), window.data_ptr(), tab1.data_ptr(), tab2.data_ptr(), tw.data_ptr(),
-        bands.segments.data_ptr(), bands.band_first.data_ptr(), bands.weights.data_ptr(),
-        out.data_ptr(), rows, n_samples, n_frames, hop, log2_n, *passes, mode, bands.n_mels,
-        bands.n_segments, device.index, _stream(device))
-    _check_launch("wave_stft_mel_log_bf16", err)
-    LAUNCHES["wave_stft_mel_log_bf16"] += 1
-    return out
+        return torch.empty((n_sig, n_frames, bands.n_mels), dtype=torch.float32, device=device)
+    power = torch.empty((rows, n_fft // 2 + 1), dtype=torch.float32, device=device)
+    _launch_tier("wave_stft_mel_log_bf16", 0, waves, window, power, rows, n_samples, n_frames,
+                 hop, n_fft, passes)
+    return _launch_mel_log(power, bands, mode).reshape(n_sig, n_frames, -1)
 
 
 def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_fft: int,
@@ -1773,7 +1804,7 @@ def wave_packed_fft_bf16(waves: torch.Tensor, window: torch.Tensor, hop: int, n_
         raise ValueError(f"wave_packed_fft_bf16: unsupported device {waves.device}")
     device = waves.device
     n_frames = _check_waves("wave_packed_fft_bf16", waves, window, hop, n_fft)
-    route = _check_tier_size("wave_packed_fft_bf16", n_fft, window)
+    route = _check_tier_size("wave_packed_fft_bf16", n_fft, window, passes)
     log2_m = n_fft.bit_length() - 2
     n_sig, n_samples = waves.shape
     rows = n_sig * n_frames
@@ -1842,21 +1873,25 @@ def impl_kernels(impl: str, precision=None, mel_precision=None,
     """The kernels (:data:`LAUNCHES` names) that ``logmel_waveform(impl=impl,
     precision=precision, mel_precision=mel_precision)`` launches on a CUDA
     tensor, once each: the wrappers' one-launch kernels, and with ``n_fft``
-    the kernels of each wrapper's route at that size in its place
-    (:func:`launch_plan`)."""
-    names = (IMPL_KERNELS if tier_passes(precision) is None else REDUCED_IMPL_KERNELS)[impl]
+    the kernels of each wrapper's route at that size and precision in its
+    place (:func:`launch_plan`)."""
+    passes = tier_passes(precision)
+    names = (IMPL_KERNELS if passes is None else REDUCED_IMPL_KERNELS)[impl]
     mode = bool(mel_passes(mel_precision)) and impl not in _PARITY_MEL_IMPLS
     if mode:
         names = tuple(_MEL_MODE_KERNELS.get(n, n) for n in names)
     if n_fft is None:
         return names
-    plan, out = launch_plan(n_fft), []
+    plan, out = launch_plan(n_fft, passes=passes), []
     parity_name = {v: k for k, v in _MEL_MODE_KERNELS.items()}
     for name in names:
         p = plan[parity_name.get(name, name)]
         if p["route"] == "one":
             out.append(name)
             continue
+        if p["kernels"] is None:
+            raise ValueError(f"{name}'s route at n_fft {n_fft} is the kernel library's "
+                             f"choice (fused_plan), which needs a card")
         out.extend(_MEL_MODE_KERNELS["mel_log"] if mode and k == "mel_log" else k
                    for k in p["kernels"])
     return tuple(out)
@@ -1997,8 +2032,8 @@ def power_to_logmel_cuda(power: torch.Tensor,
 def logmel_waveform_fused(waveforms: torch.Tensor,
                           cfg: SpectrogramConfig = DEFAULT_SPECTROGRAM,
                           precision=None, mel_precision="bf16x4") -> torch.Tensor:
-    """impl='fuse': (n_signals, samples) -> (n_signals, n_frames, mel_bins)
-    in one launch: K5 at the parity tier (K5b at a ``mel_precision`` with
+    """impl='fuse': (n_signals, samples) -> (n_signals, n_frames, mel_bins):
+    K5 at the parity tier in one launch (K5b at a ``mel_precision`` with
     bf16 passes), K5t at a reduced ``precision``; each equal to its power
     kernel (K1, K1t) then K2 at ``mel_precision`` bit for bit, as sed_tpu
     pins fuse == roll."""

@@ -669,10 +669,12 @@ def test_k1_and_k5_launch_one_kernel_on_the_inputs_device(cuda, name):
 
 @pytest.mark.parametrize("name", ["k5t", "k5b", "k6t"])
 def test_k5t_k5b_k6t_launch_one_kernel(cuda, name):
-    """One CUDA call of K5t's, K5b's and K6t's wrappers is one launch of its
-    kernel and no other device work (torch.profiler).  It runs beside K1's,
-    K5's and K6's: at the end of a whole run of this file the profiler
-    caught no device event at all (PERF.md §7)."""
+    """One CUDA call of K5b's and K6t's wrappers is one launch of its kernel
+    and no other device work (torch.profiler); K5t's is K1t's route, the
+    split pass and one launch of the fused kernel (counted under K5t's
+    name), then K2.  It runs beside K1's, K5's and K6's: at
+    the end of a whole run of this file the profiler caught no device event
+    at all (PERF.md §7)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -680,7 +682,7 @@ def test_k5t_k5b_k6t_launch_one_kernel(cuda, name):
     window, bands = kernels.stft_window(PROD, cuda), kernels.mel_bands(PROD, cuda)
     hop, n_fft = PROD.hop_size, PROD.nfft
     counter, kernel, call = {
-        "k5t": ("wave_stft_mel_log_bf16", "tier_dft_mel_log_kernel",
+        "k5t": ("wave_stft_mel_log_bf16", "tier_fused_kernel",
                 lambda: kernels.wave_stft_mel_log_bf16(waves, window, hop, n_fft, bands,
                                                        "bf16x3", "bf16x1")),
         "k5b": ("wave_stft_mel_log_mel_bf16", "wave_stft_mel_log_kernel",
@@ -696,6 +698,10 @@ def test_k5t_k5b_k6t_launch_one_kernel(cuda, name):
         torch.cuda.synchronize()
     assert kernels.LAUNCHES[counter] == before + 1
     on_device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if name == "k5t":
+        assert len(on_device) == 3 and "tier_split_kernel" in on_device[0], on_device
+        assert "mel_log_kernel" in on_device[2], on_device
+        on_device = on_device[1:2]
     assert len(on_device) == 1 and kernel in on_device[0], on_device
     assert all(t.device == waves.device for t in (out if isinstance(out, tuple) else (out,)))
 
@@ -1872,16 +1878,17 @@ FUSE_MODES = [("bf16x3", None), ("bf16x1", None), ("bf16x4", None), ("bf16x6", N
 @pytest.mark.parametrize("precision, mel_precision", FUSE_MODES, ids=str)
 @pytest.mark.parametrize("n_fft", [2048, 8192, 32768])
 def test_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
-    """K5t is K1t then K2 at mel_precision's mode in one launch: equal bit
-    for bit, with 1, 2 and 4 blocks a frame (one thread-block cluster)."""
+    """K5t is K1t's route then K2 at mel_precision's mode (the launch plan's
+    kernels, once each): equal to K1t then K2 bit for bit, with 1, 2 and 4
+    units a frame."""
     cfg = tier_cfg(n_fft) if n_fft != PROD.nfft else PROD
     waves = signals(3, 5 * cfg.working_sample_rate + 321, cfg.working_sample_rate, cuda)
     window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
-    before = kernels.LAUNCHES["wave_stft_mel_log_bf16"]
-    got = kernels.wave_stft_mel_log_bf16(waves, window, cfg.hop_size, n_fft, bands, precision,
-                                         mel_precision)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["wave_stft_mel_log_bf16"] == before + 1
+    route = kernels.launch_plan(n_fft, passes=kernels.tier_passes(precision))
+    mel = "mel_log_bf16" if kernels.mel_passes(mel_precision) else "mel_log"
+    got = launched_once(lambda: kernels.wave_stft_mel_log_bf16(
+        waves, window, cfg.hop_size, n_fft, bands, precision, mel_precision),
+        *route["wave_stft_mel_log_bf16"]["kernels"][:-1], mel)
     power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
     two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
     assert got.shape == (3, 1 + waves.shape[1] // cfg.hop_size, bands.n_mels)
@@ -1959,7 +1966,8 @@ def test_fuse_and_pack_tiers_launch_their_row(cuda, impl, precision, mel_precisi
                                   mel_precision=mel_precision)
     torch.cuda.synchronize()
     want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
-    want_launches.update(dict.fromkeys(kernels.impl_kernels(impl, precision, mel_precision), 1))
+    want_launches.update(dict.fromkeys(kernels.impl_kernels(impl, precision, mel_precision,
+                                                            n_fft=SMALL.nfft), 1))
     assert kernels.LAUNCHES == want_launches
     if precision is not None:
         assert kernels.impl_kernels(impl, precision) == kernels.REDUCED_IMPL_KERNELS[impl]
@@ -2106,17 +2114,70 @@ def test_predictor_and_tick_at_96_and_192_khz(cuda, n_fft):
 
 
 @pytest.mark.parametrize("precision", ALL_PASSES, ids=str)
+@pytest.mark.parametrize("n_fft", [2048, 4096, 8192, 16384, 32768])
+def test_fused_tiers_every_size_and_pass_count(cuda, n_fft, precision):
+    """K1t's route at every size the fused kernel takes and every (inner,
+    outer) pass count, as the library's plan gives it (the split pass, then
+    tier_fused_kernel; the tier GEMMs where fused_route declines): K1t on
+    frames over both reflection edges and interior ones, K3t on float32 and
+    int16 rows, each kernel of the route once a call and every bin within
+    tier_tol x the frame's peak of the plain version; tier_fused_kernel at
+    every shape that fits (the library's fused_plan), the plan's route or
+    not, within the same bound; K5t, K1t's route then K2, equal to K1t then
+    K2 bit for bit at each mel_precision."""
+    cfg = tier_cfg(n_fft)
+    passes = kernels.tier_passes(precision)
+    plan = kernels.launch_plan(n_fft, passes=passes)
+    route = kernels.tier_route("wave_dft_power_bf16", n_fft, passes)
+    fits = kernels.fused_plan(n_fft, passes, 1)
+    assert route == ("fused" if fits["fused"] else "gemm") and fits["np"] > 0
+    waves = signals(2, 3 * cfg.hop_size + 777, cfg.working_sample_rate, cuda, seed=11)
+    window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
+    hop = cfg.hop_size
+    power = launched_once(lambda: kernels.wave_dft_power_bf16(waves, window, hop, n_fft,
+                                                              precision),
+                          *plan["wave_dft_power_bf16"]["kernels"])
+    want = kernels.wave_dft_power_bf16_plain(waves, window, hop, n_fft, precision)
+    peak = want.amax(dim=-1, keepdim=True)
+    rel = float(((power - want).abs() / peak).max())
+    assert rel <= tier_tol(precision), rel
+    fused = torch.empty_like(power)
+    rows = waves.shape[0] * fused.shape[1]
+    kernels._tier_fused("wave_dft_power_bf16", waves, 0, window, fused, rows, waves.shape[1],
+                        fused.shape[1], hop, n_fft, passes)
+    rel = float(((fused - want).abs() / peak).max())
+    assert rel <= tier_tol(precision), ("tier_fused_kernel", rel)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    rows = 0.3 * torch.randn(5, n_fft, generator=g, device=cuda)
+    for x in (rows, (rows * 8000).round().to(torch.int16)):
+        got = launched_once(lambda: kernels.frames_dft_power_bf16(x, window, n_fft, precision),
+                            *plan["frames_dft_power_bf16"]["kernels"])
+        want = kernels.frames_dft_power_bf16_plain(x, window, n_fft, precision)
+        rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True)).max())
+        assert rel <= tier_tol(precision), (x.dtype, rel)
+    assert plan["wave_stft_mel_log_bf16"]["route"] == "chain"
+    for mel_precision in (None, "bf16x1", "bf16x3"):
+        mel = "mel_log_bf16" if kernels.mel_passes(mel_precision) else "mel_log"
+        got = launched_once(lambda: kernels.wave_stft_mel_log_bf16(
+            waves, window, hop, n_fft, bands, precision, mel_precision),
+            *plan["wave_stft_mel_log_bf16"]["kernels"][:-1], mel)
+        two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
+        assert torch.equal(got.reshape(-1, bands.n_mels), two), mel_precision
+
+
+@pytest.mark.parametrize("precision", ALL_PASSES, ids=str)
 @pytest.mark.parametrize("n_fft", sorted(WIDE))
 def test_wide_k1t_matches_its_plain_version(cuda, n_fft, precision):
-    """K1t at n1 = 256 (n2 256 and 512) at every pass count of each stage,
-    the staged-T instances (a stage of 6 passes) included: one launch,
-    within tier_tol x each frame's peak of the plain version."""
+    """K1t at n1 = 256 (n2 256 and 512) at every pass count of each stage:
+    the route the library's plan gives (the tier GEMMs: no fused shape fits
+    there), each of its kernels once, within tier_tol x each frame's peak of
+    the plain version."""
     cfg, waves = wide_signals(n_fft, cuda, hops=3)
     window = kernels.stft_window(cfg, cuda)
-    before = kernels.LAUNCHES["wave_dft_power_bf16"]
-    got = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["wave_dft_power_bf16"] == before + 1
+    assert kernels.tier_route("wave_dft_power_bf16", n_fft) == "gemm"
+    got = launched_once(lambda: kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft,
+                                                            precision),
+                        *kernels.launch_plan(n_fft)["wave_dft_power_bf16"]["kernels"])
     want = kernels.wave_dft_power_bf16_plain(waves, window, cfg.hop_size, n_fft, precision)
     assert got.shape == want.shape
     peak = want.amax(dim=-1, keepdim=True)
@@ -2152,10 +2213,8 @@ def test_wide_k3t_matches_its_plain_version(cuda, n_fft, precision, dtype):
     if dtype == torch.int16:
         rows = (rows * 8000).round().to(torch.int16)
     window = kernels.stft_window(WIDE[n_fft], cuda)
-    before = kernels.LAUNCHES["frames_dft_power_bf16"]
-    got = kernels.frames_dft_power_bf16(rows, window, n_fft, precision)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["frames_dft_power_bf16"] == before + 1
+    got = launched_once(lambda: kernels.frames_dft_power_bf16(rows, window, n_fft, precision),
+                        *kernels.launch_plan(n_fft)["frames_dft_power_bf16"]["kernels"])
     want = kernels.frames_dft_power_bf16_plain(rows, window, n_fft, precision)
     rel = float(((got - want).abs() / want.amax(dim=-1, keepdim=True)).max())
     assert rel <= tier_tol(precision), rel
@@ -2166,15 +2225,16 @@ def test_wide_k3t_matches_its_plain_version(cuda, n_fft, precision, dtype):
                          ids=str)
 @pytest.mark.parametrize("n_fft", sorted(WIDE))
 def test_wide_k5t_equals_k1t_then_k2(cuda, n_fft, precision, mel_precision):
-    """K5t at n1 = 256: a frame's 4 (n_fft 65536) or 8 (131072) blocks one
-    cluster; equal to K1t then K2 at mel_precision's mode bit for bit."""
+    """K5t at n1 = 256: K1t's route (the tier GEMMs), then K2, each kernel
+    once; equal to K1t then K2 at mel_precision's mode bit for bit."""
     cfg, waves = wide_signals(n_fft, cuda, hops=3)
     window, bands = kernels.stft_window(cfg, cuda), kernels.mel_bands(cfg, cuda)
-    before = kernels.LAUNCHES["wave_stft_mel_log_bf16"]
-    got = kernels.wave_stft_mel_log_bf16(waves, window, cfg.hop_size, n_fft, bands, precision,
-                                         mel_precision)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["wave_stft_mel_log_bf16"] == before + 1
+    route = kernels.launch_plan(n_fft)["wave_stft_mel_log_bf16"]
+    assert route["route"] == "chain"
+    mel = "mel_log_bf16" if kernels.mel_passes(mel_precision) else "mel_log"
+    got = launched_once(lambda: kernels.wave_stft_mel_log_bf16(
+        waves, window, cfg.hop_size, n_fft, bands, precision, mel_precision),
+        *route["kernels"][:-1], mel)
     power = kernels.wave_dft_power_bf16(waves, window, cfg.hop_size, n_fft, precision)
     two = kernels.mel_log(power.reshape(-1, n_fft // 2 + 1), bands, mel_precision)
     assert torch.equal(got.reshape(-1, bands.n_mels), two)
@@ -2489,16 +2549,35 @@ def test_launch_plan_from_the_library_within_shared_memory(cuda, log2_n):
     """launch_plan on the card, where K2's rows at once and shared memory
     come from the library (sed_mel_plan, the rule K2 launches by): every
     kernel's plan known and within 232,448 B at every power of two 4..2^20
-    with the 64-band bank's segments at that size; K2 four rows at a time
-    up to 2^19 (524,289 bins), one at 2^20, and one for a few rows."""
+    and every pass count of the tiers, with the 64-band bank's segments at
+    that size; K2 four rows at a time up to 2^19 (524,289 bins), one at 2^20,
+    and one for a few rows."""
     n_fft = 1 << log2_n
     n_seg = 1
     if n_fft >= 64:   # a rate whose frame is 3/4 of n_fft
         cfg = SpectrogramConfig(working_sample_rate=int(0.75 * n_fft / 0.66))
         assert cfg.nfft == n_fft
         n_seg = kernels.mel_bands(cfg, torch.device("cpu")).n_segments
-    plan = kernels.launch_plan(n_fft, n_seg)
-    assert all(p["smem"] is not None and p["smem"] <= 232448 for p in plan.values()), plan
+    for passes in ALL_PASSES:
+        passes = kernels.tier_passes(passes)
+        plan = kernels.launch_plan(n_fft, n_seg, passes=passes)
+        assert all(p["smem"] is not None and p["smem"] <= 232448 for p in plan.values()), plan
+        # K1t's and K3t's route from the library's fused plan: the split pass
+        # then the fused kernel at n_fft 2048..32768 where fused_route takes
+        # the passes, else the tier GEMMs; K5t K1t's route, then K2.
+        for name in ("wave_dft_power_bf16", "frames_dft_power_bf16", "wave_stft_mel_log_bf16"):
+            if log2_n not in kernels.TIER_RANGES[name]:
+                continue
+            fused = log2_n in range(11, 16) and kernels.fused_plan(n_fft, passes, 1)["fused"]
+            if name == "wave_stft_mel_log_bf16":
+                assert plan[name]["route"] == "chain"
+                assert plan[name]["kernels"][-1] == "mel_log"
+            elif fused:
+                assert plan[name]["route"] == "fused"
+                assert plan[name]["kernels"] == ("tier_split", name)
+            else:
+                assert plan[name]["route"] == "gemm"
+            assert plan[name]["cluster"] == 1
     many = 4 if n_fft <= 524288 else 1
     assert plan["mel_log"]["instance"] == f"mel_log_kernel<{many}, kPasses>"
     assert kernels.mel_plan(n_seg, 64, rows=7)["rows_at_once"] == 1

@@ -17,9 +17,8 @@ from sed_tpu_torch.ops import cuda_featurizer as kernels
 
 ENTRY_POINTS = ("sed_wave_stft_power", "sed_frames_stft_power", "sed_mel_log",
                 "sed_wave_stft_mel_log", "sed_wave_packed_fft", "sed_tier_dft_power",
-                "sed_tier_dft_mel_log", "sed_tier_packed_fft", "sed_fft_cross_pass",
-                "sed_fft_subrows", "sed_packed_power", "sed_tier_split", "sed_tier_inner",
-                "sed_tier_outer")
+                "sed_tier_packed_fft", "sed_fft_cross_pass", "sed_fft_subrows",
+                "sed_packed_power", "sed_tier_split", "sed_tier_inner", "sed_tier_outer")
 GUARD = ("const DeviceGuard guard(device);",
          "if (guard.status() != cudaSuccess) return guard.status();")
 
@@ -45,10 +44,10 @@ def launches(body) -> bool:
 def test_the_launching_entry_points_are_the_five_wrapped_ones():
     functions = extern_c_functions()
     assert {n for n, (_, body) in functions.items() if launches(body)} == set(ENTRY_POINTS)
-    # beside them, three that launch nothing: the error string, K2's plan and
-    # the tier GEMMs' plan
+    # beside them, four that launch nothing: the error string, K2's plan, the
+    # tier GEMMs' plan and the fused tier route's plan
     assert set(functions) == set(ENTRY_POINTS) | {"sed_error_string", "sed_mel_plan",
-                                                  "sed_tier_gemm_plan"}
+                                                  "sed_tier_gemm_plan", "sed_tier_fused_plan"}
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -131,9 +131,10 @@ def test_tick_logmel_frames_match_sed_tpu(sr):
 @pytest.mark.parametrize("sr", (8000, 48000) + RATES)
 def test_launch_plan_admits_each_rate_within_shared_memory(sr):
     """Every kernel's plan at the rate's n_fft: the FFT kernels over one CTA
-    up to n_fft 32768, a cluster of 2 at 65536 and 4 at 131072; K5t's
-    cluster n2 / 64 blocks (8 at 131072, the portable limit); every plan's
-    dynamic shared memory within 232,448 B."""
+    up to n_fft 32768, a cluster of 2 at 65536 and 4 at 131072; K1t's and
+    K5t's route and cluster the library's (sed_tier_fused_plan: None
+    without a card; test_torch_cuda.py reads K5t's n2 / 64 CTAs on the
+    card); every plan's dynamic shared memory within 232,448 B."""
     cfg = configs(sr)[0]
     plan = kernels.launch_plan(cfg.nfft, kernels.mel_bands(cfg, torch.device("cpu")).n_segments)
     want_cluster = max(1, cfg.nfft // 32768)
@@ -143,8 +144,9 @@ def test_launch_plan_admits_each_rate_within_shared_memory(sr):
     log2_n = cfg.nfft.bit_length() - 1
     n2 = cfg.nfft >> (log2_n // 2)
     if log2_n in kernels.TIER_LOG2_N:
-        assert plan["wave_stft_mel_log_bf16"]["cluster"] == n2 // 64
-        assert plan["wave_dft_power_bf16"]["cluster"] == 1
+        assert n2 // 64 <= 8
+        for name in ("wave_stft_mel_log_bf16", "wave_dft_power_bf16"):
+            assert plan[name]["route"] is None and plan[name]["cluster"] is None
     if log2_n in kernels.PACKED_TIER_LOG2_N:
         assert plan["wave_packed_fft_bf16"]["cluster"] == 1
     # K2's entry (None here) is the library's: tests/test_torch_cuda.py reads

@@ -243,18 +243,25 @@ def test_launch_plan_covers_every_size_within_shared_memory(log2_n):
     """At every power of two 4..2^20: every kernel's plan within 232,448 B
     of dynamic shared memory (the segment sums of the bank at that size);
     the FFT kernels over one launch up to 131072, then the cross pass (and
-    K5 a chain); the tier kernels over their range, their instances where
-    they reach, the GEMMs (K5t a chain) elsewhere; every route's kernels
-    with plans of their own, and a multi-launch route counting its kernels,
-    not itself.  K2's and the tier GEMMs' stages' shared memory is the
-    library's choice (None here, read on the card by test_torch_cuda.py), so
-    are the routes' that run them."""
+    K5 a chain); the tier kernels over their range: K6t's instances where
+    they reach, the GEMMs (K5t a chain) elsewhere, and at TIER_LOG2_N K1t's,
+    K3t's and K5t's route the library's (the fused kernel or the GEMMs,
+    sed_tier_fused_plan: None here); every known route's kernels with plans
+    of their own, and a multi-launch route counting its kernels, not itself.
+    K2's and the tier GEMMs' stages' shared memory is the library's choice
+    (None here, read on the card by test_torch_cuda.py), so are the routes'
+    that run them."""
     n_fft = 1 << log2_n
     n_seg = segments_at(n_fft) if n_fft >= 64 else 1
     plan = kernels.launch_plan(n_fft, n_seg)
     unknown = {name for name, p in plan.items() if p["smem"] is None}
     library = {"mel_log", "tier_inner", "tier_outer"}
-    assert unknown == {name for name, p in plan.items() if library & set(p["kernels"])}
+    chosen = {name for name, p in plan.items() if p["route"] is None}
+    assert chosen == ({"wave_dft_power_bf16", "frames_dft_power_bf16", "wave_stft_mel_log_bf16"}
+                      & set(plan) if log2_n in kernels.TIER_LOG2_N else set())
+    assert all(set(plan[name].values()) == {None} for name in chosen)
+    assert unknown - chosen == {name for name, p in plan.items()
+                                if name not in chosen and library & set(p["kernels"])}
     assert all(p["smem"] <= 232448 for p in plan.values() if p["smem"] is not None)
     for name in ("wave_stft_power", "frames_stft_power", "wave_packed_fft", "wave_stft_mel_log",
                  "mel_log"):
@@ -266,9 +273,11 @@ def test_launch_plan_covers_every_size_within_shared_memory(log2_n):
         if name in plan:
             inst = kernels.PACKED_TIER_LOG2_N if "packed" in name else kernels.TIER_LOG2_N
             route = plan[name]["route"]
-            assert route == ("one" if log2_n in inst else
+            assert route == (("one" if "packed" in name else None) if log2_n in inst else
                              "chain" if name == "wave_stft_mel_log_bf16" else "gemm")
     for name, p in plan.items():
+        if name in chosen:
+            continue
         assert all(k in plan and plan[k]["route"] == "one" for k in p["kernels"])
         assert (p["kernels"] == (name,)) == (p["route"] == "one")
 

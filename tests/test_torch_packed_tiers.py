@@ -394,7 +394,8 @@ def test_t_planes_are_the_twiddled_t_split(n_fft, precision):
 
 
 GEMM_CASES = [(128, "bf16x3", False), (128, "bf16x1", False), (256, ("bf16x6", "bf16x4"), False),
-              (512, "bf16x6", False), (1024, "bf16x3", False), (262144, "bf16x3", False),
+              (512, "bf16x6", False), (1024, "bf16x3", False), (65536, "bf16x3", False),
+              (131072, "bf16x6", False), (262144, "bf16x3", False),
               (1048576, "bf16x1", False), (256, "bf16x3", True), (512, ("bf16x1", "bf16x6"), True),
               (1024, "bf16x4", True), (2048, "bf16x3", True), (262144, "bf16x6", True),
               (1048576, "bf16x3", True)]
@@ -405,8 +406,9 @@ def test_model_of_the_tier_gemms_matches_the_plain_version(n_fft, precision, pac
     """K1t's power (``_tier_power_plain``) or K6t's Z (``_tier_packed_plain``)
     of 3 frames through the split pass and both stages: n1 = 8 (a quarter of
     a 64-deep k tile, stage 1's 32 rows of a 128-row tile) up to n1 = 1024,
-    n2 = 1024; within 5e-6 x the frame's peak, 1.5e-3 where the outer stage
-    is bf16x1 (its one rounding)."""
+    n2 = 1024, n1 = 256 (n_fft 65536 and 131072, where no fused shape fits
+    and K1t runs the GEMMs; bf16x6 there too); within 5e-6 x the frame's
+    peak, 1.5e-3 where the outer stage is bf16x1 (its one rounding)."""
     passes = kernels.tier_passes(precision)
     x = np.random.default_rng(n_fft).standard_normal((3, n_fft)).astype(np.float32)
     n = n_fft // 2 if packed else n_fft
@@ -510,11 +512,14 @@ def test_gemm_plans_follow_sed_tpus_factorisation(log2_n):
     the split pass and their two stages are entries of their own (the split
     pass with static shared memory only; the stages' from the library,
     None without a card), over sed_tpu's n = n1 n2 (n1 = 2^(log2 n // 2)) of
-    the frame (K1t, K3t) or of its m packed points (K6t)."""
+    the frame (K1t, K3t) or of its m packed points (K6t).  At n_fft 2048
+    K1t's, K3t's and K5t's route is the library's (None here)."""
     n_fft = 1 << log2_n
     plan = kernels.launch_plan(n_fft)
     for name in kernels.TIER_RANGES:
-        if name not in plan or plan[name]["route"] == "one":
+        if name not in plan or plan[name]["route"] not in ("gemm", "chain"):
+            assert name not in plan or plan[name]["route"] == (
+                "one" if name == "wave_packed_fft_bf16" else None)
             continue
         parts = plan[name]["kernels"]
         assert parts[:3] == kernels.GEMM_KERNELS == ("tier_split", "tier_inner", "tier_outer")
@@ -524,3 +529,304 @@ def test_gemm_plans_follow_sed_tpus_factorisation(log2_n):
         n = n_fft // 2 if name == "wave_packed_fft_bf16" else n_fft
         n1, n2 = stft_ops._matmul_fft_constants(n)[:2]
         assert tuple(1 << e for e in kernels._gemm_dims(n)) == (n1, n2)
+
+
+# ---------------------------------------------------------------------------
+# The fused route (tier_fused_kernel): K1t and K3t (and K5t, K1t's route then
+# K2) where the library's sed_tier_fused_plan takes the size and passes (n_fft
+# 2048..32768, n1 32..128, at most two stage-1 passes).  The
+# split pass writes the X planes as above; then one kernel takes both stages
+# of each unit (frame, 64 k2 rows): stage 1 multiplies the unit's 128 rows of
+# the tab1 plane by the frame's X plane, np columns b a pass, a partial a
+# 64-deep k tile; its epilogue twiddles and splits T into shared memory (64
+# rows k2, K = [Tr | Ti] over b, in the swizzled K-major image wgmma reads);
+# stage 2 multiplies T by the tab2 plane's n1 + 8 rows, the two multiplying
+# warpgroups half of the one-sided columns each (warpgroup 2 also bin n /
+# 2's), and drains |Z|^2 to the natural bins.  The model below follows that
+# data flow
+# with the kernel's fragment positions; the shape (np, ring slots) is the
+# model's copy of featurizer.cu fused_shape, which the library reports on
+# the card (sed_tier_fused_plan, held against it by test_torch_cuda.py).
+# ---------------------------------------------------------------------------
+
+def fused_shape(n1, passes):
+    """featurizer.cu fused_shape: the first np (n1, then halves down to 32)
+    and ring slots (4, 3, 2) whose T, ring and barriers fit 227 KB; None
+    above n1 128 (those sizes run the tier GEMMs)."""
+    c1, c2 = (kernels._tier_chunks(p) for p in passes)
+    if not 32 <= n1 <= 128:
+        return None
+    np_ = n1
+    while np_ >= 32:
+        for slots in (4, 3, 2):
+            slot = max(c1 * (128 + np_) * 128, c2 * (n1 + 8) * 128)
+            smem = c2 * n1 * 256 + slots * slot + 8 * 2 * slots + 1024
+            if smem <= 232448:
+                return {"np": np_, "slots": slots, "slot": slot, "smem": smem}
+        np_ //= 2
+    return None
+
+
+def fused_route(n1, passes):
+    """featurizer.cu fused_route: whether K1t and K3t take the fused kernel
+    (else the tier GEMMs): a shape fits, in at most two stage-1 passes."""
+    shape = fused_shape(n1, passes)
+    return shape is not None and 2 * shape["np"] >= n1
+
+
+def stage1_fragments(n1, np_):
+    """(k2 row of the unit, b) of each stage-1 accumulator value the two
+    warpgroups hold after every pass, as the epilogue reads them: warpgroup w,
+    warp, lane (g = lane / 4, tig = lane mod 4), column pair i: k2 = 32 w + 8
+    warp + g (Yr at tile row 64 w + 16 warp + g, Yi 8 below), b = h np + 8 i +
+    2 tig and b + 1."""
+    w, warp, lane, i, e, h = np.meshgrid(np.arange(2), np.arange(4), np.arange(32),
+                                         np.arange(np_ // 8), np.arange(2),
+                                         np.arange(n1 // np_), indexing="ij")
+    k2 = 32 * w + 8 * warp + lane // 4
+    b = h * np_ + 8 * i + 2 * (lane % 4) + e
+    row = 64 * w + 16 * warp + lane // 4          # the Yr row of the tab1 tile
+    assert np.array_equal(row // 16 * 8 + row % 8, k2)
+    return k2.ravel(), b.ravel()
+
+
+def stage2_fragments(n1, nyquist):
+    """(k2 row, k1) of each stage-2 (Zr, Zi) pair the drain squares:
+    warpgroup w's columns w n1/2 .. (k1 = n1/4 w + 4 i + tig), rows 16 warp +
+    g + 8 hh; with ``nyquist`` (a frame's first unit) warpgroup 2's extra
+    8 columns, of which warp 0's lane 0 holds bin n / 2 (k1 = n1 / 2, k2 = 0)."""
+    nb = n1 // 2
+    w, warp, lane, i, hh = np.meshgrid(np.arange(2), np.arange(4), np.arange(32),
+                                       np.arange(nb // 8), np.arange(2), indexing="ij")
+    k1 = nb // 2 * w + 4 * i + lane % 4
+    k2 = 16 * warp + lane // 4 + 8 * hh
+    k1, k2 = k1.ravel(), k2.ravel()
+    if nyquist:
+        k1, k2 = np.append(k1, n1 // 2), np.append(k2, 0)
+    return k2, k1
+
+
+@pytest.mark.parametrize("n_fft", [2048, 4096, 8192, 16384, 32768])
+def test_fused_fragments_cover_every_element_once(n_fft):
+    """At every fused size and shape: stage 1's epilogue writes every (k2, b)
+    of a unit's T once over its passes; stage 2's drain every one-sided bin
+    of the unit's 64 k2 rows once (and bin n / 2 in a frame's first unit); T's
+    image, each unit's 64 rows, holds every (chunk, k2, k) once."""
+    n1 = 1 << ((n_fft.bit_length() - 1) // 2)
+    for passes in [(a, b) for a in (1, 3, 4, 6) for b in (1, 3, 4, 6)]:
+        shape = fused_shape(n1, passes)
+        assert shape is not None and n1 % shape["np"] == 0 and shape["slot"] % 1024 == 0
+        k2, b = stage1_fragments(n1, shape["np"])
+        seen = np.zeros((64, n1), int)
+        np.add.at(seen, (k2, b), 1)
+        assert (seen == 1).all()
+        c2 = kernels._tier_chunks(passes[1])
+        kt2 = 2 * n1 // 64
+        idx = plane_index(np.arange(c2)[:, None, None], np.arange(64)[:, None],
+                          np.arange(2 * n1)[None, :], kt2, 64)
+        assert np.array_equal(np.sort(idx.ravel()), np.arange(c2 * kt2 * 64 * 64))
+        for nyquist in (False, True):
+            k2, k1 = stage2_fragments(n1, nyquist)
+            bins = np.zeros((64, n1 // 2 + 1), int)
+            np.add.at(bins, (k2, k1), 1)
+            assert (bins[:, : n1 // 2] == 1).all()
+            assert bins[0, n1 // 2] == int(nyquist) and bins[1:, n1 // 2].sum() == 0
+
+
+def fused_model(xw, n, passes, kind=0):
+    """tier_fused_kernel (K1t, K3t) on a group of windowed frames ``xw`` (g,
+    n): the split pass's X planes, then each unit's two stages as the kernel
+    takes them.  Returns the (g, n/2 + 1) power (every bin written once), each
+    frame's f32 T (g n2, 2 n1) and its chunks as read back from each unit's T
+    image."""
+    inner, outer = passes
+    flat_x, _, s = split_model(xw, n, False, passes)
+    n1, n2, c1, c2, g = s["n1"], s["n2"], s["c1"], s["c2"], s["g"]
+    np_ = fused_shape(n1, passes)["np"]
+    w_img, v_img, tw = kernels._gemm_images(n, False, c1, c2, s["tab1_rows"], s["tab2_rows"], CPU)
+    tab1 = read_planes(w_img.float().numpy().astype(np.float64), c1, s["tab1_rows"], s["k1"])
+    x = read_planes(flat_x, c1, s["x_rows"], s["k1"], g * n1)
+    tab2 = read_planes(v_img.float().numpy().astype(np.float64), c2, s["tab2_rows"], s["k2"])
+    tw = tw.numpy()
+    kt2 = 2 * n1 // 64
+    n_blk = n2 // 64
+    out = np.full((g, n // 2 + 1), np.nan)
+    written = np.zeros(out.shape, int)
+    t_f32 = np.full((g * n2, 2 * n1), np.nan, np.float32)
+    t_chunks = np.full((c2, g * n2, 2 * n1), np.nan)
+    for f in range(g):
+        for blk in range(n_blk):
+            k0 = 64 * blk
+            a = tab1[:, 128 * blk:128 * blk + 128]            # the unit's Yr, Yi rows
+            image = np.full(c2 * kt2 * 64 * 64, np.nan)
+            for h in range(n1 // np_):
+                b = x[:, f * n1 + h * np_:f * n1 + (h + 1) * np_]
+                acc = np.zeros((128, np_), np.float32)
+                for kt in range(n2 // 64):                  # a partial a 64-deep k tile
+                    ks = slice(64 * kt, 64 * kt + 64)
+                    part = f32(sum(a[ca][:, ks] @ b[cb][:, ks].T for ca, cb in TERMS[inner]))
+                    acc = f32(acc + part)
+                k2l, bb = stage1_fragments(n1, np_)
+                keep = bb // np_ == h
+                k2l, bb = k2l[keep], bb[keep]
+                row = 64 * (k2l // 32) + 16 * (k2l % 32 // 8) + k2l % 8
+                yr, yi = acc[row, bb - h * np_], acc[row + 8, bb - h * np_]
+                twr, twi = tw[k0 + k2l, bb, 0], tw[k0 + k2l, bb, 1]
+                tr = f32(f32(yr * twr) - f32(yi * twi))
+                ti = f32(f32(yr * twi) + f32(yi * twr))
+                for k, v in ((bb, tr), (n1 + bb, ti)):
+                    t_f32[f * n2 + k0 + k2l, k] = v
+                    for c, chunk in enumerate(chunks(v, c2)):
+                        image[plane_index(c, k2l, k, kt2, 64)] = chunk
+            t = read_planes(image, c2, 64, 2 * n1)            # as stage 2's descriptors read it
+            t_chunks[:, f * n2 + k0:f * n2 + k0 + 64] = t
+            acc2 = np.zeros((64, n1 + 8), np.float32)
+            for kt in range(kt2):                           # one running sum over 2 n1
+                ks = slice(64 * kt, 64 * kt + 64)
+                acc2 = f32(acc2 + sum(t[ca][:, ks] @ tab2[cb][:n1 + 8, ks].T
+                                      for ca, cb in TERMS[outer]))
+            k2l, k1 = stage2_fragments(n1, blk == 0)
+            zr, zi = acc2[k2l, 2 * k1], acc2[k2l, 2 * k1 + 1]
+            power = f32(f32(zr * zr) + f32(zi * zi))
+            bins = np.where(k1 == n1 // 2, n // 2, n2 * k1 + k0 + k2l)
+            out[f, bins] = power
+            np.add.at(written, (f, bins), 1)
+    assert (written == 1).all()
+    return out, t_f32, t_chunks, s
+
+
+FUSED_CASES = [(2048, "bf16x3", 0), (2048, "bf16x6", 1), (2048, ("bf16x1", "bf16x3"), 2),
+               (8192, "bf16x4", 0), (8192, "bf16x1", 2), (32768, "bf16x3", 0),
+               (32768, "bf16x6", 1), (32768, ("bf16x6", "bf16x4"), 2),
+               (32768, ("bf16x3", "bf16x6"), 0)]
+
+
+@pytest.mark.parametrize("n_fft, precision, kind", FUSED_CASES, ids=str)
+def test_model_of_the_fused_route_matches_the_plain_version(n_fft, precision, kind):
+    """K1t's framing (kind 0) and K3t's float32 (1) and int16 rows (2)
+    through the split pass and the fused kernel's model, at n1 32, 64 and 128
+    with one pass (np = n1) or, at a 6-pass inner stage, several: T's chunks
+    as stage 2 reads them equal split_bf16 of the twiddled f32 T, which is
+    within 2e-6 x its peak of the plain version's stage 1; every bin written
+    once, within 5e-6 x the frame's peak of the plain version (1.5e-3 where
+    the outer stage is bf16x1)."""
+    passes = kernels.tier_passes(precision)
+    xw = windowed_frames(kind, n_fft, n_fft + kind)
+    got, t, t_chunks, s = fused_model(xw, n_fft, passes)
+    for c, chunk in enumerate(chunks(t, s["c2"])):
+        assert np.array_equal(t_chunks[c], chunk)
+    tr, ti = kernels._tier_inner_plain(torch.from_numpy(xw), n_fft, passes[0])
+    want_t = np.concatenate([tr.numpy(), ti.numpy()], axis=-1).reshape(t.shape)
+    assert np.abs(t - want_t).max() <= 2e-6 * np.abs(want_t).max()
+    want = kernels._tier_power_plain(torch.from_numpy(xw), n_fft, passes).double().numpy()
+    tol = 1.5e-3 if passes[1] == 1 else 5e-6
+    peak = np.abs(want).max(axis=-1, keepdims=True)
+    assert (np.abs(got - want) <= tol * peak).all()
+
+
+@pytest.mark.parametrize("n_fft, precision", [(2048, "bf16x3"), (8192, "bf16x1"),
+                                              (16384, ("bf16x6", "bf16x4")), (32768, "bf16x3")],
+                         ids=str)
+def test_model_of_k5t_reads_the_power_k1t_writes(n_fft, precision):
+    """K5t is K1t's route, then K2: K2's band sums (segments of 256 bins in
+    the table's order, each band its segments' sum) of the fused route's
+    power, as the model writes it, are K2's plain version of that power
+    within 1e-4 dB, and that power is K1t's plain version within 5e-6 x the
+    frame's peak."""
+    passes = kernels.tier_passes(precision)
+    xw = windowed_frames(0, n_fft, 3)
+    power, _, _, _ = fused_model(xw, n_fft, passes)
+    plain = kernels._tier_power_plain(torch.from_numpy(xw), n_fft, passes).double().numpy()
+    tol = 1.5e-3 if passes[1] == 1 else 5e-6
+    assert (np.abs(power - plain) <= tol * np.abs(plain).max(axis=-1, keepdims=True)).all()
+    cfg = kernels.SpectrogramConfig(working_sample_rate=int(0.75 * n_fft / 0.66))
+    assert cfg.nfft == n_fft
+    bands = kernels.mel_bands(cfg, CPU)
+    w = bands.weights.numpy().astype(np.float64)
+    sums = np.array([[(power[f, s0:s0 + cnt] * w[off:off + cnt]).sum()
+                      for s0, cnt, off, _ in bands.segments.numpy()]
+                     for f in range(power.shape[0])])
+    first = bands.band_first.numpy()
+    mel = np.stack([sums[:, first[b]:first[b + 1]].sum(axis=1) for b in range(bands.n_mels)], 1)
+    got = 10 * np.log10(np.maximum(mel, 1e-10))
+    want = kernels.mel_log_plain(torch.from_numpy(power).double(), bands.dense.double()).numpy()
+    assert np.abs(got - want).max() <= 1e-4
+
+
+class _FakePlanLibrary:
+    """The kernel library's plan entries as a card would answer them: the
+    fused route where featurizer.cu's fused_route takes the size and passes
+    (this file's models of it and of fused_shape), with arbitrary marks in
+    the keys no model here computes."""
+
+    def sed_tier_fused_plan(self, log2_n, inner, outer, frames, device, values):
+        n1 = 1 << (log2_n // 2)
+        shape = fused_shape(n1, (inner, outer))
+        got = [0] * 11
+        if shape is not None:
+            got = [int(fused_route(n1, (inner, outer))), frames, 1000 + log2_n, 0, 0, 288,
+                   shape["smem"], 64, shape["np"], shape["slots"], 132]
+        for i, v in enumerate(got):
+            values[i] = v
+        return 0
+
+    def sed_tier_gemm_plan(self, log2_n1, log2_n2, packed, inner, outer, frames, values):
+        for i, v in enumerate([frames, 0, 0, 0, 0, 111_000, 222_000]):
+            values[i] = v
+        return 0
+
+    def sed_mel_plan(self, rows, n_seg, n_mels, device, rows_at_once, smem):
+        rows_at_once._obj.value, smem._obj.value = 4, 333
+        return 0
+
+
+@pytest.mark.parametrize("log2_n", kernels.TIER_LOG2_N)
+def test_launch_plan_reads_the_fused_route_from_the_library(log2_n, monkeypatch):
+    """K1t's and K3t's route and shared memory at every size of TIER_LOG2_N
+    and every pass count are the library's answer (sed_tier_fused_plan), not
+    a Python layout, and K5t follows K1t: with a card's answers in place,
+    launch_plan reports them (the fused route, the split pass then
+    tier_fused_kernel, where fused_route takes the size and passes; the tier
+    GEMMs elsewhere; K5t K1t's kernels, the fused one under its own name,
+    then K2); without the passes, the route where every pass count agrees,
+    else None; without a card, None."""
+    n_fft = 1 << log2_n
+    plan = kernels.launch_plan(n_fft, 10)
+    for name in ("wave_dft_power_bf16", "frames_dft_power_bf16", "wave_stft_mel_log_bf16"):
+        if log2_n in kernels.TIER_RANGES[name]:
+            assert set(plan[name].values()) == {None}
+    assert not hasattr(kernels, "tier_smem_bytes")
+    kernels._fused_plan.cache_clear()
+    kernels._gemm_plan.cache_clear()
+    monkeypatch.setattr(kernels, "_library", lambda: _FakePlanLibrary())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    every = [(a, b) for a in (1, 3, 4, 6) for b in (1, 3, 4, 6)]
+    try:
+        plans = {q: kernels.launch_plan(n_fft, 10, passes=q) for q in [None] + every}
+    finally:
+        kernels._fused_plan.cache_clear()
+        kernels._gemm_plan.cache_clear()
+    n1 = 1 << (log2_n // 2)
+    routes = {q: "fused" if fused_route(n1, q) else "gemm" for q in every}
+    agreed = set(routes.values()).pop() if len(set(routes.values())) == 1 else None
+    for q, plan in plans.items():
+        route = routes[q] if q else agreed
+        k1t = plan["wave_dft_power_bf16"]
+        for name in ("wave_dft_power_bf16", "frames_dft_power_bf16", "wave_stft_mel_log_bf16"):
+            if log2_n not in kernels.TIER_RANGES[name]:
+                continue
+            p = plan[name]
+            if route is None:
+                assert set(p.values()) == {None}
+            elif name == "wave_stft_mel_log_bf16":
+                assert p["route"] == "chain" and p["cluster"] == 1
+                assert p["kernels"] == tuple(name if k == "wave_dft_power_bf16" else k
+                                             for k in k1t["kernels"]) + ("mel_log",)
+            elif route == "fused":
+                assert p["route"] == "fused" and p["kernels"] == ("tier_split", name)
+                assert p["smem"] == max(fused_shape(n1, r)["smem"]
+                                        for r in ([q] if q else every)) <= 232448
+                assert p["cluster"] == 1 and plan["tier_split"]["route"] == "one"
+            else:
+                assert p["route"] == "gemm" and p["kernels"] == kernels.GEMM_KERNELS
